@@ -1,0 +1,120 @@
+"""Weight bridge between flax parameter trees and the port's state_dicts.
+
+``from_flax`` maps every leaf of a flax tree (``{"params": {...}}`` or the
+inner dict, numpy or jax arrays) to the port's parameter of the same path.
+The module's own name decides the rule:
+
+* ``Dense`` (``question_emb``, ``attn_linear``, ``question_linear{i}``,
+  ``cq_linear``, ``ca_linear``, fusion ``r``/``g``, ``score_func``,
+  ``e2e_linear{s}``, ``attn_out_{i}``, ``ffn1_{i}``, ``ffn2_{i}``): kernel
+  ``[in, out]`` -> ``nn.Linear.weight`` ``[out, in]``;
+* ``DenseGeneral`` (``q_{i}``, ``k_{i}``, ``v_{i}``): kernel ``[hidden,
+  heads, head_dim]`` -> ``[hidden, hidden]`` linear, bias ``[heads,
+  head_dim]`` -> ``[hidden]``;
+* ``Embed`` (``tok_emb``, ``pos_emb``): ``embedding`` -> ``weight``;
+* ``LayerNorm`` (``emb_ln``, ``ln1_{i}``, ``ln2_{i}``): ``scale`` ->
+  ``weight``;
+* ``self.param`` leaves (``rel_linear{s}``, ``kb_self_linear``, their
+  ``_bias``, ``type_emb``) keep their layout.
+
+A leaf that no rule names raises ``KeyError``; loading the result with
+``load_state_dict`` (strict) catches parameters left unfilled. ``to_flax``
+is the inverse.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict
+
+import numpy as np
+import torch
+
+_KINDS = (
+    ("raw", re.compile(r"rel_linear\d+(_bias)?|kb_self_linear(_bias)?|type_emb")),
+    ("dense_general", re.compile(r"[qkv]_\d+")),
+    ("dense", re.compile(r"question_emb|attn_linear|question_linear\d+|cq_linear|"
+                         r"ca_linear|r|g|score_func|e2e_linear\d+|attn_out_\d+|"
+                         r"ffn[12]_\d+")),
+    ("embed", re.compile(r"tok_emb|pos_emb")),
+    ("layer_norm", re.compile(r"emb_ln|ln[12]_\d+")),
+)
+_LEAVES = {  # kind -> {flax leaf: torch leaf}
+    "dense": {"kernel": "weight", "bias": "bias"},
+    "dense_general": {"kernel": "weight", "bias": "bias"},
+    "embed": {"embedding": "weight"},
+    "layer_norm": {"scale": "weight", "bias": "bias"},
+}
+
+
+def _kind(name: str) -> str:
+    for kind, pat in _KINDS:
+        if pat.fullmatch(name):
+            return kind
+    return ""
+
+
+def _flatten(tree, prefix=""):
+    for k, v in tree.items():
+        path = f"{prefix}.{k}" if prefix else k
+        if hasattr(v, "items"):
+            yield from _flatten(v, path)
+        else:
+            yield path, np.asarray(v, np.float32)
+
+
+def from_flax(params) -> Dict[str, torch.Tensor]:
+    """flax parameter tree -> the port's state_dict (float32 CPU tensors)."""
+    if "params" in params:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(params):
+        module, _, leaf = path.rpartition(".")
+        if _kind(leaf) == "raw":
+            name, val = path, arr
+        else:
+            kind = _kind(module.rpartition(".")[2])
+            tleaf = _LEAVES.get(kind, {}).get(leaf)
+            if tleaf is None:
+                raise KeyError(f"bridge: no rule for flax leaf {path!r} {arr.shape}")
+            name = f"{module}.{tleaf}"
+            if kind == "dense_general":
+                val = arr.reshape(arr.shape[0], -1).T if leaf == "kernel" else arr.reshape(-1)
+            elif kind == "dense" and leaf == "kernel":
+                val = arr.T
+            else:
+                val = arr
+        out[name] = torch.from_numpy(np.array(val, np.float32))  # a writable copy
+    return out
+
+
+def to_flax(state_dict, heads: int = 0) -> dict:
+    """The port's state_dict -> ``{"params": tree}`` of numpy arrays.
+    ``heads``: attention heads of a transformer encoder in the dict (its
+    q/k/v linears become DenseGeneral kernels)."""
+    tree: dict = {}
+    for name, t in state_dict.items():
+        arr = t.detach().float().cpu().numpy()
+        module, _, leaf = name.rpartition(".")
+        if _kind(leaf) == "raw":
+            path, val = name, arr
+        else:
+            kind = _kind(module.rpartition(".")[2])
+            fleaf = {v: k for k, v in _LEAVES.get(kind, {}).items()}.get(leaf)
+            if fleaf is None:
+                raise KeyError(f"bridge: no rule for torch parameter {name!r}")
+            path, val = f"{module}.{fleaf}", arr
+            if kind == "dense_general":
+                if heads <= 0:
+                    raise ValueError(f"bridge: {name} needs the head count")
+                hd = arr.shape[0] // heads
+                val = (arr.T.reshape(arr.shape[1], heads, hd) if leaf == "weight"
+                       else arr.reshape(heads, hd))
+            elif kind == "dense" and leaf == "weight":
+                val = arr.T
+        node = tree
+        *parents, last = path.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = np.ascontiguousarray(val)
+    return {"params": tree}

@@ -1,0 +1,39 @@
+"""Loss functions of the GNN models (reference: gnn/models/base_model.py:187-199,
+rearev.py:227-233), ported from ``gnn_rag_tpu.models.base``."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def kl_loss_vec(pred_dist: torch.Tensor, answer_dist: torch.Tensor) -> torch.Tensor:
+    """Elementwise KL(answer_prob || pred) with answer-count normalisation
+    (base_model.py:193-199). Returns [B, E]; 0*log0 := 0."""
+    answer_len = answer_dist.sum(dim=1, keepdim=True)
+    answer_len = torch.where(answer_len == 0, torch.ones_like(answer_len),
+                             answer_len)
+    answer_prob = answer_dist / answer_len
+    log_pred = torch.log(pred_dist + 1e-8)
+    pos = answer_prob > 0
+    safe_log_ans = torch.log(torch.where(pos, answer_prob,
+                                         torch.ones_like(answer_prob)))
+    return torch.where(pos, answer_prob * (safe_log_ans - log_pred),
+                       torch.zeros_like(answer_prob))
+
+
+def bce_loss_vec(pred_logits: torch.Tensor, answer_dist: torch.Tensor) -> torch.Tensor:
+    """BCE-with-logits against 0.9-smoothed binary labels (base_model.py:187-191)."""
+    labels = (answer_dist > 0).to(pred_logits.dtype) * 0.9
+    return -(labels * F.logsigmoid(pred_logits)
+             + (1.0 - labels) * F.logsigmoid(-pred_logits))
+
+
+def calc_loss_label(pred: torch.Tensor, answer_dist: torch.Tensor,
+                    loss_type: str = "kl") -> torch.Tensor:
+    """Full loss with no-answer filtering: sum(loss * valid) / B
+    (rearev.py:156-160, 227-233)."""
+    case_valid = (answer_dist.sum(dim=1, keepdim=True) > 0).to(pred.dtype)
+    vec = (kl_loss_vec(pred, answer_dist) if loss_type == "kl"
+           else bce_loss_vec(pred, answer_dist))
+    return (vec * case_valid).sum() / vec.shape[0]

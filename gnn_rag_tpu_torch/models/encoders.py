@@ -1,0 +1,200 @@
+"""NN modules of the ReaRev slice: attention pooling, gated fusion, query
+reformulation, relation-typed entity init, instruction generation and the
+frozen question/relation encoder.
+
+Ports of ``gnn_rag_tpu.models.encoders`` (reference: gnn/modules/
+query_update.py:6-61, layer_init.py:25-62, question_encoding/*). Submodule
+and parameter names follow the flax modules so that ``bridge`` maps flax
+parameter trees by name. Parameters that flax creates with ``self.param``
+keep flax's ``[in, out]`` layout; ``nn.Linear`` weights are ``[out, in]``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.gate_scatter import gate_scatter_both
+from ..ops.softmax import VERY_NEG_NUMBER
+
+LN_EPS = 1e-6   # flax.linen.LayerNorm default (torch's is 1e-5)
+
+
+def flax_like_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise every parameter with flax's default families, drawn from
+    ``generator``: lecun_normal (truncated at 2 sigma, fan-in scaled) for
+    dense kernels, zeros for biases, flax's embedding init (normal with std
+    1/sqrt(features)) for embeddings, ones/zeros for LayerNorm."""
+    def lecun_(w: torch.Tensor, fan_in: int):
+        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+        nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        w.mul_(std)
+
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Linear):
+                lecun_(m.weight, m.in_features)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.Embedding):
+                nn.init.normal_(m.weight, 0.0, 1.0 / math.sqrt(m.embedding_dim),
+                                generator=generator)
+            elif isinstance(m, nn.LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            for name, p in m.named_parameters(recurse=False):
+                if isinstance(m, (nn.Linear, nn.Embedding, nn.LayerNorm)):
+                    continue
+                if name.endswith("_bias") or p.dim() == 1:
+                    p.zero_()
+                else:                       # [in, out] kernel
+                    lecun_(p, p.shape[0])
+    return module
+
+
+class AttnEncoder(nn.Module):
+    """Masked attention pooling over a token axis (query_update.py:46-61)."""
+
+    def __init__(self, d_hid: int):
+        super().__init__()
+        self.attn_linear = nn.Linear(d_hid, 1, bias=False)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        # x: [..., L, D]; mask: [..., L]
+        attn = self.attn_linear(x)
+        attn = attn - (1.0 - mask[..., None]) * 1e8      # ref uses 1e8 here
+        attn = torch.softmax(attn, dim=-2)
+        return (x * attn).sum(dim=-2)
+
+
+class Fusion(nn.Module):
+    """Gated residual fusion (query_update.py:6-16)."""
+
+    def __init__(self, d_hid: int):
+        super().__init__()
+        self.r = nn.Linear(3 * d_hid, d_hid, bias=False)
+        self.g = nn.Linear(3 * d_hid, d_hid, bias=False)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        cat = torch.cat([x, y, x - y], dim=-1)
+        g = torch.sigmoid(self.g(cat))
+        return g * self.r(cat) + (1.0 - g) * x
+
+
+class QueryReform(nn.Module):
+    """Instruction reformulation from the seed entities' GNN state
+    (query_update.py:18-44; only the seed-retrieve branch feeds the output)."""
+
+    def __init__(self, h_dim: int):
+        super().__init__()
+        self.fusion = Fusion(h_dim)
+
+    def forward(self, q_node: torch.Tensor, ent_emb: torch.Tensor,
+                seed_info: torch.Tensor) -> torch.Tensor:
+        # q_node: [B, D]; ent_emb: [B, E, D]; seed_info: [B, E]
+        seed_retrieve = torch.einsum("be,bed->bd", seed_info, ent_emb)
+        return self.fusion(q_node, seed_retrieve)
+
+
+class TypeLayer(nn.Module):
+    """Entity init from incident relation types (layer_init.py:25-62):
+    relu(scatter_tails(W r + b) + scatter_heads(W r + b)), both directions in
+    one gate-scatter launch with unit instructions and no relu inside."""
+
+    def __init__(self, din: int, entity_dim: int):
+        super().__init__()
+        self.kb_self_linear = nn.Parameter(torch.empty(din, entity_dim))
+        self.kb_self_linear_bias = nn.Parameter(torch.empty(entity_dim))
+
+    def forward(self, rel_features: torch.Tensor, layout,
+                num_entities: int) -> torch.Tensor:
+        D = self.kb_self_linear.shape[1]
+        rl_tab = rel_features @ self.kb_self_linear + self.kb_self_linear_bias
+        B = layout.fwd.rels.shape[0]
+        ones_ins = torch.ones((B, 1, D), dtype=rl_tab.dtype, device=rl_tab.device)
+        prior_f = (layout.fwd.scatter >= 0).to(rl_tab.dtype)
+        prior_i = (layout.inv.scatter >= 0).to(rl_tab.dtype)
+        out_f, out_i = gate_scatter_both(
+            rl_tab[layout.fwd.rels.long()], rl_tab[layout.inv.rels.long()],
+            ones_ins, prior_f, prior_i, layout, num_entities, apply_relu=False)
+        return torch.relu(out_f + out_i)
+
+
+class InstructionDecoder(nn.Module):
+    """Instruction-attention decoder (base_encoder.py:82-101): num_ins
+    instruction vectors by iterated attention over the question tokens, each
+    conditioned on the previous instruction."""
+
+    def __init__(self, entity_dim: int, num_ins: int):
+        super().__init__()
+        self.num_ins = num_ins
+        self.cq_linear = nn.Linear(4 * entity_dim, entity_dim)
+        self.ca_linear = nn.Linear(entity_dim, 1)
+        for i in range(num_ins):
+            self.add_module(f"question_linear{i}", nn.Linear(entity_dim, entity_dim))
+
+    def forward(self, query_hidden: torch.Tensor, query_node: torch.Tensor,
+                query_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        # query_hidden: [B, L, D]; query_node: [B, D]; query_mask: [B, L]
+        ins = torch.zeros_like(query_node)
+        instructions, attns = [], []
+        for i in range(self.num_ins):
+            q_i = getattr(self, f"question_linear{i}")(query_node)
+            cq = self.cq_linear(torch.cat([ins, q_i, q_i - ins, q_i * ins], dim=-1))
+            ca = self.ca_linear(cq[:, None, :] * query_hidden)        # [B, L, 1]
+            attn = torch.softmax(
+                ca + (1.0 - query_mask[..., None]) * VERY_NEG_NUMBER, dim=1)
+            ins = (attn * query_hidden).sum(dim=1)
+            instructions.append(ins)
+            attns.append(attn)
+        return torch.stack(instructions, dim=1), torch.stack(attns, dim=1)
+
+
+class TransformerQuestionEncoder(nn.Module):
+    """BERT-style encoder (embeddings + post-LN blocks) with the flax
+    module's widths and numerics: LayerNorm eps 1e-6, exact GELU, additive
+    mask bias ``(1 - mask) * VERY_NEG_NUMBER``, BERT positions clamped to
+    ``max_len - 1``. ``q_/k_/v_`` are ``[hidden, hidden]`` linears holding
+    the flax ``[hidden, heads, head_dim]`` DenseGeneral kernels."""
+
+    def __init__(self, vocab_size: int = 30522, hidden: int = 384,
+                 layers: int = 6, heads: int = 12, intermediate: int = 1536,
+                 max_len: int = 512):
+        super().__init__()
+        self.hidden, self.layers, self.heads = hidden, layers, heads
+        self.max_len = max_len
+        self.tok_emb = nn.Embedding(vocab_size, hidden)
+        self.pos_emb = nn.Embedding(max_len, hidden)
+        self.type_emb = nn.Parameter(torch.empty(hidden))
+        self.emb_ln = nn.LayerNorm(hidden, eps=LN_EPS)
+        for i in range(layers):
+            for name in ("q", "k", "v", "attn_out"):
+                self.add_module(f"{name}_{i}", nn.Linear(hidden, hidden))
+            self.add_module(f"ln1_{i}", nn.LayerNorm(hidden, eps=LN_EPS))
+            self.add_module(f"ffn1_{i}", nn.Linear(hidden, intermediate))
+            self.add_module(f"ffn2_{i}", nn.Linear(intermediate, hidden))
+            self.add_module(f"ln2_{i}", nn.LayerNorm(hidden, eps=LN_EPS))
+
+    def forward(self, tokens: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        B, L = tokens.shape
+        H, hd = self.heads, self.hidden // self.heads
+        pos = torch.arange(L, device=tokens.device).clamp(max=self.max_len - 1)
+        x = self.tok_emb(tokens.long()) + self.pos_emb(pos)[None] + self.type_emb
+        x = self.emb_ln(x)
+        bias = (1.0 - mask[:, None, None, :]) * VERY_NEG_NUMBER
+        for i in range(self.layers):
+            lyr = lambda name: getattr(self, f"{name}_{i}")  # noqa: E731
+            q = lyr("q")(x).reshape(B, L, H, hd)
+            k = lyr("k")(x).reshape(B, L, H, hd)
+            v = lyr("v")(x).reshape(B, L, H, hd)
+            scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+            probs = torch.softmax(scores + bias, dim=-1)
+            ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, L, self.hidden)
+            x = lyr("ln1")(x + lyr("attn_out")(ctx))
+            h = lyr("ffn2")(F.gelu(lyr("ffn1")(x), approximate="none"))
+            x = lyr("ln2")(x + h)
+        return x

@@ -1,0 +1,77 @@
+"""Frozen question/relation LM encoding outside the model forward.
+
+Port of ``gnn_rag_tpu.models.frozen_lm.FrozenLM.encode`` and of the frozen-LM
+part of ``gnn_rag_tpu.cli.assemble`` (cli.py:216-236): the frozen encoder
+runs once over relation surface forms and questions, and the model consumes
+the hidden states (reference: bert_encoder.py:89-109 with lm_frozen=1,
+base_model.py:168-176).
+
+Weights come from a seeded random init (MiniLM widths by default) or from a
+``state_dict`` (e.g. ``bridge.from_flax`` of the JAX encoder's params); no
+HuggingFace checkpoint is read.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .encoders import TransformerQuestionEncoder, flax_like_init_
+
+
+class FrozenLM:
+    def __init__(self, word_dim: int = 384, vocab_size: int = 30522,
+                 layers: int = 6, heads: int = 12,
+                 intermediate: Optional[int] = None, max_len: int = 512,
+                 seed: int = 0, state_dict=None, device="cpu"):
+        self.device = torch.device(device)
+        self.module = TransformerQuestionEncoder(
+            vocab_size=vocab_size, hidden=word_dim, layers=layers, heads=heads,
+            intermediate=intermediate or 4 * word_dim, max_len=max_len)
+        if state_dict is None:
+            flax_like_init_(self.module, torch.Generator().manual_seed(seed))
+            self.weight_source = f"random-init(seed={seed})"
+        else:
+            self.module.load_state_dict(state_dict)
+            self.weight_source = "state_dict"
+        self.module.to(self.device).eval().requires_grad_(False)
+
+    @torch.inference_mode()
+    def encode(self, tokens: np.ndarray, mask: Optional[np.ndarray] = None,
+               pad_id: int = 0, batch: int = 256) -> np.ndarray:
+        """tokens [N, L] -> hidden [N, L, D] (host numpy, chunked)."""
+        tokens = np.asarray(tokens, dtype=np.int32)
+        if mask is None:
+            mask = (tokens != pad_id).astype(np.float32)
+        outs = []
+        for i in range(0, len(tokens), batch):
+            tok = torch.from_numpy(tokens[i:i + batch]).to(self.device)
+            m = torch.from_numpy(np.asarray(mask[i:i + batch], np.float32)).to(self.device)
+            outs.append(self.module(tok, m).float().cpu().numpy())
+        return np.concatenate(outs, axis=0) if outs else np.zeros(
+            tokens.shape + (self.module.hidden,), np.float32)
+
+
+def encode_relations(lm: FrozenLM, rel_tokens: np.ndarray,
+                     rel_tokens_inv: np.ndarray, pad_id: int
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Relation surface-form states: (rel_hidden, rel_hidden_inv,
+    rel_text_mask), each over ``[num_kb_relation + 1, Lr]`` (cli.py:216-219)."""
+    return (lm.encode(rel_tokens, pad_id=pad_id),
+            lm.encode(rel_tokens_inv, pad_id=pad_id),
+            (rel_tokens != pad_id).astype(np.float32))
+
+
+def encode_questions(lm: FrozenLM, ds, pad_id: int, max_len: int = 64) -> None:
+    """Set ``ds.q_hidden`` to each question's frozen-LM token states, with
+    the questions padded or cut to ``max_len`` tokens for the encoder
+    (cli.py:226-236)."""
+    if not ds.records:
+        ds.q_hidden = []
+        return
+    hid = lm.encode(np.stack([np.pad(r.q_token_ids,
+                                     (0, max(0, max_len - len(r.q_token_ids))))
+                              [:max_len] for r in ds.records]), pad_id=pad_id)
+    ds.q_hidden = [hid[i, :len(r.q_token_ids)] for i, r in enumerate(ds.records)]

@@ -1,0 +1,175 @@
+"""ReaRev — instruction-conditioned iterative GNN reasoner, eval forward.
+
+Port of ``gnn_rag_tpu.models.rearev`` (reference: gnn/models/ReaRev/
+rearev.py:19-243, gnn/modules/kg_reasoning/reasongnn.py) on the kernel-layout
+path: encode question -> num_ins instructions -> num_iter outer iterations of
+(num_gnn GNN steps from the seed distribution + instruction reformulation)
+-> masked softmax answer distribution; KL loss against the answers.
+
+Each GNN step projects the relation features of every fact slot with
+``rel_linear{s}`` and runs one gate-scatter launch for both message
+directions (``ops.gate_scatter.gate_scatter_both``); the neighbour features
+are interleaved fwd_0, inv_0, fwd_1, ... as the reference does
+(reasongnn.py:150-156).
+
+Only the configuration of the WebQSP/CWQ ReaRev runs (frozen LM with
+relation texts, layout path, no fact dropout at eval); every other option
+raises ``NotImplementedError``. The forward needs no gradient: call it under
+``torch.inference_mode()``.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from ..ops.gate_scatter import gate_scatter_both
+from ..ops.segment import gather_entities_to_facts
+from ..ops.softmax import masked_softmax
+from . import base
+from .encoders import (AttnEncoder, InstructionDecoder, QueryReform, TypeLayer,
+                       flax_like_init_)
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class ReasonGNN(nn.Module):
+    """One stack of num_gnn reasoning steps (reasongnn.py:11-174)."""
+
+    def __init__(self, entity_dim: int, num_ins: int, num_gnn: int,
+                 compute_dtype: str = "float32"):
+        super().__init__()
+        D, J = entity_dim, num_ins
+        self.entity_dim, self.num_ins, self.num_gnn = D, J, num_gnn
+        self.cdt = _DTYPES[compute_dtype]
+        self.score_func = nn.Linear(D, 1)
+        for s in range(num_gnn):
+            self.register_parameter(f"rel_linear{s}", nn.Parameter(torch.empty(D, D)))
+            self.register_parameter(f"rel_linear{s}_bias", nn.Parameter(torch.empty(D)))
+            self.add_module(f"e2e_linear{s}", nn.Linear((1 + 2 * J) * D, D))
+
+    def forward(self, batch, ent_emb: torch.Tensor, curr_dist: torch.Tensor,
+                instructions: torch.Tensor, rel_features: torch.Tensor,
+                rel_features_inv: torch.Tensor, candidate_mask: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        B, E = curr_dist.shape
+        J, D = self.num_ins, self.entity_dim
+        layout = batch.layout
+        cdt = self.cdt
+        fact_rel_f = rel_features[layout.fwd.rels.long()].to(cdt)   # [B, Fp, D]
+        fact_rel_i = rel_features_inv[layout.inv.rels.long()].to(cdt)
+        valid_f = (layout.fwd.scatter >= 0).to(curr_dist.dtype)
+        valid_i = (layout.inv.scatter >= 0).to(curr_dist.dtype)
+        ins_c = instructions.to(cdt)
+        for step in range(self.num_gnn):
+            w = getattr(self, f"rel_linear{step}").to(cdt)
+            b = getattr(self, f"rel_linear{step}_bias").to(cdt)
+            # the prior of each direction is the current distribution at the
+            # fact's gather entity (rearev.py:125-126)
+            prior_f = gather_entities_to_facts(curr_dist, layout.fwd.gather) * valid_f
+            prior_i = gather_entities_to_facts(curr_dist, layout.inv.gather) * valid_i
+            out_f, out_i = gate_scatter_both(fact_rel_f @ w + b, fact_rel_i @ w + b,
+                                             ins_c, prior_f, prior_i, layout, E)
+            neighbors = torch.cat([out_f.reshape(B, E, J, 1, D),
+                                   out_i.reshape(B, E, J, 1, D)],
+                                  dim=3).reshape(B, E, 2 * J * D)
+            nxt = torch.cat([ent_emb, neighbors], dim=2)
+            ent_emb = torch.relu(getattr(self, f"e2e_linear{step}")(nxt))
+            score = self.score_func(ent_emb)[..., 0]
+            curr_dist = masked_softmax(score, candidate_mask, dim=1)
+        return curr_dist, ent_emb
+
+
+def check_supported(cfg) -> None:
+    """Raise ``NotImplementedError`` for any model option outside the ported
+    configuration (ReaRev, frozen transformer LM with relation texts, layout
+    path, KL/BCE loss)."""
+    unsupported = {
+        "model_name != ReaRev": cfg.model_name != "ReaRev",
+        "lm lstm": cfg.lm == "lstm",
+        "lm_frozen 0": not cfg.lm_frozen,
+        "pos_emb": cfg.pos_emb,
+        "norm_rel": cfg.norm_rel,
+        "normalized_gnn": cfg.normalized_gnn,
+        f"compute_dtype {cfg.compute_dtype}": cfg.compute_dtype not in _DTYPES,
+        f"loss_type {cfg.loss_type}": cfg.loss_type not in ("kl", "bce"),
+    }
+    bad = [k for k, v in unsupported.items() if v]
+    if bad:
+        raise NotImplementedError(
+            f"gnn_rag_tpu_torch runs the ReaRev serving configuration only; "
+            f"not ported: {', '.join(bad)}")
+
+
+class ReaRev(nn.Module):
+    """Full ReaRev model over a GraphBatch (eval forward)."""
+
+    def __init__(self, cfg, num_entity: int, num_relation: int, word_dim: int):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.num_entity = num_entity
+        self.num_relation = num_relation   # num_kb_relation
+        D = cfg.entity_dim
+        self.question_emb = nn.Linear(word_dim, D)         # bert_encoder.py:69
+        self.self_att_r = AttnEncoder(D)
+        self.instruction_decoder = InstructionDecoder(D, cfg.num_ins)
+        self.type_layer = TypeLayer(D, D)
+        self.reasoning = ReasonGNN(D, cfg.num_ins, cfg.num_gnn, cfg.compute_dtype)
+        # the reforms run between outer iterations only (as in flax, no
+        # parameters exist for them when num_iter == 1)
+        for j in range(cfg.num_ins if cfg.num_iter > 1 else 0):
+            self.add_module(f"reform{j}", QueryReform(D))
+
+    def forward(self, batch, rel_hidden: torch.Tensor,
+                rel_hidden_inv: torch.Tensor, rel_text_mask: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """batch: a GraphBatch of tensors with ``q_hidden`` and ``layout``;
+        rel_hidden[_inv]: [R+1, Lr, word_dim] frozen-LM relation token
+        states, rel_text_mask: [R+1, Lr]. Returns (loss, pred_top1, pred_dist)."""
+        cfg = self.cfg
+        if batch.q_hidden is None or batch.layout is None:
+            raise NotImplementedError("ReaRev needs precomputed q_hidden (frozen "
+                                      "LM) and the kernel layout")
+        E = batch.seed_dist.shape[1]
+
+        # question encoding: projected frozen-LM states, CLS as the node
+        # (bert_encoder.py:102-104)
+        query_hidden = self.question_emb(batch.q_hidden)
+        query_node = self.question_emb(batch.q_hidden[:, 0, :])
+
+        # relation features (rearev.py:91-111)
+        rel_features = self.self_att_r(self.question_emb(rel_hidden), rel_text_mask)
+        rel_features_inv = self.self_att_r(self.question_emb(rel_hidden_inv),
+                                           rel_text_mask)
+
+        instructions, _ = self.instruction_decoder(query_hidden, query_node,
+                                                   batch.q_mask)
+        ent_emb = self.type_layer(rel_features, batch.layout, E)
+        candidate_mask = batch.candidate_mask(self.num_entity)
+
+        # iterative reasoning (rearev.py:206-221)
+        pred_dist = batch.seed_dist
+        for t in range(cfg.num_iter):
+            pred_dist, ent_emb = self.reasoning(
+                batch, ent_emb, batch.seed_dist, instructions, rel_features,
+                rel_features_inv, candidate_mask)
+            if t < cfg.num_iter - 1:
+                instructions = torch.stack(
+                    [getattr(self, f"reform{j}")(instructions[:, j, :], ent_emb,
+                                                 batch.query_entities)
+                     for j in range(cfg.num_ins)], dim=1)
+
+        loss = base.calc_loss_label(pred_dist, batch.answer_dist, cfg.loss_type)
+        return loss, torch.argmax(pred_dist, dim=1), pred_dist
+
+
+def build_model(cfg, num_entity: int, num_kb_relation: int, *, word_dim: int,
+                seed: int = 0, device="cpu") -> ReaRev:
+    """ReaRev with flax-family random weights from ``seed``, on ``device``,
+    in eval mode (``cfg``: a ``gnn_rag_tpu.config.Config``)."""
+    model = ReaRev(cfg.model, num_entity, num_kb_relation, word_dim)
+    flax_like_init_(model, torch.Generator().manual_seed(seed))
+    return model.to(device).eval()

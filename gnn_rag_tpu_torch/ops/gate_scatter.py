@@ -1,0 +1,248 @@
+"""Gate-scatter: the message-passing kernel of ReaRev, for Hopper.
+
+For each direction d, sample b and fact slot f of the tile-sorted layout:
+
+    out[d, b, scatter[d,b,f], j*D:(j+1)*D] +=
+        act(vals[d,b,f] * ins[b,j]) * prior[d,b,f]
+
+with ``act`` = relu (or identity for TypeLayer), pad slots (``scatter < 0``)
+adding nothing, and the output j-major ``[ndir, B, E, J*D]`` in float32.
+
+Replaces the TPU kernels ``_fused_kernel_v4`` (gnn_rag_tpu/ops/pallas_mp.py:
+844, both directions in one launch), ``_fused_kernel_v4s`` (:1231, the
+per-direction / per-instruction tiers for large E) and ``_fused_kernel_v3``
+(:565, one direction, ``[B, J, E, D]`` output). On the TPU the three exist
+because the resident output block must fit a scoped-VMEM budget; on the GPU
+one kernel (``csrc/gate_scatter.cu``) covers every E: each thread block owns
+one (direction, sample, 128-entity tile) and accumulates it in shared
+memory, so there is no size tier to dispatch on.
+
+What bounds it on an H100: it reads B*Fp*D input values per direction and
+writes B*E*J*D floats, with one multiply-add per (fact, column), so it is
+bound by memory traffic and load latency, not arithmetic. The design keeps
+the J*D products out of device memory (the plain version below materialises
+a [ndir, B, Fp, J*D] float tensor and scatters it with atomics), writes each
+output element once, and needs no atomics, so its sums are deterministic.
+
+Numerics follow the TPU kernel (pallas_mp.py:872-889): ``vals * ins`` is
+formed in the input type, ``prior`` is rounded to the input type before it
+multiplies, and products are summed in float32.
+
+Dispatch: CPU tensors take ``gate_scatter_fwd_plain``; CUDA tensors launch
+the kernel or raise. The kernel is forward-only: a CUDA input that requires
+grad raises (the backward kernels come with training).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+from ..data.kernel_layout import TILE_E, TILE_F
+from .segment import batched_segment_sum
+
+# launches of the CUDA kernel (plain-version calls are not counted)
+launches = 0
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "csrc", "gate_scatter.cu")
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+BUILD_DIR = os.path.join(_REPO, "build", "gnn_rag_tpu_torch")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lib = None
+_lib_lock = threading.Lock()
+build_log = ""        # nvcc/ptxas output of the build this process made
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the gate-scatter kernel is built "
+                           "from csrc/gate_scatter.cu at first use on a CUDA "
+                           "machine")
+    return found
+
+
+def build() -> str:
+    """Compile ``csrc/gate_scatter.cu`` into ``build/gnn_rag_tpu_torch/``
+    (file name carries the source hash) unless that library exists; returns
+    its path."""
+    global build_log
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
+                                ).hexdigest()[:16]
+    out = os.path.join(BUILD_DIR, f"libgate_scatter_{digest}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
+                          capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp, out)
+    return out
+
+
+def _load():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            lib.gate_scatter_fwd.argtypes = ([ctypes.c_void_p] * 10
+                                             + [ctypes.c_int] * 8
+                                             + [ctypes.c_void_p])
+            lib.gate_scatter_fwd.restype = ctypes.c_int
+            lib.gate_scatter_error_string.argtypes = [ctypes.c_int]
+            lib.gate_scatter_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def gate_scatter_fwd_plain(vals, ins: torch.Tensor, prior, scatter,
+                           chunk_starts, apply_relu: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, same contract and numerics (see
+    ``gate_scatter_fwd``)."""
+    J = ins.shape[1]
+    E = (chunk_starts[0].shape[-1] - 1) * TILE_E
+    outs = []
+    for v, p, s in zip(vals, prior, scatter):
+        B, Fp, D = v.shape
+        g = v[:, :, None, :] * ins[:, None, :, :]              # input dtype
+        if apply_relu:
+            g = torch.relu(g)
+        contrib = g.float().reshape(B, Fp, J * D) * p.to(v.dtype).float()[..., None]
+        contrib = torch.where((s >= 0)[..., None], contrib, 0.0)
+        outs.append(batched_segment_sum(contrib, s.clamp_min(0), E))
+    return torch.stack(outs)
+
+
+def _check(vals, ins, prior, scatter, chunk_starts):
+    """Raise unless the inputs fit the kernel. Kept lean: the forward calls
+    the kernel ten times and is bound by host launch time."""
+    if ins.dim() != 3 or ins.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"gate_scatter: ins must be [B,J,D] float32 or "
+                        f"bfloat16, got {ins.dtype} {tuple(ins.shape)}")
+    B, _, D = ins.shape
+    Fp = vals[0].shape[1]
+    dev = ins.get_device()
+    if len(vals) not in (1, 2) or Fp % TILE_F:
+        raise ValueError(f"gate_scatter: {len(vals)} directions (1 or 2), "
+                         f"Fp={Fp} (a multiple of {TILE_F})")
+    for name, ts, dtype, shape in (
+            ("vals", vals, ins.dtype, (B, Fp, D)),
+            ("prior", prior, torch.float32, (B, Fp)),
+            ("scatter", scatter, torch.int32, (B, Fp)),
+            ("chunk_starts", chunk_starts, torch.int32,
+             (B, chunk_starts[0].shape[-1]))):
+        if len(ts) != len(vals):
+            raise ValueError(f"gate_scatter: {len(ts)} {name}, {len(vals)} vals")
+        for t in ts:
+            if t.requires_grad:
+                raise RuntimeError(
+                    f"gate_scatter: {name} requires grad; the CUDA kernel is "
+                    "forward-only (the backward kernels come with training)")
+            if (t.dtype != dtype or t.shape != shape or t.get_device() != dev
+                    or not t.is_contiguous()):
+                raise TypeError(
+                    f"gate_scatter: {name} must be a contiguous {dtype} "
+                    f"{shape} on {ins.device}, got {t.dtype} "
+                    f"{tuple(t.shape)} on {t.device}")
+    for v in vals:
+        if v.data_ptr() % 16:   # the kernel stages values with 16-byte copies
+            raise ValueError("gate_scatter: vals is not 16-byte aligned")
+
+
+def gate_scatter_fwd(vals, ins: torch.Tensor, prior, scatter, chunk_starts,
+                     apply_relu: bool = True) -> torch.Tensor:
+    """One or two directions in one launch. ``vals``, ``prior``, ``scatter``
+    and ``chunk_starts`` each hold one tensor per direction (a tuple, or a
+    tensor whose first axis is the direction): ``[B,Fp,D]`` vals in the type
+    of ``ins [B,J,D]`` (float32 or bfloat16), ``[B,Fp]`` float32 prior,
+    ``[B,Fp]`` int32 scatter, ``[B,E/128+1]`` int32 chunk_starts ->
+    ``[ndir,B,E,J*D]`` float32.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on the
+    current stream or raise."""
+    global launches
+    if ins.device.type == "cpu":
+        return gate_scatter_fwd_plain(vals, ins, prior, scatter, chunk_starts,
+                                      apply_relu)
+    if ins.device.type != "cuda":
+        raise ValueError(f"gate_scatter: unsupported device {ins.device}")
+    vals, prior, scatter, chunk_starts = (
+        x.unbind(0) if isinstance(x, torch.Tensor) else x
+        for x in (vals, prior, scatter, chunk_starts))
+    _check(vals, ins, prior, scatter, chunk_starts)
+    B, Fp, D = vals[0].shape
+    J = ins.shape[1]
+    n_tiles = chunk_starts[0].shape[-1] - 1
+    out = torch.empty((len(vals), B, n_tiles * TILE_E, J * D),
+                      dtype=torch.float32, device=ins.device)
+    lib = _load()
+    with torch.cuda.device(ins.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.gate_scatter_fwd(
+            vals[0].data_ptr(), vals[-1].data_ptr(), ins.data_ptr(),
+            prior[0].data_ptr(), prior[-1].data_ptr(), scatter[0].data_ptr(),
+            scatter[-1].data_ptr(), chunk_starts[0].data_ptr(),
+            chunk_starts[-1].data_ptr(), out.data_ptr(), len(vals), B, Fp, D,
+            J, n_tiles, int(bool(apply_relu)), int(ins.dtype == torch.bfloat16),
+            stream)
+    if err != 0:
+        raise RuntimeError("gate_scatter kernel launch failed: "
+                           + lib.gate_scatter_error_string(err).decode())
+    launches += 1
+    return out
+
+
+def gate_scatter_both(vals_f: torch.Tensor, vals_i: torch.Tensor,
+                      ins: torch.Tensor, prior_f: torch.Tensor,
+                      prior_i: torch.Tensor, layout, num_entities: int,
+                      apply_relu: bool = True):
+    """Both message directions in one launch (the v4 op): projected fact
+    values ``[B, Fp, D]`` per direction -> ``(out_f, out_i)``, each
+    ``[B, E, J*D]`` j-major."""
+    _check_entities(layout.fwd, num_entities)
+    out = gate_scatter_fwd(
+        (vals_f.contiguous(), vals_i.contiguous()), ins.contiguous(),
+        (prior_f.contiguous(), prior_i.contiguous()),
+        (layout.fwd.scatter, layout.inv.scatter),
+        (layout.fwd.chunk_starts, layout.inv.chunk_starts), apply_relu)
+    return out[0], out[1]
+
+
+def gate_scatter_projected(fact_rl: torch.Tensor, ins: torch.Tensor,
+                           prior: torch.Tensor, direction, num_entities: int,
+                           apply_relu: bool = True) -> torch.Tensor:
+    """One direction (the v3 op): ``[B, Fp, D]`` projected fact values ->
+    ``[B, J, E, D]``. The serving slice does not call it: TypeLayer runs its
+    two directions through ``gate_scatter_both``. It is the port of the JAX
+    package's v3 op, kept for NSM (still to port), which calls that op."""
+    _check_entities(direction, num_entities)
+    out = gate_scatter_fwd((fact_rl.contiguous(),), ins.contiguous(),
+                           (prior.contiguous(),), (direction.scatter,),
+                           (direction.chunk_starts,), apply_relu)[0]
+    B, E, JD = out.shape
+    J = ins.shape[1]
+    return out.reshape(B, E, J, JD // J).movedim(2, 1)
+
+
+def _check_entities(direction, num_entities: int):
+    n_tiles = direction.chunk_starts.shape[-1] - 1
+    if n_tiles * TILE_E != num_entities:
+        raise ValueError(f"gate_scatter: layout has {n_tiles} tiles of "
+                         f"{TILE_E}, num_entities={num_entities}")

@@ -1,0 +1,48 @@
+"""Batched gather/scatter message-passing primitives.
+
+The reference's per-batch ``torch.sparse.mm`` products (base_gnn.py:45-54,
+reasongnn.py:80-111) as plain gathers and index-adds over the padded arrays
+of a GraphBatch:
+
+* ``head2fact_mat @ dist``  ->  gather: ``dist[b, heads[b, f]]``
+* ``fact2tail_mat @ vals``  ->  scatter-add of fact values into tail slots
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def gather_entities_to_facts(ent_values: torch.Tensor,
+                             index: torch.Tensor) -> torch.Tensor:
+    """ent_values: [B, E] or [B, E, D]; index: int [B, F] -> [B, F(, D)]."""
+    index = index.long()
+    if ent_values.dim() == 3:
+        index = index[..., None].expand(-1, -1, ent_values.shape[-1])
+    return torch.gather(ent_values, 1, index)
+
+
+def batched_segment_sum(values: torch.Tensor, index: torch.Tensor,
+                        num_segments: int) -> torch.Tensor:
+    """Per-row scatter-add: out[b, index[b, f]] += values[b, f].
+
+    values: [B, F] or [B, F, D]; index: int [B, F]; -> [B, num_segments(, D)].
+    One flattened index_add over ids ``b * num_segments + idx``, the
+    linearisation of the reference's block-diagonal batch matrices
+    (dataset_load.py:483)."""
+    B, F = index.shape
+    offsets = (torch.arange(B, device=index.device) * num_segments)[:, None]
+    flat_ids = (index.long() + offsets).reshape(B * F)
+    tail = values.shape[2:]
+    out = values.new_zeros((B * num_segments,) + tail)
+    out.index_add_(0, flat_ids, values.reshape((B * F,) + tail))
+    return out.reshape((B, num_segments) + tail)
+
+
+def layout_fact_keep(direction, keep: torch.Tensor) -> torch.Tensor:
+    """Gather a canonical per-fact mask ``keep [B, F]`` onto a
+    DirectionLayout's tile-sorted slots ``[B, Fp]`` via its ``perm`` map. Pad
+    slots (perm == -1) return 0."""
+    perm = direction.perm.long()
+    k = torch.gather(keep, 1, perm.clamp_min(0))
+    return k * (perm >= 0).to(keep.dtype)

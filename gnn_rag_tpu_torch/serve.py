@@ -1,0 +1,197 @@
+"""RetrieverService: serving the GNN retrieval stage on a CUDA device.
+
+Port of ``gnn_rag_tpu.serve.RetrieverService``:
+
+    question + subgraph  ->  GraphBatch (kernel layout)  ->  frozen-LM
+    question states  ->  ReaRev forward  ->  eps-cumulative candidates
+    ->  shortest paths  ->  verbalized reasoning paths (ready for any reader)
+
+Path enumeration runs on the host through the JAX package's framework-free
+``rag.graph_utils`` and ``native`` modules (the C++ enumerator when it
+builds, else the Python oracle). ``serve_http`` exposes ``POST /retrieve``.
+
+Each stage of ``retrieve`` runs in a ``torch.profiler.record_function``
+span named ``retrieve/<stage>`` (ingest, encode_question, make_batch,
+forward, candidates, paths, verbalize); ``forward`` ends with the copy of
+``pred_dist`` to the host, so it holds the device time. The spans cost a
+few microseconds each when no profiler is running.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from gnn_rag_tpu.rag.text_utils import path_to_string
+
+from .config import Config
+from .data.loader import KGQADataset, ingest_question, num_kb_relation
+from .data.vocab import Vocab
+from .train.metrics import extract_candidates, f1_and_hits_eval
+
+
+class RetrieverService:
+    def __init__(self, cfg: Config, vocab: Vocab, model: torch.nn.Module, *,
+                 rel_hidden: np.ndarray, rel_hidden_inv: np.ndarray,
+                 rel_text_mask: np.ndarray,
+                 question_encoder: Optional[Callable] = None,
+                 tokenizer=None,
+                 entity_buckets=(256, 512, 1024, 2048),
+                 fact_buckets=(1024, 2048, 4096, 8192, 16384),
+                 path_backend: str = "auto", keep_parallel: bool = False):
+        """model: a ReaRev (``models.rearev.build_model``) on its device;
+        question_encoder(token_ids) -> [L, word_dim] frozen-LM states."""
+        self.cfg = cfg
+        self.vocab = vocab
+        self.nkr = num_kb_relation(vocab.num_relation,
+                                   cfg.data.use_inverse_relation,
+                                   cfg.data.use_self_loop)
+        self.model = model
+        self.device = next(model.parameters()).device
+        self.rel_args = tuple(torch.as_tensor(np.asarray(a, np.float32),
+                                              device=self.device)
+                              for a in (rel_hidden, rel_hidden_inv, rel_text_mask))
+        self.question_encoder = question_encoder
+        self.tokenizer = tokenizer
+        if path_backend == "device":
+            raise NotImplementedError("the device BFS path backend is not "
+                                      "ported; use 'auto', 'native' or 'python'")
+        if path_backend == "auto":
+            from gnn_rag_tpu.native import available as native_available
+            path_backend = "native" if native_available() else "python"
+        if path_backend not in ("native", "python"):
+            raise ValueError(f"unknown path backend {path_backend!r}")
+        self.path_backend = path_backend
+        self.keep_parallel = keep_parallel
+        self.entity_buckets = entity_buckets
+        self.fact_buckets = fact_buckets
+
+    def forward(self, batch):
+        """(loss, pred, pred_dist) of a numpy GraphBatch on the device."""
+        return self.model(batch.to(self.device), *self.rel_args)
+
+    # ------------------------------------------------------------------
+    def retrieve(self, questions: Sequence[dict], *,
+                 with_paths: bool = True) -> List[dict]:
+        """questions: reference JSONL schema (question, entities,
+        subgraph{entities, tuples}); returns per-question candidates
+        [[mid, prob]...] and verbalized reasoning paths."""
+        with record_function("retrieve/ingest"):
+            records = [ingest_question(
+                q, self.vocab, data_name=self.cfg.data.name,
+                use_inverse_relation=self.cfg.data.use_inverse_relation,
+                use_self_loop=self.cfg.data.use_self_loop,
+                num_kb_relation=self.nkr) for q in questions]
+            ds = KGQADataset([r for r in records if r is not None],
+                             num_entity=self.vocab.num_entity,
+                             num_kb_relation=self.nkr,
+                             entity_buckets=self.entity_buckets,
+                             fact_buckets=self.fact_buckets)
+        results = []
+        if len(ds):
+            with record_function("retrieve/encode_question"):
+                if self.tokenizer is not None:
+                    ds.tokenize_questions(self.tokenizer)
+                else:
+                    for r in ds.records:
+                        r.q_token_ids = np.zeros(4, np.int32)
+                if self.question_encoder is not None:
+                    ds.q_hidden = [self.question_encoder(r.q_token_ids)
+                                   for r in ds.records]
+            with record_function("retrieve/make_batch"):
+                batch = ds.make_batch(list(range(len(ds))))
+            with record_function("retrieve/forward"), torch.inference_mode():
+                _, _, pred_dist = self.forward(batch)
+                pred_dist = pred_dist.float().cpu().numpy()
+            ignore_prob = (1 - self.cfg.model.eps) / ds.max_local_entity
+
+        with record_function("retrieve/candidates"):
+            ri = 0
+            for rec in records:
+                if rec is None:
+                    results.append({"cand": [], "paths": []})
+                    continue
+                cand2prob = extract_candidates(
+                    pred_dist[ri], batch.entity_gids[ri], batch.query_entities[ri],
+                    self.vocab.num_entity, ignore_prob)
+                _, _, _, _, _, _, retrieved = f1_and_hits_eval(
+                    [], cand2prob, self.cfg.model.eps)
+                results.append({"cand": [[self.vocab.id2entity.get(c, c), float(p)]
+                                         for c, p in retrieved],
+                                "paths": []})
+                ri += 1
+
+        if with_paths:
+            from gnn_rag_tpu.rag.graph_utils import (build_graph, get_truth_paths,
+                                                     get_truth_paths_fast)
+            for q, res in zip(questions, results):
+                graph = q["subgraph"]["tuples"]
+                q_entity = q.get("entities", [])
+                cand = [c for c, _ in res["cand"]]
+                with record_function("retrieve/paths"):
+                    if self.path_backend == "python":
+                        paths = get_truth_paths(
+                            q_entity, cand,
+                            build_graph(graph, keep_parallel=self.keep_parallel))
+                    else:
+                        paths = get_truth_paths_fast(
+                            graph, q_entity, cand,
+                            keep_parallel=self.keep_parallel)
+                with record_function("retrieve/verbalize"):
+                    # distinct verbalized paths, first occurrence order
+                    res["paths"] = list(dict.fromkeys(path_to_string(p)
+                                                      for p in paths))
+        return results
+
+    # ------------------------------------------------------------------
+    def serve_http(self, host: str = "localhost", port: int = 0):
+        """POST /retrieve with {"questions": [...]} -> results JSON."""
+        return _serve_http(host, port, {"/retrieve": (
+            lambda body: {"results": self.retrieve(
+                body.get("questions", []),
+                with_paths=body.get("with_paths", True))})})
+
+
+def _serve_http(host: str, port: int, routes):
+    """Minimal threaded JSON-POST server over a {path: handler} table."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_POST(self):
+            handler = routes.get(self.path.rstrip("/"))
+            if handler is None:
+                self.send_error(404)
+                return
+            length = int(self.headers.get("Content-Length", 0))
+            try:
+                body = json.loads(self.rfile.read(length) or b"{}")
+                if not isinstance(body, dict):
+                    raise ValueError("body must be a JSON object")
+            except ValueError as exc:
+                self.send_error(400, explain=str(exc))
+                return
+            try:
+                payload = json.dumps(handler(body)).encode()
+            except Exception as exc:   # noqa: BLE001 — a bad question must
+                # 500 with the reason, not drop the connection and take the
+                # worker thread down with it
+                self.send_error(500, explain=f"{type(exc).__name__}: {exc}")
+                return
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(payload)))
+            self.end_headers()
+            self.wfile.write(payload)
+
+    httpd = ThreadingHTTPServer((host, port), Handler)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    return httpd

@@ -1,0 +1,98 @@
+"""Evaluator: batched inference, retrieval metrics, and `.info` export.
+
+Port of ``gnn_rag_tpu.train.evaluate``. The `.info` JSONL is the contract
+between the GNN retriever and the LLM reader (reference: gnn/evaluate.py:
+140-240 writes it; predict_answer.py consumes it by line order). One line
+per question:
+
+    {"question": <question>, "0": {}, ..., "<num_iter-1>": {},
+     "answers": [<mid>...], "precison": p, "recall": r, "f1": f,
+     "hit": h, "em": em, "cand": [[<mid>, prob], ...]}
+
+(the "precison" misspelling is part of the format, evaluate.py:213).
+"""
+
+from __future__ import annotations
+
+import json
+import math
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..data.loader import KGQADataset
+from .metrics import extract_candidates, f1_and_hits_eval
+
+
+class Evaluator:
+    """Runs a forward over a dataset split and scores retrieval.
+
+    forward_fn(batch) -> (loss, pred, pred_dist), with ``batch`` the numpy
+    GraphBatch the loader made — typically
+    ``lambda b: model(b.to(device), *rel_args)``.
+    """
+
+    def __init__(self, *, eps: float, num_entity: int, id2entity: dict,
+                 num_iter: int = 3):
+        self.eps = eps
+        self.num_entity = num_entity
+        self.id2entity = id2entity
+        self.num_iter = num_iter
+
+    def _name(self, gid: int):
+        return self.id2entity.get(gid, gid)
+
+    def evaluate(self, data: KGQADataset, forward_fn: Callable,
+                 test_batch_size: int = 20, write_info: bool = False,
+                 info_path: Optional[str] = None):
+        """Returns (mean_f1, mean_hit, mean_em, mean_loss); optionally writes
+        `.info` to ``info_path``."""
+        num_batches = math.ceil(len(data) / test_batch_size)
+        if num_batches == 0:
+            return 0.0, 0.0, 0.0, 0.0
+        ignore_prob = (1 - self.eps) / data.max_local_entity  # evaluate.py:156
+        f1s, hits, ems, losses = [], [], [], []
+
+        # phase 1 — queue every forward; the device runs them back to back
+        staged = []
+        with torch.inference_mode():
+            for it in range(num_batches):
+                idx = data.batch_indices(it, test_batch_size)
+                batch = data.make_batch(idx)
+                loss, _, pred_dist = forward_fn(batch)
+                staged.append((idx, batch, loss, pred_dist))
+
+        # phase 2 — host-side metric extraction
+        fout = open(info_path, "w") if (write_info and info_path) else None
+        try:
+            for idx, batch, loss, pred_dist in staged:
+                pred_dist = pred_dist.float().cpu().numpy()
+                losses.append(float(loss))
+                answers_batch = data.answers_for(idx)
+                for b in range(len(idx)):
+                    cand2prob = extract_candidates(
+                        pred_dist[b], batch.entity_gids[b],
+                        batch.query_entities[b], self.num_entity, ignore_prob)
+                    answers = answers_batch[b]
+                    p, r, f1, hit, em, _, retrieved = f1_and_hits_eval(
+                        answers, cand2prob, self.eps)
+                    f1s.append(f1); hits.append(hit); ems.append(em)
+                    if fout is None:
+                        continue
+                    obj = {"question": data.records[idx[b]].question}
+                    for j in range(self.num_iter):
+                        obj[str(j)] = {}
+                    obj["answers"] = [self._name(a) for a in answers]
+                    obj["precison"] = p
+                    obj["recall"] = r
+                    obj["f1"] = f1
+                    obj["hit"] = hit
+                    obj["em"] = em
+                    obj["cand"] = [[self._name(c), prob] for c, prob in retrieved]
+                    fout.write(json.dumps(obj) + "\n")
+        finally:
+            if fout is not None:
+                fout.close()
+        return (float(np.mean(f1s)), float(np.mean(hits)), float(np.mean(ems)),
+                float(np.mean(losses)))
