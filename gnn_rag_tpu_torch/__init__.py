@@ -1,15 +1,21 @@
-"""gnn_rag_tpu_torch — the GNN-RAG retrieval-serving path in PyTorch for an
-NVIDIA H100, beside the JAX reference package ``gnn_rag_tpu``.
+"""gnn_rag_tpu_torch — the GNN-RAG retriever in PyTorch for an NVIDIA H100,
+serving and training, beside the JAX reference package ``gnn_rag_tpu``.
 
-The slice: question JSON -> ingest + tile-sorted kernel layout
-(``data``) -> frozen question/relation LM (``models.frozen_lm``) -> ReaRev
-forward (``models.rearev``) whose message passing runs the hand-written
-gate-scatter CUDA kernel (``ops.gate_scatter``, ``csrc/gate_scatter.cu``)
--> eps-cumulative candidates and the `.info` export (``train.evaluate``) ->
-verbalized shortest paths (``serve``). ``bridge`` carries flax parameter
-trees across, so every module is held against its JAX counterpart.
+Serving: question JSON -> ingest + tile-sorted kernel layout (``data``) ->
+frozen question/relation LM (``models.frozen_lm``) -> ReaRev forward
+(``models.rearev``) whose message passing runs the hand-written gate-scatter
+CUDA kernel (``ops.gate_scatter``, ``csrc/gate_scatter.cu``) ->
+eps-cumulative candidates and the `.info` export (``train.evaluate``) ->
+verbalized shortest paths (``serve``).
 
-The package imports torch and never jax or flax.
+Training: ``python -m gnn_rag_tpu_torch ReaRev <flags>`` (``cli``) ->
+``train.trainer`` (ReaRev in training mode with dropout and fact dropout,
+the gate-scatter gradient in its backward CUDA kernel, global-norm clip,
+Adam with staircase decay, on-device metrics, checkpoints in
+``utils.checkpoint``). ``bridge`` carries flax parameter trees across, so
+every module and gradient is held against its JAX counterpart.
+
+The package imports torch and never jax, flax, optax or orbax.
 """
 
 import torch
@@ -19,4 +25,4 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -189,6 +189,7 @@ class KGQADataset:
         self.entity_buckets = tuple(entity_buckets or DEFAULT_ENTITY_BUCKETS)
         self.fact_buckets = tuple(fact_buckets or DEFAULT_FACT_BUCKETS)
         self.pad_token_id = pad_token_id
+        self._order = np.arange(len(self.records))
         # optional per-record precomputed frozen-LM hidden states
         self.q_hidden: Optional[List[np.ndarray]] = None
 
@@ -196,8 +197,36 @@ class KGQADataset:
         return len(self.records)
 
     @property
+    def num_data(self):
+        return len(self.records)
+
+    @property
     def max_local_entity(self) -> int:
         return max((r.n_entities for r in self.records), default=0)
+
+    def reset_batches(self, is_sequential: bool = True,
+                      rng: Optional[np.random.Generator] = None,
+                      bucket_size: Optional[int] = None):
+        """Shuffle (or restore) the iteration order. With ``bucket_size``,
+        shuffled questions are grouped into batches of similar fact counts
+        (random jitter keeps epochs distinct), cutting padding waste on
+        skewed datasets like CWQ; batch order is then shuffled. The reference
+        shuffles uniformly and pads everything to the dataset max
+        (dataset_load.py:530-534, 54)."""
+        if is_sequential:
+            self._order = np.arange(len(self.records))
+            return
+        rng = rng or np.random.default_rng()
+        if not bucket_size:
+            self._order = rng.permutation(len(self.records))
+            return
+        sizes = np.asarray([r.n_facts for r in self.records], np.float64)
+        jitter = rng.random(len(sizes)) * 0.5  # random tie-breaks + mixing
+        order = np.argsort(sizes * (1.0 + jitter), kind="stable")
+        batches = [order[i:i + bucket_size]
+                   for i in range(0, len(order), bucket_size)]
+        rng.shuffle(batches)
+        self._order = np.concatenate(batches)
 
     def tokenize_questions(self, tokenizer, max_len: Optional[int] = None,
                            add_special: bool = True):
@@ -215,7 +244,7 @@ class KGQADataset:
     def batch_indices(self, iteration: int, batch_size: int) -> np.ndarray:
         start = batch_size * iteration
         end = min(batch_size * (iteration + 1), len(self.records))
-        return np.arange(start, end)
+        return self._order[start:end]
 
     def make_batch(self, indices: Sequence[int], *,
                    batch_pad_to: Optional[int] = None) -> GraphBatch:

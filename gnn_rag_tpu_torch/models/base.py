@@ -1,5 +1,6 @@
-"""Loss functions of the GNN models (reference: gnn/models/base_model.py:187-199,
-rearev.py:227-233), ported from ``gnn_rag_tpu.models.base``."""
+"""Loss functions and Hit@1 of the GNN models (reference: gnn/models/
+base_model.py:187-199, 287-292, rearev.py:227-233), ported from
+``gnn_rag_tpu.models.base``."""
 
 from __future__ import annotations
 
@@ -37,3 +38,15 @@ def calc_loss_label(pred: torch.Tensor, answer_dist: torch.Tensor,
     vec = (kl_loss_vec(pred, answer_dist) if loss_type == "kl"
            else bce_loss_vec(pred, answer_dist))
     return (vec * case_valid).sum() / vec.shape[0]
+
+
+VERY_SMALL_NUMBER = 1e-10
+
+
+def calc_h1(pred_dist: torch.Tensor, answer_dist: torch.Tensor,
+            eps: float = VERY_SMALL_NUMBER) -> torch.Tensor:
+    """Hit@1 per sample on the device (base_model.py:287-292): 1.0 where the
+    top-1 entity (the first one on ties) is an answer."""
+    top1 = torch.argmax(pred_dist, dim=-1)
+    is_ans = torch.gather((answer_dist > eps).float(), 1, top1[:, None])[:, 0]
+    return (is_ans > 0).float()

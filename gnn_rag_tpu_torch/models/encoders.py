@@ -12,16 +12,30 @@ keep flax's ``[in, out]`` layout; ``nn.Linear`` weights are ``[out, in]``.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.gate_scatter import gate_scatter_both
+from ..ops.segment import gather_rows, layout_fact_keep
 from ..ops.softmax import VERY_NEG_NUMBER
 
 LN_EPS = 1e-6   # flax.linen.LayerNorm default (torch's is 1e-5)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability ``1 - rate``
+    and scale the kept ones by ``1 / (1 - rate)``, the mask drawn from
+    ``generator`` (on ``x``'s device). The identity when ``generator`` is
+    None (eval) or ``rate`` is 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.empty(x.shape, device=x.device).bernoulli_(1.0 - rate,
+                                                            generator=generator)
+    return torch.where(keep.bool(), x / (1.0 - rate), 0.0)
 
 
 def flax_like_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -110,17 +124,23 @@ class TypeLayer(nn.Module):
         self.kb_self_linear = nn.Parameter(torch.empty(din, entity_dim))
         self.kb_self_linear_bias = nn.Parameter(torch.empty(entity_dim))
 
-    def forward(self, rel_features: torch.Tensor, layout,
-                num_entities: int) -> torch.Tensor:
+    def forward(self, rel_features: torch.Tensor, layout, num_entities: int,
+                drop_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``drop_keep``: the fact-dropout keep mask ``[B, F]`` in canonical
+        fact order, or None; a dropped fact gets a zero prior."""
         D = self.kb_self_linear.shape[1]
         rl_tab = rel_features @ self.kb_self_linear + self.kb_self_linear_bias
         B = layout.fwd.rels.shape[0]
         ones_ins = torch.ones((B, 1, D), dtype=rl_tab.dtype, device=rl_tab.device)
         prior_f = (layout.fwd.scatter >= 0).to(rl_tab.dtype)
         prior_i = (layout.inv.scatter >= 0).to(rl_tab.dtype)
+        if drop_keep is not None:
+            prior_f = prior_f * layout_fact_keep(layout.fwd, drop_keep)
+            prior_i = prior_i * layout_fact_keep(layout.inv, drop_keep)
         out_f, out_i = gate_scatter_both(
-            rl_tab[layout.fwd.rels.long()], rl_tab[layout.inv.rels.long()],
-            ones_ins, prior_f, prior_i, layout, num_entities, apply_relu=False)
+            gather_rows(rl_tab, layout.fwd.rels),
+            gather_rows(rl_tab, layout.inv.rels), ones_ins, prior_f, prior_i,
+            layout, num_entities, apply_relu=False)
         return torch.relu(out_f + out_i)
 
 
@@ -129,23 +149,31 @@ class InstructionDecoder(nn.Module):
     instruction vectors by iterated attention over the question tokens, each
     conditioned on the previous instruction."""
 
-    def __init__(self, entity_dim: int, num_ins: int):
+    def __init__(self, entity_dim: int, num_ins: int, dropout: float = 0.0):
         super().__init__()
         self.num_ins = num_ins
+        self.dropout = dropout
         self.cq_linear = nn.Linear(4 * entity_dim, entity_dim)
         self.ca_linear = nn.Linear(entity_dim, 1)
         for i in range(num_ins):
             self.add_module(f"question_linear{i}", nn.Linear(entity_dim, entity_dim))
 
     def forward(self, query_hidden: torch.Tensor, query_node: torch.Tensor,
-                query_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        # query_hidden: [B, L, D]; query_node: [B, D]; query_mask: [B, L]
+                query_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """query_hidden: [B, L, D]; query_node: [B, D]; query_mask: [B, L];
+        ``generator`` draws the dropout masks in training (None: eval)."""
+        def drop(x):
+            return dropout(x, self.dropout, generator)
+
         ins = torch.zeros_like(query_node)
         instructions, attns = [], []
         for i in range(self.num_ins):
-            q_i = getattr(self, f"question_linear{i}")(query_node)
-            cq = self.cq_linear(torch.cat([ins, q_i, q_i - ins, q_i * ins], dim=-1))
-            ca = self.ca_linear(cq[:, None, :] * query_hidden)        # [B, L, 1]
+            q_i = getattr(self, f"question_linear{i}")(drop(query_node))
+            cq = self.cq_linear(drop(torch.cat([ins, q_i, q_i - ins, q_i * ins],
+                                               dim=-1)))
+            ca = self.ca_linear(drop(cq[:, None, :] * query_hidden))  # [B, L, 1]
             attn = torch.softmax(
                 ca + (1.0 - query_mask[..., None]) * VERY_NEG_NUMBER, dim=1)
             ins = (attn * query_hidden).sum(dim=1)

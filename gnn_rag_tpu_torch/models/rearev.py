@@ -1,4 +1,5 @@
-"""ReaRev — instruction-conditioned iterative GNN reasoner, eval forward.
+"""ReaRev — instruction-conditioned iterative GNN reasoner, forward in eval
+and in training mode.
 
 Port of ``gnn_rag_tpu.models.rearev`` (reference: gnn/models/ReaRev/
 rearev.py:19-243, gnn/modules/kg_reasoning/reasongnn.py) on the kernel-layout
@@ -8,29 +9,37 @@ path: encode question -> num_ins instructions -> num_iter outer iterations of
 
 Each GNN step projects the relation features of every fact slot with
 ``rel_linear{s}`` and runs one gate-scatter launch for both message
-directions (``ops.gate_scatter.gate_scatter_both``); the neighbour features
-are interleaved fwd_0, inv_0, fwd_1, ... as the reference does
-(reasongnn.py:150-156).
+directions (``ops.gate_scatter.gate_scatter_both``, differentiable through
+its backward kernel); the neighbour features are interleaved fwd_0, inv_0,
+fwd_1, ... as the reference does (reasongnn.py:150-156).
+
+Training mode (``training=True``) adds the JAX model's dropout: linear
+dropout inside the instruction decoder and before ``e2e_linear{s}`` and
+``score_func``, and fact dropout as a keep mask over the canonical facts
+(self loops always kept) that zeroes dropped facts' priors through each
+direction's ``perm`` map. Masks are drawn from an explicit
+``torch.Generator`` on the model's device; ``drop_keep`` passes a fact mask
+in instead (tests give both packages the same mask).
 
 Only the configuration of the WebQSP/CWQ ReaRev runs (frozen LM with
-relation texts, layout path, no fact dropout at eval); every other option
-raises ``NotImplementedError``. The forward needs no gradient: call it under
-``torch.inference_mode()``.
+relation texts, layout path); every other option raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..ops.gate_scatter import gate_scatter_both
-from ..ops.segment import gather_entities_to_facts
+from ..ops.segment import (gather_entities_to_facts, gather_rows,
+                           layout_fact_keep)
 from ..ops.softmax import masked_softmax
 from . import base
 from .encoders import (AttnEncoder, InstructionDecoder, QueryReform, TypeLayer,
-                       flax_like_init_)
+                       dropout, flax_like_init_)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -39,10 +48,11 @@ class ReasonGNN(nn.Module):
     """One stack of num_gnn reasoning steps (reasongnn.py:11-174)."""
 
     def __init__(self, entity_dim: int, num_ins: int, num_gnn: int,
-                 compute_dtype: str = "float32"):
+                 compute_dtype: str = "float32", dropout: float = 0.0):
         super().__init__()
         D, J = entity_dim, num_ins
         self.entity_dim, self.num_ins, self.num_gnn = D, J, num_gnn
+        self.dropout = dropout
         self.cdt = _DTYPES[compute_dtype]
         self.score_func = nn.Linear(D, 1)
         for s in range(num_gnn):
@@ -52,16 +62,24 @@ class ReasonGNN(nn.Module):
 
     def forward(self, batch, ent_emb: torch.Tensor, curr_dist: torch.Tensor,
                 instructions: torch.Tensor, rel_features: torch.Tensor,
-                rel_features_inv: torch.Tensor, candidate_mask: torch.Tensor
+                rel_features_inv: torch.Tensor, candidate_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                drop_keep: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``generator`` draws the linear-dropout masks (None: eval);
+        ``drop_keep`` is the fact-dropout keep mask ``[B, F]`` in canonical
+        fact order, or None."""
         B, E = curr_dist.shape
         J, D = self.num_ins, self.entity_dim
         layout = batch.layout
         cdt = self.cdt
-        fact_rel_f = rel_features[layout.fwd.rels.long()].to(cdt)   # [B, Fp, D]
-        fact_rel_i = rel_features_inv[layout.inv.rels.long()].to(cdt)
+        fact_rel_f = gather_rows(rel_features, layout.fwd.rels).to(cdt)  # [B, Fp, D]
+        fact_rel_i = gather_rows(rel_features_inv, layout.inv.rels).to(cdt)
         valid_f = (layout.fwd.scatter >= 0).to(curr_dist.dtype)
         valid_i = (layout.inv.scatter >= 0).to(curr_dist.dtype)
+        if drop_keep is not None:   # gnn_rag_tpu/models/rearev.py:87-92
+            valid_f = valid_f * layout_fact_keep(layout.fwd, drop_keep)
+            valid_i = valid_i * layout_fact_keep(layout.inv, drop_keep)
         ins_c = instructions.to(cdt)
         for step in range(self.num_gnn):
             w = getattr(self, f"rel_linear{step}").to(cdt)
@@ -76,8 +94,9 @@ class ReasonGNN(nn.Module):
                                    out_i.reshape(B, E, J, 1, D)],
                                   dim=3).reshape(B, E, 2 * J * D)
             nxt = torch.cat([ent_emb, neighbors], dim=2)
-            ent_emb = torch.relu(getattr(self, f"e2e_linear{step}")(nxt))
-            score = self.score_func(ent_emb)[..., 0]
+            ent_emb = torch.relu(getattr(self, f"e2e_linear{step}")(
+                dropout(nxt, self.dropout, generator)))
+            score = self.score_func(dropout(ent_emb, self.dropout, generator))[..., 0]
             curr_dist = masked_softmax(score, candidate_mask, dim=1)
         return curr_dist, ent_emb
 
@@ -99,12 +118,12 @@ def check_supported(cfg) -> None:
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"gnn_rag_tpu_torch runs the ReaRev serving configuration only; "
+            f"gnn_rag_tpu_torch runs the ReaRev WebQSP/CWQ configuration only; "
             f"not ported: {', '.join(bad)}")
 
 
 class ReaRev(nn.Module):
-    """Full ReaRev model over a GraphBatch (eval forward)."""
+    """Full ReaRev model over a GraphBatch."""
 
     def __init__(self, cfg, num_entity: int, num_relation: int, word_dim: int):
         super().__init__()
@@ -115,25 +134,46 @@ class ReaRev(nn.Module):
         D = cfg.entity_dim
         self.question_emb = nn.Linear(word_dim, D)         # bert_encoder.py:69
         self.self_att_r = AttnEncoder(D)
-        self.instruction_decoder = InstructionDecoder(D, cfg.num_ins)
+        self.instruction_decoder = InstructionDecoder(D, cfg.num_ins,
+                                                      cfg.linear_dropout)
         self.type_layer = TypeLayer(D, D)
-        self.reasoning = ReasonGNN(D, cfg.num_ins, cfg.num_gnn, cfg.compute_dtype)
+        self.reasoning = ReasonGNN(D, cfg.num_ins, cfg.num_gnn, cfg.compute_dtype,
+                                   cfg.linear_dropout)
         # the reforms run between outer iterations only (as in flax, no
         # parameters exist for them when num_iter == 1)
         for j in range(cfg.num_ins if cfg.num_iter > 1 else 0):
             self.add_module(f"reform{j}", QueryReform(D))
 
     def forward(self, batch, rel_hidden: torch.Tensor,
-                rel_hidden_inv: torch.Tensor, rel_text_mask: torch.Tensor
+                rel_hidden_inv: torch.Tensor, rel_text_mask: torch.Tensor, *,
+                training: bool = False,
+                generator: Optional[torch.Generator] = None,
+                drop_keep: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """batch: a GraphBatch of tensors with ``q_hidden`` and ``layout``;
         rel_hidden[_inv]: [R+1, Lr, word_dim] frozen-LM relation token
-        states, rel_text_mask: [R+1, Lr]. Returns (loss, pred_top1, pred_dist)."""
+        states, rel_text_mask: [R+1, Lr]. Returns (loss, pred_top1, pred_dist).
+
+        ``training``: apply linear dropout and fact dropout, with masks drawn
+        from ``generator`` (a ``torch.Generator`` on the batch's device,
+        needed when a dropout rate is not 0). ``drop_keep`` ``[B, F]``
+        overrides the fact-dropout draw (in eval too)."""
         cfg = self.cfg
         if batch.q_hidden is None or batch.layout is None:
             raise NotImplementedError("ReaRev needs precomputed q_hidden (frozen "
                                       "LM) and the kernel layout")
         E = batch.seed_dist.shape[1]
+        if not training:
+            generator = None
+        elif generator is None and (cfg.linear_dropout > 0 or cfg.fact_drop > 0):
+            raise ValueError("ReaRev training with dropout needs a generator")
+        if drop_keep is None and generator is not None and cfg.fact_drop > 0:
+            # fact dropout (dataset_load.py:489-490); self loops, appended
+            # after dropout in the reference, are never dropped
+            keep = torch.empty(batch.fact_mask.shape,
+                               device=batch.fact_mask.device).bernoulli_(
+                1.0 - cfg.fact_drop, generator=generator)
+            drop_keep = torch.where(batch.rels == self.num_relation - 1, 1.0, keep)
 
         # question encoding: projected frozen-LM states, CLS as the node
         # (bert_encoder.py:102-104)
@@ -146,8 +186,8 @@ class ReaRev(nn.Module):
                                            rel_text_mask)
 
         instructions, _ = self.instruction_decoder(query_hidden, query_node,
-                                                   batch.q_mask)
-        ent_emb = self.type_layer(rel_features, batch.layout, E)
+                                                   batch.q_mask, generator)
+        ent_emb = self.type_layer(rel_features, batch.layout, E, drop_keep)
         candidate_mask = batch.candidate_mask(self.num_entity)
 
         # iterative reasoning (rearev.py:206-221)
@@ -155,7 +195,7 @@ class ReaRev(nn.Module):
         for t in range(cfg.num_iter):
             pred_dist, ent_emb = self.reasoning(
                 batch, ent_emb, batch.seed_dist, instructions, rel_features,
-                rel_features_inv, candidate_mask)
+                rel_features_inv, candidate_mask, generator, drop_keep)
             if t < cfg.num_iter - 1:
                 instructions = torch.stack(
                     [getattr(self, f"reform{j}")(instructions[:, j, :], ent_emb,

@@ -28,9 +28,26 @@ Numerics follow the TPU kernel (pallas_mp.py:872-889): ``vals * ins`` is
 formed in the input type, ``prior`` is rounded to the input type before it
 multiplies, and products are summed in float32.
 
-Dispatch: CPU tensors take ``gate_scatter_fwd_plain``; CUDA tensors launch
-the kernel or raise. The kernel is forward-only: a CUDA input that requires
-grad raises (the backward kernels come with training).
+The backward (``gate_scatter_bwd``, same CUDA source) replaces the TPU
+kernels ``_fused_bwd_kernel_v4`` (pallas_mp.py:988), ``_fused_bwd_kernel_v4s``
+(:1267) and ``_fused_bwd_kernel_v3`` (:639). With ``gb = g[d, b,
+scatter[f], :]`` and ``pre = vals[f] * ins_j`` in float32 it returns
+``dprior[f] = sum gb * act(pre)``, ``dvals[f] = sum_j gb_j * prior[f] *
+1[pre_j > 0] * ins_j`` and ``dins[b, j] = sum_f (...) * vals[f]``, summed in
+float32 with the prior unrounded (the TPU backward reads the prior in f32,
+pallas_mp.py:1018, although its forward rounds it). It is bound by memory
+traffic and load latency as the forward is: per direction it reads the
+[B, E, J*D] cotangent once, as whole-tile shared-memory copies, and the
+[B, Fp, D] values; one warp per fact slot writes that slot's dvals row once
+and reduces its dprior with warp shuffles; dins goes through per-tile
+partials summed in a fixed order, so no float atomics and a repeatable sum.
+
+``GateScatterFn`` is the autograd op: its forward is ``gate_scatter_fwd`` and
+its backward ``gate_scatter_bwd``; ``gate_scatter_both`` and
+``gate_scatter_projected`` go through it.
+
+Dispatch: CPU tensors take the plain versions (``gate_scatter_fwd_plain``,
+``gate_scatter_bwd_plain``); CUDA tensors launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -47,8 +64,9 @@ import torch
 from ..data.kernel_layout import TILE_E, TILE_F
 from .segment import batched_segment_sum
 
-# launches of the CUDA kernel (plain-version calls are not counted)
-launches = 0
+# launches of the CUDA kernels (plain-version calls are not counted)
+launches = 0          # gate_scatter_fwd
+bwd_launches = 0      # gate_scatter_bwd
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc", "gate_scatter.cu")
@@ -106,6 +124,10 @@ def _load():
                                              + [ctypes.c_int] * 8
                                              + [ctypes.c_void_p])
             lib.gate_scatter_fwd.restype = ctypes.c_int
+            lib.gate_scatter_bwd.argtypes = ([ctypes.c_void_p] * 14
+                                             + [ctypes.c_int] * 8
+                                             + [ctypes.c_void_p])
+            lib.gate_scatter_bwd.restype = ctypes.c_int
             lib.gate_scatter_error_string.argtypes = [ctypes.c_int]
             lib.gate_scatter_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -151,10 +173,6 @@ def _check(vals, ins, prior, scatter, chunk_starts):
         if len(ts) != len(vals):
             raise ValueError(f"gate_scatter: {len(ts)} {name}, {len(vals)} vals")
         for t in ts:
-            if t.requires_grad:
-                raise RuntimeError(
-                    f"gate_scatter: {name} requires grad; the CUDA kernel is "
-                    "forward-only (the backward kernels come with training)")
             if (t.dtype != dtype or t.shape != shape or t.get_device() != dev
                     or not t.is_contiguous()):
                 raise TypeError(
@@ -209,33 +227,159 @@ def gate_scatter_fwd(vals, ins: torch.Tensor, prior, scatter, chunk_starts,
     return out
 
 
+def gate_scatter_bwd_plain(vals, ins: torch.Tensor, prior, scatter,
+                           chunk_starts, g: torch.Tensor,
+                           apply_relu: bool = True, *, need_dprior: bool = True,
+                           need_dins: bool = True):
+    """Plain PyTorch version of the backward kernel, same contract and
+    numerics (see ``gate_scatter_bwd``); the formulation of the JAX op's
+    XLA backward (pallas_mp.py:775-791) with the kernel's float32 ``pre``."""
+    J = ins.shape[1]
+    insf = ins.float()
+    dvals, dprior = [], []
+    dins = torch.zeros(insf.shape, dtype=torch.float32, device=ins.device)
+    for v, p, s, gd in zip(vals, prior, scatter, g):
+        B, Fp, D = v.shape
+        vf = v.float()
+        gb = torch.gather(gd, 1, s.clamp_min(0).long()[..., None].expand(
+            B, Fp, J * D))
+        gb = torch.where((s >= 0)[..., None], gb, 0.0).reshape(B, Fp, J, D)
+        pre = vf[:, :, None, :] * insf[:, None, :, :]            # [B,Fp,J,D]
+        if need_dprior:
+            act = torch.relu(pre) if apply_relu else pre
+            dprior.append((gb * act).sum(dim=(2, 3)))
+        dval = gb * p[:, :, None, None]
+        if apply_relu:
+            dval = torch.where(pre > 0, dval, 0.0)
+        dvals.append(torch.einsum("bfjd,bjd->bfd", dval, insf).to(v.dtype))
+        if need_dins:
+            dins += torch.einsum("bfjd,bfd->bjd", dval, vf)
+    return (tuple(dvals), tuple(dprior) if need_dprior else None,
+            dins.to(ins.dtype) if need_dins else None)
+
+
+def gate_scatter_bwd(vals, ins: torch.Tensor, prior, scatter, chunk_starts,
+                     g: torch.Tensor, apply_relu: bool = True, *,
+                     need_dprior: bool = True, need_dins: bool = True):
+    """Backward of ``gate_scatter_fwd`` for the same inputs and the
+    ``[ndir,B,E,J*D]`` float32 cotangent ``g`` of its output -> ``(dvals,
+    dprior, dins)``: ``dvals`` one ``[B,Fp,D]`` tensor per direction in the
+    type of vals, ``dprior`` one ``[B,Fp]`` float32 tensor per direction (or
+    None without ``need_dprior``), ``dins`` ``[B,J,D]`` in the type of ins,
+    summed over the directions (or None without ``need_dins``). Pad slots
+    get zero gradients.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on the
+    current stream or raise."""
+    global bwd_launches
+    if ins.device.type == "cpu":
+        return gate_scatter_bwd_plain(vals, ins, prior, scatter, chunk_starts,
+                                      g, apply_relu, need_dprior=need_dprior,
+                                      need_dins=need_dins)
+    if ins.device.type != "cuda":
+        raise ValueError(f"gate_scatter: unsupported device {ins.device}")
+    vals, prior, scatter, chunk_starts = (
+        x.unbind(0) if isinstance(x, torch.Tensor) else x
+        for x in (vals, prior, scatter, chunk_starts))
+    _check(vals, ins, prior, scatter, chunk_starts)
+    ndir = len(vals)
+    B, Fp, D = vals[0].shape
+    J = ins.shape[1]
+    n_tiles = chunk_starts[0].shape[-1] - 1
+    shape = (ndir, B, n_tiles * TILE_E, J * D)
+    if (g.dtype != torch.float32 or g.shape != shape or not g.is_contiguous()
+            or g.get_device() != ins.get_device() or g.data_ptr() % 16):
+        raise TypeError(f"gate_scatter_bwd: g must be a contiguous, 16-byte "
+                        f"aligned float32 {shape} on {ins.device}, got "
+                        f"{g.dtype} {tuple(g.shape)} on {g.device}")
+    dev = ins.device
+    dvals = torch.empty((ndir, B, Fp, D), dtype=vals[0].dtype, device=dev)
+    dprior = (torch.empty((ndir, B, Fp), dtype=torch.float32, device=dev)
+              if need_dprior else None)
+    ws = (torch.empty((ndir, B, n_tiles, J * D), dtype=torch.float32,
+                      device=dev) if need_dins else None)
+    dins = torch.empty(ins.shape, dtype=ins.dtype, device=dev) if need_dins else None
+    lib = _load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.gate_scatter_bwd(
+            vals[0].data_ptr(), vals[-1].data_ptr(), ins.data_ptr(),
+            prior[0].data_ptr(), prior[-1].data_ptr(), scatter[0].data_ptr(),
+            scatter[-1].data_ptr(), chunk_starts[0].data_ptr(),
+            chunk_starts[-1].data_ptr(), g.data_ptr(), dvals.data_ptr(),
+            dprior.data_ptr() if need_dprior else None,
+            ws.data_ptr() if need_dins else None,
+            dins.data_ptr() if need_dins else None, ndir, B, Fp, D, J,
+            n_tiles, int(bool(apply_relu)), int(ins.dtype == torch.bfloat16),
+            stream)
+    if err != 0:
+        raise RuntimeError("gate_scatter_bwd kernel launch failed: "
+                           + lib.gate_scatter_error_string(err).decode())
+    bwd_launches += 1
+    return (dvals.unbind(0), dprior.unbind(0) if need_dprior else None, dins)
+
+
+class GateScatterFn(torch.autograd.Function):
+    """``gate_scatter_fwd`` with ``gate_scatter_bwd`` as its gradient.
+
+    ``apply(apply_relu, ins, *vals, *prior, *scatter, *chunk_starts)``, one
+    tensor per direction in each group -> ``[ndir,B,E,J*D]``. Gradients flow
+    to ``ins``, vals and prior; the int tensors get none. Work for an input
+    that needs no gradient (TypeLayer's unit instructions and mask priors) is
+    skipped."""
+
+    @staticmethod
+    def forward(ctx, apply_relu, ins, *tensors):
+        n = len(tensors) // 4
+        vals, prior, scatter, starts = (tensors[i * n:(i + 1) * n]
+                                        for i in range(4))
+        ctx.apply_relu = apply_relu
+        ctx.save_for_backward(ins, *tensors)
+        return gate_scatter_fwd(vals, ins, prior, scatter, starts, apply_relu)
+
+    @staticmethod
+    def backward(ctx, g):
+        ins, *tensors = ctx.saved_tensors
+        n = len(tensors) // 4
+        vals, prior, scatter, starts = (tensors[i * n:(i + 1) * n]
+                                        for i in range(4))
+        need_dprior = any(ctx.needs_input_grad[2 + n:2 + 2 * n])
+        dvals, dprior, dins = gate_scatter_bwd(
+            vals, ins, prior, scatter, starts, g.contiguous(), ctx.apply_relu,
+            need_dprior=need_dprior, need_dins=ctx.needs_input_grad[1])
+        return (None, dins, *dvals,
+                *(dprior if need_dprior else (None,) * n), *(None,) * (2 * n))
+
+
 def gate_scatter_both(vals_f: torch.Tensor, vals_i: torch.Tensor,
                       ins: torch.Tensor, prior_f: torch.Tensor,
                       prior_i: torch.Tensor, layout, num_entities: int,
                       apply_relu: bool = True):
     """Both message directions in one launch (the v4 op): projected fact
     values ``[B, Fp, D]`` per direction -> ``(out_f, out_i)``, each
-    ``[B, E, J*D]`` j-major."""
+    ``[B, E, J*D]`` j-major; differentiable through ``GateScatterFn``."""
     _check_entities(layout.fwd, num_entities)
-    out = gate_scatter_fwd(
-        (vals_f.contiguous(), vals_i.contiguous()), ins.contiguous(),
-        (prior_f.contiguous(), prior_i.contiguous()),
-        (layout.fwd.scatter, layout.inv.scatter),
-        (layout.fwd.chunk_starts, layout.inv.chunk_starts), apply_relu)
-    return out[0], out[1]
+    out = GateScatterFn.apply(
+        apply_relu, ins.contiguous(), vals_f.contiguous(), vals_i.contiguous(),
+        prior_f.contiguous(), prior_i.contiguous(), layout.fwd.scatter,
+        layout.inv.scatter, layout.fwd.chunk_starts, layout.inv.chunk_starts)
+    # unbind: its backward stacks the two gradients into one contiguous
+    # cotangent for the kernel
+    return out.unbind(0)
 
 
 def gate_scatter_projected(fact_rl: torch.Tensor, ins: torch.Tensor,
                            prior: torch.Tensor, direction, num_entities: int,
                            apply_relu: bool = True) -> torch.Tensor:
     """One direction (the v3 op): ``[B, Fp, D]`` projected fact values ->
-    ``[B, J, E, D]``. The serving slice does not call it: TypeLayer runs its
-    two directions through ``gate_scatter_both``. It is the port of the JAX
-    package's v3 op, kept for NSM (still to port), which calls that op."""
+    ``[B, J, E, D]``, differentiable through ``GateScatterFn``. ReaRev does
+    not call it: TypeLayer runs its two directions through
+    ``gate_scatter_both``. It is the port of the JAX package's v3 op, kept
+    for NSM (still to port), which calls that op."""
     _check_entities(direction, num_entities)
-    out = gate_scatter_fwd((fact_rl.contiguous(),), ins.contiguous(),
-                           (prior.contiguous(),), (direction.scatter,),
-                           (direction.chunk_starts,), apply_relu)[0]
+    out = GateScatterFn.apply(apply_relu, ins.contiguous(),
+                              fact_rl.contiguous(), prior.contiguous(),
+                              direction.scatter, direction.chunk_starts)[0]
     B, E, JD = out.shape
     J = ins.shape[1]
     return out.reshape(B, E, J, JD // J).movedim(2, 1)

@@ -11,6 +11,7 @@ of a GraphBatch:
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def gather_entities_to_facts(ent_values: torch.Tensor,
@@ -20,6 +21,15 @@ def gather_entities_to_facts(ent_values: torch.Tensor,
     if ent_values.dim() == 3:
         index = index[..., None].expand(-1, -1, ent_values.shape[-1])
     return torch.gather(ent_values, 1, index)
+
+
+def gather_rows(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``table[index]``: rows of a ``[R, D]`` table at an int index of any
+    shape. Through ``F.embedding``, whose gradient (a segmented sum over the
+    sorted index) stays fast when one row is repeated many times, as the pad
+    relation is across a batch's pad slots; the gradient of ``table[index]``
+    adds each row's repeats one after another."""
+    return F.embedding(index.long(), table)
 
 
 def batched_segment_sum(values: torch.Tensor, index: torch.Tensor,

@@ -1,0 +1,260 @@
+"""Trainer: epoch loop, global-norm clip + Adam with staircase exponential
+decay, best-H1/F1 checkpoints, test evaluation and the `.info` export.
+
+Port of ``gnn_rag_tpu.train.trainer`` (reference: gnn/train_model.py:24-253)
+for one CUDA device (or the CPU, with the kernels' plain versions). A step is
+forward in training mode, ``loss.backward()`` (the gate-scatter gradient in
+its backward kernel), the clip, the learning rate of the step, and
+``torch.optim.Adam``. Per-step metrics (loss, Hit@1, training F1) are summed
+on the device; the epoch reads them once, at its end. Batch assembly runs
+one batch ahead on a thread.
+
+Not ported here (raise ``NotImplementedError``): data/tensor parallelism
+(``dp_size * tp_size > 1``), ``profile_dir``, and models other than ReaRev
+(``models.rearev.check_supported``).
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..data.loader import KGQADataset
+from ..models.rearev import build_model
+from ..models.base import calc_h1
+from ..utils.checkpoint import load_state, save_state
+from .evaluate import Evaluator
+from .metrics import train_f1_device
+
+
+def clip_by_global_norm_(grads, max_norm: float) -> None:
+    """optax ``clip_by_global_norm``: scale every gradient by ``max_norm /
+    norm`` when the global norm is at least ``max_norm``, in place and on the
+    device."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    torch._foreach_mul_(grads, torch.where(norm < max_norm, 1.0, max_norm / norm))
+
+
+class Trainer:
+    def __init__(self, cfg, *, train_data: Optional[KGQADataset],
+                 valid_data: KGQADataset, test_data: KGQADataset,
+                 num_entity: int, num_kb_relation: int, rel_hidden,
+                 rel_hidden_inv, rel_text_mask, word_dim: int,
+                 id2entity: Optional[dict] = None, logger=None,
+                 lm_source: Optional[str] = None, device="cpu"):
+        tc = cfg.train
+        unported = {"dp_size * tp_size > 1": tc.dp_size * tc.tp_size > 1,
+                    "profile_dir": bool(tc.profile_dir)}
+        bad = [k for k, v in unported.items() if v]
+        if bad:
+            raise NotImplementedError(f"gnn_rag_tpu_torch trainer: not ported: "
+                                      f"{', '.join(bad)}")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.lm_source = lm_source
+        self.train_data = train_data
+        self.valid_data = valid_data
+        self.test_data = test_data
+        self.num_entity = num_entity
+        self.rel_args = tuple(torch.as_tensor(np.asarray(a, np.float32),
+                                              device=self.device)
+                              for a in (rel_hidden, rel_hidden_inv, rel_text_mask))
+        if logger is None:
+            from gnn_rag_tpu.utils.logging import create_logger
+            logger = create_logger("trainer", tc.checkpoint_dir, config=cfg.model)
+        self.logger = logger
+        # ReaRev only: the model raises NotImplementedError for others
+        self.model = build_model(cfg, num_entity, num_kb_relation,
+                                 word_dim=word_dim, seed=tc.seed,
+                                 device=self.device)
+        # dropout masks and the epoch shuffles come from this generator
+        self.generator = torch.Generator(device=self.device).manual_seed(tc.seed)
+
+        # clip -> Adam with a staircase exponential decay per epoch
+        # (train_model.py:89-94, 133-134)
+        self.steps_per_epoch = max(1, math.ceil(
+            (train_data.num_data if train_data else 1) / tc.batch_size))
+        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=tc.lr,
+                                          betas=(0.9, 0.999), eps=1e-8)
+        self.step_count = 0
+
+        self.evaluator = Evaluator(eps=cfg.model.eps, num_entity=num_entity,
+                                   id2entity=id2entity or {},
+                                   num_iter=cfg.model.num_iter)
+        self.best_h1 = 0.0
+        self.best_f1 = 0.0
+        self._prefetch = ThreadPoolExecutor(max_workers=1)
+
+    def close(self):
+        self._prefetch.shutdown()
+
+    # ------------------------------------------------------------------ steps
+    def learning_rate(self, step: int) -> float:
+        """optax ``exponential_decay(lr, steps_per_epoch, decay_rate,
+        staircase=True)`` at ``step`` (0 for the first step)."""
+        tc = self.cfg.train
+        if tc.decay_rate > 0:
+            return tc.lr * tc.decay_rate ** (step // self.steps_per_epoch)
+        return tc.lr
+
+    def train_step(self, batch, valid_w: torch.Tensor,
+                   acc: torch.Tensor) -> torch.Tensor:
+        """One optimisation step on a batch already on the device. ``acc``
+        holds the running (loss, h1 . valid_w, f1 . valid_w, n) sums; returns
+        them with this step's added. Nothing is read back to the host."""
+        loss, _, pred_dist = self.model(batch, *self.rel_args, training=True,
+                                        generator=self.generator)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        clip_by_global_norm_(grads, self.cfg.train.gradient_clip)
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.learning_rate(self.step_count)
+        self.optimizer.step()
+        self.step_count += 1
+        with torch.no_grad():
+            h1 = calc_h1(pred_dist, batch.answer_dist)
+            f1 = train_f1_device(pred_dist, batch.answer_dist, h1,
+                                 batch.entity_gids, batch.seed_dist,
+                                 self.num_entity, self.cfg.model.eps)
+            return acc + torch.stack([loss.detach(), h1 @ valid_w, f1 @ valid_w,
+                                      valid_w.sum()])
+
+    # ------------------------------------------------------------------ loops
+    def train_epoch(self):
+        """One epoch over a shuffled order. Returns (mean_loss, mean_h1,
+        mean_f1) as floats; the only read from the device is the sums at the
+        end."""
+        tc = self.cfg.train
+        data = self.train_data
+        seed = int(torch.randint(2**31 - 1, (), generator=self.generator,
+                                 device=self.device))
+        data.reset_batches(is_sequential=False, rng=np.random.default_rng(seed),
+                           bucket_size=tc.batch_size if tc.bucket_batches else None)
+        num_batches = math.ceil(data.num_data / tc.batch_size)
+        if num_batches == 0:
+            return 0.0, 0.0, 0.0
+
+        def build(it):
+            idx = data.batch_indices(it, tc.batch_size)
+            return idx, data.make_batch(idx, batch_pad_to=tc.batch_size)
+
+        acc = torch.zeros(4, device=self.device)
+        fut = self._prefetch.submit(build, 0)
+        for it in range(num_batches):
+            idx, batch = fut.result()
+            if it + 1 < num_batches:
+                fut = self._prefetch.submit(build, it + 1)
+            valid_w = np.zeros(tc.batch_size, np.float32)
+            valid_w[:len(idx)] = 1.0
+            acc = self.train_step(batch.to(self.device),
+                                  torch.from_numpy(valid_w).to(self.device), acc)
+        loss_sum, h1_sum, f1_sum, n = acc.tolist()
+        n = max(n, 1.0)
+        return loss_sum / num_batches, h1_sum / n, f1_sum / n
+
+    def forward(self, batch):
+        """(loss, pred, pred_dist) of a numpy GraphBatch, eval mode."""
+        return self.model(batch.to(self.device), *self.rel_args)
+
+    def evaluate(self, data: KGQADataset, test_batch_size: Optional[int] = None,
+                 write_info: bool = False, info_path: Optional[str] = None):
+        """(f1, h1, em) of ``data``; optionally writes the `.info` file."""
+        f1, h1, em, _ = self.evaluator.evaluate(
+            data, self.forward, test_batch_size or self.cfg.train.test_batch_size,
+            write_info=write_info, info_path=info_path)
+        return f1, h1, em
+
+    def train(self, start_epoch: int = 0, end_epoch: Optional[int] = None):
+        """Epochs ``start_epoch..end_epoch`` with dev/test evaluation every
+        ``eval_every``, best-h1/f1 and final checkpoints, then the test
+        metrics of each checkpoint. Returns each epoch's (loss, h1, f1)."""
+        tc = self.cfg.train
+        end_epoch = tc.num_epoch - 1 if end_epoch is None else end_epoch
+        history = []
+        for epoch in range(start_epoch, end_epoch + 1):
+            st = time.time()
+            loss, h1, f1 = self.train_epoch()
+            history.append((loss, h1, f1))
+            self.logger.info("Epoch: %d, loss: %.4f, time: %.1fs",
+                             epoch + 1, loss, time.time() - st)
+            self.logger.info("Training h1: %.4f, f1: %.4f", h1, f1)
+            if (epoch + 1) % tc.eval_every == 0:
+                eval_f1, eval_h1, eval_em = self.evaluate(self.valid_data)
+                self.logger.info("EVAL F1: %.4f, H1: %.4f, EM: %.4f",
+                                 eval_f1, eval_h1, eval_em)
+                if epoch > tc.warmup_epoch:
+                    if eval_h1 > self.best_h1:
+                        self.best_h1 = eval_h1
+                        self.save_ckpt("h1")
+                    if eval_f1 > self.best_f1:
+                        self.best_f1 = eval_f1
+                        self.save_ckpt("f1")
+                test_f1, test_h1, test_em = self.evaluate(self.test_data)
+                self.logger.info("TEST F1: %.4f, H1: %.4f, EM: %.4f",
+                                 test_f1, test_h1, test_em)
+        self.save_ckpt("final")
+        self.evaluate_best()
+        return history
+
+    def evaluate_best(self):
+        """Test metrics of each checkpoint written (h1, f1, final); the model
+        ends with the last one loaded."""
+        for reason in ("h1", "f1", "final"):
+            path = self._ckpt_path(reason)
+            if not os.path.exists(path):
+                continue
+            self.load_ckpt(path)
+            f1, h1, em = self.evaluate(self.test_data)
+            self.logger.info("Best %s evaluation — TEST F1: %.4f, H1: %.4f, "
+                             "EM: %.4f", reason, f1, h1, em)
+
+    def evaluate_single(self, ckpt_path: Optional[str] = None,
+                        info_path: Optional[str] = None):
+        """Eval-only entry (train_model.py:201-207): dev metrics, then the
+        test `.info` with its `.meta.json` provenance sidecar."""
+        if ckpt_path:
+            self.load_ckpt(ckpt_path)
+        ev = self.evaluate(self.valid_data)
+        self.logger.info("EVAL F1: %.4f, H1: %.4f, EM: %.4f", *ev)
+        info_path = info_path or os.path.join(
+            self.cfg.train.checkpoint_dir,
+            f"{self.cfg.train.experiment_name}_test.info")
+        # a sidecar, not a header line: the LLM half reads .info by line order
+        self._write_provenance(info_path + ".meta.json")
+        te = self.evaluate(self.test_data, write_info=True, info_path=info_path)
+        self.logger.info("TEST F1: %.4f, H1: %.4f, EM: %.4f", *te)
+        return ev, te
+
+    # ------------------------------------------------------------------ ckpts
+    def _ckpt_path(self, reason: str) -> str:
+        return os.path.join(self.cfg.train.checkpoint_dir,
+                            f"{self.cfg.train.experiment_name}-{reason}.ckpt")
+
+    def save_ckpt(self, reason: str = "h1"):
+        path = self._ckpt_path(reason)
+        save_state(path, self.model.state_dict())
+        self._write_provenance(path + ".meta.json")
+        self.logger.info("Best %s, saved model as %s", reason, path)
+
+    def _write_provenance(self, path: str):
+        meta = {"experiment_name": self.cfg.train.experiment_name,
+                "model": self.cfg.model.model_name,
+                "lm": self.cfg.model.lm,
+                "lm_weight_source": self.lm_source or "unspecified"}
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(meta, f, indent=1)
+
+    def load_ckpt(self, path: str):
+        """Partial load (the reference's strict=False, train_model.py:252):
+        tensors whose name and shape match are taken, the rest kept."""
+        self.model.load_state_dict(load_state(path, self.model.state_dict(),
+                                              partial=True))

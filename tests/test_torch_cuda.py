@@ -1,4 +1,5 @@
-"""The gate-scatter CUDA kernel against its plain PyTorch version, on the card.
+"""The gate-scatter CUDA kernels (forward and backward) against their plain
+PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU (and nvcc for the first build) and skips
 without one. The file imports no JAX, so it runs on a machine without it:
@@ -83,18 +84,54 @@ def test_kernel_matches_plain(cuda, J, D, apply_relu, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("J,D,apply_relu,dtype", [
+    (1, 50, False, torch.float32), (2, 50, True, torch.float32),
+    (3, 50, True, torch.float32), (2, 16, True, torch.float32),
+    (2, 50, True, torch.bfloat16), (3, 50, False, torch.bfloat16)])
+def test_bwd_kernel_matches_plain(cuda, J, D, apply_relu, dtype):
+    vals, ins, prior, scatter, starts = inputs(J, D, dtype, cuda)
+    E = (starts.shape[-1] - 1) * TILE_E
+    g = torch.randn((2, vals.shape[1], E, J * D),
+                    generator=torch.Generator(device=cuda).manual_seed(3),
+                    device=cuda)
+    args = (vals, ins, prior, scatter, starts, g, apply_relu)
+    before = gs.bwd_launches
+    got = gs.gate_scatter_bwd(*args)
+    torch.cuda.synchronize()
+    assert gs.bwd_launches == before + 1
+    want = gs.gate_scatter_bwd_plain(*args)
+    rel = 1e-5 if dtype == torch.float32 else 2e-2
+    for a, b in zip([*got[0], *got[1], got[2]], [*want[0], *want[1], want[2]]):
+        assert a.dtype == b.dtype
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= rel * b.float().abs().max().item() + 1e-6, err
+    pad = scatter < 0
+    assert not got[0][0][pad[0]].any() and not got[1][1][pad[1]].any()
+    # deterministic: no atomics, one fixed sum order
+    again = gs.gate_scatter_bwd(*args)
+    for a, b in zip([*got[0], *got[1], got[2]], [*again[0], *again[1], again[2]]):
+        assert torch.equal(a, b)
+    # the parts not needed are skipped, the rest is unchanged
+    dv, dp, di = gs.gate_scatter_bwd(*args, need_dprior=False, need_dins=False)
+    assert dp is None and di is None and torch.equal(dv[1], got[0][1])
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_and_checks(cuda):
     vals, ins, prior, scatter, starts = inputs(2, 16, torch.float32, cuda)
     E = (starts.shape[-1] - 1) * TILE_E
-    with pytest.raises(RuntimeError, match="requires grad"):
-        gs.gate_scatter_fwd(vals.clone().requires_grad_(), ins, prior, scatter,
-                            starts)
     with pytest.raises(TypeError):
         gs.gate_scatter_fwd(vals, ins, prior.double(), scatter, starts)
+    g = torch.ones((2, vals.shape[1], E, 32), device=cuda)
+    with pytest.raises(TypeError):
+        gs.gate_scatter_bwd(vals, ins, prior, scatter, starts, g.double())
     # J*D beyond one block's shared memory: the launch's error is raised,
     # and cleared, so the next launch goes through
     with pytest.raises(RuntimeError, match="launch failed"):
         gs.gate_scatter_fwd(vals, ins.repeat(1, 20, 1), prior, scatter, starts)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        gs.gate_scatter_bwd(vals, ins.repeat(1, 20, 1), prior, scatter, starts,
+                            g.repeat(1, 1, 1, 20))
     both = gs.gate_scatter_fwd(vals, ins, prior, scatter, starts)
     torch.cuda.synchronize()
     # per-direction lists are the same call as tensors stacked on axis 0
@@ -111,12 +148,9 @@ class _Dir:
         self.scatter, self.chunk_starts = scatter, chunk_starts
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-def test_rearev_forward_kernel_vs_plain(cuda, compute_dtype, monkeypatch):
-    """The whole eval forward on the card through the kernel and through
-    the plain version: same answer distribution."""
-    rng = np.random.default_rng(1)
+def model_batch(cuda, compute_dtype, seed=1):
+    """A random B4 E512 layout batch and a WebQSP-width ReaRev on the card."""
+    rng = np.random.default_rng(seed)
     B, E, F, R, W = 4, 512, 1500, 5, 32
     kl = layout(B, E, F, rng)
     Fc = 2048
@@ -134,11 +168,20 @@ def test_rearev_forward_kernel_vs_plain(cuda, compute_dtype, monkeypatch):
         q_hidden=rng.standard_normal((B, 6, W)).astype(np.float32),
         layout=kl).to(cuda)
     cfg = Config(data=DataConfig(), model=ModelConfig(
-        entity_dim=50, num_iter=3, num_ins=2, num_gnn=3,
+        entity_dim=50, num_iter=3, num_ins=2, num_gnn=3, linear_dropout=0.0,
         compute_dtype=compute_dtype))
     model = build_model(cfg, 100, R - 1, word_dim=W, seed=0, device=cuda)
     rel = [torch.randn((R, 3, W), device=cuda) * 0.1 for _ in range(2)]
     rel.append(torch.ones((R, 3), device=cuda))
+    return model, batch, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_rearev_forward_kernel_vs_plain(cuda, compute_dtype, monkeypatch):
+    """The whole eval forward on the card through the kernel and through
+    the plain version: same answer distribution."""
+    model, batch, rel = model_batch(cuda, compute_dtype)
     before = gs.launches
     with torch.inference_mode():
         _, _, got = model(batch, *rel)
@@ -150,3 +193,33 @@ def test_rearev_forward_kernel_vs_plain(cuda, compute_dtype, monkeypatch):
     rtol = 1e-4 if compute_dtype == "float32" else 2e-2
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= rtol * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_rearev_train_step_grads_kernel_vs_plain(cuda, monkeypatch):
+    """One training forward + backward on the card through both kernels and
+    through both plain versions: every parameter gradient agrees to 1e-4 of
+    its largest entry + 1e-7 (fp32; only sum orders differ). The two biases
+    that feed only a softmax have a gradient of 0 up to rounding (the
+    softmax is shift invariant): both paths must give |g| <= 1e-5."""
+    model, batch, rel = model_batch(cuda, "float32")
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        model(batch, *rel, training=True)[0].backward()
+        return {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    fwd0, bwd0 = gs.launches, gs.bwd_launches
+    got = grads()
+    torch.cuda.synchronize()
+    assert gs.launches == fwd0 + 10 and gs.bwd_launches == bwd0 + 10
+    monkeypatch.setattr(gs, "gate_scatter_fwd", gs.gate_scatter_fwd_plain)
+    monkeypatch.setattr(gs, "gate_scatter_bwd", gs.gate_scatter_bwd_plain)
+    want = grads()
+    for name, w in want.items():
+        if name in ("reasoning.score_func.bias",
+                    "instruction_decoder.ca_linear.bias"):
+            assert max(got[name].abs().max(), w.abs().max()) <= 1e-5, name
+            continue
+        err = (got[name] - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item() + 1e-7, (name, err)

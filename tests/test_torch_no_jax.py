@@ -1,5 +1,6 @@
 """gnn_rag_tpu_torch runs without JAX: a fresh interpreter imports the port,
-serves one question on the CPU, and never loads jax or flax."""
+serves one question and trains one step on the CPU, and never loads jax,
+flax, optax or orbax."""
 
 import os
 import subprocess
@@ -30,7 +31,25 @@ q = {"id": "q0", "question": "where was m00 born", "entities": ["m.00"],
                              ["m.01", "location.location.contains", "m.02"]]}}
 out = svc.retrieve([q])
 assert out[0]["cand"] and out[0]["paths"], out
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+
+import logging
+from gnn_rag_tpu_torch.data.loader import KGQADataset, ingest_question
+from gnn_rag_tpu_torch.train.trainer import Trainer
+rec = ingest_question(dict(q, answers=["m.01"]), svc.vocab, data_name="webqsp",
+                      use_inverse_relation=False, use_self_loop=True,
+                      num_kb_relation=3)
+rec.q_token_ids = np.zeros(4, np.int32)
+ds = KGQADataset([rec], num_entity=20, num_kb_relation=3)
+ds.q_hidden = [np.ones((4, 24), np.float32)]
+tr = Trainer(cfg, train_data=ds, valid_data=ds, test_data=ds, num_entity=20,
+             num_kb_relation=3, rel_hidden=rel[0], rel_hidden_inv=rel[1],
+             rel_text_mask=np.ones((4, 3), np.float32), word_dim=24,
+             logger=logging.getLogger("no_jax"))
+loss, h1, f1 = tr.train_epoch()
+tr.close()
+assert tr.step_count == 1 and np.isfinite(loss), loss
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax"))
 print("LOADED", loaded)
 """
 
