@@ -7,7 +7,9 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
 Phases, one line each:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: compile the gate-scatter kernel from gnn_rag_tpu_torch/csrc/;
+  2. build: every source under gnn_rag_tpu_torch/csrc/ at once
+     (gate_scatter.cu and flash_attention.cu with nvcc, graphpath.cpp with
+     g++), with ptxas registers and spills;
   3. kernel: the CUDA kernel against its plain PyTorch version on the card at
      the serving shapes (fp32 and bf16), with CUDA-event medians of both;
   3b. kernel, backward: the backward kernel against its plain version at
@@ -37,6 +39,30 @@ Phases, one line each:
      training step;
   7. step time: a training step's time over TRAIN_STEPS steps (CUDA events),
      kernel path against plain path, and one step under torch.profiler.
+The LLM reader (the flash-attention kernels K5a-c):
+  3c. kernel-attn: the flash forward, dq and dk/dv kernels against their
+     plain versions at the SFT step's shape (B8 L2047 H32 D128: the loss
+     feeds tokens[:, :-1] of 2048, a ragged last tile; bf16 and fp32) and
+     at B2 L1000, the plain backward fed the plain forward's lse; two
+     backward launches bit-identical; CUDA-event medians of kernel, plain
+     and SDPA at the SFT shape;
+  8. sft: the RoG joint-finetune SFT (scripts/train_sft.sh) through the
+     port's entry (`python -m gnn_rag_tpu_torch.llm.sft`, run in this
+     process) at LLaMA2-7B width cut to 4 of 32 layers, random weights from
+     the seed: SynthQSP questions in the RoG schema -> preprocess_qa texts
+     -> byte tokens packed at 2048 -> 8 steps at B8; the launch counts prove
+     every step ran n_layers of each kernel; losses finite and falling; the
+     checkpoint reloads to the same parameters and the run resumes from it;
+  9. grad (LLM): every parameter gradient of a B2 fp32 batch, kernels vs
+     plain attention; at bf16 too, each gradient's kernel-vs-plain distance
+     held to the plain bf16 gradient's own distance from the fp32 one;
+  10. decode: the trained reader decodes 8 test prompts greedily (kv cache,
+     plain attention); at fp32 the cache-free forward (flash kernel) and the
+     Decoder's prefill agree on one prompt's last logits;
+  11. step time (LLM): ms per SFT step, positions/s and non-pad tokens/s,
+     kernel path at B8 and plain attention at the largest batch that fits;
+     peak memory; one step under torch.profiler (busy share, the flash
+     kernels' share).
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -55,6 +81,29 @@ SEED = 0
 LATENCY_PASSES = 4
 TRAIN_STEPS = 20
 PALLAS = "gnn_rag_tpu/ops/pallas_mp.py"
+FLASH = "gnn_rag_tpu/llm_tpu/flash_attention.py"
+# the card's published peaks (H100 SXM data sheet, dense): float32 outside
+# the tensor cores (the kernels keep IEEE float32) and bf16 tensor cores
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+HBM_BYTES_PER_S = 3.35e12
+# the RoG joint-finetune SFT of scripts/train_sft.sh (batch 8, 2048 tokens)
+# at LLaMA2-7B width (LlamaConfig defaults: dim 4096, 32 heads of 128,
+# intermediate 11008, vocab 32000, bf16 compute, f32 params), cut to 4 of 32
+# layers: f32 params, grads and AdamW states of 32 layers (~108 GB) exceed
+# the card; lr 3e-4 as scripts/train_reader.py
+SFT_STEPS = 8
+SFT_SEQ = 2048
+SFT_FLAGS = ["--n_layers", "4", "--batch_size", "8",
+             "--max_seq_len", str(SFT_SEQ), "--total_steps", str(SFT_STEPS),
+             "--learning_rate", "3e-4", "--warmup_steps", "100", "--save_every", str(SFT_STEPS),
+             "--seed", str(SEED), "--device", "cuda"]
+# (name, B, L, dtype) of the flash-kernel checks: the shape the SFT step
+# gives the kernels (H32 D128; its loss runs the model on tokens[:, :-1], so
+# L is SFT_SEQ - 1 with a ragged last tile) in both types, and another L
+ATTN_SHAPES = (("sft_b8_l2047_bf16", 8, SFT_SEQ - 1, "bfloat16"),
+               ("sft_b8_l2047_fp32", 8, SFT_SEQ - 1, "float32"),
+               ("ragged_b2_l1000_bf16", 2, 1000, "bfloat16"),
+               ("ragged_b2_l1000_fp32", 2, 1000, "float32"))
 # scripts/rearev_webqsp.sh with the reference's training defaults
 HEADLINE_FLAGS = ["ReaRev", "--entity_dim", "50", "--num_iter", "3",
                   "--num_ins", "2", "--num_gnn", "3", "--lm", "sbert",
@@ -221,13 +270,14 @@ def check_bwd_kernels(device):
     return rows
 
 
-def make_data(root):
+def refbench(root, n_train, n_dev, n_test):
     """A SynthQSP split at the default (WebQSP-like) subgraph scale, from
-    the repository's generator run as its own command."""
-    subprocess.run([sys.executable, "-m", "gnn_rag_tpu.utils.refbench",
-                    "--out", root, "--seed", str(SEED), "--n_train", "8",
-                    "--n_dev", "8", "--n_test", "64"],
-                   cwd=REPO, check=True, capture_output=True, text=True)
+    the port's generator run as its own command."""
+    subprocess.run([sys.executable, "-m", "gnn_rag_tpu_torch.utils.refbench",
+                    "--out", root, "--seed", str(SEED), "--n_train",
+                    str(n_train), "--n_dev", str(n_dev), "--n_test",
+                    str(n_test)], cwd=REPO, check=True, capture_output=True,
+                   text=True)
 
 
 def headline_config(root, compute_dtype="float32"):
@@ -334,7 +384,7 @@ def run_slice(device, root):
     from gnn_rag_tpu_torch.train.evaluate import Evaluator
 
     t0 = time.perf_counter()
-    make_data(root)
+    refbench(root, n_train=8, n_dev=8, n_test=64)
     cfg = headline_config(root)
     bundle = load_dataset_dir(cfg)
     test, vocab, tok = bundle["test"], bundle["vocab"], bundle["tokenizer"]
@@ -456,10 +506,7 @@ def run_train(device, root):
     from gnn_rag_tpu_torch.ops import gate_scatter as gs
 
     t0 = time.perf_counter()
-    subprocess.run([sys.executable, "-m", "gnn_rag_tpu.utils.refbench",
-                    "--out", root, "--seed", str(SEED), "--n_train", "64",
-                    "--n_dev", "16", "--n_test", "16"],
-                   cwd=REPO, check=True, capture_output=True, text=True)
+    refbench(root, n_train=64, n_dev=16, n_test=16)
     flags = HEADLINE_FLAGS + ["--data_folder", root + "/", "--checkpoint_dir",
                               os.path.join(root, "ckpt"),
                               "--experiment_name", "smoke"]
@@ -493,9 +540,9 @@ def run_train(device, root):
         raise AssertionError(f"checkpoints written: {written}")
     init = build_model(cfg, tr.num_entity, ctx["bundle"]["num_kb_relation"],
                        word_dim=cfg.model.word_dim_effective,
-                       seed=cfg.train.seed).state_dict()
+                       seed=cfg.train.seed, device=device).state_dict()
     trained = tr.model.state_dict()      # the final checkpoint's weights
-    changed = sum(not torch.equal(init[k], v.cpu()) for k, v in trained.items())
+    changed = sum(not torch.equal(init[k], v) for k, v in trained.items())
     if changed < len(trained) - 1:
         raise AssertionError(f"only {changed} of {len(trained)} parameters "
                              "changed in training")
@@ -651,13 +698,505 @@ def train_step_time(tr, device):
     return summary
 
 
+# ------------------------------------------- bounds, then the LLM reader
+def bound(flops, nbytes, dtype):
+    """(least card time in ms, what bounds it): the larger of the operations
+    over the card's peak for the type and the bytes over its memory rate."""
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def gate_bound(row, backward):
+    """Bound of a gate-scatter launch at a kernel row's shapes, both
+    directions: every input read once, every output written once; a
+    multiply, a scale and an add per (fact, column) forward, twice that
+    backward."""
+    B, E, Fp, J, D = row["B"], row["E"], row["Fp"], row["J"], row["D"]
+    it = 4 if row["dtype"] == "float32" else 2
+    vals, ins = 2 * B * Fp * D * it, B * J * D * it
+    per_fact = 2 * B * Fp * 4                 # prior or scatter, f32 / i32
+    starts = 2 * B * (E // 128 + 1) * 4
+    out = 2 * B * E * J * D * 4
+    nbytes = vals + ins + 2 * per_fact + starts + out
+    if backward:                              # + dvals, dprior, dins out
+        nbytes += vals + per_fact + ins
+    return bound((6 if backward else 3) * 2 * B * Fp * J * D, nbytes,
+                 row["dtype"])
+
+
+def attn_bounds(B, L, H, D, dtype):
+    """Bound of each flash kernel: the causal (query, key) pairs this input
+    has, 2*D operations per pair and product (forward: s and PV; dq: s, dp,
+    dq; dk/dv: s, dp, dv, dk), each [B, L, H, D] tensor and [B*H, L]
+    statistic read or written once."""
+    pairs = B * H * L * (L + 1) // 2
+    x = B * L * H * D * (4 if dtype == "float32" else 2)
+    st = B * H * L * 4
+    return {"fwd": bound(4 * pairs * D, 4 * x + st, dtype),
+            "dq": bound(6 * pairs * D, 5 * x + 2 * st, dtype),
+            "dkv": bound(8 * pairs * D, 6 * x + 2 * st, dtype)}
+
+
+def swapped_to_plain_attn(fn):
+    """Run ``fn`` with the three flash kernels swapped for their plain
+    versions (restored afterwards)."""
+    from gnn_rag_tpu_torch.llm import flash_attention as fa
+    real = fa.flash_fwd, fa.flash_dq, fa.flash_dkv
+    fa.flash_fwd, fa.flash_dq, fa.flash_dkv = (
+        fa.flash_fwd_plain, fa.flash_dq_plain, fa.flash_dkv_plain)
+    try:
+        return fn()
+    finally:
+        fa.flash_fwd, fa.flash_dq, fa.flash_dkv = real
+
+
+def attn_counts():
+    from gnn_rag_tpu_torch.llm import flash_attention as fa
+    return fa.fwd_launches, fa.dq_launches, fa.dkv_launches
+
+
+def reset_attn_counts():
+    from gnn_rag_tpu_torch.llm import flash_attention as fa
+    fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+
+
+def attn_err(a, b):
+    """(max|a - b|, max|b|, the largest ratio of |a - b| to its tolerance)
+    of one flash output against its plain version. Float32 outputs (every
+    fp32 one, and lse in both types) to 1e-4 of max|b|: the online softmax
+    rescales in another order than the two-pass softmax. bf16 outputs
+    ``[B, L, H, D]`` per element to 2^-7 |b| + 1e-2 rms_row(b) +
+    1e-3 rms(b): the float results differ by a few float roundings, so
+    their bf16 roundings are one bf16 step apart (2^-7 |b|) plus that
+    difference; the largest difference is p's rounding to bf16 before PV
+    at another point of the online softmax, a few thousandths of the
+    row's rms (rms_row over D; a query's output row is ~30x larger when it
+    averages one key than 2047 keys), carried into the backward by lse
+    and delta; the last term covers rows whose exact value is 0 (the first
+    query's dq) and hold float noise."""
+    import torch
+    d = (a.float() - b.float()).abs()
+    bf = b.float().abs()
+    if a.dtype == torch.float32:
+        tol = 1e-4 * bf.max()
+    else:
+        sq = bf.square()
+        tol = (2 ** -7 * bf + 1e-2 * sq.mean(-1, keepdim=True).sqrt()
+               + 1e-3 * sq.mean().sqrt())
+    return d.max().item(), bf.max().item(), (d / tol).max().item()
+
+
+def check_attn_kernels(device):
+    """Phase kernel-attn: forward, dq and dk/dv kernels against their plain
+    versions (the plain backward fed the plain forward's lse and delta, so
+    a wrong lse shows in the gradients too), two backward launches
+    bit-identical; CUDA-event medians of kernel, plain and SDPA at the SFT
+    shapes."""
+    import torch
+    import torch.nn.functional as F
+    from gnn_rag_tpu_torch.llm import flash_attention as fa
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    timing = dict(runs=5, reps=2, warmup=1)
+    rows, bad = [], []
+    for name, B, L, dtype in ATTN_SHAPES:
+        H, D = 32, 128
+        q, k, v, g = (torch.randn((B, L, H, D), generator=gen, device=device)
+                      .to(getattr(torch, dtype)) for _ in range(4))
+        o, lse = fa.flash_fwd(q, k, v)
+        delta = fa.bwd_delta(o, g)
+        got = (o, lse, fa.flash_dq(q, k, v, g, lse, delta),
+               *fa.flash_dkv(q, k, v, g, lse, delta))
+        again = (fa.flash_dq(q, k, v, g, lse, delta),
+                 *fa.flash_dkv(q, k, v, g, lse, delta))
+        torch.cuda.synchronize()
+        po, plse = fa.flash_fwd_plain(q, k, v)
+        pdelta = fa.bwd_delta(po, g)
+        want = (po, plse, fa.flash_dq_plain(q, k, v, g, plse, pdelta),
+                *fa.flash_dkv_plain(q, k, v, g, plse, pdelta))
+        del po, plse, pdelta
+        torch.cuda.synchronize()
+        errs = {}
+        for part, a, b in zip(("o", "lse", "dq", "dk", "dv"), got, want):
+            errs[part] = attn_err(a, b)
+            if not (a.dtype == b.dtype and torch.isfinite(a).all()
+                    and errs[part][2] <= 1):
+                bad.append(f"{name} {part}: max|d| {errs[part][0]}, max|ref| "
+                           f"{errs[part][1]}, {errs[part][2]} x tolerance")
+        if not all(torch.equal(a, b) for a, b in zip(got[2:], again)):
+            bad.append(f"{name}: flash backward not bit-repeatable")
+        row = dict(shape=name, B=B, L=L, H=H, D=D, dtype=dtype,
+                   err_ref_over_tol_by_output=errs)
+        if B == 8:
+            bounds = attn_bounds(B, L, H, D, dtype)
+            row["bound_ms"] = {k_: b_[0] for k_, b_ in bounds.items()}
+            row["bound_by"] = {k_: b_[1] for k_, b_ in bounds.items()}
+            row["ms"] = {
+                "fwd": median_ms(lambda: fa.flash_fwd(q, k, v), **timing),
+                "dq": median_ms(lambda: fa.flash_dq(q, k, v, g, lse, delta),
+                                **timing),
+                "dkv": median_ms(lambda: fa.flash_dkv(q, k, v, g, lse, delta),
+                                 **timing)}
+            row["plain_ms"] = {
+                "fwd": median_ms(lambda: fa.flash_fwd_plain(q, k, v), **timing),
+                "dq": median_ms(lambda: fa.flash_dq_plain(q, k, v, g, lse,
+                                                          delta), **timing),
+                "dkv": median_ms(lambda: fa.flash_dkv_plain(q, k, v, g, lse,
+                                                            delta), **timing)}
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            with torch.no_grad():
+                row["sdpa_fwd_ms"] = median_ms(
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                           is_causal=True),
+                    **timing)
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            gt = g.transpose(1, 2)
+            row["sdpa_bwd_ms"] = median_ms(
+                lambda: torch.autograd.grad(out, (qt, kt, vt), gt,
+                                            retain_graph=True), **timing)
+            del qt, kt, vt, out
+        log("kernel-attn", json.dumps(row))
+        rows.append(row)
+        del q, k, v, g, o, lse, delta, got, again, want
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("flash kernels vs plain: " + "; ".join(bad))
+    return rows
+
+
+def sft_data(root):
+    """The RoG recipe's data: a SynthQSP split from the port's generator,
+    its questions in the RoG schema, ``preprocess_qa`` texts (ground-truth
+    paths in the llama2 prompt, 2048 - 200 byte tokens of budget) as JSONL;
+    returns (train JSONL path, 8 test prompts as byte-token ids)."""
+    import random
+
+    from gnn_rag_tpu_torch.finetune.data_prep import preprocess_qa, rog_example
+    from gnn_rag_tpu_torch.llm.sft import RESPONSE_TEMPLATE
+    from gnn_rag_tpu_torch.llm.tokenizers import ByteTokenizer
+    refbench(root, n_train=64, n_dev=1, n_test=8)
+    tok = ByteTokenizer()
+    paths = {}
+    for split in ("train", "test"):
+        with open(os.path.join(root, f"{split}.json")) as f:
+            rog = [rog_example(json.loads(line)) for line in f]
+        random.seed(SEED)           # the prompt budget's shuffle-truncation
+        paths[split] = os.path.join(root, f"{split}_qa.jsonl")
+        preprocess_qa(rog, paths[split],
+                      prompt_path=os.path.join(REPO, "prompts",
+                                               "llama2_predict.txt"),
+                      tokenize=lambda text: len(tok.encode(text)))
+    with open(paths["test"]) as f:
+        texts = [json.loads(line)["text"] for line in f]
+    prompts = [tok.encode(t[:t.rindex(RESPONSE_TEMPLATE)
+                            + len(RESPONSE_TEMPLATE)]) for t in texts]
+    return paths["train"], prompts
+
+
+def run_sft(device, root):
+    """Phase sft: the RoG joint-finetune SFT through the port's entry
+    (``python -m gnn_rag_tpu_torch.llm.sft``, run in this process) at
+    LLaMA2-7B width cut to 4 layers, 8 steps at B8 x 2048 tokens; then the
+    saved checkpoint reloaded and the run resumed from it."""
+    import numpy as np
+    import torch
+    from gnn_rag_tpu_torch.llm import sft
+    from gnn_rag_tpu_torch.llm.tokenizers import ByteTokenizer
+
+    t0 = time.perf_counter()
+    train_path, prompts = sft_data(root)
+    out_dir = os.path.join(root, "sft")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path, counted: 8 SFT steps ----
+    reset_attn_counts()
+    t1 = time.perf_counter()
+    trainer, losses = sft.main(["--data", train_path, "--output_dir", out_dir,
+                                *SFT_FLAGS])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = attn_counts()
+    steps = len(losses)
+    per_step = trainer.model.cfg.n_layers
+    if steps != SFT_STEPS or launches != (per_step * steps,) * 3:
+        raise AssertionError(f"SFT: {steps} steps, flash launches {launches}; "
+                             f"expected {per_step} per step each")
+    if not (np.isfinite(losses).all()
+            and np.mean(losses[-2:]) < losses[0]):
+        raise AssertionError(f"SFT losses {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    # ---- save, reload, resume ----
+    trained = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+    again = sft.SFTTrainer(trainer.model.cfg, trainer.cfg, device=device)
+    if not (again.maybe_resume() and again.step == steps):
+        raise AssertionError("SFT: no checkpoint to resume from")
+    same = all(torch.equal(v.cpu(), trained[k])
+               for k, v in again.model.state_dict().items())
+    tok = ByteTokenizer()
+    with open(train_path) as f:
+        texts = [json.loads(line)["text"] for line in f]
+    tokens, mask = sft.pack_examples(
+        texts, tok.encode, tok.encode(sft.RESPONSE_TEMPLATE, add_bos=False),
+        trainer.cfg.max_seq_len, tok.pad_id)
+    more = again.train(tokens, mask, steps=steps + 1, resume=False,
+                       log_every=10**9)
+    if not (same and again.step == steps + 1 and np.isfinite(more).all()):
+        raise AssertionError(f"SFT reload same={same}, resumed losses {more}")
+    del again, trained
+    torch.cuda.empty_cache()
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    summary = dict(
+        layers=per_step, dim=trainer.model.cfg.dim, params=n_params,
+        examples=len(texts), steps=steps, losses=losses,
+        flash_launches_fwd_dq_dkv=launches, wall_s=wall,
+        setup_s=t1 - t0, peak_gb=peak_gb,
+        mask_tokens_per_example=float(mask[:, 1:].sum(1).mean()),
+        tokens_per_example=float((tokens != tok.pad_id).sum(1).mean()),
+        reload_equal=same, resumed_loss=more)
+    log("sft", json.dumps(summary))
+    return summary, trainer, tokens, mask, prompts
+
+
+def as_dtype(model, dtype):
+    """A view of ``model`` computing in ``dtype``: the same parameter
+    storage under another LlamaConfig.dtype."""
+    import dataclasses
+
+    import torch
+    from gnn_rag_tpu_torch.llm.model import LlamaLM
+    with torch.device("meta"):
+        view = LlamaLM(dataclasses.replace(model.cfg, dtype=dtype))
+    view.load_state_dict(model.state_dict(), assign=True)
+    return view
+
+
+def check_llm_grads(trainer, tokens, mask, device):
+    """Phase grad (LLM): every parameter gradient of one B2 float32 batch
+    through the flash kernels against the plain attention (1e-4 of the
+    largest entry + 1e-7), and one bf16 step's gradients finite."""
+    import torch
+    from gnn_rag_tpu_torch.llm.sft import completion_loss
+    tok = torch.from_numpy(tokens[:2]).to(device)
+    msk = torch.from_numpy(mask[:2]).to(device)
+    m32 = as_dtype(trainer.model, "float32")
+
+    def grads(model):
+        for p in model.parameters():
+            p.grad = None
+        completion_loss(model, tok, msk).backward()
+        return {n: p.grad for n, p in model.named_parameters()}
+
+    reset_attn_counts()
+    got = grads(m32)
+    torch.cuda.synchronize()
+    launches = attn_counts()
+    want = swapped_to_plain_attn(lambda: grads(m32))
+    worst = (0.0, "", 0.0)
+    for name, w in want.items():
+        err = (got[name] - w).abs().max().item()
+        tol = 1e-4 * w.abs().max().item() + 1e-7
+        if not err <= tol:
+            raise AssertionError(f"LLM grad {name}: kernel vs plain {err} > {tol}")
+        worst = max(worst, (err / tol, name, err))
+    n = trainer.model.cfg.n_layers
+    if launches != (n, n, n):
+        raise AssertionError(f"grad: flash launches {launches}")
+    del want, m32
+    # bf16: the two paths round at different points, so their gradients
+    # differ by bf16 noise; each parameter's kernel-vs-plain distance is held
+    # to twice the plain path's own distance from the float32 gradient (two
+    # paths of equal accuracy are sqrt(2) of it apart at most, when their
+    # errors are independent); a wrong kernel is O(1) of the gradient away
+    reset_attn_counts()
+    bf = grads(trainer.model)
+    torch.cuda.synchronize()
+    bf_launches = attn_counts()
+    bf_plain = swapped_to_plain_attn(lambda: grads(trainer.model))
+    finite = all(torch.isfinite(g).all() for g in bf.values())
+    ratios = {}
+    for name, w in bf_plain.items():
+        own = (w - got[name]).norm().item()
+        ratios[name] = (bf[name] - w).norm().item() / max(own, 1e-30)
+    for p in trainer.model.parameters():
+        p.grad = None
+    bf_worst = max(ratios, key=ratios.get)
+    summary = dict(batch=2, params=len(bf), flash_launches=launches,
+                   worst_err_over_tol=worst[0], worst_param=worst[1],
+                   worst_err=worst[2], bf16_grads_finite=finite,
+                   bf16_flash_launches=bf_launches,
+                   bf16_worst_param=bf_worst,
+                   bf16_worst_kernel_vs_plain_over_plain_vs_fp32=ratios[bf_worst],
+                   bf16_median_ratio=sorted(ratios.values())[len(ratios) // 2])
+    log("grad-llm", json.dumps(summary))
+    del got, bf, bf_plain
+    torch.cuda.empty_cache()
+    if not (finite and bf_launches == (n, n, n) and ratios[bf_worst] <= 2):
+        raise AssertionError(f"bf16 SFT gradients: finite {finite}, launches "
+                             f"{bf_launches}, {bf_worst} kernel vs plain "
+                             f"{ratios[bf_worst]} x plain vs fp32")
+    return summary
+
+
+def run_decode(trainer, prompts, device):
+    """Phase decode: the trained reader decodes 8 test prompts greedily (32
+    new tokens, eos 2) through the kv-cache Decoder; at float32, one
+    prompt's last-position logits from the cache-free forward (the flash
+    kernel, ragged L) and from the Decoder's prefill (plain attention over
+    the cache) agree to 1e-4 of the largest logit."""
+    import torch
+    from gnn_rag_tpu_torch.llm.generate import Decoder
+    from gnn_rag_tpu_torch.llm.tokenizers import ByteTokenizer
+    model = trainer.model.eval()
+    tok = ByteTokenizer()
+    reset_attn_counts()
+    t0 = time.perf_counter()
+    outs = Decoder(model, max_len=2048).greedy_batch(prompts, 32, eos_id=2)
+    wall = time.perf_counter() - t0
+    if attn_counts() != (0, 0, 0) or len(outs) != len(prompts) or not all(
+            1 <= len(o) <= 32 and all(0 <= i < model.cfg.vocab_size for i in o)
+            for o in outs):
+        raise AssertionError(f"greedy_batch: {outs}, launches {attn_counts()}")
+    m32 = as_dtype(model, "float32").eval()
+    ids = torch.tensor([prompts[0]], device=device)
+    with torch.no_grad():
+        reset_attn_counts()
+        full = m32(ids)[0][0, -1]
+        torch.cuda.synchronize()
+        launches = attn_counts()
+        pre = Decoder(m32, max_len=ids.shape[1]).prefill(
+            ids, torch.ones(ids.shape, device=device))[0][0, -1]
+    diff = (full - pre).abs().max().item()
+    scale = full.abs().max().item()
+    n = model.cfg.n_layers
+    if not (launches == (n, 0, 0) and diff <= 1e-4 * scale):
+        raise AssertionError(f"decode cross-check: launches {launches}, "
+                             f"max|d| {diff} vs {scale}")
+    model.train()
+    summary = dict(prompts=len(prompts),
+                   prompt_tokens=[len(p) for p in prompts],
+                   new_tokens=[len(o) for o in outs], wall_s=wall,
+                   first_answers=[tok.decode(o) for o in outs[:2]],
+                   crosscheck_len=ids.shape[1], crosscheck_launches=launches,
+                   crosscheck_max_abs_diff=diff, crosscheck_max_abs_logit=scale)
+    log("decode", json.dumps(summary))
+    return summary
+
+
+def sft_step_time(trainer, tokens, mask, device):
+    """Phase step-time (LLM): ms per SFT step (CUDA events over 2 steps
+    after one warm-up; kernel, plain, plain, kernel) at B8 on the kernel
+    path and at the largest batch that fits on the plain path; positions/s
+    (every one of the b x 2047 predicted positions, padding included) and
+    non-pad tokens/s (the batch's tokens that are not padding); peak
+    memory; one kernel-path step under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnn_rag_tpu_torch.llm.tokenizers import ByteTokenizer
+    tok = torch.from_numpy(tokens[:8]).to(device)
+    msk = torch.from_numpy(mask[:8]).to(device)
+    pad_id = ByteTokenizer().pad_id
+
+    def ms_per_step(b, n=2):
+        trainer.train_step(tok[:b], msk[:b])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            trainer.train_step(tok[:b], msk[:b])
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n
+
+    def plain_ms():
+        for b in (8, 4, 2, 1):
+            try:
+                return b, swapped_to_plain_attn(lambda: ms_per_step(b))
+            except torch.cuda.OutOfMemoryError:
+                for p in trainer.params:
+                    p.grad = None
+                torch.cuda.empty_cache()
+        raise AssertionError("plain path: no batch fits")
+
+    kernel, plain = [], []
+    torch.cuda.reset_peak_memory_stats()
+    kernel.append(ms_per_step(8))
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    for _ in range(2):
+        plain.append(plain_ms())
+    kernel.append(ms_per_step(8))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        trainer.train_step(tok, msk)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+    dev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+           and e.self_device_time_total > 0]
+    dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    flash_ms = sum(e.self_device_time_total for e in dev
+                   if "flash_" in e.key) / 1e3
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:10]
+    def rates(b, ms):
+        """(positions/s, non-pad tokens/s) of a b-example step of ms."""
+        nonpad = (tok[:b] != pad_id).sum().item()
+        return 1e3 * b * (tok.shape[1] - 1) / ms, 1e3 * nonpad / ms
+
+    summary = dict(
+        batch=8, seq=int(tok.shape[1]), ms_per_step_kernel=kernel,
+        positions_and_nonpad_tokens_per_s_kernel=[rates(8, x) for x in kernel],
+        nonpad_tokens_per_example=(tok != pad_id).sum().item() / 8,
+        peak_gb_kernel=peak_gb,
+        plain_batch_ms=plain,
+        positions_and_nonpad_tokens_per_s_plain=[rates(b, x) for b, x in plain],
+        profiled_step_wall_ms=wall, device_ms=dev_ms,
+        busy_share=dev_ms / wall if dev_ms else "not measured",
+        flash_device_ms=flash_ms,
+        flash_share=flash_ms / dev_ms if dev_ms else "not measured",
+        device_kernels_per_step=sum(e.count for e in dev),
+        top_device_ops=[[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                        for e in top])
+    log("step-time-llm", json.dumps(summary))
+    return summary
+
+
+def build_all():
+    """Build every native library of the port at once (one compiler
+    process per source, all started together); log each one's time and
+    ptxas register / spill lines."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gnn_rag_tpu_torch.utils import build
+
+    def timed(src):
+        t = time.perf_counter()
+        path = build.library(src)
+        return path, time.perf_counter() - t
+
+    sources = ("gate_scatter.cu", "flash_attention.cu", "graphpath.cpp")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        done = {src: pool.submit(timed, src) for src in sources}
+        for src, fut in done.items():
+            path, secs = fut.result()
+            stem = os.path.splitext(src)[0]
+            ptxas = [" ".join(ln.split()) for ln in
+                     build.logs.get(stem, "").splitlines()
+                     if "Compiling entry" in ln or "registers" in ln
+                     or "spill" in ln]
+            log("build", f"{os.path.relpath(path, REPO)} in {secs:.1f} s; "
+                f"{' | '.join(ptxas)}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this check needs an NVIDIA GPU")
     sys.path.insert(0, REPO)
-    from gnn_rag_tpu_torch.ops import gate_scatter as gs
     device = torch.device("cuda", 0)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -669,42 +1208,64 @@ def main():
         f"{torch.version.cuda}")
     print(card, flush=True)
 
-    t = time.perf_counter()
-    lib = gs.build()
-    ptxas = [ln.strip() for ln in gs.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    log("build", f"{os.path.relpath(lib, REPO)} in "
-        f"{time.perf_counter() - t:.1f} s; {' | '.join(ptxas)}")
-
+    build_all()
     rows = check_kernels(device)
     bwd_rows = check_bwd_kernels(device)
+    attn_rows = check_attn_kernels(device)
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
-        summary, launches = run_slice(device, root)
+        _, serve_launches = run_slice(device, root)
         os.makedirs(os.path.join(root, "train"))
-        train, tr, train_fwd, train_bwd = run_train(device,
-                                                    os.path.join(root, "train"))
-        grad = check_grads(tr, device)
-        step_time = train_step_time(tr, device)
+        _, tr, train_fwd, train_bwd = run_train(device,
+                                                os.path.join(root, "train"))
+        check_grads(tr, device)
+        train_step_time(tr, device)
+        del tr
+        torch.cuda.empty_cache()
+        os.makedirs(os.path.join(root, "llm"))
+        sft, trainer, tokens, mask, prompts = run_sft(
+            device, os.path.join(root, "llm"))
+        check_llm_grads(trainer, tokens, mask, device)
+        run_decode(trainer, prompts, device)
+        sft_step_time(trainer, tokens, mask, device)
 
-    source = "gnn_rag_tpu_torch/csrc/gate_scatter.cu"
-    print(json.dumps({"kernels": [{
-        "name": "gate_scatter_fwd", "route": "cuda", "source": source,
-        "replaces": f"{PALLAS}:844",
-        "also_replaces": [f"{PALLAS}:1231", f"{PALLAS}:565"],
-        "launches": train_fwd,
-        "launches_by_path": {"serve": launches, "train": train_fwd},
-        "max_abs_err": rows[0]["max_abs_err"],
-        "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
-        "shapes": rows, "slice": summary}, {
-        "name": "gate_scatter_bwd", "route": "cuda", "source": source,
-        "replaces": f"{PALLAS}:988",
-        "also_replaces": [f"{PALLAS}:1267", f"{PALLAS}:639"],
-        "launches": train_bwd,
-        "max_abs_err": bwd_rows[0]["max_abs_err"],
-        "ms": bwd_rows[0]["ms"], "plain_ms": bwd_rows[0]["plain_ms"],
-        "shapes": bwd_rows, "train": train, "grad": grad,
-        "step_time": step_time}]}), flush=True)
+    gate = "gnn_rag_tpu_torch/csrc/gate_scatter.cu"
+    kernels = []
+    for name, row, launches, replaces, also, backward in (
+            ("gate_scatter_fwd", rows[0], train_fwd, 844, (1231, 565), False),
+            ("gate_scatter_bwd", bwd_rows[0], train_bwd, 988, (1267, 639),
+             True)):
+        bound_ms, bound_by = gate_bound(row, backward)
+        kernels.append({
+            "name": name, "route": "cuda", "source": gate,
+            "replaces": f"{PALLAS}:{replaces}",
+            "also_replaces": [f"{PALLAS}:{x}" for x in also],
+            "launches": launches, "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "shape": row["shape"], "launches_by_path": (
+                {"serve": serve_launches, "train": train_fwd} if not backward
+                else {"train": train_bwd})})
+    main_row = attn_rows[0]
+    for i, (name, key, line) in enumerate((
+            ("flash_attention_fwd", "fwd", 47), ("flash_attention_dq", "dq", 132),
+            ("flash_attention_dkv", "dkv", 170))):
+        parts = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "gnn_rag_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"{FLASH}:{line}",
+            "launches": sft["flash_launches_fwd_dq_dkv"][i],
+            "max_abs_err": max(main_row["err_ref_over_tol_by_output"][p][0]
+                               for p in parts),
+            "ms": main_row["ms"][key], "plain_ms": main_row["plain_ms"][key],
+            "bound_ms": main_row["bound_ms"][key],
+            "bound_by": main_row["bound_by"][key],
+            "library_ms": main_row["sdpa_fwd_ms"] if key == "fwd" else None,
+            "shape": main_row["shape"],
+            **({} if key == "fwd" else
+               {"sdpa_bwd_ms_dq_dk_dv_together": main_row["sdpa_bwd_ms"]})})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

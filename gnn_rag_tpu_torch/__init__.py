@@ -1,5 +1,6 @@
-"""gnn_rag_tpu_torch — the GNN-RAG retriever in PyTorch for an NVIDIA H100,
-serving and training, beside the JAX reference package ``gnn_rag_tpu``.
+"""gnn_rag_tpu_torch — GNN-RAG in PyTorch for an NVIDIA H100: the retriever
+(serving and training) and the LLM reader's SFT, beside the JAX reference
+package ``gnn_rag_tpu``.
 
 Serving: question JSON -> ingest + tile-sorted kernel layout (``data``) ->
 frozen question/relation LM (``models.frozen_lm``) -> ReaRev forward
@@ -15,7 +16,14 @@ Adam with staircase decay, on-device metrics, checkpoints in
 ``utils.checkpoint``). ``bridge`` carries flax parameter trees across, so
 every module and gradient is held against its JAX counterpart.
 
-The package imports torch and never jax, flax, optax or orbax.
+The LLM reader: ``python -m gnn_rag_tpu_torch.llm.sft`` (``llm.sft``) trains
+``llm.model.LlamaLM`` with completion-only loss on ``finetune.data_prep``
+texts; its attention runs the hand-written flash-attention CUDA kernels
+forward and backward (``llm.flash_attention``, ``csrc/flash_attention.cu``);
+``llm.generate.Decoder`` decodes greedily with a kv cache.
+
+The package imports torch and never jax, flax, optax, orbax or a module of
+``gnn_rag_tpu``: the framework-free modules it needs are copies of its own.
 """
 
 import torch

@@ -20,6 +20,13 @@ The module's own name decides the rule:
 A leaf that no rule names raises ``KeyError``; loading the result with
 ``load_state_dict`` (strict) catches parameters left unfilled. ``to_flax``
 is the inverse.
+
+``llama_from_flax`` / ``llama_to_flax`` do the same for the LLM reader
+(``llm.model.LlamaLM``). Its TDense kernels are already ``[out, in]``
+(gnn_rag_tpu/llm_tpu/model.py:111-136), so they map onto
+``nn.Linear.weight`` with no transpose; ``tok_emb.embedding`` maps onto the
+embedding's ``weight`` and the RMSNorm ``scale``s keep their name
+(``lm_head`` is absent when the embeddings are tied).
 """
 
 from __future__ import annotations
@@ -117,4 +124,40 @@ def to_flax(state_dict, heads: int = 0) -> dict:
         for p in parents:
             node = node.setdefault(p, {})
         node[last] = np.ascontiguousarray(val)
+    return {"params": tree}
+
+
+_LLAMA_LEAVES = {"kernel": "weight", "embedding": "weight", "scale": "scale"}
+
+
+def llama_from_flax(params) -> Dict[str, torch.Tensor]:
+    """flax LlamaLM parameter tree -> ``LlamaLM`` state_dict (float32 CPU
+    tensors, no transposes)."""
+    if "params" in params:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(params):
+        module, _, leaf = path.rpartition(".")
+        if leaf not in _LLAMA_LEAVES:
+            raise KeyError(f"bridge: no rule for flax leaf {path!r} {arr.shape}")
+        out[f"{module}.{_LLAMA_LEAVES[leaf]}"] = torch.from_numpy(
+            np.array(arr, np.float32))
+    return out
+
+
+def llama_to_flax(state_dict) -> dict:
+    """``LlamaLM`` state_dict -> ``{"params": tree}`` of numpy arrays."""
+    tree: dict = {}
+    for name, t in state_dict.items():
+        module, _, leaf = name.rpartition(".")
+        if leaf == "scale":
+            fleaf = "scale"
+        elif leaf == "weight":
+            fleaf = "embedding" if module == "tok_emb" else "kernel"
+        else:
+            raise KeyError(f"bridge: no rule for torch parameter {name!r}")
+        node = tree
+        for part in module.split("."):
+            node = node.setdefault(part, {})
+        node[fleaf] = np.ascontiguousarray(t.detach().float().cpu().numpy())
     return {"params": tree}

@@ -5,10 +5,10 @@
         --num_ins 2 --num_gnn 3 --batch_size 8 --linear_dropout 0.2 \
         --lr 5e-4 --gradient_clip 1.0 --experiment_name webqsp_rearev
 
-The parser is ``gnn_rag_tpu.cli.build_parser`` (framework-free; the flag
-names of the reference's gnn/parsing.py) plus ``--device {cuda,cpu}``
-(default cuda; asking for cuda without a card raises, there is no silent CPU
-run). ``assemble`` loads the data, runs the frozen LM once over relation
+The flags are those of the JAX package's CLI (``build_parser`` and
+``args_to_config`` are copies of gnn_rag_tpu/cli.py:21-168; the flag names of
+the reference's gnn/parsing.py) plus ``--device {cuda,cpu}`` (default cuda;
+asking for cuda without a card raises, there is no silent CPU run). ``assemble`` loads the data, runs the frozen LM once over relation
 texts and questions and builds the Trainer; ``run`` trains, or with
 ``--is_eval`` writes the test `.info` (port of gnn_rag_tpu/cli.py:171-319).
 Flags outside the ported configuration raise ``NotImplementedError``.
@@ -18,28 +18,168 @@ from __future__ import annotations
 
 import argparse
 import os
+import time
 
 import torch
 
-from gnn_rag_tpu.cli import args_to_config
-from gnn_rag_tpu.cli import build_parser as _reference_parser
-from gnn_rag_tpu.utils.logging import create_logger
-
+from .config import Config, DataConfig, ModelConfig, TrainConfig
 from .data.loader import load_dataset_dir
 from .models.frozen_lm import FrozenLM, encode_questions, encode_relations
 from .models.rearev import check_supported as check_model_supported
 from .train.trainer import Trainer
+from .utils.logging import create_logger
+
+
+def bool_flag(v: str) -> bool:
+    if v.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if v.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    raise argparse.ArgumentTypeError("Boolean value expected.")
+
+
+def add_shared_args(parser):
+    parser.add_argument("--name", default="webqsp", type=str)
+    parser.add_argument("--data_folder", default="data/webqsp/", type=str)
+    parser.add_argument("--max_train", default=200000, type=int)
+    parser.add_argument("--word2id", default="vocab.txt", type=str)
+    parser.add_argument("--relation2id", default="relations.txt", type=str)
+    parser.add_argument("--entity2id", default="entities.txt", type=str)
+    parser.add_argument("--entity_emb_file", default=None, type=str)
+    parser.add_argument("--relation_emb_file", default=None, type=str)
+    parser.add_argument("--relation_word_emb", default=True, type=bool_flag)
+    parser.add_argument("--word_emb_file", default="word_emb.npy", type=str)
+    parser.add_argument("--lm", default="lstm", type=str,
+                        choices=["lstm", "bert", "roberta", "sbert", "t5",
+                                 "sbert2", "simcse", "relbert"])
+    parser.add_argument("--lm_frozen", default=1, type=int)
+    parser.add_argument("--entity_dim", default=50, type=int)
+    parser.add_argument("--kg_dim", default=100, type=int)
+    parser.add_argument("--word_dim", default=300, type=int)
+    parser.add_argument("--lm_dropout", default=0.3, type=float)
+    parser.add_argument("--linear_dropout", default=0.2, type=float)
+    parser.add_argument("--num_epoch", default=100, type=int)
+    parser.add_argument("--warmup_epoch", default=0, type=int)
+    parser.add_argument("--fact_scale", default=3, type=int)
+    parser.add_argument("--eval_every", default=2, type=int)
+    parser.add_argument("--batch_size", default=20, type=int)
+    parser.add_argument("--gradient_clip", default=1.0, type=float)
+    parser.add_argument("--lr", default=0.0005, type=float)
+    parser.add_argument("--decay_rate", default=0.0, type=float)
+    parser.add_argument("--seed", default=19960626, type=int)
+    parser.add_argument("--label_smooth", default=0.1, type=float)
+    parser.add_argument("--fact_drop", default=0, type=float)
+    parser.add_argument("--is_eval", action="store_true")
+    parser.add_argument("--checkpoint_dir", default="checkpoint/pretrain/", type=str)
+    parser.add_argument("--experiment_name", default="", type=str)
+    parser.add_argument("--load_experiment", default=None, type=str)
+    parser.add_argument("--load_ckpt_file", default=None, type=str)
+    parser.add_argument("--eps", default=0.95, type=float)
+    parser.add_argument("--test_batch_size", default=20, type=int)
+    parser.add_argument("--q_type", default="seq", type=str)
+    # TPU-specific (new)
+    parser.add_argument("--dp_size", default=1, type=int)
+    parser.add_argument("--tp_size", default=1, type=int)
+    parser.add_argument("--compute_dtype", default="float32", type=str)
+    parser.add_argument("--profile_dir", default=None, type=str)
+    parser.add_argument("--num_workers", default=0, type=int,
+                        help="multiprocess JSONL ingest workers")
+    parser.add_argument("--bucket_batches", default=False, type=bool_flag,
+                        help="group shuffled batches by similar fact count "
+                             "(cuts padding waste on skewed datasets like CWQ)")
+    parser.add_argument("--info_attention", action="store_true",
+                        help="fill the .info per-iteration slots with "
+                             "instruction attention over question tokens "
+                             "(opt-in; the shipped artifact has them empty)")
+    # the port's own flag: cuda (the default) raises without a card
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
 
 
 def build_parser() -> argparse.ArgumentParser:
-    parser = _reference_parser()
-    parser.prog = "python -m gnn_rag_tpu_torch"
-    for action in parser._actions:
-        if isinstance(action, argparse._SubParsersAction):
-            for sub in action.choices.values():
-                sub.add_argument("--device", default="cuda",
-                                 choices=["cuda", "cpu"])
+    parser = argparse.ArgumentParser("python -m gnn_rag_tpu_torch")
+    sub = parser.add_subparsers(dest="model_name", required=True)
+
+    p = sub.add_parser("ReaRev")
+    p.add_argument("--alg", default="bfs", type=str)
+    p.add_argument("--num_iter", default=2, type=int)
+    p.add_argument("--num_ins", default=3, type=int)
+    p.add_argument("--num_gnn", default=3, type=int)
+    p.add_argument("--loss_type", default="kl", type=str)
+    p.add_argument("--use_self_loop", default=True, type=bool_flag)
+    p.add_argument("--normalized_gnn", default=False, type=bool_flag)
+    p.add_argument("--norm_rel", action="store_true")
+    p.add_argument("--pos_emb", action="store_true")
+    add_shared_args(p)
+
+    p = sub.add_parser("NSM")
+    p.add_argument("--num_step", default=3, type=int)
+    p.add_argument("--reason_kb", default=False, type=bool_flag)
+    p.add_argument("--loss_type", default="kl", type=str)
+    p.add_argument("--lambda_constrain", default=0.0, type=float)
+    p.add_argument("--lambda_back", default=0.0, type=float)
+    p.add_argument("--use_self_loop", default=True, type=bool_flag)
+    p.add_argument("--use_inverse_relation", action="store_true")
+    p.add_argument("--norm_rel", action="store_true")
+    p.add_argument("--normalized_gnn", default=False, type=bool_flag)
+    add_shared_args(p)
+
+    p = sub.add_parser("GraftNet")
+    p.add_argument("--pagerank_lambda", default=0.8, type=float)
+    p.add_argument("--loss_type", default="bce", type=str)
+    p.add_argument("--num_layer", default=3, type=int)
+    p.add_argument("--use_inverse_relation", action="store_true")
+    p.add_argument("--norm_rel", action="store_true")
+    p.add_argument("--normalized_gnn", default=False, type=bool_flag)
+    add_shared_args(p)
+
     return parser
+
+
+def args_to_config(args: argparse.Namespace) -> Config:
+    a = vars(args)
+    get = a.get
+    data = DataConfig(
+        name=a["name"], data_folder=a["data_folder"], max_train=a["max_train"],
+        word2id=a["word2id"], relation2id=a["relation2id"],
+        entity2id=a["entity2id"], entity_emb_file=a["entity_emb_file"],
+        relation_emb_file=a["relation_emb_file"],
+        word_emb_file=a["word_emb_file"],
+        relation_word_emb=a["relation_word_emb"], lm=a["lm"],
+        use_inverse_relation=get("use_inverse_relation", False),
+        use_self_loop=get("use_self_loop", True))
+    model = ModelConfig(
+        model_name=a["model_name"], entity_dim=a["entity_dim"],
+        kg_dim=a["kg_dim"], word_dim=a["word_dim"], lm=a["lm"],
+        lm_frozen=bool(a["lm_frozen"]), lm_dropout=a["lm_dropout"],
+        linear_dropout=a["linear_dropout"], loss_type=get("loss_type", "kl"),
+        label_smooth=a["label_smooth"], eps=a["eps"],
+        alg=get("alg", "bfs"), num_iter=get("num_iter", 2),
+        num_ins=get("num_ins", 3), num_gnn=get("num_gnn", 3),
+        pos_emb=get("pos_emb", False), num_step=get("num_step", 3),
+        reason_kb=get("reason_kb", False),
+        lambda_constrain=get("lambda_constrain", 0.0),
+        lambda_back=get("lambda_back", 0.0),
+        num_layer=get("num_layer", 3),
+        pagerank_lambda=get("pagerank_lambda", 0.8),
+        fact_scale=a["fact_scale"], norm_rel=get("norm_rel", False),
+        normalized_gnn=get("normalized_gnn", False),
+        use_self_loop=get("use_self_loop", True),
+        use_inverse_relation=get("use_inverse_relation", False),
+        fact_drop=a["fact_drop"], compute_dtype=a["compute_dtype"])
+    experiment_name = a["experiment_name"] or "{}-{}".format(
+        a["name"], time.strftime("%Y%m%d-%H%M%S"))
+    train = TrainConfig(
+        num_epoch=a["num_epoch"], warmup_epoch=a["warmup_epoch"],
+        eval_every=a["eval_every"], batch_size=a["batch_size"],
+        test_batch_size=a["test_batch_size"],
+        gradient_clip=a["gradient_clip"], lr=a["lr"],
+        decay_rate=a["decay_rate"], seed=a["seed"], fact_drop=a["fact_drop"],
+        checkpoint_dir=a["checkpoint_dir"], experiment_name=experiment_name,
+        load_experiment=a["load_experiment"], is_eval=a["is_eval"],
+        dp_size=a["dp_size"], tp_size=a["tp_size"],
+        profile_dir=a["profile_dir"],
+        bucket_batches=get("bucket_batches", False))
+    return Config(data=data, model=model, train=train)
 
 
 def check_supported(cfg, args) -> None:

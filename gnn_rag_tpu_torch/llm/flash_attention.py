@@ -1,0 +1,257 @@
+"""Causal flash attention for Hopper: forward, dq and dk/dv kernels.
+
+Replaces the TPU kernels of gnn_rag_tpu/llm_tpu/flash_attention.py:
+``_flash_kernel`` (:47, forward: o and the row logsumexp), ``_dq_kernel``
+(:132) and ``_dkv_kernel`` (:170). The CUDA source is
+``csrc/flash_attention.cu``; its header says how the blocks are laid out
+and what bounds them on an H100.
+
+Contract (the JAX package's): q ``[B, L, H, D]``, k and v ``[B, S, H, D]``
+with the kv heads already repeated to H (GQA), causal mask key <= query,
+scale 1/sqrt(D), masked scores -1e30. ``flash_fwd`` returns o (q's type) and
+lse ``[B*H, L]`` float32, with p rounded to v's type before it multiplies v;
+``flash_dq`` and ``flash_dkv`` recompute p per block from (q, k, lse) and
+work in float32 from the widened inputs, given delta = rowsum(dO * o)
+``[B*H, L]`` (a plain reduction, ``bwd_delta``, as the JAX package leaves it
+to XLA). bfloat16 inputs run on the tensor cores (the backward's float p
+and ds as exact sums of three bf16 terms), float32 inputs on the CUDA cores
+in IEEE float32; all sums are float. The kernels take D = 128 and any L and S (a ragged last tile is
+masked in the kernel; the JAX wrapper pads L to 128 instead).
+
+Dispatch: CPU tensors take the plain versions (``flash_fwd_plain``,
+``flash_dq_plain``, ``flash_dkv_plain``: dense attention and the
+lse-recompute backward, same arithmetic); CUDA tensors launch the kernels or
+raise. ``FlashAttentionFn`` is the autograd op; ``flash_attention`` its
+entry.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+
+import torch
+
+from ..utils import build as _build
+
+NEG_INF = -1e30
+HEAD_DIM = 128
+
+# launches of the CUDA kernels (plain-version calls are not counted)
+fwd_launches = 0      # flash_fwd
+dq_launches = 0       # flash_dq
+dkv_launches = 0      # flash_dkv
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def build() -> str:
+    """Compile ``csrc/flash_attention.cu`` into ``build/gnn_rag_tpu_torch/``
+    unless that library exists; returns its path."""
+    return _build.library("flash_attention.cu")
+
+
+def _load():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            tail = [i32] * 4 + [ctypes.c_float, i32, ptr]
+            lib.flash_attention_fwd.argtypes = [ptr] * 5 + tail
+            lib.flash_attention_dq.argtypes = [ptr] * 7 + tail
+            lib.flash_attention_dkv.argtypes = [ptr] * 8 + tail
+            for fn in (lib.flash_attention_fwd, lib.flash_attention_dq,
+                       lib.flash_attention_dkv):
+                fn.restype = i32
+            lib.flash_attention_error_string.argtypes = [i32]
+            lib.flash_attention_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+# ------------------------------------------------------------ plain versions
+def _scores(q, k):
+    """Masked, scaled float32 scores ``[B, H, L, S]``."""
+    L, S, D = q.shape[1], k.shape[1], q.shape[3]
+    s = torch.einsum("blhd,bshd->bhls", q.float(), k.float()) * (1.0 / D ** 0.5)
+    keep = (torch.arange(S, device=q.device)[None, :]
+            <= torch.arange(L, device=q.device)[:, None])
+    return s.masked_fill(~keep, NEG_INF)
+
+
+def flash_fwd_plain(q, k, v):
+    """Dense causal attention -> (o ``[B, L, H, D]`` in q's type, lse
+    ``[B*H, L]`` float32), the kernel's arithmetic in two passes."""
+    B, L, H, _ = q.shape
+    s = _scores(q, k)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bhls,bshd->bhld", p.to(v.dtype).float(), v.float()) / l
+    lse = (m + torch.log(l)).reshape(B * H, L)
+    return o.transpose(1, 2).to(q.dtype), lse
+
+
+def _probs(q, k, lse):
+    B, L, H, _ = q.shape
+    return torch.exp(_scores(q, k) - lse.reshape(B, H, L, 1))
+
+
+def _dscores(q, k, v, dout, lse, delta):
+    B, L, H, D = q.shape
+    p = _probs(q, k, lse)
+    dp = torch.einsum("blhd,bshd->bhls", dout.float(), v.float())
+    return p, p * (dp - delta.reshape(B, H, L, 1)) * (1.0 / D ** 0.5)
+
+
+def flash_dq_plain(q, k, v, dout, lse, delta):
+    """dq of the lse-recompute backward, float32 arithmetic, q's type."""
+    _, ds = _dscores(q, k, v, dout, lse, delta)
+    return torch.einsum("bhls,bshd->blhd", ds, k.float()).to(q.dtype)
+
+
+def flash_dkv_plain(q, k, v, dout, lse, delta):
+    """(dk, dv) of the lse-recompute backward, float32 arithmetic."""
+    p, ds = _dscores(q, k, v, dout, lse, delta)
+    dk = torch.einsum("bhls,blhd->bshd", ds, q.float())
+    dv = torch.einsum("bhls,blhd->bshd", p, dout.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def bwd_delta(o, dout):
+    """delta = rowsum(dO * o) in float32, ``[B*H, L]``."""
+    B, L, H, _ = o.shape
+    return (dout.float() * o.float()).sum(-1).transpose(1, 2).reshape(B * H, L
+                                                                      ).contiguous()
+
+
+# ------------------------------------------------------------------ kernels
+def _check(q, k, v, *more):
+    B, L, H, D = q.shape
+    if D != HEAD_DIM or q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_attention: the kernel takes head dim "
+                         f"{HEAD_DIM} in float32 or bfloat16, got "
+                         f"{tuple(q.shape)} {q.dtype}")
+    S = k.shape[1]
+    for name, t, shape in (("k", k, (B, S, H, D)), ("v", v, (B, S, H, D)),
+                           *more):
+        dtype = torch.float32 if name in ("lse", "delta") else q.dtype
+        if (t.shape != shape or t.dtype != dtype or t.device != q.device
+                or not t.is_contiguous()):
+            raise ValueError(f"flash_attention: {name} must be a contiguous "
+                             f"{dtype} {shape} on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if not q.is_contiguous():
+        raise ValueError("flash_attention: q must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v must be 16-byte aligned")
+    return B, L, H, D, S
+
+
+def _raise(lib, err, what):
+    if err != 0:
+        raise RuntimeError(f"flash_attention {what} launch failed: "
+                           + lib.flash_attention_error_string(err).decode())
+
+
+def _device_ok(q):
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return True
+
+
+def flash_fwd(q, k, v):
+    """Forward: (o, lse). CPU tensors run the plain version; CUDA tensors
+    launch the kernel (K5a) on the current stream or raise."""
+    global fwd_launches
+    if not _device_ok(q):
+        return flash_fwd_plain(q, k, v)
+    B, L, H, D, S = _check(q, k, v)
+    o = torch.empty_like(q)
+    lse = torch.empty((B * H, L), dtype=torch.float32, device=q.device)
+    lib = _load()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), B, H, L, S, 1.0 / math.sqrt(D),
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    _raise(lib, err, "forward")
+    fwd_launches += 1
+    return o, lse
+
+
+def flash_dq(q, k, v, dout, lse, delta):
+    """dq (K5b). CPU: plain version; CUDA: the kernel or raise."""
+    global dq_launches
+    if not _device_ok(q):
+        return flash_dq_plain(q, k, v, dout, lse, delta)
+    B, L, H, D, S = _check(q, k, v, ("dout", dout, q.shape),
+                           ("lse", lse, (q.shape[0] * q.shape[2], q.shape[1])),
+                           ("delta", delta, (q.shape[0] * q.shape[2], q.shape[1])))
+    dq = torch.empty_like(q)
+    lib = _load()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, L, S,
+            1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    _raise(lib, err, "dq")
+    dq_launches += 1
+    return dq
+
+
+def flash_dkv(q, k, v, dout, lse, delta):
+    """(dk, dv) (K5c). CPU: plain version; CUDA: the kernel or raise."""
+    global dkv_launches
+    if not _device_ok(q):
+        return flash_dkv_plain(q, k, v, dout, lse, delta)
+    B, L, H, D, S = _check(q, k, v, ("dout", dout, q.shape),
+                           ("lse", lse, (q.shape[0] * q.shape[2], q.shape[1])),
+                           ("delta", delta, (q.shape[0] * q.shape[2], q.shape[1])))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _load()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, H, L, S, 1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    _raise(lib, err, "dkv")
+    dkv_launches += 1
+    return dk, dv
+
+
+def flash_bwd(q, k, v, o, lse, dout):
+    """(dq, dk, dv) of ``flash_attention`` for the cotangent ``dout``."""
+    delta = bwd_delta(o, dout)
+    return (flash_dq(q, k, v, dout, lse, delta),
+            *flash_dkv(q, k, v, dout, lse, delta))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_fwd`` with ``flash_bwd`` as its gradient. Both are looked up
+    in this module at call time, so swapping ``flash_fwd``, ``flash_dq`` and
+    ``flash_dkv`` for their plain versions runs a model through those."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = flash_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        return flash_bwd(*ctx.saved_tensors, dout.contiguous())
+
+
+def flash_attention(q, k, v):
+    """Causal attention; q ``[B, L, H, D]``, k/v ``[B, S, H, D]`` (heads
+    already GQA-expanded), differentiable through ``FlashAttentionFn``."""
+    return FlashAttentionFn.apply(q.contiguous(), k.contiguous(), v.contiguous())

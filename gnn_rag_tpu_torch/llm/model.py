@@ -1,0 +1,275 @@
+"""LLaMA-family decoder-only LM, the port of gnn_rag_tpu/llm_tpu/model.py.
+
+Pre-RMSNorm blocks, rotary position embeddings (rotate-half, with the
+optional "condense" position interpolation), grouped-query attention, SwiGLU
+MLP, untied or tied ``lm_head``. Parameters are float32 and the blocks
+compute in ``cfg.dtype``, with the JAX package's casts: projections round
+both operands to ``cfg.dtype``; RMSNorm returns float32 for a bfloat16 input
+(flax promotes against its float32 scale, model.py:72) while the residual
+stream stays in ``cfg.dtype``; the logits are float32.
+
+Names follow the flax tree (``tok_emb``, ``layer_{i}.attn.q_proj``,
+``layer_{i}.mlp.gate_proj``, ``input_norm``, ``post_attn_norm``,
+``final_norm``, ``lm_head``), and every projection keeps TDense's
+``[out, in]`` layout as ``nn.Linear.weight``, so ``bridge.llama_from_flax``
+copies kernels without a transpose.
+
+Attention takes the flash kernels (``llm.flash_attention``) under the JAX
+rule with "on a CUDA device" for "on a TPU": ``use_flash``, no kv cache, no
+``kv_valid`` and a head dim that is a multiple of 128; otherwise the plain
+``reference_attention``. ``quant="int8"`` and ``remat=True`` raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from . import flash_attention as _fa
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 32
+    intermediate: int = 11008
+    rope_theta: float = 10000.0
+    rope_condense: float = 1.0      # >1 extends context by interpolation
+    max_seq_len: int = 4096
+    norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+    use_flash: bool = True          # flash kernels when shapes allow
+    tie_embeddings: bool = False    # logits = h @ tok_emb.T (no lm_head)
+    remat: bool = False             # not ported (raises)
+    quant: str = "none"             # "int8" not ported (raises)
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+
+def _dtype(cfg: LlamaConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        var = x.float().square().mean(-1, keepdim=True)
+        return (x.float() * torch.rsqrt(var + self.eps)).to(x.dtype) * self.scale
+
+
+def rope_frequencies(head_dim: int, positions: torch.Tensor, theta: float,
+                     condense: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions [B, L] int -> (cos, sin) [B, L, head_dim/2] float32."""
+    inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                             device=positions.device) / head_dim))
+    t = positions.float() / condense
+    freqs = t[..., None] * inv_freq[None, None, :]
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def apply_rope(x, cos, sin):
+    """x [B, L, H, D]; cos/sin [B, L, D/2]; rotate-half (split) form."""
+    x1, x2 = x.chunk(2, dim=-1)
+    c = cos[:, :, None, :]
+    s = sin[:, :, None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def reference_attention(q, k, v, causal_offset: int = 0, kv_valid=None):
+    """Plain attention, q [B,L,H,D], k/v [B,S,H,D]: causal mask with the
+    query positions shifted by ``causal_offset``; ``kv_valid`` [B, S]
+    (optional) marks with 0 the kv slots never attended (left padding)."""
+    L, S, D = q.shape[1], k.shape[1], q.shape[3]
+    scores = (torch.einsum("blhd,bshd->bhls", q, k)
+              / torch.tensor(math.sqrt(D), dtype=q.dtype))
+    q_pos = torch.arange(L, device=q.device)[:, None] + causal_offset
+    k_pos = torch.arange(S, device=q.device)[None, :]
+    mask = (k_pos <= q_pos)[None, None]
+    if kv_valid is not None:
+        mask = mask & (kv_valid > 0)[:, None, None, :]
+    scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhls,bshd->blhd", probs, v)
+
+
+class TLinear(nn.Linear):
+    """Bias-free projection computing in ``dtype``: both operands are cast
+    to it (flax's ``promote_dtype``), the weight kept ``[out, in]``."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype):
+        super().__init__(in_features, out_features, bias=False)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        return F.linear(x.to(self.compute_dtype), self.weight.to(self.compute_dtype))
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: LlamaConfig):
+        super().__init__()
+        self.cfg = cfg
+        H, KV, D, dt = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, _dtype(cfg)
+        self.q_proj = TLinear(cfg.dim, H * D, dt)
+        self.k_proj = TLinear(cfg.dim, KV * D, dt)
+        self.v_proj = TLinear(cfg.dim, KV * D, dt)
+        self.o_proj = TLinear(H * D, cfg.dim, dt)
+
+    def forward(self, x, cos, sin, kv_cache=None, cache_index=None,
+                kv_valid=None):
+        cfg = self.cfg
+        B, L, _ = x.shape
+        H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q = apply_rope(self.q_proj(x).view(B, L, H, D), cos, sin)
+        k = apply_rope(self.k_proj(x).view(B, L, KV, D), cos, sin)
+        v = self.v_proj(x).view(B, L, KV, D)
+        if kv_cache is not None:
+            # decode: write the new k/v at cache_index (in place), attend to
+            # the whole cache
+            ck, cv = kv_cache
+            ck[:, cache_index:cache_index + L] = k
+            cv[:, cache_index:cache_index + L] = v
+            k_all, v_all, offset, new_cache = ck, cv, cache_index, (ck, cv)
+        else:
+            k_all, v_all, offset, new_cache = k, v, 0, None
+        if KV != H:
+            k_all = k_all.repeat_interleave(H // KV, dim=2)
+            v_all = v_all.repeat_interleave(H // KV, dim=2)
+        if (cfg.use_flash and kv_cache is None and kv_valid is None
+                and q.is_cuda and D % 128 == 0):
+            out = _fa.flash_attention(q, k_all, v_all)
+        else:
+            out = reference_attention(q, k_all, v_all, offset, kv_valid)
+        return self.o_proj(out.reshape(B, L, H * D)), new_cache
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: LlamaConfig):
+        super().__init__()
+        dt = _dtype(cfg)
+        self.gate_proj = TLinear(cfg.dim, cfg.intermediate, dt)
+        self.up_proj = TLinear(cfg.dim, cfg.intermediate, dt)
+        self.down_proj = TLinear(cfg.intermediate, cfg.dim, dt)
+
+    def forward(self, x):
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: LlamaConfig):
+        super().__init__()
+        self.input_norm = RMSNorm(cfg.dim, cfg.norm_eps)
+        self.attn = Attention(cfg)
+        self.post_attn_norm = RMSNorm(cfg.dim, cfg.norm_eps)
+        self.mlp = MLP(cfg)
+
+    def forward(self, x, cos, sin, kv_cache=None, cache_index=None,
+                kv_valid=None):
+        attn_out, new_cache = self.attn(self.input_norm(x), cos, sin,
+                                        kv_cache, cache_index, kv_valid)
+        x = x + attn_out
+        x = x + self.mlp(self.post_attn_norm(x))
+        return x, new_cache
+
+
+class LlamaLM(nn.Module):
+    def __init__(self, cfg: LlamaConfig):
+        super().__init__()
+        unported = {"quant=int8": cfg.quant != "none", "remat": cfg.remat}
+        bad = [k for k, v in unported.items() if v]
+        if bad:
+            raise NotImplementedError(f"gnn_rag_tpu_torch LlamaLM: not ported: "
+                                      f"{', '.join(bad)}")
+        if cfg.dim % cfg.n_heads or cfg.n_heads % cfg.n_kv_heads:
+            raise ValueError(f"LlamaLM: dim {cfg.dim}, n_heads {cfg.n_heads} "
+                             f"and n_kv_heads {cfg.n_kv_heads} must divide")
+        self.cfg = cfg
+        self.tok_emb = nn.Embedding(cfg.vocab_size, cfg.dim)
+        for i in range(cfg.n_layers):
+            setattr(self, f"layer_{i}", Block(cfg))
+        self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps)
+        if not cfg.tie_embeddings:
+            self.lm_head = TLinear(cfg.dim, cfg.vocab_size, torch.float32)
+
+    def blocks(self) -> List[Block]:
+        return [getattr(self, f"layer_{i}") for i in range(self.cfg.n_layers)]
+
+    def forward(self, tokens, positions=None, kv_caches=None,
+                cache_index: Optional[int] = None, kv_valid=None,
+                return_hidden: bool = False):
+        """tokens [B, L] -> (logits [B, L, V] float32, caches). With
+        ``kv_caches`` (``init_kv_cache``) decodes at ``cache_index``;
+        ``kv_valid`` [B, S] masks kv slots; ``return_hidden`` returns the
+        final-norm hidden states instead of the logits."""
+        cfg = self.cfg
+        B, L = tokens.shape
+        if positions is None:
+            positions = torch.arange(L, device=tokens.device)[None, :].expand(B, L)
+            if cache_index is not None:
+                positions = positions + cache_index
+        x = self.tok_emb(tokens).to(_dtype(cfg))
+        cos, sin = rope_frequencies(cfg.head_dim, positions, cfg.rope_theta,
+                                    cfg.rope_condense)
+        cos, sin = cos.to(x.dtype), sin.to(x.dtype)
+        new_caches = []
+        for i, block in enumerate(self.blocks()):
+            x, cache = block(x, cos, sin,
+                             kv_caches[i] if kv_caches is not None else None,
+                             cache_index, kv_valid)
+            new_caches.append(cache)
+        x = self.final_norm(x)
+        caches = new_caches if kv_caches is not None else None
+        if return_hidden:
+            return x, caches
+        if cfg.tie_embeddings:
+            return x.float() @ self.tok_emb.weight.float().T, caches
+        return self.lm_head(x.float()), caches
+
+    def init_kv_cache(self, batch_size: int, max_len: int):
+        cfg = self.cfg
+        shape = (batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
+        dev = self.tok_emb.weight.device
+        return [(torch.zeros(shape, dtype=_dtype(cfg), device=dev),
+                 torch.zeros(shape, dtype=_dtype(cfg), device=dev))
+                for _ in range(cfg.n_layers)]
+
+
+def init_llama_(model: LlamaLM, seed: int) -> LlamaLM:
+    """Flax's default initialisers, drawn from a generator on the model's
+    device: projections lecun-normal (truncated at 2 sigma, fan-in scaled),
+    the embedding normal with std 1/sqrt(dim), norm scales 1."""
+    dev = model.tok_emb.weight.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, TLinear):
+                nn.init.trunc_normal_(m.weight, 0.0, 1.0, -2.0, 2.0, generator=gen)
+                m.weight.mul_(math.sqrt(1.0 / m.in_features) / 0.87962566103423978)
+            elif isinstance(m, nn.Embedding):
+                nn.init.normal_(m.weight, 0.0, 1.0 / math.sqrt(m.embedding_dim),
+                                generator=gen)
+            elif isinstance(m, RMSNorm):
+                m.scale.fill_(1.0)
+    return model
+
+
+def build_llama(cfg: LlamaConfig, seed: int = 0, device="cuda") -> LlamaLM:
+    """LlamaLM with flax-family random weights from ``seed``, float32
+    parameters on ``device``."""
+    with torch.device(device):
+        model = LlamaLM(cfg)
+    return init_llama_(model, seed)

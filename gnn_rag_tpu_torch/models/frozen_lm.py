@@ -25,7 +25,7 @@ class FrozenLM:
     def __init__(self, word_dim: int = 384, vocab_size: int = 30522,
                  layers: int = 6, heads: int = 12,
                  intermediate: Optional[int] = None, max_len: int = 512,
-                 seed: int = 0, state_dict=None, device="cpu"):
+                 seed: int = 0, state_dict=None, device="cuda"):
         self.device = torch.device(device)
         self.module = TransformerQuestionEncoder(
             vocab_size=vocab_size, hidden=word_dim, layers=layers, heads=heads,

@@ -207,7 +207,7 @@ class ReaRev(nn.Module):
 
 
 def build_model(cfg, num_entity: int, num_kb_relation: int, *, word_dim: int,
-                seed: int = 0, device="cpu") -> ReaRev:
+                seed: int = 0, device="cuda") -> ReaRev:
     """ReaRev with flax-family random weights from ``seed``, on ``device``,
     in eval mode (``cfg``: a ``gnn_rag_tpu.config.Config``)."""
     model = ReaRev(cfg.model, num_entity, num_kb_relation, word_dim)

@@ -53,66 +53,26 @@ Dispatch: CPU tensors take the plain versions (``gate_scatter_fwd_plain``,
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 
 import torch
 
 from ..data.kernel_layout import TILE_E, TILE_F
+from ..utils import build as _build
 from .segment import batched_segment_sum
 
 # launches of the CUDA kernels (plain-version calls are not counted)
 launches = 0          # gate_scatter_fwd
 bwd_launches = 0      # gate_scatter_bwd
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "csrc", "gate_scatter.cu")
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-BUILD_DIR = os.path.join(_REPO, "build", "gnn_rag_tpu_torch")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
 _lib = None
 _lib_lock = threading.Lock()
-build_log = ""        # nvcc/ptxas output of the build this process made
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the gate-scatter kernel is built "
-                           "from csrc/gate_scatter.cu at first use on a CUDA "
-                           "machine")
-    return found
 
 
 def build() -> str:
     """Compile ``csrc/gate_scatter.cu`` into ``build/gnn_rag_tpu_torch/``
-    (file name carries the source hash) unless that library exists; returns
-    its path."""
-    global build_log
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"libgate_scatter_{digest}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                          capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)
-    return out
+    unless that library exists; returns its path."""
+    return _build.library("gate_scatter.cu")
 
 
 def _load():

@@ -1,0 +1,1 @@
+"""Part of gnn_rag_tpu_torch; see the package docstring."""

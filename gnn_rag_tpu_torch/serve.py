@@ -6,9 +6,9 @@ Port of ``gnn_rag_tpu.serve.RetrieverService``:
     question states  ->  ReaRev forward  ->  eps-cumulative candidates
     ->  shortest paths  ->  verbalized reasoning paths (ready for any reader)
 
-Path enumeration runs on the host through the JAX package's framework-free
-``rag.graph_utils`` and ``native`` modules (the C++ enumerator when it
-builds, else the Python oracle). ``serve_http`` exposes ``POST /retrieve``.
+Path enumeration runs on the host through the port's ``rag.graph_utils``
+and ``native`` modules, copies of the JAX package's (the C++ enumerator when
+it builds, else the Python oracle). ``serve_http`` exposes ``POST /retrieve``.
 
 Each stage of ``retrieve`` runs in a ``torch.profiler.record_function``
 span named ``retrieve/<stage>`` (ingest, encode_question, make_batch,
@@ -26,11 +26,11 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from gnn_rag_tpu.rag.text_utils import path_to_string
-
 from .config import Config
 from .data.loader import KGQADataset, ingest_question, num_kb_relation
 from .data.vocab import Vocab
+from .rag.graph_utils import build_graph, get_truth_paths, get_truth_paths_fast
+from .rag.text_utils import path_to_string
 from .train.metrics import extract_candidates, f1_and_hits_eval
 
 
@@ -61,7 +61,7 @@ class RetrieverService:
             raise NotImplementedError("the device BFS path backend is not "
                                       "ported; use 'auto', 'native' or 'python'")
         if path_backend == "auto":
-            from gnn_rag_tpu.native import available as native_available
+            from .native import available as native_available
             path_backend = "native" if native_available() else "python"
         if path_backend not in ("native", "python"):
             raise ValueError(f"unknown path backend {path_backend!r}")
@@ -126,8 +126,6 @@ class RetrieverService:
                 ri += 1
 
         if with_paths:
-            from gnn_rag_tpu.rag.graph_utils import (build_graph, get_truth_paths,
-                                                     get_truth_paths_fast)
             for q, res in zip(questions, results):
                 graph = q["subgraph"]["tuples"]
                 q_entity = q.get("entities", [])

@@ -48,7 +48,7 @@ class Trainer:
                  num_entity: int, num_kb_relation: int, rel_hidden,
                  rel_hidden_inv, rel_text_mask, word_dim: int,
                  id2entity: Optional[dict] = None, logger=None,
-                 lm_source: Optional[str] = None, device="cpu"):
+                 lm_source: Optional[str] = None, device="cuda"):
         tc = cfg.train
         unported = {"dp_size * tp_size > 1": tc.dp_size * tc.tp_size > 1,
                     "profile_dir": bool(tc.profile_dir)}
@@ -67,7 +67,7 @@ class Trainer:
                                               device=self.device)
                               for a in (rel_hidden, rel_hidden_inv, rel_text_mask))
         if logger is None:
-            from gnn_rag_tpu.utils.logging import create_logger
+            from ..utils.logging import create_logger
             logger = create_logger("trainer", tc.checkpoint_dir, config=cfg.model)
         self.logger = logger
         # ReaRev only: the model raises NotImplementedError for others

@@ -103,7 +103,8 @@ def test_transformer_question_encoder_and_frozen_lm():
     jlm = JFrozenLM(word_dim=32, vocab_size=100, layers=2, heads=4,
                     intermediate=64, max_len=16, params=p)
     tlm = FrozenLM(word_dim=32, vocab_size=100, layers=2, heads=4,
-                   intermediate=64, max_len=16, state_dict=bridge.from_flax(p))
+                   intermediate=64, max_len=16, state_dict=bridge.from_flax(p),
+                   device="cpu")
     assert_close(tlm.encode(tok, batch=2), jlm.encode(tok, batch=2))
     # and back: to_flax inverts from_flax leaf for leaf
     back = bridge.to_flax(bridge.from_flax(p), heads=4)["params"]

@@ -1,0 +1,191 @@
+"""The port's own copies of the JAX package's framework-free modules
+(config, CLI flags, logging, rag.text_utils, rag.graph_utils, the native
+graphpath library, the SynthQSP generator, the prompt builder, SFT data
+prep and the byte/word tokenizers) against the originals: same
+configurations, same paths, same prompt text, same generated files byte for
+byte from one seed."""
+
+import dataclasses
+import filecmp
+import json
+import os
+import random
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from gnn_rag_tpu import cli as jcli
+from gnn_rag_tpu import config as jconfig
+from gnn_rag_tpu import native as jnative
+from gnn_rag_tpu.finetune import data_prep as jprep
+from gnn_rag_tpu.llm_tpu import sft as jsft
+from gnn_rag_tpu.rag import graph_utils as jgraph
+from gnn_rag_tpu.rag import text_utils as jtext
+from gnn_rag_tpu.rag.llms import llama_tpu as jllama
+from gnn_rag_tpu.utils import logging as jlogging
+from gnn_rag_tpu.utils import refbench as jrefbench
+from gnn_rag_tpu_torch import cli, config, native
+from gnn_rag_tpu_torch.finetune import data_prep
+from gnn_rag_tpu_torch.llm import sft, tokenizers
+from gnn_rag_tpu_torch.rag import graph_utils, text_utils
+from gnn_rag_tpu_torch.utils import build, refbench
+from gnn_rag_tpu_torch.utils.logging import create_logger
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def synth(tmp_path_factory):
+    """A tiny SynthQSP split from each generator, same seed."""
+    root = tmp_path_factory.mktemp("synth")
+    refbench.generate(str(root / "port"), refbench.TINY, seed=3)
+    jrefbench.generate(str(root / "jax"), jrefbench.TINY, seed=3)
+    with open(root / "port" / "train.json") as f:
+        questions = [json.loads(line) for line in f]
+    return root, questions
+
+
+@pytest.mark.parametrize("name", ["Config", "DataConfig", "ModelConfig",
+                                  "TrainConfig"])
+def test_config_dataclasses_match(name):
+    port, ref = getattr(config, name), getattr(jconfig, name)
+    assert ([(f.name, f.type) for f in dataclasses.fields(port)]
+            == [(f.name, f.type) for f in dataclasses.fields(ref)])
+    assert dataclasses.asdict(port()) == dataclasses.asdict(ref())
+    assert port.__module__ == "gnn_rag_tpu_torch.config"
+
+
+@pytest.mark.parametrize("argv", [
+    ["ReaRev", "--experiment_name", "x"],
+    ["ReaRev", "--experiment_name", "x", "--entity_dim", "50", "--num_iter",
+     "3", "--lm", "sbert", "--relation_word_emb", "False", "--lr", "1e-3",
+     "--compute_dtype", "bfloat16", "--pos_emb", "--is_eval"],
+    ["NSM", "--experiment_name", "y", "--num_step", "2",
+     "--use_inverse_relation"],
+    ["GraftNet", "--experiment_name", "z", "--num_layer", "2"],
+])
+def test_cli_flags_and_config_match(argv):
+    port = cli.build_parser().parse_args(argv + ["--device", "cpu"])
+    ref = jcli.build_parser().parse_args(argv)
+    assert vars(port) == dict(vars(ref), device="cpu")
+    assert (dataclasses.asdict(cli.args_to_config(port))
+            == dataclasses.asdict(jcli.args_to_config(ref)))
+    assert cli.build_parser().parse_args(argv).device == "cuda"
+
+
+def test_logger_writes_the_same_lines(tmp_path):
+    cfg = config.ModelConfig(entity_dim=7)
+    for mod, name in ((jlogging, "ref"), (None, "port")):
+        make = mod.create_logger if mod else create_logger
+        log = make(name, str(tmp_path), config=cfg)
+        log.info("hello %s", 1)
+        for h in log.handlers:
+            h.close()
+    strip = lambda p: [ln.split(" ", 2)[2] for ln in open(p).read().splitlines()]
+    assert strip(tmp_path / "port.log") == strip(tmp_path / "ref.log")
+
+
+def test_refbench_writes_the_same_files(synth):
+    root, _ = synth
+    names = sorted(os.listdir(root / "jax"))
+    assert names == sorted(os.listdir(root / "port")) and "train.json" in names
+    for name in names:
+        assert filecmp.cmp(root / "jax" / name, root / "port" / name,
+                           shallow=False), name
+
+
+def test_refbench_module_entry(tmp_path):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    subprocess.run([sys.executable, "-m", "gnn_rag_tpu_torch.utils.refbench",
+                    "--out", str(tmp_path / "p"), "--tiny", "--seed", "1",
+                    "--n_train", "3", "--n_dev", "1", "--n_test", "1"],
+                   cwd=REPO, env=env, check=True, capture_output=True)
+    jrefbench.main(["--out", str(tmp_path / "j"), "--tiny", "--seed", "1",
+                    "--n_train", "3", "--n_dev", "1", "--n_test", "1"])
+    for name in os.listdir(tmp_path / "j"):
+        assert filecmp.cmp(tmp_path / "j" / name, tmp_path / "p" / name,
+                           shallow=False), name
+
+
+def test_native_builds_in_build_dir_and_matches(synth):
+    _, questions = synth
+    path = native.build()
+    assert os.path.dirname(path) == build.BUILD_DIR
+    assert not path.startswith(os.path.join(REPO, "gnn_rag_tpu") + os.sep)
+    assert native.available()
+    for q in questions[:12]:
+        triples = [tuple(t) for t in q["subgraph"]["tuples"]]
+        ans = [a["text"] for a in q["answers"]]
+        for keep in (False, True):
+            got = native.truth_paths_native(triples, q["entities"], ans,
+                                            keep_parallel=keep)
+            want = jnative.truth_paths_native(triples, q["entities"], ans,
+                                              keep_parallel=keep)
+            assert got == want and got
+
+
+def test_graph_and_text_utils_match(synth):
+    _, questions = synth
+    for q in questions[:12]:
+        triples = q["subgraph"]["tuples"]
+        ans = [a["text"] for a in q["answers"]]
+        g, jg = graph_utils.build_graph(triples), jgraph.build_graph(triples)
+        paths = graph_utils.get_truth_paths(q["entities"], ans, g)
+        assert paths == jgraph.get_truth_paths(q["entities"], ans, jg)
+        assert (graph_utils.get_truth_paths_fast(triples, q["entities"], ans)
+                == jgraph.get_truth_paths_fast(triples, q["entities"], ans))
+        rule = [r for _, r, _ in paths[0]]
+        assert (graph_utils.bfs_with_rule(g, q["entities"][0], rule)
+                == jgraph.bfs_with_rule(jg, q["entities"][0], rule))
+        assert ([text_utils.path_to_string(p) for p in paths]
+                == [jtext.path_to_string(p) for p in paths])
+        assert (text_utils.rule_to_string(rule)
+                == jtext.rule_to_string(rule))
+    for s in ("The  Answer!", "m.0abc", "Él"):
+        assert text_utils.normalize(s) == jtext.normalize(s)
+
+
+def test_prompt_and_sft_texts_match(synth, tmp_path):
+    """preprocess_qa / preprocess_align texts of RoG-schema questions, and
+    the packed tokens and completion masks, byte for byte."""
+    _, questions = synth
+    rog = [data_prep.rog_example(q) for q in questions[:10]]
+    assert rog[0]["q_entity"] == questions[0]["entities"]
+    tok = tokenizers.ByteTokenizer()
+    count = lambda s: len(tok.encode(s))
+    for mod, name in ((data_prep, "port"), (jprep, "ref")):
+        random.seed(0)      # the budget's shuffle-truncation draws from it
+        mod.preprocess_qa(rog, str(tmp_path / f"{name}_qa.jsonl"),
+                          model_max_length=400, tokenize=count)
+        mod.build_align_dataset(rog, str(tmp_path / f"{name}_raw.jsonl"))
+        raw = mod.load_multiple_datasets([str(tmp_path / f"{name}_raw.jsonl")])
+        mod.preprocess_align(raw, str(tmp_path / f"{name}_align.jsonl"))
+    for kind in ("qa", "raw", "align"):
+        assert filecmp.cmp(tmp_path / f"port_{kind}.jsonl",
+                           tmp_path / f"ref_{kind}.jsonl", shallow=False), kind
+    texts = [d["text"] for d in data_prep.load_multiple_datasets(
+        [str(tmp_path / "port_qa.jsonl")], shuffle=True, seed=2)]
+    assert texts == [d["text"] for d in jprep.load_multiple_datasets(
+        [str(tmp_path / "ref_qa.jsonl")], shuffle=True, seed=2)]
+    template = tok.encode(sft.RESPONSE_TEMPLATE, add_bos=False)
+    got = sft.pack_examples(texts, tok.encode, template, 300, tok.pad_id)
+    want = jsft.pack_examples(texts, jllama.ByteTokenizer().encode, template,
+                              300, 0)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert got[1].sum() > 0 and (got[1][:, :5] == 0).all()
+
+
+def test_tokenizers_match():
+    texts = ["Question:\nwhat is m.0abc? [/INST]", "héllo  world\tx"]
+    b, jb = tokenizers.ByteTokenizer(), jllama.ByteTokenizer()
+    w = tokenizers.WordTokenizer.from_texts(texts[:1])
+    jw = jllama.WordTokenizer.from_texts(texts[:1])
+    for text in texts:
+        assert b.encode(text) == jb.encode(text)
+        assert b.decode(b.encode(text)) == text
+        assert w.encode(text) == jw.encode(text)
+        assert w.decode(w.encode(text)) == jw.decode(jw.encode(text)) == text
+    assert w.vocab_size == jw.vocab_size

@@ -1,5 +1,6 @@
-"""The gate-scatter CUDA kernels (forward and backward) against their plain
-PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+gate-scatter forward and backward, and the flash-attention forward, dq and
+dk/dv kernels (alone, through autograd, and in a LlamaLM).
 
 Every test here needs an NVIDIA GPU (and nvcc for the first build) and skips
 without one. The file imports no JAX, so it runs on a machine without it:
@@ -10,7 +11,12 @@ without one. The file imports no JAX, so it runs on a machine without it:
 Tolerance: fp32 max|kernel - plain| <= 1e-5 * max|plain| + 1e-6 (sum order:
 the kernel walks facts in layout order, the plain version adds with
 atomics); bf16 inputs 2e-2 relative, both sides taking the same bf16 values
-and summing in float32.
+and summing in float32. Flash attention: fp32 outputs and lse 1e-4 of
+max|plain| (the online softmax rescales in another order than the two-pass
+one); bf16 outputs per element (``assert_flash_close``: one bf16 step plus
+the rounding of p, scaled by the row); the plain backward takes the plain
+forward's lse and delta. A LlamaLM in bf16: flash vs plain within twice the
+plain path's own distance from fp32, logits and every gradient.
 """
 
 import numpy as np
@@ -21,6 +27,8 @@ from gnn_rag_tpu_torch.config import Config, DataConfig, ModelConfig
 from gnn_rag_tpu_torch.data.batch import GraphBatch
 from gnn_rag_tpu_torch.data.kernel_layout import (TILE_E, build_sample_direction,
                                                   pack_samples)
+from gnn_rag_tpu_torch.llm import flash_attention as fa
+from gnn_rag_tpu_torch.llm.model import LlamaConfig, build_llama
 from gnn_rag_tpu_torch.models.rearev import build_model
 from gnn_rag_tpu_torch.ops import gate_scatter as gs
 
@@ -223,3 +231,116 @@ def test_rearev_train_step_grads_kernel_vs_plain(cuda, monkeypatch):
             continue
         err = (got[name] - w).abs().max().item()
         assert err <= 1e-4 * w.abs().max().item() + 1e-7, (name, err)
+
+
+def assert_rel(got, want, rel, name):
+    err = (got.float() - want.float()).abs().max().item()
+    ref = want.float().abs().max().item()
+    assert got.dtype == want.dtype and err <= rel * ref, (name, err, ref)
+
+
+def assert_flash_close(got, want, name):
+    """A flash output against its plain version: float32 outputs (lse in
+    both types) to 1e-4 of max|want|; bf16 outputs per element to
+    2^-7 |want| + 1e-2 rms over the row's D values + 1e-3 rms(want): one
+    bf16 step, the rounding of p at another point of the online softmax,
+    float noise of rows whose exact value is 0 (chip_smoke.attn_err)."""
+    if got.dtype == torch.float32:
+        return assert_rel(got, want, 1e-4, name)
+    d = (got.float() - want.float()).abs()
+    sq = want.float().square()
+    tol = (2 ** -7 * sq.sqrt() + 1e-2 * sq.mean(-1, keepdim=True).sqrt()
+           + 1e-3 * sq.mean().sqrt())
+    assert want.dtype == torch.bfloat16 and bool((d <= tol).all()), (
+        name, (d / tol).max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,dtype", [
+    (2, 256, 4, torch.float32), (2, 256, 4, torch.bfloat16),
+    (1, 1000, 2, torch.float32), (3, 77, 2, torch.bfloat16),
+    (1, 64, 1, torch.float32)])
+def test_flash_kernels_match_plain(cuda, B, L, H, dtype):
+    g = torch.Generator(device=cuda).manual_seed(L)
+    q, k, v, do = (torch.randn((B, L, H, 128), generator=g, device=cuda
+                               ).to(dtype) for _ in range(4))
+    before = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    o, lse = fa.flash_fwd(q, k, v)
+    po, plse = fa.flash_fwd_plain(q, k, v)
+    assert_flash_close(o, po, "o")
+    assert_flash_close(lse, plse, "lse")
+    delta, pdelta = fa.bwd_delta(o, do), fa.bwd_delta(po, do)
+    dq = fa.flash_dq(q, k, v, do, lse, delta)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta)
+    # the plain backward from the plain forward's lse: a wrong lse shows here
+    assert_flash_close(dq, fa.flash_dq_plain(q, k, v, do, plse, pdelta), "dq")
+    for name, a, b in zip(("dk", "dv"), (dk, dv),
+                          fa.flash_dkv_plain(q, k, v, do, plse, pdelta)):
+        assert_flash_close(a, b, name)
+    # no float atomics: a second launch repeats bit for bit
+    assert torch.equal(dq, fa.flash_dq(q, k, v, do, lse, delta))
+    assert all(torch.equal(a, b) for a, b in
+               zip((dk, dv), fa.flash_dkv(q, k, v, do, lse, delta)))
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
+        n + c for n, c in zip(before, (1, 2, 2)))
+
+
+@pytest.mark.cuda
+def test_flash_autograd_and_checks(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((2, 130, 2, 128), generator=g, device=cuda
+                           ).requires_grad_() for _ in range(3))
+    do = torch.randn((2, 130, 2, 128), generator=g, device=cuda)
+    fa.flash_attention(q, k, v).backward(do)
+    got = (q.grad, k.grad, v.grad)
+    o, lse = fa.flash_fwd_plain(q.detach(), k.detach(), v.detach())
+    want = (fa.flash_dq_plain(q, k, v, do, lse, fa.bwd_delta(o, do)),
+            *fa.flash_dkv_plain(q, k, v, do, lse, fa.bwd_delta(o, do)))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert_rel(a, b.detach(), 1e-4, name)
+    with pytest.raises(ValueError, match="head dim 128"):
+        fa.flash_fwd(*(torch.zeros(1, 8, 1, 64, device=cuda),) * 3)
+    x = torch.zeros(1, 8, 1, 128, device=cuda)
+    with pytest.raises(ValueError, match="k must be"):
+        fa.flash_fwd(x, x.half(), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_llama_flash_vs_plain_attention(cuda, dtype):
+    """A LlamaLM at head dim 128 on the card: the flash path launches one
+    forward per layer and agrees with the plain attention path, logits and
+    the loss gradient of every parameter. fp32: 1e-4 of the largest entry.
+    bf16: the two paths round at different points, so each output's
+    flash-vs-plain distance is held to twice the plain bf16 path's own
+    distance from the same model in fp32."""
+    cfg = LlamaConfig(vocab_size=300, dim=256, n_layers=2, n_heads=2,
+                      n_kv_heads=1, intermediate=384, dtype=dtype)
+    model = build_llama(cfg, seed=0, device=cuda)
+    tokens = torch.randint(3, 300, (2, 200), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+
+    def run(cfg, **changes):
+        m = build_llama(LlamaConfig(**{**cfg.__dict__, **changes}), seed=0,
+                        device=cuda)
+        m.load_state_dict(model.state_dict())
+        logits, _ = m(tokens)
+        logits.logsumexp(-1).mean().backward()
+        return [logits.detach()] + [p.grad for p in m.parameters()]
+
+    n = fa.fwd_launches
+    got = run(cfg)
+    assert fa.fwd_launches == n + cfg.n_layers
+    want = run(cfg, use_flash=False)
+    names = ["logits"] + [name for name, _ in model.named_parameters()]
+    if dtype == "float32":
+        assert_rel(got[0], want[0], 1e-4, "logits")
+        for name, a, b in zip(names[1:], got[1:], want[1:]):
+            err = (a - b).abs().max().item()
+            assert err <= 1e-4 * b.abs().max().item() + 1e-7, name
+        return
+    fp32 = run(cfg, dtype="float32", use_flash=False)
+    for name, a, b, r in zip(names, got, want, fp32):
+        own = (b.float() - r).norm().item()
+        assert (a.float() - b.float()).norm().item() <= 2 * own, (name, own)

@@ -1,0 +1,274 @@
+"""The LLM reader of gnn_rag_tpu_torch against the JAX package on the CPU.
+
+Inputs come from numpy seeds; flax weights cross over through
+``bridge.llama_from_flax``. Tolerances:
+
+* flash attention, plain versions vs the Pallas kernels in interpret mode
+  (B2 L256 H2 D128, float32): o and lse 2e-4, dq/dk/dv 5e-4 (those of
+  tests/test_llm_tpu.py; the two sum in other orders);
+* LlamaLM logits at D = 128 (dim 256, 2 heads, 2 layers): float32 1e-4 and
+  bfloat16 2e-2 of max|logit| (bf16 rounds at the same places in both, but
+  the two frameworks' bf16 matmuls accumulate in other orders);
+* three SFT steps (clip, AdamW, warmup-cosine from lr 0): each loss rtol
+  1e-5, parameters after each step rtol 1e-4 + atol 1e-6 (elements whose
+  gradient RMS is at float32's noise floor: within 3 lr, see the test);
+* greedy decoding: identical token ids.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gnn_rag_tpu.llm_tpu import flash_attention as jfa
+from gnn_rag_tpu.llm_tpu.generate import Decoder as JDecoder
+from gnn_rag_tpu.llm_tpu.model import LlamaConfig as JLlamaConfig
+from gnn_rag_tpu.llm_tpu.model import LlamaLM as JLlamaLM
+from gnn_rag_tpu.llm_tpu.sft import SFTConfig as JSFTConfig
+from gnn_rag_tpu.llm_tpu.sft import SFTTrainer as JSFTTrainer
+from gnn_rag_tpu.llm_tpu.sft import resize_embeddings as jresize_embeddings
+from gnn_rag_tpu_torch import bridge
+from gnn_rag_tpu_torch.llm import flash_attention as fa
+from gnn_rag_tpu_torch.llm.generate import Decoder
+from gnn_rag_tpu_torch.llm.model import LlamaConfig, LlamaLM, build_llama
+from gnn_rag_tpu_torch.llm.sft import (SFTConfig, SFTTrainer,
+                                       chunked_completion_loss,
+                                       completion_loss, resize_embeddings,
+                                       warmup_cosine_lr)
+
+WIDE = dict(vocab_size=300, dim=256, n_layers=2, n_heads=2, n_kv_heads=1,
+            intermediate=384, max_seq_len=256)
+
+
+def rand(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+def ported(jparams, **cfg):
+    model = LlamaLM(LlamaConfig(**cfg))
+    model.load_state_dict(bridge.llama_from_flax(jparams))
+    return model.eval()
+
+
+@pytest.fixture(scope="module")
+def wide():
+    """A flax LlamaLM at head dim 128 (GQA 2:1) and its params."""
+    tokens = np.random.default_rng(0).integers(3, 300, (2, 40)).astype(np.int32)
+    jm = JLlamaLM(JLlamaConfig(**WIDE, dtype="float32"))
+    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(tokens[:, :8]))
+    return tokens, params
+
+
+def test_flash_forward_plain_matches_pallas_interpret():
+    rng = np.random.default_rng(0)
+    q, k, v = (rand(rng, 2, 256, 2, 128) for _ in range(3))
+    jo, jlse = jfa._flash_fwd_impl(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), interpret=True)
+    o, lse = fa.flash_fwd(t(q), t(k), t(v))       # CPU: the plain version
+    assert o.dtype == torch.float32 and lse.shape == (4, 256)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_flash_backward_plain_matches_pallas_interpret():
+    rng = np.random.default_rng(1)
+    q, k, v, g = (rand(rng, 2, 256, 2, 128) for _ in range(4))
+    jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
+    jo, jlse = jfa._flash_fwd_impl(jq, jk, jv, interpret=True)
+    want = jfa._flash_bwd_impl(jq, jk, jv, jo, jlse, jg, interpret=True)
+    o, lse = fa.flash_fwd_plain(t(q), t(k), t(v))
+    got = fa.flash_bwd(t(q), t(k), t(v), o, lse, t(g))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=5e-4,
+                                   atol=5e-4, err_msg=name)
+    # the autograd op gives the same gradients through its CPU path
+    tq, tk, tv = (t(x).requires_grad_() for x in (q, k, v))
+    fa.flash_attention(tq, tk, tv).backward(t(g))
+    for name, a, b in zip(("dq", "dk", "dv"), (tq.grad, tk.grad, tv.grad), got):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+
+
+def test_flash_plain_bf16_rounds_p_and_keeps_type():
+    """bf16 inputs: o in bf16, lse float32, p rounded to bf16 before PV."""
+    rng = np.random.default_rng(2)
+    q, k, v = (t(rand(rng, 1, 130, 1, 128)).bfloat16() for _ in range(3))
+    o, lse = fa.flash_fwd_plain(q, k, v)
+    o32, lse32 = fa.flash_fwd_plain(q.float(), k.float(), v.float())
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, lse32, rtol=0, atol=0)
+    err = (o.float() - o32).abs().max().item()
+    assert 0 < err <= 2e-2 * o32.abs().max().item()
+
+
+def test_flash_wrapper_refuses_other_devices():
+    x = torch.zeros(1, 8, 1, 128, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_fwd(x, x, x)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_llama_logits_match_flax(wide, dtype, tol):
+    tokens, params = wide
+    jm = JLlamaLM(JLlamaConfig(**WIDE, dtype=dtype))
+    want, _ = jm.apply(params, jnp.asarray(tokens))
+    model = ported(params, **WIDE, dtype=dtype)
+    with torch.no_grad():
+        got, _ = model(t(tokens).long())
+        hidden, _ = model(t(tokens).long(), return_hidden=True)
+    want = np.asarray(want)
+    assert got.dtype == torch.float32 and hidden.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=tol * np.abs(want).max())
+
+
+def test_llama_bridge_round_trip(wide):
+    _, params = wide
+    back = bridge.llama_to_flax(bridge.llama_from_flax(params))["params"]
+    for path, leaf in jax.tree_util.tree_leaves_with_path(params["params"]):
+        node = back
+        for key in path:
+            node = node[key.key]
+        np.testing.assert_array_equal(node, np.asarray(leaf))
+    assert "lm_head.weight" in bridge.llama_from_flax(params)
+
+
+def test_resize_embeddings_matches_jax(wide):
+    _, params = wide
+    got = resize_embeddings(bridge.llama_from_flax(params), 300, 304)
+    want = bridge.llama_from_flax(jresize_embeddings(
+        jax.tree_util.tree_map(np.array, params), 300, 304))
+    for name in ("tok_emb.weight", "lm_head.weight"):
+        assert got[name].shape == (304, 256)
+        np.testing.assert_allclose(got[name].numpy(), want[name].numpy(),
+                                   rtol=1e-6, atol=1e-7, err_msg=name)
+    model = LlamaLM(LlamaConfig(**{**WIDE, "vocab_size": 304}))
+    model.load_state_dict(got)
+
+
+def test_llama_unported_options_raise():
+    for kw in ({"quant": "int8"}, {"remat": True}):
+        with pytest.raises(NotImplementedError):
+            LlamaLM(LlamaConfig(**WIDE, **kw))
+
+
+def test_kv_cache_prefill_matches_cache_free_forward(wide):
+    tokens, params = wide
+    model = ported(params, **WIDE, dtype="float32")
+    x = t(tokens).long()
+    with torch.no_grad():
+        full, _ = model(x)
+        dec = Decoder(model, max_len=64)
+        pre, _, _ = dec.prefill(x, torch.ones(x.shape))
+    torch.testing.assert_close(pre, full, rtol=1e-5, atol=1e-5)
+
+
+def test_chunked_loss_matches_dense(wide):
+    tokens, params = wide
+    model = ported(params, **WIDE, dtype="float32")
+    mask = t((np.arange(40) > 10).astype(np.float32))[None].expand(2, 40)
+    x = t(tokens).long()
+    dense = completion_loss(model, x, mask)
+    chunked = chunked_completion_loss(model, x, mask, chunk=16)
+    torch.testing.assert_close(chunked, dense, rtol=1e-6, atol=1e-6)
+
+
+def test_warmup_cosine_matches_optax():
+    """optax evaluates the schedule in float32, the port in float64."""
+    import optax
+    sched = optax.warmup_cosine_decay_schedule(0.0, 3e-4, 3, 11)
+    for step in range(14):
+        assert warmup_cosine_lr(step, 3e-4, 3, 11) == pytest.approx(
+            float(sched(step)), rel=1e-5, abs=1e-12)
+
+
+def test_sft_three_steps_match_jax(wide, tmp_path):
+    """Three SFTTrainer steps from the same weights and batches: the clip
+    bites (grad_clip 0.5), weight decay 0.01, lr 0 at step 0, then warmup
+    and cosine; losses and every parameter after each step agree."""
+    _, params = wide
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(3, 300, (6, 33)).astype(np.int32)
+    mask = (rng.random((6, 33)) < 0.6).astype(np.float32)
+    kw = dict(learning_rate=1e-3, weight_decay=0.01, warmup_steps=1,
+              total_steps=3, batch_size=4, grad_clip=0.5, save_every=1000)
+    jtr = JSFTTrainer(JLlamaConfig(**WIDE, dtype="float32"),
+                      JSFTConfig(output_dir=str(tmp_path / "j"), **kw),
+                      params=jax.tree_util.tree_map(jnp.array, params))
+    tr = SFTTrainer(LlamaConfig(**WIDE, dtype="float32"),
+                    SFTConfig(output_dir=str(tmp_path / "t"), **kw),
+                    params=bridge.llama_from_flax(params), device="cpu")
+    noisy = {}
+    for step in (1, 2, 3):
+        jloss = jtr.train(tokens, mask, steps=step, resume=False)
+        loss = tr.train(tokens, mask, steps=step, resume=False)
+        np.testing.assert_allclose(loss, jloss, rtol=1e-5)
+        want = bridge.llama_from_flax(jtr.params)
+        for name, p in tr.model.named_parameters():
+            # Adam divides by the gradient's RMS, so an element whose
+            # gradients all sit at float32's noise floor (RMS below 1e-4 of
+            # the tensor's largest; one embedding element here, at 1e-7
+            # against entries up to 0.2) moves by a step of O(lr) whose
+            # size is noise on both sides: those are held to 3 lr from then
+            # on, every other element to the tolerance
+            rms = (tr.opt.state[p]["exp_avg_sq"] / (1 - 0.999 ** step)).sqrt()
+            noise = noisy[name] = noisy.get(name, False) | (
+                (rms > 0) & (rms < 1e-4 * rms.max())).numpy()
+            got, ref = p.detach().numpy(), want[name].numpy()
+            np.testing.assert_allclose(got[~noise], ref[~noise], rtol=1e-4,
+                                       atol=1e-6, err_msg=name)
+            assert np.abs(got[noise] - ref[noise]).max(initial=0) <= 3e-3, name
+    assert tr.step == jtr.step == 3
+
+
+def test_sft_save_and_resume(tmp_path):
+    cfg = LlamaConfig(**{**WIDE, "n_layers": 1}, dtype="float32")
+    scfg = SFTConfig(output_dir=str(tmp_path), learning_rate=1e-3,
+                     total_steps=4, batch_size=2, save_every=2)
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(3, 300, (4, 17)).astype(np.int32)
+    mask = np.ones((4, 17), np.float32)
+    tr = SFTTrainer(cfg, scfg, device="cpu")
+    losses = tr.train(tokens, mask, steps=2)
+    assert len(losses) == 2 and tr.last_checkpoint() == 2
+    again = SFTTrainer(cfg, scfg, device="cpu")
+    assert again.maybe_resume() and again.step == 2
+    for name, p in tr.model.state_dict().items():
+        torch.testing.assert_close(again.model.state_dict()[name], p,
+                                   rtol=0, atol=0)
+    assert len(again.train(tokens, mask, steps=4)) == 2
+
+
+def test_sft_refuses_sharding():
+    with pytest.raises(NotImplementedError):
+        SFTTrainer(LlamaConfig(**WIDE), SFTConfig(dp=2), device="cpu")
+
+
+@pytest.mark.parametrize("eos_id", [None, 7])
+def test_greedy_batch_matches_jax(eos_id):
+    """Ragged left-padded prompts through the kv-cache decoder (float32):
+    the same token ids."""
+    cfg = dict(vocab_size=128, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+               intermediate=128, max_seq_len=128, dtype="float32")
+    jm = JLlamaLM(JLlamaConfig(**cfg))
+    params = jm.init(jax.random.PRNGKey(1), jnp.zeros((1, 8), jnp.int32))
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(3, 128, n).tolist() for n in (5, 17, 9)]
+    want = JDecoder(jm, params, max_len=64).greedy_batch(prompts, 12, eos_id)
+    got = Decoder(ported(params, **cfg), max_len=64).greedy_batch(
+        prompts, 12, eos_id)
+    assert got == want
+    assert Decoder(ported(params, **cfg), max_len=64).greedy(
+        prompts[1], 12, eos_id) == want[1]
+
+
+def test_build_llama_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the CPU-only refusal is not testable")
+    with pytest.raises((RuntimeError, AssertionError)):
+        build_llama(LlamaConfig(**WIDE))

@@ -1,15 +1,19 @@
-"""gnn_rag_tpu_torch runs without JAX: a fresh interpreter imports the port,
-serves one question and trains one step on the CPU, and never loads jax,
-flax, optax or orbax."""
+"""gnn_rag_tpu_torch runs without JAX and without the JAX package: a fresh
+interpreter imports the port, serves one question, trains one ReaRev step,
+runs one SFT step of the LLM reader and one greedy decode on the CPU, and
+never loads jax, flax, optax, orbax or any module of ``gnn_rag_tpu``; and no
+file of the port, nor chip_smoke.py, imports or runs the JAX package."""
 
+import ast
 import os
+import re
 import subprocess
 import sys
 
 SCRIPT = r"""
 import sys
 import numpy as np
-from gnn_rag_tpu.config import Config, DataConfig, ModelConfig
+from gnn_rag_tpu_torch.config import Config, DataConfig, ModelConfig
 from gnn_rag_tpu_torch.data.vocab import Vocab
 from gnn_rag_tpu_torch.models.rearev import build_model
 from gnn_rag_tpu_torch.serve import RetrieverService
@@ -21,7 +25,7 @@ cfg = Config(data=DataConfig(name="webqsp"),
 rng = np.random.default_rng(0)
 rel = [rng.standard_normal((4, 3, 24)).astype(np.float32) for _ in range(2)]
 svc = RetrieverService(
-    cfg, Vocab(ents, rels, {}), build_model(cfg, 20, 3, word_dim=24, seed=0),
+    cfg, Vocab(ents, rels, {}), build_model(cfg, 20, 3, word_dim=24, seed=0, device="cpu"),
     rel_hidden=rel[0], rel_hidden_inv=rel[1],
     rel_text_mask=np.ones((4, 3), np.float32),
     question_encoder=lambda ids: np.ones((len(ids), 24), np.float32))
@@ -44,12 +48,32 @@ ds.q_hidden = [np.ones((4, 24), np.float32)]
 tr = Trainer(cfg, train_data=ds, valid_data=ds, test_data=ds, num_entity=20,
              num_kb_relation=3, rel_hidden=rel[0], rel_hidden_inv=rel[1],
              rel_text_mask=np.ones((4, 3), np.float32), word_dim=24,
-             logger=logging.getLogger("no_jax"))
+             logger=logging.getLogger("no_jax"), device="cpu")
 loss, h1, f1 = tr.train_epoch()
 tr.close()
 assert tr.step_count == 1 and np.isfinite(loss), loss
+
+import tempfile
+from gnn_rag_tpu_torch.llm.generate import Decoder
+from gnn_rag_tpu_torch.llm.model import LlamaConfig
+from gnn_rag_tpu_torch.llm.sft import SFTConfig, SFTTrainer, pack_examples
+from gnn_rag_tpu_torch.llm.tokenizers import ByteTokenizer
+bt = ByteTokenizer()
+toks, mask = pack_examples(["[INST] q? [/INST] m.01</s>"] * 2, bt.encode,
+                           bt.encode("[/INST]", add_bos=False), 32, bt.pad_id)
+mcfg = LlamaConfig(vocab_size=bt.vocab_size, dim=32, n_layers=1, n_heads=2,
+                   n_kv_heads=2, intermediate=64, dtype="float32")
+with tempfile.TemporaryDirectory() as out:
+    sft = SFTTrainer(mcfg, SFTConfig(output_dir=out, batch_size=2,
+                                     total_steps=1), device="cpu")
+    losses = sft.train(toks, mask)
+assert len(losses) == 1 and np.isfinite(losses[0]), losses
+ids = Decoder(sft.model.eval(), max_len=64).greedy(bt.encode("[INST] q?"), 4,
+                                                   eos_id=bt.eos_id)
+assert 1 <= len(ids) <= 4, ids
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax"))
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                       "gnn_rag_tpu"))
 print("LOADED", loaded)
 """
 
@@ -61,3 +85,32 @@ def test_port_serves_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "LOADED []" in proc.stdout, proc.stdout[-2000:]
+
+
+def _python_files():
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    yield os.path.join(repo, "chip_smoke.py")
+    for root, _, files in os.walk(os.path.join(repo, "gnn_rag_tpu_torch")):
+        yield from (os.path.join(root, f) for f in files if f.endswith(".py"))
+
+
+def test_port_never_imports_or_runs_the_jax_package():
+    """Static: no import of ``gnn_rag_tpu`` (or a module in it) and no
+    ``-m gnn_rag_tpu.<module>`` in any file of the port or chip_smoke.py."""
+    files = list(_python_files())
+    assert len(files) > 30
+    for path in files:
+        with open(path) as f:
+            src = f.read()
+        for node in ast.walk(ast.parse(src, path)):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            bad = [n for n in names if n.split(".")[0] in
+                   ("gnn_rag_tpu", "jax", "jaxlib", "flax", "optax", "orbax")]
+            assert not bad, f"{path} imports {bad}"
+        assert not re.search(r"""["']gnn_rag_tpu\.""", src), (
+            f"{path} names a module of the JAX package as a string")

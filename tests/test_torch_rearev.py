@@ -141,7 +141,7 @@ def test_retrieve_matches_jax():
     jsvc = JRetrieverService(cfg, jvocab, params, rel_hidden=rel_h,
                              rel_hidden_inv=rel_hinv, rel_text_mask=rel_mask,
                              question_encoder=qenc)
-    model = build_model(cfg, 20, 3, word_dim=WORD_DIM)
+    model = build_model(cfg, 20, 3, word_dim=WORD_DIM, device="cpu")
     model.load_state_dict(bridge.from_flax(params))
     svc = RetrieverService(cfg, Vocab(ents, rels, {}), model, rel_hidden=rel_h,
                            rel_hidden_inv=rel_hinv, rel_text_mask=rel_mask,

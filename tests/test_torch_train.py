@@ -185,7 +185,8 @@ def test_trainer_steps_match_jax(micro, tmp_path):
               num_kb_relation=micro["nkr"], rel_hidden=micro["rel"][0],
               rel_hidden_inv=micro["rel"][1], rel_text_mask=micro["rel"][2])
     jtr = JTrainer(cfg, train_data=micro["jb"]["train"], **kw)
-    tr = Trainer(cfg, train_data=micro["tb"]["train"], word_dim=WORD_DIM, **kw)
+    tr = Trainer(cfg, train_data=micro["tb"]["train"], word_dim=WORD_DIM,
+                 device="cpu", **kw)
     assert jtr.tx is not None and tr.steps_per_epoch == 2
     tr.model.load_state_dict(bridge.from_flax(micro["params"]))
     params, opt_state = micro["params"], jtr.tx.init(micro["params"])
@@ -295,7 +296,8 @@ def test_trainer_checkpoint_roundtrip(micro, tmp_path):
                  valid_data=micro["tb"]["valid"], test_data=micro["tb"]["test"],
                  num_entity=micro["num_entity"], num_kb_relation=micro["nkr"],
                  rel_hidden=micro["rel"][0], rel_hidden_inv=micro["rel"][1],
-                 rel_text_mask=micro["rel"][2], word_dim=WORD_DIM)
+                 rel_text_mask=micro["rel"][2], word_dim=WORD_DIM,
+                 device="cpu")
     before = {k: v.clone() for k, v in tr.model.state_dict().items()}
     tr.save_ckpt("h1")
     loss, h1, f1 = tr.train_epoch()
