@@ -39,6 +39,21 @@ Phases, one line each:
      training step;
   7. step time: a training step's time over TRAIN_STEPS steps (CUDA events),
      kernel path against plain path, and one step under torch.profiler.
+The in-kernel-projection message passing (GNN_RAG_GATE_SCATTER=v2, the
+fused-projection kernels K6a-c and scatter_mm K6d):
+  3d. kernel-fused: the fused-projection forward and backward (dfact_rel,
+     dprior, dins, dW, db) and scatter_mm at C = J*D against their plain
+     versions at FUSED_SHAPES (one direction), two backward launches
+     bit-identical, CUDA-event medians of kernel and plain, and of
+     ``scatter_add_`` for the scatter;
+  7b. v2: the headline configuration with GNN_RAG_GATE_SCATTER=v2 set in
+     this process (restored after): one epoch of 8 steps with evaluation
+     through the port's CLI, exact launch counts of the fused kernels (2 x
+     num_iter x num_gnn a forward and a step) beside TypeLayer's one
+     gate-scatter launch; every gradient of a B8 batch kernel vs plain and a
+     bf16 step; POST /retrieve served by the trained model, launch counts,
+     pred_dist kernel vs plain; a train step's time and device time on the
+     v2 and v4 paths.
 The LLM reader (the flash-attention kernels K5a-c):
   3c. kernel-attn: the flash forward, dq and dk/dv kernels against their
      plain versions at the SFT step's shape (B8 L2047 H32 D128: the loss
@@ -128,6 +143,12 @@ KERNEL_SHAPES = (
     ("huge_e_fp32", 4, 8192, 32768, 3, 50, "float32", True),
     ("type_layer_fp32", 16, 2048, 8192, 1, 50, "float32", False),
 )
+# the KERNEL_SHAPES rows the fused-projection kernels and scatter_mm are
+# checked and timed at (one direction of each)
+FUSED_SHAPES = ("webqsp_fp32", "webqsp_bf16", "cwq_fp32")
+# the gate-scatter launch counters of ops.gate_scatter
+GATE_COUNTERS = ("launches", "bwd_launches", "fused_launches",
+                 "fused_bwd_launches", "scatter_launches")
 
 
 def log(phase, msg):
@@ -267,6 +288,114 @@ def check_bwd_kernels(device):
         log("kernel-bwd", json.dumps(row))
         rows.append(row)
         del args, got, again, want
+    return rows
+
+
+def chunk_tiles_of(starts, nc):
+    """A layout's chunk_tiles [B, nc] from its chunk_starts [B, n_tiles+1]:
+    chunk c's tile is the number of tile ranges that end at or before c,
+    the padding chunks past the last range repeating the last tile."""
+    import torch
+    B, n_tiles = starts.shape[0], starts.shape[1] - 1
+    c = torch.arange(nc, device=starts.device, dtype=torch.int32)
+    tiles = torch.searchsorted(starts[:, 1:].contiguous(),
+                               c.expand(B, nc).contiguous(), right=True)
+    return tiles.clamp_max(n_tiles - 1).to(torch.int32)
+
+
+def check_fused_kernels(device):
+    """Phase 3d: the fused-projection forward and backward kernels and
+    scatter_mm against their plain versions at FUSED_SHAPES, one direction
+    of each row: fp32 forward 1e-5 of max|ref|, backward 1e-4 of max|ref|
+    on dfact_rel, dw, db, dins and dprior (dW and db sum every fact of the
+    batch in another order), scatter_mm 1e-5 (float sums of the same
+    values). bf16 inputs, per element (``bf16_tol``): the forward two bf16
+    steps (rl is rounded from a float sum formed in another order, then
+    rl * ins is rounded, so one step of rl can move the product by two),
+    the bf16 outputs dfact_rel, dw, db and dins one step (float sums
+    rounded once); dprior (float from the same widened values) 1e-4 and
+    scatter_mm 1e-5 of max|ref|. Two backward launches
+    bit-identical; CUDA-event medians of kernel, plain and, for the
+    scatter, ``scatter_add_``. Returns rows."""
+    import numpy as np
+    import torch
+    from gnn_rag_tpu_torch.ops import gate_scatter as gs
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    rows, bad = [], []
+    for name, B, E, F, J, D, dtype, relu in KERNEL_SHAPES:
+        if name not in FUSED_SHAPES:
+            continue
+        vals, ins, prior, scatter, starts, _ = kernel_inputs(
+            B, E, F, J, D, dtype, relu, device, rng)
+        w = (torch.randn((D, D), generator=gen, device=device)
+             / math.sqrt(D)).to(ins.dtype)
+        b = (0.1 * torch.randn((D,), generator=gen, device=device)).to(ins.dtype)
+        args = (vals[0], w, b, ins, prior[0], scatter[0], starts[0])
+        fwd = gs.fused_gate_scatter_fwd(*args, relu)
+        g = torch.randn(fwd.shape, generator=gen, device=device)
+        bwd = gs.fused_gate_scatter_bwd(*args, g, relu)
+        again = gs.fused_gate_scatter_bwd(*args, g, relu)
+        Fp = vals[0].shape[1]
+        tiles = chunk_tiles_of(starts[0], Fp // 128)
+        sv = torch.randn((B, Fp, J * D), generator=gen, device=device).to(ins.dtype)
+        sc = gs.scatter_mm_fwd(sv, scatter[0], tiles, E)
+        torch.cuda.synchronize()
+        want = (gs.fused_gate_scatter_fwd_plain(*args, relu),
+                *gs.fused_gate_scatter_bwd_plain(*args, g, relu),
+                gs.scatter_mm_fwd_plain(sv, scatter[0], tiles, E))
+        torch.cuda.synchronize()
+        # a share of max|ref|, or (bf16 steps,) per element (bf16_tol)
+        rules = dict(fwd=1e-5, dfact_rel=1e-4, dw=1e-4, db=1e-4, dins=1e-4,
+                     dprior=1e-4, scatter=1e-5)
+        if dtype == "bfloat16":
+            rules.update(fwd=(2,), dfact_rel=(1,), dw=(1,), db=(1,), dins=(1,))
+        errs = {}
+        for (part, rule), a, r in zip(rules.items(), (fwd, *bwd, sc), want):
+            d = (a.float() - r.float()).abs()
+            ref = r.float().abs().max()
+            tol = bf16_tol(r, *rule) if isinstance(rule, tuple) else rule * ref
+            over = d.div(tol).nan_to_num(nan=0.0).max().item()
+            errs[part] = [d.max().item(), ref.item(), over]
+            if not (a.dtype == r.dtype and torch.isfinite(a).all()
+                    and over <= 1.0):
+                bad.append(f"{name} {part}: max|d| {d.max().item()} is "
+                           f"{over} of its tolerance")
+        repeat = all(torch.equal(x, y) for x, y in zip(bwd, again))
+        if not repeat:
+            bad.append(f"{name}: fused backward not bit-repeatable")
+        # the one PyTorch call that computes scatter_mm: scatter_add_ into
+        # zeros (pad slots pointed at row 0 with zero values)
+        idx = scatter[0].clamp_min(0).long()[..., None].expand(sv.shape).contiguous()
+        src = torch.where((scatter[0] >= 0)[..., None], sv.float(), 0.0)
+
+        def library():
+            return torch.zeros((B, E, J * D), device=device).scatter_add_(
+                1, idx, src)
+
+        lib_err = (library() - want[-1]).abs().max().item()
+        row = dict(
+            shape=name, B=B, E=E, Fp=Fp, J=J, D=D, dtype=dtype, relu=relu,
+            err_ref_by_output=errs, bit_identical_repeat=repeat,
+            scatter_C=J * D, scatter_add_vs_plain=lib_err,
+            ms=median_ms(lambda: gs.fused_gate_scatter_fwd(*args, relu)),
+            plain_ms=median_ms(lambda: gs.fused_gate_scatter_fwd_plain(*args, relu)),
+            bwd_ms=median_ms(lambda: gs.fused_gate_scatter_bwd(*args, g, relu)),
+            bwd_plain_ms=median_ms(
+                lambda: gs.fused_gate_scatter_bwd_plain(*args, g, relu)),
+            scatter_ms=median_ms(lambda: gs.scatter_mm_fwd(sv, scatter[0], tiles, E)),
+            scatter_plain_ms=median_ms(
+                lambda: gs.scatter_mm_fwd_plain(sv, scatter[0], tiles, E)),
+            scatter_add_ms=median_ms(library))
+        row["bound_ms_by"] = dict(
+            fwd=gate_bound(row, False, ndir=1, project=True),
+            bwd=gate_bound(row, True, ndir=1, project=True),
+            scatter=scatter_bound(row))
+        log("kernel-fused", json.dumps(row))
+        rows.append(row)
+        del vals, args, fwd, g, bwd, again, sv, sc, want, idx, src
+    if bad:
+        raise AssertionError("fused kernels vs plain: " + "; ".join(bad))
     return rows
 
 
@@ -414,7 +543,7 @@ def run_slice(device, root):
     evaluator = Evaluator(eps=cfg.model.eps, num_entity=vocab.num_entity,
                           id2entity=vocab.id2entity, num_iter=cfg.model.num_iter)
     try:
-        gs.launches = gs.bwd_launches = 0
+        reset_gate_counts()
         res1 = post(url, questions[:1])
         res16 = post(url, questions[:16])
         f1, hit, em, loss = evaluator.evaluate(
@@ -424,7 +553,8 @@ def run_slice(device, root):
         launches = gs.launches
         forwards = 2 + math.ceil(len(test) / 16)
         per_forward = 1 + cfg.model.num_iter * cfg.model.num_gnn
-        if launches != forwards * per_forward or gs.bwd_launches:
+        if (launches != forwards * per_forward or gs.bwd_launches
+                or gs.fused_launches or gs.fused_bwd_launches):
             raise AssertionError(f"kernel launches {launches} != {forwards} "
                                  f"forwards x {per_forward}, or backward "
                                  f"launches {gs.bwd_launches} while serving")
@@ -511,7 +641,7 @@ def run_train(device, root):
                               os.path.join(root, "ckpt"),
                               "--experiment_name", "smoke"]
     # ---- the main path, counted: 2 epochs of training with evaluation ----
-    gs.launches = gs.bwd_launches = 0
+    reset_gate_counts()
     ctx = cli.run(flags + ["--num_epoch", "2", "--eval_every", "1",
                            "--decay_rate", "0.98"])
     torch.cuda.synchronize()
@@ -528,7 +658,8 @@ def run_train(device, root):
     evals = (2 * (n_batches(tr.valid_data) + n_batches(tr.test_data))
              + len(written) * n_batches(tr.test_data))
     per = 1 + cfg.model.num_iter * cfg.model.num_gnn
-    if tr.step_count != steps or fwd != per * (steps + evals) or bwd != per * steps:
+    if (tr.step_count != steps or fwd != per * (steps + evals)
+            or bwd != per * steps or gs.fused_launches or gs.fused_bwd_launches):
         raise AssertionError(f"train launches fwd {fwd} bwd {bwd}, expected "
                              f"{per} x ({steps} steps + {evals} eval forwards) "
                              f"and {per} x {steps}")
@@ -574,20 +705,38 @@ def run_train(device, root):
     return summary, tr, fwd, bwd
 
 
+GATE_KERNELS = ("gate_scatter_fwd", "gate_scatter_bwd",
+                "fused_gate_scatter_fwd", "fused_gate_scatter_bwd",
+                "scatter_mm_fwd")
+
+
 def swapped_to_plain(fn):
-    """Run ``fn`` with both gate-scatter kernels swapped for their plain
-    versions (restored afterwards)."""
+    """Run ``fn`` with every gate-scatter kernel (the v4 forward and
+    backward, the fused-projection forward and backward, scatter_mm)
+    swapped for its plain version (restored afterwards)."""
     from gnn_rag_tpu_torch.ops import gate_scatter as gs
-    real = gs.gate_scatter_fwd, gs.gate_scatter_bwd
-    gs.gate_scatter_fwd, gs.gate_scatter_bwd = (gs.gate_scatter_fwd_plain,
-                                                gs.gate_scatter_bwd_plain)
+    real = {name: getattr(gs, name) for name in GATE_KERNELS}
+    for name in GATE_KERNELS:
+        setattr(gs, name, getattr(gs, name + "_plain"))
     try:
         return fn()
     finally:
-        gs.gate_scatter_fwd, gs.gate_scatter_bwd = real
+        for name, f in real.items():
+            setattr(gs, name, f)
 
 
-def check_grads(tr, device):
+def gate_counts():
+    from gnn_rag_tpu_torch.ops import gate_scatter as gs
+    return {name: getattr(gs, name) for name in GATE_COUNTERS}
+
+
+def reset_gate_counts():
+    from gnn_rag_tpu_torch.ops import gate_scatter as gs
+    for name in GATE_COUNTERS:
+        setattr(gs, name, 0)
+
+
+def check_grads(tr, device, phase="grad"):
     """Phase 6: every parameter gradient of one B8 batch (dropout off)
     through the kernels and through the plain versions; one bf16 step."""
     import dataclasses
@@ -636,8 +785,25 @@ def check_grads(tr, device):
                    bf16_grads_finite=bf_finite,
                    batch_E=int(batch.seed_dist.shape[1]),
                    batch_Fp=int(batch.layout.fwd.scatter.shape[1]))
-    log("grad", json.dumps(summary))
+    log(phase, json.dumps(summary))
     return summary
+
+
+def ms_per_step(tr, batch, valid_w):
+    """ms per training step: CUDA events around TRAIN_STEPS steps after 5
+    of warm-up."""
+    import torch
+    acc = torch.zeros(4, device=batch.seed_dist.device)
+    for _ in range(5):
+        acc = tr.train_step(batch, valid_w, acc)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        acc = tr.train_step(batch, valid_w, acc)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / TRAIN_STEPS
 
 
 def train_step_time(tr, device):
@@ -645,31 +811,33 @@ def train_step_time(tr, device):
     after warm-up, kernel path and plain path in turns), and one kernel-path
     step's device time, kernel count and busy share under torch.profiler."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     batch = tr.train_data.make_batch(range(8)).to(device)
     valid_w = torch.ones(8, device=device)
-
-    def ms_per_step():
-        acc = torch.zeros(4, device=device)
-        for _ in range(5):
-            acc = tr.train_step(batch, valid_w, acc)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(TRAIN_STEPS):
-            acc = tr.train_step(batch, valid_w, acc)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / TRAIN_STEPS
-
     kernel, plain = [], []
     for path in ("kernel", "plain", "plain", "kernel"):
         if path == "kernel":
-            kernel.append(ms_per_step())
+            kernel.append(ms_per_step(tr, batch, valid_w))
         else:
-            plain.append(swapped_to_plain(ms_per_step))
-    reps = 3
-    acc = torch.zeros(4, device=device)
+            plain.append(swapped_to_plain(
+                lambda: ms_per_step(tr, batch, valid_w)))
+    summary = dict(
+        batch=8, steps_timed=TRAIN_STEPS, ms_per_step_kernel=kernel,
+        ms_per_step_plain=plain,
+        subgraphs_per_s_kernel=[8e3 / x for x in kernel],
+        subgraphs_per_s_plain=[8e3 / x for x in plain],
+        batch_E=int(batch.seed_dist.shape[1]),
+        batch_Fp=int(batch.layout.fwd.scatter.shape[1]),
+        **profile_step(tr, batch, valid_w))
+    log("step-time", json.dumps(summary))
+    return summary
+
+
+def profile_step(tr, batch, valid_w, reps=3):
+    """``reps`` training steps under torch.profiler: wall and device ms a
+    step, busy share, kernels a step and the largest device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acc = torch.zeros(4, device=valid_w.device)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -682,20 +850,132 @@ def train_step_time(tr, device):
            and e.self_device_time_total > 0]
     dev_ms = sum(e.self_device_time_total for e in dev) / 1e3 / reps
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:10]
-    summary = dict(
-        batch=8, steps_timed=TRAIN_STEPS, ms_per_step_kernel=kernel,
-        ms_per_step_plain=plain,
-        subgraphs_per_s_kernel=[8e3 / x for x in kernel],
-        subgraphs_per_s_plain=[8e3 / x for x in plain],
-        batch_E=int(batch.seed_dist.shape[1]),
-        batch_Fp=int(batch.layout.fwd.scatter.shape[1]),
+    return dict(
         profiled_step_wall_ms=wall, device_ms=dev_ms,
         busy_share=dev_ms / wall if dev_ms else "not measured",
         device_kernels_per_step=sum(e.count for e in dev) / reps,
         top_device_ops=[[e.key[:60], e.self_device_time_total / 1e3 / reps,
                          e.count / reps] for e in top])
-    log("step-time", json.dumps(summary))
-    return summary
+
+
+def run_v2_path(device, root):
+    """Phase 7b: ReaRev with GNN_RAG_GATE_SCATTER=v2 (set in this process,
+    restored after) on run_train's data in ``root``: one epoch of 8 steps
+    with evaluation through the port's CLI, the fused kernels' launch
+    counts (2 x num_iter x num_gnn per forward and per step; TypeLayer's
+    one gate-scatter launch per forward and step); every gradient kernel
+    vs plain (check_grads) and a bf16 step; two POST /retrieve requests
+    served by the trained model with their launch counts, pred_dist kernel
+    vs plain; ms per train step on the v2 and the v4 path in eight turns,
+    and each path's steps under torch.profiler (device ms: the step's wall
+    is host bound). Returns (summary, train counts)."""
+    import numpy as np
+    import torch
+    from gnn_rag_tpu_torch import cli
+    from gnn_rag_tpu_torch.serve import RetrieverService
+
+    before = os.environ.get("GNN_RAG_GATE_SCATTER")
+    os.environ["GNN_RAG_GATE_SCATTER"] = "v2"
+    try:
+        t0 = time.perf_counter()
+        flags = HEADLINE_FLAGS + [
+            "--data_folder", root + "/", "--checkpoint_dir",
+            os.path.join(root, "ckpt_v2"), "--experiment_name", "smoke_v2",
+            "--num_epoch", "1", "--eval_every", "1"]
+        # ---- the main path, counted: 1 epoch of training with evaluation ----
+        reset_gate_counts()
+        ctx = cli.run(flags)
+        torch.cuda.synchronize()
+        train_counts = gate_counts()
+        tr, cfg = ctx["trainer"], ctx["cfg"]
+        wall = time.perf_counter() - t0
+
+        def n_batches(ds):
+            return math.ceil(len(ds) / cfg.train.test_batch_size)
+
+        written = [r for r in ("h1", "f1", "final")
+                   if os.path.exists(tr._ckpt_path(r))]
+        steps = math.ceil(len(tr.train_data) / cfg.train.batch_size)
+        forwards = (steps + n_batches(tr.valid_data) + n_batches(tr.test_data)
+                    + len(written) * n_batches(tr.test_data))
+        fused = 2 * cfg.model.num_iter * cfg.model.num_gnn
+        want = dict(launches=forwards, bwd_launches=steps,
+                    fused_launches=fused * forwards,
+                    fused_bwd_launches=fused * steps, scatter_launches=0)
+        history = ctx["history"]
+        if (steps != 8 or tr.step_count != steps or train_counts != want
+                or not np.isfinite(history).all()):
+            raise AssertionError(f"v2 training: {tr.step_count} steps, "
+                                 f"launches {train_counts}, expected {want}; "
+                                 f"history {history}")
+        grads = check_grads(tr, device, phase="grad-v2")
+
+        # ---- two requests served by the trained v2 model, counted ----
+        bundle, lm, tok = ctx["bundle"], ctx["lm"], ctx["bundle"]["tokenizer"]
+        svc = RetrieverService(
+            cfg, bundle["vocab"], tr.model,
+            **dict(zip(("rel_hidden", "rel_hidden_inv", "rel_text_mask"),
+                       (a.cpu().numpy() for a in tr.rel_args))),
+            tokenizer=tok,
+            question_encoder=lambda ids: lm.encode(ids[None],
+                                                   pad_id=tok.pad_id)[0])
+        with open(os.path.join(root, "test.json")) as f:
+            questions = [json.loads(line) for line in f]
+        httpd = svc.serve_http(port=0)
+        url = f"http://localhost:{httpd.server_port}/retrieve"
+        try:
+            reset_gate_counts()
+            res = post(url, questions[:1]) + post(url, questions[1:5])
+            torch.cuda.synchronize()
+            serve_counts = gate_counts()
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        want = dict(launches=2, bwd_launches=0, fused_launches=2 * fused,
+                    fused_bwd_launches=0, scatter_launches=0)
+        if serve_counts != want or len(res) != 5 or not all(
+                r["cand"] for r in res):
+            raise AssertionError(f"v2 serving launches {serve_counts}, "
+                                 f"expected {want}; {len(res)} results")
+        batch = tr.test_data.make_batch(range(16))
+        with torch.inference_mode():
+            dist_k = svc.forward(batch)[2]
+            dist_p = swapped_to_plain(lambda: svc.forward(batch)[2])
+        diff = (dist_k - dist_p).abs().max().item()
+        if not (torch.isfinite(dist_k).all()
+                and diff <= min(1e-5, 1e-4 * dist_p.abs().max().item())):
+            raise AssertionError(f"v2 pred_dist kernel vs plain max|d|={diff}")
+
+        # ---- a train step on the v2 and the v4 path, in turns, and each
+        # path's device time under the profiler ----
+        step_batch = tr.train_data.make_batch(range(8)).to(device)
+        valid_w = torch.ones(8, device=device)
+        step_ms = {"v2": [], "v4": []}
+        for variant in ("v2", "v4", "v4", "v2") * 2:
+            os.environ["GNN_RAG_GATE_SCATTER"] = variant
+            step_ms[variant].append(ms_per_step(tr, step_batch, valid_w))
+        profiled = {}
+        for variant in ("v4", "v2"):
+            os.environ["GNN_RAG_GATE_SCATTER"] = variant
+            profiled.update({f"{variant}_{k}": v for k, v in
+                             profile_step(tr, step_batch, valid_w).items()})
+        summary = dict(
+            wall_s=wall, steps=steps, forwards=forwards,
+            train_launches=train_counts, serve_launches=serve_counts,
+            epoch_loss_h1_f1=history, checkpoints=written,
+            grad_worst_err_over_tol=grads["worst_err_over_tol"],
+            pred_dist_kernel_vs_plain=diff,
+            ms_per_step_v2=step_ms["v2"], ms_per_step_v4=step_ms["v4"],
+            batch_E=int(step_batch.seed_dist.shape[1]),
+            batch_Fp=int(step_batch.layout.fwd.scatter.shape[1]),
+            **profiled)
+        log("v2", json.dumps(summary))
+        return summary, train_counts
+    finally:
+        if before is None:
+            os.environ.pop("GNN_RAG_GATE_SCATTER", None)
+        else:
+            os.environ["GNN_RAG_GATE_SCATTER"] = before
 
 
 # ------------------------------------------- bounds, then the LLM reader
@@ -708,22 +988,39 @@ def bound(flops, nbytes, dtype):
                                        else "bytes")
 
 
-def gate_bound(row, backward):
-    """Bound of a gate-scatter launch at a kernel row's shapes, both
+def gate_bound(row, backward, ndir=2, project=False):
+    """Bound of a gate-scatter launch at a kernel row's shapes, ``ndir``
     directions: every input read once, every output written once; a
     multiply, a scale and an add per (fact, column) forward, twice that
-    backward."""
+    backward. ``project`` (the fused-projection kernels): w and b read
+    (and dW, db written backward), 2*D*D flops per fact slot for the
+    projection forward, 6*D*D backward (rl again, dfact_rel, dW). Only the
+    function's inputs and outputs count: the backward kernel's dW
+    workspace is its design's traffic, not the function's."""
     B, E, Fp, J, D = row["B"], row["E"], row["Fp"], row["J"], row["D"]
     it = 4 if row["dtype"] == "float32" else 2
-    vals, ins = 2 * B * Fp * D * it, B * J * D * it
-    per_fact = 2 * B * Fp * 4                 # prior or scatter, f32 / i32
-    starts = 2 * B * (E // 128 + 1) * 4
-    out = 2 * B * E * J * D * 4
+    vals, ins = ndir * B * Fp * D * it, B * J * D * it
+    per_fact = ndir * B * Fp * 4              # prior or scatter, f32 / i32
+    starts = ndir * B * (E // 128 + 1) * 4
+    out = ndir * B * E * J * D * 4
     nbytes = vals + ins + 2 * per_fact + starts + out
+    flops = (6 if backward else 3) * ndir * B * Fp * J * D
     if backward:                              # + dvals, dprior, dins out
         nbytes += vals + per_fact + ins
-    return bound((6 if backward else 3) * 2 * B * Fp * J * D, nbytes,
-                 row["dtype"])
+    if project:
+        nbytes += (D * D + D) * it * (2 if backward else 1)
+        flops += (6 if backward else 2) * D * D * ndir * B * Fp
+    return bound(flops, nbytes, row["dtype"])
+
+
+def scatter_bound(row):
+    """Bound of scatter_mm at a fused row's shapes (C = J*D): the values,
+    scatter and chunk_tiles read once, the float output written once, one
+    float add per (fact slot, column)."""
+    B, E, Fp, C = row["B"], row["E"], row["Fp"], row["scatter_C"]
+    it = 4 if row["dtype"] == "float32" else 2
+    nbytes = B * Fp * C * it + B * Fp * 4 + B * (Fp // 128) * 4 + B * E * C * 4
+    return bound(B * Fp * C, nbytes, "float32")
 
 
 def attn_bounds(B, L, H, D, dtype):
@@ -779,13 +1076,20 @@ def attn_err(a, b):
     import torch
     d = (a.float() - b.float()).abs()
     bf = b.float().abs()
-    if a.dtype == torch.float32:
-        tol = 1e-4 * bf.max()
-    else:
-        sq = bf.square()
-        tol = (2 ** -7 * bf + 1e-2 * sq.mean(-1, keepdim=True).sqrt()
-               + 1e-3 * sq.mean().sqrt())
+    tol = 1e-4 * bf.max() if a.dtype == torch.float32 else bf16_tol(b)
     return d.max().item(), bf.max().item(), (d / tol).max().item()
+
+
+def bf16_tol(b, steps=1):
+    """Per-element tolerance of a result ``b`` whose float value is rounded
+    to bf16 ``steps`` times on the way, when the other side forms those
+    float values in another order: ``steps`` bf16 steps (2^-7 |b| each),
+    plus 1e-2 of the rms over the last axis (a float difference where the
+    row's terms cancel), plus 1e-3 of the tensor's rms (rows whose exact
+    value is 0)."""
+    sq = b.float().square()
+    return (steps * 2 ** -7 * sq.sqrt() + 1e-2 * sq.mean(-1, keepdim=True).sqrt()
+            + 1e-3 * sq.mean().sqrt())
 
 
 def check_attn_kernels(device):
@@ -1211,6 +1515,7 @@ def main():
     build_all()
     rows = check_kernels(device)
     bwd_rows = check_bwd_kernels(device)
+    fused_rows = check_fused_kernels(device)
     attn_rows = check_attn_kernels(device)
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
@@ -1221,6 +1526,7 @@ def main():
         check_grads(tr, device)
         train_step_time(tr, device)
         del tr
+        _, v2_counts = run_v2_path(device, os.path.join(root, "train"))
         torch.cuda.empty_cache()
         os.makedirs(os.path.join(root, "llm"))
         sft, trainer, tokens, mask, prompts = run_sft(
@@ -1246,6 +1552,33 @@ def main():
             "shape": row["shape"], "launches_by_path": (
                 {"serve": serve_launches, "train": train_fwd} if not backward
                 else {"train": train_bwd})})
+    frow = fused_rows[0]
+    for name, key, replaces, also, backward in (
+            ("fused_gate_scatter_fwd", "", 126, (210,), False),
+            ("fused_gate_scatter_bwd", "bwd_", 316, (), True)):
+        bound_ms, bound_by = gate_bound(frow, backward, ndir=1, project=True)
+        parts = (("dfact_rel", "dw", "db", "dins", "dprior") if backward
+                 else ("fwd",))
+        kernels.append({
+            "name": name, "route": "cuda", "source": gate,
+            "replaces": f"{PALLAS}:{replaces}",
+            "also_replaces": [f"{PALLAS}:{x}" for x in also],
+            "launches": v2_counts[f"fused_{key}launches"],
+            "max_abs_err": max(frow["err_ref_by_output"][p][0] for p in parts),
+            "ms": frow[f"{key}ms"], "plain_ms": frow[f"{key}plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shape": frow["shape"] + " (one direction)",
+            "launches_by_path": {"train_v2": v2_counts[f"fused_{key}launches"]}})
+    bound_ms, bound_by = scatter_bound(frow)
+    kernels.append({
+        "name": "scatter_mm", "route": "cuda", "source": gate,
+        "replaces": f"{PALLAS}:32", "launches": v2_counts["scatter_launches"],
+        "max_abs_err": frow["err_ref_by_output"]["scatter"][0],
+        "ms": frow["scatter_ms"], "plain_ms": frow["scatter_plain_ms"],
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": frow["scatter_add_ms"],
+        "shape": f"{frow['shape']} C={frow['scatter_C']}",
+        "main_path": "none: no model calls scatter_mm (nor the JAX op)"})
     main_row = attn_rows[0]
     for i, (name, key, line) in enumerate((
             ("flash_attention_fwd", "fwd", 47), ("flash_attention_dq", "dq", 132),

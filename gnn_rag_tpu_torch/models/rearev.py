@@ -11,7 +11,13 @@ Each GNN step projects the relation features of every fact slot with
 ``rel_linear{s}`` and runs one gate-scatter launch for both message
 directions (``ops.gate_scatter.gate_scatter_both``, differentiable through
 its backward kernel); the neighbour features are interleaved fwd_0, inv_0,
-fwd_1, ... as the reference does (reasongnn.py:150-156).
+fwd_1, ... as the reference does (reasongnn.py:150-156). The environment
+variable ``GNN_RAG_GATE_SCATTER`` picks the op as the JAX model does, when
+the model runs: ``v4`` (the default) and ``v3`` as above (on the TPU the two
+differ only in how the output fits VMEM; they compute the same function);
+any other value one ``gate_scatter`` launch per direction with the
+``rel_linear{s}`` projection inside the kernel. All of them use the same
+parameters.
 
 Training mode (``training=True``) adds the JAX model's dropout: linear
 dropout inside the instruction decoder and before ``e2e_linear{s}`` and
@@ -28,12 +34,13 @@ relation texts, layout path); every other option raises
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
-from ..ops.gate_scatter import gate_scatter_both
+from ..ops.gate_scatter import gate_scatter, gate_scatter_both
 from ..ops.segment import (gather_entities_to_facts, gather_rows,
                            layout_fact_keep)
 from ..ops.softmax import masked_softmax
@@ -81,6 +88,9 @@ class ReasonGNN(nn.Module):
             valid_f = valid_f * layout_fact_keep(layout.fwd, drop_keep)
             valid_i = valid_i * layout_fact_keep(layout.inv, drop_keep)
         ins_c = instructions.to(cdt)
+        # the message-passing op, as the JAX model picks it
+        # (gnn_rag_tpu/models/rearev.py:80-82)
+        variant = os.environ.get("GNN_RAG_GATE_SCATTER", "v4")
         for step in range(self.num_gnn):
             w = getattr(self, f"rel_linear{step}").to(cdt)
             b = getattr(self, f"rel_linear{step}_bias").to(cdt)
@@ -88,11 +98,21 @@ class ReasonGNN(nn.Module):
             # fact's gather entity (rearev.py:125-126)
             prior_f = gather_entities_to_facts(curr_dist, layout.fwd.gather) * valid_f
             prior_i = gather_entities_to_facts(curr_dist, layout.inv.gather) * valid_i
-            out_f, out_i = gate_scatter_both(fact_rel_f @ w + b, fact_rel_i @ w + b,
-                                             ins_c, prior_f, prior_i, layout, E)
-            neighbors = torch.cat([out_f.reshape(B, E, J, 1, D),
-                                   out_i.reshape(B, E, J, 1, D)],
-                                  dim=3).reshape(B, E, 2 * J * D)
+            if variant in ("v3", "v4"):   # v3: a TPU schedule of the same op
+                out_f, out_i = gate_scatter_both(fact_rel_f @ w + b,
+                                                 fact_rel_i @ w + b, ins_c,
+                                                 prior_f, prior_i, layout, E)
+                neighbors = torch.cat([out_f.reshape(B, E, J, 1, D),
+                                       out_i.reshape(B, E, J, 1, D)],
+                                      dim=3).reshape(B, E, 2 * J * D)
+            else:   # rel_linear inside the kernel
+                nb_f = gate_scatter(fact_rel_f, w, b, ins_c, prior_f,
+                                    layout.fwd, E)
+                nb_i = gate_scatter(fact_rel_i, w, b, ins_c, prior_i,
+                                    layout.inv, E)
+                # [B, J, E, D] each -> fwd_0, inv_0, fwd_1, ...
+                neighbors = torch.stack([nb_f, nb_i], dim=2).permute(
+                    0, 3, 1, 2, 4).reshape(B, E, 2 * J * D)
             nxt = torch.cat([ent_emb, neighbors], dim=2)
             ent_emb = torch.relu(getattr(self, f"e2e_linear{step}")(
                 dropout(nxt, self.dropout, generator)))

@@ -46,8 +46,30 @@ partials summed in a fixed order, so no float atomics and a repeatable sum.
 its backward ``gate_scatter_bwd``; ``gate_scatter_both`` and
 ``gate_scatter_projected`` go through it.
 
-Dispatch: CPU tensors take the plain versions (``gate_scatter_fwd_plain``,
-``gate_scatter_bwd_plain``); CUDA tensors launch the kernels or raise.
+The fused-projection op (``gate_scatter``, one direction per call, what
+ReaRev runs under ``GNN_RAG_GATE_SCATTER`` other than v3/v4) takes the
+relation features of each fact slot before ``rel_linear`` and projects them
+in the kernel: ``rl = T(float(fact_rel @ w) + float(b))``, then the gate
+above on ``rl``. ``fused_gate_scatter_fwd`` replaces the TPU kernels
+``_fused_kernel`` (pallas_mp.py:126, v1) and ``_fused_kernel_v2`` (:210), which
+compute the same function on two schedules; ``fused_gate_scatter_bwd``
+replaces ``_fused_bwd_kernel`` (:316): it recomputes ``rl`` in float32
+without rounding it, reads the prior unrounded, and returns ``dfact_rel``,
+``dw``, ``dbias``, ``dins`` and ``dprior``, ``dw`` and ``dbias`` summed over
+every block in a fixed order (no float atomics). ``FusedGateScatterFn`` is
+its autograd op. The forward adds 2*D*D flops per fact slot to the gate's
+bytes, so at D 50 in float32 its bytes and its operations take about the
+same least time; the backward adds 6*D*D and is bound by operations. On
+the card the backward's loops issue about two shared-memory loads per
+FMA, and that load rate, not the FMA rate, is what limits it.
+
+``scatter_mm`` (values ``[B, Fp, C]`` -> ``[B, E, C]`` float32, a plain
+scatter-add over the same layout, found by ``chunk_tiles``) replaces
+``_scatter_kernel`` (pallas_mp.py:32); its gradient is a gather, as in JAX
+(:103-108). No model calls it.
+
+Dispatch: CPU tensors take the plain versions (``*_plain``); CUDA tensors
+launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -62,8 +84,11 @@ from ..utils import build as _build
 from .segment import batched_segment_sum
 
 # launches of the CUDA kernels (plain-version calls are not counted)
-launches = 0          # gate_scatter_fwd
-bwd_launches = 0      # gate_scatter_bwd
+launches = 0            # gate_scatter_fwd
+bwd_launches = 0        # gate_scatter_bwd
+fused_launches = 0      # fused_gate_scatter_fwd
+fused_bwd_launches = 0  # fused_gate_scatter_bwd
+scatter_launches = 0    # scatter_mm_fwd
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -88,6 +113,13 @@ def _load():
                                              + [ctypes.c_int] * 8
                                              + [ctypes.c_void_p])
             lib.gate_scatter_bwd.restype = ctypes.c_int
+            for name, n_ptr, n_int in (("fused_gate_scatter_fwd", 8, 7),
+                                       ("fused_gate_scatter_bwd", 15, 7),
+                                       ("scatter_mm_fwd", 4, 5)):
+                fn = getattr(lib, name)
+                fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                               + [ctypes.c_void_p])
+                fn.restype = ctypes.c_int
             lib.gate_scatter_error_string.argtypes = [ctypes.c_int]
             lib.gate_scatter_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -170,21 +202,25 @@ def gate_scatter_fwd(vals, ins: torch.Tensor, prior, scatter, chunk_starts,
     n_tiles = chunk_starts[0].shape[-1] - 1
     out = torch.empty((len(vals), B, n_tiles * TILE_E, J * D),
                       dtype=torch.float32, device=ins.device)
-    lib = _load()
-    with torch.cuda.device(ins.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gate_scatter_fwd(
+    _launch("gate_scatter_fwd", ins.device,
             vals[0].data_ptr(), vals[-1].data_ptr(), ins.data_ptr(),
             prior[0].data_ptr(), prior[-1].data_ptr(), scatter[0].data_ptr(),
             scatter[-1].data_ptr(), chunk_starts[0].data_ptr(),
             chunk_starts[-1].data_ptr(), out.data_ptr(), len(vals), B, Fp, D,
-            J, n_tiles, int(bool(apply_relu)), int(ins.dtype == torch.bfloat16),
-            stream)
-    if err != 0:
-        raise RuntimeError("gate_scatter kernel launch failed: "
-                           + lib.gate_scatter_error_string(err).decode())
+            J, n_tiles, int(bool(apply_relu)), int(ins.dtype == torch.bfloat16))
     launches += 1
     return out
+
+
+def _launch(name: str, device, *args) -> None:
+    """Call the library's ``name`` with ``args`` and the current stream of
+    ``device``; raise with the CUDA error if the launch was refused."""
+    lib = _load()
+    with torch.cuda.device(device):
+        err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           + lib.gate_scatter_error_string(err).decode())
 
 
 def gate_scatter_bwd_plain(vals, ins: torch.Tensor, prior, scatter,
@@ -259,10 +295,7 @@ def gate_scatter_bwd(vals, ins: torch.Tensor, prior, scatter, chunk_starts,
     ws = (torch.empty((ndir, B, n_tiles, J * D), dtype=torch.float32,
                       device=dev) if need_dins else None)
     dins = torch.empty(ins.shape, dtype=ins.dtype, device=dev) if need_dins else None
-    lib = _load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gate_scatter_bwd(
+    _launch("gate_scatter_bwd", dev,
             vals[0].data_ptr(), vals[-1].data_ptr(), ins.data_ptr(),
             prior[0].data_ptr(), prior[-1].data_ptr(), scatter[0].data_ptr(),
             scatter[-1].data_ptr(), chunk_starts[0].data_ptr(),
@@ -270,11 +303,7 @@ def gate_scatter_bwd(vals, ins: torch.Tensor, prior, scatter, chunk_starts,
             dprior.data_ptr() if need_dprior else None,
             ws.data_ptr() if need_dins else None,
             dins.data_ptr() if need_dins else None, ndir, B, Fp, D, J,
-            n_tiles, int(bool(apply_relu)), int(ins.dtype == torch.bfloat16),
-            stream)
-    if err != 0:
-        raise RuntimeError("gate_scatter_bwd kernel launch failed: "
-                           + lib.gate_scatter_error_string(err).decode())
+            n_tiles, int(bool(apply_relu)), int(ins.dtype == torch.bfloat16))
     bwd_launches += 1
     return (dvals.unbind(0), dprior.unbind(0) if need_dprior else None, dins)
 
@@ -333,9 +362,11 @@ def gate_scatter_projected(fact_rl: torch.Tensor, ins: torch.Tensor,
                            apply_relu: bool = True) -> torch.Tensor:
     """One direction (the v3 op): ``[B, Fp, D]`` projected fact values ->
     ``[B, J, E, D]``, differentiable through ``GateScatterFn``. ReaRev does
-    not call it: TypeLayer runs its two directions through
-    ``gate_scatter_both``. It is the port of the JAX package's v3 op, kept
-    for NSM (still to port), which calls that op."""
+    not call it: under ``GNN_RAG_GATE_SCATTER=v3`` it runs both directions
+    through ``gate_scatter_both``, which computes the same function (on the
+    TPU, v3 and v4 differ only in how the output block fits VMEM). It
+    is the port of the JAX package's v3 op, kept for NSM (still to port),
+    which calls that op."""
     _check_entities(direction, num_entities)
     out = GateScatterFn.apply(apply_relu, ins.contiguous(),
                               fact_rl.contiguous(), prior.contiguous(),
@@ -350,3 +381,260 @@ def _check_entities(direction, num_entities: int):
     if n_tiles * TILE_E != num_entities:
         raise ValueError(f"gate_scatter: layout has {n_tiles} tiles of "
                          f"{TILE_E}, num_entities={num_entities}")
+
+
+# ------------------------------------------------- fused-projection op (K6a-c)
+def fused_gate_scatter_fwd_plain(fact_rel, w, bias, ins: torch.Tensor, prior,
+                                 scatter, chunk_starts,
+                                 apply_relu: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of the fused-projection kernel, same contract
+    and numerics (see ``fused_gate_scatter_fwd``): ``rl`` in float32 with the
+    bias added in float32, rounded once to the input type (pallas_mp.py:
+    140-145), then the gate of ``gate_scatter_fwd_plain``."""
+    rl = (fact_rel.float() @ w.float() + bias.float()).to(fact_rel.dtype)
+    return gate_scatter_fwd_plain((rl,), ins, (prior,), (scatter,),
+                                  (chunk_starts,), apply_relu)[0]
+
+
+def _check_proj(fact_rel, w, bias, ins, prior, scatter, chunk_starts):
+    _check((fact_rel,), ins, (prior,), (scatter,), (chunk_starts,))
+    D = ins.shape[-1]
+    for name, t, shape in (("w", w, (D, D)), ("bias", bias, (D,))):
+        if (t.dtype != ins.dtype or t.shape != shape
+                or t.get_device() != ins.get_device() or not t.is_contiguous()):
+            raise TypeError(f"gate_scatter: {name} must be a contiguous "
+                            f"{ins.dtype} {shape} on {ins.device}, got "
+                            f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def fused_gate_scatter_fwd(fact_rel: torch.Tensor, w: torch.Tensor,
+                           bias: torch.Tensor, ins: torch.Tensor,
+                           prior: torch.Tensor, scatter: torch.Tensor,
+                           chunk_starts: torch.Tensor,
+                           apply_relu: bool = True) -> torch.Tensor:
+    """One direction of the fused-projection op: ``[B,Fp,D]`` relation
+    features of the fact slots, ``rel_linear``'s ``w [D,D]`` and ``bias [D]``
+    and ``ins [B,J,D]``, all float32 or all bfloat16; ``[B,Fp]`` float32
+    prior, ``[B,Fp]`` int32 scatter, ``[B,E/128+1]`` int32 chunk_starts ->
+    ``[B,E,J*D]`` float32 with ``rl = fact_rel @ w + bias`` as the values of
+    ``gate_scatter_fwd``.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on the
+    current stream or raise."""
+    global fused_launches
+    if ins.device.type == "cpu":
+        return fused_gate_scatter_fwd_plain(fact_rel, w, bias, ins, prior,
+                                            scatter, chunk_starts, apply_relu)
+    if ins.device.type != "cuda":
+        raise ValueError(f"gate_scatter: unsupported device {ins.device}")
+    _check_proj(fact_rel, w, bias, ins, prior, scatter, chunk_starts)
+    B, Fp, D = fact_rel.shape
+    J = ins.shape[1]
+    n_tiles = chunk_starts.shape[-1] - 1
+    out = torch.empty((B, n_tiles * TILE_E, J * D), dtype=torch.float32,
+                      device=ins.device)
+    _launch("fused_gate_scatter_fwd", ins.device, fact_rel.data_ptr(),
+            w.data_ptr(), bias.data_ptr(), ins.data_ptr(), prior.data_ptr(),
+            scatter.data_ptr(), chunk_starts.data_ptr(), out.data_ptr(), B,
+            Fp, D, J, n_tiles, int(bool(apply_relu)),
+            int(ins.dtype == torch.bfloat16))
+    fused_launches += 1
+    return out
+
+
+def fused_gate_scatter_bwd_plain(fact_rel, w, bias, ins: torch.Tensor, prior,
+                                 scatter, chunk_starts, g: torch.Tensor,
+                                 apply_relu: bool = True):
+    """Plain PyTorch version of the fused-projection backward kernel, same
+    contract and numerics (see ``fused_gate_scatter_bwd``): the JAX op's XLA
+    backward (pallas_mp.py:484-507) in float32 from the widened inputs, with
+    ``rl`` and the prior unrounded as the TPU backward kernel has them
+    (:345-352)."""
+    B, Fp, D = fact_rel.shape
+    J = ins.shape[1]
+    fr, wf, insf = fact_rel.float(), w.float(), ins.float()
+    rl = fr @ wf + bias.float()                                   # [B,Fp,D]
+    pre = rl[:, :, None, :] * insf[:, None, :, :]                 # [B,Fp,J,D]
+    act = torch.relu(pre) if apply_relu else pre
+    gb = torch.gather(g, 1, scatter.clamp_min(0).long()[..., None].expand(
+        B, Fp, J * D))
+    gb = torch.where((scatter >= 0)[..., None], gb, 0.0).reshape(B, Fp, J, D)
+    dprior = (gb * act).sum(dim=(2, 3))
+    dval = gb * prior[:, :, None, None]
+    if apply_relu:
+        dval = torch.where(pre > 0, dval, 0.0)
+    drl = torch.einsum("bfjd,bjd->bfd", dval, insf)
+    dins = torch.einsum("bfjd,bfd->bjd", dval, rl)
+    dw = torch.einsum("bfd,bfe->de", fr, drl)
+    return ((drl @ wf.T).to(fact_rel.dtype), dw.to(w.dtype),
+            drl.sum(dim=(0, 1)).to(bias.dtype), dins.to(ins.dtype), dprior)
+
+
+def fused_gate_scatter_bwd(fact_rel: torch.Tensor, w: torch.Tensor,
+                           bias: torch.Tensor, ins: torch.Tensor,
+                           prior: torch.Tensor, scatter: torch.Tensor,
+                           chunk_starts: torch.Tensor, g: torch.Tensor,
+                           apply_relu: bool = True):
+    """Backward of ``fused_gate_scatter_fwd`` for the same inputs and the
+    ``[B,E,J*D]`` float32 cotangent ``g`` of its output -> ``(dfact_rel, dw,
+    dbias, dins, dprior)`` in the types of the inputs (the JAX order,
+    pallas_mp.py:444-445). ``dw`` and ``dbias`` are summed over every fact of
+    the batch; pad slots get zero gradients.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on the
+    current stream or raise."""
+    global fused_bwd_launches
+    if ins.device.type == "cpu":
+        return fused_gate_scatter_bwd_plain(fact_rel, w, bias, ins, prior,
+                                            scatter, chunk_starts, g,
+                                            apply_relu)
+    if ins.device.type != "cuda":
+        raise ValueError(f"gate_scatter: unsupported device {ins.device}")
+    _check_proj(fact_rel, w, bias, ins, prior, scatter, chunk_starts)
+    B, Fp, D = fact_rel.shape
+    J = ins.shape[1]
+    n_tiles = chunk_starts.shape[-1] - 1
+    shape = (B, n_tiles * TILE_E, J * D)
+    if (g.dtype != torch.float32 or g.shape != shape or not g.is_contiguous()
+            or g.get_device() != ins.get_device() or g.data_ptr() % 16):
+        raise TypeError(f"fused_gate_scatter_bwd: g must be a contiguous, "
+                        f"16-byte aligned float32 {shape} on {ins.device}, "
+                        f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+    dev = ins.device
+
+    def empty(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    dfr, dprior = empty(fact_rel.shape, fact_rel.dtype), empty((B, Fp))
+    dins, dw, db = empty(ins.shape, ins.dtype), empty(w.shape, w.dtype), empty(
+        bias.shape, bias.dtype)
+    dins_ws, dw_ws = empty((B, n_tiles, J * D)), empty((B * n_tiles, D * D + D))
+    _launch("fused_gate_scatter_bwd", dev, fact_rel.data_ptr(), w.data_ptr(),
+            bias.data_ptr(), ins.data_ptr(), prior.data_ptr(),
+            scatter.data_ptr(), chunk_starts.data_ptr(), g.data_ptr(),
+            dfr.data_ptr(), dprior.data_ptr(), dins_ws.data_ptr(),
+            dins.data_ptr(), dw_ws.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            B, Fp, D, J, n_tiles, int(bool(apply_relu)),
+            int(ins.dtype == torch.bfloat16))
+    fused_bwd_launches += 1
+    return dfr, dw, db, dins, dprior
+
+
+class FusedGateScatterFn(torch.autograd.Function):
+    """``fused_gate_scatter_fwd`` with ``fused_gate_scatter_bwd`` as its
+    gradient: ``apply(apply_relu, fact_rel, w, bias, ins, prior, scatter,
+    chunk_starts)`` -> ``[B,E,J*D]``; gradients flow to fact_rel, w, bias,
+    ins and prior."""
+
+    @staticmethod
+    def forward(ctx, apply_relu, *inputs):
+        ctx.apply_relu = apply_relu
+        ctx.save_for_backward(*inputs)
+        return fused_gate_scatter_fwd(*inputs, apply_relu)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = fused_gate_scatter_bwd(*ctx.saved_tensors, g.contiguous(),
+                                       ctx.apply_relu)
+        return None, *grads, None, None
+
+
+def gate_scatter(fact_rel: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                 ins: torch.Tensor, prior: torch.Tensor, direction,
+                 num_entities: int, apply_relu: bool = True) -> torch.Tensor:
+    """One direction of the fused-projection op (the JAX package's
+    ``gate_scatter``, pallas_mp.py:810): ``[B, Fp, D]`` relation features of
+    the fact slots and ``rel_linear``'s ``w``, ``bias`` -> ``[B, J, E, D]``,
+    differentiable through ``FusedGateScatterFn``."""
+    _check_entities(direction, num_entities)
+    out = FusedGateScatterFn.apply(
+        apply_relu, fact_rel.contiguous(), w.contiguous(), bias.contiguous(),
+        ins.contiguous(), prior.contiguous(), direction.scatter,
+        direction.chunk_starts)
+    B, E, JD = out.shape
+    J = ins.shape[1]
+    return out.reshape(B, E, J, JD // J).movedim(2, 1)
+
+
+# ------------------------------------------------------- scatter_mm (K6d)
+def scatter_mm_fwd_plain(values: torch.Tensor, scatter_idx: torch.Tensor,
+                     chunk_tiles: torch.Tensor,
+                     num_entities: int) -> torch.Tensor:
+    """Plain PyTorch version of the scatter kernel, same contract and
+    numerics (see ``scatter_mm_fwd``): float32 sums of the values."""
+    v = torch.where((scatter_idx >= 0)[..., None], values.float(), 0.0)
+    return batched_segment_sum(v, scatter_idx.clamp_min(0), num_entities)
+
+
+def scatter_mm_fwd(values: torch.Tensor, scatter_idx: torch.Tensor,
+                   chunk_tiles: torch.Tensor, num_entities: int) -> torch.Tensor:
+    """``out[b, scatter_idx[b, f], :] += float(values[b, f, :])``: values
+    ``[B, Fp, C]`` float32 or bfloat16 in the tile-sorted layout order,
+    ``[B, Fp]`` int32 scatter_idx (-1 on pad slots), ``[B, Fp/128]`` int32
+    chunk_tiles (non-decreasing per row, as the layout builds them) ->
+    ``[B, E, C]`` float32. A block holds a ``[128, C]`` float tile and 64
+    staged rows in shared memory, so C goes up to 302 (float32) or 362
+    (bfloat16); a wider C raises. Any C stages in 16-byte copies: 64 rows
+    of C values are a multiple of 16 bytes.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on the
+    current stream or raise."""
+    global scatter_launches
+    if values.device.type == "cpu":
+        return scatter_mm_fwd_plain(values, scatter_idx, chunk_tiles, num_entities)
+    if values.device.type != "cuda":
+        raise ValueError(f"scatter_mm: unsupported device {values.device}")
+    B, Fp, C = values.shape
+    if (values.dtype not in (torch.float32, torch.bfloat16) or Fp % TILE_F
+            or num_entities % TILE_E or not values.is_contiguous()
+            or values.data_ptr() % 16):
+        raise TypeError(f"scatter_mm: values must be a contiguous, 16-byte "
+                        f"aligned float32 or bfloat16 [B, Fp, C] with Fp a "
+                        f"multiple of {TILE_F} (E={num_entities} a multiple "
+                        f"of {TILE_E}), got {values.dtype} "
+                        f"{tuple(values.shape)}")
+    dev = values.get_device()
+    for name, t, shape in (("scatter_idx", scatter_idx, (B, Fp)),
+                           ("chunk_tiles", chunk_tiles, (B, Fp // TILE_F))):
+        if (t.dtype != torch.int32 or t.shape != shape or t.get_device() != dev
+                or not t.is_contiguous()):
+            raise TypeError(f"scatter_mm: {name} must be a contiguous int32 "
+                            f"{shape} on {values.device}, got {t.dtype} "
+                            f"{tuple(t.shape)} on {t.device}")
+    out = torch.empty((B, num_entities, C), dtype=torch.float32,
+                      device=values.device)
+    _launch("scatter_mm_fwd", values.device, values.data_ptr(),
+            scatter_idx.data_ptr(), chunk_tiles.data_ptr(), out.data_ptr(), B,
+            Fp, C, num_entities // TILE_E, int(values.dtype == torch.bfloat16))
+    scatter_launches += 1
+    return out
+
+
+class ScatterMMFn(torch.autograd.Function):
+    """``scatter_mm_fwd``; its gradient is the cotangent gathered at each
+    slot's target, zero on pad slots, in the values' type (pallas_mp.py:
+    103-108)."""
+
+    @staticmethod
+    def forward(ctx, values, scatter_idx, chunk_tiles, num_entities):
+        ctx.save_for_backward(scatter_idx)
+        ctx.dtype = values.dtype
+        return scatter_mm_fwd(values, scatter_idx, chunk_tiles, num_entities)
+
+    @staticmethod
+    def backward(ctx, g):
+        scatter_idx, = ctx.saved_tensors
+        B, Fp = scatter_idx.shape
+        dv = torch.gather(g, 1, scatter_idx.clamp_min(0).long()[..., None]
+                          .expand(B, Fp, g.shape[-1]))
+        dv = torch.where((scatter_idx >= 0)[..., None], dv, 0.0)
+        return dv.to(ctx.dtype), None, None, None
+
+
+def scatter_mm(values: torch.Tensor, scatter_idx: torch.Tensor,
+               chunk_tiles: torch.Tensor, num_entities: int) -> torch.Tensor:
+    """The JAX package's ``scatter_mm`` (pallas_mp.py:58): values ``[B, Fp,
+    C]`` (layout order), scatter_idx ``[B, Fp]`` (-1 pad), chunk_tiles
+    ``[B, NC]`` -> ``[B, E, C]`` float32, differentiable."""
+    return ScatterMMFn.apply(values.contiguous(), scatter_idx, chunk_tiles,
+                             num_entities)

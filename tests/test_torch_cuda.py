@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-gate-scatter forward and backward, and the flash-attention forward, dq and
-dk/dv kernels (alone, through autograd, and in a LlamaLM).
+gate-scatter forward and backward, the fused-projection forward and
+backward and scatter_mm (alone and in a ReaRev training step under
+GNN_RAG_GATE_SCATTER=v2), and the flash-attention forward, dq and dk/dv
+kernels (alone, through autograd, and in a LlamaLM).
 
 Every test here needs an NVIDIA GPU (and nvcc for the first build) and skips
 without one. The file imports no JAX, so it runs on a machine without it:
@@ -11,7 +13,9 @@ without one. The file imports no JAX, so it runs on a machine without it:
 Tolerance: fp32 max|kernel - plain| <= 1e-5 * max|plain| + 1e-6 (sum order:
 the kernel walks facts in layout order, the plain version adds with
 atomics); bf16 inputs 2e-2 relative, both sides taking the same bf16 values
-and summing in float32. Flash attention: fp32 outputs and lse 1e-4 of
+and summing in float32. The fused-projection kernels in bf16 per element
+(``bf16_tol``: the rl each side rounds from its own float sum may round
+the other way). Flash attention: fp32 outputs and lse 1e-4 of
 max|plain| (the online softmax rescales in another order than the two-pass
 one); bf16 outputs per element (``assert_flash_close``: one bf16 step plus
 the rounding of p, scaled by the row); the plain backward takes the plain
@@ -156,6 +160,90 @@ class _Dir:
         self.scatter, self.chunk_starts = scatter, chunk_starts
 
 
+def proj_inputs(J, D, dtype, device, **kw):
+    """One direction of ``inputs`` plus rel_linear's w [D,D] and b [D]."""
+    vals, ins, prior, scatter, starts = inputs(J, D, dtype, device, **kw)
+    g = torch.Generator(device=device).manual_seed(7)
+    w = (torch.randn((D, D), generator=g, device=device) / D ** 0.5).to(dtype)
+    b = (0.1 * torch.randn((D,), generator=g, device=device)).to(dtype)
+    return vals[0], w, b, ins, prior[0], scatter[0], starts[0]
+
+
+def assert_parts_close(got, want, rules):
+    """Each output against its plain version: a rule is a share of
+    max|want| (+ 1e-6), or ``(steps,)``: per element within ``bf16_tol``."""
+    for i, (a, b, rule) in enumerate(zip(got, want, rules)):
+        assert a.dtype == b.dtype and a.shape == b.shape, i
+        d = (a.float() - b.float()).abs()
+        if isinstance(rule, tuple):
+            assert bool((d <= bf16_tol(b, *rule)).all()), (
+                i, d.div(bf16_tol(b, *rule)).nan_to_num(nan=0.0).max().item())
+        else:
+            err = d.max().item()
+            assert err <= rule * b.float().abs().max().item() + 1e-6, (i, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("J,D,apply_relu,dtype", [
+    (1, 50, True, torch.float32), (2, 50, True, torch.float32),
+    (3, 50, False, torch.float32), (2, 16, True, torch.float32),
+    (2, 50, True, torch.bfloat16), (3, 50, True, torch.bfloat16)])
+def test_fused_kernels_match_plain(cuda, J, D, apply_relu, dtype):
+    """The fused-projection forward and backward kernels against their plain
+    versions, as chip_smoke.check_fused_kernels holds them: fp32 forward
+    1e-5, backward 1e-4 of max|plain| (dW and db sum every fact of the
+    batch in another order); bf16 per element, the forward within two bf16
+    steps (rl rounded, then rl * ins), the bf16 gradients within one, dprior
+    (float) 1e-4 of max|plain|. The backward's five outputs repeat bit for
+    bit."""
+    args = proj_inputs(J, D, dtype, cuda)
+    before = (gs.fused_launches, gs.fused_bwd_launches)
+    got = gs.fused_gate_scatter_fwd(*args, apply_relu)
+    want = gs.fused_gate_scatter_fwd_plain(*args, apply_relu)
+    f32 = dtype == torch.float32
+    assert_parts_close((got,), (want,), (1e-5 if f32 else (2,),))
+    assert not got[-1].any()             # batch-padding row: all pads
+    assert torch.equal(got, gs.fused_gate_scatter_fwd(*args, apply_relu))
+    g = torch.randn(got.shape, generator=torch.Generator(device=cuda)
+                    .manual_seed(3), device=cuda)
+    dgot = gs.fused_gate_scatter_bwd(*args, g, apply_relu)
+    again = gs.fused_gate_scatter_bwd(*args, g, apply_relu)
+    torch.cuda.synchronize()
+    assert (gs.fused_launches, gs.fused_bwd_launches) == (before[0] + 2,
+                                                          before[1] + 2)
+    assert_parts_close(dgot, gs.fused_gate_scatter_bwd_plain(
+        *args, g, apply_relu), (1e-4 if f32 else (1,),) * 4 + (1e-4,))
+    assert all(torch.equal(a, b) for a, b in zip(dgot, again))
+    pad = args[5] < 0
+    assert not dgot[0][pad].any() and not dgot[4][pad].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,dtype", [(100, torch.float32), (150, torch.float32),
+                                     (100, torch.bfloat16), (8, torch.float32)])
+def test_scatter_kernel_matches_plain(cuda, C, dtype):
+    vals, _, _, scatter, starts = inputs(1, C, dtype, cuda)
+    B, n_tiles = scatter.shape[1], starts.shape[-1] - 1
+    nc = scatter.shape[-1] // 128
+    # chunk c's tile: the tiles whose range ends at or before c, the padding
+    # chunks past the last range repeating the last tile
+    tiles = torch.searchsorted(starts[0, :, 1:].contiguous(),
+                               torch.arange(nc, device=cuda, dtype=torch.int32)
+                               .expand(B, nc).contiguous(), right=True)
+    tiles = tiles.clamp_max(n_tiles - 1).to(torch.int32)
+    before = gs.scatter_launches
+    got = gs.scatter_mm_fwd(vals[0], scatter[0], tiles, n_tiles * TILE_E)
+    torch.cuda.synchronize()
+    assert gs.scatter_launches == before + 1
+    want = gs.scatter_mm_fwd_plain(vals[0], scatter[0], tiles, n_tiles * TILE_E)
+    assert_parts_close((got,), (want,), (1e-5,))
+    x = vals[0].detach().clone().requires_grad_()
+    gs.scatter_mm(x, scatter[0], tiles, n_tiles * TILE_E).sum().backward()
+    assert torch.equal(x.grad, (scatter[0] >= 0)[..., None].expand_as(x).to(dtype))
+    with pytest.raises(TypeError):
+        gs.scatter_mm_fwd(vals[0], scatter[0].long(), tiles, n_tiles * TILE_E)
+
+
 def model_batch(cuda, compute_dtype, seed=1):
     """A random B4 E512 layout batch and a WebQSP-width ReaRev on the card."""
     rng = np.random.default_rng(seed)
@@ -233,6 +321,44 @@ def test_rearev_train_step_grads_kernel_vs_plain(cuda, monkeypatch):
         assert err <= 1e-4 * w.abs().max().item() + 1e-7, (name, err)
 
 
+@pytest.mark.cuda
+def test_rearev_v2_train_step_grads_kernel_vs_plain(cuda, monkeypatch):
+    """GNN_RAG_GATE_SCATTER=v2: one training forward + backward launches the
+    fused kernels 2 x num_iter x num_gnn = 18 times each (TypeLayer still one
+    gate-scatter launch); every gradient, rel_linear's included, agrees
+    with the plain versions as in the v4 test above, and the answer
+    distribution with v4's."""
+    monkeypatch.setenv("GNN_RAG_GATE_SCATTER", "v2")
+    model, batch, rel = model_batch(cuda, "float32")
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        model(batch, *rel, training=True)[0].backward()
+        return {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    before = (gs.fused_launches, gs.fused_bwd_launches, gs.launches)
+    got = grads()
+    torch.cuda.synchronize()
+    assert (gs.fused_launches, gs.fused_bwd_launches, gs.launches) == (
+        before[0] + 18, before[1] + 18, before[2] + 1)
+    with torch.inference_mode():
+        dist = model(batch, *rel)[2]
+        monkeypatch.setenv("GNN_RAG_GATE_SCATTER", "v4")
+        assert_rel(dist, model(batch, *rel)[2], 1e-4, "pred_dist v2 vs v4")
+    monkeypatch.setenv("GNN_RAG_GATE_SCATTER", "v2")
+    for name in ("fused_gate_scatter_fwd", "fused_gate_scatter_bwd",
+                 "gate_scatter_fwd", "gate_scatter_bwd"):
+        monkeypatch.setattr(gs, name, getattr(gs, name + "_plain"))
+    want = grads()
+    for name, w in want.items():
+        if name in ("reasoning.score_func.bias",
+                    "instruction_decoder.ca_linear.bias"):
+            assert max(got[name].abs().max(), w.abs().max()) <= 1e-5, name
+            continue
+        err = (got[name] - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item() + 1e-7, (name, err)
+
+
 def assert_rel(got, want, rel, name):
     err = (got.float() - want.float()).abs().max().item()
     ref = want.float().abs().max().item()
@@ -248,11 +374,19 @@ def assert_flash_close(got, want, name):
     if got.dtype == torch.float32:
         return assert_rel(got, want, 1e-4, name)
     d = (got.float() - want.float()).abs()
-    sq = want.float().square()
-    tol = (2 ** -7 * sq.sqrt() + 1e-2 * sq.mean(-1, keepdim=True).sqrt()
-           + 1e-3 * sq.mean().sqrt())
+    tol = bf16_tol(want)
     assert want.dtype == torch.bfloat16 and bool((d <= tol).all()), (
         name, (d / tol).max().item())
+
+
+def bf16_tol(b, steps=1):
+    """Per-element tolerance of a result rounded to bf16 ``steps`` times on
+    the way from float values the other side forms in another order:
+    ``steps`` bf16 steps (2^-7 |b| each) + 1e-2 rms over the last axis +
+    1e-3 rms(b) (chip_smoke.bf16_tol)."""
+    sq = b.float().square()
+    return (steps * 2 ** -7 * sq.sqrt() + 1e-2 * sq.mean(-1, keepdim=True).sqrt()
+            + 1e-3 * sq.mean().sqrt())
 
 
 @pytest.mark.cuda

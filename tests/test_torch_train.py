@@ -119,6 +119,45 @@ def test_whole_model_loss_and_gradients_match_jax(micro, loss_type):
     check_grads(model, jgrads)
 
 
+@pytest.mark.parametrize("variant", ["v2", "v3"])
+def test_gate_scatter_variants_match_jax(micro, variant, monkeypatch):
+    """GNN_RAG_GATE_SCATTER=v2 (rel_linear inside the kernel, one launch per
+    direction) and v3 (the port runs v4's op; the JAX model one projected
+    launch per direction): loss, pred_dist and every gradient against the
+    JAX model under the same variant (set before jax.jit traces it). The
+    flax weights of the default variant serve both: no variant adds or drops
+    a parameter. In float32 each variant's pred_dist equals v4's
+    (rearev.py's default) within 1e-5."""
+    monkeypatch.setenv("GNN_RAG_GATE_SCATTER", variant)
+    cfg_model = micro["cfg"].model
+    jbatch, tbatch = batches(micro, list(range(8)), 10)   # 2 padding rows
+    jmodel = JReaRev(cfg=cfg_model, num_entity=micro["num_entity"],
+                     num_relation=micro["nkr"])
+
+    def loss_and_dist(p):
+        loss, _, dist = jmodel.apply(p, jbatch, *micro["rel"], training=True,
+                                     rngs={"dropout": KEY})
+        return loss, dist
+
+    (want_loss, want_dist), jgrads = jax.jit(jax.value_and_grad(
+        loss_and_dist, has_aux=True))(micro["params"])
+    model = port_model(micro, cfg_model)
+    rel = tuple(map(torch.from_numpy, micro["rel"]))
+    loss, _, dist = model(tbatch, *rel, training=True,
+                          generator=torch.Generator().manual_seed(0))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+    np.testing.assert_allclose(dist.detach().numpy(), np.asarray(want_dist),
+                               atol=1e-6, rtol=1e-4)
+    check_grads(model, jgrads)
+    with torch.no_grad():
+        dists = {}
+        for v in (variant, "v4"):
+            monkeypatch.setenv("GNN_RAG_GATE_SCATTER", v)
+            dists[v] = model(tbatch, *rel)[2]
+    assert_close(dists[variant].numpy(), dists["v4"].numpy(), 0.0, 1e-5)
+
+
 def test_fact_dropout_gradients_match_jax(micro, monkeypatch):
     """fact_drop 0.3: both packages drop the same facts (the JAX model's
     Bernoulli draw is replaced by the mask the port is given); self loops are
