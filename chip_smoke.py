@@ -58,9 +58,10 @@ The LLM reader (the flash-attention kernels K5a-c):
   3c. kernel-attn: the flash forward, dq and dk/dv kernels against their
      plain versions at the SFT step's shape (B8 L2047 H32 D128: the loss
      feeds tokens[:, :-1] of 2048, a ragged last tile; bf16 and fp32) and
-     at B2 L1000, the plain backward fed the plain forward's lse; two
-     backward launches bit-identical; CUDA-event medians of kernel, plain
-     and SDPA at the SFT shape;
+     at B2 L1000 and B1 L129, the plain backward fed the plain forward's
+     lse; two backward launches bit-identical; CUDA-event medians of
+     kernel, plain and SDPA at the SFT shape (bf16: 10 runs of 5 launches),
+     each kernel's share of its bound and its TFLOP/s;
   8. sft: the RoG joint-finetune SFT (scripts/train_sft.sh) through the
      port's entry (`python -m gnn_rag_tpu_torch.llm.sft`, run in this
      process) at LLaMA2-7B width cut to 4 of 32 layers, random weights from
@@ -114,11 +115,13 @@ SFT_FLAGS = ["--n_layers", "4", "--batch_size", "8",
              "--seed", str(SEED), "--device", "cuda"]
 # (name, B, L, dtype) of the flash-kernel checks: the shape the SFT step
 # gives the kernels (H32 D128; its loss runs the model on tokens[:, :-1], so
-# L is SFT_SEQ - 1 with a ragged last tile) in both types, and another L
+# L is SFT_SEQ - 1 with a ragged last tile) in both types, another L, and
+# one row past a 128-row tile (TMA's out-of-bounds rows); B8 rows are timed
 ATTN_SHAPES = (("sft_b8_l2047_bf16", 8, SFT_SEQ - 1, "bfloat16"),
                ("sft_b8_l2047_fp32", 8, SFT_SEQ - 1, "float32"),
                ("ragged_b2_l1000_bf16", 2, 1000, "bfloat16"),
-               ("ragged_b2_l1000_fp32", 2, 1000, "float32"))
+               ("ragged_b2_l1000_fp32", 2, 1000, "float32"),
+               ("ragged_b1_l129_bf16", 1, 129, "bfloat16"))
 # scripts/rearev_webqsp.sh with the reference's training defaults
 HEADLINE_FLAGS = ["ReaRev", "--entity_dim", "50", "--num_iter", "3",
                   "--num_ins", "2", "--num_gnn", "3", "--lm", "sbert",
@@ -1023,17 +1026,24 @@ def scatter_bound(row):
     return bound(B * Fp * C, nbytes, "float32")
 
 
-def attn_bounds(B, L, H, D, dtype):
-    """Bound of each flash kernel: the causal (query, key) pairs this input
-    has, 2*D operations per pair and product (forward: s and PV; dq: s, dp,
-    dq; dk/dv: s, dp, dv, dk), each [B, L, H, D] tensor and [B*H, L]
-    statistic read or written once."""
+def attn_flops(B, L, H, D):
+    """Operations of each flash kernel: the causal (query, key) pairs this
+    input has, 2*D per pair and product (forward: s and PV; dq: s, dp, dq;
+    dk/dv: s, dp, dv, dk)."""
     pairs = B * H * L * (L + 1) // 2
+    return {"fwd": 4 * pairs * D, "dq": 6 * pairs * D, "dkv": 8 * pairs * D}
+
+
+def attn_bounds(B, L, H, D, dtype):
+    """Bound of each flash kernel: its operations (``attn_flops``) at the
+    type's peak, each [B, L, H, D] tensor and [B*H, L] statistic read or
+    written once."""
+    flops = attn_flops(B, L, H, D)
     x = B * L * H * D * (4 if dtype == "float32" else 2)
     st = B * H * L * 4
-    return {"fwd": bound(4 * pairs * D, 4 * x + st, dtype),
-            "dq": bound(6 * pairs * D, 5 * x + 2 * st, dtype),
-            "dkv": bound(8 * pairs * D, 6 * x + 2 * st, dtype)}
+    return {"fwd": bound(flops["fwd"], 4 * x + st, dtype),
+            "dq": bound(flops["dq"], 5 * x + 2 * st, dtype),
+            "dkv": bound(flops["dkv"], 6 * x + 2 * st, dtype)}
 
 
 def swapped_to_plain_attn(fn):
@@ -1102,7 +1112,6 @@ def check_attn_kernels(device):
     import torch.nn.functional as F
     from gnn_rag_tpu_torch.llm import flash_attention as fa
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
-    timing = dict(runs=5, reps=2, warmup=1)
     rows, bad = [], []
     for name, B, L, dtype in ATTN_SHAPES:
         H, D = 32, 128
@@ -1133,6 +1142,9 @@ def check_attn_kernels(device):
         row = dict(shape=name, B=B, L=L, H=H, D=D, dtype=dtype,
                    err_ref_over_tol_by_output=errs)
         if B == 8:
+            # sub-millisecond bf16 kernels get more launches per median
+            timing = (dict(runs=10, reps=5, warmup=2) if dtype == "bfloat16"
+                      else dict(runs=5, reps=2, warmup=1))
             bounds = attn_bounds(B, L, H, D, dtype)
             row["bound_ms"] = {k_: b_[0] for k_, b_ in bounds.items()}
             row["bound_by"] = {k_: b_[1] for k_, b_ in bounds.items()}
@@ -1142,6 +1154,11 @@ def check_attn_kernels(device):
                                 **timing),
                 "dkv": median_ms(lambda: fa.flash_dkv(q, k, v, g, lse, delta),
                                  **timing)}
+            flops = attn_flops(B, L, H, D)
+            row["bound_share"] = {k_: row["bound_ms"][k_] / ms
+                                  for k_, ms in row["ms"].items()}
+            row["tflops"] = {k_: flops[k_] / ms / 1e9
+                             for k_, ms in row["ms"].items()}
             row["plain_ms"] = {
                 "fwd": median_ms(lambda: fa.flash_fwd_plain(q, k, v), **timing),
                 "dq": median_ms(lambda: fa.flash_dq_plain(q, k, v, g, lse,
@@ -1468,10 +1485,30 @@ def sft_step_time(trainer, tokens, mask, device):
     return summary
 
 
+def sass_counts(lib, opcodes=("HGMMA", "UTMALDG")):
+    """{kernel: {opcode: count}} of ``cuobjdump -sass`` on a built
+    library: the instructions each kernel really issues."""
+    from gnn_rag_tpu_torch.utils import build
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib], check=True,
+                          capture_output=True, text=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = line.split("Function :")[1].strip()
+            counts[kernel] = dict.fromkeys(opcodes, 0)
+        elif kernel is not None:
+            for op in opcodes:
+                counts[kernel][op] += op in line
+    return counts
+
+
 def build_all():
     """Build every native library of the port at once (one compiler
     process per source, all started together); log each one's time and
-    ptxas register / spill lines."""
+    ptxas register / spill lines, and the wgmma (HGMMA) and TMA-load
+    (UTMALDG) instructions of each flash kernel, which the Hopper forward
+    and dk/dv kernels must issue."""
     from concurrent.futures import ThreadPoolExecutor
 
     from gnn_rag_tpu_torch.utils import build
@@ -1493,6 +1530,16 @@ def build_all():
                      or "spill" in ln]
             log("build", f"{os.path.relpath(path, REPO)} in {secs:.1f} s; "
                 f"{' | '.join(ptxas)}")
+            if src == "flash_attention.cu":
+                counts = {k: v for k, v in sass_counts(path).items()
+                          if "flash_" in k}
+                log("build", f"sass HGMMA / UTMALDG per kernel: "
+                    f"{json.dumps(counts)}")
+                for name in ("flash_fwd_sm90_kernel", "flash_dkv_sm90_kernel"):
+                    if not any(name in k and all(v.values())
+                               for k, v in counts.items()):
+                        raise AssertionError(f"{name}: no HGMMA or no UTMALDG "
+                                             f"in its SASS")
 
 
 def main():
@@ -1595,6 +1642,8 @@ def main():
             "bound_ms": main_row["bound_ms"][key],
             "bound_by": main_row["bound_by"][key],
             "library_ms": main_row["sdpa_fwd_ms"] if key == "fwd" else None,
+            "bound_share": main_row["bound_share"][key],
+            "tflops": main_row["tflops"][key],
             "shape": main_row["shape"],
             **({} if key == "fwd" else
                {"sdpa_bwd_ms_dq_dk_dv_together": main_row["sdpa_bwd_ms"]})})

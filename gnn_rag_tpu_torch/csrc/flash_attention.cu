@@ -30,40 +30,71 @@
 // shuffles over the 16 threads that share ty; shared-memory rows are padded
 // to D + 1 floats so that column walks hit distinct banks.
 //
-// bfloat16 (flash_{fwd,dq,dkv}_mma_kernel): the tensor cores, mma.sync
-// m16n8k16 with float accumulators in FlashAttention-2's register layout. A
-// block of 4 warps owns 64 rows, 16 a warp (query rows for the forward and
-// dq, key rows for dk/dv), and walks 64-row tiles of the other side staged
-// in shared memory (bf16 rows padded to 136 so that ldmatrix's eight row
-// addresses hit distinct banks). s and dp take bf16 operands, whose
-// products are exact in float; the backward's float p and ds enter the
-// tensor cores as the exact sum of three bf16 terms (split3), three mma per
-// product, so the backward still multiplies in float.
+// bfloat16, on the tensor cores:
+// - forward (flash_fwd_sm90_kernel) and dk/dv (flash_dkv_sm90_kernel):
+//   Hopper's TMA and warpgroup wgmma (building blocks in sm90.cuh). A block
+//   is three warpgroups: a producer whose one thread keeps TMA loads in
+//   flight through a ring of shared-memory stages (full/empty mbarriers,
+//   its registers given up with setmaxnreg), and two consumers that own 64
+//   rows each and run wgmma with float accumulators in registers. The
+//   forward: 128 query rows a block, Q loaded once, 128-key K and V tiles
+//   through 2 stages (160 KB); s = q k^T from shared memory, the online
+//   softmax on the accumulators, p rounded to bf16 straight into the A
+//   registers of o += p v. dk/dv: 128 keys a block, K and V loaded once,
+//   64-row Q and dO tiles (TMA) with their lse and delta (plain loads: a
+//   [B*H, L] row need not start on 16 bytes) through 3 stages (162 KB);
+//   s^T = k q^T and dp^T = v dO^T from shared memory, p^T and ds^T in
+//   registers, dv += p^T dO and dk += ds^T q with p^T and ds^T as register
+//   A operands. Tensor maps cover the 4-D (D, H, N, B) view with the real
+//   strides, so rows past L read as TMA's zeros (never the next batch's
+//   rows) and are masked or not stored. Only tiles that cross the diagonal
+//   or the ragged end are masked; tiles past the diagonal are not loaded.
+// - dq (flash_dq_mma_kernel): mma.sync m16n8k16 in FlashAttention-2's
+//   register layout, a block of 4 warps owning 64 query rows and walking
+//   64-key tiles staged in shared memory.
+// s and dp take bf16 operands, whose products are exact in float. The
+// backward's float p and ds enter the tensor cores as sums of bf16 terms so
+// that the backward still multiplies in float: dq as the exact sum of three
+// (split3); dk/dv as two, hi + mid (split2), which leaves under 2^-16 of
+// each product (hi is within 2^-8 of x, mid within 2^-8 of x - hi), so a
+// sum is off by under 2^-16 of the sum of its terms' sizes, against the
+// check's tolerance of one bf16 step (2^-7) of the output plus 1e-2 of the
+// row's rms (tests/test_torch_llm.py emulates the split on the CPU: dk and
+// dv within ~1e-3 of that tolerance of their float values). Two terms make
+// dk/dv 6 products where the function needs 4 (three made it 8).
 //
-// Both: every sum runs in a fixed order (no atomics), so two launches repeat
-// bit for bit. Ragged edges (L or S not a multiple of the tile) are masked
-// in the kernel, not padded by the caller. Work per block grows with the
-// query index (causal), so the forward and dq start the last query tiles
-// first, and dk/dv the first key tiles.
+// Both families: every sum runs in a fixed order (no atomics), so two
+// launches repeat bit for bit. Ragged edges (L or S not a multiple of the
+// tile) are masked in the kernel, not padded by the caller. Work per block
+// grows with the query index (causal), so the forward and dq start the last
+// query tiles first, and dk/dv the first key tiles; the query (key) tile
+// index is the grid's fastest axis, so the blocks in flight share one
+// head's K and V (Q and dO) in L2.
 //
-// What bounds it on an H100: at B8 L2048 H32 D128 the forward does 2.75e11
+// What bounds it on an H100: at B8 L2047 H32 D128 the forward does 2.75e11
 // causal FLOP against 2.1e8 bytes of q/k/v/o, so the arithmetic bounds it
 // (0.28 ms at the 989 TFLOP/s bf16 tensor-core rate, 4.1 ms at 67 TFLOP/s
 // float); dq and dk/dv do 1.5x and 2x the forward's products. The float
 // kernels read both operands of every product from shared memory, so
-// shared-memory load bandwidth sets their rate. The bf16 kernels issue
-// mma.sync from one warp per 16 rows with synchronous tile loads (no
-// cp.async pipeline, no wgmma/TMA) and the backward pays 3 mma per float
-// operand: those are the next steps.
+// shared-memory load bandwidth sets their rate. The Hopper kernels run each
+// consumer's steps in order (scores, softmax, products): the tensor cores
+// wait while a warpgroup works on its registers unless the other warpgroup
+// fills the gap. FlashAttention-3's ping-pong of the two consumers and its
+// overlap of one tile's softmax with the next tile's scores are the next
+// steps; dq still issues mma.sync with synchronous tile loads.
 //
 // ptxas -v (CUDA 12.8, sm_90a; chip_smoke.py prints it on its build line):
-// flash_fwd_mma_kernel 182 registers, flash_dq_mma_kernel 209,
-// flash_dkv_mma_kernel 227; flash_fwd_kernel<float> 76, flash_dq_kernel<float>
-// 80, flash_dkv_kernel<float> 127; no spills, no stack frames.
+// flash_fwd_sm90_kernel and flash_dkv_sm90_kernel 168 registers at launch
+// (384 threads, one block an SM; setmaxnreg then gives the consumers 240
+// and 232, the producer 24 and 40), flash_dq_mma_kernel 209;
+// flash_fwd_kernel<float> 76, flash_dq_kernel<float> 80,
+// flash_dkv_kernel<float> 127; no spills, no stack frames.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -125,7 +156,7 @@ __device__ void load_stat(float* dst, const float* src, int bh, int L,
 }
 
 // ---------------------------------------------------------------- forward
-// grid (ceil(L / TILE), B*H), float inputs (bf16 runs flash_fwd_mma_kernel)
+// grid (ceil(L / TILE), B*H), float inputs (bf16 runs flash_fwd_sm90_kernel)
 template <typename T>
 __global__ void __launch_bounds__(NT)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -424,13 +455,11 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// --------------------------------------------- forward, bfloat16, mma.sync
-// A warp keeps its 16 q rows as A fragments in registers, computes s = q k^T
-// per key tile as 8 tiles of 16x8 float accumulators, runs the online
-// softmax on them (a row is spread over the 4 threads of a quad: shuffles
-// over lanes ^1, ^2), rounds p to bf16 (the TPU kernel's p.astype(v.dtype))
-// straight into the A fragments of p v, and accumulates o as 16 tiles of
-// 16x8.
+// ----------------------------------------------------- dq, bfloat16, mma.sync
+// A warp owns 16 rows held as A fragments in registers and issues mma.sync
+// m16n8k16 with float accumulators in FlashAttention-2's register layout; K
+// and V tiles are staged in shared memory, bf16 rows padded to 136 so that
+// ldmatrix's eight row addresses hit distinct banks.
 constexpr int MMA_WARPS = 4;
 constexpr int MMA_ROWS = 16 * MMA_WARPS;   // query rows per block
 constexpr int MMA_KEYS = 64;               // keys per tile
@@ -479,145 +508,6 @@ __device__ void load_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
     *reinterpret_cast<uint4*>(dst + r * KP + c) = x;
   }
 }
-
-// grid (ceil(L / MMA_ROWS), B*H), MMA_WARPS warps
-__global__ void __launch_bounds__(32 * MMA_WARPS)
-    flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         __nv_bfloat16* __restrict__ o,
-                         float* __restrict__ lse, int H, int L, int S,
-                         float scale) {
-  __shared__ __align__(16) __nv_bfloat16 Ks[MMA_KEYS * KP];
-  __shared__ __align__(16) __nv_bfloat16 Vs[MMA_KEYS * KP];
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * MMA_ROWS;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;   // this thread's rows
-
-  // q as A fragments: k-step kk covers d = 16kk .. 16kk + 15
-  uint32_t qa[D / 16][4];
-  {
-    const uint32_t* qa_row = row_a < L ? reinterpret_cast<const uint32_t*>(
-        q + offset(b, row_a, h, L, H)) : nullptr;
-    const uint32_t* qb_row = row_b < L ? reinterpret_cast<const uint32_t*>(
-        q + offset(b, row_b, h, L, H)) : nullptr;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int w = kk * 8 + t;            // word of columns 16kk + 2t, +1
-      qa[kk][0] = qa_row ? qa_row[w] : 0u;
-      qa[kk][1] = qb_row ? qb_row[w] : 0u;
-      qa[kk][2] = qa_row ? qa_row[w + 4] : 0u;
-      qa[kk][3] = qb_row ? qb_row[w + 4] : 0u;
-    }
-  }
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // rows a, b
-
-  const int k_end = min(S, q0 + MMA_ROWS);
-  for (int k0 = 0; k0 < k_end; k0 += MMA_KEYS) {
-    __syncthreads();
-    load_tile_bf16(Ks, k, b, h, S, H, k0);
-    load_tile_bf16(Vs, v, b, h, S, H, k0);
-    __syncthreads();
-    // s = q k^T: 8 tiles of 8 keys
-    float s[MMA_KEYS / 8][4];
-#pragma unroll
-    for (int j = 0; j < MMA_KEYS / 8; ++j)
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < MMA_KEYS / 8; j += 2) {
-        // matrices: keys 8j.. / 8j+8.., d 16kk.. / 16kk+8..
-        const int mi = lane / 8;
-        const int key = 8 * j + lane % 8 + 8 * (mi / 2);
-        uint32_t kb[4];
-        ldmatrix_x4(kb, Ks + key * KP + 16 * kk + 8 * (mi % 2));
-        mma_bf16(s[j], qa[kk], kb[0], kb[1]);
-        mma_bf16(s[j + 1], qa[kk], kb[2], kb[3]);
-      }
-    }
-    // online softmax over this tile, rows a (c0, c1) and b (c2, c3)
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int j = 0; j < MMA_KEYS / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kc = k0 + 8 * j + 2 * t + (i & 1);
-        const int qr = i < 2 ? row_a : row_b;
-        s[j][i] = (kc <= qr && kc < S) ? s[j][i] * scale : NEG_INF;
-        mx[i / 2] = fmaxf(mx[i / 2], s[j][i]);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= alpha[r];                    // this thread's share of the row sum
-    }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-    // p (float) into the row sums, p rounded to bf16 into the A fragments
-    uint32_t pa[MMA_KEYS / 16][4];
-#pragma unroll
-    for (int j = 0; j < MMA_KEYS / 8; ++j) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = expf(s[j][i] - m[i / 2]);
-        l[i / 2] += p[i];
-      }
-      pa[j / 2][(j % 2) * 2] = pack_bf16(p[0], p[1]);
-      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
-    }
-    // o += p v: k-step jj covers keys 16jj .. 16jj + 15
-#pragma unroll
-    for (int jj = 0; jj < MMA_KEYS / 16; ++jj) {
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        // matrices (transposed): keys 16jj.. / 16jj+8.., d 8n.. / 8n+8..
-        const int mi = lane / 8;
-        const int key = 16 * jj + lane % 8 + 8 * (mi % 2);
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, Vs + key * KP + 8 * n + 8 * (mi / 2));
-        mma_bf16(acc[n], pa[jj], vb[0], vb[1]);
-        mma_bf16(acc[n + 1], pa[jj], vb[2], vb[3]);
-      }
-    }
-  }
-  // the quad's shares of each row sum, then o = acc / l and lse
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    l[r] = fmaxf(l[r], 1e-30f);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qr = r == 0 ? row_a : row_b;
-    if (qr >= L) continue;
-    uint32_t* orow = reinterpret_cast<uint32_t*>(o + offset(b, qr, h, L, H));
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      orow[n * 4 + t] = pack_bf16(acc[n][2 * r] / l[r], acc[n][2 * r + 1] / l[r]);
-    if (t == 0) lse[static_cast<int64_t>(bh) * L + qr] = m[r] + logf(l[r]);
-  }
-}
-
-// ------------------------------------------- backward, bfloat16, mma.sync
 
 // x = hi + mid + lo, each a bf16 (exact for a normal float)
 __device__ __forceinline__ void split3(float x, __nv_bfloat16 (&part)[3]) {
@@ -769,107 +659,419 @@ __global__ void __launch_bounds__(32 * MMA_WARPS)
   store_rows_bf16(dq, b, h, L, H, row_a, t, acc);
 }
 
-// dk and dv, grid (ceil(S / MMA_ROWS), B*H), MMA_WARPS warps: a warp owns
-// 16 keys and computes s^T = k q^T and dp^T = v dO^T for them, so p^T and
-// ds^T come out as A fragments of dv = p^T dO and dk = ds^T q; the block
-// walks the query tiles that can see its keys (rows >= k0). Dynamic shared
-// memory: K, V, Q, dO tiles and the query tile's lse and delta.
-__global__ void __launch_bounds__(32 * MMA_WARPS)
-    flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int H, int L, int S,
-                         float scale) {
-  extern __shared__ __align__(16) unsigned char raw[];
-  auto* Ks = reinterpret_cast<__nv_bfloat16*>(raw);
-  __nv_bfloat16* Vs = Ks + MMA_KEYS * KP;
-  __nv_bfloat16* Qs = Vs + MMA_KEYS * KP;
-  __nv_bfloat16* Gs = Qs + MMA_KEYS * KP;
-  auto* lse_s = reinterpret_cast<float*>(Gs + MMA_KEYS * KP);
-  float* delta_s = lse_s + MMA_KEYS;
-  const int k0 = blockIdx.x * MMA_ROWS;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, mi = lane / 8;
-  const int key_a = k0 + warp * 16 + g;
-  const int key[2] = {key_a, key_a + 8};
+// ------------------------------- bfloat16 on Hopper: TMA + wgmma, forward
+// and dk/dv. Three warpgroups a block: warpgroup 0 is the producer (its
+// registers cut; one thread keeps TMA loads in flight through a ring of
+// stages, each with a full and an empty mbarrier), warpgroups 1 and 2 are
+// consumers (registers raised) that own 64 rows each and run wgmma on the
+// tiles that have arrived, from shared memory and from registers.
+constexpr int WG = 128;                    // threads per warpgroup
+constexpr int SM90_THREADS = 3 * WG;
+constexpr int TILE_BYTES = 128 * D * 2;    // 128 rows of a head: two boxes
+constexpr int BOX128 = TILE_BYTES / 2;     // 128 rows x 64 columns
+constexpr int QTILE_BYTES = 64 * D * 2;    // 64 rows of a head
+constexpr int BOX64 = QTILE_BYTES / 2;
+constexpr int ROW_BYTES = 64 * 2;          // one swizzled box row
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-  load_tile_bf16(Ks, k, b, h, S, H, k0);
-  load_tile_bf16(Vs, v, b, h, S, H, k0);
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk_acc[n][i] = dv_acc[n][i] = 0.f;
-  // this warp's 16 keys as A operand rows (row, column 8x8 blocks)
-  const int a_row = warp * 16 + lane % 8 + 8 * (mi % 2);
-  const int a_col = 8 * (mi / 2);
-
-  for (int q0 = k0; q0 < L; q0 += MMA_KEYS) {
-    __syncthreads();
-    load_tile_bf16(Qs, q, b, h, L, H, q0);
-    load_tile_bf16(Gs, dout, b, h, L, H, q0);
-    load_stat(lse_s, lse, bh, L, q0, MMA_KEYS);
-    load_stat(delta_s, delta, bh, L, q0, MMA_KEYS);
-    __syncthreads();
-#pragma unroll 1
-    for (int jj = 0; jj < MMA_KEYS / 16; ++jj) {   // query rows 16jj .. +15
-      float st[2][4] = {}, dpt[2][4] = {};
-      const int qrow = 16 * jj + lane % 8 + 8 * (mi / 2);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ka[4], va[4], qb[4], gb[4];
-        ldmatrix_x4(ka, Ks + a_row * KP + 16 * kk + a_col);
-        ldmatrix_x4(va, Vs + a_row * KP + 16 * kk + a_col);
-        ldmatrix_x4(qb, Qs + qrow * KP + 16 * kk + 8 * (mi % 2));
-        ldmatrix_x4(gb, Gs + qrow * KP + 16 * kk + 8 * (mi % 2));
-        mma_bf16(st[0], ka, qb[0], qb[1]);
-        mma_bf16(st[1], ka, qb[2], qb[3]);
-        mma_bf16(dpt[0], va, gb[0], gb[1]);
-        mma_bf16(dpt[1], va, gb[2], gb[3]);
-      }
-      // rows: keys key[i / 2]; columns: query rows 16jj + 8nt + 2t + (i & 1)
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = 16 * jj + 8 * nt + 2 * t + (i & 1), qr = q0 + r;
-          const int kc = key[i / 2];
-          const float sv = (kc <= qr && kc < S) ? st[nt][i] * scale : NEG_INF;
-          const float p = expf(sv - lse_s[r]);
-          st[nt][i] = p;
-          dpt[nt][i] = p * (dpt[nt][i] - delta_s[r]) * scale;   // ds^T
-        }
-      uint32_t pa[3][4], da[3][4];
-      split_a(pa, st[0], st[1]);
-      split_a(da, dpt[0], dpt[1]);
-      // dv += p^T dO and dk += ds^T q: B[qrow][d], transposed 8x8 loads
-      const int brow = 16 * jj + lane % 8 + 8 * (mi % 2);
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t gt[4], qt[4];
-        ldmatrix_x4_trans(gt, Gs + brow * KP + 8 * n + 8 * (mi / 2));
-        ldmatrix_x4_trans(qt, Qs + brow * KP + 8 * n + 8 * (mi / 2));
-#pragma unroll
-        for (int term = 0; term < 3; ++term) {
-          mma_bf16(dv_acc[n], pa[term], gt[0], gt[1]);
-          mma_bf16(dv_acc[n + 1], pa[term], gt[2], gt[3]);
-          mma_bf16(dk_acc[n], da[term], qt[0], qt[1]);
-          mma_bf16(dk_acc[n + 1], da[term], qt[2], qt[3]);
-        }
-      }
-    }
-  }
-  store_rows_bf16(dk, b, h, S, H, key_a, t, dk_acc);
-  store_rows_bf16(dv, b, h, S, H, key_a, t, dv_acc);
+// the first 1024-byte boundary at or after p (the swizzle's atom)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (sm90::smem_u32(p) & 1023)) & 1023);
 }
 
-constexpr size_t kDkvMmaSmem = 4 * MMA_KEYS * KP * sizeof(__nv_bfloat16) +
-                               2 * MMA_KEYS * sizeof(float);
+// Descriptors are made once per loop step (sm90::opaque keeps the compiler
+// from hoisting one register pair per depth slice out of the loop) and
+// stepped by adding a byte offset / 16 to their start address.
+// K-major operand whose rows start at `rows`; depth slice kk of a two-box
+// tile whose boxes lie `box` bytes apart is k_major(rows) + k_step(box, kk)
+__device__ __forceinline__ uint64_t k_major(const unsigned char* rows) {
+  return sm90::opaque(sm90::desc_sw128(rows, 16, 1024));
+}
+__device__ __forceinline__ uint64_t k_step(int box, int kk) {
+  return ((kk / 4) * box + (kk % 4) * 32) >> 4;
+}
+
+// MN-major operand (transposed B) of a two-box tile, the 128 output columns
+// spanning both boxes; rows 16kk .. 16kk + 15 are mn_major(...) + mn_step(kk)
+__device__ __forceinline__ uint64_t mn_major(const unsigned char* tile,
+                                            int box) {
+  return sm90::opaque(sm90::desc_sw128(tile, box, 1024));
+}
+__device__ __forceinline__ uint64_t mn_step(int kk) {
+  return (kk * 16 * ROW_BYTES) >> 4;
+}
+
+// x and y as bf16 pairs hi and mid with x = hi.x + mid.x + r, |r| <= 2^-16 |x|
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
+                                       uint32_t& mid) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = pack_bf16(x - hf.x, y - hf.y);
+}
+
+// rows row and row + 8 of a 64 x 128 float accumulator, scaled by inv[r],
+// as bf16 into head h of a [B, N, H, D] tensor; rows past N are not stored
+__device__ __forceinline__ void store_acc_rows(__nv_bfloat16* dst, int b, int h,
+                                               int N, int H, int row, int t,
+                                               const float (&acc)[64],
+                                               const float (&inv)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row + 8 * r >= N) continue;
+    uint32_t* out =
+        reinterpret_cast<uint32_t*>(dst + offset(b, row + 8 * r, h, N, H));
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      out[n * 4 + t] = pack_bf16(acc[4 * n + 2 * r] * inv[r],
+                                 acc[4 * n + 2 * r + 1] * inv[r]);
+  }
+}
+
+constexpr int FWD_ROWS = 128;   // query rows per block
+constexpr int FWD_KEYS = 128;   // keys per tile
+constexpr int FWD_STAGES = 2;
+
+struct FwdBars {
+  uint64_t q_full, k_full[FWD_STAGES], v_full[FWD_STAGES], empty[FWD_STAGES];
+};
+constexpr size_t kFwdSm90Smem =
+    1024 + (1 + 2 * FWD_STAGES) * TILE_BYTES + sizeof(FwdBars);
+
+// forward, grid (ceil(L / FWD_ROWS), B*H): Q once, K and V tiles through the
+// ring; s = q k^T (m64n128k16, both operands K-major from shared memory),
+// the online softmax on the accumulators (a row spans the 4 threads of a
+// quad), p rounded to bf16 into the A registers of o += p v (m64n128k16, v
+// MN-major with the transpose bit). Key tiles wholly below the block's rows
+// run unmasked; tiles past the diagonal are never loaded.
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+    flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int H, int L, int S,
+                          float scale) {
+  extern __shared__ unsigned char raw_smem[];
+  unsigned char* const Qs = align1024(raw_smem);
+  unsigned char* const Ks = Qs + TILE_BYTES;                // [stage]
+  unsigned char* const Vs = Ks + FWD_STAGES * TILE_BYTES;   // [stage]
+  auto* bars = reinterpret_cast<FwdBars*>(Vs + FWD_STAGES * TILE_BYTES);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * FWD_ROWS;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int n_tiles = (min(S, q0 + FWD_ROWS) + FWD_KEYS - 1) / FWD_KEYS;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&bars->q_full, 1);
+    for (int st = 0; st < FWD_STAGES; ++st) {
+      sm90::mbar_init(&bars->k_full[st], 1);
+      sm90::mbar_init(&bars->v_full[st], 1);
+      sm90::mbar_init(&bars->empty[st], 2 * WG / 32);   // consumer warps
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {   // producer
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      sm90::mbar_arrive_expect_tx(&bars->q_full, TILE_BYTES);
+      sm90::tma_load_4d(Qs, &tq, &bars->q_full, 0, h, q0, b);
+      sm90::tma_load_4d(Qs + BOX128, &tq, &bars->q_full, 64, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % FWD_STAGES;
+        sm90::mbar_wait(&bars->empty[st], ((j / FWD_STAGES) & 1) ^ 1);
+        unsigned char* kd = Ks + st * TILE_BYTES;
+        unsigned char* vd = Vs + st * TILE_BYTES;
+        sm90::mbar_arrive_expect_tx(&bars->k_full[st], TILE_BYTES);
+        sm90::tma_load_4d(kd, &tk, &bars->k_full[st], 0, h, j * FWD_KEYS, b);
+        sm90::tma_load_4d(kd + BOX128, &tk, &bars->k_full[st], 64, h,
+                          j * FWD_KEYS, b);
+        sm90::mbar_arrive_expect_tx(&bars->v_full[st], TILE_BYTES);
+        sm90::tma_load_4d(vd, &tv, &bars->v_full[st], 0, h, j * FWD_KEYS, b);
+        sm90::tma_load_4d(vd + BOX128, &tv, &bars->v_full[st], 64, h,
+                          j * FWD_KEYS, b);
+      }
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<240>();
+  const int cw = wg - 1;                     // rows q0 + 64 cw ..
+  const int warp = threadIdx.x % WG / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row = q0 + 64 * cw + 16 * warp + g;   // and row + 8
+  const unsigned char* const Qw = Qs + 64 * cw * ROW_BYTES;
+  const float sl2 = scale * LOG2E;           // scores in log2 units
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  sm90::mbar_wait(&bars->q_full, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % FWD_STAGES, k0 = j * FWD_KEYS;
+    const uint32_t phase = (j / FWD_STAGES) & 1;
+    const unsigned char* kt = Ks + st * TILE_BYTES;
+    const unsigned char* vt = Vs + st * TILE_BYTES;
+    float s[64];
+    const uint64_t desc_q = k_major(Qw), desc_k = k_major(kt);
+    sm90::mbar_wait(&bars->k_full[st], phase);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_m64n128k16_ss(s, desc_q + k_step(BOX128, kk),
+                                desc_k + k_step(BOX128, kk), kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+    sm90::fence_regs(s);
+
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] *= sl2;
+    // the diagonal tile and a ragged last tile: key > row or key >= S
+    if (k0 + FWD_KEYS - 1 > q0 + 64 * cw || k0 + FWD_KEYS > S) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int key = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+        if (key > row + 8 * ((i / 2) & 1) || key >= S) s[i] = NEG_INF;
+      }
+    }
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) mx[(i / 2) & 1] = fmaxf(mx[(i / 2) & 1], s[i]);
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];                      // this thread's share of the sum
+    }
+    sm90::fence_regs(acc);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] *= alpha[(i / 2) & 1];
+    // p (float) into the row sums, p rounded to bf16 into the A registers
+    uint32_t pa[FWD_KEYS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < FWD_KEYS / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 8 * kk + 2 * r, half = r & 1;
+        const float p0 = exp2f(s[i] - m[half]), p1 = exp2f(s[i + 1] - m[half]);
+        l[half] += p0;
+        l[half] += p1;
+        pa[kk][r] = pack_bf16(p0, p1);
+      }
+
+    const uint64_t desc_v = mn_major(vt, BOX128);
+    sm90::mbar_wait(&bars->v_full[st], phase);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < FWD_KEYS / 16; ++kk)
+      sm90::wgmma_m64n128k16_rs(acc, pa[kk], desc_v + mn_step(kk), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+    sm90::fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+    inv[r] = 1.f / l[r];
+    if (t == 0 && row + 8 * r < L)
+      lse[static_cast<int64_t>(bh) * L + row + 8 * r] = m[r] * LN2 + logf(l[r]);
+  }
+  store_acc_rows(o, b, h, L, H, row, t, acc, inv);
+}
+
+constexpr int DKV_KEYS = 128;   // keys per block
+constexpr int DKV_ROWS = 64;    // query rows per streamed tile
+constexpr int DKV_STAGES = 3;
+
+struct DkvBars {
+  uint64_t kv_full, full[DKV_STAGES], empty[DKV_STAGES];
+};
+struct DkvStats {                // a streamed tile's lse and delta
+  float lse[DKV_STAGES][DKV_ROWS], delta[DKV_STAGES][DKV_ROWS];
+};
+constexpr size_t kDkvSm90Smem = 1024 + 2 * TILE_BYTES +
+                                2 * DKV_STAGES * QTILE_BYTES +
+                                sizeof(DkvStats) + sizeof(DkvBars);
+
+// dk and dv, grid (ceil(S / DKV_KEYS), B*H): K and V once, 64-row tiles of
+// Q and dO (TMA) with their lse and delta (plain loads by the producer
+// warp: a [B*H, L] float row need not start on 16 bytes) through the ring,
+// for the query rows >= k0. s^T = k q^T and dp^T = v dO^T (m64n64k16, all
+// K-major from shared memory); p^T and ds^T in registers; dv += p^T dO and
+// dk += ds^T q (m64n128k16, A from registers as hi + mid bf16 terms, dO and
+// q MN-major with the transpose bit).
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+    flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tg,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, int H, int L, int S,
+                          float scale) {
+  extern __shared__ unsigned char raw_smem[];
+  unsigned char* const Ks = align1024(raw_smem);
+  unsigned char* const Vs = Ks + TILE_BYTES;
+  unsigned char* const Qs = Vs + TILE_BYTES;                 // [stage]
+  unsigned char* const Gs = Qs + DKV_STAGES * QTILE_BYTES;   // [stage] dO
+  auto* stats = reinterpret_cast<DkvStats*>(Gs + DKV_STAGES * QTILE_BYTES);
+  auto* bars = reinterpret_cast<DkvBars*>(stats + 1);
+  const int k0 = blockIdx.x * DKV_KEYS;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int n_tiles = k0 < L ? (L - k0 + DKV_ROWS - 1) / DKV_ROWS : 0;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&bars->kv_full, 1);
+    for (int st = 0; st < DKV_STAGES; ++st) {
+      sm90::mbar_init(&bars->full[st], 32);            // the producer warp
+      sm90::mbar_init(&bars->empty[st], 2 * WG / 32);  // consumer warps
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {   // producer: its first warp
+    sm90::setmaxnreg_dec<40>();
+    const int lane = threadIdx.x;
+    if (lane >= 32) return;
+    const float* const lse_bh = lse + static_cast<int64_t>(bh) * L;
+    const float* const delta_bh = delta + static_cast<int64_t>(bh) * L;
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(&bars->kv_full, 2 * TILE_BYTES);
+      sm90::tma_load_4d(Ks, &tk, &bars->kv_full, 0, h, k0, b);
+      sm90::tma_load_4d(Ks + BOX128, &tk, &bars->kv_full, 64, h, k0, b);
+      sm90::tma_load_4d(Vs, &tv, &bars->kv_full, 0, h, k0, b);
+      sm90::tma_load_4d(Vs + BOX128, &tv, &bars->kv_full, 64, h, k0, b);
+    }
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % DKV_STAGES, q0 = k0 + j * DKV_ROWS;
+      sm90::mbar_wait(&bars->empty[st], ((j / DKV_STAGES) & 1) ^ 1);
+      for (int r = lane; r < DKV_ROWS; r += 32) {
+        const bool in = q0 + r < L;
+        stats->lse[st][r] = in ? lse_bh[q0 + r] : 0.f;
+        stats->delta[st][r] = in ? delta_bh[q0 + r] : 0.f;
+      }
+      if (lane == 0) {
+        unsigned char* qd = Qs + st * QTILE_BYTES;
+        unsigned char* gd = Gs + st * QTILE_BYTES;
+        sm90::mbar_arrive_expect_tx(&bars->full[st], 2 * QTILE_BYTES);
+        sm90::tma_load_4d(qd, &tq, &bars->full[st], 0, h, q0, b);
+        sm90::tma_load_4d(qd + BOX64, &tq, &bars->full[st], 64, h, q0, b);
+        sm90::tma_load_4d(gd, &tg, &bars->full[st], 0, h, q0, b);
+        sm90::tma_load_4d(gd + BOX64, &tg, &bars->full[st], 64, h, q0, b);
+      } else {
+        sm90::mbar_arrive(&bars->full[st]);
+      }
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<232>();
+  const int cw = wg - 1;                     // keys k0 + 64 cw ..
+  const int warp = threadIdx.x % WG / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int key = k0 + 64 * cw + 16 * warp + g;   // and key + 8
+  const unsigned char* const Kw = Ks + 64 * cw * ROW_BYTES;
+  const unsigned char* const Vw = Vs + 64 * cw * ROW_BYTES;
+  const float sl2 = scale * LOG2E;
+  float dk_acc[64], dv_acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  sm90::mbar_wait(&bars->kv_full, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % DKV_STAGES, q0 = k0 + j * DKV_ROWS;
+    const unsigned char* qt = Qs + st * QTILE_BYTES;
+    const unsigned char* gt = Gs + st * QTILE_BYTES;
+    float s[32], dp[32];
+    const uint64_t desc_k = k_major(Kw), desc_q = k_major(qt);
+    const uint64_t desc_v = k_major(Vw), desc_g = k_major(gt);
+    sm90::mbar_wait(&bars->full[st], (j / DKV_STAGES) & 1);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_m64n64k16_ss(s, desc_k + k_step(BOX128, kk),
+                               desc_q + k_step(BOX64, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_m64n64k16_ss(dp, desc_v + k_step(BOX128, kk),
+                               desc_g + k_step(BOX64, kk), kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+
+    // p^T = exp(s^T scale - lse), ds^T = p^T (dp^T - delta) scale; rows:
+    // keys key + 8((i / 2) & 1), columns: query rows q0 + c
+    const bool edge = k0 + 64 * cw + 63 > q0 || q0 + DKV_ROWS > L ||
+                      k0 + DKV_KEYS > S;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = 8 * (i / 4) + 2 * t + (i & 1);
+      float p = exp2f(fmaf(s[i], sl2, -stats->lse[st][c] * LOG2E));
+      if (edge) {
+        const int kc = key + 8 * ((i / 2) & 1), qr = q0 + c;
+        if (kc > qr || kc >= S || qr >= L) p = 0.f;
+      }
+      dp[i] = p * (dp[i] - stats->delta[st][c]) * scale;
+      s[i] = p;
+    }
+    uint32_t a_hi[DKV_ROWS / 16][4], a_mid[DKV_ROWS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < DKV_ROWS / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        split2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], a_hi[kk][r],
+               a_mid[kk][r]);
+    sm90::fence_regs(dv_acc);
+    sm90::wgmma_fence();
+    const uint64_t desc_gt = mn_major(gt, BOX64);
+#pragma unroll
+    for (int kk = 0; kk < DKV_ROWS / 16; ++kk) {
+      sm90::wgmma_m64n128k16_rs(dv_acc, a_hi[kk], desc_gt + mn_step(kk), 1);
+      sm90::wgmma_m64n128k16_rs(dv_acc, a_mid[kk], desc_gt + mn_step(kk), 1);
+    }
+    uint32_t d_hi[DKV_ROWS / 16][4], d_mid[DKV_ROWS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < DKV_ROWS / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        split2(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1], d_hi[kk][r],
+               d_mid[kk][r]);
+    sm90::fence_regs(dk_acc);
+    sm90::wgmma_fence();
+    const uint64_t desc_qt = mn_major(qt, BOX64);
+#pragma unroll
+    for (int kk = 0; kk < DKV_ROWS / 16; ++kk) {
+      sm90::wgmma_m64n128k16_rs(dk_acc, d_hi[kk], desc_qt + mn_step(kk), 1);
+      sm90::wgmma_m64n128k16_rs(dk_acc, d_mid[kk], desc_qt + mn_step(kk), 1);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+    sm90::fence_regs(dk_acc);
+    sm90::fence_regs(dv_acc);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
+  }
+  const float one[2] = {1.f, 1.f};
+  store_acc_rows(dk, b, h, S, H, key, t, dk_acc, one);
+  store_acc_rows(dv, b, h, S, H, key, t, dv_acc, one);
+}
 
 constexpr size_t kFwdSmem = sizeof(float) * (TILE * DP + 2 * STREAM * DP +
                                              TILE * SP);
@@ -927,25 +1129,63 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16 forward and dk/dv: tensor maps encoded per call over the caller's
+// tensors, then the launch
+int launch_fwd_sm90(const void* q, const void* k, const void* v, void* o,
+                    float* lse, int B, int H, int L, int S, float scale,
+                    cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = sm90::make_head_map(&tq, q, B, L, H, FWD_ROWS);
+  if (err == cudaSuccess)
+    err = sm90::make_head_map(&tk, k, B, S, H, FWD_KEYS);
+  if (err == cudaSuccess)
+    err = sm90::make_head_map(&tv, v, B, S, H, FWD_KEYS);
+  if (err == cudaSuccess)
+    err = allow_smem(flash_fwd_sm90_kernel, kFwdSm90Smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((L + FWD_ROWS - 1) / FWD_ROWS, B * H);
+  flash_fwd_sm90_kernel<<<grid, SM90_THREADS, kFwdSm90Smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H, L, S, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dkv_sm90(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    void* dk, void* dv, int B, int H, int L, int S, float scale,
+                    cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tg;
+  cudaError_t err = sm90::make_head_map(&tq, q, B, L, H, DKV_ROWS);
+  if (err == cudaSuccess)
+    err = sm90::make_head_map(&tg, dout, B, L, H, DKV_ROWS);
+  if (err == cudaSuccess)
+    err = sm90::make_head_map(&tk, k, B, S, H, DKV_KEYS);
+  if (err == cudaSuccess)
+    err = sm90::make_head_map(&tv, v, B, S, H, DKV_KEYS);
+  if (err == cudaSuccess)
+    err = allow_smem(flash_dkv_sm90_kernel, kDkvSm90Smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + DKV_KEYS - 1) / DKV_KEYS, B * H);
+  flash_dkv_sm90_kernel<<<grid, SM90_THREADS, kDkvSm90Smem, stream>>>(
+      tq, tk, tv, tg, lse, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), H, L, S, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// q, o [B, L, H, 128], k, v [B, S, H, 128], contiguous, all bfloat16 when
-// bf16 is non-zero, else float; lse [B*H, L] float. Each entry point returns
-// a cudaError_t value; 0 means the launch was accepted.
+// q, o [B, L, H, 128], k, v [B, S, H, 128], contiguous and 16-byte
+// aligned, all bfloat16 when bf16 is non-zero, else float; lse [B*H, L]
+// float. Each entry point returns a cudaError_t value; 0 means the launch
+// was accepted.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         void* lse, int B, int H, int L, int S, float scale,
                         int bf16, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* lse_f = static_cast<float*>(lse);
   if (!bf16) return launch_fwd<float>(q, k, v, o, lse_f, B, H, L, S, scale, s);
-  const dim3 grid((L + MMA_ROWS - 1) / MMA_ROWS, B * H);
-  flash_fwd_mma_kernel<<<grid, 32 * MMA_WARPS, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      lse_f, H, L, S, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fwd_sm90(q, k, v, o, lse_f, B, H, L, S, scale, s);
 }
 
 // dout and dq as q; delta [B*H, L] float = rowsum(dout * o)
@@ -978,15 +1218,7 @@ int flash_attention_dkv(const void* q, const void* k, const void* v,
   if (!bf16)
     return launch_dkv<float>(q, k, v, dout, l, dl, dk, dv, B, H, L, S, scale,
                              s);
-  using bf = __nv_bfloat16;
-  cudaError_t err = allow_smem(flash_dkv_mma_kernel, kDkvMmaSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + MMA_ROWS - 1) / MMA_ROWS, B * H);
-  flash_dkv_mma_kernel<<<grid, 32 * MMA_WARPS, kDkvMmaSmem, s>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k),
-      static_cast<const bf*>(v), static_cast<const bf*>(dout), l, dl,
-      static_cast<bf*>(dk), static_cast<bf*>(dv), H, L, S, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dkv_sm90(q, k, v, dout, l, dl, dk, dv, B, H, L, S, scale, s);
 }
 
 const char* flash_attention_error_string(int err) {

@@ -3,8 +3,9 @@
 Replaces the TPU kernels of gnn_rag_tpu/llm_tpu/flash_attention.py:
 ``_flash_kernel`` (:47, forward: o and the row logsumexp), ``_dq_kernel``
 (:132) and ``_dkv_kernel`` (:170). The CUDA source is
-``csrc/flash_attention.cu``; its header says how the blocks are laid out
-and what bounds them on an H100.
+``csrc/flash_attention.cu`` (with the Hopper building blocks of
+``csrc/sm90.cuh``); its header says how the blocks are laid out and what
+bounds them on an H100.
 
 Contract (the JAX package's): q ``[B, L, H, D]``, k and v ``[B, S, H, D]``
 with the kv heads already repeated to H (GQA), causal mask key <= query,
@@ -13,10 +14,12 @@ lse ``[B*H, L]`` float32, with p rounded to v's type before it multiplies v;
 ``flash_dq`` and ``flash_dkv`` recompute p per block from (q, k, lse) and
 work in float32 from the widened inputs, given delta = rowsum(dO * o)
 ``[B*H, L]`` (a plain reduction, ``bwd_delta``, as the JAX package leaves it
-to XLA). bfloat16 inputs run on the tensor cores (the backward's float p
-and ds as exact sums of three bf16 terms), float32 inputs on the CUDA cores
-in IEEE float32; all sums are float. The kernels take D = 128 and any L and S (a ragged last tile is
-masked in the kernel; the JAX wrapper pads L to 128 instead).
+to XLA). bfloat16 inputs run on the tensor cores (the forward and dk/dv
+through TMA and wgmma; dq's float ds as the exact sum of three bf16 terms,
+dk/dv's float p and ds as two, hi + mid, within 2^-16 of each product),
+float32 inputs on the CUDA cores in IEEE float32; all sums are float. The
+kernels take D = 128 and any L and S (a ragged last tile is masked in the
+kernel; the JAX wrapper pads L to 128 instead).
 
 Dispatch: CPU tensors take the plain versions (``flash_fwd_plain``,
 ``flash_dq_plain``, ``flash_dkv_plain``: dense attention and the
@@ -146,8 +149,10 @@ def _check(q, k, v, *more):
                              f"{tuple(t.shape)} on {t.device}")
     if not q.is_contiguous():
         raise ValueError("flash_attention: q must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: q, k and v must be 16-byte aligned")
+    heads = (q, k, v, *(t for name, t, _ in more if name == "dout"))
+    if any(t.data_ptr() % 16 for t in heads):
+        raise ValueError("flash_attention: q, k, v and dout must be 16-byte "
+                         "aligned")
     return B, L, H, D, S
 
 

@@ -2,8 +2,9 @@
 
 Each source under ``gnn_rag_tpu_torch/csrc/`` compiles into its own shared
 library with a plain C interface in ``build/gnn_rag_tpu_torch/``, named
-after the hash of the source and the flags, so a changed source rebuilds
-and an unchanged one loads the library already there. CUDA sources go
+after the hash of the source, the ``csrc/`` headers it includes (such as
+``sm90.cuh``) and the flags, so a changed source or header rebuilds and an
+unchanged one loads the library already there. CUDA sources go
 through nvcc for Hopper (``sm_90a``), ``graphpath.cpp`` through g++.
 """
 
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -45,6 +47,33 @@ def _cxx() -> str:
     return found
 
 
+def _with_headers(path: str) -> list:
+    """``path`` and every file it includes with ``#include "..."`` that
+    exists beside it, recursively, each once."""
+    files, todo = [], [path]
+    while todo:
+        current = todo.pop()
+        if current in files:
+            continue
+        files.append(current)
+        with open(current) as f:
+            for name in re.findall(r'^\s*#\s*include\s*"([^"]+)"', f.read(),
+                                   re.M):
+                dep = os.path.join(os.path.dirname(current), name)
+                if os.path.exists(dep):
+                    todo.append(dep)
+    return files
+
+
+def digest(src: str, flags: list) -> str:
+    """Hash of the compiler flags, the source and its included headers."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in _with_headers(src):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
 def library(source: str) -> str:
     """Compile ``csrc/<source>`` (``.cu`` with nvcc, ``.cpp`` with g++)
     unless its library exists; returns the library's path. Raises with the
@@ -53,10 +82,7 @@ def library(source: str) -> str:
     cuda = ext == ".cu"
     flags = NVCC_FLAGS if cuda else CXX_FLAGS
     src = os.path.join(CSRC, source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags).encode()
-                                ).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
+    out = os.path.join(BUILD_DIR, f"lib{stem}_{digest(src, flags)}.so")
     if os.path.exists(out):
         return out
     compiler = _nvcc() if cuda else _cxx()

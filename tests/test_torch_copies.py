@@ -109,6 +109,23 @@ def test_refbench_module_entry(tmp_path):
                            shallow=False), name
 
 
+def test_build_digest_covers_included_headers(tmp_path):
+    """A library is named after its source and the csrc headers it
+    includes, so an edited header rebuilds it instead of loading a stale
+    one."""
+    (tmp_path / "k.cu").write_text('#include <stdint.h>\n#include "h.cuh"\n'
+                                   '#include "absent.h"\n')
+    (tmp_path / "h.cuh").write_text('#include "k.cu"\nint x;\n')
+    src = str(tmp_path / "k.cu")
+    assert build._with_headers(src) == [src, str(tmp_path / "h.cuh")]
+    before = build.digest(src, build.NVCC_FLAGS)
+    (tmp_path / "h.cuh").write_text('#include "k.cu"\nint y;\n')
+    assert build.digest(src, build.NVCC_FLAGS) != before
+    assert build.digest(src, build.CXX_FLAGS) != build.digest(src, build.NVCC_FLAGS)
+    flash = os.path.join(build.CSRC, "flash_attention.cu")
+    assert os.path.join(build.CSRC, "sm90.cuh") in build._with_headers(flash)
+
+
 def test_native_builds_in_build_dir_and_matches(synth):
     _, questions = synth
     path = native.build()

@@ -106,6 +106,50 @@ def test_flash_plain_bf16_rounds_p_and_keeps_type():
     assert 0 < err <= 2e-2 * o32.abs().max().item()
 
 
+def bf16_tol(b):
+    """chip_smoke.bf16_tol with one rounding: 2^-7 |b| + 1e-2 rms over the
+    last axis + 1e-3 rms(b)."""
+    sq = b.float().square()
+    return (2 ** -7 * sq.sqrt() + 1e-2 * sq.mean(-1, keepdim=True).sqrt()
+            + 1e-3 * sq.mean().sqrt())
+
+
+def test_dkv_two_term_split_stays_within_tolerance():
+    """The bf16 dk/dv kernel feeds the float p^T and ds^T to the tensor
+    cores as two bf16 terms, hi + mid, with float sums. Emulated here: each
+    product is off by at most 2^-16 of its size, and dk and dv stay within
+    half the card check's tolerance of the plain version's float values
+    (and within it once both are rounded to bf16)."""
+    rng = np.random.default_rng(3)
+    q, k, v, g = (t(rand(rng, 1, 300, 2, 128)).bfloat16() for _ in range(4))
+    o, lse = fa.flash_fwd_plain(q, k, v)
+    delta = fa.bwd_delta(o, g)
+    p, ds = fa._dscores(q, k, v, g, lse, delta)        # float [B, H, L, S]
+
+    def terms(x):
+        hi = x.bfloat16().float()
+        return hi, (x - hi).bfloat16().float()
+
+    def product(x, y, dtype=torch.float32):
+        return torch.einsum("bhls,blhd->bshd", x.to(dtype), y.to(dtype))
+
+    got = [sum(product(part, y) for part in terms(x)) for x, y in
+           ((ds, q), (p, g))]
+    # the split alone, in float64: |sum (hi + mid - x) y| <= 2^-16 sum |x y|
+    for x, y in ((ds, q), (p, g)):
+        err = (sum(product(part, y, torch.float64) for part in terms(x))
+               - product(x, y, torch.float64)).abs()
+        assert (err <= 2 ** -16 * product(x.abs(), y.abs(), torch.float64)).all()
+    exact = fa.flash_dkv_plain(q.float(), k.float(), v.float(), g.float(),
+                               lse, delta)
+    rounded = fa.flash_dkv_plain(q, k, v, g, lse, delta)
+    for name, a, want, want_bf16 in zip(("dk", "dv"), got, exact, rounded):
+        tol = bf16_tol(want_bf16)
+        assert ((a - want).abs() / tol).max() <= 0.5, name
+        assert ((a.bfloat16().float() - want_bf16.float()).abs() / tol
+                ).max() <= 1, name
+
+
 def test_flash_wrapper_refuses_other_devices():
     x = torch.zeros(1, 8, 1, 128, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
