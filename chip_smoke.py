@@ -97,6 +97,9 @@ SEED = 0
 LATENCY_PASSES = 4
 TRAIN_STEPS = 20
 PALLAS = "gnn_rag_tpu/ops/pallas_mp.py"
+# the bf16 flash kernels built on TMA + wgmma
+SM90_KERNELS = ("flash_fwd_sm90_kernel", "flash_dq_sm90_kernel",
+                "flash_dkv_sm90_kernel")
 FLASH = "gnn_rag_tpu/llm_tpu/flash_attention.py"
 # the card's published peaks (H100 SXM data sheet, dense): float32 outside
 # the tensor cores (the kernels keep IEEE float32) and bf16 tensor cores
@@ -149,6 +152,9 @@ KERNEL_SHAPES = (
 # the KERNEL_SHAPES rows the fused-projection kernels and scatter_mm are
 # checked and timed at (one direction of each)
 FUSED_SHAPES = ("webqsp_fp32", "webqsp_bf16", "cwq_fp32")
+# and a skewed layout at WebQSP widths: a few tiles hold most chunks, as the
+# hub entities of SynthQSP's (and WebQSP's) subgraphs make them
+FUSED_SKEWED = ("webqsp_skewed_fp32", 16, 2048, 8192, 2, 50, "float32", True)
 # the gate-scatter launch counters of ops.gate_scatter
 GATE_COUNTERS = ("launches", "bwd_launches", "fused_launches",
                  "fused_bwd_launches", "scatter_launches")
@@ -177,9 +183,11 @@ def median_ms(fn, runs=20, reps=10, warmup=3):
     return sorted(times)[len(times) // 2]
 
 
-def kernel_inputs(B, E, F, J, D, dtype, apply_relu, device, rng):
+def kernel_inputs(B, E, F, J, D, dtype, apply_relu, device, rng, skew=False):
     """Random subgraphs of ~0.75E entities and ~0.8F facts per sample, laid
-    out by the port's loader code, and gate inputs on the device."""
+    out by the port's loader code, and gate inputs on the device. ``skew``:
+    each fact's target drawn as ne * u^4 (u uniform), so the first tile
+    takes about half of the facts and a few tiles most of them."""
     import numpy as np
     import torch
     from gnn_rag_tpu_torch.data.kernel_layout import (TILE_E, TILE_F,
@@ -190,6 +198,8 @@ def kernel_inputs(B, E, F, J, D, dtype, apply_relu, device, rng):
         ne, nf = int(0.75 * E), int(0.8 * F)
         h = rng.integers(0, ne, nf).astype(np.int32)
         t = rng.integers(0, ne, nf).astype(np.int32)
+        if skew:
+            t = (ne * rng.random(nf) ** 4).astype(np.int32)
         r = rng.integers(0, 200, nf).astype(np.int32)
         w = np.ones(nf, np.float32)
         fwd.append(build_sample_direction(t, h, r, w, E, 200))
@@ -319,18 +329,18 @@ def check_fused_kernels(device):
     rounded once); dprior (float from the same widened values) 1e-4 and
     scatter_mm 1e-5 of max|ref|. Two backward launches
     bit-identical; CUDA-event medians of kernel, plain and, for the
-    scatter, ``scatter_add_``. Returns rows."""
+    scatter, ``scatter_add_``; the same at FUSED_SKEWED. Returns rows."""
     import numpy as np
     import torch
     from gnn_rag_tpu_torch.ops import gate_scatter as gs
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     rows, bad = [], []
-    for name, B, E, F, J, D, dtype, relu in KERNEL_SHAPES:
-        if name not in FUSED_SHAPES:
-            continue
+    shapes = [r for r in KERNEL_SHAPES if r[0] in FUSED_SHAPES] + [FUSED_SKEWED]
+    for name, B, E, F, J, D, dtype, relu in shapes:
         vals, ins, prior, scatter, starts, _ = kernel_inputs(
-            B, E, F, J, D, dtype, relu, device, rng)
+            B, E, F, J, D, dtype, relu, device, rng,
+            skew=name == FUSED_SKEWED[0])
         w = (torch.randn((D, D), generator=gen, device=device)
              / math.sqrt(D)).to(ins.dtype)
         b = (0.1 * torch.randn((D,), generator=gen, device=device)).to(ins.dtype)
@@ -377,8 +387,11 @@ def check_fused_kernels(device):
                 1, idx, src)
 
         lib_err = (library() - want[-1]).abs().max().item()
+        tile_chunks = (starts[0][:, 1:] - starts[0][:, :-1]).float()
         row = dict(
             shape=name, B=B, E=E, Fp=Fp, J=J, D=D, dtype=dtype, relu=relu,
+            chunks_per_tile_mean_max=[tile_chunks.mean().item(),
+                                      tile_chunks.max().item()],
             err_ref_by_output=errs, bit_identical_repeat=repeat,
             scatter_C=J * D, scatter_add_vs_plain=lib_err,
             ms=median_ms(lambda: gs.fused_gate_scatter_fwd(*args, relu)),
@@ -508,8 +521,9 @@ def run_slice(device, root):
     import numpy as np
     import torch
     from gnn_rag_tpu_torch.data.loader import load_dataset_dir
-    from gnn_rag_tpu_torch.models.frozen_lm import (FrozenLM, encode_questions,
-                                                    encode_relations)
+    from gnn_rag_tpu_torch.models.frozen_lm import (encode_questions,
+                                                    encode_relations,
+                                                    maybe_frozen_lm)
     from gnn_rag_tpu_torch.models.rearev import build_model
     from gnn_rag_tpu_torch.ops import gate_scatter as gs
     from gnn_rag_tpu_torch.serve import RetrieverService
@@ -520,13 +534,22 @@ def run_slice(device, root):
     cfg = headline_config(root)
     bundle = load_dataset_dir(cfg)
     test, vocab, tok = bundle["test"], bundle["vocab"], bundle["tokenizer"]
-    lm = FrozenLM(word_dim=384, vocab_size=30522, layers=6, heads=12,
-                  intermediate=1536, seed=SEED, device=device)
+    # the headline's --lm sbert: the checkpoint when the machine has it
+    # (utils.hf_import: a local directory or the HF hub cache), else the
+    # random MiniLM-width encoder, logged as such
+    lm = maybe_frozen_lm(cfg.model.lm, cfg.model.word_dim_effective,
+                         seed=SEED, device=device)
+    if lm.weight_source.startswith("hf:"):
+        log("frozen-lm", f"pretrained weights: {lm.weight_source}")
+    else:
+        log("frozen-lm", f"no {cfg.model.lm} checkpoint on this machine: "
+            f"the frozen LM is a random MiniLM-width encoder "
+            f"(weight_source {lm.weight_source})")
     rel = encode_relations(lm, bundle["rel_tokens"], bundle["rel_tokens_inv"],
                            tok.pad_id)
     encode_questions(lm, test, tok.pad_id)
     model = build_model(cfg, vocab.num_entity, bundle["num_kb_relation"],
-                        word_dim=384, seed=SEED, device=device)
+                        word_dim=lm.hidden, seed=SEED, device=device)
     svc = RetrieverService(
         cfg, vocab, model, rel_hidden=rel[0], rel_hidden_inv=rel[1],
         rel_text_mask=rel[2], tokenizer=tok,
@@ -605,7 +628,7 @@ def run_slice(device, root):
     bf_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, compute_dtype="bfloat16"))
     bf_model = build_model(bf_cfg, vocab.num_entity, bundle["num_kb_relation"],
-                           word_dim=384, seed=SEED, device=device)
+                           word_dim=lm.hidden, seed=SEED, device=device)
     with torch.inference_mode():
         _, _, dist_bf = bf_model(batch.to(device), *svc.rel_args)
     bf_diff = (dist_bf - dist_k).abs().max().item()
@@ -673,7 +696,7 @@ def run_train(device, root):
             os.path.exists(tr._ckpt_path(r) + ".meta.json") for r in written):
         raise AssertionError(f"checkpoints written: {written}")
     init = build_model(cfg, tr.num_entity, ctx["bundle"]["num_kb_relation"],
-                       word_dim=cfg.model.word_dim_effective,
+                       word_dim=ctx["lm"].hidden,
                        seed=cfg.train.seed, device=device).state_dict()
     trained = tr.model.state_dict()      # the final checkpoint's weights
     changed = sum(not torch.equal(init[k], v) for k, v in trained.items())
@@ -1503,12 +1526,26 @@ def sass_counts(lib, opcodes=("HGMMA", "UTMALDG")):
     return counts
 
 
+def spill_bytes(log_text):
+    """{kernel: spill store + load bytes} from ``ptxas -v`` output, whose
+    "Function properties for <kernel>" line precedes the spill line."""
+    import re
+    spills, kernel = {}, None
+    for line in log_text.splitlines():
+        if "Function properties for" in line:
+            kernel = line.split("Function properties for")[1].strip()
+        elif "spill stores" in line and kernel is not None:
+            spills[kernel] = sum(int(n) for n in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", line))
+    return spills
+
+
 def build_all():
     """Build every native library of the port at once (one compiler
     process per source, all started together); log each one's time and
     ptxas register / spill lines, and the wgmma (HGMMA) and TMA-load
-    (UTMALDG) instructions of each flash kernel, which the Hopper forward
-    and dk/dv kernels must issue."""
+    (UTMALDG) instructions of each flash kernel, which the Hopper forward,
+    dq and dk/dv kernels (SM90_KERNELS) must issue, without spills."""
     from concurrent.futures import ThreadPoolExecutor
 
     from gnn_rag_tpu_torch.utils import build
@@ -1535,11 +1572,14 @@ def build_all():
                           if "flash_" in k}
                 log("build", f"sass HGMMA / UTMALDG per kernel: "
                     f"{json.dumps(counts)}")
-                for name in ("flash_fwd_sm90_kernel", "flash_dkv_sm90_kernel"):
+                spills = spill_bytes(build.logs.get(stem, ""))
+                for name in SM90_KERNELS:
                     if not any(name in k and all(v.values())
                                for k, v in counts.items()):
                         raise AssertionError(f"{name}: no HGMMA or no UTMALDG "
                                              f"in its SASS")
+                    if any(name in k and n for k, n in spills.items()):
+                        raise AssertionError(f"{name} spills: {spills}")
 
 
 def main():

@@ -11,6 +11,9 @@ the reference's gnn/parsing.py) plus ``--device {cuda,cpu}`` (default cuda;
 asking for cuda without a card raises, there is no silent CPU run). ``assemble`` loads the data, runs the frozen LM once over relation
 texts and questions and builds the Trainer; ``run`` trains, or with
 ``--is_eval`` writes the test `.info` (port of gnn_rag_tpu/cli.py:171-319).
+The frozen LM loads a local HF checkpoint for ``--lm`` when there is one
+(``models.frozen_lm.maybe_frozen_lm``) and falls back loudly to a random
+encoder otherwise.
 Flags outside the ported configuration raise ``NotImplementedError``.
 """
 
@@ -24,7 +27,7 @@ import torch
 
 from .config import Config, DataConfig, ModelConfig, TrainConfig
 from .data.loader import load_dataset_dir
-from .models.frozen_lm import FrozenLM, encode_questions, encode_relations
+from .models.frozen_lm import encode_questions, encode_relations, maybe_frozen_lm
 from .models.rearev import check_supported as check_model_supported
 from .train.trainer import Trainer
 from .utils.logging import create_logger
@@ -208,6 +211,25 @@ def device_of(name: str) -> torch.device:
     return torch.device(name)
 
 
+def question_decoder(tok):
+    """The `.info` question text of the JAX CLI (gnn_rag_tpu/cli.py:265-279;
+    the reference's evaluate.py:143-156 writes the DECODED token sequence,
+    not the raw question): an HF tokenizer's word pieces without [CLS],
+    [SEP] and [PAD], or an LSTM tokenizer's words, each followed by a
+    space. None for other tokenizers (the raw question is written)."""
+    if hasattr(tok, "tok"):  # HFTokenizer
+        def decode(ids):
+            words = tok.tok.convert_ids_to_tokens([int(i) for i in ids])
+            return "".join(w + " " for w in words
+                           if w not in ("[CLS]", "[SEP]", "[PAD]"))
+        return decode
+    if hasattr(tok, "word2id"):  # LSTMWordTokenizer
+        id2word = {i: w for w, i in tok.word2id.items()}
+        return lambda ids: "".join(id2word[int(i)] + " " for i in ids
+                                   if int(i) in id2word)
+    return None
+
+
 def assemble(argv=None) -> dict:
     """Parse flags, load data, encode relation texts and questions with the
     frozen LM, and build the Trainer (restoring --load_experiment). Returns
@@ -220,10 +242,12 @@ def assemble(argv=None) -> dict:
                            config=cfg.model)
     bundle = load_dataset_dir(cfg)
     pad = bundle["tokenizer"].pad_id
-    word_dim = cfg.model.word_dim_effective
-    lm = FrozenLM(word_dim=word_dim, seed=cfg.train.seed, device=device)
-    logger.info("frozen LM %s: %s (no pretrained weights are read)",
-                cfg.model.lm, lm.weight_source)
+    lm = maybe_frozen_lm(cfg.model.lm, cfg.model.word_dim_effective,
+                         seed=cfg.train.seed, logger=logger, device=device)
+    logger.info("frozen LM %s: %s", cfg.model.lm, lm.weight_source)
+    # the encoder's own width (a checkpoint's hidden size; the JAX model
+    # infers it from the hidden states)
+    word_dim = lm.hidden
     rel_hidden, rel_hidden_inv, rel_mask = encode_relations(
         lm, bundle["rel_tokens"], bundle["rel_tokens_inv"], pad)
     for split in ("train", "valid", "test"):
@@ -236,7 +260,8 @@ def assemble(argv=None) -> dict:
         num_kb_relation=bundle["num_kb_relation"], rel_hidden=rel_hidden,
         rel_hidden_inv=rel_hidden_inv, rel_text_mask=rel_mask,
         word_dim=word_dim, id2entity=vocab.id2entity, logger=logger,
-        lm_source=lm.weight_source, device=device)
+        lm_source=lm.weight_source,
+        decode_question=question_decoder(bundle["tokenizer"]), device=device)
     if cfg.train.load_experiment:
         trainer.load_ckpt(os.path.join(cfg.train.checkpoint_dir,
                                        cfg.train.load_experiment))

@@ -30,38 +30,41 @@
 // shuffles over the 16 threads that share ty; shared-memory rows are padded
 // to D + 1 floats so that column walks hit distinct banks.
 //
-// bfloat16, on the tensor cores:
-// - forward (flash_fwd_sm90_kernel) and dk/dv (flash_dkv_sm90_kernel):
-//   Hopper's TMA and warpgroup wgmma (building blocks in sm90.cuh). A block
-//   is three warpgroups: a producer whose one thread keeps TMA loads in
-//   flight through a ring of shared-memory stages (full/empty mbarriers,
-//   its registers given up with setmaxnreg), and two consumers that own 64
-//   rows each and run wgmma with float accumulators in registers. The
-//   forward: 128 query rows a block, Q loaded once, 128-key K and V tiles
-//   through 2 stages (160 KB); s = q k^T from shared memory, the online
-//   softmax on the accumulators, p rounded to bf16 straight into the A
-//   registers of o += p v. dk/dv: 128 keys a block, K and V loaded once,
+// bfloat16, on the tensor cores: Hopper's TMA and warpgroup wgmma (building
+// blocks in sm90.cuh). A block is three warpgroups: a producer whose one
+// thread keeps TMA loads in flight through a ring of shared-memory stages
+// (full/empty mbarriers, its registers given up with setmaxnreg), and two
+// consumers that own 64 rows each and run wgmma with float accumulators in
+// registers.
+// - forward (flash_fwd_sm90_kernel): 128 query rows a block, Q loaded once,
+//   128-key K and V tiles through 2 stages (160 KB); s = q k^T from shared
+//   memory, the online softmax on the accumulators, p rounded to bf16
+//   straight into the A registers of o += p v.
+// - dq (flash_dq_sm90_kernel): 128 query rows a block, Q and dO loaded once
+//   with the rows' lse and delta in registers, 64-key K and V tiles through
+//   3 stages (160 KB); s = q k^T and dp = dO v^T from shared memory, p and
+//   ds in registers, dq += ds k with ds as the register A operand and k
+//   MN-major.
+// - dk/dv (flash_dkv_sm90_kernel): 128 keys a block, K and V loaded once,
 //   64-row Q and dO tiles (TMA) with their lse and delta (plain loads: a
 //   [B*H, L] row need not start on 16 bytes) through 3 stages (162 KB);
 //   s^T = k q^T and dp^T = v dO^T from shared memory, p^T and ds^T in
 //   registers, dv += p^T dO and dk += ds^T q with p^T and ds^T as register
-//   A operands. Tensor maps cover the 4-D (D, H, N, B) view with the real
-//   strides, so rows past L read as TMA's zeros (never the next batch's
-//   rows) and are masked or not stored. Only tiles that cross the diagonal
-//   or the ragged end are masked; tiles past the diagonal are not loaded.
-// - dq (flash_dq_mma_kernel): mma.sync m16n8k16 in FlashAttention-2's
-//   register layout, a block of 4 warps owning 64 query rows and walking
-//   64-key tiles staged in shared memory.
+//   A operands.
+// Tensor maps cover the 4-D (D, H, N, B) view with the real strides, so rows
+// past L read as TMA's zeros (never the next batch's rows) and are masked or
+// not stored. Only tiles that cross the diagonal or the ragged end are
+// masked; tiles past the diagonal are not loaded.
 // s and dp take bf16 operands, whose products are exact in float. The
-// backward's float p and ds enter the tensor cores as sums of bf16 terms so
-// that the backward still multiplies in float: dq as the exact sum of three
-// (split3); dk/dv as two, hi + mid (split2), which leaves under 2^-16 of
-// each product (hi is within 2^-8 of x, mid within 2^-8 of x - hi), so a
-// sum is off by under 2^-16 of the sum of its terms' sizes, against the
+// backward's float p and ds enter the tensor cores as two bf16 terms, hi +
+// mid (split2), so that the backward still multiplies in float to within
+// 2^-16 of each product (hi is within 2^-8 of x, mid within 2^-8 of x - hi):
+// a sum is off by under 2^-16 of the sum of its terms' sizes, against the
 // check's tolerance of one bf16 step (2^-7) of the output plus 1e-2 of the
-// row's rms (tests/test_torch_llm.py emulates the split on the CPU: dk and
-// dv within ~1e-3 of that tolerance of their float values). Two terms make
-// dk/dv 6 products where the function needs 4 (three made it 8).
+// row's rms (tests/test_torch_llm.py emulates the split on the CPU: dq, dk
+// and dv within ~1e-3 of that tolerance of their float values). Two terms
+// make dq 4 products where the function needs 3, and dk/dv 6 where it
+// needs 4.
 //
 // Both families: every sum runs in a fixed order (no atomics), so two
 // launches repeat bit for bit. Ragged edges (L or S not a multiple of the
@@ -81,12 +84,12 @@
 // wait while a warpgroup works on its registers unless the other warpgroup
 // fills the gap. FlashAttention-3's ping-pong of the two consumers and its
 // overlap of one tile's softmax with the next tile's scores are the next
-// steps; dq still issues mma.sync with synchronous tile loads.
+// steps.
 //
 // ptxas -v (CUDA 12.8, sm_90a; chip_smoke.py prints it on its build line):
-// flash_fwd_sm90_kernel and flash_dkv_sm90_kernel 168 registers at launch
-// (384 threads, one block an SM; setmaxnreg then gives the consumers 240
-// and 232, the producer 24 and 40), flash_dq_mma_kernel 209;
+// the three Hopper kernels 168 registers at launch (384 threads, one block
+// an SM; setmaxnreg then gives the consumers 240 (forward, dq) and 232
+// (dk/dv), the producer 24 (forward, dq) and 40 (dk/dv));
 // flash_fwd_kernel<float> 76, flash_dq_kernel<float> 80,
 // flash_dkv_kernel<float> 127; no spills, no stack frames.
 
@@ -455,208 +458,9 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// ----------------------------------------------------- dq, bfloat16, mma.sync
-// A warp owns 16 rows held as A fragments in registers and issues mma.sync
-// m16n8k16 with float accumulators in FlashAttention-2's register layout; K
-// and V tiles are staged in shared memory, bf16 rows padded to 136 so that
-// ldmatrix's eight row addresses hit distinct banks.
-constexpr int MMA_WARPS = 4;
-constexpr int MMA_ROWS = 16 * MMA_WARPS;   // query rows per block
-constexpr int MMA_KEYS = 64;               // keys per tile
-constexpr int KP = D + 8;                  // padded bf16 row of K/V tiles
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// rows [row0, row0 + MMA_KEYS) of head h of a [B, N, H, D] bf16 tensor into
-// shared memory [MMA_KEYS][KP], 16 bytes a thread at a time; rows past N = 0
-__device__ void load_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                               int b, int h, int N, int H, int row0) {
-  constexpr int kVecs = D / 8;             // 16-byte vectors per row
-  for (int e = threadIdx.x; e < MMA_KEYS * kVecs; e += 32 * MMA_WARPS) {
-    const int r = e / kVecs, c = (e % kVecs) * 8, row = row0 + r;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (row < N)
-      x = *reinterpret_cast<const uint4*>(src + offset(b, row, h, N, H) + c);
-    *reinterpret_cast<uint4*>(dst + r * KP + c) = x;
-  }
-}
-
-// x = hi + mid + lo, each a bf16 (exact for a normal float)
-__device__ __forceinline__ void split3(float x, __nv_bfloat16 (&part)[3]) {
-  part[0] = __float2bfloat16(x);
-  x -= __bfloat162float(part[0]);
-  part[1] = __float2bfloat16(x);
-  x -= __bfloat162float(part[1]);
-  part[2] = __float2bfloat16(x);
-}
-
-// A fragments (one per term) of a 16x16 float operand held as two 16x8
-// accumulator tiles (columns 0-7 in c0, 8-15 in c1), the layout mma.sync
-// returns: register r of the fragment takes (c0[0], c0[1]), (c0[2], c0[3]),
-// (c1[0], c1[1]), (c1[2], c1[3])
-__device__ __forceinline__ void split_a(uint32_t (&a)[3][4],
-                                        const float (&c0)[4],
-                                        const float (&c1)[4]) {
-  const float* src[2] = {c0, c1};
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    __nv_bfloat16 x[3], y[3];
-    split3(src[r / 2][(r % 2) * 2], x);
-    split3(src[r / 2][(r % 2) * 2 + 1], y);
-#pragma unroll
-    for (int term = 0; term < 3; ++term) {
-      __nv_bfloat162 v = __halves2bfloat162(x[term], y[term]);
-      a[term][r] = *reinterpret_cast<uint32_t*>(&v);
-    }
-  }
-}
-
-// the A fragments of rows row_a (= row0 + g) and row_a + 8 of head h of a
-// [B, N, H, D] bf16 tensor, for the 8 k-steps of D; rows past N read as 0
-__device__ __forceinline__ void load_a_rows(uint32_t (&a)[D / 16][4],
-                                            const __nv_bfloat16* src, int b,
-                                            int h, int N, int H, int row_a,
-                                            int t) {
-  const uint32_t* ra = row_a < N ? reinterpret_cast<const uint32_t*>(
-      src + offset(b, row_a, h, N, H)) : nullptr;
-  const uint32_t* rb = row_a + 8 < N ? reinterpret_cast<const uint32_t*>(
-      src + offset(b, row_a + 8, h, N, H)) : nullptr;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int w = kk * 8 + t;
-    a[kk][0] = ra ? ra[w] : 0u;
-    a[kk][1] = rb ? rb[w] : 0u;
-    a[kk][2] = ra ? ra[w + 4] : 0u;
-    a[kk][3] = rb ? rb[w + 4] : 0u;
-  }
-}
-
-__device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* dst, int b,
-                                                int h, int N, int H,
-                                                int row_a, int t,
-                                                const float (&acc)[D / 8][4]) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_a + 8 * r;
-    if (row >= N) continue;
-    uint32_t* out = reinterpret_cast<uint32_t*>(dst + offset(b, row, h, N, H));
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      out[n * 4 + t] = pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
-  }
-}
-
-// dq, grid (ceil(L / MMA_ROWS), B*H), MMA_WARPS warps: a warp owns 16 query
-// rows (q and dO as A fragments in registers) and walks the key tiles
-__global__ void __launch_bounds__(32 * MMA_WARPS)
-    flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dq, int H, int L, int S,
-                        float scale) {
-  __shared__ __align__(16) __nv_bfloat16 Ks[MMA_KEYS * KP];
-  __shared__ __align__(16) __nv_bfloat16 Vs[MMA_KEYS * KP];
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * MMA_ROWS;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, mi = lane / 8;
-  const int row_a = q0 + warp * 16 + g;
-  const int row[2] = {row_a, row_a + 8};
-
-  uint32_t qa[D / 16][4], ga[D / 16][4];
-  load_a_rows(qa, q, b, h, L, H, row_a, t);
-  load_a_rows(ga, dout, b, h, L, H, row_a, t);
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int64_t i = static_cast<int64_t>(bh) * L + row[r];
-    lse_r[r] = row[r] < L ? lse[i] : 0.f;
-    delta_r[r] = row[r] < L ? delta[i] : 0.f;
-  }
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const int k_end = min(S, q0 + MMA_ROWS);
-  for (int k0 = 0; k0 < k_end; k0 += MMA_KEYS) {
-    __syncthreads();
-    load_tile_bf16(Ks, k, b, h, S, H, k0);
-    load_tile_bf16(Vs, v, b, h, S, H, k0);
-    __syncthreads();
-#pragma unroll 1
-    for (int jj = 0; jj < MMA_KEYS / 16; ++jj) {   // keys 16jj .. 16jj + 15
-      float s[2][4] = {}, dp[2][4] = {};
-      const int key = 16 * jj + lane % 8 + 8 * (mi / 2);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t kb[4], vb[4];
-        ldmatrix_x4(kb, Ks + key * KP + 16 * kk + 8 * (mi % 2));
-        ldmatrix_x4(vb, Vs + key * KP + 16 * kk + 8 * (mi % 2));
-        mma_bf16(s[0], qa[kk], kb[0], kb[1]);
-        mma_bf16(s[1], qa[kk], kb[2], kb[3]);
-        mma_bf16(dp[0], ga[kk], vb[0], vb[1]);
-        mma_bf16(dp[1], ga[kk], vb[2], vb[3]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int kc = k0 + 16 * jj + 8 * nt + 2 * t + (i & 1);
-          const int r = i / 2;
-          const float sv = (kc <= row[r] && kc < S) ? s[nt][i] * scale
-                                                    : NEG_INF;
-          const float p = expf(sv - lse_r[r]);
-          s[nt][i] = p * (dp[nt][i] - delta_r[r]) * scale;      // ds
-        }
-      uint32_t da[3][4];
-      split_a(da, s[0], s[1]);
-      // dq += ds k: B[key][d] = k[key][d], transposed 8x8 loads
-      const int key_t = 16 * jj + lane % 8 + 8 * (mi % 2);
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t kt[4];
-        ldmatrix_x4_trans(kt, Ks + key_t * KP + 8 * n + 8 * (mi / 2));
-#pragma unroll
-        for (int term = 0; term < 3; ++term) {
-          mma_bf16(acc[n], da[term], kt[0], kt[1]);
-          mma_bf16(acc[n + 1], da[term], kt[2], kt[3]);
-        }
-      }
-    }
-  }
-  store_rows_bf16(dq, b, h, L, H, row_a, t, acc);
 }
 
 // ------------------------------- bfloat16 on Hopper: TMA + wgmma, forward
@@ -1073,6 +877,171 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
   store_acc_rows(dv, b, h, S, H, key, t, dv_acc, one);
 }
 
+constexpr int DQ_ROWS = 128;   // query rows per block
+constexpr int DQ_KEYS = 64;    // keys per streamed tile
+constexpr int DQ_STAGES = 3;
+
+struct DqBars {
+  uint64_t qg_full, k_full[DQ_STAGES], v_full[DQ_STAGES], empty[DQ_STAGES];
+};
+constexpr size_t kDqSm90Smem = 1024 + 2 * TILE_BYTES +
+                               2 * DQ_STAGES * QTILE_BYTES + sizeof(DqBars);
+
+// dq, grid (ceil(L / DQ_ROWS), B*H): Q and dO once, 64-key tiles of K and V
+// (TMA) through the ring, for the keys <= the block's last row. s = q k^T
+// and dp = dO v^T (m64n64k16, all K-major from shared memory); p and ds in
+// registers; dq += ds k (m64n128k16, A from registers as hi + mid bf16
+// terms, k MN-major with the transpose bit). lse and delta belong to the
+// block's own rows, so each consumer thread loads its two rows' values into
+// registers once. A consumer whose rows all lie before a tile's first key
+// skips the tile's products (it still waits for the tile, so its arrivals on
+// the empty barrier stay in step with the other consumer's).
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+    flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tg,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dq, int H, int L, int S,
+                         float scale) {
+  extern __shared__ unsigned char raw_smem[];
+  unsigned char* const Qs = align1024(raw_smem);
+  unsigned char* const Gs = Qs + TILE_BYTES;                 // dO
+  unsigned char* const Ks = Gs + TILE_BYTES;                 // [stage]
+  unsigned char* const Vs = Ks + DQ_STAGES * QTILE_BYTES;    // [stage]
+  auto* bars = reinterpret_cast<DqBars*>(Vs + DQ_STAGES * QTILE_BYTES);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * DQ_ROWS;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int n_tiles = (min(S, q0 + DQ_ROWS) + DQ_KEYS - 1) / DQ_KEYS;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&bars->qg_full, 1);
+    for (int st = 0; st < DQ_STAGES; ++st) {
+      sm90::mbar_init(&bars->k_full[st], 1);
+      sm90::mbar_init(&bars->v_full[st], 1);
+      sm90::mbar_init(&bars->empty[st], 2 * WG / 32);   // consumer warps
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {   // producer
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      sm90::mbar_arrive_expect_tx(&bars->qg_full, 2 * TILE_BYTES);
+      sm90::tma_load_4d(Qs, &tq, &bars->qg_full, 0, h, q0, b);
+      sm90::tma_load_4d(Qs + BOX128, &tq, &bars->qg_full, 64, h, q0, b);
+      sm90::tma_load_4d(Gs, &tg, &bars->qg_full, 0, h, q0, b);
+      sm90::tma_load_4d(Gs + BOX128, &tg, &bars->qg_full, 64, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % DQ_STAGES;
+        sm90::mbar_wait(&bars->empty[st], ((j / DQ_STAGES) & 1) ^ 1);
+        unsigned char* kd = Ks + st * QTILE_BYTES;
+        unsigned char* vd = Vs + st * QTILE_BYTES;
+        sm90::mbar_arrive_expect_tx(&bars->k_full[st], QTILE_BYTES);
+        sm90::tma_load_4d(kd, &tk, &bars->k_full[st], 0, h, j * DQ_KEYS, b);
+        sm90::tma_load_4d(kd + BOX64, &tk, &bars->k_full[st], 64, h,
+                          j * DQ_KEYS, b);
+        sm90::mbar_arrive_expect_tx(&bars->v_full[st], QTILE_BYTES);
+        sm90::tma_load_4d(vd, &tv, &bars->v_full[st], 0, h, j * DQ_KEYS, b);
+        sm90::tma_load_4d(vd + BOX64, &tv, &bars->v_full[st], 64, h,
+                          j * DQ_KEYS, b);
+      }
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<240>();
+  const int cw = wg - 1;                     // rows r0 = q0 + 64 cw ..
+  const int warp = threadIdx.x % WG / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = q0 + 64 * cw;
+  const int row = r0 + 16 * warp + g;        // and row + 8
+  const unsigned char* const Qw = Qs + 64 * cw * ROW_BYTES;
+  const unsigned char* const Gw = Gs + 64 * cw * ROW_BYTES;
+  const float sl2 = scale * LOG2E;
+  float lse2[2], dl[2];                      // lse in log2 units, delta
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = row + 8 * r < L;
+    const int64_t i = static_cast<int64_t>(bh) * L + row + 8 * r;
+    lse2[r] = in ? lse[i] * LOG2E : 0.f;
+    dl[r] = in ? delta[i] : 0.f;
+  }
+  // tiles whose first key lies past this consumer's last row add nothing
+  const int my_tiles = (min(S, r0 + 64) + DQ_KEYS - 1) / DQ_KEYS;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  sm90::mbar_wait(&bars->qg_full, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % DQ_STAGES, k0 = j * DQ_KEYS;
+    const uint32_t phase = (j / DQ_STAGES) & 1;
+    const unsigned char* kt = Ks + st * QTILE_BYTES;
+    const unsigned char* vt = Vs + st * QTILE_BYTES;
+    sm90::mbar_wait(&bars->k_full[st], phase);
+    sm90::mbar_wait(&bars->v_full[st], phase);
+    if (j < my_tiles) {
+      float s[32], dp[32];
+      const uint64_t desc_q = k_major(Qw), desc_k = k_major(kt);
+      const uint64_t desc_g = k_major(Gw), desc_v = k_major(vt);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_m64n64k16_ss(s, desc_q + k_step(BOX128, kk),
+                                 desc_k + k_step(BOX64, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_m64n64k16_ss(dp, desc_g + k_step(BOX128, kk),
+                                 desc_v + k_step(BOX64, kk), kk > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait();
+      sm90::fence_regs(s);
+      sm90::fence_regs(dp);
+
+      // p = exp(s scale - lse), ds = p (dp - delta) scale; rows: queries
+      // row + 8((i / 2) & 1), columns: keys k0 + c. Only a tile that crosses
+      // this consumer's diagonal or the ragged end is masked.
+      const bool edge = k0 + DQ_KEYS - 1 > r0 || k0 + DQ_KEYS > S;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i / 2) & 1;
+        float p = exp2f(fmaf(s[i], sl2, -lse2[r]));
+        if (edge) {
+          const int kc = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+          if (kc > row + 8 * r || kc >= S) p = 0.f;
+        }
+        dp[i] = p * (dp[i] - dl[r]) * scale;
+      }
+      uint32_t d_hi[DQ_KEYS / 16][4], d_mid[DQ_KEYS / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < DQ_KEYS / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          split2(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1], d_hi[kk][r],
+                 d_mid[kk][r]);
+      sm90::fence_regs(acc);
+      sm90::wgmma_fence();
+      const uint64_t desc_kt = mn_major(kt, BOX64);
+#pragma unroll
+      for (int kk = 0; kk < DQ_KEYS / 16; ++kk) {
+        sm90::wgmma_m64n128k16_rs(acc, d_hi[kk], desc_kt + mn_step(kk), 1);
+        sm90::wgmma_m64n128k16_rs(acc, d_mid[kk], desc_kt + mn_step(kk), 1);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait();
+      sm90::fence_regs(acc);
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
+  }
+  const float one[2] = {1.f, 1.f};
+  store_acc_rows(dq, b, h, L, H, row, t, acc, one);
+}
+
 constexpr size_t kFwdSmem = sizeof(float) * (TILE * DP + 2 * STREAM * DP +
                                              TILE * SP);
 constexpr size_t kDqSmem = sizeof(float) * (2 * TILE * DP + 2 * STREAM * DP +
@@ -1171,6 +1140,28 @@ int launch_dkv_sm90(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_dq_sm90(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq, int B, int H, int L, int S, float scale,
+                   cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tg;
+  cudaError_t err = sm90::make_head_map(&tq, q, B, L, H, DQ_ROWS);
+  if (err == cudaSuccess)
+    err = sm90::make_head_map(&tg, dout, B, L, H, DQ_ROWS);
+  if (err == cudaSuccess)
+    err = sm90::make_head_map(&tk, k, B, S, H, DQ_KEYS);
+  if (err == cudaSuccess)
+    err = sm90::make_head_map(&tv, v, B, S, H, DQ_KEYS);
+  if (err == cudaSuccess)
+    err = allow_smem(flash_dq_sm90_kernel, kDqSm90Smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((L + DQ_ROWS - 1) / DQ_ROWS, B * H);
+  flash_dq_sm90_kernel<<<grid, SM90_THREADS, kDqSm90Smem, stream>>>(
+      tq, tk, tv, tg, lse, delta, static_cast<__nv_bfloat16*>(dq), H, L, S,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -1198,13 +1189,7 @@ int flash_attention_dq(const void* q, const void* k, const void* v,
   auto* dl = static_cast<const float*>(delta);
   if (!bf16)
     return launch_dq<float>(q, k, v, dout, l, dl, dq, B, H, L, S, scale, s);
-  using bf = __nv_bfloat16;
-  const dim3 grid((L + MMA_ROWS - 1) / MMA_ROWS, B * H);
-  flash_dq_mma_kernel<<<grid, 32 * MMA_WARPS, 0, s>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k),
-      static_cast<const bf*>(v), static_cast<const bf*>(dout), l, dl,
-      static_cast<bf*>(dq), H, L, S, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dq_sm90(q, k, v, dout, l, dl, dq, B, H, L, S, scale, s);
 }
 
 // dk, dv as k

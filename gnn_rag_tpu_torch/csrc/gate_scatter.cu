@@ -85,13 +85,17 @@
 // unrounded, as the TPU backward does (pallas_mp.py:345-352), then runs the
 // gate backward above with drl = sum_j dval_j * ins_j in place of dvals, and
 // adds dfact_rel = drl @ w^T (cast to T) and this block's partials of
-// dW = fact_rel^T drl and db = sum drl. The partials go to a workspace
-// [B * n_tiles, D*D + D] that a second kernel adds in a fixed order, so
-// there are no float atomics and two launches give the same bits. Its
-// 6*D*D flops per slot bound it by operations; on an H100 the rl,
-// dfact_rel and dW loops issue about two shared-memory loads per FMA, and
-// that load rate, not the FMA rate, limits it (more partial sums per loop
-// do not help; reusing each load over several slots or entries would).
+// dW = fact_rel^T drl and db = sum drl. Its 6*D*D flops per slot bound it
+// by operations, so its three D x D products run as register-tiled SIMT
+// GEMMs over shared memory: D zero-padded to a multiple of 4, 64 slots a
+// stage, each thread a 4 x 4 output tile from float4 loads (8 loads for 64
+// FMAs), and a fixed 4 x 4 block of dW a thread summed over the stages. The
+// gate backward runs on the rl tile in registers between the products. A tile's
+// chunk range is split over up to kFbParts blocks (at least kFbPartChunks
+// chunks each), so the few long tiles of a skewed subgraph no longer set
+// the time; every part writes its dins and dW/db partials to a workspace
+// that part_reduce_kernel adds in a fixed order, so there are no float
+// atomics and two launches give the same bits.
 //
 // The scatter-only op (kScatter) replaces _scatter_kernel (:32, scatter_mm):
 //   out[b, scatter[f], c] += float(values[f, c])
@@ -469,191 +473,409 @@ int launch_bwd(const DirPtrs& p, const void* ins, const float* g,
   return (int)cudaGetLastError();
 }
 
-constexpr int kProjStage = 32;  // fact slots staged at a time (4 a warp)
+// The fused-projection backward stages kFbSlots fact slots at a time and
+// splits each tile's chunk range over up to kFbParts blocks.
+constexpr int kFbSlots = 64;      // fact slots a stage
+constexpr int kFbParts = 8;       // blocks a tile at most
+constexpr int kFbPartChunks = 2;  // least chunks a part takes
+constexpr int kFbPre = 4;         // 16-byte fact_rel pieces a thread prefetches
 
 // Outputs of the fused-projection backward (one direction).
 struct ProjBwdOut {
   void* dfr;       // [B,Fp,D] T
   float* dprior;   // [B,Fp]
-  float* dins_ws;  // [B,n_tiles,J*D] per-tile partials of dins
-  float* dw_ws;    // [B,n_tiles,D*D+D] per-tile partials of dW, then db
+  float* dins_ws;  // [B,n_tiles,kFbParts,J*D] per-part partials of dins
+  float* dw_ws;    // [B*n_tiles*kFbParts,D*D+D] per-part partials of dW, db
 };
 
-// The backward of the kProject forward. g [B,n_tiles*128,J*D] f32; grid
-// (n_tiles, B), kBwdThreads. A kernel of its own rather than a branch of
-// gate_scatter_bwd_kernel: the block-wide dW sum needs a barrier per stage
-// of slots, which the plain backward's free-running warps do not have.
-template <typename T>
-__global__ void fused_bwd_kernel(DirPtrs p, const T* __restrict__ ins,
-                                 Proj proj, const float* __restrict__ g,
-                                 ProjBwdOut o, int Fp, int D, int J,
-                                 int n_tiles, int apply_relu) {
-  extern __shared__ __align__(16) float smem[];
-  const int JD = J * D, DD = D * D;
-  const int nwarps = kBwdThreads / 32;
-  float* s_g = smem;                                  // [kTileE, JD]
-  T* s_fr = reinterpret_cast<T*>(s_g + kTileE * JD);  // [kProjStage, D]
-  float* s_w = reinterpret_cast<float*>(s_fr + kProjStage * D);  // [D, D]
-  float* s_wt = s_w + DD;                 // [D, D], s_wt[k*D + m] = w[m, k]
-  float* s_b = s_wt + DD;                 // [D]
-  float* s_ins = s_b + D;                 // [JD]
-  float* s_dins = s_ins + JD;             // [nwarps, JD] per-warp dins partials
-  float* s_drl = s_dins + nwarps * JD;    // [kProjStage, D] the stage's drl
-  float* s_dw = s_drl + kProjStage * D;   // [DD + D] this block's dW, db
-  int32_t* s_row = reinterpret_cast<int32_t*>(s_dw + DD + D);  // [kProjStage]
-  float* s_pri = reinterpret_cast<float*>(s_row + kProjStage);  // [kProjStage]
+// A tile with n chunks runs in min(kFbParts, ceil(n / kFbPartChunks))
+// parts; the others of its kFbParts blocks are empty.
+__host__ __device__ __forceinline__ int fb_parts(int n) {
+  const int parts = (n + kFbPartChunks - 1) / kFbPartChunks;
+  return parts < kFbParts ? parts : kFbParts;
+}
 
-  const int t = blockIdx.x, b = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row0 = t * kTileE;
-
-  // the tile's [128, JD] slice of g, as in gate_scatter_bwd_kernel
-  const uint4* gsrc = reinterpret_cast<const uint4*>(
-      g + ((size_t)b * n_tiles * kTileE + row0) * JD);
-  uint4* gdst = reinterpret_cast<uint4*>(s_g);
-  for (int i = threadIdx.x; i < kTileE * JD / 4; i += kBwdThreads)
-    __pipeline_memcpy_async(gdst + i, gsrc + i, 16);
-  __pipeline_commit();
-  const T* w = static_cast<const T*>(proj.w);
-  const T* bias = static_cast<const T*>(proj.b);
-  for (int i = threadIdx.x; i < DD; i += kBwdThreads) {
-    const float v = to_float(w[i]);
-    s_w[i] = v;
-    s_wt[(i % D) * D + i / D] = v;
+// Shared-memory layout of fused_bwd_kernel, offsets in floats. D is padded
+// to Dp, a multiple of 4, so every row starts on 16 bytes for float4 loads;
+// the padding of w, ins and the staged rows is zero.
+struct FbLayout {
+  int g, w, fr, x, dw, db, ins, bias, dins, dinsp, dpp, row, pri, total;
+  __host__ __device__ FbLayout(int D, int J) {
+    const int Dp = (D + 3) & ~3;
+    g = 0;                                 // [kTileE, J*D] the tile's cotangent
+    w = g + kTileE * J * D;                // [Dp, Dp] w[m, k]
+    fr = w + Dp * Dp;                      // [kFbSlots, Dp] the stage's fact_rel
+    x = fr + kFbSlots * Dp;                // [kFbSlots, Dp] the stage's drl
+    dw = x + kFbSlots * Dp;                // [Dp, Dp] this part's dW
+    db = dw + Dp * Dp;                     // [Dp] this part's db
+    ins = db + Dp;                         // [J, Dp]
+    bias = ins + J * Dp;                   // [Dp]
+    dins = bias + Dp;                      // [J*D] this part's dins
+    dinsp = dins + J * D;                  // [kFbSlots/4, J, Dp] group partials
+    dpp = dinsp + (kFbSlots / 4) * J * Dp; // [Dp/4, kFbSlots] dprior partials
+    row = dpp + (Dp / 4) * kFbSlots;       // [kFbSlots] int32
+    pri = row + kFbSlots;                  // [kFbSlots]
+    total = pri + kFbSlots;
   }
-  for (int i = threadIdx.x; i < D; i += kBwdThreads) s_b[i] = to_float(bias[i]);
-  for (int c = threadIdx.x; c < JD; c += kBwdThreads)
-    s_ins[c] = to_float(ins[(size_t)b * JD + c]);
-  for (int c = threadIdx.x; c < nwarps * JD; c += kBwdThreads) s_dins[c] = 0.f;
-  for (int e = threadIdx.x; e < DD + D; e += kBwdThreads) s_dw[e] = 0.f;
+};
 
+__device__ __forceinline__ void fma4(float (&acc)[4], float s, float4 v) {
+  acc[0] = fmaf(s, v.x, acc[0]);
+  acc[1] = fmaf(s, v.y, acc[1]);
+  acc[2] = fmaf(s, v.z, acc[2]);
+  acc[3] = fmaf(s, v.w, acc[3]);
+}
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float elem(float4 v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+// element u of the T values packed in a 16-byte piece, widened to float
+__device__ __forceinline__ uint32_t word(uint4 v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+template <typename T> __device__ __forceinline__ float piece(uint4 v, int u);
+template <> __device__ __forceinline__ float piece<float>(uint4 v, int u) {
+  return __uint_as_float(word(v, u));
+}
+template <>
+__device__ __forceinline__ float piece<__nv_bfloat16>(uint4 v, int u) {
+  return __uint_as_float((word(v, u / 2) >> (16 * (u % 2))) << 16);
+}
+
+// The backward of the kProject forward. g [B,n_tiles*128,J*D] f32; grid
+// (n_tiles, kFbParts, B), kBwdThreads. Block (t, part, b) takes part `part`
+// of tile t's chunk range and walks it kFbSlots slots a stage:
+//   1. rl = fact_rel w + b, unrounded: each thread a 4-slot x 4-column tile
+//      of float4 loads (8 loads for 64 FMAs), then the gate backward on that
+//      tile in registers: drl (to shared memory), its dprior and dins
+//      partials;
+//   2. dprior of each slot and this part's dins (one thread a column) from
+//      the partials, in a fixed order; dfact_rel = drl w^T (a 4 x 4 tile a
+//      thread, written out); dW += fact_rel^T drl and db += sum drl (a
+//      fixed 4 x 4 block of dW a thread, accumulated in shared memory
+//      over the stages, slots in order).
+// Two barriers a stage; the next stage's fact_rel rows are loaded into
+// registers while this one computes.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+    fused_bwd_kernel(DirPtrs p, const T* __restrict__ ins, Proj proj,
+                     const float* __restrict__ g, ProjBwdOut o, int Fp, int D,
+                     int J, int n_tiles, int apply_relu) {
+  extern __shared__ __align__(16) float smem[];
+  const FbLayout lay(D, J);
+  const int Dp = (D + 3) & ~3, nq = Dp / 4, JD = J * D, DD = D * D;
+  const int t = blockIdx.x, part = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
   const int32_t* cs = p.chunk_starts[0] + (size_t)b * (n_tiles + 1);
-  const int f_begin = cs[t] * kTileF, f_end = cs[t + 1] * kTileF;
-  const int f_last = cs[n_tiles] * kTileF;  // end of the last tile's range
   const int32_t* sc = p.scatter[0] + (size_t)b * Fp;
   const float* pr = p.prior[0] + (size_t)b * Fp;
   const T* frg = static_cast<const T*>(p.vals[0]) + (size_t)b * Fp * D;
   T* dfr = static_cast<T*>(o.dfr) + (size_t)b * Fp * D;
   float* dp = o.dprior + (size_t)b * Fp;
-  float* s_dwarp = s_dins + warp * JD;
 
-  for (int f0 = f_begin; f0 < f_end; f0 += kProjStage) {
-    for (int i = threadIdx.x; i < kProjStage; i += kBwdThreads) {
-      s_row[i] = sc[f0 + i] - row0;
-      s_pri[i] = pr[f0 + i];          // unrounded, as the TPU backward
+  // slots past the last tile's range: every block zeroes its share
+  {
+    const int nwarps = kBwdThreads / 32, lane = tid & 31, warp = tid >> 5;
+    const int f_last = cs[n_tiles] * kTileF;
+    const int step = n_tiles * kFbParts * nwarps;
+    for (int f = f_last + (t * kFbParts + part) * nwarps + warp; f < Fp;
+         f += step) {
+      for (int k = lane; k < D; k += 32) dfr[(size_t)f * D + k] = from_float<T>(0.f);
+      if (lane == 0) dp[f] = 0.f;
+    }
+  }
+  const int c0 = cs[t], nch = cs[t + 1] - c0, parts = fb_parts(nch);
+  if (part >= parts) return;   // an empty part writes no partials
+  const int f_begin = (c0 + part * nch / parts) * kTileF;
+  const int f_end = (c0 + (part + 1) * nch / parts) * kTileF;
+  const int row0 = t * kTileE;
+
+  float* s_g = smem + lay.g;
+  float* s_w = smem + lay.w;
+  float* s_fr = smem + lay.fr;
+  float* s_x = smem + lay.x;
+  float* s_dw = smem + lay.dw;
+  float* s_db = smem + lay.db;
+  float* s_ins = smem + lay.ins;
+  float* s_b = smem + lay.bias;
+  float* s_dins = smem + lay.dins;
+  float* s_dinsp = smem + lay.dinsp;
+  float* s_dpp = smem + lay.dpp;
+  int32_t* s_row = reinterpret_cast<int32_t*>(smem + lay.row);
+  float* s_pri = smem + lay.pri;
+
+  // the tile's [128, JD] slice of g, as in gate_scatter_bwd_kernel
+  const uint4* gsrc = reinterpret_cast<const uint4*>(
+      g + ((size_t)b * n_tiles * kTileE + row0) * JD);
+  uint4* gdst = reinterpret_cast<uint4*>(s_g);
+  for (int i = tid; i < kTileE * JD / 4; i += kBwdThreads)
+    __pipeline_memcpy_async(gdst + i, gsrc + i, 16);
+  __pipeline_commit();
+  const T* w = static_cast<const T*>(proj.w);
+  const T* bias = static_cast<const T*>(proj.b);
+  for (int i = tid; i < Dp * Dp; i += kBwdThreads) {
+    const int m = i / Dp, k = i - m * Dp;
+    s_w[i] = m < D && k < D ? to_float(w[m * D + k]) : 0.f;
+    s_dw[i] = 0.f;
+  }
+  for (int i = tid; i < Dp; i += kBwdThreads) {
+    s_b[i] = i < D ? to_float(bias[i]) : 0.f;
+    s_db[i] = 0.f;
+  }
+  for (int i = tid; i < J * Dp; i += kBwdThreads) {
+    const int j = i / Dp, k = i - j * Dp;
+    s_ins[i] = k < D ? to_float(ins[(size_t)b * JD + j * D + k]) : 0.f;
+  }
+  for (int c = tid; c < JD; c += kBwdThreads) s_dins[c] = 0.f;
+  for (int i = tid; i < kFbSlots * Dp; i += kBwdThreads) s_fr[i] = 0.f;
+
+  // a stage's [kFbSlots, D] fact_rel rows are one contiguous, 16-byte
+  // aligned block: kFbPre 16-byte pieces a thread go through registers,
+  // loaded a stage ahead; a wider D loads the rest when it is stored
+  constexpr int kV = 16 / sizeof(T);
+  const int n16 = kFbSlots * D / kV;
+  uint4 pre[kFbPre];
+  int32_t pre_row = 0;
+  float pre_pri = 0.f;
+  auto fetch = [&](int f0) {
+    const uint4* src = reinterpret_cast<const uint4*>(frg + (size_t)f0 * D);
+#pragma unroll
+    for (int q = 0; q < kFbPre; ++q) {
+      const int i = tid + q * kBwdThreads;
+      if (i < n16) pre[q] = src[i];
+    }
+    if (tid < kFbSlots) {
+      pre_row = sc[f0 + tid] - row0;
+      pre_pri = pr[f0 + tid];         // unrounded, as the TPU backward
+    }
+  };
+  auto put = [&](int i, uint4 v) {
+#pragma unroll
+    for (int u = 0; u < kV; ++u) {
+      const int e = i * kV + u, r = e / D;
+      s_fr[r * Dp + e - r * D] = piece<T>(v, u);
+    }
+  };
+  auto stash = [&](int f0) {
+#pragma unroll
+    for (int q = 0; q < kFbPre; ++q) {
+      const int i = tid + q * kBwdThreads;
+      if (i < n16) put(i, pre[q]);
     }
     const uint4* src = reinterpret_cast<const uint4*>(frg + (size_t)f0 * D);
-    uint4* dst = reinterpret_cast<uint4*>(s_fr);
-    const int n16 = kProjStage * D * (int)sizeof(T) / 16;
-    for (int i = threadIdx.x; i < n16; i += kBwdThreads)
-      __pipeline_memcpy_async(dst + i, src + i, 16);
-    __pipeline_commit();
-    __pipeline_wait_prior(0);   // also the g tile and w, on the first stage
+    for (int i = tid + kFbPre * kBwdThreads; i < n16; i += kBwdThreads)
+      put(i, src[i]);
+    if (tid < kFbSlots) {
+      s_row[tid] = pre_row;
+      s_pri[tid] = pre_pri;
+    }
+  };
+
+  __pipeline_wait_prior(0);
+  fetch(f_begin);
+  for (int f0 = f_begin; f0 < f_end; f0 += kFbSlots) {
+    __syncthreads();   // the setup, or the previous stage's reads, are done
+    stash(f0);
+    if (f0 + kFbSlots < f_end) fetch(f0 + kFbSlots);
     __syncthreads();
 
-    for (int i = warp; i < kProjStage; i += nwarps) {
-      const int f = f0 + i;
-      const int r = s_row[i];
-      float* drl = s_drl + i * D;
-      T* dfr_row = dfr + (size_t)f * D;
-      if ((unsigned)r >= (unsigned)kTileE) {  // pad slot (scatter < 0)
-        for (int k = lane; k < D; k += 32) {
-          drl[k] = 0.f;
-          dfr_row[k] = from_float<T>(0.f);
+    // 1. rl tile, then the gate backward on it
+    for (int id = tid; id < (kFbSlots / 4) * nq; id += kBwdThreads) {
+      const int ig = id / nq, kq = id - ig * nq;
+      float a[4][4] = {};                 // rl[4 ig + r][4 kq + c]
+      const float* fr = s_fr + 4 * ig * Dp;
+      const float* wc = s_w + 4 * kq;
+      for (int m = 0; m < Dp; m += 4) {
+        float4 x[4], y[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) x[r] = ld4(fr + r * Dp + m);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) y[u] = ld4(wc + (m + u) * Dp);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          fma4(a[r], x[r].x, y[0]);
+          fma4(a[r], x[r].y, y[1]);
+          fma4(a[r], x[r].z, y[2]);
+          fma4(a[r], x[r].w, y[3]);
         }
-        if (lane == 0) dp[f] = 0.f;
-        continue;
       }
-      const float pri = s_pri[i];
-      const float* g_row = s_g + r * JD;
-      const T* fr = s_fr + i * D;
-      float dpri = 0.f;
-      for (int k = lane; k < D; k += 32) {
-        float v = 0.f;                    // rl[f, k] in float, unrounded
-        for (int m = 0; m < D; ++m) v = fmaf(to_float(fr[m]), s_w[m * D + k], v);
-        v += s_b[k];
-        float dvk = 0.f;
-        for (int j = 0; j < J; ++j) {
-          const int c = j * D + k;
-          const float in = s_ins[c];
-          const float gb = g_row[c];
-          const float pre = v * in;
-          dpri += gb * (apply_relu ? fmaxf(pre, 0.f) : pre);
-          const float dval = (apply_relu && !(pre > 0.f)) ? 0.f : gb * pri;
-          dvk += dval * in;
-          s_dwarp[c] += dval * v;
+      const float4 bv = ld4(s_b + 4 * kq);
+      int rows[4];
+      float pri[4], drl[4][4] = {}, dpri[4] = {};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) a[r][c] += elem(bv, c);
+        rows[r] = s_row[4 * ig + r];
+        pri[r] = s_pri[4 * ig + r];
+      }
+      for (int j = 0; j < J; ++j) {
+        const float4 in4 = ld4(s_ins + j * Dp + 4 * kq);
+        float dins[4] = {};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          if ((unsigned)rows[r] >= (unsigned)kTileE) continue;  // pad slot
+          const float* grow = s_g + rows[r] * JD + j * D + 4 * kq;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float in = elem(in4, c);
+            const float gb = 4 * kq + c < D ? grow[c] : 0.f;
+            const float pre = a[r][c] * in;
+            dpri[r] += gb * (apply_relu ? fmaxf(pre, 0.f) : pre);
+            const float dval = (apply_relu && !(pre > 0.f)) ? 0.f : gb * pri[r];
+            drl[r][c] += dval * in;
+            dins[c] += dval * a[r][c];
+          }
         }
-        drl[k] = dvk;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          s_dinsp[(ig * J + j) * Dp + 4 * kq + c] = dins[c];
       }
-      for (int off = 16; off > 0; off >>= 1)
-        dpri += __shfl_xor_sync(0xffffffffu, dpri, off);
-      if (lane == 0) dp[f] = dpri;
-      __syncwarp();
-      // dfact_rel[f, m] = sum_k drl[k] * w[m, k]
-      for (int m = lane; m < D; m += 32) {
-        float s = 0.f;
-        for (int k = 0; k < D; ++k) s = fmaf(drl[k], s_wt[k * D + m], s);
-        dfr_row[m] = from_float<T>(s);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        *reinterpret_cast<float4*>(s_x + (4 * ig + r) * Dp + 4 * kq) =
+            make_float4(drl[r][0], drl[r][1], drl[r][2], drl[r][3]);
+        s_dpp[kq * kFbSlots + 4 * ig + r] = dpri[r];
       }
     }
     __syncthreads();
-    // this block's dW[m, k] += sum_i fr[i, m] * drl[i, k] and db[k] +=
-    // sum_i drl[i, k], one thread per entry, slots in order
-    for (int e = threadIdx.x; e < DD + D; e += kBwdThreads) {
-      float s = s_dw[e];
-      if (e < DD) {
-        const int m = e / D, k = e - m * D;
-        for (int i = 0; i < kProjStage; ++i)
-          s = fmaf(to_float(s_fr[i * D + m]), s_drl[i * D + k], s);
+
+    // 2a. dprior of the stage's slots: the column groups in order
+    for (int i = tid; i < kFbSlots; i += kBwdThreads) {
+      float s = 0.f;
+      for (int q = 0; q < nq; ++q) s += s_dpp[q * kFbSlots + i];
+      dp[f0 + i] = (unsigned)s_row[i] < (unsigned)kTileE ? s : 0.f;
+    }
+    // 2b. this part's dins: a column a thread, the 4-slot groups in order
+    for (int c = tid; c < JD; c += kBwdThreads) {
+      const int j = c / D, k = c - j * D;
+      float s = s_dins[c];
+      for (int ig = 0; ig < kFbSlots / 4; ++ig)
+        s += s_dinsp[(ig * J + j) * Dp + k];
+      s_dins[c] = s;
+    }
+    // 2c. dfact_rel = drl w^T: 4 slots x the columns m = mq + nq mm of a
+    // thread (w's rows at stride nq apart fall in distinct banks)
+    for (int id = tid; id < (kFbSlots / 4) * nq; id += kBwdThreads) {
+      const int ig = id / nq, mq = id - ig * nq;
+      float a[4][4] = {};                 // dfr[4 ig + r][mq + nq mm]
+      const float* xr = s_x + 4 * ig * Dp;
+      for (int k = 0; k < Dp; k += 4) {
+        float4 x[4], y[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) x[r] = ld4(xr + r * Dp + k);
+#pragma unroll
+        for (int mm = 0; mm < 4; ++mm) y[mm] = ld4(s_w + (mq + nq * mm) * Dp + k);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int mm = 0; mm < 4; ++mm) {
+            float s = a[r][mm];
+            s = fmaf(x[r].x, y[mm].x, s);
+            s = fmaf(x[r].y, y[mm].y, s);
+            s = fmaf(x[r].z, y[mm].z, s);
+            a[r][mm] = fmaf(x[r].w, y[mm].w, s);
+          }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        T* out = dfr + (size_t)(f0 + 4 * ig + r) * D;
+#pragma unroll
+        for (int mm = 0; mm < 4; ++mm) {
+          const int m = mq + nq * mm;
+          if (m < D) out[m] = from_float<T>(a[r][mm]);
+        }
+      }
+    }
+    // 2d. dW[m, k] += sum_i fr[i, m] drl[i, k] (a fixed 4 x 4 block a
+    // thread) and db[k] += sum_i drl[i, k], slots in order
+    for (int id = tid; id < nq * nq + nq; id += kBwdThreads) {
+      if (id < nq * nq) {
+        const int mq = id / nq, kq = id - mq * nq;
+        float a[4][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float4 v = ld4(s_dw + (4 * mq + r) * Dp + 4 * kq);
+          a[r][0] = v.x; a[r][1] = v.y; a[r][2] = v.z; a[r][3] = v.w;
+        }
+        for (int i = 0; i < kFbSlots; ++i) {
+          const float4 f = ld4(s_fr + i * Dp + 4 * mq);
+          const float4 x = ld4(s_x + i * Dp + 4 * kq);
+          fma4(a[0], f.x, x);
+          fma4(a[1], f.y, x);
+          fma4(a[2], f.z, x);
+          fma4(a[3], f.w, x);
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          *reinterpret_cast<float4*>(s_dw + (4 * mq + r) * Dp + 4 * kq) =
+              make_float4(a[r][0], a[r][1], a[r][2], a[r][3]);
       } else {
-        for (int i = 0; i < kProjStage; ++i) s += s_drl[i * D + e - DD];
+        const int kq = id - nq * nq;
+        float4 a = ld4(s_db + 4 * kq);
+        for (int i = 0; i < kFbSlots; ++i) {
+          const float4 x = ld4(s_x + i * Dp + 4 * kq);
+          a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
+        }
+        *reinterpret_cast<float4*>(s_db + 4 * kq) = a;
       }
-      s_dw[e] = s;
     }
-    __syncthreads();  // the stage's buffers are free again
   }
-  // slots past the last tile's range: every block zeroes its share
-  for (int f = f_last + t * nwarps + warp; f < Fp; f += n_tiles * nwarps) {
-    for (int k = lane; k < D; k += 32) dfr[(size_t)f * D + k] = from_float<T>(0.f);
-    if (lane == 0) dp[f] = 0.f;
-  }
-
-  __pipeline_wait_prior(0);   // a tile with no chunk never waited for g
   __syncthreads();
-  const size_t blk = (size_t)b * n_tiles + t;
-  for (int c = threadIdx.x; c < JD; c += kBwdThreads) {
-    float s = 0.f;
-    for (int wp = 0; wp < nwarps; ++wp) s += s_dins[wp * JD + c];
-    o.dins_ws[blk * JD + c] = s;
+  const size_t blk = ((size_t)b * n_tiles + t) * kFbParts + part;
+  for (int c = tid; c < JD; c += kBwdThreads) o.dins_ws[blk * JD + c] = s_dins[c];
+  float* dw_ws = o.dw_ws + blk * (DD + D);
+  for (int e = tid; e < DD + D; e += kBwdThreads) {
+    const int m = e / D, k = e - m * D;
+    dw_ws[e] = e < DD ? s_dw[m * Dp + k] : s_db[e - DD];
   }
-  for (int e = threadIdx.x; e < DD + D; e += kBwdThreads)
-    o.dw_ws[blk * (DD + D) + e] = s_dw[e];
 }
 
-constexpr int kRedCols = 32, kRedRows = 8;
+constexpr int kRedCols = 32, kRedRows = 32;
 
-// dW (then db) = the sum of the n block partials ws [n, D*D+D], in a fixed
-// order: kRedRows threads add a contiguous strip of rows each, then the
-// strips are added in order. grid ceil((D*D+D)/kRedCols), block
-// (kRedCols, kRedRows).
+// out = the sum of the non-empty parts' partials ws [groups, kFbParts,
+// width] of fused_bwd_kernel, in a fixed order, for each of the grid's
+// sets: set s adds groups s*n_groups .. (s+1)*n_groups - 1, a group being a
+// (sample, tile) whose part count comes from chunk_starts. kRedRows threads
+// add a contiguous strip of groups each (all of a group's parts loaded
+// before they are added in order), then the strips are added in order.
+// Entry e < split goes to out_a[s*split + e], the rest to out_b[e - split].
+// grid (ceil(width / kRedCols), sets), block (kRedCols, kRedRows).
 template <typename T>
-__global__ void dw_reduce_kernel(const float* __restrict__ ws, int n, int D,
-                                 T* __restrict__ dw, T* __restrict__ db) {
-  __shared__ float part[kRedRows][kRedCols];
-  const int DD = D * D, width = DD + D;
-  const int e = blockIdx.x * kRedCols + threadIdx.x;
-  const int per = (n + kRedRows - 1) / kRedRows;
-  const int i0 = threadIdx.y * per, i1 = min(n, i0 + per);
+__global__ void part_reduce_kernel(const float* __restrict__ ws,
+                                   const int32_t* __restrict__ chunk_starts,
+                                   int n_tiles, int n_groups, int width,
+                                   int split, T* __restrict__ out_a,
+                                   T* __restrict__ out_b) {
+  __shared__ float strip[kRedRows][kRedCols];
+  const int e = blockIdx.x * kRedCols + threadIdx.x, set = blockIdx.y;
+  const int per = (n_groups + kRedRows - 1) / kRedRows;
+  const int i0 = threadIdx.y * per, i1 = min(n_groups, i0 + per);
   float s = 0.f;
-  if (e < width)
-    for (int i = i0; i < i1; ++i) s += ws[(size_t)i * width + e];
-  part[threadIdx.y][threadIdx.x] = s;
+  if (e < width) {
+    for (int i = i0; i < i1; ++i) {
+      const int gi = set * n_groups + i, bb = gi / n_tiles, t = gi - bb * n_tiles;
+      const int32_t* cs = chunk_starts + (size_t)bb * (n_tiles + 1);
+      const int parts = fb_parts(cs[t + 1] - cs[t]);
+      const float* src = ws + (size_t)gi * kFbParts * width + e;
+      float v[kFbParts];
+#pragma unroll
+      for (int q = 0; q < kFbParts; ++q)
+        v[q] = q < parts ? src[(size_t)q * width] : 0.f;
+#pragma unroll
+      for (int q = 0; q < kFbParts; ++q)
+        if (q < parts) s += v[q];
+    }
+  }
+  strip[threadIdx.y][threadIdx.x] = s;
   __syncthreads();
   if (threadIdx.y == 0 && e < width) {
     float sum = 0.f;
-    for (int r = 0; r < kRedRows; ++r) sum += part[r][threadIdx.x];
-    if (e < DD) dw[e] = from_float<T>(sum);
-    else db[e - DD] = from_float<T>(sum);
+    for (int r = 0; r < kRedRows; ++r) sum += strip[r][threadIdx.x];
+    if (e < split) out_a[(size_t)set * split + e] = from_float<T>(sum);
+    else out_b[e - split] = from_float<T>(sum);
   }
 }
 
@@ -662,12 +884,8 @@ int launch_fused_bwd(const DirPtrs& p, const void* ins, Proj proj,
                      const float* g, const ProjBwdOut& o, void* dins, void* dw,
                      void* db, int B, int Fp, int D, int J, int n_tiles,
                      int apply_relu, void* stream) {
-  const int JD = J * D;
-  const size_t smem =
-      (size_t)kTileE * JD * sizeof(float) + (size_t)kProjStage * D * sizeof(T) +
-      (2 * (size_t)D * D + D + JD + (kBwdThreads / 32) * JD +
-       (size_t)kProjStage * D + (size_t)D * D + D + 2 * kProjStage) *
-          sizeof(float);
+  const int JD = J * D, width = D * D + D;
+  const size_t smem = (size_t)FbLayout(D, J).total * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       fused_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -676,17 +894,19 @@ int launch_fused_bwd(const DirPtrs& p, const void* ins, Proj proj,
     return (int)err;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  fused_bwd_kernel<T><<<dim3(n_tiles, B), kBwdThreads, smem, s>>>(
+  fused_bwd_kernel<T><<<dim3(n_tiles, kFbParts, B), kBwdThreads, smem, s>>>(
       p, static_cast<const T*>(ins), proj, g, o, Fp, D, J, n_tiles,
       apply_relu);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  dins_reduce_kernel<T><<<B, 128, 0, s>>>(o.dins_ws, static_cast<T*>(dins), 1,
-                                          B, n_tiles, JD);
+  const dim3 red(kRedCols, kRedRows);
+  part_reduce_kernel<T><<<dim3((JD + kRedCols - 1) / kRedCols, B), red, 0, s>>>(
+      o.dins_ws, p.chunk_starts[0], n_tiles, n_tiles, JD, JD,
+      static_cast<T*>(dins), static_cast<T*>(nullptr));
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int width = D * D + D;
-  dw_reduce_kernel<T><<<(width + kRedCols - 1) / kRedCols,
-                        dim3(kRedCols, kRedRows), 0, s>>>(
-      o.dw_ws, B * n_tiles, D, static_cast<T*>(dw), static_cast<T*>(db));
+  part_reduce_kernel<T><<<dim3((width + kRedCols - 1) / kRedCols, 1), red, 0,
+                          s>>>(o.dw_ws, p.chunk_starts[0], n_tiles,
+                               B * n_tiles, width, D * D,
+                               static_cast<T*>(dw), static_cast<T*>(db));
   return (int)cudaGetLastError();
 }
 
@@ -746,7 +966,10 @@ int fused_gate_scatter_fwd(const void* fact_rel, const void* w,
 
 // Its backward, inputs as there; g [B,E,J*D] f32. Writes dfr [B,Fp,D] and
 // dins [B,J,D], dw [D,D] and db [D] in the input type, dprior [B,Fp] f32;
-// dins_ws [B,n_tiles,J*D] and dw_ws [B*n_tiles,D*D+D] are f32 scratch.
+// dins_ws [B,n_tiles,P,J*D] and dw_ws [B*n_tiles*P,D*D+D] are f32 scratch,
+// P = fused_gate_scatter_bwd_parts().
+int fused_gate_scatter_bwd_parts() { return kFbParts; }
+
 int fused_gate_scatter_bwd(const void* fact_rel, const void* w,
                            const void* bias, const void* ins,
                            const void* prior, const void* scatter,

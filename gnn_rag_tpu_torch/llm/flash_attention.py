@@ -14,10 +14,10 @@ lse ``[B*H, L]`` float32, with p rounded to v's type before it multiplies v;
 ``flash_dq`` and ``flash_dkv`` recompute p per block from (q, k, lse) and
 work in float32 from the widened inputs, given delta = rowsum(dO * o)
 ``[B*H, L]`` (a plain reduction, ``bwd_delta``, as the JAX package leaves it
-to XLA). bfloat16 inputs run on the tensor cores (the forward and dk/dv
-through TMA and wgmma; dq's float ds as the exact sum of three bf16 terms,
-dk/dv's float p and ds as two, hi + mid, within 2^-16 of each product),
-float32 inputs on the CUDA cores in IEEE float32; all sums are float. The
+to XLA). bfloat16 inputs run on the tensor cores through TMA and wgmma (the
+backward's float p and ds as two bf16 terms, hi + mid, within 2^-16 of each
+product), float32 inputs on the CUDA cores in IEEE float32; all sums are
+float. The
 kernels take D = 128 and any L and S (a ragged last tile is masked in the
 kernel; the JAX wrapper pads L to 128 instead).
 

@@ -1,4 +1,5 @@
-"""Time the bf16 flash kernels of two trees of this repository in turns.
+"""Time the bf16 flash kernels and the fused-projection backward of two
+trees of this repository in turns.
 
     python -m gnn_rag_tpu_torch.llm.flash_bench build/parent .
 
@@ -10,8 +11,13 @@ card, and per kernel (fwd, dq, dkv) the CUDA-event median ms over 10 runs
 of 5 launches, the bound, its share of the bound and the achieved TFLOP/s,
 and each output's largest ratio to its tolerance against the plain
 versions (dk and dv also from the plain forward's lse and delta, the same
-inputs in both trees). The timing, bound and tolerance helpers are ``chip_smoke.py``'s,
-loaded from this tree. Needs a CUDA card; imports nothing at module level
+inputs in both trees); then the fused-projection backward (K6c,
+``ops.gate_scatter.fused_gate_scatter_bwd``) at chip_smoke's kernel-fused
+shapes (WebQSP fp32 and bf16, CWQ fp32, and the skewed WebQSP layout; one
+direction, inputs from this tree's ``kernel_inputs``): CUDA-event median ms
+over 20 runs of 10 launches, the bound, and each output's largest ratio to
+its tolerance against the plain version. The timing, bound and tolerance
+helpers are ``chip_smoke.py``'s, loaded from this tree. Needs a CUDA card; imports nothing at module level
 but the standard library, so a child can load it by path.
 """
 
@@ -86,12 +92,51 @@ def measure(tree):
         kernels[name] = dict(ms=ms, bound_ms=bounds[name][0],
                              bound_share=bounds[name][0] / ms,
                              tflops=flops[name] / ms / 1e9)
+    fused = measure_fused(smoke, device)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()
     print(json.dumps(dict(tree=os.path.relpath(tree, REPO), card=smi[:1],
                           shape="B8 L2047 H32 D128 bf16", kernels=kernels,
-                          err_over_tol=errs)), flush=True)
+                          err_over_tol=errs, fused_bwd=fused)), flush=True)
+
+
+def measure_fused(smoke, device):
+    """{shape: ms, bound, share of the bound, largest error over tolerance}
+    of the tree's fused-projection backward kernel."""
+    import math
+
+    import numpy as np
+    import torch
+    from gnn_rag_tpu_torch.ops import gate_scatter as gs
+    rng = np.random.default_rng(smoke.SEED)
+    gen = torch.Generator(device=device).manual_seed(smoke.SEED + 3)
+    rows = [r for r in smoke.KERNEL_SHAPES if r[0] in smoke.FUSED_SHAPES]
+    out = {}
+    for name, B, E, F, J, D, dtype, relu in rows + [smoke.FUSED_SKEWED]:
+        vals, ins, prior, scatter, starts, _ = smoke.kernel_inputs(
+            B, E, F, J, D, dtype, relu, device, rng,
+            skew=name == smoke.FUSED_SKEWED[0])
+        w = (torch.randn((D, D), generator=gen, device=device)
+             / math.sqrt(D)).to(ins.dtype)
+        b = (0.1 * torch.randn((D,), generator=gen, device=device)).to(ins.dtype)
+        g = torch.randn((B, E, J * D), generator=gen, device=device)
+        args = (vals[0], w, b, ins, prior[0], scatter[0], starts[0], g, relu)
+        got = gs.fused_gate_scatter_bwd(*args)
+        want = gs.fused_gate_scatter_bwd_plain(*args)
+        over = 0.0
+        for i, (a, r) in enumerate(zip(got, want)):
+            d = (a.float() - r.float()).abs()
+            tol = (smoke.bf16_tol(r) if r.dtype == torch.bfloat16
+                   else 1e-4 * r.float().abs().max())
+            over = max(over, d.div(tol).nan_to_num(nan=0.0).max().item())
+        ms = smoke.median_ms(lambda: gs.fused_gate_scatter_bwd(*args))
+        row = dict(B=B, E=E, Fp=vals[0].shape[1], J=J, D=D, dtype=dtype)
+        bound = smoke.gate_bound(row, True, ndir=1, project=True)[0]
+        out[name] = dict(ms=ms, bound_ms=bound, bound_share=bound / ms,
+                         err_over_tol=over)
+        del vals, args, got, want
+    return out
 
 
 def main(argv=None):

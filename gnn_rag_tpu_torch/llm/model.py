@@ -14,11 +14,13 @@ Names follow the flax tree (``tok_emb``, ``layer_{i}.attn.q_proj``,
 ``[out, in]`` layout as ``nn.Linear.weight``, so ``bridge.llama_from_flax``
 copies kernels without a transpose.
 
-Attention takes the flash kernels (``llm.flash_attention``) under the JAX
-rule with "on a CUDA device" for "on a TPU": ``use_flash``, no kv cache, no
-``kv_valid`` and a head dim that is a multiple of 128; otherwise the plain
-``reference_attention``. ``quant="int8"`` and ``remat=True`` raise
-``NotImplementedError``.
+Attention takes the flash kernels (``llm.flash_attention``) only where they
+apply (``flash_applies``): ``use_flash``, CUDA tensors, no kv cache, no
+``kv_valid``, head dim 128 and float32 or bfloat16. Everything else (the
+JAX model's Pallas rule also takes other multiples of 128 and float16,
+gnn_rag_tpu/llm_tpu/model.py:199-200) goes through the plain
+``reference_attention``, which computes what the JAX model computes there.
+``quant="int8"`` and ``remat=True`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -90,6 +92,17 @@ def apply_rope(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
+def flash_applies(use_flash: bool, head_dim: int, dtype: torch.dtype,
+                  device_type: str, cached: bool, masked: bool) -> bool:
+    """Whether attention over q of ``head_dim``, ``dtype`` on
+    ``device_type`` runs the flash kernels: the kernels take head dim 128 in
+    float32 or bfloat16 on the card, and neither a kv cache (``cached``) nor
+    ``kv_valid`` (``masked``)."""
+    return (use_flash and not cached and not masked and device_type == "cuda"
+            and head_dim == _fa.HEAD_DIM
+            and dtype in (torch.float32, torch.bfloat16))
+
+
 def reference_attention(q, k, v, causal_offset: int = 0, kv_valid=None):
     """Plain attention, q [B,L,H,D], k/v [B,S,H,D]: causal mask with the
     query positions shifted by ``causal_offset``; ``kv_valid`` [B, S]
@@ -149,8 +162,8 @@ class Attention(nn.Module):
         if KV != H:
             k_all = k_all.repeat_interleave(H // KV, dim=2)
             v_all = v_all.repeat_interleave(H // KV, dim=2)
-        if (cfg.use_flash and kv_cache is None and kv_valid is None
-                and q.is_cuda and D % 128 == 0):
+        if flash_applies(cfg.use_flash, D, q.dtype, q.device.type,
+                         kv_cache is not None, kv_valid is not None):
             out = _fa.flash_attention(q, k_all, v_all)
         else:
             out = reference_attention(q, k_all, v_all, offset, kv_valid)

@@ -185,16 +185,21 @@ class InstructionDecoder(nn.Module):
 class TransformerQuestionEncoder(nn.Module):
     """BERT-style encoder (embeddings + post-LN blocks) with the flax
     module's widths and numerics: LayerNorm eps 1e-6, exact GELU, additive
-    mask bias ``(1 - mask) * VERY_NEG_NUMBER``, BERT positions clamped to
-    ``max_len - 1``. ``q_/k_/v_`` are ``[hidden, hidden]`` linears holding
-    the flax ``[hidden, heads, head_dim]`` DenseGeneral kernels."""
+    mask bias ``(1 - mask) * VERY_NEG_NUMBER``, positions clamped to
+    ``max_len - 1``: BERT's ``0..L-1``, or with ``position_style="roberta"``
+    the pad-aware ``cumsum(mask) * mask + pad_idx`` (HF roberta's
+    create_position_ids_from_input_ids). ``q_/k_/v_`` are ``[hidden,
+    hidden]`` linears holding the flax ``[hidden, heads, head_dim]``
+    DenseGeneral kernels."""
 
     def __init__(self, vocab_size: int = 30522, hidden: int = 384,
                  layers: int = 6, heads: int = 12, intermediate: int = 1536,
-                 max_len: int = 512):
+                 max_len: int = 512, position_style: str = "bert",
+                 pad_idx: int = 0):
         super().__init__()
         self.hidden, self.layers, self.heads = hidden, layers, heads
         self.max_len = max_len
+        self.position_style, self.pad_idx = position_style, pad_idx
         self.tok_emb = nn.Embedding(vocab_size, hidden)
         self.pos_emb = nn.Embedding(max_len, hidden)
         self.type_emb = nn.Parameter(torch.empty(hidden))
@@ -210,8 +215,13 @@ class TransformerQuestionEncoder(nn.Module):
     def forward(self, tokens: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         B, L = tokens.shape
         H, hd = self.heads, self.hidden // self.heads
-        pos = torch.arange(L, device=tokens.device).clamp(max=self.max_len - 1)
-        x = self.tok_emb(tokens.long()) + self.pos_emb(pos)[None] + self.type_emb
+        if self.position_style == "roberta":
+            m = mask.long()
+            pos = torch.cumsum(m, dim=1) * m + self.pad_idx
+        else:
+            pos = torch.arange(L, device=tokens.device)[None].expand(B, L)
+        pos = pos.clamp(max=self.max_len - 1)
+        x = self.tok_emb(tokens.long()) + self.pos_emb(pos) + self.type_emb
         x = self.emb_ln(x)
         bias = (1.0 - mask[:, None, None, :]) * VERY_NEG_NUMBER
         for i in range(self.layers):

@@ -6,13 +6,20 @@ runs once over relation surface forms and questions, and the model consumes
 the hidden states (reference: bert_encoder.py:89-109 with lm_frozen=1,
 base_model.py:168-176).
 
-Weights come from a seeded random init (MiniLM widths by default) or from a
-``state_dict`` (e.g. ``bridge.from_flax`` of the JAX encoder's params); no
-HuggingFace checkpoint is read.
+Weight sources, in order of preference (``maybe_frozen_lm``, the port of
+frozen_lm.py:45-115):
+1. a local HuggingFace checkpoint (``FrozenLM.from_hf``: ``utils.hf_import``
+   reads it without ``transformers`` into the matching module: bert,
+   roberta, t5 or mpnet);
+2. a deterministic random init (MiniLM widths), chosen LOUDLY: a warning,
+   and ``weight_source`` records the exception's type and text.
+A ``state_dict`` (e.g. ``bridge.from_flax`` of the JAX encoder's params) can
+also be given directly.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Optional, Tuple
 
 import numpy as np
@@ -25,9 +32,9 @@ class FrozenLM:
     def __init__(self, word_dim: int = 384, vocab_size: int = 30522,
                  layers: int = 6, heads: int = 12,
                  intermediate: Optional[int] = None, max_len: int = 512,
-                 seed: int = 0, state_dict=None, device="cuda"):
+                 seed: int = 0, state_dict=None, module=None, device="cuda"):
         self.device = torch.device(device)
-        self.module = TransformerQuestionEncoder(
+        self.module = module or TransformerQuestionEncoder(
             vocab_size=vocab_size, hidden=word_dim, layers=layers, heads=heads,
             intermediate=intermediate or 4 * word_dim, max_len=max_len)
         if state_dict is None:
@@ -37,6 +44,44 @@ class FrozenLM:
             self.module.load_state_dict(state_dict)
             self.weight_source = "state_dict"
         self.module.to(self.device).eval().requires_grad_(False)
+
+    @property
+    def hidden(self) -> int:
+        """Width of the hidden states (the model's word_dim)."""
+        return self.module.hidden
+
+    @classmethod
+    def from_hf(cls, lm: str, device="cuda") -> "FrozenLM":
+        """Load a local HF checkpoint (registry key or name, resolved as
+        ``utils.hf_import.resolve`` does) into the matching encoder:
+        bert family / roberta / t5 / mpnet (the reference's seven --lm
+        variants, bert_encoder.py:29-59). Raises when it is not there."""
+        from ..utils.hf_import import load_hf_encoder
+        from .encoder_variants import MPNetEncoder, T5Encoder
+        state, dims = load_hf_encoder(lm)
+        arch = dims.get("arch", "bert")
+        if arch == "t5":
+            module = T5Encoder(
+                vocab_size=dims["vocab"], hidden=dims["hidden"],
+                layers=dims["layers"], heads=dims["heads"],
+                head_dim=dims["head_dim"], intermediate=dims["intermediate"],
+                num_buckets=dims["num_buckets"],
+                max_distance=dims["max_distance"], eps=dims["eps"])
+        elif arch == "mpnet":
+            module = MPNetEncoder(
+                vocab_size=dims["vocab"], hidden=dims["hidden"],
+                layers=dims["layers"], heads=dims["heads"],
+                intermediate=dims["intermediate"], max_len=dims["max_len"],
+                num_buckets=dims["num_buckets"], pad_idx=dims["pad_idx"],
+                eps=dims["eps"])
+        else:
+            module = TransformerQuestionEncoder(
+                vocab_size=dims["vocab"], hidden=dims["hidden"],
+                layers=dims["layers"], heads=dims["heads"],
+                intermediate=dims["intermediate"], max_len=dims["max_len"],
+                position_style=arch, pad_idx=dims.get("pad_idx", 0))
+        return cls(word_dim=dims["hidden"], state_dict=state, module=module,
+                   device=device)
 
     @torch.inference_mode()
     def encode(self, tokens: np.ndarray, mask: Optional[np.ndarray] = None,
@@ -75,3 +120,29 @@ def encode_questions(lm: FrozenLM, ds, pad_id: int, max_len: int = 64) -> None:
                                      (0, max(0, max_len - len(r.q_token_ids))))
                               [:max_len] for r in ds.records]), pad_id=pad_id)
     ds.q_hidden = [hid[i, :len(r.q_token_ids)] for i, r in enumerate(ds.records)]
+
+
+def maybe_frozen_lm(lm: str, word_dim: int, seed: int = 0, logger=None,
+                    device="cuda") -> FrozenLM:
+    """HF weights when available, deterministic random encoder otherwise.
+
+    The chosen source is logged LOUDLY and recorded on the returned object
+    (``.weight_source``: ``hf:<lm>``, or ``random-init(seed=...; <exception
+    type>: <text>)``), so a typo'd --lm or a broken checkpoint path can never
+    silently train a different model (the reference hard-fails instead,
+    bert_encoder.py:30-59; the JAX package degrades the same way for offline
+    machines). The Trainer stamps it into checkpoint metadata."""
+    logger = logger or logging.getLogger("gnn_rag_tpu_torch")
+    try:
+        enc = FrozenLM.from_hf(lm, device=device)
+        enc.weight_source = f"hf:{lm}"
+        logger.info("frozen LM: loaded HF weights for %r", lm)
+        return enc
+    except Exception as e:
+        enc = FrozenLM(word_dim=word_dim, seed=seed, device=device)
+        enc.weight_source = f"random-init(seed={seed}; {type(e).__name__}: {e})"
+        logger.warning(
+            "frozen LM: RANDOM INIT fallback for %r (%s: %s) — question/"
+            "relation features use a deterministic random encoder, NOT "
+            "pretrained weights", lm, type(e).__name__, e)
+        return enc

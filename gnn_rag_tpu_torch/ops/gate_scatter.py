@@ -59,9 +59,11 @@ without rounding it, reads the prior unrounded, and returns ``dfact_rel``,
 every block in a fixed order (no float atomics). ``FusedGateScatterFn`` is
 its autograd op. The forward adds 2*D*D flops per fact slot to the gate's
 bytes, so at D 50 in float32 its bytes and its operations take about the
-same least time; the backward adds 6*D*D and is bound by operations. On
-the card the backward's loops issue about two shared-memory loads per
-FMA, and that load rate, not the FMA rate, is what limits it.
+same least time; the backward adds 6*D*D and is bound by operations: its
+three D x D products are register-tiled SIMT GEMMs over shared memory (a
+4 x 4 tile a thread from float4 loads), and a tile's chunk range is split
+over several blocks whose dins and dW/db partials are added in a fixed
+order.
 
 ``scatter_mm`` (values ``[B, Fp, C]`` -> ``[B, E, C]`` float32, a plain
 scatter-add over the same layout, found by ``chunk_tiles``) replaces
@@ -120,6 +122,8 @@ def _load():
                 fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                                + [ctypes.c_void_p])
                 fn.restype = ctypes.c_int
+            lib.fused_gate_scatter_bwd_parts.argtypes = []
+            lib.fused_gate_scatter_bwd_parts.restype = ctypes.c_int
             lib.gate_scatter_error_string.argtypes = [ctypes.c_int]
             lib.gate_scatter_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -508,7 +512,10 @@ def fused_gate_scatter_bwd(fact_rel: torch.Tensor, w: torch.Tensor,
     dfr, dprior = empty(fact_rel.shape, fact_rel.dtype), empty((B, Fp))
     dins, dw, db = empty(ins.shape, ins.dtype), empty(w.shape, w.dtype), empty(
         bias.shape, bias.dtype)
-    dins_ws, dw_ws = empty((B, n_tiles, J * D)), empty((B * n_tiles, D * D + D))
+    # per-part partials: each tile's chunk range runs in up to P blocks
+    P = _load().fused_gate_scatter_bwd_parts()
+    dins_ws = empty((B, n_tiles, P, J * D))
+    dw_ws = empty((B * n_tiles * P, D * D + D))
     _launch("fused_gate_scatter_bwd", dev, fact_rel.data_ptr(), w.data_ptr(),
             bias.data_ptr(), ins.data_ptr(), prior.data_ptr(),
             scatter.data_ptr(), chunk_starts.data_ptr(), g.data_ptr(),

@@ -45,9 +45,16 @@ class Evaluator:
 
     def evaluate(self, data: KGQADataset, forward_fn: Callable,
                  test_batch_size: int = 20, write_info: bool = False,
-                 info_path: Optional[str] = None):
+                 info_path: Optional[str] = None,
+                 decode_question: Optional[Callable[[np.ndarray], str]] = None):
         """Returns (mean_f1, mean_hit, mean_em, mean_loss); optionally writes
-        `.info` to ``info_path``."""
+        `.info` to ``info_path``, one line per question in the split's order
+        (sequential order is restored first: a split that training shuffled
+        keeps its order otherwise). ``decode_question(q_token_ids)`` gives
+        the `.info` "question" when set (the CLI decodes the tokenizer's
+        word pieces, the reference's evaluate.py:143-156), else the raw
+        question."""
+        data.reset_batches(is_sequential=True)
         num_batches = math.ceil(len(data) / test_batch_size)
         if num_batches == 0:
             return 0.0, 0.0, 0.0, 0.0
@@ -80,7 +87,9 @@ class Evaluator:
                     f1s.append(f1); hits.append(hit); ems.append(em)
                     if fout is None:
                         continue
-                    obj = {"question": data.records[idx[b]].question}
+                    rec = data.records[idx[b]]
+                    obj = {"question": (decode_question(rec.q_token_ids)
+                                        if decode_question else rec.question)}
                     for j in range(self.num_iter):
                         obj[str(j)] = {}
                     obj["answers"] = [self._name(a) for a in answers]

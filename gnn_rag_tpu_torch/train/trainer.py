@@ -48,7 +48,8 @@ class Trainer:
                  num_entity: int, num_kb_relation: int, rel_hidden,
                  rel_hidden_inv, rel_text_mask, word_dim: int,
                  id2entity: Optional[dict] = None, logger=None,
-                 lm_source: Optional[str] = None, device="cuda"):
+                 lm_source: Optional[str] = None, decode_question=None,
+                 device="cuda"):
         tc = cfg.train
         unported = {"dp_size * tp_size > 1": tc.dp_size * tc.tp_size > 1,
                     "profile_dir": bool(tc.profile_dir)}
@@ -59,6 +60,8 @@ class Trainer:
         self.cfg = cfg
         self.device = torch.device(device)
         self.lm_source = lm_source
+        # q_token_ids -> the `.info` "question" (None: the raw question)
+        self.decode_question = decode_question
         self.train_data = train_data
         self.valid_data = valid_data
         self.test_data = test_data
@@ -169,7 +172,8 @@ class Trainer:
         """(f1, h1, em) of ``data``; optionally writes the `.info` file."""
         f1, h1, em, _ = self.evaluator.evaluate(
             data, self.forward, test_batch_size or self.cfg.train.test_batch_size,
-            write_info=write_info, info_path=info_path)
+            write_info=write_info, info_path=info_path,
+            decode_question=self.decode_question)
         return f1, h1, em
 
     def train(self, start_epoch: int = 0, end_epoch: Optional[int] = None):

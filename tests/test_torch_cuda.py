@@ -47,11 +47,15 @@ def cuda():
     return torch.device("cuda")
 
 
-def layout(B, E, F, rng, pad_rows=0):
+def layout(B, E, F, rng, pad_rows=0, skew=False):
+    """Random subgraphs laid out by the loader's code; ``skew``: each fact's
+    target drawn as E u^4, so a few tiles hold most chunks."""
     fwd, inv = [], []
     for _ in range(B):
         h = rng.integers(0, E, F).astype(np.int32)
         t = rng.integers(0, E, F).astype(np.int32)
+        if skew:
+            t = (E * rng.random(F) ** 4).astype(np.int32)
         r = rng.integers(0, 4, F).astype(np.int32)
         w = np.ones(F, np.float32)
         fwd.append(build_sample_direction(t, h, r, w, E, 4))
@@ -64,9 +68,10 @@ def layout(B, E, F, rng, pad_rows=0):
     return pack_samples(fwd, inv, E, 4, num_chunks=-(-nc // 8) * 8)
 
 
-def inputs(J, D, dtype, device, *, B=3, E=512, F=1500, pad_rows=1, seed=0):
+def inputs(J, D, dtype, device, *, B=3, E=512, F=1500, pad_rows=1, seed=0,
+           skew=False):
     rng = np.random.default_rng(seed)
-    kl = layout(B, E, F, rng, pad_rows)
+    kl = layout(B, E, F, rng, pad_rows, skew)
     Bp, Fp = kl.fwd.scatter.shape
     g = torch.Generator(device=device).manual_seed(seed)
     scatter = torch.from_numpy(np.stack([kl.fwd.scatter, kl.inv.scatter])).to(device)
@@ -219,6 +224,32 @@ def test_fused_kernels_match_plain(cuda, J, D, apply_relu, dtype):
     assert all(torch.equal(a, b) for a, b in zip(dgot, again))
     pad = args[5] < 0
     assert not dgot[0][pad].any() and not dgot[4][pad].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,E,F,J,skew", [
+    (16, 2048, 6553, 2, False),     # WebQSP bucket, one direction
+    (8, 4096, 13107, 3, False),     # CWQ
+    (16, 2048, 6553, 2, True)])     # skewed: a few tiles hold most chunks
+def test_fused_bwd_kernel_at_model_shapes(cuda, B, E, F, J, skew, dtype):
+    """The fused-projection backward (K6c) at the model's shapes, as
+    test_fused_kernels_match_plain holds it (fp32 1e-4 of max|plain|, bf16
+    gradients one bf16 step, dprior 1e-4): tiles split over several blocks
+    whose partials are added in a fixed order, bit for bit on a repeat."""
+    args = proj_inputs(J, 50, dtype, cuda, B=B, E=E, F=F, pad_rows=0,
+                       skew=skew)
+    starts = args[6]
+    if skew:
+        assert (starts[:, 1:] - starts[:, :-1]).max() >= 16
+    g = torch.randn((B, E, J * 50), generator=torch.Generator(device=cuda)
+                    .manual_seed(5), device=cuda)
+    got = gs.fused_gate_scatter_bwd(*args, g, True)
+    again = gs.fused_gate_scatter_bwd(*args, g, True)
+    f32 = dtype == torch.float32
+    assert_parts_close(got, gs.fused_gate_scatter_bwd_plain(*args, g, True),
+                       (1e-4 if f32 else (1,),) * 4 + (1e-4,))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.cuda
@@ -400,7 +431,9 @@ def bf16_tol(b, steps=1):
     # TMA's bounds in the bf16 kernels: one row, under one tile, one row
     # past a 128-row tile, and the model's head stride (32 heads)
     (1, 1, 2, torch.bfloat16), (1, 63, 2, torch.bfloat16),
-    (1, 129, 2, torch.bfloat16), (2, 300, 32, torch.bfloat16)])
+    (1, 129, 2, torch.bfloat16), (2, 300, 32, torch.bfloat16),
+    # the SFT step's lengths: dq's 64-key tiles and 128-row blocks, ragged
+    (1, 1000, 2, torch.bfloat16), (1, 2047, 2, torch.bfloat16)])
 def test_flash_kernels_match_plain(cuda, B, L, H, dtype):
     g = torch.Generator(device=cuda).manual_seed(L)
     q, k, v, do = (torch.randn((B, L, H, 128), generator=g, device=cuda
@@ -496,3 +529,28 @@ def test_llama_flash_vs_plain_attention(cuda, dtype):
     for name, a, b, r in zip(names, got, want, fp32):
         own = (b.float() - r).norm().item()
         assert (a.float() - b.float()).norm().item() <= 2 * own, (name, own)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,dtype", [(256, "bfloat16"), (128, "float16")])
+def test_llama_shapes_the_kernels_refuse_run_reference_attention(
+        cuda, head_dim, dtype):
+    """A LlamaLM whose attention the flash kernels do not take (head dim
+    256, or float16) runs on the card with no flash launch, through
+    reference_attention: its logits equal the same model's with
+    use_flash=False."""
+    cfg = LlamaConfig(vocab_size=300, dim=2 * head_dim, n_layers=2, n_heads=2,
+                      n_kv_heads=1, intermediate=384, dtype=dtype)
+    model = build_llama(cfg, seed=0, device=cuda)
+    tokens = torch.randint(3, 300, (2, 150), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    n = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    with torch.no_grad():
+        logits, _ = model(tokens)
+    assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == n
+    plain = build_llama(LlamaConfig(**{**cfg.__dict__, "use_flash": False}),
+                        seed=0, device=cuda)
+    plain.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        want, _ = plain(tokens)
+    assert torch.isfinite(logits).all() and torch.equal(logits, want)

@@ -31,7 +31,8 @@ from gnn_rag_tpu.llm_tpu.sft import resize_embeddings as jresize_embeddings
 from gnn_rag_tpu_torch import bridge
 from gnn_rag_tpu_torch.llm import flash_attention as fa
 from gnn_rag_tpu_torch.llm.generate import Decoder
-from gnn_rag_tpu_torch.llm.model import LlamaConfig, LlamaLM, build_llama
+from gnn_rag_tpu_torch.llm.model import (LlamaConfig, LlamaLM, build_llama,
+                                         flash_applies)
 from gnn_rag_tpu_torch.llm.sft import (SFTConfig, SFTTrainer,
                                        chunked_completion_loss,
                                        completion_loss, resize_embeddings,
@@ -148,6 +149,63 @@ def test_dkv_two_term_split_stays_within_tolerance():
         assert ((a - want).abs() / tol).max() <= 0.5, name
         assert ((a.bfloat16().float() - want_bf16.float()).abs() / tol
                 ).max() <= 1, name
+
+
+def test_dq_two_term_split_stays_within_tolerance():
+    """The bf16 dq kernel feeds the float ds to the tensor cores as two
+    bf16 terms, hi + mid, with float sums (as dk/dv does). Emulated here:
+    dq stays within half the card check's tolerance of the plain version's
+    float values, and within it once both are rounded to bf16."""
+    rng = np.random.default_rng(4)
+    q, k, v, g = (t(rand(rng, 1, 300, 2, 128)).bfloat16() for _ in range(4))
+    o, lse = fa.flash_fwd_plain(q, k, v)
+    delta = fa.bwd_delta(o, g)
+    _, ds = fa._dscores(q, k, v, g, lse, delta)
+    hi = ds.bfloat16().float()
+    parts = (hi, (ds - hi).bfloat16().float())
+    got = sum(torch.einsum("bhls,bshd->blhd", x, k.float()) for x in parts)
+    exact = fa.flash_dq_plain(q.float(), k.float(), v.float(), g.float(),
+                              lse, delta)
+    rounded = fa.flash_dq_plain(q, k, v, g, lse, delta)
+    tol = bf16_tol(rounded)
+    assert ((got - exact).abs() / tol).max() <= 0.5
+    assert ((got.bfloat16().float() - rounded.float()).abs() / tol).max() <= 1
+
+
+@pytest.mark.parametrize("head_dim,dtype,device,cached,masked,want", [
+    (128, torch.bfloat16, "cuda", False, False, True),
+    (128, torch.float32, "cuda", False, False, True),
+    (256, torch.bfloat16, "cuda", False, False, False),  # kernels take 128
+    (384, torch.float32, "cuda", False, False, False),
+    (128, torch.float16, "cuda", False, False, False),   # and fp32 / bf16
+    (64, torch.bfloat16, "cuda", False, False, False),
+    (128, torch.bfloat16, "cpu", False, False, False),
+    (128, torch.bfloat16, "cuda", True, False, False),   # kv cache (decode)
+    (128, torch.bfloat16, "cuda", False, True, False)])  # kv_valid
+def test_flash_rule_takes_the_kernels_only_where_they_apply(
+        head_dim, dtype, device, cached, masked, want):
+    assert flash_applies(True, head_dim, dtype, device, cached, masked) is want
+    assert not flash_applies(False, head_dim, dtype, device, cached, masked)
+
+
+def test_head_dim_256_and_float16_run_reference_attention():
+    """Shapes the kernels do not take go through reference_attention, which
+    computes what the JAX model computes: a head-dim-256 model's logits
+    against the flax model's, and finite logits of a float16 model (the
+    card test runs both on the card with no flash launch)."""
+    cfg = dict(vocab_size=64, dim=256, n_layers=1, n_heads=1, n_kv_heads=1,
+               intermediate=128, max_seq_len=64)
+    tokens = np.random.default_rng(2).integers(3, 64, (2, 12)).astype(np.int32)
+    jm = JLlamaLM(JLlamaConfig(**cfg, dtype="float32"))
+    params = jm.init(jax.random.PRNGKey(1), jnp.asarray(tokens))
+    want, _ = jm.apply(params, jnp.asarray(tokens))
+    with torch.no_grad():
+        got, _ = ported(params, **cfg, dtype="float32")(t(tokens).long())
+        half, _ = ported(params, **{**cfg, "n_heads": 2, "n_kv_heads": 2},
+                         dtype="float16")(t(tokens).long())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-4 * np.abs(np.asarray(want)).max())
+    assert torch.isfinite(half).all()
 
 
 def test_flash_wrapper_refuses_other_devices():

@@ -1,8 +1,10 @@
 """gnn_rag_tpu_torch runs without JAX and without the JAX package: a fresh
 interpreter imports the port, serves one question, trains one ReaRev step,
 runs one SFT step of the LLM reader and one greedy decode on the CPU, and
-never loads jax, flax, optax, orbax or any module of ``gnn_rag_tpu``; and no
-file of the port, nor chip_smoke.py, imports or runs the JAX package."""
+tries the frozen LM's HF checkpoint loader (its loud fallback), and never
+loads jax, flax, optax, orbax, transformers or any module of
+``gnn_rag_tpu``; and no file of the port, nor chip_smoke.py, imports or runs
+the JAX package."""
 
 import ast
 import os
@@ -71,9 +73,15 @@ assert len(losses) == 1 and np.isfinite(losses[0]), losses
 ids = Decoder(sft.model.eval(), max_len=64).greedy(bt.encode("[INST] q?"), 4,
                                                    eos_id=bt.eos_id)
 assert 1 <= len(ids) <= 4, ids
+
+from gnn_rag_tpu_torch.models import encoder_variants
+from gnn_rag_tpu_torch.models.frozen_lm import maybe_frozen_lm
+from gnn_rag_tpu_torch.utils import hf_import
+lm = maybe_frozen_lm("/no/such/checkpoint", word_dim=24, device="cpu")
+assert lm.weight_source.startswith("random-init"), lm.weight_source
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                       "gnn_rag_tpu"))
+                                       "gnn_rag_tpu", "transformers"))
 print("LOADED", loaded)
 """
 
