@@ -11,10 +11,14 @@ Phases, one line each:
      (gate_scatter.cu and flash_attention.cu with nvcc, graphpath.cpp with
      g++), with ptxas registers and spills;
   3. kernel: the CUDA kernel against its plain PyTorch version on the card at
-     the serving shapes (fp32 and bf16), with CUDA-event medians of both;
+     the serving shapes (fp32 and bf16) and at a skewed layout (SKEWED),
+     with the kernel's time ``ms`` (CUDA-event medians of back-to-back
+     calls, ``median_ms``: the wrapper's host time where that is longer),
+     its device time ``device_ms`` (CUDA-graph replays, ``graph_ms``) and
+     the plain version's, and the share of its bound that each reaches;
   3b. kernel, backward: the backward kernel against its plain version at
      the same shapes with a random cotangent (dvals, dprior, dins), two
-     launches bit-identical, CUDA-event medians of both;
+     launches bit-identical, timed and bounded as in 3;
   4. slice: a SynthQSP split (WebQSP-scale subgraphs) served at the headline
      WebQSP ReaRev width (entity_dim 50, num_iter 3, num_ins 2, num_gnn 3,
      MiniLM-width frozen LM, random weights from a seed) through the HTTP
@@ -43,9 +47,10 @@ The in-kernel-projection message passing (GNN_RAG_GATE_SCATTER=v2, the
 fused-projection kernels K6a-c and scatter_mm K6d):
   3d. kernel-fused: the fused-projection forward and backward (dfact_rel,
      dprior, dins, dW, db) and scatter_mm at C = J*D against their plain
-     versions at FUSED_SHAPES (one direction), two backward launches
-     bit-identical, CUDA-event medians of kernel and plain, and of
-     ``scatter_add_`` for the scatter;
+     versions at FUSED_SHAPES and SKEWED (one direction), two forward and
+     two backward launches bit-identical, timed as in 3, with
+     ``scatter_add_``'s time for the scatter, and each kernel's share of
+     its bound;
   7b. v2: the headline configuration with GNN_RAG_GATE_SCATTER=v2 set in
      this process (restored after): one epoch of 8 steps with evaluation
      through the port's CLI, exact launch counts of the fused kernels (2 x
@@ -152,9 +157,14 @@ KERNEL_SHAPES = (
 # the KERNEL_SHAPES rows the fused-projection kernels and scatter_mm are
 # checked and timed at (one direction of each)
 FUSED_SHAPES = ("webqsp_fp32", "webqsp_bf16", "cwq_fp32")
-# and a skewed layout at WebQSP widths: a few tiles hold most chunks, as the
-# hub entities of SynthQSP's (and WebQSP's) subgraphs make them
-FUSED_SKEWED = ("webqsp_skewed_fp32", 16, 2048, 8192, 2, 50, "float32", True)
+# and a skewed layout at WebQSP widths, where every gate-scatter kernel is
+# also checked and timed: a few tiles hold most chunks, as the hub entities
+# of SynthQSP's (and WebQSP's) subgraphs make them
+SKEWED = ("webqsp_skewed_fp32", 16, 2048, 8192, 2, 50, "float32", True)
+# the kernels of csrc/gate_scatter.cu, as the profiler names them
+GATE_KERNEL_NAMES = ("gate_scatter_fwd_kernel", "gate_scatter_bwd_kernel",
+                     "fused_fwd_kernel", "fused_fwd_sum_kernel",
+                     "fused_bwd_kernel", "part_reduce_kernel")
 # the gate-scatter launch counters of ops.gate_scatter
 GATE_COUNTERS = ("launches", "bwd_launches", "fused_launches",
                  "fused_bwd_launches", "scatter_launches")
@@ -180,6 +190,36 @@ def median_ms(fn, runs=20, reps=10, warmup=3):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[len(times) // 2]
+
+
+def graph_ms(fn, runs=20, reps=10, warmup=3):
+    """Median over ``runs`` of the device time per call, each run replaying
+    a CUDA graph of ``reps`` captured calls between two CUDA events: the
+    kernels' time without the host's, which ``median_ms`` also measures
+    when a call's Python wrapper takes longer than its kernels."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
     return sorted(times)[len(times) // 2]
 
 
@@ -225,15 +265,26 @@ def kernel_inputs(B, E, F, J, D, dtype, apply_relu, device, rng, skew=False):
             starts.unbind(0), apply_relu)
 
 
+def with_share(row, backward, **kw):
+    """``row`` with the bound of its launch (``gate_bound``) and the share
+    of it that the kernel's time and its device time reach."""
+    row["bound_ms"], row["bound_by"] = gate_bound(row, backward, **kw)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
+    return row
+
+
 def check_kernels(device):
-    """Phase 3: kernel vs plain at every serving shape; returns rows."""
+    """Phase 3: kernel vs plain at every serving shape and at SKEWED;
+    returns rows."""
     import numpy as np
     import torch
     from gnn_rag_tpu_torch.ops import gate_scatter as gs
     rng = np.random.default_rng(SEED)
     rows = []
-    for name, B, E, F, J, D, dtype, relu in KERNEL_SHAPES:
-        args = kernel_inputs(B, E, F, J, D, dtype, relu, device, rng)
+    for name, B, E, F, J, D, dtype, relu in KERNEL_SHAPES + (SKEWED,):
+        args = kernel_inputs(B, E, F, J, D, dtype, relu, device, rng,
+                             skew=name == SKEWED[0])
         got = gs.gate_scatter_fwd(*args)
         torch.cuda.synchronize()
         want = gs.gate_scatter_fwd_plain(*args)
@@ -243,10 +294,13 @@ def check_kernels(device):
         rel_tol = 1e-5 if dtype == "float32" else 2e-2
         ok = bool(torch.isfinite(got).all()) and err <= rel_tol * ref
         ms = median_ms(lambda: gs.gate_scatter_fwd(*args))
+        device_ms = graph_ms(lambda: gs.gate_scatter_fwd(*args))
         plain_ms = median_ms(lambda: gs.gate_scatter_fwd_plain(*args))
-        row = dict(shape=name, B=B, E=E, Fp=args[0][0].shape[1], J=J, D=D,
-                   dtype=dtype, relu=relu, max_abs_err=err, max_abs_ref=ref,
-                   tol=rel_tol * ref, ms=ms, plain_ms=plain_ms)
+        row = with_share(dict(
+            shape=name, B=B, E=E, Fp=args[0][0].shape[1], J=J, D=D,
+            dtype=dtype, relu=relu, max_abs_err=err, max_abs_ref=ref,
+            tol=rel_tol * ref, ms=ms, device_ms=device_ms, plain_ms=plain_ms),
+            False)
         log("kernel", json.dumps(row))
         if not ok:
             raise AssertionError(f"kernel disagrees with plain at {name}: "
@@ -257,16 +311,17 @@ def check_kernels(device):
 
 
 def check_bwd_kernels(device):
-    """Phase 3b: backward kernel vs plain at every shape; returns rows."""
+    """Phase 3b: backward kernel vs plain at every shape and at SKEWED;
+    returns rows."""
     import numpy as np
     import torch
     from gnn_rag_tpu_torch.ops import gate_scatter as gs
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     rows = []
-    for name, B, E, F, J, D, dtype, relu in KERNEL_SHAPES:
+    for name, B, E, F, J, D, dtype, relu in KERNEL_SHAPES + (SKEWED,):
         vals, ins, prior, scatter, starts, _ = kernel_inputs(
-            B, E, F, J, D, dtype, relu, device, rng)
+            B, E, F, J, D, dtype, relu, device, rng, skew=name == SKEWED[0])
         g = torch.randn((2, B, E, J * D), generator=gen, device=device)
         args = (vals, ins, prior, scatter, starts, g, relu)
         got = gs.gate_scatter_bwd(*args)
@@ -292,12 +347,14 @@ def check_bwd_kernels(device):
         if not repeat:
             raise AssertionError(f"bwd kernel not deterministic at {name}")
         ms = median_ms(lambda: gs.gate_scatter_bwd(*args))
+        device_ms = graph_ms(lambda: gs.gate_scatter_bwd(*args))
         plain_ms = median_ms(lambda: gs.gate_scatter_bwd_plain(*args))
-        row = dict(shape=name, B=B, E=E, Fp=vals[0].shape[1], J=J, D=D,
-                   dtype=dtype, relu=relu,
-                   max_abs_err=max(e for e, _ in parts.values()),
-                   err_ref_by_output=parts, bit_identical_repeat=repeat,
-                   ms=ms, plain_ms=plain_ms)
+        row = with_share(dict(
+            shape=name, B=B, E=E, Fp=vals[0].shape[1], J=J, D=D,
+            dtype=dtype, relu=relu,
+            max_abs_err=max(e for e, _ in parts.values()),
+            err_ref_by_output=parts, bit_identical_repeat=repeat,
+            ms=ms, device_ms=device_ms, plain_ms=plain_ms), True)
         log("kernel-bwd", json.dumps(row))
         rows.append(row)
         del args, got, again, want
@@ -327,25 +384,27 @@ def check_fused_kernels(device):
     rl * ins is rounded, so one step of rl can move the product by two),
     the bf16 outputs dfact_rel, dw, db and dins one step (float sums
     rounded once); dprior (float from the same widened values) 1e-4 and
-    scatter_mm 1e-5 of max|ref|. Two backward launches
+    scatter_mm 1e-5 of max|ref|. Two forward and two backward launches
     bit-identical; CUDA-event medians of kernel, plain and, for the
-    scatter, ``scatter_add_``; the same at FUSED_SKEWED. Returns rows."""
+    scatter, ``scatter_add_``, and the kernels' device time (``graph_ms``);
+    the same at SKEWED. Returns rows."""
     import numpy as np
     import torch
     from gnn_rag_tpu_torch.ops import gate_scatter as gs
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     rows, bad = [], []
-    shapes = [r for r in KERNEL_SHAPES if r[0] in FUSED_SHAPES] + [FUSED_SKEWED]
+    shapes = [r for r in KERNEL_SHAPES if r[0] in FUSED_SHAPES] + [SKEWED]
     for name, B, E, F, J, D, dtype, relu in shapes:
         vals, ins, prior, scatter, starts, _ = kernel_inputs(
             B, E, F, J, D, dtype, relu, device, rng,
-            skew=name == FUSED_SKEWED[0])
+            skew=name == SKEWED[0])
         w = (torch.randn((D, D), generator=gen, device=device)
              / math.sqrt(D)).to(ins.dtype)
         b = (0.1 * torch.randn((D,), generator=gen, device=device)).to(ins.dtype)
         args = (vals[0], w, b, ins, prior[0], scatter[0], starts[0])
         fwd = gs.fused_gate_scatter_fwd(*args, relu)
+        fwd_again = gs.fused_gate_scatter_fwd(*args, relu)
         g = torch.randn(fwd.shape, generator=gen, device=device)
         bwd = gs.fused_gate_scatter_bwd(*args, g, relu)
         again = gs.fused_gate_scatter_bwd(*args, g, relu)
@@ -375,8 +434,10 @@ def check_fused_kernels(device):
                 bad.append(f"{name} {part}: max|d| {d.max().item()} is "
                            f"{over} of its tolerance")
         repeat = all(torch.equal(x, y) for x, y in zip(bwd, again))
-        if not repeat:
-            bad.append(f"{name}: fused backward not bit-repeatable")
+        fwd_repeat = torch.equal(fwd, fwd_again)
+        if not (repeat and fwd_repeat):
+            bad.append(f"{name}: fused forward or backward not "
+                       f"bit-repeatable")
         # the one PyTorch call that computes scatter_mm: scatter_add_ into
         # zeros (pad slots pointed at row 0 with zero values)
         idx = scatter[0].clamp_min(0).long()[..., None].expand(sv.shape).contiguous()
@@ -393,13 +454,19 @@ def check_fused_kernels(device):
             chunks_per_tile_mean_max=[tile_chunks.mean().item(),
                                       tile_chunks.max().item()],
             err_ref_by_output=errs, bit_identical_repeat=repeat,
-            scatter_C=J * D, scatter_add_vs_plain=lib_err,
+            fwd_bit_identical_repeat=fwd_repeat, scatter_C=J * D,
+            scatter_add_vs_plain=lib_err,
             ms=median_ms(lambda: gs.fused_gate_scatter_fwd(*args, relu)),
+            device_ms=graph_ms(lambda: gs.fused_gate_scatter_fwd(*args, relu)),
             plain_ms=median_ms(lambda: gs.fused_gate_scatter_fwd_plain(*args, relu)),
             bwd_ms=median_ms(lambda: gs.fused_gate_scatter_bwd(*args, g, relu)),
+            bwd_device_ms=graph_ms(
+                lambda: gs.fused_gate_scatter_bwd(*args, g, relu)),
             bwd_plain_ms=median_ms(
                 lambda: gs.fused_gate_scatter_bwd_plain(*args, g, relu)),
             scatter_ms=median_ms(lambda: gs.scatter_mm_fwd(sv, scatter[0], tiles, E)),
+            scatter_device_ms=graph_ms(
+                lambda: gs.scatter_mm_fwd(sv, scatter[0], tiles, E)),
             scatter_plain_ms=median_ms(
                 lambda: gs.scatter_mm_fwd_plain(sv, scatter[0], tiles, E)),
             scatter_add_ms=median_ms(library))
@@ -407,9 +474,15 @@ def check_fused_kernels(device):
             fwd=gate_bound(row, False, ndir=1, project=True),
             bwd=gate_bound(row, True, ndir=1, project=True),
             scatter=scatter_bound(row))
+        for share, unit in (("bound_share", "ms"),
+                            ("device_bound_share", "device_ms")):
+            row[share] = {
+                part: row["bound_ms_by"][part][0] / row[f"{key}{unit}"]
+                for part, key in (("fwd", ""), ("bwd", "bwd_"),
+                                  ("scatter", "scatter_"))}
         log("kernel-fused", json.dumps(row))
         rows.append(row)
-        del vals, args, fwd, g, bwd, again, sv, sc, want, idx, src
+        del vals, args, fwd, fwd_again, g, bwd, again, sv, sc, want, idx, src
     if bad:
         raise AssertionError("fused kernels vs plain: " + "; ".join(bad))
     return rows
@@ -858,9 +931,12 @@ def train_step_time(tr, device):
     return summary
 
 
-def profile_step(tr, batch, valid_w, reps=3):
+def profile_step(tr, batch, valid_w, reps=3, names=None):
     """``reps`` training steps under torch.profiler: wall and device ms a
-    step, busy share, kernels a step and the largest device ops."""
+    step, busy share, kernels a step, the largest device ops and the device
+    ms and launches a step of each kernel named in ``names`` (default: the
+    gate-scatter kernels, GATE_KERNEL_NAMES)."""
+    names = GATE_KERNEL_NAMES if names is None else names
     import torch
     from torch.profiler import ProfilerActivity, profile
     acc = torch.zeros(4, device=valid_w.device)
@@ -881,7 +957,10 @@ def profile_step(tr, batch, valid_w, reps=3):
         busy_share=dev_ms / wall if dev_ms else "not measured",
         device_kernels_per_step=sum(e.count for e in dev) / reps,
         top_device_ops=[[e.key[:60], e.self_device_time_total / 1e3 / reps,
-                         e.count / reps] for e in top])
+                         e.count / reps] for e in top],
+        gate_scatter_ms_launches=[
+            [e.key[:60], e.self_device_time_total / 1e3 / reps, e.count / reps]
+            for e in dev if any(k in e.key for k in names)])
 
 
 def run_v2_path(device, root):
@@ -1634,7 +1713,8 @@ def main():
             "replaces": f"{PALLAS}:{replaces}",
             "also_replaces": [f"{PALLAS}:{x}" for x in also],
             "launches": launches, "max_abs_err": row["max_abs_err"],
-            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
+            "ms": row["ms"], "device_ms": row["device_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
             "shape": row["shape"], "launches_by_path": (
                 {"serve": serve_launches, "train": train_fwd} if not backward
@@ -1652,7 +1732,8 @@ def main():
             "also_replaces": [f"{PALLAS}:{x}" for x in also],
             "launches": v2_counts[f"fused_{key}launches"],
             "max_abs_err": max(frow["err_ref_by_output"][p][0] for p in parts),
-            "ms": frow[f"{key}ms"], "plain_ms": frow[f"{key}plain_ms"],
+            "ms": frow[f"{key}ms"], "device_ms": frow[f"{key}device_ms"],
+            "plain_ms": frow[f"{key}plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "shape": frow["shape"] + " (one direction)",
             "launches_by_path": {"train_v2": v2_counts[f"fused_{key}launches"]}})
@@ -1661,7 +1742,8 @@ def main():
         "name": "scatter_mm", "route": "cuda", "source": gate,
         "replaces": f"{PALLAS}:32", "launches": v2_counts["scatter_launches"],
         "max_abs_err": frow["err_ref_by_output"]["scatter"][0],
-        "ms": frow["scatter_ms"], "plain_ms": frow["scatter_plain_ms"],
+        "ms": frow["scatter_ms"], "device_ms": frow["scatter_device_ms"],
+        "plain_ms": frow["scatter_plain_ms"],
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": frow["scatter_add_ms"],
         "shape": f"{frow['shape']} C={frow['scatter_C']}",

@@ -34,7 +34,7 @@
 // per thread at a time, keeps too few bytes in flight; the asynchronous
 // 16-byte staging copies are what this design does about it.
 //
-// The backward replaces the TPU kernels
+// The backward (gate_scatter_bwd_kernel) replaces the TPU kernels
 //   _fused_bwd_kernel_v4  (:988)  both directions (ReasonGNN)
 //   _fused_bwd_kernel_v4s (:1267) one direction / one instruction
 //   _fused_bwd_kernel_v3  (:639)  one direction, TypeLayer (J=1, no relu)
@@ -47,25 +47,32 @@
 // all in float, with the prior unrounded (the TPU backward reads it in f32
 // although its forward rounds it to T). Pad slots get dvals = dprior = 0.
 //
-// Design: the same grid as the forward. Facts of tile t's chunk range scatter
-// only into tile t, so the block stages the tile's [128, J*D] slice of g in
-// shared memory once (asynchronous 16-byte copies) and every fact reads its
-// cotangent row from there. One warp per fact slot: lanes run the columns k
-// (and all j for each k), so dvals[f,:] needs no reduction across threads and
-// is written once, coalesced, and dprior[f] is one warp-shuffle reduction.
-// dins is a sum over all facts of the sample: each warp keeps its own partial
-// [J*D] in shared memory, the block adds the warps in a fixed order and
-// writes one partial per tile to a workspace [ndir,B,n_tiles,J*D], and a
-// second small kernel adds the tiles in a fixed order. No float atomics, so
+// What bounds the backward on an H100: per direction it reads B*E*J*D
+// floats of g once and B*Fp*D values, and writes B*Fp*D values and B*Fp
+// priors; about 6 flops per (fact, column). Bytes, and the latency of the
+// loads that bring them: a warp that walks its slots one at a time and
+// loads each slot's row, prior and values from device memory only once
+// the slot's turn comes waits on two or three dependent round trips a
+// slot. The design keeps every load ahead of the slot that needs it:
+// facts of tile t's chunk range scatter only into tile t, so a block
+// stages the tile's [128, J*D] slice of g in shared memory once
+// (asynchronous 16-byte copies), and streams its slots kStage at a
+// time through a ring of two or three shared-memory stages (values,
+// scatter and prior by asynchronous copies), the next stages in flight
+// while this one computes. Half a warp takes a slot (16 lanes, columns k
+// = lane + 16 q), so a warp runs two slots side by side; dvals[f,:] needs
+// no reduction across threads and dprior[f] is one shuffle reduction over
+// the 16 lanes. A tile's chunk range is split over up to kParts blocks (at
+// least kBwdPartChunks chunks each), so the few long tiles of a skewed
+// subgraph do not set the time; each slot's dvals and dprior are written
+// once, by the part that holds it. dins is a sum over all facts of the
+// sample: each half-warp keeps its own partial [J*D] in shared memory, the
+// block adds them in a fixed order into one partial per part in a
+// workspace [ndir,B,n_tiles,kParts,J*D], and part_reduce_kernel adds those
+// in a fixed order (direction, then tile, then part). No float atomics, so
 // the result repeats bit for bit. Slots past the last tile's range (the
 // loader pads the chunk count to the bucket) are zeroed by all blocks in a
 // strided loop.
-//
-// What bounds the backward on an H100: per direction it reads B*E*J*D
-// floats of g once and B*Fp*D values, and writes B*Fp*D values and B*Fp
-// priors; about 6 flops per (fact, column). Memory traffic and load latency
-// again, not arithmetic: g comes in as whole-tile async copies, and each
-// warp's loads are independent of the other warps' facts.
 //
 // The fused-projection op (one direction per call) replaces
 //   _fused_kernel     (:126) v1, a grid step per chunk
@@ -73,29 +80,40 @@
 //   _fused_bwd_kernel (:316) their backward, dW and db summed over the grid
 // Its values are the relation features of each slot before rel_linear:
 //   rl[f, k] = T(float(sum_m fact_rel[f, m] * w[m, k]) + float(b[k]))
-// and the gate above runs on rl. The forward is an instance (kProject) of
-// the forward kernel: the block also stages w and b in shared memory once,
-// and each staged group of fact_rel rows is projected into the staged
-// values before the gate loop, so no [B, Fp, D] projection goes through
-// device memory and each fact is projected by one block only. It does
-// 2*D*D more flops per fact slot (5,000 at D 50) and reads the same bytes,
-// so at D 50 float32 its operations and bytes take about the same least
-// time on the card. The backward (fused_bwd_kernel) recomputes rl in float
-// from the widened inputs WITHOUT rounding it, and reads the prior
-// unrounded, as the TPU backward does (pallas_mp.py:345-352), then runs the
-// gate backward above with drl = sum_j dval_j * ins_j in place of dvals, and
-// adds dfact_rel = drl @ w^T (cast to T) and this block's partials of
-// dW = fact_rel^T drl and db = sum drl. Its 6*D*D flops per slot bound it
-// by operations, so its three D x D products run as register-tiled SIMT
-// GEMMs over shared memory: D zero-padded to a multiple of 4, 64 slots a
-// stage, each thread a 4 x 4 output tile from float4 loads (8 loads for 64
-// FMAs), and a fixed 4 x 4 block of dW a thread summed over the stages. The
-// gate backward runs on the rl tile in registers between the products. A tile's
-// chunk range is split over up to kFbParts blocks (at least kFbPartChunks
-// chunks each), so the few long tiles of a skewed subgraph no longer set
-// the time; every part writes its dins and dW/db partials to a workspace
-// that part_reduce_kernel adds in a fixed order, so there are no float
-// atomics and two launches give the same bits.
+// and the gate above runs on rl. The forward (fused_fwd_kernel) does 2*D*D
+// flops per fact slot besides the gate's bytes, so at D 50 in float32 its
+// operations and its bytes take about the same least time on the card; no
+// [B, Fp, D] projection goes through device memory. What held its first
+// version back, and what this design does about it: (1) one block a tile
+// let the few long tiles of a skewed subgraph set the time, so a tile's
+// chunk range is split over up to kParts blocks of at least kFfPartChunks
+// chunks; a tile with one part writes its [128, J*D] rows directly, the
+// parts of a longer tile write float partial tiles to a workspace that
+// fused_fwd_sum_kernel adds in part order (two launches give the same
+// bits); (2) the projection made 5 shared-memory loads for 4 FMAs, so it
+// runs as the backward's register-tiled SIMT GEMM (D zero-padded to a
+// multiple of 4, each thread a 4-slot x 4-column tile from float4 loads,
+// 8 loads for 64 FMAs; the bias added in float, rl rounded to T once);
+// (3) only J*D of the block's threads ran the gate loop, so every thread
+// does: thread (grp, c) adds the slots whose row r has r % ngrp == grp
+// into column c, which keeps each output element's sum with one thread
+// and in slot order, without atomics; (4) the next stage's fact_rel rows
+// are loaded into registers while this stage computes, and the two
+// shared-memory stages (fact_rel in, rl out) need two barriers a stage.
+//
+// The backward (fused_bwd_kernel) recomputes rl in float from the widened
+// inputs WITHOUT rounding it, and reads the prior unrounded, as the TPU
+// backward does (pallas_mp.py:345-352), then runs the gate backward above
+// with drl = sum_j dval_j * ins_j in place of dvals, and adds dfact_rel =
+// drl @ w^T (cast to T) and this block's partials of dW = fact_rel^T drl and
+// db = sum drl. Its 6*D*D flops per slot bound it by operations, so its
+// three D x D products run as the register-tiled SIMT GEMMs above, 64 slots
+// a stage, and a fixed 4 x 4 block of dW a thread summed over the stages.
+// The gate backward runs on the rl tile in registers between the products.
+// A tile's chunk range is split over up to kParts blocks (at least
+// kFbPartChunks chunks each); every part writes its dins and dW/db partials
+// to a workspace that part_reduce_kernel adds in a fixed order, so there
+// are no float atomics and two launches give the same bits.
 //
 // The scatter-only op (kScatter) replaces _scatter_kernel (:32, scatter_mm):
 //   out[b, scatter[f], c] += float(values[f, c])
@@ -141,43 +159,9 @@ struct DirPtrs {
 };
 
 // What the forward kernel adds per staged value: the gate of the serving
-// and training path, the same gate on values it projects itself (the
-// fused-projection op), or the value alone (scatter_mm). Compile-time
-// instances, so the gate path's loop has no branch of the other two.
-enum FwdMode { kGate = 0, kProject = 1, kScatter = 2 };
-constexpr int kProjRows = 4;  // staged rows a thread projects at once
-constexpr int kProjThreads = 256;  // least block size of the kProject forward
-
-// rel_linear of the fused-projection op: w [D,D] (rl = fact_rel @ w + b) and
-// b [D], in the input type.
-struct Proj {
-  const void* w;
-  const void* b;
-};
-
-// rl[i, k] = T(sum_m fr[i, m] * w[m, k] + b[k]) for the kStage staged rows,
-// sums in float over m in order; each thread projects kProjRows rows of one
-// column k, so every w load serves kProjRows FMAs.
-template <typename T>
-__device__ __forceinline__ void project_stage(const T* s_fr, const float* s_w,
-                                              const float* s_b, T* s_val,
-                                              int D) {
-  for (int idx = threadIdx.x; idx < (kStage / kProjRows) * D;
-       idx += blockDim.x) {
-    const int grp = idx / D, k = idx - grp * D;
-    const T* fr = s_fr + grp * kProjRows * D;
-    float s[kProjRows] = {};
-    for (int m = 0; m < D; ++m) {
-      const float w = s_w[m * D + k];
-#pragma unroll
-      for (int r = 0; r < kProjRows; ++r)
-        s[r] = fmaf(to_float(fr[r * D + m]), w, s[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < kProjRows; ++r)
-      s_val[(grp * kProjRows + r) * D + k] = from_float<T>(s[r] + s_b[k]);
-  }
-}
+// and training path, or the value alone (scatter_mm). Compile-time
+// instances, so the gate path's loop has no branch of the other.
+enum FwdMode { kGate = 0, kScatter = 2 };
 
 // First index i of the non-decreasing row a[0..n) with a[i] >= v (n if none).
 __device__ __forceinline__ int first_at_least(const int32_t* a, int n, int v) {
@@ -191,23 +175,19 @@ __device__ __forceinline__ int first_at_least(const int32_t* a, int n, int v) {
 
 // ins [B,J,D] T; out [ndir,B,n_tiles*128,J*D] f32.
 // grid (n_tiles, B, ndir), block >= J*D threads.
-// kProject: vals are fact_rel rows, projected with proj in the kernel.
 // kScatter: J = 1, D is the width C, ins and prior are not read, and
 // p.chunk_starts holds chunk_tiles [B, Fp/128] instead.
 template <typename T, int kMode>
 __global__ void gate_scatter_fwd_kernel(DirPtrs p, const T* __restrict__ ins,
-                                        Proj proj, float* __restrict__ out,
-                                        int B, int Fp, int D, int J,
-                                        int n_tiles, int apply_relu) {
+                                        float* __restrict__ out, int B, int Fp,
+                                        int D, int J, int n_tiles,
+                                        int apply_relu) {
   extern __shared__ __align__(16) float smem[];
   const int JD = J * D;
   float* acc = smem;                                    // [kTileE, JD]
   int32_t* s_row = reinterpret_cast<int32_t*>(acc + kTileE * JD);  // [kStage]
   float* s_pri = reinterpret_cast<float*>(s_row + kStage);         // [kStage]
   T* s_val = reinterpret_cast<T*>(s_pri + kStage);                 // [kStage, D]
-  T* s_fr = s_val + kStage * D;                // kProject: [kStage, D] fact_rel
-  float* s_w = reinterpret_cast<float*>(s_fr + kStage * D);  // kProject: [D, D]
-  float* s_b = s_w + D * D;                                   // kProject: [D]
 
   const int t = blockIdx.x, b = blockIdx.y, d = blockIdx.z;
   const int col = threadIdx.x;
@@ -221,14 +201,6 @@ __global__ void gate_scatter_fwd_kernel(DirPtrs p, const T* __restrict__ ins,
   T ins_jk = from_float<T>(0.f);
   if constexpr (kMode != kScatter) {
     if (active) ins_jk = ins[((size_t)b * J + j) * D + k];
-  }
-  if constexpr (kMode == kProject) {
-    // w and b once per block, widened to float (visible to all threads
-    // after the first stage's barrier)
-    const T* w = static_cast<const T*>(proj.w);
-    const T* bias = static_cast<const T*>(proj.b);
-    for (int i = threadIdx.x; i < D * D; i += blockDim.x) s_w[i] = to_float(w[i]);
-    for (int i = threadIdx.x; i < D; i += blockDim.x) s_b[i] = to_float(bias[i]);
   }
 
   // select, not p.x[d]: indexing a parameter array with a runtime index
@@ -266,17 +238,13 @@ __global__ void gate_scatter_fwd_kernel(DirPtrs p, const T* __restrict__ ins,
     // [kStage, D] values: one contiguous, 16-byte aligned block, copied
     // with asynchronous 16-byte copies so all of them are in flight at once
     const uint4* src = reinterpret_cast<const uint4*>(vl + (size_t)f0 * D);
-    uint4* dst = reinterpret_cast<uint4*>(kMode == kProject ? s_fr : s_val);
+    uint4* dst = reinterpret_cast<uint4*>(s_val);
     const int n16 = kStage * D * (int)sizeof(T) / 16;
     for (int i = threadIdx.x; i < n16; i += blockDim.x)
       __pipeline_memcpy_async(dst + i, src + i, 16);
     __pipeline_commit();
     __pipeline_wait_prior(0);
     __syncthreads();
-    if constexpr (kMode == kProject) {
-      project_stage(s_fr, s_w, s_b, s_val, D);
-      __syncthreads();
-    }
     if (!active) continue;
     for (int i = 0; i < kStage; ++i) {
       const int r = s_row[i];
@@ -299,19 +267,13 @@ __global__ void gate_scatter_fwd_kernel(DirPtrs p, const T* __restrict__ ins,
 }
 
 template <typename T, int kMode>
-int launch(const DirPtrs& p, const void* ins, Proj proj, void* out, int ndir,
-           int B, int Fp, int D, int J, int n_tiles, int apply_relu,
-           void* stream) {
+int launch(const DirPtrs& p, const void* ins, void* out, int ndir, int B,
+           int Fp, int D, int J, int n_tiles, int apply_relu, void* stream) {
   const int JD = J * D;
-  // kProject: at least kProjThreads, so that the projection, which all
-  // threads run, has more warps in flight than the gate loop needs
-  int threads = ((JD + 31) / 32) * 32;
-  if (kMode == kProject && threads < kProjThreads) threads = kProjThreads;
-  size_t smem = (size_t)kTileE * JD * sizeof(float) +
-                kStage * (sizeof(int32_t) + sizeof(float)) +
-                (size_t)kStage * D * sizeof(T);
-  if (kMode == kProject)   // staged fact_rel, w and b
-    smem += (size_t)kStage * D * sizeof(T) + ((size_t)D * D + D) * sizeof(float);
+  const int threads = ((JD + 31) / 32) * 32;
+  const size_t smem = (size_t)kTileE * JD * sizeof(float) +
+                      kStage * (sizeof(int32_t) + sizeof(float)) +
+                      (size_t)kStage * D * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
       gate_scatter_fwd_kernel<T, kMode>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -322,130 +284,293 @@ int launch(const DirPtrs& p, const void* ins, Proj proj, void* out, int ndir,
   dim3 grid(n_tiles, B, ndir);
   gate_scatter_fwd_kernel<T, kMode>
       <<<grid, threads, smem, (cudaStream_t)stream>>>(
-          p, static_cast<const T*>(ins), proj, static_cast<float*>(out), B, Fp,
-          D, J, n_tiles, apply_relu);
+          p, static_cast<const T*>(ins), static_cast<float*>(out), B, Fp, D,
+          J, n_tiles, apply_relu);
   return (int)cudaGetLastError();
 }
 
-constexpr int kBwdThreads = 256;   // 8 warps, one fact slot each at a time
+// ----------------------------------------------- split tiles, shared parts
+constexpr int kBwdThreads = 256;  // threads of every split-tile kernel
+constexpr int kParts = 8;         // blocks a tile at most
+
+// A tile with n chunks runs in min(kParts, ceil(n / min_chunks)) parts
+// (none when it has no chunk); the others of its kParts blocks are empty.
+// Part q takes chunks c0 + q n / parts .. c0 + (q + 1) n / parts.
+__host__ __device__ __forceinline__ int split_parts(int n, int min_chunks) {
+  const int parts = (n + min_chunks - 1) / min_chunks;
+  return parts < kParts ? parts : kParts;
+}
+
+// Occupancy rule of the split-tile kernels: a ring of three stages where
+// two blocks of that size still fit an SM, else two.
+int ring_stages(size_t fixed_bytes, size_t stage_bytes) {
+  const size_t sm = 228 * 1024, reserved = 1024;
+  return 2 * (fixed_bytes + 3 * stage_bytes + reserved) <= sm ? 3 : 2;
+}
+
+// out = the sum of the non-empty parts' partials in ws [ndir, sets *
+// n_groups, kParts, width] (a split-tile kernel's workspace), in a fixed
+// order, for each of the grid's sets: set s adds, for each direction d in
+// turn, groups s*n_groups .. (s+1)*n_groups - 1, a group being a (sample,
+// tile) whose part count comes from direction d's chunk_starts. kRedRows
+// threads add a contiguous strip of the (direction, group) pairs each (all
+// of a group's parts loaded before they are added in order), then the
+// strips are added in order. Entry e < split goes to out_a[s*split + e],
+// the rest to out_b[e - split].
+// grid (ceil(width / kRedCols), sets), block (kRedCols, kRedRows).
+constexpr int kRedCols = 32, kRedRows = 32;
+
+template <typename T>
+__global__ void part_reduce_kernel(const float* __restrict__ ws,
+                                   const int32_t* __restrict__ cs0,
+                                   const int32_t* __restrict__ cs1, int ndir,
+                                   int min_chunks, int n_tiles, int n_groups,
+                                   int width, int split, T* __restrict__ out_a,
+                                   T* __restrict__ out_b) {
+  __shared__ float strip[kRedRows][kRedCols];
+  const int e = blockIdx.x * kRedCols + threadIdx.x, set = blockIdx.y;
+  const int n = ndir * n_groups, total = gridDim.y * n_groups;
+  const int per = (n + kRedRows - 1) / kRedRows;
+  const int u0 = threadIdx.y * per, u1 = min(n, u0 + per);
+  float s = 0.f;
+  if (e < width) {
+    for (int u = u0; u < u1; ++u) {
+      const int d = u / n_groups;
+      const int gi = set * n_groups + u - d * n_groups;
+      const int bb = gi / n_tiles, t = gi - bb * n_tiles;
+      const int32_t* cs = (d ? cs1 : cs0) + (size_t)bb * (n_tiles + 1);
+      const int parts = split_parts(cs[t + 1] - cs[t], min_chunks);
+      const float* src =
+          ws + ((size_t)d * total + gi) * kParts * width + e;
+      float v[kParts];
+#pragma unroll
+      for (int q = 0; q < kParts; ++q)
+        v[q] = q < parts ? src[(size_t)q * width] : 0.f;
+#pragma unroll
+      for (int q = 0; q < kParts; ++q)
+        if (q < parts) s += v[q];
+    }
+  }
+  strip[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && e < width) {
+    float sum = 0.f;
+    for (int r = 0; r < kRedRows; ++r) sum += strip[r][threadIdx.x];
+    if (e < split) out_a[(size_t)set * split + e] = from_float<T>(sum);
+    else out_b[e - split] = from_float<T>(sum);
+  }
+}
+
+// ------------------------------------------------- gate-scatter backward
+constexpr int kBwdPartChunks = 2;   // least chunks a part takes
+constexpr int kHalves = kBwdThreads / 16;  // half-warps, one slot each
 
 // Backward outputs. dvals [ndir,B,Fp,D] T and dprior [ndir,B,Fp] f32 are
 // stacked on the direction; dprior and dins_ws may be null (not needed).
 struct BwdOut {
   void* dvals;
   float* dprior;
-  float* dins_ws;  // [ndir,B,n_tiles,J*D] per-tile partials of dins
+  float* dins_ws;  // [ndir,B,n_tiles,kParts,J*D] per-part partials of dins
 };
 
-// g [ndir,B,n_tiles*128,J*D] f32; grid (n_tiles, B, ndir), kBwdThreads.
-template <typename T>
-__global__ void gate_scatter_bwd_kernel(DirPtrs p, const T* __restrict__ ins,
-                                        const float* __restrict__ g, BwdOut o,
-                                        int B, int Fp, int D, int J,
-                                        int n_tiles, int apply_relu) {
+// Shared-memory layout of gate_scatter_bwd_kernel, offsets in floats: the
+// tile's cotangent, ins, the half-warps' dins partials, then a ring of
+// stages of [kStage, D] values (16-byte aligned), scatter and prior.
+struct BwdLayout {
+  int g, ins, dins, ring, vals, stage, total;
+  __host__ __device__ BwdLayout(int D, int J, int elem, int stages) {
+    g = 0;                                    // [kTileE, J*D]
+    ins = g + kTileE * J * D;                 // [J*D]
+    dins = ins + J * D;                       // [kHalves, J*D]
+    ring = (dins + kHalves * J * D + 3) & ~3;
+    vals = kStage * D * elem / 4;          // a multiple of 4 floats
+    stage = vals + 2 * kStage;             // + scatter, prior
+    total = ring + stages * stage;
+  }
+};
+
+// g [ndir,B,n_tiles*128,J*D] f32; grid (n_tiles, kParts, ndir*B),
+// kBwdThreads. Block (t, part, d*B + b) takes part `part` of tile t's chunk
+// range of direction d, sample b. kJ = J (at most kRegJ, with D <= 64):
+// each lane keeps ins and its half-warp's dins partial for its columns k =
+// lane + 16 q (q < 4) in registers; kJ = 0 (any J and D): both in shared
+// memory. The two add in the same order.
+constexpr int kRegJ = 3;
+template <typename T, int kJ>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+    gate_scatter_bwd_kernel(DirPtrs p, const T* __restrict__ ins,
+                            const float* __restrict__ g, BwdOut o, int B,
+                            int Fp, int D, int J, int n_tiles, int apply_relu,
+                            int stages) {
   extern __shared__ __align__(16) float smem[];
   const int JD = J * D;
-  const int nwarps = kBwdThreads / 32;
-  float* s_g = smem;                    // [kTileE, JD] cotangent rows of the tile
-  float* s_ins = s_g + kTileE * JD;     // [JD]
-  float* s_dins = s_ins + JD;           // [nwarps, JD] per-warp dins partials
-
-  const int t = blockIdx.x, b = blockIdx.y, d = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t = blockIdx.x, part = blockIdx.y;
+  const int d = blockIdx.z / B, b = blockIdx.z - d * B;
+  const int tid = threadIdx.x;
   const bool need_dins = o.dins_ws != nullptr;
-  const int row0 = t * kTileE;
   const size_t db = (size_t)d * B + b;
-
-  // stage the tile's [128, JD] slice of g: one contiguous, 16-byte aligned
-  // block (128 * JD floats is a multiple of 4)
-  const uint4* src = reinterpret_cast<const uint4*>(
-      g + (db * n_tiles * kTileE + row0) * JD);
-  uint4* dst = reinterpret_cast<uint4*>(s_g);
-  for (int i = threadIdx.x; i < kTileE * JD / 4; i += kBwdThreads)
-    __pipeline_memcpy_async(dst + i, src + i, 16);
-  __pipeline_commit();
-  for (int c = threadIdx.x; c < JD; c += kBwdThreads)
-    s_ins[c] = to_float(ins[(size_t)b * JD + c]);
-  if (need_dins)
-    for (int c = threadIdx.x; c < nwarps * JD; c += kBwdThreads) s_dins[c] = 0.f;
-  __pipeline_wait_prior(0);
-  __syncthreads();
-
   const int32_t* cs = (d ? p.chunk_starts[1] : p.chunk_starts[0]) +
                       (size_t)b * (n_tiles + 1);
-  const int f_begin = cs[t] * kTileF, f_end = cs[t + 1] * kTileF;
-  const int f_last = cs[n_tiles] * kTileF;  // end of the last tile's range
   const int32_t* sc = (d ? p.scatter[1] : p.scatter[0]) + (size_t)b * Fp;
   const float* pr = (d ? p.prior[1] : p.prior[0]) + (size_t)b * Fp;
   const T* vl = static_cast<const T*>(d ? p.vals[1] : p.vals[0]) +
                 (size_t)b * Fp * D;
   T* dv = static_cast<T*>(o.dvals) + db * Fp * D;
   float* dp = o.dprior ? o.dprior + db * Fp : nullptr;
-  float* s_dw = s_dins + warp * JD;
 
-  for (int f = f_begin + warp; f < f_end; f += nwarps) {
-    const int r = sc[f] - row0;
-    T* dv_row = dv + (size_t)f * D;
-    if ((unsigned)r >= (unsigned)kTileE) {  // pad slot (scatter < 0)
-      for (int k = lane; k < D; k += 32) dv_row[k] = from_float<T>(0.f);
+  // slots past the last tile's range: every block of (d, b) zeroes its share
+  {
+    const int nwarps = kBwdThreads / 32, lane = tid & 31, warp = tid >> 5;
+    const int f_last = cs[n_tiles] * kTileF;
+    const int step = n_tiles * kParts * nwarps;
+    for (int f = f_last + (t * kParts + part) * nwarps + warp; f < Fp;
+         f += step) {
+      for (int k = lane; k < D; k += 32) dv[(size_t)f * D + k] = from_float<T>(0.f);
       if (dp && lane == 0) dp[f] = 0.f;
-      continue;
     }
-    const float pri = pr[f];
-    const float* g_row = s_g + r * JD;
-    const T* v_row = vl + (size_t)f * D;
-    float dpri = 0.f;
-    for (int k = lane; k < D; k += 32) {
-      const float v = to_float(v_row[k]);
-      float dvk = 0.f;
-      for (int j = 0; j < J; ++j) {
-        const int c = j * D + k;
-        const float in = s_ins[c];
-        const float gb = g_row[c];
+  }
+  const int c0 = cs[t], nch = cs[t + 1] - c0;
+  const int parts = split_parts(nch, kBwdPartChunks);
+  if (part >= parts) return;   // an empty part writes no partial
+  const int f_begin = (c0 + part * nch / parts) * kTileF;
+  const int f_end = (c0 + (part + 1) * nch / parts) * kTileF;
+  const int row0 = t * kTileE;
+
+  const BwdLayout lay(D, J, (int)sizeof(T), stages);
+  float* s_g = smem + lay.g;
+  float* s_ins = smem + lay.ins;
+  float* s_dins = smem + lay.dins;
+
+  // the tile's [128, JD] slice of g: one contiguous, 16-byte aligned block
+  // (128 * JD floats is a multiple of 4)
+  const uint4* gsrc = reinterpret_cast<const uint4*>(
+      g + (db * n_tiles * kTileE + row0) * JD);
+  uint4* gdst = reinterpret_cast<uint4*>(s_g);
+  for (int i = tid; i < kTileE * JD / 4; i += kBwdThreads)
+    __pipeline_memcpy_async(gdst + i, gsrc + i, 16);
+  __pipeline_commit();
+  const int half = tid >> 4, l = tid & 15;
+  constexpr int kRJ = kJ > 0 ? kJ : 1;
+  float in_r[kRJ][4], dins_r[kRJ][4];
+  if constexpr (kJ > 0) {
+#pragma unroll
+    for (int j = 0; j < kJ; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k = l + 16 * q;
+        in_r[j][q] = k < D ? to_float(ins[(size_t)b * JD + j * D + k]) : 0.f;
+        dins_r[j][q] = 0.f;
+      }
+  } else {
+    for (int c = tid; c < JD; c += kBwdThreads)
+      s_ins[c] = to_float(ins[(size_t)b * JD + c]);
+    if (need_dins)
+      for (int c = tid; c < kHalves * JD; c += kBwdThreads) s_dins[c] = 0.f;
+  }
+
+  // stage st of the walk into ring slot st % stages: [kStage, D] values
+  // (one contiguous, 16-byte aligned block) in 16-byte copies, scatter and
+  // prior in 4-byte ones; one commit group a stage, empty past the range
+  const int n_stages = (f_end - f_begin) / kStage;
+  const int n16 = kStage * D * (int)sizeof(T) / 16;
+  auto issue = [&](int st) {
+    if (st < n_stages) {
+      const int f0 = f_begin + st * kStage;
+      float* buf = smem + lay.ring + (st % stages) * lay.stage;
+      const uint4* src = reinterpret_cast<const uint4*>(vl + (size_t)f0 * D);
+      uint4* dst = reinterpret_cast<uint4*>(buf);
+      for (int i = tid; i < n16; i += kBwdThreads)
+        __pipeline_memcpy_async(dst + i, src + i, 16);
+      if (tid < kStage)
+        __pipeline_memcpy_async(buf + lay.vals + tid, sc + f0 + tid, 4);
+      else if (tid < 2 * kStage)
+        __pipeline_memcpy_async(buf + lay.vals + tid, pr + f0 + tid - kStage,
+                                4);
+    }
+    __pipeline_commit();
+  };
+  for (int st = 0; st < stages - 1; ++st) issue(st);
+
+  float* s_dh = s_dins + half * JD;   // this half-warp's dins partial
+  for (int st = 0; st < n_stages; ++st) {
+    // this stage (and g) landed for this thread; the barrier makes every
+    // thread's copies visible and frees the ring slot of stage st - 1
+    __pipeline_wait_prior(stages - 2);
+    __syncthreads();
+    issue(st + stages - 1);
+    const float* buf = smem + lay.ring + (st % stages) * lay.stage;
+    const T* s_val = reinterpret_cast<const T*>(buf);
+    const int32_t* s_sc = reinterpret_cast<const int32_t*>(buf + lay.vals);
+    const float* s_pr = buf + lay.vals + kStage;
+    const int f0 = f_begin + st * kStage;
+    for (int i = half; i < kStage; i += kHalves) {
+      const int r = s_sc[i] - row0;
+      const bool valid = (unsigned)r < (unsigned)kTileE;  // else a pad slot
+      const float pri = s_pr[i];
+      const float* g_row = s_g + (valid ? r : 0) * JD;
+      const T* v_row = s_val + i * D;
+      T* dv_row = dv + (size_t)(f0 + i) * D;
+      float dpri = 0.f;
+      // one (column, instruction) of the slot: dpri, dvals and dins terms
+      auto term = [&](float v, float in, float gb, float& dvk, float& dins) {
         const float pre = v * in;
         dpri += gb * (apply_relu ? fmaxf(pre, 0.f) : pre);
         const float dval = (apply_relu && !(pre > 0.f)) ? 0.f : gb * pri;
         dvk += dval * in;
-        if (need_dins) s_dw[c] += dval * v;
+        dins += dval * v;
+      };
+      if constexpr (kJ > 0) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int k = l + 16 * q;
+          if (k >= D) continue;
+          float dvk = 0.f;
+          if (valid) {
+            const float v = to_float(v_row[k]);
+#pragma unroll
+            for (int j = 0; j < kJ; ++j)
+              term(v, in_r[j][q], g_row[j * D + k], dvk, dins_r[j][q]);
+          }
+          dv_row[k] = from_float<T>(dvk);
+        }
+      } else {
+        for (int k = l; k < D; k += 16) {
+          float dvk = 0.f;
+          if (valid) {
+            const float v = to_float(v_row[k]);
+            for (int j = 0; j < J; ++j) {
+              const int c = j * D + k;
+              float dins = need_dins ? s_dh[c] : 0.f;
+              term(v, s_ins[c], g_row[c], dvk, dins);
+              if (need_dins) s_dh[c] = dins;
+            }
+          }
+          dv_row[k] = from_float<T>(dvk);
+        }
       }
-      dv_row[k] = from_float<T>(dvk);
+      if (dp) {   // both halves of the warp run the same trip counts
+        for (int off = 8; off > 0; off >>= 1)
+          dpri += __shfl_xor_sync(0xffffffffu, dpri, off);
+        if (l == 0) dp[f0 + i] = dpri;
+      }
     }
-    if (dp) {
-      for (int off = 16; off > 0; off >>= 1)
-        dpri += __shfl_xor_sync(0xffffffffu, dpri, off);
-      if (lane == 0) dp[f] = dpri;
-    }
-  }
-  // slots past the last tile's range: every block zeroes its share
-  for (int f = f_last + t * nwarps + warp; f < Fp; f += n_tiles * nwarps) {
-    for (int k = lane; k < D; k += 32) dv[(size_t)f * D + k] = from_float<T>(0.f);
-    if (dp && lane == 0) dp[f] = 0.f;
   }
 
   if (need_dins) {
+    if constexpr (kJ > 0) {
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (l + 16 * q < D) s_dh[j * D + l + 16 * q] = dins_r[j][q];
+    }
     __syncthreads();
-    float* ws = o.dins_ws + (db * n_tiles + t) * JD;
-    for (int c = threadIdx.x; c < JD; c += kBwdThreads) {
+    float* ws = o.dins_ws + ((db * n_tiles + t) * kParts + part) * JD;
+    for (int c = tid; c < JD; c += kBwdThreads) {
       float s = 0.f;
-      for (int w = 0; w < nwarps; ++w) s += s_dins[w * JD + c];
+      for (int h = 0; h < kHalves; ++h) s += s_dins[h * JD + c];
       ws[c] = s;
     }
-  }
-}
-
-// dins[b, c] = sum over directions, then tiles, of the partials; grid (B).
-template <typename T>
-__global__ void dins_reduce_kernel(const float* __restrict__ ws,
-                                   T* __restrict__ dins, int ndir, int B,
-                                   int n_tiles, int JD) {
-  const int b = blockIdx.x;
-  for (int c = threadIdx.x; c < JD; c += blockDim.x) {
-    float s = 0.f;
-    for (int d = 0; d < ndir; ++d) {
-      const float* w = ws + (((size_t)d * B + b) * n_tiles) * JD + c;
-      for (int t = 0; t < n_tiles; ++t) s += w[(size_t)t * JD];
-    }
-    dins[(size_t)b * JD + c] = from_float<T>(s);
   }
 }
 
@@ -454,70 +579,68 @@ int launch_bwd(const DirPtrs& p, const void* ins, const float* g,
                const BwdOut& o, void* dins, int ndir, int B, int Fp, int D,
                int J, int n_tiles, int apply_relu, void* stream) {
   const int JD = J * D;
-  const size_t smem = ((size_t)kTileE * JD + JD + (kBwdThreads / 32) * JD) *
-                      sizeof(float);
+  const BwdLayout one(D, J, (int)sizeof(T), 1), none(D, J, (int)sizeof(T), 0);
+  const int stages = ring_stages((size_t)none.total * sizeof(float),
+                                 (size_t)one.stage * sizeof(float));
+  const size_t smem =
+      (size_t)BwdLayout(D, J, (int)sizeof(T), stages).total * sizeof(float);
+  const int kj = D <= 64 && J <= kRegJ ? J : 0;
+  auto kernel = kj == 1   ? gate_scatter_bwd_kernel<T, 1>
+                : kj == 2 ? gate_scatter_bwd_kernel<T, 2>
+                : kj == 3 ? gate_scatter_bwd_kernel<T, 3>
+                          : gate_scatter_bwd_kernel<T, 0>;
   cudaError_t err = cudaFuncSetAttribute(
-      gate_scatter_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;
   }
-  dim3 grid(n_tiles, B, ndir);
-  gate_scatter_bwd_kernel<T><<<grid, kBwdThreads, smem, (cudaStream_t)stream>>>(
-      p, static_cast<const T*>(ins), g, o, B, Fp, D, J, n_tiles, apply_relu);
+  cudaStream_t s = (cudaStream_t)stream;
+  kernel<<<dim3(n_tiles, kParts, ndir * B), kBwdThreads, smem, s>>>(
+          p, static_cast<const T*>(ins), g, o, B, Fp, D, J, n_tiles,
+          apply_relu, stages);
   err = cudaGetLastError();
   if (err != cudaSuccess || o.dins_ws == nullptr) return (int)err;
-  dins_reduce_kernel<T><<<B, 128, 0, (cudaStream_t)stream>>>(
-      o.dins_ws, static_cast<T*>(dins), ndir, B, n_tiles, JD);
+  part_reduce_kernel<T>
+      <<<dim3((JD + kRedCols - 1) / kRedCols, B), dim3(kRedCols, kRedRows), 0,
+         s>>>(o.dins_ws, p.chunk_starts[0], p.chunk_starts[1], ndir,
+              kBwdPartChunks, n_tiles, n_tiles, JD, JD, static_cast<T*>(dins),
+              static_cast<T*>(nullptr));
   return (int)cudaGetLastError();
 }
 
-// The fused-projection backward stages kFbSlots fact slots at a time and
-// splits each tile's chunk range over up to kFbParts blocks.
-constexpr int kFbSlots = 64;      // fact slots a stage
-constexpr int kFbParts = 8;       // blocks a tile at most
-constexpr int kFbPartChunks = 2;  // least chunks a part takes
+// ---------------------------------------- fused-projection op (K6a-c)
+constexpr int kFbPartChunks = 2;  // least chunks a part of the backward takes
+constexpr int kFfPartChunks = 4;  // least chunks a part of the forward takes
 constexpr int kFbPre = 4;         // 16-byte fact_rel pieces a thread prefetches
+
+// rel_linear of the fused-projection op: w [D,D] (rl = fact_rel @ w + b) and
+// b [D], in the input type.
+struct Proj {
+  const void* w;
+  const void* b;
+};
 
 // Outputs of the fused-projection backward (one direction).
 struct ProjBwdOut {
   void* dfr;       // [B,Fp,D] T
   float* dprior;   // [B,Fp]
-  float* dins_ws;  // [B,n_tiles,kFbParts,J*D] per-part partials of dins
-  float* dw_ws;    // [B*n_tiles*kFbParts,D*D+D] per-part partials of dW, db
+  float* dins_ws;  // [B,n_tiles,kParts,J*D] per-part partials of dins
+  float* dw_ws;    // [B*n_tiles*kParts,D*D+D] per-part partials of dW, db
 };
 
-// A tile with n chunks runs in min(kFbParts, ceil(n / kFbPartChunks))
-// parts; the others of its kFbParts blocks are empty.
-__host__ __device__ __forceinline__ int fb_parts(int n) {
-  const int parts = (n + kFbPartChunks - 1) / kFbPartChunks;
-  return parts < kFbParts ? parts : kFbParts;
+// A forward tile with n chunks runs in clamp(n / kFfPartChunks, 1, kParts)
+// parts, each of at least kFfPartChunks chunks (a tile with none still
+// writes its zero rows). Part begins are then at least kFfPartChunks chunks
+// apart in a sample, so chunk c0 / kFfPartChunks, c0 the first chunk of a
+// part, names its partial tile in the workspace uniquely.
+__host__ __device__ __forceinline__ int ff_parts(int n) {
+  const int parts = n / kFfPartChunks;
+  return parts < 1 ? 1 : parts < kParts ? parts : kParts;
 }
-
-// Shared-memory layout of fused_bwd_kernel, offsets in floats. D is padded
-// to Dp, a multiple of 4, so every row starts on 16 bytes for float4 loads;
-// the padding of w, ins and the staged rows is zero.
-struct FbLayout {
-  int g, w, fr, x, dw, db, ins, bias, dins, dinsp, dpp, row, pri, total;
-  __host__ __device__ FbLayout(int D, int J) {
-    const int Dp = (D + 3) & ~3;
-    g = 0;                                 // [kTileE, J*D] the tile's cotangent
-    w = g + kTileE * J * D;                // [Dp, Dp] w[m, k]
-    fr = w + Dp * Dp;                      // [kFbSlots, Dp] the stage's fact_rel
-    x = fr + kFbSlots * Dp;                // [kFbSlots, Dp] the stage's drl
-    dw = x + kFbSlots * Dp;                // [Dp, Dp] this part's dW
-    db = dw + Dp * Dp;                     // [Dp] this part's db
-    ins = db + Dp;                         // [J, Dp]
-    bias = ins + J * Dp;                   // [Dp]
-    dins = bias + Dp;                      // [J*D] this part's dins
-    dinsp = dins + J * D;                  // [kFbSlots/4, J, Dp] group partials
-    dpp = dinsp + (kFbSlots / 4) * J * Dp; // [Dp/4, kFbSlots] dprior partials
-    row = dpp + (Dp / 4) * kFbSlots;       // [kFbSlots] int32
-    pri = row + kFbSlots;                  // [kFbSlots]
-    total = pri + kFbSlots;
-  }
-};
+__host__ __device__ __forceinline__ int ff_slots(int Fp) {
+  return (Fp / kTileF + kFfPartChunks - 1) / kFfPartChunks;
+}
 
 __device__ __forceinline__ void fma4(float (&acc)[4], float s, float4 v) {
   acc[0] = fmaf(s, v.x, acc[0]);
@@ -544,12 +667,368 @@ __device__ __forceinline__ float piece<__nv_bfloat16>(uint4 v, int u) {
   return __uint_as_float((word(v, u / 2) >> (16 * (u % 2))) << 16);
 }
 
-// The backward of the kProject forward. g [B,n_tiles*128,J*D] f32; grid
-// (n_tiles, kFbParts, B), kBwdThreads. Block (t, part, b) takes part `part`
-// of tile t's chunk range and walks it kFbSlots slots a stage:
-//   1. rl = fact_rel w + b, unrounded: each thread a 4-slot x 4-column tile
-//      of float4 loads (8 loads for 64 FMAs), then the gate backward on that
-//      tile in registers: drl (to shared memory), its dprior and dins
+// a[r][c] = sum_m fr[r * Dp + m] * w[m * Dp + c] over m in order (float, a
+// 4-slot x 4-column tile from float4 loads: 8 loads for 64 FMAs); fr points
+// at the tile's first row, w at its first column.
+__device__ __forceinline__ void tile4x4(const float* fr, const float* w,
+                                        int Dp, float (&a)[4][4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) a[r][c] = 0.f;
+  for (int m = 0; m < Dp; m += 4) {
+    float4 x[4], y[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) x[r] = ld4(fr + r * Dp + m);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) y[u] = ld4(w + (m + u) * Dp);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      fma4(a[r], x[r].x, y[0]);
+      fma4(a[r], x[r].y, y[1]);
+      fma4(a[r], x[r].z, y[2]);
+      fma4(a[r], x[r].w, y[3]);
+    }
+  }
+}
+
+// A stage of kStage fact slots of one sample: load() brings its [kStage,
+// D] fact_rel rows (one contiguous, 16-byte aligned block; kFbPre 16-byte
+// pieces a thread), rows within the tile and priors into registers, and
+// store() puts them in shared memory, the rows widened to float into a
+// [kStage, Dp] tile (a wider D loads its other pieces there). Loading a
+// stage ahead keeps its loads in flight while the block computes.
+template <typename T>
+struct SlotStager {
+  static constexpr int kV = 16 / sizeof(T);
+  const T* frg;
+  const int32_t* sc;
+  const float* pr;
+  int D, Dp, n16, row0, tid;
+  uint4 pre[kFbPre];
+  int32_t pre_row = 0;
+  float pre_pri = 0.f;
+
+  __device__ void load(int f0) {
+    const uint4* src = reinterpret_cast<const uint4*>(frg + (size_t)f0 * D);
+#pragma unroll
+    for (int q = 0; q < kFbPre; ++q) {
+      const int i = tid + q * kBwdThreads;
+      if (i < n16) pre[q] = src[i];
+    }
+    if (tid < kStage) {
+      pre_row = sc[f0 + tid] - row0;
+      pre_pri = pr[f0 + tid];
+    }
+  }
+  // piece i holds elements i kV .. i kV + kV - 1 of the [kStage, D]
+  // block, from row e0 / D on
+  __device__ void put(float* s_fr, int i, uint4 v) const {
+    const int e0 = i * kV, r0 = e0 / D;
+    int at = r0 * Dp + e0 - r0 * D, k = e0 - r0 * D;
+#pragma unroll
+    for (int u = 0; u < kV; ++u, ++k, ++at) {
+      if (k == D) {
+        k = 0;
+        at += Dp - D;
+      }
+      s_fr[at] = piece<T>(v, u);
+    }
+  }
+  // kRoundPrior: the prior rounded to T, as the forward's one-hot operand
+  template <bool kRoundPrior>
+  __device__ void store(int f0, float* s_fr, int32_t* s_row,
+                        float* s_pri) const {
+#pragma unroll
+    for (int q = 0; q < kFbPre; ++q) {
+      const int i = tid + q * kBwdThreads;
+      if (i < n16) put(s_fr, i, pre[q]);
+    }
+    const uint4* src = reinterpret_cast<const uint4*>(frg + (size_t)f0 * D);
+    for (int i = tid + kFbPre * kBwdThreads; i < n16; i += kBwdThreads)
+      put(s_fr, i, src[i]);
+    if (tid < kStage) {
+      s_row[tid] = pre_row;
+      s_pri[tid] = kRoundPrior ? to_float(from_float<T>(pre_pri)) : pre_pri;
+    }
+  }
+};
+
+// Shared-memory layout of fused_fwd_kernel, offsets in floats: the output
+// tile, w and b padded to Dp (zeros), the stage's fact_rel [kStage, Dp]
+// (float) and rl [kStage, Dp] (T), two buffers of the slots' rows and
+// priors, and the stage's slots sorted by gate group: entries {slot | row
+// << 8, prior} and each group's first entry.
+struct FfLayout {
+  int acc, w, bias, fr, rl, row, pri, ent, gfirst, total;
+  __host__ __device__ FfLayout(int D, int J) {
+    const int Dp = (D + 3) & ~3;
+    acc = 0;                          // [kTileE, J*D]
+    w = acc + kTileE * J * D;         // [Dp, Dp]
+    bias = w + Dp * Dp;               // [Dp]
+    fr = bias + Dp;                   // [kStage, Dp]
+    rl = fr + kStage * Dp;          // [kStage, Dp] T
+    row = rl + kStage * Dp;         // [2, kStage] int32
+    pri = row + 2 * kStage;         // [2, kStage]
+    ent = pri + 2 * kStage;         // [kStage] int2
+    gfirst = ent + 2 * kStage;      // [kBwdThreads + 1] int32
+    total = gfirst + kBwdThreads + 1;
+  }
+};
+
+// The fused-projection forward: out [B,n_tiles*128,J*D] f32 and ws [B,
+// ff_slots(Fp), 128*J*D] f32 (partial tiles of split tiles); grid
+// (n_tiles, kParts, B), kBwdThreads. Block (t, part, b) takes part `part`
+// of tile t's chunk range and walks it kStage slots a stage:
+//   A. rl = T(fact_rel w + b) of the stage, a 4-slot x 4-column tile a
+//      thread (tile4x4), into shared memory;
+//      meanwhile the last warp sorts the stage's slots by gate group (the
+//      group of row r is r % ngrp), keeping their order within each group;
+//   B. the next stage's rows go from registers to shared memory (and the
+//      one after is loaded), while every thread (grp, c) adds the gate of
+//      its group's slots into column c, four read-modify-writes at once
+//      when their rows differ.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+    fused_fwd_kernel(DirPtrs p, const T* __restrict__ ins, Proj proj,
+                     float* __restrict__ out, float* __restrict__ ws, int Fp,
+                     int D, int J, int n_tiles, int apply_relu) {
+  extern __shared__ __align__(16) float smem[];
+  const FfLayout lay(D, J);
+  const int Dp = (D + 3) & ~3, nq = Dp / 4, JD = J * D;
+  const int t = blockIdx.x, part = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int32_t* cs = p.chunk_starts[0] + (size_t)b * (n_tiles + 1);
+  const int c0 = cs[t], nch = cs[t + 1] - c0, parts = ff_parts(nch);
+  if (part >= parts) return;
+  const int cb = c0 + part * nch / parts, ce = c0 + (part + 1) * nch / parts;
+  const int f_begin = cb * kTileF, f_end = ce * kTileF;
+  const int row0 = t * kTileE;
+
+  float* acc = smem + lay.acc;
+  float* s_w = smem + lay.w;
+  float* s_b = smem + lay.bias;
+  float* s_fr = smem + lay.fr;
+  T* s_rl = reinterpret_cast<T*>(smem + lay.rl);
+  int32_t* s_row = reinterpret_cast<int32_t*>(smem + lay.row);
+  float* s_pri = smem + lay.pri;
+  int2* s_ent = reinterpret_cast<int2*>(smem + lay.ent);
+  int32_t* s_first = reinterpret_cast<int32_t*>(smem + lay.gfirst);
+
+  // the gate's threads: ngrp groups of JD, thread (grp, col) (one group
+  // of kBwdThreads taking columns col, col + kBwdThreads, ... when JD is
+  // wider than the block)
+  const int ngrp = kBwdThreads / JD > 1 ? kBwdThreads / JD : 1;
+  const int grp = tid / JD, col = tid - grp * JD;
+  const bool active = grp < ngrp;
+  const T* ins_b = ins + (size_t)b * JD;
+
+  float4* acc4 = reinterpret_cast<float4*>(acc);
+  for (int i = tid; i < kTileE * JD / 4; i += kBwdThreads)
+    acc4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const T* w = static_cast<const T*>(proj.w);
+  const T* bias = static_cast<const T*>(proj.b);
+  for (int i = tid; i < Dp * Dp; i += kBwdThreads) {
+    const int m = i / Dp, c = i - m * Dp;
+    s_w[i] = m < D && c < D ? to_float(w[m * D + c]) : 0.f;
+  }
+  for (int i = tid; i < Dp; i += kBwdThreads)
+    s_b[i] = i < D ? to_float(bias[i]) : 0.f;
+  for (int i = tid; i < kStage * Dp; i += kBwdThreads) s_fr[i] = 0.f;
+
+  SlotStager<T> stg{static_cast<const T*>(p.vals[0]) + (size_t)b * Fp * D,
+                    p.scatter[0] + (size_t)b * Fp, p.prior[0] + (size_t)b * Fp,
+                    D, Dp, kStage * D / SlotStager<T>::kV, row0, tid};
+  // a stage's fact_rel rows, and its slots' rows and priors into meta
+  // buffer `buf`
+  auto stash = [&](int f0, int buf) {
+    stg.template store<true>(f0, s_fr, s_row + buf * kStage,
+                             s_pri + buf * kStage);
+  };
+  // the last warp (its threads hold no projection tile at D <= 56): the
+  // slots of meta buffer `buf` sorted by gate group (pad slots dropped), in
+  // slot order within a group, by ballots over the two halves of the stage
+  auto sort_slots = [&](int buf) {
+    const int32_t* rows = s_row + buf * kStage;
+    const float* pri = s_pri + buf * kStage;
+    const int l = tid & 31, r0 = rows[l], r1 = rows[l + 32];
+    const int o0 = (unsigned)r0 < (unsigned)kTileE ? r0 % ngrp : -1;
+    const int o1 = (unsigned)r1 < (unsigned)kTileE ? r1 % ngrp : -1;
+    const unsigned below = (1u << l) - 1;
+    int first = 0;
+    for (int g = 0; g < ngrp; ++g) {
+      const unsigned b0 = __ballot_sync(0xffffffffu, o0 == g);
+      const unsigned b1 = __ballot_sync(0xffffffffu, o1 == g);
+      if (l == 0) s_first[g] = first;
+      if (o0 == g)
+        s_ent[first + __popc(b0 & below)] =
+            make_int2(l | (r0 << 8), __float_as_int(pri[l]));
+      if (o1 == g)
+        s_ent[first + __popc(b0) + __popc(b1 & below)] =
+            make_int2((l + 32) | (r1 << 8), __float_as_int(pri[l + 32]));
+      first += __popc(b0) + __popc(b1);
+    }
+    if (l == 0) s_first[ngrp] = first;
+  };
+  if (f_begin < f_end) {
+    stg.load(f_begin);
+    __syncthreads();   // the zero fill of s_fr before its rows land
+    stash(f_begin, 0);
+    if (f_begin + kStage < f_end) stg.load(f_begin + kStage);
+  }
+  for (int f0 = f_begin, buf = 0; f0 < f_end; f0 += kStage, buf ^= 1) {
+    __syncthreads();   // s_fr holds this stage; the last gate read s_rl
+    if (tid >= kBwdThreads - 32) sort_slots(buf);
+    // A. rl of the stage, rounded to T once
+    const int32_t* rows = s_row + buf * kStage;
+    for (int id = tid; id < (kStage / 4) * nq; id += kBwdThreads) {
+      const int ig = id / nq, kq = id - ig * nq;
+      // four pad slots (a tile's range ends in them): no gate reads their rl
+      const int4 r4 = *reinterpret_cast<const int4*>(rows + 4 * ig);
+      if (r4.x < 0 && r4.y < 0 && r4.z < 0 && r4.w < 0) continue;
+      float a[4][4];
+      tile4x4(s_fr + 4 * ig * Dp, s_w + 4 * kq, Dp, a);
+      const float4 bv = ld4(s_b + 4 * kq);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          s_rl[(4 * ig + r) * Dp + 4 * kq + c] = from_float<T>(a[r][c] + elem(bv, c));
+    }
+    __syncthreads();   // rl is complete; s_fr is free
+    // B. the next stage's rows in, then the gate of this one
+    if (f0 + kStage < f_end) {
+      stash(f0 + kStage, buf ^ 1);
+      if (f0 + 2 * kStage < f_end) stg.load(f0 + 2 * kStage);
+    }
+    if (!active) continue;
+    const int e0 = s_first[grp], n = s_first[grp + 1] - e0;
+    const int2* ent = s_ent + e0;
+    for (int c = col; c < JD; c += kBwdThreads) {
+      const int k = c % D;
+      const T ins_jk = ins_b[c];
+      float* acc_c = acc + c;
+      // slot (i, row, prior): acc_c[row * JD] += act(rl[i, k] * ins_jk) * prior
+      auto term = [&](int2 e, int& at, float& x, float& pr) {
+        at = (e.x >> 8) * JD;
+        x = to_float(mul(s_rl[(e.x & 255) * Dp + k], ins_jk));
+        if (apply_relu) x = fmaxf(x, 0.f);
+        pr = __int_as_float(e.y);
+      };
+      int q = 0;
+      for (; q + 4 <= n; q += 4) {
+        int at[4];
+        float x[4], pr[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) term(ent[q + u], at[u], x[u], pr[u]);
+        if (at[0] != at[1] && at[0] != at[2] && at[0] != at[3] &&
+            at[1] != at[2] && at[1] != at[3] && at[2] != at[3]) {
+          float a[4];   // four rows: their sums are independent
+#pragma unroll
+          for (int u = 0; u < 4; ++u) a[u] = acc_c[at[u]];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) acc_c[at[u]] = fmaf(x[u], pr[u], a[u]);
+        } else {
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            acc_c[at[u]] = fmaf(x[u], pr[u], acc_c[at[u]]);
+        }
+      }
+      for (; q < n; ++q) {
+        int at;
+        float x, pr;
+        term(ent[q], at, x, pr);
+        acc_c[at] = fmaf(x, pr, acc_c[at]);
+      }
+    }
+  }
+  __syncthreads();
+  // one part: the tile's rows; more: this part's partial tile
+  float* dst = parts == 1
+      ? out + ((size_t)b * n_tiles * kTileE + row0) * JD
+      : ws + ((size_t)b * ff_slots(Fp) + cb / kFfPartChunks) * kTileE * JD;
+  float4* dst4 = reinterpret_cast<float4*>(dst);
+  for (int i = tid; i < kTileE * JD / 4; i += kBwdThreads) dst4[i] = acc4[i];
+}
+
+// The split tiles of fused_fwd_kernel: out's rows of tile t = the sum of its
+// parts' partial tiles in part order. grid (n_tiles, B), kBwdThreads;
+// n4 = 128*J*D/4 float4s a tile.
+__global__ void fused_fwd_sum_kernel(const float* __restrict__ ws,
+                                     const int32_t* __restrict__ chunk_starts,
+                                     float* __restrict__ out, int Fp,
+                                     int n_tiles, int n4) {
+  const int t = blockIdx.x, b = blockIdx.y;
+  const int32_t* cs = chunk_starts + (size_t)b * (n_tiles + 1);
+  const int c0 = cs[t], nch = cs[t + 1] - c0, parts = ff_parts(nch);
+  if (parts < 2) return;   // the tile's rows were written directly
+  const float4* ws4 = reinterpret_cast<const float4*>(ws);
+  const size_t slot0 = (size_t)b * ff_slots(Fp);
+  float4* o4 = reinterpret_cast<float4*>(out) + ((size_t)b * n_tiles + t) * n4;
+  for (int e = threadIdx.x; e < n4; e += kBwdThreads) {
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int q = 0; q < parts; ++q) {
+      const int cb = c0 + q * nch / parts;
+      const float4 v = ws4[(slot0 + cb / kFfPartChunks) * n4 + e];
+      s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+    }
+    o4[e] = s;
+  }
+}
+
+template <typename T>
+int launch_fused_fwd(const DirPtrs& p, const void* ins, Proj proj, void* out,
+                     void* ws, int B, int Fp, int D, int J, int n_tiles,
+                     int apply_relu, void* stream) {
+  const size_t smem = (size_t)FfLayout(D, J).total * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  float* o = static_cast<float*>(out);
+  float* w = static_cast<float*>(ws);
+  fused_fwd_kernel<T><<<dim3(n_tiles, kParts, B), kBwdThreads, smem, s>>>(
+      p, static_cast<const T*>(ins), proj, o, w, Fp, D, J, n_tiles,
+      apply_relu);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  fused_fwd_sum_kernel<<<dim3(n_tiles, B), kBwdThreads, 0, s>>>(
+      w, p.chunk_starts[0], o, Fp, n_tiles, kTileE * J * D / 4);
+  return (int)cudaGetLastError();
+}
+
+// Shared-memory layout of fused_bwd_kernel, offsets in floats. D is padded
+// to Dp, a multiple of 4, so every row starts on 16 bytes for float4 loads;
+// the padding of w, ins and the staged rows is zero.
+struct FbLayout {
+  int g, w, fr, x, dw, db, ins, bias, dins, dinsp, dpp, row, pri, total;
+  __host__ __device__ FbLayout(int D, int J) {
+    const int Dp = (D + 3) & ~3;
+    g = 0;                                 // [kTileE, J*D] the tile's cotangent
+    w = g + kTileE * J * D;                // [Dp, Dp] w[m, k]
+    fr = w + Dp * Dp;                      // [kStage, Dp] the stage's fact_rel
+    x = fr + kStage * Dp;                // [kStage, Dp] the stage's drl
+    dw = x + kStage * Dp;                // [Dp, Dp] this part's dW
+    db = dw + Dp * Dp;                     // [Dp] this part's db
+    ins = db + Dp;                         // [J, Dp]
+    bias = ins + J * Dp;                   // [Dp]
+    dins = bias + Dp;                      // [J*D] this part's dins
+    dinsp = dins + J * D;                  // [kStage/4, J, Dp] group partials
+    dpp = dinsp + (kStage / 4) * J * Dp; // [Dp/4, kStage] dprior partials
+    row = dpp + (Dp / 4) * kStage;       // [kStage] int32
+    pri = row + kStage;                  // [kStage]
+    total = pri + kStage;
+  }
+};
+
+// The backward of the fused forward. g [B,n_tiles*128,J*D] f32; grid
+// (n_tiles, kParts, B), kBwdThreads. Block (t, part, b) takes part `part`
+// of tile t's chunk range and walks it kStage slots a stage:
+//   1. rl = fact_rel w + b, unrounded (tile4x4), then the gate backward on
+//      that tile in registers: drl (to shared memory), its dprior and dins
 //      partials;
 //   2. dprior of each slot and this part's dins (one thread a column) from
 //      the partials, in a fixed order; dfact_rel = drl w^T (a 4 x 4 tile a
@@ -569,9 +1048,6 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
   const int t = blockIdx.x, part = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x;
   const int32_t* cs = p.chunk_starts[0] + (size_t)b * (n_tiles + 1);
-  const int32_t* sc = p.scatter[0] + (size_t)b * Fp;
-  const float* pr = p.prior[0] + (size_t)b * Fp;
-  const T* frg = static_cast<const T*>(p.vals[0]) + (size_t)b * Fp * D;
   T* dfr = static_cast<T*>(o.dfr) + (size_t)b * Fp * D;
   float* dp = o.dprior + (size_t)b * Fp;
 
@@ -579,14 +1055,15 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
   {
     const int nwarps = kBwdThreads / 32, lane = tid & 31, warp = tid >> 5;
     const int f_last = cs[n_tiles] * kTileF;
-    const int step = n_tiles * kFbParts * nwarps;
-    for (int f = f_last + (t * kFbParts + part) * nwarps + warp; f < Fp;
+    const int step = n_tiles * kParts * nwarps;
+    for (int f = f_last + (t * kParts + part) * nwarps + warp; f < Fp;
          f += step) {
       for (int k = lane; k < D; k += 32) dfr[(size_t)f * D + k] = from_float<T>(0.f);
       if (lane == 0) dp[f] = 0.f;
     }
   }
-  const int c0 = cs[t], nch = cs[t + 1] - c0, parts = fb_parts(nch);
+  const int c0 = cs[t], nch = cs[t + 1] - c0;
+  const int parts = split_parts(nch, kFbPartChunks);
   if (part >= parts) return;   // an empty part writes no partials
   const int f_begin = (c0 + part * nch / parts) * kTileF;
   const int f_end = (c0 + (part + 1) * nch / parts) * kTileF;
@@ -629,78 +1106,25 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
     s_ins[i] = k < D ? to_float(ins[(size_t)b * JD + j * D + k]) : 0.f;
   }
   for (int c = tid; c < JD; c += kBwdThreads) s_dins[c] = 0.f;
-  for (int i = tid; i < kFbSlots * Dp; i += kBwdThreads) s_fr[i] = 0.f;
+  for (int i = tid; i < kStage * Dp; i += kBwdThreads) s_fr[i] = 0.f;
 
-  // a stage's [kFbSlots, D] fact_rel rows are one contiguous, 16-byte
-  // aligned block: kFbPre 16-byte pieces a thread go through registers,
-  // loaded a stage ahead; a wider D loads the rest when it is stored
-  constexpr int kV = 16 / sizeof(T);
-  const int n16 = kFbSlots * D / kV;
-  uint4 pre[kFbPre];
-  int32_t pre_row = 0;
-  float pre_pri = 0.f;
-  auto fetch = [&](int f0) {
-    const uint4* src = reinterpret_cast<const uint4*>(frg + (size_t)f0 * D);
-#pragma unroll
-    for (int q = 0; q < kFbPre; ++q) {
-      const int i = tid + q * kBwdThreads;
-      if (i < n16) pre[q] = src[i];
-    }
-    if (tid < kFbSlots) {
-      pre_row = sc[f0 + tid] - row0;
-      pre_pri = pr[f0 + tid];         // unrounded, as the TPU backward
-    }
-  };
-  auto put = [&](int i, uint4 v) {
-#pragma unroll
-    for (int u = 0; u < kV; ++u) {
-      const int e = i * kV + u, r = e / D;
-      s_fr[r * Dp + e - r * D] = piece<T>(v, u);
-    }
-  };
-  auto stash = [&](int f0) {
-#pragma unroll
-    for (int q = 0; q < kFbPre; ++q) {
-      const int i = tid + q * kBwdThreads;
-      if (i < n16) put(i, pre[q]);
-    }
-    const uint4* src = reinterpret_cast<const uint4*>(frg + (size_t)f0 * D);
-    for (int i = tid + kFbPre * kBwdThreads; i < n16; i += kBwdThreads)
-      put(i, src[i]);
-    if (tid < kFbSlots) {
-      s_row[tid] = pre_row;
-      s_pri[tid] = pre_pri;
-    }
-  };
-
+  // the prior unrounded, as the TPU backward reads it
+  SlotStager<T> stg{static_cast<const T*>(p.vals[0]) + (size_t)b * Fp * D,
+                    p.scatter[0] + (size_t)b * Fp, p.prior[0] + (size_t)b * Fp,
+                    D, Dp, kStage * D / SlotStager<T>::kV, row0, tid};
   __pipeline_wait_prior(0);
-  fetch(f_begin);
-  for (int f0 = f_begin; f0 < f_end; f0 += kFbSlots) {
+  stg.load(f_begin);
+  for (int f0 = f_begin; f0 < f_end; f0 += kStage) {
     __syncthreads();   // the setup, or the previous stage's reads, are done
-    stash(f0);
-    if (f0 + kFbSlots < f_end) fetch(f0 + kFbSlots);
+    stg.template store<false>(f0, s_fr, s_row, s_pri);
+    if (f0 + kStage < f_end) stg.load(f0 + kStage);
     __syncthreads();
 
     // 1. rl tile, then the gate backward on it
-    for (int id = tid; id < (kFbSlots / 4) * nq; id += kBwdThreads) {
+    for (int id = tid; id < (kStage / 4) * nq; id += kBwdThreads) {
       const int ig = id / nq, kq = id - ig * nq;
-      float a[4][4] = {};                 // rl[4 ig + r][4 kq + c]
-      const float* fr = s_fr + 4 * ig * Dp;
-      const float* wc = s_w + 4 * kq;
-      for (int m = 0; m < Dp; m += 4) {
-        float4 x[4], y[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) x[r] = ld4(fr + r * Dp + m);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) y[u] = ld4(wc + (m + u) * Dp);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          fma4(a[r], x[r].x, y[0]);
-          fma4(a[r], x[r].y, y[1]);
-          fma4(a[r], x[r].z, y[2]);
-          fma4(a[r], x[r].w, y[3]);
-        }
-      }
+      float a[4][4];                      // rl[4 ig + r][4 kq + c]
+      tile4x4(s_fr + 4 * ig * Dp, s_w + 4 * kq, Dp, a);
       const float4 bv = ld4(s_b + 4 * kq);
       int rows[4];
       float pri[4], drl[4][4] = {}, dpri[4] = {};
@@ -737,28 +1161,28 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
       for (int r = 0; r < 4; ++r) {
         *reinterpret_cast<float4*>(s_x + (4 * ig + r) * Dp + 4 * kq) =
             make_float4(drl[r][0], drl[r][1], drl[r][2], drl[r][3]);
-        s_dpp[kq * kFbSlots + 4 * ig + r] = dpri[r];
+        s_dpp[kq * kStage + 4 * ig + r] = dpri[r];
       }
     }
     __syncthreads();
 
     // 2a. dprior of the stage's slots: the column groups in order
-    for (int i = tid; i < kFbSlots; i += kBwdThreads) {
+    for (int i = tid; i < kStage; i += kBwdThreads) {
       float s = 0.f;
-      for (int q = 0; q < nq; ++q) s += s_dpp[q * kFbSlots + i];
+      for (int q = 0; q < nq; ++q) s += s_dpp[q * kStage + i];
       dp[f0 + i] = (unsigned)s_row[i] < (unsigned)kTileE ? s : 0.f;
     }
     // 2b. this part's dins: a column a thread, the 4-slot groups in order
     for (int c = tid; c < JD; c += kBwdThreads) {
       const int j = c / D, k = c - j * D;
       float s = s_dins[c];
-      for (int ig = 0; ig < kFbSlots / 4; ++ig)
+      for (int ig = 0; ig < kStage / 4; ++ig)
         s += s_dinsp[(ig * J + j) * Dp + k];
       s_dins[c] = s;
     }
     // 2c. dfact_rel = drl w^T: 4 slots x the columns m = mq + nq mm of a
     // thread (w's rows at stride nq apart fall in distinct banks)
-    for (int id = tid; id < (kFbSlots / 4) * nq; id += kBwdThreads) {
+    for (int id = tid; id < (kStage / 4) * nq; id += kBwdThreads) {
       const int ig = id / nq, mq = id - ig * nq;
       float a[4][4] = {};                 // dfr[4 ig + r][mq + nq mm]
       const float* xr = s_x + 4 * ig * Dp;
@@ -800,7 +1224,7 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
           const float4 v = ld4(s_dw + (4 * mq + r) * Dp + 4 * kq);
           a[r][0] = v.x; a[r][1] = v.y; a[r][2] = v.z; a[r][3] = v.w;
         }
-        for (int i = 0; i < kFbSlots; ++i) {
+        for (int i = 0; i < kStage; ++i) {
           const float4 f = ld4(s_fr + i * Dp + 4 * mq);
           const float4 x = ld4(s_x + i * Dp + 4 * kq);
           fma4(a[0], f.x, x);
@@ -815,7 +1239,7 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
       } else {
         const int kq = id - nq * nq;
         float4 a = ld4(s_db + 4 * kq);
-        for (int i = 0; i < kFbSlots; ++i) {
+        for (int i = 0; i < kStage; ++i) {
           const float4 x = ld4(s_x + i * Dp + 4 * kq);
           a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
         }
@@ -824,58 +1248,12 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
     }
   }
   __syncthreads();
-  const size_t blk = ((size_t)b * n_tiles + t) * kFbParts + part;
+  const size_t blk = ((size_t)b * n_tiles + t) * kParts + part;
   for (int c = tid; c < JD; c += kBwdThreads) o.dins_ws[blk * JD + c] = s_dins[c];
   float* dw_ws = o.dw_ws + blk * (DD + D);
   for (int e = tid; e < DD + D; e += kBwdThreads) {
     const int m = e / D, k = e - m * D;
     dw_ws[e] = e < DD ? s_dw[m * Dp + k] : s_db[e - DD];
-  }
-}
-
-constexpr int kRedCols = 32, kRedRows = 32;
-
-// out = the sum of the non-empty parts' partials ws [groups, kFbParts,
-// width] of fused_bwd_kernel, in a fixed order, for each of the grid's
-// sets: set s adds groups s*n_groups .. (s+1)*n_groups - 1, a group being a
-// (sample, tile) whose part count comes from chunk_starts. kRedRows threads
-// add a contiguous strip of groups each (all of a group's parts loaded
-// before they are added in order), then the strips are added in order.
-// Entry e < split goes to out_a[s*split + e], the rest to out_b[e - split].
-// grid (ceil(width / kRedCols), sets), block (kRedCols, kRedRows).
-template <typename T>
-__global__ void part_reduce_kernel(const float* __restrict__ ws,
-                                   const int32_t* __restrict__ chunk_starts,
-                                   int n_tiles, int n_groups, int width,
-                                   int split, T* __restrict__ out_a,
-                                   T* __restrict__ out_b) {
-  __shared__ float strip[kRedRows][kRedCols];
-  const int e = blockIdx.x * kRedCols + threadIdx.x, set = blockIdx.y;
-  const int per = (n_groups + kRedRows - 1) / kRedRows;
-  const int i0 = threadIdx.y * per, i1 = min(n_groups, i0 + per);
-  float s = 0.f;
-  if (e < width) {
-    for (int i = i0; i < i1; ++i) {
-      const int gi = set * n_groups + i, bb = gi / n_tiles, t = gi - bb * n_tiles;
-      const int32_t* cs = chunk_starts + (size_t)bb * (n_tiles + 1);
-      const int parts = fb_parts(cs[t + 1] - cs[t]);
-      const float* src = ws + (size_t)gi * kFbParts * width + e;
-      float v[kFbParts];
-#pragma unroll
-      for (int q = 0; q < kFbParts; ++q)
-        v[q] = q < parts ? src[(size_t)q * width] : 0.f;
-#pragma unroll
-      for (int q = 0; q < kFbParts; ++q)
-        if (q < parts) s += v[q];
-    }
-  }
-  strip[threadIdx.y][threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.y == 0 && e < width) {
-    float sum = 0.f;
-    for (int r = 0; r < kRedRows; ++r) sum += strip[r][threadIdx.x];
-    if (e < split) out_a[(size_t)set * split + e] = from_float<T>(sum);
-    else out_b[e - split] = from_float<T>(sum);
   }
 }
 
@@ -894,17 +1272,18 @@ int launch_fused_bwd(const DirPtrs& p, const void* ins, Proj proj,
     return (int)err;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  fused_bwd_kernel<T><<<dim3(n_tiles, kFbParts, B), kBwdThreads, smem, s>>>(
+  fused_bwd_kernel<T><<<dim3(n_tiles, kParts, B), kBwdThreads, smem, s>>>(
       p, static_cast<const T*>(ins), proj, g, o, Fp, D, J, n_tiles,
       apply_relu);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const dim3 red(kRedCols, kRedRows);
+  const int32_t* cs = p.chunk_starts[0];
   part_reduce_kernel<T><<<dim3((JD + kRedCols - 1) / kRedCols, B), red, 0, s>>>(
-      o.dins_ws, p.chunk_starts[0], n_tiles, n_tiles, JD, JD,
+      o.dins_ws, cs, cs, 1, kFbPartChunks, n_tiles, n_tiles, JD, JD,
       static_cast<T*>(dins), static_cast<T*>(nullptr));
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   part_reduce_kernel<T><<<dim3((width + kRedCols - 1) / kRedCols, 1), red, 0,
-                          s>>>(o.dw_ws, p.chunk_starts[0], n_tiles,
+                          s>>>(o.dw_ws, cs, cs, 1, kFbPartChunks, n_tiles,
                                B * n_tiles, width, D * D,
                                static_cast<T*>(dw), static_cast<T*>(db));
   return (int)cudaGetLastError();
@@ -916,6 +1295,19 @@ DirPtrs one_direction(const void* vals, const void* prior, const void* scatter,
   const int32_t* sc = static_cast<const int32_t*>(scatter);
   const int32_t* cs = static_cast<const int32_t*>(chunk);
   return DirPtrs{{vals, vals}, {pr, pr}, {sc, sc}, {cs, cs}};
+}
+
+DirPtrs two_directions(const void* vals_0, const void* vals_1,
+                       const void* prior_0, const void* prior_1,
+                       const void* scatter_0, const void* scatter_1,
+                       const void* chunk_starts_0, const void* chunk_starts_1) {
+  return DirPtrs{{vals_0, vals_1},
+                 {static_cast<const float*>(prior_0),
+                  static_cast<const float*>(prior_1)},
+                 {static_cast<const int32_t*>(scatter_0),
+                  static_cast<const int32_t*>(scatter_1)},
+                 {static_cast<const int32_t*>(chunk_starts_0),
+                  static_cast<const int32_t*>(chunk_starts_1)}};
 }
 
 }  // namespace
@@ -932,44 +1324,46 @@ int gate_scatter_fwd(const void* vals_0, const void* vals_1, const void* ins,
                      const void* chunk_starts_0, const void* chunk_starts_1,
                      void* out, int ndir, int B, int Fp, int D, int J,
                      int n_tiles, int apply_relu, int bf16, void* stream) {
-  const DirPtrs p{{vals_0, vals_1},
-                  {static_cast<const float*>(prior_0),
-                   static_cast<const float*>(prior_1)},
-                  {static_cast<const int32_t*>(scatter_0),
-                   static_cast<const int32_t*>(scatter_1)},
-                  {static_cast<const int32_t*>(chunk_starts_0),
-                   static_cast<const int32_t*>(chunk_starts_1)}};
-  return bf16 ? launch<__nv_bfloat16, kGate>(p, ins, Proj{}, out, ndir, B, Fp,
-                                             D, J, n_tiles, apply_relu, stream)
-              : launch<float, kGate>(p, ins, Proj{}, out, ndir, B, Fp, D, J,
-                                     n_tiles, apply_relu, stream);
+  const DirPtrs p = two_directions(vals_0, vals_1, prior_0, prior_1, scatter_0,
+                                   scatter_1, chunk_starts_0, chunk_starts_1);
+  return bf16 ? launch<__nv_bfloat16, kGate>(p, ins, out, ndir, B, Fp, D, J,
+                                             n_tiles, apply_relu, stream)
+              : launch<float, kGate>(p, ins, out, ndir, B, Fp, D, J, n_tiles,
+                                     apply_relu, stream);
 }
+
+// Blocks a tile's chunk range is split over at most, in the backward
+// kernels' workspaces: gate_scatter_bwd's dins_ws and fused_gate_scatter_
+// bwd's dins_ws and dw_ws.
+int gate_scatter_parts() { return kParts; }
+
+// Partial tiles a sample's workspace of fused_gate_scatter_fwd holds.
+int fused_gate_scatter_fwd_slots(int Fp) { return ff_slots(Fp); }
 
 // The fused-projection forward, one direction: fact_rel [B,Fp,D], w [D,D],
 // bias [D] and ins [B,J,D] bfloat16 when bf16 is non-zero, else float;
 // prior [B,Fp] f32, scatter [B,Fp] i32, chunk_starts [B,n_tiles+1] i32;
-// out [B,n_tiles*128,J*D] f32. Returns a cudaError_t value.
+// out [B,n_tiles*128,J*D] f32; ws [B,fused_gate_scatter_fwd_slots(Fp),
+// 128*J*D] f32 scratch. Returns a cudaError_t value.
 int fused_gate_scatter_fwd(const void* fact_rel, const void* w,
                            const void* bias, const void* ins,
                            const void* prior, const void* scatter,
-                           const void* chunk_starts, void* out, int B, int Fp,
-                           int D, int J, int n_tiles, int apply_relu, int bf16,
-                           void* stream) {
+                           const void* chunk_starts, void* out, void* ws,
+                           int B, int Fp, int D, int J, int n_tiles,
+                           int apply_relu, int bf16, void* stream) {
   const DirPtrs p = one_direction(fact_rel, prior, scatter, chunk_starts);
   const Proj proj{w, bias};
-  return bf16 ? launch<__nv_bfloat16, kProject>(p, ins, proj, out, 1, B, Fp,
+  return bf16 ? launch_fused_fwd<__nv_bfloat16>(p, ins, proj, out, ws, B, Fp,
                                                 D, J, n_tiles, apply_relu,
                                                 stream)
-              : launch<float, kProject>(p, ins, proj, out, 1, B, Fp, D, J,
+              : launch_fused_fwd<float>(p, ins, proj, out, ws, B, Fp, D, J,
                                         n_tiles, apply_relu, stream);
 }
 
 // Its backward, inputs as there; g [B,E,J*D] f32. Writes dfr [B,Fp,D] and
 // dins [B,J,D], dw [D,D] and db [D] in the input type, dprior [B,Fp] f32;
 // dins_ws [B,n_tiles,P,J*D] and dw_ws [B*n_tiles*P,D*D+D] are f32 scratch,
-// P = fused_gate_scatter_bwd_parts().
-int fused_gate_scatter_bwd_parts() { return kFbParts; }
-
+// P = gate_scatter_parts().
 int fused_gate_scatter_bwd(const void* fact_rel, const void* w,
                            const void* bias, const void* ins,
                            const void* prior, const void* scatter,
@@ -997,16 +1391,17 @@ int scatter_mm_fwd(const void* values, const void* scatter,
                    const void* chunk_tiles, void* out, int B, int Fp, int C,
                    int n_tiles, int bf16, void* stream) {
   const DirPtrs p = one_direction(values, nullptr, scatter, chunk_tiles);
-  return bf16 ? launch<__nv_bfloat16, kScatter>(p, nullptr, Proj{}, out, 1, B,
-                                                Fp, C, 1, n_tiles, 0, stream)
-              : launch<float, kScatter>(p, nullptr, Proj{}, out, 1, B, Fp, C,
-                                        1, n_tiles, 0, stream);
+  return bf16 ? launch<__nv_bfloat16, kScatter>(p, nullptr, out, 1, B, Fp, C,
+                                                1, n_tiles, 0, stream)
+              : launch<float, kScatter>(p, nullptr, out, 1, B, Fp, C, 1,
+                                        n_tiles, 0, stream);
 }
 
 // The backward of gate_scatter_fwd, inputs as there; g [ndir,B,E,J*D] f32.
 // Writes dvals [ndir,B,Fp,D] (vals' type), dprior [ndir,B,Fp] f32 unless
 // dprior is null, and dins [B,J,D] (ins' type) unless dins_ws is null
-// (dins_ws: [ndir,B,n_tiles,J*D] f32 scratch). Returns a cudaError_t value.
+// (dins_ws: [ndir,B,n_tiles,P,J*D] f32 scratch, P = gate_scatter_parts()).
+// Returns a cudaError_t value.
 int gate_scatter_bwd(const void* vals_0, const void* vals_1, const void* ins,
                      const void* prior_0, const void* prior_1,
                      const void* scatter_0, const void* scatter_1,
@@ -1014,13 +1409,8 @@ int gate_scatter_bwd(const void* vals_0, const void* vals_1, const void* ins,
                      const void* g, void* dvals, void* dprior, void* dins_ws,
                      void* dins, int ndir, int B, int Fp, int D, int J,
                      int n_tiles, int apply_relu, int bf16, void* stream) {
-  const DirPtrs p{{vals_0, vals_1},
-                  {static_cast<const float*>(prior_0),
-                   static_cast<const float*>(prior_1)},
-                  {static_cast<const int32_t*>(scatter_0),
-                   static_cast<const int32_t*>(scatter_1)},
-                  {static_cast<const int32_t*>(chunk_starts_0),
-                   static_cast<const int32_t*>(chunk_starts_1)}};
+  const DirPtrs p = two_directions(vals_0, vals_1, prior_0, prior_1, scatter_0,
+                                   scatter_1, chunk_starts_0, chunk_starts_1);
   const BwdOut o{dvals, static_cast<float*>(dprior),
                  static_cast<float*>(dins_ws)};
   const float* gf = static_cast<const float*>(g);

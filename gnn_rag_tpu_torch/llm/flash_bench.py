@@ -1,24 +1,41 @@
-"""Time the bf16 flash kernels and the fused-projection backward of two
-trees of this repository in turns.
+"""Time the bf16 flash kernels, the gate-scatter kernels and the ReaRev train
+step of two trees of this repository in turns.
 
     python -m gnn_rag_tpu_torch.llm.flash_bench build/parent .
+    python -m gnn_rag_tpu_torch.llm.flash_bench --phases gate build/other .
 
-Each tree runs in a child process of its own (its own build of
-``csrc/flash_attention.cu`` and its own ``flash_attention`` module), in the
-order given and then reversed (A B B A), at the SFT step's shape B8 L2047
-H32 D128 bf16 on one card. Each child prints one JSON line: the tree, the
-card, and per kernel (fwd, dq, dkv) the CUDA-event median ms over 10 runs
-of 5 launches, the bound, its share of the bound and the achieved TFLOP/s,
-and each output's largest ratio to its tolerance against the plain
-versions (dk and dv also from the plain forward's lse and delta, the same
-inputs in both trees); then the fused-projection backward (K6c,
-``ops.gate_scatter.fused_gate_scatter_bwd``) at chip_smoke's kernel-fused
-shapes (WebQSP fp32 and bf16, CWQ fp32, and the skewed WebQSP layout; one
-direction, inputs from this tree's ``kernel_inputs``): CUDA-event median ms
-over 20 runs of 10 launches, the bound, and each output's largest ratio to
-its tolerance against the plain version. The timing, bound and tolerance
-helpers are ``chip_smoke.py``'s, loaded from this tree. Needs a CUDA card; imports nothing at module level
-but the standard library, so a child can load it by path.
+Each tree runs in a child process of its own (its own build of ``csrc/``
+and its own modules), in the order given and then reversed (A B B A), on
+one card. Each child prints one JSON line: the tree, the card, and per
+phase of ``--phases`` (default all three):
+
+- ``flash``: at the SFT step's shape B8 L2047 H32 D128 bf16, per kernel
+  (fwd, dq, dkv) the CUDA-event median ms over 10 runs of 5 launches, the
+  bound, its share of the bound and the achieved TFLOP/s, and each output's
+  largest ratio to its tolerance against the plain versions (dk and dv also
+  from the plain forward's lse and delta, the same inputs in both trees);
+- ``gate``: the gate-scatter kernels of ``ops.gate_scatter`` (the v4
+  forward K1 and backward K2, both directions; the fused-projection forward
+  K6a/b and backward K6c, one direction) at chip_smoke's kernel-fused
+  shapes (WebQSP fp32 and bf16, CWQ fp32, and the skewed WebQSP layout
+  ``SKEWED``; inputs from this tree's ``kernel_inputs``): ``ms``, the
+  CUDA-event median over 20 runs of 10 back-to-back calls (``median_ms``:
+  the wrapper's host time where that is longer than the kernels'), and
+  ``device_ms``, the same from replays of a CUDA graph of the calls
+  (``graph_ms``: the kernels alone), the bound, the share of it that each
+  reaches, and each output's largest ratio to its tolerance against the
+  plain version;
+- ``steps``: the headline ReaRev configuration (chip_smoke's
+  ``HEADLINE_FLAGS``, random weights) on one B8 batch of a 64-question
+  SynthQSP split made once for both trees: ms a train step
+  (``ms_per_step``, CUDA events around 20 steps) on the v2 and the v4 path
+  in eight windows in turns, and three profiled steps of each path (device
+  ms a step, busy share, each gate-scatter kernel's device ms and launches
+  a step).
+
+The timing, bound and tolerance helpers are ``chip_smoke.py``'s, loaded
+from this tree. Needs a CUDA card; imports nothing at module level but the
+standard library, so a child can load it by path.
 """
 
 from __future__ import annotations
@@ -29,16 +46,21 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
+PHASES = ("flash", "gate", "steps")
 SHAPE = (8, 2047, 32, 128)         # B, L, H, D of the SFT step's attention
 TIMING = dict(runs=10, reps=5, warmup=2)
 # a child loads this file by path and measures the tree in argv[2]
 _CHILD = ("import importlib.util as u, sys; "
           "s = u.spec_from_file_location('flash_bench', sys.argv[1]); "
           "m = u.module_from_spec(s); s.loader.exec_module(m); "
-          "m.measure(sys.argv[2])")
+          "m.measure(sys.argv[2], sys.argv[3].split(','), sys.argv[4])")
+# the gate-scatter kernels a profiled step reports: chip_smoke's, and the
+# dins reduction of trees whose part_reduce_kernel takes one direction
+OLDER_KERNEL_NAMES = ("dins_reduce_kernel",)
 
 
 def _load(name, path):
@@ -48,18 +70,37 @@ def _load(name, path):
     return mod
 
 
-def measure(tree):
-    """One tree's kernels: errors against the plain versions, then times."""
+def measure(tree, phases, data):
+    """One tree's phases; prints one JSON line."""
     import torch
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
-    from gnn_rag_tpu_torch.llm import flash_attention as fa
-    if not fa.__file__.startswith(tree + os.sep):
-        raise RuntimeError(f"flash_bench: imported {fa.__file__}, not {tree}")
+    import gnn_rag_tpu_torch
+    if not gnn_rag_tpu_torch.__file__.startswith(tree + os.sep):
+        raise RuntimeError(f"flash_bench: imported "
+                           f"{gnn_rag_tpu_torch.__file__}, not {tree}")
     smoke = _load("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
     if not torch.cuda.is_available():
         raise SystemExit("flash_bench: needs a CUDA card")
     device = torch.device("cuda", 0)
+    out = {}
+    if "flash" in phases:
+        out.update(measure_flash(smoke, device))
+    if "gate" in phases:
+        out["gate_scatter"] = measure_gate(smoke, device)
+    if "steps" in phases:
+        out["steps"] = measure_steps(smoke, device, data)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()
+    print(json.dumps(dict(tree=os.path.relpath(tree, REPO), card=smi[:1],
+                          **out)), flush=True)
+
+
+def measure_flash(smoke, device):
+    """The flash kernels: errors against the plain versions, then times."""
+    import torch
+    from gnn_rag_tpu_torch.llm import flash_attention as fa
     B, L, H, D = SHAPE
     gen = torch.Generator(device=device).manual_seed(smoke.SEED + 2)
     q, k, v, g = (torch.randn(SHAPE, generator=gen, device=device)
@@ -92,18 +133,17 @@ def measure(tree):
         kernels[name] = dict(ms=ms, bound_ms=bounds[name][0],
                              bound_share=bounds[name][0] / ms,
                              tflops=flops[name] / ms / 1e9)
-    fused = measure_fused(smoke, device)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip().splitlines()
-    print(json.dumps(dict(tree=os.path.relpath(tree, REPO), card=smi[:1],
-                          shape="B8 L2047 H32 D128 bf16", kernels=kernels,
-                          err_over_tol=errs, fused_bwd=fused)), flush=True)
+    del q, k, v, g, o, lse, delta, calls
+    torch.cuda.empty_cache()
+    return dict(shape="B8 L2047 H32 D128 bf16", kernels=kernels,
+                err_over_tol=errs)
 
 
-def measure_fused(smoke, device):
-    """{shape: ms, bound, share of the bound, largest error over tolerance}
-    of the tree's fused-projection backward kernel."""
+def measure_gate(smoke, device):
+    """{shape: {kernel: ms, device ms, bound, shares of the bound, largest
+    error over tolerance}} of the tree's gate-scatter kernels: the v4
+    forward (K1, both directions) and backward (K2, both directions), the
+    fused-projection forward (K6a/b) and backward (K6c, one direction)."""
     import math
 
     import numpy as np
@@ -113,39 +153,123 @@ def measure_fused(smoke, device):
     gen = torch.Generator(device=device).manual_seed(smoke.SEED + 3)
     rows = [r for r in smoke.KERNEL_SHAPES if r[0] in smoke.FUSED_SHAPES]
     out = {}
-    for name, B, E, F, J, D, dtype, relu in rows + [smoke.FUSED_SKEWED]:
+    for name, B, E, F, J, D, dtype, relu in rows + [smoke.SKEWED]:
         vals, ins, prior, scatter, starts, _ = smoke.kernel_inputs(
             B, E, F, J, D, dtype, relu, device, rng,
-            skew=name == smoke.FUSED_SKEWED[0])
+            skew=name == smoke.SKEWED[0])
         w = (torch.randn((D, D), generator=gen, device=device)
              / math.sqrt(D)).to(ins.dtype)
         b = (0.1 * torch.randn((D,), generator=gen, device=device)).to(ins.dtype)
-        g = torch.randn((B, E, J * D), generator=gen, device=device)
-        args = (vals[0], w, b, ins, prior[0], scatter[0], starts[0], g, relu)
-        got = gs.fused_gate_scatter_bwd(*args)
-        want = gs.fused_gate_scatter_bwd_plain(*args)
-        over = 0.0
-        for i, (a, r) in enumerate(zip(got, want)):
-            d = (a.float() - r.float()).abs()
-            tol = (smoke.bf16_tol(r) if r.dtype == torch.bfloat16
-                   else 1e-4 * r.float().abs().max())
-            over = max(over, d.div(tol).nan_to_num(nan=0.0).max().item())
-        ms = smoke.median_ms(lambda: gs.fused_gate_scatter_bwd(*args))
+        g2 = torch.randn((2, B, E, J * D), generator=gen, device=device)
+        bf16 = ins.dtype == torch.bfloat16
+        one = (vals[0], w, b, ins, prior[0], scatter[0], starts[0])
+        both = (vals, ins, prior, scatter, starts)
+        # (kernel, plain, bound args, tolerance: a share of max|ref| or
+        # (bf16 steps,) per element, as chip_smoke holds them)
+        calls = {
+            "k1": (lambda: gs.gate_scatter_fwd(*both, relu),
+                   lambda: gs.gate_scatter_fwd_plain(*both, relu),
+                   (False, 2, False), 2e-2 if bf16 else 1e-5),
+            "k2": (lambda: gs.gate_scatter_bwd(*both, g2, relu),
+                   lambda: gs.gate_scatter_bwd_plain(*both, g2, relu),
+                   (True, 2, False), 2e-2 if bf16 else 1e-5),
+            "k6ab": (lambda: gs.fused_gate_scatter_fwd(*one, relu),
+                     lambda: gs.fused_gate_scatter_fwd_plain(*one, relu),
+                     (False, 1, True), (2,) if bf16 else 1e-5),
+            "k6c": (lambda: gs.fused_gate_scatter_bwd(*one, g2[0], relu),
+                    lambda: gs.fused_gate_scatter_bwd_plain(*one, g2[0], relu),
+                    (True, 1, True), None)}
         row = dict(B=B, E=E, Fp=vals[0].shape[1], J=J, D=D, dtype=dtype)
-        bound = smoke.gate_bound(row, True, ndir=1, project=True)[0]
-        out[name] = dict(ms=ms, bound_ms=bound, bound_share=bound / ms,
-                         err_over_tol=over)
-        del vals, args, got, want
+        res = {}
+        for kernel, (fn, plain, (backward, ndir, project), rule) in calls.items():
+            got, want = _flat(fn()), _flat(plain())
+            over = 0.0
+            for a, r in zip(got, want):
+                d = (a.float() - r.float()).abs()
+                rl = rule
+                if rl is None:    # K6c: bf16 outputs one step, float 1e-4
+                    rl = (1,) if r.dtype == torch.bfloat16 else 1e-4
+                tol = (smoke.bf16_tol(r, *rl) if isinstance(rl, tuple)
+                       else rl * r.float().abs().max())
+                over = max(over, d.div(tol).nan_to_num(nan=0.0).max().item())
+            ms, device_ms = smoke.median_ms(fn), smoke.graph_ms(fn)
+            bound = smoke.gate_bound(row, backward, ndir=ndir,
+                                     project=project)[0]
+            res[kernel] = dict(ms=ms, device_ms=device_ms, bound_ms=bound,
+                               bound_share=bound / ms,
+                               device_bound_share=bound / device_ms,
+                               err_over_tol=over)
+            del got, want
+        out[name] = res
+        del vals, ins, prior, scatter, starts, one, both, g2, calls
     return out
+
+
+def measure_steps(smoke, device, data):
+    """The headline ReaRev B8 train step on the split in ``data``: ms a
+    step on the v2 and v4 paths in eight windows in turns, then three
+    profiled steps of each path."""
+    import torch
+    from gnn_rag_tpu_torch import cli
+    before = os.environ.get("GNN_RAG_GATE_SCATTER")
+    ctx = cli.assemble(smoke.HEADLINE_FLAGS + [
+        "--data_folder", data + "/", "--checkpoint_dir",
+        os.path.join(data, "ckpt"), "--experiment_name", "bench"])
+    tr = ctx["trainer"]
+    try:
+        batch = tr.train_data.make_batch(range(8)).to(device)
+        valid_w = torch.ones(8, device=device)
+        walls = {"v2": [], "v4": []}
+        for variant in ("v2", "v4", "v4", "v2") * 2:
+            os.environ["GNN_RAG_GATE_SCATTER"] = variant
+            walls[variant].append(smoke.ms_per_step(tr, batch, valid_w))
+        profiled = {}
+        for variant in ("v4", "v2"):
+            os.environ["GNN_RAG_GATE_SCATTER"] = variant
+            p = smoke.profile_step(
+                tr, batch, valid_w,
+                names=smoke.GATE_KERNEL_NAMES + OLDER_KERNEL_NAMES)
+            profiled[variant] = {k: p[k] for k in (
+                "profiled_step_wall_ms", "device_ms", "busy_share",
+                "device_kernels_per_step", "gate_scatter_ms_launches")}
+    finally:
+        tr.close()
+        if before is None:
+            os.environ.pop("GNN_RAG_GATE_SCATTER", None)
+        else:
+            os.environ["GNN_RAG_GATE_SCATTER"] = before
+    return dict(batch=8, steps_timed=smoke.TRAIN_STEPS,
+                batch_E=int(batch.seed_dist.shape[1]),
+                batch_Fp=int(batch.layout.fwd.scatter.shape[1]),
+                ms_per_step=walls, profiled=profiled)
+
+
+def _flat(x):
+    """The tensors of a kernel's result (nested tuples, None skipped)."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for item in x if item is not None for t in _flat(item)]
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("trees", nargs=2, help="two repository roots")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated phases of " + ", ".join(PHASES))
     args = ap.parse_args(argv)
-    for tree in args.trees + args.trees[::-1]:
-        subprocess.run([sys.executable, "-c", _CHILD, os.path.abspath(__file__),
-                        tree], cwd=REPO, check=True)
+    phases = args.phases.split(",")
+    if not phases or set(phases) - set(PHASES):
+        ap.error(f"--phases: {args.phases!r} (choose from {PHASES})")
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as data:
+        if "steps" in phases:
+            smoke = _load("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+            smoke.refbench(data, n_train=64, n_dev=16, n_test=16)
+        for tree in args.trees + args.trees[::-1]:
+            subprocess.run([sys.executable, "-c", _CHILD,
+                            os.path.abspath(__file__), tree,
+                            ",".join(phases), data], cwd=REPO, check=True)
 
 
 if __name__ == "__main__":

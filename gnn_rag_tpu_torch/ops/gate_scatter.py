@@ -13,9 +13,10 @@ Replaces the TPU kernels ``_fused_kernel_v4`` (gnn_rag_tpu/ops/pallas_mp.py:
 per-direction / per-instruction tiers for large E) and ``_fused_kernel_v3``
 (:565, one direction, ``[B, J, E, D]`` output). On the TPU the three exist
 because the resident output block must fit a scoped-VMEM budget; on the GPU
-one kernel (``csrc/gate_scatter.cu``) covers every E: each thread block owns
-one (direction, sample, 128-entity tile) and accumulates it in shared
-memory, so there is no size tier to dispatch on.
+one kernel (``csrc/gate_scatter.cu``) covers every E: each thread block of
+the forward owns one (direction, sample, 128-entity tile) and accumulates
+it in shared memory, so there is no size tier to dispatch on; the backward
+and the fused-projection kernels split a tile's facts over several blocks.
 
 What bounds it on an H100: it reads B*Fp*D input values per direction and
 writes B*E*J*D floats, with one multiply-add per (fact, column), so it is
@@ -36,11 +37,16 @@ scatter[f], :]`` and ``pre = vals[f] * ins_j`` in float32 it returns
 1[pre_j > 0] * ins_j`` and ``dins[b, j] = sum_f (...) * vals[f]``, summed in
 float32 with the prior unrounded (the TPU backward reads the prior in f32,
 pallas_mp.py:1018, although its forward rounds it). It is bound by memory
-traffic and load latency as the forward is: per direction it reads the
-[B, E, J*D] cotangent once, as whole-tile shared-memory copies, and the
-[B, Fp, D] values; one warp per fact slot writes that slot's dvals row once
-and reduces its dprior with warp shuffles; dins goes through per-tile
-partials summed in a fixed order, so no float atomics and a repeatable sum.
+traffic and load latency: per direction it reads the [B, E, J*D] cotangent
+once, as whole-tile shared-memory copies, and the [B, Fp, D] values. So
+that no slot waits on a dependent load from device memory, each block
+streams its slots 64 at a time through a ring of shared-memory stages
+(values, scatter and prior by asynchronous copies, the next stages in
+flight while one computes); half a warp takes a slot, writes its dvals row
+once and reduces its dprior with shuffles; a tile's chunk range is split
+over up to 8 blocks, so the few long tiles of a skewed subgraph do not set
+the time; dins goes through per-part partials summed in a fixed order
+(direction, tile, part), so no float atomics and a repeatable sum.
 
 ``GateScatterFn`` is the autograd op: its forward is ``gate_scatter_fwd`` and
 its backward ``gate_scatter_bwd``; ``gate_scatter_both`` and
@@ -59,11 +65,15 @@ without rounding it, reads the prior unrounded, and returns ``dfact_rel``,
 every block in a fixed order (no float atomics). ``FusedGateScatterFn`` is
 its autograd op. The forward adds 2*D*D flops per fact slot to the gate's
 bytes, so at D 50 in float32 its bytes and its operations take about the
-same least time; the backward adds 6*D*D and is bound by operations: its
-three D x D products are register-tiled SIMT GEMMs over shared memory (a
-4 x 4 tile a thread from float4 loads), and a tile's chunk range is split
-over several blocks whose dins and dW/db partials are added in a fixed
-order.
+same least time; the backward adds 6*D*D and is bound by operations. In
+both, the D x D products are register-tiled SIMT GEMMs over shared memory
+(a 4 x 4 tile a thread from float4 loads), the next stage's rows load
+while one computes, and a tile's chunk range is split over several blocks
+whose partials are added in a fixed order: the forward's partial output
+tiles by a second small kernel (a tile of one part writes its rows
+directly), the backward's dins and dW/db partials. Every thread of the
+forward's block runs its gate loop: thread (group, column) adds the slots
+whose row falls to its group.
 
 ``scatter_mm`` (values ``[B, Fp, C]`` -> ``[B, E, C]`` float32, a plain
 scatter-add over the same layout, found by ``chunk_tiles``) replaces
@@ -104,6 +114,8 @@ def build() -> str:
 
 def _load():
     global _lib
+    if _lib is not None:
+        return _lib
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
@@ -115,15 +127,17 @@ def _load():
                                              + [ctypes.c_int] * 8
                                              + [ctypes.c_void_p])
             lib.gate_scatter_bwd.restype = ctypes.c_int
-            for name, n_ptr, n_int in (("fused_gate_scatter_fwd", 8, 7),
+            for name, n_ptr, n_int in (("fused_gate_scatter_fwd", 9, 7),
                                        ("fused_gate_scatter_bwd", 15, 7),
                                        ("scatter_mm_fwd", 4, 5)):
                 fn = getattr(lib, name)
                 fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                                + [ctypes.c_void_p])
                 fn.restype = ctypes.c_int
-            lib.fused_gate_scatter_bwd_parts.argtypes = []
-            lib.fused_gate_scatter_bwd_parts.restype = ctypes.c_int
+            lib.gate_scatter_parts.argtypes = []
+            lib.gate_scatter_parts.restype = ctypes.c_int
+            lib.fused_gate_scatter_fwd_slots.argtypes = [ctypes.c_int]
+            lib.fused_gate_scatter_fwd_slots.restype = ctypes.c_int
             lib.gate_scatter_error_string.argtypes = [ctypes.c_int]
             lib.gate_scatter_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -296,7 +310,10 @@ def gate_scatter_bwd(vals, ins: torch.Tensor, prior, scatter, chunk_starts,
     dvals = torch.empty((ndir, B, Fp, D), dtype=vals[0].dtype, device=dev)
     dprior = (torch.empty((ndir, B, Fp), dtype=torch.float32, device=dev)
               if need_dprior else None)
-    ws = (torch.empty((ndir, B, n_tiles, J * D), dtype=torch.float32,
+    # per-part partials of dins: each tile's chunk range runs in up to P
+    # blocks
+    P = _load().gate_scatter_parts()
+    ws = (torch.empty((ndir, B, n_tiles, P, J * D), dtype=torch.float32,
                       device=dev) if need_dins else None)
     dins = torch.empty(ins.shape, dtype=ins.dtype, device=dev) if need_dins else None
     _launch("gate_scatter_bwd", dev,
@@ -437,10 +454,14 @@ def fused_gate_scatter_fwd(fact_rel: torch.Tensor, w: torch.Tensor,
     n_tiles = chunk_starts.shape[-1] - 1
     out = torch.empty((B, n_tiles * TILE_E, J * D), dtype=torch.float32,
                       device=ins.device)
+    # partial tiles of the tiles whose chunk range is split over blocks
+    slots = _load().fused_gate_scatter_fwd_slots(Fp)
+    ws = torch.empty((B, slots, TILE_E * J * D), dtype=torch.float32,
+                     device=ins.device)
     _launch("fused_gate_scatter_fwd", ins.device, fact_rel.data_ptr(),
             w.data_ptr(), bias.data_ptr(), ins.data_ptr(), prior.data_ptr(),
-            scatter.data_ptr(), chunk_starts.data_ptr(), out.data_ptr(), B,
-            Fp, D, J, n_tiles, int(bool(apply_relu)),
+            scatter.data_ptr(), chunk_starts.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), B, Fp, D, J, n_tiles, int(bool(apply_relu)),
             int(ins.dtype == torch.bfloat16))
     fused_launches += 1
     return out
@@ -513,7 +534,7 @@ def fused_gate_scatter_bwd(fact_rel: torch.Tensor, w: torch.Tensor,
     dins, dw, db = empty(ins.shape, ins.dtype), empty(w.shape, w.dtype), empty(
         bias.shape, bias.dtype)
     # per-part partials: each tile's chunk range runs in up to P blocks
-    P = _load().fused_gate_scatter_bwd_parts()
+    P = _load().gate_scatter_parts()
     dins_ws = empty((B, n_tiles, P, J * D))
     dw_ws = empty((B * n_tiles * P, D * D + D))
     _launch("fused_gate_scatter_bwd", dev, fact_rel.data_ptr(), w.data_ptr(),

@@ -107,7 +107,9 @@ def test_kernel_matches_plain(cuda, J, D, apply_relu, dtype):
 @pytest.mark.parametrize("J,D,apply_relu,dtype", [
     (1, 50, False, torch.float32), (2, 50, True, torch.float32),
     (3, 50, True, torch.float32), (2, 16, True, torch.float32),
-    (2, 50, True, torch.bfloat16), (3, 50, False, torch.bfloat16)])
+    (2, 50, True, torch.bfloat16), (3, 50, False, torch.bfloat16),
+    # past the register path (J <= 3, D <= 64): ins and dins in shared memory
+    (4, 16, True, torch.float32), (2, 80, True, torch.float32)])
 def test_bwd_kernel_matches_plain(cuda, J, D, apply_relu, dtype):
     vals, ins, prior, scatter, starts = inputs(J, D, dtype, cuda)
     E = (starts.shape[-1] - 1) * TILE_E
@@ -250,6 +252,141 @@ def test_fused_bwd_kernel_at_model_shapes(cuda, B, E, F, J, skew, dtype):
     assert_parts_close(got, gs.fused_gate_scatter_bwd_plain(*args, g, True),
                        (1e-4 if f32 else (1,),) * 4 + (1e-4,))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def chunk_inputs(J, D, dtype, device, counts=((0, 16, 40, 3, 8),
+                                               (32, 1, 0, 4, 2)), seed=4):
+    """Gate inputs on a layout whose tiles hold exactly ``counts[b][t]``
+    chunks of facts in the forward direction (the inverse direction's
+    targets are uniform), with 8 padding chunks past the last tile's range.
+    A tile of 0 is empty: the loader gives it one chunk of pad slots."""
+    rng = np.random.default_rng(seed)
+    n_tiles = len(counts[0])
+    E = n_tiles * TILE_E
+    fwd, inv = [], []
+    for row in counts:
+        t = np.concatenate([rng.integers(i * TILE_E, (i + 1) * TILE_E,
+                                         c * 128 - (rng.integers(0, 100) if c else 0))
+                            for i, c in enumerate(row)]).astype(np.int32)
+        h = rng.integers(0, E, len(t)).astype(np.int32)
+        r = rng.integers(0, 4, len(t)).astype(np.int32)
+        w = np.ones(len(t), np.float32)
+        fwd.append(build_sample_direction(t, h, r, w, E, 4))
+        inv.append(build_sample_direction(h, t, r, w, E, 4))
+    nc = max(len(s[4]) for s in fwd + inv) + 8
+    kl = pack_samples(fwd, inv, E, 4, num_chunks=-(-nc // 8) * 8)
+    assert [list(np.diff(s)) for s in kl.fwd.chunk_starts] == [
+        [max(1, c) for c in row] for row in counts]
+    Bp, Fp = kl.fwd.scatter.shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    scatter = torch.from_numpy(np.stack([kl.fwd.scatter, kl.inv.scatter])).to(device)
+    starts = torch.from_numpy(np.stack([kl.fwd.chunk_starts,
+                                        kl.inv.chunk_starts])).to(device)
+    vals = torch.randn((2, Bp, Fp, D), generator=g, device=device).to(dtype)
+    ins = torch.randn((Bp, J, D), generator=g, device=device).to(dtype)
+    prior = torch.rand((2, Bp, Fp), generator=g, device=device) * (scatter >= 0)
+    return vals, ins, prior, scatter, starts
+
+
+def flat(x):
+    """The tensors of a kernel's result (nested tuples, None skipped)."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for item in x if item is not None for t in flat(item)]
+
+
+def check_gate_bwd(args, rel):
+    """K2 against its plain version (``rel`` of max|plain| + 1e-6), bit for
+    bit on a repeat; the outputs not needed are skipped and the rest is
+    unchanged."""
+    before = gs.bwd_launches
+    got = gs.gate_scatter_bwd(*args)
+    again = gs.gate_scatter_bwd(*args)
+    torch.cuda.synchronize()
+    assert gs.bwd_launches == before + 2
+    want = gs.gate_scatter_bwd_plain(*args)
+    for a, b in zip(flat(got), flat(want)):
+        assert a.dtype == b.dtype
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= rel * b.float().abs().max().item() + 1e-6, err
+    assert all(torch.equal(a, b) for a, b in zip(flat(got), flat(again)))
+    dv, dp, di = gs.gate_scatter_bwd(*args, need_dprior=False, need_dins=False)
+    assert dp is None and di is None
+    assert all(torch.equal(a, b) for a, b in zip(dv, got[0]))
+    _, dp, di = gs.gate_scatter_bwd(*args, need_dprior=False)
+    assert dp is None and torch.equal(di, got[2])
+    _, dp, di = gs.gate_scatter_bwd(*args, need_dins=False)
+    assert di is None and all(torch.equal(a, b) for a, b in zip(dp, got[1]))
+    return got
+
+
+def check_fused_fwd(args, apply_relu, f32):
+    """K6a/b against its plain version (fp32 1e-5 of max|plain|, bf16 two
+    bf16 steps per element), bit for bit on a repeat."""
+    before = gs.fused_launches
+    got = gs.fused_gate_scatter_fwd(*args, apply_relu)
+    again = gs.fused_gate_scatter_fwd(*args, apply_relu)
+    torch.cuda.synchronize()
+    assert gs.fused_launches == before + 2
+    assert_parts_close((got,), (gs.fused_gate_scatter_fwd_plain(*args, apply_relu),),
+                       (1e-5 if f32 else (2,),))
+    assert torch.equal(got, again)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("J,apply_relu,dtype", [
+    (2, True, torch.float32), (1, False, torch.float32),
+    (3, True, torch.float32), (2, True, torch.bfloat16)])
+def test_split_tiles_match_plain(cuda, J, apply_relu, dtype):
+    """K6a/b (one direction) and K2 (both directions, and one) on tiles
+    whose chunk counts sit on and around the part boundaries: an empty
+    tile (one chunk of pad slots); 1-4 chunks (one part of K6a/b); 8 (two parts of 4 for K6a/b, four
+    of 2 for K2); 16 (K2's largest split, 8 parts) and 32 (K6a/b's); 40,
+    more than either's largest split covers; padding chunks past the last
+    tile's range. dprior and dins not needed, and bf16."""
+    vals, ins, prior, scatter, starts = chunk_inputs(J, 50, dtype, cuda)
+    B, E = vals.shape[1], (starts.shape[-1] - 1) * TILE_E
+    f32 = dtype == torch.float32
+    g = torch.randn((2, B, E, J * 50), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(6))
+    for ndir in (2, 1):
+        got = check_gate_bwd((vals[:ndir], ins, prior[:ndir], scatter[:ndir],
+                              starts[:ndir], g[:ndir], apply_relu),
+                             1e-5 if f32 else 2e-2)
+        pad = scatter[0] < 0               # pad slots and the padding chunks
+        assert not got[0][0][pad].any() and not got[1][0][pad].any()
+    w = (torch.randn((50, 50), device=cuda) / 50 ** 0.5).to(dtype)
+    bias = (0.1 * torch.randn((50,), device=cuda)).to(dtype)
+    out = check_fused_fwd((vals[0], w, bias, ins, prior[0], scatter[0],
+                           starts[0]), apply_relu, f32)
+    assert not out[0, :TILE_E].any() and not out[1, 2 * TILE_E:3 * TILE_E].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,E,F,J,skew", [
+    (16, 2048, 6553, 2, False),     # WebQSP bucket
+    (8, 4096, 13107, 3, False),     # CWQ
+    (16, 2048, 6553, 2, True)])     # skewed: a few tiles hold most chunks
+def test_gate_kernels_at_model_shapes(cuda, B, E, F, J, skew, dtype):
+    """K6a/b (one direction) and K2 (both directions) at the model's
+    shapes against their plain versions, as the tests above hold them:
+    long tiles split over several blocks whose partials are added in a
+    fixed order, bit for bit on a repeat."""
+    vals, ins, prior, scatter, starts = inputs(J, 50, dtype, cuda, B=B, E=E,
+                                               F=F, pad_rows=0, skew=skew)
+    if skew:
+        assert (starts[0, :, 1:] - starts[0, :, :-1]).max() >= 16
+    f32 = dtype == torch.float32
+    g = torch.randn((2, B, E, J * 50), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(8))
+    check_gate_bwd((vals, ins, prior, scatter, starts, g, True),
+                   1e-5 if f32 else 2e-2)
+    w = (torch.randn((50, 50), device=cuda) / 50 ** 0.5).to(dtype)
+    bias = (0.1 * torch.randn((50,), device=cuda)).to(dtype)
+    check_fused_fwd((vals[0], w, bias, ins, prior[0], scatter[0], starts[0]),
+                    True, f32)
 
 
 @pytest.mark.cuda

@@ -57,12 +57,27 @@ def as_bjed(out, J):
     return out.reshape(B, E, J, JD // J).permute(0, 2, 1, 3).float().numpy()
 
 
+# (J, apply_relu, pad_rows, skew); skew: a layout whose first tile holds
+# most chunks (E 512, 4 tiles)
+FUSED_CASES = [(1, True, 0, False), (2, True, 1, False), (2, False, 0, False),
+               (3, True, 0, False), (2, True, 0, True)]
+
+
+def skewed_case(J, pad_rows, skew):
+    size = dict(E=512, F=1500, skew=True) if skew else {}
+    kl, x, E = proj_case(J, B=2 if not pad_rows else 1, pad_rows=pad_rows,
+                         **size)
+    if skew:
+        counts = np.diff(kl.fwd.chunk_starts[0])
+        assert counts[0] >= 4 and counts[0] > counts[1:].sum()
+    return kl, x, E
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("J,apply_relu,pad_rows", [
-    (1, True, 0), (2, True, 1), (2, False, 0), (3, True, 0)])
-def test_fused_fwd_matches_k6a_and_k6b(J, apply_relu, pad_rows, dtype):
+@pytest.mark.parametrize("J,apply_relu,pad_rows,skew", FUSED_CASES)
+def test_fused_fwd_matches_k6a_and_k6b(J, apply_relu, pad_rows, skew, dtype):
     tdt, jdt = DTYPES[dtype]
-    kl, x, E = proj_case(J, B=2 if not pad_rows else 1, pad_rows=pad_rows)
+    kl, x, E = skewed_case(J, pad_rows, skew)
     before = gs.fused_launches
     got = gs.fused_gate_scatter_fwd(*port_inputs(kl, x, tdt), apply_relu)
     assert gs.fused_launches == before     # CPU tensors run the plain version
@@ -93,14 +108,13 @@ def test_fused_fwd_rounds_rl_once_with_the_bias_in_float():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("J,apply_relu,pad_rows", [
-    (1, True, 0), (2, True, 1), (2, False, 0), (3, True, 0)])
-def test_fused_bwd_matches_k6c(J, apply_relu, pad_rows, dtype):
+@pytest.mark.parametrize("J,apply_relu,pad_rows,skew", FUSED_CASES)
+def test_fused_bwd_matches_k6c(J, apply_relu, pad_rows, skew, dtype):
     """All five outputs against the TPU backward kernel, which recomputes rl
     in float32 unrounded and reads the prior unrounded; pad slots and the
     batch-padding row get zero gradients."""
     tdt, jdt = DTYPES[dtype]
-    kl, x, E = proj_case(J, B=2 if not pad_rows else 1, pad_rows=pad_rows)
+    kl, x, E = skewed_case(J, pad_rows, skew)
     B = kl.fwd.scatter.shape[0]
     g = np.random.default_rng(5).standard_normal((B, J, E, 16)).astype(np.float32)
     g_port = torch.from_numpy(g).permute(0, 2, 1, 3).reshape(B, E, J * 16)

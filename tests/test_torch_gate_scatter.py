@@ -33,11 +33,15 @@ def assert_close(got, ref, rel=1e-5, abs_=1e-6):
 
 
 def make_case(J, *, D=16, E=256, B=2, F=300, pad_rows=0, empty_tile=False,
-              seed=0):
-    """Random facts -> both packages' layouts (must agree) and gate inputs."""
+              seed=0, skew=False):
+    """Random facts -> both packages' layouts (must agree) and gate inputs.
+    ``skew``: each tail drawn as E u^4 (u uniform), so the first tile holds
+    most of the forward direction's chunks."""
     rng = np.random.default_rng(seed)
     heads = rng.integers(0, E, (B, F)).astype(np.int32)
     tails = rng.integers(0, E, (B, F)).astype(np.int32)
+    if skew:
+        tails = (E * rng.random((B, F)) ** 4).astype(np.int32)
     if empty_tile:  # sample 0 touches only the first tile
         heads[0] %= tkl.TILE_E
         tails[0] %= tkl.TILE_E

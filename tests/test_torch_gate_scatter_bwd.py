@@ -59,14 +59,20 @@ def check_against_v4(got, want, rel=1e-5, abs_=1e-6):
         assert_close(a.float().numpy(), np.asarray(b, np.float32), rel, abs_)
 
 
-@pytest.mark.parametrize("J,apply_relu,pad_rows,empty_tile", [
-    (1, True, 1, False), (2, True, 1, False), (2, False, 1, False),
-    (3, True, 1, False), (2, True, 0, True)])
-def test_bwd_matches_v4_kernel(J, apply_relu, pad_rows, empty_tile):
+@pytest.mark.parametrize("J,apply_relu,pad_rows,empty_tile,skew", [
+    (1, True, 1, False, False), (2, True, 1, False, False),
+    (2, False, 1, False, False), (3, True, 1, False, False),
+    (2, True, 0, True, False), (2, True, 1, False, True)])
+def test_bwd_matches_v4_kernel(J, apply_relu, pad_rows, empty_tile, skew):
     """K2: both directions, with pad slots, the chunks past the last tile's
-    range and a batch-padding row (all must get zero gradients)."""
+    range and a batch-padding row (all must get zero gradients); ``skew``:
+    a layout whose first tile holds most chunks (E 512, 4 tiles)."""
+    size = dict(E=512, F=1500) if skew else {}
     kl, x, E = make_case(J, B=1 if pad_rows else 2, pad_rows=pad_rows,
-                         empty_tile=empty_tile)
+                         empty_tile=empty_tile, skew=skew, **size)
+    if skew:
+        counts = np.diff(kl.fwd.chunk_starts[0])
+        assert counts[0] >= 4 and counts[0] > counts[1:].sum()
     g = cotangent(kl, J, 16)
     before = gs.bwd_launches
     got = port_bwd(kl, x, g, apply_relu)
