@@ -13,26 +13,41 @@
 // type T, prior is rounded to T before it multiplies, and the sum is float.
 // Slots with scatter < 0 (chunk padding) add nothing.
 //
-// Design: one thread block per (direction, sample, 128-entity tile). The
-// block walks the tile's fact chunks chunk_starts[t] .. chunk_starts[t+1] (in
-// layout order), accumulates a [128, J*D] float tile in shared memory and
-// writes it out once, so every output element is written exactly once by one
-// block: no atomics, no memset, and the sum order is fixed (deterministic).
-// Thread c owns output column c for the whole walk, so the read-modify-write
-// of a fact's row never conflicts and needs no atomics. The walk goes
-// kStage fact slots at a time: the block first copies the slots' rows,
-// priors and [kStage, D] values into shared memory (the values with
-// asynchronous 16-byte copies, all in flight at once), then each thread runs
-// the slots from shared memory.
-//
-// What bounds it on an H100: it reads B*Fp*D*sizeof(T) bytes of fact values
-// per direction and writes B*E*J*D floats; the arithmetic is one multiply
-// and one add per (fact, column), far below the card's rates, so it is
-// bound by memory traffic and load latency: with a few blocks per SM, the
-// loads in flight per SM, not HBM bandwidth, set the rate. Loading each
-// slot's value inside the per-slot loop, or staging with one 4-byte load
-// per thread at a time, keeps too few bytes in flight; the asynchronous
-// 16-byte staging copies are what this design does about it.
+// Design (gate_fwd_kernel): the output rows of a 128-entity tile, [128,
+// J*D] floats, are summed in shared memory by the blocks that take the
+// tile's fact chunks chunk_starts[t] .. chunk_starts[t+1] (layout order;
+// facts of tile t's chunks scatter only into tile t). What bounds it on an
+// H100: it reads B*Fp*D*sizeof(T) bytes of fact values per direction and
+// writes B*E*J*D floats; the arithmetic is one multiply and one add per
+// (fact, column), far below the card's rates, so it is bound by bytes, by
+// the latency of the loads that bring them and by the shared-memory
+// read-modify-writes of the sum. What held the first design (one block a
+// tile, J*D threads, each stage of slots copied and then waited on) back,
+// and what this one does about it:
+//   1. the few long tiles of a skewed subgraph ran in one block each while
+//      the rest of the grid idled, so a tile's chunk range is split into up
+//      to kParts parts of at least kFwdPartChunks chunks: a tile of one part
+//      writes its rows directly, the parts of a longer tile write float
+//      partial tiles to a workspace that tile_sum_kernel adds in part
+//      order. The grid has a block for each tile's first part and a few
+//      more for the other parts of a (direction, sample), which find theirs
+//      by a prefix sum over the tiles (find_part): a block for every
+//      (tile, possible part) left thousands of empty blocks, ~10 us of a
+//      0.07 ms launch on an H100;
+//   2. no copy overlapped the gate, so stages of kFwdSlots slots (values,
+//      scatter, prior) stream by asynchronous copies through a ring of 2-4
+//      shared-memory stages, the next stages in flight while one computes;
+//   3. only J*D threads ran the gate, each a chain of dependent shared-
+//      memory read-modify-writes, so ~128 threads run it in ngrp groups of
+//      whole warps: thread (grp, q) adds the slots whose row falls to group
+//      grp into columns 2q and 2q + 1 (one at an odd D) with 8-byte shared-
+//      memory accesses; each output element's sum stays with one thread, in
+//      slot order, without atomics; a warp finds its group's slots in the
+//      stage by one ballot and issues four read-modify-writes at once where
+//      their rows differ;
+//   4. the ring is sized so that the most blocks fit an SM that fit with
+//      two stages: at D 50 in float32 five at J 1, three at J 2, two at J 3.
+// No float atomics, so two launches give the same bits.
 //
 // The backward (gate_scatter_bwd_kernel) replaces the TPU kernels
 //   _fused_bwd_kernel_v4  (:988)  both directions (ReasonGNN)
@@ -89,7 +104,7 @@
 // chunk range is split over up to kParts blocks of at least kFfPartChunks
 // chunks; a tile with one part writes its [128, J*D] rows directly, the
 // parts of a longer tile write float partial tiles to a workspace that
-// fused_fwd_sum_kernel adds in part order (two launches give the same
+// tile_sum_kernel adds in part order (two launches give the same
 // bits); (2) the projection made 5 shared-memory loads for 4 FMAs, so it
 // runs as the backward's register-tiled SIMT GEMM (D zero-padded to a
 // multiple of 4, each thread a 4-slot x 4-column tile from float4 loads,
@@ -115,10 +130,12 @@
 // to a workspace that part_reduce_kernel adds in a fixed order, so there
 // are no float atomics and two launches give the same bits.
 //
-// The scatter-only op (kScatter) replaces _scatter_kernel (:32, scatter_mm):
+// The scatter-only op (the kScatter instance of gate_fwd_kernel) replaces
+// _scatter_kernel (:32, scatter_mm):
 //   out[b, scatter[f], c] += float(values[f, c])
-// for any width C, with the tile ranges found from chunk_tiles. It reads
-// B*Fp*C values and writes B*E*C floats with one add each: bound by bytes.
+// for any width C that fits, with the tile ranges found from chunk_tiles. It
+// reads B*Fp*C values and writes B*E*C floats with one add each: bound by
+// bytes.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -129,7 +146,7 @@ namespace {
 
 constexpr int kTileE = 128;
 constexpr int kTileF = 128;
-constexpr int kStage = 64;   // fact slots staged in shared memory at a time
+constexpr int kStage = 64;   // fact slots a stage of the backward and fused kernels
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -158,139 +175,13 @@ struct DirPtrs {
   const int32_t* chunk_starts[2];  // [B,n_tiles+1]
 };
 
-// What the forward kernel adds per staged value: the gate of the serving
-// and training path, or the value alone (scatter_mm). Compile-time
-// instances, so the gate path's loop has no branch of the other.
+// What gate_fwd_kernel adds per staged value: the gate of the serving and
+// training path, or the value alone (scatter_mm). Compile-time instances,
+// so the gate path's loop has no branch of the other.
 enum FwdMode { kGate = 0, kScatter = 2 };
 
-// First index i of the non-decreasing row a[0..n) with a[i] >= v (n if none).
-__device__ __forceinline__ int first_at_least(const int32_t* a, int n, int v) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] < v) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-// ins [B,J,D] T; out [ndir,B,n_tiles*128,J*D] f32.
-// grid (n_tiles, B, ndir), block >= J*D threads.
-// kScatter: J = 1, D is the width C, ins and prior are not read, and
-// p.chunk_starts holds chunk_tiles [B, Fp/128] instead.
-template <typename T, int kMode>
-__global__ void gate_scatter_fwd_kernel(DirPtrs p, const T* __restrict__ ins,
-                                        float* __restrict__ out, int B, int Fp,
-                                        int D, int J, int n_tiles,
-                                        int apply_relu) {
-  extern __shared__ __align__(16) float smem[];
-  const int JD = J * D;
-  float* acc = smem;                                    // [kTileE, JD]
-  int32_t* s_row = reinterpret_cast<int32_t*>(acc + kTileE * JD);  // [kStage]
-  float* s_pri = reinterpret_cast<float*>(s_row + kStage);         // [kStage]
-  T* s_val = reinterpret_cast<T*>(s_pri + kStage);                 // [kStage, D]
-
-  const int t = blockIdx.x, b = blockIdx.y, d = blockIdx.z;
-  const int col = threadIdx.x;
-  const bool active = col < JD;
-  const int j = active ? col / D : 0;
-  const int k = active ? col - j * D : 0;
-
-  if (active) {
-    for (int r = 0; r < kTileE; ++r) acc[r * JD + col] = 0.f;
-  }
-  T ins_jk = from_float<T>(0.f);
-  if constexpr (kMode != kScatter) {
-    if (active) ins_jk = ins[((size_t)b * J + j) * D + k];
-  }
-
-  // select, not p.x[d]: indexing a parameter array with a runtime index
-  // copies the array to local memory first
-  int f_begin, f_end;
-  if constexpr (kMode == kScatter) {
-    // tile t's chunks: from the first whose tile is >= t to the first whose
-    // tile is > t (padding chunks repeat the last tile, with scatter -1)
-    const int nc = Fp / kTileF;
-    const int32_t* ct = p.chunk_starts[0] + (size_t)b * nc;
-    f_begin = first_at_least(ct, nc, t) * kTileF;
-    f_end = first_at_least(ct, nc, t + 1) * kTileF;
-  } else {
-    const int32_t* cs = (d ? p.chunk_starts[1] : p.chunk_starts[0]) +
-                        (size_t)b * (n_tiles + 1);
-    f_begin = cs[t] * kTileF;
-    f_end = cs[t + 1] * kTileF;
-  }
-  const int32_t* sc = (d ? p.scatter[1] : p.scatter[0]) + (size_t)b * Fp;
-  const float* pr = (d ? p.prior[1] : p.prior[0]) + (size_t)b * Fp;
-  const T* vl = static_cast<const T*>(d ? p.vals[1] : p.vals[0]) +
-                (size_t)b * Fp * D;
-  const int row0 = t * kTileE;
-
-  for (int f0 = f_begin; f0 < f_end; f0 += kStage) {
-    __syncthreads();  // the previous stage is no longer read
-    // stage kStage fact slots: their rows, priors and [kStage, D] values,
-    // read contiguously by the whole block (coalesced, many loads in flight)
-    for (int i = threadIdx.x; i < kStage; i += blockDim.x) {
-      s_row[i] = sc[f0 + i] - row0;
-      // prior rounded to the input type, as the TPU kernel's one-hot operand
-      if constexpr (kMode != kScatter)
-        s_pri[i] = to_float(from_float<T>(pr[f0 + i]));
-    }
-    // [kStage, D] values: one contiguous, 16-byte aligned block, copied
-    // with asynchronous 16-byte copies so all of them are in flight at once
-    const uint4* src = reinterpret_cast<const uint4*>(vl + (size_t)f0 * D);
-    uint4* dst = reinterpret_cast<uint4*>(s_val);
-    const int n16 = kStage * D * (int)sizeof(T) / 16;
-    for (int i = threadIdx.x; i < n16; i += blockDim.x)
-      __pipeline_memcpy_async(dst + i, src + i, 16);
-    __pipeline_commit();
-    __pipeline_wait_prior(0);
-    __syncthreads();
-    if (!active) continue;
-    for (int i = 0; i < kStage; ++i) {
-      const int r = s_row[i];
-      if ((unsigned)r >= (unsigned)kTileE) continue;  // pad slot (scatter < 0)
-      if constexpr (kMode == kScatter) {
-        acc[r * JD + col] += to_float(s_val[i * D + k]);
-      } else {
-        float gv = to_float(mul(s_val[i * D + k], ins_jk));
-        if (apply_relu) gv = fmaxf(gv, 0.f);
-        acc[r * JD + col] += gv * s_pri[i];
-      }
-    }
-  }
-
-  if (active) {
-    const size_t db = (size_t)d * B + b;
-    float* o = out + (db * n_tiles * kTileE + row0) * JD + col;
-    for (int r = 0; r < kTileE; ++r) o[(size_t)r * JD] = acc[r * JD + col];
-  }
-}
-
-template <typename T, int kMode>
-int launch(const DirPtrs& p, const void* ins, void* out, int ndir, int B,
-           int Fp, int D, int J, int n_tiles, int apply_relu, void* stream) {
-  const int JD = J * D;
-  const int threads = ((JD + 31) / 32) * 32;
-  const size_t smem = (size_t)kTileE * JD * sizeof(float) +
-                      kStage * (sizeof(int32_t) + sizeof(float)) +
-                      (size_t)kStage * D * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      gate_scatter_fwd_kernel<T, kMode>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it, so no later launch check reports it
-    return (int)err;
-  }
-  dim3 grid(n_tiles, B, ndir);
-  gate_scatter_fwd_kernel<T, kMode>
-      <<<grid, threads, smem, (cudaStream_t)stream>>>(
-          p, static_cast<const T*>(ins), static_cast<float*>(out), B, Fp, D,
-          J, n_tiles, apply_relu);
-  return (int)cudaGetLastError();
-}
-
 // ----------------------------------------------- split tiles, shared parts
-constexpr int kBwdThreads = 256;  // threads of every split-tile kernel
+constexpr int kBwdThreads = 256;  // threads of the backward and fused kernels
 constexpr int kParts = 8;         // blocks a tile at most
 
 // A tile with n chunks runs in min(kParts, ceil(n / min_chunks)) parts
@@ -359,6 +250,436 @@ __global__ void part_reduce_kernel(const float* __restrict__ ws,
     if (e < split) out_a[(size_t)set * split + e] = from_float<T>(sum);
     else out_b[e - split] = from_float<T>(sum);
   }
+}
+
+// --------------------------- gate-scatter forward (K1/K3f/K4f) and K6d
+constexpr int kFwdSlots = 32;       // fact slots a stage: lane l reads slot l
+constexpr int kFwdMaxStages = 4;    // ring stages at most
+constexpr int kFwdPartChunks = 4;   // least chunks a part takes
+constexpr int kFwdMaxThreads = 512;
+constexpr int kSumThreads = 256;    // tile_sum_kernel
+
+// A forward tile with n chunks runs in clamp(n / min_chunks, 1, kParts)
+// parts, each of at least min_chunks chunks (a tile with none still writes
+// its zero rows). Part begins are then at least min_chunks chunks apart in
+// a sample, so chunk c0 / min_chunks, c0 the first chunk of a part of a
+// split tile, names its partial tile in the workspace uniquely.
+__host__ __device__ __forceinline__ int fwd_parts(int n, int min_chunks) {
+  const int parts = n / min_chunks;
+  return parts < 1 ? 1 : parts < kParts ? parts : kParts;
+}
+// partial tiles a (direction, sample) of a forward's workspace holds
+__host__ __device__ __forceinline__ int fwd_slots(int Fp, int min_chunks) {
+  return (Fp / kTileF + min_chunks - 1) / min_chunks;
+}
+// A sample's parts beyond the first of each tile number at most
+// sum_t (floor(n_t / min_chunks) - 1) over its split tiles, so at most
+// floor(nc / min_chunks) - 1 for nc chunks.
+__host__ __device__ __forceinline__ int fwd_extra_parts(int Fp, int min_chunks) {
+  const int extra = Fp / kTileF / min_chunks - 1;
+  return extra > 0 ? extra : 0;
+}
+
+// One sample's chunk_starts [n_tiles + 1] from its chunk_tiles row [nc]
+// (non-decreasing; padding chunks past the last range repeat the last
+// tile) into s_cs: tiles ct[c-1] + 1 .. ct[c] start at chunk c. The whole
+// block calls it.
+__device__ __forceinline__ void starts_of_tiles(const int32_t* ct, int nc,
+                                                int n_tiles, int32_t* s_cs) {
+  for (int c = threadIdx.x; c <= nc; c += blockDim.x) {
+    const int lo = c > 0 ? ct[c - 1] : -1;
+    const int hi = c < nc ? min(ct[c], n_tiles) : n_tiles;
+    for (int t = lo + 1; t <= hi; ++t) s_cs[t] = c;
+  }
+  __syncthreads();
+}
+
+// Tile t and part of block x of a (direction, sample)'s row of the grid,
+// from the sample's chunk_starts cs: block x < n_tiles takes part 0 of tile
+// x; block n_tiles + e the e-th extra part of the row (the parts of split
+// tiles after their first, in tile order), found by every warp from prefix
+// sums of the tiles' extra parts 32 tiles at a time; t = -1 past the last.
+__device__ __forceinline__ void find_part(const int32_t* cs, int n_tiles,
+                                          int min_chunks, int x, int& t,
+                                          int& part) {
+  t = x;
+  part = 0;
+  if (x < n_tiles) return;
+  const int e = x - n_tiles, lane = threadIdx.x & 31;
+  int before = 0;   // extra parts of the tiles before this batch of 32
+  for (int t0 = 0; t0 < n_tiles; t0 += 32) {
+    const int tt = t0 + lane;
+    const int ex =
+        tt < n_tiles ? fwd_parts(cs[tt + 1] - cs[tt], min_chunks) - 1 : 0;
+    int incl = ex;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const unsigned hit = __ballot_sync(0xffffffffu, before + incl > e);
+    if (hit) {
+      const int l = __ffs(hit) - 1;
+      t = t0 + l;
+      part = e - before - __shfl_sync(0xffffffffu, incl - ex, l) + 1;
+      return;
+    }
+    before += __shfl_sync(0xffffffffu, incl, 31);
+  }
+  t = -1;
+}
+
+// kVec consecutive values at p, kVec * sizeof(T) aligned (a stage's values
+// and the float accumulator in shared memory)
+template <int kVec, typename T>
+__device__ __forceinline__ void load_vec(const T* p, T (&x)[kVec]) {
+  if constexpr (kVec == 1) {
+    x[0] = p[0];
+  } else if constexpr (sizeof(T) == 4) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x;
+    x[1] = v.y;
+  } else {
+    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
+    x[0] = v.x;
+    x[1] = v.y;
+  }
+}
+template <int kVec>
+__device__ __forceinline__ void store_vec(float* p, const float (&x)[kVec]) {
+  if constexpr (kVec == 1) {
+    p[0] = x[0];
+  } else {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  }
+}
+
+// Shared-memory layout of gate_fwd_kernel, offsets in floats: the output
+// tile [kTileE, J*D], then a ring of `stages` stages of kFwdSlots slots:
+// [kFwdSlots, D] values (16-byte aligned), scatter, prior.
+struct GfLayout {
+  int ring, vals, stage, total;
+  __host__ __device__ GfLayout(int D, int J, int elem, int stages) {
+    ring = kTileE * J * D;             // a multiple of 4
+    vals = kFwdSlots * D * elem / 4;   // a multiple of 4
+    stage = vals + 2 * kFwdSlots;
+    total = ring + stages * stage;
+  }
+};
+
+// A launch of gate_fwd_kernel: threads a block; ngrp gate groups of
+// gthreads threads each (whole warps), a thread taking vec adjacent columns
+// (vec 2 where D is even), or one group of the whole block whose threads
+// loop over the columns when J*D is wider; ring stages; least chunks a
+// part.
+struct FwdPlan {
+  int threads, ngrp, gthreads, vec, stages, min_chunks;
+};
+
+// out [ndir,B,n_tiles*128,J*D] f32; ws [ndir,B,fwd_slots(Fp),128*J*D] f32,
+// the partial tiles of split tiles. grid (n_tiles + fwd_extra_parts,
+// ndir*B), plan.threads (whole warps, at least 64). Block (x, d*B + b)
+// takes part `part` of tile t (find_part) of direction d, sample b, and
+// walks it kFwdSlots slots a stage: one barrier a stage (the stage landed
+// for every thread, and the ring slot of the stage before is free), the
+// copies of the stage stages - 1 ahead issued, then each warp's ballot and
+// the gate of its threads' columns.
+// kScatter: J = 1, D is the width C, ins and prior are not read, and
+// p.chunk_starts holds chunk_tiles [B, Fp/128].
+template <typename T, int kMode, int kVec>
+__global__ void __launch_bounds__(kFwdMaxThreads, 2)
+    gate_fwd_kernel(DirPtrs p, const T* __restrict__ ins,
+                    float* __restrict__ out, float* __restrict__ ws, int B,
+                    int Fp, int D, int J, int n_tiles, int apply_relu,
+                    FwdPlan plan) {
+  extern __shared__ __align__(16) float smem[];
+  const int JD = J * D, nc = Fp / kTileF;
+  const int d = blockIdx.y / B, b = blockIdx.y - d * B;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  // select, not p.x[d]: indexing a parameter array with a runtime index
+  // copies the array to local memory first
+  const int32_t* cs = (d ? p.chunk_starts[1] : p.chunk_starts[0]) +
+                      (size_t)b * (kMode == kScatter ? nc : n_tiles + 1);
+  if constexpr (kMode == kScatter) {
+    int32_t* s_cs = reinterpret_cast<int32_t*>(smem);
+    starts_of_tiles(cs, nc, n_tiles, s_cs);
+    cs = s_cs;
+  }
+  int t, part;
+  find_part(cs, n_tiles, plan.min_chunks, blockIdx.x, t, part);
+  if (t < 0) return;   // past the row's last extra part
+  const int c0 = cs[t], nch = cs[t + 1] - c0;
+  const int parts = fwd_parts(nch, plan.min_chunks);
+  if constexpr (kMode == kScatter) __syncthreads();   // s_cs is read
+  const int cb = c0 + part * nch / parts, ce = c0 + (part + 1) * nch / parts;
+  const int f_begin = cb * kTileF;
+  const int n_stages = (ce - cb) * (kTileF / kFwdSlots);
+  const int row0 = t * kTileE;
+  const size_t db = (size_t)d * B + b;
+  const int32_t* sc = (d ? p.scatter[1] : p.scatter[0]) + (size_t)b * Fp;
+  const float* pr = (d ? p.prior[1] : p.prior[0]) + (size_t)b * Fp;
+  const T* vl = static_cast<const T*>(d ? p.vals[1] : p.vals[0]) +
+                (size_t)b * Fp * D;
+  const GfLayout lay(D, J, (int)sizeof(T), plan.stages);
+  float* acc = smem;
+  float4* acc4 = reinterpret_cast<float4*>(acc);
+
+  // thread (grp, q) of the gate takes columns c = kVec q .. kVec q + kVec - 1
+  // (and c + kVec gthreads, ... in a group of the whole block); a warp's
+  // threads are in one group
+  const int ngrp = plan.ngrp, lane = tid & 31;
+  const int grp = tid / plan.gthreads;
+  const int col = kVec * (tid - grp * plan.gthreads);
+  const bool active = grp < ngrp && col < JD;
+  const T* ins_b = ins + (size_t)b * JD;
+  T ins_col[kVec];
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) {
+    ins_col[v] = from_float<T>(0.f);
+    if constexpr (kMode != kScatter) {
+      if (active) ins_col[v] = ins_b[col + v];
+    }
+  }
+
+  // stage st of the walk into ring slot st % stages: [kFwdSlots, D] values
+  // (one contiguous, 16-byte aligned block) in 16-byte copies, scatter and
+  // prior in 4-byte ones; one commit group a stage, empty past the range
+  const int n16 = kFwdSlots * D * (int)sizeof(T) / 16;
+  auto issue = [&](int st) {
+    if (st < n_stages) {
+      const int f0 = f_begin + st * kFwdSlots;
+      float* buf = smem + lay.ring + (st % plan.stages) * lay.stage;
+      const uint4* src = reinterpret_cast<const uint4*>(vl + (size_t)f0 * D);
+      uint4* dst = reinterpret_cast<uint4*>(buf);
+      for (int i = tid; i < n16; i += nthr)
+        __pipeline_memcpy_async(dst + i, src + i, 16);
+      if (tid < kFwdSlots)
+        __pipeline_memcpy_async(buf + lay.vals + tid, sc + f0 + tid, 4);
+      else if (kMode != kScatter && tid < 2 * kFwdSlots)
+        __pipeline_memcpy_async(buf + lay.vals + tid,
+                                pr + f0 + tid - kFwdSlots, 4);
+    }
+    __pipeline_commit();
+  };
+  for (int st = 0; st < plan.stages - 1; ++st) issue(st);
+  // the tile zeroed while the first stages land
+  for (int i = tid; i < kTileE * JD / 4; i += nthr)
+    acc4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int st = 0; st < n_stages; ++st) {
+    __pipeline_wait_prior(plan.stages - 2);
+    __syncthreads();
+    issue(st + plan.stages - 1);
+    const float* buf = smem + lay.ring + (st % plan.stages) * lay.stage;
+    const T* s_val = reinterpret_cast<const T*>(buf);
+    const int32_t* s_sc = reinterpret_cast<const int32_t*>(buf + lay.vals);
+    const float* s_pr = buf + lay.vals + kFwdSlots;
+    // slot l's gate group (rows r with r * ngrp / 128 == grp; -1: a pad
+    // slot), and the slots of this warp's group in the stage, by a ballot
+    const int r_l = s_sc[lane] - row0;
+    const int o_l = (unsigned)r_l < (unsigned)kTileE ? (r_l * ngrp) >> 7 : -1;
+    const unsigned mine = __ballot_sync(0xffffffffu, o_l == grp);
+    if (!active) continue;
+    for (int c = col; c < JD; c += kVec * plan.gthreads) {
+      const int k = c % D;   // c .. c + kVec - 1 share j (D % kVec == 0)
+      T in_c[kVec];
+#pragma unroll
+      for (int v = 0; v < kVec; ++v) {
+        in_c[v] = ins_col[v];
+        if constexpr (kMode != kScatter) {
+          if (c != col) in_c[v] = ins_b[c + v];
+        }
+      }
+      float* acc_c = acc + c;
+      unsigned m = mine;
+      // the group's next slot, in slot order: acc_c[at + v] += x[v] * w
+      auto term = [&](int& at, float (&x)[kVec], float& w) {
+        const int i = __ffs(m) - 1;
+        m &= m - 1;
+        at = (s_sc[i] - row0) * JD;
+        T val[kVec];
+        load_vec<kVec>(s_val + i * D + k, val);
+        if constexpr (kMode == kScatter) {
+#pragma unroll
+          for (int v = 0; v < kVec; ++v) x[v] = to_float(val[v]);
+          w = 1.f;
+        } else {
+#pragma unroll
+          for (int v = 0; v < kVec; ++v) {
+            x[v] = to_float(mul(val[v], in_c[v]));
+            if (apply_relu) x[v] = fmaxf(x[v], 0.f);
+          }
+          // the prior rounded to the input type, as the TPU kernel's
+          // one-hot operand
+          w = to_float(from_float<T>(s_pr[i]));
+        }
+      };
+      auto add = [&](int at, const float (&x)[kVec], float w) {
+        float a[kVec];
+        load_vec<kVec>(acc_c + at, a);
+#pragma unroll
+        for (int v = 0; v < kVec; ++v) a[v] = fmaf(x[v], w, a[v]);
+        store_vec<kVec>(acc_c + at, a);
+      };
+      int n = __popc(m);
+      // four slots a round: their read-modify-writes at once where their
+      // rows differ (the sums are independent), else in slot order
+      for (; n >= 4; n -= 4) {
+        int at[4];
+        float x[4][kVec], w[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) term(at[u], x[u], w[u]);
+        if (at[0] != at[1] && at[0] != at[2] && at[0] != at[3] &&
+            at[1] != at[2] && at[1] != at[3] && at[2] != at[3]) {
+          float a[4][kVec];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) load_vec<kVec>(acc_c + at[u], a[u]);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+#pragma unroll
+            for (int v = 0; v < kVec; ++v) a[u][v] = fmaf(x[u][v], w[u], a[u][v]);
+            store_vec<kVec>(acc_c + at[u], a[u]);
+          }
+        } else {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) add(at[u], x[u], w[u]);
+        }
+      }
+      for (; n > 0; --n) {
+        int at;
+        float x[kVec], w;
+        term(at, x, w);
+        add(at, x, w);
+      }
+    }
+  }
+  __syncthreads();
+  // one part: the tile's rows; more: this part's partial tile
+  float* dst = parts == 1
+      ? out + (db * n_tiles * kTileE + row0) * JD
+      : ws + (db * fwd_slots(Fp, plan.min_chunks) + cb / plan.min_chunks) *
+                kTileE * JD;
+  float4* dst4 = reinterpret_cast<float4*>(dst);
+  for (int i = tid; i < kTileE * JD / 4; i += nthr) dst4[i] = acc4[i];
+}
+
+// The split tiles of a forward (gate_fwd_kernel, fused_fwd_kernel): out's
+// rows of tile t = the sum of its parts' partial tiles in part order. ws
+// [ndir*B, fwd_slots(Fp, min_chunks), n4] and out [ndir*B, n_tiles, n4] in
+// float4s, n4 = 128*J*D/4; the tile ranges of direction d from cs_d, its
+// chunk_starts [B, n_tiles+1] or (by_tiles) chunk_tiles [B, Fp/128], then
+// turned into chunk_starts in (n_tiles + 1) ints of dynamic shared memory.
+// grid (n_tiles, ndir*B), kSumThreads.
+__global__ void tile_sum_kernel(const float* __restrict__ ws,
+                                const int32_t* __restrict__ cs0,
+                                const int32_t* __restrict__ cs1, int by_tiles,
+                                float* __restrict__ out, int B, int Fp,
+                                int n_tiles, int min_chunks, int n4) {
+  extern __shared__ int32_t s_starts[];
+  const int t = blockIdx.x, db = blockIdx.y;
+  const int d = db / B, b = db - d * B, nc = Fp / kTileF;
+  const int32_t* cs = (d ? cs1 : cs0) +
+                      (size_t)b * (by_tiles ? nc : n_tiles + 1);
+  if (by_tiles) {
+    starts_of_tiles(cs, nc, n_tiles, s_starts);
+    cs = s_starts;
+  }
+  const int c0 = cs[t], nch = cs[t + 1] - c0;
+  const int parts = fwd_parts(nch, min_chunks);
+  if (parts < 2) return;   // the tile's rows were written directly
+  const float4* ws4 = reinterpret_cast<const float4*>(ws) +
+                      (size_t)db * fwd_slots(Fp, min_chunks) * n4;
+  float4* o4 = reinterpret_cast<float4*>(out) + ((size_t)db * n_tiles + t) * n4;
+  for (int e = threadIdx.x; e < n4; e += kSumThreads) {
+    float4 v[kParts];
+#pragma unroll
+    for (int q = 0; q < kParts; ++q) {
+      v[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q < parts)
+        v[q] = ws4[(size_t)((c0 + q * nch / parts) / min_chunks) * n4 + e];
+    }
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int q = 0; q < kParts; ++q) {
+      if (q < parts) {
+        s.x += v[q].x; s.y += v[q].y; s.z += v[q].z; s.w += v[q].w;
+      }
+    }
+    o4[e] = s;
+  }
+}
+
+// The launch rule of gate_fwd_kernel: two columns a thread where D is even;
+// groups of ceil(J*D / vec) threads rounded up to a warp, about
+// kFwdGroupThreads threads in at least two groups (fewer warps a block left
+// the SM short of work: measured), at most kFwdMaxThreads; one group of
+// kFwdMaxThreads looping over the columns where J*D is wider; the most ring
+// stages, up to kFwdMaxStages, that keep as many blocks an SM as a ring of
+// two does.
+constexpr int kFwdGroupThreads = 128;
+FwdPlan fwd_plan(int D, int J, int elem) {
+  const int vec = D % 2 == 0 ? 2 : 1;
+  int gthreads = ((J * D + vec - 1) / vec + 31) / 32 * 32;
+  int ngrp = kFwdGroupThreads / gthreads > 2 ? kFwdGroupThreads / gthreads : 2;
+  if (ngrp * gthreads > kFwdMaxThreads) ngrp = kFwdMaxThreads / gthreads;
+  if (ngrp < 1) {
+    ngrp = 1;
+    gthreads = kFwdMaxThreads;
+  }
+  const int threads = ngrp * gthreads;
+  auto per_sm = [&](int stages) {
+    const size_t block = (size_t)GfLayout(D, J, elem, stages).total * 4 + 1024;
+    const int by_smem = (int)((size_t)228 * 1024 / block);
+    const int by_threads = 2048 / threads;
+    return by_smem < by_threads ? by_smem : by_threads;
+  };
+  int stages = 2;
+  while (stages < kFwdMaxStages && per_sm(stages + 1) >= per_sm(2)) ++stages;
+  return FwdPlan{threads, ngrp, gthreads, vec, stages, kFwdPartChunks};
+}
+
+// gate_fwd_kernel, then tile_sum_kernel for the split tiles; ws as there.
+template <typename T, int kMode, int kVec>
+int launch_gate_fwd_vec(const DirPtrs& p, const void* ins, void* out, void* ws,
+                        int ndir, int B, int Fp, int D, int J, int n_tiles,
+                        int apply_relu, const FwdPlan& plan, void* stream) {
+  // kScatter first turns chunk_tiles into n_tiles + 1 chunk starts in the
+  // same shared memory
+  size_t smem = (size_t)GfLayout(D, J, (int)sizeof(T), plan.stages).total;
+  if (kMode == kScatter && smem < (size_t)n_tiles + 1) smem = n_tiles + 1;
+  smem *= sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      gate_fwd_kernel<T, kMode, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, so no later launch check reports it
+    return (int)err;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  float* o = static_cast<float*>(out);
+  float* w = static_cast<float*>(ws);
+  const dim3 grid(n_tiles + fwd_extra_parts(Fp, plan.min_chunks), ndir * B);
+  gate_fwd_kernel<T, kMode, kVec><<<grid, plan.threads, smem, s>>>(
+      p, static_cast<const T*>(ins), o, w, B, Fp, D, J, n_tiles, apply_relu,
+      plan);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const bool by_tiles = kMode == kScatter;
+  tile_sum_kernel<<<dim3(n_tiles, ndir * B), kSumThreads,
+                    by_tiles ? (n_tiles + 1) * sizeof(int32_t) : 0, s>>>(
+      w, p.chunk_starts[0], p.chunk_starts[1], by_tiles, o, B, Fp, n_tiles,
+      plan.min_chunks, kTileE * J * D / 4);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int kMode>
+int launch_gate_fwd(const DirPtrs& p, const void* ins, void* out, void* ws,
+                    int ndir, int B, int Fp, int D, int J, int n_tiles,
+                    int apply_relu, const FwdPlan& plan, void* stream) {
+  return plan.vec == 2
+      ? launch_gate_fwd_vec<T, kMode, 2>(p, ins, out, ws, ndir, B, Fp, D, J,
+                                         n_tiles, apply_relu, plan, stream)
+      : launch_gate_fwd_vec<T, kMode, 1>(p, ins, out, ws, ndir, B, Fp, D, J,
+                                         n_tiles, apply_relu, plan, stream);
 }
 
 // ------------------------------------------------- gate-scatter backward
@@ -629,19 +950,6 @@ struct ProjBwdOut {
   float* dw_ws;    // [B*n_tiles*kParts,D*D+D] per-part partials of dW, db
 };
 
-// A forward tile with n chunks runs in clamp(n / kFfPartChunks, 1, kParts)
-// parts, each of at least kFfPartChunks chunks (a tile with none still
-// writes its zero rows). Part begins are then at least kFfPartChunks chunks
-// apart in a sample, so chunk c0 / kFfPartChunks, c0 the first chunk of a
-// part, names its partial tile in the workspace uniquely.
-__host__ __device__ __forceinline__ int ff_parts(int n) {
-  const int parts = n / kFfPartChunks;
-  return parts < 1 ? 1 : parts < kParts ? parts : kParts;
-}
-__host__ __device__ __forceinline__ int ff_slots(int Fp) {
-  return (Fp / kTileF + kFfPartChunks - 1) / kFfPartChunks;
-}
-
 __device__ __forceinline__ void fma4(float (&acc)[4], float s, float4 v) {
   acc[0] = fmaf(s, v.x, acc[0]);
   acc[1] = fmaf(s, v.y, acc[1]);
@@ -777,7 +1085,8 @@ struct FfLayout {
 };
 
 // The fused-projection forward: out [B,n_tiles*128,J*D] f32 and ws [B,
-// ff_slots(Fp), 128*J*D] f32 (partial tiles of split tiles); grid
+// fwd_slots(Fp, kFfPartChunks), 128*J*D] f32 (partial tiles of split
+// tiles, added by tile_sum_kernel); grid
 // (n_tiles, kParts, B), kBwdThreads. Block (t, part, b) takes part `part`
 // of tile t's chunk range and walks it kStage slots a stage:
 //   A. rl = T(fact_rel w + b) of the stage, a 4-slot x 4-column tile a
@@ -799,7 +1108,8 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
   const int t = blockIdx.x, part = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x;
   const int32_t* cs = p.chunk_starts[0] + (size_t)b * (n_tiles + 1);
-  const int c0 = cs[t], nch = cs[t + 1] - c0, parts = ff_parts(nch);
+  const int c0 = cs[t], nch = cs[t + 1] - c0;
+  const int parts = fwd_parts(nch, kFfPartChunks);
   if (part >= parts) return;
   const int cb = c0 + part * nch / parts, ce = c0 + (part + 1) * nch / parts;
   const int f_begin = cb * kTileF, f_end = ce * kTileF;
@@ -946,34 +1256,10 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
   // one part: the tile's rows; more: this part's partial tile
   float* dst = parts == 1
       ? out + ((size_t)b * n_tiles * kTileE + row0) * JD
-      : ws + ((size_t)b * ff_slots(Fp) + cb / kFfPartChunks) * kTileE * JD;
+      : ws + ((size_t)b * fwd_slots(Fp, kFfPartChunks) + cb / kFfPartChunks) *
+                kTileE * JD;
   float4* dst4 = reinterpret_cast<float4*>(dst);
   for (int i = tid; i < kTileE * JD / 4; i += kBwdThreads) dst4[i] = acc4[i];
-}
-
-// The split tiles of fused_fwd_kernel: out's rows of tile t = the sum of its
-// parts' partial tiles in part order. grid (n_tiles, B), kBwdThreads;
-// n4 = 128*J*D/4 float4s a tile.
-__global__ void fused_fwd_sum_kernel(const float* __restrict__ ws,
-                                     const int32_t* __restrict__ chunk_starts,
-                                     float* __restrict__ out, int Fp,
-                                     int n_tiles, int n4) {
-  const int t = blockIdx.x, b = blockIdx.y;
-  const int32_t* cs = chunk_starts + (size_t)b * (n_tiles + 1);
-  const int c0 = cs[t], nch = cs[t + 1] - c0, parts = ff_parts(nch);
-  if (parts < 2) return;   // the tile's rows were written directly
-  const float4* ws4 = reinterpret_cast<const float4*>(ws);
-  const size_t slot0 = (size_t)b * ff_slots(Fp);
-  float4* o4 = reinterpret_cast<float4*>(out) + ((size_t)b * n_tiles + t) * n4;
-  for (int e = threadIdx.x; e < n4; e += kBwdThreads) {
-    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int q = 0; q < parts; ++q) {
-      const int cb = c0 + q * nch / parts;
-      const float4 v = ws4[(slot0 + cb / kFfPartChunks) * n4 + e];
-      s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
-    }
-    o4[e] = s;
-  }
 }
 
 template <typename T>
@@ -995,8 +1281,9 @@ int launch_fused_fwd(const DirPtrs& p, const void* ins, Proj proj, void* out,
       p, static_cast<const T*>(ins), proj, o, w, Fp, D, J, n_tiles,
       apply_relu);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  fused_fwd_sum_kernel<<<dim3(n_tiles, B), kBwdThreads, 0, s>>>(
-      w, p.chunk_starts[0], o, Fp, n_tiles, kTileE * J * D / 4);
+  tile_sum_kernel<<<dim3(n_tiles, B), kSumThreads, 0, s>>>(
+      w, p.chunk_starts[0], p.chunk_starts[0], 0, o, B, Fp, n_tiles,
+      kFfPartChunks, kTileE * J * D / 4);
   return (int)cudaGetLastError();
 }
 
@@ -1316,21 +1603,30 @@ extern "C" {
 
 // Direction d's inputs are vals_d, prior_d, scatter_d and chunk_starts_d;
 // with ndir == 1 the *_1 pointers are not read. vals and ins are bfloat16
-// when bf16 is non-zero, else float. Returns a cudaError_t value; 0 means
-// the launch was accepted.
+// when bf16 is non-zero, else float. out [ndir,B,n_tiles*128,J*D] f32; ws
+// [ndir,B,gate_scatter_fwd_slots(Fp),128*J*D] f32 scratch. Returns a
+// cudaError_t value; 0 means the launch was accepted.
 int gate_scatter_fwd(const void* vals_0, const void* vals_1, const void* ins,
                      const void* prior_0, const void* prior_1,
                      const void* scatter_0, const void* scatter_1,
                      const void* chunk_starts_0, const void* chunk_starts_1,
                      void* out, int ndir, int B, int Fp, int D, int J,
-                     int n_tiles, int apply_relu, int bf16, void* stream) {
+                     int n_tiles, int apply_relu, int bf16, void* ws,
+                     void* stream) {
   const DirPtrs p = two_directions(vals_0, vals_1, prior_0, prior_1, scatter_0,
                                    scatter_1, chunk_starts_0, chunk_starts_1);
-  return bf16 ? launch<__nv_bfloat16, kGate>(p, ins, out, ndir, B, Fp, D, J,
-                                             n_tiles, apply_relu, stream)
-              : launch<float, kGate>(p, ins, out, ndir, B, Fp, D, J, n_tiles,
-                                     apply_relu, stream);
+  const FwdPlan plan = fwd_plan(D, J, bf16 ? 2 : 4);
+  return bf16 ? launch_gate_fwd<__nv_bfloat16, kGate>(
+                    p, ins, out, ws, ndir, B, Fp, D, J, n_tiles, apply_relu,
+                    plan, stream)
+              : launch_gate_fwd<float, kGate>(p, ins, out, ws, ndir, B, Fp, D,
+                                              J, n_tiles, apply_relu, plan,
+                                              stream);
 }
+
+// Partial tiles a (direction, sample) of the workspace of gate_scatter_fwd
+// and scatter_mm_fwd holds.
+int gate_scatter_fwd_slots(int Fp) { return fwd_slots(Fp, kFwdPartChunks); }
 
 // Blocks a tile's chunk range is split over at most, in the backward
 // kernels' workspaces: gate_scatter_bwd's dins_ws and fused_gate_scatter_
@@ -1338,7 +1634,9 @@ int gate_scatter_fwd(const void* vals_0, const void* vals_1, const void* ins,
 int gate_scatter_parts() { return kParts; }
 
 // Partial tiles a sample's workspace of fused_gate_scatter_fwd holds.
-int fused_gate_scatter_fwd_slots(int Fp) { return ff_slots(Fp); }
+int fused_gate_scatter_fwd_slots(int Fp) {
+  return fwd_slots(Fp, kFfPartChunks);
+}
 
 // The fused-projection forward, one direction: fact_rel [B,Fp,D], w [D,D],
 // bias [D] and ins [B,J,D] bfloat16 when bf16 is non-zero, else float;
@@ -1386,15 +1684,19 @@ int fused_gate_scatter_bwd(const void* fact_rel, const void* w,
 
 // scatter_mm: values [B,Fp,C] (bfloat16 when bf16 is non-zero, else float),
 // scatter [B,Fp] i32, chunk_tiles [B,Fp/128] i32 (non-decreasing per row);
-// out [B,n_tiles*128,C] f32. Returns a cudaError_t value.
+// out [B,n_tiles*128,C] f32; ws [B,gate_scatter_fwd_slots(Fp),128*C] f32
+// scratch. Returns a cudaError_t value.
 int scatter_mm_fwd(const void* values, const void* scatter,
                    const void* chunk_tiles, void* out, int B, int Fp, int C,
-                   int n_tiles, int bf16, void* stream) {
+                   int n_tiles, int bf16, void* ws, void* stream) {
   const DirPtrs p = one_direction(values, nullptr, scatter, chunk_tiles);
-  return bf16 ? launch<__nv_bfloat16, kScatter>(p, nullptr, out, 1, B, Fp, C,
-                                                1, n_tiles, 0, stream)
-              : launch<float, kScatter>(p, nullptr, out, 1, B, Fp, C, 1,
-                                        n_tiles, 0, stream);
+  const FwdPlan plan = fwd_plan(C, 1, bf16 ? 2 : 4);
+  return bf16 ? launch_gate_fwd<__nv_bfloat16, kScatter>(
+                    p, nullptr, out, ws, 1, B, Fp, C, 1, n_tiles, 0, plan,
+                    stream)
+              : launch_gate_fwd<float, kScatter>(p, nullptr, out, ws, 1, B, Fp,
+                                                 C, 1, n_tiles, 0, plan,
+                                                 stream);
 }
 
 // The backward of gate_scatter_fwd, inputs as there; g [ndir,B,E,J*D] f32.

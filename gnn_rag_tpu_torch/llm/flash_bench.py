@@ -14,17 +14,22 @@ phase of ``--phases`` (default all three):
   bound, its share of the bound and the achieved TFLOP/s, and each output's
   largest ratio to its tolerance against the plain versions (dk and dv also
   from the plain forward's lse and delta, the same inputs in both trees);
-- ``gate``: the gate-scatter kernels of ``ops.gate_scatter`` (the v4
-  forward K1 and backward K2, both directions; the fused-projection forward
-  K6a/b and backward K6c, one direction) at chip_smoke's kernel-fused
-  shapes (WebQSP fp32 and bf16, CWQ fp32, and the skewed WebQSP layout
-  ``SKEWED``; inputs from this tree's ``kernel_inputs``): ``ms``, the
-  CUDA-event median over 20 runs of 10 back-to-back calls (``median_ms``:
-  the wrapper's host time where that is longer than the kernels'), and
+- ``gate``: the gate-scatter kernels of ``ops.gate_scatter``: the v4
+  forward K1 (both directions) at every row of chip_smoke's
+  ``KERNEL_SHAPES`` and the skewed WebQSP layout ``SKEWED``; the v4
+  backward K2 (both directions), the fused-projection forward K6a/b and
+  backward K6c (one direction) and scatter_mm K6d (C = J*D) at its
+  kernel-fused shapes (WebQSP fp32 and bf16, CWQ fp32) and ``SKEWED``
+  (inputs from this tree's ``kernel_inputs``): ``ms``, the CUDA-event
+  median over 20 runs of 10 back-to-back calls (``median_ms``: the
+  wrapper's host time where that is longer than the kernels'), and
   ``device_ms``, the same from replays of a CUDA graph of the calls
   (``graph_ms``: the kernels alone), the bound, the share of it that each
   reaches, and each output's largest ratio to its tolerance against the
-  plain version;
+  plain version; for K1 also ``host_ms``, the host clock per call over
+  1,000 calls, in 10 batches of 100 back-to-back calls each timed from a
+  synchronised device to its last call's return (so the launch queue never
+  fills and the time is the host's);
 - ``steps``: the headline ReaRev configuration (chip_smoke's
   ``HEADLINE_FLAGS``, random weights) on one B8 batch of a 64-question
   SynthQSP split made once for both trees: ms a train step
@@ -58,9 +63,13 @@ _CHILD = ("import importlib.util as u, sys; "
           "s = u.spec_from_file_location('flash_bench', sys.argv[1]); "
           "m = u.module_from_spec(s); s.loader.exec_module(m); "
           "m.measure(sys.argv[2], sys.argv[3].split(','), sys.argv[4])")
-# the gate-scatter kernels a profiled step reports: chip_smoke's, and the
-# dins reduction of trees whose part_reduce_kernel takes one direction
-OLDER_KERNEL_NAMES = ("dins_reduce_kernel",)
+# the gate-scatter kernels a profiled step reports: chip_smoke's, and those
+# of older trees: the dins reduction of trees whose part_reduce_kernel takes
+# one direction, the one-block-a-tile forward (K1) and the fused forward's
+# own partial-tile sum
+OLDER_KERNEL_NAMES = ("dins_reduce_kernel", "gate_scatter_fwd_kernel",
+                      "fused_fwd_sum_kernel")
+HOST_BATCHES, HOST_CALLS = 10, 100   # K1 calls timed on the host clock
 
 
 def _load(name, path):
@@ -142,8 +151,10 @@ def measure_flash(smoke, device):
 def measure_gate(smoke, device):
     """{shape: {kernel: ms, device ms, bound, shares of the bound, largest
     error over tolerance}} of the tree's gate-scatter kernels: the v4
-    forward (K1, both directions) and backward (K2, both directions), the
-    fused-projection forward (K6a/b) and backward (K6c, one direction)."""
+    forward (K1, both directions; and its host ms a call) at every kernel
+    shape; at the kernel-fused shapes also the v4 backward (K2, both
+    directions), the fused-projection forward (K6a/b) and backward (K6c,
+    one direction) and scatter_mm (K6d)."""
     import math
 
     import numpy as np
@@ -151,37 +162,47 @@ def measure_gate(smoke, device):
     from gnn_rag_tpu_torch.ops import gate_scatter as gs
     rng = np.random.default_rng(smoke.SEED)
     gen = torch.Generator(device=device).manual_seed(smoke.SEED + 3)
-    rows = [r for r in smoke.KERNEL_SHAPES if r[0] in smoke.FUSED_SHAPES]
+    fused = set(smoke.FUSED_SHAPES) | {smoke.SKEWED[0]}
     out = {}
-    for name, B, E, F, J, D, dtype, relu in rows + [smoke.SKEWED]:
+    for name, B, E, F, J, D, dtype, relu in (*smoke.KERNEL_SHAPES,
+                                             smoke.SKEWED):
         vals, ins, prior, scatter, starts, _ = smoke.kernel_inputs(
             B, E, F, J, D, dtype, relu, device, rng,
             skew=name == smoke.SKEWED[0])
-        w = (torch.randn((D, D), generator=gen, device=device)
-             / math.sqrt(D)).to(ins.dtype)
-        b = (0.1 * torch.randn((D,), generator=gen, device=device)).to(ins.dtype)
-        g2 = torch.randn((2, B, E, J * D), generator=gen, device=device)
         bf16 = ins.dtype == torch.bfloat16
-        one = (vals[0], w, b, ins, prior[0], scatter[0], starts[0])
         both = (vals, ins, prior, scatter, starts)
-        # (kernel, plain, bound args, tolerance: a share of max|ref| or
-        # (bf16 steps,) per element, as chip_smoke holds them)
-        calls = {
-            "k1": (lambda: gs.gate_scatter_fwd(*both, relu),
-                   lambda: gs.gate_scatter_fwd_plain(*both, relu),
-                   (False, 2, False), 2e-2 if bf16 else 1e-5),
-            "k2": (lambda: gs.gate_scatter_bwd(*both, g2, relu),
-                   lambda: gs.gate_scatter_bwd_plain(*both, g2, relu),
-                   (True, 2, False), 2e-2 if bf16 else 1e-5),
-            "k6ab": (lambda: gs.fused_gate_scatter_fwd(*one, relu),
-                     lambda: gs.fused_gate_scatter_fwd_plain(*one, relu),
-                     (False, 1, True), (2,) if bf16 else 1e-5),
-            "k6c": (lambda: gs.fused_gate_scatter_bwd(*one, g2[0], relu),
-                    lambda: gs.fused_gate_scatter_bwd_plain(*one, g2[0], relu),
-                    (True, 1, True), None)}
-        row = dict(B=B, E=E, Fp=vals[0].shape[1], J=J, D=D, dtype=dtype)
+        Fp = vals[0].shape[1]
+        row = dict(B=B, E=E, Fp=Fp, J=J, D=D, dtype=dtype, scatter_C=J * D)
+        # (kernel, plain, bound, tolerance: a share of max|ref| or (bf16
+        # steps,) per element, as chip_smoke holds them)
+        calls = {"k1": (lambda: gs.gate_scatter_fwd(*both, relu),
+                        lambda: gs.gate_scatter_fwd_plain(*both, relu),
+                        smoke.gate_bound(row, False), 2e-2 if bf16 else 1e-5)}
+        if name in fused:
+            w = (torch.randn((D, D), generator=gen, device=device)
+                 / math.sqrt(D)).to(ins.dtype)
+            b = (0.1 * torch.randn((D,), generator=gen, device=device)).to(ins.dtype)
+            g2 = torch.randn((2, B, E, J * D), generator=gen, device=device)
+            one = (vals[0], w, b, ins, prior[0], scatter[0], starts[0])
+            tiles = smoke.chunk_tiles_of(starts[0], Fp // 128)
+            sv = torch.randn((B, Fp, J * D), generator=gen,
+                             device=device).to(ins.dtype)
+            calls.update({
+                "k2": (lambda: gs.gate_scatter_bwd(*both, g2, relu),
+                       lambda: gs.gate_scatter_bwd_plain(*both, g2, relu),
+                       smoke.gate_bound(row, True), 2e-2 if bf16 else 1e-5),
+                "k6ab": (lambda: gs.fused_gate_scatter_fwd(*one, relu),
+                         lambda: gs.fused_gate_scatter_fwd_plain(*one, relu),
+                         smoke.gate_bound(row, False, ndir=1, project=True),
+                         (2,) if bf16 else 1e-5),
+                "k6c": (lambda: gs.fused_gate_scatter_bwd(*one, g2[0], relu),
+                        lambda: gs.fused_gate_scatter_bwd_plain(*one, g2[0], relu),
+                        smoke.gate_bound(row, True, ndir=1, project=True), None),
+                "k6d": (lambda: gs.scatter_mm_fwd(sv, scatter[0], tiles, E),
+                        lambda: gs.scatter_mm_fwd_plain(sv, scatter[0], tiles, E),
+                        smoke.scatter_bound(row), 1e-5)})
         res = {}
-        for kernel, (fn, plain, (backward, ndir, project), rule) in calls.items():
+        for kernel, (fn, plain, (bound, _), rule) in calls.items():
             got, want = _flat(fn()), _flat(plain())
             over = 0.0
             for a, r in zip(got, want):
@@ -193,16 +214,35 @@ def measure_gate(smoke, device):
                        else rl * r.float().abs().max())
                 over = max(over, d.div(tol).nan_to_num(nan=0.0).max().item())
             ms, device_ms = smoke.median_ms(fn), smoke.graph_ms(fn)
-            bound = smoke.gate_bound(row, backward, ndir=ndir,
-                                     project=project)[0]
             res[kernel] = dict(ms=ms, device_ms=device_ms, bound_ms=bound,
                                bound_share=bound / ms,
                                device_bound_share=bound / device_ms,
                                err_over_tol=over)
+            if kernel == "k1":
+                res[kernel]["host_ms"] = host_ms(fn)
             del got, want
         out[name] = res
-        del vals, ins, prior, scatter, starts, one, both, g2, calls
+        del vals, ins, prior, scatter, starts, both, calls
+        torch.cuda.empty_cache()
     return out
+
+
+def host_ms(fn):
+    """Host-clock ms a call of ``fn`` over HOST_BATCHES batches of
+    HOST_CALLS calls, each batch started on a synchronised device and timed
+    to its last call's return."""
+    import time
+
+    import torch
+    total = 0.0
+    for _ in range(HOST_BATCHES):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        total += time.perf_counter() - t
+    torch.cuda.synchronize()
+    return 1e3 * total / (HOST_BATCHES * HOST_CALLS)
 
 
 def measure_steps(smoke, device, data):

@@ -13,17 +13,23 @@ Replaces the TPU kernels ``_fused_kernel_v4`` (gnn_rag_tpu/ops/pallas_mp.py:
 per-direction / per-instruction tiers for large E) and ``_fused_kernel_v3``
 (:565, one direction, ``[B, J, E, D]`` output). On the TPU the three exist
 because the resident output block must fit a scoped-VMEM budget; on the GPU
-one kernel (``csrc/gate_scatter.cu``) covers every E: each thread block of
-the forward owns one (direction, sample, 128-entity tile) and accumulates
-it in shared memory, so there is no size tier to dispatch on; the backward
-and the fused-projection kernels split a tile's facts over several blocks.
+one kernel (``csrc/gate_scatter.cu``) covers every E: a 128-entity tile's
+rows are summed in shared memory, so there is no size tier to dispatch on.
 
 What bounds it on an H100: it reads B*Fp*D input values per direction and
 writes B*E*J*D floats, with one multiply-add per (fact, column), so it is
 bound by memory traffic and load latency, not arithmetic. The design keeps
 the J*D products out of device memory (the plain version below materialises
-a [ndir, B, Fp, J*D] float tensor and scatters it with atomics), writes each
-output element once, and needs no atomics, so its sums are deterministic.
+a [ndir, B, Fp, J*D] float tensor and scatters it with atomics) and needs no
+atomics, so its sums are deterministic. A tile's chunk range is split over
+up to 8 blocks of at least 4 chunks, so the few long tiles of a skewed
+subgraph do not set the time: a tile of one part writes its rows directly,
+the parts of a longer tile write partial tiles to a workspace that a second
+small kernel adds in part order. Each block streams its slots 32 at a time
+through a ring of shared-memory stages (asynchronous copies, the next
+stages in flight while one computes), and every thread of the block runs
+the gate: thread (group, column) adds the slots whose row falls to its
+group.
 
 Numerics follow the TPU kernel (pallas_mp.py:872-889): ``vals * ins`` is
 formed in the input type, ``prior`` is rounded to the input type before it
@@ -119,25 +125,23 @@ def _load():
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            lib.gate_scatter_fwd.argtypes = ([ctypes.c_void_p] * 10
-                                             + [ctypes.c_int] * 8
-                                             + [ctypes.c_void_p])
-            lib.gate_scatter_fwd.restype = ctypes.c_int
-            lib.gate_scatter_bwd.argtypes = ([ctypes.c_void_p] * 14
-                                             + [ctypes.c_int] * 8
-                                             + [ctypes.c_void_p])
-            lib.gate_scatter_bwd.restype = ctypes.c_int
-            for name, n_ptr, n_int in (("fused_gate_scatter_fwd", 9, 7),
-                                       ("fused_gate_scatter_bwd", 15, 7),
-                                       ("scatter_mm_fwd", 4, 5)):
+            # (name, pointers, ints, pointers after the ints: the
+            # workspace of the forward, then the stream)
+            for name, n_ptr, n_int, n_last in (
+                    ("gate_scatter_fwd", 10, 8, 2),
+                    ("gate_scatter_bwd", 14, 8, 1),
+                    ("fused_gate_scatter_fwd", 9, 7, 1),
+                    ("fused_gate_scatter_bwd", 15, 7, 1),
+                    ("scatter_mm_fwd", 4, 5, 2)):
                 fn = getattr(lib, name)
                 fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                               + [ctypes.c_void_p])
+                               + [ctypes.c_void_p] * n_last)
                 fn.restype = ctypes.c_int
             lib.gate_scatter_parts.argtypes = []
             lib.gate_scatter_parts.restype = ctypes.c_int
-            lib.fused_gate_scatter_fwd_slots.argtypes = [ctypes.c_int]
-            lib.fused_gate_scatter_fwd_slots.restype = ctypes.c_int
+            for name in ("gate_scatter_fwd_slots", "fused_gate_scatter_fwd_slots"):
+                getattr(lib, name).argtypes = [ctypes.c_int]
+                getattr(lib, name).restype = ctypes.c_int
             lib.gate_scatter_error_string.argtypes = [ctypes.c_int]
             lib.gate_scatter_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -206,36 +210,72 @@ def gate_scatter_fwd(vals, ins: torch.Tensor, prior, scatter, chunk_starts,
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
     current stream or raise."""
     global launches
-    if ins.device.type == "cpu":
+    dev = ins.device
+    if dev.type == "cpu":
         return gate_scatter_fwd_plain(vals, ins, prior, scatter, chunk_starts,
                                       apply_relu)
-    if ins.device.type != "cuda":
-        raise ValueError(f"gate_scatter: unsupported device {ins.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"gate_scatter: unsupported device {dev}")
     vals, prior, scatter, chunk_starts = (
         x.unbind(0) if isinstance(x, torch.Tensor) else x
         for x in (vals, prior, scatter, chunk_starts))
     _check(vals, ins, prior, scatter, chunk_starts)
+    ndir = len(vals)
     B, Fp, D = vals[0].shape
     J = ins.shape[1]
     n_tiles = chunk_starts[0].shape[-1] - 1
-    out = torch.empty((len(vals), B, n_tiles * TILE_E, J * D),
-                      dtype=torch.float32, device=ins.device)
-    _launch("gate_scatter_fwd", ins.device,
+    out = torch.empty((ndir, B, n_tiles * TILE_E, J * D), dtype=torch.float32,
+                      device=dev)
+    _launch("gate_scatter_fwd", dev,
             vals[0].data_ptr(), vals[-1].data_ptr(), ins.data_ptr(),
             prior[0].data_ptr(), prior[-1].data_ptr(), scatter[0].data_ptr(),
             scatter[-1].data_ptr(), chunk_starts[0].data_ptr(),
-            chunk_starts[-1].data_ptr(), out.data_ptr(), len(vals), B, Fp, D,
-            J, n_tiles, int(bool(apply_relu)), int(ins.dtype == torch.bfloat16))
+            chunk_starts[-1].data_ptr(), out.data_ptr(), ndir, B, Fp, D, J,
+            n_tiles, int(bool(apply_relu)), int(ins.dtype == torch.bfloat16),
+            ws_bytes=4 * ndir * B * _fwd_slots(Fp) * TILE_E * J * D)
     launches += 1
     return out
 
 
-def _launch(name: str, device, *args) -> None:
+_slots: dict = {}
+
+
+def _fwd_slots(Fp: int) -> int:
+    """Partial tiles a (direction, sample) of the forward's workspace holds
+    (the library's ``gate_scatter_fwd_slots``, once per Fp)."""
+    n = _slots.get(Fp)
+    if n is None:
+        n = _slots[Fp] = _load().gate_scatter_fwd_slots(Fp)
+    return n
+
+
+def _launch(name: str, device, *args, ws_bytes=None) -> None:
     """Call the library's ``name`` with ``args`` and the current stream of
-    ``device``; raise with the CUDA error if the launch was refused."""
+    ``device`` (made the current device for the call if it is not). With
+    ``ws_bytes``, a scratch workspace of that many bytes goes just before
+    the stream: taken from PyTorch's caching allocator on that stream and
+    given back once the launch is queued (stream-ordered, as a tensor's
+    memory is). Raise with the CUDA error if the launch was refused.
+
+    The stream and the workspace come from the bindings that
+    ``torch.cuda.current_stream`` and ``torch.cuda.caching_allocator_alloc``
+    wrap, without the Stream object and the device switch those build on
+    every call: the forward's eager call costs its host time."""
+    index = device.index
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return _launch(name, device, *args, ws_bytes=ws_bytes)
     lib = _load()
-    with torch.cuda.device(device):
-        err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    fn = getattr(lib, name)
+    if ws_bytes is None:
+        err = fn(*args, stream)
+    else:
+        ws = torch._C._cuda_cudaCachingAllocator_raw_alloc(ws_bytes, stream)
+        try:
+            err = fn(*args, ws, stream)
+        finally:
+            torch._C._cuda_cudaCachingAllocator_raw_delete(ws)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            + lib.gate_scatter_error_string(err).decode())
@@ -600,10 +640,11 @@ def scatter_mm_fwd(values: torch.Tensor, scatter_idx: torch.Tensor,
     ``[B, Fp, C]`` float32 or bfloat16 in the tile-sorted layout order,
     ``[B, Fp]`` int32 scatter_idx (-1 on pad slots), ``[B, Fp/128]`` int32
     chunk_tiles (non-decreasing per row, as the layout builds them) ->
-    ``[B, E, C]`` float32. A block holds a ``[128, C]`` float tile and 64
-    staged rows in shared memory, so C goes up to 302 (float32) or 362
-    (bfloat16); a wider C raises. Any C stages in 16-byte copies: 64 rows
-    of C values are a multiple of 16 bytes.
+    ``[B, E, C]`` float32. It runs the forward's kernel (J 1, D = C, no
+    gate): a block holds a ``[128, C]`` float tile and two or more stages of
+    32 rows in shared memory, so C goes up to 302 (float32) or 362
+    (bfloat16); a wider C raises. Any C stages in 16-byte copies: 32 rows of
+    C values are a multiple of 16 bytes.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
     current stream or raise."""
@@ -633,7 +674,8 @@ def scatter_mm_fwd(values: torch.Tensor, scatter_idx: torch.Tensor,
                       device=values.device)
     _launch("scatter_mm_fwd", values.device, values.data_ptr(),
             scatter_idx.data_ptr(), chunk_tiles.data_ptr(), out.data_ptr(), B,
-            Fp, C, num_entities // TILE_E, int(values.dtype == torch.bfloat16))
+            Fp, C, num_entities // TILE_E, int(values.dtype == torch.bfloat16),
+            ws_bytes=4 * B * _fwd_slots(Fp) * TILE_E * C)
     scatter_launches += 1
     return out
 

@@ -87,7 +87,9 @@ def inputs(J, D, dtype, device, *, B=3, E=512, F=1500, pad_rows=1, seed=0,
 @pytest.mark.parametrize("J,D,apply_relu,dtype", [
     (1, 50, False, torch.float32), (2, 50, True, torch.float32),
     (3, 50, True, torch.float32), (2, 16, True, torch.float32),
-    (2, 50, True, torch.bfloat16), (3, 50, False, torch.bfloat16)])
+    (2, 50, True, torch.bfloat16), (3, 50, False, torch.bfloat16),
+    # odd D: one column a thread (an even D takes two)
+    (2, 15, True, torch.float32), (1, 15, False, torch.bfloat16)])
 def test_kernel_matches_plain(cuda, J, D, apply_relu, dtype):
     args = inputs(J, D, dtype, cuda)
     before = gs.launches
@@ -320,6 +322,55 @@ def check_gate_bwd(args, rel):
     return got
 
 
+def check_gate_fwd(args, apply_relu, rel):
+    """K1 against its plain version (``rel`` of max|plain| + 1e-6), bit for
+    bit on a repeat; rows the plain version leaves zero (empty tiles,
+    entities no fact targets) are zero."""
+    before = gs.launches
+    got = gs.gate_scatter_fwd(*args, apply_relu)
+    again = gs.gate_scatter_fwd(*args, apply_relu)
+    torch.cuda.synchronize()
+    assert gs.launches == before + 2
+    want = gs.gate_scatter_fwd_plain(*args, apply_relu)
+    err = (got - want).abs().max().item()
+    assert err <= rel * want.abs().max().item() + 1e-6, err
+    assert torch.equal(got, again)
+    assert not got[~want.any(-1)].any()
+    return got
+
+
+def chunk_tiles(starts, nc):
+    """A layout's chunk_tiles [B, nc] from its chunk_starts [B, n_tiles+1]:
+    chunk c's tile is the number of tile ranges that end at or before c,
+    the padding chunks past the last range repeating the last tile."""
+    B, n_tiles = starts.shape[0], starts.shape[1] - 1
+    tiles = torch.searchsorted(starts[:, 1:].contiguous(),
+                               torch.arange(nc, device=starts.device,
+                                            dtype=torch.int32)
+                               .expand(B, nc).contiguous(), right=True)
+    return tiles.clamp_max(n_tiles - 1).to(torch.int32)
+
+
+def check_scatter(scatter, starts, C, dtype, seed):
+    """K6d at width C on one direction's layout against its plain version
+    (1e-5 of max|plain|: float sums of the same values), bit for bit on a
+    repeat, rows the plain version leaves zero zero."""
+    B, Fp = scatter.shape
+    E = (starts.shape[-1] - 1) * TILE_E
+    tiles = chunk_tiles(starts, Fp // 128)
+    vals = torch.randn((B, Fp, C), device=scatter.device, generator=torch
+                       .Generator(device=scatter.device).manual_seed(seed)).to(dtype)
+    before = gs.scatter_launches
+    got = gs.scatter_mm_fwd(vals, scatter, tiles, E)
+    again = gs.scatter_mm_fwd(vals, scatter, tiles, E)
+    torch.cuda.synchronize()
+    assert gs.scatter_launches == before + 2
+    want = gs.scatter_mm_fwd_plain(vals, scatter, tiles, E)
+    assert_parts_close((got,), (want,), (1e-5,))
+    assert torch.equal(got, again)
+    assert not got[~want.any(-1)].any()
+
+
 def check_fused_fwd(args, apply_relu, f32):
     """K6a/b against its plain version (fp32 1e-5 of max|plain|, bf16 two
     bf16 steps per element), bit for bit on a repeat."""
@@ -339,15 +390,24 @@ def check_fused_fwd(args, apply_relu, f32):
     (2, True, torch.float32), (1, False, torch.float32),
     (3, True, torch.float32), (2, True, torch.bfloat16)])
 def test_split_tiles_match_plain(cuda, J, apply_relu, dtype):
-    """K6a/b (one direction) and K2 (both directions, and one) on tiles
-    whose chunk counts sit on and around the part boundaries: an empty
-    tile (one chunk of pad slots); 1-4 chunks (one part of K6a/b); 8 (two parts of 4 for K6a/b, four
-    of 2 for K2); 16 (K2's largest split, 8 parts) and 32 (K6a/b's); 40,
-    more than either's largest split covers; padding chunks past the last
-    tile's range. dprior and dins not needed, and bf16."""
+    """K1 (both directions, and one), K6a/b (one direction), K2 (both
+    directions, and one) and K6d (at C = J*50) on tiles whose chunk counts
+    sit on and around the part boundaries: an empty tile (one chunk of pad
+    slots); 1-4 chunks (one part of K1, K6a/b and K6d); 8 (two parts of 4
+    for K1, K6a/b and K6d, four of 2 for K2); 16 (K2's largest split, 8
+    parts) and 32 (the forwards'); 40, more than any largest split covers;
+    padding chunks past the last tile's range (in K6d's chunk_tiles, part
+    of the last tile's range). dprior and dins not needed, and bf16."""
     vals, ins, prior, scatter, starts = chunk_inputs(J, 50, dtype, cuda)
     B, E = vals.shape[1], (starts.shape[-1] - 1) * TILE_E
     f32 = dtype == torch.float32
+    for ndir in (2, 1):
+        out = check_gate_fwd((vals[:ndir], ins, prior[:ndir], scatter[:ndir],
+                              starts[:ndir]), apply_relu,
+                             1e-5 if f32 else 2e-2)
+        assert not out[0, 0, :TILE_E].any()
+        assert not out[0, 1, 2 * TILE_E:3 * TILE_E].any()
+    check_scatter(scatter[0], starts[0], J * 50, dtype, seed=9)
     g = torch.randn((2, B, E, J * 50), device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(6))
     for ndir in (2, 1):
@@ -370,15 +430,18 @@ def test_split_tiles_match_plain(cuda, J, apply_relu, dtype):
     (8, 4096, 13107, 3, False),     # CWQ
     (16, 2048, 6553, 2, True)])     # skewed: a few tiles hold most chunks
 def test_gate_kernels_at_model_shapes(cuda, B, E, F, J, skew, dtype):
-    """K6a/b (one direction) and K2 (both directions) at the model's
-    shapes against their plain versions, as the tests above hold them:
-    long tiles split over several blocks whose partials are added in a
-    fixed order, bit for bit on a repeat."""
+    """K1 and K2 (both directions), K6a/b (one direction) and K6d (C =
+    J*50) at the model's shapes against their plain versions, as the tests
+    above hold them: long tiles split over several blocks whose partials
+    are added in a fixed order, bit for bit on a repeat."""
     vals, ins, prior, scatter, starts = inputs(J, 50, dtype, cuda, B=B, E=E,
                                                F=F, pad_rows=0, skew=skew)
     if skew:
         assert (starts[0, :, 1:] - starts[0, :, :-1]).max() >= 16
     f32 = dtype == torch.float32
+    check_gate_fwd((vals, ins, prior, scatter, starts), True,
+                   1e-5 if f32 else 2e-2)
+    check_scatter(scatter[0], starts[0], J * 50, dtype, seed=10)
     g = torch.randn((2, B, E, J * 50), device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(8))
     check_gate_bwd((vals, ins, prior, scatter, starts, g, True),
@@ -391,17 +454,13 @@ def test_gate_kernels_at_model_shapes(cuda, B, E, F, J, skew, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("C,dtype", [(100, torch.float32), (150, torch.float32),
-                                     (100, torch.bfloat16), (8, torch.float32)])
+                                     (100, torch.bfloat16), (8, torch.float32),
+                                     (151, torch.float32), (302, torch.float32),
+                                     (362, torch.bfloat16)])
 def test_scatter_kernel_matches_plain(cuda, C, dtype):
     vals, _, _, scatter, starts = inputs(1, C, dtype, cuda)
-    B, n_tiles = scatter.shape[1], starts.shape[-1] - 1
-    nc = scatter.shape[-1] // 128
-    # chunk c's tile: the tiles whose range ends at or before c, the padding
-    # chunks past the last range repeating the last tile
-    tiles = torch.searchsorted(starts[0, :, 1:].contiguous(),
-                               torch.arange(nc, device=cuda, dtype=torch.int32)
-                               .expand(B, nc).contiguous(), right=True)
-    tiles = tiles.clamp_max(n_tiles - 1).to(torch.int32)
+    n_tiles = starts.shape[-1] - 1
+    tiles = chunk_tiles(starts[0], scatter.shape[-1] // 128)
     before = gs.scatter_launches
     got = gs.scatter_mm_fwd(vals[0], scatter[0], tiles, n_tiles * TILE_E)
     torch.cuda.synchronize()
@@ -413,6 +472,23 @@ def test_scatter_kernel_matches_plain(cuda, C, dtype):
     assert torch.equal(x.grad, (scatter[0] >= 0)[..., None].expand_as(x).to(dtype))
     with pytest.raises(TypeError):
         gs.scatter_mm_fwd(vals[0], scatter[0].long(), tiles, n_tiles * TILE_E)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,dtype", [(303, torch.float32), (363, torch.bfloat16)])
+def test_scatter_kernel_refuses_wider_than_fits(cuda, C, dtype):
+    """One column wider than the widest scatter_mm takes (302 float32, 362
+    bfloat16: the [128, C] tile and two 32-row stages fill a block's shared
+    memory): the launch is refused with the CUDA error, and cleared."""
+    vals, _, _, scatter, starts = inputs(1, C, dtype, cuda)
+    n_tiles = starts.shape[-1] - 1
+    tiles = chunk_tiles(starts[0], scatter.shape[-1] // 128)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        gs.scatter_mm_fwd(vals[0], scatter[0], tiles, n_tiles * TILE_E)
+    got = gs.scatter_mm_fwd(vals[0][..., :C - 1].contiguous(), scatter[0],
+                            tiles, n_tiles * TILE_E)
+    torch.cuda.synchronize()
+    assert got.shape[-1] == C - 1
 
 
 def model_batch(cuda, compute_dtype, seed=1):

@@ -91,12 +91,27 @@ def port_both(kl, x, E, apply_relu, device="cpu", dtype=torch.float32):
         t["prior_f"], t["prior_i"], torch_layout(kl, device), E, apply_relu)
 
 
-@pytest.mark.parametrize("J,apply_relu,pad_rows,empty_tile", [
-    (1, True, 0, False), (2, True, 0, False), (2, False, 0, False),
-    (3, True, 0, False), (2, True, 2, False), (2, True, 0, True)])
+# a skewed layout (E 512, 4 tiles) whose first forward tile holds at least
+# 9 chunks: the regime where the card's kernel splits a tile over blocks
+SKEWED = dict(E=512, F=2000, skew=True)
+
+
+def skewed_case(J):
+    kl, x, E = make_case(J, **SKEWED)
+    counts = np.diff(kl.fwd.chunk_starts, axis=1)
+    assert counts.max() >= 9 and counts[:, 0].min() > counts[:, 1:].max()
+    return kl, x, E
+
+
+@pytest.mark.parametrize("J,apply_relu,pad_rows,empty_tile,skew", [
+    (1, True, 0, False, False), (2, True, 0, False, False),
+    (2, False, 0, False, False), (3, True, 0, False, False),
+    (2, True, 2, False, False), (2, True, 0, True, False),
+    (2, True, 0, False, True), (3, True, 0, False, True)])
 def test_both_matches_v4_kernel_and_reference(J, apply_relu, pad_rows,
-                                              empty_tile):
-    kl, x, E = make_case(J, pad_rows=pad_rows, empty_tile=empty_tile)
+                                              empty_tile, skew):
+    kl, x, E = (skewed_case(J) if skew else
+                make_case(J, pad_rows=pad_rows, empty_tile=empty_tile))
     before = gs.launches
     got_f, got_i = port_both(kl, x, E, apply_relu)
     assert gs.launches == before  # CPU tensors run the plain version
@@ -116,9 +131,10 @@ def test_both_matches_v4_kernel_and_reference(J, apply_relu, pad_rows,
         assert not got_f[0, tkl.TILE_E:].any()
 
 
-@pytest.mark.parametrize("J,apply_relu", [(1, False), (2, True), (2, False)])
-def test_projected_matches_v3_kernel(J, apply_relu):
-    kl, x, E = make_case(J)
+@pytest.mark.parametrize("J,apply_relu,skew", [
+    (1, False, False), (2, True, False), (2, False, False), (1, False, True)])
+def test_projected_matches_v3_kernel(J, apply_relu, skew):
+    kl, x, E = skewed_case(J) if skew else make_case(J)
     t = {k: torch.from_numpy(v) for k, v in x.items()}
     got = gs.gate_scatter_projected(t["vals_f"], t["ins"], t["prior_f"],
                                     torch_layout(kl).fwd, E, apply_relu)
