@@ -81,6 +81,21 @@ The LLM reader (the flash-attention kernels K5a-c):
   10. decode: the trained reader decodes 8 test prompts greedily (kv cache,
      plain attention); at fp32 the cache-free forward (flash kernel) and the
      Decoder's prefill agree on one prompt's last logits;
+  10b. qa: the RAG half over the trained retriever and the SFT'd reader (the
+     reader saved as a bundle and loaded through the registry,
+     ``get_registed_model("llama_tpu")``; depth 4 of 32, byte tokens, 64
+     new tokens): POST /answer through ``python -m gnn_rag_tpu_torch.
+     serve_qa`` (64 one-question and 4 sixteen-question requests, closed
+     loop, p10/p50/p90; the gate-scatter kernel launched there, the flash
+     kernels not; prompts within the reader's budget; generate_sentence as
+     Decoder.greedy) and one request's stages (retrieve, prompt, prefill,
+     decode); the `.info` with ``--info_attention`` (attention rows sum to
+     1); ``predict_answers`` over it with the mock reader and with the
+     reader in batches of 8, and the "+RA" prompts over ``gen_rule_path``'s
+     beam-searched relation paths (16 questions, 3 beams, 32 new tokens);
+     one prompt's beams rescored at float32 by a cache-free forward (the
+     flash forward kernel): each score x length is the sequence's summed
+     log-probs, and the scores come back sorted;
   11. step time (LLM): ms per SFT step, positions/s and non-pad tokens/s,
      kernel path at B8 and plain attention at the largest batch that fits;
      peak memory; one step under torch.profiler (busy share, the flash
@@ -1512,6 +1527,238 @@ def run_decode(trainer, prompts, device):
     return summary
 
 
+def pct(ms):
+    """p10 / p50 / p90 of a list of milliseconds."""
+    import numpy as np
+    return {f"p{q}_ms": float(np.percentile(ms, q)) for q in (10, 50, 90)}
+
+
+def attention_sum_err(info):
+    """The largest |sum - 1| of the `.info` attention rows, each over its
+    tolerance: 1e-5 plus the 6-decimal rounding of each entry (5e-7)."""
+    worst, rows = 0.0, 0
+    for line in info:
+        for j in range(len(line)):
+            slot = line.get(str(j))
+            if not slot:
+                continue
+            att = slot["attention"]
+            worst = max(worst, abs(sum(att) - 1.0) / (1e-5 + 5e-7 * len(att)))
+            rows += 1
+    return worst, rows
+
+
+def run_qa(device, train_root, sft_trainer, root):
+    """Phase qa: the RAG half end to end over the retriever of run_train
+    (its final checkpoint and SynthQSP test split in ``train_root``) and
+    the reader of run_sft, saved as a bundle in ``root``. Returns (summary,
+    K1 launches during /answer, flash forward launches of the beam
+    rescoring)."""
+    import argparse
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+    from gnn_rag_tpu_torch import cli, serve_qa
+    from gnn_rag_tpu_torch.finetune.data_prep import rog_example
+    from gnn_rag_tpu_torch.llm.generate import Decoder, _left_pad
+    from gnn_rag_tpu_torch.llm.tokenizers import ByteTokenizer
+    from gnn_rag_tpu_torch.ops import gate_scatter as gs
+    from gnn_rag_tpu_torch.rag import gen_rule_path, predict
+    from gnn_rag_tpu_torch.rag.llms import get_registed_model
+    from gnn_rag_tpu_torch.utils.checkpoint import save_state
+
+    t0 = time.perf_counter()
+    # ---- the reader as a bundle, loaded through the registry ----
+    bundle = os.path.join(root, "reader")
+    save_state(os.path.join(bundle, "checkpoint.pt"),
+               sft_trainer.model.state_dict())
+    with open(os.path.join(bundle, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(sft_trainer.model.cfg), f)
+    flags = HEADLINE_FLAGS + ["--data_folder", train_root + "/",
+                              "--checkpoint_dir",
+                              os.path.join(train_root, "ckpt"),
+                              "--experiment_name", "smoke",
+                              "--load_experiment", "smoke-final.ckpt"]
+    with open(os.path.join(train_root, "test.json")) as f:
+        questions = [json.loads(line) for line in f]
+    httpd = serve_qa.main(flags + ["--port", "0", "--reader", "llama_tpu",
+                                   "--reader_path", bundle], block=False)
+    qa, reader = httpd.service, httpd.service.reader
+    budget = reader.maximun_token
+    if get_registed_model("llama_tpu") is not type(reader):
+        raise AssertionError(f"reader {type(reader)}")
+    setup = time.perf_counter() - t0
+    url = f"http://localhost:{httpd.server_port}/answer"
+
+    # ---- the main path, counted: POST /answer ----
+    lat = {1: [], 16: []}
+    results = []
+    try:
+        torch.cuda.synchronize()
+        reset_gate_counts()
+        reset_attn_counts()
+        for n, reps in ((1, 64), (16, 4)):
+            for i in range(reps):
+                batch = [questions[(i * n + k) % len(questions)]
+                         for k in range(n)]
+                t = time.perf_counter()
+                results += post(url, batch)
+                lat[n].append(1e3 * (time.perf_counter() - t))
+        torch.cuda.synchronize()
+        launches, flash = gs.launches, attn_counts()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    if not (launches > 0 and flash == (0, 0, 0)):
+        raise AssertionError(f"/answer: gate-scatter launches {launches}, "
+                             f"flash launches {flash}")
+    over = [r for r in results if not isinstance(r["prediction"], str)
+            or "Reasoning Paths:" not in r["prompt"]
+            or reader.tokenize(r["prompt"]) > reader.maximun_token]
+    if len(results) != 64 + 64 or over:
+        raise AssertionError(f"/answer: {len(results)} results, "
+                             f"{len(over)} malformed or over budget")
+
+    # ---- one request's stages, and generate_sentence vs Decoder.greedy ----
+    def synced(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t)
+
+    stages = {k: [] for k in ("retrieve", "prompt", "prefill", "decode",
+                              "answer")}
+    for q in questions[:8]:
+        got, ms = synced(lambda: qa.retriever.retrieve([q], with_paths=False))
+        stages["retrieve"].append(ms)
+        (prompt,), ms = synced(lambda: qa.prompts([q], got))
+        stages["prompt"].append(ms)
+        ids = reader.tok.encode(prompt)[-reader.maximun_token:]
+        toks, mask = _left_pad([ids], budget=reader.decoder.max_len
+                               - reader.max_new)
+        with torch.no_grad():
+            _, ms = synced(lambda: reader.decoder.prefill(
+                torch.from_numpy(toks).long().to(device),
+                torch.from_numpy(mask).to(device)))
+        stages["prefill"].append(ms)
+        text, ms = synced(lambda: reader.generate_sentence(prompt))
+        stages["decode"].append(ms - stages["prefill"][-1])
+        _, ms = synced(lambda: qa.answer([q]))
+        stages["answer"].append(ms)
+    greedy = reader.tok.decode(reader.decoder.greedy(
+        ids, reader.max_new, reader.tok.eos_id)).strip()
+    if text != greedy:
+        raise AssertionError("generate_sentence differs from Decoder.greedy")
+
+    # ---- the .info with --info_attention, then predict_answers ----
+    cli.run(flags + ["--is_eval", "--info_attention"])
+    info_path = os.path.join(train_root, "smoke_test.info")
+    shutil.copy(os.path.join(train_root, "ckpt", "smoke_test.info"), info_path)
+    with open(info_path) as f:
+        info = [json.loads(line) for line in f]
+    att_err, att_rows = attention_sum_err(info)
+    if len(info) != len(questions) or not att_rows or att_err > 1:
+        raise AssertionError(f".info attention: {att_rows} rows, worst "
+                             f"|sum - 1| {att_err} x its tolerance")
+    qa_path = os.path.join(train_root, "test_rog.jsonl")
+    with open(qa_path, "w") as f:
+        for q in questions:
+            f.write(json.dumps(rog_example(q)) + "\n")
+    prompt_path = os.path.join(REPO, "prompts", "llama2_predict.txt")
+
+    def predict_with(**kw):
+        cfg = predict.PredictConfig(
+            data_path=qa_path, predict_path=os.path.join(root, "pred"),
+            prompt_path=prompt_path, rule_path_g1=info_path,
+            entities_names_path=None, max_new_tokens=64, **kw)
+        t = time.perf_counter()
+        out = predict.predict_answers(cfg)
+        secs = time.perf_counter() - t
+        with open(out) as f:
+            rows = [json.loads(line) for line in f]
+        with open(out.replace("predictions.jsonl", "eval_result.txt")) as f:
+            words = f.read().split()
+        scores = dict(zip(words[::2], map(float, words[1::2])))
+        if len(rows) != len(questions) or not all(
+                isinstance(r["prediction"], str) for r in rows):
+            raise AssertionError(f"predict_answers {kw}: {len(rows)} rows")
+        return dict(hit=scores["Hit:"], f1=scores["F1:"],
+                    questions_per_s=len(rows) / secs)
+
+    del qa, reader, httpd
+    torch.cuda.empty_cache()
+    scored = {"mock": predict_with(model_name="mock")}
+    scored["llama_tpu_b8"] = predict_with(model_name="llama_tpu",
+                                          model_path=bundle, batch_size=8,
+                                          device=device.type)
+
+    # ---- beams: gen_rule_path, the "+RA" prompts, and a rescoring ----
+    model = sft_trainer.model.eval()
+    t = time.perf_counter()
+    rules = gen_rule_path.gen_prediction(
+        gen_rule_path.GenRulePathConfig(
+            data_path=qa_path, output_path=os.path.join(root, "rules"),
+            prompt_path=os.path.join(REPO, "prompts", "llama2.txt"),
+            n_beam=3, max_new_tokens=32),
+        gen_rule_path.TorchSeqGenerator(model, ByteTokenizer(),
+                                        device=device.type))
+    beam_secs = time.perf_counter() - t
+    with open(rules) as f:
+        rule_rows = [json.loads(line) for line in f]
+    if len(rule_rows) != len(questions) or any(
+            len(r["raw_output"]["paths"]) != 3
+            or r["raw_output"]["scores"] != sorted(r["raw_output"]["scores"],
+                                                   reverse=True)
+            for r in rule_rows):
+        raise AssertionError("gen_rule_path: rows or unsorted beams")
+    scored["mock_plus_ra"] = predict_with(model_name="mock", add_rule=True,
+                                          rule_path=rules)
+    m32 = as_dtype(model, "float32").eval()
+    tok = ByteTokenizer()
+    ids = tok.encode(rule_rows[0]["input"])
+    seqs, scores, _ = Decoder(m32, max_len=1024).beam_search(
+        ids, num_beams=3, max_new_tokens=32, eos_id=tok.eos_id)
+    rescore = []
+    reset_attn_counts()
+    with torch.no_grad():
+        for seq, score in zip(seqs, scores):
+            full = torch.tensor([ids + seq], device=device)
+            lp = torch.log_softmax(m32(full)[0][0, len(ids) - 1:-1], dim=-1)
+            total = lp.gather(1, full[0, len(ids):, None]).sum().item()
+            rescore.append((total, float(score) * len(seq)))
+    torch.cuda.synchronize()
+    rescore_flash = attn_counts()
+    model.train()
+    bad = [(a, b) for a, b in rescore if not abs(a - b) <= 1e-4 * abs(a)]
+    if (bad or list(scores) != sorted(scores, reverse=True)
+            or rescore_flash[0] != len(seqs) * model.cfg.n_layers):
+        raise AssertionError(f"beam rescoring {rescore}, flash launches "
+                             f"{rescore_flash}")
+    del m32
+    torch.cuda.empty_cache()
+
+    summary = dict(
+        wall_s=time.perf_counter() - t0, setup_s=setup,
+        requests={n: len(v) for n, v in lat.items()},
+        **{f"answer_b{n}": pct(v) for n, v in lat.items()},
+        stage_ms_one_question={k: pct(v)["p50_ms"] for k, v in stages.items()},
+        gate_launches_answer=launches, flash_launches_answer=flash,
+        reader_budget_tokens=budget,
+        prompt_tokens_p50=float(np.median([len(tok.encode(r["prompt"]))
+                                           for r in results])),
+        info_attention_rows=att_rows, info_attention_worst_over_tol=att_err,
+        scores=scored, beam_questions_per_s=len(rule_rows) / beam_secs,
+        beam_rescore_sum_logprob_vs_score_x_len=rescore,
+        beam_rescore_flash_launches=rescore_flash,
+        note="random weights: Hit and F1 show that the chain runs, not the "
+             "quality of the answers")
+    log("qa", json.dumps(summary))
+    return summary, launches, rescore_flash[0]
+
+
 def sft_step_time(trainer, tokens, mask, device):
     """Phase step-time (LLM): ms per SFT step (CUDA events over 2 steps
     after one warm-up; kernel, plain, plain, kernel) at B8 on the kernel
@@ -1703,6 +1950,8 @@ def main():
             device, os.path.join(root, "llm"))
         check_llm_grads(trainer, tokens, mask, device)
         run_decode(trainer, prompts, device)
+        _, qa_launches, qa_flash = run_qa(device, os.path.join(root, "train"),
+                                          trainer, os.path.join(root, "llm"))
         sft_step_time(trainer, tokens, mask, device)
 
     gate = "gnn_rag_tpu_torch/csrc/gate_scatter.cu"
@@ -1721,7 +1970,8 @@ def main():
             "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
             "shape": row["shape"], "launches_by_path": (
-                {"serve": serve_launches, "train": train_fwd} if not backward
+                {"serve": serve_launches, "train": train_fwd,
+                 "qa": qa_launches} if not backward
                 else {"train": train_bwd})})
     frow = fused_rows[0]
     for name, key, replaces, also, backward in (
@@ -1771,6 +2021,10 @@ def main():
             "bound_share": main_row["bound_share"][key],
             "tflops": main_row["tflops"][key],
             "shape": main_row["shape"],
+            **({"launches_by_path": {
+                "sft": sft["flash_launches_fwd_dq_dkv"][0],
+                "qa_beam_rescoring": qa_flash}} if key == "fwd" else
+               {}),
             **({} if key == "fwd" else
                {"sdpa_bwd_ms_dq_dk_dv_together": main_row["sdpa_bwd_ms"]})})
     print(json.dumps({"kernels": kernels}), flush=True)

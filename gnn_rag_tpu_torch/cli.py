@@ -10,7 +10,9 @@ The flags are those of the JAX package's CLI (``build_parser`` and
 the reference's gnn/parsing.py) plus ``--device {cuda,cpu}`` (default cuda;
 asking for cuda without a card raises, there is no silent CPU run). ``assemble`` loads the data, runs the frozen LM once over relation
 texts and questions and builds the Trainer; ``run`` trains, or with
-``--is_eval`` writes the test `.info` (port of gnn_rag_tpu/cli.py:171-319).
+``--is_eval`` writes the test `.info` (port of gnn_rag_tpu/cli.py:171-319),
+with ``--info_attention`` the instruction attention in its per-iteration
+slots.
 The frozen LM loads a local HF checkpoint for ``--lm`` when there is one
 (``models.frozen_lm.maybe_frozen_lm``) and falls back loudly to a random
 encoder otherwise.
@@ -196,7 +198,6 @@ def check_supported(cfg, args) -> None:
             os.path.join(d.data_folder, d.entity_emb_file)),
         "relation_emb_file": bool(d.relation_emb_file),
         "num_workers > 0": args.num_workers > 0,
-        "info_attention": args.info_attention,
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -230,11 +231,13 @@ def question_decoder(tok):
     return None
 
 
-def assemble(argv=None) -> dict:
-    """Parse flags, load data, encode relation texts and questions with the
-    frozen LM, and build the Trainer (restoring --load_experiment). Returns
-    {trainer, bundle, cfg, args, lm}."""
-    args = build_parser().parse_args(argv)
+def assemble(argv=None, args=None) -> dict:
+    """Parse flags (or take the parsed ``args``), load data, encode relation
+    texts and questions with the frozen LM, and build the Trainer (restoring
+    --load_experiment). Returns {trainer, bundle, cfg, args, lm, rel_hidden,
+    rel_hidden_inv, rel_mask}."""
+    if args is None:
+        args = build_parser().parse_args(argv)
     device = device_of(args.device)
     cfg = args_to_config(args)
     check_supported(cfg, args)
@@ -266,7 +269,8 @@ def assemble(argv=None) -> dict:
         trainer.load_ckpt(os.path.join(cfg.train.checkpoint_dir,
                                        cfg.train.load_experiment))
     return {"trainer": trainer, "bundle": bundle, "cfg": cfg, "args": args,
-            "lm": lm}
+            "lm": lm, "rel_hidden": rel_hidden,
+            "rel_hidden_inv": rel_hidden_inv, "rel_mask": rel_mask}
 
 
 def run(argv=None) -> dict:
@@ -277,7 +281,7 @@ def run(argv=None) -> dict:
     ctx["history"] = []
     try:
         if cfg.train.is_eval:
-            trainer.evaluate_single()
+            trainer.evaluate_single(write_attention=ctx["args"].info_attention)
         else:
             ctx["history"] = trainer.train(0, cfg.train.num_epoch - 1)
     finally:

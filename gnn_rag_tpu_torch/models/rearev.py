@@ -168,8 +168,8 @@ class ReaRev(nn.Module):
                 rel_hidden_inv: torch.Tensor, rel_text_mask: torch.Tensor, *,
                 training: bool = False,
                 generator: Optional[torch.Generator] = None,
-                drop_keep: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                drop_keep: Optional[torch.Tensor] = None,
+                return_attn: bool = False) -> Tuple[torch.Tensor, ...]:
         """batch: a GraphBatch of tensors with ``q_hidden`` and ``layout``;
         rel_hidden[_inv]: [R+1, Lr, word_dim] frozen-LM relation token
         states, rel_text_mask: [R+1, Lr]. Returns (loss, pred_top1, pred_dist).
@@ -177,7 +177,10 @@ class ReaRev(nn.Module):
         ``training``: apply linear dropout and fact dropout, with masks drawn
         from ``generator`` (a ``torch.Generator`` on the batch's device,
         needed when a dropout rate is not 0). ``drop_keep`` ``[B, F]``
-        overrides the fact-dropout draw (in eval too)."""
+        overrides the fact-dropout draw (in eval too). ``return_attn`` also
+        returns the instruction attention over the question tokens
+        ``[B, num_ins, L]`` (the `.info` slots of ``--info_attention``,
+        gnn_rag_tpu/models/rearev.py:216-220)."""
         cfg = self.cfg
         if batch.q_hidden is None or batch.layout is None:
             raise NotImplementedError("ReaRev needs precomputed q_hidden (frozen "
@@ -205,8 +208,8 @@ class ReaRev(nn.Module):
         rel_features_inv = self.self_att_r(self.question_emb(rel_hidden_inv),
                                            rel_text_mask)
 
-        instructions, _ = self.instruction_decoder(query_hidden, query_node,
-                                                   batch.q_mask, generator)
+        instructions, ins_attn = self.instruction_decoder(
+            query_hidden, query_node, batch.q_mask, generator)
         ent_emb = self.type_layer(rel_features, batch.layout, E, drop_keep)
         candidate_mask = batch.candidate_mask(self.num_entity)
 
@@ -223,7 +226,8 @@ class ReaRev(nn.Module):
                      for j in range(cfg.num_ins)], dim=1)
 
         loss = base.calc_loss_label(pred_dist, batch.answer_dist, cfg.loss_type)
-        return loss, torch.argmax(pred_dist, dim=1), pred_dist
+        out = (loss, torch.argmax(pred_dist, dim=1), pred_dist)
+        return out + (ins_attn[..., 0],) if return_attn else out
 
 
 def build_model(cfg, num_entity: int, num_kb_relation: int, *, word_dim: int,

@@ -10,6 +10,11 @@ Path enumeration runs on the host through the port's ``rag.graph_utils``
 and ``native`` modules, copies of the JAX package's (the C++ enumerator when
 it builds, else the Python oracle). ``serve_http`` exposes ``POST /retrieve``.
 
+``QAService`` (port of ``gnn_rag_tpu.serve.QAService``) puts a reader of the
+``rag.llms`` registry behind the retriever: question + subgraph in, the
+read answer out, with the offline path's ``PromptBuilder``; its
+``serve_http`` exposes ``POST /answer`` beside ``POST /retrieve``.
+
 Each stage of ``retrieve`` runs in a ``torch.profiler.record_function``
 span named ``retrieve/<stage>`` (ingest, encode_question, make_batch,
 forward, candidates, paths, verbalize); ``forward`` ends with the copy of
@@ -152,6 +157,71 @@ class RetrieverService:
             lambda body: {"results": self.retrieve(
                 body.get("questions", []),
                 with_paths=body.get("with_paths", True))})})
+
+
+class QAService:
+    """End-to-end KGQA in one process: GNN retrieval -> shortest-path
+    verbalization -> prompt -> LLM reader -> answer.
+
+    The reference couples its two stages only through offline files (.info
+    dumps moved by hand, gnn/README.md:22 -> predict_answer.py:43-80); here
+    a question with its subgraph goes in and the read answer comes out of a
+    single service, with the PromptBuilder semantics (eps-cumulative
+    candidates, token-budget truncation) of the offline path."""
+
+    def __init__(self, retriever: RetrieverService, reader, *,
+                 prompt_path: str = "prompts/llama2_predict.txt",
+                 top_k_cand: int = 10, keep_parallel: Optional[bool] = None):
+        # reader: any rag.llms registry backend, already prepared (mock,
+        # llama_tpu = LlamaTorch)
+        self.retriever = retriever
+        self.reader = reader
+        if keep_parallel is None:
+            keep_parallel = retriever.keep_parallel
+        from .rag.prompt_builder import PromptBuilder
+        self.builder = PromptBuilder(
+            prompt_path, maximun_token=reader.maximun_token,
+            tokenize=reader.tokenize, keep_parallel=keep_parallel)
+        self.top_k_cand = top_k_cand
+
+    def prompts(self, questions: Sequence[dict], retrieved: Sequence[dict]
+                ) -> List[str]:
+        """The reader's prompt for each question and its retrieved
+        candidates (the top ``top_k_cand``)."""
+        prompts = []
+        for q, r in zip(questions, retrieved):
+            ex = {"question": q["question"],
+                  "graph": q["subgraph"]["tuples"],
+                  "q_entity": q.get("entities", []),
+                  "cand": [c for c, _ in r["cand"][:self.top_k_cand]],
+                  "choices": q.get("choices", [])}
+            prompts.append(self.builder.process_input(ex))
+        return prompts
+
+    def answer(self, questions: Sequence[dict]) -> List[dict]:
+        """questions: reference JSONL schema; returns per-question
+        {prediction, cand, prompt}."""
+        retrieved = self.retriever.retrieve(questions, with_paths=False)
+        prompts = self.prompts(questions, retrieved)
+        if len(prompts) > 1 and hasattr(self.reader, "generate_batch"):
+            outs = self.reader.generate_batch(prompts)
+        else:
+            # one prompt goes through generate_sentence, a backend's
+            # single-question path
+            outs = [self.reader.generate_sentence(p) for p in prompts]
+        return [{"prediction": o, "cand": r["cand"], "prompt": p}
+                for o, r, p in zip(outs, retrieved, prompts)]
+
+    def serve_http(self, host: str = "localhost", port: int = 0):
+        """POST /answer with {"questions": [...]} -> answers JSON; also
+        exposes the retriever's /retrieve."""
+        return _serve_http(host, port, {
+            "/answer": (lambda body: {"results": self.answer(
+                body.get("questions", []))}),
+            "/retrieve": (lambda body: {"results": self.retriever.retrieve(
+                body.get("questions", []),
+                with_paths=body.get("with_paths", True))}),
+        })
 
 
 def _serve_http(host: str, port: int, routes):

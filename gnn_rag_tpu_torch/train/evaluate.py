@@ -9,7 +9,11 @@ per question:
      "answers": [<mid>...], "precison": p, "recall": r, "f1": f,
      "hit": h, "em": em, "cand": [[<mid>, prob], ...]}
 
-(the "precison" misspelling is part of the format, evaluate.py:213).
+(the "precison" misspelling is part of the format, evaluate.py:213). With
+an ``attn_forward_fn`` the slots "j" < min(num_iter, num_ins) hold
+``{"attention": [...]}``, instruction j's attention over the question's
+real tokens, each rounded to 6 decimals (gnn_rag_tpu/train/evaluate.py:
+56-135).
 """
 
 from __future__ import annotations
@@ -46,14 +50,17 @@ class Evaluator:
     def evaluate(self, data: KGQADataset, forward_fn: Callable,
                  test_batch_size: int = 20, write_info: bool = False,
                  info_path: Optional[str] = None,
-                 decode_question: Optional[Callable[[np.ndarray], str]] = None):
+                 decode_question: Optional[Callable[[np.ndarray], str]] = None,
+                 attn_forward_fn: Optional[Callable] = None):
         """Returns (mean_f1, mean_hit, mean_em, mean_loss); optionally writes
         `.info` to ``info_path``, one line per question in the split's order
         (sequential order is restored first: a split that training shuffled
         keeps its order otherwise). ``decode_question(q_token_ids)`` gives
         the `.info` "question" when set (the CLI decodes the tokenizer's
         word pieces, the reference's evaluate.py:143-156), else the raw
-        question."""
+        question. ``attn_forward_fn(batch)`` -> (loss, pred, pred_dist,
+        attn [B, J, L]) runs in place of ``forward_fn`` when writing the
+        `.info` and fills its per-iteration slots."""
         data.reset_batches(is_sequential=True)
         num_batches = math.ceil(len(data) / test_batch_size)
         if num_batches == 0:
@@ -67,14 +74,20 @@ class Evaluator:
             for it in range(num_batches):
                 idx = data.batch_indices(it, test_batch_size)
                 batch = data.make_batch(idx)
-                loss, _, pred_dist = forward_fn(batch)
-                staged.append((idx, batch, loss, pred_dist))
+                attn = None
+                if write_info and attn_forward_fn is not None:
+                    loss, _, pred_dist, attn = attn_forward_fn(batch)
+                else:
+                    loss, _, pred_dist = forward_fn(batch)
+                staged.append((idx, batch, loss, pred_dist, attn))
 
         # phase 2 — host-side metric extraction
         fout = open(info_path, "w") if (write_info and info_path) else None
         try:
-            for idx, batch, loss, pred_dist in staged:
+            for idx, batch, loss, pred_dist, attn in staged:
                 pred_dist = pred_dist.float().cpu().numpy()
+                if attn is not None:
+                    attn = attn.float().cpu().numpy()
                 losses.append(float(loss))
                 answers_batch = data.answers_for(idx)
                 for b in range(len(idx)):
@@ -92,6 +105,12 @@ class Evaluator:
                                         if decode_question else rec.question)}
                     for j in range(self.num_iter):
                         obj[str(j)] = {}
+                    if attn is not None:
+                        # over the question's real tokens only
+                        L = len(rec.q_token_ids)
+                        for j in range(min(self.num_iter, attn.shape[1])):
+                            obj[str(j)] = {"attention": [
+                                round(float(a), 6) for a in attn[b, j, :L]]}
                     obj["answers"] = [self._name(a) for a in answers]
                     obj["precison"] = p
                     obj["recall"] = r

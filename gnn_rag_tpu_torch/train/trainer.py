@@ -167,13 +167,22 @@ class Trainer:
         """(loss, pred, pred_dist) of a numpy GraphBatch, eval mode."""
         return self.model(batch.to(self.device), *self.rel_args)
 
+    def attn_forward(self, batch):
+        """(loss, pred, pred_dist, instruction attention [B, num_ins, L])
+        of a numpy GraphBatch, eval mode."""
+        return self.model(batch.to(self.device), *self.rel_args,
+                          return_attn=True)
+
     def evaluate(self, data: KGQADataset, test_batch_size: Optional[int] = None,
-                 write_info: bool = False, info_path: Optional[str] = None):
-        """(f1, h1, em) of ``data``; optionally writes the `.info` file."""
+                 write_info: bool = False, info_path: Optional[str] = None,
+                 write_attention: bool = False):
+        """(f1, h1, em) of ``data``; optionally writes the `.info` file, with
+        ``write_attention`` the instruction attention in its slots."""
         f1, h1, em, _ = self.evaluator.evaluate(
             data, self.forward, test_batch_size or self.cfg.train.test_batch_size,
             write_info=write_info, info_path=info_path,
-            decode_question=self.decode_question)
+            decode_question=self.decode_question,
+            attn_forward_fn=self.attn_forward if write_attention else None)
         return f1, h1, em
 
     def train(self, start_epoch: int = 0, end_epoch: Optional[int] = None):
@@ -221,7 +230,8 @@ class Trainer:
                              "EM: %.4f", reason, f1, h1, em)
 
     def evaluate_single(self, ckpt_path: Optional[str] = None,
-                        info_path: Optional[str] = None):
+                        info_path: Optional[str] = None,
+                        write_attention: bool = False):
         """Eval-only entry (train_model.py:201-207): dev metrics, then the
         test `.info` with its `.meta.json` provenance sidecar."""
         if ckpt_path:
@@ -233,7 +243,8 @@ class Trainer:
             f"{self.cfg.train.experiment_name}_test.info")
         # a sidecar, not a header line: the LLM half reads .info by line order
         self._write_provenance(info_path + ".meta.json")
-        te = self.evaluate(self.test_data, write_info=True, info_path=info_path)
+        te = self.evaluate(self.test_data, write_info=True, info_path=info_path,
+                           write_attention=write_attention)
         self.logger.info("TEST F1: %.4f, H1: %.4f, EM: %.4f", *te)
         return ev, te
 

@@ -2,7 +2,9 @@
 training epochs on the micro dataset write the best-h1/f1/final checkpoints
 and their provenance sidecars; ``--is_eval --load_experiment`` writes a
 `.info` whose lines have the JAX package's keys; ``--device cuda`` without a
-card and flags outside the ported configuration raise."""
+card and flags outside the ported configuration raise (``--info_attention``
+is ported: tests/test_torch_rag.py holds its `.info` to the JAX
+Evaluator's)."""
 
 import json
 import os
@@ -79,7 +81,7 @@ def test_cuda_without_a_card_raises(trained, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [["--num_workers", "2"], ["--lm", "lstm"],
-                                   ["--dp_size", "2"], ["--info_attention"],
+                                   ["--dp_size", "2"], ["--pos_emb"],
                                    ["--relation_word_emb", "False"]])
 def test_unported_flags_raise(trained, extra):
     root, args, _ = trained

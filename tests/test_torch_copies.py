@@ -1,12 +1,16 @@
 """The port's own copies of the JAX package's framework-free modules
 (config, CLI flags, logging, rag.text_utils, rag.graph_utils, the native
 graphpath library, the SynthQSP generator, the prompt builder, SFT data
-prep and the byte/word tokenizers) against the originals: same
-configurations, same paths, same prompt text, same generated files byte for
-byte from one seed."""
+prep, the byte/word tokenizers, and the RAG half's answer scorers, predict
+driver, multi-hop scorer, reader interface and mock reader) against the
+originals: same configurations, same paths, same prompt text, same
+generated files byte for byte from one seed, and the copied RAG functions
+the same source line for line (tests/test_torch_rag.py runs them on the
+same files)."""
 
 import dataclasses
 import filecmp
+import inspect
 import json
 import os
 import random
@@ -21,15 +25,24 @@ from gnn_rag_tpu import config as jconfig
 from gnn_rag_tpu import native as jnative
 from gnn_rag_tpu.finetune import data_prep as jprep
 from gnn_rag_tpu.llm_tpu import sft as jsft
+from gnn_rag_tpu.rag import evaluate_multi_hop as jmulti
+from gnn_rag_tpu.rag import evaluate_results as jeval
+from gnn_rag_tpu.rag import gen_rule_path as jgen
 from gnn_rag_tpu.rag import graph_utils as jgraph
+from gnn_rag_tpu.rag import predict as jpredict
 from gnn_rag_tpu.rag import text_utils as jtext
+from gnn_rag_tpu.rag.llms import base as jbase
 from gnn_rag_tpu.rag.llms import llama_tpu as jllama
+from gnn_rag_tpu.rag.llms import mock as jmock
 from gnn_rag_tpu.utils import logging as jlogging
 from gnn_rag_tpu.utils import refbench as jrefbench
 from gnn_rag_tpu_torch import cli, config, native
 from gnn_rag_tpu_torch.finetune import data_prep
 from gnn_rag_tpu_torch.llm import sft, tokenizers
-from gnn_rag_tpu_torch.rag import graph_utils, text_utils
+from gnn_rag_tpu_torch.rag import (evaluate_multi_hop, evaluate_results,
+                                   gen_rule_path, graph_utils, predict,
+                                   text_utils)
+from gnn_rag_tpu_torch.rag.llms import base, mock
 from gnn_rag_tpu_torch.utils import build, refbench
 from gnn_rag_tpu_torch.utils.logging import create_logger
 
@@ -206,3 +219,40 @@ def test_tokenizers_match():
         assert w.encode(text) == jw.encode(text)
         assert w.decode(w.encode(text)) == jw.decode(jw.encode(text)) == text
     assert w.vocab_size == jw.vocab_size
+
+
+# (port module, JAX module, the names copied unchanged)
+RAG_COPIES = {
+    "evaluate_results": (evaluate_results, jeval, (
+        "eval_acc", "eval_hit", "eval_hit1", "eval_f1",
+        "extract_topk_prediction", "eval_result")),
+    "predict": (predict, jpredict, (
+        "load_qa_dataset", "load_gnn_rag", "cand2_list", "get_output_file",
+        "merge_rule_result", "prepare_input", "prediction",
+        "predict_answers")),
+    "evaluate_multi_hop": (evaluate_multi_hop, jmulti,
+                           ("eval_result_multi_hop",)),
+    "llms.base": (base, jbase, ("BaseLanguageModel",)),
+    "llms.mock": (mock, jmock, ("MockLLM",)),
+    "gen_rule_path": (gen_rule_path, jgen, (
+        "INSTRUCTION", "PATH_RE", "parse_prediction", "GenRulePathConfig",
+        "gen_prediction")),
+}
+
+
+@pytest.mark.parametrize("name", list(RAG_COPIES))
+def test_rag_copies_keep_the_original_source(name):
+    port, ref, names = RAG_COPIES[name]
+    for n in names:
+        a, b = getattr(port, n), getattr(ref, n)
+        if isinstance(a, str):
+            assert a == b, n
+        else:
+            assert inspect.getsource(a) == inspect.getsource(b), n
+    assert port.__name__.startswith("gnn_rag_tpu_torch.rag.")
+
+
+def test_predict_config_adds_only_the_device():
+    port = {f.name: f.default for f in dataclasses.fields(predict.PredictConfig)}
+    ref = {f.name: f.default for f in dataclasses.fields(jpredict.PredictConfig)}
+    assert port == dict(ref, device="cuda")

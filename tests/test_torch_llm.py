@@ -12,8 +12,16 @@ Inputs come from numpy seeds; flax weights cross over through
 * three SFT steps (clip, AdamW, warmup-cosine from lr 0): each loss rtol
   1e-5, parameters after each step rtol 1e-4 + atol 1e-6 (elements whose
   gradient RMS is at float32's noise floor: within 3 lr, see the test);
-* greedy decoding: identical token ids.
+* greedy decoding: identical token ids;
+* beam search: identical sequences, scores and normalised scores within
+  1e-5 (both sum float32 log-probs in the same order);
+* ``load_hf_llama``: logits within 1e-4 of the HF forward and of the JAX
+  loader's flax model (float32); beams as HF ``generate``'s, scores within
+  2e-4 (tests/test_decode_hf_parity.py's tolerance).
 """
+
+import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +30,7 @@ import pytest
 import torch
 
 from gnn_rag_tpu.llm_tpu import flash_attention as jfa
+from gnn_rag_tpu.llm_tpu.convert_hf import load_hf_llama as jload_hf_llama
 from gnn_rag_tpu.llm_tpu.generate import Decoder as JDecoder
 from gnn_rag_tpu.llm_tpu.model import LlamaConfig as JLlamaConfig
 from gnn_rag_tpu.llm_tpu.model import LlamaLM as JLlamaLM
@@ -30,6 +39,7 @@ from gnn_rag_tpu.llm_tpu.sft import SFTTrainer as JSFTTrainer
 from gnn_rag_tpu.llm_tpu.sft import resize_embeddings as jresize_embeddings
 from gnn_rag_tpu_torch import bridge
 from gnn_rag_tpu_torch.llm import flash_attention as fa
+from gnn_rag_tpu_torch.llm.convert_hf import load_hf_llama
 from gnn_rag_tpu_torch.llm.generate import Decoder
 from gnn_rag_tpu_torch.llm.model import (LlamaConfig, LlamaLM, build_llama,
                                          flash_applies)
@@ -374,3 +384,100 @@ def test_build_llama_defaults_to_cuda():
         pytest.skip("a card is present; the CPU-only refusal is not testable")
     with pytest.raises((RuntimeError, AssertionError)):
         build_llama(LlamaConfig(**WIDE))
+
+
+BEAM = dict(vocab_size=259, dim=32, n_layers=2, n_heads=4, n_kv_heads=2,
+            intermediate=64, max_seq_len=128, dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def beam_pair():
+    """A tiny flax LlamaLM, the same weights in the port's, ragged prompts,
+    and a token that the port's best beams emit (used as eos)."""
+    jm = JLlamaLM(JLlamaConfig(**BEAM))
+    params = jm.init(jax.random.PRNGKey(2), jnp.zeros((1, 8), jnp.int32))
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(3, 259, n).tolist() for n in (5, 9, 3, 12)]
+    model = ported(params, **BEAM)
+    beams = Decoder(model, max_len=64).beam_search_batch(prompts, 3, 10)
+    return jm, params, model, prompts, beams[1][0][0][3]
+
+
+@pytest.mark.parametrize("num_beams", [1, 3])
+@pytest.mark.parametrize("with_eos", [False, True])
+def test_beam_search_batch_matches_jax(beam_pair, num_beams, with_eos):
+    """Ragged left-padded prompts, with no eos or with one that ends some
+    beams early: the JAX decoder's sequences, scores and their softmax."""
+    jm, params, model, prompts, hit = beam_pair
+    eos = hit if with_eos else None
+    want = JDecoder(jm, params, max_len=64).beam_search_batch(
+        prompts, num_beams, 10, eos)
+    got = Decoder(model, max_len=64).beam_search_batch(prompts, num_beams, 10,
+                                                       eos)
+    for (ws, wsc, wn), (gs, gsc, gn) in zip(want, got):
+        assert gs == ws
+        np.testing.assert_allclose(gsc, wsc, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(gn, wn, rtol=1e-5, atol=1e-5)
+        assert list(gsc) == sorted(gsc, reverse=True)
+    if with_eos and num_beams == 3:
+        assert any(len(s) < 10 and s[-1] == eos for g in got for s in g[0])
+    assert Decoder(model, max_len=64).beam_search(
+        prompts[2], num_beams, 10, eos)[0] == want[2][0]
+
+
+def test_beam_ties_break_lowest_index_first(beam_pair):
+    """Equal scores keep lax.top_k's order: with all weights 0 every logit
+    is equal, and both decoders keep the lowest (beam, token) index: beam 0
+    extended by tokens 0, 1 and 2 at every step."""
+    jm, params, _, _, _ = beam_pair
+    zeros = jax.tree_util.tree_map(jnp.zeros_like, params)
+    want = JDecoder(jm, zeros, max_len=64).beam_search([1, 5, 9], 3, 4)
+    got = Decoder(ported(zeros, **BEAM), max_len=64).beam_search([1, 5, 9], 3, 4)
+    assert got[0] == want[0] == [[0, 0, 0, 0], [0, 0, 0, 1], [0, 0, 0, 2]]
+    np.testing.assert_allclose(got[2], 1 / 3)
+
+
+@pytest.mark.parametrize("n_kv_heads,safe", [(2, True), (4, False)])
+def test_load_hf_llama_matches_hf_and_jax(tmp_path, n_kv_heads, safe):
+    """A tiny HF LlamaForCausalLM saved as safetensors (GQA 2:1) or as
+    pytorch_model.bin, read without transformers into the port's LlamaLM."""
+    transformers = pytest.importorskip("transformers")
+    hf_cfg = transformers.LlamaConfig(
+        vocab_size=64, hidden_size=32, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=n_kv_heads,
+        intermediate_size=64, max_position_embeddings=128,
+        tie_word_embeddings=False, bos_token_id=1, eos_token_id=2,
+        pad_token_id=0)
+    torch.manual_seed(3)
+    hf = transformers.LlamaForCausalLM(hf_cfg).eval()
+    hf.save_pretrained(tmp_path, safe_serialization=safe)
+    assert os.path.exists(tmp_path / ("model.safetensors" if safe
+                                      else "pytorch_model.bin"))
+    state, cfg = load_hf_llama(str(tmp_path))
+    jparams, jcfg = jload_hf_llama(str(tmp_path))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    model = LlamaLM(cfg)
+    model.load_state_dict(state)
+    model.eval()
+    tokens = np.random.default_rng(4).integers(3, 64, (2, 11))
+    with torch.no_grad():
+        got = model(torch.from_numpy(tokens))[0].numpy()
+        want_hf = hf(torch.from_numpy(tokens)).logits.numpy()
+    jm = JLlamaLM(dataclasses.replace(jcfg, dtype="float32"))
+    want_jax = np.asarray(jm.apply(jparams, jnp.asarray(tokens, jnp.int32))[0])
+    for want in (want_hf, want_jax):
+        np.testing.assert_allclose(got, want, atol=1e-4 * np.abs(want).max())
+    prompt = [1, 30, 31, 32, 33]
+    seqs, scores, _ = Decoder(model, max_len=64).beam_search(
+        prompt, num_beams=3, max_new_tokens=8, eos_id=2)
+    with torch.no_grad():
+        ref = hf.generate(torch.tensor([prompt]), max_new_tokens=8, num_beams=3,
+                          num_return_sequences=3, do_sample=False,
+                          output_scores=True, return_dict_in_generate=True,
+                          pad_token_id=0, eos_token_id=2)
+    ref_seqs = [r.tolist()[len(prompt):] for r in ref.sequences]
+    ref_seqs = [s[: s.index(2) + 1] if 2 in s else s for s in ref_seqs]
+    assert seqs == ref_seqs
+    np.testing.assert_allclose(scores, ref.sequences_scores.numpy(), rtol=2e-4,
+                               atol=2e-4)

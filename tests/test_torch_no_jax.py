@@ -1,7 +1,11 @@
 """gnn_rag_tpu_torch runs without JAX and without the JAX package: a fresh
 interpreter imports the port, serves one question, trains one ReaRev step,
-runs one SFT step of the LLM reader and one greedy decode on the CPU, and
-tries the frozen LM's HF checkpoint loader (its loud fallback), and never
+runs one SFT step of the LLM reader and one greedy decode on the CPU, tries
+the frozen LM's HF checkpoint loader (its loud fallback), then runs the RAG
+half: the SFT checkpoint as a ``llama_tpu`` reader bundle, ``QAService``
+answering through it, ``predict_answers`` and its scorers with the mock
+reader, beam search through ``gen_prediction``, and imports the HF LLaMA
+loader and the ``serve_qa`` entry; and it never
 loads jax, flax, optax, orbax, transformers or any module of
 ``gnn_rag_tpu``; and no file of the port, nor chip_smoke.py, imports or runs
 the JAX package."""
@@ -37,6 +41,7 @@ q = {"id": "q0", "question": "where was m00 born", "entities": ["m.00"],
                              ["m.01", "location.location.contains", "m.02"]]}}
 out = svc.retrieve([q])
 assert out[0]["cand"] and out[0]["paths"], out
+out_cand = out[0]["cand"]
 
 import logging
 from gnn_rag_tpu_torch.data.loader import KGQADataset, ingest_question
@@ -55,7 +60,7 @@ loss, h1, f1 = tr.train_epoch()
 tr.close()
 assert tr.step_count == 1 and np.isfinite(loss), loss
 
-import tempfile
+import dataclasses, tempfile
 from gnn_rag_tpu_torch.llm.generate import Decoder
 from gnn_rag_tpu_torch.llm.model import LlamaConfig
 from gnn_rag_tpu_torch.llm.sft import SFTConfig, SFTTrainer, pack_examples
@@ -79,6 +84,45 @@ from gnn_rag_tpu_torch.models.frozen_lm import maybe_frozen_lm
 from gnn_rag_tpu_torch.utils import hf_import
 lm = maybe_frozen_lm("/no/such/checkpoint", word_dim=24, device="cpu")
 assert lm.weight_source.startswith("random-init"), lm.weight_source
+
+import argparse, json, os, shutil
+from gnn_rag_tpu_torch import serve_qa
+from gnn_rag_tpu_torch.llm import convert_hf
+from gnn_rag_tpu_torch.rag import evaluate_multi_hop, gen_rule_path, predict
+from gnn_rag_tpu_torch.rag.llms import get_registed_model
+from gnn_rag_tpu_torch.serve import QAService
+from gnn_rag_tpu_torch.utils.checkpoint import save_state
+with tempfile.TemporaryDirectory() as out:
+    save_state(os.path.join(out, "checkpoint-1.pt"), sft.model.state_dict())
+    with open(os.path.join(out, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(mcfg), f)
+    reader = get_registed_model("llama_tpu")(argparse.Namespace(
+        model_path=out, max_new_tokens=4, device="cpu"))
+    reader.prepare_for_inference()
+    qa = QAService(svc, reader, prompt_path="prompts/llama2_predict.txt")
+    ans = qa.answer([q, q])
+    assert len(ans) == 2 and "Reasoning Paths:" in ans[0]["prompt"], ans
+    rog = {"id": "q0", "question": q["question"], "answer": ["m.02"],
+           "q_entity": ["m.00"], "a_entity": ["m.02"],
+           "graph": q["subgraph"]["tuples"], "choices": []}
+    with open(os.path.join(out, "qa.jsonl"), "w") as f:
+        f.write(json.dumps(rog) + "\n")
+    os.makedirs(os.path.join(out, "gnn"))
+    shutil.copy(os.path.join(out, "qa.jsonl"), os.path.join(out, "gnn", "test.json"))
+    with open(os.path.join(out, "gnn", "test.info"), "w") as f:
+        f.write(json.dumps({"cand": out_cand}) + "\n")
+    pred = predict.predict_answers(predict.PredictConfig(
+        data_path=os.path.join(out, "qa.jsonl"), model_name="mock",
+        predict_path=os.path.join(out, "res"),
+        rule_path_g1=os.path.join(out, "gnn", "test.info"),
+        entities_names_path=None, prompt_path="prompts/llama2_predict.txt"))
+    assert "Hit" in open(pred.replace("predictions.jsonl", "eval_result.txt")).read()
+    evaluate_multi_hop.eval_result_multi_hop(pred, dataset=[rog])
+    rules = gen_rule_path.gen_prediction(gen_rule_path.GenRulePathConfig(
+        data_path=os.path.join(out, "qa.jsonl"), output_path=os.path.join(out, "r"),
+        prompt_path="prompts/llama2.txt", n_beam=2, max_new_tokens=4),
+        gen_rule_path.TorchSeqGenerator(sft.model, bt, max_len=256, device="cpu"))
+    assert len(json.load(open(rules))["raw_output"]["scores"]) == 2
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                        "gnn_rag_tpu", "transformers"))
