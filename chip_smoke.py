@@ -100,10 +100,32 @@ The LLM reader (the flash-attention kernels K5a-c):
      kernel path at B8 and plain attention at the largest batch that fits;
      peak memory; one step under torch.profiler (busy share, the flash
      kernels' share).
+The reader at LLaMA2-7B widths and the full 32 layers (after the SFT
+trainer is freed):
+  12. lora: LoRA finetuning (``llm.lora.LoRATrainer``: r 8, alpha 16 on
+     q_proj/v_proj, Adam) with remat, bf16 compute over the float32 base
+     from the seed, 4 steps over the SFT phase's B8 x 2048 batches: step ms
+     (CUDA events), positions/s, non-pad tokens/s, peak GB; the merge at
+     init and the base after the steps bit for bit, the adapters moved,
+     the flash launches exact (K5a twice a layer a step, K5b and K5c
+     once); at 2 layers, the adapter gradients with remat against without
+     (bit for bit) and with the kernels against plain attention;
+  13. serve-7b: the same 32-layer reader quantized to int8
+     (``llm.quant.quantize_state_dict``): one prompt's logits against full
+     precision; 64 greedy tokens at B1 and B8 each way, ms a token beside
+     the bytes a token the casts move and their floor, device ms a step;
+     ``SpeculativeDecoder`` (gamma 4) with the int8 target and the SFT'd
+     4-layer reader as draft, and with the target as its own draft: the
+     greedy tokens in float32, in bf16 a flip only at a near tie;
+  14. reader-serving: the qa bundle through the registry with ``--quant
+     int8 --draft_path`` (a 1-layer draft bundle) against ``--quant int8``
+     alone, the OpenAI-protocol server and ``LLMProxy`` over it, and
+     ``generate_explanations`` with it as the teacher (16 questions).
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
 
+import gc
 import json
 import math
 import os
@@ -137,6 +159,16 @@ SFT_FLAGS = ["--n_layers", "4", "--batch_size", "8",
              "--max_seq_len", str(SFT_SEQ), "--total_steps", str(SFT_STEPS),
              "--learning_rate", "3e-4", "--warmup_steps", "100", "--save_every", str(SFT_STEPS),
              "--seed", str(SEED), "--device", "cuda"]
+# LoRA finetuning of the reader at LLaMA2-7B widths and the full 32 layers
+# (the reference's peft LoraConfig, joint_finetuning.py:97-106: r 8, alpha
+# 16 on q_proj/v_proj), with remat, over the SFT phase's B8 x 2048 batches
+LORA_STEPS = 4
+LORA_R = 8
+LORA_ALPHA = 16.0
+# serving the 32-layer reader: new tokens a greedy decode, draft tokens a
+# speculative round
+SERVE_NEW = 64
+SPEC_GAMMA = 4
 # (name, B, L, dtype) of the flash-kernel checks: the shape the SFT step
 # gives the kernels (H32 D128; its loss runs the model on tokens[:, :-1], so
 # L is SFT_SEQ - 1 with a ragged last tile) in both types, another L, and
@@ -1838,6 +1870,441 @@ def sft_step_time(trainer, tokens, mask, device):
     return summary
 
 
+# ------------------------------------- the reader at LLaMA2-7B, full depth
+def lora_grads(model, lora, tokens, mask):
+    """(loss, adapter gradients) of one LoRA loss and backward."""
+    from gnn_rag_tpu_torch.llm.lora import LoRATrainer
+    tr = LoRATrainer(model, lora, lr=0.0, alpha=LORA_ALPHA, r=LORA_R)
+    loss = tr.loss(tokens, mask)
+    loss.backward()
+    return [loss.detach()] + [p.grad for p in tr.params]
+
+
+def check_lora_depth2(device, tokens, mask):
+    """At LLaMA2-7B width cut to 2 layers, B2 x 2,047, adapters with B
+    drawn too (at init B = 0 and A's gradient is exactly 0): the adapter
+    gradients with remat against without it (bf16, kernels; bit for bit,
+    K5a 2 x 2 launches against 2), and with the kernels against plain
+    attention by check_llm_grads' rule (float32: 1e-4 of the largest entry
+    + 1e-7; bf16: within twice the plain bf16 gradient's distance from the
+    float32 one)."""
+    import dataclasses
+
+    import torch
+    from gnn_rag_tpu_torch.llm.lora import init_lora
+    from gnn_rag_tpu_torch.llm.model import LlamaConfig, build_llama
+    base = LlamaConfig(n_layers=2, remat=True)
+    tok = torch.from_numpy(tokens[:2]).to(device)
+    msk = torch.from_numpy(mask[:2]).to(device)
+
+    def grads(dtype, remat=True, plain=False):
+        model = build_llama(dataclasses.replace(base, dtype=dtype, remat=remat),
+                            seed=SEED, device=device)
+        gen = torch.Generator(device=device).manual_seed(SEED + 5)
+        lora = init_lora(model, gen, r=LORA_R)
+        for ab in lora.values():
+            ab["b"].normal_(0.0, 0.02, generator=gen)
+        reset_attn_counts()
+        run = lambda: lora_grads(model, lora, tok, msk)
+        out = swapped_to_plain_attn(run) if plain else run()
+        torch.cuda.synchronize()
+        return out, attn_counts()
+
+    bf, bf_counts = grads("bfloat16")
+    bf_no_remat, plain_counts = grads("bfloat16", remat=False)
+    remat_equal = all(torch.equal(a, b) for a, b in zip(bf, bf_no_remat))
+    f32, f32_counts = grads("float32")
+    f32_plain, _ = grads("float32", plain=True)
+    worst = max(((a - b).abs().max().item()
+                 / (1e-4 * b.abs().max().item() + 1e-7))
+                for a, b in zip(f32[1:], f32_plain[1:]))
+    bf_plain, _ = grads("bfloat16", plain=True)
+    ratios = [(a.float() - b.float()).norm().item()
+              / max((b.float() - r).norm().item(), 1e-30)
+              for a, b, r in zip(bf[1:], bf_plain[1:], f32_plain[1:])]
+    out = dict(layers=2, batch=2, adapters=len(bf) - 1,
+               remat_vs_no_remat_bit_equal=remat_equal,
+               flash_launches_remat=bf_counts, flash_launches_no_remat=plain_counts,
+               fp32_kernel_vs_plain_worst_over_tol=worst,
+               fp32_loss_kernel_plain=[f32[0].item(), f32_plain[0].item()],
+               bf16_worst_kernel_vs_plain_over_plain_vs_fp32=max(ratios),
+               bf16_median_ratio=sorted(ratios)[len(ratios) // 2])
+    if not (remat_equal and bf_counts == (4, 2, 2) and plain_counts == (2, 2, 2)
+            and f32_counts == (4, 2, 2) and worst <= 1 and max(ratios) <= 2):
+        raise AssertionError(f"LoRA at depth 2: {out}")
+    return out
+
+
+def run_lora(device, tokens, mask):
+    """Phase lora: LoRA finetuning of the reader at LLaMA2-7B widths and the
+    full 32 layers (``LlamaConfig()``: bf16 compute, float32 base from the
+    seed, remat), r 8, alpha 16 on q_proj/v_proj, Adam 1e-4, 4 steps over
+    B8 x 2,048 batches of the SFT phase's byte tokens. Checks: the merge at
+    init leaves every weight bit for bit, the base is bit for bit the same
+    after the steps, the adapters moved, the losses are finite, and the
+    flash launch counts are exact (K5a twice a layer under remat, K5b and
+    K5c once). Then the depth-2 gradient checks (``check_lora_depth2``).
+    Returns (summary, the 32-layer model, launches (fwd, dq, dkv))."""
+    import numpy as np
+    import torch
+    from gnn_rag_tpu_torch.llm.lora import LoRATrainer, init_lora, merge_lora
+    from gnn_rag_tpu_torch.llm.model import LlamaConfig, build_llama
+    from gnn_rag_tpu_torch.llm.tokenizers import ByteTokenizer
+
+    t0 = time.perf_counter()
+    cfg = LlamaConfig(remat=True)
+    model = build_llama(cfg, seed=SEED, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    lora = init_lora(model, gen, r=LORA_R)
+    base = model.state_dict()
+    merged = merge_lora(base, lora, LORA_ALPHA, LORA_R)
+    merge_equal = all(torch.equal(merged[k], base[k]) for k in lora)
+    del merged
+    kept = {k: v.cpu() for k, v in base.items()}
+    init = {k: {n: t.clone() for n, t in ab.items()} for k, ab in lora.items()}
+    tr = LoRATrainer(model, lora, lr=1e-4, alpha=LORA_ALPHA, r=LORA_R)
+    batches = [(torch.from_numpy(tokens[8 * i:8 * i + 8]).to(device),
+                torch.from_numpy(mask[8 * i:8 * i + 8]).to(device))
+               for i in range(LORA_STEPS)]
+    setup = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path, counted: 4 LoRA steps ----
+    reset_attn_counts()
+    losses, step_ms = [], []
+    for tok, msk in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = tr.train_step(tok, msk)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(loss.item())
+    launches = attn_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    n = cfg.n_layers
+    want = (2 * n * LORA_STEPS, n * LORA_STEPS, n * LORA_STEPS)
+    base_equal = all(torch.equal(v.cpu(), kept[k])
+                     for k, v in model.state_dict().items())
+    moved = {x: sum(not torch.equal(ab[x], init[k][x]) for k, ab in lora.items())
+             for x in ("a", "b")}
+    del kept, init, tr, lora
+    torch.cuda.empty_cache()
+    pad_id = ByteTokenizer().pad_id
+    ms = float(np.median(step_ms[1:]))
+    nonpad = float(np.mean([(t != pad_id).sum().item() for t, _ in batches]))
+    depth2 = check_lora_depth2(device, tokens, mask)
+    summary = dict(
+        layers=n, dim=cfg.dim, dtype=cfg.dtype, remat=cfg.remat, r=LORA_R,
+        alpha=LORA_ALPHA, adapters=2 * n, batch=8, seq=int(tokens.shape[1]),
+        steps=LORA_STEPS, losses=losses, step_ms=step_ms, ms_per_step=ms,
+        positions_per_s=1e3 * 8 * (tokens.shape[1] - 1) / ms,
+        nonpad_tokens_per_s=1e3 * nonpad / ms, peak_gb=peak_gb,
+        flash_launches_fwd_dq_dkv=launches, expected_launches=want,
+        merge_at_init_bit_equal=merge_equal, base_bit_equal_after=base_equal,
+        adapters_moved=moved, setup_s=setup, depth2=depth2,
+        wall_s=time.perf_counter() - t0)
+    log("lora", json.dumps(summary))
+    if not (merge_equal and base_equal and launches == want
+            and np.isfinite(losses).all() and moved == {"a": 2 * n, "b": 2 * n}):
+        raise AssertionError(f"LoRA at 32 layers: {summary}")
+    return summary, model.eval(), launches
+
+
+def decode_bytes_per_token(state, dtype_bytes):
+    """Bytes a greedy step at B1 moves for the projection weights of a
+    state_dict, by the port's casts: ``TLinear`` reads a float32 weight and
+    writes and reads its bf16 copy (4 + 2 + 2 bytes), ``QuantLinear`` reads
+    the int8 weight and writes and reads the copy in its compute type (1 +
+    c + c); the float32 head is not copied when float32 (4), the int8 head
+    is copied to float32 (1 + 4 + 4). ``dtype_bytes``: 2 (bf16 compute).
+    Returns (reckoned bytes, the fused ideal: each weight byte read once)."""
+    reckoned = ideal = 0
+    for name, t in state.items():
+        module, _, leaf = name.rpartition(".")
+        if leaf not in ("weight", "weight_q") or module == "tok_emb":
+            continue
+        n = t.numel()
+        head = module == "lm_head"
+        if leaf == "weight":
+            reckoned += n * (4 if head else 4 + 2 * dtype_bytes)
+            ideal += 4 * n
+        else:
+            c = 4 if head else dtype_bytes
+            reckoned += n * (1 + 2 * c)
+            ideal += n
+    return reckoned, ideal
+
+
+def greedy_ms(model, prompts, device, new=SERVE_NEW):
+    """(ms a token of a greedy decode of ``new`` tokens after the prefill,
+    prefill ms, tokens): the host clock around synchronised work, the
+    prefill timed alone and taken off."""
+    import torch
+    from gnn_rag_tpu_torch.llm.generate import Decoder, _left_pad
+    L = max(len(p) for p in prompts)
+    dec = Decoder(model, max_len=L + 32 + new)
+    toks, mask = _left_pad(prompts, budget=dec.max_len - new)
+    with torch.no_grad():
+        dec.prefill(torch.from_numpy(toks).long().to(device),
+                    torch.from_numpy(mask).to(device))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dec.prefill(torch.from_numpy(toks).long().to(device),
+                    torch.from_numpy(mask).to(device))
+        torch.cuda.synchronize()
+        prefill = 1e3 * (time.perf_counter() - t)
+    t = time.perf_counter()
+    out = dec.greedy_batch(prompts, new)
+    torch.cuda.synchronize()
+    total = 1e3 * (time.perf_counter() - t)
+    if not all(len(o) == new for o in out):
+        raise AssertionError(f"greedy: {[len(o) for o in out]} tokens")
+    return (total - prefill) / (new - 1), prefill, out
+
+
+def decode_device_ms(model, prompt, device, new=9):
+    """(device ms a greedy step at B1, the 4 largest device ops' ms a step)
+    under torch.profiler: the CUDA time of a prefill and ``new`` tokens
+    less that of the prefill alone, over ``new - 1`` steps ("not measured"
+    where the profiler shows no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from gnn_rag_tpu_torch.llm.generate import Decoder
+
+    def device_ms(n):
+        dec = Decoder(model, max_len=len(prompt) + 32 + new)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            dec.greedy(prompt, n)
+            torch.cuda.synchronize()
+        return {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+                if e.device_type.name == "CUDA" and e.self_device_time_total > 0}
+
+    one, many = device_ms(1), device_ms(new)
+    if not many:
+        return "not measured", []
+    steps = {k: (v - one.get(k, 0.0)) / (new - 1) for k, v in many.items()}
+    top = sorted(steps.items(), key=lambda kv: -kv[1])[:4]
+    return sum(steps.values()), [[k[:60], v] for k, v in top]
+
+
+def run_serve_7b(device, model, draft_bundle, prompts):
+    """Phase serve-7b: the 32-layer reader from the seed (the lora phase's
+    base) quantized by ``quantize_state_dict``; one prompt's int8 logits
+    against full precision (cosine, max relative error; float32 compute
+    held to the JAX test's cos > 0.999, bf16 printed); 64 greedy tokens at
+    B1 and B8, full precision and int8: ms a token (host clock; at B1 also
+    the device ms a step under torch.profiler) beside the bytes a token
+    reckoned from the casts and their floor at 3.35 TB/s, ``param_bytes``,
+    peak GB; ``SpeculativeDecoder`` (gamma 4) with the int8 target and the
+    sft phase's 4-layer reader as draft, and with the target as its own
+    draft: its tokens equal the target's ``Decoder.greedy`` in float32
+    compute; in bf16 the first index where they differ (if any) and the
+    plain logits' top-2 gap there; ``last_stats`` and ms a token."""
+    import dataclasses
+
+    import torch
+    from gnn_rag_tpu_torch.llm.generate import Decoder, SpeculativeDecoder
+    from gnn_rag_tpu_torch.llm.model import LlamaLM
+    from gnn_rag_tpu_torch.llm.quant import param_bytes, quantize_state_dict
+    from gnn_rag_tpu_torch.rag.llms.llama_torch import bundle_checkpoint
+    from gnn_rag_tpu_torch.utils.checkpoint import load_state
+
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    with torch.device("meta"):
+        model_q = LlamaLM(dataclasses.replace(cfg, quant="int8"))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model_q.load_state_dict(quantize_state_dict(model.state_dict()), assign=True)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t
+    model_q.eval()
+    bytes_f, bytes_q = (param_bytes(m.state_dict()) for m in (model, model_q))
+
+    # ---- one prompt's logits, int8 against full precision ----
+    ids = torch.tensor([prompts[0]], device=device)
+    agree = {}
+    for dtype in ("float32", "bfloat16"):
+        with torch.no_grad():
+            a = as_dtype(model, dtype)(ids)[0][0].double()
+            b = as_dtype(model_q, dtype)(ids)[0][0].double()
+        agree[dtype] = dict(
+            cos=((a * b).sum() / (a.norm() * b.norm())).item(),
+            max_rel_err=((a - b).abs().max() / a.abs().max()).item(),
+            argmax_agree=(a.argmax(-1) == b.argmax(-1)).float().mean().item())
+        del a, b
+    # ---- 64 greedy tokens at B1 and B8, full precision and int8 ----
+    torch.cuda.reset_peak_memory_stats()
+    decode = {}
+    for name, m in (("full", model), ("int8", model_q)):
+        reckoned, ideal = decode_bytes_per_token(m.state_dict(), 2)
+        row = dict(param_bytes=bytes_f if name == "full" else bytes_q,
+                   bytes_per_token_reckoned=reckoned,
+                   floor_ms_reckoned=1e3 * reckoned / HBM_BYTES_PER_S,
+                   bytes_per_token_fused_ideal=ideal,
+                   floor_ms_fused_ideal=1e3 * ideal / HBM_BYTES_PER_S)
+        for b in (1, 8):
+            ms, prefill, _ = greedy_ms(m, prompts[:b], device)
+            row[f"b{b}"] = dict(ms_per_token=ms, prefill_ms=prefill)
+        row["b1"]["device_ms_per_token"], row["b1"]["top_device_ops_ms"] = (
+            decode_device_ms(m, prompts[0], device))
+        decode[name] = row
+    decode_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    # ---- speculative decoding, gamma 4 ----
+    with open(os.path.join(draft_bundle, "config.json")) as f:
+        dcfg = type(cfg)(**json.load(f))
+    with torch.device("meta"):
+        draft = LlamaLM(dcfg)
+    draft.load_state_dict(load_state(bundle_checkpoint(draft_bundle),
+                                     draft.state_dict(), partial=False),
+                          assign=True)
+    draft = draft.to(device).eval()
+    prompt = prompts[1]
+    max_len = len(prompt) + SERVE_NEW + SPEC_GAMMA + 1
+    spec = {}
+    for dtype in ("float32", "bfloat16"):
+        target = as_dtype(model_q, dtype).eval()
+        t = time.perf_counter()
+        want = Decoder(target, max_len=max_len).greedy(prompt, SERVE_NEW)
+        torch.cuda.synchronize()
+        greedy_ms_tok = 1e3 * (time.perf_counter() - t) / SERVE_NEW
+        for name, d in (("sft_draft", as_dtype(draft, dtype)),
+                        ("self_draft", target)):
+            dec = SpeculativeDecoder(target, d, max_len=max_len, gamma=SPEC_GAMMA)
+            t = time.perf_counter()
+            got = dec.greedy(prompt, SERVE_NEW)
+            torch.cuda.synchronize()
+            row = dict(ms_per_token=1e3 * (time.perf_counter() - t) / len(got),
+                       greedy_ms_per_token=greedy_ms_tok,
+                       last_stats=dec.last_stats, equal_to_greedy=got == want)
+            if got != want:
+                # the first index where they differ, the plain logits' top-2
+                # gap there, and the noise of a reordered sum at that
+                # position: the cache-free forward against the kv-cache
+                # prefill over the same tokens
+                i = next((j for j, (x, y) in enumerate(zip(got, want)) if x != y),
+                         min(len(got), len(want)))
+                ctx = torch.tensor([prompt + want[:i]], device=device)
+                with torch.no_grad():
+                    logits = target(ctx)[0][0, -1]
+                    cached = Decoder(target, max_len=ctx.shape[1]).prefill(
+                        ctx, torch.ones(ctx.shape, device=device))[0][0, -1]
+                top = logits.float().topk(2).values
+                row.update(first_diff=i, top2_gap=(top[0] - top[1]).item(),
+                           max_abs_logit=logits.abs().max().item(),
+                           reordered_sum_noise=(logits - cached).abs().max().item())
+            spec[f"{dtype}_{name}"] = row
+    summary = dict(
+        layers=cfg.n_layers, quantize_s=quantize_s, logits_int8_vs_full=agree,
+        decode=decode, decode_peak_gb=decode_peak_gb, prompt_tokens=len(prompt),
+        new_tokens=SERVE_NEW, gamma=SPEC_GAMMA, speculative=spec,
+        note="random weights: acceptance says nothing of a trained draft",
+        wall_s=time.perf_counter() - t0)
+    log("serve-7b", json.dumps(summary))
+    exact = all(spec[f"float32_{n}"]["equal_to_greedy"]
+                for n in ("sft_draft", "self_draft"))
+    # in bf16 a flip at a near tie is allowed; a gap of more than 8 times the
+    # larger of the measured noise and a bf16 step of the largest logit is
+    # not a near tie
+    ties = all(row["equal_to_greedy"] or row["top2_gap"] <= 8 * max(
+        row["reordered_sum_noise"], 2 ** -8 * row["max_abs_logit"])
+        for row in spec.values())
+    if not (exact and ties and agree["float32"]["cos"] > 0.999
+            and agree["bfloat16"]["cos"] > 0.99 and bytes_q < 0.3 * bytes_f):
+        raise AssertionError(f"serve-7b: {summary}")
+    return summary
+
+
+def run_reader_serving(device, llm_root, train_root):
+    """Phase reader-serving: through the registry on bundles: the qa phase's
+    4-layer reader bundle as target (its weights, with a config that
+    computes in float32: speculative decoding gives greedy's tokens up to
+    near ties that a reordered sum flips, so the equality is held in
+    float32, as the JAX test holds it; serve-7b measures bf16) and a
+    1-layer draft bundle from the seed. ``LlamaTorch --quant int8
+    --draft_path`` generate_sentence equals ``LlamaTorch --quant int8``;
+    the OpenAI-protocol server over the speculative backend, queried by
+    ``LLMProxy``, returns the same text; ``generate_explanations`` with it
+    as the teacher writes one line for each of the 16 SynthQSP test
+    questions."""
+    import argparse
+    import dataclasses
+
+    import torch
+    from gnn_rag_tpu_torch.finetune.data_prep import (generate_explanations,
+                                                      rog_example)
+    from gnn_rag_tpu_torch.llm.model import LlamaConfig, build_llama
+    from gnn_rag_tpu_torch.rag.llms import get_registed_model
+    from gnn_rag_tpu_torch.rag.llms.serving import LLMProxy, OpenAIProtocolServer
+    from gnn_rag_tpu_torch.utils.checkpoint import save_state
+
+    t0 = time.perf_counter()
+    src = os.path.join(llm_root, "reader")
+    bundle, draft_dir = (os.path.join(llm_root, x) for x in ("reader_f32", "draft"))
+    with open(os.path.join(src, "config.json")) as f:
+        cfg = dataclasses.replace(LlamaConfig(**json.load(f)), dtype="float32")
+    os.makedirs(bundle)
+    os.link(os.path.join(src, "checkpoint.pt"),
+            os.path.join(bundle, "checkpoint.pt"))
+    with open(os.path.join(bundle, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f)
+    dcfg = dataclasses.replace(cfg, n_layers=1)
+    save_state(os.path.join(draft_dir, "checkpoint.pt"),
+               build_llama(dcfg, seed=SEED + 4, device=device).state_dict())
+    with open(os.path.join(draft_dir, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(dcfg), f)
+
+    def reader(**kw):
+        r = get_registed_model("llama_tpu")(argparse.Namespace(
+            model_path=bundle, max_new_tokens=SERVE_NEW, device=device.type,
+            quant="int8", spec_gamma=SPEC_GAMMA, **kw))
+        r.prepare_for_inference()
+        return r
+
+    fast, plain = reader(draft_path=draft_dir), reader(draft_path=None)
+    with open(os.path.join(train_root, "test.json")) as f:
+        rog = [rog_example(json.loads(line)) for line in f]
+    texts, ms = {}, {}
+    for name, r in (("spec", fast), ("plain", plain)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        texts[name] = [r.generate_sentence(q["question"]) for q in rog[:4]]
+        torch.cuda.synchronize()
+        ms[name] = 1e3 * (time.perf_counter() - t) / 4
+    stats = fast.spec.last_stats
+    server = OpenAIProtocolServer(fast, model_name="reader", port=0).start()
+    try:
+        proxy = LLMProxy(port=server.port, model_name="reader")
+        served = [proxy.query(q["question"], max_retry=1) for q in rog[:2]]
+    finally:
+        server.stop()
+    t = time.perf_counter()
+    out = os.path.join(llm_root, "explanations.jsonl")
+    n = generate_explanations(rog, out, fast, prompt_path=os.path.join(
+        REPO, "prompts", "general_prompt.txt"))
+    explain_s = time.perf_counter() - t
+    with open(out) as f:
+        rows = [json.loads(line) for line in f]
+    summary = dict(target_layers=cfg.n_layers, draft_layers=1,
+                   gamma=SPEC_GAMMA, budget_tokens=[fast.maximun_token,
+                                                    plain.maximun_token],
+                   ms_per_sentence=ms, last_stats=stats,
+                   spec_equal_plain=texts["spec"] == texts["plain"],
+                   served_equal=served == texts["spec"][:2],
+                   explanations=n, explanation_lines=len(rows),
+                   explain_s=explain_s, wall_s=time.perf_counter() - t0)
+    log("reader-serving", json.dumps(summary))
+    if not (summary["spec_equal_plain"] and summary["served_equal"]
+            and n == len(rows) == len(rog) == 16
+            and fast.maximun_token == plain.maximun_token - SPEC_GAMMA - 1):
+        raise AssertionError(f"reader-serving: {summary}")
+    return summary
+
+
 def sass_counts(lib, opcodes=("HGMMA", "UTMALDG")):
     """{kernel: {opcode: count}} of ``cuobjdump -sass`` on a built
     library: the instructions each kernel really issues."""
@@ -1953,6 +2420,19 @@ def main():
         _, qa_launches, qa_flash = run_qa(device, os.path.join(root, "train"),
                                           trainer, os.path.join(root, "llm"))
         sft_step_time(trainer, tokens, mask, device)
+        # the 32-layer phases need the card: the SFT trainer's float32
+        # params, grads and AdamW states go (its reader is the qa bundle)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, reader_7b, lora_launches = run_lora(device, tokens, mask)
+        run_serve_7b(device, reader_7b, os.path.join(root, "llm", "reader"),
+                     prompts)
+        del reader_7b
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_reader_serving(device, os.path.join(root, "llm"),
+                           os.path.join(root, "train"))
 
     gate = "gnn_rag_tpu_torch/csrc/gate_scatter.cu"
     kernels = []
@@ -2021,10 +2501,10 @@ def main():
             "bound_share": main_row["bound_share"][key],
             "tflops": main_row["tflops"][key],
             "shape": main_row["shape"],
-            **({"launches_by_path": {
-                "sft": sft["flash_launches_fwd_dq_dkv"][0],
-                "qa_beam_rescoring": qa_flash}} if key == "fwd" else
-               {}),
+            "launches_by_path": {
+                "sft": sft["flash_launches_fwd_dq_dkv"][i],
+                "lora": lora_launches[i],
+                **({"qa_beam_rescoring": qa_flash} if key == "fwd" else {})},
             **({} if key == "fwd" else
                {"sdpa_bwd_ms_dq_dk_dv_together": main_row["sdpa_bwd_ms"]})})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -26,7 +26,10 @@ is the inverse.
 (gnn_rag_tpu/llm_tpu/model.py:111-136), so they map onto
 ``nn.Linear.weight`` with no transpose; ``tok_emb.embedding`` maps onto the
 embedding's ``weight`` and the RMSNorm ``scale``s keep their name
-(``lm_head`` is absent when the embeddings are tied).
+(``lm_head`` is absent when the embeddings are tied). An int8 tree
+(``quant.quantize_params``) carries ``kernel_q`` ``[in, out]`` int8, which
+becomes ``QuantLinear.weight_q`` ``[out, in]``, and its ``scale``.
+``lora_from_flax`` carries a JAX adapter dict (``lora.init_lora``) across.
 """
 
 from __future__ import annotations
@@ -138,10 +141,28 @@ def llama_from_flax(params) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(params):
         module, _, leaf = path.rpartition(".")
+        if leaf == "kernel_q":
+            out[f"{module}.weight_q"] = torch.from_numpy(
+                np.ascontiguousarray(arr.T).astype(np.int8))
+            continue
         if leaf not in _LLAMA_LEAVES:
             raise KeyError(f"bridge: no rule for flax leaf {path!r} {arr.shape}")
         out[f"{module}.{_LLAMA_LEAVES[leaf]}"] = torch.from_numpy(
             np.array(arr, np.float32))
+    return out
+
+
+def lora_from_flax(lora) -> Dict[str, Dict[str, torch.Tensor]]:
+    """JAX adapters ``{"['params']['layer_0']...['kernel']": {"a", "b"}}``
+    -> the port's ``{"layer_0....weight": {"a", "b"}}`` (float32 CPU
+    tensors; A ``[in, r]`` and B ``[r, out]`` in both)."""
+    out = {}
+    for key, ab in lora.items():
+        parts = [p for p in re.findall(r"\['([^']*)'\]", key) if p != "params"]
+        if not parts or parts[-1] != "kernel":
+            raise KeyError(f"bridge: no rule for flax adapter {key!r}")
+        out[".".join(parts[:-1] + ["weight"])] = {
+            k: torch.from_numpy(np.array(v, np.float32)) for k, v in ab.items()}
     return out
 
 

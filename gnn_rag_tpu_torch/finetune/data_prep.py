@@ -8,21 +8,23 @@ Ports the reference preprocessors:
   (llm/src/joint_training/preprocess_align.py:29-36);
 * format_qa_example — QA SFT text with ground-truth reasoning paths in the
   prompt (llm/src/joint_training/preprocess_qa.py:36-50);
+* explanation distillation harness (generate_explanation_results.py) —
+  ``generate_explanations``, few-shot prompting of a teacher backend (any
+  ``rag.llms`` reader), and ``load_new_tokens``;
 * ``rog_example`` — a SynthQSP / GNN-schema question (``question``,
   ``entities``, ``answers``, ``subgraph``) in the RoG schema these take
   (``question, q_entity, a_entity, answer, graph``), as
   scripts/train_reader.py:60-70 builds it inline.
 
 All functions are hub-free: they take iterables of question dicts and write
-JSONL. The explanation-distillation harness (``generate_explanations``)
-waits for the port's LLM registry.
+JSONL.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Callable, Iterable, List
+from typing import Callable, Iterable, List, Optional
 
 from ..rag.graph_utils import get_truth_paths_fast
 from ..rag.prompt_builder import PromptBuilder
@@ -123,6 +125,57 @@ def preprocess_qa(dataset: Iterable[dict], out_path: str,
                     + "\n")
             n += 1
     return n
+
+
+EXPLAIN_INSTRUCTION = ("Based on the reasoning paths, please answer the given "
+                       "question and explain why")
+
+
+def generate_explanations(dataset: Iterable[dict], out_path: str, teacher,
+                          prompt_path: str = "prompts/general_prompt.txt",
+                          max_samples: int = 1000,
+                          few_shot: Optional[str] = None) -> int:
+    """Distil answer explanations from a teacher LLM
+    (generate_explanation_results.py). `teacher` is any rag.llms backend."""
+    prompter = InstructFormatter(prompt_path)
+    builder = PromptBuilder(prompt_path, add_rule=True, use_true=True,
+                            maximun_token=teacher.maximun_token,
+                            tokenize=teacher.tokenize)
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    n = 0
+    with open(out_path, "w") as f:
+        for ex in dataset:
+            if n >= max_samples:
+                break
+            ex = dict(ex)
+            ex["cand"] = None
+            paths = get_truth_paths_fast(ex["graph"], ex["q_entity"],
+                                         ex["a_entity"])
+            ex["ground_paths"] = [list({tuple(p[1] for p in pa)
+                                        for pa in paths})]
+            question_input = builder.process_input(ex)
+            msg = (few_shot + "\n\n" if few_shot else "") + question_input
+            result = teacher.generate_sentence(
+                prompter.format(instruction=EXPLAIN_INSTRUCTION, message=msg))
+            if result is None:
+                continue
+            f.write(json.dumps({"question": ex["question"],
+                                "input": question_input,
+                                "explanation": result}) + "\n")
+            n += 1
+    return n
+
+
+def load_new_tokens(default_new_tokens: List[str], rel_dict_paths) -> List[str]:
+    """Relation tokens from tab-separated dict files (align_kg/data_loader.py:10-18)."""
+    if isinstance(rel_dict_paths, str):
+        rel_dict_paths = [rel_dict_paths]
+    for rel_path in rel_dict_paths:
+        with open(rel_path) as f:
+            for line in f:
+                _, r = line.strip().split("\t")
+                default_new_tokens.append(r)
+    return default_new_tokens
 
 
 def load_multiple_datasets(data_path_list, shuffle: bool = False, seed: int = 0):

@@ -1,6 +1,7 @@
-"""Greedy and beam-search decoding of the LLM reader with a kv cache, the
-port of ``Decoder.greedy_batch`` / ``greedy`` / ``beam_search_batch`` /
-``beam_search`` (gnn_rag_tpu/llm_tpu/generate.py).
+"""Greedy, beam-search and speculative decoding of the LLM reader with a kv
+cache, the port of ``Decoder.greedy_batch`` / ``greedy`` /
+``beam_search_batch`` / ``beam_search`` and ``SpeculativeDecoder``
+(gnn_rag_tpu/llm_tpu/generate.py).
 
 Prompts are batched LEFT-padded so every row's last prompt token sits at the
 same cache slot; RoPE positions count each row's real tokens, and a kv-slot
@@ -17,6 +18,12 @@ over its generated length (eos included; HF's ``sequences_scores`` with
 length_penalty 1.0), plus the softmax-normalised scores. Where the JAX code
 takes ``lax.top_k``, which returns equal values lowest index first, this
 takes a stable descending sort (``_top_k``), so ties break the same way.
+
+``SpeculativeDecoder`` is greedy draft-and-verify for one prompt: a draft
+model proposes ``gamma`` tokens from its own cache, the target scores them
+in one chunk forward of gamma + 1 positions, and the longest agreeing
+prefix is kept plus the target's own next token, so the output is the
+target's greedy continuation.
 """
 
 from __future__ import annotations
@@ -219,6 +226,95 @@ class Decoder:
                     ) -> Tuple[List[List[int]], np.ndarray, np.ndarray]:
         return self.beam_search_batch([prompt_tokens], num_beams,
                                       max_new_tokens, eos_id)[0]
+
+
+class SpeculativeDecoder:
+    """Greedy speculative decoding of one prompt with a ``draft`` model
+    (the same vocabulary) for a ``target``; ``greedy`` returns what
+    ``Decoder(target).greedy`` returns, and sets ``last_stats``
+    (``target_forwards``: the verify forwards + the prefill,
+    ``draft_accepted``, ``tokens``). The loop runs on the host."""
+
+    def __init__(self, target: LlamaLM, draft: LlamaLM, max_len: int = 512,
+                 gamma: int = 4):
+        if target.cfg.vocab_size != draft.cfg.vocab_size:
+            raise ValueError(f"draft vocabulary {draft.cfg.vocab_size} is not "
+                             f"the target's {target.cfg.vocab_size}")
+        if gamma < 1:
+            raise ValueError(f"gamma {gamma}: speculation needs at least one "
+                             f"draft token")
+        self.target, self.draft = target, draft
+        self.max_len = max_len
+        self.gamma = int(gamma)
+        self.device = target.tok_emb.weight.device
+
+    def _chunk_forward(self, model, caches, tokens, start: int):
+        """Forward tokens [1, C] at cache slots [start, start + C); every
+        slot up to this chunk's last is valid."""
+        C = tokens.shape[1]
+        positions = (start + torch.arange(C, device=self.device))[None, :]
+        kv_valid = (torch.arange(self.max_len, device=self.device)[None, :]
+                    < start + C).float()
+        return model(tokens, positions=positions, kv_caches=caches,
+                     cache_index=start, kv_valid=kv_valid)
+
+    @torch.no_grad()
+    def _run(self, tokens, max_new: int, eos_id: int):
+        """tokens [1, L], the prompt without padding -> (emitted ids,
+        verify forwards, accepted draft tokens)."""
+        L, gamma = tokens.shape[1], self.gamma
+        caches_t = self.target.init_kv_cache(1, self.max_len)
+        caches_d = self.draft.init_kv_cache(1, self.max_len)
+        logits_t, caches_t = self._chunk_forward(self.target, caches_t, tokens, 0)
+        _, caches_d = self._chunk_forward(self.draft, caches_d, tokens, 0)
+        cur = int(logits_t[0, -1].argmax())
+        out, done, n_fwd, n_acc = [cur], cur == eos_id, 0, 0
+        # invariant: the last accepted token ``cur`` sits at slot
+        # L + len(out) - 1 and is in neither cache yet
+        while len(out) < max_new and not done:
+            s = L + len(out) - 1
+            # the draft proposes gamma tokens; one more step (its prediction
+            # thrown away) puts the last draft token in the draft's cache,
+            # so a round that accepts every draft leaves no hole
+            drafts, d_cur = [], cur
+            for g in range(gamma + 1):
+                lg, caches_d = self._chunk_forward(
+                    self.draft, caches_d,
+                    torch.tensor([[d_cur]], device=self.device), s + g)
+                d_cur = int(lg[0, -1].argmax())
+                drafts.append(d_cur)
+            drafts = drafts[:gamma]
+            # the target checks the run in one chunk forward
+            chunk = torch.tensor([[cur] + drafts], device=self.device)
+            lg_t, caches_t = self._chunk_forward(self.target, caches_t, chunk, s)
+            preds = lg_t[0].argmax(dim=-1).tolist()          # gamma + 1
+            k = next((i for i in range(gamma) if preds[i] != drafts[i]), gamma)
+            # drafts[:k] and the target's token after them, up to an eos
+            emitted = drafts[:k] + [preds[k]]
+            if eos_id in emitted:
+                emitted = emitted[:emitted.index(eos_id) + 1]
+                done = True
+            out += emitted
+            cur = emitted[-1]
+            n_fwd, n_acc = n_fwd + 1, n_acc + k
+        return out, n_fwd, n_acc
+
+    def greedy(self, prompt_tokens: List[int], max_new_tokens: int = 128,
+               eos_id: Optional[int] = None) -> List[int]:
+        L = len(prompt_tokens)
+        if L + max_new_tokens + self.gamma + 1 > self.max_len:
+            raise ValueError(f"prompt length {L} + {max_new_tokens} new tokens "
+                             f"+ gamma {self.gamma} + 1 exceeds max_len "
+                             f"{self.max_len}")
+        toks = torch.tensor([prompt_tokens], dtype=torch.long, device=self.device)
+        out, n_fwd, n_acc = self._run(toks, max_new_tokens,
+                                      -1 if eos_id is None else eos_id)
+        seq = out[:max_new_tokens]
+        if eos_id is not None and eos_id in seq:
+            seq = seq[: seq.index(eos_id) + 1]
+        self.last_stats = {"target_forwards": n_fwd + 1,
+                           "draft_accepted": n_acc, "tokens": len(seq)}
+        return seq
 
 
 def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -20,7 +20,14 @@ apply (``flash_applies``): ``use_flash``, CUDA tensors, no kv cache, no
 JAX model's Pallas rule also takes other multiples of 128 and float16,
 gnn_rag_tpu/llm_tpu/model.py:199-200) goes through the plain
 ``reference_attention``, which computes what the JAX model computes there.
-``quant="int8"`` and ``remat=True`` raise ``NotImplementedError``.
+
+``quant="int8"`` builds every projection and the head as ``llm.quant.
+QuantLinear`` (int8 weight, per-output scale; the parameters come from
+``quant.quantize_state_dict``). ``remat=True`` runs each block under
+``torch.utils.checkpoint`` (non-reentrant) when there is no kv cache and
+autograd is on: a block's activations are recomputed in the backward, so
+one block's are alive at a time (the cache-free forward, with the flash
+kernels, runs twice a block).
 """
 
 from __future__ import annotations
@@ -32,8 +39,10 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import flash_attention as _fa
+from .quant import QuantLinear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,8 +60,8 @@ class LlamaConfig:
     dtype: str = "bfloat16"
     use_flash: bool = True          # flash kernels when shapes allow
     tie_embeddings: bool = False    # logits = h @ tok_emb.T (no lm_head)
-    remat: bool = False             # not ported (raises)
-    quant: str = "none"             # "int8" not ported (raises)
+    remat: bool = False             # recompute each block in the backward
+    quant: str = "none"             # "int8": weight-only int8 projections
 
     @property
     def head_dim(self) -> int:
@@ -132,15 +141,22 @@ class TLinear(nn.Linear):
         return F.linear(x.to(self.compute_dtype), self.weight.to(self.compute_dtype))
 
 
+def _dense(cfg: LlamaConfig):
+    """The projection class of ``cfg``: ``TLinear``, or ``QuantLinear``
+    under ``quant="int8"``; both take (in, out, compute dtype)."""
+    return QuantLinear if cfg.quant == "int8" else TLinear
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
         self.cfg = cfg
         H, KV, D, dt = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, _dtype(cfg)
-        self.q_proj = TLinear(cfg.dim, H * D, dt)
-        self.k_proj = TLinear(cfg.dim, KV * D, dt)
-        self.v_proj = TLinear(cfg.dim, KV * D, dt)
-        self.o_proj = TLinear(H * D, cfg.dim, dt)
+        dense = _dense(cfg)
+        self.q_proj = dense(cfg.dim, H * D, dt)
+        self.k_proj = dense(cfg.dim, KV * D, dt)
+        self.v_proj = dense(cfg.dim, KV * D, dt)
+        self.o_proj = dense(H * D, cfg.dim, dt)
 
     def forward(self, x, cos, sin, kv_cache=None, cache_index=None,
                 kv_valid=None):
@@ -173,10 +189,10 @@ class Attention(nn.Module):
 class MLP(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
-        dt = _dtype(cfg)
-        self.gate_proj = TLinear(cfg.dim, cfg.intermediate, dt)
-        self.up_proj = TLinear(cfg.dim, cfg.intermediate, dt)
-        self.down_proj = TLinear(cfg.intermediate, cfg.dim, dt)
+        dt, dense = _dtype(cfg), _dense(cfg)
+        self.gate_proj = dense(cfg.dim, cfg.intermediate, dt)
+        self.up_proj = dense(cfg.dim, cfg.intermediate, dt)
+        self.down_proj = dense(cfg.intermediate, cfg.dim, dt)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -202,11 +218,8 @@ class Block(nn.Module):
 class LlamaLM(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
-        unported = {"quant=int8": cfg.quant != "none", "remat": cfg.remat}
-        bad = [k for k, v in unported.items() if v]
-        if bad:
-            raise NotImplementedError(f"gnn_rag_tpu_torch LlamaLM: not ported: "
-                                      f"{', '.join(bad)}")
+        if cfg.quant not in ("none", "int8"):
+            raise ValueError(f"LlamaLM: quant {cfg.quant!r} is not 'none' or 'int8'")
         if cfg.dim % cfg.n_heads or cfg.n_heads % cfg.n_kv_heads:
             raise ValueError(f"LlamaLM: dim {cfg.dim}, n_heads {cfg.n_heads} "
                              f"and n_kv_heads {cfg.n_kv_heads} must divide")
@@ -216,7 +229,7 @@ class LlamaLM(nn.Module):
             setattr(self, f"layer_{i}", Block(cfg))
         self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps)
         if not cfg.tie_embeddings:
-            self.lm_head = TLinear(cfg.dim, cfg.vocab_size, torch.float32)
+            self.lm_head = _dense(cfg)(cfg.dim, cfg.vocab_size, torch.float32)
 
     def blocks(self) -> List[Block]:
         return [getattr(self, f"layer_{i}") for i in range(self.cfg.n_layers)]
@@ -239,10 +252,19 @@ class LlamaLM(nn.Module):
                                     cfg.rope_condense)
         cos, sin = cos.to(x.dtype), sin.to(x.dtype)
         new_caches = []
+        remat = cfg.remat and kv_caches is None and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks()):
-            x, cache = block(x, cos, sin,
-                             kv_caches[i] if kv_caches is not None else None,
-                             cache_index, kv_valid)
+            if remat:
+                # the block's tensors go in explicitly, so the recompute
+                # uses the ones in use now (torch.func.functional_call
+                # swaps them back before the backward runs)
+                x, cache = checkpoint(_call_block, block,
+                                      block.state_dict(keep_vars=True), x, cos,
+                                      sin, kv_valid, use_reentrant=False)
+            else:
+                x, cache = block(x, cos, sin,
+                                 kv_caches[i] if kv_caches is not None else None,
+                                 cache_index, kv_valid)
             new_caches.append(cache)
         x = self.final_norm(x)
         caches = new_caches if kv_caches is not None else None
@@ -261,10 +283,17 @@ class LlamaLM(nn.Module):
                 for _ in range(cfg.n_layers)]
 
 
+def _call_block(block: Block, state, x, cos, sin, kv_valid):
+    return torch.func.functional_call(block, state, (x, cos, sin, None, None,
+                                                     kv_valid))
+
+
 def init_llama_(model: LlamaLM, seed: int) -> LlamaLM:
     """Flax's default initialisers, drawn from a generator on the model's
     device: projections lecun-normal (truncated at 2 sigma, fan-in scaled),
-    the embedding normal with std 1/sqrt(dim), norm scales 1."""
+    the embedding normal with std 1/sqrt(dim), norm scales 1. (An int8
+    model's projections keep zeros: its weights come from
+    ``quant.quantize_state_dict``.)"""
     dev = model.tok_emb.weight.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():

@@ -4,9 +4,11 @@
 The same keys in the same order: a name resolves to the first key that is a
 substring of it, lowercased, so 'llama_tpu' and 'tpu-reader' take the
 on-card reader (``LlamaTorch``, over the port's ``LlamaLM`` and
-``Decoder``), 'RoG' and 'llama-2-7b' the HF Llama backend, and 'mock' the
-offline echo reader. The backends that need ``transformers`` pipelines or the
-OpenAI API (and a network) are not ported: constructing one raises
+``Decoder``, with ``--quant int8`` weight-only int8 and ``--draft_path``
+speculative decoding), 'RoG' and 'llama-2-7b' the HF Llama backend, and
+'mock' the offline echo reader. ``serving`` serves any of them over the
+OpenAI chat protocol. The backends that need ``transformers`` pipelines or
+the OpenAI API (and a network) are not ported: constructing one raises
 ``NotImplementedError``.
 """
 

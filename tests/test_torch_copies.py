@@ -1,8 +1,9 @@
 """The port's own copies of the JAX package's framework-free modules
 (config, CLI flags, logging, rag.text_utils, rag.graph_utils, the native
 graphpath library, the SynthQSP generator, the prompt builder, SFT data
-prep, the byte/word tokenizers, and the RAG half's answer scorers, predict
-driver, multi-hop scorer, reader interface and mock reader) against the
+prep (explanation distillation too), the byte/word tokenizers, and the
+RAG half's answer scorers, predict driver, multi-hop scorer, reader
+interface, mock reader and OpenAI-protocol server and proxy) against the
 originals: same configurations, same paths, same prompt text, same
 generated files byte for byte from one seed, and the copied RAG functions
 the same source line for line (tests/test_torch_rag.py runs them on the
@@ -34,6 +35,7 @@ from gnn_rag_tpu.rag import text_utils as jtext
 from gnn_rag_tpu.rag.llms import base as jbase
 from gnn_rag_tpu.rag.llms import llama_tpu as jllama
 from gnn_rag_tpu.rag.llms import mock as jmock
+from gnn_rag_tpu.rag.llms import serving as jserving
 from gnn_rag_tpu.utils import logging as jlogging
 from gnn_rag_tpu.utils import refbench as jrefbench
 from gnn_rag_tpu_torch import cli, config, native
@@ -42,7 +44,7 @@ from gnn_rag_tpu_torch.llm import sft, tokenizers
 from gnn_rag_tpu_torch.rag import (evaluate_multi_hop, evaluate_results,
                                    gen_rule_path, graph_utils, predict,
                                    text_utils)
-from gnn_rag_tpu_torch.rag.llms import base, mock
+from gnn_rag_tpu_torch.rag.llms import base, mock, serving
 from gnn_rag_tpu_torch.utils import build, refbench
 from gnn_rag_tpu_torch.utils.logging import create_logger
 
@@ -234,6 +236,7 @@ RAG_COPIES = {
                            ("eval_result_multi_hop",)),
     "llms.base": (base, jbase, ("BaseLanguageModel",)),
     "llms.mock": (mock, jmock, ("MockLLM",)),
+    "llms.serving": (serving, jserving, ("OpenAIProtocolServer", "LLMProxy")),
     "gen_rule_path": (gen_rule_path, jgen, (
         "INSTRUCTION", "PATH_RE", "parse_prediction", "GenRulePathConfig",
         "gen_prediction")),
@@ -250,6 +253,23 @@ def test_rag_copies_keep_the_original_source(name):
         else:
             assert inspect.getsource(a) == inspect.getsource(b), n
     assert port.__name__.startswith("gnn_rag_tpu_torch.rag.")
+
+
+# the functions of finetune/data_prep.py copied unchanged (load_multiple_datasets
+# imports its helper at the top instead; its output is held above)
+DATA_PREP_COPIES = ("PLANNING_INSTRUCTION", "extract_relation_paths",
+                    "build_align_dataset", "format_align_example",
+                    "format_qa_example", "preprocess_align", "preprocess_qa",
+                    "EXPLAIN_INSTRUCTION", "generate_explanations",
+                    "load_new_tokens")
+
+
+@pytest.mark.parametrize("name", DATA_PREP_COPIES)
+def test_data_prep_copies_keep_the_original_source(name):
+    a, b = getattr(data_prep, name), getattr(jprep, name)
+    assert (a == b) if isinstance(a, str) else (
+        inspect.getsource(a) == inspect.getsource(b))
+    assert data_prep.__name__ == "gnn_rag_tpu_torch.finetune.data_prep"
 
 
 def test_predict_config_adds_only_the_device():

@@ -767,3 +767,120 @@ def test_llama_shapes_the_kernels_refuse_run_reference_attention(
     with torch.no_grad():
         want, _ = plain(tokens)
     assert torch.isfinite(logits).all() and torch.equal(logits, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_llama_int8_on_card_matches_cpu(cuda, dtype, tol):
+    """An int8 LlamaLM (``quantize_state_dict`` of a seeded model) on the
+    card against the same model on the CPU: logits within ``tol`` of the
+    largest (the GEMMs sum in other orders), the int8 weights moved
+    unchanged."""
+    from gnn_rag_tpu_torch.llm.model import LlamaLM
+    from gnn_rag_tpu_torch.llm.quant import quantize_state_dict
+    cfg = LlamaConfig(vocab_size=300, dim=256, n_layers=2, n_heads=2,
+                      n_kv_heads=1, intermediate=384, dtype=dtype, quant="int8")
+    full = build_llama(LlamaConfig(**{**cfg.__dict__, "quant": "none"}), seed=0,
+                       device="cpu")
+    state = quantize_state_dict(full.state_dict())
+    tokens = torch.randint(3, 300, (2, 130),
+                           generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", cuda):
+        with torch.device(dev):
+            m = LlamaLM(cfg)
+        m.load_state_dict(state)
+        assert m.layer_0.mlp.up_proj.weight_q.dtype == torch.int8
+        with torch.no_grad():
+            out[str(dev)] = m(tokens.to(dev))[0].cpu()
+    want = out["cpu"]
+    assert (out[str(cuda)] - want).abs().max().item() <= tol * want.abs().max().item()
+
+
+def lora_setup(cuda, cfg, seed=0):
+    """A seeded LlamaLM on the card and adapters on q/v with B drawn too
+    (at init B = 0 and A's gradient is exactly 0)."""
+    from gnn_rag_tpu_torch.llm.lora import init_lora
+    model = build_llama(cfg, seed=seed, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(seed + 1)
+    lora = init_lora(model, gen)
+    for ab in lora.values():
+        ab["b"].normal_(0.0, 0.02, generator=gen)
+    return model, lora
+
+
+def lora_batch(cuda, vocab, B, L):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    tokens = torch.randint(3, vocab, (B, L), device=cuda, generator=gen)
+    mask = (torch.rand((B, L), device=cuda, generator=gen) < 0.6).float()
+    return tokens, mask
+
+
+@pytest.mark.cuda
+def test_remat_adapter_grads_match_no_remat_with_flash(cuda):
+    """LoRA adapters of a bf16 LlamaLM through the flash kernels: with
+    remat each block's forward runs twice (K5a 2 x n_layers launches) and
+    the loss and adapter gradients equal the no-remat ones bit for bit (the
+    kernels use no atomics)."""
+    from gnn_rag_tpu_torch.llm.lora import LoRATrainer
+    cfg = LlamaConfig(vocab_size=300, dim=256, n_layers=2, n_heads=2,
+                      n_kv_heads=1, intermediate=384, dtype="bfloat16")
+    tokens, mask = lora_batch(cuda, 300, 2, 300)
+    got = {}
+    for remat in (False, True):
+        model, lora = lora_setup(cuda, LlamaConfig(**{**cfg.__dict__,
+                                                      "remat": remat}))
+        tr = LoRATrainer(model, lora, lr=1e-3)
+        n = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+        loss = tr.loss(tokens, mask)
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = tuple(a - b for a, b in zip(
+            (fa.fwd_launches, fa.dq_launches, fa.dkv_launches), n))
+        assert launches == ((1 + remat) * 2, 2, 2), (remat, launches)
+        got[remat] = [loss.detach()] + [p.grad for p in tr.params]
+    for a, b in zip(got[True], got[False]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_lora_step_kernels_vs_plain_full_width(cuda):
+    """One LoRA step (remat, float32) at LLaMA2-7B width cut to 2 layers:
+    loss and every adapter gradient through the flash kernels within 1e-4
+    of the largest entry (+ 1e-7) of the plain attention path's."""
+    from gnn_rag_tpu_torch.llm.lora import LoRATrainer
+    cfg = LlamaConfig(n_layers=2, dtype="float32", remat=True)
+    tokens, mask = lora_batch(cuda, cfg.vocab_size, 2, 257)
+
+    def step(use_flash):
+        model, lora = lora_setup(cuda, LlamaConfig(**{**cfg.__dict__,
+                                                      "use_flash": use_flash}))
+        tr = LoRATrainer(model, lora, lr=1e-3)
+        loss = tr.train_step(tokens, mask)
+        return [loss] + [p.grad for p in tr.params]
+
+    n = fa.fwd_launches
+    got = step(True)
+    assert fa.fwd_launches == n + 2 * cfg.n_layers
+    want = step(False)
+    assert abs(got[0].item() - want[0].item()) <= 1e-5 * abs(want[0].item())
+    for a, b in zip(got[1:], want[1:]):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item() + 1e-7
+
+
+@pytest.mark.cuda
+def test_speculative_equals_greedy_on_card(cuda):
+    """Float32 on the card: the speculative tokens are the target's greedy
+    tokens, with an independent draft and with the target as its own."""
+    from gnn_rag_tpu_torch.llm.generate import Decoder, SpeculativeDecoder
+    cfg = LlamaConfig(vocab_size=300, dim=256, n_layers=2, n_heads=2,
+                      n_kv_heads=1, intermediate=384, dtype="float32")
+    target = build_llama(cfg, seed=0, device=cuda).eval()
+    draft = build_llama(LlamaConfig(**{**cfg.__dict__, "n_layers": 1}), seed=1,
+                        device=cuda).eval()
+    prompt = list(range(3, 40))
+    want = Decoder(target, max_len=128).greedy(prompt, 32)
+    for d, gamma in ((draft, 3), (target, 4)):
+        spec = SpeculativeDecoder(target, d, max_len=128, gamma=gamma)
+        assert spec.greedy(prompt, 32) == want
+    assert spec.last_stats["draft_accepted"] >= 32 - 32 // 5 - 1

@@ -263,10 +263,27 @@ def test_resize_embeddings_matches_jax(wide):
     model.load_state_dict(got)
 
 
-def test_llama_unported_options_raise():
-    for kw in ({"quant": "int8"}, {"remat": True}):
-        with pytest.raises(NotImplementedError):
-            LlamaLM(LlamaConfig(**WIDE, **kw))
+def test_llama_unported_options_raise(wide):
+    """``quant="int8"`` and ``remat=True`` (once refused, now ported) build
+    and run: int8 projections and head from ``quantize_state_dict``, logits
+    close to full precision; remat the same logits; an unknown ``quant``
+    raises (tests/test_torch_reader_paths.py holds both to the JAX
+    package)."""
+    from gnn_rag_tpu_torch.llm.quant import QuantLinear, quantize_state_dict
+    tokens, params = wide
+    full = ported(params, **WIDE, dtype="float32")
+    q = LlamaLM(LlamaConfig(**WIDE, dtype="float32", quant="int8"))
+    q.load_state_dict(quantize_state_dict(bridge.llama_from_flax(params)))
+    assert isinstance(q.lm_head, QuantLinear) and q.tok_emb.weight.dtype == torch.float32
+    remat = ported(params, **WIDE, dtype="float32", remat=True)
+    x = t(tokens).long()
+    with torch.no_grad():
+        want, got = full(x)[0], q(x)[0]
+        torch.testing.assert_close(remat(x)[0], want, rtol=0, atol=0)
+    cos = torch.nn.functional.cosine_similarity(got.flatten(), want.flatten(), 0)
+    assert cos > 0.999
+    with pytest.raises(ValueError, match="quant"):
+        LlamaLM(LlamaConfig(**WIDE, quant="int4"))
 
 
 def test_kv_cache_prefill_matches_cache_free_forward(wide):

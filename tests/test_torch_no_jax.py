@@ -1,11 +1,13 @@
 """gnn_rag_tpu_torch runs without JAX and without the JAX package: a fresh
 interpreter imports the port, serves one question, trains one ReaRev step,
-runs one SFT step of the LLM reader and one greedy decode on the CPU, tries
+runs one SFT step of the LLM reader and one greedy decode on the CPU, a
+remat LoRA step, an int8 model's forward and a speculative decode, tries
 the frozen LM's HF checkpoint loader (its loud fallback), then runs the RAG
-half: the SFT checkpoint as a ``llama_tpu`` reader bundle, ``QAService``
-answering through it, ``predict_answers`` and its scorers with the mock
-reader, beam search through ``gen_prediction``, and imports the HF LLaMA
-loader and the ``serve_qa`` entry; and it never
+half: the SFT checkpoint as a ``llama_tpu`` reader bundle (also int8 with
+itself as draft), ``QAService`` answering through it, the OpenAI-protocol
+server and proxy, explanation distillation, ``predict_answers`` and its
+scorers with the mock reader, beam search through ``gen_prediction``, and
+imports the HF LLaMA loader and the ``serve_qa`` entry; and it never
 loads jax, flax, optax, orbax, transformers or any module of
 ``gnn_rag_tpu``; and no file of the port, nor chip_smoke.py, imports or runs
 the JAX package."""
@@ -79,6 +81,22 @@ ids = Decoder(sft.model.eval(), max_len=64).greedy(bt.encode("[INST] q?"), 4,
                                                    eos_id=bt.eos_id)
 assert 1 <= len(ids) <= 4, ids
 
+import torch
+from gnn_rag_tpu_torch.llm.generate import SpeculativeDecoder
+from gnn_rag_tpu_torch.llm.lora import LoRATrainer, init_lora
+from gnn_rag_tpu_torch.llm.model import LlamaLM, build_llama
+from gnn_rag_tpu_torch.llm.quant import quantize_state_dict
+rcfg = dataclasses.replace(mcfg, remat=True)
+lm = build_llama(rcfg, seed=1, device="cpu")
+lt = LoRATrainer(lm, init_lora(lm, torch.Generator().manual_seed(0)), lr=1e-2)
+assert torch.isfinite(lt.train_step(torch.from_numpy(toks).long(),
+                                    torch.from_numpy(mask)))
+qm = LlamaLM(dataclasses.replace(mcfg, quant="int8"))
+qm.load_state_dict(quantize_state_dict(sft.model.state_dict()))
+prompt = bt.encode("[INST] q?")
+spec = SpeculativeDecoder(qm.eval(), sft.model, max_len=64, gamma=2)
+assert spec.greedy(prompt, 4) == Decoder(qm, max_len=64).greedy(prompt, 4)
+
 from gnn_rag_tpu_torch.models import encoder_variants
 from gnn_rag_tpu_torch.models.frozen_lm import maybe_frozen_lm
 from gnn_rag_tpu_torch.utils import hf_import
@@ -102,6 +120,18 @@ with tempfile.TemporaryDirectory() as out:
     qa = QAService(svc, reader, prompt_path="prompts/llama2_predict.txt")
     ans = qa.answer([q, q])
     assert len(ans) == 2 and "Reasoning Paths:" in ans[0]["prompt"], ans
+    from gnn_rag_tpu_torch.finetune.data_prep import generate_explanations
+    from gnn_rag_tpu_torch.rag.llms.serving import LLMProxy, OpenAIProtocolServer
+    fast = get_registed_model("llama_tpu")(argparse.Namespace(
+        model_path=out, max_new_tokens=4, device="cpu", quant="int8",
+        draft_path=out, spec_gamma=2))
+    fast.prepare_for_inference()
+    server = OpenAIProtocolServer(fast, port=0).start()
+    try:
+        text = LLMProxy(port=server.port).query("[INST] q?", max_retry=1)
+    finally:
+        server.stop()
+    assert text == fast.generate_sentence("[INST] q?"), text
     rog = {"id": "q0", "question": q["question"], "answer": ["m.02"],
            "q_entity": ["m.00"], "a_entity": ["m.02"],
            "graph": q["subgraph"]["tuples"], "choices": []}
@@ -118,6 +148,9 @@ with tempfile.TemporaryDirectory() as out:
         entities_names_path=None, prompt_path="prompts/llama2_predict.txt"))
     assert "Hit" in open(pred.replace("predictions.jsonl", "eval_result.txt")).read()
     evaluate_multi_hop.eval_result_multi_hop(pred, dataset=[rog])
+    assert generate_explanations([rog], os.path.join(out, "ex.jsonl"),
+                                 get_registed_model("mock")(None),
+                                 prompt_path="prompts/general_prompt.txt") == 1
     rules = gen_rule_path.gen_prediction(gen_rule_path.GenRulePathConfig(
         data_path=os.path.join(out, "qa.jsonl"), output_path=os.path.join(out, "r"),
         prompt_path="prompts/llama2.txt", n_beam=2, max_new_tokens=4),
@@ -151,6 +184,9 @@ def test_port_never_imports_or_runs_the_jax_package():
     ``-m gnn_rag_tpu.<module>`` in any file of the port or chip_smoke.py."""
     files = list(_python_files())
     assert len(files) > 30
+    port = os.path.join(os.path.dirname(files[0]), "gnn_rag_tpu_torch")
+    for new in ("llm/quant.py", "llm/lora.py", "rag/llms/serving.py"):
+        assert os.path.join(port, new) in files, new
     for path in files:
         with open(path) as f:
             src = f.read()

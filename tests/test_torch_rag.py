@@ -6,7 +6,12 @@ The same files and the same numpy-seeded weights go through both packages
 * the answer scorers and the predict driver with the mock reader: the same
   files byte for byte, the same numbers;
 * ``LlamaTorch`` against ``LlamaTPU`` on one tiny float32 model: the same
-  prompt budget and the same generated strings;
+  prompt budget and the same generated strings, also with ``--quant int8``
+  and with a ``--draft_path`` draft (speculative decoding);
+* the OpenAI-protocol server and proxy over the mock reader and over
+  ``LlamaTorch``: the backend's own strings; ``generate_explanations`` and
+  ``load_new_tokens`` with the mock teacher: the JAX package's files byte
+  for byte;
 * ``QAService``: the same prompts and predictions, the same candidate names,
   their probabilities within 1e-5;
 * ``--info_attention``: the `.info` attention slots within 1e-5 of the JAX
@@ -38,6 +43,7 @@ from gnn_rag_tpu import cli as jcli
 from gnn_rag_tpu.config import Config, DataConfig, ModelConfig
 from gnn_rag_tpu.data.loader import load_dataset_dir as jax_load_dataset_dir
 from gnn_rag_tpu.data.vocab import Vocab
+from gnn_rag_tpu.finetune import data_prep as jprep
 from gnn_rag_tpu.llm_tpu.model import LlamaConfig as JLlamaConfig
 from gnn_rag_tpu.llm_tpu.model import LlamaLM as JLlamaLM
 from gnn_rag_tpu.models.rearev import ReaRev as JReaRev
@@ -54,6 +60,7 @@ from gnn_rag_tpu.train.evaluate import Evaluator as JEvaluator
 from gnn_rag_tpu.utils.checkpoint import save_pytree
 from gnn_rag_tpu.utils.synthetic import random_rel_hidden
 from gnn_rag_tpu_torch import bridge, cli, serve_qa
+from gnn_rag_tpu_torch.finetune import data_prep
 from gnn_rag_tpu_torch.llm.model import LlamaConfig, LlamaLM
 from gnn_rag_tpu_torch.llm.tokenizers import ByteTokenizer
 from gnn_rag_tpu_torch.models.rearev import ReaRev
@@ -61,6 +68,7 @@ from gnn_rag_tpu_torch.rag import evaluate_multi_hop, evaluate_results
 from gnn_rag_tpu_torch.rag import gen_rule_path, llms, predict
 from gnn_rag_tpu_torch.rag.llms.llama_torch import LlamaTorch
 from gnn_rag_tpu_torch.rag.llms.mock import MockLLM
+from gnn_rag_tpu_torch.rag.llms.serving import LLMProxy, OpenAIProtocolServer
 from gnn_rag_tpu_torch.serve import QAService, RetrieverService
 from gnn_rag_tpu_torch.utils.checkpoint import save_state
 
@@ -218,13 +226,16 @@ PROMPTS = ["what do they speak in jamaica?",
 @pytest.fixture(scope="module")
 def bundles(tmp_path_factory):
     """One tiny float32 reader in a JAX bundle (orbax ``checkpoint/``) and
-    in the port's (``checkpoint.pt``), with and without a word vocabulary."""
+    in the port's (``checkpoint.pt``), with and without a word vocabulary,
+    and a 1-layer byte-token draft for it (``*_draft``)."""
     root = tmp_path_factory.mktemp("bundles")
     words = JWordTokenizer.from_texts(PROMPTS[:2])
-    for tok in ("byte", "word"):
-        mcfg = dict(TINY, vocab_size=259 if tok == "byte" else words.vocab_size)
+    for tok in ("byte", "word", "draft"):
+        mcfg = dict(TINY, vocab_size=words.vocab_size if tok == "word" else 259,
+                    n_layers=1 if tok == "draft" else TINY["n_layers"])
         jm = JLlamaLM(JLlamaConfig(**mcfg))
-        params = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))
+        params = jm.init(jax.random.PRNGKey(int(tok == "draft")),
+                         jnp.zeros((1, 8), jnp.int32))
         for kind in ("jax", "port"):
             d = root / f"{kind}_{tok}"
             d.mkdir()
@@ -247,6 +258,7 @@ class ReaderArgs:
     device: str = "cpu"
     quant: str = None
     draft_path: str = None
+    spec_gamma: int = 4
 
 
 @pytest.mark.parametrize("tok", ["byte", "word"])
@@ -280,10 +292,115 @@ def test_llama_torch_reads_the_sft_checkpoint(bundles, tmp_path):
     assert reader.generate_batch(PROMPTS) == want.generate_batch(PROMPTS)
 
 
-@pytest.mark.parametrize("flag", [dict(quant="int8"), dict(draft_path="d")])
+@pytest.mark.parametrize("flag", [dict(quant="int8"), dict(draft_path="draft")])
 def test_llama_torch_unported_options_raise(bundles, flag):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        LlamaTorch(ReaderArgs(str(bundles / "port_byte"), **flag))
+    """``--quant int8`` and ``--draft_path`` (now ported) give LlamaTPU's
+    strings and budget with the same flags; the draft decodes the plain
+    greedy tokens."""
+    def reader(cls, kind):
+        kw = dict(flag)
+        if "draft_path" in kw:
+            kw["draft_path"] = str(bundles / f"{kind}_draft")
+        r = cls(ReaderArgs(str(bundles / f"{kind}_byte"), **kw))
+        r.prepare_for_inference()
+        return r
+
+    ref, got = reader(LlamaTPU, "jax"), reader(LlamaTorch, "port")
+    extra = 4 + 1 if "draft_path" in flag else 0
+    assert got.maximun_token == ref.maximun_token == 128 - 12 - extra - 8
+    assert (got.spec is None) == (ref.spec is None) == ("draft_path" not in flag)
+    if "quant" in flag:
+        assert got.model.cfg.quant == "int8" and got.model.layer_0.attn.q_proj.weight_q.dtype == torch.int8
+    for p in PROMPTS:
+        assert got.generate_sentence(p) == ref.generate_sentence(p)
+    assert got.generate_batch(PROMPTS) == ref.generate_batch(PROMPTS)
+    if "draft_path" in flag:
+        plain = LlamaTorch(ReaderArgs(str(bundles / "port_byte")))
+        plain.prepare_for_inference()
+        assert [got.generate_sentence(p) for p in PROMPTS] == [
+            plain.generate_sentence(p) for p in PROMPTS]
+
+
+def test_llama_torch_int8_with_draft_matches_llama_tpu(bundles):
+    kw = lambda kind: ReaderArgs(str(bundles / f"{kind}_byte"), quant="int8",
+                                 draft_path=str(bundles / f"{kind}_draft"),
+                                 spec_gamma=2)
+    ref, got = LlamaTPU(kw("jax")), LlamaTorch(kw("port"))
+    ref.prepare_for_inference()
+    got.prepare_for_inference()
+    assert got.maximun_token == ref.maximun_token == 128 - 12 - 3 - 8
+    assert got.spec.gamma == 2
+    for p in PROMPTS:
+        assert got.generate_sentence(p) == ref.generate_sentence(p)
+        assert got.spec.last_stats["target_forwards"] >= 2
+
+
+def test_llama_torch_spec_gamma_0_warns_and_decodes_plain(bundles, caplog):
+    args = ReaderArgs(str(bundles / "port_byte"), spec_gamma=0,
+                      draft_path=str(bundles / "port_draft"))
+    got = LlamaTorch(args)
+    with caplog.at_level("WARNING"):
+        got.prepare_for_inference()
+    assert got.spec is None and "spec_gamma=0" in caplog.text
+    assert got.maximun_token == 128 - 12 - 8
+    plain = LlamaTorch(ReaderArgs(str(bundles / "port_byte")))
+    plain.prepare_for_inference()
+    assert got.generate_sentence(PROMPTS[1]) == plain.generate_sentence(PROMPTS[1])
+
+
+# ------------------------------------------------- serving, explanations
+@pytest.mark.parametrize("backend", ["mock", "llama_torch"])
+def test_openai_protocol_round_trip(bundles, backend):
+    if backend == "mock":
+        model = MockLLM(argparse.Namespace())
+    else:
+        model = LlamaTorch(ReaderArgs(str(bundles / "port_byte"), quant="int8"))
+        model.prepare_for_inference()
+    server = OpenAIProtocolServer(model, model_name="reader", port=0).start()
+    try:
+        proxy = LLMProxy(port=server.port, model_name="reader")
+        for p in PROMPTS[:2]:
+            assert proxy.query(p, max_retry=1) == model.generate_sentence(p).strip()
+        with urllib.request.urlopen(
+                f"http://localhost:{server.port}/v1/models", timeout=30) as r:
+            assert json.loads(r.read()) == {"data": [{"id": "reader"}]}
+        with pytest.raises(urllib.error.HTTPError):
+            urllib.request.urlopen(f"http://localhost:{server.port}/v1/other",
+                                   timeout=30)
+    finally:
+        server.stop()
+
+
+def test_explanations_and_new_tokens_write_the_same_files(tmp_path):
+    """``generate_explanations`` with the mock teacher (each package's), a
+    few-shot prefix and a sample cap; ``load_new_tokens`` over two dict
+    files."""
+    dataset = [{"id": f"q{i}", "question": f"what is near jamaica {i}",
+                "answer": [ans], "q_entity": ["Jamaica"], "a_entity": [ans],
+                "graph": GRAPH, "choices": []}
+               for i, ans in enumerate(("English", "Caribbean", "Patois", "x"))]
+    for name, mod, teacher in (("jax", jprep, jllms.MockLLM),
+                               ("port", data_prep, MockLLM)):
+        n = mod.generate_explanations(
+            dataset, str(tmp_path / name / "explain.jsonl"),
+            teacher(argparse.Namespace()),
+            prompt_path=os.path.join(REPO, "prompts", "general_prompt.txt"),
+            max_samples=3, few_shot="Q: x?\nA: y")
+        assert n == 3
+    assert filecmp.cmp(tmp_path / "jax" / "explain.jsonl",
+                       tmp_path / "port" / "explain.jsonl", shallow=False)
+    rows = lines(tmp_path / "port" / "explain.jsonl")
+    assert all(r["explanation"] and "Reasoning Paths" in r["input"] for r in rows)
+    assert data_prep.EXPLAIN_INSTRUCTION == jprep.EXPLAIN_INSTRUCTION
+    for i, rels in enumerate((["a.b", "c.d"], ["e.f"])):
+        with open(tmp_path / f"rel{i}.txt", "w") as f:
+            f.write("".join(f"{j}\t{r}\n" for j, r in enumerate(rels)))
+    paths = [str(tmp_path / "rel0.txt"), str(tmp_path / "rel1.txt")]
+    want = jprep.load_new_tokens(["<PAD>"], paths)
+    assert data_prep.load_new_tokens(["<PAD>"], paths) == want == [
+        "<PAD>", "a.b", "c.d", "e.f"]
+    assert data_prep.load_new_tokens([], paths[1]) == jprep.load_new_tokens(
+        [], paths[1])
 
 
 def test_readers_default_to_the_card(bundles, monkeypatch, tmp_path):
