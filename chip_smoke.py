@@ -38,10 +38,10 @@ Phases, one line each:
      launch counts prove every step ran both kernels; the final checkpoint,
      reloaded by `--is_eval --load_experiment`, reproduces the trained
      model's test answer distribution and writes the `.info`;
-  6. grad: every parameter gradient of one B8 batch through the kernels
-     against the plain versions (1e-4 of the largest entry + 1e-7; the two
-     softmax biases, whose gradient is 0, to |g| <= 1e-5), and one bf16
-     training step;
+  6. grad: every parameter gradient of one B8 batch, the backward kernels
+     against the plain backward on one forward of the kernels (1e-4 of the
+     largest entry + 1e-7; the two softmax biases, whose gradient is 0, to
+     |g| <= 1e-5), and one bf16 training step;
   7. step time: a training step's time over TRAIN_STEPS steps (CUDA events),
      kernel path against plain path, and one step under torch.profiler.
 The in-kernel-projection message passing (GNN_RAG_GATE_SCATTER=v2, the
@@ -60,6 +60,28 @@ fused-projection kernels K6a-c and scatter_mm K6d):
      bf16 step; POST /retrieve served by the trained model, launch counts,
      pred_dist kernel vs plain; a train step's time and device time on the
      v2 and v4 paths.
+The other retrievers (NSM, GraftNet) and ReaRev's options:
+  7c. kernel-1dir: the gate-scatter forward and backward at one direction
+     and J = 1 (NSM's launch: K4f, K4b) against their plain versions at
+     NSM_SHAPES (WebQSP serving shape and a skewed layout), two launches
+     bit-identical, timed and bounded (ndir 1) as in 3 and 3b;
+  7d. retrievers: NSM (entity_dim 50, num_step 3, the backward teacher)
+     and GraftNet (num_layer 3, pagerank 0.8, BCE) with the LSTM question
+     encoder over a 300-d word table from the seed, on phase 5's split:
+     one epoch of 8 B8 steps through the CLI with exact launch counts (NSM
+     7 forward a forward: TypeLayer's two-direction launch, 3 steps and 3
+     teacher steps of one direction; 6 backward a step, the teacher's last
+     step reaching no loss term; GraftNet 1 and 1), the
+     reload by `--is_eval`, 16 questions through POST /retrieve from the
+     checkpoint (built by the trainer's build_model) against the plain
+     path, every gradient, the step time kernel vs plain; then ReaRev's
+     options (`--lm lstm --normalized_gnn True --norm_rel`, `--pos_emb`:
+     TypeLayer's launch only, `--lm_frozen 0`: the MiniLM-width in-model
+     encoder seeded from the frozen one), 4 steps each with launch counts
+     and step time, every gradient of the seeded model.
+  The gradient checks (6, 7b, 7d) hold the backward kernels against their
+  plain versions through one forward of the forward kernels, so both see
+  the same ReLU masks.
 The LLM reader (the flash-attention kernels K5a-c):
   3c. kernel-attn: the flash forward, dq and dk/dv kernels against their
      plain versions at the SFT step's shape (B8 L2047 H32 D128: the loss
@@ -209,6 +231,32 @@ FUSED_SHAPES = ("webqsp_fp32", "webqsp_bf16", "cwq_fp32")
 # also checked and timed: a few tiles hold most chunks, as the hub entities
 # of SynthQSP's (and WebQSP's) subgraphs make them
 SKEWED = ("webqsp_skewed_fp32", 16, 2048, 8192, 2, 50, "float32", True)
+# NSM's one-direction J = 1 launch (K4f / K4b) at the WebQSP serving shape,
+# and at a skewed layout
+NSM_SHAPES = (("nsm_fp32", 16, 2048, 8192, 1, 50, "float32", True),
+              ("nsm_skewed_fp32", 16, 2048, 8192, 1, 50, "float32", True))
+# the JAX CLI's other retrievers at their own defaults
+# (gnn_rag_tpu/cli.py:44-46, 100-121): NSM with the backward teacher on,
+# GraftNet with BCE; the LSTM question encoder over a 300-d frozen word
+# table (word_emb.npy, random from the seed: no GloVe file on the machine)
+TRAIN_FLAGS = ["--batch_size", "8", "--test_batch_size", "16",
+               "--linear_dropout", "0.2", "--lr", "5e-4", "--gradient_clip",
+               "1.0", "--seed", str(SEED), "--device", "cuda"]
+RETRIEVERS = {
+    "nsm": ["NSM", "--entity_dim", "50", "--num_step", "3", "--lm", "lstm",
+            "--word_dim", "300", "--lambda_back", "0.1",
+            "--lambda_constrain", "0.1", "--eval_every", "1"] + TRAIN_FLAGS,
+    "graftnet": ["GraftNet", "--entity_dim", "50", "--num_layer", "3",
+                 "--pagerank_lambda", "0.8", "--loss_type", "bce", "--lm",
+                 "lstm", "--word_dim", "300", "--eval_every", "1"] + TRAIN_FLAGS,
+}
+# ReaRev's options at the headline width, 4 steps each (32 questions)
+REAREV_OPTIONS = {
+    "lstm_normalized_norm_rel": ["--lm", "lstm", "--word_dim", "300",
+                                 "--normalized_gnn", "True", "--norm_rel"],
+    "pos_emb": ["--pos_emb"],
+    "lm_frozen0": ["--lm_frozen", "0"],
+}
 # the kernels of csrc/gate_scatter.cu, as the profiler names them
 GATE_KERNEL_NAMES = ("gate_fwd_kernel", "tile_sum_kernel",
                      "gate_scatter_bwd_kernel", "fused_fwd_kernel",
@@ -648,7 +696,7 @@ def run_slice(device, root):
     from gnn_rag_tpu_torch.models.frozen_lm import (encode_questions,
                                                     encode_relations,
                                                     maybe_frozen_lm)
-    from gnn_rag_tpu_torch.models.rearev import build_model
+    from gnn_rag_tpu_torch.train.trainer import build_model
     from gnn_rag_tpu_torch.ops import gate_scatter as gs
     from gnn_rag_tpu_torch.serve import RetrieverService
     from gnn_rag_tpu_torch.train.evaluate import Evaluator
@@ -782,7 +830,7 @@ def run_train(device, root):
     import numpy as np
     import torch
     from gnn_rag_tpu_torch import cli
-    from gnn_rag_tpu_torch.models.rearev import build_model
+    from gnn_rag_tpu_torch.train.trainer import build_model
     from gnn_rag_tpu_torch.ops import gate_scatter as gs
 
     t0 = time.perf_counter()
@@ -875,6 +923,22 @@ def swapped_to_plain(fn):
             setattr(gs, name, f)
 
 
+def swapped_bwd_to_plain(fn):
+    """Run ``fn`` with the gate-scatter backward kernels (v4/v3 and the
+    fused projection's; scatter_mm's gradient is a gather, no kernel)
+    swapped for their plain versions, the forward kernels kept."""
+    from gnn_rag_tpu_torch.ops import gate_scatter as gs
+    names = ("gate_scatter_bwd", "fused_gate_scatter_bwd")
+    real = {name: getattr(gs, name) for name in names}
+    for name in names:
+        setattr(gs, name, getattr(gs, name + "_plain"))
+    try:
+        return fn()
+    finally:
+        for name, f in real.items():
+            setattr(gs, name, f)
+
+
 def gate_counts():
     from gnn_rag_tpu_torch.ops import gate_scatter as gs
     return {name: getattr(gs, name) for name in GATE_COUNTERS}
@@ -882,31 +946,46 @@ def gate_counts():
 
 def reset_gate_counts():
     from gnn_rag_tpu_torch.ops import gate_scatter as gs
-    for name in GATE_COUNTERS:
+    for name in GATE_COUNTERS + ("launches_1dir", "bwd_launches_1dir"):
         setattr(gs, name, 0)
 
 
-def check_grads(tr, device, phase="grad"):
-    """Phase 6: every parameter gradient of one B8 batch (dropout off)
-    through the kernels and through the plain versions; one bf16 step."""
+def check_grads(tr, device, phase="grad", softmax_biases=SOFTMAX_BIASES,
+                bf16=True):
+    """Phase 6: every parameter gradient of one B8 batch (dropout off): the
+    backward kernels against their plain versions, both backward passes
+    through one forward of the kernels (so both see the same ReLU masks;
+    the forward kernels are held to theirs in phases kernel, slice and
+    kernel-1dir). 1e-4 of the largest entry + 1e-7; ``softmax_biases``,
+    whose gradient is 0 up to rounding, to |g| <= 1e-5 on both sides. A
+    parameter the loss does not reach (NSM's last teacher step) has no
+    gradient on either side. With ``bf16``, one bf16 training step."""
     import dataclasses
 
     import torch
-    from gnn_rag_tpu_torch.models.rearev import build_model
+    from gnn_rag_tpu_torch.train.trainer import build_model
     batch = tr.train_data.make_batch(range(8)).to(device)
     model = tr.model
+    model.zero_grad(set_to_none=True)
+    loss = model(batch, *tr.rel_args)[0]
+    named = [(k, p) for k, p in model.named_parameters() if p.requires_grad]
 
-    def grads():
-        model.zero_grad(set_to_none=True)
-        model(batch, *tr.rel_args)[0].backward()
-        return {k: p.grad.clone() for k, p in model.named_parameters()}
+    def grads(retain):
+        gs = torch.autograd.grad(loss, [p for _, p in named],
+                                 retain_graph=retain, allow_unused=True)
+        return {k: g for (k, _), g in zip(named, gs)}
 
-    got = grads()
-    want = swapped_to_plain(grads)
+    got = grads(True)
+    want = swapped_bwd_to_plain(lambda: grads(False))
     worst = (0.0, "", 0.0)
-    zero, smallest = {}, float("inf")
+    zero, smallest, unused = {}, float("inf"), []
     for name, w in want.items():
-        if name in SOFTMAX_BIASES:
+        if w is None or got[name] is None:
+            if (w is None) != (got[name] is None):
+                raise AssertionError(f"grad {name}: a gradient on one side only")
+            unused.append(name)
+            continue
+        if name in softmax_biases:
             # its gradient is 0 but for rounding noise on both paths
             zero[name] = max(got[name].abs().max().item(), w.abs().max().item())
             if not zero[name] <= 1e-5:
@@ -918,23 +997,24 @@ def check_grads(tr, device, phase="grad"):
             raise AssertionError(f"grad {name}: kernel vs plain {err} > {tol}")
         worst = max(worst, (err / tol, name, err))
         smallest = min(smallest, w.abs().max().item())
-    cfg = tr.cfg
-    bf_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, compute_dtype="bfloat16"))
-    bf = build_model(bf_cfg, tr.num_entity, model.num_relation,
-                     word_dim=tr.rel_args[0].shape[-1], device=device)
-    bf.load_state_dict(model.state_dict())
-    bf(batch, *tr.rel_args, training=True, generator=tr.generator)[0].backward()
-    bf_finite = all(torch.isfinite(p.grad).all() for p in bf.parameters())
-    if not bf_finite:
-        raise AssertionError("bf16 training step: non-finite gradients")
     summary = dict(params=len(want), worst_err_over_tol=worst[0],
                    worst_param=worst[1], worst_err=worst[2],
-                   softmax_bias_max_abs_grad=zero,
+                   softmax_bias_max_abs_grad=zero, unused_params=unused,
                    smallest_max_abs_grad_of_the_others=smallest,
-                   bf16_grads_finite=bf_finite,
                    batch_E=int(batch.seed_dist.shape[1]),
                    batch_Fp=int(batch.layout.fwd.scatter.shape[1]))
+    if bf16:
+        cfg = tr.cfg
+        bf_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, compute_dtype="bfloat16"))
+        bf = build_model(bf_cfg, tr.num_entity, model.num_relation,
+                         word_dim=tr.rel_args[0].shape[-1], device=device)
+        bf.load_state_dict(model.state_dict())
+        bf(batch, *tr.rel_args, training=True, generator=tr.generator)[0].backward()
+        bf_finite = all(torch.isfinite(p.grad).all() for p in bf.parameters())
+        if not bf_finite:
+            raise AssertionError("bf16 training step: non-finite gradients")
+        summary["bf16_grads_finite"] = bf_finite
     log(phase, json.dumps(summary))
     return summary
 
@@ -956,7 +1036,7 @@ def ms_per_step(tr, batch, valid_w):
     return start.elapsed_time(end) / TRAIN_STEPS
 
 
-def train_step_time(tr, device):
+def train_step_time(tr, device, phase="step-time"):
     """Phase 7: ms per training step (CUDA events over TRAIN_STEPS steps
     after warm-up, kernel path and plain path in turns), and one kernel-path
     step's device time, kernel count and busy share under torch.profiler."""
@@ -978,7 +1058,7 @@ def train_step_time(tr, device):
         batch_E=int(batch.seed_dist.shape[1]),
         batch_Fp=int(batch.layout.fwd.scatter.shape[1]),
         **profile_step(tr, batch, valid_w))
-    log("step-time", json.dumps(summary))
+    log(phase, json.dumps(summary))
     return summary
 
 
@@ -1132,6 +1212,274 @@ def run_v2_path(device, root):
             os.environ.pop("GNN_RAG_GATE_SCATTER", None)
         else:
             os.environ["GNN_RAG_GATE_SCATTER"] = before
+
+
+# ------------------------------------------- the retrievers (NSM, GraftNet)
+def check_1dir_kernels(device):
+    """Phase kernel-1dir: the forward and backward kernels at one direction
+    and J = 1 (NSM's launch, K4f / K4b) against their plain versions at
+    NSM_SHAPES, two launches of each bit-identical, timed and bounded as in
+    phases 3 and 3b (``gate_bound`` with ndir=1). Returns (fwd rows, bwd
+    rows)."""
+    import numpy as np
+    import torch
+    from gnn_rag_tpu_torch.ops import gate_scatter as gs
+    rng = np.random.default_rng(SEED + 5)
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    fwd_rows, bwd_rows = [], []
+    for name, B, E, F, J, D, dtype, relu in NSM_SHAPES:
+        vals, ins, prior, scatter, starts, _ = kernel_inputs(
+            B, E, F, J, D, dtype, relu, device, rng, skew="skewed" in name)
+        args = (vals[:1], ins, prior[:1], scatter[:1], starts[:1], relu)
+        got = gs.gate_scatter_fwd(*args)
+        repeat = torch.equal(got, gs.gate_scatter_fwd(*args))
+        g = torch.randn(got.shape, generator=gen, device=device)
+        bargs = args[:5] + (g, relu)
+        bwd = gs.gate_scatter_bwd(*bargs)
+        bwd_again = gs.gate_scatter_bwd(*bargs)
+        torch.cuda.synchronize()
+        want = gs.gate_scatter_fwd_plain(*args)
+        bwant = gs.gate_scatter_bwd_plain(*bargs)
+        torch.cuda.synchronize()
+        err, ref = (got - want).abs().max().item(), want.abs().max().item()
+        parts = {}
+        for part, a, b in zip(("dvals", "dprior", "dins"),
+                              (bwd[0][0], bwd[1][0], bwd[2]),
+                              (bwant[0][0], bwant[1][0], bwant[2])):
+            parts[part] = [(a - b).abs().max().item(), b.abs().max().item()]
+            if not (torch.isfinite(a).all() and parts[part][0] <= 1e-5 * parts[part][1]):
+                raise AssertionError(f"1-dir bwd kernel disagrees with plain at "
+                                     f"{name} {part}: {parts[part]}")
+        brepeat = all(torch.equal(a, b) for a, b in zip(
+            (bwd[0][0], bwd[1][0], bwd[2]), (bwd_again[0][0], bwd_again[1][0],
+                                              bwd_again[2])))
+        if not (torch.isfinite(got).all() and err <= 1e-5 * ref and repeat
+                and brepeat):
+            raise AssertionError(f"1-dir kernels at {name}: fwd max|d|={err} "
+                                 f"vs 1e-5*{ref}, repeats {repeat} {brepeat}")
+        common = dict(shape=name, B=B, E=E, Fp=vals[0].shape[1], J=J, D=D,
+                      dtype=dtype, relu=relu, ndir=1)
+        fwd_rows.append(with_share(dict(
+            common, max_abs_err=err, max_abs_ref=ref, bit_identical_repeat=repeat,
+            ms=median_ms(lambda: gs.gate_scatter_fwd(*args)),
+            device_ms=graph_ms(lambda: gs.gate_scatter_fwd(*args)),
+            plain_ms=median_ms(lambda: gs.gate_scatter_fwd_plain(*args))),
+            False, ndir=1))
+        bwd_rows.append(with_share(dict(
+            common, max_abs_err=max(e for e, _ in parts.values()),
+            err_ref_by_output=parts, bit_identical_repeat=brepeat,
+            ms=median_ms(lambda: gs.gate_scatter_bwd(*bargs)),
+            device_ms=graph_ms(lambda: gs.gate_scatter_bwd(*bargs)),
+            plain_ms=median_ms(lambda: gs.gate_scatter_bwd_plain(*bargs))),
+            True, ndir=1))
+        log("kernel-1dir", json.dumps(dict(forward=fwd_rows[-1],
+                                           backward=bwd_rows[-1])))
+        del vals, args, got, g, bargs, bwd, bwd_again, want, bwant
+    return fwd_rows, bwd_rows
+
+
+def train_and_reload(flags, root, name, per_fwd, per_fwd_1dir, per_bwd=None,
+                     per_bwd_1dir=None, epochs=1):
+    """Train ``flags`` through the port's CLI for ``epochs`` with evaluation
+    (checkpoints under ``root``/ckpt_<name>), checking each counter's
+    exact launches: ``per_fwd`` gate-scatter launches a forward (of them
+    ``per_fwd_1dir`` of one direction) and ``per_bwd`` backward launches a
+    step (``per_bwd_1dir`` of one direction; by default as many as
+    forward: a launch whose output reaches no loss has no backward); then
+    reload the final checkpoint by ``--is_eval``: the same weights bit for
+    bit, the test answer distribution reproduced, the `.info` written.
+    Returns (summary, ctx, counts)."""
+    import numpy as np
+    import torch
+    from gnn_rag_tpu_torch import cli
+    from gnn_rag_tpu_torch.ops import gate_scatter as gs
+    flags = flags + ["--data_folder", root + "/", "--checkpoint_dir",
+                     os.path.join(root, f"ckpt_{name}"), "--experiment_name",
+                     name]
+    t0 = time.perf_counter()
+    reset_gate_counts()
+    ctx = cli.run(flags + ["--num_epoch", str(epochs)])
+    torch.cuda.synchronize()
+    counts = dict(gate_counts(), launches_1dir=gs.launches_1dir,
+                  bwd_launches_1dir=gs.bwd_launches_1dir)
+    wall = time.perf_counter() - t0
+    tr, cfg = ctx["trainer"], ctx["cfg"]
+
+    def n_batches(ds):
+        return math.ceil(len(ds) / cfg.train.test_batch_size)
+
+    written = [r for r in ("h1", "f1", "final")
+               if os.path.exists(tr._ckpt_path(r))]
+    steps = epochs * math.ceil(len(tr.train_data) / cfg.train.batch_size)
+    evals = (epochs // cfg.train.eval_every
+             * (n_batches(tr.valid_data) + n_batches(tr.test_data))
+             + len(written) * n_batches(tr.test_data))
+    forwards = steps + evals
+    per_bwd = per_fwd if per_bwd is None else per_bwd
+    per_bwd_1dir = per_fwd_1dir if per_bwd_1dir is None else per_bwd_1dir
+    want = dict(launches=per_fwd * forwards, bwd_launches=per_bwd * steps,
+                fused_launches=0, fused_bwd_launches=0, scatter_launches=0,
+                launches_1dir=per_fwd_1dir * forwards,
+                bwd_launches_1dir=per_bwd_1dir * steps)
+    history = ctx["history"]
+    if (tr.step_count != steps or counts != want
+            or not np.isfinite(history).all() or "final" not in written):
+        raise AssertionError(f"{name}: {tr.step_count} steps, launches "
+                             f"{counts}, expected {want} ({per_fwd} a forward "
+                             f"and a step); history {history}; {written}")
+    test_batch = tr.test_data.make_batch(range(16))
+    with torch.inference_mode():
+        dist = tr.forward(test_batch)[2]
+    ctx2 = cli.run(flags + ["--is_eval", "--load_experiment", f"{name}-final.ckpt"])
+    with torch.inference_mode():
+        dist2 = ctx2["trainer"].forward(test_batch)[2]
+    ctx2["trainer"].close()
+    reloaded = ctx2["trainer"].model.state_dict()
+    if not all(torch.equal(reloaded[k], v) for k, v in tr.model.state_dict().items()):
+        raise AssertionError(f"{name}: the reloaded weights differ")
+    # the same weights; the forward's index-adds (GraftNet's layers, the COO
+    # steps) sum with float atomics, so the distribution is held as the
+    # served one is, to min(1e-5, 1e-4 of its largest entry)
+    reload_diff = (dist - dist2).abs().max().item()
+    reload_tol = min(1e-5, 1e-4 * dist.abs().max().item())
+    with open(os.path.join(root, f"ckpt_{name}", f"{name}_test.info")) as f:
+        info = [json.loads(line) for line in f]
+    keys = (["question"] + [str(j) for j in range(tr.evaluator.num_iter)]
+            + ["answers", "precison", "recall", "f1", "hit", "em", "cand"])
+    if not (torch.isfinite(dist2).all() and reload_diff <= reload_tol
+            and len(info) == len(tr.test_data)
+            and all(list(x) == keys for x in info)):
+        raise AssertionError(f"{name}: reload differs by {reload_diff}, or "
+                             f"the .info is wrong")
+    return dict(wall_s=wall, steps=steps, forwards=forwards, launches=counts,
+                epoch_loss_h1_f1=history, checkpoints=written,
+                reload_pred_dist_max_diff=reload_diff, info_lines=len(info),
+                test_E=int(test_batch.seed_dist.shape[1])), ctx, counts
+
+
+def serve_checkpoint(ctx, root, device, per_fwd):
+    """POST /retrieve of 16 questions from the trained model's state_dict
+    (``RetrieverService`` builds the retriever through the trainer's
+    build_model): ``per_fwd`` forward launches and no backward; its answer
+    distribution against the plain path's (atol 1e-5)."""
+    import torch
+    from gnn_rag_tpu_torch.serve import RetrieverService
+    tr, bundle = ctx["trainer"], ctx["bundle"]
+    frozen = dict(zip(("rel_hidden", "rel_hidden_inv", "rel_text_mask",
+                       "entity_emb", "word_emb", "relation_emb"),
+                      (None if a is None else a.cpu().numpy()
+                       for a in tr.rel_args)))
+    svc = RetrieverService(ctx["cfg"], bundle["vocab"], tr.model.state_dict(),
+                           tokenizer=bundle["tokenizer"], device=device, **frozen)
+    with open(os.path.join(root, "test.json")) as f:
+        questions = [json.loads(line) for line in f][:16]
+    httpd = svc.serve_http(port=0)
+    try:
+        reset_gate_counts()
+        res = post(f"http://localhost:{httpd.server_port}/retrieve", questions)
+        torch.cuda.synchronize()
+        counts = gate_counts()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    if (counts["launches"] != per_fwd or counts["bwd_launches"]
+            or len(res) != 16 or not all(r["cand"] for r in res)):
+        raise AssertionError(f"serving launches {counts}, expected {per_fwd}; "
+                             f"{len(res)} results")
+    batch = tr.test_data.make_batch(range(16))
+    with torch.inference_mode():
+        dist_k = svc.forward(batch)[2]
+        dist_p = swapped_to_plain(lambda: svc.forward(batch)[2])
+    diff = (dist_k - dist_p).abs().max().item()
+    if not (torch.isfinite(dist_k).all()
+            and diff <= min(1e-5, 1e-4 * dist_p.abs().max().item())):
+        raise AssertionError(f"served pred_dist kernel vs plain max|d|={diff}")
+    return dict(serve_launches=counts["launches"],
+                serve_pred_dist_kernel_vs_plain=diff,
+                cand_per_question=sum(len(r["cand"]) for r in res) / len(res))
+
+
+def run_retrievers(device, root):
+    """Phase retrievers: NSM and GraftNet at the JAX CLI's widths on
+    run_train's split in ``root`` (64 train questions, B8: 8 steps, with a
+    300-d word table written from the seed): one epoch through the CLI with
+    exact launch counts (NSM: TypeLayer's two-direction launch and
+    2 x num_step one-direction ones a forward, one fewer backward a step;
+    GraftNet: TypeLayer's one), evaluation, reload, POST /retrieve from the
+    checkpoint, every gradient kernel vs plain backward, the step time
+    (kernel path and plain path, CUDA events); then ReaRev's options
+    (REAREV_OPTIONS), 4 steps each on 32 of the questions with their
+    launch counts and step time, the gradient check on the seeded model.
+    Returns (summary, NSM's train counts)."""
+    import numpy as np
+    import torch
+    from gnn_rag_tpu_torch import cli
+    from gnn_rag_tpu_torch.data.vocab import Vocab
+    t0 = time.perf_counter()
+    words = Vocab.from_dir(root + "/", "entities.txt", "relations.txt",
+                           "vocab.txt").word2id
+    np.save(os.path.join(root, "word_emb.npy"),
+            np.random.default_rng(SEED).standard_normal(
+                (len(words), 300)).astype(np.float32))
+    summary, nsm_counts = {}, None
+    for name, flags in RETRIEVERS.items():
+        # NSM: TypeLayer, 3 steps, 3 teacher steps a forward; the teacher's
+        # last step reaches no loss term (nsm.py:151-170 compares its
+        # history up to num_step - 1), so it has no backward launch
+        per, per_bwd = (1 + 2 * 3, 1 + 3 + 2) if name == "nsm" else (1, 1)
+        row, ctx, counts = train_and_reload(flags, root, name, per, per - 1,
+                                            per_bwd, per_bwd - 1)
+        if name == "nsm":
+            nsm_counts = counts
+        tr = ctx["trainer"]
+        row.update(serve_checkpoint(ctx, root, device, per))
+        biases = ({"nsm": ("reasoning.score_func.bias",
+                           "reasoning_back.score_func.bias",
+                           "instruction_decoder.ca_linear.bias")}.get(name, ()))
+        row["grad"] = check_grads(tr, device, phase=f"grad-{name}",
+                                  softmax_biases=biases, bf16=False)
+        row["step"] = train_step_time(tr, device, phase=f"step-time-{name}")
+        tr.close()
+        log(name, json.dumps({k: v for k, v in row.items()
+                              if k not in ("grad", "step")}))
+        summary[name] = row
+        del ctx, tr
+    for name, extra in REAREV_OPTIONS.items():
+        flags = HEADLINE_FLAGS + extra + ["--max_train", "32", "--eval_every", "2"]
+        # the gradients of the seeded model, before its steps: the steps of
+        # --lm_frozen 0 move every weight of the in-model encoder by ~lr,
+        # and its token states grow alike (cosine near 1), which leaves the
+        # instruction attention's gradient at rounding level
+        init = cli.assemble(flags + ["--data_folder", root + "/",
+                                     "--checkpoint_dir",
+                                     os.path.join(root, f"ckpt_init_{name}")])
+        grad = check_grads(init["trainer"], device, phase=f"grad-{name}",
+                           bf16=False)
+        init["trainer"].close()
+        del init
+        per = 1 if name == "pos_emb" else 1 + 3 * 3
+        row, ctx, _ = train_and_reload(flags, root, f"rearev_{name}", per, 0)
+        tr = ctx["trainer"]
+        row["grad"] = grad
+        step_batch = tr.train_data.make_batch(range(8)).to(device)
+        valid_w = torch.ones(8, device=device)
+        row["ms_per_step"] = [ms_per_step(tr, step_batch, valid_w)
+                              for _ in range(2)]
+        tr.close()
+        log(f"rearev-{name}", json.dumps({k: v for k, v in row.items()
+                                          if k != "grad"}))
+        summary[f"rearev_{name}"] = row
+        del ctx, tr
+    summary["wall_s"] = time.perf_counter() - t0
+    log("retrievers", json.dumps(dict(
+        wall_s=summary["wall_s"],
+        ms_per_step_kernel={k: v["step"]["ms_per_step_kernel"]
+                            for k, v in summary.items() if k in RETRIEVERS},
+        ms_per_step_plain={k: v["step"]["ms_per_step_plain"]
+                           for k, v in summary.items() if k in RETRIEVERS},
+        ms_per_step_rearev_options={k: v["ms_per_step"] for k, v in summary.items()
+                                    if k.startswith("rearev_")})))
+    return summary, nsm_counts
 
 
 # ------------------------------------------- bounds, then the LLM reader
@@ -2386,6 +2734,7 @@ def main():
                          "this check needs an NVIDIA GPU")
     sys.path.insert(0, REPO)
     device = torch.device("cuda", 0)
+    t_main = time.perf_counter()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
@@ -2411,6 +2760,9 @@ def main():
         train_step_time(tr, device)
         del tr
         _, v2_counts = run_v2_path(device, os.path.join(root, "train"))
+        one_dir = check_1dir_kernels(device)
+        _, nsm_counts = run_retrievers(device, os.path.join(root, "train"))
+        gc.collect()
         torch.cuda.empty_cache()
         os.makedirs(os.path.join(root, "llm"))
         sft, trainer, tokens, mask, prompts = run_sft(
@@ -2453,6 +2805,19 @@ def main():
                 {"serve": serve_launches, "train": train_fwd,
                  "qa": qa_launches} if not backward
                 else {"train": train_bwd})})
+    for name, rows_1dir, key, replaces in (
+            ("gate_scatter_fwd_1dir", one_dir[0], "launches_1dir", 565),
+            ("gate_scatter_bwd_1dir", one_dir[1], "bwd_launches_1dir", 639)):
+        row = rows_1dir[0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": gate,
+            "replaces": f"{PALLAS}:{replaces}",
+            "launches": nsm_counts[key], "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "device_ms": row["device_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+            "shape": row["shape"] + " (one direction, J=1)",
+            "launches_by_path": {"nsm": nsm_counts[key]}})
     frow = fused_rows[0]
     for name, key, replaces, also, backward in (
             ("fused_gate_scatter_fwd", "", 126, (210,), False),
@@ -2507,6 +2872,7 @@ def main():
                 **({"qa_beam_rescoring": qa_flash} if key == "fwd" else {})},
             **({} if key == "fwd" else
                {"sdpa_bwd_ms_dq_dk_dv_together": main_row["sdpa_bwd_ms"]})})
+    log("total", f"wall {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

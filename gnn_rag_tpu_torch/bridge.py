@@ -6,16 +6,29 @@ The module's own name decides the rule:
 
 * ``Dense`` (``question_emb``, ``attn_linear``, ``question_linear{i}``,
   ``cq_linear``, ``ca_linear``, fusion ``r``/``g``, ``score_func``,
-  ``e2e_linear{s}``, ``attn_out_{i}``, ``ffn1_{i}``, ``ffn2_{i}``): kernel
-  ``[in, out]`` -> ``nn.Linear.weight`` ``[out, in]``;
+  ``e2e_linear{s}``, ``attn_out_{i}``, ``ffn1_{i}``, ``ffn2_{i}``,
+  ``entity_linear``, ``relation_linear``, ``relation_linear_inv_proj``,
+  ``relation_linear1``, GraftNet's ``kb_{self,head,tail}_linear{s}``,
+  ``q2e_linear{s}``, ``e2q_linear{s}``): kernel ``[in, out]`` ->
+  ``nn.Linear.weight`` ``[out, in]``;
 * ``DenseGeneral`` (``q_{i}``, ``k_{i}``, ``v_{i}``): kernel ``[hidden,
   heads, head_dim]`` -> ``[hidden, hidden]`` linear, bias ``[heads,
   head_dim]`` -> ``[hidden]``;
-* ``Embed`` (``tok_emb``, ``pos_emb``): ``embedding`` -> ``weight``;
+* ``Embed`` (``tok_emb``, ``pos_emb``, ReaRev's ``pos_emb{s}`` and
+  ``pos_emb_inv{s}``, ``word_embedding``, ``relation_embedding[_inv]``):
+  ``embedding`` -> ``weight``;
 * ``LayerNorm`` (``emb_ln``, ``ln1_{i}``, ``ln2_{i}``): ``scale`` ->
   ``weight``;
+* ``OptimizedLSTMCell`` (``OptimizedLSTMCell_0`` of the LSTM question
+  encoder): the input kernels ``{ii,if,ig,io}`` ``[in, D]`` (no bias) ->
+  ``lstm.weight_ih_l0`` ``[4D, in]``, the recurrent kernels ``{hi,hf,hg,ho}``
+  ``[D, D]`` -> ``lstm.weight_hh_l0`` and their biases -> ``lstm.bias_hh_l0``,
+  in torch's gate order i, f, g, o;
 * ``self.param`` leaves (``rel_linear{s}``, ``kb_self_linear``, their
   ``_bias``, ``type_emb``) keep their layout.
+
+NSM's teacher (``reasoning_back``) has the submodule names of its forward
+reasoning, so the same rules carry it.
 
 A leaf that no rule names raises ``KeyError``; loading the result with
 ``load_state_dict`` (strict) catches parameters left unfilled. ``to_flax``
@@ -45,8 +58,12 @@ _KINDS = (
     ("dense_general", re.compile(r"[qkv]_\d+")),
     ("dense", re.compile(r"question_emb|attn_linear|question_linear\d+|cq_linear|"
                          r"ca_linear|r|g|score_func|e2e_linear\d+|attn_out_\d+|"
-                         r"ffn[12]_\d+")),
-    ("embed", re.compile(r"tok_emb|pos_emb")),
+                         r"ffn[12]_\d+|entity_linear|relation_linear|"
+                         r"relation_linear_inv_proj|relation_linear1|"
+                         r"kb_(self|head|tail)_linear\d+|q2e_linear\d+|"
+                         r"e2q_linear\d+")),
+    ("embed", re.compile(r"tok_emb|pos_emb(_inv)?\d*|word_embedding|"
+                         r"relation_embedding(_inv)?")),
     ("layer_norm", re.compile(r"emb_ln|ln[12]_\d+")),
 )
 _LEAVES = {  # kind -> {flax leaf: torch leaf}
@@ -55,6 +72,12 @@ _LEAVES = {  # kind -> {flax leaf: torch leaf}
     "embed": {"embedding": "weight"},
     "layer_norm": {"scale": "weight", "bias": "bias"},
 }
+
+
+_LSTM_CELL = "OptimizedLSTMCell_0"
+_LSTM_GATES = "ifgo"   # torch's order of the four gates
+_LSTM_LEAVES = {"weight_ih_l0": ("i", "kernel"), "weight_hh_l0": ("h", "kernel"),
+                "bias_hh_l0": ("h", "bias")}
 
 
 def _kind(name: str) -> str:
@@ -78,8 +101,13 @@ def from_flax(params) -> Dict[str, torch.Tensor]:
     if "params" in params:
         params = params["params"]
     out: Dict[str, torch.Tensor] = {}
+    cells: Dict[str, Dict[str, np.ndarray]] = {}
     for path, arr in _flatten(params):
         module, _, leaf = path.rpartition(".")
+        owner, _, gate = module.rpartition(".")
+        if owner.rpartition(".")[2] == _LSTM_CELL:
+            cells.setdefault(owner.rpartition(".")[0], {})[f"{gate}.{leaf}"] = arr
+            continue
         if _kind(leaf) == "raw":
             name, val = path, arr
         else:
@@ -95,6 +123,12 @@ def from_flax(params) -> Dict[str, torch.Tensor]:
             else:
                 val = arr
         out[name] = torch.from_numpy(np.array(val, np.float32))  # a writable copy
+    for prefix, leaves in cells.items():
+        for tleaf, (kind, fleaf) in _LSTM_LEAVES.items():
+            parts = [leaves[f"{kind}{g}.{fleaf}"] for g in _LSTM_GATES]
+            val = np.concatenate([p.T for p in parts] if fleaf == "kernel" else parts)
+            out[_join(prefix, "lstm", tleaf)] = torch.from_numpy(
+                np.array(val, np.float32))
     return out
 
 
@@ -106,6 +140,13 @@ def to_flax(state_dict, heads: int = 0) -> dict:
     for name, t in state_dict.items():
         arr = t.detach().float().cpu().numpy()
         module, _, leaf = name.rpartition(".")
+        if leaf in _LSTM_LEAVES and module.rpartition(".")[2] == "lstm":
+            kind, fleaf = _LSTM_LEAVES[leaf]
+            cell = _join(module.rpartition(".")[0], _LSTM_CELL)
+            for g, part in zip(_LSTM_GATES, np.split(arr, 4)):
+                _put(tree, _join(cell, f"{kind}{g}", fleaf),
+                     part.T if fleaf == "kernel" else part)
+            continue
         if _kind(leaf) == "raw":
             path, val = name, arr
         else:
@@ -122,12 +163,20 @@ def to_flax(state_dict, heads: int = 0) -> dict:
                        else arr.reshape(heads, hd))
             elif kind == "dense" and leaf == "weight":
                 val = arr.T
-        node = tree
-        *parents, last = path.split(".")
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[last] = np.ascontiguousarray(val)
+        _put(tree, path, val)
     return {"params": tree}
+
+
+def _join(*parts: str) -> str:
+    return ".".join(p for p in parts if p)
+
+
+def _put(tree: dict, path: str, val) -> None:
+    node = tree
+    *parents, last = path.split(".")
+    for p in parents:
+        node = node.setdefault(p, {})
+    node[last] = np.ascontiguousarray(val)
 
 
 _LLAMA_LEAVES = {"kernel": "weight", "embedding": "weight", "scale": "scale"}

@@ -12,25 +12,41 @@ asking for cuda without a card raises, there is no silent CPU run). ``assemble``
 texts and questions and builds the Trainer; ``run`` trains, or with
 ``--is_eval`` writes the test `.info` (port of gnn_rag_tpu/cli.py:171-319),
 with ``--info_attention`` the instruction attention in its per-iteration
-slots.
+slots. The three retrievers (``ReaRev``, ``NSM``, ``GraftNet``) take every
+option the JAX package takes.
+
 The frozen LM loads a local HF checkpoint for ``--lm`` when there is one
 (``models.frozen_lm.maybe_frozen_lm``) and falls back loudly to a random
-encoder otherwise.
-Flags outside the ported configuration raise ``NotImplementedError``.
+encoder otherwise. As in JAX, it runs only with relation texts on: it
+encodes them, and with a frozen transformer ``--lm`` the questions too; with
+``--lm lstm`` the relation texts still go through it (the random-init
+fallback at ``word_dim``, as the JAX CLI does), the questions through the
+model's LSTM; with ``--lm_frozen 0`` the model's own transformer is pinned to
+its widths and seeded from its weights (``Trainer.seed_submodule``). The
+``--entity_emb_file`` and ``--word_emb_file`` tables (the latter with
+``--lm lstm`` only) load padded with one zero row, ``--relation_emb_file``
+through ``data.loader.load_relation_emb``; each is skipped when its file is
+missing.
+
+Only ``--dp_size * --tp_size > 1`` and ``--profile_dir`` are not ported: the
+Trainer raises ``NotImplementedError`` for them.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 
+import numpy as np
 import torch
 
 from .config import Config, DataConfig, ModelConfig, TrainConfig
-from .data.loader import load_dataset_dir
+from .data.loader import load_dataset_dir, load_relation_emb
 from .models.frozen_lm import encode_questions, encode_relations, maybe_frozen_lm
-from .models.rearev import check_supported as check_model_supported
+from .models.encoders import TransformerQuestionEncoder
+from .models.retriever import check_supported
 from .train.trainer import Trainer
 from .utils.logging import create_logger
 
@@ -187,24 +203,6 @@ def args_to_config(args: argparse.Namespace) -> Config:
     return Config(data=data, model=model, train=train)
 
 
-def check_supported(cfg, args) -> None:
-    """Raise ``NotImplementedError`` for flags outside the ported
-    configuration."""
-    check_model_supported(cfg.model)
-    d = cfg.data
-    unported = {
-        "relation_word_emb False": not d.relation_word_emb,
-        "entity_emb_file": bool(d.entity_emb_file) and os.path.exists(
-            os.path.join(d.data_folder, d.entity_emb_file)),
-        "relation_emb_file": bool(d.relation_emb_file),
-        "num_workers > 0": args.num_workers > 0,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"gnn_rag_tpu_torch CLI: not ported: "
-                                  f"{', '.join(bad)}")
-
-
 def device_of(name: str) -> torch.device:
     if name == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: torch.cuda.is_available() is false "
@@ -231,40 +229,89 @@ def question_decoder(tok):
     return None
 
 
+def load_padded(folder: str, fname):
+    """A frozen embedding table padded with one zero row
+    (base_model.py:79-114), or None when no file is named or it is missing."""
+    if not fname:
+        return None
+    path = os.path.join(folder, fname)
+    if not os.path.exists(path):
+        return None
+    return np.pad(np.load(path), ((0, 1), (0, 0))).astype(np.float32)
+
+
 def assemble(argv=None, args=None) -> dict:
     """Parse flags (or take the parsed ``args``), load data, encode relation
-    texts and questions with the frozen LM, and build the Trainer (restoring
-    --load_experiment). Returns {trainer, bundle, cfg, args, lm, rel_hidden,
-    rel_hidden_inv, rel_mask}."""
+    texts (and questions) with the frozen LM, load the frozen tables, and
+    build the Trainer (seeding the in-model LM for ``--lm_frozen 0``,
+    restoring --load_experiment). Returns {trainer, bundle, cfg, args, lm,
+    rel_hidden, rel_hidden_inv, rel_mask}; ``lm`` and the relation states
+    are None with relation texts off."""
     if args is None:
         args = build_parser().parse_args(argv)
     device = device_of(args.device)
     cfg = args_to_config(args)
-    check_supported(cfg, args)
+    check_supported(cfg.model)
     logger = create_logger("gnn_rag_tpu_torch", cfg.train.checkpoint_dir,
                            config=cfg.model)
-    bundle = load_dataset_dir(cfg)
+    bundle = load_dataset_dir(cfg, num_workers=args.num_workers)
     pad = bundle["tokenizer"].pad_id
-    lm = maybe_frozen_lm(cfg.model.lm, cfg.model.word_dim_effective,
-                         seed=cfg.train.seed, logger=logger, device=device)
-    logger.info("frozen LM %s: %s", cfg.model.lm, lm.weight_source)
-    # the encoder's own width (a checkpoint's hidden size; the JAX model
-    # infers it from the hidden states)
-    word_dim = lm.hidden
-    rel_hidden, rel_hidden_inv, rel_mask = encode_relations(
-        lm, bundle["rel_tokens"], bundle["rel_tokens_inv"], pad)
-    for split in ("train", "valid", "test"):
-        if bundle[split] is not None:
-            encode_questions(lm, bundle[split], pad)
+    mc = cfg.model
+    rel_hidden = rel_hidden_inv = rel_mask = lm = None
+    if cfg.data.relation_word_emb and bundle["rel_tokens"] is not None:
+        lm = maybe_frozen_lm(mc.lm, mc.word_dim_effective, seed=cfg.train.seed,
+                             logger=logger, device=device)
+        logger.info("frozen LM %s: %s", mc.lm, lm.weight_source)
+        if mc.lm != "lstm" and not mc.lm_frozen:
+            # the in-model encoder must match the loaded one exactly, or
+            # seed_submodule cannot overlay it: pin its widths from it
+            m = lm.module
+            if not isinstance(m, TransformerQuestionEncoder):
+                raise SystemExit(f"--lm_frozen 0 only supports bert-family "
+                                 f"encoders; {mc.lm!r} loaded a "
+                                 f"{type(m).__name__}")
+            mc = dataclasses.replace(mc, lm_spec=(
+                m.vocab_size, m.hidden, m.layers, m.heads, m.intermediate,
+                m.max_len, m.position_style, m.pad_idx))
+            cfg = dataclasses.replace(cfg, model=mc)
+        rel_hidden, rel_hidden_inv, rel_mask = encode_relations(
+            lm, bundle["rel_tokens"], bundle["rel_tokens_inv"], pad)
+        if mc.lm != "lstm" and mc.lm_frozen:
+            # questions encoded once here; with --lm_frozen 0 the in-model
+            # encoder runs inside the step and trains
+            for split in ("train", "valid", "test"):
+                if bundle[split] is not None:
+                    encode_questions(lm, bundle[split], pad)
+
+    folder = cfg.data.data_folder
+    entity_emb = load_padded(folder, cfg.data.entity_emb_file)
+    word_emb = (load_padded(folder, cfg.data.word_emb_file)
+                if mc.lm == "lstm" else None)
+    # the frozen KG relation table (base_model.py:122-134, 153-162): the
+    # models read it only with relation texts off, as in the reference
+    relation_emb = None
+    if cfg.data.relation_emb_file:
+        relation_emb = load_relation_emb(
+            os.path.join(folder, cfg.data.relation_emb_file),
+            bundle["num_kb_relation"], cfg.data.use_inverse_relation,
+            cfg.data.use_self_loop)
+        if relation_emb is None:
+            logger.info("relation_emb_file missing or its rows do not match: "
+                        "random init (base_model.py:127-128)")
     vocab = bundle["vocab"]
     trainer = Trainer(
         cfg, train_data=bundle["train"], valid_data=bundle["valid"],
         test_data=bundle["test"], num_entity=vocab.num_entity,
         num_kb_relation=bundle["num_kb_relation"], rel_hidden=rel_hidden,
         rel_hidden_inv=rel_hidden_inv, rel_text_mask=rel_mask,
-        word_dim=word_dim, id2entity=vocab.id2entity, logger=logger,
-        lm_source=lm.weight_source,
+        num_word=len(vocab.word2id), entity_emb=entity_emb, word_emb=word_emb,
+        relation_emb=relation_emb, id2entity=vocab.id2entity, logger=logger,
+        lm_source=lm.weight_source if lm is not None else None,
         decode_question=question_decoder(bundle["tokenizer"]), device=device)
+    if mc.lm != "lstm" and not mc.lm_frozen and rel_hidden is not None:
+        # the trainable in-model LM starts from the frozen path's weights
+        # (HF or the seeded random init) and finetunes (bert_encoder.py:80-83)
+        trainer.seed_submodule("lm", lm.module.state_dict())
     if cfg.train.load_experiment:
         trainer.load_ckpt(os.path.join(cfg.train.checkpoint_dir,
                                        cfg.train.load_experiment))

@@ -19,14 +19,18 @@ semantics, ported from the reference loader (gnn/dataset_load.py:18-691):
   real local entity with the last relation id (dataset_load.py:499-506);
 * per-(head,rel) inverse-count weights (dataset_load.py:514-517).
 
-Every batch carries the tile-sorted kernel layout: the port's model runs the
-layout path only.
+Every batch carries the tile-sorted kernel layout, which the models' kernel
+path walks (their COO path runs on a batch whose layout is set to None).
+``load_split`` can ingest in a process pool and caches its records in a
+pickle beside the split; ``load_relation_emb`` reads a pretrained relation
+table.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import pickle
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
@@ -345,30 +349,113 @@ def num_kb_relation(num_relation: int, use_inverse_relation: bool,
     return n
 
 
+_INGEST_CTX: dict = {}
+
+
+def _ingest_worker_init(vocab, kwargs):
+    _INGEST_CTX["vocab"] = vocab
+    _INGEST_CTX["kwargs"] = kwargs
+
+
+def _ingest_worker(line: str):
+    return ingest_question(json.loads(line), _INGEST_CTX["vocab"],
+                           **_INGEST_CTX["kwargs"])
+
+
 def load_split(path: str, vocab: Vocab, *, data_name: str,
                use_inverse_relation: bool, use_self_loop: bool,
-               max_questions: Optional[int] = None) -> List[QuestionRecord]:
-    """Ingest one JSONL split."""
+               max_questions: Optional[int] = None, num_workers: int = 0,
+               cache: bool = True) -> List[QuestionRecord]:
+    """Ingest one JSONL split; ``num_workers > 0`` parallelises over forked
+    processes (the vocab is shared through the fork, not pickled per task).
+
+    With ``cache`` the ingested records are pickled next to the JSONL and
+    reused while the source file (mtime, size) and the ingest options are
+    unchanged (gnn_rag_tpu/data/loader.py:370-444): JSON parsing of a
+    reference-scale split takes minutes of one core otherwise. The file is
+    ``<split>.json.ingest.torch.pkl``, not the JAX package's
+    ``<split>.json.ingest.pkl``: each holds its own package's record class,
+    and unpickling the other's would import that package."""
     nkr = num_kb_relation(vocab.num_relation, use_inverse_relation, use_self_loop)
+    kwargs = dict(data_name=data_name,
+                  use_inverse_relation=use_inverse_relation,
+                  use_self_loop=use_self_loop, num_kb_relation=nkr)
+    meta = (os.path.getmtime(path), os.path.getsize(path), data_name,
+            use_inverse_relation, use_self_loop, max_questions)
+    cpath = path + ".ingest.torch.pkl"
+    if cache and os.path.exists(cpath):
+        try:
+            with open(cpath, "rb") as f:
+                saved = pickle.load(f)
+            if saved.get("meta") == meta:
+                return saved["records"]
+        except Exception:
+            pass  # stale or corrupt cache: ingest again
+
+    def finish(recs: List[QuestionRecord]) -> List[QuestionRecord]:
+        if cache:
+            for r in recs:
+                r.kl_cache.clear()   # layouts are rebuilt lazily per E bucket
+            tmp = cpath + ".tmp"
+            try:
+                with open(tmp, "wb") as f:
+                    pickle.dump({"meta": meta, "records": recs}, f,
+                                protocol=pickle.HIGHEST_PROTOCOL)
+                os.replace(tmp, cpath)
+            except OSError:
+                pass  # read-only data dir: no cache
+        return recs
+
     records: List[QuestionRecord] = []
+    if num_workers > 0:
+        import multiprocessing as mp
+        with open(path) as f:
+            lines = f.readlines()
+        with mp.get_context("fork").Pool(num_workers,
+                                         initializer=_ingest_worker_init,
+                                         initargs=(vocab, kwargs)) as pool:
+            for rec in pool.imap(_ingest_worker, lines, chunksize=64):
+                if rec is not None:
+                    records.append(rec)
+                if max_questions is not None and len(records) >= max_questions:
+                    break
+        return finish(records[:max_questions] if max_questions else records)
     with open(path) as f:
         for line in f:
             if max_questions is not None and len(records) >= max_questions:
                 break
-            rec = ingest_question(json.loads(line), vocab, data_name=data_name,
-                                  use_inverse_relation=use_inverse_relation,
-                                  use_self_loop=use_self_loop,
-                                  num_kb_relation=nkr)
+            rec = ingest_question(json.loads(line), vocab, **kwargs)
             if rec is not None:
                 records.append(rec)
-    return records
+    return finish(records)
 
 
-def load_dataset_dir(cfg) -> dict:
+def load_relation_emb(path: str, num_kb_relation: int,
+                      use_inverse_relation: bool,
+                      use_self_loop: bool) -> Optional[np.ndarray]:
+    """Load a pretrained KG relation table (.npy of [R, d]) with the
+    reference's row conventions (base_model.py:122-134, 153-162): inverse
+    relations reuse the forward rows (concat), self-loop + pad rows are
+    zero-appended. Returns [num_kb_relation + 1, d] float32, or None (and
+    the models fall back to a trainable table) when the row count does not
+    match — the reference's 'Random Init' branch."""
+    if not path or not os.path.exists(path):
+        return None
+    half = np.load(path)
+    emb = np.concatenate([half, half]) if use_inverse_relation else half
+    num_pad = 2 if use_self_loop else 1   # self-loop row + pad row
+    emb = np.pad(emb, ((0, num_pad), (0, 0)))
+    if emb.shape[0] != num_kb_relation + 1:
+        return None
+    return emb.astype(np.float32)
+
+
+def load_dataset_dir(cfg, num_workers: int = 0) -> dict:
     """Load train/dev/test like the reference load_data (dataset_load.py:648-685).
 
-    cfg: a ``gnn_rag_tpu.config.Config``. Returns dict with KGQADataset
-    splits, Vocab, relation token arrays and the tokenizer.
+    cfg: a ``config.Config``; ``num_workers``: ingest processes of
+    ``load_split``. Returns dict with KGQADataset splits, Vocab, relation
+    token arrays and the tokenizer.
     """
     d = cfg.data
     vocab = Vocab.from_dir(d.data_folder, d.entity2id, d.relation2id, d.word2id)
@@ -385,7 +472,8 @@ def load_dataset_dir(cfg) -> dict:
             continue
         recs = load_split(path, vocab, data_name=d.name,
                           use_inverse_relation=d.use_inverse_relation,
-                          use_self_loop=d.use_self_loop, max_questions=cap)
+                          use_self_loop=d.use_self_loop, max_questions=cap,
+                          num_workers=num_workers)
         ds = KGQADataset(recs, num_entity=vocab.num_entity, num_kb_relation=nkr,
                          entity_buckets=d.entity_buckets, fact_buckets=d.fact_buckets)
         ds.tokenize_questions(tokenizer, add_special=(d.lm != "lstm"))

@@ -1,6 +1,6 @@
 """Loss functions and Hit@1 of the GNN models (reference: gnn/models/
-base_model.py:187-199, 287-292, rearev.py:227-233), ported from
-``gnn_rag_tpu.models.base``."""
+base_model.py:187-199, 287-292, rearev.py:227-233, nsm.py:142-149), ported
+from ``gnn_rag_tpu.models.base``."""
 
 from __future__ import annotations
 
@@ -30,14 +30,32 @@ def bce_loss_vec(pred_logits: torch.Tensor, answer_dist: torch.Tensor) -> torch.
              + (1.0 - labels) * F.logsigmoid(-pred_logits))
 
 
+def masked_mean_loss(loss_vec: torch.Tensor, case_valid: torch.Tensor) -> torch.Tensor:
+    """sum(loss * valid) / B (rearev.py:156-160)."""
+    return (loss_vec * case_valid).sum() / loss_vec.shape[0]
+
+
 def calc_loss_label(pred: torch.Tensor, answer_dist: torch.Tensor,
                     loss_type: str = "kl") -> torch.Tensor:
-    """Full loss with no-answer filtering: sum(loss * valid) / B
-    (rearev.py:156-160, 227-233)."""
+    """Full loss with no-answer filtering (rearev.py:227-233)."""
     case_valid = (answer_dist.sum(dim=1, keepdim=True) > 0).to(pred.dtype)
     vec = (kl_loss_vec(pred, answer_dist) if loss_type == "kl"
            else bce_loss_vec(pred, answer_dist))
-    return (vec * case_valid).sum() / vec.shape[0]
+    return masked_mean_loss(vec, case_valid)
+
+
+def js_div_vec(dist_1: torch.Tensor, dist_2: torch.Tensor) -> torch.Tensor:
+    """Jensen-Shannon divergence terms (nsm.py:142-149), elementwise [B, E];
+    0*log0 := 0."""
+    log_mean = torch.log((dist_1 + dist_2) / 2 + 1e-8)
+
+    def kld(target):
+        pos = target > 0
+        safe_log_t = torch.log(torch.where(pos, target, torch.ones_like(target)))
+        return torch.where(pos, target * (safe_log_t - log_mean),
+                           torch.zeros_like(target))
+
+    return 0.5 * (kld(dist_1) + kld(dist_2))
 
 
 VERY_SMALL_NUMBER = 1e-10

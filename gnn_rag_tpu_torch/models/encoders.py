@@ -1,6 +1,6 @@
-"""NN modules of the ReaRev slice: attention pooling, gated fusion, query
+"""NN modules of the retrievers: attention pooling, gated fusion, query
 reformulation, relation-typed entity init, instruction generation and the
-frozen question/relation encoder.
+question encoders (LSTM, transformer).
 
 Ports of ``gnn_rag_tpu.models.encoders`` (reference: gnn/modules/
 query_update.py:6-61, layer_init.py:25-62, question_encoding/*). Submodule
@@ -19,7 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.gate_scatter import gate_scatter_both
-from ..ops.segment import gather_rows, layout_fact_keep
+from ..ops.segment import (gather_rows, layout_fact_keep,
+                           scatter_facts_to_entities)
 from ..ops.softmax import VERY_NEG_NUMBER
 
 LN_EPS = 1e-6   # flax.linen.LayerNorm default (torch's is 1e-5)
@@ -42,7 +43,9 @@ def flax_like_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise every parameter with flax's default families, drawn from
     ``generator``: lecun_normal (truncated at 2 sigma, fan-in scaled) for
     dense kernels, zeros for biases, flax's embedding init (normal with std
-    1/sqrt(features)) for embeddings, ones/zeros for LayerNorm."""
+    1/sqrt(features)) for embeddings, ones/zeros for LayerNorm, and
+    ``OptimizedLSTMCell``'s for an ``nn.LSTM``: lecun_normal input kernels,
+    an orthogonal recurrent kernel for each gate, zero bias."""
     def lecun_(w: torch.Tensor, fan_in: int):
         std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
         nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
@@ -50,6 +53,12 @@ def flax_like_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
     with torch.no_grad():
         for m in module.modules():
+            if isinstance(m, nn.LSTM):
+                lecun_(m.weight_ih_l0, m.input_size)
+                for gate in m.weight_hh_l0.chunk(4, dim=0):
+                    nn.init.orthogonal_(gate, generator=generator)
+                m.bias_hh_l0.zero_()
+                continue
             if isinstance(m, nn.Linear):
                 lecun_(m.weight, m.in_features)
                 if m.bias is not None:
@@ -116,31 +125,51 @@ class QueryReform(nn.Module):
 
 class TypeLayer(nn.Module):
     """Entity init from incident relation types (layer_init.py:25-62):
-    relu(scatter_tails(W r + b) + scatter_heads(W r + b)), both directions in
-    one gate-scatter launch with unit instructions and no relu inside."""
+    relu(scatter_tails(W r + b) + scatter_heads(W r + b)), each fact
+    weighted by its mask, or with ``norm_rel`` by its 1/count(head, rel)
+    weight too. With a kernel layout both directions run in one gate-scatter
+    launch (unit instructions, no relu inside; with ``norm_rel`` the
+    layout's ``weight`` is the prior); without one, as index-adds over the
+    COO facts."""
 
-    def __init__(self, din: int, entity_dim: int):
+    def __init__(self, din: int, entity_dim: int, norm_rel: bool = False):
         super().__init__()
+        self.norm_rel = norm_rel
         self.kb_self_linear = nn.Parameter(torch.empty(din, entity_dim))
         self.kb_self_linear_bias = nn.Parameter(torch.empty(entity_dim))
 
     def forward(self, rel_features: torch.Tensor, layout, num_entities: int,
-                drop_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+                drop_keep: Optional[torch.Tensor] = None, *, batch=None,
+                fact_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``drop_keep``: the fact-dropout keep mask ``[B, F]`` in canonical
-        fact order, or None; a dropped fact gets a zero prior."""
+        fact order, or None; a dropped fact gets a zero prior. With ``layout``
+        None, the COO path over ``batch``'s heads, rels and tails with
+        ``fact_mask`` (default the batch's; dropout already applied)."""
         D = self.kb_self_linear.shape[1]
         rl_tab = rel_features @ self.kb_self_linear + self.kb_self_linear_bias
+        if layout is None:
+            fact_val = gather_rows(rl_tab, batch.rels)
+            wgt = batch.fact_mask if fact_mask is None else fact_mask
+            if self.norm_rel and batch.fact_rel_weight is not None:
+                wgt = wgt * batch.fact_rel_weight
+            return torch.relu(
+                scatter_facts_to_entities(fact_val, batch.tails, num_entities, wgt)
+                + scatter_facts_to_entities(fact_val, batch.heads, num_entities,
+                                            wgt))
         B = layout.fwd.rels.shape[0]
         ones_ins = torch.ones((B, 1, D), dtype=rl_tab.dtype, device=rl_tab.device)
-        prior_f = (layout.fwd.scatter >= 0).to(rl_tab.dtype)
-        prior_i = (layout.inv.scatter >= 0).to(rl_tab.dtype)
-        if drop_keep is not None:
-            prior_f = prior_f * layout_fact_keep(layout.fwd, drop_keep)
-            prior_i = prior_i * layout_fact_keep(layout.inv, drop_keep)
+
+        def prior(direction):
+            p = (direction.weight if self.norm_rel
+                 else (direction.scatter >= 0).to(rl_tab.dtype))
+            if drop_keep is not None:
+                p = p * layout_fact_keep(direction, drop_keep)
+            return p
+
         out_f, out_i = gate_scatter_both(
             gather_rows(rl_tab, layout.fwd.rels),
-            gather_rows(rl_tab, layout.inv.rels), ones_ins, prior_f, prior_i,
-            layout, num_entities, apply_relu=False)
+            gather_rows(rl_tab, layout.inv.rels), ones_ins, prior(layout.fwd),
+            prior(layout.inv), layout, num_entities, apply_relu=False)
         return torch.relu(out_f + out_i)
 
 
@@ -182,6 +211,51 @@ class InstructionDecoder(nn.Module):
         return torch.stack(instructions, dim=1), torch.stack(attns, dim=1)
 
 
+class LSTMQuestionEncoder(nn.Module):
+    """Single-layer unidirectional LSTM over word embeddings
+    (lstm_encoder.py:25-46): the per-token hidden states and, as the query
+    node, the state at the last position, pads included, as the flax module
+    takes it (``hidden[:, -1, :]``, not the last real token).
+
+    ``nn.LSTM`` (cuDNN on the card) in flax's ``OptimizedLSTMCell`` form:
+    gates i, f, g, o from ``x @ W_ih^T + h @ W_hh^T + b_hh``. Flax has no
+    input bias, so ``bias_ih_l0`` is a zero buffer: no optimizer moves it and
+    no state_dict holds it. The words come from ``word_embedding`` or, with
+    ``pretrained_dim`` set, from a frozen table given to ``forward``
+    (e.g. GloVe, base_model.py:79-89), ids clamped to its last row."""
+
+    def __init__(self, entity_dim: int, num_word: int, word_dim: int,
+                 dropout: float = 0.0, pretrained_dim: Optional[int] = None):
+        super().__init__()
+        self.dropout = dropout
+        if pretrained_dim is None:
+            self.word_embedding = nn.Embedding(num_word + 1, word_dim)
+        self.lstm = nn.LSTM(word_dim if pretrained_dim is None else pretrained_dim,
+                            entity_dim, batch_first=True)
+        del self.lstm.bias_ih_l0
+        self.lstm.register_buffer("bias_ih_l0", torch.zeros(4 * entity_dim),
+                                  persistent=False)
+        self.lstm._init_flat_weights()
+
+    def forward(self, tokens: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                pretrained: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens [B, L] -> (hidden [B, L, D], node [B, D]); ``generator``
+        draws the dropout mask on the embeddings (None: eval)."""
+        tokens = tokens.long()
+        if pretrained is not None:
+            emb = pretrained[tokens.clamp(max=pretrained.shape[0] - 1)]
+        else:
+            emb = self.word_embedding(tokens)
+        # the models run in eval mode and train through their ``training``
+        # argument; cuDNN's RNN backward needs the module's training flag
+        # (one layer: the flag changes nothing else), so it follows autograd
+        self.lstm.training = torch.is_grad_enabled()
+        hidden, _ = self.lstm(dropout(emb, self.dropout, generator))
+        return hidden, hidden[:, -1, :]
+
+
 class TransformerQuestionEncoder(nn.Module):
     """BERT-style encoder (embeddings + post-LN blocks) with the flax
     module's widths and numerics: LayerNorm eps 1e-6, exact GELU, additive
@@ -197,6 +271,7 @@ class TransformerQuestionEncoder(nn.Module):
                  max_len: int = 512, position_style: str = "bert",
                  pad_idx: int = 0):
         super().__init__()
+        self.vocab_size, self.intermediate = vocab_size, intermediate
         self.hidden, self.layers, self.heads = hidden, layers, heads
         self.max_len = max_len
         self.position_style, self.pad_idx = position_style, pad_idx
@@ -236,3 +311,19 @@ class TransformerQuestionEncoder(nn.Module):
             h = lyr("ffn2")(F.gelu(lyr("ffn1")(x), approximate="none"))
             x = lyr("ln2")(x + h)
         return x
+
+
+def make_inmodel_lm(cfg) -> TransformerQuestionEncoder:
+    """The in-model trainable question encoder of ``lm_frozen=0``
+    (bert_encoder.py:80-83). ``cfg.lm_spec`` (the CLI pins it from the
+    loaded encoder) fixes vocab, layers, heads, intermediate and positions,
+    so ``Trainer.seed_submodule`` always matches; None keeps MiniLM-class
+    widths at ``cfg.word_dim_effective``."""
+    if cfg.lm_spec is None:
+        return TransformerQuestionEncoder(hidden=cfg.word_dim_effective)
+    (vocab, hidden, layers, heads, intermediate, max_len,
+     position_style, pad_idx) = cfg.lm_spec
+    return TransformerQuestionEncoder(
+        vocab_size=vocab, hidden=hidden, layers=layers, heads=heads,
+        intermediate=intermediate, max_len=max_len,
+        position_style=position_style, pad_idx=pad_idx)

@@ -104,6 +104,8 @@ from .segment import batched_segment_sum
 # launches of the CUDA kernels (plain-version calls are not counted)
 launches = 0            # gate_scatter_fwd
 bwd_launches = 0        # gate_scatter_bwd
+launches_1dir = 0       # the gate_scatter_fwd launches of one direction
+bwd_launches_1dir = 0   # the gate_scatter_bwd launches of one direction
 fused_launches = 0      # fused_gate_scatter_fwd
 fused_bwd_launches = 0  # fused_gate_scatter_bwd
 scatter_launches = 0    # scatter_mm_fwd
@@ -209,7 +211,7 @@ def gate_scatter_fwd(vals, ins: torch.Tensor, prior, scatter, chunk_starts,
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
     current stream or raise."""
-    global launches
+    global launches, launches_1dir
     dev = ins.device
     if dev.type == "cpu":
         return gate_scatter_fwd_plain(vals, ins, prior, scatter, chunk_starts,
@@ -234,6 +236,7 @@ def gate_scatter_fwd(vals, ins: torch.Tensor, prior, scatter, chunk_starts,
             n_tiles, int(bool(apply_relu)), int(ins.dtype == torch.bfloat16),
             ws_bytes=4 * ndir * B * _fwd_slots(Fp) * TILE_E * J * D)
     launches += 1
+    launches_1dir += ndir == 1
     return out
 
 
@@ -325,7 +328,7 @@ def gate_scatter_bwd(vals, ins: torch.Tensor, prior, scatter, chunk_starts,
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
     current stream or raise."""
-    global bwd_launches
+    global bwd_launches, bwd_launches_1dir
     if ins.device.type == "cpu":
         return gate_scatter_bwd_plain(vals, ins, prior, scatter, chunk_starts,
                                       g, apply_relu, need_dprior=need_dprior,
@@ -366,6 +369,7 @@ def gate_scatter_bwd(vals, ins: torch.Tensor, prior, scatter, chunk_starts,
             dins.data_ptr() if need_dins else None, ndir, B, Fp, D, J,
             n_tiles, int(bool(apply_relu)), int(ins.dtype == torch.bfloat16))
     bwd_launches += 1
+    bwd_launches_1dir += ndir == 1
     return (dvals.unbind(0), dprior.unbind(0) if need_dprior else None, dins)
 
 
@@ -422,12 +426,12 @@ def gate_scatter_projected(fact_rl: torch.Tensor, ins: torch.Tensor,
                            prior: torch.Tensor, direction, num_entities: int,
                            apply_relu: bool = True) -> torch.Tensor:
     """One direction (the v3 op): ``[B, Fp, D]`` projected fact values ->
-    ``[B, J, E, D]``, differentiable through ``GateScatterFn``. ReaRev does
-    not call it: under ``GNN_RAG_GATE_SCATTER=v3`` it runs both directions
-    through ``gate_scatter_both``, which computes the same function (on the
-    TPU, v3 and v4 differ only in how the output block fits VMEM). It
-    is the port of the JAX package's v3 op, kept for NSM (still to port),
-    which calls that op."""
+    ``[B, J, E, D]``, differentiable through ``GateScatterFn``. NSM calls it
+    at J = 1 on every step (the forward direction, its teacher the inverse).
+    ReaRev does not: under ``GNN_RAG_GATE_SCATTER=v3`` it runs both
+    directions through ``gate_scatter_both``, which computes the same
+    function (on the TPU, v3 and v4 differ only in how the output block fits
+    VMEM)."""
     _check_entities(direction, num_entities)
     out = GateScatterFn.apply(apply_relu, ins.contiguous(),
                               fact_rl.contiguous(), prior.contiguous(),

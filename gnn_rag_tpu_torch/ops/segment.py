@@ -56,3 +56,16 @@ def layout_fact_keep(direction, keep: torch.Tensor) -> torch.Tensor:
     perm = direction.perm.long()
     k = torch.gather(keep, 1, perm.clamp_min(0))
     return k * (perm >= 0).to(keep.dtype)
+
+
+def scatter_facts_to_entities(fact_values: torch.Tensor, index: torch.Tensor,
+                              num_entities: int,
+                              fact_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """``sparse.mm(fact2tail_mat, fact_val)`` (reasongnn.py:84) when ``index
+    = tails``: ``[B, F(, D)]`` fact values added into their ``[B, E(, D)]``
+    entity rows. Padded facts must carry zero values: pass ``fact_mask`` (a
+    per-fact weight) or zero them first."""
+    if fact_mask is not None:
+        fact_values = fact_values * (fact_mask[..., None] if fact_values.dim() == 3
+                                     else fact_mask)
+    return batched_segment_sum(fact_values, index, num_entities)

@@ -3,8 +3,13 @@
 Port of ``gnn_rag_tpu.serve.RetrieverService``:
 
     question + subgraph  ->  GraphBatch (kernel layout)  ->  frozen-LM
-    question states  ->  ReaRev forward  ->  eps-cumulative candidates
+    question states  ->  retriever forward  ->  eps-cumulative candidates
     ->  shortest paths  ->  verbalized reasoning paths (ready for any reader)
+
+The retriever is whatever model the checkpoint holds (ReaRev, NSM or
+GraftNet): given a state_dict, the service builds the model through the
+trainer's ``build_model`` as the JAX service does
+(gnn_rag_tpu/serve.py:45); given a built model, it serves that.
 
 Path enumeration runs on the host through the port's ``rag.graph_utils``
 and ``native`` modules, copies of the JAX package's (the C++ enumerator when
@@ -40,26 +45,49 @@ from .train.metrics import extract_candidates, f1_and_hits_eval
 
 
 class RetrieverService:
-    def __init__(self, cfg: Config, vocab: Vocab, model: torch.nn.Module, *,
-                 rel_hidden: np.ndarray, rel_hidden_inv: np.ndarray,
-                 rel_text_mask: np.ndarray,
+    def __init__(self, cfg: Config, vocab: Vocab, model, *,
+                 rel_hidden: Optional[np.ndarray] = None,
+                 rel_hidden_inv: Optional[np.ndarray] = None,
+                 rel_text_mask: Optional[np.ndarray] = None,
+                 entity_emb: Optional[np.ndarray] = None,
+                 word_emb: Optional[np.ndarray] = None,
+                 relation_emb: Optional[np.ndarray] = None,
                  question_encoder: Optional[Callable] = None,
                  tokenizer=None,
                  entity_buckets=(256, 512, 1024, 2048),
                  fact_buckets=(1024, 2048, 4096, 8192, 16384),
-                 path_backend: str = "auto", keep_parallel: bool = False):
-        """model: a ReaRev (``models.rearev.build_model``) on its device;
-        question_encoder(token_ids) -> [L, word_dim] frozen-LM states."""
+                 path_backend: str = "auto", keep_parallel: bool = False,
+                 device="cuda"):
+        """model: a retriever on its device (``train.trainer.build_model``),
+        or a state_dict of one (a checkpoint), built here on ``device`` for
+        ``cfg.model.model_name`` and the frozen inputs given;
+        question_encoder(token_ids) -> [L, word_dim] frozen-LM states (None:
+        the questions go to the model as tokens, to its LSTM or in-model
+        LM); the frozen relation states and tables as the Trainer takes
+        them (None where not used)."""
         self.cfg = cfg
         self.vocab = vocab
         self.nkr = num_kb_relation(vocab.num_relation,
                                    cfg.data.use_inverse_relation,
                                    cfg.data.use_self_loop)
+        if not isinstance(model, torch.nn.Module):
+            from .train.trainer import build_model, model_inputs
+            state = model
+            model = build_model(cfg, vocab.num_entity, self.nkr, device=device,
+                                **model_inputs(
+                                    cfg, q_hidden=question_encoder is not None,
+                                    rel_hidden=rel_hidden, entity_emb=entity_emb,
+                                    word_emb=word_emb, relation_emb=relation_emb,
+                                    word_dim=cfg.model.word_dim_effective,
+                                    num_word=len(vocab.word2id)))
+            model.load_state_dict(state)
         self.model = model
         self.device = next(model.parameters()).device
-        self.rel_args = tuple(torch.as_tensor(np.asarray(a, np.float32),
-                                              device=self.device)
-                              for a in (rel_hidden, rel_hidden_inv, rel_text_mask))
+        self.rel_args = tuple(
+            None if a is None else torch.as_tensor(np.asarray(a, np.float32),
+                                                   device=self.device)
+            for a in (rel_hidden, rel_hidden_inv, rel_text_mask, entity_emb,
+                      word_emb, relation_emb))
         self.question_encoder = question_encoder
         self.tokenizer = tokenizer
         if path_backend == "device":

@@ -67,15 +67,21 @@ def main(argv=None, block: bool = True):
     tokenizer = bundle["tokenizer"]
     pad = tokenizer.pad_id
 
-    def question_encoder(ids):
-        row = np.pad(ids, (0, max(0, 64 - len(ids))))[:64]
-        return lm.encode(row[None], pad_id=pad)[0, : len(ids)]
+    question_encoder = None
+    if lm is not None and cfg.model.lm != "lstm" and cfg.model.lm_frozen:
+        def question_encoder(ids):
+            row = np.pad(ids, (0, max(0, 64 - len(ids))))[:64]
+            return lm.encode(row[None], pad_id=pad)[0, : len(ids)]
 
+    # the trained model and its frozen inputs (rel_args: the relation
+    # states, then the entity, word and relation tables)
     svc = RetrieverService(
         cfg, bundle["vocab"], trainer.model,
-        rel_hidden=ctx["rel_hidden"], rel_hidden_inv=ctx["rel_hidden_inv"],
-        rel_text_mask=ctx["rel_mask"], tokenizer=tokenizer,
-        question_encoder=question_encoder,
+        **dict(zip(("rel_hidden", "rel_hidden_inv", "rel_text_mask",
+                    "entity_emb", "word_emb", "relation_emb"),
+                   (None if a is None else a.cpu().numpy()
+                    for a in trainer.rel_args))),
+        tokenizer=tokenizer, question_encoder=question_encoder,
         path_backend=args.path_backend, keep_parallel=args.keep_parallel)
 
     if args.reader:

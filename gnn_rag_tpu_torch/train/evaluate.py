@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import json
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,14 +38,23 @@ class Evaluator:
     """
 
     def __init__(self, *, eps: float, num_entity: int, id2entity: dict,
-                 num_iter: int = 3):
+                 id2relation: Optional[dict] = None, num_iter: int = 3,
+                 entity_names: Optional[Sequence[str]] = None):
+        """``entity_names``: on 'sr-' datasets, the names that the
+        ``id2entity`` values index (evaluate.py:81-86); ``id2relation`` is
+        kept as the JAX Evaluator keeps it."""
         self.eps = eps
         self.num_entity = num_entity
         self.id2entity = id2entity
+        self.id2relation = id2relation or {}
         self.num_iter = num_iter
+        self.entity_names = entity_names
 
     def _name(self, gid: int):
-        return self.id2entity.get(gid, gid)
+        ent = self.id2entity.get(gid, gid)
+        if self.entity_names is not None:
+            return self.entity_names[ent] if isinstance(ent, int) else ent
+        return ent
 
     def evaluate(self, data: KGQADataset, forward_fn: Callable,
                  test_batch_size: int = 20, write_info: bool = False,

@@ -9,9 +9,13 @@ its backward kernel), the clip, the learning rate of the step, and
 on the device; the epoch reads them once, at its end. Batch assembly runs
 one batch ahead on a thread.
 
+``build_model`` builds ReaRev, NSM or GraftNet for the inputs the Trainer
+is given (``models.retriever``): the frozen-LM relation states, or none;
+precomputed question states, or the in-model LM; the frozen entity, word and
+relation tables. Those tables ride along on the device as frozen tensors.
+
 Not ported here (raise ``NotImplementedError``): data/tensor parallelism
-(``dp_size * tp_size > 1``), ``profile_dir``, and models other than ReaRev
-(``models.rearev.check_supported``).
+(``dp_size * tp_size > 1``) and ``profile_dir``.
 """
 
 from __future__ import annotations
@@ -27,8 +31,8 @@ import numpy as np
 import torch
 
 from ..data.loader import KGQADataset
-from ..models.rearev import build_model
 from ..models.base import calc_h1
+from ..models.encoders import flax_like_init_
 from ..utils.checkpoint import load_state, save_state
 from .evaluate import Evaluator
 from .metrics import train_f1_device
@@ -42,14 +46,59 @@ def clip_by_global_norm_(grads, max_norm: float) -> None:
     torch._foreach_mul_(grads, torch.where(norm < max_norm, 1.0, max_norm / norm))
 
 
+def build_model(cfg, num_entity: int, num_kb_relation: int, *,
+                word_dim: Optional[int] = None, seed: int = 0, device="cuda",
+                **inputs):
+    """The retriever ``cfg.model.model_name`` names (ReaRev, NSM or
+    GraftNet; gnn_rag_tpu/train/trainer.py:32-45) with flax-family random
+    weights from ``seed``, on ``device``, in eval mode. ``word_dim`` and
+    ``inputs`` say what the model is given (``models.retriever``)."""
+    name = cfg.model.model_name
+    if name == "ReaRev":
+        from ..models.rearev import ReaRev as cls
+    elif name == "NSM":
+        from ..models.nsm import NSM as cls
+    elif name == "GraftNet":
+        from ..models.graftnet import GraftNet as cls
+    else:
+        raise ValueError(f"unknown model {name}")
+    model = cls(cfg.model, num_entity, num_kb_relation, word_dim, **inputs)
+    flax_like_init_(model, torch.Generator().manual_seed(seed))
+    return model.to(device).eval()
+
+
+def model_inputs(cfg, *, q_hidden: bool, rel_hidden=None, entity_emb=None,
+                 word_emb=None, relation_emb=None,
+                 word_dim: Optional[int] = None, num_word: int = 0) -> dict:
+    """The ``word_dim`` and ``inputs`` of ``build_model`` for these frozen
+    arrays (None where not given): the frozen-LM width is ``rel_hidden``'s,
+    else ``word_dim`` (that of the question states); without precomputed
+    question states (``q_hidden`` False) a transformer ``lm`` runs in the
+    model (gnn_rag_tpu/models/rearev.py:270-274)."""
+    return dict(
+        word_dim=word_dim if rel_hidden is None else rel_hidden.shape[-1],
+        num_word=num_word, rel_text=rel_hidden is not None,
+        inmodel_lm=cfg.model.lm != "lstm" and not q_hidden,
+        word_emb_dim=None if word_emb is None else word_emb.shape[-1],
+        entity_emb_dim=None if entity_emb is None else entity_emb.shape[-1],
+        relation_emb_dim=None if relation_emb is None else relation_emb.shape[-1])
+
+
 class Trainer:
     def __init__(self, cfg, *, train_data: Optional[KGQADataset],
                  valid_data: KGQADataset, test_data: KGQADataset,
-                 num_entity: int, num_kb_relation: int, rel_hidden,
-                 rel_hidden_inv, rel_text_mask, word_dim: int,
+                 num_entity: int, num_kb_relation: int, rel_hidden=None,
+                 rel_hidden_inv=None, rel_text_mask=None,
+                 word_dim: Optional[int] = None, num_word: int = 0,
+                 entity_emb=None, word_emb=None, relation_emb=None,
                  id2entity: Optional[dict] = None, logger=None,
                  lm_source: Optional[str] = None, decode_question=None,
                  device="cuda"):
+        """``rel_hidden``, ``rel_hidden_inv``, ``rel_text_mask``: the frozen
+        LM's relation-text states and mask, or None (relation texts off);
+        ``entity_emb``, ``word_emb``, ``relation_emb``: frozen tables, or
+        None; ``word_dim``: the frozen LM's width where no ``rel_hidden``
+        or question states tell it; ``num_word``: the LSTM's vocabulary."""
         tc = cfg.train
         unported = {"dp_size * tp_size > 1": tc.dp_size * tc.tp_size > 1,
                     "profile_dir": bool(tc.profile_dir)}
@@ -66,17 +115,26 @@ class Trainer:
         self.valid_data = valid_data
         self.test_data = test_data
         self.num_entity = num_entity
-        self.rel_args = tuple(torch.as_tensor(np.asarray(a, np.float32),
-                                              device=self.device)
-                              for a in (rel_hidden, rel_hidden_inv, rel_text_mask))
+        # the model's frozen inputs, in the order of its forward
+        self.rel_args = tuple(
+            None if a is None else torch.as_tensor(np.asarray(a, np.float32),
+                                                   device=self.device)
+            for a in (rel_hidden, rel_hidden_inv, rel_text_mask, entity_emb,
+                      word_emb, relation_emb))
         if logger is None:
             from ..utils.logging import create_logger
             logger = create_logger("trainer", tc.checkpoint_dir, config=cfg.model)
         self.logger = logger
-        # ReaRev only: the model raises NotImplementedError for others
-        self.model = build_model(cfg, num_entity, num_kb_relation,
-                                 word_dim=word_dim, seed=tc.seed,
-                                 device=self.device)
+        data = train_data or test_data
+        q_hidden = bool(data is not None and data.q_hidden)
+        if word_dim is None and q_hidden:
+            word_dim = data.q_hidden[0].shape[-1]
+        self.model = build_model(
+            cfg, num_entity, num_kb_relation, seed=tc.seed, device=self.device,
+            **model_inputs(cfg, q_hidden=q_hidden, rel_hidden=rel_hidden,
+                           entity_emb=entity_emb, word_emb=word_emb,
+                           relation_emb=relation_emb, word_dim=word_dim,
+                           num_word=num_word))
         # dropout masks and the epoch shuffles come from this generator
         self.generator = torch.Generator(device=self.device).manual_seed(tc.seed)
 
@@ -84,19 +142,45 @@ class Trainer:
         # (train_model.py:89-94, 133-134)
         self.steps_per_epoch = max(1, math.ceil(
             (train_data.num_data if train_data else 1) / tc.batch_size))
-        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=tc.lr,
-                                          betas=(0.9, 0.999), eps=1e-8)
-        self.step_count = 0
-
+        self._new_optimizer()
+        num_iter = {"ReaRev": cfg.model.num_iter, "NSM": cfg.model.num_step,
+                    "GraftNet": cfg.model.num_layer}[cfg.model.model_name]
         self.evaluator = Evaluator(eps=cfg.model.eps, num_entity=num_entity,
                                    id2entity=id2entity or {},
-                                   num_iter=cfg.model.num_iter)
+                                   num_iter=num_iter)
         self.best_h1 = 0.0
         self.best_f1 = 0.0
         self._prefetch = ThreadPoolExecutor(max_workers=1)
 
+    def _new_optimizer(self):
+        """Adam with fresh moments and the schedule at step 0 (optax's
+        ``tx.init``)."""
+        self.optimizer = torch.optim.Adam(self.model.parameters(),
+                                          lr=self.cfg.train.lr,
+                                          betas=(0.9, 0.999), eps=1e-8)
+        self.step_count = 0
+
     def close(self):
         self._prefetch.shutdown()
+
+    def seed_submodule(self, name: str, state_dict) -> None:
+        """Overlay the submodule ``name`` (e.g. the in-model LM ``lm``) with
+        loaded weights, then start the optimizer afresh
+        (gnn_rag_tpu/train/trainer.py:346-371): the lm_frozen=0 path starts
+        from the pretrained encoder and finetunes it (bert_encoder.py:80-83).
+        Every tensor's shape must match."""
+        sub = getattr(self.model, name, None)
+        if sub is None:
+            raise KeyError(f"model has no trainable submodule {name!r} "
+                           "(is lm_frozen=0 and lm != lstm?)")
+        own = sub.state_dict()
+        for key, t in state_dict.items():
+            if key in own and tuple(own[key].shape) != tuple(t.shape):
+                raise ValueError(f"seed_submodule({name!r}): shape mismatch "
+                                 f"{key} {tuple(own[key].shape)} vs "
+                                 f"{tuple(t.shape)}")
+        sub.load_state_dict(state_dict)
+        self._new_optimizer()
 
     # ------------------------------------------------------------------ steps
     def learning_rate(self, step: int) -> float:
@@ -168,8 +252,8 @@ class Trainer:
         return self.model(batch.to(self.device), *self.rel_args)
 
     def attn_forward(self, batch):
-        """(loss, pred, pred_dist, instruction attention [B, num_ins, L])
-        of a numpy GraphBatch, eval mode."""
+        """(loss, pred, pred_dist, instruction attention [B, J, L]) of a
+        numpy GraphBatch, eval mode (ReaRev and NSM)."""
         return self.model(batch.to(self.device), *self.rel_args,
                           return_attn=True)
 
@@ -178,11 +262,13 @@ class Trainer:
                  write_attention: bool = False):
         """(f1, h1, em) of ``data``; optionally writes the `.info` file, with
         ``write_attention`` the instruction attention in its slots."""
+        # GraftNet has no instruction attention: its slots stay empty
+        attn = (self.attn_forward if write_attention
+                and self.cfg.model.model_name != "GraftNet" else None)
         f1, h1, em, _ = self.evaluator.evaluate(
             data, self.forward, test_batch_size or self.cfg.train.test_batch_size,
             write_info=write_info, info_path=info_path,
-            decode_question=self.decode_question,
-            attn_forward_fn=self.attn_forward if write_attention else None)
+            decode_question=self.decode_question, attn_forward_fn=attn)
         return f1, h1, em
 
     def train(self, start_epoch: int = 0, end_epoch: Optional[int] = None):

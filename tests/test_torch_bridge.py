@@ -162,8 +162,13 @@ def test_reason_gnn_stack(J, num_gnn):
 def test_bridge_rejects_unknown_leaves_and_init_scales_match_flax():
     with pytest.raises(KeyError):
         bridge.from_flax({"params": {"lstm": {"cell": {"kernel": np.zeros((2, 2))}}}})
+    # ReaRev's pos_emb tables are ported: an Embed maps its embedding, and
+    # a leaf no Embed has still raises
+    assert set(bridge.from_flax(
+        {"reasoning": {"pos_emb0": {"embedding": np.zeros((2, 2))}}})) == {
+        "reasoning.pos_emb0.weight"}
     with pytest.raises(KeyError):
-        bridge.from_flax({"reasoning": {"pos_emb0": {"embedding": np.zeros((2, 2))}}})
+        bridge.from_flax({"reasoning": {"pos_emb0": {"kernel": np.zeros((2, 2))}}})
     # the port's seeded init draws from flax's families at flax's scales
     m = jenc.TransformerQuestionEncoder(vocab_size=3000, hidden=64, layers=1,
                                         heads=4, intermediate=256)

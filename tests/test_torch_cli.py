@@ -2,9 +2,11 @@
 training epochs on the micro dataset write the best-h1/f1/final checkpoints
 and their provenance sidecars; ``--is_eval --load_experiment`` writes a
 `.info` whose lines have the JAX package's keys; ``--device cuda`` without a
-card and flags outside the ported configuration raise (``--info_attention``
-is ported: tests/test_torch_rag.py holds its `.info` to the JAX
-Evaluator's)."""
+card raises; of the flags the port once refused, only ``--dp_size`` above 1
+still raises, the others now evaluate (``--info_attention`` is ported too:
+tests/test_torch_rag.py holds its `.info` to the JAX Evaluator's;
+tests/test_torch_rearev_options.py and test_torch_retrievers.py hold the
+options and the other retrievers to the JAX package)."""
 
 import json
 import os
@@ -84,6 +86,18 @@ def test_cuda_without_a_card_raises(trained, monkeypatch):
                                    ["--dp_size", "2"], ["--pos_emb"],
                                    ["--relation_word_emb", "False"]])
 def test_unported_flags_raise(trained, extra):
+    """``--dp_size 2`` (scale-out) still raises; each other flag once
+    refused now runs the eval-only entry and writes the `.info` (checkpoint
+    tensors whose shape no longer fits, e.g. the LSTM's, keep their
+    init)."""
     root, args, _ = trained
-    with pytest.raises(NotImplementedError):
-        cli.run(args + ["--device", "cpu", "--is_eval"] + extra)
+    argv = args + ["--device", "cpu", "--is_eval", "--load_experiment",
+                   "micro-final.ckpt", "--experiment_name", "opt"] + extra
+    if extra == ["--dp_size", "2"]:
+        with pytest.raises(NotImplementedError, match="dp_size"):
+            cli.run(argv)
+        return
+    ctx = cli.run(argv)
+    lines = [json.loads(x) for x in open(root / "ckpt" / "opt_test.info")]
+    assert len(lines) == 2 and all(line["cand"] for line in lines)
+    assert (ctx["lm"] is None) == (extra == ["--relation_word_emb", "False"])

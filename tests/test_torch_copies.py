@@ -3,8 +3,9 @@
 graphpath library, the SynthQSP generator, the prompt builder, SFT data
 prep (explanation distillation too), the byte/word tokenizers, and the
 RAG half's answer scorers, predict driver, multi-hop scorer, reader
-interface, mock reader and OpenAI-protocol server and proxy) against the
-originals: same configurations, same paths, same prompt text, same
+interface, mock reader and OpenAI-protocol server and proxy, the loader's
+relation table, ingest workers and id helpers, the Evaluator's entity
+names) against the originals: same configurations, same paths, same prompt text, same
 generated files byte for byte from one seed, and the copied RAG functions
 the same source line for line (tests/test_torch_rag.py runs them on the
 same files)."""
@@ -24,6 +25,7 @@ import pytest
 from gnn_rag_tpu import cli as jcli
 from gnn_rag_tpu import config as jconfig
 from gnn_rag_tpu import native as jnative
+from gnn_rag_tpu.data import loader as jloader
 from gnn_rag_tpu.finetune import data_prep as jprep
 from gnn_rag_tpu.llm_tpu import sft as jsft
 from gnn_rag_tpu.rag import evaluate_multi_hop as jmulti
@@ -36,15 +38,18 @@ from gnn_rag_tpu.rag.llms import base as jbase
 from gnn_rag_tpu.rag.llms import llama_tpu as jllama
 from gnn_rag_tpu.rag.llms import mock as jmock
 from gnn_rag_tpu.rag.llms import serving as jserving
+from gnn_rag_tpu.train import evaluate as jevaluate
 from gnn_rag_tpu.utils import logging as jlogging
 from gnn_rag_tpu.utils import refbench as jrefbench
 from gnn_rag_tpu_torch import cli, config, native
+from gnn_rag_tpu_torch.data import loader
 from gnn_rag_tpu_torch.finetune import data_prep
 from gnn_rag_tpu_torch.llm import sft, tokenizers
 from gnn_rag_tpu_torch.rag import (evaluate_multi_hop, evaluate_results,
                                    gen_rule_path, graph_utils, predict,
                                    text_utils)
 from gnn_rag_tpu_torch.rag.llms import base, mock, serving
+from gnn_rag_tpu_torch.train import evaluate
 from gnn_rag_tpu_torch.utils import build, refbench
 from gnn_rag_tpu_torch.utils.logging import create_logger
 
@@ -276,3 +281,31 @@ def test_predict_config_adds_only_the_device():
     port = {f.name: f.default for f in dataclasses.fields(predict.PredictConfig)}
     ref = {f.name: f.default for f in dataclasses.fields(jpredict.PredictConfig)}
     assert port == dict(ref, device="cuda")
+
+
+# functions of the retrievers' data path copied unchanged: the loader's
+# relation table, ingest workers and id helpers, the Evaluator's names
+# (tests/test_torch_retrievers.py and test_torch_rearev_options.py run them)
+RETRIEVER_COPIES = {
+    "load_relation_emb": (loader, jloader),
+    "num_kb_relation": (loader, jloader),
+    "_ingest_worker_init": (loader, jloader),
+    "_ingest_worker": (loader, jloader),
+    "_resolve_entity": (loader, jloader),
+    "_resolve_relation": (loader, jloader),
+    "Evaluator._name": (evaluate, jevaluate),
+}
+
+
+@pytest.mark.parametrize("name", list(RETRIEVER_COPIES))
+def test_retriever_copies_keep_the_original_source(name):
+    port, ref = RETRIEVER_COPIES[name]
+
+    def get(mod):
+        obj = mod
+        for part in name.split("."):
+            obj = getattr(obj, part)
+        return obj
+
+    assert inspect.getsource(get(port)) == inspect.getsource(get(ref))
+    assert port.__name__.startswith("gnn_rag_tpu_torch.")

@@ -36,7 +36,7 @@ from gnn_rag_tpu_torch.data.kernel_layout import (TILE_E, build_sample_direction
                                                   pack_samples)
 from gnn_rag_tpu_torch.llm import flash_attention as fa
 from gnn_rag_tpu_torch.llm.model import LlamaConfig, build_llama
-from gnn_rag_tpu_torch.models.rearev import build_model
+from gnn_rag_tpu_torch.train.trainer import build_model
 from gnn_rag_tpu_torch.ops import gate_scatter as gs
 
 

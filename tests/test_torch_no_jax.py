@@ -1,5 +1,7 @@
 """gnn_rag_tpu_torch runs without JAX and without the JAX package: a fresh
 interpreter imports the port, serves one question, trains one ReaRev step,
+one NSM step (LSTM encoder, teacher) and one GraftNet step and serves each
+from its state_dict, ingests a split in a process pool through the cache,
 runs one SFT step of the LLM reader and one greedy decode on the CPU, a
 remat LoRA step, an int8 model's forward and a speculative decode, tries
 the frozen LM's HF checkpoint loader (its loud fallback), then runs the RAG
@@ -23,7 +25,7 @@ import sys
 import numpy as np
 from gnn_rag_tpu_torch.config import Config, DataConfig, ModelConfig
 from gnn_rag_tpu_torch.data.vocab import Vocab
-from gnn_rag_tpu_torch.models.rearev import build_model
+from gnn_rag_tpu_torch.train.trainer import build_model
 from gnn_rag_tpu_torch.serve import RetrieverService
 
 ents = {f"m.{i:02d}": i for i in range(20)}
@@ -61,6 +63,33 @@ tr = Trainer(cfg, train_data=ds, valid_data=ds, test_data=ds, num_entity=20,
 loss, h1, f1 = tr.train_epoch()
 tr.close()
 assert tr.step_count == 1 and np.isfinite(loss), loss
+for name in ("NSM", "GraftNet"):
+    rcfg = Config(data=DataConfig(name="webqsp"), model=ModelConfig(
+        model_name=name, entity_dim=16, num_step=2, num_layer=2, lm="lstm",
+        word_dim=8, lm_dropout=0.0, lambda_back=0.1, lambda_constrain=0.1))
+    rtr = Trainer(rcfg, train_data=ds, valid_data=ds, test_data=ds,
+                  num_entity=20, num_kb_relation=3, num_word=5,
+                  logger=logging.getLogger("no_jax"), device="cpu")
+    loss, h1, f1 = rtr.train_epoch()
+    rtr.close()
+    assert rtr.step_count == 1 and np.isfinite(loss), (name, loss)
+    rsvc = RetrieverService(rcfg, Vocab(ents, rels, {w: i for i, w in
+                                                     enumerate("abcde")}),
+                            rtr.model.state_dict(), device="cpu")
+    assert type(rsvc.model).__name__ == name and rsvc.retrieve([q])[0]["cand"]
+
+import json, os, tempfile
+from gnn_rag_tpu_torch.data.loader import load_split
+with tempfile.TemporaryDirectory() as out:
+    path = os.path.join(out, "train.json")
+    with open(path, "w") as f:
+        f.write(json.dumps(dict(q, answers=["m.01"])) + "\n")
+    for workers in (2, 0):       # ingests in the pool, then reads the cache
+        recs = load_split(path, svc.vocab, data_name="webqsp",
+                          use_inverse_relation=False, use_self_loop=True,
+                          num_workers=workers)
+        assert len(recs) == 1 and recs[0].answer_gids == [1], recs
+    assert os.path.exists(path + ".ingest.torch.pkl")
 
 import dataclasses, tempfile
 from gnn_rag_tpu_torch.llm.generate import Decoder
@@ -185,7 +214,9 @@ def test_port_never_imports_or_runs_the_jax_package():
     files = list(_python_files())
     assert len(files) > 30
     port = os.path.join(os.path.dirname(files[0]), "gnn_rag_tpu_torch")
-    for new in ("llm/quant.py", "llm/lora.py", "rag/llms/serving.py"):
+    for new in ("llm/quant.py", "llm/lora.py", "rag/llms/serving.py",
+                "models/nsm.py", "models/graftnet.py", "models/retriever.py",
+                "ops/degree.py"):
         assert os.path.join(port, new) in files, new
     for path in files:
         with open(path) as f:

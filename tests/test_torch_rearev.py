@@ -21,9 +21,10 @@ from gnn_rag_tpu.utils.synthetic import random_rel_hidden
 from gnn_rag_tpu_torch import bridge
 from gnn_rag_tpu_torch.data.loader import load_dataset_dir
 from gnn_rag_tpu_torch.data.vocab import Vocab
-from gnn_rag_tpu_torch.models.rearev import ReaRev, build_model
+from gnn_rag_tpu_torch.models.rearev import ReaRev
 from gnn_rag_tpu_torch.serve import RetrieverService
 from gnn_rag_tpu_torch.train.evaluate import Evaluator
+from gnn_rag_tpu_torch.train.trainer import build_model
 
 WORD_DIM = 32
 
@@ -160,7 +161,18 @@ def test_retrieve_matches_jax():
 
 
 def test_unported_options_raise():
-    for kw in (dict(pos_emb=True), dict(lm="lstm"), dict(lm_frozen=False),
-               dict(model_name="NSM"), dict(normalized_gnn=True)):
+    """The options this test once refused are ported: each builds the
+    module its option needs (tests/test_torch_rearev_options.py holds them to
+    the JAX model); values no package takes still raise."""
+    from gnn_rag_tpu_torch.models.nsm import NSM
+    for kw, name in ((dict(pos_emb=True), "reasoning.pos_emb_inv1.weight"),
+                     (dict(lm="lstm"), "instruction_encoder.lstm.weight_hh_l0"),
+                     (dict(lm_frozen=False), "lm.tok_emb.weight"),
+                     (dict(normalized_gnn=True), "reasoning.rel_linear0")):
+        assert name in ReaRev(ModelConfig(**kw), 10, 3, WORD_DIM).state_dict()
+    cfg = Config(model=ModelConfig(model_name="NSM", entity_dim=8))
+    assert isinstance(build_model(cfg, 10, 3, word_dim=WORD_DIM, device="cpu"), NSM)
+    for kw in (dict(model_name="Foo"), dict(compute_dtype="float16"),
+               dict(loss_type="mse")):
         with pytest.raises(NotImplementedError):
             ReaRev(ModelConfig(**kw), 10, 3, WORD_DIM)
