@@ -820,6 +820,7 @@ def run_slice(device, root):
         batch_Fp=int(batch.layout.fwd.scatter.shape[1]))
     log("slice", json.dumps(summary))
     profile_slice(svc, questions, batch)
+    run_bfs(svc, questions)
     return summary, launches
 
 
@@ -2653,6 +2654,362 @@ def run_reader_serving(device, llm_root, train_root):
     return summary
 
 
+def run_bfs(svc, questions):
+    """Phase bfs: the serving questions' shortest paths through the three
+    backends (``device``: the BFS levels of a 16-question request on the
+    card, ``rag.path_extract``; ``native``: the C++ enumerator; ``python``:
+    the oracle), from one set of candidates, in 16-question requests: the
+    same path set for every question and q/s of each, to the top 10
+    candidates (``QAService``'s prompt load: the oracle takes ~2 s a
+    question to the thousands of candidates of a random model); then
+    ``device`` and ``native`` to every candidate (``POST /retrieve``'s
+    load), and the device BFS's hops (one host sync each)."""
+    import torch
+    from gnn_rag_tpu_torch.rag.graph_utils import (build_graph,
+                                                   get_truth_paths,
+                                                   get_truth_paths_fast)
+    from gnn_rag_tpu_torch.rag.path_extract import BatchedPathExtractor
+    from gnn_rag_tpu_torch.rag.text_utils import path_to_string
+
+    t0 = time.perf_counter()
+    cands = svc.retrieve(questions, with_paths=False)
+    ex = BatchedPathExtractor(device=svc.device)
+    hops = {}
+
+    def device(chunk, load):
+        out = ex.extract(chunk)
+        hops.setdefault(load, []).append(ex.last_hops)
+        return out
+
+    backends = {
+        "device": device,
+        "native": lambda chunk, _: [get_truth_paths_fast(
+            q["graph"], q["q_entity"], q["cand"]) for q in chunk],
+        "python": lambda chunk, _: [get_truth_paths(
+            q["q_entity"], q["cand"], build_graph(q["graph"])) for q in chunk]}
+    out = {}
+    for load, top in (("top10", 10), ("all_candidates", None)):
+        qs = [{"graph": q["subgraph"]["tuples"],
+               "q_entity": q.get("entities", []),
+               "cand": [c for c, _ in r["cand"]][:top]}
+              for q, r in zip(questions, cands)]
+        paths, qps = {}, {}
+        for name, fn in backends.items():
+            if name == "python" and top is None:
+                continue
+            fn(qs[:16], "warm")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = [p for i in range(0, len(qs), 16)
+                   for p in fn(qs[i:i + 16], load)]
+            qps[name] = len(qs) / (time.perf_counter() - t)
+            paths[name] = [sorted({path_to_string(p) for p in ps})
+                           for ps in got]
+        for name in paths:
+            bad = [i for i, (a, b) in enumerate(zip(paths[name],
+                                                    paths["native"])) if a != b]
+            if bad:
+                raise AssertionError(f"bfs ({load}): {name} paths differ from "
+                                     f"native at questions {bad[:8]}")
+        out[load] = dict(questions_per_s=qps, paths_per_question=sum(
+            map(len, paths["native"])) / len(qs), device_bfs_hops=hops[load])
+    # the service end to end with the device backend, one 16-question
+    # request, against the same request through the phase's service
+    dev_svc = type(svc)(svc.cfg, svc.vocab, svc.model,
+                        question_encoder=svc.question_encoder,
+                        tokenizer=svc.tokenizer, path_backend="device",
+                        **dict(zip(("rel_hidden", "rel_hidden_inv",
+                                    "rel_text_mask"),
+                                   (a.cpu().numpy() for a in svc.rel_args[:3]))))
+    served = dev_svc.retrieve(questions[:16])
+    want = svc.retrieve(questions[:16])
+    if [sorted(r["paths"]) for r in served] != [sorted(r["paths"])
+                                                for r in want]:
+        raise AssertionError(f"bfs: RetrieverService(path_backend='device') "
+                             f"paths differ from {svc.path_backend}'s")
+    summary = dict(questions=len(questions), request_questions=16, **out,
+                   syncs="one a hop", wall_s=time.perf_counter() - t0)
+    log("bfs", json.dumps(summary))
+    return summary
+
+
+def run_profile(device, root):
+    """Phase profile: one epoch of the headline configuration through the
+    CLI with ``--profile_dir``: the trace file exists and holds the
+    gate-scatter forward and backward kernels."""
+    import glob
+
+    import torch
+    from gnn_rag_tpu_torch import cli
+    prof = os.path.join(root, "profile")
+    t = time.perf_counter()
+    ctx = cli.run(HEADLINE_FLAGS + [
+        "--data_folder", os.path.join(root, "train") + "/", "--checkpoint_dir",
+        os.path.join(root, "profile_ckpt"), "--experiment_name", "prof",
+        "--num_epoch", "1", "--eval_every", "2", "--profile_dir", prof])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    files = glob.glob(os.path.join(prof, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"profile: trace files {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {k: sum(1 for e in events if e.get("cat") == "kernel"
+                      and k in e.get("name", ""))
+               for k in ("gate_fwd_kernel", "gate_scatter_bwd_kernel")}
+    if not all(kernels.values()):
+        raise AssertionError(f"profile: kernel events {kernels}")
+    summary = dict(wall_s=wall, epoch_loss=ctx["history"][0][0],
+                   trace_mb=os.path.getsize(files[0]) / 2**20,
+                   events=len(events), kernel_events=kernels)
+    log("profile-dir", json.dumps(summary))
+    return summary
+
+
+# the mesh phase: ReaRev at the headline width on synthetic WebQSP-scale
+# subgraphs (B8, E bucket 4096; MiniLM-width frozen-LM states from the
+# seed), and the SFT at LLaMA2-7B width cut to 2 layers, B2 x 2048
+MESH_REAREV = dict(entity_dim=50, num_iter=3, num_ins=2, num_gnn=3,
+                   linear_dropout=0.2)
+MESH_QUESTIONS, MESH_REL, MESH_WORD = 32, 512, 384
+MESH_SFT = dict(n_layers=2, batch=2, seq=2048, steps=2)
+
+
+def mesh_rearev(mesh, root):
+    """Two epochs (4 B8 steps each) of ReaRev on the mesh's ranks, or in
+    one process (``mesh`` None): (the epochs' losses, every step's gradient
+    norm before the clip, ms a step of the second, whole state, launches,
+    sharded names, the batch's E bucket)."""
+    import logging
+
+    import numpy as np
+    import torch
+    from gnn_rag_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from gnn_rag_tpu_torch.ops import gate_scatter as gs
+    from gnn_rag_tpu_torch.train.trainer import Trainer
+    from gnn_rag_tpu_torch.utils.synthetic import (random_records,
+                                                   random_rel_hidden)
+    rng = np.random.default_rng(SEED)
+    ds = random_records(rng, n_questions=MESH_QUESTIONS,
+                        n_entities_max=4000, n_facts_max=12000,
+                        num_relation=MESH_REL, num_entity_global=100_000)
+    ds.q_hidden = [rng.standard_normal((len(r.q_token_ids), MESH_WORD))
+                   .astype(np.float32) * 0.5 for r in ds.records]
+    rel = random_rel_hidden(rng, MESH_REL + 1, 8, MESH_WORD)
+    orig = ds.reset_batches
+    ds.reset_batches = lambda **kw: orig(is_sequential=True)
+    cfg = Config(model=ModelConfig(**MESH_REAREV),
+                 train=TrainConfig(batch_size=8, lr=5e-4, gradient_clip=1.0,
+                                   seed=SEED, checkpoint_dir=root))
+    tr = Trainer(cfg, train_data=ds, valid_data=ds, test_data=ds,
+                 num_entity=100_000, num_kb_relation=MESH_REL,
+                 rel_hidden=rel[0], rel_hidden_inv=rel[1], rel_text_mask=rel[2],
+                 word_dim=MESH_WORD, device="cuda", mesh=mesh,
+                 logger=logging.getLogger("mesh"))
+    norms, step = [], tr.train_step
+
+    def kept(*args):                        # the norm stays on the card
+        out = step(*args)
+        norms.append(tr.grad_norm)
+        return out
+
+    tr.train_step = kept
+    reset_gate_counts()
+    losses = [tr.train_epoch()[0]]          # the first epoch warms up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    losses.append(tr.train_epoch()[0])
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t) / tr.steps_per_epoch
+    norms = [float(n) for n in norms]
+    launches = (gs.launches, gs.bwd_launches)
+    state = {k: v.float().cpu().numpy() for k, v in tr.full_state().items()}
+    E = ds.make_batch(list(range(8))).seed_dist.shape[1]
+    tr.close()
+    return losses, norms, ms, state, launches, sorted(tr.sharded), int(E)
+
+
+def mesh_sft(mesh, root):
+    """``MESH_SFT`` steps of the SFT at LLaMA2-7B width on the mesh's tp
+    ranks, or in one process: (losses, grad norms, ms a step, launches,
+    this rank's heads)."""
+    import numpy as np
+    import torch
+    from gnn_rag_tpu_torch.llm.model import LlamaConfig
+    from gnn_rag_tpu_torch.llm.sft import SFTConfig, SFTTrainer
+    rng = np.random.default_rng(SEED)
+    B, L = MESH_SFT["batch"], MESH_SFT["seq"]
+    tokens = rng.integers(3, 32000, (2 * B, L)).astype(np.int32)
+    mask = np.zeros((2 * B, L), np.float32)
+    mask[:, L // 2:] = 1.0                 # the completion: the second half
+    tr = SFTTrainer(LlamaConfig(n_layers=MESH_SFT["n_layers"], dtype="bfloat16"),
+                    SFTConfig(output_dir=root, batch_size=B,
+                              total_steps=MESH_SFT["steps"], warmup_steps=1,
+                              learning_rate=3e-4, save_every=10**9, seed=SEED),
+                    device="cuda", mesh=mesh)
+    norms = []
+    step = tr.train_step
+
+    def counted(t, m):
+        out = step(t, m)
+        norms.append(float(tr.grad_norm))
+        return out
+
+    tr.train_step = counted
+    reset_attn_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    losses = tr.train(tokens, mask, steps=MESH_SFT["steps"], resume=False,
+                      log_every=10**9)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t) / MESH_SFT["steps"]
+    launches = attn_counts()
+    heads = tr.model.layer_0.attn.n_heads
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, norms, ms, launches, heads
+
+
+def mesh_rank_main(rank, port, out):
+    """One rank of the mesh phase (``chip_smoke.py --mesh-rank R --port P
+    --out DIR``): ReaRev at dp 2, then dp 1 x tp 2, then the SFT at tp 2;
+    its results into DIR/rank{R}.json and, from rank 0, the ReaRev states
+    into DIR/rearev_{dp2,tp2}.npz."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    from gnn_rag_tpu_torch.parallel.mesh import make_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    res = {}
+    for name, dp, tp in (("dp2", 2, 1), ("tp2", 1, 2)):
+        mesh = make_mesh(dp, tp, backend="gloo", device="cuda:0")
+        losses, norms, ms, state, launches, sharded, E = mesh_rearev(mesh, out)
+        res[name] = dict(losses=losses, grad_norms=norms, ms_per_step=ms,
+                         launches_fwd_bwd=launches, sharded=sharded, E=E)
+        if rank == 0:
+            np.savez(os.path.join(out, f"rearev_{name}.npz"), **state)
+    mesh = make_mesh(1, 2, backend="gloo", device="cuda:0")
+    losses, norms, ms, launches, heads = mesh_sft(mesh, os.path.join(out, "sft"))
+    res["sft_tp2"] = dict(losses=losses, grad_norms=norms, ms_per_step=ms,
+                          flash_launches_fwd_dq_dkv=launches,
+                          local_heads=heads)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def run_mesh(device, root, card):
+    """Phase mesh: two ranks on the one card over gloo (NCCL refuses two
+    ranks on one device), each a process of this script started with a
+    timeout; a rank that fails fails the phase. ReaRev (dp 2, then dp 1 x
+    tp 2; 8 steps) against one process here: epoch losses rtol 1e-5, every parameter
+    rtol 1e-4 / atol 1e-6 (Adam's normalised steps of the softmax biases,
+    gradient 0 up to rounding, within 2 lr a step), K1/K2 launched on both
+    ranks, each step's gradient norm before the clip rtol 1e-3 (Adam's step
+    hardly moves when every gradient is scaled by one constant, so a dp sum
+    where a mean belongs shows in the norm, not in the parameters); the SFT
+    at tp 2 (H/tp heads through K5a-c) against one process:
+    losses rtol 1e-4 / atol 1e-5 (the JAX mesh tests' tolerance), grad
+    norms rtol 1e-3."""
+    import socket
+
+    import numpy as np
+    import torch
+    out = os.path.join(root, "mesh")
+    os.makedirs(os.path.join(out, "sft"), exist_ok=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--mesh-rank", str(r), "--port", str(port),
+                               "--out", out], cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=420)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"mesh: rank {r} exited {p.returncode}:\n"
+                                 f"{text[-3000:]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss1, rnorms1, ms1, state1, launches1, _, _ = mesh_rearev(None, out)
+    per_step = 1 + MESH_REAREV["num_iter"] * MESH_REAREV["num_gnn"]
+    steps = 2 * MESH_QUESTIONS // 8
+    for name in ("dp2", "tp2"):
+        got = np.load(os.path.join(out, f"rearev_{name}.npz"))
+        for r, res in enumerate(ranks):
+            if not np.allclose(res[name]["losses"], loss1, rtol=1e-5, atol=0):
+                raise AssertionError(f"mesh {name} rank {r}: losses "
+                                     f"{res[name]['losses']} vs one process "
+                                     f"{loss1}")
+            if not np.allclose(res[name]["grad_norms"], rnorms1, rtol=1e-3,
+                               atol=0):
+                raise AssertionError(f"mesh {name} rank {r}: grad norms "
+                                     f"{res[name]['grad_norms']} vs one "
+                                     f"process {rnorms1}")
+            if tuple(res[name]["launches_fwd_bwd"]) != (per_step * steps,) * 2:
+                raise AssertionError(f"mesh {name} rank {r}: K1/K2 launches "
+                                     f"{res[name]['launches_fwd_bwd']}")
+        worst = 0.0
+        for k, w in state1.items():
+            d = np.abs(got[k] - w)
+            if k in SOFTMAX_BIASES:
+                if d.max() > 2 * 5e-4 * steps:
+                    raise AssertionError(f"mesh {name}: {k} moved {d.max()}")
+                continue
+            over = (d / (1e-4 * np.abs(w) + 1e-6)).max()
+            worst = max(worst, float(over))
+            if over > 1:
+                raise AssertionError(f"mesh {name}: {k} differs by {d.max()}")
+        ranks[0][name]["param_err_over_tol"] = worst
+    losses1, norms1, sft_ms1, sft_launches1, heads1 = mesh_sft(
+        None, os.path.join(out, "sft1"))
+    for r, res in enumerate(ranks):
+        s = res["sft_tp2"]
+        if not np.allclose(s["losses"], losses1, rtol=1e-4, atol=1e-5):
+            raise AssertionError(f"mesh sft rank {r}: losses {s['losses']} vs "
+                                 f"one process {losses1}")
+        if not np.allclose(s["grad_norms"], norms1, rtol=1e-3):
+            raise AssertionError(f"mesh sft rank {r}: grad norms "
+                                 f"{s['grad_norms']} vs {norms1}")
+        want = (MESH_SFT["n_layers"] * MESH_SFT["steps"],) * 3
+        if tuple(s["flash_launches_fwd_dq_dkv"]) != want or s["local_heads"] != 16:
+            raise AssertionError(f"mesh sft rank {r}: flash launches "
+                                 f"{s['flash_launches_fwd_dq_dkv']}, heads "
+                                 f"{s['local_heads']}")
+    summary = dict(card=card, ranks_wall_s=wall,
+                   wall_s=time.perf_counter() - t, ranks=ranks,
+                   one_process=dict(rearev_losses=loss1,
+                                    rearev_grad_norms=rnorms1,
+                                    rearev_ms_per_step=ms1,
+                                    rearev_launches_fwd_bwd=launches1,
+                                    sft_losses=losses1, sft_grad_norms=norms1,
+                                    sft_ms_per_step=sft_ms1,
+                                    sft_flash_launches=sft_launches1,
+                                    sft_heads=heads1))
+    log("mesh", json.dumps(summary))
+    return summary
+
+
 def sass_counts(lib, opcodes=("HGMMA", "UTMALDG")):
     """{kernel: {opcode: count}} of ``cuobjdump -sass`` on a built
     library: the instructions each kernel really issues."""
@@ -2756,6 +3113,7 @@ def main():
         os.makedirs(os.path.join(root, "train"))
         _, tr, train_fwd, train_bwd = run_train(device,
                                                 os.path.join(root, "train"))
+        profiled = run_profile(device, root)
         check_grads(tr, device)
         train_step_time(tr, device)
         del tr
@@ -2785,6 +3143,9 @@ def main():
         torch.cuda.empty_cache()
         run_reader_serving(device, os.path.join(root, "llm"),
                            os.path.join(root, "train"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh = run_mesh(device, root, card)
 
     gate = "gnn_rag_tpu_torch/csrc/gate_scatter.cu"
     kernels = []
@@ -2801,10 +3162,13 @@ def main():
             "ms": row["ms"], "device_ms": row["device_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
-            "shape": row["shape"], "launches_by_path": (
-                {"serve": serve_launches, "train": train_fwd,
-                 "qa": qa_launches} if not backward
-                else {"train": train_bwd})})
+            "shape": row["shape"], "launches_by_path": {
+                **({"serve": serve_launches, "train": train_fwd,
+                    "qa": qa_launches} if not backward
+                   else {"train": train_bwd}),
+                **{f"mesh_{name}_rank{r}": res[name]["launches_fwd_bwd"][backward]
+                   for r, res in enumerate(mesh["ranks"])
+                   for name in ("dp2", "tp2")}}})
     for name, rows_1dir, key, replaces in (
             ("gate_scatter_fwd_1dir", one_dir[0], "launches_1dir", 565),
             ("gate_scatter_bwd_1dir", one_dir[1], "bwd_launches_1dir", 639)):
@@ -2869,6 +3233,9 @@ def main():
             "launches_by_path": {
                 "sft": sft["flash_launches_fwd_dq_dkv"][i],
                 "lora": lora_launches[i],
+                **{f"mesh_sft_tp2_rank{r}":
+                   res["sft_tp2"]["flash_launches_fwd_dq_dkv"][i]
+                   for r, res in enumerate(mesh["ranks"])},
                 **({"qa_beam_rescoring": qa_flash} if key == "fwd" else {})},
             **({} if key == "fwd" else
                {"sdpa_bwd_ms_dq_dk_dv_together": main_row["sdpa_bwd_ms"]})})
@@ -2880,4 +3247,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank_main(int(sys.argv[2]), int(sys.argv[4]), sys.argv[6])
+    else:
+        main()

@@ -28,8 +28,17 @@ its widths and seeded from its weights (``Trainer.seed_submodule``). The
 through ``data.loader.load_relation_emb``; each is skipped when its file is
 missing.
 
-Only ``--dp_size * --tp_size > 1`` and ``--profile_dir`` are not ported: the
-Trainer raises ``NotImplementedError`` for them.
+With ``--dp_size * --tp_size > 1`` the CLI runs as one rank of a
+``torchrun`` launch (gnn_rag_tpu/cli.py:281-285): it builds the mesh from
+the launcher's environment (``parallel.mesh.make_mesh``: NCCL, one card a
+rank, on ``--device cuda``; gloo on ``--device cpu``) and hands it to the
+Trainer, and rank 0 writes the log file, checkpoints and `.info`:
+
+    torchrun --nproc_per_node=4 -m gnn_rag_tpu_torch ReaRev ... \
+        --dp_size 2 --tp_size 2
+
+``--profile_dir DIR`` writes a ``torch.profiler`` trace of the first epoch
+into DIR.
 """
 
 from __future__ import annotations
@@ -252,8 +261,15 @@ def assemble(argv=None, args=None) -> dict:
     device = device_of(args.device)
     cfg = args_to_config(args)
     check_supported(cfg.model)
-    logger = create_logger("gnn_rag_tpu_torch", cfg.train.checkpoint_dir,
+    from .parallel.mesh import local_mesh, make_mesh
+    mesh = (make_mesh(dp=cfg.train.dp_size, tp=cfg.train.tp_size, device=device)
+            if cfg.train.dp_size * cfg.train.tp_size > 1 else local_mesh(device))
+    device = mesh.device
+    logger = create_logger("gnn_rag_tpu_torch",
+                           cfg.train.checkpoint_dir if mesh.rank == 0 else None,
                            config=cfg.model)
+    if mesh.size > 1:
+        logger.info("mesh: dp=%d tp=%d", cfg.train.dp_size, cfg.train.tp_size)
     bundle = load_dataset_dir(cfg, num_workers=args.num_workers)
     pad = bundle["tokenizer"].pad_id
     mc = cfg.model
@@ -307,7 +323,8 @@ def assemble(argv=None, args=None) -> dict:
         num_word=len(vocab.word2id), entity_emb=entity_emb, word_emb=word_emb,
         relation_emb=relation_emb, id2entity=vocab.id2entity, logger=logger,
         lm_source=lm.weight_source if lm is not None else None,
-        decode_question=question_decoder(bundle["tokenizer"]), device=device)
+        decode_question=question_decoder(bundle["tokenizer"]), device=device,
+        mesh=mesh)
     if mc.lm != "lstm" and not mc.lm_frozen and rel_hidden is not None:
         # the trainable in-model LM starts from the frozen path's weights
         # (HF or the seeded random init) and finetunes (bert_encoder.py:80-83)

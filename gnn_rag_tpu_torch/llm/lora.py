@@ -8,15 +8,26 @@ into the base weights, so the merged state_dict serves without adapter
 logic, and ``LoRATrainer`` trains only them: the base is frozen, each step
 runs the model through ``torch.func.functional_call`` over the merged
 state_dict, so the gradient reaches A and B through the merge.
+
+Over a mesh the base may be tp-sharded (``llm.sharding.shard_llm_``): the
+adapters stay whole and replicated, each rank merges its slice of the
+update into its slice of the weight, and the adapters' gradients are summed
+over every rank (the loss divides by the global mask count): each tp rank's
+gradient of a sharded weight's adapter covers its slice, and each dp rank's
+its rows. A weight that ``shard_llm_`` leaves whole (an axis that does not
+divide by tp) gives the same whole gradient on every tp rank, so its
+adapter's sum is divided by tp. Without a mesh the trainer runs on a mesh of
+one rank.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
 
+from ..parallel import collectives as coll
 from .model import LlamaLM
 from .sft import completion_loss
 
@@ -46,14 +57,21 @@ def init_lora(model: LlamaLM, generator: torch.Generator, r: int = 8,
 
 def merge_lora(state: Mapping[str, torch.Tensor],
                lora: Mapping[str, Mapping[str, torch.Tensor]],
-               alpha: float = 16.0, r: int = 8) -> Dict[str, torch.Tensor]:
+               alpha: float = 16.0, r: int = 8, mesh=None,
+               sharded: Optional[Mapping[str, int]] = None
+               ) -> Dict[str, torch.Tensor]:
     """Fold adapters into a state_dict: ``W + (alpha / r) * (A @ B).T`` in
-    W's type for every adapted ``[out, in]`` weight."""
+    W's type for every adapted ``[out, in]`` weight; where ``sharded``
+    ({name: axis}) names the weight, ``state`` holds tp rank
+    ``mesh.tp_rank``'s slice and takes that slice of the update."""
     scale = alpha / r
     out = dict(state)
     for name, ab in lora.items():
         w = state[name]
-        out[name] = w + ((ab["a"] @ ab["b"]) * scale).T.to(w.dtype)
+        delta = ((ab["a"] @ ab["b"]) * scale).T
+        if sharded and name in sharded:
+            delta = coll.shard_of(delta, mesh.tp, mesh.tp_rank, sharded[name])
+        out[name] = w + delta.to(w.dtype)
     return out
 
 
@@ -65,8 +83,8 @@ class _Loss(nn.Module):
         super().__init__()
         self.model = model
 
-    def forward(self, tokens, loss_mask):
-        return completion_loss(self.model, tokens, loss_mask)
+    def forward(self, tokens, loss_mask, count=None):
+        return completion_loss(self.model, tokens, loss_mask, count)
 
 
 class LoRATrainer:
@@ -76,7 +94,11 @@ class LoRATrainer:
     decay: optax.adam), the model's parameters frozen."""
 
     def __init__(self, model: LlamaLM, lora, lr: float, alpha: float = 16.0,
-                 r: int = 8):
+                 r: int = 8, mesh=None):
+        """``mesh``: the run's mesh when ``model`` is one rank's part (its
+        ``shard_llm_`` slices) and each step gets this dp rank's rows."""
+        self.mesh = mesh or coll.local_mesh(next(model.parameters()).device)
+        self.sharded = getattr(model, "_tp_sharded", {})
         for p in model.parameters():
             p.requires_grad_(False)
         self.base = model.state_dict(keep_vars=True)
@@ -84,21 +106,31 @@ class LoRATrainer:
         self.lora, self.alpha, self.r = lora, alpha, r
         self.params = [t.requires_grad_() for ab in lora.values()
                        for t in (ab["a"], ab["b"])]
+        # the adapters of tp-sharded weights, then those of whole ones
+        self.split = [[t for name, ab in lora.items()
+                       if (name in self.sharded) == on_slice
+                       for t in (ab["a"], ab["b"])] for on_slice in (True, False)]
         self.opt = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999),
                                     eps=1e-8)
 
-    def loss(self, tokens, loss_mask):
-        merged = merge_lora(self.base, self.lora, self.alpha, self.r)
+    def loss(self, tokens, loss_mask, count=None):
+        merged = merge_lora(self.base, self.lora, self.alpha, self.r,
+                            self.mesh, self.sharded)
         return torch.func.functional_call(
             self.loss_fn, {f"model.{k}": v for k, v in merged.items()},
-            (tokens, loss_mask))
+            (tokens, loss_mask, count))
 
     def train_step(self, tokens, loss_mask):
         """One step on a batch on the device; returns the loss (a device
-        scalar)."""
+        scalar; over a mesh, the global batch's)."""
         for p in self.params:
             p.grad = None
-        loss = self.loss(tokens, loss_mask)
+        mesh = self.mesh
+        count = coll.all_reduce_(loss_mask[:, 1:].sum(), mesh.dp_group, mesh.dp)
+        loss = self.loss(tokens, loss_mask, count)
         loss.backward()
+        for params, div in zip(self.split, (1, mesh.tp)):
+            coll.all_reduce_grads_([p.grad for p in params], None, mesh.size, div)
+        loss = coll.all_reduce_(loss.detach().clone(), mesh.dp_group, mesh.dp)
         self.opt.step()
         return loss.detach()

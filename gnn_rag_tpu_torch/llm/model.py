@@ -28,6 +28,15 @@ QuantLinear`` (int8 weight, per-output scale; the parameters come from
 autograd is on: a block's activations are recomputed in the backward, so
 one block's are alive at a time (the cache-free forward, with the flash
 kernels, runs twice a block).
+
+Megatron tensor parallelism (``llm.sharding.shard_llm_``) turns a built
+model into one tp rank's part, in place: ``Attention`` keeps its local head
+counts (the flash kernels run at H/tp heads), column-parallel projections
+their output slice, row-parallel ones their input slice with an all-reduce
+after them; the vocabulary-parallel embedding and head are set on
+``LlamaLM.vocab_tp``. Each module reads its ``tp`` (a
+``parallel.collectives.Mesh`` or None) at run time; None is the one-device
+model.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from . import flash_attention as _fa
+from . import sharding as _sh
 from .quant import QuantLinear
 
 
@@ -157,12 +167,16 @@ class Attention(nn.Module):
         self.k_proj = dense(cfg.dim, KV * D, dt)
         self.v_proj = dense(cfg.dim, KV * D, dt)
         self.o_proj = dense(H * D, cfg.dim, dt)
+        self.n_heads, self.n_kv_heads = H, KV     # this tp rank's heads
+        self.tp = None
 
     def forward(self, x, cos, sin, kv_cache=None, cache_index=None,
                 kv_valid=None):
         cfg = self.cfg
         B, L, _ = x.shape
-        H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        H, KV, D = self.n_heads, self.n_kv_heads, cfg.head_dim
+        if self.tp is not None:
+            x = _sh.CopyToTP.apply(x, self.tp)
         q = apply_rope(self.q_proj(x).view(B, L, H, D), cos, sin)
         k = apply_rope(self.k_proj(x).view(B, L, KV, D), cos, sin)
         v = self.v_proj(x).view(B, L, KV, D)
@@ -183,7 +197,10 @@ class Attention(nn.Module):
             out = _fa.flash_attention(q, k_all, v_all)
         else:
             out = reference_attention(q, k_all, v_all, offset, kv_valid)
-        return self.o_proj(out.reshape(B, L, H * D)), new_cache
+        out = self.o_proj(out.reshape(B, L, H * D))
+        if self.tp is not None:
+            out = _sh.ReduceFromTP.apply(out, self.tp)
+        return out, new_cache
 
 
 class MLP(nn.Module):
@@ -193,9 +210,14 @@ class MLP(nn.Module):
         self.gate_proj = dense(cfg.dim, cfg.intermediate, dt)
         self.up_proj = dense(cfg.dim, cfg.intermediate, dt)
         self.down_proj = dense(cfg.intermediate, cfg.dim, dt)
+        self.tp = None
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        if self.tp is None:
+            return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        x = _sh.CopyToTP.apply(x, self.tp)
+        out = self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return _sh.ReduceFromTP.apply(out, self.tp)
 
 
 class Block(nn.Module):
@@ -230,6 +252,32 @@ class LlamaLM(nn.Module):
         self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps)
         if not cfg.tie_embeddings:
             self.lm_head = _dense(cfg)(cfg.dim, cfg.vocab_size, torch.float32)
+        self.vocab_tp = None    # the tp mesh of a vocabulary-parallel model
+
+    def embed(self, tokens):
+        """The token embeddings, float32 (vocabulary-parallel: this rank's
+        rows looked up, the others' zero, summed over tp)."""
+        if self.vocab_tp is None:
+            return self.tok_emb(tokens)
+        n = self.tok_emb.weight.shape[0]
+        lo = self.vocab_tp.tp_rank * n
+        local = (tokens >= lo) & (tokens < lo + n)
+        emb = self.tok_emb(torch.where(local, tokens - lo, 0))
+        emb = emb * local[..., None]
+        return _sh.ReduceFromTP.apply(emb, self.vocab_tp)
+
+    def head_logits(self, x):
+        """float32 logits [..., V] of the final hidden states ``x``
+        (vocabulary-parallel: this rank's columns, all-gathered)."""
+        if self.vocab_tp is not None:
+            x = _sh.CopyToTP.apply(x, self.vocab_tp)
+        if self.cfg.tie_embeddings:
+            logits = x.float() @ self.tok_emb.weight.float().T
+        else:
+            logits = self.lm_head(x.float())
+        if self.vocab_tp is not None:
+            logits = _sh.GatherLastFromTP.apply(logits, self.vocab_tp)
+        return logits
 
     def blocks(self) -> List[Block]:
         return [getattr(self, f"layer_{i}") for i in range(self.cfg.n_layers)]
@@ -247,7 +295,7 @@ class LlamaLM(nn.Module):
             positions = torch.arange(L, device=tokens.device)[None, :].expand(B, L)
             if cache_index is not None:
                 positions = positions + cache_index
-        x = self.tok_emb(tokens).to(_dtype(cfg))
+        x = self.embed(tokens).to(_dtype(cfg))
         cos, sin = rope_frequencies(cfg.head_dim, positions, cfg.rope_theta,
                                     cfg.rope_condense)
         cos, sin = cos.to(x.dtype), sin.to(x.dtype)
@@ -270,13 +318,12 @@ class LlamaLM(nn.Module):
         caches = new_caches if kv_caches is not None else None
         if return_hidden:
             return x, caches
-        if cfg.tie_embeddings:
-            return x.float() @ self.tok_emb.weight.float().T, caches
-        return self.lm_head(x.float()), caches
+        return self.head_logits(x), caches
 
     def init_kv_cache(self, batch_size: int, max_len: int):
         cfg = self.cfg
-        shape = (batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
+        shape = (batch_size, max_len, self.layer_0.attn.n_kv_heads
+                 if cfg.n_layers else cfg.n_kv_heads, cfg.head_dim)
         dev = self.tok_emb.weight.device
         return [(torch.zeros(shape, dtype=_dtype(cfg), device=dev),
                  torch.zeros(shape, dtype=_dtype(cfg), device=dev))

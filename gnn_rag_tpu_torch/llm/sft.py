@@ -15,9 +15,17 @@ DataCollatorForCompletionOnlyLM, llm/src/joint_training/joint_finetuning.py
   them) with auto-resume from the latest.
 
 Every cache-free forward of the model runs the flash kernels on the card
-(K5a), and its backward the dq and dk/dv kernels (K5b, K5c). ``dp * tp > 1``
-raises (no sharding yet); ``report_to`` other than "none" is a no-op, as in
-the JAX trainer without wandb.
+(K5a), and its backward the dq and dk/dv kernels (K5b, K5c). ``report_to``
+other than "none" is a no-op, as in the JAX trainer without wandb.
+
+With a ``mesh`` (or ``dp * tp > 1``, which builds one from the ``torchrun``
+environment: ``parallel.mesh.make_mesh``) each rank runs its dp rows of the
+global batch through its tp part of the model (``llm.sharding``). The loss
+stays that of the global batch: each dp rank divides its rows' NLL sum by
+the global mask count (all-reduced), so the gradients are summed over dp,
+not averaged; the clip's norm sums the tp slices. Checkpoints are written
+whole, by rank 0. Without a mesh the trainer runs the same steps on a mesh
+of one rank (``parallel.collectives.local_mesh``).
 
     python -m gnn_rag_tpu_torch.llm.sft --data train_qa.jsonl [--n_layers 4
         --batch_size 8 --max_seq_len 2048 --total_steps 3000 ...] \
@@ -44,9 +52,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..cli import bool_flag
-from ..train.trainer import clip_by_global_norm_
+from ..parallel import collectives as coll
 from ..utils.checkpoint import load_state, save_state
 from .model import LlamaConfig, LlamaLM, build_llama
+from .sharding import full_llm_state, local_llm_state, shard_llm_
 
 SEP, BOP, EOP, PAD = "<SEP>", "<PATH>", "</PATH>", "<PAD>"
 RESPONSE_TEMPLATE = "[/INST]"
@@ -98,15 +107,18 @@ def _nll_sum(logits, targets, mask):
     return (nll * mask).sum()
 
 
-def completion_loss(model: LlamaLM, tokens, loss_mask):
-    """Completion-only NLL of next-token prediction (tokens [B, L])."""
+def completion_loss(model: LlamaLM, tokens, loss_mask, count=None):
+    """Completion-only NLL of next-token prediction (tokens [B, L]), over
+    the mask's sum, or over ``count`` (a data-parallel rank's share: the
+    global batch's mask sum)."""
     logits, _ = model(tokens[:, :-1])
     mask = loss_mask[:, 1:]
-    return _nll_sum(logits, tokens[:, 1:], mask) / mask.sum().clamp_min(1.0)
+    count = mask.sum() if count is None else count
+    return _nll_sum(logits, tokens[:, 1:], mask) / count.clamp_min(1.0)
 
 
 def chunked_completion_loss(model: LlamaLM, tokens, loss_mask,
-                            chunk: int = 2048):
+                            chunk: int = 2048, count=None):
     """``completion_loss`` with the vocab projection applied ``chunk``
     positions at a time under activation checkpointing, so only one
     [B, chunk, V] block of float32 logits is alive (forward or backward)."""
@@ -115,13 +127,16 @@ def chunked_completion_loss(model: LlamaLM, tokens, loss_mask,
     targets, mask = tokens[:, 1:], loss_mask[:, 1:]
 
     def chunk_nll(h, t, m):
+        if model.vocab_tp is not None:
+            return _nll_sum(model.head_logits(h), t, m)
         return _nll_sum(h.float() @ w.float().T, t, m)
 
     total = sum(checkpoint(chunk_nll, hidden[:, i:i + chunk],
                            targets[:, i:i + chunk], mask[:, i:i + chunk],
                            use_reentrant=False)
                 for i in range(0, hidden.shape[1], chunk))
-    return total / mask.sum().clamp_min(1.0)
+    count = mask.sum() if count is None else count
+    return total / count.clamp_min(1.0)
 
 
 def warmup_cosine_lr(step: int, peak: float, warmup: int, decay_steps: int
@@ -156,20 +171,28 @@ class SFTConfig:
 
 class SFTTrainer:
     def __init__(self, model_cfg: LlamaConfig, cfg: SFTConfig, params=None,
-                 device="cuda"):
-        """``params``: a ``LlamaLM`` state_dict (e.g. ``bridge.
+                 device="cuda", mesh=None):
+        """``params``: a whole ``LlamaLM`` state_dict (e.g. ``bridge.
         llama_from_flax`` of the JAX trainer's params), else flax-family
-        random weights from ``cfg.seed``."""
-        if cfg.dp * cfg.tp > 1:
-            raise NotImplementedError("gnn_rag_tpu_torch SFTTrainer: dp * tp > 1 "
-                                      "is not ported (one device)")
+        random weights from ``cfg.seed``; ``mesh``: a ``parallel.mesh.Mesh``
+        (default: one from the ``torchrun`` environment when ``cfg.dp *
+        cfg.tp > 1``), whose device the model takes."""
+        if mesh is None:
+            mesh = (coll.make_mesh(cfg.dp, cfg.tp, device=device)
+                    if cfg.dp * cfg.tp > 1 else coll.local_mesh(device))
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.device
         self.model = build_llama(model_cfg, seed=cfg.seed, device=self.device)
         if params is not None:
             self.model.load_state_dict(params)
+        coll.replicate(mesh, self.model)
+        shards = set(shard_llm_(self.model, mesh))
         self.model.train()
         self.params = [p for p in self.model.parameters()]
+        self.sharded = [p for n, p in self.model.named_parameters() if n in shards]
+        self.replicated = [p for n, p in self.model.named_parameters()
+                           if n not in shards]
         self.warmup = min(cfg.warmup_steps, max(cfg.total_steps // 10, 1))
         self.decay_steps = max(cfg.total_steps, self.warmup + 1)
         self.opt = torch.optim.AdamW(self.params, lr=0.0, betas=(0.9, 0.999),
@@ -181,20 +204,29 @@ class SFTTrainer:
         return warmup_cosine_lr(step, self.cfg.learning_rate, self.warmup,
                                 self.decay_steps)
 
-    def loss(self, tokens, loss_mask):
+    def loss(self, tokens, loss_mask, count=None):
         if self.cfg.loss_chunk > 0:
             return chunked_completion_loss(self.model, tokens, loss_mask,
-                                           self.cfg.loss_chunk)
-        return completion_loss(self.model, tokens, loss_mask)
+                                           self.cfg.loss_chunk, count)
+        return completion_loss(self.model, tokens, loss_mask, count)
 
     def train_step(self, tokens, loss_mask):
-        """One step on a batch already on the device; returns the loss (a
-        device scalar, read by the caller)."""
+        """One step on a batch already on the device (over a mesh: this dp
+        rank's rows of the global batch); returns the loss of the global
+        batch (a device scalar, read by the caller); ``grad_norm`` keeps
+        the step's global gradient norm before the clip."""
         for p in self.params:
             p.grad = None
-        loss = self.loss(tokens, loss_mask)
+        mesh = self.mesh
+        count = coll.all_reduce_(loss_mask[:, 1:].sum(), mesh.dp_group, mesh.dp)
+        loss = self.loss(tokens, loss_mask, count)
         loss.backward()
-        clip_by_global_norm_([p.grad for p in self.params], self.cfg.grad_clip)
+        coll.sync_grads(mesh, [p.grad for p in self.replicated],
+                        [p.grad for p in self.sharded], average_dp=False)
+        self.grad_norm = coll.clip_by_global_norm_(
+            mesh, [p.grad for p in self.replicated],
+            [p.grad for p in self.sharded], self.cfg.grad_clip)
+        loss = coll.all_reduce_(loss.detach().clone(), mesh.dp_group, mesh.dp)
         for group in self.opt.param_groups:
             group["lr"] = self.lr(self.step)
         self.opt.step()
@@ -236,10 +268,11 @@ class SFTTrainer:
         losses = []
         while self.step < steps:
             idx = self._batch_indices(N, self.step)
+            idx = idx[coll.batch_sharding(self.mesh, len(idx))]
             batch_tok = torch.from_numpy(tokens[idx]).to(self.device)
             batch_mask = torch.from_numpy(loss_mask[idx]).to(self.device)
             losses.append(float(self.train_step(batch_tok, batch_mask)))
-            if self.step % log_every == 0:
+            if self.step % log_every == 0 and self.mesh.rank == 0:
                 print(f"step {self.step}: loss {np.mean(losses[-log_every:]):.4f}",
                       flush=True)
             if self.step % cfg.save_every == 0:
@@ -251,7 +284,11 @@ class SFTTrainer:
         return os.path.join(self.cfg.output_dir, f"checkpoint-{step}.pt")
 
     def save(self):
-        save_state(self._ckpt_path(self.step), self.model.state_dict())
+        """The whole model (over a mesh: gathered, written by rank 0)."""
+        state = full_llm_state(self.model, self.mesh)
+        if self.mesh.rank == 0:
+            save_state(self._ckpt_path(self.step), state)
+        coll.barrier(self.mesh)
 
     def last_checkpoint(self) -> Optional[int]:
         if not os.path.isdir(self.cfg.output_dir):
@@ -266,8 +303,9 @@ class SFTTrainer:
         last = self.last_checkpoint()
         if last is None:
             return False
-        self.model.load_state_dict(load_state(
-            self._ckpt_path(last), self.model.state_dict(), partial=False))
+        state = load_state(self._ckpt_path(last),
+                           full_llm_state(self.model, self.mesh), partial=False)
+        self.model.load_state_dict(local_llm_state(self.model, self.mesh, state))
         self.step = last
         return True
 

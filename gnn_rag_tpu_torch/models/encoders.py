@@ -26,16 +26,43 @@ from ..ops.softmax import VERY_NEG_NUMBER
 LN_EPS = 1e-6   # flax.linen.LayerNorm default (torch's is 1e-5)
 
 
+class RowShard:
+    """A dropout generator for a process that holds rows ``index * rows`` to
+    ``(index + 1) * rows`` of a batch of ``parts * rows``: each mask over
+    this process's rows is drawn for the whole batch and sliced, so the
+    processes of a data-parallel run draw the masks of one process
+    (``parallel.mesh``); a mask whose first axis is not ``rows`` is drawn
+    whole."""
+
+    def __init__(self, generator: torch.Generator, parts: int, index: int,
+                 rows: int):
+        self.generator, self.parts, self.index, self.rows = (
+            generator, parts, index, rows)
+
+
+def bernoulli_keep(shape, keep_prob: float, generator, device) -> torch.Tensor:
+    """A float 0/1 mask of ``shape``, 1 with probability ``keep_prob``,
+    drawn from ``generator`` (a ``torch.Generator`` or a ``RowShard``)."""
+    if isinstance(generator, RowShard) and shape[0] == generator.rows:
+        full = (generator.rows * generator.parts,) + tuple(shape[1:])
+        lo = generator.index * generator.rows
+        return torch.empty(full, device=device).bernoulli_(
+            keep_prob, generator=generator.generator)[lo:lo + generator.rows]
+    if isinstance(generator, RowShard):
+        generator = generator.generator
+    return torch.empty(shape, device=device).bernoulli_(keep_prob,
+                                                        generator=generator)
+
+
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability ``1 - rate``
     and scale the kept ones by ``1 / (1 - rate)``, the mask drawn from
-    ``generator`` (on ``x``'s device). The identity when ``generator`` is
-    None (eval) or ``rate`` is 0."""
+    ``generator`` (on ``x``'s device; ``bernoulli_keep``). The identity when
+    ``generator`` is None (eval) or ``rate`` is 0."""
     if generator is None or rate == 0.0:
         return x
-    keep = torch.empty(x.shape, device=x.device).bernoulli_(1.0 - rate,
-                                                            generator=generator)
+    keep = bernoulli_keep(x.shape, 1.0 - rate, generator, x.device)
     return torch.where(keep.bool(), x / (1.0 - rate), 0.0)
 
 

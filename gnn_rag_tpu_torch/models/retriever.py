@@ -34,7 +34,7 @@ import torch
 from torch import nn
 
 from .encoders import (AttnEncoder, LSTMQuestionEncoder, TypeLayer,
-                       make_inmodel_lm)
+                       bernoulli_keep, make_inmodel_lm)
 
 # the gate values' type on ReaRev's layout path (ModelConfig.compute_dtype)
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -124,9 +124,9 @@ class Retriever(nn.Module):
         loops (the reference appends them after dropout); GraftNet drops them
         too (gnn_rag_tpu/models/graftnet.py:136-141)."""
         if drop_keep is None and generator is not None and self.cfg.fact_drop > 0:
-            drop_keep = torch.empty(batch.fact_mask.shape,
-                                    device=batch.fact_mask.device).bernoulli_(
-                1.0 - self.cfg.fact_drop, generator=generator)
+            drop_keep = bernoulli_keep(batch.fact_mask.shape,
+                                       1.0 - self.cfg.fact_drop, generator,
+                                       batch.fact_mask.device)
             if keep_self_loops:
                 drop_keep = torch.where(batch.rels == self.num_relation - 1,
                                         1.0, drop_keep)

@@ -5,34 +5,21 @@ The same keys in the same order: a name resolves to the first key that is a
 substring of it, lowercased, so 'llama_tpu' and 'tpu-reader' take the
 on-card reader (``LlamaTorch``, over the port's ``LlamaLM`` and
 ``Decoder``, with ``--quant int8`` weight-only int8 and ``--draft_path``
-speculative decoding), 'RoG' and 'llama-2-7b' the HF Llama backend, and
-'mock' the offline echo reader. ``serving`` serves any of them over the
-OpenAI chat protocol. The backends that need ``transformers`` pipelines or
-the OpenAI API (and a network) are not ported: constructing one raises
-``NotImplementedError``.
+speculative decoding), 'RoG' and 'llama-2-7b' the HF Llama backend
+(``hf_causal``: a ``transformers`` text-generation pipeline over a local
+or cached checkpoint), 'flan-t5' the HF text2text backend, 'gpt-4' and
+'gpt-3.5-turbo' the OpenAI chat client (any server of the protocol at
+``OPENAI_BASE_URL``), and 'mock' the offline echo reader. ``serving``
+serves any of them over the OpenAI chat protocol. ``transformers`` and
+``openai`` are imported only when a backend prepares for inference.
 """
 
 from .base import BaseLanguageModel
+from .hf_causal import Alpaca, Llama, Longchat
+from .flan_t5 import FlanT5
 from .llama_torch import LlamaTorch
+from .openai_chat import ChatGPT
 from .mock import MockLLM
-
-
-def _unported(name: str, needs: str):
-    class Unported(BaseLanguageModel):
-        def __init__(self, args):
-            raise NotImplementedError(
-                f"the {name} reader backend is not ported to gnn_rag_tpu_torch: "
-                f"it needs {needs}; use 'llama_tpu' (LlamaTorch) or 'mock' "
-                f"(ROADMAP, Queue 1: the RAG half's HF and OpenAI backends)")
-    Unported.__name__ = Unported.__qualname__ = name
-    return Unported
-
-
-ChatGPT = _unported("ChatGPT", "the OpenAI chat API over a network")
-Alpaca = _unported("Alpaca", "a transformers text-generation pipeline")
-Longchat = _unported("Longchat", "a transformers text-generation pipeline")
-Llama = _unported("Llama", "a transformers text-generation pipeline")
-FlanT5 = _unported("FlanT5", "a transformers text2text pipeline")
 
 registed_language_models = {
     "gpt-4": ChatGPT,

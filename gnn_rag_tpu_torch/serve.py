@@ -11,9 +11,13 @@ GraftNet): given a state_dict, the service builds the model through the
 trainer's ``build_model`` as the JAX service does
 (gnn_rag_tpu/serve.py:45); given a built model, it serves that.
 
-Path enumeration runs on the host through the port's ``rag.graph_utils``
-and ``native`` modules, copies of the JAX package's (the C++ enumerator when
-it builds, else the Python oracle). ``serve_http`` exposes ``POST /retrieve``.
+Path enumeration has three backends, as in JAX: ``native`` (the C++
+enumerator, when it builds) and ``python`` (the oracle) run on the host,
+through the port's copies of ``native`` and ``rag.graph_utils``;
+``device`` computes the BFS levels of a whole request on the model's device
+(``rag.path_extract.BatchedPathExtractor``, bounded by ``max_hops`` when
+given) and walks the paths on the host. ``auto`` never picks ``device``.
+``serve_http`` exposes ``POST /retrieve``.
 
 ``QAService`` (port of ``gnn_rag_tpu.serve.QAService``) puts a reader of the
 ``rag.llms`` registry behind the retriever: question + subgraph in, the
@@ -53,7 +57,7 @@ class RetrieverService:
                  word_emb: Optional[np.ndarray] = None,
                  relation_emb: Optional[np.ndarray] = None,
                  question_encoder: Optional[Callable] = None,
-                 tokenizer=None,
+                 tokenizer=None, max_hops: Optional[int] = None,
                  entity_buckets=(256, 512, 1024, 2048),
                  fact_buckets=(1024, 2048, 4096, 8192, 16384),
                  path_backend: str = "auto", keep_parallel: bool = False,
@@ -64,7 +68,8 @@ class RetrieverService:
         question_encoder(token_ids) -> [L, word_dim] frozen-LM states (None:
         the questions go to the model as tokens, to its LSTM or in-model
         LM); the frozen relation states and tables as the Trainer takes
-        them (None where not used)."""
+        them (None where not used); ``max_hops`` bounds the ``device``
+        path backend's BFS (None: to the graph's diameter)."""
         self.cfg = cfg
         self.vocab = vocab
         self.nkr = num_kb_relation(vocab.num_relation,
@@ -90,16 +95,23 @@ class RetrieverService:
                       word_emb, relation_emb))
         self.question_encoder = question_encoder
         self.tokenizer = tokenizer
-        if path_backend == "device":
-            raise NotImplementedError("the device BFS path backend is not "
-                                      "ported; use 'auto', 'native' or 'python'")
-        if path_backend == "auto":
-            from .native import available as native_available
+        # 'auto' picks the C++ enumerator, else the Python oracle; the
+        # device BFS is taken only when asked for, and keeps collapse
+        # semantics, so keep_parallel sends it to the host backends too
+        # (gnn_rag_tpu/serve.py:50-67)
+        from .native import available as native_available
+        if path_backend == "auto" or (keep_parallel and path_backend == "device"):
             path_backend = "native" if native_available() else "python"
-        if path_backend not in ("native", "python"):
+        if path_backend not in ("native", "python", "device"):
             raise ValueError(f"unknown path backend {path_backend!r}")
         self.path_backend = path_backend
         self.keep_parallel = keep_parallel
+        self.max_hops = max_hops
+        self.extractor = None
+        if path_backend == "device":
+            from .rag.path_extract import BatchedPathExtractor
+            self.extractor = BatchedPathExtractor(max_hops=max_hops,
+                                                  device=self.device)
         self.entity_buckets = entity_buckets
         self.fact_buckets = fact_buckets
 
@@ -158,7 +170,18 @@ class RetrieverService:
                                 "paths": []})
                 ri += 1
 
-        if with_paths:
+        if with_paths and self.extractor is not None:
+            with record_function("retrieve/paths"):
+                all_paths = self.extractor.extract([
+                    {"graph": q["subgraph"]["tuples"],
+                     "q_entity": q.get("entities", []),
+                     "cand": [c for c, _ in res["cand"]]}
+                    for q, res in zip(questions, results)])
+            with record_function("retrieve/verbalize"):
+                for res, paths in zip(results, all_paths):
+                    res["paths"] = list(dict.fromkeys(path_to_string(p)
+                                                      for p in paths))
+        elif with_paths:
             for q, res in zip(questions, results):
                 graph = q["subgraph"]["tuples"]
                 q_entity = q.get("entities", [])

@@ -9,15 +9,17 @@ One command takes the port's CLI flags (the JAX package's, plus ``--device
       synthqsp-h1.ckpt --entity_dim 50 --num_iter 3 --num_ins 2 \\
       --num_gnn 3 --lm sbert --relation_word_emb True \\
       --port 8000 [--reader mock | --reader llama_tpu --reader_path DIR] \\
-      [--keep_parallel] [--device cpu]
+      [--keep_parallel] [--path_backend {auto,native,python,device}] \\
+      [--device cpu]
 
 POST /retrieve {"questions": [...]} -> candidates + verbalized paths
 POST /answer   {"questions": [...]} -> LLM-read answers (with --reader)
 
 Question schema = the reference JSONL: {question, entities,
 subgraph: {entities, tuples}}. ``--reader llama_tpu`` is ``rag.llms.
-LlamaTorch`` on ``--device``; ``--reader_quant`` and ``--reader_draft`` are
-not ported and raise.
+LlamaTorch`` on ``--device`` (``--reader_quant int8`` weight-only int8,
+``--reader_draft`` speculative decoding). ``--path_backend device`` runs the
+shortest-path BFS of each request on ``--device``.
 """
 
 from __future__ import annotations

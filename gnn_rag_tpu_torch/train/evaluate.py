@@ -60,7 +60,8 @@ class Evaluator:
                  test_batch_size: int = 20, write_info: bool = False,
                  info_path: Optional[str] = None,
                  decode_question: Optional[Callable[[np.ndarray], str]] = None,
-                 attn_forward_fn: Optional[Callable] = None):
+                 attn_forward_fn: Optional[Callable] = None,
+                 batch_pad_to: Optional[int] = None):
         """Returns (mean_f1, mean_hit, mean_em, mean_loss); optionally writes
         `.info` to ``info_path``, one line per question in the split's order
         (sequential order is restored first: a split that training shuffled
@@ -69,7 +70,9 @@ class Evaluator:
         word pieces, the reference's evaluate.py:143-156), else the raw
         question. ``attn_forward_fn(batch)`` -> (loss, pred, pred_dist,
         attn [B, J, L]) runs in place of ``forward_fn`` when writing the
-        `.info` and fills its per-iteration slots."""
+        `.info` and fills its per-iteration slots. ``batch_pad_to``: pad
+        every batch to that many rows (a data-parallel forward needs rows
+        that divide over dp; the padded rows are not scored)."""
         data.reset_batches(is_sequential=True)
         num_batches = math.ceil(len(data) / test_batch_size)
         if num_batches == 0:
@@ -82,7 +85,7 @@ class Evaluator:
         with torch.inference_mode():
             for it in range(num_batches):
                 idx = data.batch_indices(it, test_batch_size)
-                batch = data.make_batch(idx)
+                batch = data.make_batch(idx, batch_pad_to=batch_pad_to)
                 attn = None
                 if write_info and attn_forward_fn is not None:
                     loss, _, pred_dist, attn = attn_forward_fn(batch)

@@ -14,8 +14,20 @@ is given (``models.retriever``): the frozen-LM relation states, or none;
 precomputed question states, or the in-model LM; the frozen entity, word and
 relation tables. Those tables ride along on the device as frozen tensors.
 
-Not ported here (raise ``NotImplementedError``): data/tensor parallelism
-(``dp_size * tp_size > 1``) and ``profile_dir``.
+With a ``mesh`` (``parallel.mesh.make_mesh``; one process a rank) the
+Trainer runs data and tensor parallel as the JAX Trainer does over its
+device mesh, with the numbers of one process: every rank builds the global
+padded batch and takes its dp rows; the dropout masks are drawn for the
+global batch (``models.encoders.RowShard``); large parameters are stored as
+tp slices (``shard_params``); the gradients are averaged over dp (every
+loss is a mean over the batch's padded rows, and every dp rank holds B/dp
+of them), the clip's norm sums the tp slices; only rank 0 writes
+checkpoints (whole), the `.info` and their sidecars. Without a mesh the
+Trainer runs the same steps on a mesh of one rank (``local_mesh``), whose
+collectives do nothing.
+
+``profile_dir`` traces the first epoch (``utils.profiling.trace``: a
+``torch.profiler`` Chrome trace into that directory).
 """
 
 from __future__ import annotations
@@ -32,18 +44,12 @@ import torch
 
 from ..data.loader import KGQADataset
 from ..models.base import calc_h1
-from ..models.encoders import flax_like_init_
+from ..models.encoders import RowShard, flax_like_init_
+from ..parallel import collectives as coll
+from ..parallel import mesh as pmesh
 from ..utils.checkpoint import load_state, save_state
 from .evaluate import Evaluator
 from .metrics import train_f1_device
-
-
-def clip_by_global_norm_(grads, max_norm: float) -> None:
-    """optax ``clip_by_global_norm``: scale every gradient by ``max_norm /
-    norm`` when the global norm is at least ``max_norm``, in place and on the
-    device."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-    torch._foreach_mul_(grads, torch.where(norm < max_norm, 1.0, max_norm / norm))
 
 
 def build_model(cfg, num_entity: int, num_kb_relation: int, *,
@@ -93,21 +99,18 @@ class Trainer:
                  entity_emb=None, word_emb=None, relation_emb=None,
                  id2entity: Optional[dict] = None, logger=None,
                  lm_source: Optional[str] = None, decode_question=None,
-                 device="cuda"):
+                 device="cuda", mesh: Optional[pmesh.Mesh] = None):
         """``rel_hidden``, ``rel_hidden_inv``, ``rel_text_mask``: the frozen
         LM's relation-text states and mask, or None (relation texts off);
         ``entity_emb``, ``word_emb``, ``relation_emb``: frozen tables, or
         None; ``word_dim``: the frozen LM's width where no ``rel_hidden``
-        or question states tell it; ``num_word``: the LSTM's vocabulary."""
+        or question states tell it; ``num_word``: the LSTM's vocabulary;
+        ``mesh``: run data/tensor parallel over it (on its device; None: one
+        process on ``device``)."""
         tc = cfg.train
-        unported = {"dp_size * tp_size > 1": tc.dp_size * tc.tp_size > 1,
-                    "profile_dir": bool(tc.profile_dir)}
-        bad = [k for k, v in unported.items() if v]
-        if bad:
-            raise NotImplementedError(f"gnn_rag_tpu_torch trainer: not ported: "
-                                      f"{', '.join(bad)}")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh = mesh or pmesh.local_mesh(device)
+        self.device = mesh.device
         self.lm_source = lm_source
         # q_token_ids -> the `.info` "question" (None: the raw question)
         self.decode_question = decode_question
@@ -135,7 +138,11 @@ class Trainer:
                            entity_emb=entity_emb, word_emb=word_emb,
                            relation_emb=relation_emb, word_dim=word_dim,
                            num_word=num_word))
-        # dropout masks and the epoch shuffles come from this generator
+        pmesh.replicate(mesh, self.model)
+        pmesh.replicate(mesh, self.rel_args)
+        self.sharded = pmesh.shard_params(mesh, self.model)
+        # dropout masks and the epoch shuffles come from this generator (the
+        # same draws on every rank of a mesh)
         self.generator = torch.Generator(device=self.device).manual_seed(tc.seed)
 
         # clip -> Adam with a staircase exponential decay per epoch
@@ -163,6 +170,11 @@ class Trainer:
     def close(self):
         self._prefetch.shutdown()
 
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes files (rank 0 of a mesh)."""
+        return self.mesh.rank == 0
+
     def seed_submodule(self, name: str, state_dict) -> None:
         """Overlay the submodule ``name`` (e.g. the in-model LM ``lm``) with
         loaded weights, then start the optimizer afresh
@@ -173,14 +185,24 @@ class Trainer:
         if sub is None:
             raise KeyError(f"model has no trainable submodule {name!r} "
                            "(is lm_frozen=0 and lm != lstm?)")
-        own = sub.state_dict()
+        own = {k[len(name) + 1:]: v for k, v in self.full_state().items()
+               if k.startswith(name + ".")}
         for key, t in state_dict.items():
             if key in own and tuple(own[key].shape) != tuple(t.shape):
                 raise ValueError(f"seed_submodule({name!r}): shape mismatch "
                                  f"{key} {tuple(own[key].shape)} vs "
                                  f"{tuple(t.shape)}")
-        sub.load_state_dict(state_dict)
+        if set(own) != set(state_dict):
+            raise KeyError(f"seed_submodule({name!r}): names differ: "
+                           f"{sorted(set(own) ^ set(state_dict))}")
+        pmesh.load_full_state_(self.model, {f"{name}.{k}": v
+                                            for k, v in state_dict.items()})
         self._new_optimizer()
+
+    def full_state(self):
+        """The model's state_dict with whole tensors (every rank of a mesh
+        must call it)."""
+        return pmesh.full_state_dict(self.model)
 
     # ------------------------------------------------------------------ steps
     def learning_rate(self, step: int) -> float:
@@ -195,13 +217,23 @@ class Trainer:
                    acc: torch.Tensor) -> torch.Tensor:
         """One optimisation step on a batch already on the device. ``acc``
         holds the running (loss, h1 . valid_w, f1 . valid_w, n) sums; returns
-        them with this step's added. Nothing is read back to the host."""
-        loss, _, pred_dist = self.model(batch, *self.rel_args, training=True,
-                                        generator=self.generator)
+        them with this step's added. Nothing is read back to the host;
+        ``grad_norm`` keeps the step's global gradient norm before the clip
+        (a device scalar)."""
+        mesh = self.mesh
+        generator = RowShard(self.generator, mesh.dp, mesh.dp_rank,
+                             batch.heads.shape[0])
+        with torch.nn.utils.parametrize.cached():
+            loss, _, pred_dist = self.model(batch, *self.rel_args,
+                                            training=True, generator=generator)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
-        clip_by_global_norm_(grads, self.cfg.train.gradient_clip)
+        sharded = {id(p) for p in pmesh.sharded_params(self.model)}
+        rep = [p.grad for p in self.model.parameters() if id(p) not in sharded]
+        shd = [p.grad for p in self.model.parameters() if id(p) in sharded]
+        coll.sync_grads(mesh, rep, shd, average_dp=True)
+        self.grad_norm = coll.clip_by_global_norm_(
+            mesh, rep, shd, self.cfg.train.gradient_clip)
         for group in self.optimizer.param_groups:
             group["lr"] = self.learning_rate(self.step_count)
         self.optimizer.step()
@@ -229,33 +261,43 @@ class Trainer:
         if num_batches == 0:
             return 0.0, 0.0, 0.0
 
+        mesh = self.mesh
+
         def build(it):
+            # the global padded batch; a mesh rank takes its dp rows of it
             idx = data.batch_indices(it, tc.batch_size)
-            return idx, data.make_batch(idx, batch_pad_to=tc.batch_size)
+            batch = data.make_batch(idx, batch_pad_to=tc.batch_size)
+            valid_w = np.zeros(tc.batch_size, np.float32)
+            valid_w[:len(idx)] = 1.0
+            return (pmesh.shard_batch(mesh, batch),
+                    valid_w[pmesh.batch_sharding(mesh, tc.batch_size)])
 
         acc = torch.zeros(4, device=self.device)
         fut = self._prefetch.submit(build, 0)
         for it in range(num_batches):
-            idx, batch = fut.result()
+            batch, valid_w = fut.result()
             if it + 1 < num_batches:
                 fut = self._prefetch.submit(build, it + 1)
-            valid_w = np.zeros(tc.batch_size, np.float32)
-            valid_w[:len(idx)] = 1.0
             acc = self.train_step(batch.to(self.device),
                                   torch.from_numpy(valid_w).to(self.device), acc)
+        # sums over dp; each step's loss is the dp mean of the ranks'
+        coll.all_reduce_(acc, mesh.dp_group, mesh.dp)
+        acc[0] /= mesh.dp
         loss_sum, h1_sum, f1_sum, n = acc.tolist()
         n = max(n, 1.0)
         return loss_sum / num_batches, h1_sum / n, f1_sum / n
 
     def forward(self, batch):
-        """(loss, pred, pred_dist) of a numpy GraphBatch, eval mode."""
-        return self.model(batch.to(self.device), *self.rel_args)
+        """(loss, pred, pred_dist) of a numpy GraphBatch, eval mode (over a
+        mesh: of the global batch, each rank running its dp rows)."""
+        return pmesh.sharded_forward(self.mesh, self.model, batch,
+                                     self.rel_args)
 
     def attn_forward(self, batch):
         """(loss, pred, pred_dist, instruction attention [B, J, L]) of a
         numpy GraphBatch, eval mode (ReaRev and NSM)."""
-        return self.model(batch.to(self.device), *self.rel_args,
-                          return_attn=True)
+        return pmesh.sharded_forward(self.mesh, self.model, batch,
+                                     self.rel_args, return_attn=True)
 
     def evaluate(self, data: KGQADataset, test_batch_size: Optional[int] = None,
                  write_info: bool = False, info_path: Optional[str] = None,
@@ -265,10 +307,12 @@ class Trainer:
         # GraftNet has no instruction attention: its slots stay empty
         attn = (self.attn_forward if write_attention
                 and self.cfg.model.model_name != "GraftNet" else None)
+        bs = test_batch_size or self.cfg.train.test_batch_size
         f1, h1, em, _ = self.evaluator.evaluate(
-            data, self.forward, test_batch_size or self.cfg.train.test_batch_size,
-            write_info=write_info, info_path=info_path,
-            decode_question=self.decode_question, attn_forward_fn=attn)
+            data, self.forward, bs, write_info=write_info,
+            info_path=info_path if self.is_writer else None,
+            decode_question=self.decode_question, attn_forward_fn=attn,
+            batch_pad_to=bs if self.mesh.dp > 1 else None)
         return f1, h1, em
 
     def train(self, start_epoch: int = 0, end_epoch: Optional[int] = None):
@@ -280,7 +324,13 @@ class Trainer:
         history = []
         for epoch in range(start_epoch, end_epoch + 1):
             st = time.time()
-            loss, h1, f1 = self.train_epoch()
+            if epoch == start_epoch and tc.profile_dir:
+                from ..utils.profiling import trace
+                with trace(tc.profile_dir, self.device):
+                    loss, h1, f1 = self.train_epoch()
+                self.logger.info("profiler trace written to %s", tc.profile_dir)
+            else:
+                loss, h1, f1 = self.train_epoch()
             history.append((loss, h1, f1))
             self.logger.info("Epoch: %d, loss: %.4f, time: %.1fs",
                              epoch + 1, loss, time.time() - st)
@@ -328,7 +378,8 @@ class Trainer:
             self.cfg.train.checkpoint_dir,
             f"{self.cfg.train.experiment_name}_test.info")
         # a sidecar, not a header line: the LLM half reads .info by line order
-        self._write_provenance(info_path + ".meta.json")
+        if self.is_writer:
+            self._write_provenance(info_path + ".meta.json")
         te = self.evaluate(self.test_data, write_info=True, info_path=info_path,
                            write_attention=write_attention)
         self.logger.info("TEST F1: %.4f, H1: %.4f, EM: %.4f", *te)
@@ -340,9 +391,14 @@ class Trainer:
                             f"{self.cfg.train.experiment_name}-{reason}.ckpt")
 
     def save_ckpt(self, reason: str = "h1"):
+        """The whole model (a mesh gathers the tp slices; rank 0 writes and
+        the others wait for it)."""
         path = self._ckpt_path(reason)
-        save_state(path, self.model.state_dict())
-        self._write_provenance(path + ".meta.json")
+        state = self.full_state()
+        if self.is_writer:
+            save_state(path, state)
+            self._write_provenance(path + ".meta.json")
+        coll.barrier(self.mesh)
         self.logger.info("Best %s, saved model as %s", reason, path)
 
     def _write_provenance(self, path: str):
@@ -357,5 +413,6 @@ class Trainer:
     def load_ckpt(self, path: str):
         """Partial load (the reference's strict=False, train_model.py:252):
         tensors whose name and shape match are taken, the rest kept."""
-        self.model.load_state_dict(load_state(path, self.model.state_dict(),
-                                              partial=True))
+        pmesh.load_full_state_(self.model,
+                               load_state(path, self.full_state(), partial=True),
+                               partial=True)

@@ -2,8 +2,9 @@
 training epochs on the micro dataset write the best-h1/f1/final checkpoints
 and their provenance sidecars; ``--is_eval --load_experiment`` writes a
 `.info` whose lines have the JAX package's keys; ``--device cuda`` without a
-card raises; of the flags the port once refused, only ``--dp_size`` above 1
-still raises, the others now evaluate (``--info_attention`` is ported too:
+card raises; of the flags the port once refused, ``--dp_size`` above 1
+needs a process group (a ``torchrun`` launch: tests/test_torch_scaleout.py
+runs one) and raises without one, the others now evaluate (``--info_attention`` is ported too:
 tests/test_torch_rag.py holds its `.info` to the JAX Evaluator's;
 tests/test_torch_rearev_options.py and test_torch_retrievers.py hold the
 options and the other retrievers to the JAX package)."""
@@ -86,16 +87,21 @@ def test_cuda_without_a_card_raises(trained, monkeypatch):
                                    ["--dp_size", "2"], ["--pos_emb"],
                                    ["--relation_word_emb", "False"]])
 def test_unported_flags_raise(trained, extra):
-    """``--dp_size 2`` (scale-out) still raises; each other flag once
-    refused now runs the eval-only entry and writes the `.info` (checkpoint
-    tensors whose shape no longer fits, e.g. the LSTM's, keep their
-    init)."""
+    """``--dp_size 2`` (scale-out) raises outside a ``torchrun`` launch (no
+    process group to build its mesh on); each other flag once refused now
+    runs the eval-only entry and writes the `.info` (checkpoint tensors
+    whose shape no longer fits, e.g. the LSTM's, keep their init)."""
     root, args, _ = trained
     argv = args + ["--device", "cpu", "--is_eval", "--load_experiment",
                    "micro-final.ckpt", "--experiment_name", "opt"] + extra
     if extra == ["--dp_size", "2"]:
-        with pytest.raises(NotImplementedError, match="dp_size"):
-            cli.run(argv)
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE")}
+        proc = subprocess.run([sys.executable, "-m", "gnn_rag_tpu_torch", *argv],
+                              cwd=REPO, env=dict(env, PYTHONPATH=REPO),
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode != 0
+        assert "make_mesh: no process group" in proc.stderr, proc.stderr[-2000:]
         return
     ctx = cli.run(argv)
     lines = [json.loads(x) for x in open(root / "ckpt" / "opt_test.info")]

@@ -309,3 +309,91 @@ def test_retriever_copies_keep_the_original_source(name):
 
     assert inspect.getsource(get(port)) == inspect.getsource(get(ref))
     assert port.__name__.startswith("gnn_rag_tpu_torch.")
+
+
+# the reader backends, the profiling timer and the synthetic generator,
+# copied unchanged (tests/test_torch_readers_hf.py and
+# test_torch_paths_profiling.py run them against the JAX package)
+from gnn_rag_tpu.rag import path_extract as jpath_extract  # noqa: E402
+from gnn_rag_tpu.rag.llms import flan_t5 as jflan_t5  # noqa: E402
+from gnn_rag_tpu.rag.llms import hf_causal as jhf_causal  # noqa: E402
+from gnn_rag_tpu.rag.llms import openai_chat as jopenai_chat  # noqa: E402
+from gnn_rag_tpu.utils import profiling as jprofiling  # noqa: E402
+from gnn_rag_tpu.utils import synthetic as jsynthetic  # noqa: E402
+from gnn_rag_tpu_torch.rag import path_extract  # noqa: E402
+from gnn_rag_tpu_torch.rag.llms import flan_t5, hf_causal, openai_chat  # noqa: E402
+from gnn_rag_tpu_torch.utils import profiling, synthetic  # noqa: E402
+
+LATER_COPIES = {
+    "hf_causal": (hf_causal, jhf_causal, ("Llama", "Alpaca", "Longchat")),
+    "flan_t5": (flan_t5, jflan_t5, ("FlanT5",)),
+    "openai_chat": (openai_chat, jopenai_chat, ("TOKEN_LIMITS",
+                                                "get_token_limit", "ChatGPT")),
+    "profiling": (profiling, jprofiling, ("StepTimer",)),
+    "synthetic": (synthetic, jsynthetic, ("random_records", "multihop_records",
+                                          "random_rel_hidden")),
+}
+
+
+@pytest.mark.parametrize("name", list(LATER_COPIES))
+def test_later_copies_keep_the_original_source(name):
+    port, ref, names = LATER_COPIES[name]
+    for n in names:
+        a, b = getattr(port, n), getattr(ref, n)
+        if isinstance(a, dict):
+            assert a == b, n
+        else:
+            assert inspect.getsource(a) == inspect.getsource(b), n
+    assert port.__name__.startswith("gnn_rag_tpu_torch.")
+
+
+def test_path_extract_changes_only_the_bfs_call():
+    """BatchedPathExtractor is the JAX one but for its device and the call
+    of the port's bfs_levels (tensors on that device, the hop count kept)."""
+    import difflib
+    a = inspect.getsource(jpath_extract.BatchedPathExtractor).splitlines()
+    b = inspect.getsource(path_extract.BatchedPathExtractor).splitlines()
+    changed = [line for line in difflib.unified_diff(a, b, lineterm="", n=0)
+               if line[:1] in "+-" and not line.startswith(("+++", "---"))]
+    assert changed == [
+        "-    def __init__(self, max_hops: int | None = None, max_sources: int = 4):",
+        "+    def __init__(self, max_hops: int | None = None, max_sources: int = 4,",
+        "+                 device=\"cuda\"):",
+        "+        self.device = torch.device(device)",
+        "+        self.last_hops = 0       # BFS hops of the last extract() (one sync each)",
+        "-        dist = np.asarray(bfs_levels(heads, tails, mask, src_onehot,",
+        "-                                     num_entities=E, max_hops=self.max_hops))",
+        "+        dist, self.last_hops = bfs_levels(",
+        "+            *(torch.from_numpy(a).to(self.device)",
+        "+              for a in (heads, tails, mask, src_onehot)),",
+        "+            num_entities=E, max_hops=self.max_hops, return_hops=True)",
+        "+        dist = dist.cpu().numpy()",
+    ]
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(cwq_style=True, build_layout=True,
+                                             word_dim=None, use_self_loop=False)])
+def test_synthetic_graph_batch_draws_like_jax(kw):
+    """The same arrays, draw for draw (the port's GraphBatch has no
+    ``fact_weight``; the JAX generator leaves it None)."""
+    kw = dict(batch_size=3, n_entities=128, n_facts=256, num_relation=9,
+              num_entity_global=500, q_len=6, **kw)
+    got = synthetic.random_graph_batch(np.random.default_rng(2), **kw)
+    want = jsynthetic.random_graph_batch(np.random.default_rng(2), **kw)
+    assert want.fact_weight is None
+    for f in dataclasses.fields(got):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if f.name == "layout":
+            assert (a is None) == (b is None)
+            if a is not None:
+                for x, y in zip(a.fwd + a.inv, b.fwd + b.inv):
+                    np.testing.assert_array_equal(x, np.asarray(y))
+        elif a is None:
+            assert b is None, f.name
+        else:
+            np.testing.assert_array_equal(a, np.asarray(b), err_msg=f.name)
+    recs = synthetic.random_records(np.random.default_rng(5), n_questions=3)
+    jrecs = jsynthetic.random_records(np.random.default_rng(5), n_questions=3)
+    for r, jr in zip(recs.records, jrecs.records):
+        np.testing.assert_array_equal(r.heads, jr.heads)
+        assert r.answer_gids == jr.answer_gids

@@ -374,7 +374,10 @@ def test_sft_save_and_resume(tmp_path):
 
 
 def test_sft_refuses_sharding():
-    with pytest.raises(NotImplementedError):
+    """``dp * tp > 1`` builds a mesh, which needs a process group (a
+    ``torchrun`` launch; tests/test_torch_scaleout.py runs SFT over one):
+    outside one it raises."""
+    with pytest.raises(RuntimeError, match="no process group"):
         SFTTrainer(LlamaConfig(**WIDE), SFTConfig(dp=2), device="cpu")
 
 

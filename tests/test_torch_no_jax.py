@@ -9,9 +9,11 @@ half: the SFT checkpoint as a ``llama_tpu`` reader bundle (also int8 with
 itself as draft), ``QAService`` answering through it, the OpenAI-protocol
 server and proxy, explanation distillation, ``predict_answers`` and its
 scorers with the mock reader, beam search through ``gen_prediction``, and
-imports the HF LLaMA loader and the ``serve_qa`` entry; and it never
-loads jax, flax, optax, orbax, transformers or any module of
-``gnn_rag_tpu``; and no file of the port, nor chip_smoke.py, imports or runs
+imports the HF LLaMA loader and the ``serve_qa`` entry, the HF and OpenAI
+reader backends, the mesh and LLM sharding modules, the profiling hooks
+and the synthetic generator, and extracts paths through the device BFS
+backend; and it never loads jax, flax, optax, orbax, transformers, openai
+or any module of ``gnn_rag_tpu``; and no file of the port, nor chip_smoke.py, imports or runs
 the JAX package."""
 
 import ast
@@ -46,6 +48,18 @@ q = {"id": "q0", "question": "where was m00 born", "entities": ["m.00"],
 out = svc.retrieve([q])
 assert out[0]["cand"] and out[0]["paths"], out
 out_cand = out[0]["cand"]
+dev = RetrieverService(
+    cfg, Vocab(ents, rels, {}), svc.model, rel_hidden=rel[0],
+    rel_hidden_inv=rel[1], rel_text_mask=np.ones((4, 3), np.float32),
+    question_encoder=lambda ids: np.ones((len(ids), 24), np.float32),
+    path_backend="device")
+assert dev.retrieve([q])[0]["paths"] == out[0]["paths"]
+
+from gnn_rag_tpu_torch.llm import sharding
+from gnn_rag_tpu_torch.parallel import collectives, mesh
+from gnn_rag_tpu_torch.rag.llms import flan_t5, hf_causal, openai_chat
+from gnn_rag_tpu_torch.utils import profiling, synthetic
+assert hf_causal.Llama(None).maximun_token == 3996
 
 import logging
 from gnn_rag_tpu_torch.data.loader import KGQADataset, ingest_question
@@ -187,7 +201,7 @@ with tempfile.TemporaryDirectory() as out:
     assert len(json.load(open(rules))["raw_output"]["scores"]) == 2
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                       "gnn_rag_tpu", "transformers"))
+                                       "gnn_rag_tpu", "transformers", "openai"))
 print("LOADED", loaded)
 """
 
@@ -216,7 +230,11 @@ def test_port_never_imports_or_runs_the_jax_package():
     port = os.path.join(os.path.dirname(files[0]), "gnn_rag_tpu_torch")
     for new in ("llm/quant.py", "llm/lora.py", "rag/llms/serving.py",
                 "models/nsm.py", "models/graftnet.py", "models/retriever.py",
-                "ops/degree.py"):
+                "ops/degree.py", "rag/llms/hf_causal.py", "rag/llms/flan_t5.py",
+                "rag/llms/openai_chat.py", "utils/profiling.py", "ops/bfs.py",
+                "rag/path_extract.py", "parallel/mesh.py",
+                "parallel/collectives.py", "llm/sharding.py",
+                "utils/synthetic.py"):
         assert os.path.join(port, new) in files, new
     for path in files:
         with open(path) as f:

@@ -209,9 +209,15 @@ def test_registry_resolves_every_jax_name(name, tmp_path):
     elif want is jllms.MockLLM:
         assert got is MockLLM
     else:
+        # the HF and OpenAI backends: the port's copies, built without
+        # touching transformers, openai or a network, with the JAX token
+        # budgets (tests/test_torch_readers_hf.py runs them)
         assert got.__name__ == want.__name__
-        with pytest.raises(NotImplementedError, match="not ported"):
-            got(argparse.Namespace(model_path=str(tmp_path)))
+        assert got.__module__.startswith("gnn_rag_tpu_torch.rag.llms.")
+        args = argparse.Namespace(model_path=str(tmp_path), retry=1,
+                                  model_name=name, max_new_tokens=8,
+                                  dtype="fp32")
+        assert got(args).maximun_token == want(args).maximun_token
     with pytest.raises(ValueError):
         llms.get_registed_model("no-such-reader")
 
