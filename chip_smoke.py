@@ -9,7 +9,9 @@ Phases, one line each:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every source under gnn_rag_tpu_torch/csrc/ at once
      (gate_scatter.cu and flash_attention.cu with nvcc, graphpath.cpp with
-     g++), with ptxas registers and spills;
+     g++), with ptxas registers and spills, and the wgmma (HGMMA) and TMA
+     (UTMALDG) instructions each flash kernel on wgmma must hold
+     (SM90_KERNELS), without spills;
   3. kernel: the CUDA kernel against its plain PyTorch version on the card at
      the serving shapes (fp32 and bf16) and at a skewed layout (SKEWED), two
      launches bit-identical, with the kernel's time ``ms`` (CUDA-event
@@ -86,10 +88,11 @@ The LLM reader (the flash-attention kernels K5a-c):
   3c. kernel-attn: the flash forward, dq and dk/dv kernels against their
      plain versions at the SFT step's shape (B8 L2047 H32 D128: the loss
      feeds tokens[:, :-1] of 2048, a ragged last tile; bf16 and fp32) and
-     at B2 L1000 and B1 L129, the plain backward fed the plain forward's
-     lse; two backward launches bit-identical; CUDA-event medians of
-     kernel, plain and SDPA at the SFT shape (bf16: 10 runs of 5 launches),
-     each kernel's share of its bound and its TFLOP/s;
+     at B2 L1000 and B1 L129 (both types), the plain backward fed the
+     plain forward's lse; two backward launches bit-identical; CUDA-event
+     medians of kernel, plain and SDPA at the SFT shape (bf16: 10 runs of 5
+     launches, fp32 5 of 2), each kernel's share of its bound (float32: six
+     bf16 tensor-core passes, beside the float-core bound) and its TFLOP/s;
   8. sft: the RoG joint-finetune SFT (scripts/train_sft.sh) through the
      port's entry (`python -m gnn_rag_tpu_torch.llm.sft`, run in this
      process) at LLaMA2-7B width cut to 4 of 32 layers, random weights from
@@ -121,7 +124,12 @@ The LLM reader (the flash-attention kernels K5a-c):
   11. step time (LLM): ms per SFT step, positions/s and non-pad tokens/s,
      kernel path at B8 and plain attention at the largest batch that fits;
      peak memory; one step under torch.profiler (busy share, the flash
-     kernels' share).
+     kernels' share);
+  11b. step-time-llm-fp32: the SFT step computing in float32 (every
+     attention on the float32 flash kernels) at LLaMA2-7B width cut to 4
+     layers, B2 x 2048: ms a step over 3 steps after one warm-up, the
+     flash launches (4 of each a step), no call of a plain flash version,
+     and each flash kernel's device ms in one profiled step.
 The reader at LLaMA2-7B widths and the full 32 layers (after the SFT
 trainer is freed):
   12. lora: LoRA finetuning (``llm.lora.LoRATrainer``: r 8, alpha 16 on
@@ -147,6 +155,7 @@ The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
 
+import contextlib
 import gc
 import json
 import math
@@ -162,13 +171,21 @@ SEED = 0
 LATENCY_PASSES = 4
 TRAIN_STEPS = 20
 PALLAS = "gnn_rag_tpu/ops/pallas_mp.py"
-# the bf16 flash kernels built on TMA + wgmma
-SM90_KERNELS = ("flash_fwd_sm90_kernel", "flash_dq_sm90_kernel",
-                "flash_dkv_sm90_kernel")
+# the flash kernels on wgmma, each with the SASS opcodes it must hold: the
+# bf16 ones load by TMA, the float32 ones (three bf16 terms a float,
+# converted by a warpgroup from plain loads) do not
+SM90_KERNELS = {"flash_fwd_sm90_kernel": ("HGMMA", "UTMALDG"),
+                "flash_dq_sm90_kernel": ("HGMMA", "UTMALDG"),
+                "flash_dkv_sm90_kernel": ("HGMMA", "UTMALDG"),
+                "flash_fwd_split3_kernel": ("HGMMA",),
+                "flash_dkv_split3_kernel": ("HGMMA",)}
 FLASH = "gnn_rag_tpu/llm_tpu/flash_attention.py"
 # the card's published peaks (H100 SXM data sheet, dense): float32 outside
-# the tensor cores (the kernels keep IEEE float32) and bf16 tensor cores
+# the tensor cores and bf16 tensor cores
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# float32 work at float32 accuracy on the tensor cores: six bf16 products a
+# product (three bf16 terms a float; the TPU's Precision.HIGHEST, bf16_6x)
+FP32_PASSES = 6
 HBM_BYTES_PER_S = 3.35e12
 # the RoG joint-finetune SFT of scripts/train_sft.sh (batch 8, 2048 tokens)
 # at LLaMA2-7B width (LlamaConfig defaults: dim 4096, 32 heads of 128,
@@ -177,6 +194,8 @@ HBM_BYTES_PER_S = 3.35e12
 # the card; lr 3e-4 as scripts/train_reader.py
 SFT_STEPS = 8
 SFT_SEQ = 2048
+# the float32 SFT step (step-time-llm-fp32): steps timed after one warm-up
+FP32_STEPS = 3
 SFT_FLAGS = ["--n_layers", "4", "--batch_size", "8",
              "--max_seq_len", str(SFT_SEQ), "--total_steps", str(SFT_STEPS),
              "--learning_rate", "3e-4", "--warmup_steps", "100", "--save_every", str(SFT_STEPS),
@@ -199,7 +218,8 @@ ATTN_SHAPES = (("sft_b8_l2047_bf16", 8, SFT_SEQ - 1, "bfloat16"),
                ("sft_b8_l2047_fp32", 8, SFT_SEQ - 1, "float32"),
                ("ragged_b2_l1000_bf16", 2, 1000, "bfloat16"),
                ("ragged_b2_l1000_fp32", 2, 1000, "float32"),
-               ("ragged_b1_l129_bf16", 1, 129, "bfloat16"))
+               ("ragged_b1_l129_bf16", 1, 129, "bfloat16"),
+               ("ragged_b1_l129_fp32", 1, 129, "float32"))
 # scripts/rearev_webqsp.sh with the reference's training defaults
 HEADLINE_FLAGS = ["ReaRev", "--entity_dim", "50", "--num_iter", "3",
                   "--num_ins", "2", "--num_gnn", "3", "--lm", "sbert",
@@ -1536,16 +1556,23 @@ def attn_flops(B, L, H, D):
     return {"fwd": 4 * pairs * D, "dq": 6 * pairs * D, "dkv": 8 * pairs * D}
 
 
-def attn_bounds(B, L, H, D, dtype):
-    """Bound of each flash kernel: its operations (``attn_flops``) at the
-    type's peak, each [B, L, H, D] tensor and [B*H, L] statistic read or
-    written once."""
+def attn_bounds(B, L, H, D, dtype, float_cores=False):
+    """Bound of each flash kernel: its operations (``attn_flops``) on the
+    tensor cores, float32 as FP32_PASSES bf16 passes (the least work that
+    keeps float32 accuracy there), each [B, L, H, D] tensor and [B*H, L]
+    statistic read or written once. ``float_cores``: float32 at the float
+    cores' peak instead (the bound of a kernel on the CUDA cores)."""
     flops = attn_flops(B, L, H, D)
     x = B * L * H * D * (4 if dtype == "float32" else 2)
     st = B * H * L * 4
-    return {"fwd": bound(flops["fwd"], 4 * x + st, dtype),
-            "dq": bound(flops["dq"], 5 * x + 2 * st, dtype),
-            "dkv": bound(flops["dkv"], 6 * x + 2 * st, dtype)}
+    nbytes = {"fwd": 4 * x + st, "dq": 5 * x + 2 * st, "dkv": 6 * x + 2 * st}
+    if dtype == "bfloat16" or float_cores:
+        return {k: bound(flops[k], nbytes[k], dtype) for k in flops}
+    out = {}
+    for k in flops:
+        ms, by = bound(FP32_PASSES * flops[k], nbytes[k], "bfloat16")
+        out[k] = (ms, by + (", six bf16 passes" if by == "operations" else ""))
+    return out
 
 
 def swapped_to_plain_attn(fn):
@@ -1559,6 +1586,31 @@ def swapped_to_plain_attn(fn):
         return fn()
     finally:
         fa.flash_fwd, fa.flash_dq, fa.flash_dkv = real
+
+
+@contextlib.contextmanager
+def plain_attn_calls():
+    """Counts, in the list it yields, the calls of the plain flash versions
+    (``flash_fwd_plain``, ``flash_dq_plain``, ``flash_dkv_plain``, which
+    the wrappers take only for CPU tensors) made inside the block."""
+    from gnn_rag_tpu_torch.llm import flash_attention as fa
+    names = ("flash_fwd_plain", "flash_dq_plain", "flash_dkv_plain")
+    real = {n: getattr(fa, n) for n in names}
+    calls = [0]
+
+    def counted(f):
+        def call(*args):
+            calls[0] += 1
+            return f(*args)
+        return call
+
+    for n, f in real.items():
+        setattr(fa, n, counted(f))
+    try:
+        yield calls
+    finally:
+        for n, f in real.items():
+            setattr(fa, n, f)
 
 
 def attn_counts():
@@ -1650,6 +1702,10 @@ def check_attn_kernels(device):
             bounds = attn_bounds(B, L, H, D, dtype)
             row["bound_ms"] = {k_: b_[0] for k_, b_ in bounds.items()}
             row["bound_by"] = {k_: b_[1] for k_, b_ in bounds.items()}
+            if dtype == "float32":
+                row["float_core_bound_ms"] = {
+                    k_: b_[0] for k_, b_ in
+                    attn_bounds(B, L, H, D, dtype, float_cores=True).items()}
             row["ms"] = {
                 "fwd": median_ms(lambda: fa.flash_fwd(q, k, v), **timing),
                 "dq": median_ms(lambda: fa.flash_dq(q, k, v, g, lse, delta),
@@ -2216,6 +2272,78 @@ def sft_step_time(trainer, tokens, mask, device):
         top_device_ops=[[e.key[:60], e.self_device_time_total / 1e3, e.count]
                         for e in top])
     log("step-time-llm", json.dumps(summary))
+    return summary
+
+
+def sft_fp32_step_time(tokens, mask, device):
+    """Phase step-time-llm-fp32: the SFT step computing in float32 (``--dtype
+    float32``: every attention on the float32 flash kernels) at LLaMA2-7B
+    width cut to 4 layers, B2 x 2048 (f32 params, grads and AdamW states
+    ~17 GB): ms a step (CUDA events over FP32_STEPS steps after one
+    warm-up), the flash launches of those steps and of one profiled step
+    (n_layers of each kernel a step), and each flash kernel's device ms and
+    the largest device ops in the profiled step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnn_rag_tpu_torch.llm import sft
+    from gnn_rag_tpu_torch.llm.model import LlamaConfig
+    t0 = time.perf_counter()
+    trainer = sft.SFTTrainer(
+        LlamaConfig(n_layers=4, max_seq_len=SFT_SEQ, dtype="float32"),
+        sft.SFTConfig(batch_size=2, max_seq_len=SFT_SEQ, learning_rate=3e-4,
+                      warmup_steps=100, total_steps=FP32_STEPS + 2,
+                      seed=SEED), device=device)
+    tok = torch.from_numpy(tokens[:2]).to(device)
+    msk = torch.from_numpy(mask[:2]).to(device)
+    setup = time.perf_counter() - t0
+    # ---- the main path, counted: the float32 SFT steps ----
+    reset_attn_counts()
+    with plain_attn_calls() as plain:
+        losses = [trainer.train_step(tok, msk)]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(FP32_STEPS):
+            losses.append(trainer.train_step(tok, msk))
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / FP32_STEPS
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            losses.append(trainer.train_step(tok, msk))
+            torch.cuda.synchronize()
+    launches = attn_counts()
+    plain_calls = plain[0]
+    n = trainer.model.cfg.n_layers
+    dev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+           and e.self_device_time_total > 0]
+    dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    flash = {name: [sum(e.self_device_time_total for e in dev
+                        if kernel in e.key) / 1e3,
+                    sum(e.count for e in dev if kernel in e.key)]
+             for name, kernel in (("fwd", "flash_fwd_split3_kernel"),
+                                  ("dq", "flash_dq_kernel"),
+                                  ("dkv", "flash_dkv_split3_kernel"))}
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    losses = [x.item() for x in losses]
+    summary = dict(layers=n, batch=2, seq=SFT_SEQ, ms_per_step=ms,
+                   steps_timed=FP32_STEPS, setup_s=setup, losses=losses,
+                   flash_launches_fwd_dq_dkv=launches,
+                   plain_attention_calls=plain_calls,
+                   profiled_step_device_ms=dev_ms,
+                   flash_device_ms_launches=flash,
+                   top_device_ops=[[e.key[:60], e.self_device_time_total / 1e3,
+                                    e.count] for e in top],
+                   wall_s=time.perf_counter() - t0)
+    log("step-time-llm-fp32", json.dumps(summary))
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    if launches != (n * (FP32_STEPS + 2),) * 3 or plain_calls or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"fp32 SFT: flash launches {launches}, plain "
+                             f"attention calls {plain_calls}, losses {losses}")
     return summary
 
 
@@ -3046,8 +3174,8 @@ def build_all():
     """Build every native library of the port at once (one compiler
     process per source, all started together); log each one's time and
     ptxas register / spill lines, and the wgmma (HGMMA) and TMA-load
-    (UTMALDG) instructions of each flash kernel, which the Hopper forward,
-    dq and dk/dv kernels (SM90_KERNELS) must issue, without spills."""
+    (UTMALDG) instructions of each flash kernel, which the Hopper kernels
+    must hold as SM90_KERNELS lists, without spills."""
     from concurrent.futures import ThreadPoolExecutor
 
     from gnn_rag_tpu_torch.utils import build
@@ -3075,10 +3203,10 @@ def build_all():
                 log("build", f"sass HGMMA / UTMALDG per kernel: "
                     f"{json.dumps(counts)}")
                 spills = spill_bytes(build.logs.get(stem, ""))
-                for name in SM90_KERNELS:
-                    if not any(name in k and all(v.values())
+                for name, ops in SM90_KERNELS.items():
+                    if not any(name in k and all(v[op] for op in ops)
                                for k, v in counts.items()):
-                        raise AssertionError(f"{name}: no HGMMA or no UTMALDG "
+                        raise AssertionError(f"{name}: not each of {ops} "
                                              f"in its SASS")
                     if any(name in k and n for k, n in spills.items()):
                         raise AssertionError(f"{name} spills: {spills}")
@@ -3125,7 +3253,7 @@ def main():
         os.makedirs(os.path.join(root, "llm"))
         sft, trainer, tokens, mask, prompts = run_sft(
             device, os.path.join(root, "llm"))
-        check_llm_grads(trainer, tokens, mask, device)
+        grad_llm = check_llm_grads(trainer, tokens, mask, device)
         run_decode(trainer, prompts, device)
         _, qa_launches, qa_flash = run_qa(device, os.path.join(root, "train"),
                                           trainer, os.path.join(root, "llm"))
@@ -3135,6 +3263,7 @@ def main():
         del trainer
         gc.collect()
         torch.cuda.empty_cache()
+        fp32_step = sft_fp32_step_time(tokens, mask, device)
         _, reader_7b, lora_launches = run_lora(device, tokens, mask)
         run_serve_7b(device, reader_7b, os.path.join(root, "llm", "reader"),
                      prompts)
@@ -3235,10 +3364,40 @@ def main():
                 "lora": lora_launches[i],
                 **{f"mesh_sft_tp2_rank{r}":
                    res["sft_tp2"]["flash_launches_fwd_dq_dkv"][i]
-                   for r, res in enumerate(mesh["ranks"])},
-                **({"qa_beam_rescoring": qa_flash} if key == "fwd" else {})},
+                   for r, res in enumerate(mesh["ranks"])}},
             **({} if key == "fwd" else
                {"sdpa_bwd_ms_dq_dk_dv_together": main_row["sdpa_bwd_ms"]})})
+    # the float32 kernels (three bf16 terms a float on wgmma; dq on the
+    # float cores), on the float32 paths: the float32 SFT step, the float32
+    # gradient check and the qa phase's beam rescoring
+    f32_row = next(r for r in attn_rows if r["shape"] == "sft_b8_l2047_fp32")
+    for i, (name, key, line, kernel) in enumerate((
+            ("flash_attention_fwd_fp32", "fwd", 47, "flash_fwd_split3_kernel"),
+            ("flash_attention_dq_fp32", "dq", 132, "flash_dq_kernel<float>"),
+            ("flash_attention_dkv_fp32", "dkv", 170,
+             "flash_dkv_split3_kernel"))):
+        parts = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}[key]
+        kernels.append({
+            "name": name, "route": "cuda", "kernel": kernel,
+            "source": "gnn_rag_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"{FLASH}:{line}",
+            "launches": fp32_step["flash_launches_fwd_dq_dkv"][i],
+            "max_abs_err": max(f32_row["err_ref_over_tol_by_output"][p][0]
+                               for p in parts),
+            "ms": f32_row["ms"][key], "plain_ms": f32_row["plain_ms"][key],
+            "bound_ms": f32_row["bound_ms"][key],
+            "bound_by": f32_row["bound_by"][key],
+            "float_core_bound_ms": f32_row["float_core_bound_ms"][key],
+            "library_ms": f32_row["sdpa_fwd_ms"] if key == "fwd" else None,
+            "bound_share": f32_row["bound_share"][key],
+            "tflops": f32_row["tflops"][key],
+            "shape": f32_row["shape"],
+            "launches_by_path": {
+                "step_time_llm_fp32": fp32_step["flash_launches_fwd_dq_dkv"][i],
+                "grad_llm_fp32": grad_llm["flash_launches"][i],
+                **({"qa_beam_rescoring": qa_flash} if key == "fwd" else {})},
+            **({} if key == "fwd" else
+               {"sdpa_bwd_ms_dq_dk_dv_together": f32_row["sdpa_bwd_ms"]})})
     log("total", f"wall {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

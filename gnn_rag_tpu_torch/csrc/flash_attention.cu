@@ -15,20 +15,49 @@
 // [B*H, L] float, stored once per row (the TPU kernel replicated them over
 // 128 lanes for its block shapes). All sums are float; every product is the
 // float product of the (widened) inputs, as in the TPU kernels
-// (flash_attention.py:79, :144-147), except p in the forward, which is
-// rounded to T before it multiplies v.
+// (flash_attention.py:79, :144-147, float32 at Precision.HIGHEST :43-44),
+// to within the splits below, except p in the forward, which is rounded to
+// T before it multiplies v.
 //
-// Two families, chosen by the input type:
+// Three groups of kernels, chosen by the input type:
 //
-// float32 (flash_{fwd,dq,dkv}_kernel<float>): IEEE float on the CUDA cores.
-// Every kernel keeps one 64-row tile resident in shared memory (q rows for
-// the forward and dq, k/v rows for dk/dv) and streams the other side in
-// 32-row tiles through a loop inside the block (the TPU's sequential inner
-// grid axis). 256 threads as 16 x 16: thread (ty, tx) computes the score
-// entries of rows ty + 16i and columns tx + 16j and owns output columns
-// tx + 16jj of its rows; rows of the online softmax are reduced with warp
-// shuffles over the 16 threads that share ty; shared-memory rows are padded
-// to D + 1 floats so that column walks hit distinct banks.
+// float32 forward and dk/dv (flash_{fwd,dkv}_split3_kernel), on the tensor
+// cores as the TPU's HIGHEST precision runs float32 dots (bf16_6x): every
+// float operand x enters wgmma as three bf16 terms x1 = bf16(x), x2 =
+// bf16(x - x1), x3 = bf16(x - x1 - x2), which hold its 24 significand bits,
+// and x y as the six term products whose indices add up to at most 4 (x3y1,
+// x2y2, x1y3, x2y1, x1y2, x1y1: the small ones first into the float
+// accumulator); the dropped x2y3, x3y2 and x3y3 are within ~2^-23 |x y|
+// (tests/test_torch_flash_split3.py: each product within 2^-21 of the sum
+// of its terms' sizes, o, dk and dv within 0.1 of the card check's 1e-4 of
+// max|plain|). Six bf16 passes at 989 TFLOP/s do the work of 3 TF32 passes
+// at 495, and bf16 terms (6 bytes an element) can be read MN-major through
+// the descriptor's transpose bit, which wgmma allows only for 16-bit types.
+// No tensor map: a converter warpgroup loads float rows with 16-byte loads
+// and writes their terms into shared memory in TMA's 128-byte-swizzled
+// layout (split_rows), fences them for the async proxy and arrives on the
+// stage's full barrier; consumers split their own resident rows likewise.
+// - forward: 128 query rows a block, two consumers of 64 rows, each with
+//   its Q terms (96 KB in all) resident; 64-key K and V tiles as terms in
+//   one 48 KB slot each (K_j+1 is split while the consumers run softmax and
+//   PV of tile j); s = q k^T, 48 wgmma m64n64k16 from shared memory; p
+//   split into three register A terms for o += p v, 24 wgmma m64n128k16.
+//   198 KB of shared memory, 384 threads, one block an SM; setmaxnreg
+//   moves registers from the converter (104) to the consumers (200).
+// - dk/dv: 64 keys a block, the K and V terms resident (96 KB), which
+//   leaves room for one consumer warpgroup and two 48 KB stages of 32-row
+//   Q and dO terms with their lse and delta; s^T = k q^T and dp^T = v dO^T,
+//   48 wgmma m64n32k16 each, p^T and ds^T split into register A terms for
+//   dv += p^T dO and dk += ds^T q, 12 wgmma m64n128k16 each. 198 KB, 256
+//   threads, one block an SM, registers unsplit (up to 255).
+//
+// float32 dq (flash_dq_kernel<float>): IEEE float on the CUDA cores, the
+// first version. It keeps a 64-row q and dO tile resident in shared memory
+// and streams k and v in 32-row tiles through a loop inside the block (the
+// TPU's sequential inner grid axis). 256 threads as 16 x 16: thread (ty, tx)
+// computes the score entries of rows ty + 16i and columns tx + 16j and owns
+// output columns tx + 16jj of its rows; shared-memory rows are padded to
+// D + 1 floats so that column walks hit distinct banks.
 //
 // bfloat16, on the tensor cores: Hopper's TMA and warpgroup wgmma (building
 // blocks in sm90.cuh). A block is three warpgroups: a producer whose one
@@ -52,9 +81,10 @@
 //   registers, dv += p^T dO and dk += ds^T q with p^T and ds^T as register
 //   A operands.
 // Tensor maps cover the 4-D (D, H, N, B) view with the real strides, so rows
-// past L read as TMA's zeros (never the next batch's rows) and are masked or
-// not stored. Only tiles that cross the diagonal or the ragged end are
-// masked; tiles past the diagonal are not loaded.
+// past L read as TMA's zeros (never the next batch's rows; the float32
+// converters write zeros there) and are masked or not stored. Only tiles
+// that cross the diagonal or the ragged end are masked; tiles past the
+// diagonal are not loaded.
 // s and dp take bf16 operands, whose products are exact in float. The
 // backward's float p and ds enter the tensor cores as two bf16 terms, hi +
 // mid (split2), so that the backward still multiplies in float to within
@@ -66,7 +96,7 @@
 // make dq 4 products where the function needs 3, and dk/dv 6 where it
 // needs 4.
 //
-// Both families: every sum runs in a fixed order (no atomics), so two
+// Every kernel: every sum runs in a fixed order (no atomics), so two
 // launches repeat bit for bit. Ragged edges (L or S not a multiple of the
 // tile) are masked in the kernel, not padded by the caller. Work per block
 // grows with the query index (causal), so the forward and dq start the last
@@ -75,23 +105,30 @@
 // head's K and V (Q and dO) in L2.
 //
 // What bounds it on an H100: at B8 L2047 H32 D128 the forward does 2.75e11
-// causal FLOP against 2.1e8 bytes of q/k/v/o, so the arithmetic bounds it
-// (0.28 ms at the 989 TFLOP/s bf16 tensor-core rate, 4.1 ms at 67 TFLOP/s
-// float); dq and dk/dv do 1.5x and 2x the forward's products. The float
-// kernels read both operands of every product from shared memory, so
-// shared-memory load bandwidth sets their rate. The Hopper kernels run each
-// consumer's steps in order (scores, softmax, products): the tensor cores
-// wait while a warpgroup works on its registers unless the other warpgroup
-// fills the gap. FlashAttention-3's ping-pong of the two consumers and its
-// overlap of one tile's softmax with the next tile's scores are the next
-// steps.
+// causal FLOP against 2.1e8 bytes of q/k/v/o, so the arithmetic bounds it:
+// 0.278 ms at the 989 TFLOP/s bf16 tensor-core rate; in float32, 1.667 ms
+// for the six bf16 passes that keep float32 accuracy on the tensor cores
+// (4.10 ms on the float cores at 67 TFLOP/s); dq and dk/dv do 1.5x and 2x
+// the forward's products (float32: 2.500 and 3.334 ms). The float32 dq
+// reads both operands of every product from shared memory, so shared-memory
+// load bandwidth sets its rate. The float32 split kernels reach 57%
+// (forward) and 52% (dk/dv) of their six-pass bounds (chip_smoke.py on an
+// H100 at 700 W): both read both operands of their score products from
+// shared memory (m64n32 in dk/dv: 1.5x the bytes a FLOP of the forward's
+// m64n64), and dk/dv's one consumer leaves the tensor cores idle while it
+// works on p^T and ds^T. The Hopper kernels run each consumer's steps in
+// order (scores, softmax, products): the tensor cores wait while a
+// warpgroup works on its registers unless the other warpgroup fills the
+// gap. FlashAttention-3's ping-pong of the two consumers and its overlap
+// of one tile's softmax with the next tile's scores are the next steps.
 //
 // ptxas -v (CUDA 12.8, sm_90a; chip_smoke.py prints it on its build line):
-// the three Hopper kernels 168 registers at launch (384 threads, one block
-// an SM; setmaxnreg then gives the consumers 240 (forward, dq) and 232
-// (dk/dv), the producer 24 (forward, dq) and 40 (dk/dv));
-// flash_fwd_kernel<float> 76, flash_dq_kernel<float> 80,
-// flash_dkv_kernel<float> 127; no spills, no stack frames.
+// the three bf16 Hopper kernels 168 registers at launch (384 threads, one
+// block an SM; setmaxnreg then gives the consumers 240 (forward, dq) and
+// 232 (dk/dv), the producer 24 (forward, dq) and 40 (dk/dv));
+// flash_fwd_split3_kernel 168 at launch (consumers 200, converter 104),
+// flash_dkv_split3_kernel 222, flash_dq_kernel<float> 80; no spills, no
+// stack frames.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,19 +159,6 @@ from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 __device__ __forceinline__ int64_t offset(int b, int row, int h, int N,
                                           int H) {
   return ((static_cast<int64_t>(b) * N + row) * H + h) * D;
@@ -156,103 +180,6 @@ __device__ void load_stat(float* dst, const float* src, int bh, int L,
                           int row0, int nrows) {
   for (int r = threadIdx.x; r < nrows; r += blockDim.x)
     dst[r] = row0 + r < L ? src[static_cast<int64_t>(bh) * L + row0 + r] : 0.f;
-}
-
-// ---------------------------------------------------------------- forward
-// grid (ceil(L / TILE), B*H), float inputs (bf16 runs flash_fwd_sm90_kernel)
-template <typename T>
-__global__ void __launch_bounds__(NT)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int H, int L, int S,
-                     float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                 // [TILE][DP]
-  float* Ks = Qs + TILE * DP;       // [STREAM][DP]
-  float* Vs = Ks + STREAM * DP;     // [STREAM][DP]
-  float* Ps = Vs + STREAM * DP;     // [TILE][SP]
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * TILE;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  load_rows(Qs, q, b, h, L, H, q0, TILE);
-  float m[4], l[4], acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) acc[i][jj] = 0.f;
-  }
-  // keys at or past q0 + TILE are masked for every row of the block
-  const int k_end = min(S, q0 + TILE);
-  for (int k0 = 0; k0 < k_end; k0 += STREAM) {
-    __syncthreads();
-    load_rows(Ks, k, b, h, S, H, k0, STREAM);
-    load_rows(Vs, v, b, h, S, H, k0, STREAM);
-    __syncthreads();
-    float s[4][2] = {};
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], c[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) c[j] = Ks[(tx + 16 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qr = q0 + ty + 16 * i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kc = k0 + tx + 16 * j;
-        s[i][j] = (kc <= qr && kc < S) ? s[i][j] * scale : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        Ps[(ty + 16 * i) * SP + tx + 16 * j] = to_f(from_f<T>(p));
-      }
-      l[i] = l[i] * alpha + row_sum16(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) acc[i][jj] *= alpha;
-    }
-    __syncthreads();
-    for (int c = 0; c < STREAM; ++c) {
-      float p[4], w[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * SP + c];
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) w[jj] = Vs[c * DP + tx + 16 * jj];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-          acc[i][jj] = fmaf(p[i], w[jj], acc[i][jj]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + ty + 16 * i;
-    if (qr >= L) continue;
-    const float li = fmaxf(l[i], 1e-30f);
-    T* orow = o + offset(b, qr, h, L, H);
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
-      orow[tx + 16 * jj] = from_f<T>(acc[i][jj] / li);
-    if (tx == 0) lse[static_cast<int64_t>(bh) * L + qr] = m[i] + logf(li);
-  }
 }
 
 // --------------------------------------------------------------------- dq
@@ -344,120 +271,6 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// -------------------------------------------------------------------- dkv
-// grid (ceil(S / TILE), B*H); the block owns keys k0 .. k0 + TILE and walks
-// the query tiles that can see them (rows >= k0)
-template <typename T>
-__global__ void __launch_bounds__(NT)
-    flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int L, int S, float scale) {
-  extern __shared__ float smem[];
-  float* Ks = smem;                 // [TILE][DP]
-  float* Vs = Ks + TILE * DP;       // [TILE][DP]
-  float* Qs = Vs + TILE * DP;       // [STREAM][DP]
-  float* Gs = Qs + STREAM * DP;     // [STREAM][DP]  dO
-  float* Ts = Gs + STREAM * DP;     // [TILE][SP]    p^T, then ds^T
-  float* lse_s = Ts + TILE * SP;    // [STREAM]
-  float* delta_s = lse_s + STREAM;  // [STREAM]
-  const int k0 = blockIdx.x * TILE;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  load_rows(Ks, k, b, h, S, H, k0, TILE);
-  load_rows(Vs, v, b, h, S, H, k0, TILE);
-  float dk_acc[4][8] = {}, dv_acc[4][8] = {};
-  for (int q0 = k0; q0 < L; q0 += STREAM) {
-    __syncthreads();
-    load_rows(Qs, q, b, h, L, H, q0, STREAM);
-    load_rows(Gs, dout, b, h, L, H, q0, STREAM);
-    load_stat(lse_s, lse, bh, L, q0, STREAM);
-    load_stat(delta_s, delta, bh, L, q0, STREAM);
-    __syncthreads();
-    // rows of this thread: keys ty + 16i; columns: queries tx + 16j
-    float s[4][2] = {}, dp[4][2] = {};
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float c[4], w[4], a[2], g[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        c[i] = Ks[(ty + 16 * i) * DP + d];
-        w[i] = Vs[(ty + 16 * i) * DP + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        a[j] = Qs[(tx + 16 * j) * DP + d];
-        g[j] = Gs[(tx + 16 * j) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          s[i][j] = fmaf(a[j], c[i], s[i][j]);
-          dp[i][j] = fmaf(g[j], w[i], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kc = k0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int r = tx + 16 * j, qr = q0 + r;
-        const float sv = (kc <= qr && kc < S) ? s[i][j] * scale : NEG_INF;
-        const float p = expf(sv - lse_s[r]);
-        s[i][j] = p;                                          // keep p
-        dp[i][j] = p * (dp[i][j] - delta_s[r]) * scale;       // ds
-        Ts[(ty + 16 * i) * SP + r] = p;
-      }
-    }
-    __syncthreads();
-    for (int r = 0; r < STREAM; ++r) {        // dv += p^T dO
-      float p[4], g[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ts[(ty + 16 * i) * SP + r];
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) g[jj] = Gs[r * DP + tx + 16 * jj];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-          dv_acc[i][jj] = fmaf(p[i], g[jj], dv_acc[i][jj]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) Ts[(ty + 16 * i) * SP + tx + 16 * j] = dp[i][j];
-    __syncthreads();
-    for (int r = 0; r < STREAM; ++r) {        // dk += ds^T q
-      float ds[4], a[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = Ts[(ty + 16 * i) * SP + r];
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) a[jj] = Qs[r * DP + tx + 16 * jj];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-          dk_acc[i][jj] = fmaf(ds[i], a[jj], dk_acc[i][jj]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kc = k0 + ty + 16 * i;
-    if (kc >= S) continue;
-    T* krow = dk + offset(b, kc, h, S, H);
-    T* vrow = dv + offset(b, kc, h, S, H);
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      krow[tx + 16 * jj] = from_f<T>(dk_acc[i][jj]);
-      vrow[tx + 16 * jj] = from_f<T>(dv_acc[i][jj]);
-    }
-  }
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -515,20 +328,31 @@ __device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
   mid = pack_bf16(x - hf.x, y - hf.y);
 }
 
+// a pair of adjacent output columns in the output type T
+__device__ __forceinline__ uint32_t pack_pair(const __nv_bfloat16*, float lo,
+                                              float hi) {
+  return pack_bf16(lo, hi);
+}
+__device__ __forceinline__ float2 pack_pair(const float*, float lo, float hi) {
+  return make_float2(lo, hi);
+}
+
 // rows row and row + 8 of a 64 x 128 float accumulator, scaled by inv[r],
-// as bf16 into head h of a [B, N, H, D] tensor; rows past N are not stored
-__device__ __forceinline__ void store_acc_rows(__nv_bfloat16* dst, int b, int h,
-                                               int N, int H, int row, int t,
+// into head h of a [B, N, H, D] tensor of T (bf16 or float); rows past N
+// are not stored
+template <typename T>
+__device__ __forceinline__ void store_acc_rows(T* dst, int b, int h, int N,
+                                               int H, int row, int t,
                                                const float (&acc)[64],
                                                const float (&inv)[2]) {
+  using Pair = decltype(pack_pair(dst, 0.f, 0.f));
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row + 8 * r >= N) continue;
-    uint32_t* out =
-        reinterpret_cast<uint32_t*>(dst + offset(b, row + 8 * r, h, N, H));
+    Pair* out = reinterpret_cast<Pair*>(dst + offset(b, row + 8 * r, h, N, H));
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      out[n * 4 + t] = pack_bf16(acc[4 * n + 2 * r] * inv[r],
+      out[n * 4 + t] = pack_pair(dst, acc[4 * n + 2 * r] * inv[r],
                                  acc[4 * n + 2 * r + 1] * inv[r]);
   }
 }
@@ -1042,32 +866,474 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
   store_acc_rows(dq, b, h, L, H, row, t, acc, one);
 }
 
-constexpr size_t kFwdSmem = sizeof(float) * (TILE * DP + 2 * STREAM * DP +
-                                             TILE * SP);
+// ---------------------- float32 on Hopper: three bf16 terms, TMA-free, wgmma
+// Every float operand x enters the tensor cores as three bf16 terms,
+// x1 = bf16(x), x2 = bf16(x - x1), x3 = bf16(x - x1 - x2) (each rounded to
+// nearest; the float subtractions are exact), and a product x y as the six
+// term products whose indices add up to at most 4, the small ones first
+// into the float accumulator: x3y1, x2y2, x1y3, x2y1, x1y2, x1y1
+// (a_term / b_term below). Three 8-bit terms hold a float's 24 significand
+// bits, and the dropped x2y3, x3y2 and x3y3 are within ~2^-23 |x y|: the
+// TPU's float32 dots at Precision.HIGHEST (bf16_6x) do the same.
+
+// the term of the A and of the B operand in product p (0..5) of the six
+__device__ __forceinline__ constexpr int a_term(int p) {
+  return p == 0 ? 2 : (p == 1 || p == 3) ? 1 : 0;
+}
+__device__ __forceinline__ constexpr int b_term(int p) {
+  return p == 2 ? 2 : (p == 1 || p == 4) ? 1 : 0;
+}
+// descriptor offset of term `term` of an operand whose terms lie `bytes`
+// apart
+__device__ __forceinline__ constexpr uint64_t term_off(int bytes, int term) {
+  return static_cast<uint64_t>(term * bytes) >> 4;
+}
+
+// x and y as three bf16 pairs t1 + t2 + t3 (low half x)
+__device__ __forceinline__ void split3(float x, float y, uint32_t& t1,
+                                       uint32_t& t2, uint32_t& t3) {
+  const __nv_bfloat162 h1 = __floats2bfloat162_rn(x, y);
+  const float2 f1 = __bfloat1622float2(h1);
+  const float rx = x - f1.x, ry = y - f1.y;
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(rx, ry);
+  const float2 f2 = __bfloat1622float2(h2);
+  t1 = *reinterpret_cast<const uint32_t*>(&h1);
+  t2 = *reinterpret_cast<const uint32_t*>(&h2);
+  t3 = pack_bf16(rx - f2.x, ry - f2.y);
+}
+
+// Rows [row0, row0 + ROWS) of head h of a float [B, N, H, D] tensor as its
+// three bf16 terms in shared memory: term s at dst + s * term, each a tile
+// of two 64-column boxes `box` bytes apart in the 128-byte-swizzled layout
+// that TMA writes and desc_sw128 reads (row r at r * 128 bytes, its 16-byte
+// chunk c at chunk c ^ (r % 8)); rows past N as zeros. The 128 threads of a
+// warpgroup (tid) each take the 8-column chunk tid % 16 of rows tid / 16 +
+// 8 i; BATCH rows are loaded (16-byte loads, a warp on two whole rows)
+// before they are split and stored (16-byte stores, a quarter warp on one
+// swizzled row: no bank conflicts).
+template <int ROWS, int BATCH>
+__device__ __forceinline__ void split_rows(unsigned char* dst, int box,
+                                           int term,
+                                           const float* __restrict__ src,
+                                           int b, int h, int N, int H,
+                                           int row0, int tid) {
+  static_assert(ROWS % (8 * BATCH) == 0, "whole batches of 8 rows");
+  const int c = tid % 16, rr = tid / 16;
+  unsigned char* const out =
+      dst + (c / 8) * box + rr * ROW_BYTES + (((c % 8) ^ rr) * 16);
+#pragma unroll
+  for (int i0 = 0; i0 < ROWS / 8; i0 += BATCH) {
+    float4 x[BATCH][2];
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int row = row0 + rr + 8 * (i0 + i);
+      if (row < N) {
+        const float4* p = reinterpret_cast<const float4*>(
+            src + offset(b, row, h, N, H) + 8 * c);
+        x[i][0] = __ldg(p);
+        x[i][1] = __ldg(p + 1);
+      } else {
+        x[i][0] = x[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      uint4 t1, t2, t3;
+      split3(x[i][0].x, x[i][0].y, t1.x, t2.x, t3.x);
+      split3(x[i][0].z, x[i][0].w, t1.y, t2.y, t3.y);
+      split3(x[i][1].x, x[i][1].y, t1.z, t2.z, t3.z);
+      split3(x[i][1].z, x[i][1].w, t1.w, t2.w, t3.w);
+      unsigned char* const o = out + (i0 + i) * 8 * ROW_BYTES;
+      *reinterpret_cast<uint4*>(o) = t1;
+      *reinterpret_cast<uint4*>(o + term) = t2;
+      *reinterpret_cast<uint4*>(o + 2 * term) = t3;
+    }
+  }
+}
+
+constexpr int TERMS = 3;
+constexpr int F3_ROWS = 128;   // query rows per block, 64 a consumer
+constexpr int F3_KEYS = 64;    // keys per K or V tile
+// setmaxnreg moves registers between the warpgroups of a block: a block of
+// 384 threads starts with 168 a thread, and the consumers' increase must
+// come from what the converter gives up
+constexpr int LAUNCH_REGS = 168;
+constexpr int F3_CONVERTER_REGS = 104;
+constexpr int F3_CONSUMER_REGS = 200;
+static_assert(LAUNCH_REGS - F3_CONVERTER_REGS >=
+                  2 * (F3_CONSUMER_REGS - LAUNCH_REGS),
+              "the consumers take more registers than the converter frees");
+
+struct Fwd3Bars {
+  uint64_t k_full, v_full, k_empty, v_empty;
+};
+constexpr size_t kFwd3Smem = 1024 + TERMS * TILE_BYTES +
+                             2 * TERMS * QTILE_BYTES + sizeof(Fwd3Bars);
+
+// float32 forward, grid (ceil(L / F3_ROWS), B*H), 384 threads. Warpgroup 0
+// converts: it streams 64-key K and V tiles, K_0, V_0, K_1, ..., each into
+// its own slot of three terms (48 KB; the slots are the whole ring: the 96
+// KB of Q's terms leave no room for a second K/V pair), so that K_j+1 is
+// split while the consumers run softmax and PV of tile j, and V_j+1 while
+// they run the scores of j+1. Warpgroups 1 and 2 own 64 query rows each:
+// they split their own Q rows once, then per tile s = q k^T (48 wgmma
+// m64n64k16, both operands' terms K-major from shared memory), the online
+// softmax on the accumulators, p split into three register A terms, and
+// o += p v (24 wgmma m64n128k16, v's terms MN-major with the transpose
+// bit). A consumer whose rows all lie before a tile's first key skips its
+// products (it still waits and releases, keeping the barriers in step).
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+    flash_fwd_split3_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v, float* __restrict__ o,
+                            float* __restrict__ lse, int H, int L, int S,
+                            float scale) {
+  extern __shared__ unsigned char raw_smem[];
+  unsigned char* const Qs = align1024(raw_smem);             // [term]
+  unsigned char* const Ks = Qs + TERMS * TILE_BYTES;         // [term]
+  unsigned char* const Vs = Ks + TERMS * QTILE_BYTES;        // [term]
+  auto* bars = reinterpret_cast<Fwd3Bars*>(Vs + TERMS * QTILE_BYTES);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * F3_ROWS;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int n_tiles = (min(S, q0 + F3_ROWS) + F3_KEYS - 1) / F3_KEYS;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&bars->k_full, WG);               // converter threads
+    sm90::mbar_init(&bars->v_full, WG);
+    sm90::mbar_init(&bars->k_empty, 2 * WG / 32);     // consumer warps
+    sm90::mbar_init(&bars->v_empty, 2 * WG / 32);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {   // converter
+    sm90::setmaxnreg_dec<F3_CONVERTER_REGS>();
+    for (int j = 0; j < n_tiles; ++j) {
+      const uint32_t parity = (j & 1) ^ 1;
+      sm90::mbar_wait(&bars->k_empty, parity);
+      split_rows<F3_KEYS, 4>(Ks, BOX64, QTILE_BYTES, k, b, h, S, H,
+                             j * F3_KEYS, threadIdx.x);
+      sm90::fence_proxy_async();
+      sm90::mbar_arrive(&bars->k_full);
+      sm90::mbar_wait(&bars->v_empty, parity);
+      split_rows<F3_KEYS, 4>(Vs, BOX64, QTILE_BYTES, v, b, h, S, H,
+                             j * F3_KEYS, threadIdx.x);
+      sm90::fence_proxy_async();
+      sm90::mbar_arrive(&bars->v_full);
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<F3_CONSUMER_REGS>();
+  const int cw = wg - 1;                     // rows r0 = q0 + 64 cw ..
+  const int tid = threadIdx.x % WG;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = q0 + 64 * cw;
+  const int row = r0 + 16 * warp + g;        // and row + 8
+  unsigned char* const Qw = Qs + 64 * cw * ROW_BYTES;
+  split_rows<64, 4>(Qw, BOX128, TILE_BYTES, q, b, h, L, H, r0, tid);
+  sm90::fence_proxy_async();
+  sm90::named_bar_sync(1 + cw, WG);          // this consumer's Q terms
+  // tiles whose first key lies past this consumer's last row add nothing
+  const int my_tiles = (min(S, r0 + 64) + F3_KEYS - 1) / F3_KEYS;
+  const float sl2 = scale * LOG2E;           // scores in log2 units
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * F3_KEYS;
+    const uint32_t phase = j & 1;
+    const bool live = j < my_tiles;
+    float s[32];
+    sm90::mbar_wait(&bars->k_full, phase);
+    if (live) {
+      const uint64_t desc_q = k_major(Qw), desc_k = k_major(Ks);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < 6; ++p)
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          sm90::wgmma_m64n64k16_ss(
+              s, desc_q + term_off(TILE_BYTES, a_term(p)) + k_step(BOX128, kk),
+              desc_k + term_off(QTILE_BYTES, b_term(p)) + k_step(BOX64, kk),
+              p > 0 || kk > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait();
+      sm90::fence_regs(s);
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&bars->k_empty);
+
+    uint32_t pa[TERMS][F3_KEYS / 16][4];
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] *= sl2;
+      // the diagonal tile and a ragged last tile: key > row or key >= S
+      if (k0 + F3_KEYS - 1 > r0 || k0 + F3_KEYS > S) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int key = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+          if (key > row + 8 * ((i / 2) & 1) || key >= S) s[i] = NEG_INF;
+        }
+      }
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        mx[(i / 2) & 1] = fmaxf(mx[(i / 2) & 1], s[i]);
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha[r];                    // this thread's share of the sum
+      }
+      sm90::fence_regs(acc);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] *= alpha[(i / 2) & 1];
+      // p (float) into the row sums and, as three terms, the A registers
+#pragma unroll
+      for (int kk = 0; kk < F3_KEYS / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 8 * kk + 2 * r, half = r & 1;
+          const float p0 = exp2f(s[i] - m[half]);
+          const float p1 = exp2f(s[i + 1] - m[half]);
+          l[half] += p0;
+          l[half] += p1;
+          split3(p0, p1, pa[0][kk][r], pa[1][kk][r], pa[2][kk][r]);
+        }
+    }
+
+    sm90::mbar_wait(&bars->v_full, phase);
+    if (live) {
+      const uint64_t desc_v = mn_major(Vs, BOX64);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < 6; ++p)
+#pragma unroll
+        for (int kk = 0; kk < F3_KEYS / 16; ++kk)
+          sm90::wgmma_m64n128k16_rs(
+              acc, pa[a_term(p)][kk],
+              desc_v + term_off(QTILE_BYTES, b_term(p)) + mn_step(kk), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait();
+      sm90::fence_regs(acc);
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&bars->v_empty);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+    inv[r] = 1.f / l[r];
+    if (t == 0 && row + 8 * r < L)
+      lse[static_cast<int64_t>(bh) * L + row + 8 * r] = m[r] * LN2 + logf(l[r]);
+  }
+  store_acc_rows(o, b, h, L, H, row, t, acc, inv);
+}
+
+constexpr int D3_KEYS = 64;      // keys per block
+constexpr int D3_ROWS = 32;      // query rows per streamed tile
+constexpr int D3_STAGES = 2;
+constexpr int D3_TILE = D3_ROWS * D * 2;   // one term of a Q or dO tile
+constexpr int BOX32 = D3_TILE / 2;         // 32 rows x 64 columns
+constexpr int D3_THREADS = 2 * WG;
+
+struct Dkv3Bars {
+  uint64_t full[D3_STAGES], empty[D3_STAGES];
+};
+struct Dkv3Stats {               // a streamed tile's lse and delta
+  float lse[D3_STAGES][D3_ROWS], delta[D3_STAGES][D3_ROWS];
+};
+constexpr size_t kDkv3Smem = 1024 + 2 * TERMS * QTILE_BYTES +
+                             2 * D3_STAGES * TERMS * D3_TILE +
+                             sizeof(Dkv3Stats) + sizeof(Dkv3Bars);
+
+// float32 dk and dv, grid (ceil(S / D3_KEYS), B*H), 256 threads: the K and
+// V terms of 64 keys stay resident (96 KB), so a block has one consumer
+// warpgroup (warpgroup 1; it splits K and V itself) and the converter
+// (warpgroup 0), which streams 32-row Q and dO tiles as terms, with their
+// lse and delta, through 2 stages of 48 KB, for the query rows >= k0. Per
+// tile: s^T = k q^T and dp^T = v dO^T (48 wgmma m64n32k16 each, all terms
+// K-major from shared memory); p^T and ds^T in registers, each split into
+// three A terms; dv += p^T dO and dk += ds^T q (12 wgmma m64n128k16 each,
+// dO's and q's terms MN-major with the transpose bit). One block an SM:
+// 198 KB of shared memory, up to 255 registers a thread.
+__global__ void __launch_bounds__(D3_THREADS, 1)
+    flash_dkv_split3_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            int H, int L, int S, float scale) {
+  extern __shared__ unsigned char raw_smem[];
+  unsigned char* const Ks = align1024(raw_smem);              // [term]
+  unsigned char* const Vs = Ks + TERMS * QTILE_BYTES;         // [term]
+  unsigned char* const Qs = Vs + TERMS * QTILE_BYTES;         // [stage][term]
+  unsigned char* const Gs = Qs + D3_STAGES * TERMS * D3_TILE; // dO
+  auto* stats = reinterpret_cast<Dkv3Stats*>(Gs + D3_STAGES * TERMS * D3_TILE);
+  auto* bars = reinterpret_cast<Dkv3Bars*>(stats + 1);
+  const int k0 = blockIdx.x * D3_KEYS;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int n_tiles = k0 < L ? (L - k0 + D3_ROWS - 1) / D3_ROWS : 0;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < D3_STAGES; ++st) {
+      sm90::mbar_init(&bars->full[st], WG);           // converter threads
+      sm90::mbar_init(&bars->empty[st], WG / 32);     // consumer warps
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {   // converter
+    const int tid = threadIdx.x;
+    const float* const lse_bh = lse + static_cast<int64_t>(bh) * L;
+    const float* const delta_bh = delta + static_cast<int64_t>(bh) * L;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % D3_STAGES, q0 = k0 + j * D3_ROWS;
+      sm90::mbar_wait(&bars->empty[st], ((j / D3_STAGES) & 1) ^ 1);
+      if (tid < D3_ROWS) {
+        const bool in = q0 + tid < L;
+        stats->lse[st][tid] = in ? lse_bh[q0 + tid] : 0.f;
+        stats->delta[st][tid] = in ? delta_bh[q0 + tid] : 0.f;
+      }
+      split_rows<D3_ROWS, 4>(Qs + st * TERMS * D3_TILE, BOX32, D3_TILE, q, b,
+                             h, L, H, q0, tid);
+      split_rows<D3_ROWS, 4>(Gs + st * TERMS * D3_TILE, BOX32, D3_TILE, dout,
+                             b, h, L, H, q0, tid);
+      sm90::fence_proxy_async();
+      sm90::mbar_arrive(&bars->full[st]);
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x - WG;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int key = k0 + 16 * warp + g;        // and key + 8
+  split_rows<D3_KEYS, 4>(Ks, BOX64, QTILE_BYTES, k, b, h, S, H, k0, tid);
+  split_rows<D3_KEYS, 4>(Vs, BOX64, QTILE_BYTES, v, b, h, S, H, k0, tid);
+  sm90::fence_proxy_async();
+  sm90::named_bar_sync(1, WG);               // the K and V terms
+  const float sl2 = scale * LOG2E;
+  float dk_acc[64], dv_acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % D3_STAGES, q0 = k0 + j * D3_ROWS;
+    const unsigned char* qt = Qs + st * TERMS * D3_TILE;
+    const unsigned char* gt = Gs + st * TERMS * D3_TILE;
+    float s[16], dp[16];
+    const uint64_t desc_k = k_major(Ks), desc_q = k_major(qt);
+    const uint64_t desc_v = k_major(Vs), desc_g = k_major(gt);
+    sm90::mbar_wait(&bars->full[st], (j / D3_STAGES) & 1);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < 6; ++p)
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_m64n32k16_ss(
+            s, desc_k + term_off(QTILE_BYTES, a_term(p)) + k_step(BOX64, kk),
+            desc_q + term_off(D3_TILE, b_term(p)) + k_step(BOX32, kk),
+            p > 0 || kk > 0);
+#pragma unroll
+    for (int p = 0; p < 6; ++p)
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_m64n32k16_ss(
+            dp, desc_v + term_off(QTILE_BYTES, a_term(p)) + k_step(BOX64, kk),
+            desc_g + term_off(D3_TILE, b_term(p)) + k_step(BOX32, kk),
+            p > 0 || kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+
+    // p^T = exp(s^T scale - lse), ds^T = p^T (dp^T - delta) scale; rows:
+    // keys key + 8((i / 2) & 1), columns: query rows q0 + c
+    const bool edge = k0 + D3_KEYS - 1 > q0 || q0 + D3_ROWS > L ||
+                      k0 + D3_KEYS > S;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int c = 8 * (i / 4) + 2 * t + (i & 1);
+      float p = exp2f(fmaf(s[i], sl2, -stats->lse[st][c] * LOG2E));
+      if (edge) {
+        const int kc = key + 8 * ((i / 2) & 1), qr = q0 + c;
+        if (kc > qr || kc >= S || qr >= L) p = 0.f;
+      }
+      dp[i] = p * (dp[i] - stats->delta[st][c]) * scale;
+      s[i] = p;
+    }
+    uint32_t pa[TERMS][D3_ROWS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < D3_ROWS / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        split3(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], pa[0][kk][r],
+               pa[1][kk][r], pa[2][kk][r]);
+    sm90::fence_regs(dv_acc);
+    sm90::wgmma_fence();
+    const uint64_t desc_gt = mn_major(gt, BOX32);
+#pragma unroll
+    for (int p = 0; p < 6; ++p)
+#pragma unroll
+      for (int kk = 0; kk < D3_ROWS / 16; ++kk)
+        sm90::wgmma_m64n128k16_rs(
+            dv_acc, pa[a_term(p)][kk],
+            desc_gt + term_off(D3_TILE, b_term(p)) + mn_step(kk), 1);
+    uint32_t da[TERMS][D3_ROWS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < D3_ROWS / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        split3(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1], da[0][kk][r],
+               da[1][kk][r], da[2][kk][r]);
+    sm90::fence_regs(dk_acc);
+    sm90::wgmma_fence();
+    const uint64_t desc_qt = mn_major(qt, BOX32);
+#pragma unroll
+    for (int p = 0; p < 6; ++p)
+#pragma unroll
+      for (int kk = 0; kk < D3_ROWS / 16; ++kk)
+        sm90::wgmma_m64n128k16_rs(
+            dk_acc, da[a_term(p)][kk],
+            desc_qt + term_off(D3_TILE, b_term(p)) + mn_step(kk), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+    sm90::fence_regs(dk_acc);
+    sm90::fence_regs(dv_acc);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
+  }
+  const float one[2] = {1.f, 1.f};
+  store_acc_rows(dk, b, h, S, H, key, t, dk_acc, one);
+  store_acc_rows(dv, b, h, S, H, key, t, dv_acc, one);
+}
+
 constexpr size_t kDqSmem = sizeof(float) * (2 * TILE * DP + 2 * STREAM * DP +
                                             TILE * SP + 2 * TILE);
-constexpr size_t kDkvSmem = sizeof(float) * (2 * TILE * DP +
-                                             2 * STREAM * DP + TILE * SP +
-                                             2 * STREAM);
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
-}
-
-template <typename T>
-int launch_fwd(const void* q, const void* k, const void* v, void* o,
-               float* lse, int B, int H, int L, int S, float scale,
-               cudaStream_t stream) {
-  cudaError_t err = allow_smem(flash_fwd_kernel<T>, kFwdSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((L + TILE - 1) / TILE, B * H);
-  flash_fwd_kernel<T><<<grid, NT, kFwdSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, H, L, S, scale);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -1084,17 +1350,32 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, void* dk, void* dv,
-               int B, int H, int L, int S, float scale, cudaStream_t stream) {
-  cudaError_t err = allow_smem(flash_dkv_kernel<T>, kDkvSmem);
+// float32 forward and dk/dv: three bf16 terms on wgmma, no tensor maps
+int launch_fwd_split3(const void* q, const void* k, const void* v, void* o,
+                      float* lse, int B, int H, int L, int S, float scale,
+                      cudaStream_t stream) {
+  const cudaError_t err = allow_smem(flash_fwd_split3_kernel, kFwd3Smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + TILE - 1) / TILE, B * H);
-  flash_dkv_kernel<T><<<grid, NT, kDkvSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), H, L, S, scale);
+  const dim3 grid((L + F3_ROWS - 1) / F3_ROWS, B * H);
+  flash_fwd_split3_kernel<<<grid, SM90_THREADS, kFwd3Smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, L, S,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dkv_split3(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dk, void* dv, int B, int H, int L, int S,
+                      float scale, cudaStream_t stream) {
+  const cudaError_t err = allow_smem(flash_dkv_split3_kernel, kDkv3Smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + D3_KEYS - 1) / D3_KEYS, B * H);
+  flash_dkv_split3_kernel<<<grid, D3_THREADS, kDkv3Smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dk), static_cast<float*>(dv), H, L, S,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1175,7 +1456,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int bf16, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* lse_f = static_cast<float*>(lse);
-  if (!bf16) return launch_fwd<float>(q, k, v, o, lse_f, B, H, L, S, scale, s);
+  if (!bf16)
+    return launch_fwd_split3(q, k, v, o, lse_f, B, H, L, S, scale, s);
   return launch_fwd_sm90(q, k, v, o, lse_f, B, H, L, S, scale, s);
 }
 
@@ -1201,7 +1483,7 @@ int flash_attention_dkv(const void* q, const void* k, const void* v,
   auto* l = static_cast<const float*>(lse);
   auto* dl = static_cast<const float*>(delta);
   if (!bf16)
-    return launch_dkv<float>(q, k, v, dout, l, dl, dk, dv, B, H, L, S, scale,
+    return launch_dkv_split3(q, k, v, dout, l, dl, dk, dv, B, H, L, S, scale,
                              s);
   return launch_dkv_sm90(q, k, v, dout, l, dl, dk, dv, B, H, L, S, scale, s);
 }

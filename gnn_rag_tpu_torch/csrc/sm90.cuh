@@ -4,7 +4,9 @@
 // kernels. Header only; every function is inline.
 //
 // Shared-memory tiles are bf16 rows of 64 columns (128 bytes) written by TMA
-// with the 128-byte swizzle; a 128-column head is two such boxes. wgmma
+// with the 128-byte swizzle, or by threads in the same layout (16-byte chunk
+// c of row r at chunk c ^ (r % 8); then fence_proxy_async before the barrier
+// that releases them to wgmma); a 128-column head is two such boxes. wgmma
 // reads them through descriptors (desc_sw128): K-major operands (the
 // reduction axis contiguous, as q and k rows are for q k^T) step 32 bytes a
 // depth-16 slice inside the swizzled row and 1024 bytes (8 rows) between
@@ -82,6 +84,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// order this thread's earlier shared-memory writes (generic proxy) before
+// later reads by the async proxy (wgmma, TMA) that a barrier releases
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier `id` (1..15; 0 is __syncthreads) over `count` threads, a
+// multiple of 32
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // -------------------------------------------------------------- setmaxnreg
@@ -184,6 +198,21 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (+)= A B for a 64 x 32 tile, depth 16; A and B from shared memory,
+// both K-major
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t a,
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 

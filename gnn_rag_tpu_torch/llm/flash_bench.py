@@ -1,4 +1,4 @@
-"""Time the bf16 flash kernels, the gate-scatter kernels and the ReaRev train
+"""Time the flash kernels, the gate-scatter kernels and the ReaRev train
 step of two trees of this repository in turns.
 
     python -m gnn_rag_tpu_torch.llm.flash_bench build/parent .
@@ -9,11 +9,14 @@ and its own modules), in the order given and then reversed (A B B A), on
 one card. Each child prints one JSON line: the tree, the card, and per
 phase of ``--phases`` (default all three):
 
-- ``flash``: at the SFT step's shape B8 L2047 H32 D128 bf16, per kernel
-  (fwd, dq, dkv) the CUDA-event median ms over 10 runs of 5 launches, the
-  bound, its share of the bound and the achieved TFLOP/s, and each output's
-  largest ratio to its tolerance against the plain versions (dk and dv also
-  from the plain forward's lse and delta, the same inputs in both trees);
+- ``flash``: at the SFT step's shape B8 L2047 H32 D128, in bf16 and in
+  float32, per kernel (fwd, dq, dkv) the CUDA-event median ms (bf16 over
+  10 runs of 5 launches, float32 over 5 runs of 2), the bound (float32:
+  six bf16 tensor-core passes, and ``float_core_bound_ms`` at the float
+  cores' peak), its share of the bound and the achieved TFLOP/s, and each
+  output's largest ratio to its tolerance against the plain versions (dk
+  and dv also from the plain forward's lse and delta, the same inputs in
+  both trees);
 - ``gate``: the gate-scatter kernels of ``ops.gate_scatter``: the v4
   forward K1 (both directions) at every row of chip_smoke's
   ``KERNEL_SHAPES`` and the skewed WebQSP layout ``SKEWED``; the v4
@@ -58,6 +61,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
 PHASES = ("flash", "gate", "steps")
 SHAPE = (8, 2047, 32, 128)         # B, L, H, D of the SFT step's attention
 TIMING = dict(runs=10, reps=5, warmup=2)
+# the flash kernels' timing by type: the float32 ones take ~5-25 ms a launch
+FLASH_TIMING = {"bfloat16": TIMING, "float32": dict(runs=5, reps=2, warmup=1)}
 # a child loads this file by path and measures the tree in argv[2]
 _CHILD = ("import importlib.util as u, sys; "
           "s = u.spec_from_file_location('flash_bench', sys.argv[1]); "
@@ -94,7 +99,8 @@ def measure(tree, phases, data):
     device = torch.device("cuda", 0)
     out = {}
     if "flash" in phases:
-        out.update(measure_flash(smoke, device))
+        out["flash"] = {dtype: measure_flash(smoke, device, dtype, timing)
+                        for dtype, timing in FLASH_TIMING.items()}
     if "gate" in phases:
         out["gate_scatter"] = measure_gate(smoke, device)
     if "steps" in phases:
@@ -106,14 +112,15 @@ def measure(tree, phases, data):
                           **out)), flush=True)
 
 
-def measure_flash(smoke, device):
-    """The flash kernels: errors against the plain versions, then times."""
+def measure_flash(smoke, device, dtype, timing):
+    """The flash kernels in ``dtype``: errors against the plain versions,
+    then times."""
     import torch
     from gnn_rag_tpu_torch.llm import flash_attention as fa
     B, L, H, D = SHAPE
     gen = torch.Generator(device=device).manual_seed(smoke.SEED + 2)
     q, k, v, g = (torch.randn(SHAPE, generator=gen, device=device)
-                  .to(torch.bfloat16) for _ in range(4))
+                  .to(getattr(torch, dtype)) for _ in range(4))
     o, lse = fa.flash_fwd(q, k, v)
     delta = fa.bwd_delta(o, g)
     got = (o, lse, fa.flash_dq(q, k, v, g, lse, delta),
@@ -134,17 +141,20 @@ def measure_flash(smoke, device):
     calls = {"fwd": lambda: fa.flash_fwd(q, k, v),
              "dq": lambda: fa.flash_dq(q, k, v, g, lse, delta),
              "dkv": lambda: fa.flash_dkv(q, k, v, g, lse, delta)}
-    bounds = smoke.attn_bounds(B, L, H, D, "bfloat16")
+    bounds = smoke.attn_bounds(B, L, H, D, dtype)
     flops = smoke.attn_flops(B, L, H, D)
     kernels = {}
     for name, fn in calls.items():
-        ms = smoke.median_ms(fn, **TIMING)
+        ms = smoke.median_ms(fn, **timing)
         kernels[name] = dict(ms=ms, bound_ms=bounds[name][0],
                              bound_share=bounds[name][0] / ms,
                              tflops=flops[name] / ms / 1e9)
+        if dtype == "float32":
+            kernels[name]["float_core_bound_ms"] = smoke.attn_bounds(
+                B, L, H, D, dtype, float_cores=True)[name][0]
     del q, k, v, g, o, lse, delta, calls
     torch.cuda.empty_cache()
-    return dict(shape="B8 L2047 H32 D128 bf16", kernels=kernels,
+    return dict(shape=f"B8 L2047 H32 D128 {dtype}", kernels=kernels,
                 err_over_tol=errs)
 
 
