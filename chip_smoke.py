@@ -178,6 +178,7 @@ SM90_KERNELS = {"flash_fwd_sm90_kernel": ("HGMMA", "UTMALDG"),
                 "flash_dq_sm90_kernel": ("HGMMA", "UTMALDG"),
                 "flash_dkv_sm90_kernel": ("HGMMA", "UTMALDG"),
                 "flash_fwd_split3_kernel": ("HGMMA",),
+                "flash_dq_split3_kernel": ("HGMMA",),
                 "flash_dkv_split3_kernel": ("HGMMA",)}
 FLASH = "gnn_rag_tpu/llm_tpu/flash_attention.py"
 # the card's published peaks (H100 SXM data sheet, dense): float32 outside
@@ -2323,7 +2324,7 @@ def sft_fp32_step_time(tokens, mask, device):
                         if kernel in e.key) / 1e3,
                     sum(e.count for e in dev if kernel in e.key)]
              for name, kernel in (("fwd", "flash_fwd_split3_kernel"),
-                                  ("dq", "flash_dq_kernel"),
+                                  ("dq", "flash_dq_split3_kernel"),
                                   ("dkv", "flash_dkv_split3_kernel"))}
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
     losses = [x.item() for x in losses]
@@ -2901,13 +2902,19 @@ MESH_REAREV = dict(entity_dim=50, num_iter=3, num_ins=2, num_gnn=3,
                    linear_dropout=0.2)
 MESH_QUESTIONS, MESH_REL, MESH_WORD = 32, 512, 384
 MESH_SFT = dict(n_layers=2, batch=2, seq=2048, steps=2)
+# the mesh phase's processes: cuBLAS's deterministic workspace setting,
+# which torch.use_deterministic_algorithms needs before a process's first
+# GEMM
+MESH_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
 
 
 def mesh_rearev(mesh, root):
     """Two epochs (4 B8 steps each) of ReaRev on the mesh's ranks, or in
-    one process (``mesh`` None): (the epochs' losses, every step's gradient
-    norm before the clip, ms a step of the second, whole state, launches,
-    sharded names, the batch's E bucket)."""
+    one process (``mesh`` None), with PyTorch's deterministic algorithms
+    (the process must have CUBLAS_WORKSPACE_CONFIG set: MESH_ENV): (the
+    epochs' losses, every step's gradient norm before the clip, ms a step
+    of the second, whole state, launches, sharded names, the batch's E
+    bucket)."""
     import logging
 
     import numpy as np
@@ -2943,11 +2950,17 @@ def mesh_rearev(mesh, root):
 
     tr.train_step = kept
     reset_gate_counts()
-    losses = [tr.train_epoch()[0]]          # the first epoch warms up
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    losses.append(tr.train_epoch()[0])
-    torch.cuda.synchronize()
+    # PyTorch's deterministic kernels: the backward of a gather adds its
+    # rows in a fixed order instead of with atomics (run_mesh)
+    torch.use_deterministic_algorithms(True)
+    try:
+        losses = [tr.train_epoch()[0]]      # the first epoch warms up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(tr.train_epoch()[0])
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
     ms = 1e3 * (time.perf_counter() - t) / tr.steps_per_epoch
     norms = [float(n) for n in norms]
     launches = (gs.launches, gs.bwd_launches)
@@ -3030,11 +3043,53 @@ def mesh_rank_main(rank, port, out):
     dist.destroy_process_group()
 
 
+def mesh_reference_main(out):
+    """The one-process ReaRev run the mesh ranks are held to
+    (``chip_smoke.py --mesh-reference --out DIR``), in a process of its own
+    as theirs are: DIR/reference.json and DIR/rearev_one.npz."""
+    import numpy as np
+    sys.path.insert(0, REPO)
+    losses, norms, ms, state, launches, _, _ = mesh_rearev(None, out)
+    np.savez(os.path.join(out, "rearev_one.npz"), **state)
+    with open(os.path.join(out, "reference.json"), "w") as f:
+        json.dump(dict(losses=losses, grad_norms=norms, ms_per_step=ms,
+                       launches_fwd_bwd=launches), f)
+
+
+def mesh_children(args_list, out, timeout=420):
+    """Run this script's mesh processes (one argument list each) at once,
+    with MESH_ENV, each with a timeout; a process that fails fails the
+    phase."""
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__)]
+                              + args + ["--out", out], cwd=REPO,
+                              env={**os.environ, **MESH_ENV},
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for args in args_list]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for args, p, text in zip(args_list, procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"mesh: {' '.join(args)} exited "
+                                 f"{p.returncode}:\n{text[-3000:]}")
+
+
 def run_mesh(device, root, card):
     """Phase mesh: two ranks on the one card over gloo (NCCL refuses two
     ranks on one device), each a process of this script started with a
     timeout; a rank that fails fails the phase. ReaRev (dp 2, then dp 1 x
-    tp 2; 8 steps) against one process here: epoch losses rtol 1e-5, every parameter
+    tp 2; 8 steps) against one process, run after them in a process of its
+    own, each with PyTorch's deterministic algorithms: with the atomic adds
+    of a gather's backward, the rounding differs from run to run and Adam's
+    normalised steps carry it into the parameters, by enough that the
+    check passed or failed by the run; without them each side gives the
+    same bits every run. Epoch losses rtol 1e-5, every parameter
     rtol 1e-4 / atol 1e-6 (Adam's normalised steps of the softmax biases,
     gradient 0 up to rounding, within 2 lr a step), K1/K2 launched on both
     ranks, each step's gradient norm before the clip rtol 1e-3 (Adam's step
@@ -3046,40 +3101,26 @@ def run_mesh(device, root, card):
     import socket
 
     import numpy as np
-    import torch
     out = os.path.join(root, "mesh")
     os.makedirs(os.path.join(out, "sft"), exist_ok=True)
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     t = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               "--mesh-rank", str(r), "--port", str(port),
-                               "--out", out], cwd=REPO,
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for r in range(2)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=420)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    mesh_children([["--mesh-rank", str(r), "--port", str(port)]
+                   for r in range(2)], out)
     wall = time.perf_counter() - t
-    for r, (p, text) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            raise AssertionError(f"mesh: rank {r} exited {p.returncode}:\n"
-                                 f"{text[-3000:]}")
+    mesh_children([["--mesh-reference"]], out)
     ranks = []
     for r in range(2):
         with open(os.path.join(out, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
-
-    gc.collect()
-    torch.cuda.empty_cache()
-    loss1, rnorms1, ms1, state1, launches1, _, _ = mesh_rearev(None, out)
+    with open(os.path.join(out, "reference.json")) as f:
+        one = json.load(f)
+    loss1, rnorms1, ms1, launches1 = (
+        one["losses"], one["grad_norms"], one["ms_per_step"],
+        one["launches_fwd_bwd"])
+    state1 = np.load(os.path.join(out, "rearev_one.npz"))
     per_step = 1 + MESH_REAREV["num_iter"] * MESH_REAREV["num_gnn"]
     steps = 2 * MESH_QUESTIONS // 8
     for name in ("dp2", "tp2"):
@@ -3098,7 +3139,8 @@ def run_mesh(device, root, card):
                 raise AssertionError(f"mesh {name} rank {r}: K1/K2 launches "
                                      f"{res[name]['launches_fwd_bwd']}")
         worst = 0.0
-        for k, w in state1.items():
+        for k in state1.files:
+            w = state1[k]
             d = np.abs(got[k] - w)
             if k in SOFTMAX_BIASES:
                 if d.max() > 2 * 5e-4 * steps:
@@ -3367,13 +3409,13 @@ def main():
                    for r, res in enumerate(mesh["ranks"])}},
             **({} if key == "fwd" else
                {"sdpa_bwd_ms_dq_dk_dv_together": main_row["sdpa_bwd_ms"]})})
-    # the float32 kernels (three bf16 terms a float on wgmma; dq on the
-    # float cores), on the float32 paths: the float32 SFT step, the float32
-    # gradient check and the qa phase's beam rescoring
+    # the float32 kernels (three bf16 terms a float on wgmma), on the
+    # float32 paths: the float32 SFT step, the float32 gradient check and
+    # the qa phase's beam rescoring
     f32_row = next(r for r in attn_rows if r["shape"] == "sft_b8_l2047_fp32")
     for i, (name, key, line, kernel) in enumerate((
             ("flash_attention_fwd_fp32", "fwd", 47, "flash_fwd_split3_kernel"),
-            ("flash_attention_dq_fp32", "dq", 132, "flash_dq_kernel<float>"),
+            ("flash_attention_dq_fp32", "dq", 132, "flash_dq_split3_kernel"),
             ("flash_attention_dkv_fp32", "dkv", 170,
              "flash_dkv_split3_kernel"))):
         parts = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}[key]
@@ -3408,5 +3450,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         mesh_rank_main(int(sys.argv[2]), int(sys.argv[4]), sys.argv[6])
+    elif sys.argv[1:2] == ["--mesh-reference"]:
+        mesh_reference_main(sys.argv[3])
     else:
         main()

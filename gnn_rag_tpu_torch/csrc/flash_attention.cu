@@ -19,24 +19,25 @@
 // to within the splits below, except p in the forward, which is rounded to
 // T before it multiplies v.
 //
-// Three groups of kernels, chosen by the input type:
+// Two groups of kernels, chosen by the input type:
 //
-// float32 forward and dk/dv (flash_{fwd,dkv}_split3_kernel), on the tensor
-// cores as the TPU's HIGHEST precision runs float32 dots (bf16_6x): every
-// float operand x enters wgmma as three bf16 terms x1 = bf16(x), x2 =
-// bf16(x - x1), x3 = bf16(x - x1 - x2), which hold its 24 significand bits,
-// and x y as the six term products whose indices add up to at most 4 (x3y1,
-// x2y2, x1y3, x2y1, x1y2, x1y1: the small ones first into the float
-// accumulator); the dropped x2y3, x3y2 and x3y3 are within ~2^-23 |x y|
+// float32 (flash_{fwd,dq,dkv}_split3_kernel), on the tensor cores as the
+// TPU's HIGHEST precision runs float32 dots (bf16_6x): every float operand
+// x enters wgmma as three bf16 terms x1 = bf16(x), x2 = bf16(x - x1), x3 =
+// bf16(x - x1 - x2), which hold its 24 significand bits, and x y as the six
+// term products whose indices add up to at most 4 (x3y1, x2y2, x1y3, x2y1,
+// x1y2, x1y1: the small ones first into the float accumulator); the
+// dropped x2y3, x3y2 and x3y3 are within ~2^-23 |x y|
 // (tests/test_torch_flash_split3.py: each product within 2^-21 of the sum
-// of its terms' sizes, o, dk and dv within 0.1 of the card check's 1e-4 of
-// max|plain|). Six bf16 passes at 989 TFLOP/s do the work of 3 TF32 passes
-// at 495, and bf16 terms (6 bytes an element) can be read MN-major through
-// the descriptor's transpose bit, which wgmma allows only for 16-bit types.
-// No tensor map: a converter warpgroup loads float rows with 16-byte loads
-// and writes their terms into shared memory in TMA's 128-byte-swizzled
-// layout (split_rows), fences them for the async proxy and arrives on the
-// stage's full barrier; consumers split their own resident rows likewise.
+// of its terms' sizes, o, dq, dk and dv within 0.1 of the card check's
+// 1e-4 of max|plain|). Six bf16 passes at 989 TFLOP/s do the work of 3
+// TF32 passes at 495, and bf16 terms (6 bytes an element) can be read
+// MN-major through the descriptor's transpose bit, which wgmma allows only
+// for 16-bit types. No tensor map: a converter warpgroup loads float rows
+// with 16-byte loads and writes their terms into shared memory in TMA's
+// 128-byte-swizzled layout (split_rows), fences them for the async proxy
+// and arrives on the stage's full barrier; consumers split their own
+// resident rows likewise.
 // - forward: 128 query rows a block, two consumers of 64 rows, each with
 //   its Q terms (96 KB in all) resident; 64-key K and V tiles as terms in
 //   one 48 KB slot each (K_j+1 is split while the consumers run softmax and
@@ -50,14 +51,12 @@
 //   48 wgmma m64n32k16 each, p^T and ds^T split into register A terms for
 //   dv += p^T dO and dk += ds^T q, 12 wgmma m64n128k16 each. 198 KB, 256
 //   threads, one block an SM, registers unsplit (up to 255).
-//
-// float32 dq (flash_dq_kernel<float>): IEEE float on the CUDA cores, the
-// first version. It keeps a 64-row q and dO tile resident in shared memory
-// and streams k and v in 32-row tiles through a loop inside the block (the
-// TPU's sequential inner grid axis). 256 threads as 16 x 16: thread (ty, tx)
-// computes the score entries of rows ty + 16i and columns tx + 16j and owns
-// output columns tx + 16jj of its rows; shared-memory rows are padded to
-// D + 1 floats so that column walks hit distinct banks.
+// - dq: dk/dv's mirror image. 64 query rows a block, the Q and dO terms
+//   resident (96 KB) with the rows' lse and delta in registers, one
+//   consumer and two 48 KB stages of 32-key K and V terms; s = q k^T and
+//   dp = dO v^T, 48 wgmma m64n32k16 each, ds split into register A terms
+//   for dq += ds k, 12 wgmma m64n128k16 (k's terms MN-major). 198 KB, 256
+//   threads, one block an SM, registers unsplit.
 //
 // bfloat16, on the tensor cores: Hopper's TMA and warpgroup wgmma (building
 // blocks in sm90.cuh). A block is three warpgroups: a producer whose one
@@ -109,25 +108,27 @@
 // 0.278 ms at the 989 TFLOP/s bf16 tensor-core rate; in float32, 1.667 ms
 // for the six bf16 passes that keep float32 accuracy on the tensor cores
 // (4.10 ms on the float cores at 67 TFLOP/s); dq and dk/dv do 1.5x and 2x
-// the forward's products (float32: 2.500 and 3.334 ms). The float32 dq
-// reads both operands of every product from shared memory, so shared-memory
-// load bandwidth sets its rate. The float32 split kernels reach 57%
-// (forward) and 52% (dk/dv) of their six-pass bounds (chip_smoke.py on an
-// H100 at 700 W): both read both operands of their score products from
-// shared memory (m64n32 in dk/dv: 1.5x the bytes a FLOP of the forward's
-// m64n64), and dk/dv's one consumer leaves the tensor cores idle while it
-// works on p^T and ds^T. The Hopper kernels run each consumer's steps in
-// order (scores, softmax, products): the tensor cores wait while a
-// warpgroup works on its registers unless the other warpgroup fills the
-// gap. FlashAttention-3's ping-pong of the two consumers and its overlap
-// of one tile's softmax with the next tile's scores are the next steps.
+// the forward's products (float32: 2.500 and 3.334 ms; 6.15 and 8.20 on
+// the float cores). The float32 split kernels reach 57% (forward), 44%
+// (dq) and 52% (dk/dv) of their six-pass bounds (chip_smoke.py on an H100
+// at 700 W): all read both operands of their score products from shared
+// memory (m64n32 in dq and dk/dv, 3 KB a product: 1.5x the bytes a FLOP
+// of the forward's m64n64), the converter's term stores (48 KB a tile)
+// share that bandwidth, and the one consumer of dq and dk/dv leaves the
+// tensor cores idle while it works on p and ds (dq, with 12 register-A
+// products a tile to dk/dv's 24, has less work to hide it behind). The
+// Hopper kernels run each consumer's steps in order (scores, softmax,
+// products): the tensor cores wait while a warpgroup works on its
+// registers unless the other warpgroup fills the gap. FlashAttention-3's
+// ping-pong of the two consumers and its overlap of one tile's softmax
+// with the next tile's scores are the next steps.
 //
 // ptxas -v (CUDA 12.8, sm_90a; chip_smoke.py prints it on its build line):
 // the three bf16 Hopper kernels 168 registers at launch (384 threads, one
 // block an SM; setmaxnreg then gives the consumers 240 (forward, dq) and
 // 232 (dk/dv), the producer 24 (forward, dq) and 40 (dk/dv));
 // flash_fwd_split3_kernel 168 at launch (consumers 200, converter 104),
-// flash_dkv_split3_kernel 222, flash_dq_kernel<float> 80; no spills, no
+// flash_dkv_split3_kernel 222, flash_dq_split3_kernel 137; no spills, no
 // stack frames.
 
 #include <cuda_bf16.h>
@@ -139,136 +140,11 @@
 namespace {
 
 constexpr int D = 128;        // head dim; the wrapper raises on any other
-constexpr int DP = D + 1;     // padded shared-memory row, in floats
-constexpr int NT = 256;       // threads per block, 16 x 16
-constexpr int TILE = 64;      // resident rows per block
-constexpr int STREAM = 32;    // streamed rows per loop step
-constexpr int SP = STREAM + 1;
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ int64_t offset(int b, int row, int h, int N,
                                           int H) {
   return ((static_cast<int64_t>(b) * N + row) * H + h) * D;
-}
-
-// rows [row0, row0 + nrows) of head h of a [B, N, H, D] tensor into float
-// shared memory [nrows][DP]; rows past N read as 0
-template <typename T>
-__device__ void load_rows(float* dst, const T* src, int b, int h, int N,
-                          int H, int row0, int nrows) {
-  for (int e = threadIdx.x; e < nrows * D; e += NT) {
-    const int r = e / D, c = e % D, row = row0 + r;
-    dst[r * DP + c] = row < N ? to_f(src[offset(b, row, h, N, H) + c]) : 0.f;
-  }
-}
-
-// per-row statistics (lse or delta, [B*H, L] float) of rows row0.. into dst
-__device__ void load_stat(float* dst, const float* src, int bh, int L,
-                          int row0, int nrows) {
-  for (int r = threadIdx.x; r < nrows; r += blockDim.x)
-    dst[r] = row0 + r < L ? src[static_cast<int64_t>(bh) * L + row0 + r] : 0.f;
-}
-
-// --------------------------------------------------------------------- dq
-// grid (ceil(L / TILE), B*H)
-template <typename T>
-__global__ void __launch_bounds__(NT)
-    flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int H, int L, int S, float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                 // [TILE][DP]
-  float* Gs = Qs + TILE * DP;       // [TILE][DP]   dO
-  float* Ks = Gs + TILE * DP;       // [STREAM][DP]
-  float* Vs = Ks + STREAM * DP;     // [STREAM][DP]
-  float* Ds = Vs + STREAM * DP;     // [TILE][SP]   ds
-  float* lse_s = Ds + TILE * SP;    // [TILE]
-  float* delta_s = lse_s + TILE;    // [TILE]
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * TILE;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  load_rows(Qs, q, b, h, L, H, q0, TILE);
-  load_rows(Gs, dout, b, h, L, H, q0, TILE);
-  load_stat(lse_s, lse, bh, L, q0, TILE);
-  load_stat(delta_s, delta, bh, L, q0, TILE);
-  float acc[4][8] = {};
-  const int k_end = min(S, q0 + TILE);
-  for (int k0 = 0; k0 < k_end; k0 += STREAM) {
-    __syncthreads();
-    load_rows(Ks, k, b, h, S, H, k0, STREAM);
-    load_rows(Vs, v, b, h, S, H, k0, STREAM);
-    __syncthreads();
-    float s[4][2] = {}, dp[4][2] = {};
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], g[4], c[2], w[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = Qs[(ty + 16 * i) * DP + d];
-        g[i] = Gs[(ty + 16 * i) * DP + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        c[j] = Ks[(tx + 16 * j) * DP + d];
-        w[j] = Vs[(tx + 16 * j) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          s[i][j] = fmaf(a[i], c[j], s[i][j]);
-          dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i, qr = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kc = k0 + tx + 16 * j;
-        const float sv = (kc <= qr && kc < S) ? s[i][j] * scale : NEG_INF;
-        const float p = expf(sv - lse_s[r]);
-        Ds[r * SP + tx + 16 * j] = p * (dp[i][j] - delta_s[r]) * scale;
-      }
-    }
-    __syncthreads();
-    for (int c = 0; c < STREAM; ++c) {
-      float ds[4], w[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = Ds[(ty + 16 * i) * SP + c];
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) w[jj] = Ks[c * DP + tx + 16 * jj];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-          acc[i][jj] = fmaf(ds[i], w[jj], acc[i][jj]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + ty + 16 * i;
-    if (qr >= L) continue;
-    T* row = dq + offset(b, qr, h, L, H);
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) row[tx + 16 * jj] = from_f<T>(acc[i][jj]);
-  }
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -1146,11 +1022,11 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
 constexpr int D3_KEYS = 64;      // keys per block
 constexpr int D3_ROWS = 32;      // query rows per streamed tile
 constexpr int D3_STAGES = 2;
-constexpr int D3_TILE = D3_ROWS * D * 2;   // one term of a Q or dO tile
+constexpr int D3_TILE = D3_ROWS * D * 2;   // one term of a 32-row tile
 constexpr int BOX32 = D3_TILE / 2;         // 32 rows x 64 columns
 constexpr int D3_THREADS = 2 * WG;
 
-struct Dkv3Bars {
+struct Ring3Bars {               // the streamed stages' barriers
   uint64_t full[D3_STAGES], empty[D3_STAGES];
 };
 struct Dkv3Stats {               // a streamed tile's lse and delta
@@ -1158,7 +1034,7 @@ struct Dkv3Stats {               // a streamed tile's lse and delta
 };
 constexpr size_t kDkv3Smem = 1024 + 2 * TERMS * QTILE_BYTES +
                              2 * D3_STAGES * TERMS * D3_TILE +
-                             sizeof(Dkv3Stats) + sizeof(Dkv3Bars);
+                             sizeof(Dkv3Stats) + sizeof(Ring3Bars);
 
 // float32 dk and dv, grid (ceil(S / D3_KEYS), B*H), 256 threads: the K and
 // V terms of 64 keys stay resident (96 KB), so a block has one consumer
@@ -1185,7 +1061,7 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
   unsigned char* const Qs = Vs + TERMS * QTILE_BYTES;         // [stage][term]
   unsigned char* const Gs = Qs + D3_STAGES * TERMS * D3_TILE; // dO
   auto* stats = reinterpret_cast<Dkv3Stats*>(Gs + D3_STAGES * TERMS * D3_TILE);
-  auto* bars = reinterpret_cast<Dkv3Bars*>(stats + 1);
+  auto* bars = reinterpret_cast<Ring3Bars*>(stats + 1);
   const int k0 = blockIdx.x * D3_KEYS;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int n_tiles = k0 < L ? (L - k0 + D3_ROWS - 1) / D3_ROWS : 0;
@@ -1326,8 +1202,157 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
   store_acc_rows(dv, b, h, S, H, key, t, dv_acc, one);
 }
 
-constexpr size_t kDqSmem = sizeof(float) * (2 * TILE * DP + 2 * STREAM * DP +
-                                            TILE * SP + 2 * TILE);
+constexpr int Q3_ROWS = 64;         // query rows per block
+constexpr int Q3_KEYS = D3_ROWS;    // keys per streamed tile
+constexpr size_t kDq3Smem = 1024 + 2 * TERMS * QTILE_BYTES +
+                            2 * D3_STAGES * TERMS * D3_TILE +
+                            sizeof(Ring3Bars);
+
+// float32 dq, grid (ceil(L / Q3_ROWS), B*H), 256 threads: dk/dv's mirror
+// image. The Q and dO terms of 64 query rows stay resident (96 KB), split
+// by the one consumer warpgroup (warpgroup 1), which keeps its rows' lse
+// and delta in registers; the converter (warpgroup 0) streams 32-key K and
+// V tiles as terms through 2 stages of 48 KB, for the keys below
+// min(S, q0 + 64). Per tile: s = q k^T and dp = dO v^T (48 wgmma m64n32k16
+// each, all terms K-major from shared memory); p and ds in registers, ds
+// split into three A terms; dq += ds k (12 wgmma m64n128k16, k's terms
+// MN-major with the transpose bit). One block an SM: 198 KB of shared
+// memory, up to 255 registers a thread.
+__global__ void __launch_bounds__(D3_THREADS, 1)
+    flash_dq_split3_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dq, int H, int L, int S,
+                           float scale) {
+  extern __shared__ unsigned char raw_smem[];
+  unsigned char* const Qs = align1024(raw_smem);               // [term]
+  unsigned char* const Gs = Qs + TERMS * QTILE_BYTES;          // [term] dO
+  unsigned char* const Ks = Gs + TERMS * QTILE_BYTES;          // [stage][term]
+  unsigned char* const Vs = Ks + D3_STAGES * TERMS * D3_TILE;  // [stage][term]
+  auto* bars = reinterpret_cast<Ring3Bars*>(Vs + D3_STAGES * TERMS * D3_TILE);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * Q3_ROWS;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int n_tiles = (min(S, q0 + Q3_ROWS) + Q3_KEYS - 1) / Q3_KEYS;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < D3_STAGES; ++st) {
+      sm90::mbar_init(&bars->full[st], WG);           // converter threads
+      sm90::mbar_init(&bars->empty[st], WG / 32);     // consumer warps
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {   // converter
+    const int tid = threadIdx.x;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % D3_STAGES, k0 = j * Q3_KEYS;
+      sm90::mbar_wait(&bars->empty[st], ((j / D3_STAGES) & 1) ^ 1);
+      split_rows<Q3_KEYS, 4>(Ks + st * TERMS * D3_TILE, BOX32, D3_TILE, k, b,
+                             h, S, H, k0, tid);
+      split_rows<Q3_KEYS, 4>(Vs + st * TERMS * D3_TILE, BOX32, D3_TILE, v, b,
+                             h, S, H, k0, tid);
+      sm90::fence_proxy_async();
+      sm90::mbar_arrive(&bars->full[st]);
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x - WG;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row = q0 + 16 * warp + g;        // and row + 8
+  split_rows<Q3_ROWS, 4>(Qs, BOX64, QTILE_BYTES, q, b, h, L, H, q0, tid);
+  split_rows<Q3_ROWS, 4>(Gs, BOX64, QTILE_BYTES, dout, b, h, L, H, q0, tid);
+  sm90::fence_proxy_async();
+  sm90::named_bar_sync(1, WG);               // the Q and dO terms
+  const float sl2 = scale * LOG2E;
+  float lse2[2], dl[2];                      // lse in log2 units, delta
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = row + 8 * r < L;
+    const int64_t i = static_cast<int64_t>(bh) * L + row + 8 * r;
+    lse2[r] = in ? lse[i] * LOG2E : 0.f;
+    dl[r] = in ? delta[i] : 0.f;
+  }
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % D3_STAGES, k0 = j * Q3_KEYS;
+    const unsigned char* kt = Ks + st * TERMS * D3_TILE;
+    const unsigned char* vt = Vs + st * TERMS * D3_TILE;
+    float s[16], dp[16];
+    const uint64_t desc_q = k_major(Qs), desc_k = k_major(kt);
+    const uint64_t desc_g = k_major(Gs), desc_v = k_major(vt);
+    sm90::mbar_wait(&bars->full[st], (j / D3_STAGES) & 1);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < 6; ++p)
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_m64n32k16_ss(
+            s, desc_q + term_off(QTILE_BYTES, a_term(p)) + k_step(BOX64, kk),
+            desc_k + term_off(D3_TILE, b_term(p)) + k_step(BOX32, kk),
+            p > 0 || kk > 0);
+#pragma unroll
+    for (int p = 0; p < 6; ++p)
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_m64n32k16_ss(
+            dp, desc_g + term_off(QTILE_BYTES, a_term(p)) + k_step(BOX64, kk),
+            desc_v + term_off(D3_TILE, b_term(p)) + k_step(BOX32, kk),
+            p > 0 || kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+
+    // p = exp(s scale - lse), ds = p (dp - delta) scale; rows: queries
+    // row + 8((i / 2) & 1), columns: keys k0 + c. Only a tile that crosses
+    // the diagonal or the ragged end is masked.
+    const bool edge = k0 + Q3_KEYS - 1 > q0 || k0 + Q3_KEYS > S;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int r = (i / 2) & 1;
+      float p = exp2f(fmaf(s[i], sl2, -lse2[r]));
+      if (edge) {
+        const int kc = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+        if (kc > row + 8 * r || kc >= S) p = 0.f;
+      }
+      dp[i] = p * (dp[i] - dl[r]) * scale;
+    }
+    uint32_t da[TERMS][Q3_KEYS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < Q3_KEYS / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        split3(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1], da[0][kk][r],
+               da[1][kk][r], da[2][kk][r]);
+    sm90::fence_regs(acc);
+    sm90::wgmma_fence();
+    const uint64_t desc_kt = mn_major(kt, BOX32);
+#pragma unroll
+    for (int p = 0; p < 6; ++p)
+#pragma unroll
+      for (int kk = 0; kk < Q3_KEYS / 16; ++kk)
+        sm90::wgmma_m64n128k16_rs(
+            acc, da[a_term(p)][kk],
+            desc_kt + term_off(D3_TILE, b_term(p)) + mn_step(kk), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+    sm90::fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
+  }
+  const float one[2] = {1.f, 1.f};
+  store_acc_rows(dq, b, h, L, H, row, t, acc, one);
+}
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -1336,21 +1361,8 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const float* lse, const float* delta, void* dq, int B, int H,
-              int L, int S, float scale, cudaStream_t stream) {
-  cudaError_t err = allow_smem(flash_dq_kernel<T>, kDqSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((L + TILE - 1) / TILE, B * H);
-  flash_dq_kernel<T><<<grid, NT, kDqSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), H, L, S, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// float32 forward and dk/dv: three bf16 terms on wgmma, no tensor maps
+// float32 forward, dq and dk/dv: three bf16 terms on wgmma, no tensor
+// maps
 int launch_fwd_split3(const void* q, const void* k, const void* v, void* o,
                       float* lse, int B, int H, int L, int S, float scale,
                       cudaStream_t stream) {
@@ -1361,6 +1373,20 @@ int launch_fwd_split3(const void* q, const void* k, const void* v, void* o,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, H, L, S,
       scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dq_split3(const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* delta,
+                     void* dq, int B, int H, int L, int S, float scale,
+                     cudaStream_t stream) {
+  const cudaError_t err = allow_smem(flash_dq_split3_kernel, kDq3Smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((L + Q3_ROWS - 1) / Q3_ROWS, B * H);
+  flash_dq_split3_kernel<<<grid, D3_THREADS, kDq3Smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dq), H, L, S, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1470,7 +1496,8 @@ int flash_attention_dq(const void* q, const void* k, const void* v,
   auto* l = static_cast<const float*>(lse);
   auto* dl = static_cast<const float*>(delta);
   if (!bf16)
-    return launch_dq<float>(q, k, v, dout, l, dl, dq, B, H, L, S, scale, s);
+    return launch_dq_split3(q, k, v, dout, l, dl, dq, B, H, L, S, scale,
+                            s);
   return launch_dq_sm90(q, k, v, dout, l, dl, dq, B, H, L, S, scale, s);
 }
 

@@ -16,12 +16,12 @@ work in float32 from the widened inputs, given delta = rowsum(dO * o)
 ``[B*H, L]`` (a plain reduction, ``bwd_delta``, as the JAX package leaves it
 to XLA). bfloat16 inputs run on the tensor cores through TMA and wgmma (the
 backward's float p and ds as two bf16 terms, hi + mid, within 2^-16 of each
-product). float32 inputs run the forward and dk/dv on the tensor cores too,
+product). float32 inputs run all three kernels on the tensor cores too,
 each float as three bf16 terms and each product as six bf16 products
 (within ~2^-23 of it: the TPU's float32 dots at Precision.HIGHEST do the
-same), and dq on the CUDA cores in IEEE float32; all sums are float. The
-kernels take D = 128 and any L and S (a ragged last tile is masked in the
-kernel; the JAX wrapper pads L to 128 instead).
+same); all sums are float. The kernels take D = 128 and any L and S (a
+ragged last tile is masked in the kernel; the JAX wrapper pads L to 128
+instead).
 
 Dispatch: CPU tensors take the plain versions (``flash_fwd_plain``,
 ``flash_dq_plain``, ``flash_dkv_plain``: dense attention and the

@@ -14,9 +14,9 @@ phase of ``--phases`` (default all three):
   10 runs of 5 launches, float32 over 5 runs of 2), the bound (float32:
   six bf16 tensor-core passes, and ``float_core_bound_ms`` at the float
   cores' peak), its share of the bound and the achieved TFLOP/s, and each
-  output's largest ratio to its tolerance against the plain versions (dk
-  and dv also from the plain forward's lse and delta, the same inputs in
-  both trees);
+  output's largest ratio to its tolerance against the plain versions (dq,
+  dk and dv also from the plain forward's lse and delta, the same inputs
+  in both trees);
 - ``gate``: the gate-scatter kernels of ``ops.gate_scatter``: the v4
   forward K1 (both directions) at every row of chip_smoke's
   ``KERNEL_SHAPES`` and the skewed WebQSP layout ``SKEWED``; the v4
@@ -131,11 +131,12 @@ def measure_flash(smoke, device, dtype, timing):
             *fa.flash_dkv_plain(q, k, v, g, plse, pdelta))
     errs = {name: smoke.attn_err(a, b)[2] for name, a, b in
             zip(("o", "lse", "dq", "dk", "dv"), got, want)}
-    # dk/dv fed the plain forward's lse and delta: both trees' kernels on
-    # the same inputs, so the ratios compare the kernels alone
-    same = fa.flash_dkv(q, k, v, g, plse, pdelta)
+    # dq and dk/dv fed the plain forward's lse and delta: both trees'
+    # kernels on the same inputs, so the ratios compare the kernels alone
+    same = (fa.flash_dq(q, k, v, g, plse, pdelta),
+            *fa.flash_dkv(q, k, v, g, plse, pdelta))
     errs.update({f"{name}_same_inputs": smoke.attn_err(a, b)[2] for name, a, b
-                 in zip(("dk", "dv"), same, want[3:])})
+                 in zip(("dq", "dk", "dv"), same, want[2:])})
     del got, want, same, po, plse, pdelta
     torch.cuda.empty_cache()
     calls = {"fwd": lambda: fa.flash_fwd(q, k, v),

@@ -650,7 +650,11 @@ def bf16_tol(b, steps=1):
     # the float32 kernels' edges: one row, one row past a 128-row block
     # (32-row Q tiles, 64-key tiles in dk/dv), the model's head stride
     (1, 1, 2, torch.float32), (1, 129, 2, torch.float32),
-    (2, 300, 32, torch.float32)])
+    (2, 300, 32, torch.float32),
+    # float32 dq's 64-row blocks and 32-key tiles: one row past a block and
+    # a tile, the SFT length, whole tiles half a block past one
+    (1, 65, 2, torch.float32), (1, 2047, 2, torch.float32),
+    (1, 96, 2, torch.float32)])
 def test_flash_kernels_match_plain(cuda, B, L, H, dtype):
     g = torch.Generator(device=cuda).manual_seed(L)
     q, k, v, do = (torch.randn((B, L, H, 128), generator=g, device=cuda

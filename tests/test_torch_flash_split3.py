@@ -1,19 +1,19 @@
 """The float32 flash kernels' arithmetic, emulated on the CPU.
 
-On the card the float32 forward and dk/dv kernels feed every float operand
-x to the bf16 tensor cores as three terms, x1 = bf16(x), x2 = bf16(x - x1),
-x3 = bf16(x - x1 - x2), and form x y as the six term products whose indices
-add up to at most 4, the small ones first, summed in float32
-(csrc/flash_attention.cu, ``a_term`` / ``b_term``). Emulated here with the
-same inputs from a numpy seed at (1, 300, 2, 128) float32:
+On the card the float32 forward, dq and dk/dv kernels feed every float
+operand x to the bf16 tensor cores as three terms, x1 = bf16(x), x2 =
+bf16(x - x1), x3 = bf16(x - x1 - x2), and form x y as the six term
+products whose indices add up to at most 4, the small ones first, summed
+in float32 (csrc/flash_attention.cu, ``a_term`` / ``b_term``). Emulated
+here with the same inputs from a numpy seed at (1, 300, 2, 128) float32:
 
 * each product, in float64, is within 2^-21 sum |x y| of the exact one (the
   dropped x2y3, x3y2 and x3y3 are within ~2^-23 |x y|);
-* the emulated o and lse (forward) and dk and dv (dk/dv), summed in float32,
-  are within 0.1 of the card check's tolerance (1e-4 of max|plain|,
-  chip_smoke.attn_err) of ``flash_fwd_plain`` and ``flash_dkv_plain``,
-  which tests/test_torch_llm.py holds to the Pallas kernels in interpret
-  mode.
+* the emulated o and lse (forward), dq (dq) and dk and dv (dk/dv), summed
+  in float32, are within 0.1 of the card check's tolerance (1e-4 of
+  max|plain|, chip_smoke.attn_err) of ``flash_fwd_plain``,
+  ``flash_dq_plain`` and ``flash_dkv_plain``, which
+  tests/test_torch_llm.py holds to the Pallas kernels in interpret mode.
 """
 
 import math
@@ -88,6 +88,22 @@ def dkv_split3(q, k, v, dout, lse, delta):
     return dk, dv, products
 
 
+def dq_split3(q, k, v, dout, lse, delta):
+    """(dq, products): s = q k^T, dp = dO v^T and dq = ds k as term
+    products, q, dO and ds the left operands as in the kernel."""
+    B, L, H, D = q.shape
+    scale = 1 / math.sqrt(D)
+    s = product("blhd,bshd->bhls", q, k) * scale
+    keep = torch.arange(L)[None, :] <= torch.arange(L)[:, None]
+    p = torch.exp(s - lse.reshape(B, H, L, 1)) * keep
+    dp = product("blhd,bshd->bhls", dout, v)
+    ds = p * (dp - delta.reshape(B, H, L, 1)) * scale
+    dq = product("bhls,bshd->blhd", ds, k)
+    products = (("blhd,bshd->bhls", q, k), ("blhd,bshd->bhls", dout, v),
+                ("bhls,bshd->blhd", ds, k))
+    return dq, products
+
+
 def run(kernel, seed=5):
     """(emulated outputs, plain outputs, products) of one kernel."""
     q, k, v, g = inputs(seed)
@@ -96,11 +112,14 @@ def run(kernel, seed=5):
         o, lse, products = forward_split3(q, k, v)
         return (o, lse), (po, plse), products
     delta = fa.bwd_delta(po, g)
+    if kernel == "dq":
+        dq, products = dq_split3(q, k, v, g, plse, delta)
+        return (dq,), (fa.flash_dq_plain(q, k, v, g, plse, delta),), products
     dk, dv, products = dkv_split3(q, k, v, g, plse, delta)
     return (dk, dv), fa.flash_dkv_plain(q, k, v, g, plse, delta), products
 
 
-@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_six_term_products_keep_float32(kernel):
     """Each product of the kernel, formed from the three-term split in
     float64, is within 2^-21 sum |x y| of the exact float64 product."""
@@ -112,7 +131,7 @@ def test_six_term_products_keep_float32(kernel):
         assert bool(((got - exact).abs() <= 2 ** -21 * size).all()), eq
 
 
-@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_split3_outputs_within_a_tenth_of_the_card_tolerance(kernel):
     """The emulated kernel's outputs against the plain version's: within
     0.1 x 1e-4 of max|plain| (the card check holds the kernel to 1e-4)."""
