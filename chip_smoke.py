@@ -93,6 +93,9 @@ The LLM reader (the flash-attention kernels K5a-c):
      medians of kernel, plain and SDPA at the SFT shape (bf16: 10 runs of 5
      launches, fp32 5 of 2), each kernel's share of its bound (float32: six
      bf16 tensor-core passes, beside the float-core bound) and its TFLOP/s;
+     the same for the bf16 kernels at head dim 256 (Gemma-2B's 8 heads):
+     B2 L2047 (the step-time-llm-d256 step's shape) and B8 L2047, timed,
+     and B2 L1000, B1 L129;
   8. sft: the RoG joint-finetune SFT (scripts/train_sft.sh) through the
      port's entry (`python -m gnn_rag_tpu_torch.llm.sft`, run in this
      process) at LLaMA2-7B width cut to 4 of 32 layers, random weights from
@@ -129,7 +132,15 @@ The LLM reader (the flash-attention kernels K5a-c):
      attention on the float32 flash kernels) at LLaMA2-7B width cut to 4
      layers, B2 x 2048: ms a step over 3 steps after one warm-up, the
      flash launches (4 of each a step), no call of a plain flash version,
-     and each flash kernel's device ms in one profiled step.
+     and each flash kernel's device ms in one profiled step;
+  11c. step-time-llm-d256: the SFT at Gemma-2B's widths (D256_FLAGS: 8
+     heads of 256, one kv head, 18 layers, vocab 256000, tied, bf16) on
+     the repo's LLaMA block through the port's entry (run in this process),
+     3 steps at B2 x 2048: flash launches exact (18 of each a step, at head
+     dim 256) and no plain flash call; ms a step, positions/s, peak GB,
+     each flash kernel's device ms in a profiled step; a no-cache scoring
+     forward of the trained model (K5a) and the first step's loss, each
+     against plain attention.
 The reader at LLaMA2-7B widths and the full 32 layers (after the SFT
 trainer is freed):
   12. lora: LoRA finetuning (``llm.lora.LoRATrainer``: r 8, alpha 16 on
@@ -174,9 +185,10 @@ PALLAS = "gnn_rag_tpu/ops/pallas_mp.py"
 # the flash kernels on wgmma, each with the SASS opcodes it must hold: the
 # bf16 ones load by TMA, the float32 ones (three bf16 terms a float,
 # converted by a warpgroup from plain loads) do not
-SM90_KERNELS = {"flash_fwd_sm90_kernel": ("HGMMA", "UTMALDG"),
-                "flash_dq_sm90_kernel": ("HGMMA", "UTMALDG"),
-                "flash_dkv_sm90_kernel": ("HGMMA", "UTMALDG"),
+# (the bf16 ones are templates on the head dim: their instances by mangled
+# name, <128> and <256>)
+SM90_KERNELS = {**{f"flash_{k}_sm90_kernelILi{d}E": ("HGMMA", "UTMALDG")
+                   for k in ("fwd", "dq", "dkv") for d in (128, 256)},
                 "flash_fwd_split3_kernel": ("HGMMA",),
                 "flash_dq_split3_kernel": ("HGMMA",),
                 "flash_dkv_split3_kernel": ("HGMMA",)}
@@ -211,16 +223,39 @@ LORA_ALPHA = 16.0
 # speculative round
 SERVE_NEW = 64
 SPEC_GAMMA = 4
-# (name, B, L, dtype) of the flash-kernel checks: the shape the SFT step
-# gives the kernels (H32 D128; its loss runs the model on tokens[:, :-1], so
-# L is SFT_SEQ - 1 with a ragged last tile) in both types, another L, and
-# one row past a 128-row tile (TMA's out-of-bounds rows); B8 rows are timed
-ATTN_SHAPES = (("sft_b8_l2047_bf16", 8, SFT_SEQ - 1, "bfloat16"),
-               ("sft_b8_l2047_fp32", 8, SFT_SEQ - 1, "float32"),
-               ("ragged_b2_l1000_bf16", 2, 1000, "bfloat16"),
-               ("ragged_b2_l1000_fp32", 2, 1000, "float32"),
-               ("ragged_b1_l129_bf16", 1, 129, "bfloat16"),
-               ("ragged_b1_l129_fp32", 1, 129, "float32"))
+# (name, B, L, H, D, dtype) of the flash-kernel checks: the shape the SFT
+# step gives the kernels (H32 D128; its loss runs the model on tokens[:, :-1],
+# so L is SFT_SEQ - 1 with a ragged last tile) in both types, another L, and
+# one row past a 128-row tile (TMA's out-of-bounds rows); then head dim 256
+# in bf16 at Gemma-2B's 8 heads: the step-time-llm-d256 step's B2 (and B8)
+# L2047, B2 L1000, B1 L129. Rows at L 2047 are timed
+ATTN_SHAPES = (("sft_b8_l2047_bf16", 8, SFT_SEQ - 1, 32, 128, "bfloat16"),
+               ("sft_b8_l2047_fp32", 8, SFT_SEQ - 1, 32, 128, "float32"),
+               ("ragged_b2_l1000_bf16", 2, 1000, 32, 128, "bfloat16"),
+               ("ragged_b2_l1000_fp32", 2, 1000, 32, 128, "float32"),
+               ("ragged_b1_l129_bf16", 1, 129, 32, 128, "bfloat16"),
+               ("ragged_b1_l129_fp32", 1, 129, 32, 128, "float32"),
+               ("gemma_b2_l2047_d256_bf16", 2, SFT_SEQ - 1, 8, 256, "bfloat16"),
+               ("gemma_b8_l2047_d256_bf16", 8, SFT_SEQ - 1, 8, 256, "bfloat16"),
+               ("ragged_b2_l1000_d256_bf16", 2, 1000, 8, 256, "bfloat16"),
+               ("ragged_b1_l129_d256_bf16", 1, 129, 8, 256, "bfloat16"))
+# the SFT step at Gemma-2B's widths (google/gemma-2b config.json: hidden
+# 2048, 8 heads of 256, one kv head, intermediate 16384, 18 layers, vocab
+# 256000, tied embeddings) on the repo's LLaMA block (SwiGLU, RMSNorm,
+# rotate-half RoPE; Gemma's GeGLU, 1 + w norm and embedding scale are in
+# neither package), bf16 compute over f32 params, grads and AdamW (~2.5 B
+# parameters, ~40 GB; the step's peak is ~58 GB, so no remat), B2 x 2048,
+# all 18 layers: the flash kernels at head dim 256 (the kv head repeated
+# to H8)
+D256_STEPS = 3          # steps through the entry point
+D256_TIMED = 2          # then steps timed on the first step's batch
+D256_FLAGS = ["--dim", "2048", "--n_heads", "8", "--n_kv_heads", "1",
+              "--intermediate", "16384", "--n_layers", "18",
+              "--vocab_size", "256000", "--tie_embeddings", "true",
+              "--dtype", "bfloat16", "--batch_size", "2", "--max_seq_len", str(SFT_SEQ),
+              "--total_steps", str(D256_STEPS), "--learning_rate", "3e-4",
+              "--warmup_steps", "100", "--save_every", str(D256_STEPS),
+              "--seed", str(SEED), "--device", "cuda"]
 # scripts/rearev_webqsp.sh with the reference's training defaults
 HEADLINE_FLAGS = ["ReaRev", "--entity_dim", "50", "--num_iter", "3",
                   "--num_ins", "2", "--num_gnn", "3", "--lm", "sbert",
@@ -1659,17 +1694,16 @@ def bf16_tol(b, steps=1):
 
 def check_attn_kernels(device):
     """Phase kernel-attn: forward, dq and dk/dv kernels against their plain
-    versions (the plain backward fed the plain forward's lse and delta, so
-    a wrong lse shows in the gradients too), two backward launches
-    bit-identical; CUDA-event medians of kernel, plain and SDPA at the SFT
-    shapes."""
+    versions at ATTN_SHAPES (the plain backward fed the plain forward's lse
+    and delta, so a wrong lse shows in the gradients too), two backward
+    launches bit-identical; CUDA-event medians of kernel, plain and SDPA at
+    the SFT shapes (L 2047)."""
     import torch
     import torch.nn.functional as F
     from gnn_rag_tpu_torch.llm import flash_attention as fa
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     rows, bad = [], []
-    for name, B, L, dtype in ATTN_SHAPES:
-        H, D = 32, 128
+    for name, B, L, H, D, dtype in ATTN_SHAPES:
         q, k, v, g = (torch.randn((B, L, H, D), generator=gen, device=device)
                       .to(getattr(torch, dtype)) for _ in range(4))
         o, lse = fa.flash_fwd(q, k, v)
@@ -1696,7 +1730,7 @@ def check_attn_kernels(device):
             bad.append(f"{name}: flash backward not bit-repeatable")
         row = dict(shape=name, B=B, L=L, H=H, D=D, dtype=dtype,
                    err_ref_over_tol_by_output=errs)
-        if B == 8:
+        if L == SFT_SEQ - 1:
             # sub-millisecond bf16 kernels get more launches per median
             timing = (dict(runs=10, reps=5, warmup=2) if dtype == "bfloat16"
                       else dict(runs=5, reps=2, warmup=1))
@@ -2345,6 +2379,183 @@ def sft_fp32_step_time(tokens, mask, device):
             math.isfinite(x) for x in losses):
         raise AssertionError(f"fp32 SFT: flash launches {launches}, plain "
                              f"attention calls {plain_calls}, losses {losses}")
+    return summary
+
+
+def token_logprobs(model, tokens):
+    """Per-position log-probabilities [B, L-1] float32 of ``tokens``' next
+    tokens under ``model``'s cache-free forward (no autograd)."""
+    import torch
+    with torch.no_grad():
+        logits, _ = model(tokens[:, :-1])
+        return torch.log_softmax(logits, dim=-1).gather(
+            -1, tokens[:, 1:, None])[..., 0]
+
+
+def kernel_vs_plain(model, fn):
+    """(kernel path, plain-attention path, float32 path) of ``fn(model)``
+    and the kernel-vs-plain distance over the plain path's own distance
+    from float32 (float32 at head dim 256 runs plain attention): two
+    paths of equal accuracy are within sqrt(2) of it when their roundings
+    are independent, a wrong kernel O(1) of the result away."""
+    kernel = fn(model)
+    plain = swapped_to_plain_attn(lambda: fn(model))
+    fp32 = fn(as_dtype(model, "float32"))
+    own = (plain - fp32).norm().item()
+    return kernel, plain, fp32, (kernel - plain).norm().item() / max(own, 1e-30)
+
+
+def sft_d256_step_time(device, root, prompts):
+    """Phase step-time-llm-d256: the SFT at Gemma-2B's attention widths
+    (D256_FLAGS) through the port's entry (``python -m
+    gnn_rag_tpu_torch.llm.sft``, run in this process) over the SFT phase's
+    data, D256_STEPS steps at B2 x 2048 with exact flash launch counts (one
+    forward, one dq and one dk/dv a layer and step, every one at head dim
+    256) and no plain flash call; then ms a step over
+    D256_TIMED steps on the first step's batch (CUDA events), positions/s,
+    peak GB, one profiled step (each flash kernel's device ms); one no-cache
+    scoring forward of the trained model (a test prompt's token
+    log-probabilities: K5a, a launch a layer) against plain attention; and,
+    with the trainer freed, the first step's loss against the same step's
+    with the kernels swapped for their plain versions (the model rebuilt
+    from the seed on the first step's batch)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnn_rag_tpu_torch.finetune.data_prep import load_multiple_datasets
+    from gnn_rag_tpu_torch.llm import sft
+    from gnn_rag_tpu_torch.llm.model import build_llama
+    from gnn_rag_tpu_torch.llm.tokenizers import ByteTokenizer
+    t0 = time.perf_counter()
+    train_path = os.path.join(root, "train_qa.jsonl")
+    out_dir = os.path.join(root, "sft_d256")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path, counted: the SFT entry point at Gemma-2B width ----
+    reset_attn_counts()
+    with plain_attn_calls() as plain:
+        trainer, losses = sft.main(["--data", train_path, "--output_dir",
+                                    out_dir, *D256_FLAGS])
+        torch.cuda.synchronize()
+    launches, plain_calls = attn_counts(), plain[0]
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    wall = time.perf_counter() - t0
+    shutil.rmtree(out_dir)                 # the ~10 GB checkpoint
+    cfg = trainer.model.cfg
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    n = cfg.n_layers
+    want = (n * D256_STEPS,) * 3
+    if (cfg.head_dim != 256 or len(losses) != D256_STEPS or launches != want
+            or plain_calls or not np.isfinite(losses).all()):
+        raise AssertionError(f"d256 SFT: head dim {cfg.head_dim}, losses "
+                             f"{losses}, flash launches {launches} (want "
+                             f"{want}), plain attention calls {plain_calls}")
+    # the first step's batch, as the entry point packed and drew it
+    tok = ByteTokenizer()
+    data = load_multiple_datasets([train_path], shuffle=True, seed=SEED)
+    tokens, mask = sft.pack_examples(
+        [d["text"] for d in data], tok.encode,
+        tok.encode(sft.RESPONSE_TEMPLATE, add_bos=False), SFT_SEQ, tok.pad_id)
+    idx = trainer._batch_indices(len(tokens), 0)
+    btok = torch.from_numpy(tokens[idx]).to(device)
+    bmsk = torch.from_numpy(mask[idx]).to(device)
+
+    # ---- step time, and one profiled step ----
+    reset_attn_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(D256_TIMED):
+        trainer.train_step(btok, bmsk)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / D256_TIMED
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(btok, bmsk)
+        torch.cuda.synchronize()
+    timed_launches = attn_counts()
+    dev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+           and e.self_device_time_total > 0]
+    dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    flash = {name: [sum(e.self_device_time_total for e in dev
+                        if kernel in e.key) / 1e3,
+                    sum(e.count for e in dev if kernel in e.key)]
+             for name, kernel in (("fwd", "flash_fwd_sm90_kernel<256>"),
+                                  ("dq", "flash_dq_sm90_kernel<256>"),
+                                  ("dkv", "flash_dkv_sm90_kernel<256>"))}
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    steps = D256_TIMED + 1
+    if (timed_launches != (n * steps,) * 3
+            or [flash[k][1] for k in ("fwd", "dq", "dkv")] != [n] * 3):
+        raise AssertionError(f"d256 timed steps: flash launches "
+                             f"{timed_launches}, profiled {flash}")
+    for p in trainer.params:
+        p.grad = None
+
+    # ---- a no-cache scoring forward of the trained model ----
+    model = trainer.model.eval()
+    prompt = torch.tensor([prompts[0]], device=device)
+    reset_attn_counts()
+    score, score_plain, score_fp32, score_ratio = kernel_vs_plain(
+        model, lambda m: token_logprobs(m, prompt))
+    score_launches = attn_counts()
+    model.train()
+    if not (score_launches == (n, 0, 0) and torch.isfinite(score).all()
+            and score_ratio <= 2):
+        raise AssertionError(f"d256 scoring forward: launches "
+                             f"{score_launches}, kernel vs plain "
+                             f"{score_ratio} x plain vs fp32")
+    del trainer, model, score, score_plain, score_fp32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the first step's loss, kernels against plain attention ----
+    init = build_llama(cfg, seed=SEED, device=device)
+    with torch.no_grad():
+        first_kernel = sft.completion_loss(init, btok, bmsk).item()
+        first_plain = swapped_to_plain_attn(
+            lambda: sft.completion_loss(init, btok, bmsk)).item()
+    nll_ratio = kernel_vs_plain(init, lambda m: token_logprobs(m, btok))[3]
+    del init
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = dict(
+        layers=n, dim=cfg.dim, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, intermediate=cfg.intermediate,
+        vocab=cfg.vocab_size, batch=2, seq=SFT_SEQ,
+        params=n_params,
+        losses=losses, flash_launches_fwd_dq_dkv=launches,
+        plain_attention_calls=plain_calls, entry_wall_s=wall,
+        peak_gb=peak_gb, ms_per_step=ms, steps_timed=D256_TIMED,
+        positions_per_s=1e3 * 2 * (SFT_SEQ - 1) / ms,
+        profiled_step_device_ms=dev_ms, flash_device_ms_launches=flash,
+        flash_share=sum(v[0] for v in flash.values()) / dev_ms
+        if dev_ms else "not measured",
+        timed_flash_launches=timed_launches,
+        top_device_ops=[[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                        for e in top],
+        scoring_tokens=int(prompt.shape[1]),
+        scoring_flash_launches=score_launches,
+        scoring_kernel_vs_plain_over_plain_vs_fp32=score_ratio,
+        first_loss_entry_kernel_plain=[losses[0], first_kernel, first_plain],
+        first_nll_kernel_vs_plain_over_plain_vs_fp32=nll_ratio,
+        wall_s=time.perf_counter() - t0)
+    log("step-time-llm-d256", json.dumps(summary))
+    # the entry point's first loss is this forward's (same weights, batch
+    # and kernels); the plain path's within 1e-3 of it: the two round
+    # attention to bf16 at other points, and the loss averages that noise
+    # over the batch's masked positions
+    if not (abs(first_kernel - losses[0]) <= 1e-5 * abs(losses[0])
+            and abs(first_plain - losses[0]) <= 1e-3 * abs(losses[0])
+            and nll_ratio <= 2):
+        raise AssertionError(f"d256 first loss: entry {losses[0]}, kernel "
+                             f"{first_kernel}, plain {first_plain}; per-token "
+                             f"kernel vs plain {nll_ratio} x plain vs fp32")
     return summary
 
 
@@ -3306,6 +3517,7 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         fp32_step = sft_fp32_step_time(tokens, mask, device)
+        d256 = sft_d256_step_time(device, os.path.join(root, "llm"), prompts)
         _, reader_7b, lora_launches = run_lora(device, tokens, mask)
         run_serve_7b(device, reader_7b, os.path.join(root, "llm", "reader"),
                      prompts)
@@ -3440,6 +3652,47 @@ def main():
                 **({"qa_beam_rescoring": qa_flash} if key == "fwd" else {})},
             **({} if key == "fwd" else
                {"sdpa_bwd_ms_dq_dk_dv_together": f32_row["sdpa_bwd_ms"]})})
+    # the bf16 kernels at head dim 256 (the <256> instances), on the
+    # step-time-llm-d256 path: timed at its own shape, B2 L2047 H8, and at B8
+    rows_d256 = {r["shape"]: r for r in attn_rows if r["D"] == 256}
+    d_row, d8_row = (rows_d256["gemma_b2_l2047_d256_bf16"],
+                     rows_d256["gemma_b8_l2047_d256_bf16"])
+    for i, (name, key, line) in enumerate((
+            ("flash_attention_fwd_d256", "fwd", 47),
+            ("flash_attention_dq_d256", "dq", 132),
+            ("flash_attention_dkv_d256", "dkv", 170))):
+        parts = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "kernel": f"flash_{key}_sm90_kernel<256>",
+            "source": "gnn_rag_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"{FLASH}:{line}",
+            "launches": d256["flash_launches_fwd_dq_dkv"][i],
+            "max_abs_err": max(d_row["err_ref_over_tol_by_output"][p][0]
+                               for p in parts),
+            "ms": d_row["ms"][key], "plain_ms": d_row["plain_ms"][key],
+            "bound_ms": d_row["bound_ms"][key],
+            "bound_by": d_row["bound_by"][key],
+            "library_ms": d_row["sdpa_fwd_ms"] if key == "fwd" else None,
+            "bound_share": d_row["bound_share"][key],
+            "tflops": d_row["tflops"][key], "shape": d_row["shape"],
+            "b8": {"shape": d8_row["shape"], "ms": d8_row["ms"][key],
+                   "plain_ms": d8_row["plain_ms"][key],
+                   "bound_ms": d8_row["bound_ms"][key],
+                   "bound_share": d8_row["bound_share"][key],
+                   **({"library_ms": d8_row["sdpa_fwd_ms"]} if key == "fwd"
+                      else {"sdpa_bwd_ms_dq_dk_dv_together":
+                            d8_row["sdpa_bwd_ms"]})},
+            "max_err_over_tol_by_shape": {
+                shape: max(r["err_ref_over_tol_by_output"][p][2]
+                           for p in parts) for shape, r in rows_d256.items()},
+            "launches_by_path": {
+                "step_time_llm_d256": d256["flash_launches_fwd_dq_dkv"][i],
+                "d256_timed_steps": d256["timed_flash_launches"][i],
+                **({"d256_scoring": d256["scoring_flash_launches"][0]}
+                   if key == "fwd" else {})},
+            **({} if key == "fwd" else
+               {"sdpa_bwd_ms_dq_dk_dv_together": d_row["sdpa_bwd_ms"]})})
     log("total", f"wall {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

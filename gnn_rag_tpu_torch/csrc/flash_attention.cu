@@ -11,7 +11,8 @@
 //   o = (sum_k T(exp(s - m)) v) / l        (p rounded to v's type T before PV)
 //   p = exp(s - lse), dp = dO v^T, ds = p * (dp - delta) * scale,
 //   dq = ds k, dk = ds^T q, dv = p^T dO,   delta = rowsum(dO * o) (given).
-// Tensors keep the model's [B, N, H, D] layout (D = 128); lse and delta are
+// Tensors keep the model's [B, N, H, D] layout (D = 128 in float32, 128 or
+// 256 in bfloat16; the wrapper raises on any other D); lse and delta are
 // [B*H, L] float, stored once per row (the TPU kernel replicated them over
 // 128 lanes for its block shapes). All sums are float; every product is the
 // float product of the (widened) inputs, as in the TPU kernels
@@ -59,26 +60,38 @@
 //   threads, one block an SM, registers unsplit.
 //
 // bfloat16, on the tensor cores: Hopper's TMA and warpgroup wgmma (building
-// blocks in sm90.cuh). A block is three warpgroups: a producer whose one
-// thread keeps TMA loads in flight through a ring of shared-memory stages
-// (full/empty mbarriers, its registers given up with setmaxnreg), and two
-// consumers that own 64 rows each and run wgmma with float accumulators in
-// registers.
+// blocks in sm90.cuh), each kernel a template on the head dim (<128>,
+// <256>). A block is three warpgroups: a producer whose one thread keeps
+// TMA loads in flight through a ring of shared-memory stages (full/empty
+// mbarriers, its registers given up with setmaxnreg), and two consumers
+// that own 64 rows each and run wgmma with float accumulators in
+// registers, 64 x 128 tiles of 64 floats a thread (o and dq at D 256 are
+// two). A head row of D 256 is four 64-column boxes, so every tile's
+// shared memory doubles at the same rows; each kernel halves its streamed
+// tiles or its stages to stay under the 227 KB a block may have:
 // - forward (flash_fwd_sm90_kernel): 128 query rows a block, Q loaded once,
-//   128-key K and V tiles through 2 stages (160 KB); s = q k^T from shared
-//   memory, the online softmax on the accumulators, p rounded to bf16
-//   straight into the A registers of o += p v.
+//   K and V tiles through 2 stages: 128 keys at D 128 (160 KB), 64 at D 256
+//   (Q 64 KB + 2 x 64 KB = 192 KB); s = q k^T from shared memory, the
+//   online softmax on the accumulators, p rounded to bf16 straight into the
+//   A registers of o += p v (at D 256 two m64n128 products a depth slice,
+//   one a half of o).
 // - dq (flash_dq_sm90_kernel): 128 query rows a block, Q and dO loaded once
-//   with the rows' lse and delta in registers, 64-key K and V tiles through
-//   3 stages (160 KB); s = q k^T and dp = dO v^T from shared memory, p and
-//   ds in registers, dq += ds k with ds as the register A operand and k
-//   MN-major.
-// - dk/dv (flash_dkv_sm90_kernel): 128 keys a block, K and V loaded once,
-//   64-row Q and dO tiles (TMA) with their lse and delta (plain loads: a
-//   [B*H, L] row need not start on 16 bytes) through 3 stages (162 KB);
-//   s^T = k q^T and dp^T = v dO^T from shared memory, p^T and ds^T in
-//   registers, dv += p^T dO and dk += ds^T q with p^T and ds^T as register
-//   A operands.
+//   with the rows' lse and delta in registers, K and V tiles through 3
+//   stages: 64 keys at D 128 (160 KB), 32 at D 256 (Q and dO 128 KB + 3 x
+//   32 KB = 224 KB); s = q k^T and dp = dO v^T from shared memory, p and ds
+//   in registers, dq += ds k with ds as the register A operand and k
+//   MN-major (two products at D 256, one a half of dq).
+// - dk/dv (flash_dkv_sm90_kernel): K and V loaded once, 64-row Q and dO
+//   tiles (TMA) with their lse and delta (plain loads: a [B*H, L] row need
+//   not start on 16 bytes) through the ring; s^T = k q^T and dp^T = v dO^T
+//   from shared memory, p^T and ds^T in registers, dv += p^T dO and dk +=
+//   ds^T q with p^T and ds^T as register A operands. D 128: 128 keys a
+//   block, each consumer 64 of them with all 128 columns, 3 stages (162
+//   KB). D 256: 64 keys x 256 columns of dk and dv would be 256 floats a
+//   thread, so both consumers take the block's 64 keys and split the
+//   columns (consumer c accumulates dk and dv columns 128c ..), each forming
+//   s^T and dp^T over the whole depth itself (twice the score products, for
+//   no exchange between them); 2 stages (194 KB).
 // Tensor maps cover the 4-D (D, H, N, B) view with the real strides, so rows
 // past L read as TMA's zeros (never the next batch's rows; the float32
 // converters write zeros there) and are masked or not stored. Only tiles
@@ -103,7 +116,11 @@
 // index is the grid's fastest axis, so the blocks in flight share one
 // head's K and V (Q and dO) in L2.
 //
-// What bounds it on an H100: at B8 L2047 H32 D128 the forward does 2.75e11
+// What bounds it on an H100 (D 256 alike: at B2 L2047 H8 D256 the bounds
+// are 0.035 ms forward, 0.052 dq, 0.069 dk/dv; there dk/dv runs 8
+// products of its 4, the two terms of p^T and ds^T and both consumers'
+// score products, so it reaches at most half its bound): at B8 L2047 H32
+// D128 the forward does 2.75e11
 // causal FLOP against 2.1e8 bytes of q/k/v/o, so the arithmetic bounds it:
 // 0.278 ms at the 989 TFLOP/s bf16 tensor-core rate; in float32, 1.667 ms
 // for the six bf16 passes that keep float32 accuracy on the tensor cores
@@ -124,9 +141,10 @@
 // with the next tile's scores are the next steps.
 //
 // ptxas -v (CUDA 12.8, sm_90a; chip_smoke.py prints it on its build line):
-// the three bf16 Hopper kernels 168 registers at launch (384 threads, one
-// block an SM; setmaxnreg then gives the consumers 240 (forward, dq) and
-// 232 (dk/dv), the producer 24 (forward, dq) and 40 (dk/dv));
+// the three bf16 Hopper kernels, <128> and <256> alike, 168 registers at
+// launch (384 threads, one block an SM; setmaxnreg then gives the consumers
+// 240 (forward, dq) and 232 (dk/dv), the producer 24 (forward, dq) and 40
+// (dk/dv));
 // flash_fwd_split3_kernel 168 at launch (consumers 200, converter 104),
 // flash_dkv_split3_kernel 222, flash_dq_split3_kernel 137; no spills, no
 // stack frames.
@@ -139,12 +157,14 @@
 
 namespace {
 
-constexpr int D = 128;        // head dim; the wrapper raises on any other
+constexpr int D = 128;        // the float32 kernels' head dim
 constexpr float NEG_INF = -1e30f;
 
+// element offset of row `row`, head h, batch b of a [B, N, H, HD] tensor
+template <int HD = D>
 __device__ __forceinline__ int64_t offset(int b, int row, int h, int N,
                                           int H) {
-  return ((static_cast<int64_t>(b) * N + row) * H + h) * D;
+  return ((static_cast<int64_t>(b) * N + row) * H + h) * HD;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -152,21 +172,27 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// ------------------------------- bfloat16 on Hopper: TMA + wgmma, forward
-// and dk/dv. Three warpgroups a block: warpgroup 0 is the producer (its
-// registers cut; one thread keeps TMA loads in flight through a ring of
-// stages, each with a full and an empty mbarrier), warpgroups 1 and 2 are
-// consumers (registers raised) that own 64 rows each and run wgmma on the
-// tiles that have arrived, from shared memory and from registers.
+// ------------------------------- bfloat16 on Hopper: TMA + wgmma, forward,
+// dq and dk/dv, each a template on the head dim HD (128 or 256). Three
+// warpgroups a block: warpgroup 0 is the producer (its registers cut; one
+// thread keeps TMA loads in flight through a ring of stages, each with a
+// full and an empty mbarrier), warpgroups 1 and 2 are consumers (registers
+// raised) that own 64 rows each and run wgmma on the tiles that have
+// arrived, from shared memory and from registers. A consumer's float
+// accumulators are 64 x 128 tiles (64 floats a thread): at HD 256 the
+// forward and dq hold two of them (o and dq 64 x 256), and dk/dv gives each
+// consumer one 128-column half of dk and of dv.
 constexpr int WG = 128;                    // threads per warpgroup
 constexpr int SM90_THREADS = 3 * WG;
-constexpr int TILE_BYTES = 128 * D * 2;    // 128 rows of a head: two boxes
+// the float32 kernels' tiles (a term of 128 or 64 rows of a D-128 head)
+constexpr int TILE_BYTES = 128 * D * 2;    // 128 rows: two boxes
 constexpr int BOX128 = TILE_BYTES / 2;     // 128 rows x 64 columns
-constexpr int QTILE_BYTES = 64 * D * 2;    // 64 rows of a head
+constexpr int QTILE_BYTES = 64 * D * 2;    // 64 rows
 constexpr int BOX64 = QTILE_BYTES / 2;
 constexpr int ROW_BYTES = 64 * 2;          // one swizzled box row
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+constexpr size_t MAX_SMEM = 232448;        // a block's dynamic shared memory
 
 // the first 1024-byte boundary at or after p (the swizzle's atom)
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
@@ -176,8 +202,8 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 // Descriptors are made once per loop step (sm90::opaque keeps the compiler
 // from hoisting one register pair per depth slice out of the loop) and
 // stepped by adding a byte offset / 16 to their start address.
-// K-major operand whose rows start at `rows`; depth slice kk of a two-box
-// tile whose boxes lie `box` bytes apart is k_major(rows) + k_step(box, kk)
+// K-major operand whose rows start at `rows`; depth slice kk of a tile whose
+// 64-column boxes lie `box` bytes apart is k_major(rows) + k_step(box, kk)
 __device__ __forceinline__ uint64_t k_major(const unsigned char* rows) {
   return sm90::opaque(sm90::desc_sw128(rows, 16, 1024));
 }
@@ -185,8 +211,8 @@ __device__ __forceinline__ uint64_t k_step(int box, int kk) {
   return ((kk / 4) * box + (kk % 4) * 32) >> 4;
 }
 
-// MN-major operand (transposed B) of a two-box tile, the 128 output columns
-// spanning both boxes; rows 16kk .. 16kk + 15 are mn_major(...) + mn_step(kk)
+// MN-major operand (transposed B) of a tile, 128 output columns spanning two
+// boxes from `tile`; rows 16kk .. 16kk + 15 are mn_major(...) + mn_step(kk)
 __device__ __forceinline__ uint64_t mn_major(const unsigned char* tile,
                                             int box) {
   return sm90::opaque(sm90::desc_sw128(tile, box, 1024));
@@ -214,41 +240,67 @@ __device__ __forceinline__ float2 pack_pair(const float*, float lo, float hi) {
 }
 
 // rows row and row + 8 of a 64 x 128 float accumulator, scaled by inv[r],
-// into head h of a [B, N, H, D] tensor of T (bf16 or float); rows past N
-// are not stored
-template <typename T>
+// into columns col0 .. col0 + 127 of head h of a [B, N, H, HD] tensor of T
+// (bf16 or float); rows past N are not stored
+template <typename T, int HD = D>
 __device__ __forceinline__ void store_acc_rows(T* dst, int b, int h, int N,
                                                int H, int row, int t,
                                                const float (&acc)[64],
-                                               const float (&inv)[2]) {
+                                               const float (&inv)[2],
+                                               int col0 = 0) {
   using Pair = decltype(pack_pair(dst, 0.f, 0.f));
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row + 8 * r >= N) continue;
-    Pair* out = reinterpret_cast<Pair*>(dst + offset(b, row + 8 * r, h, N, H));
+    Pair* out = reinterpret_cast<Pair*>(
+        dst + offset<HD>(b, row + 8 * r, h, N, H) + col0);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < 16; ++n)
       out[n * 4 + t] = pack_pair(dst, acc[4 * n + 2 * r] * inv[r],
                                  acc[4 * n + 2 * r + 1] * inv[r]);
   }
 }
 
+// rows row0 .. of head h, batch b, into a tile of HD / 64 boxes `box` bytes
+// apart, one TMA load a box, completing on `bar`
+template <int HD>
+__device__ __forceinline__ void load_rows(unsigned char* dst, int box,
+                                          const CUtensorMap* map,
+                                          uint64_t* bar, int h, int row0,
+                                          int b) {
+#pragma unroll
+  for (int c = 0; c < HD / 64; ++c)
+    sm90::tma_load_4d(dst + c * box, map, bar, 64 * c, h, row0, b);
+}
+
 constexpr int FWD_ROWS = 128;   // query rows per block
-constexpr int FWD_KEYS = 128;   // keys per tile
 constexpr int FWD_STAGES = 2;
+// keys per K or V tile: 128 at HD 128, 64 at HD 256 (a K + V stage is 64 KB
+// at both)
+__host__ __device__ constexpr int fwd_keys(int hd) {
+  return 128 * 128 / hd;
+}
 
 struct FwdBars {
   uint64_t q_full, k_full[FWD_STAGES], v_full[FWD_STAGES], empty[FWD_STAGES];
 };
-constexpr size_t kFwdSm90Smem =
-    1024 + (1 + 2 * FWD_STAGES) * TILE_BYTES + sizeof(FwdBars);
+template <int HD>
+constexpr size_t fwd_sm90_smem() {
+  return 1024 +
+         static_cast<size_t>(FWD_ROWS + 2 * FWD_STAGES * fwd_keys(HD)) * HD *
+             2 +
+         sizeof(FwdBars);
+}
+static_assert(fwd_sm90_smem<256>() <= MAX_SMEM, "forward at HD 256");
 
 // forward, grid (ceil(L / FWD_ROWS), B*H): Q once, K and V tiles through the
-// ring; s = q k^T (m64n128k16, both operands K-major from shared memory),
-// the online softmax on the accumulators (a row spans the 4 threads of a
-// quad), p rounded to bf16 into the A registers of o += p v (m64n128k16, v
-// MN-major with the transpose bit). Key tiles wholly below the block's rows
-// run unmasked; tiles past the diagonal are never loaded.
+// ring; s = q k^T (m64n128k16 at HD 128, m64n64k16 at 256; both operands
+// K-major from shared memory), the online softmax on the accumulators (a
+// row spans the 4 threads of a quad), p rounded to bf16 into the A
+// registers of o += p v (m64n128k16 a 128-column half of o, v MN-major with
+// the transpose bit). Key tiles wholly below the block's rows run unmasked;
+// tiles past the diagonal are never loaded.
+template <int HD>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -256,14 +308,18 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
                           __nv_bfloat16* __restrict__ o,
                           float* __restrict__ lse, int H, int L, int S,
                           float scale) {
+  constexpr int KEYS = fwd_keys(HD);
+  constexpr int Q_BOX = FWD_ROWS * ROW_BYTES;     // 64 columns of Q's rows
+  constexpr int KV_BOX = KEYS * ROW_BYTES;        // 64 columns of a K/V tile
+  constexpr int Q_BYTES = HD / 64 * Q_BOX, KV_BYTES = HD / 64 * KV_BOX;
   extern __shared__ unsigned char raw_smem[];
   unsigned char* const Qs = align1024(raw_smem);
-  unsigned char* const Ks = Qs + TILE_BYTES;                // [stage]
-  unsigned char* const Vs = Ks + FWD_STAGES * TILE_BYTES;   // [stage]
-  auto* bars = reinterpret_cast<FwdBars*>(Vs + FWD_STAGES * TILE_BYTES);
+  unsigned char* const Ks = Qs + Q_BYTES;                  // [stage]
+  unsigned char* const Vs = Ks + FWD_STAGES * KV_BYTES;    // [stage]
+  auto* bars = reinterpret_cast<FwdBars*>(Vs + FWD_STAGES * KV_BYTES);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * FWD_ROWS;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int n_tiles = (min(S, q0 + FWD_ROWS) + FWD_KEYS - 1) / FWD_KEYS;
+  const int n_tiles = (min(S, q0 + FWD_ROWS) + KEYS - 1) / KEYS;
   const int wg = threadIdx.x / WG;
 
   if (threadIdx.x == 0) {
@@ -280,22 +336,17 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
   if (wg == 0) {   // producer
     sm90::setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
-      sm90::mbar_arrive_expect_tx(&bars->q_full, TILE_BYTES);
-      sm90::tma_load_4d(Qs, &tq, &bars->q_full, 0, h, q0, b);
-      sm90::tma_load_4d(Qs + BOX128, &tq, &bars->q_full, 64, h, q0, b);
+      sm90::mbar_arrive_expect_tx(&bars->q_full, Q_BYTES);
+      load_rows<HD>(Qs, Q_BOX, &tq, &bars->q_full, h, q0, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % FWD_STAGES;
         sm90::mbar_wait(&bars->empty[st], ((j / FWD_STAGES) & 1) ^ 1);
-        unsigned char* kd = Ks + st * TILE_BYTES;
-        unsigned char* vd = Vs + st * TILE_BYTES;
-        sm90::mbar_arrive_expect_tx(&bars->k_full[st], TILE_BYTES);
-        sm90::tma_load_4d(kd, &tk, &bars->k_full[st], 0, h, j * FWD_KEYS, b);
-        sm90::tma_load_4d(kd + BOX128, &tk, &bars->k_full[st], 64, h,
-                          j * FWD_KEYS, b);
-        sm90::mbar_arrive_expect_tx(&bars->v_full[st], TILE_BYTES);
-        sm90::tma_load_4d(vd, &tv, &bars->v_full[st], 0, h, j * FWD_KEYS, b);
-        sm90::tma_load_4d(vd + BOX128, &tv, &bars->v_full[st], 64, h,
-                          j * FWD_KEYS, b);
+        sm90::mbar_arrive_expect_tx(&bars->k_full[st], KV_BYTES);
+        load_rows<HD>(Ks + st * KV_BYTES, KV_BOX, &tk, &bars->k_full[st], h,
+                      j * KEYS, b);
+        sm90::mbar_arrive_expect_tx(&bars->v_full[st], KV_BYTES);
+        load_rows<HD>(Vs + st * KV_BYTES, KV_BOX, &tv, &bars->v_full[st], h,
+                      j * KEYS, b);
       }
     }
     return;
@@ -308,42 +359,45 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
   const int row = q0 + 64 * cw + 16 * warp + g;   // and row + 8
   const unsigned char* const Qw = Qs + 64 * cw * ROW_BYTES;
   const float sl2 = scale * LOG2E;           // scores in log2 units
-  float acc[64];
+  float acc[HD / 128][64];                   // o, a 128-column half each
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int c = 0; c < HD / 128; ++c)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[c][i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   sm90::mbar_wait(&bars->q_full, 0);
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int st = j % FWD_STAGES, k0 = j * FWD_KEYS;
+    const int st = j % FWD_STAGES, k0 = j * KEYS;
     const uint32_t phase = (j / FWD_STAGES) & 1;
-    const unsigned char* kt = Ks + st * TILE_BYTES;
-    const unsigned char* vt = Vs + st * TILE_BYTES;
-    float s[64];
+    const unsigned char* kt = Ks + st * KV_BYTES;
+    const unsigned char* vt = Vs + st * KV_BYTES;
+    float s[KEYS / 2];
     const uint64_t desc_q = k_major(Qw), desc_k = k_major(kt);
     sm90::mbar_wait(&bars->k_full[st], phase);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      sm90::wgmma_m64n128k16_ss(s, desc_q + k_step(BOX128, kk),
-                                desc_k + k_step(BOX128, kk), kk > 0);
+    for (int kk = 0; kk < HD / 16; ++kk)
+      sm90::wgmma_ss(s, desc_q + k_step(Q_BOX, kk),
+                     desc_k + k_step(KV_BOX, kk), kk > 0);
     sm90::wgmma_commit();
     sm90::wgmma_wait();
     sm90::fence_regs(s);
 
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] *= sl2;
+    for (int i = 0; i < KEYS / 2; ++i) s[i] *= sl2;
     // the diagonal tile and a ragged last tile: key > row or key >= S
-    if (k0 + FWD_KEYS - 1 > q0 + 64 * cw || k0 + FWD_KEYS > S) {
+    if (k0 + KEYS - 1 > q0 + 64 * cw || k0 + KEYS > S) {
 #pragma unroll
-      for (int i = 0; i < 64; ++i) {
+      for (int i = 0; i < KEYS / 2; ++i) {
         const int key = k0 + 8 * (i / 4) + 2 * t + (i & 1);
         if (key > row + 8 * ((i / 2) & 1) || key >= S) s[i] = NEG_INF;
       }
     }
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int i = 0; i < 64; ++i) mx[(i / 2) & 1] = fmaxf(mx[(i / 2) & 1], s[i]);
+    for (int i = 0; i < KEYS / 2; ++i)
+      mx[(i / 2) & 1] = fmaxf(mx[(i / 2) & 1], s[i]);
     float alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -354,13 +408,16 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
       m[r] = m_new;
       l[r] *= alpha[r];                      // this thread's share of the sum
     }
-    sm90::fence_regs(acc);
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] *= alpha[(i / 2) & 1];
+    for (int c = 0; c < HD / 128; ++c) {
+      sm90::fence_regs(acc[c]);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[c][i] *= alpha[(i / 2) & 1];
+    }
     // p (float) into the row sums, p rounded to bf16 into the A registers
-    uint32_t pa[FWD_KEYS / 16][4];
+    uint32_t pa[KEYS / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < FWD_KEYS / 16; ++kk)
+    for (int kk = 0; kk < KEYS / 16; ++kk)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int i = 8 * kk + 2 * r, half = r & 1;
@@ -370,15 +427,21 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
         pa[kk][r] = pack_bf16(p0, p1);
       }
 
-    const uint64_t desc_v = mn_major(vt, BOX128);
+    const uint64_t desc_v = mn_major(vt, KV_BOX);
     sm90::mbar_wait(&bars->v_full[st], phase);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < FWD_KEYS / 16; ++kk)
-      sm90::wgmma_m64n128k16_rs(acc, pa[kk], desc_v + mn_step(kk), 1);
+    for (int c = 0; c < HD / 128; ++c)
+#pragma unroll
+      for (int kk = 0; kk < KEYS / 16; ++kk)
+        sm90::wgmma_m64n128k16_rs(acc[c], pa[kk],
+                                  desc_v + ((2 * c * KV_BOX) >> 4) +
+                                      mn_step(kk),
+                                  1);
     sm90::wgmma_commit();
     sm90::wgmma_wait();
-    sm90::fence_regs(acc);
+#pragma unroll
+    for (int c = 0; c < HD / 128; ++c) sm90::fence_regs(acc[c]);
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
   }
@@ -393,30 +456,52 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     if (t == 0 && row + 8 * r < L)
       lse[static_cast<int64_t>(bh) * L + row + 8 * r] = m[r] * LN2 + logf(l[r]);
   }
-  store_acc_rows(o, b, h, L, H, row, t, acc, inv);
+#pragma unroll
+  for (int c = 0; c < HD / 128; ++c)
+    store_acc_rows<__nv_bfloat16, HD>(o, b, h, L, H, row, t, acc[c], inv,
+                                      128 * c);
 }
 
-constexpr int DKV_KEYS = 128;   // keys per block
 constexpr int DKV_ROWS = 64;    // query rows per streamed tile
-constexpr int DKV_STAGES = 3;
+// keys per block: 128 at HD 128 (consumer c keys k0 + 64c .., every column
+// of dk and dv), 64 at HD 256 (both consumers the block's 64 keys, consumer
+// c columns 128c .. 128c + 127 of dk and dv, so that each keeps 64 x 128
+// floats of each: 64 x 256 of both would be 256 registers a thread). At HD
+// 256 the two consumers both form s^T and dp^T of the keys.
+__host__ __device__ constexpr int dkv_keys(int hd) {
+  return 128 * 128 / hd;
+}
+// stages of streamed Q and dO tiles: 3 at HD 128 (162 KB), 2 at 256 (194 KB)
+__host__ __device__ constexpr int dkv_stages(int hd) {
+  return hd == 128 ? 3 : 2;
+}
 
+template <int ST>
 struct DkvBars {
-  uint64_t kv_full, full[DKV_STAGES], empty[DKV_STAGES];
+  uint64_t kv_full, full[ST], empty[ST];
 };
+template <int ST>
 struct DkvStats {                // a streamed tile's lse and delta
-  float lse[DKV_STAGES][DKV_ROWS], delta[DKV_STAGES][DKV_ROWS];
+  float lse[ST][DKV_ROWS], delta[ST][DKV_ROWS];
 };
-constexpr size_t kDkvSm90Smem = 1024 + 2 * TILE_BYTES +
-                                2 * DKV_STAGES * QTILE_BYTES +
-                                sizeof(DkvStats) + sizeof(DkvBars);
+template <int HD>
+constexpr size_t dkv_sm90_smem() {
+  return 1024 +
+         static_cast<size_t>(2 * dkv_keys(HD) +
+                             2 * dkv_stages(HD) * DKV_ROWS) *
+             HD * 2 +
+         sizeof(DkvStats<dkv_stages(HD)>) + sizeof(DkvBars<dkv_stages(HD)>);
+}
+static_assert(dkv_sm90_smem<256>() <= MAX_SMEM, "dk/dv at HD 256");
 
-// dk and dv, grid (ceil(S / DKV_KEYS), B*H): K and V once, 64-row tiles of
-// Q and dO (TMA) with their lse and delta (plain loads by the producer
-// warp: a [B*H, L] float row need not start on 16 bytes) through the ring,
-// for the query rows >= k0. s^T = k q^T and dp^T = v dO^T (m64n64k16, all
-// K-major from shared memory); p^T and ds^T in registers; dv += p^T dO and
-// dk += ds^T q (m64n128k16, A from registers as hi + mid bf16 terms, dO and
-// q MN-major with the transpose bit).
+// dk and dv, grid (ceil(S / keys), B*H): K and V once, 64-row tiles of Q and
+// dO (TMA) with their lse and delta (plain loads by the producer warp: a
+// [B*H, L] float row need not start on 16 bytes) through the ring, for the
+// query rows >= k0. s^T = k q^T and dp^T = v dO^T (m64n64k16, all K-major
+// from shared memory); p^T and ds^T in registers; dv += p^T dO and dk +=
+// ds^T q (m64n128k16 over the consumer's 128 columns, A from registers as
+// hi + mid bf16 terms, dO and q MN-major with the transpose bit).
+template <int HD>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
     flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -427,21 +512,24 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
                           __nv_bfloat16* __restrict__ dk,
                           __nv_bfloat16* __restrict__ dv, int H, int L, int S,
                           float scale) {
+  constexpr int KEYS = dkv_keys(HD), ST = dkv_stages(HD);
+  constexpr int K_BOX = KEYS * ROW_BYTES, Q_BOX = DKV_ROWS * ROW_BYTES;
+  constexpr int K_BYTES = HD / 64 * K_BOX, Q_BYTES = HD / 64 * Q_BOX;
   extern __shared__ unsigned char raw_smem[];
   unsigned char* const Ks = align1024(raw_smem);
-  unsigned char* const Vs = Ks + TILE_BYTES;
-  unsigned char* const Qs = Vs + TILE_BYTES;                 // [stage]
-  unsigned char* const Gs = Qs + DKV_STAGES * QTILE_BYTES;   // [stage] dO
-  auto* stats = reinterpret_cast<DkvStats*>(Gs + DKV_STAGES * QTILE_BYTES);
-  auto* bars = reinterpret_cast<DkvBars*>(stats + 1);
-  const int k0 = blockIdx.x * DKV_KEYS;
+  unsigned char* const Vs = Ks + K_BYTES;
+  unsigned char* const Qs = Vs + K_BYTES;                // [stage]
+  unsigned char* const Gs = Qs + ST * Q_BYTES;           // [stage] dO
+  auto* stats = reinterpret_cast<DkvStats<ST>*>(Gs + ST * Q_BYTES);
+  auto* bars = reinterpret_cast<DkvBars<ST>*>(stats + 1);
+  const int k0 = blockIdx.x * KEYS;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int n_tiles = k0 < L ? (L - k0 + DKV_ROWS - 1) / DKV_ROWS : 0;
   const int wg = threadIdx.x / WG;
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(&bars->kv_full, 1);
-    for (int st = 0; st < DKV_STAGES; ++st) {
+    for (int st = 0; st < ST; ++st) {
       sm90::mbar_init(&bars->full[st], 32);            // the producer warp
       sm90::mbar_init(&bars->empty[st], 2 * WG / 32);  // consumer warps
     }
@@ -456,28 +544,24 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     const float* const lse_bh = lse + static_cast<int64_t>(bh) * L;
     const float* const delta_bh = delta + static_cast<int64_t>(bh) * L;
     if (lane == 0) {
-      sm90::mbar_arrive_expect_tx(&bars->kv_full, 2 * TILE_BYTES);
-      sm90::tma_load_4d(Ks, &tk, &bars->kv_full, 0, h, k0, b);
-      sm90::tma_load_4d(Ks + BOX128, &tk, &bars->kv_full, 64, h, k0, b);
-      sm90::tma_load_4d(Vs, &tv, &bars->kv_full, 0, h, k0, b);
-      sm90::tma_load_4d(Vs + BOX128, &tv, &bars->kv_full, 64, h, k0, b);
+      sm90::mbar_arrive_expect_tx(&bars->kv_full, 2 * K_BYTES);
+      load_rows<HD>(Ks, K_BOX, &tk, &bars->kv_full, h, k0, b);
+      load_rows<HD>(Vs, K_BOX, &tv, &bars->kv_full, h, k0, b);
     }
     for (int j = 0; j < n_tiles; ++j) {
-      const int st = j % DKV_STAGES, q0 = k0 + j * DKV_ROWS;
-      sm90::mbar_wait(&bars->empty[st], ((j / DKV_STAGES) & 1) ^ 1);
+      const int st = j % ST, q0 = k0 + j * DKV_ROWS;
+      sm90::mbar_wait(&bars->empty[st], ((j / ST) & 1) ^ 1);
       for (int r = lane; r < DKV_ROWS; r += 32) {
         const bool in = q0 + r < L;
         stats->lse[st][r] = in ? lse_bh[q0 + r] : 0.f;
         stats->delta[st][r] = in ? delta_bh[q0 + r] : 0.f;
       }
       if (lane == 0) {
-        unsigned char* qd = Qs + st * QTILE_BYTES;
-        unsigned char* gd = Gs + st * QTILE_BYTES;
-        sm90::mbar_arrive_expect_tx(&bars->full[st], 2 * QTILE_BYTES);
-        sm90::tma_load_4d(qd, &tq, &bars->full[st], 0, h, q0, b);
-        sm90::tma_load_4d(qd + BOX64, &tq, &bars->full[st], 64, h, q0, b);
-        sm90::tma_load_4d(gd, &tg, &bars->full[st], 0, h, q0, b);
-        sm90::tma_load_4d(gd + BOX64, &tg, &bars->full[st], 64, h, q0, b);
+        sm90::mbar_arrive_expect_tx(&bars->full[st], 2 * Q_BYTES);
+        load_rows<HD>(Qs + st * Q_BYTES, Q_BOX, &tq, &bars->full[st], h, q0,
+                      b);
+        load_rows<HD>(Gs + st * Q_BYTES, Q_BOX, &tg, &bars->full[st], h, q0,
+                      b);
       } else {
         sm90::mbar_arrive(&bars->full[st]);
       }
@@ -486,12 +570,14 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
   }
 
   sm90::setmaxnreg_inc<232>();
-  const int cw = wg - 1;                     // keys k0 + 64 cw ..
+  const int cw = wg - 1;
+  // this consumer's 64 keys (k0 + 64 kw ..) and 128 columns (128 half ..)
+  const int kw = KEYS == 128 ? cw : 0, half = KEYS == 128 ? 0 : cw;
   const int warp = threadIdx.x % WG / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int key = k0 + 64 * cw + 16 * warp + g;   // and key + 8
-  const unsigned char* const Kw = Ks + 64 * cw * ROW_BYTES;
-  const unsigned char* const Vw = Vs + 64 * cw * ROW_BYTES;
+  const int key = k0 + 64 * kw + 16 * warp + g;   // and key + 8
+  const unsigned char* const Kw = Ks + 64 * kw * ROW_BYTES;
+  const unsigned char* const Vw = Vs + 64 * kw * ROW_BYTES;
   const float sl2 = scale * LOG2E;
   float dk_acc[64], dv_acc[64];
 #pragma unroll
@@ -499,22 +585,22 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
   sm90::mbar_wait(&bars->kv_full, 0);
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int st = j % DKV_STAGES, q0 = k0 + j * DKV_ROWS;
-    const unsigned char* qt = Qs + st * QTILE_BYTES;
-    const unsigned char* gt = Gs + st * QTILE_BYTES;
+    const int st = j % ST, q0 = k0 + j * DKV_ROWS;
+    const unsigned char* qt = Qs + st * Q_BYTES;
+    const unsigned char* gt = Gs + st * Q_BYTES;
     float s[32], dp[32];
     const uint64_t desc_k = k_major(Kw), desc_q = k_major(qt);
     const uint64_t desc_v = k_major(Vw), desc_g = k_major(gt);
-    sm90::mbar_wait(&bars->full[st], (j / DKV_STAGES) & 1);
+    sm90::mbar_wait(&bars->full[st], (j / ST) & 1);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      sm90::wgmma_m64n64k16_ss(s, desc_k + k_step(BOX128, kk),
-                               desc_q + k_step(BOX64, kk), kk > 0);
+    for (int kk = 0; kk < HD / 16; ++kk)
+      sm90::wgmma_m64n64k16_ss(s, desc_k + k_step(K_BOX, kk),
+                               desc_q + k_step(Q_BOX, kk), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      sm90::wgmma_m64n64k16_ss(dp, desc_v + k_step(BOX128, kk),
-                               desc_g + k_step(BOX64, kk), kk > 0);
+    for (int kk = 0; kk < HD / 16; ++kk)
+      sm90::wgmma_m64n64k16_ss(dp, desc_v + k_step(K_BOX, kk),
+                               desc_g + k_step(Q_BOX, kk), kk > 0);
     sm90::wgmma_commit();
     sm90::wgmma_wait();
     sm90::fence_regs(s);
@@ -522,8 +608,8 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
 
     // p^T = exp(s^T scale - lse), ds^T = p^T (dp^T - delta) scale; rows:
     // keys key + 8((i / 2) & 1), columns: query rows q0 + c
-    const bool edge = k0 + 64 * cw + 63 > q0 || q0 + DKV_ROWS > L ||
-                      k0 + DKV_KEYS > S;
+    const bool edge = k0 + 64 * kw + 63 > q0 || q0 + DKV_ROWS > L ||
+                      k0 + KEYS > S;
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int c = 8 * (i / 4) + 2 * t + (i & 1);
@@ -544,7 +630,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
                a_mid[kk][r]);
     sm90::fence_regs(dv_acc);
     sm90::wgmma_fence();
-    const uint64_t desc_gt = mn_major(gt, BOX64);
+    const uint64_t desc_gt = mn_major(gt + 2 * half * Q_BOX, Q_BOX);
 #pragma unroll
     for (int kk = 0; kk < DKV_ROWS / 16; ++kk) {
       sm90::wgmma_m64n128k16_rs(dv_acc, a_hi[kk], desc_gt + mn_step(kk), 1);
@@ -559,7 +645,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
                d_mid[kk][r]);
     sm90::fence_regs(dk_acc);
     sm90::wgmma_fence();
-    const uint64_t desc_qt = mn_major(qt, BOX64);
+    const uint64_t desc_qt = mn_major(qt + 2 * half * Q_BOX, Q_BOX);
 #pragma unroll
     for (int kk = 0; kk < DKV_ROWS / 16; ++kk) {
       sm90::wgmma_m64n128k16_rs(dk_acc, d_hi[kk], desc_qt + mn_step(kk), 1);
@@ -573,29 +659,43 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
   }
   const float one[2] = {1.f, 1.f};
-  store_acc_rows(dk, b, h, S, H, key, t, dk_acc, one);
-  store_acc_rows(dv, b, h, S, H, key, t, dv_acc, one);
+  store_acc_rows<__nv_bfloat16, HD>(dk, b, h, S, H, key, t, dk_acc, one,
+                                    128 * half);
+  store_acc_rows<__nv_bfloat16, HD>(dv, b, h, S, H, key, t, dv_acc, one,
+                                    128 * half);
 }
 
 constexpr int DQ_ROWS = 128;   // query rows per block
-constexpr int DQ_KEYS = 64;    // keys per streamed tile
 constexpr int DQ_STAGES = 3;
+// keys per streamed K or V tile: 64 at HD 128, 32 at HD 256 (a tile is 16
+// KB at both; Q and dO resident take 64 and 128 KB)
+__host__ __device__ constexpr int dq_keys(int hd) {
+  return 64 * 128 / hd;
+}
 
 struct DqBars {
   uint64_t qg_full, k_full[DQ_STAGES], v_full[DQ_STAGES], empty[DQ_STAGES];
 };
-constexpr size_t kDqSm90Smem = 1024 + 2 * TILE_BYTES +
-                               2 * DQ_STAGES * QTILE_BYTES + sizeof(DqBars);
+template <int HD>
+constexpr size_t dq_sm90_smem() {
+  return 1024 +
+         static_cast<size_t>(2 * DQ_ROWS + 2 * DQ_STAGES * dq_keys(HD)) * HD *
+             2 +
+         sizeof(DqBars);
+}
+static_assert(dq_sm90_smem<256>() <= MAX_SMEM, "dq at HD 256");
 
-// dq, grid (ceil(L / DQ_ROWS), B*H): Q and dO once, 64-key tiles of K and V
-// (TMA) through the ring, for the keys <= the block's last row. s = q k^T
-// and dp = dO v^T (m64n64k16, all K-major from shared memory); p and ds in
-// registers; dq += ds k (m64n128k16, A from registers as hi + mid bf16
-// terms, k MN-major with the transpose bit). lse and delta belong to the
-// block's own rows, so each consumer thread loads its two rows' values into
-// registers once. A consumer whose rows all lie before a tile's first key
-// skips the tile's products (it still waits for the tile, so its arrivals on
-// the empty barrier stay in step with the other consumer's).
+// dq, grid (ceil(L / DQ_ROWS), B*H): Q and dO once, K and V tiles (TMA)
+// through the ring, for the keys <= the block's last row. s = q k^T and dp =
+// dO v^T (m64n64k16 at HD 128, m64n32k16 at 256; all K-major from shared
+// memory); p and ds in registers; dq += ds k (m64n128k16 a 128-column half
+// of dq, A from registers as hi + mid bf16 terms, k MN-major with the
+// transpose bit). lse and delta belong to the block's own rows, so each
+// consumer thread loads its two rows' values into registers once. A
+// consumer whose rows all lie before a tile's first key skips the tile's
+// products (it still waits for the tile, so its arrivals on the empty
+// barrier stay in step with the other consumer's).
+template <int HD>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
     flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
@@ -605,15 +705,18 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
                          const float* __restrict__ delta,
                          __nv_bfloat16* __restrict__ dq, int H, int L, int S,
                          float scale) {
+  constexpr int KEYS = dq_keys(HD);
+  constexpr int Q_BOX = DQ_ROWS * ROW_BYTES, KV_BOX = KEYS * ROW_BYTES;
+  constexpr int Q_BYTES = HD / 64 * Q_BOX, KV_BYTES = HD / 64 * KV_BOX;
   extern __shared__ unsigned char raw_smem[];
   unsigned char* const Qs = align1024(raw_smem);
-  unsigned char* const Gs = Qs + TILE_BYTES;                 // dO
-  unsigned char* const Ks = Gs + TILE_BYTES;                 // [stage]
-  unsigned char* const Vs = Ks + DQ_STAGES * QTILE_BYTES;    // [stage]
-  auto* bars = reinterpret_cast<DqBars*>(Vs + DQ_STAGES * QTILE_BYTES);
+  unsigned char* const Gs = Qs + Q_BYTES;                  // dO
+  unsigned char* const Ks = Gs + Q_BYTES;                  // [stage]
+  unsigned char* const Vs = Ks + DQ_STAGES * KV_BYTES;     // [stage]
+  auto* bars = reinterpret_cast<DqBars*>(Vs + DQ_STAGES * KV_BYTES);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * DQ_ROWS;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int n_tiles = (min(S, q0 + DQ_ROWS) + DQ_KEYS - 1) / DQ_KEYS;
+  const int n_tiles = (min(S, q0 + DQ_ROWS) + KEYS - 1) / KEYS;
   const int wg = threadIdx.x / WG;
 
   if (threadIdx.x == 0) {
@@ -630,24 +733,18 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
   if (wg == 0) {   // producer
     sm90::setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
-      sm90::mbar_arrive_expect_tx(&bars->qg_full, 2 * TILE_BYTES);
-      sm90::tma_load_4d(Qs, &tq, &bars->qg_full, 0, h, q0, b);
-      sm90::tma_load_4d(Qs + BOX128, &tq, &bars->qg_full, 64, h, q0, b);
-      sm90::tma_load_4d(Gs, &tg, &bars->qg_full, 0, h, q0, b);
-      sm90::tma_load_4d(Gs + BOX128, &tg, &bars->qg_full, 64, h, q0, b);
+      sm90::mbar_arrive_expect_tx(&bars->qg_full, 2 * Q_BYTES);
+      load_rows<HD>(Qs, Q_BOX, &tq, &bars->qg_full, h, q0, b);
+      load_rows<HD>(Gs, Q_BOX, &tg, &bars->qg_full, h, q0, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % DQ_STAGES;
         sm90::mbar_wait(&bars->empty[st], ((j / DQ_STAGES) & 1) ^ 1);
-        unsigned char* kd = Ks + st * QTILE_BYTES;
-        unsigned char* vd = Vs + st * QTILE_BYTES;
-        sm90::mbar_arrive_expect_tx(&bars->k_full[st], QTILE_BYTES);
-        sm90::tma_load_4d(kd, &tk, &bars->k_full[st], 0, h, j * DQ_KEYS, b);
-        sm90::tma_load_4d(kd + BOX64, &tk, &bars->k_full[st], 64, h,
-                          j * DQ_KEYS, b);
-        sm90::mbar_arrive_expect_tx(&bars->v_full[st], QTILE_BYTES);
-        sm90::tma_load_4d(vd, &tv, &bars->v_full[st], 0, h, j * DQ_KEYS, b);
-        sm90::tma_load_4d(vd + BOX64, &tv, &bars->v_full[st], 64, h,
-                          j * DQ_KEYS, b);
+        sm90::mbar_arrive_expect_tx(&bars->k_full[st], KV_BYTES);
+        load_rows<HD>(Ks + st * KV_BYTES, KV_BOX, &tk, &bars->k_full[st], h,
+                      j * KEYS, b);
+        sm90::mbar_arrive_expect_tx(&bars->v_full[st], KV_BYTES);
+        load_rows<HD>(Vs + st * KV_BYTES, KV_BOX, &tv, &bars->v_full[st], h,
+                      j * KEYS, b);
       }
     }
     return;
@@ -671,32 +768,34 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     dl[r] = in ? delta[i] : 0.f;
   }
   // tiles whose first key lies past this consumer's last row add nothing
-  const int my_tiles = (min(S, r0 + 64) + DQ_KEYS - 1) / DQ_KEYS;
-  float acc[64];
+  const int my_tiles = (min(S, r0 + 64) + KEYS - 1) / KEYS;
+  float acc[HD / 128][64];                   // dq, a 128-column half each
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int c = 0; c < HD / 128; ++c)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[c][i] = 0.f;
   sm90::mbar_wait(&bars->qg_full, 0);
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int st = j % DQ_STAGES, k0 = j * DQ_KEYS;
+    const int st = j % DQ_STAGES, k0 = j * KEYS;
     const uint32_t phase = (j / DQ_STAGES) & 1;
-    const unsigned char* kt = Ks + st * QTILE_BYTES;
-    const unsigned char* vt = Vs + st * QTILE_BYTES;
+    const unsigned char* kt = Ks + st * KV_BYTES;
+    const unsigned char* vt = Vs + st * KV_BYTES;
     sm90::mbar_wait(&bars->k_full[st], phase);
     sm90::mbar_wait(&bars->v_full[st], phase);
     if (j < my_tiles) {
-      float s[32], dp[32];
+      float s[KEYS / 2], dp[KEYS / 2];
       const uint64_t desc_q = k_major(Qw), desc_k = k_major(kt);
       const uint64_t desc_g = k_major(Gw), desc_v = k_major(vt);
       sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        sm90::wgmma_m64n64k16_ss(s, desc_q + k_step(BOX128, kk),
-                                 desc_k + k_step(BOX64, kk), kk > 0);
+      for (int kk = 0; kk < HD / 16; ++kk)
+        sm90::wgmma_ss(s, desc_q + k_step(Q_BOX, kk),
+                       desc_k + k_step(KV_BOX, kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        sm90::wgmma_m64n64k16_ss(dp, desc_g + k_step(BOX128, kk),
-                                 desc_v + k_step(BOX64, kk), kk > 0);
+      for (int kk = 0; kk < HD / 16; ++kk)
+        sm90::wgmma_ss(dp, desc_g + k_step(Q_BOX, kk),
+                       desc_v + k_step(KV_BOX, kk), kk > 0);
       sm90::wgmma_commit();
       sm90::wgmma_wait();
       sm90::fence_regs(s);
@@ -705,9 +804,9 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
       // p = exp(s scale - lse), ds = p (dp - delta) scale; rows: queries
       // row + 8((i / 2) & 1), columns: keys k0 + c. Only a tile that crosses
       // this consumer's diagonal or the ragged end is masked.
-      const bool edge = k0 + DQ_KEYS - 1 > r0 || k0 + DQ_KEYS > S;
+      const bool edge = k0 + KEYS - 1 > r0 || k0 + KEYS > S;
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
+      for (int i = 0; i < KEYS / 2; ++i) {
         const int r = (i / 2) & 1;
         float p = exp2f(fmaf(s[i], sl2, -lse2[r]));
         if (edge) {
@@ -716,30 +815,38 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
         }
         dp[i] = p * (dp[i] - dl[r]) * scale;
       }
-      uint32_t d_hi[DQ_KEYS / 16][4], d_mid[DQ_KEYS / 16][4];
+      uint32_t d_hi[KEYS / 16][4], d_mid[KEYS / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < DQ_KEYS / 16; ++kk)
+      for (int kk = 0; kk < KEYS / 16; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
           split2(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1], d_hi[kk][r],
                  d_mid[kk][r]);
-      sm90::fence_regs(acc);
-      sm90::wgmma_fence();
-      const uint64_t desc_kt = mn_major(kt, BOX64);
 #pragma unroll
-      for (int kk = 0; kk < DQ_KEYS / 16; ++kk) {
-        sm90::wgmma_m64n128k16_rs(acc, d_hi[kk], desc_kt + mn_step(kk), 1);
-        sm90::wgmma_m64n128k16_rs(acc, d_mid[kk], desc_kt + mn_step(kk), 1);
-      }
+      for (int c = 0; c < HD / 128; ++c) sm90::fence_regs(acc[c]);
+      sm90::wgmma_fence();
+      const uint64_t desc_kt = mn_major(kt, KV_BOX);
+#pragma unroll
+      for (int c = 0; c < HD / 128; ++c)
+#pragma unroll
+        for (int kk = 0; kk < KEYS / 16; ++kk) {
+          const uint64_t bk = desc_kt + ((2 * c * KV_BOX) >> 4) + mn_step(kk);
+          sm90::wgmma_m64n128k16_rs(acc[c], d_hi[kk], bk, 1);
+          sm90::wgmma_m64n128k16_rs(acc[c], d_mid[kk], bk, 1);
+        }
       sm90::wgmma_commit();
       sm90::wgmma_wait();
-      sm90::fence_regs(acc);
+#pragma unroll
+      for (int c = 0; c < HD / 128; ++c) sm90::fence_regs(acc[c]);
     }
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
   }
   const float one[2] = {1.f, 1.f};
-  store_acc_rows(dq, b, h, L, H, row, t, acc, one);
+#pragma unroll
+  for (int c = 0; c < HD / 128; ++c)
+    store_acc_rows<__nv_bfloat16, HD>(dq, b, h, L, H, row, t, acc[c], one,
+                                      128 * c);
 }
 
 // ---------------------- float32 on Hopper: three bf16 terms, TMA-free, wgmma
@@ -1405,65 +1512,71 @@ int launch_dkv_split3(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 forward and dk/dv: tensor maps encoded per call over the caller's
-// tensors, then the launch
+// bf16 forward, dq and dk/dv at head dim HD: tensor maps encoded per call
+// over the caller's tensors, then the launch
+template <int HD>
 int launch_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                     float* lse, int B, int H, int L, int S, float scale,
                     cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  cudaError_t err = sm90::make_head_map(&tq, q, B, L, H, FWD_ROWS);
+  cudaError_t err = sm90::make_head_map(&tq, q, B, L, H, HD, FWD_ROWS);
   if (err == cudaSuccess)
-    err = sm90::make_head_map(&tk, k, B, S, H, FWD_KEYS);
+    err = sm90::make_head_map(&tk, k, B, S, H, HD, fwd_keys(HD));
   if (err == cudaSuccess)
-    err = sm90::make_head_map(&tv, v, B, S, H, FWD_KEYS);
+    err = sm90::make_head_map(&tv, v, B, S, H, HD, fwd_keys(HD));
   if (err == cudaSuccess)
-    err = allow_smem(flash_fwd_sm90_kernel, kFwdSm90Smem);
+    err = allow_smem(flash_fwd_sm90_kernel<HD>, fwd_sm90_smem<HD>());
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((L + FWD_ROWS - 1) / FWD_ROWS, B * H);
-  flash_fwd_sm90_kernel<<<grid, SM90_THREADS, kFwdSm90Smem, stream>>>(
+  flash_fwd_sm90_kernel<HD><<<grid, SM90_THREADS, fwd_sm90_smem<HD>(),
+                              stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H, L, S, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int HD>
 int launch_dkv_sm90(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
                     void* dk, void* dv, int B, int H, int L, int S, float scale,
                     cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tg;
-  cudaError_t err = sm90::make_head_map(&tq, q, B, L, H, DKV_ROWS);
+  cudaError_t err = sm90::make_head_map(&tq, q, B, L, H, HD, DKV_ROWS);
   if (err == cudaSuccess)
-    err = sm90::make_head_map(&tg, dout, B, L, H, DKV_ROWS);
+    err = sm90::make_head_map(&tg, dout, B, L, H, HD, DKV_ROWS);
   if (err == cudaSuccess)
-    err = sm90::make_head_map(&tk, k, B, S, H, DKV_KEYS);
+    err = sm90::make_head_map(&tk, k, B, S, H, HD, dkv_keys(HD));
   if (err == cudaSuccess)
-    err = sm90::make_head_map(&tv, v, B, S, H, DKV_KEYS);
+    err = sm90::make_head_map(&tv, v, B, S, H, HD, dkv_keys(HD));
   if (err == cudaSuccess)
-    err = allow_smem(flash_dkv_sm90_kernel, kDkvSm90Smem);
+    err = allow_smem(flash_dkv_sm90_kernel<HD>, dkv_sm90_smem<HD>());
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + DKV_KEYS - 1) / DKV_KEYS, B * H);
-  flash_dkv_sm90_kernel<<<grid, SM90_THREADS, kDkvSm90Smem, stream>>>(
+  const dim3 grid((S + dkv_keys(HD) - 1) / dkv_keys(HD), B * H);
+  flash_dkv_sm90_kernel<HD><<<grid, SM90_THREADS, dkv_sm90_smem<HD>(),
+                              stream>>>(
       tq, tk, tv, tg, lse, delta, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), H, L, S, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int HD>
 int launch_dq_sm90(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, int B, int H, int L, int S, float scale,
                    cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tg;
-  cudaError_t err = sm90::make_head_map(&tq, q, B, L, H, DQ_ROWS);
+  cudaError_t err = sm90::make_head_map(&tq, q, B, L, H, HD, DQ_ROWS);
   if (err == cudaSuccess)
-    err = sm90::make_head_map(&tg, dout, B, L, H, DQ_ROWS);
+    err = sm90::make_head_map(&tg, dout, B, L, H, HD, DQ_ROWS);
   if (err == cudaSuccess)
-    err = sm90::make_head_map(&tk, k, B, S, H, DQ_KEYS);
+    err = sm90::make_head_map(&tk, k, B, S, H, HD, dq_keys(HD));
   if (err == cudaSuccess)
-    err = sm90::make_head_map(&tv, v, B, S, H, DQ_KEYS);
+    err = sm90::make_head_map(&tv, v, B, S, H, HD, dq_keys(HD));
   if (err == cudaSuccess)
-    err = allow_smem(flash_dq_sm90_kernel, kDqSm90Smem);
+    err = allow_smem(flash_dq_sm90_kernel<HD>, dq_sm90_smem<HD>());
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((L + DQ_ROWS - 1) / DQ_ROWS, B * H);
-  flash_dq_sm90_kernel<<<grid, SM90_THREADS, kDqSm90Smem, stream>>>(
+  flash_dq_sm90_kernel<HD><<<grid, SM90_THREADS, dq_sm90_smem<HD>(),
+                             stream>>>(
       tq, tk, tv, tg, lse, delta, static_cast<__nv_bfloat16*>(dq), H, L, S,
       scale);
   return static_cast<int>(cudaGetLastError());
@@ -1473,46 +1586,62 @@ int launch_dq_sm90(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// q, o [B, L, H, 128], k, v [B, S, H, 128], contiguous and 16-byte
-// aligned, all bfloat16 when bf16 is non-zero, else float; lse [B*H, L]
-// float. Each entry point returns a cudaError_t value; 0 means the launch
-// was accepted.
+// q, o [B, L, H, D], k, v [B, S, H, D], contiguous and 16-byte aligned, all
+// bfloat16 when bf16 is non-zero (D 128 or 256), else float (D 128); lse
+// [B*H, L] float. Each entry point returns a cudaError_t value; 0 means the
+// launch was accepted (another D or type: cudaErrorInvalidValue).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        void* lse, int B, int H, int L, int S, float scale,
-                        int bf16, void* stream) {
+                        void* lse, int B, int H, int L, int S, int D,
+                        float scale, int bf16, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* lse_f = static_cast<float*>(lse);
-  if (!bf16)
+  if (!bf16 && D == 128)
     return launch_fwd_split3(q, k, v, o, lse_f, B, H, L, S, scale, s);
-  return launch_fwd_sm90(q, k, v, o, lse_f, B, H, L, S, scale, s);
+  if (bf16 && D == 128)
+    return launch_fwd_sm90<128>(q, k, v, o, lse_f, B, H, L, S, scale, s);
+  if (bf16 && D == 256)
+    return launch_fwd_sm90<256>(q, k, v, o, lse_f, B, H, L, S, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // dout and dq as q; delta [B*H, L] float = rowsum(dout * o)
 int flash_attention_dq(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
-                       void* dq, int B, int H, int L, int S, float scale,
-                       int bf16, void* stream) {
+                       void* dq, int B, int H, int L, int S, int D,
+                       float scale, int bf16, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<const float*>(lse);
   auto* dl = static_cast<const float*>(delta);
-  if (!bf16)
+  if (!bf16 && D == 128)
     return launch_dq_split3(q, k, v, dout, l, dl, dq, B, H, L, S, scale,
                             s);
-  return launch_dq_sm90(q, k, v, dout, l, dl, dq, B, H, L, S, scale, s);
+  if (bf16 && D == 128)
+    return launch_dq_sm90<128>(q, k, v, dout, l, dl, dq, B, H, L, S, scale,
+                               s);
+  if (bf16 && D == 256)
+    return launch_dq_sm90<256>(q, k, v, dout, l, dl, dq, B, H, L, S, scale,
+                               s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // dk, dv as k
 int flash_attention_dkv(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
-                        void* dk, void* dv, int B, int H, int L, int S,
+                        void* dk, void* dv, int B, int H, int L, int S, int D,
                         float scale, int bf16, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<const float*>(lse);
   auto* dl = static_cast<const float*>(delta);
-  if (!bf16)
+  if (!bf16 && D == 128)
     return launch_dkv_split3(q, k, v, dout, l, dl, dk, dv, B, H, L, S, scale,
                              s);
-  return launch_dkv_sm90(q, k, v, dout, l, dl, dk, dv, B, H, L, S, scale, s);
+  if (bf16 && D == 128)
+    return launch_dkv_sm90<128>(q, k, v, dout, l, dl, dk, dv, B, H, L, S,
+                                scale, s);
+  if (bf16 && D == 256)
+    return launch_dkv_sm90<256>(q, k, v, dout, l, dl, dk, dv, B, H, L, S,
+                                scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* flash_attention_error_string(int err) {

@@ -6,16 +6,17 @@
 // Shared-memory tiles are bf16 rows of 64 columns (128 bytes) written by TMA
 // with the 128-byte swizzle, or by threads in the same layout (16-byte chunk
 // c of row r at chunk c ^ (r % 8); then fence_proxy_async before the barrier
-// that releases them to wgmma); a 128-column head is two such boxes. wgmma
-// reads them through descriptors (desc_sw128): K-major operands (the
-// reduction axis contiguous, as q and k rows are for q k^T) step 32 bytes a
-// depth-16 slice inside the swizzled row and 1024 bytes (8 rows) between
-// core-matrix groups; MN-major operands (v's rows for p v: the output axis
-// contiguous) take the transpose bit, 1024 bytes between 8-deep groups and
-// the box stride between 64-column halves. Every box sits on a 1024-byte
-// boundary, so the swizzle's base offset is 0, and a descriptor moves to
-// another slice by adding the byte offset / 16 (the start address field is
-// the low 14 bits and shared addresses stay below 2^18).
+// that releases them to wgmma); a 128-column head is two such boxes, a
+// 256-column head four. wgmma reads them through descriptors (desc_sw128):
+// K-major operands (the reduction axis contiguous, as q and k rows are for
+// q k^T) step 32 bytes a depth-16 slice inside the swizzled row and 1024
+// bytes (8 rows) between core-matrix groups; MN-major operands (v's rows for
+// p v: the output axis contiguous) take the transpose bit, 1024 bytes
+// between 8-deep groups and the box stride between 64-column groups. Every
+// box sits on a 1024-byte boundary, so the swizzle's base offset is 0, and a
+// descriptor moves to another slice by adding the byte offset / 16 (the
+// start address field is the low 14 bits and shared addresses stay below
+// 2^18).
 
 #pragma once
 
@@ -216,6 +217,21 @@ __device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (+)= A B, both operands K-major from shared memory, depth 16, for the
+// 64-row tile whose width d's size sets: 128 (64 floats a thread), 64 or 32
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  wgmma_m64n128k16_ss(d, a, b, accumulate);
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  wgmma_m64n64k16_ss(d, a, b, accumulate);
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  wgmma_m64n32k16_ss(d, a, b, accumulate);
+}
+
 // d (+)= A B for a 64 x 128 tile, depth 16; A from registers (the
 // accumulator layout of a 64-row tile, bf16 pairs), B from shared memory,
 // MN-major (the transpose bit)
@@ -273,16 +289,18 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// Tensor map of head rows of a [B, N, H, 128] bf16 tensor as a 4-D tensor
-// (128, H, N, B) with its real strides, loaded in boxes of 64 columns x
-// `box_rows` rows of one head, 128-byte swizzled; rows past N (and so never
-// the next batch's rows) read as zeros.
+// Tensor map of head rows of a [B, N, H, D] bf16 tensor (D a multiple of
+// 64) as a 4-D tensor (D, H, N, B) with its real strides, loaded in boxes of
+// 64 columns x `box_rows` rows of one head, 128-byte swizzled (a row of a
+// tile is D / 64 boxes); rows past N (and so never the next batch's rows)
+// read as zeros.
 inline cudaError_t make_head_map(CUtensorMap* map, const void* base, int B,
-                                 int N, int H, int box_rows) {
+                                 int N, int H, int D, int box_rows) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t row = 128 * sizeof(uint16_t);
-  const cuuint64_t dims[4] = {128, static_cast<cuuint64_t>(H),
+  const cuuint64_t row = static_cast<cuuint64_t>(D) * sizeof(uint16_t);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(N),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {row, row * H, row * H * N};

@@ -19,9 +19,12 @@ backward's float p and ds as two bf16 terms, hi + mid, within 2^-16 of each
 product). float32 inputs run all three kernels on the tensor cores too,
 each float as three bf16 terms and each product as six bf16 products
 (within ~2^-23 of it: the TPU's float32 dots at Precision.HIGHEST do the
-same); all sums are float. The kernels take D = 128 and any L and S (a
-ragged last tile is masked in the kernel; the JAX wrapper pads L to 128
-instead).
+same); all sums are float. The kernels take head dim D = 128 in both
+types and D = 256 in bfloat16 (``HEAD_DIMS``; the scale is then 1/16,
+exact), and any L and S (a ragged last tile is masked in the kernel; the
+JAX wrapper pads L to 128 instead). The JAX model sends every D % 128 == 0
+in any type to its Pallas kernels: float32 at D 256, D 384 and up, and
+float16 are not ported yet and raise here.
 
 Dispatch: CPU tensors take the plain versions (``flash_fwd_plain``,
 ``flash_dq_plain``, ``flash_dkv_plain``: dense attention and the
@@ -41,7 +44,9 @@ import torch
 from ..utils import build as _build
 
 NEG_INF = -1e30
-HEAD_DIM = 128
+# the head dims the kernels take, by input type (any other shape or type
+# raises; ``llm.model.flash_applies`` sends those to plain attention)
+HEAD_DIMS = {torch.float32: (128,), torch.bfloat16: (128, 256)}
 
 # launches of the CUDA kernels (plain-version calls are not counted)
 fwd_launches = 0      # flash_fwd
@@ -64,7 +69,7 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(build())
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            tail = [i32] * 4 + [ctypes.c_float, i32, ptr]
+            tail = [i32] * 5 + [ctypes.c_float, i32, ptr]
             lib.flash_attention_fwd.argtypes = [ptr] * 5 + tail
             lib.flash_attention_dq.argtypes = [ptr] * 7 + tail
             lib.flash_attention_dkv.argtypes = [ptr] * 8 + tail
@@ -136,9 +141,9 @@ def bwd_delta(o, dout):
 # ------------------------------------------------------------------ kernels
 def _check(q, k, v, *more):
     B, L, H, D = q.shape
-    if D != HEAD_DIM or q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"flash_attention: the kernel takes head dim "
-                         f"{HEAD_DIM} in float32 or bfloat16, got "
+    if D not in HEAD_DIMS.get(q.dtype, ()):
+        raise ValueError(f"flash_attention: the kernels take head dim 128 "
+                         f"in float32 or bfloat16 and 256 in bfloat16, got "
                          f"{tuple(q.shape)} {q.dtype}")
     S = k.shape[1]
     for name, t, shape in (("k", k, (B, S, H, D)), ("v", v, (B, S, H, D)),
@@ -185,7 +190,7 @@ def flash_fwd(q, k, v):
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B, H, L, S, 1.0 / math.sqrt(D),
+            lse.data_ptr(), B, H, L, S, D, 1.0 / math.sqrt(D),
             int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     _raise(lib, err, "forward")
@@ -206,7 +211,7 @@ def flash_dq(q, k, v, dout, lse, delta):
     with torch.cuda.device(q.device):
         err = lib.flash_attention_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, L, S,
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, L, S, D,
             1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     _raise(lib, err, "dq")
@@ -228,7 +233,7 @@ def flash_dkv(q, k, v, dout, lse, delta):
         err = lib.flash_attention_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, H, L, S, 1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16),
+            B, H, L, S, D, 1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     _raise(lib, err, "dkv")
     dkv_launches += 1

@@ -16,7 +16,9 @@ phase of ``--phases`` (default all three):
   cores' peak), its share of the bound and the achieved TFLOP/s, and each
   output's largest ratio to its tolerance against the plain versions (dq,
   dk and dv also from the plain forward's lse and delta, the same inputs
-  in both trees);
+  in both trees); then head dim 256 in bf16 at Gemma-2B's 8 heads, B2 and
+  B8 L2047 (``D256_SHAPES``), the same way, in a tree whose kernels take
+  it (another tree's row says it does not);
 - ``gate``: the gate-scatter kernels of ``ops.gate_scatter``: the v4
   forward K1 (both directions) at every row of chip_smoke's
   ``KERNEL_SHAPES`` and the skewed WebQSP layout ``SKEWED``; the v4
@@ -60,6 +62,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 PHASES = ("flash", "gate", "steps")
 SHAPE = (8, 2047, 32, 128)         # B, L, H, D of the SFT step's attention
+# bf16 at head dim 256: the Gemma-2B-width SFT step's attention (B2) and B8
+D256_SHAPES = ((2, 2047, 8, 256), (8, 2047, 8, 256))
 TIMING = dict(runs=10, reps=5, warmup=2)
 # the flash kernels' timing by type: the float32 ones take ~5-25 ms a launch
 FLASH_TIMING = {"bfloat16": TIMING, "float32": dict(runs=5, reps=2, warmup=1)}
@@ -101,6 +105,13 @@ def measure(tree, phases, data):
     if "flash" in phases:
         out["flash"] = {dtype: measure_flash(smoke, device, dtype, timing)
                         for dtype, timing in FLASH_TIMING.items()}
+        from gnn_rag_tpu_torch.llm import flash_attention as fa
+        takes = 256 in getattr(fa, "HEAD_DIMS", {}).get(torch.bfloat16, ())
+        out["flash_d256"] = {
+            f"B{shape[0]}": (measure_flash(smoke, device, "bfloat16", TIMING,
+                                           shape) if takes
+                             else "not taken by this tree's kernels")
+            for shape in D256_SHAPES}
     if "gate" in phases:
         out["gate_scatter"] = measure_gate(smoke, device)
     if "steps" in phases:
@@ -112,14 +123,14 @@ def measure(tree, phases, data):
                           **out)), flush=True)
 
 
-def measure_flash(smoke, device, dtype, timing):
-    """The flash kernels in ``dtype``: errors against the plain versions,
-    then times."""
+def measure_flash(smoke, device, dtype, timing, shape=SHAPE):
+    """The flash kernels in ``dtype`` at ``shape`` (B, L, H, D): errors
+    against the plain versions, then times."""
     import torch
     from gnn_rag_tpu_torch.llm import flash_attention as fa
-    B, L, H, D = SHAPE
+    B, L, H, D = shape
     gen = torch.Generator(device=device).manual_seed(smoke.SEED + 2)
-    q, k, v, g = (torch.randn(SHAPE, generator=gen, device=device)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=device)
                   .to(getattr(torch, dtype)) for _ in range(4))
     o, lse = fa.flash_fwd(q, k, v)
     delta = fa.bwd_delta(o, g)
@@ -155,7 +166,7 @@ def measure_flash(smoke, device, dtype, timing):
                 B, L, H, D, dtype, float_cores=True)[name][0]
     del q, k, v, g, o, lse, delta, calls
     torch.cuda.empty_cache()
-    return dict(shape=f"B8 L2047 H32 D128 {dtype}", kernels=kernels,
+    return dict(shape=f"B{B} L{L} H{H} D{D} {dtype}", kernels=kernels,
                 err_over_tol=errs)
 
 

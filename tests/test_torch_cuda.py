@@ -2,7 +2,8 @@
 gate-scatter forward and backward, the fused-projection forward and
 backward and scatter_mm (alone and in a ReaRev training step under
 GNN_RAG_GATE_SCATTER=v2), and the flash-attention forward, dq and dk/dv
-kernels (alone, through autograd, and in a LlamaLM).
+kernels (alone, through autograd, and in a LlamaLM; at head dim 128 in
+float32 and bf16, and at head dim 256 in bf16).
 
 Every test here needs an NVIDIA GPU (and nvcc for the first build) and skips
 without one. The file imports no JAX, so it runs on a machine without it:
@@ -693,6 +694,46 @@ def test_flash_kernels_match_plain(cuda, B, L, H, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H", [
+    # head dim 256, bf16: one row, under one tile, one row past a 128-row
+    # block (and past dq's 32-key and dk/dv's 64-key tiles), ragged lengths,
+    # Gemma-2B's 8 heads at the SFT length
+    (1, 1, 2), (1, 63, 2), (1, 129, 2), (3, 77, 2), (2, 300, 8),
+    (1, 1000, 2), (2, 2047, 8)])
+def test_flash_d256_kernels_match_plain(cuda, B, L, H):
+    g = torch.Generator(device=cuda).manual_seed(L)
+    q, k, v, do = (torch.randn((B, L, H, 256), generator=g, device=cuda
+                               ).bfloat16() for _ in range(4))
+    before = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    o, lse = fa.flash_fwd(q, k, v)
+    po, plse = fa.flash_fwd_plain(q, k, v)
+    assert_flash_close(o, po, "o")
+    assert_flash_close(lse, plse, "lse")
+    delta, pdelta = fa.bwd_delta(o, do), fa.bwd_delta(po, do)
+    dq = fa.flash_dq(q, k, v, do, lse, delta)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta)
+    pdq = fa.flash_dq_plain(q, k, v, do, plse, pdelta)
+    pdk, pdv = fa.flash_dkv_plain(q, k, v, do, plse, pdelta)
+    if L == 1:
+        # one key: dq and dk are exactly 0 and hold only the float noise of
+        # dp - delta (two float sums of D products) times scale times k or q
+        noise = (2 ** -15 / math.sqrt(256)) * (do.float() * v.float()).abs(
+            ).sum(-1, keepdim=True)
+        for name, a, x in (("dq", dq, k), ("dk", dk, q)):
+            assert bool((a.float().abs() <= noise * x.float().abs()).all()), name
+    else:
+        assert_flash_close(dq, pdq, "dq")
+        assert_flash_close(dk, pdk, "dk")
+    assert_flash_close(dv, pdv, "dv")
+    assert torch.equal(dq, fa.flash_dq(q, k, v, do, lse, delta))
+    assert all(torch.equal(a, b) for a, b in
+               zip((dk, dv), fa.flash_dkv(q, k, v, do, lse, delta)))
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
+        n + c for n, c in zip(before, (1, 2, 2)))
+
+
+@pytest.mark.cuda
 def test_flash_autograd_and_checks(cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn((2, 130, 2, 128), generator=g, device=cuda
@@ -707,6 +748,8 @@ def test_flash_autograd_and_checks(cuda):
         assert_rel(a, b.detach(), 1e-4, name)
     with pytest.raises(ValueError, match="head dim 128"):
         fa.flash_fwd(*(torch.zeros(1, 8, 1, 64, device=cuda),) * 3)
+    with pytest.raises(ValueError, match="256 in bfloat16"):
+        fa.flash_fwd(*(torch.zeros(1, 8, 1, 256, device=cuda),) * 3)
     x = torch.zeros(1, 8, 1, 128, device=cuda)
     with pytest.raises(ValueError, match="k must be"):
         fa.flash_fwd(x, x.half(), x)
@@ -753,11 +796,48 @@ def test_llama_flash_vs_plain_attention(cuda, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim,dtype", [(256, "bfloat16"), (128, "float16")])
+def test_llama_d256_flash_vs_plain_attention(cuda):
+    """A bf16 LlamaLM at head dim 256 (Gemma-2B's heads: 8 of 256, one kv
+    head, tied embeddings; 2 layers) on the card: the flash path launches
+    one forward, one dq and one dk/dv per layer, and each output (logits
+    and every parameter's loss gradient) is within twice the plain bf16
+    path's own distance from the same model in float32 (as
+    test_llama_flash_vs_plain_attention holds head dim 128)."""
+    cfg = LlamaConfig(vocab_size=300, dim=2048, n_layers=2, n_heads=8,
+                      n_kv_heads=1, intermediate=512, tie_embeddings=True,
+                      dtype="bfloat16")
+    model = build_llama(cfg, seed=0, device=cuda)
+    tokens = torch.randint(3, 300, (2, 300), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+
+    def run(**changes):
+        m = build_llama(LlamaConfig(**{**cfg.__dict__, **changes}), seed=0,
+                        device=cuda)
+        m.load_state_dict(model.state_dict())
+        logits, _ = m(tokens)
+        logits.logsumexp(-1).mean().backward()
+        return [logits.detach()] + [p.grad for p in m.parameters()]
+
+    n = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    got = run()
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
+        c + cfg.n_layers for c in n)
+    want = run(use_flash=False)
+    fp32 = run(dtype="float32")          # float32 at 256: plain attention
+    names = ["logits"] + [name for name, _ in model.named_parameters()]
+    for name, a, b, r in zip(names, got, want, fp32):
+        own = (b.float() - r).norm().item()
+        assert (a.float() - b.float()).norm().item() <= 2 * own, (name, own)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,dtype", [(256, "float32"), (128, "float16"),
+                                            (256, "float16")])
 def test_llama_shapes_the_kernels_refuse_run_reference_attention(
         cuda, head_dim, dtype):
     """A LlamaLM whose attention the flash kernels do not take (head dim
-    256, or float16) runs on the card with no flash launch, through
+    256 in float32, or float16) runs on the card with no flash launch, through
     reference_attention: its logits equal the same model's with
     use_flash=False."""
     cfg = LlamaConfig(vocab_size=300, dim=2 * head_dim, n_layers=2, n_heads=2,

@@ -185,13 +185,19 @@ def test_dq_two_term_split_stays_within_tolerance():
 @pytest.mark.parametrize("head_dim,dtype,device,cached,masked,want", [
     (128, torch.bfloat16, "cuda", False, False, True),
     (128, torch.float32, "cuda", False, False, True),
-    (256, torch.bfloat16, "cuda", False, False, False),  # kernels take 128
+    (256, torch.bfloat16, "cuda", False, False, True),   # 256 in bf16 only
     (384, torch.float32, "cuda", False, False, False),
     (128, torch.float16, "cuda", False, False, False),   # and fp32 / bf16
     (64, torch.bfloat16, "cuda", False, False, False),
     (128, torch.bfloat16, "cpu", False, False, False),
     (128, torch.bfloat16, "cuda", True, False, False),   # kv cache (decode)
-    (128, torch.bfloat16, "cuda", False, True, False)])  # kv_valid
+    (128, torch.bfloat16, "cuda", False, True, False),   # kv_valid
+    (256, torch.float32, "cuda", False, False, False),
+    (256, torch.float16, "cuda", False, False, False),
+    (384, torch.bfloat16, "cuda", False, False, False),
+    (256, torch.bfloat16, "cpu", False, False, False),
+    (256, torch.bfloat16, "cuda", True, False, False),
+    (256, torch.bfloat16, "cuda", False, True, False)])
 def test_flash_rule_takes_the_kernels_only_where_they_apply(
         head_dim, dtype, device, cached, masked, want):
     assert flash_applies(True, head_dim, dtype, device, cached, masked) is want
