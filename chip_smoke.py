@@ -81,9 +81,20 @@ The other retrievers (NSM, GraftNet) and ReaRev's options:
      TypeLayer's launch only, `--lm_frozen 0`: the MiniLM-width in-model
      encoder seeded from the frozen one), 4 steps each with launch counts
      and step time, every gradient of the seeded model.
-  The gradient checks (6, 7b, 7d) hold the backward kernels against their
-  plain versions through one forward of the forward kernels, so both see
-  the same ReLU masks.
+  7e. wide: the widths whose gate-scatter kernels run in column windows
+     (a block cannot hold the whole [128, J*D] tile): K1, K2 and K6a-c at
+     CWQ's bucket with J 3 and D 128, K4f/K4b at J 1 and D 256 (NSM) and
+     TypeLayer's two-direction launch there, against their plain versions
+     as in 3, 3b and 3d, two launches bit-identical, K1 also against
+     half-width windows bit for bit, timed and bounded; then ReaRev at CWQ's
+     command with entity dim 128 (v4 and v2, float32 and bf16) and NSM at
+     256 (float32), through the CLI: 3 B8 steps and an evaluation each, exact
+     launch counts and no call of a plain version, one batch's loss kernel
+     vs plain, every float32 gradient kernel vs plain, ms a step beside each
+     kernel's windows.
+  The gradient checks (6, 7b, 7d, 7e) hold the backward kernels against
+  their plain versions through one forward of the forward kernels, so both
+  see the same ReLU masks.
 The LLM reader (the flash-attention kernels K5a-c):
   3c. kernel-attn: the flash forward, dq and dk/dv kernels against their
      plain versions at the SFT step's shape (B8 L2047 H32 D128: the loss
@@ -306,6 +317,29 @@ RETRIEVERS = {
                  "--pagerank_lambda", "0.8", "--loss_type", "bce", "--lm",
                  "lstm", "--word_dim", "300", "--eval_every", "1"] + TRAIN_FLAGS,
 }
+# the widths whose gate-scatter kernels take column windows (a block cannot
+# hold the [128, J*D] tile of every kernel): CWQ's ReaRev command
+# (scripts/rearev_cwq.sh: num_iter 2, num_ins 3, num_gnn 3, batch 8) at
+# entity dim 128 (K2, K6a/b and K6c in two 64-column windows), and NSM at
+# 256 (K4b and TypeLayer's K2 in two 128-column windows in float32); each
+# WIDE_TRAIN questions (3 B8 steps) and one evaluation, then ms a step
+WIDE_REAREV = ["ReaRev", "--entity_dim", "128", "--num_iter", "2",
+               "--num_ins", "3", "--num_gnn", "3", "--lm", "sbert",
+               "--relation_word_emb", "True"] + TRAIN_FLAGS
+WIDE_NSM = ["NSM", "--entity_dim", "256", "--num_step", "3", "--lm", "lstm",
+            "--word_dim", "300", "--lambda_back", "0.1",
+            "--lambda_constrain", "0.1"] + TRAIN_FLAGS
+WIDE_TRAIN = 24
+# (name, B, E, F bucket, J, D, dtype, apply_relu, directions) of the
+# windowed kernel checks: the CWQ bucket at J 3, D 128 (both directions,
+# and one direction of the fused kernels), NSM's one-direction J 1 launch
+# and TypeLayer's two-direction one at D 256
+WIDE_SHAPES = (
+    ("cwq_d128_fp32", 8, 4096, 16384, 3, 128, "float32", True, 2),
+    ("cwq_d128_bf16", 8, 4096, 16384, 3, 128, "bfloat16", True, 2),
+    ("nsm_d256_fp32", 8, 4096, 16384, 1, 256, "float32", True, 1),
+    ("type_layer_d256_fp32", 8, 4096, 16384, 1, 256, "float32", False, 2),
+)
 # ReaRev's options at the headline width, 4 steps each (32 questions)
 REAREV_OPTIONS = {
     "lstm_normalized_norm_rel": ["--lm", "lstm", "--word_dim", "300",
@@ -528,6 +562,34 @@ def chunk_tiles_of(starts, nc):
     return tiles.clamp_max(n_tiles - 1).to(torch.int32)
 
 
+def fused_rules(dtype):
+    """check_fused_kernels' tolerance of each fused-projection output: a
+    share of max|ref|, or (bf16 steps,) per element (``bf16_tol``)."""
+    rules = dict(fwd=1e-5, dfact_rel=1e-4, dw=1e-4, db=1e-4, dins=1e-4,
+                 dprior=1e-4)
+    if dtype == "bfloat16":
+        rules.update(fwd=(2,), dfact_rel=(1,), dw=(1,), db=(1,), dins=(1,))
+    return rules
+
+
+def fused_errors(rules, got, want, name, bad):
+    """{output: [max|d|, max|ref|, max|d| over its tolerance]} of ``got``
+    against ``want``, in the order of ``rules`` (``fused_rules``); each
+    output off its tolerance, its type, or not finite goes into ``bad``."""
+    import torch
+    errs = {}
+    for (part, rule), a, r in zip(rules.items(), got, want):
+        d = (a.float() - r.float()).abs()
+        ref = r.float().abs().max()
+        tol = bf16_tol(r, *rule) if isinstance(rule, tuple) else rule * ref
+        over = d.div(tol).nan_to_num(nan=0.0).max().item()
+        errs[part] = [d.max().item(), ref.item(), over]
+        if not (a.dtype == r.dtype and torch.isfinite(a).all() and over <= 1.0):
+            bad.append(f"{name} {part}: max|d| {d.max().item()} is {over} of "
+                       f"its tolerance")
+    return errs
+
+
 def check_fused_kernels(device):
     """Phase 3d: the fused-projection forward and backward kernels and
     scatter_mm against their plain versions at FUSED_SHAPES, one direction
@@ -572,22 +634,8 @@ def check_fused_kernels(device):
                 *gs.fused_gate_scatter_bwd_plain(*args, g, relu),
                 gs.scatter_mm_fwd_plain(sv, scatter[0], tiles, E))
         torch.cuda.synchronize()
-        # a share of max|ref|, or (bf16 steps,) per element (bf16_tol)
-        rules = dict(fwd=1e-5, dfact_rel=1e-4, dw=1e-4, db=1e-4, dins=1e-4,
-                     dprior=1e-4, scatter=1e-5)
-        if dtype == "bfloat16":
-            rules.update(fwd=(2,), dfact_rel=(1,), dw=(1,), db=(1,), dins=(1,))
-        errs = {}
-        for (part, rule), a, r in zip(rules.items(), (fwd, *bwd, sc), want):
-            d = (a.float() - r.float()).abs()
-            ref = r.float().abs().max()
-            tol = bf16_tol(r, *rule) if isinstance(rule, tuple) else rule * ref
-            over = d.div(tol).nan_to_num(nan=0.0).max().item()
-            errs[part] = [d.max().item(), ref.item(), over]
-            if not (a.dtype == r.dtype and torch.isfinite(a).all()
-                    and over <= 1.0):
-                bad.append(f"{name} {part}: max|d| {d.max().item()} is "
-                           f"{over} of its tolerance")
+        errs = fused_errors(dict(fused_rules(dtype), scatter=1e-5),
+                            (fwd, *bwd, sc), want, name, bad)
         repeat = all(torch.equal(x, y) for x, y in zip(bwd, again))
         fwd_repeat = torch.equal(fwd, fwd_again)
         if not (repeat and fwd_repeat):
@@ -1537,6 +1585,289 @@ def run_retrievers(device, root):
         ms_per_step_rearev_options={k: v["ms_per_step"] for k, v in summary.items()
                                     if k.startswith("rearev_")})))
     return summary, nsm_counts
+
+
+# ------------------------------ the gate-scatter kernels' column windows
+def check_wide_kernels(device):
+    """Phase wide, kernels: the gate-scatter kernels at WIDE_SHAPES, where
+    a block cannot hold the whole [128, J*D] tile of K2, K6a/b or K6c and
+    the launch runs D's columns in windows (``gs.kernel_window``), against
+    their plain versions with the tolerances of phases 3, 3b and 3d (the
+    v4 forward 1e-5 / 2e-2 of max|ref|, the backward's outputs the same,
+    the fused kernels per output as check_fused_kernels), two launches bit
+    for bit; where one window fits (K1 at J 3, D 128), the forward at half
+    the width's windows bit for bit against it (each column's sum does not
+    depend on the window). Timed (``ms``, ``device_ms``, ``plain_ms``) and
+    bounded as phases 3 and 3b (``gate_bound``: inputs read once, so the
+    windows do not change it). Returns rows."""
+    import numpy as np
+    import torch
+    from gnn_rag_tpu_torch.ops import gate_scatter as gs
+    rng = np.random.default_rng(SEED + 7)
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    rows, bad = [], []
+    for name, B, E, F, J, D, dtype, relu, ndir in WIDE_SHAPES:
+        vals, ins, prior, scatter, starts, _ = kernel_inputs(
+            B, E, F, J, D, dtype, relu, device, rng)
+        fargs = (vals[:ndir], ins, prior[:ndir], scatter[:ndir], starts[:ndir],
+                 relu)
+        rel = 1e-5 if dtype == "float32" else 2e-2
+        win = {k: gs.kernel_window(k, D, J, ins.dtype)
+               for k in ("gate_scatter_fwd", "gate_scatter_bwd")}
+        fwd = gs.gate_scatter_fwd(*fargs)
+        g = torch.randn(fwd.shape, generator=gen, device=device)
+        bargs = fargs[:5] + (g, relu)
+        bwd = gs.gate_scatter_bwd(*bargs)
+        repeat = (torch.equal(fwd, gs.gate_scatter_fwd(*fargs)) and all(
+            torch.equal(a, b) for a, b in zip(
+                (*bwd[0], *bwd[1], bwd[2]),
+                (lambda r: (*r[0], *r[1], r[2]))(gs.gate_scatter_bwd(*bargs)))))
+        half = None
+        if win["gate_scatter_fwd"][1] == 1:
+            W = -(-D // 2 // 8) * 8
+            half = [W, torch.equal(fwd, gs.gate_scatter_fwd(*fargs, window=W))]
+        torch.cuda.synchronize()
+        want = gs.gate_scatter_fwd_plain(*fargs)
+        bwant = gs.gate_scatter_bwd_plain(*bargs)
+        torch.cuda.synchronize()
+        errs = {"fwd": [(fwd - want).abs().max().item(), want.abs().max().item()]}
+        for part, a, b in zip(
+                [f"dvals_{d}" for d in range(ndir)] + [f"dprior_{d}" for d in
+                                                     range(ndir)] + ["dins"],
+                (*bwd[0], *bwd[1], bwd[2]), (*bwant[0], *bwant[1], bwant[2])):
+            errs[part] = [(a.float() - b.float()).abs().max().item(),
+                          b.float().abs().max().item()]
+            if not (a.dtype == b.dtype and torch.isfinite(a).all()):
+                bad.append(f"{name} {part}: dtype or a non-finite value")
+        for part, (err, ref) in errs.items():
+            if not err <= rel * ref:
+                bad.append(f"{name} {part}: max|d| {err} > {rel} * {ref}")
+        if not (repeat and torch.isfinite(fwd).all()
+                and (half is None or half[1])):
+            bad.append(f"{name}: repeat {repeat}, half-width windows {half}")
+        common = dict(shape=name, B=B, E=E, Fp=vals[0].shape[1], J=J, D=D,
+                      dtype=dtype, relu=relu, ndir=ndir)
+        row = dict(common, windows={k: list(v) for k, v in win.items()},
+                   err_ref_by_output=errs, bit_identical_repeat=repeat,
+                   fwd_half_width_windows_bit_identical=half)
+        row["fwd"] = with_share(dict(
+            common, max_abs_err=errs["fwd"][0],
+            ms=median_ms(lambda: gs.gate_scatter_fwd(*fargs)),
+            device_ms=graph_ms(lambda: gs.gate_scatter_fwd(*fargs)),
+            plain_ms=median_ms(lambda: gs.gate_scatter_fwd_plain(*fargs),
+                               runs=5, reps=2, warmup=1)), False, ndir=ndir)
+        row["bwd"] = with_share(dict(
+            common, max_abs_err=max(e for k, (e, _) in errs.items()
+                                    if k != "fwd"),
+            ms=median_ms(lambda: gs.gate_scatter_bwd(*bargs)),
+            device_ms=graph_ms(lambda: gs.gate_scatter_bwd(*bargs)),
+            plain_ms=median_ms(lambda: gs.gate_scatter_bwd_plain(*bargs),
+                               runs=5, reps=2, warmup=1)), True, ndir=ndir)
+        if J > 1:   # ReaRev's v2 op at this width (one direction)
+            row["fused"] = fused_row(device, gen, vals[0], ins, prior[0],
+                                     scatter[0], starts[0], relu, common, bad)
+        log("wide-kernel", json.dumps(row))
+        rows.append(row)
+        del vals, ins, prior, scatter, starts, fargs, bargs, fwd, g, bwd
+        del want, bwant
+    if bad:
+        raise AssertionError("windowed kernels vs plain: " + "; ".join(bad))
+    return rows
+
+
+def fused_row(device, gen, fr, ins, prior, scatter, starts, relu, common, bad):
+    """The fused-projection forward and backward (K6a/b, K6c) on one
+    direction of a WIDE_SHAPES row, as check_fused_kernels holds them
+    (``bad`` collects failures): their windows, errors, repeats, and times
+    and bounds (``gate_bound`` with ``project``)."""
+    import torch
+    from gnn_rag_tpu_torch.ops import gate_scatter as gs
+    D, J = common["D"], common["J"]
+    w = (torch.randn((D, D), generator=gen, device=device)
+         / math.sqrt(D)).to(ins.dtype)
+    b = (0.1 * torch.randn((D,), generator=gen, device=device)).to(ins.dtype)
+    args = (fr, w, b, ins, prior, scatter, starts)
+    fwd = gs.fused_gate_scatter_fwd(*args, relu)
+    g = torch.randn(fwd.shape, generator=gen, device=device)
+    bwd = gs.fused_gate_scatter_bwd(*args, g, relu)
+    repeat = (torch.equal(fwd, gs.fused_gate_scatter_fwd(*args, relu))
+              and all(torch.equal(x, y) for x, y in zip(
+                  bwd, gs.fused_gate_scatter_bwd(*args, g, relu))))
+    torch.cuda.synchronize()
+    want = (gs.fused_gate_scatter_fwd_plain(*args, relu),
+            *gs.fused_gate_scatter_bwd_plain(*args, g, relu))
+    torch.cuda.synchronize()
+    rules = fused_rules(common["dtype"])
+    errs = fused_errors(rules, (fwd, *bwd), want, f"{common['shape']} fused",
+                        bad)
+    if not repeat:
+        bad.append(f"{common['shape']}: fused kernels not bit-repeatable")
+    row = dict(common, ndir=1, windows={
+        k: list(gs.kernel_window(k, D, J, ins.dtype))
+        for k in ("fused_gate_scatter_fwd", "fused_gate_scatter_bwd")},
+        err_ref_by_output=errs, bit_identical_repeat=repeat)
+    for key, backward, fn, plain in (
+            ("fwd", False, lambda: gs.fused_gate_scatter_fwd(*args, relu),
+             lambda: gs.fused_gate_scatter_fwd_plain(*args, relu)),
+            ("bwd", True, lambda: gs.fused_gate_scatter_bwd(*args, g, relu),
+             lambda: gs.fused_gate_scatter_bwd_plain(*args, g, relu))):
+        parts = ("fwd",) if key == "fwd" else tuple(rules)[1:]
+        row[key] = dict(
+            max_abs_err=max(errs[p][0] for p in parts), ms=median_ms(fn),
+            device_ms=graph_ms(fn),
+            plain_ms=median_ms(plain, runs=5, reps=2, warmup=1))
+        bound_ms, bound_by = gate_bound(row, backward, ndir=1, project=True)
+        row[key].update(bound_ms=bound_ms, bound_by=bound_by,
+                        device_bound_share=bound_ms / row[key]["device_ms"])
+    return row
+
+
+@contextlib.contextmanager
+def plain_gate_calls():
+    """Counts, in the dict it yields, the calls of each plain gate-scatter
+    version (``*_plain`` of GATE_KERNELS, which the wrappers take only for
+    CPU tensors) made inside the block."""
+    from gnn_rag_tpu_torch.ops import gate_scatter as gs
+    real = {n + "_plain": getattr(gs, n + "_plain") for n in GATE_KERNELS}
+    calls = dict.fromkeys(real, 0)
+
+    def counted(name, f):
+        def call(*args, **kw):
+            calls[name] += 1
+            return f(*args, **kw)
+        return call
+
+    for n, f in real.items():
+        setattr(gs, n, counted(n, f))
+    try:
+        yield calls
+    finally:
+        for n, f in real.items():
+            setattr(gs, n, f)
+
+
+def run_wide(device, root):
+    """Phase wide: the retrievers at the widths whose gate-scatter kernels
+    take column windows, through the port's CLI and Trainer on run_train's
+    split in ``root`` (and run_retrievers' word table): ReaRev at CWQ's
+    command with entity dim 128 (WIDE_REAREV) under v4 and v2, NSM at 256
+    (WIDE_NSM; TypeLayer's two-direction J 1 launch and NSM's one-direction
+    ones), ReaRev in float32 and bf16 and NSM in float32 (neither package's
+    NSM has a compute dtype): WIDE_TRAIN questions (3 B8 steps) and
+    one evaluation, the exact launch counts of each gate-scatter kernel and
+    no call of a plain version; the first loss with the kernels against
+    plain message passing (float32 1e-4 of its size, as the grad phase's
+    gradients; bf16 2e-2), every gradient of the float32 runs against the
+    plain backward (check_grads); ms a step (``ms_per_step``) beside each
+    kernel's windows. Returns (summary, counts by run)."""
+    import torch
+    from gnn_rag_tpu_torch import cli
+    from gnn_rag_tpu_torch.ops import gate_scatter as gs
+    t0 = time.perf_counter()
+    summary, counts_by_run = {}, {}
+    runs = [("rearev", v, dt) for v in ("v4", "v2")
+            for dt in ("float32", "bfloat16")]
+    runs.append(("nsm", "v4", "float32"))   # NSM computes in float32 only
+    before = os.environ.get("GNN_RAG_GATE_SCATTER")
+    try:
+        for model, variant, dtype in runs:
+            os.environ["GNN_RAG_GATE_SCATTER"] = variant
+            name = f"wide_{model}_{variant}_{dtype}"
+            flags = (WIDE_REAREV if model == "rearev" else WIDE_NSM) + [
+                "--compute_dtype", dtype, "--max_train", str(WIDE_TRAIN),
+                "--num_epoch", "1", "--eval_every", "1", "--data_folder",
+                root + "/", "--checkpoint_dir",
+                os.path.join(root, f"ckpt_{name}"), "--experiment_name", name]
+            reset_gate_counts()
+            with plain_gate_calls() as plain_calls:
+                ctx = cli.run(flags)
+                torch.cuda.synchronize()
+            counts = dict(gate_counts(), launches_1dir=gs.launches_1dir,
+                          bwd_launches_1dir=gs.bwd_launches_1dir)
+            tr, cfg = ctx["trainer"], ctx["cfg"]
+
+            def n_batches(ds):
+                return math.ceil(len(ds) / cfg.train.test_batch_size)
+
+            written = [r for r in ("h1", "f1", "final")
+                       if os.path.exists(tr._ckpt_path(r))]
+            steps = math.ceil(len(tr.train_data) / cfg.train.batch_size)
+            forwards = (steps + n_batches(tr.valid_data)
+                        + (1 + len(written)) * n_batches(tr.test_data))
+            m = cfg.model
+            if model == "rearev" and variant == "v2":
+                per = dict(fwd=1, bwd=1, fused=2 * m.num_iter * m.num_gnn,
+                           fwd_1dir=0, bwd_1dir=0)
+            elif model == "rearev":
+                per = dict(fwd=1 + m.num_iter * m.num_gnn,
+                           bwd=1 + m.num_iter * m.num_gnn, fused=0,
+                           fwd_1dir=0, bwd_1dir=0)
+            else:   # TypeLayer, num_step steps and teacher steps; the
+                # teacher's last step has no backward (run_retrievers)
+                per = dict(fwd=1 + 2 * m.num_step, bwd=m.num_step * 2,
+                           fused=0, fwd_1dir=2 * m.num_step,
+                           bwd_1dir=2 * m.num_step - 1)
+            want = dict(launches=per["fwd"] * forwards,
+                        bwd_launches=per["bwd"] * steps,
+                        fused_launches=per["fused"] * forwards,
+                        fused_bwd_launches=per["fused"] * steps,
+                        scatter_launches=0,
+                        launches_1dir=per["fwd_1dir"] * forwards,
+                        bwd_launches_1dir=per["bwd_1dir"] * steps)
+            history = ctx["history"]
+            if (steps != WIDE_TRAIN // 8 or tr.step_count != steps
+                    or counts != want or any(plain_calls.values())
+                    or not all(math.isfinite(x) for r in history for x in r)):
+                raise AssertionError(
+                    f"{name}: {tr.step_count} steps, launches {counts}, "
+                    f"expected {want}; plain calls {plain_calls}; history "
+                    f"{history}")
+            batch = tr.train_data.make_batch(range(8)).to(device)
+            with torch.no_grad():
+                loss_k = tr.model(batch, *tr.rel_args)[0].item()
+                loss_p = swapped_to_plain(
+                    lambda: tr.model(batch, *tr.rel_args)[0].item())
+            rel = 1e-4 if dtype == "float32" else 2e-2
+            if not (math.isfinite(loss_k) and abs(loss_k - loss_p)
+                    <= rel * abs(loss_p) + 1e-7):
+                raise AssertionError(f"{name}: first loss kernel {loss_k} vs "
+                                     f"plain {loss_p}")
+            row = dict(steps=steps, forwards=forwards, launches=counts,
+                       plain_calls=plain_calls, epoch_loss_h1_f1=history,
+                       loss_kernel=loss_k, loss_plain=loss_p,
+                       batch_E=int(batch.seed_dist.shape[1]),
+                       batch_Fp=int(batch.layout.fwd.scatter.shape[1]))
+            D, J = m.entity_dim, (m.num_ins if model == "rearev" else 1)
+            kinds = (("fused_gate_scatter_fwd", "fused_gate_scatter_bwd")
+                     if variant == "v2" else ())
+            row["windows"] = {
+                f"{k}_J{j}": list(gs.kernel_window(k, D, j, getattr(torch, dtype)))
+                for k, j in [("gate_scatter_fwd", 1), ("gate_scatter_bwd", 1)]
+                + [(k, J) for k in ("gate_scatter_fwd", "gate_scatter_bwd")
+                   if J > 1 and variant == "v4"] + [(k, J) for k in kinds]}
+            if dtype == "float32":
+                biases = (("reasoning.score_func.bias",
+                           "reasoning_back.score_func.bias",
+                           "instruction_decoder.ca_linear.bias")
+                          if model == "nsm" else SOFTMAX_BIASES)
+                row["grad"] = check_grads(tr, device, phase=f"grad-{name}",
+                                          softmax_biases=biases, bf16=False)
+            row["ms_per_step"] = ms_per_step(tr, batch,
+                                             torch.ones(8, device=device))
+            tr.close()
+            log("wide", json.dumps(dict(run=name, **{
+                k: v for k, v in row.items() if k != "grad"})))
+            summary[name], counts_by_run[name] = row, counts
+            del ctx, tr, batch
+    finally:
+        if before is None:
+            os.environ.pop("GNN_RAG_GATE_SCATTER", None)
+        else:
+            os.environ["GNN_RAG_GATE_SCATTER"] = before
+    summary["wall_s"] = time.perf_counter() - t0
+    log("wide", json.dumps(dict(wall_s=summary["wall_s"], ms_per_step={
+        k: v["ms_per_step"] for k, v in summary.items() if k != "wall_s"})))
+    return summary, counts_by_run
 
 
 # ------------------------------------------- bounds, then the LLM reader
@@ -3501,6 +3832,8 @@ def main():
         _, v2_counts = run_v2_path(device, os.path.join(root, "train"))
         one_dir = check_1dir_kernels(device)
         _, nsm_counts = run_retrievers(device, os.path.join(root, "train"))
+        wide_rows = check_wide_kernels(device)
+        _, wide_counts = run_wide(device, os.path.join(root, "train"))
         gc.collect()
         torch.cuda.empty_cache()
         os.makedirs(os.path.join(root, "llm"))
@@ -3594,6 +3927,37 @@ def main():
         "library_ms": frow["scatter_add_ms"],
         "shape": f"{frow['shape']} C={frow['scatter_C']}",
         "main_path": "none: no model calls scatter_mm (nor the JAX op)"})
+    # the windowed shapes, on the wide path: K1 and K2 at J 3, D 128 (CWQ's
+    # bucket), K4f and K4b at J 1, D 256 (NSM's launch), K6a/b and K6c at
+    # J 3, D 128
+    by_shape = {r["shape"]: r for r in wide_rows}
+    cwq, nsm = by_shape["cwq_d128_fp32"], by_shape["nsm_d256_fp32"]
+    for name, row, windows, key, replaces, runs in (
+            ("gate_scatter_fwd_wide", cwq["fwd"], cwq["windows"]["gate_scatter_fwd"],
+             "launches", 844, "all"),
+            ("gate_scatter_bwd_wide", cwq["bwd"], cwq["windows"]["gate_scatter_bwd"],
+             "bwd_launches", 988, "all"),
+            ("gate_scatter_fwd_1dir_wide", nsm["fwd"],
+             nsm["windows"]["gate_scatter_fwd"], "launches_1dir", 565, "nsm"),
+            ("gate_scatter_bwd_1dir_wide", nsm["bwd"],
+             nsm["windows"]["gate_scatter_bwd"], "bwd_launches_1dir", 639, "nsm"),
+            ("fused_gate_scatter_fwd_wide", cwq["fused"]["fwd"],
+             cwq["fused"]["windows"]["fused_gate_scatter_fwd"],
+             "fused_launches", 126, "v2"),
+            ("fused_gate_scatter_bwd_wide", cwq["fused"]["bwd"],
+             cwq["fused"]["windows"]["fused_gate_scatter_bwd"],
+             "fused_bwd_launches", 316, "v2")):
+        by_run = {run: c[key] for run, c in wide_counts.items()
+                  if runs == "all" or runs in run}
+        kernels.append({
+            "name": name, "route": "cuda", "source": gate,
+            "replaces": f"{PALLAS}:{replaces}",
+            "launches": sum(by_run.values()), "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "device_ms": row["device_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+            "shape": (cwq if "1dir" not in name else nsm)["shape"],
+            "windows_W_n": windows, "launches_by_path": by_run})
     main_row = attn_rows[0]
     for i, (name, key, line) in enumerate((
             ("flash_attention_fwd", "fwd", 47), ("flash_attention_dq", "dq", 132),

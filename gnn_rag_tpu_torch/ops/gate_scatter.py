@@ -13,8 +13,15 @@ Replaces the TPU kernels ``_fused_kernel_v4`` (gnn_rag_tpu/ops/pallas_mp.py:
 per-direction / per-instruction tiers for large E) and ``_fused_kernel_v3``
 (:565, one direction, ``[B, J, E, D]`` output). On the TPU the three exist
 because the resident output block must fit a scoped-VMEM budget; on the GPU
-one kernel (``csrc/gate_scatter.cu``) covers every E: a 128-entity tile's
-rows are summed in shared memory, so there is no size tier to dispatch on.
+one kernel (``csrc/gate_scatter.cu``) covers every E and every width, by
+column windows: a 128-entity tile's rows are summed in shared memory, so
+there is no size tier to dispatch on, and where a block cannot hold the
+tile at J*D columns it takes a window of D's columns for all J instructions
+(the gate is elementwise in the column), one more grid dimension of the
+same launch. Each kernel's library entry reports the widest window that
+fits a block, from the shared-memory layout its launch uses, and
+``window_plan`` cuts D into windows of at most that width before the
+launch (``kernel_window``); today's widths take one window.
 
 What bounds it on an H100: it reads B*Fp*D input values per direction and
 writes B*E*J*D floats, with one multiply-add per (fact, column), so it is
@@ -127,14 +134,15 @@ def _load():
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            # (name, pointers, ints, pointers after the ints: the
-            # workspace of the forward, then the stream)
+            # (name, pointers, ints, pointers after the ints: the raw
+            # workspace (the forward's split tiles, the backward's window
+            # partials), then the stream)
             for name, n_ptr, n_int, n_last in (
-                    ("gate_scatter_fwd", 10, 8, 2),
-                    ("gate_scatter_bwd", 14, 8, 1),
-                    ("fused_gate_scatter_fwd", 9, 7, 1),
-                    ("fused_gate_scatter_bwd", 15, 7, 1),
-                    ("scatter_mm_fwd", 4, 5, 2)):
+                    ("gate_scatter_fwd", 10, 9, 2),
+                    ("gate_scatter_bwd", 14, 9, 2),
+                    ("fused_gate_scatter_fwd", 9, 8, 1),
+                    ("fused_gate_scatter_bwd", 15, 8, 2),
+                    ("scatter_mm_fwd", 4, 6, 2)):
                 fn = getattr(lib, name)
                 fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                                + [ctypes.c_void_p] * n_last)
@@ -144,10 +152,68 @@ def _load():
             for name in ("gate_scatter_fwd_slots", "fused_gate_scatter_fwd_slots"):
                 getattr(lib, name).argtypes = [ctypes.c_int]
                 getattr(lib, name).restype = ctypes.c_int
+            for name in set(_WINDOW_ENTRY.values()):
+                getattr(lib, name).argtypes = [ctypes.c_int] * 3
+                getattr(lib, name).restype = ctypes.c_int
             lib.gate_scatter_error_string.argtypes = [ctypes.c_int]
             lib.gate_scatter_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+# ------------------------------------------------------------ column windows
+# each kernel's entry in the library reporting the widest window that fits
+_WINDOW_ENTRY = {"gate_scatter_fwd": "gate_scatter_fwd_window",
+                 "scatter_mm_fwd": "gate_scatter_fwd_window",
+                 "gate_scatter_bwd": "gate_scatter_bwd_window",
+                 "fused_gate_scatter_fwd": "fused_gate_scatter_fwd_window",
+                 "fused_gate_scatter_bwd": "fused_gate_scatter_bwd_window"}
+_plans: dict = {}
+
+
+def window_plan(D: int, widest: int, itemsize: int) -> tuple[int, int]:
+    """The column windows of a launch at width ``D`` when no window wider
+    than ``widest`` fits one block: ``(W, n)``, window i holding columns
+    ``i*W .. min((i+1)*W, D) - 1``. One window (``W = D``)
+    where ``D`` fits. Otherwise the windows are as equal as the 16-byte
+    copy allows: ``W`` a multiple of ``16 // itemsize`` values (4 floats or
+    8 bf16), so every window starts on a copy, the last one taking the
+    remainder; below one copy's width (a huge J), any ``W <= widest``.
+    ``widest < 1`` (no window fits) raises."""
+    if widest >= D:
+        return D, 1
+    if widest < 1:
+        raise ValueError(f"gate_scatter: no column window of D={D} fits one "
+                         f"block's shared memory")
+    align = 16 // itemsize
+    cap = widest - widest % align if widest >= align else widest
+    W = -(-D // -(-D // cap))            # equal windows of at most cap
+    if cap % align == 0:
+        W = -(-W // align) * align       # rounded up to a copy: still <= cap
+    return W, -(-D // W)
+
+
+def kernel_window(name: str, D: int, J: int, dtype, device=None,
+                  window: int | None = None) -> tuple[int, int]:
+    """``(W, n)``: the column windows kernel ``name`` (a key of
+    ``_WINDOW_ENTRY``) runs at width ``D`` and ``J`` instructions on the
+    card, from the library's fit entry (the shared-memory layout its launch
+    uses, against the device's per-block limit) through ``window_plan``;
+    once per shape. ``window``: a width to run instead (1 to D), as the
+    card tests do to hold the windowed path against one window."""
+    if window is not None:
+        if not 1 <= window <= D:
+            raise ValueError(f"{name}: window {window} outside [1, {D}]")
+        return window, -(-D // window)
+    # once per shape; every launch looks its plan up
+    key = (name, None if device is None else device.index, D, J, dtype)
+    plan = _plans.get(key)
+    if plan is None:
+        index = torch.cuda.current_device() if device is None else device.index
+        with torch.cuda.device(index):
+            widest = getattr(_load(), _WINDOW_ENTRY[name])(D, J, dtype.itemsize)
+        plan = _plans[key] = window_plan(D, widest, dtype.itemsize)
+    return plan
 
 
 def gate_scatter_fwd_plain(vals, ins: torch.Tensor, prior, scatter,
@@ -201,13 +267,16 @@ def _check(vals, ins, prior, scatter, chunk_starts):
 
 
 def gate_scatter_fwd(vals, ins: torch.Tensor, prior, scatter, chunk_starts,
-                     apply_relu: bool = True) -> torch.Tensor:
+                     apply_relu: bool = True, *,
+                     window: int | None = None) -> torch.Tensor:
     """One or two directions in one launch. ``vals``, ``prior``, ``scatter``
     and ``chunk_starts`` each hold one tensor per direction (a tuple, or a
     tensor whose first axis is the direction): ``[B,Fp,D]`` vals in the type
     of ``ins [B,J,D]`` (float32 or bfloat16), ``[B,Fp]`` float32 prior,
     ``[B,Fp]`` int32 scatter, ``[B,E/128+1]`` int32 chunk_starts ->
-    ``[ndir,B,E,J*D]`` float32.
+    ``[ndir,B,E,J*D]`` float32. The launch runs D's columns in the windows
+    of ``kernel_window`` (``window``: their width, default the widest that
+    fits a block).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
     current stream or raise."""
@@ -226,6 +295,7 @@ def gate_scatter_fwd(vals, ins: torch.Tensor, prior, scatter, chunk_starts,
     B, Fp, D = vals[0].shape
     J = ins.shape[1]
     n_tiles = chunk_starts[0].shape[-1] - 1
+    W, _ = kernel_window("gate_scatter_fwd", D, J, ins.dtype, dev, window)
     out = torch.empty((ndir, B, n_tiles * TILE_E, J * D), dtype=torch.float32,
                       device=dev)
     _launch("gate_scatter_fwd", dev,
@@ -234,7 +304,7 @@ def gate_scatter_fwd(vals, ins: torch.Tensor, prior, scatter, chunk_starts,
             scatter[-1].data_ptr(), chunk_starts[0].data_ptr(),
             chunk_starts[-1].data_ptr(), out.data_ptr(), ndir, B, Fp, D, J,
             n_tiles, int(bool(apply_relu)), int(ins.dtype == torch.bfloat16),
-            ws_bytes=4 * ndir * B * _fwd_slots(Fp) * TILE_E * J * D)
+            W, ws_bytes=4 * ndir * B * _fwd_slots(Fp) * TILE_E * J * D)
     launches += 1
     launches_1dir += ndir == 1
     return out
@@ -258,7 +328,8 @@ def _launch(name: str, device, *args, ws_bytes=None) -> None:
     ``ws_bytes``, a scratch workspace of that many bytes goes just before
     the stream: taken from PyTorch's caching allocator on that stream and
     given back once the launch is queued (stream-ordered, as a tensor's
-    memory is). Raise with the CUDA error if the launch was refused.
+    memory is); a null pointer for 0 bytes. Raise with the CUDA error if
+    the launch was refused.
 
     The stream and the workspace come from the bindings that
     ``torch.cuda.current_stream`` and ``torch.cuda.caching_allocator_alloc``
@@ -273,6 +344,8 @@ def _launch(name: str, device, *args, ws_bytes=None) -> None:
     fn = getattr(lib, name)
     if ws_bytes is None:
         err = fn(*args, stream)
+    elif not ws_bytes:
+        err = fn(*args, None, stream)
     else:
         ws = torch._C._cuda_cudaCachingAllocator_raw_alloc(ws_bytes, stream)
         try:
@@ -317,14 +390,17 @@ def gate_scatter_bwd_plain(vals, ins: torch.Tensor, prior, scatter,
 
 def gate_scatter_bwd(vals, ins: torch.Tensor, prior, scatter, chunk_starts,
                      g: torch.Tensor, apply_relu: bool = True, *,
-                     need_dprior: bool = True, need_dins: bool = True):
+                     need_dprior: bool = True, need_dins: bool = True,
+                     window: int | None = None):
     """Backward of ``gate_scatter_fwd`` for the same inputs and the
     ``[ndir,B,E,J*D]`` float32 cotangent ``g`` of its output -> ``(dvals,
     dprior, dins)``: ``dvals`` one ``[B,Fp,D]`` tensor per direction in the
     type of vals, ``dprior`` one ``[B,Fp]`` float32 tensor per direction (or
     None without ``need_dprior``), ``dins`` ``[B,J,D]`` in the type of ins,
     summed over the directions (or None without ``need_dins``). Pad slots
-    get zero gradients.
+    get zero gradients. Columns run in windows as in ``gate_scatter_fwd``;
+    over several windows each writes a float partial of dprior (a sum over
+    every column), added in window order by a second small kernel.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
     current stream or raise."""
@@ -350,6 +426,7 @@ def gate_scatter_bwd(vals, ins: torch.Tensor, prior, scatter, chunk_starts,
                         f"aligned float32 {shape} on {ins.device}, got "
                         f"{g.dtype} {tuple(g.shape)} on {g.device}")
     dev = ins.device
+    W, nwin = kernel_window("gate_scatter_bwd", D, J, ins.dtype, dev, window)
     dvals = torch.empty((ndir, B, Fp, D), dtype=vals[0].dtype, device=dev)
     dprior = (torch.empty((ndir, B, Fp), dtype=torch.float32, device=dev)
               if need_dprior else None)
@@ -367,7 +444,9 @@ def gate_scatter_bwd(vals, ins: torch.Tensor, prior, scatter, chunk_starts,
             dprior.data_ptr() if need_dprior else None,
             ws.data_ptr() if need_dins else None,
             dins.data_ptr() if need_dins else None, ndir, B, Fp, D, J,
-            n_tiles, int(bool(apply_relu)), int(ins.dtype == torch.bfloat16))
+            n_tiles, int(bool(apply_relu)), int(ins.dtype == torch.bfloat16),
+            W, ws_bytes=4 * nwin * ndir * B * Fp if nwin > 1 and need_dprior
+            else 0)
     bwd_launches += 1
     bwd_launches_1dir += ndir == 1
     return (dvals.unbind(0), dprior.unbind(0) if need_dprior else None, dins)
@@ -476,13 +555,15 @@ def fused_gate_scatter_fwd(fact_rel: torch.Tensor, w: torch.Tensor,
                            bias: torch.Tensor, ins: torch.Tensor,
                            prior: torch.Tensor, scatter: torch.Tensor,
                            chunk_starts: torch.Tensor,
-                           apply_relu: bool = True) -> torch.Tensor:
+                           apply_relu: bool = True, *,
+                           window: int | None = None) -> torch.Tensor:
     """One direction of the fused-projection op: ``[B,Fp,D]`` relation
     features of the fact slots, ``rel_linear``'s ``w [D,D]`` and ``bias [D]``
     and ``ins [B,J,D]``, all float32 or all bfloat16; ``[B,Fp]`` float32
     prior, ``[B,Fp]`` int32 scatter, ``[B,E/128+1]`` int32 chunk_starts ->
     ``[B,E,J*D]`` float32 with ``rl = fact_rel @ w + bias`` as the values of
-    ``gate_scatter_fwd``.
+    ``gate_scatter_fwd``. A window of rl's columns takes the whole
+    fact_rel rows and w's columns of the window.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
     current stream or raise."""
@@ -496,6 +577,8 @@ def fused_gate_scatter_fwd(fact_rel: torch.Tensor, w: torch.Tensor,
     B, Fp, D = fact_rel.shape
     J = ins.shape[1]
     n_tiles = chunk_starts.shape[-1] - 1
+    W, _ = kernel_window("fused_gate_scatter_fwd", D, J, ins.dtype, ins.device,
+                         window)
     out = torch.empty((B, n_tiles * TILE_E, J * D), dtype=torch.float32,
                       device=ins.device)
     # partial tiles of the tiles whose chunk range is split over blocks
@@ -506,7 +589,7 @@ def fused_gate_scatter_fwd(fact_rel: torch.Tensor, w: torch.Tensor,
             w.data_ptr(), bias.data_ptr(), ins.data_ptr(), prior.data_ptr(),
             scatter.data_ptr(), chunk_starts.data_ptr(), out.data_ptr(),
             ws.data_ptr(), B, Fp, D, J, n_tiles, int(bool(apply_relu)),
-            int(ins.dtype == torch.bfloat16))
+            int(ins.dtype == torch.bfloat16), W)
     fused_launches += 1
     return out
 
@@ -518,16 +601,18 @@ def fused_gate_scatter_bwd_plain(fact_rel, w, bias, ins: torch.Tensor, prior,
     contract and numerics (see ``fused_gate_scatter_bwd``): the JAX op's XLA
     backward (pallas_mp.py:484-507) in float32 from the widened inputs, with
     ``rl`` and the prior unrounded as the TPU backward kernel has them
-    (:345-352)."""
-    B, Fp, D = fact_rel.shape
-    J = ins.shape[1]
+    (:345-352). ``w`` may be ``[D, W]``, rl's columns of one window (with
+    ``bias``, ``ins`` and ``g`` of those columns): dfact_rel is then the
+    window's part of the sum over rl's columns."""
+    B, Fp, _ = fact_rel.shape
+    J, W = ins.shape[1], w.shape[1]
     fr, wf, insf = fact_rel.float(), w.float(), ins.float()
-    rl = fr @ wf + bias.float()                                   # [B,Fp,D]
-    pre = rl[:, :, None, :] * insf[:, None, :, :]                 # [B,Fp,J,D]
+    rl = fr @ wf + bias.float()                                   # [B,Fp,W]
+    pre = rl[:, :, None, :] * insf[:, None, :, :]                 # [B,Fp,J,W]
     act = torch.relu(pre) if apply_relu else pre
     gb = torch.gather(g, 1, scatter.clamp_min(0).long()[..., None].expand(
-        B, Fp, J * D))
-    gb = torch.where((scatter >= 0)[..., None], gb, 0.0).reshape(B, Fp, J, D)
+        B, Fp, J * W))
+    gb = torch.where((scatter >= 0)[..., None], gb, 0.0).reshape(B, Fp, J, W)
     dprior = (gb * act).sum(dim=(2, 3))
     dval = gb * prior[:, :, None, None]
     if apply_relu:
@@ -543,12 +628,16 @@ def fused_gate_scatter_bwd(fact_rel: torch.Tensor, w: torch.Tensor,
                            bias: torch.Tensor, ins: torch.Tensor,
                            prior: torch.Tensor, scatter: torch.Tensor,
                            chunk_starts: torch.Tensor, g: torch.Tensor,
-                           apply_relu: bool = True):
+                           apply_relu: bool = True, *,
+                           window: int | None = None):
     """Backward of ``fused_gate_scatter_fwd`` for the same inputs and the
     ``[B,E,J*D]`` float32 cotangent ``g`` of its output -> ``(dfact_rel, dw,
     dbias, dins, dprior)`` in the types of the inputs (the JAX order,
     pallas_mp.py:444-445). ``dw`` and ``dbias`` are summed over every fact of
-    the batch; pad slots get zero gradients.
+    the batch; pad slots get zero gradients. Columns run in windows as in
+    the forward; over several windows, dfact_rel (``drl @ w^T``, a sum
+    over every column) and dprior are float partials of each window, added
+    in window order, dfact_rel rounded once.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
     current stream or raise."""
@@ -570,6 +659,8 @@ def fused_gate_scatter_bwd(fact_rel: torch.Tensor, w: torch.Tensor,
                         f"16-byte aligned float32 {shape} on {ins.device}, "
                         f"got {g.dtype} {tuple(g.shape)} on {g.device}")
     dev = ins.device
+    W, nwin = kernel_window("fused_gate_scatter_bwd", D, J, ins.dtype, dev,
+                            window)
 
     def empty(shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -587,7 +678,8 @@ def fused_gate_scatter_bwd(fact_rel: torch.Tensor, w: torch.Tensor,
             dfr.data_ptr(), dprior.data_ptr(), dins_ws.data_ptr(),
             dins.data_ptr(), dw_ws.data_ptr(), dw.data_ptr(), db.data_ptr(),
             B, Fp, D, J, n_tiles, int(bool(apply_relu)),
-            int(ins.dtype == torch.bfloat16))
+            int(ins.dtype == torch.bfloat16), W,
+            ws_bytes=4 * nwin * B * Fp * (D + 1) if nwin > 1 else 0)
     fused_bwd_launches += 1
     return dfr, dw, db, dins, dprior
 
@@ -639,16 +731,16 @@ def scatter_mm_fwd_plain(values: torch.Tensor, scatter_idx: torch.Tensor,
 
 
 def scatter_mm_fwd(values: torch.Tensor, scatter_idx: torch.Tensor,
-                   chunk_tiles: torch.Tensor, num_entities: int) -> torch.Tensor:
+                   chunk_tiles: torch.Tensor, num_entities: int, *,
+                   window: int | None = None) -> torch.Tensor:
     """``out[b, scatter_idx[b, f], :] += float(values[b, f, :])``: values
     ``[B, Fp, C]`` float32 or bfloat16 in the tile-sorted layout order,
     ``[B, Fp]`` int32 scatter_idx (-1 on pad slots), ``[B, Fp/128]`` int32
     chunk_tiles (non-decreasing per row, as the layout builds them) ->
     ``[B, E, C]`` float32. It runs the forward's kernel (J 1, D = C, no
-    gate): a block holds a ``[128, C]`` float tile and two or more stages of
-    32 rows in shared memory, so C goes up to 302 (float32) or 362
-    (bfloat16); a wider C raises. Any C stages in 16-byte copies: 32 rows of
-    C values are a multiple of 16 bytes.
+    gate): a block holds a ``[128, W]`` float tile of a window of W columns
+    and two or more stages of 32 rows in shared memory, so any C runs, in
+    windows of up to 302 (float32) or 362 (bfloat16) columns.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on the
     current stream or raise."""
@@ -674,12 +766,14 @@ def scatter_mm_fwd(values: torch.Tensor, scatter_idx: torch.Tensor,
             raise TypeError(f"scatter_mm: {name} must be a contiguous int32 "
                             f"{shape} on {values.device}, got {t.dtype} "
                             f"{tuple(t.shape)} on {t.device}")
+    W, _ = kernel_window("scatter_mm_fwd", C, 1, values.dtype, values.device,
+                         window)
     out = torch.empty((B, num_entities, C), dtype=torch.float32,
                       device=values.device)
     _launch("scatter_mm_fwd", values.device, values.data_ptr(),
             scatter_idx.data_ptr(), chunk_tiles.data_ptr(), out.data_ptr(), B,
             Fp, C, num_entities // TILE_E, int(values.dtype == torch.bfloat16),
-            ws_bytes=4 * B * _fwd_slots(Fp) * TILE_E * C)
+            W, ws_bytes=4 * B * _fwd_slots(Fp) * TILE_E * C)
     scatter_launches += 1
     return out
 

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 gate-scatter forward and backward, the fused-projection forward and
-backward and scatter_mm (alone and in a ReaRev training step under
-GNN_RAG_GATE_SCATTER=v2), and the flash-attention forward, dq and dk/dv
+backward and scatter_mm (alone, at widths a block holds only in column
+windows, and in a ReaRev training step under GNN_RAG_GATE_SCATTER=v2),
+and the flash-attention forward, dq and dk/dv
 kernels (alone, through autograd, and in a LlamaLM; at head dim 128 in
 float32 and bf16, and at head dim 256 in bf16).
 
@@ -150,13 +151,18 @@ def test_kernel_wrappers_and_checks(cuda):
     g = torch.ones((2, vals.shape[1], E, 32), device=cuda)
     with pytest.raises(TypeError):
         gs.gate_scatter_bwd(vals, ins, prior, scatter, starts, g.double())
-    # J*D beyond one block's shared memory: the launch's error is raised,
-    # and cleared, so the next launch goes through
+    # J*D beyond one block's shared memory runs in column windows; a window
+    # forced wider than fits is refused by the launch, whose error is
+    # raised and cleared, so the next launch goes through
+    wide = (vals, ins.repeat(1, 20, 1), prior, scatter, starts)
+    assert gs.kernel_window("gate_scatter_fwd", 16, 40, torch.float32)[1] > 1
     with pytest.raises(RuntimeError, match="launch failed"):
-        gs.gate_scatter_fwd(vals, ins.repeat(1, 20, 1), prior, scatter, starts)
+        gs.gate_scatter_fwd(*wide, window=16)
     with pytest.raises(RuntimeError, match="launch failed"):
-        gs.gate_scatter_bwd(vals, ins.repeat(1, 20, 1), prior, scatter, starts,
-                            g.repeat(1, 1, 1, 20))
+        gs.gate_scatter_bwd(*wide, g.repeat(1, 1, 1, 20), window=16)
+    with pytest.raises(ValueError, match="window"):
+        gs.gate_scatter_fwd(*wide, window=0)
+    check_gate_fwd(wide, True, 1e-5)
     both = gs.gate_scatter_fwd(vals, ins, prior, scatter, starts)
     torch.cuda.synchronize()
     # per-direction lists are the same call as tensors stacked on axis 0
@@ -171,6 +177,88 @@ def test_kernel_wrappers_and_checks(cuda):
 class _Dir:
     def __init__(self, scatter, chunk_starts):
         self.scatter, self.chunk_starts = scatter, chunk_starts
+
+
+# (J, D) of the windowed card checks: TypeLayer-like J 40 at D 16 (the
+# shape the kernels refused before they took windows), CWQ's three
+# instructions at entity dim 128, NSM and TypeLayer at 256, J 2 at 384
+WIDE = [(40, 16), (3, 128), (1, 256), (2, 384)]
+# the windows of K1 and K2 at WIDE on an H100 (227 KB of shared memory a
+# block) in float32, from the kernels' layouts: K1 a [128, J*W] tile and two
+# 32-slot stages, K2 145 J*W floats and two 64-slot stages
+WIDE_WINDOWS = {("gate_scatter_fwd", 40, 16): (8, 2),
+                ("gate_scatter_fwd", 3, 128): (128, 1),
+                ("gate_scatter_fwd", 1, 256): (256, 1),
+                ("gate_scatter_fwd", 2, 384): (128, 3),
+                ("gate_scatter_bwd", 40, 16): (8, 2),
+                ("gate_scatter_bwd", 3, 128): (64, 2),
+                ("gate_scatter_bwd", 1, 256): (128, 2),
+                ("gate_scatter_bwd", 2, 384): (128, 3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("J,D", WIDE)
+def test_windowed_kernels_match_plain(cuda, J, D, dtype):
+    """K1 and K2 at widths one block cannot hold whole: the column windows
+    the kernels' fit entries give, against the plain versions (fp32 1e-5,
+    bf16 2e-2 of max|plain|), bit for bit on a repeat; and against another
+    window width (8 columns): the forward, dvals and dins bit for bit (each
+    column's sums do not depend on the window), dprior (a sum over the
+    windows' float partials) within 1e-5 of max|dprior|. On split tiles too
+    (chunk_inputs' tiles of up to 40 chunks)."""
+    f32 = dtype == torch.float32
+    rel = 1e-5 if f32 else 2e-2
+    if f32:
+        for name in ("gate_scatter_fwd", "gate_scatter_bwd"):
+            assert gs.kernel_window(name, D, J, dtype) == WIDE_WINDOWS[name, J, D]
+    for make in (inputs, chunk_inputs):
+        vals, ins, prior, scatter, starts = make(J, D, dtype, cuda)
+        B, E = vals.shape[1], (starts.shape[-1] - 1) * TILE_E
+        fargs = (vals, ins, prior, scatter, starts)
+        out = check_gate_fwd(fargs, True, rel)
+        assert torch.equal(out, gs.gate_scatter_fwd(*fargs, True, window=8))
+        g = torch.randn((2, B, E, J * D), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(3))
+        bargs = (*fargs, g, True)
+        got = check_gate_bwd(bargs, rel)
+        other = gs.gate_scatter_bwd(*bargs, window=8)
+        assert all(torch.equal(a, b) for a, b in zip(got[0], other[0]))
+        assert torch.equal(got[2], other[2])
+        for a, b in zip(got[1], other[1]):
+            assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_fused_kernels_match_plain(cuda, dtype):
+    """K6a/b and K6c (GNN_RAG_GATE_SCATTER=v2) at CWQ's three instructions
+    and entity dim 128: two 64-column windows (w's [128, 128] and the
+    [128, 384] tile do not fit a block beside the stages), against the
+    plain versions as test_fused_kernels_match_plain holds them, bit for
+    bit on a repeat; against 32-column windows: the forward, dw, db and dins
+    bit for bit, dfact_rel and dprior (float partials of each window added
+    in window order) within 1e-5 of their largest entry in float32, one
+    bf16 step of dfact_rel in bf16."""
+    f32 = dtype == torch.float32
+    assert gs.kernel_window("fused_gate_scatter_fwd", 128, 3, dtype) == (64, 2)
+    assert gs.kernel_window("fused_gate_scatter_bwd", 128, 3, dtype) == (64, 2)
+    args = proj_inputs(3, 128, dtype, cuda)
+    out = check_fused_fwd(args, True, f32)
+    assert torch.equal(out, gs.fused_gate_scatter_fwd(*args, True, window=32))
+    g = torch.randn(out.shape, generator=torch.Generator(device=cuda)
+                    .manual_seed(3), device=cuda)
+    got = gs.fused_gate_scatter_bwd(*args, g, True)
+    again = gs.fused_gate_scatter_bwd(*args, g, True)
+    assert_parts_close(got, gs.fused_gate_scatter_bwd_plain(*args, g, True),
+                       (1e-4 if f32 else (1,),) * 4 + (1e-4,))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    other = gs.fused_gate_scatter_bwd(*args, g, True, window=32)
+    assert all(torch.equal(got[i], other[i]) for i in (1, 2, 3))
+    assert_parts_close((got[0], got[4]), (other[0], other[4]),
+                       (1e-5 if f32 else (1,), 1e-5))
+    pad = args[5] < 0
+    assert not got[0][pad].any() and not got[4][pad].any()
 
 
 def proj_inputs(J, D, dtype, device, **kw):
@@ -476,20 +564,26 @@ def test_scatter_kernel_matches_plain(cuda, C, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C,dtype", [(303, torch.float32), (363, torch.bfloat16)])
+@pytest.mark.parametrize("C,dtype", [(303, torch.float32), (363, torch.bfloat16),
+                                     (512, torch.float32), (512, torch.bfloat16)])
 def test_scatter_kernel_refuses_wider_than_fits(cuda, C, dtype):
-    """One column wider than the widest scatter_mm takes (302 float32, 362
-    bfloat16: the [128, C] tile and two 32-row stages fill a block's shared
-    memory): the launch is refused with the CUDA error, and cleared."""
+    """Past the widest window scatter_mm takes (302 float32, 362 bfloat16:
+    the [128, W] tile and two 32-row stages fill a block's shared memory):
+    C runs in windows, against the plain version (1e-5 of max|plain|) and
+    bit for bit against 128-column windows; a window forced to all C
+    columns is refused with the CUDA error, and cleared."""
     vals, _, _, scatter, starts = inputs(1, C, dtype, cuda)
-    n_tiles = starts.shape[-1] - 1
+    E = (starts.shape[-1] - 1) * TILE_E
     tiles = chunk_tiles(starts[0], scatter.shape[-1] // 128)
+    assert gs.kernel_window("scatter_mm_fwd", C, 1, dtype)[1] == 2
     with pytest.raises(RuntimeError, match="launch failed"):
-        gs.scatter_mm_fwd(vals[0], scatter[0], tiles, n_tiles * TILE_E)
-    got = gs.scatter_mm_fwd(vals[0][..., :C - 1].contiguous(), scatter[0],
-                            tiles, n_tiles * TILE_E)
-    torch.cuda.synchronize()
-    assert got.shape[-1] == C - 1
+        gs.scatter_mm_fwd(vals[0], scatter[0], tiles, E, window=C)
+    check_scatter(scatter[0], starts[0], C, dtype, seed=11)
+    got = gs.scatter_mm_fwd(vals[0], scatter[0], tiles, E)
+    assert torch.equal(got, gs.scatter_mm_fwd(vals[0], scatter[0], tiles, E,
+                                              window=128))
+    assert_parts_close((got,), (gs.scatter_mm_fwd_plain(vals[0], scatter[0],
+                                                        tiles, E),), (1e-5,))
 
 
 def model_batch(cuda, compute_dtype, seed=1):
