@@ -106,7 +106,9 @@ The LLM reader (the flash-attention kernels K5a-c):
      bf16 tensor-core passes, beside the float-core bound) and its TFLOP/s;
      the same for the bf16 kernels at head dim 256 (Gemma-2B's 8 heads):
      B2 L2047 (the step-time-llm-d256 step's shape) and B8 L2047, timed,
-     and B2 L1000, B1 L129;
+     and B2 L1000, B1 L129; and for the float32 kernels at head dim 256
+     (clusters of two blocks, one a column half): B2 L2047, timed, B2
+     L1000, B1 L129 and B1 L65;
   8. sft: the RoG joint-finetune SFT (scripts/train_sft.sh) through the
      port's entry (`python -m gnn_rag_tpu_torch.llm.sft`, run in this
      process) at LLaMA2-7B width cut to 4 of 32 layers, random weights from
@@ -151,7 +153,17 @@ The LLM reader (the flash-attention kernels K5a-c):
      dim 256) and no plain flash call; ms a step, positions/s, peak GB,
      each flash kernel's device ms in a profiled step; a no-cache scoring
      forward of the trained model (K5a) and the first step's loss, each
-     against plain attention.
+     against plain attention;
+  11d. step-time-llm-d256-fp32: the same SFT computing in float32
+     (D256_FP32_FLAGS, cut to 6 of 18 layers) through the port's entry, 3
+     steps at B2 x 2048: flash launches exact (6 of each a step: the
+     float32 kernels at head dim 256) and no plain flash call, losses
+     finite; ms a step, positions/s, peak GB, each float32 <256> kernel's
+     device ms and launches in a profiled step; a no-cache scoring
+     forward's token log-probs and the first step's loss against plain
+     attention (1e-4 of max|plain|; 1e-5 relative), and every parameter
+     gradient of a 2-layer model at these widths (1e-4 of the largest
+     entry + 1e-7).
 The reader at LLaMA2-7B widths and the full 32 layers (after the SFT
 trainer is freed):
   12. lora: LoRA finetuning (``llm.lora.LoRATrainer``: r 8, alpha 16 on
@@ -195,14 +207,12 @@ TRAIN_STEPS = 20
 PALLAS = "gnn_rag_tpu/ops/pallas_mp.py"
 # the flash kernels on wgmma, each with the SASS opcodes it must hold: the
 # bf16 ones load by TMA, the float32 ones (three bf16 terms a float,
-# converted by a warpgroup from plain loads) do not
-# (the bf16 ones are templates on the head dim: their instances by mangled
-# name, <128> and <256>)
+# converted by a warpgroup from plain loads) do not (all six are templates
+# on the head dim: their instances by mangled name, <128> and <256>)
 SM90_KERNELS = {**{f"flash_{k}_sm90_kernelILi{d}E": ("HGMMA", "UTMALDG")
                    for k in ("fwd", "dq", "dkv") for d in (128, 256)},
-                "flash_fwd_split3_kernel": ("HGMMA",),
-                "flash_dq_split3_kernel": ("HGMMA",),
-                "flash_dkv_split3_kernel": ("HGMMA",)}
+                **{f"flash_{k}_split3_kernelILi{d}E": ("HGMMA",)
+                   for k in ("fwd", "dq", "dkv") for d in (128, 256)}}
 FLASH = "gnn_rag_tpu/llm_tpu/flash_attention.py"
 # the card's published peaks (H100 SXM data sheet, dense): float32 outside
 # the tensor cores and bf16 tensor cores
@@ -239,7 +249,10 @@ SPEC_GAMMA = 4
 # so L is SFT_SEQ - 1 with a ragged last tile) in both types, another L, and
 # one row past a 128-row tile (TMA's out-of-bounds rows); then head dim 256
 # in bf16 at Gemma-2B's 8 heads: the step-time-llm-d256 step's B2 (and B8)
-# L2047, B2 L1000, B1 L129. Rows at L 2047 are timed
+# L2047, B2 L1000, B1 L129; and in float32 (clusters of two blocks, one a
+# column half): the step-time-llm-d256-fp32 step's B2 L2047, B2 L1000, B1
+# L129 and B1 L65 (one row past dq's 64-row block). Rows at L 2047 are
+# timed
 ATTN_SHAPES = (("sft_b8_l2047_bf16", 8, SFT_SEQ - 1, 32, 128, "bfloat16"),
                ("sft_b8_l2047_fp32", 8, SFT_SEQ - 1, 32, 128, "float32"),
                ("ragged_b2_l1000_bf16", 2, 1000, 32, 128, "bfloat16"),
@@ -249,7 +262,11 @@ ATTN_SHAPES = (("sft_b8_l2047_bf16", 8, SFT_SEQ - 1, 32, 128, "bfloat16"),
                ("gemma_b2_l2047_d256_bf16", 2, SFT_SEQ - 1, 8, 256, "bfloat16"),
                ("gemma_b8_l2047_d256_bf16", 8, SFT_SEQ - 1, 8, 256, "bfloat16"),
                ("ragged_b2_l1000_d256_bf16", 2, 1000, 8, 256, "bfloat16"),
-               ("ragged_b1_l129_d256_bf16", 1, 129, 8, 256, "bfloat16"))
+               ("ragged_b1_l129_d256_bf16", 1, 129, 8, 256, "bfloat16"),
+               ("gemma_b2_l2047_d256_fp32", 2, SFT_SEQ - 1, 8, 256, "float32"),
+               ("ragged_b2_l1000_d256_fp32", 2, 1000, 8, 256, "float32"),
+               ("ragged_b1_l129_d256_fp32", 1, 129, 8, 256, "float32"),
+               ("ragged_b1_l65_d256_fp32", 1, 65, 8, 256, "float32"))
 # the SFT step at Gemma-2B's widths (google/gemma-2b config.json: hidden
 # 2048, 8 heads of 256, one kv head, intermediate 16384, 18 layers, vocab
 # 256000, tied embeddings) on the repo's LLaMA block (SwiGLU, RMSNorm,
@@ -267,6 +284,15 @@ D256_FLAGS = ["--dim", "2048", "--n_heads", "8", "--n_kv_heads", "1",
               "--total_steps", str(D256_STEPS), "--learning_rate", "3e-4",
               "--warmup_steps", "100", "--save_every", str(D256_STEPS),
               "--seed", str(SEED), "--device", "cuda"]
+# the same SFT computing in float32 (every attention on the float32 flash
+# kernels at head dim 256), cut to 6 of 18 layers: at 18, the float32
+# params, grads and AdamW moments of 2.51 B parameters take 40 GB and the
+# float32 activations of B2 x 2048 double the bf16 run's (its peak is 58
+# GB); at 6, 1.18 B parameters take 19 GB of state
+D256_FP32_LAYERS = 6
+D256_FP32_FLAGS = [{"--n_layers": str(D256_FP32_LAYERS),
+                    "--dtype": "float32"}.get(flag, x)
+                   for flag, x in zip([None, *D256_FLAGS], D256_FLAGS)]
 # scripts/rearev_webqsp.sh with the reference's training defaults
 HEADLINE_FLAGS = ["ReaRev", "--entity_dim", "50", "--num_iter", "3",
                   "--num_ins", "2", "--num_gnn", "3", "--lm", "sbert",
@@ -2688,9 +2714,9 @@ def sft_fp32_step_time(tokens, mask, device):
     flash = {name: [sum(e.self_device_time_total for e in dev
                         if kernel in e.key) / 1e3,
                     sum(e.count for e in dev if kernel in e.key)]
-             for name, kernel in (("fwd", "flash_fwd_split3_kernel"),
-                                  ("dq", "flash_dq_split3_kernel"),
-                                  ("dkv", "flash_dkv_split3_kernel"))}
+             for name, kernel in (("fwd", "flash_fwd_split3_kernel<128>"),
+                                  ("dq", "flash_dq_split3_kernel<128>"),
+                                  ("dkv", "flash_dkv_split3_kernel<128>"))}
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
     losses = [x.item() for x in losses]
     summary = dict(layers=n, batch=2, seq=SFT_SEQ, ms_per_step=ms,
@@ -2726,12 +2752,13 @@ def token_logprobs(model, tokens):
 def kernel_vs_plain(model, fn):
     """(kernel path, plain-attention path, float32 path) of ``fn(model)``
     and the kernel-vs-plain distance over the plain path's own distance
-    from float32 (float32 at head dim 256 runs plain attention): two
-    paths of equal accuracy are within sqrt(2) of it when their roundings
-    are independent, a wrong kernel O(1) of the result away."""
+    from float32 (the float32 path through the plain versions, so that the
+    yardstick stays off the float32 kernels): two paths of equal accuracy
+    are within sqrt(2) of it when their roundings are independent, a wrong
+    kernel O(1) of the result away."""
     kernel = fn(model)
     plain = swapped_to_plain_attn(lambda: fn(model))
-    fp32 = fn(as_dtype(model, "float32"))
+    fp32 = swapped_to_plain_attn(lambda: fn(as_dtype(model, "float32")))
     own = (plain - fp32).norm().item()
     return kernel, plain, fp32, (kernel - plain).norm().item() / max(own, 1e-30)
 
@@ -2887,6 +2914,188 @@ def sft_d256_step_time(device, root, prompts):
         raise AssertionError(f"d256 first loss: entry {losses[0]}, kernel "
                              f"{first_kernel}, plain {first_plain}; per-token "
                              f"kernel vs plain {nll_ratio} x plain vs fp32")
+    return summary
+
+
+def sft_d256_fp32_step_time(device, root, prompts):
+    """Phase step-time-llm-d256-fp32: the SFT at Gemma-2B's attention
+    widths computing in float32 (D256_FP32_FLAGS: cut to D256_FP32_LAYERS
+    layers) through the port's entry, run in this process, over the SFT
+    phase's data: D256_STEPS steps at B2 x 2048 with exact flash launch
+    counts (one forward, one dq and one dk/dv a layer and step: the float32
+    kernels at head dim 256) and no plain flash call; ms a step over
+    D256_TIMED steps on the first step's batch (CUDA events), positions/s,
+    peak GB, one profiled step (each float32 <256> kernel's device ms and
+    launches); a no-cache scoring forward's token log-probabilities (K5a, a
+    launch a layer) against plain attention within 1e-4 of max|plain|;
+    with the trainer freed, the first step's loss, kernels and plain
+    attention, each within 1e-5 of the entry's; and every parameter
+    gradient of that batch on a 2-layer model at these widths, kernels
+    against plain attention (1e-4 of the largest entry + 1e-7, as
+    check_llm_grads)."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnn_rag_tpu_torch.finetune.data_prep import load_multiple_datasets
+    from gnn_rag_tpu_torch.llm import sft
+    from gnn_rag_tpu_torch.llm.model import build_llama
+    from gnn_rag_tpu_torch.llm.tokenizers import ByteTokenizer
+    t0 = time.perf_counter()
+    train_path = os.path.join(root, "train_qa.jsonl")
+    out_dir = os.path.join(root, "sft_d256_fp32")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path, counted: the SFT entry point, float32 at 256 ----
+    reset_attn_counts()
+    with plain_attn_calls() as plain:
+        trainer, losses = sft.main(["--data", train_path, "--output_dir",
+                                    out_dir, *D256_FP32_FLAGS])
+        torch.cuda.synchronize()
+    launches, plain_calls = attn_counts(), plain[0]
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    wall = time.perf_counter() - t0
+    shutil.rmtree(out_dir)                 # the ~5 GB checkpoint
+    cfg = trainer.model.cfg
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    n = cfg.n_layers
+    want = (n * D256_STEPS,) * 3
+    if (cfg.head_dim != 256 or cfg.dtype != "float32"
+            or len(losses) != D256_STEPS or launches != want or plain_calls
+            or not np.isfinite(losses).all()):
+        raise AssertionError(f"d256 fp32 SFT: head dim {cfg.head_dim} "
+                             f"{cfg.dtype}, losses {losses}, flash launches "
+                             f"{launches} (want {want}), plain attention "
+                             f"calls {plain_calls}")
+    tok = ByteTokenizer()
+    data = load_multiple_datasets([train_path], shuffle=True, seed=SEED)
+    tokens, mask = sft.pack_examples(
+        [d["text"] for d in data], tok.encode,
+        tok.encode(sft.RESPONSE_TEMPLATE, add_bos=False), SFT_SEQ, tok.pad_id)
+    idx = trainer._batch_indices(len(tokens), 0)
+    btok = torch.from_numpy(tokens[idx]).to(device)
+    bmsk = torch.from_numpy(mask[idx]).to(device)
+
+    # ---- step time, and one profiled step ----
+    reset_attn_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(D256_TIMED):
+        trainer.train_step(btok, bmsk)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / D256_TIMED
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(btok, bmsk)
+        torch.cuda.synchronize()
+    timed_launches = attn_counts()
+    dev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+           and e.self_device_time_total > 0]
+    dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    flash = {name: [sum(e.self_device_time_total for e in dev
+                        if kernel in e.key) / 1e3,
+                    sum(e.count for e in dev if kernel in e.key)]
+             for name, kernel in (("fwd", "flash_fwd_split3_kernel<256>"),
+                                  ("dq", "flash_dq_split3_kernel<256>"),
+                                  ("dkv", "flash_dkv_split3_kernel<256>"))}
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    steps = D256_TIMED + 1
+    if (timed_launches != (n * steps,) * 3
+            or [flash[k][1] for k in ("fwd", "dq", "dkv")] != [n] * 3):
+        raise AssertionError(f"d256 fp32 timed steps: flash launches "
+                             f"{timed_launches}, profiled {flash}")
+    for p in trainer.params:
+        p.grad = None
+
+    # ---- a no-cache scoring forward of the trained model ----
+    model = trainer.model.eval()
+    prompt = torch.tensor([prompts[0]], device=device)
+    reset_attn_counts()
+    score = token_logprobs(model, prompt)
+    score_launches = attn_counts()
+    score_plain = swapped_to_plain_attn(lambda: token_logprobs(model, prompt))
+    score_err = ((score - score_plain).abs().max().item(),
+                 score_plain.abs().max().item())
+    del trainer, model, score, score_plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (score_launches == (n, 0, 0)
+            and score_err[0] <= 1e-4 * score_err[1]):
+        raise AssertionError(f"d256 fp32 scoring forward: launches "
+                             f"{score_launches}, max|kernel - plain|, "
+                             f"max|plain| {score_err}")
+
+    # ---- the first step's loss, kernels against plain attention ----
+    init = build_llama(cfg, seed=SEED, device=device)
+    with torch.no_grad():
+        first_kernel = sft.completion_loss(init, btok, bmsk).item()
+        first_plain = swapped_to_plain_attn(
+            lambda: sft.completion_loss(init, btok, bmsk)).item()
+    del init
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- every gradient of a 2-layer model, kernels against plain ----
+    two = build_llama(dataclasses.replace(cfg, n_layers=2), seed=SEED,
+                      device=device)
+
+    def grads():
+        for p in two.parameters():
+            p.grad = None
+        sft.completion_loss(two, btok, bmsk).backward()
+        return {name: p.grad for name, p in two.named_parameters()}
+
+    reset_attn_counts()
+    got = grads()
+    torch.cuda.synchronize()
+    grad_launches = attn_counts()
+    plain_grads = swapped_to_plain_attn(grads)
+    worst = (0.0, "", 0.0)
+    bad = []
+    for name, w in plain_grads.items():
+        err = (got[name] - w).abs().max().item()
+        tol = 1e-4 * w.abs().max().item() + 1e-7
+        if not (err <= tol and torch.isfinite(got[name]).all()):
+            bad.append(f"{name}: kernel vs plain {err} > {tol}")
+        worst = max(worst, (err / tol, name, err))
+    del two, got, plain_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = dict(
+        layers=n, dim=cfg.dim, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, intermediate=cfg.intermediate,
+        vocab=cfg.vocab_size, dtype=cfg.dtype, batch=2, seq=SFT_SEQ,
+        params=n_params, losses=losses, flash_launches_fwd_dq_dkv=launches,
+        plain_attention_calls=plain_calls, entry_wall_s=wall,
+        peak_gb=peak_gb, ms_per_step=ms, steps_timed=D256_TIMED,
+        positions_per_s=1e3 * 2 * (SFT_SEQ - 1) / ms,
+        profiled_step_device_ms=dev_ms, flash_device_ms_launches=flash,
+        flash_share=sum(v[0] for v in flash.values()) / dev_ms
+        if dev_ms else "not measured",
+        timed_flash_launches=timed_launches,
+        top_device_ops=[[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                        for e in top],
+        scoring_tokens=int(prompt.shape[1]),
+        scoring_flash_launches=score_launches,
+        scoring_max_err_and_max_plain=score_err,
+        first_loss_entry_kernel_plain=[losses[0], first_kernel, first_plain],
+        grad_layers=2, grad_flash_launches=grad_launches,
+        grad_worst_err_over_tol=worst[0], grad_worst_param=worst[1],
+        grad_worst_err=worst[2], wall_s=time.perf_counter() - t0)
+    log("step-time-llm-d256-fp32", json.dumps(summary))
+    if not (abs(first_kernel - losses[0]) <= 1e-5 * abs(losses[0])
+            and abs(first_plain - losses[0]) <= 1e-5 * abs(losses[0])
+            and grad_launches == (2, 2, 2) and not bad):
+        raise AssertionError(f"d256 fp32: first loss entry {losses[0]}, "
+                             f"kernel {first_kernel}, plain {first_plain}; "
+                             f"gradient launches {grad_launches}; "
+                             + "; ".join(bad))
     return summary
 
 
@@ -3851,6 +4060,8 @@ def main():
         torch.cuda.empty_cache()
         fp32_step = sft_fp32_step_time(tokens, mask, device)
         d256 = sft_d256_step_time(device, os.path.join(root, "llm"), prompts)
+        d256_fp32 = sft_d256_fp32_step_time(device, os.path.join(root, "llm"),
+                                            prompts)
         _, reader_7b, lora_launches = run_lora(device, tokens, mask)
         run_serve_7b(device, reader_7b, os.path.join(root, "llm", "reader"),
                      prompts)
@@ -3990,10 +4201,12 @@ def main():
     # the qa phase's beam rescoring
     f32_row = next(r for r in attn_rows if r["shape"] == "sft_b8_l2047_fp32")
     for i, (name, key, line, kernel) in enumerate((
-            ("flash_attention_fwd_fp32", "fwd", 47, "flash_fwd_split3_kernel"),
-            ("flash_attention_dq_fp32", "dq", 132, "flash_dq_split3_kernel"),
+            ("flash_attention_fwd_fp32", "fwd", 47,
+             "flash_fwd_split3_kernel<128>"),
+            ("flash_attention_dq_fp32", "dq", 132,
+             "flash_dq_split3_kernel<128>"),
             ("flash_attention_dkv_fp32", "dkv", 170,
-             "flash_dkv_split3_kernel"))):
+             "flash_dkv_split3_kernel<128>"))):
         parts = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}[key]
         kernels.append({
             "name": name, "route": "cuda", "kernel": kernel,
@@ -4057,6 +4270,45 @@ def main():
                    if key == "fwd" else {})},
             **({} if key == "fwd" else
                {"sdpa_bwd_ms_dq_dk_dv_together": d_row["sdpa_bwd_ms"]})})
+    # the float32 kernels at head dim 256 (the <256> instances, clusters of
+    # two blocks), on the step-time-llm-d256-fp32 path, timed at its shape
+    rows_f256 = {r["shape"]: r for r in attn_rows
+                 if r["D"] == 256 and r["dtype"] == "float32"}
+    f_row = rows_f256["gemma_b2_l2047_d256_fp32"]
+    for i, (name, key, line) in enumerate((
+            ("flash_attention_fwd_d256_fp32", "fwd", 47),
+            ("flash_attention_dq_d256_fp32", "dq", 132),
+            ("flash_attention_dkv_d256_fp32", "dkv", 170))):
+        parts = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "kernel": f"flash_{key}_split3_kernel<256>",
+            "source": "gnn_rag_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"{FLASH}:{line}",
+            "launches": d256_fp32["flash_launches_fwd_dq_dkv"][i],
+            "max_abs_err": max(f_row["err_ref_over_tol_by_output"][p][0]
+                               for p in parts),
+            "ms": f_row["ms"][key], "plain_ms": f_row["plain_ms"][key],
+            "bound_ms": f_row["bound_ms"][key],
+            "bound_by": f_row["bound_by"][key],
+            "float_core_bound_ms": f_row["float_core_bound_ms"][key],
+            "library_ms": f_row["sdpa_fwd_ms" if key == "fwd"
+                                else "sdpa_bwd_ms"],
+            "library_call": ("SDPA forward" if key == "fwd" else
+                             "SDPA backward, dq, dk and dv together"),
+            "bound_share": f_row["bound_share"][key],
+            "tflops": f_row["tflops"][key], "shape": f_row["shape"],
+            "max_err_over_tol_by_shape": {
+                shape: max(r["err_ref_over_tol_by_output"][p][2]
+                           for p in parts) for shape, r in rows_f256.items()},
+            "launches_by_path": {
+                "step_time_llm_d256_fp32":
+                    d256_fp32["flash_launches_fwd_dq_dkv"][i],
+                "d256_fp32_timed_steps": d256_fp32["timed_flash_launches"][i],
+                "d256_fp32_grads": d256_fp32["grad_flash_launches"][i],
+                **({"d256_fp32_scoring":
+                    d256_fp32["scoring_flash_launches"][0]}
+                   if key == "fwd" else {})}})
     log("total", f"wall {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

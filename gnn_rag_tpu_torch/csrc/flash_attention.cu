@@ -11,8 +11,8 @@
 //   o = (sum_k T(exp(s - m)) v) / l        (p rounded to v's type T before PV)
 //   p = exp(s - lse), dp = dO v^T, ds = p * (dp - delta) * scale,
 //   dq = ds k, dk = ds^T q, dv = p^T dO,   delta = rowsum(dO * o) (given).
-// Tensors keep the model's [B, N, H, D] layout (D = 128 in float32, 128 or
-// 256 in bfloat16; the wrapper raises on any other D); lse and delta are
+// Tensors keep the model's [B, N, H, D] layout (D = 128 or 256, in float32
+// and in bfloat16; the wrapper raises on any other D); lse and delta are
 // [B*H, L] float, stored once per row (the TPU kernel replicated them over
 // 128 lanes for its block shapes). All sums are float; every product is the
 // float product of the (widened) inputs, as in the TPU kernels
@@ -58,6 +58,37 @@
 //   dp = dO v^T, 48 wgmma m64n32k16 each, ds split into register A terms
 //   for dq += ds k, 12 wgmma m64n128k16 (k's terms MN-major). 198 KB, 256
 //   threads, one block an SM, registers unsplit.
+// - head dim 256 (the same three kernels, instances <256>; <128> above):
+//   at D 256 the layouts above would not fit a block: the forward's 128
+//   resident Q rows as terms take 192 KB, dk/dv's resident K and V terms
+//   of 64 keys 192 KB (and dk and dv of 64 x 256 floats would be 256
+//   registers a thread), dq's resident Q and dO terms 192 KB, against the
+//   227 KB (232,448 bytes) a block may have. So the depth is split over a
+//   thread block cluster of two blocks on the same rows: block rank r owns
+//   columns 128r .. 128r + 127 and runs the D 128 layout above on them
+//   (its Q, K, V and dO terms are those 128 columns), so every product
+//   from shared memory, every register count and every tile stays as at D
+//   128. Each consumer warpgroup forms its half-depth partial of s (dq and
+//   dk/dv: of s and dp) from zero (the six products over its 128 columns),
+//   stores it with st.shared::cluster into the same warpgroup's buffer in
+//   the peer block (Exchange: 32 floats a thread, 16 KB), arrives on the
+//   peer's mbarrier, waits for the peer's partial in its own buffer and
+//   adds it to its own in one float add an element. IEEE addition
+//   commutes, so both blocks hold the same bits of s and dp, hence of m,
+//   l, p and ds, and each accumulates only its own columns: o in the
+//   forward, dq, dk and dv; no score product is done twice. Shared memory:
+//   the forward's 197,664 bytes + two exchanges (16 KB each, one a
+//   consumer) = 230,464; dq 197,664 + 16,400 = 214,064; dk/dv 198,176 +
+//   16,400 = 214,576. The exchange costs per tile: forward 2 x 16 KB out
+//   and in of a block (64 x 64 floats a consumer), dq and dk/dv 16 KB
+//   (two 64 x 32 tiles), against a block's 25.2 MFLOP (forward), 9.4
+//   (dq) and 12.6 (dk/dv) of six-pass products a tile. A buffer is rewritten only
+//   after the peer arrived on its empty barrier (it read the last one),
+//   mbarriers arrive with release and wait with acquire at cluster scope,
+//   a cluster barrier after the barriers' init precedes every remote
+//   arrival, and each warpgroup waits, after its last exchange, for the
+//   peer to have read it, so no block exits while its peer may still
+//   reach its shared memory. Only rank 0 writes lse.
 //
 // bfloat16, on the tensor cores: Hopper's TMA and warpgroup wgmma (building
 // blocks in sm90.cuh), each kernel a template on the head dim (<128>,
@@ -145,9 +176,21 @@
 // launch (384 threads, one block an SM; setmaxnreg then gives the consumers
 // 240 (forward, dq) and 232 (dk/dv), the producer 24 (forward, dq) and 40
 // (dk/dv));
-// flash_fwd_split3_kernel 168 at launch (consumers 200, converter 104),
-// flash_dkv_split3_kernel 222, flash_dq_split3_kernel 137; no spills, no
-// stack frames.
+// flash_fwd_split3_kernel 168 at launch (consumers 200, converter 104) at
+// both head dims, flash_dkv_split3_kernel 222 (<128>) and 244 (<256>),
+// flash_dq_split3_kernel 137 and 142; no spills, no stack frames.
+//
+// At head dim 256 the float32 kernels take 0.62 / 1.16 / 1.30 ms (forward /
+// dq / dk/dv) at B2 L2047 H8 D256 (chip_smoke.py on an H100 at 700 W): 34%
+// / 27% / 32% of their six-pass bounds (0.208 / 0.313 / 0.417 ms). The same
+// kernels at head dim 128 over the same blocks of the same work (B2 L2047
+// H16, llm/flash_bench.py's d128_same_blocks) take 0.50 / 0.80 / 0.93 ms
+// against 0.64 / 1.18 / 1.32 in the same runs, so the exchange and the two
+// blocks' lock step cost 29% (forward), 48% (dq) and 42% (dk/dv): a
+// consumer waits for its peer's partial with the tensor cores idle. Issuing
+// the next tile's score products before the exchange would hide it (dq has
+// the registers; dk/dv, at 244, would need its p^T and ds^T terms made in
+// two halves).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -885,21 +928,22 @@ __device__ __forceinline__ void split3(float x, float y, uint32_t& t1,
   t3 = pack_bf16(rx - f2.x, ry - f2.y);
 }
 
-// Rows [row0, row0 + ROWS) of head h of a float [B, N, H, D] tensor as its
-// three bf16 terms in shared memory: term s at dst + s * term, each a tile
-// of two 64-column boxes `box` bytes apart in the 128-byte-swizzled layout
-// that TMA writes and desc_sw128 reads (row r at r * 128 bytes, its 16-byte
-// chunk c at chunk c ^ (r % 8)); rows past N as zeros. The 128 threads of a
-// warpgroup (tid) each take the 8-column chunk tid % 16 of rows tid / 16 +
-// 8 i; BATCH rows are loaded (16-byte loads, a warp on two whole rows)
-// before they are split and stored (16-byte stores, a quarter warp on one
-// swizzled row: no bank conflicts).
-template <int ROWS, int BATCH>
+// Rows [row0, row0 + ROWS) of head h of a float [B, N, H, HD] tensor, its
+// 128 columns from col0, as their three bf16 terms in shared memory: term s
+// at dst + s * term, each a tile of two 64-column boxes `box` bytes apart
+// in the 128-byte-swizzled layout that TMA writes and desc_sw128 reads (row
+// r at r * 128 bytes, its 16-byte chunk c at chunk c ^ (r % 8)); rows past
+// N as zeros. The 128 threads of a warpgroup (tid) each take the 8-column
+// chunk tid % 16 of rows tid / 16 + 8 i; BATCH rows are loaded (16-byte
+// loads, a warp on two whole rows of 128 columns) before they are split and
+// stored (16-byte stores, a quarter warp on one swizzled row: no bank
+// conflicts).
+template <int ROWS, int BATCH, int HD>
 __device__ __forceinline__ void split_rows(unsigned char* dst, int box,
                                            int term,
                                            const float* __restrict__ src,
                                            int b, int h, int N, int H,
-                                           int row0, int tid) {
+                                           int row0, int tid, int col0) {
   static_assert(ROWS % (8 * BATCH) == 0, "whole batches of 8 rows");
   const int c = tid % 16, rr = tid / 16;
   unsigned char* const out =
@@ -912,7 +956,7 @@ __device__ __forceinline__ void split_rows(unsigned char* dst, int box,
       const int row = row0 + rr + 8 * (i0 + i);
       if (row < N) {
         const float4* p = reinterpret_cast<const float4*>(
-            src + offset(b, row, h, N, H) + 8 * c);
+            src + offset<HD>(b, row, h, N, H) + col0 + 8 * c);
         x[i][0] = __ldg(p);
         x[i][1] = __ldg(p + 1);
       } else {
@@ -947,11 +991,87 @@ static_assert(LAUNCH_REGS - F3_CONVERTER_REGS >=
                   2 * (F3_CONSUMER_REGS - LAUNCH_REGS),
               "the consumers take more registers than the converter frees");
 
+// Head dim 256: a cluster of two blocks on the same rows, block rank r
+// owning columns 128r .. 128r + 127 (PAIR below). Each consumer warpgroup
+// forms its half-depth partial of s (and dp) from zero, sends it to the
+// same warpgroup of the peer block and adds the peer's to its own in one
+// float add; both blocks then hold the same bits (IEEE addition commutes),
+// so p and ds agree, and each block accumulates only its own columns of o,
+// dq or dk and dv.
+constexpr int PAIR = 2;          // blocks of a cluster at head dim 256
+
+// One consumer warpgroup's exchange with the same warpgroup of the peer
+// block: the peer writes its partial here, 32 floats a thread (float4 i of
+// thread tid at part[i][tid]: a warp's stores on 512 consecutive bytes),
+// then arrives on full; this block reads it and arrives on the peer's
+// empty, so that the peer may write the next one.
+struct Exchange {
+  float4 part[8][WG];
+  uint64_t full, empty;
+};
+
+__device__ __forceinline__ void init_exchange(Exchange* x) {
+  sm90::mbar_init(&x->full, WG);     // the peer's threads
+  sm90::mbar_init(&x->empty, WG);
+}
+
+template <int N>
+__device__ __forceinline__ void put_partial(const float (&x)[N], uint32_t dst,
+                                            int& i) {
+#pragma unroll
+  for (int n = 0; n < N; n += 4, ++i)
+    sm90::st_cluster(dst + i * WG * 16,
+                     make_float4(x[n], x[n + 1], x[n + 2], x[n + 3]));
+}
+template <int N>
+__device__ __forceinline__ void add_partial(float (&x)[N], const Exchange* xc,
+                                            int tid, int& i) {
+#pragma unroll
+  for (int n = 0; n < N; n += 4, ++i) {
+    const float4 y = xc->part[i][tid];
+    x[n] = x[n] + y.x;
+    x[n + 1] = x[n + 1] + y.y;
+    x[n + 2] = x[n + 2] + y.z;
+    x[n + 3] = x[n + 3] + y.w;
+  }
+}
+
+// Exchange e (0, 1, ..) of this warpgroup's half-depth partials `parts`
+// (32 floats a thread in all) with the peer block's: each becomes own +
+// peer, one float add an element.
+template <typename... Parts>
+__device__ __forceinline__ void add_peer_partials(Exchange* xc, uint32_t peer,
+                                                  int tid, int e,
+                                                  Parts&... parts) {
+  const uint32_t parity = e & 1;
+  sm90::mbar_wait_cluster(&xc->empty, parity ^ 1);   // the peer read e - 1
+  const uint32_t dst = sm90::map_peer(&xc->part[0][tid], peer);
+  int i = 0;
+  (put_partial(parts, dst, i), ...);
+  sm90::mbar_arrive_cluster(sm90::map_peer(&xc->full, peer));
+  sm90::mbar_wait_cluster(&xc->full, parity);
+  i = 0;
+  (add_partial(parts, xc, tid, i), ...);
+  sm90::mbar_arrive_cluster(sm90::map_peer(&xc->empty, peer));
+}
+
+// after a warpgroup's last exchange (`n` in all): the peer has read it, so
+// it touches this block's shared memory no more and the block may exit
+__device__ __forceinline__ void drain_exchange(Exchange* xc, int n) {
+  if (n > 0) sm90::mbar_wait_cluster(&xc->empty, (n - 1) & 1);
+}
+
 struct Fwd3Bars {
   uint64_t k_full, v_full, k_empty, v_empty;
 };
 constexpr size_t kFwd3Smem = 1024 + TERMS * TILE_BYTES +
                              2 * TERMS * QTILE_BYTES + sizeof(Fwd3Bars);
+// + an exchange a consumer at head dim 256 (230,464 bytes)
+template <int HD>
+constexpr size_t fwd3_smem() {
+  return kFwd3Smem + (HD == D ? 0 : 2 * sizeof(Exchange));
+}
+static_assert(fwd3_smem<2 * D>() <= MAX_SMEM, "float32 forward at HD 256");
 
 // float32 forward, grid (ceil(L / F3_ROWS), B*H), 384 threads. Warpgroup 0
 // converts: it streams 64-key K and V tiles, K_0, V_0, K_1, ..., each into
@@ -965,18 +1085,28 @@ constexpr size_t kFwd3Smem = 1024 + TERMS * TILE_BYTES +
 // o += p v (24 wgmma m64n128k16, v's terms MN-major with the transpose
 // bit). A consumer whose rows all lie before a tile's first key skips its
 // products (it still waits and releases, keeping the barriers in step).
+// At HD 256 the grid is twice as wide, clusters of two blocks on the same
+// rows, each on its 128 columns; a live tile's s is the sum of the two
+// blocks' partials (add_peer_partials).
+template <int HD>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
     flash_fwd_split3_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
                             const float* __restrict__ v, float* __restrict__ o,
                             float* __restrict__ lse, int H, int L, int S,
                             float scale) {
+  constexpr bool kPair = HD == PAIR * D;   // a cluster's two column halves
   extern __shared__ unsigned char raw_smem[];
   unsigned char* const Qs = align1024(raw_smem);             // [term]
   unsigned char* const Ks = Qs + TERMS * TILE_BYTES;         // [term]
   unsigned char* const Vs = Ks + TERMS * QTILE_BYTES;        // [term]
   auto* bars = reinterpret_cast<Fwd3Bars*>(Vs + TERMS * QTILE_BYTES);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * F3_ROWS;
+  auto* xch = reinterpret_cast<Exchange*>(bars + 1);   // [consumer], kPair
+  const uint32_t rank = kPair ? sm90::cluster_ctarank() : 0;
+  const int col0 = D * rank;                 // this block's columns
+  const int row_blocks = kPair ? gridDim.x / PAIR : gridDim.x;
+  const int q0 =
+      (row_blocks - 1 - (kPair ? blockIdx.x / PAIR : blockIdx.x)) * F3_ROWS;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int n_tiles = (min(S, q0 + F3_ROWS) + F3_KEYS - 1) / F3_KEYS;
   const int wg = threadIdx.x / WG;
@@ -986,22 +1116,27 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     sm90::mbar_init(&bars->v_full, WG);
     sm90::mbar_init(&bars->k_empty, 2 * WG / 32);     // consumer warps
     sm90::mbar_init(&bars->v_empty, 2 * WG / 32);
+    if constexpr (kPair) {
+      init_exchange(&xch[0]);
+      init_exchange(&xch[1]);
+    }
     sm90::fence_barrier_init();
   }
   __syncthreads();
+  if constexpr (kPair) sm90::cluster_sync();   // the peer's barriers too
 
   if (wg == 0) {   // converter
     sm90::setmaxnreg_dec<F3_CONVERTER_REGS>();
     for (int j = 0; j < n_tiles; ++j) {
       const uint32_t parity = (j & 1) ^ 1;
       sm90::mbar_wait(&bars->k_empty, parity);
-      split_rows<F3_KEYS, 4>(Ks, BOX64, QTILE_BYTES, k, b, h, S, H,
-                             j * F3_KEYS, threadIdx.x);
+      split_rows<F3_KEYS, 4, HD>(Ks, BOX64, QTILE_BYTES, k, b, h, S, H,
+                                 j * F3_KEYS, threadIdx.x, col0);
       sm90::fence_proxy_async();
       sm90::mbar_arrive(&bars->k_full);
       sm90::mbar_wait(&bars->v_empty, parity);
-      split_rows<F3_KEYS, 4>(Vs, BOX64, QTILE_BYTES, v, b, h, S, H,
-                             j * F3_KEYS, threadIdx.x);
+      split_rows<F3_KEYS, 4, HD>(Vs, BOX64, QTILE_BYTES, v, b, h, S, H,
+                                 j * F3_KEYS, threadIdx.x, col0);
       sm90::fence_proxy_async();
       sm90::mbar_arrive(&bars->v_full);
     }
@@ -1016,7 +1151,8 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
   const int r0 = q0 + 64 * cw;
   const int row = r0 + 16 * warp + g;        // and row + 8
   unsigned char* const Qw = Qs + 64 * cw * ROW_BYTES;
-  split_rows<64, 4>(Qw, BOX128, TILE_BYTES, q, b, h, L, H, r0, tid);
+  split_rows<64, 4, HD>(Qw, BOX128, TILE_BYTES, q, b, h, L, H, r0, tid,
+                        col0);
   sm90::fence_proxy_async();
   sm90::named_bar_sync(1 + cw, WG);          // this consumer's Q terms
   // tiles whose first key lies past this consumer's last row add nothing
@@ -1050,6 +1186,9 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     }
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&bars->k_empty);
+    // live tiles are the first my_tiles, so j counts the exchanges
+    if constexpr (kPair)
+      if (live) add_peer_partials(&xch[cw], rank ^ 1, tid, j, s);
 
     uint32_t pa[TERMS][F3_KEYS / 16][4];
     if (live) {
@@ -1113,6 +1252,8 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     if (lane == 0) sm90::mbar_arrive(&bars->v_empty);
   }
 
+  if constexpr (kPair) drain_exchange(&xch[cw], min(my_tiles, n_tiles));
+
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -1120,10 +1261,10 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     l[r] = fmaxf(l[r], 1e-30f);
     inv[r] = 1.f / l[r];
-    if (t == 0 && row + 8 * r < L)
+    if (t == 0 && row + 8 * r < L && rank == 0)   // both blocks hold it
       lse[static_cast<int64_t>(bh) * L + row + 8 * r] = m[r] * LN2 + logf(l[r]);
   }
-  store_acc_rows(o, b, h, L, H, row, t, acc, inv);
+  store_acc_rows<float, HD>(o, b, h, L, H, row, t, acc, inv, col0);
 }
 
 constexpr int D3_KEYS = 64;      // keys per block
@@ -1142,6 +1283,12 @@ struct Dkv3Stats {               // a streamed tile's lse and delta
 constexpr size_t kDkv3Smem = 1024 + 2 * TERMS * QTILE_BYTES +
                              2 * D3_STAGES * TERMS * D3_TILE +
                              sizeof(Dkv3Stats) + sizeof(Ring3Bars);
+// + the consumer's exchange at head dim 256 (214,576 bytes)
+template <int HD>
+constexpr size_t dkv3_smem() {
+  return kDkv3Smem + (HD == D ? 0 : sizeof(Exchange));
+}
+static_assert(dkv3_smem<2 * D>() <= MAX_SMEM, "float32 dk/dv at HD 256");
 
 // float32 dk and dv, grid (ceil(S / D3_KEYS), B*H), 256 threads: the K and
 // V terms of 64 keys stay resident (96 KB), so a block has one consumer
@@ -1152,7 +1299,10 @@ constexpr size_t kDkv3Smem = 1024 + 2 * TERMS * QTILE_BYTES +
 // K-major from shared memory); p^T and ds^T in registers, each split into
 // three A terms; dv += p^T dO and dk += ds^T q (12 wgmma m64n128k16 each,
 // dO's and q's terms MN-major with the transpose bit). One block an SM:
-// 198 KB of shared memory, up to 255 registers a thread.
+// 198 KB of shared memory, up to 255 registers a thread. At HD 256, clusters
+// of two blocks on the same keys, each on its 128 columns, s^T and dp^T
+// the sums of the two blocks' partials.
+template <int HD>
 __global__ void __launch_bounds__(D3_THREADS, 1)
     flash_dkv_split3_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
@@ -1162,6 +1312,7 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
                             const float* __restrict__ delta,
                             float* __restrict__ dk, float* __restrict__ dv,
                             int H, int L, int S, float scale) {
+  constexpr bool kPair = HD == PAIR * D;   // a cluster's two column halves
   extern __shared__ unsigned char raw_smem[];
   unsigned char* const Ks = align1024(raw_smem);              // [term]
   unsigned char* const Vs = Ks + TERMS * QTILE_BYTES;         // [term]
@@ -1169,7 +1320,10 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
   unsigned char* const Gs = Qs + D3_STAGES * TERMS * D3_TILE; // dO
   auto* stats = reinterpret_cast<Dkv3Stats*>(Gs + D3_STAGES * TERMS * D3_TILE);
   auto* bars = reinterpret_cast<Ring3Bars*>(stats + 1);
-  const int k0 = blockIdx.x * D3_KEYS;
+  auto* xch = reinterpret_cast<Exchange*>(bars + 1);         // kPair
+  const uint32_t rank = kPair ? sm90::cluster_ctarank() : 0;
+  const int col0 = D * rank;                 // this block's columns
+  const int k0 = (kPair ? blockIdx.x / PAIR : blockIdx.x) * D3_KEYS;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int n_tiles = k0 < L ? (L - k0 + D3_ROWS - 1) / D3_ROWS : 0;
   const int wg = threadIdx.x / WG;
@@ -1179,9 +1333,11 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
       sm90::mbar_init(&bars->full[st], WG);           // converter threads
       sm90::mbar_init(&bars->empty[st], WG / 32);     // consumer warps
     }
+    if constexpr (kPair) init_exchange(xch);
     sm90::fence_barrier_init();
   }
   __syncthreads();
+  if constexpr (kPair) sm90::cluster_sync();   // the peer's barriers too
 
   if (wg == 0) {   // converter
     const int tid = threadIdx.x;
@@ -1195,10 +1351,10 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
         stats->lse[st][tid] = in ? lse_bh[q0 + tid] : 0.f;
         stats->delta[st][tid] = in ? delta_bh[q0 + tid] : 0.f;
       }
-      split_rows<D3_ROWS, 4>(Qs + st * TERMS * D3_TILE, BOX32, D3_TILE, q, b,
-                             h, L, H, q0, tid);
-      split_rows<D3_ROWS, 4>(Gs + st * TERMS * D3_TILE, BOX32, D3_TILE, dout,
-                             b, h, L, H, q0, tid);
+      split_rows<D3_ROWS, 4, HD>(Qs + st * TERMS * D3_TILE, BOX32, D3_TILE,
+                                 q, b, h, L, H, q0, tid, col0);
+      split_rows<D3_ROWS, 4, HD>(Gs + st * TERMS * D3_TILE, BOX32, D3_TILE,
+                                 dout, b, h, L, H, q0, tid, col0);
       sm90::fence_proxy_async();
       sm90::mbar_arrive(&bars->full[st]);
     }
@@ -1209,8 +1365,10 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int key = k0 + 16 * warp + g;        // and key + 8
-  split_rows<D3_KEYS, 4>(Ks, BOX64, QTILE_BYTES, k, b, h, S, H, k0, tid);
-  split_rows<D3_KEYS, 4>(Vs, BOX64, QTILE_BYTES, v, b, h, S, H, k0, tid);
+  split_rows<D3_KEYS, 4, HD>(Ks, BOX64, QTILE_BYTES, k, b, h, S, H, k0, tid,
+                             col0);
+  split_rows<D3_KEYS, 4, HD>(Vs, BOX64, QTILE_BYTES, v, b, h, S, H, k0, tid,
+                             col0);
   sm90::fence_proxy_async();
   sm90::named_bar_sync(1, WG);               // the K and V terms
   const float sl2 = scale * LOG2E;
@@ -1247,6 +1405,7 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
     sm90::wgmma_wait();
     sm90::fence_regs(s);
     sm90::fence_regs(dp);
+    if constexpr (kPair) add_peer_partials(xch, rank ^ 1, tid, j, s, dp);
 
     // p^T = exp(s^T scale - lse), ds^T = p^T (dp^T - delta) scale; rows:
     // keys key + 8((i / 2) & 1), columns: query rows q0 + c
@@ -1304,9 +1463,10 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
   }
+  if constexpr (kPair) drain_exchange(xch, n_tiles);
   const float one[2] = {1.f, 1.f};
-  store_acc_rows(dk, b, h, S, H, key, t, dk_acc, one);
-  store_acc_rows(dv, b, h, S, H, key, t, dv_acc, one);
+  store_acc_rows<float, HD>(dk, b, h, S, H, key, t, dk_acc, one, col0);
+  store_acc_rows<float, HD>(dv, b, h, S, H, key, t, dv_acc, one, col0);
 }
 
 constexpr int Q3_ROWS = 64;         // query rows per block
@@ -1314,6 +1474,12 @@ constexpr int Q3_KEYS = D3_ROWS;    // keys per streamed tile
 constexpr size_t kDq3Smem = 1024 + 2 * TERMS * QTILE_BYTES +
                             2 * D3_STAGES * TERMS * D3_TILE +
                             sizeof(Ring3Bars);
+// + the consumer's exchange at head dim 256 (214,064 bytes)
+template <int HD>
+constexpr size_t dq3_smem() {
+  return kDq3Smem + (HD == D ? 0 : sizeof(Exchange));
+}
+static_assert(dq3_smem<2 * D>() <= MAX_SMEM, "float32 dq at HD 256");
 
 // float32 dq, grid (ceil(L / Q3_ROWS), B*H), 256 threads: dk/dv's mirror
 // image. The Q and dO terms of 64 query rows stay resident (96 KB), split
@@ -1324,7 +1490,10 @@ constexpr size_t kDq3Smem = 1024 + 2 * TERMS * QTILE_BYTES +
 // each, all terms K-major from shared memory); p and ds in registers, ds
 // split into three A terms; dq += ds k (12 wgmma m64n128k16, k's terms
 // MN-major with the transpose bit). One block an SM: 198 KB of shared
-// memory, up to 255 registers a thread.
+// memory, up to 255 registers a thread. At HD 256, clusters of two blocks on
+// the same rows, each on its 128 columns, s and dp the sums of the two
+// blocks' partials.
+template <int HD>
 __global__ void __launch_bounds__(D3_THREADS, 1)
     flash_dq_split3_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
@@ -1334,13 +1503,19 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
                            const float* __restrict__ delta,
                            float* __restrict__ dq, int H, int L, int S,
                            float scale) {
+  constexpr bool kPair = HD == PAIR * D;   // a cluster's two column halves
   extern __shared__ unsigned char raw_smem[];
   unsigned char* const Qs = align1024(raw_smem);               // [term]
   unsigned char* const Gs = Qs + TERMS * QTILE_BYTES;          // [term] dO
   unsigned char* const Ks = Gs + TERMS * QTILE_BYTES;          // [stage][term]
   unsigned char* const Vs = Ks + D3_STAGES * TERMS * D3_TILE;  // [stage][term]
   auto* bars = reinterpret_cast<Ring3Bars*>(Vs + D3_STAGES * TERMS * D3_TILE);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * Q3_ROWS;
+  auto* xch = reinterpret_cast<Exchange*>(bars + 1);           // kPair
+  const uint32_t rank = kPair ? sm90::cluster_ctarank() : 0;
+  const int col0 = D * rank;                 // this block's columns
+  const int row_blocks = kPair ? gridDim.x / PAIR : gridDim.x;
+  const int q0 =
+      (row_blocks - 1 - (kPair ? blockIdx.x / PAIR : blockIdx.x)) * Q3_ROWS;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int n_tiles = (min(S, q0 + Q3_ROWS) + Q3_KEYS - 1) / Q3_KEYS;
   const int wg = threadIdx.x / WG;
@@ -1350,19 +1525,21 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
       sm90::mbar_init(&bars->full[st], WG);           // converter threads
       sm90::mbar_init(&bars->empty[st], WG / 32);     // consumer warps
     }
+    if constexpr (kPair) init_exchange(xch);
     sm90::fence_barrier_init();
   }
   __syncthreads();
+  if constexpr (kPair) sm90::cluster_sync();   // the peer's barriers too
 
   if (wg == 0) {   // converter
     const int tid = threadIdx.x;
     for (int j = 0; j < n_tiles; ++j) {
       const int st = j % D3_STAGES, k0 = j * Q3_KEYS;
       sm90::mbar_wait(&bars->empty[st], ((j / D3_STAGES) & 1) ^ 1);
-      split_rows<Q3_KEYS, 4>(Ks + st * TERMS * D3_TILE, BOX32, D3_TILE, k, b,
-                             h, S, H, k0, tid);
-      split_rows<Q3_KEYS, 4>(Vs + st * TERMS * D3_TILE, BOX32, D3_TILE, v, b,
-                             h, S, H, k0, tid);
+      split_rows<Q3_KEYS, 4, HD>(Ks + st * TERMS * D3_TILE, BOX32, D3_TILE,
+                                 k, b, h, S, H, k0, tid, col0);
+      split_rows<Q3_KEYS, 4, HD>(Vs + st * TERMS * D3_TILE, BOX32, D3_TILE,
+                                 v, b, h, S, H, k0, tid, col0);
       sm90::fence_proxy_async();
       sm90::mbar_arrive(&bars->full[st]);
     }
@@ -1373,8 +1550,10 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int row = q0 + 16 * warp + g;        // and row + 8
-  split_rows<Q3_ROWS, 4>(Qs, BOX64, QTILE_BYTES, q, b, h, L, H, q0, tid);
-  split_rows<Q3_ROWS, 4>(Gs, BOX64, QTILE_BYTES, dout, b, h, L, H, q0, tid);
+  split_rows<Q3_ROWS, 4, HD>(Qs, BOX64, QTILE_BYTES, q, b, h, L, H, q0, tid,
+                             col0);
+  split_rows<Q3_ROWS, 4, HD>(Gs, BOX64, QTILE_BYTES, dout, b, h, L, H, q0,
+                             tid, col0);
   sm90::fence_proxy_async();
   sm90::named_bar_sync(1, WG);               // the Q and dO terms
   const float sl2 = scale * LOG2E;
@@ -1419,6 +1598,7 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
     sm90::wgmma_wait();
     sm90::fence_regs(s);
     sm90::fence_regs(dp);
+    if constexpr (kPair) add_peer_partials(xch, rank ^ 1, tid, j, s, dp);
 
     // p = exp(s scale - lse), ds = p (dp - delta) scale; rows: queries
     // row + 8((i / 2) & 1), columns: keys k0 + c. Only a tile that crosses
@@ -1457,8 +1637,9 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
   }
+  if constexpr (kPair) drain_exchange(xch, n_tiles);
   const float one[2] = {1.f, 1.f};
-  store_acc_rows(dq, b, h, L, H, row, t, acc, one);
+  store_acc_rows<float, HD>(dq, b, h, L, H, row, t, acc, one, col0);
 }
 
 template <typename Kernel>
@@ -1468,48 +1649,73 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// float32 forward, dq and dk/dv: three bf16 terms on wgmma, no tensor
-// maps
-int launch_fwd_split3(const void* q, const void* k, const void* v, void* o,
-                      float* lse, int B, int H, int L, int S, float scale,
-                      cudaStream_t stream) {
-  const cudaError_t err = allow_smem(flash_fwd_split3_kernel, kFwd3Smem);
+// `kernel` over `blocks` x `rows` blocks: at head dim 128 a plain launch,
+// at 256 clusters of two blocks along x (the two column halves of each
+// block of rows, blocks 2i and 2i + 1), through cudaLaunchKernelEx
+template <int HD, typename... Params, typename... Args>
+int launch_split3(void (*kernel)(Params...), int blocks, int rows,
+                  int threads, size_t smem, cudaStream_t stream,
+                  Args... args) {
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((L + F3_ROWS - 1) / F3_ROWS, B * H);
-  flash_fwd_split3_kernel<<<grid, SM90_THREADS, kFwd3Smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, H, L, S,
-      scale);
+  if constexpr (HD == D) {
+    kernel<<<dim3(blocks, rows), threads, smem, stream>>>(args...);
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(PAIR * blocks, rows);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute pair;
+    pair.id = cudaLaunchAttributeClusterDimension;
+    pair.val.clusterDim.x = PAIR;
+    pair.val.clusterDim.y = 1;
+    pair.val.clusterDim.z = 1;
+    cfg.attrs = &pair;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, args...);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
+// float32 forward, dq and dk/dv at head dim HD: three bf16 terms on wgmma,
+// no tensor maps
+template <int HD>
+int launch_fwd_split3(const void* q, const void* k, const void* v, void* o,
+                      float* lse, int B, int H, int L, int S, float scale,
+                      cudaStream_t stream) {
+  return launch_split3<HD>(
+      flash_fwd_split3_kernel<HD>, (L + F3_ROWS - 1) / F3_ROWS, B * H,
+      SM90_THREADS, fwd3_smem<HD>(), stream, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, H, L, S, scale);
+}
+
+template <int HD>
 int launch_dq_split3(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
                      void* dq, int B, int H, int L, int S, float scale,
                      cudaStream_t stream) {
-  const cudaError_t err = allow_smem(flash_dq_split3_kernel, kDq3Smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((L + Q3_ROWS - 1) / Q3_ROWS, B * H);
-  flash_dq_split3_kernel<<<grid, D3_THREADS, kDq3Smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      delta, static_cast<float*>(dq), H, L, S, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_split3<HD>(
+      flash_dq_split3_kernel<HD>, (L + Q3_ROWS - 1) / Q3_ROWS, B * H,
+      D3_THREADS, dq3_smem<HD>(), stream, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq),
+      H, L, S, scale);
 }
 
+template <int HD>
 int launch_dkv_split3(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dk, void* dv, int B, int H, int L, int S,
                       float scale, cudaStream_t stream) {
-  const cudaError_t err = allow_smem(flash_dkv_split3_kernel, kDkv3Smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + D3_KEYS - 1) / D3_KEYS, B * H);
-  flash_dkv_split3_kernel<<<grid, D3_THREADS, kDkv3Smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      delta, static_cast<float*>(dk), static_cast<float*>(dv), H, L, S,
-      scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_split3<HD>(
+      flash_dkv_split3_kernel<HD>, (S + D3_KEYS - 1) / D3_KEYS, B * H,
+      D3_THREADS, dkv3_smem<HD>(), stream, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), H, L, S, scale);
 }
 
 // bf16 forward, dq and dk/dv at head dim HD: tensor maps encoded per call
@@ -1587,16 +1793,18 @@ int launch_dq_sm90(const void* q, const void* k, const void* v,
 extern "C" {
 
 // q, o [B, L, H, D], k, v [B, S, H, D], contiguous and 16-byte aligned, all
-// bfloat16 when bf16 is non-zero (D 128 or 256), else float (D 128); lse
+// bfloat16 when bf16 is non-zero, else float, D 128 or 256 in both; lse
 // [B*H, L] float. Each entry point returns a cudaError_t value; 0 means the
-// launch was accepted (another D or type: cudaErrorInvalidValue).
+// launch was accepted (another D: cudaErrorInvalidValue).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         void* lse, int B, int H, int L, int S, int D,
                         float scale, int bf16, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* lse_f = static_cast<float*>(lse);
   if (!bf16 && D == 128)
-    return launch_fwd_split3(q, k, v, o, lse_f, B, H, L, S, scale, s);
+    return launch_fwd_split3<128>(q, k, v, o, lse_f, B, H, L, S, scale, s);
+  if (!bf16 && D == 256)
+    return launch_fwd_split3<256>(q, k, v, o, lse_f, B, H, L, S, scale, s);
   if (bf16 && D == 128)
     return launch_fwd_sm90<128>(q, k, v, o, lse_f, B, H, L, S, scale, s);
   if (bf16 && D == 256)
@@ -1613,8 +1821,11 @@ int flash_attention_dq(const void* q, const void* k, const void* v,
   auto* l = static_cast<const float*>(lse);
   auto* dl = static_cast<const float*>(delta);
   if (!bf16 && D == 128)
-    return launch_dq_split3(q, k, v, dout, l, dl, dq, B, H, L, S, scale,
-                            s);
+    return launch_dq_split3<128>(q, k, v, dout, l, dl, dq, B, H, L, S, scale,
+                                 s);
+  if (!bf16 && D == 256)
+    return launch_dq_split3<256>(q, k, v, dout, l, dl, dq, B, H, L, S, scale,
+                                 s);
   if (bf16 && D == 128)
     return launch_dq_sm90<128>(q, k, v, dout, l, dl, dq, B, H, L, S, scale,
                                s);
@@ -1633,8 +1844,11 @@ int flash_attention_dkv(const void* q, const void* k, const void* v,
   auto* l = static_cast<const float*>(lse);
   auto* dl = static_cast<const float*>(delta);
   if (!bf16 && D == 128)
-    return launch_dkv_split3(q, k, v, dout, l, dl, dk, dv, B, H, L, S, scale,
-                             s);
+    return launch_dkv_split3<128>(q, k, v, dout, l, dl, dk, dv, B, H, L, S,
+                                  scale, s);
+  if (!bf16 && D == 256)
+    return launch_dkv_split3<256>(q, k, v, dout, l, dl, dk, dv, B, H, L, S,
+                                  scale, s);
   if (bf16 && D == 128)
     return launch_dkv_sm90<128>(q, k, v, dout, l, dl, dk, dv, B, H, L, S,
                                 scale, s);

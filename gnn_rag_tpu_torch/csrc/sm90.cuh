@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks in PTX: TMA tile loads, mbarriers,
-// warpgroup matrix multiply (wgmma) and register reallocation (setmaxnreg),
-// plus the host-side tensor-map encoder, for the port's hand-written
-// kernels. Header only; every function is inline.
+// thread block clusters (a peer block's shared memory, its mbarriers, the
+// cluster barrier), warpgroup matrix multiply (wgmma) and register
+// reallocation (setmaxnreg), plus the host-side tensor-map encoder, for the
+// port's hand-written kernels. Header only; every function is inline.
 //
 // Shared-memory tiles are bf16 rows of 64 columns (128 bytes) written by TMA
 // with the 128-byte swizzle, or by threads in the same layout (16-byte chunk
@@ -65,6 +66,69 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ---------------------------------------------------------------- clusters
+// Thread block clusters: the blocks of a cluster run on neighbouring SMs at
+// the same time and reach each other's shared memory through the
+// shared::cluster window (mapa gives a peer's address of a variable).
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster (release, then acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// the shared::cluster address of `p` (in this block's shared memory) in the
+// shared memory of the cluster's block `rank`; an offset within a block's
+// shared memory adds to it as to a local address
+__device__ __forceinline__ uint32_t map_peer(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// arrive on an mbarrier of another block of the cluster (a map_peer
+// address), releasing this thread's earlier writes at cluster scope
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          bar)
+      : "memory");
+}
+
+// mbar_wait for a phase that another block's threads complete: acquire at
+// cluster scope, so their writes before arriving are visible after it
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done)
         : "r"(addr), "r"(parity)

@@ -19,12 +19,13 @@ backward's float p and ds as two bf16 terms, hi + mid, within 2^-16 of each
 product). float32 inputs run all three kernels on the tensor cores too,
 each float as three bf16 terms and each product as six bf16 products
 (within ~2^-23 of it: the TPU's float32 dots at Precision.HIGHEST do the
-same); all sums are float. The kernels take head dim D = 128 in both
-types and D = 256 in bfloat16 (``HEAD_DIMS``; the scale is then 1/16,
-exact), and any L and S (a ragged last tile is masked in the kernel; the
-JAX wrapper pads L to 128 instead). The JAX model sends every D % 128 == 0
-in any type to its Pallas kernels: float32 at D 256, D 384 and up, and
-float16 are not ported yet and raise here.
+same); all sums are float. The kernels take head dim D = 128 and D = 256
+in both types (``HEAD_DIMS``; at 256 the scale is 1/16, exact, and the
+float32 kernels split the depth over a cluster of two blocks, each on 128
+columns, whose half-depth scores are added once), and any L and S (a
+ragged last tile is masked in the kernel; the JAX wrapper pads L to 128
+instead). The JAX model sends every D % 128 == 0 in any type to its Pallas
+kernels: D 384 and up, and float16, are not ported yet and raise here.
 
 Dispatch: CPU tensors take the plain versions (``flash_fwd_plain``,
 ``flash_dq_plain``, ``flash_dkv_plain``: dense attention and the
@@ -46,7 +47,7 @@ from ..utils import build as _build
 NEG_INF = -1e30
 # the head dims the kernels take, by input type (any other shape or type
 # raises; ``llm.model.flash_applies`` sends those to plain attention)
-HEAD_DIMS = {torch.float32: (128,), torch.bfloat16: (128, 256)}
+HEAD_DIMS = {torch.float32: (128, 256), torch.bfloat16: (128, 256)}
 
 # launches of the CUDA kernels (plain-version calls are not counted)
 fwd_launches = 0      # flash_fwd
@@ -143,7 +144,7 @@ def _check(q, k, v, *more):
     B, L, H, D = q.shape
     if D not in HEAD_DIMS.get(q.dtype, ()):
         raise ValueError(f"flash_attention: the kernels take head dim 128 "
-                         f"in float32 or bfloat16 and 256 in bfloat16, got "
+                         f"or 256 in float32 or bfloat16, got "
                          f"{tuple(q.shape)} {q.dtype}")
     S = k.shape[1]
     for name, t, shape in (("k", k, (B, S, H, D)), ("v", v, (B, S, H, D)),

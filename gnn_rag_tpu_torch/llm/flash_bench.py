@@ -16,9 +16,16 @@ phase of ``--phases`` (default all three):
   cores' peak), its share of the bound and the achieved TFLOP/s, and each
   output's largest ratio to its tolerance against the plain versions (dq,
   dk and dv also from the plain forward's lse and delta, the same inputs
-  in both trees); then head dim 256 in bf16 at Gemma-2B's 8 heads, B2 and
-  B8 L2047 (``D256_SHAPES``), the same way, in a tree whose kernels take
-  it (another tree's row says it does not);
+  in both trees); then head dim 256 at Gemma-2B's 8 heads, in bf16 at B2
+  and B8 L2047 (``D256_SHAPES``) and in float32 at B2 L2047 (the
+  Gemma-2B-width float32 SFT step's shape, ``D256_FP32_SHAPE``), the same
+  way, in a tree whose kernels take it (another tree's row says it does
+  not), beside the float32 kernels at head dim 128 over the same blocks of
+  the same work (``D128_SAME_BLOCKS``: what the head-dim-256 kernels' pairs
+  of blocks cost beyond it); and ``sass``, a digest of each flash kernel's
+  machine code (its SASS instructions, addresses and encodings stripped,
+  keyed by kernel and head dim), so that two trees' kernels can be told
+  identical;
 - ``gate``: the gate-scatter kernels of ``ops.gate_scatter``: the v4
   forward K1 (both directions) at every row of chip_smoke's
   ``KERNEL_SHAPES`` and the skewed WebQSP layout ``SKEWED``; the v4
@@ -64,6 +71,12 @@ PHASES = ("flash", "gate", "steps")
 SHAPE = (8, 2047, 32, 128)         # B, L, H, D of the SFT step's attention
 # bf16 at head dim 256: the Gemma-2B-width SFT step's attention (B2) and B8
 D256_SHAPES = ((2, 2047, 8, 256), (8, 2047, 8, 256))
+# float32 at head dim 256: the float32 Gemma-2B-width SFT step's attention
+D256_FP32_SHAPE = (2, 2047, 8, 256)
+# the float32 kernels at head dim 128 over the blocks of that shape: B2
+# L2047 H16 gives as many blocks as the head-dim-256 row's pairs, each of
+# the same work (128 columns), without the exchange between the two
+D128_SAME_BLOCKS = (2, 2047, 16, 128)
 TIMING = dict(runs=10, reps=5, warmup=2)
 # the flash kernels' timing by type: the float32 ones take ~5-25 ms a launch
 FLASH_TIMING = {"bfloat16": TIMING, "float32": dict(runs=5, reps=2, warmup=1)}
@@ -106,12 +119,25 @@ def measure(tree, phases, data):
         out["flash"] = {dtype: measure_flash(smoke, device, dtype, timing)
                         for dtype, timing in FLASH_TIMING.items()}
         from gnn_rag_tpu_torch.llm import flash_attention as fa
-        takes = 256 in getattr(fa, "HEAD_DIMS", {}).get(torch.bfloat16, ())
+
+        def takes(dtype):
+            return 256 in getattr(fa, "HEAD_DIMS", {}).get(dtype, ())
+
+        missing = "not taken by this tree's kernels"
         out["flash_d256"] = {
             f"B{shape[0]}": (measure_flash(smoke, device, "bfloat16", TIMING,
-                                           shape) if takes
-                             else "not taken by this tree's kernels")
+                                           shape)
+                             if takes(torch.bfloat16) else missing)
             for shape in D256_SHAPES}
+        out["flash_d256_fp32"] = {
+            f"B{D256_FP32_SHAPE[0]}": (
+                measure_flash(smoke, device, "float32",
+                              FLASH_TIMING["float32"], D256_FP32_SHAPE)
+                if takes(torch.float32) else missing),
+            "d128_same_blocks": measure_flash(
+                smoke, device, "float32", FLASH_TIMING["float32"],
+                D128_SAME_BLOCKS)}
+        out["sass"] = sass_digests(fa.build())
     if "gate" in phases:
         out["gate_scatter"] = measure_gate(smoke, device)
     if "steps" in phases:
@@ -121,6 +147,33 @@ def measure(tree, phases, data):
                          text=True).stdout.strip().splitlines()
     print(json.dumps(dict(tree=os.path.relpath(tree, REPO), card=smi[:1],
                           **out)), flush=True)
+
+
+def sass_digests(lib):
+    """{kernel<head dim>: sha256 of its SASS instructions} of a flash
+    library (``cuobjdump -sass``; addresses, encodings and the file's
+    namespace hash stripped; a kernel that is no template counts as head
+    dim 128)."""
+    import hashlib
+    import re
+
+    from gnn_rag_tpu_torch.utils import build
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib], check=True,
+                          capture_output=True, text=True).stdout
+    digests, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"(flash_(?:fwd|dq|dkv)_(?:sm90|split3)_kernel)"
+                          r"(?:ILi(\d+)E)?", line)
+            name = f"{m.group(1)}<{m.group(2) or 128}>" if m else None
+            if name:
+                digests[name] = hashlib.sha256()
+        elif name:
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?);", line)
+            if m:
+                digests[name].update(m.group(1).encode())
+    return {k: h.hexdigest()[:16] for k, h in sorted(digests.items())}
 
 
 def measure_flash(smoke, device, dtype, timing, shape=SHAPE):

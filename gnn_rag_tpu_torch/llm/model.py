@@ -115,8 +115,8 @@ def apply_rope(x, cos, sin):
 def flash_applies(use_flash: bool, head_dim: int, dtype: torch.dtype,
                   device_type: str, cached: bool, masked: bool) -> bool:
     """Whether attention over q of ``head_dim``, ``dtype`` on
-    ``device_type`` runs the flash kernels: the kernels take head dim 128 in
-    float32 or bfloat16 and 256 in bfloat16 on the card
+    ``device_type`` runs the flash kernels: the kernels take head dim 128
+    or 256 in float32 or bfloat16 on the card
     (``flash_attention.HEAD_DIMS``), and neither a kv cache (``cached``) nor
     ``kv_valid`` (``masked``)."""
     return (use_flash and not cached and not masked and device_type == "cuda"

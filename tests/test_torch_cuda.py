@@ -3,8 +3,8 @@ gate-scatter forward and backward, the fused-projection forward and
 backward and scatter_mm (alone, at widths a block holds only in column
 windows, and in a ReaRev training step under GNN_RAG_GATE_SCATTER=v2),
 and the flash-attention forward, dq and dk/dv
-kernels (alone, through autograd, and in a LlamaLM; at head dim 128 in
-float32 and bf16, and at head dim 256 in bf16).
+kernels (alone, through autograd, and in a LlamaLM; at head dim 128 and
+256, each in float32 and bf16).
 
 Every test here needs an NVIDIA GPU (and nvcc for the first build) and skips
 without one. The file imports no JAX, so it runs on a machine without it:
@@ -788,16 +788,18 @@ def test_flash_kernels_match_plain(cuda, B, L, H, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,L,H", [
-    # head dim 256, bf16: one row, under one tile, one row past a 128-row
-    # block (and past dq's 32-key and dk/dv's 64-key tiles), ragged lengths,
-    # Gemma-2B's 8 heads at the SFT length
-    (1, 1, 2), (1, 63, 2), (1, 129, 2), (3, 77, 2), (2, 300, 8),
+    # head dim 256: one row, under one tile, one row past a 128-row block
+    # (and past dq's 32-key and dk/dv's 64-key tiles), one row past float32
+    # dq's 64-row block, ragged lengths, Gemma-2B's 8 heads at the SFT
+    # length (float32: a cluster of two blocks on each block of rows)
+    (1, 1, 2), (1, 63, 2), (1, 65, 2), (1, 129, 2), (3, 77, 2), (2, 300, 8),
     (1, 1000, 2), (2, 2047, 8)])
-def test_flash_d256_kernels_match_plain(cuda, B, L, H):
+def test_flash_d256_kernels_match_plain(cuda, B, L, H, dtype):
     g = torch.Generator(device=cuda).manual_seed(L)
     q, k, v, do = (torch.randn((B, L, H, 256), generator=g, device=cuda
-                               ).bfloat16() for _ in range(4))
+                               ).to(dtype) for _ in range(4))
     before = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
     o, lse = fa.flash_fwd(q, k, v)
     po, plse = fa.flash_fwd_plain(q, k, v)
@@ -842,8 +844,8 @@ def test_flash_autograd_and_checks(cuda):
         assert_rel(a, b.detach(), 1e-4, name)
     with pytest.raises(ValueError, match="head dim 128"):
         fa.flash_fwd(*(torch.zeros(1, 8, 1, 64, device=cuda),) * 3)
-    with pytest.raises(ValueError, match="256 in bfloat16"):
-        fa.flash_fwd(*(torch.zeros(1, 8, 1, 256, device=cuda),) * 3)
+    with pytest.raises(ValueError, match="128 or 256 in float32 or bfloat16"):
+        fa.flash_fwd(*(torch.zeros(1, 8, 1, 384, device=cuda),) * 3)
     x = torch.zeros(1, 8, 1, 128, device=cuda)
     with pytest.raises(ValueError, match="k must be"):
         fa.flash_fwd(x, x.half(), x)
@@ -918,7 +920,8 @@ def test_llama_d256_flash_vs_plain_attention(cuda):
     assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
         c + cfg.n_layers for c in n)
     want = run(use_flash=False)
-    fp32 = run(dtype="float32")          # float32 at 256: plain attention
+    # the yardstick stays off the float32 kernels under test elsewhere
+    fp32 = run(dtype="float32", use_flash=False)
     names = ["logits"] + [name for name, _ in model.named_parameters()]
     for name, a, b, r in zip(names, got, want, fp32):
         own = (b.float() - r).norm().item()
@@ -926,14 +929,47 @@ def test_llama_d256_flash_vs_plain_attention(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim,dtype", [(256, "float32"), (128, "float16"),
-                                            (256, "float16")])
+def test_llama_d256_fp32_flash_vs_plain_attention(cuda):
+    """A float32 LlamaLM at head dim 256 (Gemma-2B's heads: 8 of 256, one kv
+    head, tied embeddings; 2 layers) on the card: the flash path launches
+    one forward, one dq and one dk/dv per layer (the float32 kernels at
+    256), and its logits and every parameter's loss gradient are within
+    1e-4 of the largest entry (+ 1e-7) of the plain attention path's."""
+    cfg = LlamaConfig(vocab_size=300, dim=2048, n_layers=2, n_heads=8,
+                      n_kv_heads=1, intermediate=512, tie_embeddings=True,
+                      dtype="float32")
+    model = build_llama(cfg, seed=0, device=cuda)
+    tokens = torch.randint(3, 300, (2, 300), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+
+    def run(**changes):
+        m = build_llama(LlamaConfig(**{**cfg.__dict__, **changes}), seed=0,
+                        device=cuda)
+        m.load_state_dict(model.state_dict())
+        logits, _ = m(tokens)
+        logits.logsumexp(-1).mean().backward()
+        return [logits.detach()] + [p.grad for p in m.parameters()]
+
+    n = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    got = run()
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
+        c + cfg.n_layers for c in n)
+    want = run(use_flash=False)
+    names = ["logits"] + [name for name, _ in model.named_parameters()]
+    for name, a, b in zip(names, got, want):
+        err = (a - b).abs().max().item()
+        assert torch.isfinite(a).all() and err <= (
+            1e-4 * b.abs().max().item() + 1e-7), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,dtype", [(128, "float16"), (256, "float16")])
 def test_llama_shapes_the_kernels_refuse_run_reference_attention(
         cuda, head_dim, dtype):
-    """A LlamaLM whose attention the flash kernels do not take (head dim
-    256 in float32, or float16) runs on the card with no flash launch, through
-    reference_attention: its logits equal the same model's with
-    use_flash=False."""
+    """A LlamaLM whose attention the flash kernels do not take (float16)
+    runs on the card with no flash launch, through reference_attention:
+    its logits equal the same model's with use_flash=False."""
     cfg = LlamaConfig(vocab_size=300, dim=2 * head_dim, n_layers=2, n_heads=2,
                       n_kv_heads=1, intermediate=384, dtype=dtype)
     model = build_llama(cfg, seed=0, device=cuda)

@@ -1,9 +1,9 @@
 """Head dim 256 in the LLM reader against the JAX package on the CPU.
 
-The port's flash kernels take head dim 256 in bfloat16 on the card; their
-plain versions (what a CPU tensor runs, and the card check's yardstick)
-and a LlamaLM at Gemma-2B's head dim are held here to the JAX package on
-the same numpy inputs. Tolerances:
+The port's flash kernels take head dim 256 in float32 and bfloat16 on the
+card; their plain versions (what a CPU tensor runs, and the card check's
+yardstick) and a LlamaLM at Gemma-2B's head dim are held here to the JAX
+package on the same numpy inputs. Tolerances:
 
 * plain flash versions vs the Pallas kernels in interpret mode (B1 L256 H2
   D256): float32 o and lse 2e-4, dq/dk/dv 5e-4 (the D 128 test's: the two

@@ -4,8 +4,13 @@ On the card the float32 forward, dq and dk/dv kernels feed every float
 operand x to the bf16 tensor cores as three terms, x1 = bf16(x), x2 =
 bf16(x - x1), x3 = bf16(x - x1 - x2), and form x y as the six term
 products whose indices add up to at most 4, the small ones first, summed
-in float32 (csrc/flash_attention.cu, ``a_term`` / ``b_term``). Emulated
-here with the same inputs from a numpy seed at (1, 300, 2, 128) float32:
+in float32 (csrc/flash_attention.cu, ``a_term`` / ``b_term``). At head dim
+256 a cluster of two blocks splits the depth: each block forms the six
+products over its 128 columns from zero, and the two half-depth scores (s,
+dp) are added once. Emulated here with the same inputs from a numpy seed
+at (1, 300, 2, D) float32, D 128 and 256, in the kernels' tiles (the
+forward's online softmax over 64-key tiles, dq's 32-key tiles, dk/dv's
+32-row tiles, each tile's product added to a float32 accumulator):
 
 * each product, in float64, is within 2^-21 sum |x y| of the exact one (the
   dropped x2y3, x3y2 and x3y3 are within ~2^-23 |x y|);
@@ -27,7 +32,9 @@ from gnn_rag_tpu_torch.llm import flash_attention as fa
 # (term of the left operand, term of the right one) in the order the
 # kernels run them: the small products first
 PAIRS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
-SHAPE = (1, 300, 2, 128)
+SHAPE = (1, 300, 2)               # B, L, H; then D
+HALF = 128                        # the columns a block of the cluster owns
+FWD_KEYS, DQ_KEYS, DKV_ROWS = 64, 32, 32     # the kernels' tiles
 
 
 def terms(x):
@@ -48,65 +55,102 @@ def product(eq, x, y, dtype=torch.float32):
     return out
 
 
-def inputs(seed):
+def inputs(seed, D):
     rng = np.random.default_rng(seed)
-    return [torch.from_numpy(rng.standard_normal(SHAPE).astype(np.float32))
-            for _ in range(4)]
+    return [torch.from_numpy(rng.standard_normal((*SHAPE, D))
+                             .astype(np.float32)) for _ in range(4)]
+
+
+def scores(eq, x, y, products):
+    """A score product (s, s^T, dp, dp^T: the depth summed) as the kernels
+    form it: six term products over each block's 128 columns from zero, the
+    half-depth partials (one at D 128, two at 256) added once; each
+    half-depth product goes into ``products``."""
+    out = None
+    for c in range(0, x.shape[-1], HALF):
+        xc, yc = x[..., c:c + HALF], y[..., c:c + HALF]
+        products.append((eq, xc, yc))
+        part = product(eq, xc, yc)
+        out = part if out is None else out + part
+    return out
+
+
+def tiled(eq, x, y, axis_x, axis_y, size, products):
+    """An output product (o, dq, dk, dv: keys or query rows summed) over
+    tiles of ``size`` along the summed axis (``axis_x`` of x, ``axis_y`` of
+    y), each tile's six term products added to a float32 accumulator in
+    tile order."""
+    products.append((eq, x, y))
+    out = 0
+    for i in range(0, x.shape[axis_x], size):
+        out = out + product(eq, x.narrow(axis_x, i, min(size, x.shape[axis_x] - i)),
+                            y.narrow(axis_y, i, min(size, y.shape[axis_y] - i)))
+    return out
 
 
 def forward_split3(q, k, v):
     """(o, lse, products): the forward with s = q k^T and o = p v as term
-    products; ``products`` lists each (einsum, x, y) it formed."""
+    products, the online softmax over 64-key tiles; ``products`` lists each
+    (einsum, x, y) it formed."""
     B, L, H, D = q.shape
-    s = product("blhd,bshd->bhls", q, k) / math.sqrt(D)
+    products = []
+    s = scores("blhd,bshd->bhls", q, k, products) / math.sqrt(D)
     keep = torch.arange(L)[None, :] <= torch.arange(L)[:, None]
     s = s.masked_fill(~keep, fa.NEG_INF)
-    m = s.amax(-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(-1, keepdim=True)
-    o = product("bhls,bshd->bhld", p, v) / l
-    products = (("blhd,bshd->bhls", q, k), ("bhls,bshd->bhld", p, v))
-    return (o.transpose(1, 2), (m + torch.log(l)).reshape(B * H, L),
-            products)
+    m = torch.full((B, H, L, 1), fa.NEG_INF)
+    l = torch.zeros((B, H, L, 1))
+    o = torch.zeros((B, H, L, D))
+    ps = []
+    for k0 in range(0, L, FWD_KEYS):
+        st = s[..., k0:k0 + FWD_KEYS]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + product("bhls,bshd->bhld", p, v[:, k0:k0 + FWD_KEYS])
+        m = m_new
+        ps.append(torch.exp(st - m_new))
+    products.append(("bhls,bshd->bhld", torch.cat(ps, -1), v))
+    return (o.transpose(1, 2) / l.transpose(1, 2),
+            (m + torch.log(l)).reshape(B * H, L), products)
 
 
 def dkv_split3(q, k, v, dout, lse, delta):
     """(dk, dv, products): s^T = k q^T, dp^T = v dO^T, dv = p^T dO and
-    dk = ds^T q as term products, k and v the left operands as in the
-    kernel."""
+    dk = ds^T q as term products over 32-row tiles, k and v the left
+    operands as in the kernel."""
     B, L, H, D = q.shape
     scale = 1 / math.sqrt(D)
-    st = product("bshd,blhd->bhsl", k, q) * scale
+    products = []
+    st = scores("bshd,blhd->bhsl", k, q, products) * scale
     keep = torch.arange(L)[:, None] <= torch.arange(L)[None, :]
     pt = torch.exp(st - lse.reshape(B, H, 1, L)) * keep
-    dpt = product("bshd,blhd->bhsl", v, dout)
+    dpt = scores("bshd,blhd->bhsl", v, dout, products)
     dst = pt * (dpt - delta.reshape(B, H, 1, L)) * scale
-    dv = product("bhsl,blhd->bshd", pt, dout)
-    dk = product("bhsl,blhd->bshd", dst, q)
-    products = (("bshd,blhd->bhsl", k, q), ("bshd,blhd->bhsl", v, dout),
-                ("bhsl,blhd->bshd", pt, dout), ("bhsl,blhd->bshd", dst, q))
+    dv = tiled("bhsl,blhd->bshd", pt, dout, 3, 1, DKV_ROWS, products)
+    dk = tiled("bhsl,blhd->bshd", dst, q, 3, 1, DKV_ROWS, products)
     return dk, dv, products
 
 
 def dq_split3(q, k, v, dout, lse, delta):
     """(dq, products): s = q k^T, dp = dO v^T and dq = ds k as term
-    products, q, dO and ds the left operands as in the kernel."""
+    products over 32-key tiles, q, dO and ds the left operands as in the
+    kernel."""
     B, L, H, D = q.shape
     scale = 1 / math.sqrt(D)
-    s = product("blhd,bshd->bhls", q, k) * scale
+    products = []
+    s = scores("blhd,bshd->bhls", q, k, products) * scale
     keep = torch.arange(L)[None, :] <= torch.arange(L)[:, None]
     p = torch.exp(s - lse.reshape(B, H, L, 1)) * keep
-    dp = product("blhd,bshd->bhls", dout, v)
+    dp = scores("blhd,bshd->bhls", dout, v, products)
     ds = p * (dp - delta.reshape(B, H, L, 1)) * scale
-    dq = product("bhls,bshd->blhd", ds, k)
-    products = (("blhd,bshd->bhls", q, k), ("blhd,bshd->bhls", dout, v),
-                ("bhls,bshd->blhd", ds, k))
+    dq = tiled("bhls,bshd->blhd", ds, k, 3, 1, DQ_KEYS, products)
     return dq, products
 
 
-def run(kernel, seed=5):
+def run(kernel, D, seed=5):
     """(emulated outputs, plain outputs, products) of one kernel."""
-    q, k, v, g = inputs(seed)
+    q, k, v, g = inputs(seed, D)
     po, plse = fa.flash_fwd_plain(q, k, v)
     if kernel == "fwd":
         o, lse, products = forward_split3(q, k, v)
@@ -119,11 +163,12 @@ def run(kernel, seed=5):
     return (dk, dv), fa.flash_dkv_plain(q, k, v, g, plse, delta), products
 
 
+@pytest.mark.parametrize("D", [128, 256])
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
-def test_six_term_products_keep_float32(kernel):
+def test_six_term_products_keep_float32(kernel, D):
     """Each product of the kernel, formed from the three-term split in
     float64, is within 2^-21 sum |x y| of the exact float64 product."""
-    _, _, products = run(kernel)
+    _, _, products = run(kernel, D)
     for eq, x, y in products:
         got = product(eq, x, y, torch.float64)
         exact = torch.einsum(eq, x.double(), y.double())
@@ -131,11 +176,12 @@ def test_six_term_products_keep_float32(kernel):
         assert bool(((got - exact).abs() <= 2 ** -21 * size).all()), eq
 
 
+@pytest.mark.parametrize("D", [128, 256])
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
-def test_split3_outputs_within_a_tenth_of_the_card_tolerance(kernel):
+def test_split3_outputs_within_a_tenth_of_the_card_tolerance(kernel, D):
     """The emulated kernel's outputs against the plain version's: within
     0.1 x 1e-4 of max|plain| (the card check holds the kernel to 1e-4)."""
-    got, want, _ = run(kernel)
+    got, want, _ = run(kernel, D)
     for a, b in zip(got, want):
         assert a.shape == b.shape and a.dtype == b.dtype == torch.float32
         err = (a - b).abs().max().item()
