@@ -106,9 +106,14 @@ The LLM reader (the flash-attention kernels K5a-c):
      bf16 tensor-core passes, beside the float-core bound) and its TFLOP/s;
      the same for the bf16 kernels at head dim 256 (Gemma-2B's 8 heads):
      B2 L2047 (the step-time-llm-d256 step's shape) and B8 L2047, timed,
-     and B2 L1000, B1 L129; and for the float32 kernels at head dim 256
+     and B2 L1000, B1 L129; for the float32 kernels at head dim 256
      (clusters of two blocks, one a column half): B2 L2047, timed, B2
-     L1000, B1 L129 and B1 L65;
+     L1000, B1 L129 and B1 L65; and for the float16 kernels (f16_tol) at
+     B8 L2047 H32 D128 and B2 L2047 H8 D256, timed with SDPA's float16
+     forward and backward, B2 L1000 and B1 L129 at both head dims, the
+     backward against the plain backward fed the kernels' own lse and
+     delta (the plain forward's: reported), at B2 L1000 also with the
+     cotangent x 2^-16 and x 2^4 (F16_G_SCALES);
   8. sft: the RoG joint-finetune SFT (scripts/train_sft.sh) through the
      port's entry (`python -m gnn_rag_tpu_torch.llm.sft`, run in this
      process) at LLaMA2-7B width cut to 4 of 32 layers, random weights from
@@ -163,7 +168,19 @@ The LLM reader (the flash-attention kernels K5a-c):
      forward's token log-probs and the first step's loss against plain
      attention (1e-4 of max|plain|; 1e-5 relative), and every parameter
      gradient of a 2-layer model at these widths (1e-4 of the largest
-     entry + 1e-7).
+     entry + 1e-7);
+  11e. step-time-llm-f16: the SFT computing in float16 (F16_FLAGS:
+     LLaMA2-7B width cut to 4 layers, B8 x 2048) through the port's entry,
+     F16_STEPS steps: flash launches exact (4 of each a step: the float16
+     kernels at head dim 128), no plain flash call, the largest |dO| the
+     flash backward received; ms a step, positions/s, peak GB, each float16
+     kernel's device ms in a profiled step; the first step's loss and token
+     log-probs kernel vs plain attention, and every parameter gradient of a
+     B2 batch on a 2-layer model, kernels vs plain (within twice the plain
+     float16 path's own distance from float32);
+  11f. step-time-llm-d256-f16: the same at Gemma-2B's attention widths
+     (D256_F16_FLAGS, cut to 6 of 18 layers, B2 x 2048): the float16
+     kernels at head dim 256.
 The reader at LLaMA2-7B widths and the full 32 layers (after the SFT
 trainer is freed):
   12. lora: LoRA finetuning (``llm.lora.LoRATrainer``: r 8, alpha 16 on
@@ -206,17 +223,19 @@ LATENCY_PASSES = 4
 TRAIN_STEPS = 20
 PALLAS = "gnn_rag_tpu/ops/pallas_mp.py"
 # the flash kernels on wgmma, each with the SASS opcodes it must hold: the
-# bf16 ones load by TMA, the float32 ones (three bf16 terms a float,
-# converted by a warpgroup from plain loads) do not (all six are templates
-# on the head dim: their instances by mangled name, <128> and <256>)
-SM90_KERNELS = {**{f"flash_{k}_sm90_kernelILi{d}E": ("HGMMA", "UTMALDG")
-                   for k in ("fwd", "dq", "dkv") for d in (128, 256)},
+# bf16 and float16 ones load by TMA, the float32 ones (three bf16 terms a
+# float, converted by a warpgroup from plain loads) do not (the 16-bit ones
+# are templates on the element type and the head dim, the float32 ones on
+# the head dim: their instances by mangled name, <128> and <256>)
+SM90_KERNELS = {**{f"flash_{k}_sm90_kernelI{t}Li{d}E": ("HGMMA", "UTMALDG")
+                   for k in ("fwd", "dq", "dkv") for d in (128, 256)
+                   for t in ("13__nv_bfloat16", "6__half")},
                 **{f"flash_{k}_split3_kernelILi{d}E": ("HGMMA",)
                    for k in ("fwd", "dq", "dkv") for d in (128, 256)}}
 FLASH = "gnn_rag_tpu/llm_tpu/flash_attention.py"
 # the card's published peaks (H100 SXM data sheet, dense): float32 outside
-# the tensor cores and bf16 tensor cores
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# the tensor cores, bf16 and float16 tensor cores
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 # float32 work at float32 accuracy on the tensor cores: six bf16 products a
 # product (three bf16 terms a float; the TPU's Precision.HIGHEST, bf16_6x)
 FP32_PASSES = 6
@@ -251,8 +270,9 @@ SPEC_GAMMA = 4
 # in bf16 at Gemma-2B's 8 heads: the step-time-llm-d256 step's B2 (and B8)
 # L2047, B2 L1000, B1 L129; and in float32 (clusters of two blocks, one a
 # column half): the step-time-llm-d256-fp32 step's B2 L2047, B2 L1000, B1
-# L129 and B1 L65 (one row past dq's 64-row block). Rows at L 2047 are
-# timed
+# L129 and B1 L65 (one row past dq's 64-row block); and float16 at both
+# head dims, at the shapes of its bf16 rows (the float16 SFT steps' B8
+# L2047 H32 D128 and B2 L2047 H8 D256). Rows at L 2047 are timed
 ATTN_SHAPES = (("sft_b8_l2047_bf16", 8, SFT_SEQ - 1, 32, 128, "bfloat16"),
                ("sft_b8_l2047_fp32", 8, SFT_SEQ - 1, 32, 128, "float32"),
                ("ragged_b2_l1000_bf16", 2, 1000, 32, 128, "bfloat16"),
@@ -266,7 +286,18 @@ ATTN_SHAPES = (("sft_b8_l2047_bf16", 8, SFT_SEQ - 1, 32, 128, "bfloat16"),
                ("gemma_b2_l2047_d256_fp32", 2, SFT_SEQ - 1, 8, 256, "float32"),
                ("ragged_b2_l1000_d256_fp32", 2, 1000, 8, 256, "float32"),
                ("ragged_b1_l129_d256_fp32", 1, 129, 8, 256, "float32"),
-               ("ragged_b1_l65_d256_fp32", 1, 65, 8, 256, "float32"))
+               ("ragged_b1_l65_d256_fp32", 1, 65, 8, 256, "float32"),
+               ("sft_b8_l2047_f16", 8, SFT_SEQ - 1, 32, 128, "float16"),
+               ("ragged_b2_l1000_f16", 2, 1000, 32, 128, "float16"),
+               ("ragged_b1_l129_f16", 1, 129, 32, 128, "float16"),
+               ("gemma_b2_l2047_d256_f16", 2, SFT_SEQ - 1, 8, 256, "float16"),
+               ("ragged_b2_l1000_d256_f16", 2, 1000, 8, 256, "float16"),
+               ("ragged_b1_l129_d256_f16", 1, 129, 8, 256, "float16"))
+# the float16 rows whose backward also runs with the cotangent scaled: far
+# under float16's normal range (an unscaled split of ds would round it to
+# 0) and large
+F16_G_SCALES = {"ragged_b2_l1000_f16": (2.0 ** -16, 2.0 ** 4),
+                "ragged_b2_l1000_d256_f16": (2.0 ** -16, 2.0 ** 4)}
 # the SFT step at Gemma-2B's widths (google/gemma-2b config.json: hidden
 # 2048, 8 heads of 256, one kv head, intermediate 16384, 18 layers, vocab
 # 256000, tied embeddings) on the repo's LLaMA block (SwiGLU, RMSNorm,
@@ -293,6 +324,23 @@ D256_FP32_LAYERS = 6
 D256_FP32_FLAGS = [{"--n_layers": str(D256_FP32_LAYERS),
                     "--dtype": "float32"}.get(flag, x)
                    for flag, x in zip([None, *D256_FLAGS], D256_FLAGS)]
+# the SFT computing in float16 (LLaMA-2-7B's published weights are float16;
+# the reference's HF readers default to --dtype fp16), every attention on
+# the float16 flash kernels: at LLaMA2-7B width cut to 4 of 32 layers as the
+# bf16 SFT phase is (B8 x 2048), and at Gemma-2B's attention widths cut to
+# 6 of 18 layers (B2 x 2048) to spare the run's time limit; F16_STEPS steps
+# through the entry point each, then D256_TIMED timed and one profiled
+F16_STEPS = 3
+F16_FLAGS = [{"--total_steps": str(F16_STEPS),
+              "--save_every": str(F16_STEPS)}.get(flag, x)
+             for flag, x in zip([None, *SFT_FLAGS], SFT_FLAGS)
+             ] + ["--dtype", "float16"]
+D256_F16_LAYERS = 6
+D256_F16_FLAGS = [{"--n_layers": str(D256_F16_LAYERS),
+                   "--dtype": "float16"}.get(flag, x)
+                  for flag, x in zip([None, *D256_FLAGS], D256_FLAGS)]
+# layers of the float16 phases' gradient check (B2, kernels vs plain)
+F16_GRAD_LAYERS = 2
 # scripts/rearev_webqsp.sh with the reference's training defaults
 HEADLINE_FLAGS = ["ReaRev", "--entity_dim", "50", "--num_iter", "3",
                   "--num_ins", "2", "--num_gnn", "3", "--lm", "sbert",
@@ -1951,15 +1999,16 @@ def attn_flops(B, L, H, D):
 
 def attn_bounds(B, L, H, D, dtype, float_cores=False):
     """Bound of each flash kernel: its operations (``attn_flops``) on the
-    tensor cores, float32 as FP32_PASSES bf16 passes (the least work that
-    keeps float32 accuracy there), each [B, L, H, D] tensor and [B*H, L]
-    statistic read or written once. ``float_cores``: float32 at the float
-    cores' peak instead (the bound of a kernel on the CUDA cores)."""
+    tensor cores (bf16 and float16 at their one rate), float32 as
+    FP32_PASSES bf16 passes (the least work that keeps float32 accuracy
+    there), each [B, L, H, D] tensor and [B*H, L] statistic read or written
+    once. ``float_cores``: float32 at the float cores' peak instead (the
+    bound of a kernel on the CUDA cores)."""
     flops = attn_flops(B, L, H, D)
     x = B * L * H * D * (4 if dtype == "float32" else 2)
     st = B * H * L * 4
     nbytes = {"fwd": 4 * x + st, "dq": 5 * x + 2 * st, "dkv": 6 * x + 2 * st}
-    if dtype == "bfloat16" or float_cores:
+    if dtype != "float32" or float_cores:
         return {k: bound(flops[k], nbytes[k], dtype) for k in flops}
     out = {}
     for k in flops:
@@ -2019,7 +2068,7 @@ def reset_attn_counts():
 def attn_err(a, b):
     """(max|a - b|, max|b|, the largest ratio of |a - b| to its tolerance)
     of one flash output against its plain version. Float32 outputs (every
-    fp32 one, and lse in both types) to 1e-4 of max|b|: the online softmax
+    fp32 one, and lse in every type) to 1e-4 of max|b|: the online softmax
     rescales in another order than the two-pass softmax. bf16 outputs
     ``[B, L, H, D]`` per element to 2^-7 |b| + 1e-2 rms_row(b) +
     1e-3 rms(b): the float results differ by a few float roundings, so
@@ -2029,11 +2078,13 @@ def attn_err(a, b):
     row's rms (rms_row over D; a query's output row is ~30x larger when it
     averages one key than 2047 keys), carried into the backward by lse
     and delta; the last term covers rows whose exact value is 0 (the first
-    query's dq) and hold float noise."""
+    query's dq) and hold float noise. float16 outputs to ``f16_tol``, the
+    same form at float16's step."""
     import torch
     d = (a.float() - b.float()).abs()
     bf = b.float().abs()
-    tol = 1e-4 * bf.max() if a.dtype == torch.float32 else bf16_tol(b)
+    tol = (1e-4 * bf.max() if a.dtype == torch.float32 else
+           f16_tol(b) if a.dtype == torch.float16 else bf16_tol(b))
     return d.max().item(), bf.max().item(), (d / tol).max().item()
 
 
@@ -2049,12 +2100,35 @@ def bf16_tol(b, steps=1):
             + 1e-3 * sq.mean().sqrt())
 
 
+def f16_tol(b):
+    """Per-element tolerance of a float16 flash output ``b``: bf16_tol's
+    form at float16's step, whose p rounds 8x finer: one float16 step
+    (2^-10 |b|) + 1.25e-3 rms over the last axis + 1.25e-4 rms(b), plus
+    one subnormal step (2^-24: the small cotangent's gradients lie there)."""
+    sq = b.float().square()
+    return (2 ** -10 * sq.sqrt() + 1.25e-3 * sq.mean(-1, keepdim=True).sqrt()
+            + 1.25e-4 * sq.mean().sqrt() + 2 ** -24)
+
+
+def flash_kernel_name(kind, dtype, hd):
+    """The profiler's (demangled) name of a flash kernel instance, as a
+    substring: the bf16 and float16 kernels are templates on the element
+    type and the head dim, the float32 ones on the head dim."""
+    if dtype == "float32":
+        return f"flash_{kind}_split3_kernel<{hd}>"
+    elem = {"bfloat16": "__nv_bfloat16", "float16": "__half"}[dtype]
+    return f"flash_{kind}_sm90_kernel<{elem}, {hd}>"
+
+
 def check_attn_kernels(device):
     """Phase kernel-attn: forward, dq and dk/dv kernels against their plain
     versions at ATTN_SHAPES (the plain backward fed the plain forward's lse
-    and delta, so a wrong lse shows in the gradients too), two backward
-    launches bit-identical; CUDA-event medians of kernel, plain and SDPA at
-    the SFT shapes (L 2047)."""
+    and delta, so a wrong lse shows in the gradients too; float16: fed the
+    kernels' own, the plain forward's errors reported), two backward
+    launches bit-identical; at the F16_G_SCALES rows the backward again with
+    the cotangent scaled, against the plain versions fed the same (the
+    small one's gradients nonzero); CUDA-event medians of kernel, plain and
+    SDPA at the SFT shapes (L 2047)."""
     import torch
     import torch.nn.functional as F
     from gnn_rag_tpu_torch.llm import flash_attention as fa
@@ -2074,7 +2148,21 @@ def check_attn_kernels(device):
         pdelta = fa.bwd_delta(po, g)
         want = (po, plse, fa.flash_dq_plain(q, k, v, g, plse, pdelta),
                 *fa.flash_dkv_plain(q, k, v, g, plse, pdelta))
-        del po, plse, pdelta
+        del pdelta
+        row = dict(shape=name, B=B, L=L, H=H, D=D, dtype=dtype)
+        if dtype == "float16":
+            # float16: the backward kernels are held to the plain backward on
+            # their own inputs (the kernels' lse and delta); the gradients
+            # from the plain forward's are reported, not held: p rounds to
+            # float16 at 8x bf16's density of rounding points, so exp2f and
+            # exp flip some p's last bit, and delta carries o's difference
+            # into dq and dk of rows of few keys whose own values are small
+            # (PERF.md §6, the float16 kernels)
+            row["err_from_plain_forward_over_tol"] = {
+                part: attn_err(a, b)[2]
+                for part, a, b in zip(("dq", "dk", "dv"), got[2:], want[2:])}
+            want = (*want[:2], fa.flash_dq_plain(q, k, v, g, lse, delta),
+                    *fa.flash_dkv_plain(q, k, v, g, lse, delta))
         torch.cuda.synchronize()
         errs = {}
         for part, a, b in zip(("o", "lse", "dq", "dk", "dv"), got, want):
@@ -2085,11 +2173,29 @@ def check_attn_kernels(device):
                            f"{errs[part][1]}, {errs[part][2]} x tolerance")
         if not all(torch.equal(a, b) for a, b in zip(got[2:], again)):
             bad.append(f"{name}: flash backward not bit-repeatable")
-        row = dict(shape=name, B=B, L=L, H=H, D=D, dtype=dtype,
-                   err_ref_over_tol_by_output=errs)
+        row["err_ref_over_tol_by_output"] = errs
+        for scale in F16_G_SCALES.get(name, ()):
+            gs = (g.float() * scale).to(g.dtype)
+            delta_s = fa.bwd_delta(o, gs)
+            gots = (fa.flash_dq(q, k, v, gs, lse, delta_s),
+                    *fa.flash_dkv(q, k, v, gs, lse, delta_s))
+            wants = (fa.flash_dq_plain(q, k, v, gs, lse, delta_s),
+                     *fa.flash_dkv_plain(q, k, v, gs, lse, delta_s))
+            torch.cuda.synchronize()
+            errs_s = {}
+            for part, a, b in zip(("dq", "dk", "dv"), gots, wants):
+                errs_s[part] = attn_err(a, b)
+                if not (torch.isfinite(a).all() and errs_s[part][2] <= 1
+                        and (scale > 1 or a.float().abs().max() > 0)):
+                    bad.append(f"{name} dO x {scale} {part}: max|d| "
+                               f"{errs_s[part][0]}, max|ref| {errs_s[part][1]}, "
+                               f"{errs_s[part][2]} x tolerance")
+            row.setdefault("g_scaled_err_ref_over_tol_by_output", {})[
+                f"{scale:g}"] = errs_s
+            del gs, wants, delta_s, gots
         if L == SFT_SEQ - 1:
-            # sub-millisecond bf16 kernels get more launches per median
-            timing = (dict(runs=10, reps=5, warmup=2) if dtype == "bfloat16"
+            # sub-millisecond 16-bit kernels get more launches per median
+            timing = (dict(runs=10, reps=5, warmup=2) if dtype != "float32"
                       else dict(runs=5, reps=2, warmup=1))
             bounds = attn_bounds(B, L, H, D, dtype)
             row["bound_ms"] = {k_: b_[0] for k_, b_ in bounds.items()}
@@ -2130,7 +2236,7 @@ def check_attn_kernels(device):
             del qt, kt, vt, out
         log("kernel-attn", json.dumps(row))
         rows.append(row)
-        del q, k, v, g, o, lse, delta, got, again, want
+        del q, k, v, g, o, lse, delta, got, again, want, po, plse
         torch.cuda.empty_cache()
     if bad:
         raise AssertionError("flash kernels vs plain: " + "; ".join(bad))
@@ -2763,20 +2869,16 @@ def kernel_vs_plain(model, fn):
     return kernel, plain, fp32, (kernel - plain).norm().item() / max(own, 1e-30)
 
 
-def sft_d256_step_time(device, root, prompts):
-    """Phase step-time-llm-d256: the SFT at Gemma-2B's attention widths
-    (D256_FLAGS) through the port's entry (``python -m
-    gnn_rag_tpu_torch.llm.sft``, run in this process) over the SFT phase's
-    data, D256_STEPS steps at B2 x 2048 with exact flash launch counts (one
-    forward, one dq and one dk/dv a layer and step, every one at head dim
-    256) and no plain flash call; then ms a step over
-    D256_TIMED steps on the first step's batch (CUDA events), positions/s,
-    peak GB, one profiled step (each flash kernel's device ms); one no-cache
-    scoring forward of the trained model (a test prompt's token
-    log-probabilities: K5a, a launch a layer) against plain attention; and,
-    with the trainer freed, the first step's loss against the same step's
-    with the kernels swapped for their plain versions (the model rebuilt
-    from the seed on the first step's batch)."""
+def sft_entry_step_time(device, root, flags, phase):
+    """The SFT through the port's entry (``python -m gnn_rag_tpu_torch.llm.
+    sft``, run in this process) over the SFT phase's data with ``flags``,
+    counted: its steps' flash launches (one forward, one dq and one dk/dv a
+    layer and step, or it raises), no plain flash call, finite losses, the
+    largest |dO| each flash backward received (``flash_dout_max``); then ms
+    a step over D256_TIMED steps on the first step's batch (CUDA events),
+    positions/s, peak GB and one profiled step (each flash kernel's device
+    ms and launches: n_layers of each, at the run's type and head dim).
+    Returns (trainer, summary, the first step's tokens and mask)."""
     import shutil
 
     import numpy as np
@@ -2785,33 +2887,34 @@ def sft_d256_step_time(device, root, prompts):
 
     from gnn_rag_tpu_torch.finetune.data_prep import load_multiple_datasets
     from gnn_rag_tpu_torch.llm import sft
-    from gnn_rag_tpu_torch.llm.model import build_llama
     from gnn_rag_tpu_torch.llm.tokenizers import ByteTokenizer
     t0 = time.perf_counter()
     train_path = os.path.join(root, "train_qa.jsonl")
-    out_dir = os.path.join(root, "sft_d256")
+    out_dir = os.path.join(root, phase)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    # ---- the main path, counted: the SFT entry point at Gemma-2B width ----
+    # ---- the main path, counted: the SFT entry point ----
     reset_attn_counts()
-    with plain_attn_calls() as plain:
+    with plain_attn_calls() as plain, flash_dout_max() as dout_max:
         trainer, losses = sft.main(["--data", train_path, "--output_dir",
-                                    out_dir, *D256_FLAGS])
+                                    out_dir, *flags])
         torch.cuda.synchronize()
     launches, plain_calls = attn_counts(), plain[0]
+    dout_max = torch.stack(dout_max) if dout_max else torch.zeros(1)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     wall = time.perf_counter() - t0
-    shutil.rmtree(out_dir)                 # the ~10 GB checkpoint
-    cfg = trainer.model.cfg
-    n_params = sum(p.numel() for p in trainer.model.parameters())
-    n = cfg.n_layers
-    want = (n * D256_STEPS,) * 3
-    if (cfg.head_dim != 256 or len(losses) != D256_STEPS or launches != want
-            or plain_calls or not np.isfinite(losses).all()):
-        raise AssertionError(f"d256 SFT: head dim {cfg.head_dim}, losses "
-                             f"{losses}, flash launches {launches} (want "
-                             f"{want}), plain attention calls {plain_calls}")
+    shutil.rmtree(out_dir)                 # the checkpoint
+    cfg, steps = trainer.model.cfg, trainer.cfg.total_steps
+    n, batch = cfg.n_layers, trainer.cfg.batch_size
+    want = (n * steps,) * 3
+    if (cfg.head_dim not in (128, 256) or len(losses) != steps
+            or launches != want or plain_calls
+            or not np.isfinite(losses).all()):
+        raise AssertionError(f"{phase}: head dim {cfg.head_dim} {cfg.dtype}, "
+                             f"losses {losses}, flash launches {launches} "
+                             f"(want {want}), plain attention calls "
+                             f"{plain_calls}")
     # the first step's batch, as the entry point packed and drew it
     tok = ByteTokenizer()
     data = load_multiple_datasets([train_path], shuffle=True, seed=SEED)
@@ -2843,17 +2946,68 @@ def sft_d256_step_time(device, root, prompts):
     flash = {name: [sum(e.self_device_time_total for e in dev
                         if kernel in e.key) / 1e3,
                     sum(e.count for e in dev if kernel in e.key)]
-             for name, kernel in (("fwd", "flash_fwd_sm90_kernel<256>"),
-                                  ("dq", "flash_dq_sm90_kernel<256>"),
-                                  ("dkv", "flash_dkv_sm90_kernel<256>"))}
+             for name, kernel in (
+                 (k, flash_kernel_name(k, cfg.dtype, cfg.head_dim))
+                 for k in ("fwd", "dq", "dkv"))}
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
-    steps = D256_TIMED + 1
-    if (timed_launches != (n * steps,) * 3
+    if (timed_launches != (n * (D256_TIMED + 1),) * 3
             or [flash[k][1] for k in ("fwd", "dq", "dkv")] != [n] * 3):
-        raise AssertionError(f"d256 timed steps: flash launches "
+        raise AssertionError(f"{phase} timed steps: flash launches "
                              f"{timed_launches}, profiled {flash}")
     for p in trainer.params:
         p.grad = None
+    summary = dict(
+        layers=n, dim=cfg.dim, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, intermediate=cfg.intermediate,
+        vocab=cfg.vocab_size, dtype=cfg.dtype, batch=batch, seq=SFT_SEQ,
+        params=sum(p.numel() for p in trainer.model.parameters()),
+        losses=losses, flash_launches_fwd_dq_dkv=launches,
+        plain_attention_calls=plain_calls,
+        flash_bwd_dout_absmax_max_min_calls=[
+            dout_max.max().item(), dout_max.min().item(), len(dout_max)],
+        entry_wall_s=wall, peak_gb=peak_gb, ms_per_step=ms,
+        steps_timed=D256_TIMED,
+        positions_per_s=1e3 * batch * (SFT_SEQ - 1) / ms,
+        profiled_step_device_ms=dev_ms, flash_device_ms_launches=flash,
+        flash_share=sum(v[0] for v in flash.values()) / dev_ms
+        if dev_ms else "not measured",
+        timed_flash_launches=timed_launches,
+        top_device_ops=[[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                        for e in top])
+    return trainer, summary, btok, bmsk
+
+
+def first_loss_vs_plain(cfg, device, btok, bmsk):
+    """(first loss with the kernels, with plain attention) of the model
+    rebuilt from the seed on the first step's batch."""
+    import torch
+
+    from gnn_rag_tpu_torch.llm import sft
+    from gnn_rag_tpu_torch.llm.model import build_llama
+    init = build_llama(cfg, seed=SEED, device=device)
+    with torch.no_grad():
+        kernel = sft.completion_loss(init, btok, bmsk).item()
+        plain = swapped_to_plain_attn(
+            lambda: sft.completion_loss(init, btok, bmsk)).item()
+    return init, kernel, plain
+
+
+def sft_d256_step_time(device, root, prompts):
+    """Phase step-time-llm-d256: the SFT at Gemma-2B's attention widths
+    (D256_FLAGS, bf16) through the port's entry (``sft_entry_step_time``:
+    D256_STEPS steps at B2 x 2048, the flash launches at head dim 256, ms a
+    step, one profiled step); one no-cache scoring forward of the trained
+    model (a test prompt's token log-probabilities: K5a, a launch a layer)
+    against plain attention; and, with the trainer freed, the first step's
+    loss against the same step's with the kernels swapped for their plain
+    versions (the model rebuilt from the seed on the first step's batch)."""
+    import torch
+    t0 = time.perf_counter()
+    trainer, summary, btok, bmsk = sft_entry_step_time(
+        device, root, D256_FLAGS, "sft_d256")
+    losses, cfg, n = summary["losses"], trainer.model.cfg, summary["layers"]
+    if cfg.head_dim != 256:
+        raise AssertionError(f"d256 SFT: head dim {cfg.head_dim}")
 
     # ---- a no-cache scoring forward of the trained model ----
     model = trainer.model.eval()
@@ -2873,30 +3027,13 @@ def sft_d256_step_time(device, root, prompts):
     torch.cuda.empty_cache()
 
     # ---- the first step's loss, kernels against plain attention ----
-    init = build_llama(cfg, seed=SEED, device=device)
-    with torch.no_grad():
-        first_kernel = sft.completion_loss(init, btok, bmsk).item()
-        first_plain = swapped_to_plain_attn(
-            lambda: sft.completion_loss(init, btok, bmsk)).item()
+    init, first_kernel, first_plain = first_loss_vs_plain(cfg, device, btok,
+                                                          bmsk)
     nll_ratio = kernel_vs_plain(init, lambda m: token_logprobs(m, btok))[3]
     del init
     gc.collect()
     torch.cuda.empty_cache()
-    summary = dict(
-        layers=n, dim=cfg.dim, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.head_dim, intermediate=cfg.intermediate,
-        vocab=cfg.vocab_size, batch=2, seq=SFT_SEQ,
-        params=n_params,
-        losses=losses, flash_launches_fwd_dq_dkv=launches,
-        plain_attention_calls=plain_calls, entry_wall_s=wall,
-        peak_gb=peak_gb, ms_per_step=ms, steps_timed=D256_TIMED,
-        positions_per_s=1e3 * 2 * (SFT_SEQ - 1) / ms,
-        profiled_step_device_ms=dev_ms, flash_device_ms_launches=flash,
-        flash_share=sum(v[0] for v in flash.values()) / dev_ms
-        if dev_ms else "not measured",
-        timed_flash_launches=timed_launches,
-        top_device_ops=[[e.key[:60], e.self_device_time_total / 1e3, e.count]
-                        for e in top],
+    summary.update(
         scoring_tokens=int(prompt.shape[1]),
         scoring_flash_launches=score_launches,
         scoring_kernel_vs_plain_over_plain_vs_fp32=score_ratio,
@@ -2920,98 +3057,28 @@ def sft_d256_step_time(device, root, prompts):
 def sft_d256_fp32_step_time(device, root, prompts):
     """Phase step-time-llm-d256-fp32: the SFT at Gemma-2B's attention
     widths computing in float32 (D256_FP32_FLAGS: cut to D256_FP32_LAYERS
-    layers) through the port's entry, run in this process, over the SFT
-    phase's data: D256_STEPS steps at B2 x 2048 with exact flash launch
-    counts (one forward, one dq and one dk/dv a layer and step: the float32
-    kernels at head dim 256) and no plain flash call; ms a step over
-    D256_TIMED steps on the first step's batch (CUDA events), positions/s,
-    peak GB, one profiled step (each float32 <256> kernel's device ms and
-    launches); a no-cache scoring forward's token log-probabilities (K5a, a
-    launch a layer) against plain attention within 1e-4 of max|plain|;
-    with the trainer freed, the first step's loss, kernels and plain
-    attention, each within 1e-5 of the entry's; and every parameter
-    gradient of that batch on a 2-layer model at these widths, kernels
-    against plain attention (1e-4 of the largest entry + 1e-7, as
-    check_llm_grads)."""
+    layers) through the port's entry (``sft_entry_step_time``: D256_STEPS
+    steps at B2 x 2048, the float32 flash kernels at head dim 256, ms a
+    step, one profiled step); a no-cache scoring forward's token
+    log-probabilities (K5a, a launch a layer) against plain attention
+    within 1e-4 of max|plain|; with the trainer freed, the first step's
+    loss, kernels and plain attention, each within 1e-5 of the entry's; and
+    every parameter gradient of that batch on a 2-layer model at these
+    widths, kernels against plain attention (1e-4 of the largest entry +
+    1e-7, as check_llm_grads)."""
     import dataclasses
-    import shutil
 
-    import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from gnn_rag_tpu_torch.finetune.data_prep import load_multiple_datasets
     from gnn_rag_tpu_torch.llm import sft
     from gnn_rag_tpu_torch.llm.model import build_llama
-    from gnn_rag_tpu_torch.llm.tokenizers import ByteTokenizer
     t0 = time.perf_counter()
-    train_path = os.path.join(root, "train_qa.jsonl")
-    out_dir = os.path.join(root, "sft_d256_fp32")
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    # ---- the main path, counted: the SFT entry point, float32 at 256 ----
-    reset_attn_counts()
-    with plain_attn_calls() as plain:
-        trainer, losses = sft.main(["--data", train_path, "--output_dir",
-                                    out_dir, *D256_FP32_FLAGS])
-        torch.cuda.synchronize()
-    launches, plain_calls = attn_counts(), plain[0]
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    wall = time.perf_counter() - t0
-    shutil.rmtree(out_dir)                 # the ~5 GB checkpoint
-    cfg = trainer.model.cfg
-    n_params = sum(p.numel() for p in trainer.model.parameters())
-    n = cfg.n_layers
-    want = (n * D256_STEPS,) * 3
-    if (cfg.head_dim != 256 or cfg.dtype != "float32"
-            or len(losses) != D256_STEPS or launches != want or plain_calls
-            or not np.isfinite(losses).all()):
+    trainer, summary, btok, bmsk = sft_entry_step_time(
+        device, root, D256_FP32_FLAGS, "sft_d256_fp32")
+    losses, cfg, n = summary["losses"], trainer.model.cfg, summary["layers"]
+    if cfg.head_dim != 256 or cfg.dtype != "float32":
         raise AssertionError(f"d256 fp32 SFT: head dim {cfg.head_dim} "
-                             f"{cfg.dtype}, losses {losses}, flash launches "
-                             f"{launches} (want {want}), plain attention "
-                             f"calls {plain_calls}")
-    tok = ByteTokenizer()
-    data = load_multiple_datasets([train_path], shuffle=True, seed=SEED)
-    tokens, mask = sft.pack_examples(
-        [d["text"] for d in data], tok.encode,
-        tok.encode(sft.RESPONSE_TEMPLATE, add_bos=False), SFT_SEQ, tok.pad_id)
-    idx = trainer._batch_indices(len(tokens), 0)
-    btok = torch.from_numpy(tokens[idx]).to(device)
-    bmsk = torch.from_numpy(mask[idx]).to(device)
-
-    # ---- step time, and one profiled step ----
-    reset_attn_counts()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(D256_TIMED):
-        trainer.train_step(btok, bmsk)
-    end.record()
-    end.synchronize()
-    ms = start.elapsed_time(end) / D256_TIMED
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        trainer.train_step(btok, bmsk)
-        torch.cuda.synchronize()
-    timed_launches = attn_counts()
-    dev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
-           and e.self_device_time_total > 0]
-    dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    flash = {name: [sum(e.self_device_time_total for e in dev
-                        if kernel in e.key) / 1e3,
-                    sum(e.count for e in dev if kernel in e.key)]
-             for name, kernel in (("fwd", "flash_fwd_split3_kernel<256>"),
-                                  ("dq", "flash_dq_split3_kernel<256>"),
-                                  ("dkv", "flash_dkv_split3_kernel<256>"))}
-    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
-    steps = D256_TIMED + 1
-    if (timed_launches != (n * steps,) * 3
-            or [flash[k][1] for k in ("fwd", "dq", "dkv")] != [n] * 3):
-        raise AssertionError(f"d256 fp32 timed steps: flash launches "
-                             f"{timed_launches}, profiled {flash}")
-    for p in trainer.params:
-        p.grad = None
+                             f"{cfg.dtype}")
 
     # ---- a no-cache scoring forward of the trained model ----
     model = trainer.model.eval()
@@ -3032,11 +3099,8 @@ def sft_d256_fp32_step_time(device, root, prompts):
                              f"max|plain| {score_err}")
 
     # ---- the first step's loss, kernels against plain attention ----
-    init = build_llama(cfg, seed=SEED, device=device)
-    with torch.no_grad():
-        first_kernel = sft.completion_loss(init, btok, bmsk).item()
-        first_plain = swapped_to_plain_attn(
-            lambda: sft.completion_loss(init, btok, bmsk)).item()
+    init, first_kernel, first_plain = first_loss_vs_plain(cfg, device, btok,
+                                                          bmsk)
     del init
     gc.collect()
     torch.cuda.empty_cache()
@@ -3067,20 +3131,7 @@ def sft_d256_fp32_step_time(device, root, prompts):
     del two, got, plain_grads
     gc.collect()
     torch.cuda.empty_cache()
-    summary = dict(
-        layers=n, dim=cfg.dim, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.head_dim, intermediate=cfg.intermediate,
-        vocab=cfg.vocab_size, dtype=cfg.dtype, batch=2, seq=SFT_SEQ,
-        params=n_params, losses=losses, flash_launches_fwd_dq_dkv=launches,
-        plain_attention_calls=plain_calls, entry_wall_s=wall,
-        peak_gb=peak_gb, ms_per_step=ms, steps_timed=D256_TIMED,
-        positions_per_s=1e3 * 2 * (SFT_SEQ - 1) / ms,
-        profiled_step_device_ms=dev_ms, flash_device_ms_launches=flash,
-        flash_share=sum(v[0] for v in flash.values()) / dev_ms
-        if dev_ms else "not measured",
-        timed_flash_launches=timed_launches,
-        top_device_ops=[[e.key[:60], e.self_device_time_total / 1e3, e.count]
-                        for e in top],
+    summary.update(
         scoring_tokens=int(prompt.shape[1]),
         scoring_flash_launches=score_launches,
         scoring_max_err_and_max_plain=score_err,
@@ -3096,6 +3147,113 @@ def sft_d256_fp32_step_time(device, root, prompts):
                              f"kernel {first_kernel}, plain {first_plain}; "
                              f"gradient launches {grad_launches}; "
                              + "; ".join(bad))
+    return summary
+
+
+@contextlib.contextmanager
+def flash_dout_max():
+    """Records, in the list it yields, the largest |dO| of every call of
+    ``flash_dq`` inside the block (a device scalar each: no sync), so that a
+    step shows how small the cotangent that reaches the flash backward is."""
+    from gnn_rag_tpu_torch.llm import flash_attention as fa
+    real, seen = fa.flash_dq, []
+
+    def recorded(q, k, v, dout, lse, delta):
+        seen.append(dout.detach().abs().amax().float())
+        return real(q, k, v, dout, lse, delta)
+
+    fa.flash_dq = recorded
+    try:
+        yield seen
+    finally:
+        fa.flash_dq = real
+
+
+def sft_f16_step_time(device, root, flags, phase):
+    """Phases step-time-llm-f16 (F16_FLAGS: LLaMA2-7B width, 4 layers, B8)
+    and step-time-llm-d256-f16 (D256_F16_FLAGS: Gemma-2B's attention
+    widths, 6 layers, B2): the SFT computing in float16 through the port's
+    entry (``sft_entry_step_time``: F16_STEPS steps, the float16 kernels'
+    launches exact, the largest |dO| each flash backward received, ms a
+    step, one profiled step); with the trainer freed, the first step's
+    loss, kernels and plain attention, against the entry's (kernels 1e-5
+    relative: the same forward; plain 1e-3: float16 attention rounded at
+    other points, averaged over the batch's masked positions) and the token
+    log-probs kernel vs plain within twice plain's own distance from
+    float32 (``kernel_vs_plain``); and every parameter gradient of one B2
+    batch on an F16_GRAD_LAYERS-layer model at the run's widths, kernels vs
+    plain attention, each within twice the plain float16 gradient's own
+    distance from the float32 one (as the bf16 gradient check)."""
+    import dataclasses
+
+    import torch
+
+    from gnn_rag_tpu_torch.llm import sft
+    from gnn_rag_tpu_torch.llm.model import build_llama
+    t0 = time.perf_counter()
+    trainer, summary, btok, bmsk = sft_entry_step_time(device, root, flags,
+                                                       phase)
+    losses, cfg = summary["losses"], trainer.model.cfg
+    if cfg.dtype != "float16":
+        raise AssertionError(f"{phase}: {cfg.dtype}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the first step's loss, kernels against plain attention ----
+    init, first_kernel, first_plain = first_loss_vs_plain(cfg, device, btok,
+                                                          bmsk)
+    nll_ratio = kernel_vs_plain(init, lambda m: token_logprobs(m, btok))[3]
+    del init
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- every gradient of one B2 batch, kernels against plain ----
+    few = build_llama(dataclasses.replace(cfg, n_layers=F16_GRAD_LAYERS),
+                      seed=SEED, device=device)
+
+    def grads(model):
+        for p in model.parameters():
+            p.grad = None
+        sft.completion_loss(model, btok[:2], bmsk[:2]).backward()
+        return {name: p.grad for name, p in model.named_parameters()}
+
+    reset_attn_counts()
+    got = grads(few)
+    torch.cuda.synchronize()
+    grad_launches = attn_counts()
+    plain_grads = swapped_to_plain_attn(lambda: grads(few))
+    # the yardstick runs the plain versions, off the float32 kernels
+    fp32 = swapped_to_plain_attn(lambda: grads(as_dtype(few, "float32")))
+    ratios = {name: (got[name] - w).norm().item()
+              / max((w - fp32[name]).norm().item(), 1e-30)
+              for name, w in plain_grads.items()}
+    finite = all(torch.isfinite(g).all() for g in got.values())
+    worst = max(ratios, key=ratios.get)
+    del few, got, plain_grads, fp32
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary.update(
+        first_loss_entry_kernel_plain=[losses[0], first_kernel, first_plain],
+        first_nll_kernel_vs_plain_over_plain_vs_fp32=nll_ratio,
+        grad_layers=F16_GRAD_LAYERS, grad_batch=2,
+        grad_flash_launches=grad_launches, grads_finite=finite,
+        grad_worst_param=worst,
+        grad_worst_kernel_vs_plain_over_plain_vs_fp32=ratios[worst],
+        grad_median_ratio=sorted(ratios.values())[len(ratios) // 2],
+        wall_s=time.perf_counter() - t0)
+    log(phase, json.dumps(summary))
+    k = F16_GRAD_LAYERS
+    if not (abs(first_kernel - losses[0]) <= 1e-5 * abs(losses[0])
+            and abs(first_plain - losses[0]) <= 1e-3 * abs(losses[0])
+            and nll_ratio <= 2 and grad_launches == (k, k, k) and finite
+            and ratios[worst] <= 2):
+        raise AssertionError(f"{phase}: first loss entry {losses[0]}, kernel "
+                             f"{first_kernel}, plain {first_plain}; per-token "
+                             f"kernel vs plain {nll_ratio} x plain vs fp32; "
+                             f"gradient launches {grad_launches}, finite "
+                             f"{finite}, {worst} kernel vs plain "
+                             f"{ratios[worst]} x plain vs fp32")
     return summary
 
 
@@ -4062,6 +4220,11 @@ def main():
         d256 = sft_d256_step_time(device, os.path.join(root, "llm"), prompts)
         d256_fp32 = sft_d256_fp32_step_time(device, os.path.join(root, "llm"),
                                             prompts)
+        f16 = {"d128": sft_f16_step_time(device, os.path.join(root, "llm"),
+                                         F16_FLAGS, "step-time-llm-f16"),
+               "d256": sft_f16_step_time(device, os.path.join(root, "llm"),
+                                         D256_F16_FLAGS,
+                                         "step-time-llm-d256-f16")}
         _, reader_7b, lora_launches = run_lora(device, tokens, mask)
         run_serve_7b(device, reader_7b, os.path.join(root, "llm", "reader"),
                      prompts)
@@ -4231,7 +4394,8 @@ def main():
                {"sdpa_bwd_ms_dq_dk_dv_together": f32_row["sdpa_bwd_ms"]})})
     # the bf16 kernels at head dim 256 (the <256> instances), on the
     # step-time-llm-d256 path: timed at its own shape, B2 L2047 H8, and at B8
-    rows_d256 = {r["shape"]: r for r in attn_rows if r["D"] == 256}
+    rows_d256 = {r["shape"]: r for r in attn_rows
+                 if r["D"] == 256 and r["dtype"] == "bfloat16"}
     d_row, d8_row = (rows_d256["gemma_b2_l2047_d256_bf16"],
                      rows_d256["gemma_b8_l2047_d256_bf16"])
     for i, (name, key, line) in enumerate((
@@ -4241,7 +4405,7 @@ def main():
         parts = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}[key]
         kernels.append({
             "name": name, "route": "cuda",
-            "kernel": f"flash_{key}_sm90_kernel<256>",
+            "kernel": flash_kernel_name(key, "bfloat16", 256),
             "source": "gnn_rag_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"{FLASH}:{line}",
             "launches": d256["flash_launches_fwd_dq_dkv"][i],
@@ -4309,6 +4473,47 @@ def main():
                 **({"d256_fp32_scoring":
                     d256_fp32["scoring_flash_launches"][0]}
                    if key == "fwd" else {})}})
+    # the float16 kernels (the <__half, 128> and <__half, 256> instances) on
+    # the float16 SFT paths, timed at their steps' shapes
+    for hd, suffix, shape_name in ((128, "_f16", "sft_b8_l2047_f16"),
+                                   (256, "_d256_f16", "gemma_b2_l2047_d256_f16")):
+        rows_f16 = {r["shape"]: r for r in attn_rows
+                    if r["D"] == hd and r["dtype"] == "float16"}
+        h_row, run = rows_f16[shape_name], f16[f"d{hd}"]
+        for i, (key, line) in enumerate((("fwd", 47), ("dq", 132),
+                                         ("dkv", 170))):
+            parts = {"fwd": ("o", "lse"), "dq": ("dq",),
+                     "dkv": ("dk", "dv")}[key]
+            by_shape = {}
+            for shape, r in rows_f16.items():
+                by_shape[shape] = max(r["err_ref_over_tol_by_output"][p][2]
+                                      for p in parts)
+                for scale, errs in r.get(
+                        "g_scaled_err_ref_over_tol_by_output", {}).items():
+                    if key != "fwd":
+                        by_shape[f"{shape} dO x {scale}"] = max(
+                            errs[p][2] for p in parts)
+            kernels.append({
+                "name": f"flash_attention_{key}{suffix}", "route": "cuda",
+                "kernel": flash_kernel_name(key, "float16", hd),
+                "source": "gnn_rag_tpu_torch/csrc/flash_attention.cu",
+                "replaces": f"{FLASH}:{line}",
+                "launches": run["flash_launches_fwd_dq_dkv"][i],
+                "max_abs_err": max(h_row["err_ref_over_tol_by_output"][p][0]
+                                   for p in parts),
+                "ms": h_row["ms"][key], "plain_ms": h_row["plain_ms"][key],
+                "bound_ms": h_row["bound_ms"][key],
+                "bound_by": h_row["bound_by"][key],
+                "library_ms": h_row["sdpa_fwd_ms"] if key == "fwd" else None,
+                "bound_share": h_row["bound_share"][key],
+                "tflops": h_row["tflops"][key], "shape": h_row["shape"],
+                "max_err_over_tol_by_shape": by_shape,
+                "launches_by_path": {
+                    f"step_time_llm{suffix}": run["flash_launches_fwd_dq_dkv"][i],
+                    f"{suffix[1:]}_timed_steps": run["timed_flash_launches"][i],
+                    f"{suffix[1:]}_grads": run["grad_flash_launches"][i]},
+                **({} if key == "fwd" else
+                   {"sdpa_bwd_ms_dq_dk_dv_together": h_row["sdpa_bwd_ms"]})})
     log("total", f"wall {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

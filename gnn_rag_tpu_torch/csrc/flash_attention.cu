@@ -11,8 +11,8 @@
 //   o = (sum_k T(exp(s - m)) v) / l        (p rounded to v's type T before PV)
 //   p = exp(s - lse), dp = dO v^T, ds = p * (dp - delta) * scale,
 //   dq = ds k, dk = ds^T q, dv = p^T dO,   delta = rowsum(dO * o) (given).
-// Tensors keep the model's [B, N, H, D] layout (D = 128 or 256, in float32
-// and in bfloat16; the wrapper raises on any other D); lse and delta are
+// Tensors keep the model's [B, N, H, D] layout (D = 128 or 256, in float32,
+// bfloat16 and float16; the wrapper raises on any other D); lse and delta are
 // [B*H, L] float, stored once per row (the TPU kernel replicated them over
 // 128 lanes for its block shapes). All sums are float; every product is the
 // float product of the (widened) inputs, as in the TPU kernels
@@ -20,7 +20,8 @@
 // to within the splits below, except p in the forward, which is rounded to
 // T before it multiplies v.
 //
-// Two groups of kernels, chosen by the input type:
+// Two groups of kernels, chosen by the input type (the C entry points'
+// `dtype`: 0 float32, 1 bfloat16, 2 float16):
 //
 // float32 (flash_{fwd,dq,dkv}_split3_kernel), on the tensor cores as the
 // TPU's HIGHEST precision runs float32 dots (bf16_6x): every float operand
@@ -90,9 +91,13 @@
 //   peer to have read it, so no block exits while its peer may still
 //   reach its shared memory. Only rank 0 writes lse.
 //
-// bfloat16, on the tensor cores: Hopper's TMA and warpgroup wgmma (building
-// blocks in sm90.cuh), each kernel a template on the head dim (<128>,
-// <256>). A block is three warpgroups: a producer whose one thread keeps
+// bfloat16 and float16, on the tensor cores: Hopper's TMA and warpgroup
+// wgmma (building blocks in sm90.cuh), each kernel a template on the 16-bit
+// element type T and the head dim (<__nv_bfloat16, 128>, <__nv_bfloat16,
+// 256>, <__half, 128>, <__half, 256>; the two types take the same tiles,
+// descriptors, instruction shapes and rate, and differ only where the
+// float16 paragraph below says). A block is three warpgroups: a producer
+// whose one thread keeps
 // TMA loads in flight through a ring of shared-memory stages (full/empty
 // mbarriers, its registers given up with setmaxnreg), and two consumers
 // that own 64 rows each and run wgmma with float accumulators in
@@ -139,6 +144,31 @@
 // make dq 4 products where the function needs 3, and dk/dv 6 where it
 // needs 4.
 //
+// float16 (the <__half, HD> instances): q, k, v and dO as float16, whose
+// products are exact in float too. The forward rounds p to float16 with
+// no scale, to nearest with subnormals kept (cvt.rn.f16x2.f32, no .ftz):
+// JAX's p.astype(v.dtype) (flash_attention.py:79), whose p under 2^-25
+// vanishes as here. The backward forms p and ds in float, as JAX does from
+// its widened inputs (:144-147, :184-187), and splits them into float16
+// terms hi + mid: 11 bits each, 22 together, but float16's range ends at
+// 2^-14 (normal) and 2^-24 (subnormal), and an SFT step's ds (a loss
+// averaged over ~16k positions: |dO| ~ 1e-5 .. 1e-7) lies far below it.
+// So the split runs on exactly scaled values and the scale is undone on
+// the float accumulators at the store: p^T (dv's A operand) times 2^14
+// (p <= 1, so hi <= 2^14, 4x under 65504), ds (dq's and dk's) times 2^e
+// per accumulator row, e chosen from the data as the forward's online max
+// is: a tile row's max |ds| m sets 14 - floor(log2 m), the row keeps the
+// least e seen so far, and a drop rescales the row's accumulators by the
+// exact power of two 2^(new - old) (scale_ds_rows). So every scaled ds is
+// under 2^15 (no term overflows), every ds of 2^-60 m or more keeps 22
+// bits (|r| <= 2^-22 |x| + 2^-25 in the scaled units), and a cotangent as
+// small as float16 holds gives dq, dk and dv as exact as an ordinary one
+// (chip_smoke.py checks B2 L1000 with dO x 2^-16 and x 2^4;
+// tests/test_torch_flash_f16.py emulates the arithmetic on the CPU). The
+// cost: a quad max, a warp vote, a few integer operations and 16-32
+// multiplies a consumer thread and tile, and 64 more (128 for dq at 256) in
+// a tile where a row's scale falls, beside the same products as bf16.
+//
 // Every kernel: every sum runs in a fixed order (no atomics), so two
 // launches repeat bit for bit. Ragged edges (L or S not a multiple of the
 // tile) are masked in the kernel, not padded by the caller. Work per block
@@ -172,10 +202,13 @@
 // with the next tile's scores are the next steps.
 //
 // ptxas -v (CUDA 12.8, sm_90a; chip_smoke.py prints it on its build line):
-// the three bf16 Hopper kernels, <128> and <256> alike, 168 registers at
-// launch (384 threads, one block an SM; setmaxnreg then gives the consumers
-// 240 (forward, dq) and 232 (dk/dv), the producer 24 (forward, dq) and 40
-// (dk/dv));
+// the three 16-bit Hopper kernels, bf16 and float16, <128> and <256>
+// alike, 168 registers at launch (384 threads, one block an SM; setmaxnreg
+// then gives the consumers 240 (forward, dq) and 232 (dk/dv), the producer
+// 24 (forward, dq) and 40 (dk/dv)); for the bf16 dk/dv instances ptxas
+// reports their wgmma serialised for want of registers (C7512), not for
+// the float16 ones (at 256 the float16 dk/dv runs ~7% faster, at 128 the
+// two are within noise);
 // flash_fwd_split3_kernel 168 at launch (consumers 200, converter 104) at
 // both head dims, flash_dkv_split3_kernel 222 (<128>) and 244 (<256>),
 // flash_dq_split3_kernel 137 and 142; no spills, no stack frames.
@@ -193,6 +226,7 @@
 // two halves).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -213,6 +247,22 @@ __device__ __forceinline__ int64_t offset(int b, int row, int h, int N,
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// lo and hi rounded to nearest float16 (subnormals kept: cvt.rn without
+// .ftz) as a pair, low half first
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// a pair of floats as an A-register pair of the 16-bit type T
+template <typename T>
+__device__ __forceinline__ uint32_t pack16(float lo, float hi) {
+  if constexpr (sm90::is_f16<T>)
+    return pack_f16(lo, hi);
+  else
+    return pack_bf16(lo, hi);
 }
 
 // ------------------------------- bfloat16 on Hopper: TMA + wgmma, forward,
@@ -264,19 +314,86 @@ __device__ __forceinline__ uint64_t mn_step(int kk) {
   return (kk * 16 * ROW_BYTES) >> 4;
 }
 
-// x and y as bf16 pairs hi and mid with x = hi.x + mid.x + r, |r| <= 2^-16 |x|
+// x and y as pairs hi and mid of the 16-bit type T with x = hi.x + mid.x +
+// r: bf16, |r| <= 2^-16 |x|; float16 (for |x| < 2^15, as the scales below
+// keep it: no term overflows 65504), |r| <= 2^-22 |x| + 2^-25 (mid's
+// rounding, subnormals kept)
+template <typename T>
 __device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
                                        uint32_t& mid) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  mid = pack_bf16(x - hf.x, y - hf.y);
+  if constexpr (sm90::is_f16<T>) {
+    const __half2 h = __floats2half2_rn(x, y);
+    const float2 hf = __half22float2(h);
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    mid = pack_f16(x - hf.x, y - hf.y);
+  } else {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    const float2 hf = __bfloat1622float2(h);
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    mid = pack_bf16(x - hf.x, y - hf.y);
+  }
+}
+
+// Float16's exponent range (normal from 2^-14, subnormal down to 2^-24)
+// would lose the backward's small p and ds, so the float16 backward splits
+// p 2^P16_E and ds 2^e, both exact powers of two undone on the float
+// accumulators at the store (pow2). p <= 1 (to rounding) takes the fixed
+// 2^14 (4x headroom under 65504); ds takes a scale per accumulator row
+// (scale_ds_rows).
+constexpr int P16_E = 14;
+constexpr int DS16_E0 = 74;   // a row's scale before its first nonzero ds
+
+// 2^e as a float, e in [-126, 127]
+__device__ __forceinline__ float pow2(int e) {
+  return __uint_as_float(static_cast<uint32_t>(127 + e) << 23);
+}
+
+// The float16 backward's ds scale: a thread's ds values v (row (i / 2) & 1:
+// rows row and row + 8 of the 64-row tile, a row spread over the 4 threads
+// of a quad) times 2^e[r], where e[r] is the least over the row's tiles so
+// far of 14 - floor(log2 m), m the tile row's max |ds| clamped to [2^-60,
+// 2^60]: so |v| < 2^15 and every split term stays under 65504, and a ds of
+// 2^-60 m or more keeps its 22 bits. e[r] only falls (from DS16_E0), within
+// [-46, 74]; rescale[r] = 2^(new - old) >= 2^-120, by which the caller
+// multiplies the row's float accumulators, exactly, to keep them on the
+// row's scale (as the forward rescales o by alpha), when this returns true:
+// some row of the warp's changed its scale (a warp vote: after a row's
+// first tiles its scale seldom falls; with the rescale in every tile dq
+// took 1.47 ms at B8 L2047 H32 D128, with the vote 1.12-1.14, bf16 1.01-
+// 1.12 in the same runs on an H100 at 700 W). |ds| <= p |dp - delta| /
+// sqrt(D) < 2^38 for any finite float16 inputs at D 128 or 256 (|dp|,
+// |delta| <= D 65504^2), so the clamp at 2^60 never binds.
+template <int N>
+__device__ __forceinline__ bool scale_ds_rows(float (&v)[N], int (&e)[2],
+                                              float (&rescale)[2]) {
+  float mx[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    mx[(i / 2) & 1] = fmaxf(mx[(i / 2) & 1], fabsf(v[i]));
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    mx[r] = fminf(fmaxf(mx[r], 0x1p-60f), 0x1p60f);
+    const int en = min(
+        e[r], 14 - (static_cast<int>(__float_as_uint(mx[r]) >> 23) - 127));
+    rescale[r] = pow2(en - e[r]);
+    e[r] = en;
+  }
+  const float sc[2] = {pow2(e[0]), pow2(e[1])};
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] *= sc[(i / 2) & 1];
+  return __any_sync(0xffffffffu, rescale[0] != 1.f || rescale[1] != 1.f);
 }
 
 // a pair of adjacent output columns in the output type T
 __device__ __forceinline__ uint32_t pack_pair(const __nv_bfloat16*, float lo,
                                               float hi) {
   return pack_bf16(lo, hi);
+}
+__device__ __forceinline__ uint32_t pack_pair(const __half*, float lo,
+                                              float hi) {
+  return pack_f16(lo, hi);
 }
 __device__ __forceinline__ float2 pack_pair(const float*, float lo, float hi) {
   return make_float2(lo, hi);
@@ -339,16 +456,17 @@ static_assert(fwd_sm90_smem<256>() <= MAX_SMEM, "forward at HD 256");
 // forward, grid (ceil(L / FWD_ROWS), B*H): Q once, K and V tiles through the
 // ring; s = q k^T (m64n128k16 at HD 128, m64n64k16 at 256; both operands
 // K-major from shared memory), the online softmax on the accumulators (a
-// row spans the 4 threads of a quad), p rounded to bf16 into the A
-// registers of o += p v (m64n128k16 a 128-column half of o, v MN-major with
-// the transpose bit). Key tiles wholly below the block's rows run unmasked;
-// tiles past the diagonal are never loaded.
-template <int HD>
+// row spans the 4 threads of a quad), p rounded to T (bf16 or float16, no
+// scale: the rounding JAX makes) into the A registers of o += p v
+// (m64n128k16 a 128-column half of o, v MN-major with the transpose bit).
+// Key tiles wholly below the block's rows run unmasked; tiles past the
+// diagonal are never loaded.
+template <typename T, int HD>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
-                          __nv_bfloat16* __restrict__ o,
+                          T* __restrict__ o,
                           float* __restrict__ lse, int H, int L, int S,
                           float scale) {
   constexpr int KEYS = fwd_keys(HD);
@@ -421,8 +539,8 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      sm90::wgmma_ss(s, desc_q + k_step(Q_BOX, kk),
-                     desc_k + k_step(KV_BOX, kk), kk > 0);
+      sm90::wgmma_ss<T>(s, desc_q + k_step(Q_BOX, kk),
+                        desc_k + k_step(KV_BOX, kk), kk > 0);
     sm90::wgmma_commit();
     sm90::wgmma_wait();
     sm90::fence_regs(s);
@@ -457,7 +575,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[c][i] *= alpha[(i / 2) & 1];
     }
-    // p (float) into the row sums, p rounded to bf16 into the A registers
+    // p (float) into the row sums, p rounded to T into the A registers
     uint32_t pa[KEYS / 16][4];
 #pragma unroll
     for (int kk = 0; kk < KEYS / 16; ++kk)
@@ -467,7 +585,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
         const float p0 = exp2f(s[i] - m[half]), p1 = exp2f(s[i + 1] - m[half]);
         l[half] += p0;
         l[half] += p1;
-        pa[kk][r] = pack_bf16(p0, p1);
+        pa[kk][r] = pack16<T>(p0, p1);
       }
 
     const uint64_t desc_v = mn_major(vt, KV_BOX);
@@ -477,10 +595,10 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     for (int c = 0; c < HD / 128; ++c)
 #pragma unroll
       for (int kk = 0; kk < KEYS / 16; ++kk)
-        sm90::wgmma_m64n128k16_rs(acc[c], pa[kk],
-                                  desc_v + ((2 * c * KV_BOX) >> 4) +
-                                      mn_step(kk),
-                                  1);
+        sm90::wgmma_m64n128k16_rs<T>(acc[c], pa[kk],
+                                     desc_v + ((2 * c * KV_BOX) >> 4) +
+                                         mn_step(kk),
+                                     1);
     sm90::wgmma_commit();
     sm90::wgmma_wait();
 #pragma unroll
@@ -501,8 +619,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
   }
 #pragma unroll
   for (int c = 0; c < HD / 128; ++c)
-    store_acc_rows<__nv_bfloat16, HD>(o, b, h, L, H, row, t, acc[c], inv,
-                                      128 * c);
+    store_acc_rows<T, HD>(o, b, h, L, H, row, t, acc[c], inv, 128 * c);
 }
 
 constexpr int DKV_ROWS = 64;    // query rows per streamed tile
@@ -543,8 +660,9 @@ static_assert(dkv_sm90_smem<256>() <= MAX_SMEM, "dk/dv at HD 256");
 // query rows >= k0. s^T = k q^T and dp^T = v dO^T (m64n64k16, all K-major
 // from shared memory); p^T and ds^T in registers; dv += p^T dO and dk +=
 // ds^T q (m64n128k16 over the consumer's 128 columns, A from registers as
-// hi + mid bf16 terms, dO and q MN-major with the transpose bit).
-template <int HD>
+// hi + mid terms of T, dO and q MN-major with the transpose bit; float16:
+// the terms of p^T 2^P16_E and of ds^T on its rows' scales).
+template <typename T, int HD>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
     flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -552,9 +670,8 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
                           const __grid_constant__ CUtensorMap tg,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv, int H, int L, int S,
-                          float scale) {
+                          T* __restrict__ dk, T* __restrict__ dv, int H, int L,
+                          int S, float scale) {
   constexpr int KEYS = dkv_keys(HD), ST = dkv_stages(HD);
   constexpr int K_BOX = KEYS * ROW_BYTES, Q_BOX = DKV_ROWS * ROW_BYTES;
   constexpr int K_BYTES = HD / 64 * K_BOX, Q_BYTES = HD / 64 * Q_BOX;
@@ -625,6 +742,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
   float dk_acc[64], dv_acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  int ds_e[2] = {DS16_E0, DS16_E0};          // float16: ds^T's row scales
   sm90::mbar_wait(&bars->kv_full, 0);
 
   for (int j = 0; j < n_tiles; ++j) {
@@ -638,12 +756,12 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      sm90::wgmma_m64n64k16_ss(s, desc_k + k_step(K_BOX, kk),
-                               desc_q + k_step(Q_BOX, kk), kk > 0);
+      sm90::wgmma_m64n64k16_ss<T>(s, desc_k + k_step(K_BOX, kk),
+                                  desc_q + k_step(Q_BOX, kk), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      sm90::wgmma_m64n64k16_ss(dp, desc_v + k_step(K_BOX, kk),
-                               desc_g + k_step(Q_BOX, kk), kk > 0);
+      sm90::wgmma_m64n64k16_ss<T>(dp, desc_v + k_step(K_BOX, kk),
+                                  desc_g + k_step(Q_BOX, kk), kk > 0);
     sm90::wgmma_commit();
     sm90::wgmma_wait();
     sm90::fence_regs(s);
@@ -664,35 +782,49 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
       dp[i] = p * (dp[i] - stats->delta[st][c]) * scale;
       s[i] = p;
     }
+    if constexpr (sm90::is_f16<T>) {   // p^T 2^P16_E, ds^T on its row scales
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] *= pow2(P16_E);
+      float rescale[2];
+      if (scale_ds_rows(dp, ds_e, rescale)) {
+        sm90::fence_regs(dk_acc);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) dk_acc[i] *= rescale[(i / 2) & 1];
+      }
+    }
     uint32_t a_hi[DKV_ROWS / 16][4], a_mid[DKV_ROWS / 16][4];
 #pragma unroll
     for (int kk = 0; kk < DKV_ROWS / 16; ++kk)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        split2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], a_hi[kk][r],
-               a_mid[kk][r]);
+        split2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], a_hi[kk][r],
+                  a_mid[kk][r]);
     sm90::fence_regs(dv_acc);
     sm90::wgmma_fence();
     const uint64_t desc_gt = mn_major(gt + 2 * half * Q_BOX, Q_BOX);
 #pragma unroll
     for (int kk = 0; kk < DKV_ROWS / 16; ++kk) {
-      sm90::wgmma_m64n128k16_rs(dv_acc, a_hi[kk], desc_gt + mn_step(kk), 1);
-      sm90::wgmma_m64n128k16_rs(dv_acc, a_mid[kk], desc_gt + mn_step(kk), 1);
+      sm90::wgmma_m64n128k16_rs<T>(dv_acc, a_hi[kk], desc_gt + mn_step(kk),
+                                   1);
+      sm90::wgmma_m64n128k16_rs<T>(dv_acc, a_mid[kk], desc_gt + mn_step(kk),
+                                   1);
     }
     uint32_t d_hi[DKV_ROWS / 16][4], d_mid[DKV_ROWS / 16][4];
 #pragma unroll
     for (int kk = 0; kk < DKV_ROWS / 16; ++kk)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        split2(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1], d_hi[kk][r],
-               d_mid[kk][r]);
+        split2<T>(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1], d_hi[kk][r],
+                  d_mid[kk][r]);
     sm90::fence_regs(dk_acc);
     sm90::wgmma_fence();
     const uint64_t desc_qt = mn_major(qt + 2 * half * Q_BOX, Q_BOX);
 #pragma unroll
     for (int kk = 0; kk < DKV_ROWS / 16; ++kk) {
-      sm90::wgmma_m64n128k16_rs(dk_acc, d_hi[kk], desc_qt + mn_step(kk), 1);
-      sm90::wgmma_m64n128k16_rs(dk_acc, d_mid[kk], desc_qt + mn_step(kk), 1);
+      sm90::wgmma_m64n128k16_rs<T>(dk_acc, d_hi[kk], desc_qt + mn_step(kk),
+                                   1);
+      sm90::wgmma_m64n128k16_rs<T>(dk_acc, d_mid[kk], desc_qt + mn_step(kk),
+                                   1);
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait();
@@ -701,11 +833,16 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
   }
-  const float one[2] = {1.f, 1.f};
-  store_acc_rows<__nv_bfloat16, HD>(dk, b, h, S, H, key, t, dk_acc, one,
-                                    128 * half);
-  store_acc_rows<__nv_bfloat16, HD>(dv, b, h, S, H, key, t, dv_acc, one,
-                                    128 * half);
+  if constexpr (sm90::is_f16<T>) {   // the scales undone
+    const float dk_inv[2] = {pow2(-ds_e[0]), pow2(-ds_e[1])};
+    const float dv_inv[2] = {pow2(-P16_E), pow2(-P16_E)};
+    store_acc_rows<T, HD>(dk, b, h, S, H, key, t, dk_acc, dk_inv, 128 * half);
+    store_acc_rows<T, HD>(dv, b, h, S, H, key, t, dv_acc, dv_inv, 128 * half);
+  } else {
+    const float one[2] = {1.f, 1.f};
+    store_acc_rows<T, HD>(dk, b, h, S, H, key, t, dk_acc, one, 128 * half);
+    store_acc_rows<T, HD>(dv, b, h, S, H, key, t, dv_acc, one, 128 * half);
+  }
 }
 
 constexpr int DQ_ROWS = 128;   // query rows per block
@@ -732,13 +869,14 @@ static_assert(dq_sm90_smem<256>() <= MAX_SMEM, "dq at HD 256");
 // through the ring, for the keys <= the block's last row. s = q k^T and dp =
 // dO v^T (m64n64k16 at HD 128, m64n32k16 at 256; all K-major from shared
 // memory); p and ds in registers; dq += ds k (m64n128k16 a 128-column half
-// of dq, A from registers as hi + mid bf16 terms, k MN-major with the
-// transpose bit). lse and delta belong to the block's own rows, so each
+// of dq, A from registers as hi + mid terms of T (float16: of ds on its
+// rows' scales), k MN-major with the transpose bit). lse and delta belong
+// to the block's own rows, so each
 // consumer thread loads its two rows' values into registers once. A
 // consumer whose rows all lie before a tile's first key skips the tile's
 // products (it still waits for the tile, so its arrivals on the empty
 // barrier stay in step with the other consumer's).
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
     flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
@@ -746,7 +884,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
                          const __grid_constant__ CUtensorMap tg,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dq, int H, int L, int S,
+                         T* __restrict__ dq, int H, int L, int S,
                          float scale) {
   constexpr int KEYS = dq_keys(HD);
   constexpr int Q_BOX = DQ_ROWS * ROW_BYTES, KV_BOX = KEYS * ROW_BYTES;
@@ -817,6 +955,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
   for (int c = 0; c < HD / 128; ++c)
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[c][i] = 0.f;
+  int ds_e[2] = {DS16_E0, DS16_E0};          // float16: ds's row scales
   sm90::mbar_wait(&bars->qg_full, 0);
 
   for (int j = 0; j < n_tiles; ++j) {
@@ -833,12 +972,12 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
-        sm90::wgmma_ss(s, desc_q + k_step(Q_BOX, kk),
-                       desc_k + k_step(KV_BOX, kk), kk > 0);
+        sm90::wgmma_ss<T>(s, desc_q + k_step(Q_BOX, kk),
+                          desc_k + k_step(KV_BOX, kk), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
-        sm90::wgmma_ss(dp, desc_g + k_step(Q_BOX, kk),
-                       desc_v + k_step(KV_BOX, kk), kk > 0);
+        sm90::wgmma_ss<T>(dp, desc_g + k_step(Q_BOX, kk),
+                          desc_v + k_step(KV_BOX, kk), kk > 0);
       sm90::wgmma_commit();
       sm90::wgmma_wait();
       sm90::fence_regs(s);
@@ -858,13 +997,24 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
         }
         dp[i] = p * (dp[i] - dl[r]) * scale;
       }
+      if constexpr (sm90::is_f16<T>) {   // ds on its row scales
+        float rescale[2];
+        if (scale_ds_rows(dp, ds_e, rescale)) {
+#pragma unroll
+          for (int c = 0; c < HD / 128; ++c) {
+            sm90::fence_regs(acc[c]);
+#pragma unroll
+            for (int i = 0; i < 64; ++i) acc[c][i] *= rescale[(i / 2) & 1];
+          }
+        }
+      }
       uint32_t d_hi[KEYS / 16][4], d_mid[KEYS / 16][4];
 #pragma unroll
       for (int kk = 0; kk < KEYS / 16; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
-          split2(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1], d_hi[kk][r],
-                 d_mid[kk][r]);
+          split2<T>(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1], d_hi[kk][r],
+                    d_mid[kk][r]);
 #pragma unroll
       for (int c = 0; c < HD / 128; ++c) sm90::fence_regs(acc[c]);
       sm90::wgmma_fence();
@@ -874,8 +1024,8 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
 #pragma unroll
         for (int kk = 0; kk < KEYS / 16; ++kk) {
           const uint64_t bk = desc_kt + ((2 * c * KV_BOX) >> 4) + mn_step(kk);
-          sm90::wgmma_m64n128k16_rs(acc[c], d_hi[kk], bk, 1);
-          sm90::wgmma_m64n128k16_rs(acc[c], d_mid[kk], bk, 1);
+          sm90::wgmma_m64n128k16_rs<T>(acc[c], d_hi[kk], bk, 1);
+          sm90::wgmma_m64n128k16_rs<T>(acc[c], d_mid[kk], bk, 1);
         }
       sm90::wgmma_commit();
       sm90::wgmma_wait();
@@ -885,11 +1035,17 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
   }
-  const float one[2] = {1.f, 1.f};
+  if constexpr (sm90::is_f16<T>) {   // the row scales undone
+    const float inv[2] = {pow2(-ds_e[0]), pow2(-ds_e[1])};
 #pragma unroll
-  for (int c = 0; c < HD / 128; ++c)
-    store_acc_rows<__nv_bfloat16, HD>(dq, b, h, L, H, row, t, acc[c], one,
-                                      128 * c);
+    for (int c = 0; c < HD / 128; ++c)
+      store_acc_rows<T, HD>(dq, b, h, L, H, row, t, acc[c], inv, 128 * c);
+  } else {
+    const float one[2] = {1.f, 1.f};
+#pragma unroll
+    for (int c = 0; c < HD / 128; ++c)
+      store_acc_rows<T, HD>(dq, b, h, L, H, row, t, acc[c], one, 128 * c);
+  }
 }
 
 // ---------------------- float32 on Hopper: three bf16 terms, TMA-free, wgmma
@@ -1718,97 +1874,108 @@ int launch_dkv_split3(const void* q, const void* k, const void* v,
       static_cast<float*>(dv), H, L, S, scale);
 }
 
-// bf16 forward, dq and dk/dv at head dim HD: tensor maps encoded per call
-// over the caller's tensors, then the launch
-template <int HD>
+// 16-bit (bf16 or float16: T) forward, dq and dk/dv at head dim HD: tensor
+// maps encoded per call over the caller's tensors, then the launch
+template <typename T, int HD>
 int launch_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                     float* lse, int B, int H, int L, int S, float scale,
                     cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  cudaError_t err = sm90::make_head_map(&tq, q, B, L, H, HD, FWD_ROWS);
+  cudaError_t err = sm90::make_head_map<T>(&tq, q, B, L, H, HD, FWD_ROWS);
   if (err == cudaSuccess)
-    err = sm90::make_head_map(&tk, k, B, S, H, HD, fwd_keys(HD));
+    err = sm90::make_head_map<T>(&tk, k, B, S, H, HD, fwd_keys(HD));
   if (err == cudaSuccess)
-    err = sm90::make_head_map(&tv, v, B, S, H, HD, fwd_keys(HD));
+    err = sm90::make_head_map<T>(&tv, v, B, S, H, HD, fwd_keys(HD));
   if (err == cudaSuccess)
-    err = allow_smem(flash_fwd_sm90_kernel<HD>, fwd_sm90_smem<HD>());
+    err = allow_smem(flash_fwd_sm90_kernel<T, HD>, fwd_sm90_smem<HD>());
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((L + FWD_ROWS - 1) / FWD_ROWS, B * H);
-  flash_fwd_sm90_kernel<HD><<<grid, SM90_THREADS, fwd_sm90_smem<HD>(),
-                              stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H, L, S, scale);
+  flash_fwd_sm90_kernel<T, HD><<<grid, SM90_THREADS, fwd_sm90_smem<HD>(),
+                                 stream>>>(tq, tk, tv, static_cast<T*>(o),
+                                           lse, H, L, S, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
+template <typename T, int HD>
 int launch_dkv_sm90(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
                     void* dk, void* dv, int B, int H, int L, int S, float scale,
                     cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tg;
-  cudaError_t err = sm90::make_head_map(&tq, q, B, L, H, HD, DKV_ROWS);
+  cudaError_t err = sm90::make_head_map<T>(&tq, q, B, L, H, HD, DKV_ROWS);
   if (err == cudaSuccess)
-    err = sm90::make_head_map(&tg, dout, B, L, H, HD, DKV_ROWS);
+    err = sm90::make_head_map<T>(&tg, dout, B, L, H, HD, DKV_ROWS);
   if (err == cudaSuccess)
-    err = sm90::make_head_map(&tk, k, B, S, H, HD, dkv_keys(HD));
+    err = sm90::make_head_map<T>(&tk, k, B, S, H, HD, dkv_keys(HD));
   if (err == cudaSuccess)
-    err = sm90::make_head_map(&tv, v, B, S, H, HD, dkv_keys(HD));
+    err = sm90::make_head_map<T>(&tv, v, B, S, H, HD, dkv_keys(HD));
   if (err == cudaSuccess)
-    err = allow_smem(flash_dkv_sm90_kernel<HD>, dkv_sm90_smem<HD>());
+    err = allow_smem(flash_dkv_sm90_kernel<T, HD>, dkv_sm90_smem<HD>());
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + dkv_keys(HD) - 1) / dkv_keys(HD), B * H);
-  flash_dkv_sm90_kernel<HD><<<grid, SM90_THREADS, dkv_sm90_smem<HD>(),
-                              stream>>>(
-      tq, tk, tv, tg, lse, delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), H, L, S, scale);
+  flash_dkv_sm90_kernel<T, HD><<<grid, SM90_THREADS, dkv_sm90_smem<HD>(),
+                                 stream>>>(
+      tq, tk, tv, tg, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      H, L, S, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
+template <typename T, int HD>
 int launch_dq_sm90(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, int B, int H, int L, int S, float scale,
                    cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tg;
-  cudaError_t err = sm90::make_head_map(&tq, q, B, L, H, HD, DQ_ROWS);
+  cudaError_t err = sm90::make_head_map<T>(&tq, q, B, L, H, HD, DQ_ROWS);
   if (err == cudaSuccess)
-    err = sm90::make_head_map(&tg, dout, B, L, H, HD, DQ_ROWS);
+    err = sm90::make_head_map<T>(&tg, dout, B, L, H, HD, DQ_ROWS);
   if (err == cudaSuccess)
-    err = sm90::make_head_map(&tk, k, B, S, H, HD, dq_keys(HD));
+    err = sm90::make_head_map<T>(&tk, k, B, S, H, HD, dq_keys(HD));
   if (err == cudaSuccess)
-    err = sm90::make_head_map(&tv, v, B, S, H, HD, dq_keys(HD));
+    err = sm90::make_head_map<T>(&tv, v, B, S, H, HD, dq_keys(HD));
   if (err == cudaSuccess)
-    err = allow_smem(flash_dq_sm90_kernel<HD>, dq_sm90_smem<HD>());
+    err = allow_smem(flash_dq_sm90_kernel<T, HD>, dq_sm90_smem<HD>());
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((L + DQ_ROWS - 1) / DQ_ROWS, B * H);
-  flash_dq_sm90_kernel<HD><<<grid, SM90_THREADS, dq_sm90_smem<HD>(),
-                             stream>>>(
-      tq, tk, tv, tg, lse, delta, static_cast<__nv_bfloat16*>(dq), H, L, S,
-      scale);
+  flash_dq_sm90_kernel<T, HD><<<grid, SM90_THREADS, dq_sm90_smem<HD>(),
+                                stream>>>(
+      tq, tk, tv, tg, lse, delta, static_cast<T*>(dq), H, L, S, scale);
   return static_cast<int>(cudaGetLastError());
 }
+
+// the element type codes of the C entry points' `dtype`
+enum : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 
 }  // namespace
 
 extern "C" {
 
 // q, o [B, L, H, D], k, v [B, S, H, D], contiguous and 16-byte aligned, all
-// bfloat16 when bf16 is non-zero, else float, D 128 or 256 in both; lse
-// [B*H, L] float. Each entry point returns a cudaError_t value; 0 means the
-// launch was accepted (another D: cudaErrorInvalidValue).
+// of the element type `dtype` (0 float, 1 bfloat16, 2 float16), D 128 or
+// 256 in each; lse [B*H, L] float. Each entry point returns a cudaError_t
+// value; 0 means the launch was accepted (another D or dtype:
+// cudaErrorInvalidValue).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         void* lse, int B, int H, int L, int S, int D,
-                        float scale, int bf16, void* stream) {
+                        float scale, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* lse_f = static_cast<float*>(lse);
-  if (!bf16 && D == 128)
+  if (dtype == kFloat32 && D == 128)
     return launch_fwd_split3<128>(q, k, v, o, lse_f, B, H, L, S, scale, s);
-  if (!bf16 && D == 256)
+  if (dtype == kFloat32 && D == 256)
     return launch_fwd_split3<256>(q, k, v, o, lse_f, B, H, L, S, scale, s);
-  if (bf16 && D == 128)
-    return launch_fwd_sm90<128>(q, k, v, o, lse_f, B, H, L, S, scale, s);
-  if (bf16 && D == 256)
-    return launch_fwd_sm90<256>(q, k, v, o, lse_f, B, H, L, S, scale, s);
+  if (dtype == kBFloat16 && D == 128)
+    return launch_fwd_sm90<__nv_bfloat16, 128>(q, k, v, o, lse_f, B, H, L, S,
+                                               scale, s);
+  if (dtype == kBFloat16 && D == 256)
+    return launch_fwd_sm90<__nv_bfloat16, 256>(q, k, v, o, lse_f, B, H, L, S,
+                                               scale, s);
+  if (dtype == kFloat16 && D == 128)
+    return launch_fwd_sm90<__half, 128>(q, k, v, o, lse_f, B, H, L, S, scale,
+                                        s);
+  if (dtype == kFloat16 && D == 256)
+    return launch_fwd_sm90<__half, 256>(q, k, v, o, lse_f, B, H, L, S, scale,
+                                        s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1816,22 +1983,28 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
 int flash_attention_dq(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dq, int B, int H, int L, int S, int D,
-                       float scale, int bf16, void* stream) {
+                       float scale, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<const float*>(lse);
   auto* dl = static_cast<const float*>(delta);
-  if (!bf16 && D == 128)
+  if (dtype == kFloat32 && D == 128)
     return launch_dq_split3<128>(q, k, v, dout, l, dl, dq, B, H, L, S, scale,
                                  s);
-  if (!bf16 && D == 256)
+  if (dtype == kFloat32 && D == 256)
     return launch_dq_split3<256>(q, k, v, dout, l, dl, dq, B, H, L, S, scale,
                                  s);
-  if (bf16 && D == 128)
-    return launch_dq_sm90<128>(q, k, v, dout, l, dl, dq, B, H, L, S, scale,
-                               s);
-  if (bf16 && D == 256)
-    return launch_dq_sm90<256>(q, k, v, dout, l, dl, dq, B, H, L, S, scale,
-                               s);
+  if (dtype == kBFloat16 && D == 128)
+    return launch_dq_sm90<__nv_bfloat16, 128>(q, k, v, dout, l, dl, dq, B, H,
+                                              L, S, scale, s);
+  if (dtype == kBFloat16 && D == 256)
+    return launch_dq_sm90<__nv_bfloat16, 256>(q, k, v, dout, l, dl, dq, B, H,
+                                              L, S, scale, s);
+  if (dtype == kFloat16 && D == 128)
+    return launch_dq_sm90<__half, 128>(q, k, v, dout, l, dl, dq, B, H, L, S,
+                                       scale, s);
+  if (dtype == kFloat16 && D == 256)
+    return launch_dq_sm90<__half, 256>(q, k, v, dout, l, dl, dq, B, H, L, S,
+                                       scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1839,22 +2012,28 @@ int flash_attention_dq(const void* q, const void* k, const void* v,
 int flash_attention_dkv(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
                         void* dk, void* dv, int B, int H, int L, int S, int D,
-                        float scale, int bf16, void* stream) {
+                        float scale, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<const float*>(lse);
   auto* dl = static_cast<const float*>(delta);
-  if (!bf16 && D == 128)
+  if (dtype == kFloat32 && D == 128)
     return launch_dkv_split3<128>(q, k, v, dout, l, dl, dk, dv, B, H, L, S,
                                   scale, s);
-  if (!bf16 && D == 256)
+  if (dtype == kFloat32 && D == 256)
     return launch_dkv_split3<256>(q, k, v, dout, l, dl, dk, dv, B, H, L, S,
                                   scale, s);
-  if (bf16 && D == 128)
-    return launch_dkv_sm90<128>(q, k, v, dout, l, dl, dk, dv, B, H, L, S,
-                                scale, s);
-  if (bf16 && D == 256)
-    return launch_dkv_sm90<256>(q, k, v, dout, l, dl, dk, dv, B, H, L, S,
-                                scale, s);
+  if (dtype == kBFloat16 && D == 128)
+    return launch_dkv_sm90<__nv_bfloat16, 128>(q, k, v, dout, l, dl, dk, dv,
+                                               B, H, L, S, scale, s);
+  if (dtype == kBFloat16 && D == 256)
+    return launch_dkv_sm90<__nv_bfloat16, 256>(q, k, v, dout, l, dl, dk, dv,
+                                               B, H, L, S, scale, s);
+  if (dtype == kFloat16 && D == 128)
+    return launch_dkv_sm90<__half, 128>(q, k, v, dout, l, dl, dk, dv, B, H, L,
+                                        S, scale, s);
+  if (dtype == kFloat16 && D == 256)
+    return launch_dkv_sm90<__half, 256>(q, k, v, dout, l, dl, dk, dv, B, H, L,
+                                        S, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

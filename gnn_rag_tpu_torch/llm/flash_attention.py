@@ -14,18 +14,21 @@ lse ``[B*H, L]`` float32, with p rounded to v's type before it multiplies v;
 ``flash_dq`` and ``flash_dkv`` recompute p per block from (q, k, lse) and
 work in float32 from the widened inputs, given delta = rowsum(dO * o)
 ``[B*H, L]`` (a plain reduction, ``bwd_delta``, as the JAX package leaves it
-to XLA). bfloat16 inputs run on the tensor cores through TMA and wgmma (the
-backward's float p and ds as two bf16 terms, hi + mid, within 2^-16 of each
-product). float32 inputs run all three kernels on the tensor cores too,
+to XLA). bfloat16 and float16 inputs run on the tensor cores through TMA
+and wgmma (the backward's float p and ds as two 16-bit terms, hi + mid:
+bf16 within 2^-16 of each product; float16 within 2^-22, after exact
+power-of-two scales that keep small p and ds inside float16's range: p by
+2^14, ds by a scale per accumulator row chosen from the data, undone at
+the store). float32 inputs run all three kernels on the tensor cores too,
 each float as three bf16 terms and each product as six bf16 products
 (within ~2^-23 of it: the TPU's float32 dots at Precision.HIGHEST do the
 same); all sums are float. The kernels take head dim D = 128 and D = 256
-in both types (``HEAD_DIMS``; at 256 the scale is 1/16, exact, and the
-float32 kernels split the depth over a cluster of two blocks, each on 128
-columns, whose half-depth scores are added once), and any L and S (a
+in all three types (``HEAD_DIMS``; at 256 the scale is 1/16, exact, and
+the float32 kernels split the depth over a cluster of two blocks, each on
+128 columns, whose half-depth scores are added once), and any L and S (a
 ragged last tile is masked in the kernel; the JAX wrapper pads L to 128
 instead). The JAX model sends every D % 128 == 0 in any type to its Pallas
-kernels: D 384 and up, and float16, are not ported yet and raise here.
+kernels: D 384 and up are not ported yet and raise here.
 
 Dispatch: CPU tensors take the plain versions (``flash_fwd_plain``,
 ``flash_dq_plain``, ``flash_dkv_plain``: dense attention and the
@@ -47,7 +50,10 @@ from ..utils import build as _build
 NEG_INF = -1e30
 # the head dims the kernels take, by input type (any other shape or type
 # raises; ``llm.model.flash_applies`` sends those to plain attention)
-HEAD_DIMS = {torch.float32: (128, 256), torch.bfloat16: (128, 256)}
+HEAD_DIMS = {torch.float32: (128, 256), torch.bfloat16: (128, 256),
+             torch.float16: (128, 256)}
+# the C entry points' element type code
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # launches of the CUDA kernels (plain-version calls are not counted)
 fwd_launches = 0      # flash_fwd
@@ -144,7 +150,7 @@ def _check(q, k, v, *more):
     B, L, H, D = q.shape
     if D not in HEAD_DIMS.get(q.dtype, ()):
         raise ValueError(f"flash_attention: the kernels take head dim 128 "
-                         f"or 256 in float32 or bfloat16, got "
+                         f"or 256 in float32, bfloat16 or float16, got "
                          f"{tuple(q.shape)} {q.dtype}")
     S = k.shape[1]
     for name, t, shape in (("k", k, (B, S, H, D)), ("v", v, (B, S, H, D)),
@@ -192,8 +198,7 @@ def flash_fwd(q, k, v):
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), B, H, L, S, D, 1.0 / math.sqrt(D),
-            int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+            _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream)
     _raise(lib, err, "forward")
     fwd_launches += 1
     return o, lse
@@ -213,7 +218,7 @@ def flash_dq(q, k, v, dout, lse, delta):
         err = lib.flash_attention_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, L, S, D,
-            1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16),
+            1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     _raise(lib, err, "dq")
     dq_launches += 1
@@ -234,7 +239,7 @@ def flash_dkv(q, k, v, dout, lse, delta):
         err = lib.flash_attention_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, H, L, S, D, 1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16),
+            B, H, L, S, D, 1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     _raise(lib, err, "dkv")
     dkv_launches += 1

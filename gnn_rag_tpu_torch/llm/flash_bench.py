@@ -9,9 +9,10 @@ and its own modules), in the order given and then reversed (A B B A), on
 one card. Each child prints one JSON line: the tree, the card, and per
 phase of ``--phases`` (default all three):
 
-- ``flash``: at the SFT step's shape B8 L2047 H32 D128, in bf16 and in
-  float32, per kernel (fwd, dq, dkv) the CUDA-event median ms (bf16 over
-  10 runs of 5 launches, float32 over 5 runs of 2), the bound (float32:
+- ``flash``: at the SFT step's shape B8 L2047 H32 D128, in bf16, in
+  float32 and (in a tree whose kernels take it) in float16, per kernel
+  (fwd, dq, dkv) the CUDA-event median ms (bf16 and float16 over 10 runs
+  of 5 launches, float32 over 5 runs of 2), the bound (float32:
   six bf16 tensor-core passes, and ``float_core_bound_ms`` at the float
   cores' peak), its share of the bound and the achieved TFLOP/s, and each
   output's largest ratio to its tolerance against the plain versions (dq,
@@ -22,10 +23,12 @@ phase of ``--phases`` (default all three):
   way, in a tree whose kernels take it (another tree's row says it does
   not), beside the float32 kernels at head dim 128 over the same blocks of
   the same work (``D128_SAME_BLOCKS``: what the head-dim-256 kernels' pairs
-  of blocks cost beyond it); and ``sass``, a digest of each flash kernel's
-  machine code (its SASS instructions, addresses and encodings stripped,
-  keyed by kernel and head dim), so that two trees' kernels can be told
-  identical;
+  of blocks cost beyond it), and in float16 at B2 L2047 H8 D256 (the
+  float16 Gemma-2B-width SFT step's shape); and ``sass``, a digest of each
+  flash kernel's machine code (its SASS instructions, addresses and
+  encodings stripped, keyed by kernel, head dim and, for float16, type:
+  the bf16 instances keep the keys of trees whose kernels are templates on
+  the head dim alone), so that two trees' kernels can be told identical;
 - ``gate``: the gate-scatter kernels of ``ops.gate_scatter``: the v4
   forward K1 (both directions) at every row of chip_smoke's
   ``KERNEL_SHAPES`` and the skewed WebQSP layout ``SKEWED``; the v4
@@ -73,13 +76,16 @@ SHAPE = (8, 2047, 32, 128)         # B, L, H, D of the SFT step's attention
 D256_SHAPES = ((2, 2047, 8, 256), (8, 2047, 8, 256))
 # float32 at head dim 256: the float32 Gemma-2B-width SFT step's attention
 D256_FP32_SHAPE = (2, 2047, 8, 256)
+# float16 at head dim 256: the float16 Gemma-2B-width SFT step's attention
+D256_F16_SHAPE = (2, 2047, 8, 256)
 # the float32 kernels at head dim 128 over the blocks of that shape: B2
 # L2047 H16 gives as many blocks as the head-dim-256 row's pairs, each of
 # the same work (128 columns), without the exchange between the two
 D128_SAME_BLOCKS = (2, 2047, 16, 128)
 TIMING = dict(runs=10, reps=5, warmup=2)
 # the flash kernels' timing by type: the float32 ones take ~5-25 ms a launch
-FLASH_TIMING = {"bfloat16": TIMING, "float32": dict(runs=5, reps=2, warmup=1)}
+FLASH_TIMING = {"bfloat16": TIMING, "float32": dict(runs=5, reps=2, warmup=1),
+                "float16": TIMING}
 # a child loads this file by path and measures the tree in argv[2]
 _CHILD = ("import importlib.util as u, sys; "
           "s = u.spec_from_file_location('flash_bench', sys.argv[1]); "
@@ -116,14 +122,17 @@ def measure(tree, phases, data):
     device = torch.device("cuda", 0)
     out = {}
     if "flash" in phases:
-        out["flash"] = {dtype: measure_flash(smoke, device, dtype, timing)
-                        for dtype, timing in FLASH_TIMING.items()}
         from gnn_rag_tpu_torch.llm import flash_attention as fa
 
-        def takes(dtype):
-            return 256 in getattr(fa, "HEAD_DIMS", {}).get(dtype, ())
+        def takes(dtype, hd=256):
+            return hd in getattr(fa, "HEAD_DIMS", {}).get(dtype, ())
 
         missing = "not taken by this tree's kernels"
+        # every tree's kernels take bf16 and float32 at head dim 128
+        out["flash"] = {dtype: (measure_flash(smoke, device, dtype, timing)
+                                if dtype != "float16"
+                                or takes(torch.float16, 128) else missing)
+                        for dtype, timing in FLASH_TIMING.items()}
         out["flash_d256"] = {
             f"B{shape[0]}": (measure_flash(smoke, device, "bfloat16", TIMING,
                                            shape)
@@ -137,6 +146,10 @@ def measure(tree, phases, data):
             "d128_same_blocks": measure_flash(
                 smoke, device, "float32", FLASH_TIMING["float32"],
                 D128_SAME_BLOCKS)}
+        out["flash_d256_f16"] = {
+            f"B{D256_F16_SHAPE[0]}": (
+                measure_flash(smoke, device, "float16", TIMING, D256_F16_SHAPE)
+                if takes(torch.float16) else missing)}
         out["sass"] = sass_digests(fa.build())
     if "gate" in phases:
         out["gate_scatter"] = measure_gate(smoke, device)
@@ -153,7 +166,9 @@ def sass_digests(lib):
     """{kernel<head dim>: sha256 of its SASS instructions} of a flash
     library (``cuobjdump -sass``; addresses, encodings and the file's
     namespace hash stripped; a kernel that is no template counts as head
-    dim 128)."""
+    dim 128; a 16-bit kernel's element type is part of the key only for
+    float16, ``kernel<__half,head dim>``, so that the bf16 instances keep
+    the keys of trees whose kernels are templates on the head dim alone)."""
     import hashlib
     import re
 
@@ -165,8 +180,10 @@ def sass_digests(lib):
     for line in sass.splitlines():
         if "Function :" in line:
             m = re.search(r"(flash_(?:fwd|dq|dkv)_(?:sm90|split3)_kernel)"
-                          r"(?:ILi(\d+)E)?", line)
-            name = f"{m.group(1)}<{m.group(2) or 128}>" if m else None
+                          r"(?:I(?:13__nv_bfloat16|(6__half))?Li(\d+)E)?",
+                          line)
+            name = (f"{m.group(1)}<{'__half,' if m.group(2) else ''}"
+                    f"{m.group(3) or 128}>" if m else None)
             if name:
                 digests[name] = hashlib.sha256()
         elif name:

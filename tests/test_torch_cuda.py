@@ -4,7 +4,7 @@ backward and scatter_mm (alone, at widths a block holds only in column
 windows, and in a ReaRev training step under GNN_RAG_GATE_SCATTER=v2),
 and the flash-attention forward, dq and dk/dv
 kernels (alone, through autograd, and in a LlamaLM; at head dim 128 and
-256, each in float32 and bf16).
+256, each in float32, bf16 and float16).
 
 Every test here needs an NVIDIA GPU (and nvcc for the first build) and skips
 without one. The file imports no JAX, so it runs on a machine without it:
@@ -19,11 +19,15 @@ and summing in float32. The fused-projection kernels in bf16 per element
 (``bf16_tol``: the rl each side rounds from its own float sum may round
 the other way). Flash attention: fp32 outputs and lse 1e-4 of
 max|plain| (the online softmax rescales in another order than the two-pass
-one); bf16 outputs per element (``assert_flash_close``: one bf16 step plus
-the rounding of p, scaled by the row); the plain backward takes the plain
-forward's lse and delta; at L = 1 (one key) dq and dk are exactly 0 and
-are held to the float noise of dp - delta. A LlamaLM in bf16: flash vs plain within twice the
-plain path's own distance from fp32, logits and every gradient.
+one); bf16 and float16 outputs per element (``assert_flash_close``: one
+bf16 or float16 step plus the rounding of p, scaled by the row; float16
+also one subnormal step, 2^-24); the plain backward takes the plain
+forward's lse and delta (float16: the kernels' own, lse held to the plain
+forward's); float16 also with the cotangent x 2^-16 and x 2^4 (the
+kernels' scaled split of p and ds); at L = 1 (one key) dq and dk
+are exactly 0 and are held to the float noise of dp - delta. A LlamaLM in
+bf16 or float16: flash vs plain within twice the plain path's own distance
+from fp32, logits and every gradient.
 """
 
 import math
@@ -709,15 +713,16 @@ def assert_rel(got, want, rel, name):
 
 def assert_flash_close(got, want, name):
     """A flash output against its plain version: float32 outputs (lse in
-    both types) to 1e-4 of max|want|; bf16 outputs per element to
+    every type) to 1e-4 of max|want|; bf16 outputs per element to
     2^-7 |want| + 1e-2 rms over the row's D values + 1e-3 rms(want): one
     bf16 step, the rounding of p at another point of the online softmax,
-    float noise of rows whose exact value is 0 (chip_smoke.attn_err)."""
+    float noise of rows whose exact value is 0; float16 outputs to
+    ``f16_tol``, the same form at float16's step (chip_smoke.attn_err)."""
     if got.dtype == torch.float32:
         return assert_rel(got, want, 1e-4, name)
     d = (got.float() - want.float()).abs()
-    tol = bf16_tol(want)
-    assert want.dtype == torch.bfloat16 and bool((d <= tol).all()), (
+    tol = f16_tol(want) if want.dtype == torch.float16 else bf16_tol(want)
+    assert want.dtype == got.dtype and bool((d <= tol).all()), (
         name, (d / tol).max().item())
 
 
@@ -729,6 +734,40 @@ def bf16_tol(b, steps=1):
     sq = b.float().square()
     return (steps * 2 ** -7 * sq.sqrt() + 1e-2 * sq.mean(-1, keepdim=True).sqrt()
             + 1e-3 * sq.mean().sqrt())
+
+
+def f16_tol(b):
+    """Per-element tolerance of a float16 result: ``bf16_tol``'s form at
+    float16's step, 2^-10 |b| + 1.25e-3 rms over the last axis +
+    1.25e-4 rms(b), plus one subnormal step, 2^-24 (chip_smoke.f16_tol)."""
+    sq = b.float().square()
+    return (2 ** -10 * sq.sqrt() + 1.25e-3 * sq.mean(-1, keepdim=True).sqrt()
+            + 1.25e-4 * sq.mean().sqrt() + 2 ** -24)
+
+
+def check_flash_bwd(q, k, v, do, lse, delta, plse, pdelta, D):
+    """dq, dk and dv of the kernels (from their forward's lse and delta)
+    against the plain backward (from the plain forward's); at L = 1 (one
+    key) dq and dk are exactly 0 and hold only the float noise of dp -
+    delta (two float sums of D products, each within (D - 1) 2^-24 of
+    sum |dO v|) times scale times k or q (float16: rounded, so within
+    2^-11 of it plus a subnormal step). Returns the kernels' (dq, dk, dv)."""
+    dq = fa.flash_dq(q, k, v, do, lse, delta)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta)
+    pdq = fa.flash_dq_plain(q, k, v, do, plse, pdelta)
+    pdk, pdv = fa.flash_dkv_plain(q, k, v, do, plse, pdelta)
+    if q.shape[1] == 1:
+        noise = (2 ** -15 / math.sqrt(D)) * (do.float() * v.float()).abs(
+            ).sum(-1, keepdim=True)
+        slack = (1 + 2 ** -10, 2 ** -24) if q.dtype == torch.float16 else (1, 0)
+        for name, a, x in (("dq", dq, k), ("dk", dk, q)):
+            bound = noise * x.float().abs() * slack[0] + slack[1]
+            assert bool((a.float().abs() <= bound).all()), name
+    else:
+        assert_flash_close(dq, pdq, "dq")
+        assert_flash_close(dk, pdk, "dk")
+    assert_flash_close(dv, pdv, "dv")
+    return dq, dk, dv
 
 
 @pytest.mark.cuda
@@ -749,46 +788,63 @@ def bf16_tol(b, steps=1):
     # float32 dq's 64-row blocks and 32-key tiles: one row past a block and
     # a tile, the SFT length, whole tiles half a block past one
     (1, 65, 2, torch.float32), (1, 2047, 2, torch.float32),
-    (1, 96, 2, torch.float32)])
+    (1, 96, 2, torch.float32),
+    # float16 (the bf16 kernels' tiles): one row, one row past a 128-row
+    # tile, the model's head stride, ragged lengths, the SFT length
+    (2, 256, 4, torch.float16), (1, 1, 2, torch.float16),
+    (1, 129, 2, torch.float16), (2, 300, 32, torch.float16),
+    (1, 1000, 2, torch.float16), (1, 2047, 2, torch.float16)])
 def test_flash_kernels_match_plain(cuda, B, L, H, dtype):
+    flash_vs_plain(cuda, B, L, H, 128, dtype)
+
+
+# cotangent scales of the float16 backward's extra runs: far under float16's
+# normal range (ds below 2^-24 unless scaled), and large
+F16_G_SCALES = (2.0 ** -16, 2.0 ** 4)
+
+
+def flash_vs_plain(cuda, B, L, H, D, dtype):
+    """The flash kernels at [B, L, H, D] in ``dtype`` against their plain
+    versions, the backward twice bit for bit; float16 also with the
+    cotangent x F16_G_SCALES."""
     g = torch.Generator(device=cuda).manual_seed(L)
-    q, k, v, do = (torch.randn((B, L, H, 128), generator=g, device=cuda
+    q, k, v, do = (torch.randn((B, L, H, D), generator=g, device=cuda
                                ).to(dtype) for _ in range(4))
     before = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
     o, lse = fa.flash_fwd(q, k, v)
     po, plse = fa.flash_fwd_plain(q, k, v)
     assert_flash_close(o, po, "o")
     assert_flash_close(lse, plse, "lse")
+    # the plain backward from the plain forward's lse: a wrong lse shows
+    # here; float16 from the kernels' own lse and delta (chip_smoke's
+    # check_attn_kernels: float16's p rounding flips carry o's last bit
+    # through delta into rows of few keys), lse held above
     delta, pdelta = fa.bwd_delta(o, do), fa.bwd_delta(po, do)
-    dq = fa.flash_dq(q, k, v, do, lse, delta)
-    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta)
-    # the plain backward from the plain forward's lse: a wrong lse shows here
-    pdq = fa.flash_dq_plain(q, k, v, do, plse, pdelta)
-    pdk, pdv = fa.flash_dkv_plain(q, k, v, do, plse, pdelta)
-    if L == 1:
-        # one key: the softmax passes no gradient, so dq and dk are exactly
-        # 0 and hold only the float noise of dp - delta (two float sums of
-        # D products, each within (D - 1) 2^-24 of sum |dO v|) times scale
-        # times k or q
-        noise = (2 ** -15 / math.sqrt(128)) * (do.float() * v.float()).abs(
-            ).sum(-1, keepdim=True)
-        for name, a, x in (("dq", dq, k), ("dk", dk, q)):
-            assert bool((a.float().abs() <= noise * x.float().abs()).all()), name
-    else:
-        assert_flash_close(dq, pdq, "dq")
-        assert_flash_close(dk, pdk, "dk")
-    assert_flash_close(dv, pdv, "dv")
+    f16 = dtype == torch.float16
+    dq, dk, dv = check_flash_bwd(q, k, v, do, lse, delta,
+                                 lse if f16 else plse,
+                                 delta if f16 else pdelta, D)
     # no float atomics: a second launch repeats bit for bit
     assert torch.equal(dq, fa.flash_dq(q, k, v, do, lse, delta))
     assert all(torch.equal(a, b) for a, b in
                zip((dk, dv), fa.flash_dkv(q, k, v, do, lse, delta)))
+    extra = 0
+    if dtype == torch.float16:
+        for scale in F16_G_SCALES:
+            ds = (do.float() * scale).half()
+            delta_s = fa.bwd_delta(o, ds)
+            got = check_flash_bwd(q, k, v, ds, lse, delta_s, lse, delta_s, D)
+            if scale < 1 and L > 1:     # subnormal gradients, not zeros
+                assert all(x.float().abs().max() > 0 for x in got)
+            extra += 1
     torch.cuda.synchronize()
     assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
-        n + c for n, c in zip(before, (1, 2, 2)))
+        n + c for n, c in zip(before, (1, 2 + extra, 2 + extra)))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
 @pytest.mark.parametrize("B,L,H", [
     # head dim 256: one row, under one tile, one row past a 128-row block
     # (and past dq's 32-key and dk/dv's 64-key tiles), one row past float32
@@ -797,36 +853,7 @@ def test_flash_kernels_match_plain(cuda, B, L, H, dtype):
     (1, 1, 2), (1, 63, 2), (1, 65, 2), (1, 129, 2), (3, 77, 2), (2, 300, 8),
     (1, 1000, 2), (2, 2047, 8)])
 def test_flash_d256_kernels_match_plain(cuda, B, L, H, dtype):
-    g = torch.Generator(device=cuda).manual_seed(L)
-    q, k, v, do = (torch.randn((B, L, H, 256), generator=g, device=cuda
-                               ).to(dtype) for _ in range(4))
-    before = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
-    o, lse = fa.flash_fwd(q, k, v)
-    po, plse = fa.flash_fwd_plain(q, k, v)
-    assert_flash_close(o, po, "o")
-    assert_flash_close(lse, plse, "lse")
-    delta, pdelta = fa.bwd_delta(o, do), fa.bwd_delta(po, do)
-    dq = fa.flash_dq(q, k, v, do, lse, delta)
-    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta)
-    pdq = fa.flash_dq_plain(q, k, v, do, plse, pdelta)
-    pdk, pdv = fa.flash_dkv_plain(q, k, v, do, plse, pdelta)
-    if L == 1:
-        # one key: dq and dk are exactly 0 and hold only the float noise of
-        # dp - delta (two float sums of D products) times scale times k or q
-        noise = (2 ** -15 / math.sqrt(256)) * (do.float() * v.float()).abs(
-            ).sum(-1, keepdim=True)
-        for name, a, x in (("dq", dq, k), ("dk", dk, q)):
-            assert bool((a.float().abs() <= noise * x.float().abs()).all()), name
-    else:
-        assert_flash_close(dq, pdq, "dq")
-        assert_flash_close(dk, pdk, "dk")
-    assert_flash_close(dv, pdv, "dv")
-    assert torch.equal(dq, fa.flash_dq(q, k, v, do, lse, delta))
-    assert all(torch.equal(a, b) for a, b in
-               zip((dk, dv), fa.flash_dkv(q, k, v, do, lse, delta)))
-    torch.cuda.synchronize()
-    assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
-        n + c for n, c in zip(before, (1, 2, 2)))
+    flash_vs_plain(cuda, B, L, H, 256, dtype)
 
 
 @pytest.mark.cuda
@@ -844,7 +871,8 @@ def test_flash_autograd_and_checks(cuda):
         assert_rel(a, b.detach(), 1e-4, name)
     with pytest.raises(ValueError, match="head dim 128"):
         fa.flash_fwd(*(torch.zeros(1, 8, 1, 64, device=cuda),) * 3)
-    with pytest.raises(ValueError, match="128 or 256 in float32 or bfloat16"):
+    with pytest.raises(ValueError,
+                       match="128 or 256 in float32, bfloat16 or float16"):
         fa.flash_fwd(*(torch.zeros(1, 8, 1, 384, device=cuda),) * 3)
     x = torch.zeros(1, 8, 1, 128, device=cuda)
     with pytest.raises(ValueError, match="k must be"):
@@ -852,13 +880,13 @@ def test_flash_autograd_and_checks(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_llama_flash_vs_plain_attention(cuda, dtype):
     """A LlamaLM at head dim 128 on the card: the flash path launches one
     forward per layer and agrees with the plain attention path, logits and
     the loss gradient of every parameter. fp32: 1e-4 of the largest entry.
-    bf16: the two paths round at different points, so each output's
-    flash-vs-plain distance is held to twice the plain bf16 path's own
+    bf16 and float16: the two paths round at different points, so each
+    output's flash-vs-plain distance is held to twice the plain path's own
     distance from the same model in fp32."""
     cfg = LlamaConfig(vocab_size=300, dim=256, n_layers=2, n_heads=2,
                       n_kv_heads=1, intermediate=384, dtype=dtype)
@@ -892,16 +920,17 @@ def test_llama_flash_vs_plain_attention(cuda, dtype):
 
 
 @pytest.mark.cuda
-def test_llama_d256_flash_vs_plain_attention(cuda):
-    """A bf16 LlamaLM at head dim 256 (Gemma-2B's heads: 8 of 256, one kv
-    head, tied embeddings; 2 layers) on the card: the flash path launches
-    one forward, one dq and one dk/dv per layer, and each output (logits
-    and every parameter's loss gradient) is within twice the plain bf16
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_llama_d256_flash_vs_plain_attention(cuda, dtype):
+    """A bf16 or float16 LlamaLM at head dim 256 (Gemma-2B's heads: 8 of
+    256, one kv head, tied embeddings; 2 layers) on the card: the flash path
+    launches one forward, one dq and one dk/dv per layer, and each output
+    (logits and every parameter's loss gradient) is within twice the plain
     path's own distance from the same model in float32 (as
     test_llama_flash_vs_plain_attention holds head dim 128)."""
     cfg = LlamaConfig(vocab_size=300, dim=2048, n_layers=2, n_heads=8,
                       n_kv_heads=1, intermediate=512, tie_embeddings=True,
-                      dtype="bfloat16")
+                      dtype=dtype)
     model = build_llama(cfg, seed=0, device=cuda)
     tokens = torch.randint(3, 300, (2, 300), device=cuda,
                            generator=torch.Generator(device=cuda).manual_seed(1))
@@ -964,12 +993,13 @@ def test_llama_d256_fp32_flash_vs_plain_attention(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim,dtype", [(128, "float16"), (256, "float16")])
+@pytest.mark.parametrize("head_dim,dtype", [(384, "float16"), (384, "bfloat16")])
 def test_llama_shapes_the_kernels_refuse_run_reference_attention(
         cuda, head_dim, dtype):
-    """A LlamaLM whose attention the flash kernels do not take (float16)
-    runs on the card with no flash launch, through reference_attention:
-    its logits equal the same model's with use_flash=False."""
+    """A LlamaLM whose attention the flash kernels do not take (head dim
+    384) runs on the card with no flash launch, through
+    reference_attention: its logits equal the same model's with
+    use_flash=False."""
     cfg = LlamaConfig(vocab_size=300, dim=2 * head_dim, n_layers=2, n_heads=2,
                       n_kv_heads=1, intermediate=384, dtype=dtype)
     model = build_llama(cfg, seed=0, device=cuda)

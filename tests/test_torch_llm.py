@@ -187,13 +187,14 @@ def test_dq_two_term_split_stays_within_tolerance():
     (128, torch.float32, "cuda", False, False, True),
     (256, torch.bfloat16, "cuda", False, False, True),
     (384, torch.float32, "cuda", False, False, False),
-    (128, torch.float16, "cuda", False, False, False),   # and fp32 / bf16
+    (128, torch.float16, "cuda", False, False, True),    # every type
     (64, torch.bfloat16, "cuda", False, False, False),
     (128, torch.bfloat16, "cpu", False, False, False),
     (128, torch.bfloat16, "cuda", True, False, False),   # kv cache (decode)
     (128, torch.bfloat16, "cuda", False, True, False),   # kv_valid
     (256, torch.float32, "cuda", False, False, True),    # 256 in both types
-    (256, torch.float16, "cuda", False, False, False),
+    (256, torch.float16, "cuda", False, False, True),
+    (128, torch.float16, "cpu", False, False, False),
     (384, torch.bfloat16, "cuda", False, False, False),
     (384, torch.float16, "cuda", False, False, False),
     (256, torch.float32, "cpu", False, False, False),
@@ -207,11 +208,12 @@ def test_flash_rule_takes_the_kernels_only_where_they_apply(
 
 
 def test_head_dim_256_and_float16_run_reference_attention():
-    """What the kernels do not take (any CPU tensor, float16) goes through
+    """What the kernels do not take (any CPU tensor) goes through
     reference_attention, which computes what the JAX model computes: a
     head-dim-256 float32 model's logits on the CPU against the flax model's
     (on the card that model runs the float32 kernels), and finite logits of
-    a float16 model (the card test runs it with no flash launch)."""
+    a float16 model on the CPU (on the card it runs the float16 kernels;
+    tests/test_torch_flash_f16.py holds its logits to the flax model's)."""
     cfg = dict(vocab_size=64, dim=256, n_layers=1, n_heads=1, n_kv_heads=1,
                intermediate=128, max_seq_len=64)
     tokens = np.random.default_rng(2).integers(3, 64, (2, 12)).astype(np.int32)
