@@ -113,7 +113,12 @@ The LLM reader (the flash-attention kernels K5a-c):
      forward and backward, B2 L1000 and B1 L129 at both head dims, the
      backward against the plain backward fed the kernels' own lse and
      delta (the plain forward's: reported), at B2 L1000 also with the
-     cotangent x 2^-16 and x 2^4 (F16_G_SCALES);
+     cotangent x 2^-16 and x 2^4 (F16_G_SCALES); and the bf16 and float16
+     kernels at head dims 512 and 384 (the pair kernels: clusters of two
+     blocks, each on half of the columns) at B8 L2047 H8, timed, B2 L1000
+     (float16 also with the scaled cotangents) and B1 L129; every timed
+     row with its products issued over those the function needs and the
+     SDPA backend that served the yardstick;
   8. sft: the RoG joint-finetune SFT (scripts/train_sft.sh) through the
      port's entry (`python -m gnn_rag_tpu_torch.llm.sft`, run in this
      process) at LLaMA2-7B width cut to 4 of 32 layers, random weights from
@@ -180,7 +185,13 @@ The LLM reader (the flash-attention kernels K5a-c):
      float16 path's own distance from float32);
   11f. step-time-llm-d256-f16: the same at Gemma-2B's attention widths
      (D256_F16_FLAGS, cut to 6 of 18 layers, B2 x 2048): the float16
-     kernels at head dim 256.
+     kernels at head dim 256;
+  11g. step-time-llm-d512 and step-time-llm-d512-f16: the same at
+     DeepSeek-V4-Flash's attention head shape (D512_FLAGS: LLaMA2-7B's SFT
+     cut to 4 layers with 8 heads of 512 and one kv head), in bf16 and in
+     float16: the pair kernels at head dim 512, 4 launches of each a step;
+     the gradient check also on a 2-layer model at head dim 384 (dim 3072,
+     8 heads, one kv head).
 The reader at LLaMA2-7B widths and the full 32 layers (after the SFT
 trainer is freed):
   12. lora: LoRA finetuning (``llm.lora.LoRATrainer``: r 8, alpha 16 on
@@ -226,10 +237,13 @@ PALLAS = "gnn_rag_tpu/ops/pallas_mp.py"
 # bf16 and float16 ones load by TMA, the float32 ones (three bf16 terms a
 # float, converted by a warpgroup from plain loads) do not (the 16-bit ones
 # are templates on the element type and the head dim, the float32 ones on
-# the head dim: their instances by mangled name, <128> and <256>)
-SM90_KERNELS = {**{f"flash_{k}_sm90_kernelI{t}Li{d}E": ("HGMMA", "UTMALDG")
-                   for k in ("fwd", "dq", "dkv") for d in (128, 256)
-                   for t in ("13__nv_bfloat16", "6__half")},
+# the head dim: their instances by mangled name, <128> and <256>; the
+# 16-bit ones at 384 and 512 are the pair kernels, clusters of two blocks)
+SM90_KERNELS = {**{f"flash_{k}_{kind}_kernelI{t}Li{d}E": ("HGMMA", "UTMALDG")
+                   for k in ("fwd", "dq", "dkv")
+                   for kind, dims in (("sm90", (128, 256)),
+                                      ("pair", (384, 512)))
+                   for d in dims for t in ("13__nv_bfloat16", "6__half")},
                 **{f"flash_{k}_split3_kernelILi{d}E": ("HGMMA",)
                    for k in ("fwd", "dq", "dkv") for d in (128, 256)}}
 FLASH = "gnn_rag_tpu/llm_tpu/flash_attention.py"
@@ -272,7 +286,11 @@ SPEC_GAMMA = 4
 # column half): the step-time-llm-d256-fp32 step's B2 L2047, B2 L1000, B1
 # L129 and B1 L65 (one row past dq's 64-row block); and float16 at both
 # head dims, at the shapes of its bf16 rows (the float16 SFT steps' B8
-# L2047 H32 D128 and B2 L2047 H8 D256). Rows at L 2047 are timed
+# L2047 H32 D128 and B2 L2047 H8 D256); then the 16-bit kernels at head
+# dims 512 and 384 (the pair kernels), at the step-time-llm-d512 step's
+# B8 L2047 H8 (DeepSeek-V4-Flash's head shape: heads of 512, one kv head
+# repeated to 8) and the same at 384, B2 L1000 and B1 L129, in bf16 and
+# float16. Rows at L 2047 are timed
 ATTN_SHAPES = (("sft_b8_l2047_bf16", 8, SFT_SEQ - 1, 32, 128, "bfloat16"),
                ("sft_b8_l2047_fp32", 8, SFT_SEQ - 1, 32, 128, "float32"),
                ("ragged_b2_l1000_bf16", 2, 1000, 32, 128, "bfloat16"),
@@ -292,12 +310,19 @@ ATTN_SHAPES = (("sft_b8_l2047_bf16", 8, SFT_SEQ - 1, 32, 128, "bfloat16"),
                ("ragged_b1_l129_f16", 1, 129, 32, 128, "float16"),
                ("gemma_b2_l2047_d256_f16", 2, SFT_SEQ - 1, 8, 256, "float16"),
                ("ragged_b2_l1000_d256_f16", 2, 1000, 8, 256, "float16"),
-               ("ragged_b1_l129_d256_f16", 1, 129, 8, 256, "float16"))
+               ("ragged_b1_l129_d256_f16", 1, 129, 8, 256, "float16"),
+               *((f"{name}_d{d}_{tag}", B, L, 8, d, dtype)
+                 for dtype, tag in (("bfloat16", "bf16"), ("float16", "f16"))
+                 for d in (512, 384)
+                 for name, B, L in (("dsv4_b8_l2047", 8, SFT_SEQ - 1),
+                                    ("ragged_b2_l1000", 2, 1000),
+                                    ("ragged_b1_l129", 1, 129))))
 # the float16 rows whose backward also runs with the cotangent scaled: far
 # under float16's normal range (an unscaled split of ds would round it to
 # 0) and large
-F16_G_SCALES = {"ragged_b2_l1000_f16": (2.0 ** -16, 2.0 ** 4),
-                "ragged_b2_l1000_d256_f16": (2.0 ** -16, 2.0 ** 4)}
+F16_G_SCALES = {name: (2.0 ** -16, 2.0 ** 4) for name in (
+    "ragged_b2_l1000_f16", "ragged_b2_l1000_d256_f16",
+    "ragged_b2_l1000_d512_f16", "ragged_b2_l1000_d384_f16")}
 # the SFT step at Gemma-2B's widths (google/gemma-2b config.json: hidden
 # 2048, 8 heads of 256, one kv head, intermediate 16384, 18 layers, vocab
 # 256000, tied embeddings) on the repo's LLaMA block (SwiGLU, RMSNorm,
@@ -341,6 +366,18 @@ D256_F16_FLAGS = [{"--n_layers": str(D256_F16_LAYERS),
                   for flag, x in zip([None, *D256_FLAGS], D256_FLAGS)]
 # layers of the float16 phases' gradient check (B2, kernels vs plain)
 F16_GRAD_LAYERS = 2
+# the SFT at DeepSeek-V4-Flash's attention head shape (deepseek-ai/
+# DeepSeek-V4-Flash config.json: head_dim 512, num_key_value_heads 1) on
+# LLaMA2-7B's SFT (SFT_FLAGS: dim 4096, intermediate 11008, vocab 32000, B8
+# x 2048, cut to 4 of 32 layers) with 8 heads: the repo's block ties the
+# head dim to dim / heads, so DeepSeek's 64 query heads become 8 (its MoE,
+# sparse attention and sliding window are in neither package); F16_STEPS
+# steps in bf16, then in float16. Its gradient check also runs a model at
+# head dim 384 (dim 3072, 8 heads, one kv head)
+D512_FLAGS = F16_FLAGS[:-2] + ["--n_heads", "8", "--n_kv_heads", "1",
+                               "--dtype", "bfloat16"]
+D512_F16_FLAGS = D512_FLAGS[:-2] + ["--dtype", "float16"]
+D384_GRAD = dict(dim=3072, n_heads=8, n_kv_heads=1)
 # scripts/rearev_webqsp.sh with the reference's training defaults
 HEADLINE_FLAGS = ["ReaRev", "--entity_dim", "50", "--num_iter", "3",
                   "--num_ins", "2", "--num_gnn", "3", "--lm", "sbert",
@@ -2113,11 +2150,33 @@ def f16_tol(b):
 def flash_kernel_name(kind, dtype, hd):
     """The profiler's (demangled) name of a flash kernel instance, as a
     substring: the bf16 and float16 kernels are templates on the element
-    type and the head dim, the float32 ones on the head dim."""
+    type and the head dim (the pair kernels at 384 and 512), the float32
+    ones on the head dim."""
     if dtype == "float32":
         return f"flash_{kind}_split3_kernel<{hd}>"
     elem = {"bfloat16": "__nv_bfloat16", "float16": "__half"}[dtype]
-    return f"flash_{kind}_sm90_kernel<{elem}, {hd}>"
+    return f"flash_{kind}_{'pair' if hd > 256 else 'sm90'}_kernel<{elem}, {hd}>"
+
+
+def attn_products(dtype, hd):
+    """{kernel: [products it issues, products the function needs]}, each a
+    product over the (query, key) pairs and the head dim: the forward needs
+    s and PV, dq s, dp and dq, dk/dv s, dp, dv and dk. The 16-bit backward
+    issues its float p and ds as two terms (dq 4, dk/dv 6), and dk/dv's two
+    consumers each form s^T and dp^T at head dim 256 and up (8); float32
+    issues every product as six bf16 products."""
+    if dtype == "float32":
+        return {"fwd": [12, 2], "dq": [18, 3], "dkv": [24, 4]}
+    return {"fwd": [2, 2], "dq": [4, 3], "dkv": [6 if hd == 128 else 8, 4]}
+
+
+def sdpa_backend(q, k, v):
+    """The backend of PyTorch's causal SDPA on q, k, v ([B, H, L, D]): the
+    one its dispatcher picks for these inputs (PyTorch's flash backend
+    stops at head dim 256)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=True)).name
 
 
 def check_attn_kernels(device):
@@ -2215,6 +2274,7 @@ def check_attn_kernels(device):
                                   for k_, ms in row["ms"].items()}
             row["tflops"] = {k_: flops[k_] / ms / 1e9
                              for k_, ms in row["ms"].items()}
+            row["products_issued_needed"] = attn_products(dtype, D)
             row["plain_ms"] = {
                 "fwd": median_ms(lambda: fa.flash_fwd_plain(q, k, v), **timing),
                 "dq": median_ms(lambda: fa.flash_dq_plain(q, k, v, g, lse,
@@ -2233,6 +2293,7 @@ def check_attn_kernels(device):
             row["sdpa_bwd_ms"] = median_ms(
                 lambda: torch.autograd.grad(out, (qt, kt, vt), gt,
                                             retain_graph=True), **timing)
+            row["sdpa_backend"] = sdpa_backend(qt, kt, vt)
             del qt, kt, vt, out
         log("kernel-attn", json.dumps(row))
         rows.append(row)
@@ -2908,7 +2969,7 @@ def sft_entry_step_time(device, root, flags, phase):
     cfg, steps = trainer.model.cfg, trainer.cfg.total_steps
     n, batch = cfg.n_layers, trainer.cfg.batch_size
     want = (n * steps,) * 3
-    if (cfg.head_dim not in (128, 256) or len(losses) != steps
+    if (cfg.head_dim not in (128, 256, 384, 512) or len(losses) != steps
             or launches != want or plain_calls
             or not np.isfinite(losses).all()):
         raise AssertionError(f"{phase}: head dim {cfg.head_dim} {cfg.dtype}, "
@@ -3169,32 +3230,68 @@ def flash_dout_max():
         fa.flash_dq = real
 
 
-def sft_f16_step_time(device, root, flags, phase):
-    """Phases step-time-llm-f16 (F16_FLAGS: LLaMA2-7B width, 4 layers, B8)
-    and step-time-llm-d256-f16 (D256_F16_FLAGS: Gemma-2B's attention
-    widths, 6 layers, B2): the SFT computing in float16 through the port's
-    entry (``sft_entry_step_time``: F16_STEPS steps, the float16 kernels'
-    launches exact, the largest |dO| each flash backward received, ms a
-    step, one profiled step); with the trainer freed, the first step's
-    loss, kernels and plain attention, against the entry's (kernels 1e-5
-    relative: the same forward; plain 1e-3: float16 attention rounded at
-    other points, averaged over the batch's masked positions) and the token
-    log-probs kernel vs plain within twice plain's own distance from
-    float32 (``kernel_vs_plain``); and every parameter gradient of one B2
-    batch on an F16_GRAD_LAYERS-layer model at the run's widths, kernels vs
-    plain attention, each within twice the plain float16 gradient's own
-    distance from the float32 one (as the bf16 gradient check)."""
-    import dataclasses
-
+def grads_kernel_vs_plain(cfg, device, btok, bmsk):
+    """Every parameter gradient of one B2 batch on a model of ``cfg`` built
+    from the seed, kernels against plain attention: (flash launches, all
+    finite, worst parameter, its kernel-vs-plain distance over the plain
+    path's own distance from float32, the median of that ratio)."""
     import torch
 
     from gnn_rag_tpu_torch.llm import sft
     from gnn_rag_tpu_torch.llm.model import build_llama
+    few = build_llama(cfg, seed=SEED, device=device)
+
+    def grads(model):
+        for p in model.parameters():
+            p.grad = None
+        sft.completion_loss(model, btok[:2], bmsk[:2]).backward()
+        return {name: p.grad for name, p in model.named_parameters()}
+
+    reset_attn_counts()
+    got = grads(few)
+    torch.cuda.synchronize()
+    launches = attn_counts()
+    plain_grads = swapped_to_plain_attn(lambda: grads(few))
+    # the yardstick runs the plain versions, off the float32 kernels
+    fp32 = swapped_to_plain_attn(lambda: grads(as_dtype(few, "float32")))
+    ratios = {name: (got[name] - w).norm().item()
+              / max((w - fp32[name]).norm().item(), 1e-30)
+              for name, w in plain_grads.items()}
+    finite = all(torch.isfinite(g).all() for g in got.values())
+    worst = max(ratios, key=ratios.get)
+    del few, got, plain_grads, fp32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (launches, finite, worst, ratios[worst],
+            sorted(ratios.values())[len(ratios) // 2])
+
+
+def sft_16bit_step_time(device, root, flags, phase, more_grads=()):
+    """Phases step-time-llm-f16 (F16_FLAGS: LLaMA2-7B width, 4 layers, B8),
+    step-time-llm-d256-f16 (D256_F16_FLAGS: Gemma-2B's attention widths, 6
+    layers, B2), step-time-llm-d512 and step-time-llm-d512-f16 (D512_FLAGS,
+    D512_F16_FLAGS: DeepSeek-V4-Flash's head shape, bf16 and float16): the
+    SFT computing in a 16-bit type through the port's entry
+    (``sft_entry_step_time``: F16_STEPS steps, the kernels' launches exact,
+    the largest |dO| each flash backward received, ms a step, one profiled
+    step); with the trainer freed, the first step's loss, kernels and plain
+    attention, against the entry's (kernels 1e-5 relative: the same
+    forward; plain 1e-3: 16-bit attention rounded at other points, averaged
+    over the batch's masked positions) and the token log-probs kernel vs
+    plain within twice plain's own distance from float32
+    (``kernel_vs_plain``); and every parameter gradient of one B2 batch on
+    an F16_GRAD_LAYERS-layer model at the run's widths (and at each of
+    ``more_grads``' changes of them), kernels vs plain attention, each
+    within twice the plain 16-bit gradient's own distance from the float32
+    one (as the bf16 gradient check)."""
+    import dataclasses
+
+    import torch
     t0 = time.perf_counter()
     trainer, summary, btok, bmsk = sft_entry_step_time(device, root, flags,
                                                        phase)
     losses, cfg = summary["losses"], trainer.model.cfg
-    if cfg.dtype != "float16":
+    if cfg.dtype not in ("bfloat16", "float16"):
         raise AssertionError(f"{phase}: {cfg.dtype}")
     del trainer
     gc.collect()
@@ -3209,51 +3306,40 @@ def sft_f16_step_time(device, root, flags, phase):
     torch.cuda.empty_cache()
 
     # ---- every gradient of one B2 batch, kernels against plain ----
-    few = build_llama(dataclasses.replace(cfg, n_layers=F16_GRAD_LAYERS),
-                      seed=SEED, device=device)
-
-    def grads(model):
-        for p in model.parameters():
-            p.grad = None
-        sft.completion_loss(model, btok[:2], bmsk[:2]).backward()
-        return {name: p.grad for name, p in model.named_parameters()}
-
-    reset_attn_counts()
-    got = grads(few)
-    torch.cuda.synchronize()
-    grad_launches = attn_counts()
-    plain_grads = swapped_to_plain_attn(lambda: grads(few))
-    # the yardstick runs the plain versions, off the float32 kernels
-    fp32 = swapped_to_plain_attn(lambda: grads(as_dtype(few, "float32")))
-    ratios = {name: (got[name] - w).norm().item()
-              / max((w - fp32[name]).norm().item(), 1e-30)
-              for name, w in plain_grads.items()}
-    finite = all(torch.isfinite(g).all() for g in got.values())
-    worst = max(ratios, key=ratios.get)
-    del few, got, plain_grads, fp32
-    gc.collect()
-    torch.cuda.empty_cache()
+    checks = {}
+    for change in ({}, *more_grads):
+        few = dataclasses.replace(cfg, n_layers=F16_GRAD_LAYERS, **change)
+        checks[f"d{few.head_dim}"] = grads_kernel_vs_plain(few, device, btok,
+                                                           bmsk)
+    grad_launches, finite, worst, worst_ratio, median = checks[
+        f"d{cfg.head_dim}"]
     summary.update(
         first_loss_entry_kernel_plain=[losses[0], first_kernel, first_plain],
         first_nll_kernel_vs_plain_over_plain_vs_fp32=nll_ratio,
         grad_layers=F16_GRAD_LAYERS, grad_batch=2,
         grad_flash_launches=grad_launches, grads_finite=finite,
         grad_worst_param=worst,
-        grad_worst_kernel_vs_plain_over_plain_vs_fp32=ratios[worst],
-        grad_median_ratio=sorted(ratios.values())[len(ratios) // 2],
+        grad_worst_kernel_vs_plain_over_plain_vs_fp32=worst_ratio,
+        grad_median_ratio=median,
+        **({"grads_by_head_dim": {
+            hd: dict(flash_launches=c[0], finite=c[1], worst_param=c[2],
+                     worst_kernel_vs_plain_over_plain_vs_fp32=c[3],
+                     median_ratio=c[4]) for hd, c in checks.items()}}
+           if more_grads else {}),
         wall_s=time.perf_counter() - t0)
     log(phase, json.dumps(summary))
     k = F16_GRAD_LAYERS
+    bad_grads = {hd: c for hd, c in checks.items()
+                 if not (c[0] == (k, k, k) and c[1] and c[3] <= 2)}
     if not (abs(first_kernel - losses[0]) <= 1e-5 * abs(losses[0])
             and abs(first_plain - losses[0]) <= 1e-3 * abs(losses[0])
-            and nll_ratio <= 2 and grad_launches == (k, k, k) and finite
-            and ratios[worst] <= 2):
+            and nll_ratio <= 2 and not bad_grads):
         raise AssertionError(f"{phase}: first loss entry {losses[0]}, kernel "
                              f"{first_kernel}, plain {first_plain}; per-token "
                              f"kernel vs plain {nll_ratio} x plain vs fp32; "
-                             f"gradient launches {grad_launches}, finite "
-                             f"{finite}, {worst} kernel vs plain "
-                             f"{ratios[worst]} x plain vs fp32")
+                             f"gradients (launches, finite, worst parameter, "
+                             f"its kernel vs plain over plain vs fp32, "
+                             f"median) failing: {bad_grads}")
     return summary
 
 
@@ -4220,11 +4306,16 @@ def main():
         d256 = sft_d256_step_time(device, os.path.join(root, "llm"), prompts)
         d256_fp32 = sft_d256_fp32_step_time(device, os.path.join(root, "llm"),
                                             prompts)
-        f16 = {"d128": sft_f16_step_time(device, os.path.join(root, "llm"),
-                                         F16_FLAGS, "step-time-llm-f16"),
-               "d256": sft_f16_step_time(device, os.path.join(root, "llm"),
-                                         D256_F16_FLAGS,
-                                         "step-time-llm-d256-f16")}
+        f16 = {"d128": sft_16bit_step_time(device, os.path.join(root, "llm"),
+                                           F16_FLAGS, "step-time-llm-f16"),
+               "d256": sft_16bit_step_time(device, os.path.join(root, "llm"),
+                                           D256_F16_FLAGS,
+                                           "step-time-llm-d256-f16")}
+        d512 = {dtype: sft_16bit_step_time(device, os.path.join(root, "llm"),
+                                           flags, phase, (D384_GRAD,))
+                for dtype, flags, phase in (
+                    ("bfloat16", D512_FLAGS, "step-time-llm-d512"),
+                    ("float16", D512_F16_FLAGS, "step-time-llm-d512-f16"))}
         _, reader_7b, lora_launches = run_lora(device, tokens, mask)
         run_serve_7b(device, reader_7b, os.path.join(root, "llm", "reader"),
                      prompts)
@@ -4474,18 +4565,38 @@ def main():
                     d256_fp32["scoring_flash_launches"][0]}
                    if key == "fwd" else {})}})
     # the float16 kernels (the <__half, 128> and <__half, 256> instances) on
-    # the float16 SFT paths, timed at their steps' shapes
-    for hd, suffix, shape_name in ((128, "_f16", "sft_b8_l2047_f16"),
-                                   (256, "_d256_f16", "gemma_b2_l2047_d256_f16")):
-        rows_f16 = {r["shape"]: r for r in attn_rows
-                    if r["D"] == hd and r["dtype"] == "float16"}
-        h_row, run = rows_f16[shape_name], f16[f"d{hd}"]
+    # the float16 SFT paths, timed at their steps' shapes; the bf16 and
+    # float16 kernels at head dims 512 and 384 (the pair kernels) on the
+    # step-time-llm-d512 paths: 512 in their SFT steps, 384 in their
+    # gradient checks, both timed at the step's shape, B8 L2047 H8
+    groups = [("float16", hd, suffix, shape_name, f16[f"d{hd}"], {
+        f"step_time_llm{suffix}": "flash_launches_fwd_dq_dkv",
+        f"{suffix[1:]}_timed_steps": "timed_flash_launches",
+        f"{suffix[1:]}_grads": "grad_flash_launches"})
+        for hd, suffix, shape_name in (
+            (128, "_f16", "sft_b8_l2047_f16"),
+            (256, "_d256_f16", "gemma_b2_l2047_d256_f16"))]
+    for dtype, tag, phase in (("bfloat16", "bf16", "step_time_llm_d512"),
+                              ("float16", "f16", "step_time_llm_d512_f16")):
+        run = d512[dtype]
+        groups.append((dtype, 512, f"_d512_{tag}", f"dsv4_b8_l2047_d512_{tag}",
+                       run, {phase: "flash_launches_fwd_dq_dkv",
+                             f"{phase}_timed_steps": "timed_flash_launches",
+                             f"{phase}_grads_d512": "grad_flash_launches"}))
+        run_384 = {"d384_grads": run["grads_by_head_dim"]["d384"][
+            "flash_launches"]}
+        groups.append((dtype, 384, f"_d384_{tag}", f"dsv4_b8_l2047_d384_{tag}",
+                       run_384, {f"{phase}_grads_d384": "d384_grads"}))
+    for dtype, hd, suffix, shape_name, run, paths in groups:
+        rows_t = {r["shape"]: r for r in attn_rows
+                  if r["D"] == hd and r["dtype"] == dtype}
+        h_row = rows_t[shape_name]
         for i, (key, line) in enumerate((("fwd", 47), ("dq", 132),
                                          ("dkv", 170))):
             parts = {"fwd": ("o", "lse"), "dq": ("dq",),
                      "dkv": ("dk", "dv")}[key]
             by_shape = {}
-            for shape, r in rows_f16.items():
+            for shape, r in rows_t.items():
                 by_shape[shape] = max(r["err_ref_over_tol_by_output"][p][2]
                                       for p in parts)
                 for scale, errs in r.get(
@@ -4493,25 +4604,25 @@ def main():
                     if key != "fwd":
                         by_shape[f"{shape} dO x {scale}"] = max(
                             errs[p][2] for p in parts)
+            by_path = {name: run[field][i] for name, field in paths.items()}
             kernels.append({
                 "name": f"flash_attention_{key}{suffix}", "route": "cuda",
-                "kernel": flash_kernel_name(key, "float16", hd),
+                "kernel": flash_kernel_name(key, dtype, hd),
                 "source": "gnn_rag_tpu_torch/csrc/flash_attention.cu",
                 "replaces": f"{FLASH}:{line}",
-                "launches": run["flash_launches_fwd_dq_dkv"][i],
+                "launches": next(iter(by_path.values())),
                 "max_abs_err": max(h_row["err_ref_over_tol_by_output"][p][0]
                                    for p in parts),
                 "ms": h_row["ms"][key], "plain_ms": h_row["plain_ms"][key],
                 "bound_ms": h_row["bound_ms"][key],
                 "bound_by": h_row["bound_by"][key],
                 "library_ms": h_row["sdpa_fwd_ms"] if key == "fwd" else None,
+                "library_backend": h_row["sdpa_backend"],
                 "bound_share": h_row["bound_share"][key],
                 "tflops": h_row["tflops"][key], "shape": h_row["shape"],
+                "products_issued_needed": h_row["products_issued_needed"][key],
                 "max_err_over_tol_by_shape": by_shape,
-                "launches_by_path": {
-                    f"step_time_llm{suffix}": run["flash_launches_fwd_dq_dkv"][i],
-                    f"{suffix[1:]}_timed_steps": run["timed_flash_launches"][i],
-                    f"{suffix[1:]}_grads": run["grad_flash_launches"][i]},
+                "launches_by_path": by_path,
                 **({} if key == "fwd" else
                    {"sdpa_bwd_ms_dq_dk_dv_together": h_row["sdpa_bwd_ms"]})})
     log("total", f"wall {time.perf_counter() - t_main:.1f} s")

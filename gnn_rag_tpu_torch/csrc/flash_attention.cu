@@ -11,8 +11,9 @@
 //   o = (sum_k T(exp(s - m)) v) / l        (p rounded to v's type T before PV)
 //   p = exp(s - lse), dp = dO v^T, ds = p * (dp - delta) * scale,
 //   dq = ds k, dk = ds^T q, dv = p^T dO,   delta = rowsum(dO * o) (given).
-// Tensors keep the model's [B, N, H, D] layout (D = 128 or 256, in float32,
-// bfloat16 and float16; the wrapper raises on any other D); lse and delta are
+// Tensors keep the model's [B, N, H, D] layout (D = 128 or 256 in float32;
+// 128, 256, 384 or 512 in bfloat16 and float16; the wrapper raises on any
+// other D); lse and delta are
 // [B*H, L] float, stored once per row (the TPU kernel replicated them over
 // 128 lanes for its block shapes). All sums are float; every product is the
 // float product of the (widened) inputs, as in the TPU kernels
@@ -128,6 +129,32 @@
 //   columns (consumer c accumulates dk and dv columns 128c ..), each forming
 //   s^T and dp^T over the whole depth itself (twice the score products, for
 //   no exchange between them); 2 stages (194 KB).
+// - head dims 384 and 512 (flash_{fwd,dq,dkv}_pair_kernel<T, HD>): a head
+//   row of 512 is 1 KB, so 128 resident Q rows take 128 KB and one 64-key K
+//   + V stage 128 KB, and o, dq or dk/dv of 64 rows x 512 would be 256
+//   floats a thread. So the depth is split over a thread block cluster of
+//   two blocks on the same rows (keys), as the float32 kernels split it at
+//   256: block rank r owns columns C r .. C r + C - 1, C = HD / 2 (192 or
+//   256), and runs the HD 256 layouts above on them: the forward's 64-key
+//   tiles; dq's 32-key tiles in 2 stages rather than 3, to make room for
+//   two 16 KB exchanges; dk/dv's 64 keys a block with the consumers
+//   splitting the columns of dk and dv, but 32-row Q and dO tiles (3
+//   stages): s^T and dp^T of 64 rows would be 64 floats a thread beside dk
+//   and dv's 128, and spill. Each consumer forms its partial s (and dp)
+//   over the block's C columns, sends it to the same consumer of the peer
+//   (Exchange) and adds the peer's: IEEE addition commutes, so both blocks
+//   hold the same bits of s and dp, no score product is done twice across
+//   the pair, and every block accumulates only its own columns (in dk/dv
+//   both consumers of a block form the same partials, as at 256).
+//   Accumulators are 64 x 64 units (m64n64k16 with A from registers), so
+//   that 192 columns are whole boxes: dk/dv's consumer 0 takes two units,
+//   consumer 1 the rest (two at 512, one at 384). Shared memory at HD 512:
+//   forward and dq 230,488 bytes, dk/dv 198,488 (of 232,448); at 384 three
+//   quarters of the tiles. Products issued / needed: forward 2 / 2 (s,
+//   PV), dq 4 / 3 (ds's two terms), dk/dv 8 / 4 (both consumers' s^T and
+//   dp^T, the two terms of p^T and of ds^T). 1/sqrt(D) is not exact in
+//   float at 384 or 512 (it is at 128 and 256); it is the float nearest,
+//   as in the JAX kernels.
 // Tensor maps cover the 4-D (D, H, N, B) view with the real strides, so rows
 // past L read as TMA's zeros (never the next batch's rows; the float32
 // converters write zeros there) and are masked or not stored. Only tiles
@@ -211,7 +238,17 @@
 // two are within noise);
 // flash_fwd_split3_kernel 168 at launch (consumers 200, converter 104) at
 // both head dims, flash_dkv_split3_kernel 222 (<128>) and 244 (<256>),
-// flash_dq_split3_kernel 137 and 142; no spills, no stack frames.
+// flash_dq_split3_kernel 137 and 142; the pair kernels (384, 512, both
+// types) 168 at launch, consumers 240 (forward, dq) and 232 (dk/dv); no
+// spills, no stack frames.
+//
+// At head dims 512 and 384 the pairs take 1.29 / 2.31 / 4.56 ms and 1.20 /
+// 2.12 / 4.07 ms in bf16 at B8 L2047 H8 (float16 within 5%; chip_smoke.py
+// on an H100 at 700 W): 21% / 18% / 12% and 17% / 15% / 10% of their
+// bounds. Each consumer runs its tile's scores, the exchange with the peer
+// and its p and ds in turn, in step with the other consumer, so the
+// tensor cores idle through every exchange; dk/dv on 64-row tiles ran
+// 16-44% faster, but spilled.
 //
 // At head dim 256 the float32 kernels take 0.62 / 1.16 / 1.30 ms (forward /
 // dq / dk/dv) at B2 L2047 H8 D256 (chip_smoke.py on an H100 at 700 W): 34%
@@ -361,8 +398,9 @@ __device__ __forceinline__ float pow2(int e) {
 // first tiles its scale seldom falls; with the rescale in every tile dq
 // took 1.47 ms at B8 L2047 H32 D128, with the vote 1.12-1.14, bf16 1.01-
 // 1.12 in the same runs on an H100 at 700 W). |ds| <= p |dp - delta| /
-// sqrt(D) < 2^38 for any finite float16 inputs at D 128 or 256 (|dp|,
-// |delta| <= D 65504^2), so the clamp at 2^60 never binds.
+// sqrt(D) <= 2 sqrt(D) 65504^2 < 2^37.5 for any finite float16 inputs at
+// every D the kernels take, up to 512 (|dp|, |delta| <= D 65504^2 < D
+// 2^32), so the clamp at 2^60 never binds.
 template <int N>
 __device__ __forceinline__ bool scale_ds_rows(float (&v)[N], int (&e)[2],
                                               float (&rescale)[2]) {
@@ -399,13 +437,14 @@ __device__ __forceinline__ float2 pack_pair(const float*, float lo, float hi) {
   return make_float2(lo, hi);
 }
 
-// rows row and row + 8 of a 64 x 128 float accumulator, scaled by inv[r],
-// into columns col0 .. col0 + 127 of head h of a [B, N, H, HD] tensor of T
-// (bf16 or float); rows past N are not stored
-template <typename T, int HD = D>
+// rows row and row + 8 of a 64 x 2NA float accumulator (NA floats a
+// thread: 64 for 128 columns, 32 for 64), scaled by inv[r], into columns
+// col0 .. of head h of a [B, N, H, HD] tensor of T (bf16, float16 or
+// float); rows past N are not stored
+template <typename T, int HD = D, int NA>
 __device__ __forceinline__ void store_acc_rows(T* dst, int b, int h, int N,
                                                int H, int row, int t,
-                                               const float (&acc)[64],
+                                               const float (&acc)[NA],
                                                const float (&inv)[2],
                                                int col0 = 0) {
   using Pair = decltype(pack_pair(dst, 0.f, 0.f));
@@ -415,22 +454,23 @@ __device__ __forceinline__ void store_acc_rows(T* dst, int b, int h, int N,
     Pair* out = reinterpret_cast<Pair*>(
         dst + offset<HD>(b, row + 8 * r, h, N, H) + col0);
 #pragma unroll
-    for (int n = 0; n < 16; ++n)
+    for (int n = 0; n < NA / 4; ++n)
       out[n * 4 + t] = pack_pair(dst, acc[4 * n + 2 * r] * inv[r],
                                  acc[4 * n + 2 * r + 1] * inv[r]);
   }
 }
 
-// rows row0 .. of head h, batch b, into a tile of HD / 64 boxes `box` bytes
-// apart, one TMA load a box, completing on `bar`
-template <int HD>
+// rows row0 .. of head h, batch b, columns col0 .. col0 + W - 1, into a
+// tile of W / 64 boxes `box` bytes apart, one TMA load a box, completing on
+// `bar`
+template <int W>
 __device__ __forceinline__ void load_rows(unsigned char* dst, int box,
                                           const CUtensorMap* map,
                                           uint64_t* bar, int h, int row0,
-                                          int b) {
+                                          int b, int col0 = 0) {
 #pragma unroll
-  for (int c = 0; c < HD / 64; ++c)
-    sm90::tma_load_4d(dst + c * box, map, bar, 64 * c, h, row0, b);
+  for (int c = 0; c < W / 64; ++c)
+    sm90::tma_load_4d(dst + c * box, map, bar, col0 + 64 * c, h, row0, b);
 }
 
 constexpr int FWD_ROWS = 128;   // query rows per block
@@ -640,9 +680,9 @@ template <int ST>
 struct DkvBars {
   uint64_t kv_full, full[ST], empty[ST];
 };
-template <int ST>
+template <int ST, int ROWS = DKV_ROWS>
 struct DkvStats {                // a streamed tile's lse and delta
-  float lse[ST][DKV_ROWS], delta[ST][DKV_ROWS];
+  float lse[ST][ROWS], delta[ST][ROWS];
 };
 template <int HD>
 constexpr size_t dkv_sm90_smem() {
@@ -1798,6 +1838,632 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
   store_acc_rows<float, HD>(dq, b, h, L, H, row, t, acc, one, col0);
 }
 
+// ------------- bfloat16 and float16 at head dims 384 and 512: pairs of blocks
+// A cluster of two blocks on the same rows (keys for dk/dv), block rank r
+// owning columns C r .. C r + C - 1, C = HD / 2 (192 or 256): the 16-bit
+// layouts above on C columns (C / 64 boxes a head row), each consumer
+// forming its partial s (and dp) over the block's C columns from zero and
+// adding the peer block's through an Exchange, as the float32 pairs do.
+// Accumulators are 64 x 64 units (32 floats a thread, wgmma m64n64k16 with
+// A from registers), so that 192 columns split into whole boxes.
+
+constexpr int PAIR_FWD_KEYS = 64;   // keys per K or V tile
+constexpr int PAIR_DQ_KEYS = 32;
+// 128 rows of Q (and of dO in dq) resident, KEYS-key K and V tiles through
+// FWD_STAGES stages, an exchange a consumer: at C 256 (HD 512) 230,488
+// bytes for both
+template <int HD, int KEYS, int RESIDENT>
+constexpr size_t pair_q_smem() {
+  return 1024 +
+         static_cast<size_t>(RESIDENT * 128 + 2 * FWD_STAGES * KEYS) *
+             (HD / PAIR) * 2 +
+         2 * sizeof(Exchange) + sizeof(FwdBars);
+}
+static_assert(pair_q_smem<512, PAIR_FWD_KEYS, 1>() <= MAX_SMEM,
+              "forward at HD 512");
+static_assert(pair_q_smem<512, PAIR_DQ_KEYS, 2>() <= MAX_SMEM, "dq at HD 512");
+
+// forward at HD 384 / 512, grid (2 ceil(L / FWD_ROWS), B*H) in clusters of
+// two blocks along x: flash_fwd_sm90_kernel's layout on the block's C
+// columns with 64-key tiles (Q 128 x C, a K + V stage 2 x 64 x C); per tile
+// each consumer's partial s (m64n64k16 over C / 16 depth slices) plus the
+// peer's, the online softmax, p rounded to T, o += p v one 64-column unit
+// at a time (v MN-major). Only rank 0 writes lse (both blocks hold it).
+template <typename T, int HD>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+    flash_fwd_pair_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          T* __restrict__ o,
+                          float* __restrict__ lse, int H, int L, int S,
+                          float scale) {
+  constexpr int C = HD / PAIR, NB = C / 64, KEYS = PAIR_FWD_KEYS;
+  constexpr int Q_BOX = FWD_ROWS * ROW_BYTES, KV_BOX = KEYS * ROW_BYTES;
+  constexpr int Q_BYTES = NB * Q_BOX, KV_BYTES = NB * KV_BOX;
+  extern __shared__ unsigned char raw_smem[];
+  unsigned char* const Qs = align1024(raw_smem);
+  unsigned char* const Ks = Qs + Q_BYTES;                   // [stage]
+  unsigned char* const Vs = Ks + FWD_STAGES * KV_BYTES;    // [stage]
+  auto* xch = reinterpret_cast<Exchange*>(Vs + FWD_STAGES * KV_BYTES);
+  auto* bars = reinterpret_cast<FwdBars*>(xch + 2);
+  const uint32_t rank = sm90::cluster_ctarank();
+  const int col0 = C * rank;                 // this block's columns
+  const int q0 = (gridDim.x / PAIR - 1 - blockIdx.x / PAIR) * FWD_ROWS;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int n_tiles = (min(S, q0 + FWD_ROWS) + KEYS - 1) / KEYS;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&bars->q_full, 1);
+    for (int st = 0; st < FWD_STAGES; ++st) {
+      sm90::mbar_init(&bars->k_full[st], 1);
+      sm90::mbar_init(&bars->v_full[st], 1);
+      sm90::mbar_init(&bars->empty[st], 2 * WG / 32);   // consumer warps
+    }
+    init_exchange(&xch[0]);
+    init_exchange(&xch[1]);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  sm90::cluster_sync();   // the peer's barriers too
+
+  if (wg == 0) {   // producer
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      sm90::mbar_arrive_expect_tx(&bars->q_full, Q_BYTES);
+      load_rows<C>(Qs, Q_BOX, &tq, &bars->q_full, h, q0, b, col0);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % FWD_STAGES;
+        sm90::mbar_wait(&bars->empty[st], ((j / FWD_STAGES) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&bars->k_full[st], KV_BYTES);
+        load_rows<C>(Ks + st * KV_BYTES, KV_BOX, &tk, &bars->k_full[st], h,
+                       j * KEYS, b, col0);
+        sm90::mbar_arrive_expect_tx(&bars->v_full[st], KV_BYTES);
+        load_rows<C>(Vs + st * KV_BYTES, KV_BOX, &tv, &bars->v_full[st], h,
+                       j * KEYS, b, col0);
+      }
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<240>();
+  const int cw = wg - 1;                     // rows q0 + 64 cw ..
+  const int tid = threadIdx.x % WG;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row = q0 + 64 * cw + 16 * warp + g;   // and row + 8
+  const unsigned char* const Qw = Qs + 64 * cw * ROW_BYTES;
+  const float sl2 = scale * LOG2E;           // scores in log2 units
+  float acc[NB][32];                         // o, a 64-column unit each
+#pragma unroll
+  for (int u = 0; u < NB; ++u)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[u][i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  sm90::mbar_wait(&bars->q_full, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % FWD_STAGES, k0 = j * KEYS;
+    const uint32_t phase = (j / FWD_STAGES) & 1;
+    const unsigned char* kt = Ks + st * KV_BYTES;
+    const unsigned char* vt = Vs + st * KV_BYTES;
+    float s[KEYS / 2];
+    const uint64_t desc_q = k_major(Qw), desc_k = k_major(kt);
+    sm90::mbar_wait(&bars->k_full[st], phase);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C / 16; ++kk)
+      sm90::wgmma_m64n64k16_ss<T>(s, desc_q + k_step(Q_BOX, kk),
+                                  desc_k + k_step(KV_BOX, kk), kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+    sm90::fence_regs(s);
+    add_peer_partials(&xch[cw], rank ^ 1, tid, j, s);
+
+#pragma unroll
+    for (int i = 0; i < KEYS / 2; ++i) s[i] *= sl2;
+    // the diagonal tile and a ragged last tile: key > row or key >= S
+    if (k0 + KEYS - 1 > q0 + 64 * cw || k0 + KEYS > S) {
+#pragma unroll
+      for (int i = 0; i < KEYS / 2; ++i) {
+        const int key = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+        if (key > row + 8 * ((i / 2) & 1) || key >= S) s[i] = NEG_INF;
+      }
+    }
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int i = 0; i < KEYS / 2; ++i)
+      mx[(i / 2) & 1] = fmaxf(mx[(i / 2) & 1], s[i]);
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];                      // this thread's share of the sum
+    }
+#pragma unroll
+    for (int u = 0; u < NB; ++u) {
+      sm90::fence_regs(acc[u]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[u][i] *= alpha[(i / 2) & 1];
+    }
+    // p (float) into the row sums, p rounded to T into the A registers
+    uint32_t pa[KEYS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < KEYS / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 8 * kk + 2 * r, half = r & 1;
+        const float p0 = exp2f(s[i] - m[half]), p1 = exp2f(s[i + 1] - m[half]);
+        l[half] += p0;
+        l[half] += p1;
+        pa[kk][r] = pack16<T>(p0, p1);
+      }
+
+    const uint64_t desc_v = mn_major(vt, KV_BOX);
+    sm90::mbar_wait(&bars->v_full[st], phase);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < NB; ++u)
+#pragma unroll
+      for (int kk = 0; kk < KEYS / 16; ++kk)
+        sm90::wgmma_m64n64k16_rs<T>(
+            acc[u], pa[kk], desc_v + ((u * KV_BOX) >> 4) + mn_step(kk), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+#pragma unroll
+    for (int u = 0; u < NB; ++u) sm90::fence_regs(acc[u]);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
+  }
+  drain_exchange(&xch[cw], n_tiles);
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+    inv[r] = 1.f / l[r];
+    if (t == 0 && row + 8 * r < L && rank == 0)   // both blocks hold it
+      lse[static_cast<int64_t>(bh) * L + row + 8 * r] = m[r] * LN2 + logf(l[r]);
+  }
+#pragma unroll
+  for (int u = 0; u < NB; ++u)
+    store_acc_rows<T, HD>(o, b, h, L, H, row, t, acc[u], inv,
+                            col0 + 64 * u);
+}
+
+// dq at HD 384 / 512, grid (2 ceil(L / DQ_ROWS), B*H) in clusters of two
+// blocks along x: flash_dq_sm90_kernel's layout on the block's C columns
+// with 32-key tiles through 2 stages (Q and dO 2 x 128 x C resident); per
+// tile each consumer's partial s and dp (m64n32k16 over C / 16 slices)
+// plus the peer's, p and ds (float16: ds on its row scales), dq += ds k one
+// 64-column unit at a time (ds as hi + mid A terms, k MN-major). A consumer
+// whose rows all lie before a tile's first key skips it in both blocks.
+template <typename T, int HD>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+    flash_dq_pair_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tg,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         T* __restrict__ dq, int H, int L, int S,
+                         float scale) {
+  constexpr int C = HD / PAIR, NB = C / 64, KEYS = PAIR_DQ_KEYS;
+  constexpr int Q_BOX = DQ_ROWS * ROW_BYTES, KV_BOX = KEYS * ROW_BYTES;
+  constexpr int Q_BYTES = NB * Q_BOX, KV_BYTES = NB * KV_BOX;
+  extern __shared__ unsigned char raw_smem[];
+  unsigned char* const Qs = align1024(raw_smem);
+  unsigned char* const Gs = Qs + Q_BYTES;                   // dO
+  unsigned char* const Ks = Gs + Q_BYTES;                   // [stage]
+  unsigned char* const Vs = Ks + FWD_STAGES * KV_BYTES;    // [stage]
+  auto* xch = reinterpret_cast<Exchange*>(Vs + FWD_STAGES * KV_BYTES);
+  auto* bars = reinterpret_cast<FwdBars*>(xch + 2);
+  const uint32_t rank = sm90::cluster_ctarank();
+  const int col0 = C * rank;                 // this block's columns
+  const int q0 = (gridDim.x / PAIR - 1 - blockIdx.x / PAIR) * DQ_ROWS;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int n_tiles = (min(S, q0 + DQ_ROWS) + KEYS - 1) / KEYS;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&bars->q_full, 1);
+    for (int st = 0; st < FWD_STAGES; ++st) {
+      sm90::mbar_init(&bars->k_full[st], 1);
+      sm90::mbar_init(&bars->v_full[st], 1);
+      sm90::mbar_init(&bars->empty[st], 2 * WG / 32);   // consumer warps
+    }
+    init_exchange(&xch[0]);
+    init_exchange(&xch[1]);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  sm90::cluster_sync();   // the peer's barriers too
+
+  if (wg == 0) {   // producer
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      sm90::mbar_arrive_expect_tx(&bars->q_full, 2 * Q_BYTES);
+      load_rows<C>(Qs, Q_BOX, &tq, &bars->q_full, h, q0, b, col0);
+      load_rows<C>(Gs, Q_BOX, &tg, &bars->q_full, h, q0, b, col0);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % FWD_STAGES;
+        sm90::mbar_wait(&bars->empty[st], ((j / FWD_STAGES) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&bars->k_full[st], KV_BYTES);
+        load_rows<C>(Ks + st * KV_BYTES, KV_BOX, &tk, &bars->k_full[st], h,
+                       j * KEYS, b, col0);
+        sm90::mbar_arrive_expect_tx(&bars->v_full[st], KV_BYTES);
+        load_rows<C>(Vs + st * KV_BYTES, KV_BOX, &tv, &bars->v_full[st], h,
+                       j * KEYS, b, col0);
+      }
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<240>();
+  const int cw = wg - 1;                     // rows r0 = q0 + 64 cw ..
+  const int tid = threadIdx.x % WG;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = q0 + 64 * cw;
+  const int row = r0 + 16 * warp + g;        // and row + 8
+  const unsigned char* const Qw = Qs + 64 * cw * ROW_BYTES;
+  const unsigned char* const Gw = Gs + 64 * cw * ROW_BYTES;
+  const float sl2 = scale * LOG2E;
+  float lse2[2], dl[2];                      // lse in log2 units, delta
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = row + 8 * r < L;
+    const int64_t i = static_cast<int64_t>(bh) * L + row + 8 * r;
+    lse2[r] = in ? lse[i] * LOG2E : 0.f;
+    dl[r] = in ? delta[i] : 0.f;
+  }
+  // tiles whose first key lies past this consumer's last row add nothing
+  const int my_tiles = (min(S, r0 + 64) + KEYS - 1) / KEYS;
+  float acc[NB][32];                         // dq, a 64-column unit each
+#pragma unroll
+  for (int u = 0; u < NB; ++u)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[u][i] = 0.f;
+  int ds_e[2] = {DS16_E0, DS16_E0};          // float16: ds's row scales
+  sm90::mbar_wait(&bars->q_full, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % FWD_STAGES, k0 = j * KEYS;
+    const uint32_t phase = (j / FWD_STAGES) & 1;
+    const unsigned char* kt = Ks + st * KV_BYTES;
+    const unsigned char* vt = Vs + st * KV_BYTES;
+    sm90::mbar_wait(&bars->k_full[st], phase);
+    sm90::mbar_wait(&bars->v_full[st], phase);
+    if (j < my_tiles) {
+      float s[KEYS / 2], dp[KEYS / 2];
+      const uint64_t desc_q = k_major(Qw), desc_k = k_major(kt);
+      const uint64_t desc_g = k_major(Gw), desc_v = k_major(vt);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C / 16; ++kk)
+        sm90::wgmma_m64n32k16_ss<T>(s, desc_q + k_step(Q_BOX, kk),
+                                    desc_k + k_step(KV_BOX, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < C / 16; ++kk)
+        sm90::wgmma_m64n32k16_ss<T>(dp, desc_g + k_step(Q_BOX, kk),
+                                    desc_v + k_step(KV_BOX, kk), kk > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait();
+      sm90::fence_regs(s);
+      sm90::fence_regs(dp);
+      // live tiles are the first my_tiles, so j counts the exchanges
+      add_peer_partials(&xch[cw], rank ^ 1, tid, j, s, dp);
+
+      // p = exp(s scale - lse), ds = p (dp - delta) scale; rows: queries
+      // row + 8((i / 2) & 1), columns: keys k0 + c
+      const bool edge = k0 + KEYS - 1 > r0 || k0 + KEYS > S;
+#pragma unroll
+      for (int i = 0; i < KEYS / 2; ++i) {
+        const int r = (i / 2) & 1;
+        float p = exp2f(fmaf(s[i], sl2, -lse2[r]));
+        if (edge) {
+          const int kc = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+          if (kc > row + 8 * r || kc >= S) p = 0.f;
+        }
+        dp[i] = p * (dp[i] - dl[r]) * scale;
+      }
+      if constexpr (sm90::is_f16<T>) {   // ds on its row scales
+        float rescale[2];
+        if (scale_ds_rows(dp, ds_e, rescale)) {
+#pragma unroll
+          for (int u = 0; u < NB; ++u) {
+            sm90::fence_regs(acc[u]);
+#pragma unroll
+            for (int i = 0; i < 32; ++i) acc[u][i] *= rescale[(i / 2) & 1];
+          }
+        }
+      }
+      uint32_t d_hi[KEYS / 16][4], d_mid[KEYS / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < KEYS / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          split2<T>(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1], d_hi[kk][r],
+                    d_mid[kk][r]);
+#pragma unroll
+      for (int u = 0; u < NB; ++u) sm90::fence_regs(acc[u]);
+      sm90::wgmma_fence();
+      const uint64_t desc_kt = mn_major(kt, KV_BOX);
+#pragma unroll
+      for (int u = 0; u < NB; ++u)
+#pragma unroll
+        for (int kk = 0; kk < KEYS / 16; ++kk) {
+          const uint64_t bk = desc_kt + ((u * KV_BOX) >> 4) + mn_step(kk);
+          sm90::wgmma_m64n64k16_rs<T>(acc[u], d_hi[kk], bk, 1);
+          sm90::wgmma_m64n64k16_rs<T>(acc[u], d_mid[kk], bk, 1);
+        }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait();
+#pragma unroll
+      for (int u = 0; u < NB; ++u) sm90::fence_regs(acc[u]);
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
+  }
+  drain_exchange(&xch[cw], min(my_tiles, n_tiles));
+  float inv[2] = {1.f, 1.f};
+  if constexpr (sm90::is_f16<T>) {           // the row scales undone
+    inv[0] = pow2(-ds_e[0]);
+    inv[1] = pow2(-ds_e[1]);
+  }
+#pragma unroll
+  for (int u = 0; u < NB; ++u)
+    store_acc_rows<T, HD>(dq, b, h, L, H, row, t, acc[u], inv,
+                            col0 + 64 * u);
+}
+
+constexpr int PAIR_DKV_ROWS = 32;    // query rows per streamed tile
+constexpr int PAIR_DKV_STAGES = 3;
+
+// K and V of 64 keys x C resident, 32-row Q and dO tiles through
+// PAIR_DKV_STAGES stages with their lse and delta, an exchange a consumer:
+// at C 256 (HD 512) 198,488 bytes
+template <int HD>
+constexpr size_t dkv_pair_smem() {
+  return 1024 +
+         static_cast<size_t>(2 * 64 + 2 * PAIR_DKV_STAGES * PAIR_DKV_ROWS) *
+             (HD / PAIR) * 2 +
+         2 * sizeof(Exchange) + sizeof(DkvStats<PAIR_DKV_STAGES, PAIR_DKV_ROWS>) +
+         sizeof(DkvBars<PAIR_DKV_STAGES>);
+}
+static_assert(dkv_pair_smem<512>() <= MAX_SMEM, "dk/dv at HD 512");
+
+// A dk/dv consumer of the pair: the block's 64 keys (key, key + 8 its
+// rows), U 64-column units of dk and dv from unit 2 cw (consumer 0 the
+// first two of the block's C / 64, consumer 1 the rest: two at C 256, one
+// at 192). Both consumers form the block's partial s^T and dp^T; each adds
+// the same consumer's of the peer block.
+template <typename T, int HD, int U>
+__device__ __forceinline__ void dkv_pair_consume(
+    const unsigned char* Ks, const unsigned char* Vs,
+    const unsigned char* Qs, const unsigned char* Gs,
+    const DkvStats<PAIR_DKV_STAGES, PAIR_DKV_ROWS>* stats, DkvBars<PAIR_DKV_STAGES>* bars, Exchange* xch,
+    uint32_t rank, T* __restrict__ dk, T* __restrict__ dv, int b, int h,
+    int H, int L, int S, int k0, int n_tiles, int cw, float scale) {
+  constexpr int C = HD / PAIR, NB = C / 64, KEYS = 64;
+  constexpr int ROWS = PAIR_DKV_ROWS, ST = PAIR_DKV_STAGES;
+  constexpr int K_BOX = KEYS * ROW_BYTES, Q_BOX = ROWS * ROW_BYTES;
+  constexpr int Q_BYTES = NB * Q_BOX;
+  const int tid = threadIdx.x % WG;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int key = k0 + 16 * warp + g;        // and key + 8
+  const int u0 = 2 * cw;
+  const float sl2 = scale * LOG2E;
+  float dk_acc[U][32], dv_acc[U][32];
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[u][i] = dv_acc[u][i] = 0.f;
+  int ds_e[2] = {DS16_E0, DS16_E0};          // float16: ds^T's row scales
+  sm90::mbar_wait(&bars->kv_full, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % ST, q0 = k0 + j * ROWS;
+    const unsigned char* qt = Qs + st * Q_BYTES;
+    const unsigned char* gt = Gs + st * Q_BYTES;
+    float s[ROWS / 2], dp[ROWS / 2];
+    const uint64_t desc_k = k_major(Ks), desc_q = k_major(qt);
+    const uint64_t desc_v = k_major(Vs), desc_g = k_major(gt);
+    sm90::mbar_wait(&bars->full[st], (j / ST) & 1);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C / 16; ++kk)
+      sm90::wgmma_m64n32k16_ss<T>(s, desc_k + k_step(K_BOX, kk),
+                                  desc_q + k_step(Q_BOX, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < C / 16; ++kk)
+      sm90::wgmma_m64n32k16_ss<T>(dp, desc_v + k_step(K_BOX, kk),
+                                  desc_g + k_step(Q_BOX, kk), kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+    add_peer_partials(&xch[cw], rank ^ 1, tid, j, s, dp);
+
+    // p^T = exp(s^T scale - lse), ds^T = p^T (dp^T - delta) scale; rows:
+    // keys key + 8((i / 2) & 1), columns: query rows q0 + c
+    const bool edge = k0 + KEYS - 1 > q0 || q0 + ROWS > L || k0 + KEYS > S;
+#pragma unroll
+    for (int i = 0; i < ROWS / 2; ++i) {
+      const int c = 8 * (i / 4) + 2 * t + (i & 1);
+      float p = exp2f(fmaf(s[i], sl2, -stats->lse[st][c] * LOG2E));
+      if (edge) {
+        const int kc = key + 8 * ((i / 2) & 1), qr = q0 + c;
+        if (kc > qr || kc >= S || qr >= L) p = 0.f;
+      }
+      dp[i] = p * (dp[i] - stats->delta[st][c]) * scale;
+      s[i] = p;
+    }
+    if constexpr (sm90::is_f16<T>) {   // p^T 2^P16_E, ds^T on its row scales
+#pragma unroll
+      for (int i = 0; i < ROWS / 2; ++i) s[i] *= pow2(P16_E);
+      float rescale[2];
+      if (scale_ds_rows(dp, ds_e, rescale)) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          sm90::fence_regs(dk_acc[u]);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) dk_acc[u][i] *= rescale[(i / 2) & 1];
+        }
+      }
+    }
+    uint32_t a_hi[ROWS / 16][4], a_mid[ROWS / 16][4];
+    uint32_t d_hi[ROWS / 16][4], d_mid[ROWS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < ROWS / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        split2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], a_hi[kk][r],
+                  a_mid[kk][r]);
+        split2<T>(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1], d_hi[kk][r],
+                  d_mid[kk][r]);
+      }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      sm90::fence_regs(dv_acc[u]);
+      sm90::fence_regs(dk_acc[u]);
+    }
+    sm90::wgmma_fence();
+    const uint64_t desc_gt = mn_major(gt, Q_BOX), desc_qt = mn_major(qt, Q_BOX);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int kk = 0; kk < ROWS / 16; ++kk) {
+        const uint64_t box = (((u0 + u) * Q_BOX) >> 4) + mn_step(kk);
+        sm90::wgmma_m64n64k16_rs<T>(dv_acc[u], a_hi[kk], desc_gt + box, 1);
+        sm90::wgmma_m64n64k16_rs<T>(dv_acc[u], a_mid[kk], desc_gt + box, 1);
+        sm90::wgmma_m64n64k16_rs<T>(dk_acc[u], d_hi[kk], desc_qt + box, 1);
+        sm90::wgmma_m64n64k16_rs<T>(dk_acc[u], d_mid[kk], desc_qt + box, 1);
+      }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      sm90::fence_regs(dk_acc[u]);
+      sm90::fence_regs(dv_acc[u]);
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
+  }
+  drain_exchange(&xch[cw], n_tiles);
+  float dk_inv[2] = {1.f, 1.f}, dv_inv[2] = {1.f, 1.f};
+  if constexpr (sm90::is_f16<T>) {           // the scales undone
+    dk_inv[0] = pow2(-ds_e[0]);
+    dk_inv[1] = pow2(-ds_e[1]);
+    dv_inv[0] = dv_inv[1] = pow2(-P16_E);
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int col = C * rank + 64 * (u0 + u);
+    store_acc_rows<T, HD>(dk, b, h, S, H, key, t, dk_acc[u], dk_inv, col);
+    store_acc_rows<T, HD>(dv, b, h, S, H, key, t, dv_acc[u], dv_inv, col);
+  }
+}
+
+// dk and dv at HD 384 / 512, grid (2 ceil(S / 64), B*H) in clusters of two
+// blocks along x on the same 64 keys: K and V (64 x C) resident, 32-row Q
+// and dO tiles (TMA) with their lse and delta (plain loads) through 3
+// stages; both consumers form s^T and dp^T (m64n32k16 over C / 16 slices)
+// and add the peer block's, consumer 0 accumulating the first two 64-column
+// units of dk and dv, consumer 1 the rest (dv += p^T dO and dk += ds^T q,
+// m64n64k16 with p^T and ds^T as hi + mid A terms, dO and q MN-major). The
+// HD 256 layout's 64-row tiles would hold s^T and dp^T (64 floats a thread)
+// beside 128 of dk and dv, more than a consumer's registers hold without
+// spilling; 32 rows halve them.
+template <typename T, int HD>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+    flash_dkv_pair_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tg,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          T* __restrict__ dk, T* __restrict__ dv, int H, int L,
+                          int S, float scale) {
+  constexpr int C = HD / PAIR, NB = C / 64, KEYS = 64;
+  constexpr int ROWS = PAIR_DKV_ROWS, ST = PAIR_DKV_STAGES;
+  constexpr int K_BOX = KEYS * ROW_BYTES, Q_BOX = ROWS * ROW_BYTES;
+  constexpr int K_BYTES = NB * K_BOX, Q_BYTES = NB * Q_BOX;
+  extern __shared__ unsigned char raw_smem[];
+  unsigned char* const Ks = align1024(raw_smem);
+  unsigned char* const Vs = Ks + K_BYTES;
+  unsigned char* const Qs = Vs + K_BYTES;                // [stage]
+  unsigned char* const Gs = Qs + ST * Q_BYTES;           // [stage] dO
+  auto* xch = reinterpret_cast<Exchange*>(Gs + ST * Q_BYTES);
+  auto* stats = reinterpret_cast<DkvStats<PAIR_DKV_STAGES, PAIR_DKV_ROWS>*>(xch + 2);
+  auto* bars = reinterpret_cast<DkvBars<ST>*>(stats + 1);
+  const uint32_t rank = sm90::cluster_ctarank();
+  const int col0 = C * rank;                 // this block's columns
+  const int k0 = (blockIdx.x / PAIR) * KEYS;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int n_tiles = k0 < L ? (L - k0 + ROWS - 1) / ROWS : 0;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&bars->kv_full, 1);
+    for (int st = 0; st < ST; ++st) {
+      sm90::mbar_init(&bars->full[st], 32);            // the producer warp
+      sm90::mbar_init(&bars->empty[st], 2 * WG / 32);  // consumer warps
+    }
+    init_exchange(&xch[0]);
+    init_exchange(&xch[1]);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  sm90::cluster_sync();   // the peer's barriers too
+
+  if (wg == 0) {   // producer: its first warp, one row of a tile a lane
+    sm90::setmaxnreg_dec<40>();
+    const int lane = threadIdx.x;
+    if (lane >= 32) return;
+    const float* const lse_bh = lse + static_cast<int64_t>(bh) * L;
+    const float* const delta_bh = delta + static_cast<int64_t>(bh) * L;
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(&bars->kv_full, 2 * K_BYTES);
+      load_rows<C>(Ks, K_BOX, &tk, &bars->kv_full, h, k0, b, col0);
+      load_rows<C>(Vs, K_BOX, &tv, &bars->kv_full, h, k0, b, col0);
+    }
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % ST, q0 = k0 + j * ROWS;
+      sm90::mbar_wait(&bars->empty[st], ((j / ST) & 1) ^ 1);
+      const bool in = q0 + lane < L;
+      stats->lse[st][lane] = in ? lse_bh[q0 + lane] : 0.f;
+      stats->delta[st][lane] = in ? delta_bh[q0 + lane] : 0.f;
+      if (lane == 0) {
+        sm90::mbar_arrive_expect_tx(&bars->full[st], 2 * Q_BYTES);
+        load_rows<C>(Qs + st * Q_BYTES, Q_BOX, &tq, &bars->full[st], h, q0,
+                       b, col0);
+        load_rows<C>(Gs + st * Q_BYTES, Q_BOX, &tg, &bars->full[st], h, q0,
+                       b, col0);
+      } else {
+        sm90::mbar_arrive(&bars->full[st]);
+      }
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<232>();
+  if (wg == 1)
+    dkv_pair_consume<T, HD, 2>(Ks, Vs, Qs, Gs, stats, bars, xch, rank, dk, dv,
+                               b, h, H, L, S, k0, n_tiles, 0, scale);
+  else
+    dkv_pair_consume<T, HD, NB - 2>(Ks, Vs, Qs, Gs, stats, bars, xch, rank,
+                                    dk, dv, b, h, H, L, S, k0, n_tiles, 1,
+                                    scale);
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -1805,16 +2471,16 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// `kernel` over `blocks` x `rows` blocks: at head dim 128 a plain launch,
-// at 256 clusters of two blocks along x (the two column halves of each
-// block of rows, blocks 2i and 2i + 1), through cudaLaunchKernelEx
-template <int HD, typename... Params, typename... Args>
-int launch_split3(void (*kernel)(Params...), int blocks, int rows,
-                  int threads, size_t smem, cudaStream_t stream,
-                  Args... args) {
+// `kernel` over `blocks` x `rows` blocks: a plain launch, or (kPair: the
+// float32 kernels at head dim 256, the 16-bit ones at 384 and 512) clusters
+// of two blocks along x (the two column halves of each block of rows,
+// blocks 2i and 2i + 1), through cudaLaunchKernelEx
+template <bool kPair, typename... Params, typename... Args>
+int launch_grid(void (*kernel)(Params...), int blocks, int rows, int threads,
+                size_t smem, cudaStream_t stream, Args... args) {
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if constexpr (HD == D) {
+  if constexpr (!kPair) {
     kernel<<<dim3(blocks, rows), threads, smem, stream>>>(args...);
   } else {
     cudaLaunchConfig_t cfg = {};
@@ -1841,7 +2507,7 @@ template <int HD>
 int launch_fwd_split3(const void* q, const void* k, const void* v, void* o,
                       float* lse, int B, int H, int L, int S, float scale,
                       cudaStream_t stream) {
-  return launch_split3<HD>(
+  return launch_grid<HD != D>(
       flash_fwd_split3_kernel<HD>, (L + F3_ROWS - 1) / F3_ROWS, B * H,
       SM90_THREADS, fwd3_smem<HD>(), stream, static_cast<const float*>(q),
       static_cast<const float*>(k), static_cast<const float*>(v),
@@ -1853,7 +2519,7 @@ int launch_dq_split3(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
                      void* dq, int B, int H, int L, int S, float scale,
                      cudaStream_t stream) {
-  return launch_split3<HD>(
+  return launch_grid<HD != D>(
       flash_dq_split3_kernel<HD>, (L + Q3_ROWS - 1) / Q3_ROWS, B * H,
       D3_THREADS, dq3_smem<HD>(), stream, static_cast<const float*>(q),
       static_cast<const float*>(k), static_cast<const float*>(v),
@@ -1866,7 +2532,7 @@ int launch_dkv_split3(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dk, void* dv, int B, int H, int L, int S,
                       float scale, cudaStream_t stream) {
-  return launch_split3<HD>(
+  return launch_grid<HD != D>(
       flash_dkv_split3_kernel<HD>, (S + D3_KEYS - 1) / D3_KEYS, B * H,
       D3_THREADS, dkv3_smem<HD>(), stream, static_cast<const float*>(q),
       static_cast<const float*>(k), static_cast<const float*>(v),
@@ -1943,6 +2609,66 @@ int launch_dq_sm90(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// 16-bit (T) forward, dq and dk/dv at head dim HD 384 or 512: pairs of
+// blocks in clusters, each on HD / 2 columns
+template <typename T, int HD>
+int launch_fwd_pair(const void* q, const void* k, const void* v, void* o,
+                    float* lse, int B, int H, int L, int S, float scale,
+                    cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = sm90::make_head_map<T>(&tq, q, B, L, H, HD, FWD_ROWS);
+  if (err == cudaSuccess)
+    err = sm90::make_head_map<T>(&tk, k, B, S, H, HD, PAIR_FWD_KEYS);
+  if (err == cudaSuccess)
+    err = sm90::make_head_map<T>(&tv, v, B, S, H, HD, PAIR_FWD_KEYS);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_grid<true>(
+      flash_fwd_pair_kernel<T, HD>, (L + FWD_ROWS - 1) / FWD_ROWS, B * H,
+      SM90_THREADS, pair_q_smem<HD, PAIR_FWD_KEYS, 1>(), stream, tq, tk, tv,
+      static_cast<T*>(o), lse, H, L, S, scale);
+}
+
+template <typename T, int HD>
+int launch_dq_pair(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq, int B, int H, int L, int S, float scale,
+                   cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tg;
+  cudaError_t err = sm90::make_head_map<T>(&tq, q, B, L, H, HD, DQ_ROWS);
+  if (err == cudaSuccess)
+    err = sm90::make_head_map<T>(&tg, dout, B, L, H, HD, DQ_ROWS);
+  if (err == cudaSuccess)
+    err = sm90::make_head_map<T>(&tk, k, B, S, H, HD, PAIR_DQ_KEYS);
+  if (err == cudaSuccess)
+    err = sm90::make_head_map<T>(&tv, v, B, S, H, HD, PAIR_DQ_KEYS);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_grid<true>(
+      flash_dq_pair_kernel<T, HD>, (L + DQ_ROWS - 1) / DQ_ROWS, B * H,
+      SM90_THREADS, pair_q_smem<HD, PAIR_DQ_KEYS, 2>(), stream, tq, tk, tv,
+      tg, lse, delta, static_cast<T*>(dq), H, L, S, scale);
+}
+
+template <typename T, int HD>
+int launch_dkv_pair(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    void* dk, void* dv, int B, int H, int L, int S, float scale,
+                    cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tg;
+  cudaError_t err = sm90::make_head_map<T>(&tq, q, B, L, H, HD,
+                                                  PAIR_DKV_ROWS);
+  if (err == cudaSuccess)
+    err = sm90::make_head_map<T>(&tg, dout, B, L, H, HD, PAIR_DKV_ROWS);
+  if (err == cudaSuccess)
+    err = sm90::make_head_map<T>(&tk, k, B, S, H, HD, 64);
+  if (err == cudaSuccess)
+    err = sm90::make_head_map<T>(&tv, v, B, S, H, HD, 64);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_grid<true>(
+      flash_dkv_pair_kernel<T, HD>, (S + 63) / 64, B * H, SM90_THREADS,
+      dkv_pair_smem<HD>(), stream, tq, tk, tv, tg, lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), H, L, S, scale);
+}
+
 // the element type codes of the C entry points' `dtype`
 enum : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 
@@ -1952,7 +2678,7 @@ extern "C" {
 
 // q, o [B, L, H, D], k, v [B, S, H, D], contiguous and 16-byte aligned, all
 // of the element type `dtype` (0 float, 1 bfloat16, 2 float16), D 128 or
-// 256 in each; lse [B*H, L] float. Each entry point returns a cudaError_t
+// 256 in each, 384 or 512 in the 16-bit types; lse [B*H, L] float. Each entry point returns a cudaError_t
 // value; 0 means the launch was accepted (another D or dtype:
 // cudaErrorInvalidValue).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
@@ -1975,6 +2701,18 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                         s);
   if (dtype == kFloat16 && D == 256)
     return launch_fwd_sm90<__half, 256>(q, k, v, o, lse_f, B, H, L, S, scale,
+                                        s);
+  if (dtype == kBFloat16 && D == 384)
+    return launch_fwd_pair<__nv_bfloat16, 384>(q, k, v, o, lse_f, B, H, L, S,
+                                               scale, s);
+  if (dtype == kBFloat16 && D == 512)
+    return launch_fwd_pair<__nv_bfloat16, 512>(q, k, v, o, lse_f, B, H, L, S,
+                                               scale, s);
+  if (dtype == kFloat16 && D == 384)
+    return launch_fwd_pair<__half, 384>(q, k, v, o, lse_f, B, H, L, S, scale,
+                                        s);
+  if (dtype == kFloat16 && D == 512)
+    return launch_fwd_pair<__half, 512>(q, k, v, o, lse_f, B, H, L, S, scale,
                                         s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -2005,6 +2743,18 @@ int flash_attention_dq(const void* q, const void* k, const void* v,
   if (dtype == kFloat16 && D == 256)
     return launch_dq_sm90<__half, 256>(q, k, v, dout, l, dl, dq, B, H, L, S,
                                        scale, s);
+  if (dtype == kBFloat16 && D == 384)
+    return launch_dq_pair<__nv_bfloat16, 384>(q, k, v, dout, l, dl, dq, B, H,
+                                              L, S, scale, s);
+  if (dtype == kBFloat16 && D == 512)
+    return launch_dq_pair<__nv_bfloat16, 512>(q, k, v, dout, l, dl, dq, B, H,
+                                              L, S, scale, s);
+  if (dtype == kFloat16 && D == 384)
+    return launch_dq_pair<__half, 384>(q, k, v, dout, l, dl, dq, B, H, L, S,
+                                       scale, s);
+  if (dtype == kFloat16 && D == 512)
+    return launch_dq_pair<__half, 512>(q, k, v, dout, l, dl, dq, B, H, L, S,
+                                       scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -2033,6 +2783,18 @@ int flash_attention_dkv(const void* q, const void* k, const void* v,
                                         S, scale, s);
   if (dtype == kFloat16 && D == 256)
     return launch_dkv_sm90<__half, 256>(q, k, v, dout, l, dl, dk, dv, B, H, L,
+                                        S, scale, s);
+  if (dtype == kBFloat16 && D == 384)
+    return launch_dkv_pair<__nv_bfloat16, 384>(q, k, v, dout, l, dl, dk, dv,
+                                               B, H, L, S, scale, s);
+  if (dtype == kBFloat16 && D == 512)
+    return launch_dkv_pair<__nv_bfloat16, 512>(q, k, v, dout, l, dl, dk, dv,
+                                               B, H, L, S, scale, s);
+  if (dtype == kFloat16 && D == 384)
+    return launch_dkv_pair<__half, 384>(q, k, v, dout, l, dl, dk, dv, B, H, L,
+                                        S, scale, s);
+  if (dtype == kFloat16 && D == 512)
+    return launch_dkv_pair<__half, 512>(q, k, v, dout, l, dl, dk, dv, B, H, L,
                                         S, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,7 +9,8 @@
 // layout (16-byte chunk c of row r at chunk c ^ (r % 8); then
 // fence_proxy_async before the barrier that releases them to wgmma); a
 // 128-column head is two such boxes, a
-// 256-column head four. wgmma reads them through descriptors (desc_sw128):
+// 256-column head four (a block of the 384- and 512-column heads' pairs
+// holds three or four). wgmma reads them through descriptors (desc_sw128):
 // K-major operands (the reduction axis contiguous, as q and k rows are for
 // q k^T) step 32 bytes a depth-16 slice inside the swizzled row and 1024
 // bytes (8 rows) between core-matrix groups; MN-major operands (v's rows for
@@ -306,6 +307,21 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate))
 
+#define SM90_WGMMA_M64N64K16_RS(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+        "+f"(d[30]), "+f"(d[31]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate))
+
 // d (+)= A B for a 64 x 128 tile, depth 16; A and B from shared memory,
 // both K-major
 template <typename T = __nv_bfloat16>
@@ -368,6 +384,17 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
     SM90_WGMMA_M64N128K16_RS("f16");
   else
     SM90_WGMMA_M64N128K16_RS("bf16");
+}
+
+// the same for a 64 x 64 tile (one 64-column box of B)
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b, int accumulate) {
+  if constexpr (is_f16<T>)
+    SM90_WGMMA_M64N64K16_RS("f16");
+  else
+    SM90_WGMMA_M64N64K16_RS("bf16");
 }
 
 // -------------------------------------------------------------- host side

@@ -23,12 +23,15 @@ the store). float32 inputs run all three kernels on the tensor cores too,
 each float as three bf16 terms and each product as six bf16 products
 (within ~2^-23 of it: the TPU's float32 dots at Precision.HIGHEST do the
 same); all sums are float. The kernels take head dim D = 128 and D = 256
-in all three types (``HEAD_DIMS``; at 256 the scale is 1/16, exact, and
-the float32 kernels split the depth over a cluster of two blocks, each on
-128 columns, whose half-depth scores are added once), and any L and S (a
-ragged last tile is masked in the kernel; the JAX wrapper pads L to 128
-instead). The JAX model sends every D % 128 == 0 in any type to its Pallas
-kernels: D 384 and up are not ported yet and raise here.
+in all three types and D = 384 and D = 512 in bfloat16 and float16
+(``HEAD_DIMS``): at 256 the float32 kernels, and at 384 and 512 the 16-bit
+ones, split the depth over a cluster of two blocks, each on half of the
+columns, whose partial scores are added once. The scale 1/sqrt(D) is exact
+at 128 and 256 (1/16 there); at 384 and 512 it is the float nearest it, as
+in the JAX kernels. Any L and S (a ragged last tile is masked in the
+kernel; the JAX wrapper pads L to 128 instead). The JAX model sends every
+D % 128 == 0 in any type to its Pallas kernels: float32 at 384 and up, and
+any type at 640 and up, are not ported yet and raise here.
 
 Dispatch: CPU tensors take the plain versions (``flash_fwd_plain``,
 ``flash_dq_plain``, ``flash_dkv_plain``: dense attention and the
@@ -50,8 +53,8 @@ from ..utils import build as _build
 NEG_INF = -1e30
 # the head dims the kernels take, by input type (any other shape or type
 # raises; ``llm.model.flash_applies`` sends those to plain attention)
-HEAD_DIMS = {torch.float32: (128, 256), torch.bfloat16: (128, 256),
-             torch.float16: (128, 256)}
+HEAD_DIMS = {torch.float32: (128, 256), torch.bfloat16: (128, 256, 384, 512),
+             torch.float16: (128, 256, 384, 512)}
 # the C entry points' element type code
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -150,8 +153,9 @@ def _check(q, k, v, *more):
     B, L, H, D = q.shape
     if D not in HEAD_DIMS.get(q.dtype, ()):
         raise ValueError(f"flash_attention: the kernels take head dim 128 "
-                         f"or 256 in float32, bfloat16 or float16, got "
-                         f"{tuple(q.shape)} {q.dtype}")
+                         f"or 256 in float32, and 128, 256, 384 or 512 in "
+                         f"bfloat16 or float16, got {tuple(q.shape)} "
+                         f"{q.dtype}")
     S = k.shape[1]
     for name, t, shape in (("k", k, (B, S, H, D)), ("v", v, (B, S, H, D)),
                            *more):

@@ -24,11 +24,14 @@ phase of ``--phases`` (default all three):
   not), beside the float32 kernels at head dim 128 over the same blocks of
   the same work (``D128_SAME_BLOCKS``: what the head-dim-256 kernels' pairs
   of blocks cost beyond it), and in float16 at B2 L2047 H8 D256 (the
-  float16 Gemma-2B-width SFT step's shape); and ``sass``, a digest of each
-  flash kernel's machine code (its SASS instructions, addresses and
-  encodings stripped, keyed by kernel, head dim and, for float16, type:
-  the bf16 instances keep the keys of trees whose kernels are templates on
-  the head dim alone), so that two trees' kernels can be told identical;
+  float16 Gemma-2B-width SFT step's shape); then head dims 512 and 384 in
+  bf16 and float16 at B8 L2047 H8 (``D512_SHAPES``: the step-time-llm-d512
+  step's attention, DeepSeek-V4-Flash's head shape), in a tree whose
+  kernels take them; and ``sass``, a digest of each flash kernel's machine
+  code (its SASS instructions, addresses and encodings stripped, keyed by
+  kernel, head dim and, for float16, type: the bf16 instances keep the
+  keys of trees whose kernels are templates on the head dim alone), so
+  that two trees' kernels can be told identical;
 - ``gate``: the gate-scatter kernels of ``ops.gate_scatter``: the v4
   forward K1 (both directions) at every row of chip_smoke's
   ``KERNEL_SHAPES`` and the skewed WebQSP layout ``SKEWED``; the v4
@@ -78,6 +81,9 @@ D256_SHAPES = ((2, 2047, 8, 256), (8, 2047, 8, 256))
 D256_FP32_SHAPE = (2, 2047, 8, 256)
 # float16 at head dim 256: the float16 Gemma-2B-width SFT step's attention
 D256_F16_SHAPE = (2, 2047, 8, 256)
+# the 16-bit kernels at head dims 512 and 384 (the pair kernels): the
+# DeepSeek-V4-Flash-head-shape SFT step's attention, and the same at 384
+D512_SHAPES = ((8, 2047, 8, 512), (8, 2047, 8, 384))
 # the float32 kernels at head dim 128 over the blocks of that shape: B2
 # L2047 H16 gives as many blocks as the head-dim-256 row's pairs, each of
 # the same work (128 columns), without the exchange between the two
@@ -150,6 +156,11 @@ def measure(tree, phases, data):
             f"B{D256_F16_SHAPE[0]}": (
                 measure_flash(smoke, device, "float16", TIMING, D256_F16_SHAPE)
                 if takes(torch.float16) else missing)}
+        out["flash_d512"] = {
+            f"D{shape[3]} {dtype}": (
+                measure_flash(smoke, device, dtype, TIMING, shape)
+                if takes(getattr(torch, dtype), shape[3]) else missing)
+            for shape in D512_SHAPES for dtype in ("bfloat16", "float16")}
         out["sass"] = sass_digests(fa.build())
     if "gate" in phases:
         out["gate_scatter"] = measure_gate(smoke, device)
@@ -179,7 +190,7 @@ def sass_digests(lib):
     digests, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"(flash_(?:fwd|dq|dkv)_(?:sm90|split3)_kernel)"
+            m = re.search(r"(flash_(?:fwd|dq|dkv)_(?:sm90|split3|pair)_kernel)"
                           r"(?:I(?:13__nv_bfloat16|(6__half))?Li(\d+)E)?",
                           line)
             name = (f"{m.group(1)}<{'__half,' if m.group(2) else ''}"

@@ -4,7 +4,8 @@ backward and scatter_mm (alone, at widths a block holds only in column
 windows, and in a ReaRev training step under GNN_RAG_GATE_SCATTER=v2),
 and the flash-attention forward, dq and dk/dv
 kernels (alone, through autograd, and in a LlamaLM; at head dim 128 and
-256, each in float32, bf16 and float16).
+256, each in float32, bf16 and float16, and at 384 and 512 in bf16 and
+float16).
 
 Every test here needs an NVIDIA GPU (and nvcc for the first build) and skips
 without one. The file imports no JAX, so it runs on a machine without it:
@@ -857,6 +858,21 @@ def test_flash_d256_kernels_match_plain(cuda, B, L, H, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [384, 512])
+@pytest.mark.parametrize("B,L,H", [
+    # head dims 384 and 512 (a cluster of two blocks, each on half of the
+    # columns): one row, under one tile, one row past dq's 32-key and the
+    # forward's and dk/dv's 64-key tiles, one row past a 128-row block,
+    # ragged lengths, DeepSeek-V4-Flash's head shape at the SFT length (8
+    # heads repeated from one kv head)
+    (1, 1, 2), (1, 33, 2), (1, 65, 2), (1, 129, 2), (3, 77, 2), (2, 300, 8),
+    (1, 1000, 2), (2, 2047, 8)])
+def test_flash_d512_kernels_match_plain(cuda, B, L, H, D, dtype):
+    flash_vs_plain(cuda, B, L, H, D, dtype)
+
+
+@pytest.mark.cuda
 def test_flash_autograd_and_checks(cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn((2, 130, 2, 128), generator=g, device=cuda
@@ -871,8 +887,7 @@ def test_flash_autograd_and_checks(cuda):
         assert_rel(a, b.detach(), 1e-4, name)
     with pytest.raises(ValueError, match="head dim 128"):
         fa.flash_fwd(*(torch.zeros(1, 8, 1, 64, device=cuda),) * 3)
-    with pytest.raises(ValueError,
-                       match="128 or 256 in float32, bfloat16 or float16"):
+    with pytest.raises(ValueError, match="128 or 256 in float32, and"):
         fa.flash_fwd(*(torch.zeros(1, 8, 1, 384, device=cuda),) * 3)
     x = torch.zeros(1, 8, 1, 128, device=cuda)
     with pytest.raises(ValueError, match="k must be"):
@@ -993,11 +1008,50 @@ def test_llama_d256_fp32_flash_vs_plain_attention(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim,dtype", [(384, "float16"), (384, "bfloat16")])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("head_dim", [384, 512])
+def test_llama_d512_flash_vs_plain_attention(cuda, head_dim, dtype):
+    """A bf16 or float16 LlamaLM at head dim 512 (DeepSeek-V4-Flash's head
+    shape: heads of 512, one kv head; dim 4096, 8 heads) and at 384 (dim
+    3072, 8 heads, one kv head), 2 layers, on the card: the flash path
+    launches one forward, one dq and one dk/dv per layer, and each output
+    (logits and every parameter's loss gradient) is within twice the plain
+    path's own distance from the same model in float32 (as
+    test_llama_flash_vs_plain_attention holds head dim 128)."""
+    cfg = LlamaConfig(vocab_size=300, dim=8 * head_dim, n_layers=2,
+                      n_heads=8, n_kv_heads=1, intermediate=512, dtype=dtype)
+    model = build_llama(cfg, seed=0, device=cuda)
+    tokens = torch.randint(3, 300, (2, 300), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+
+    def run(**changes):
+        m = build_llama(LlamaConfig(**{**cfg.__dict__, **changes}), seed=0,
+                        device=cuda)
+        m.load_state_dict(model.state_dict())
+        logits, _ = m(tokens)
+        logits.logsumexp(-1).mean().backward()
+        return [logits.detach()] + [p.grad for p in m.parameters()]
+
+    n = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    got = run()
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
+        c + cfg.n_layers for c in n)
+    want = run(use_flash=False)
+    fp32 = run(dtype="float32", use_flash=False)
+    names = ["logits"] + [name for name, _ in model.named_parameters()]
+    for name, a, b, r in zip(names, got, want, fp32):
+        own = (b.float() - r).norm().item()
+        assert (a.float() - b.float()).norm().item() <= 2 * own, (name, own)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,dtype", [(640, "float16"), (640, "bfloat16"),
+                                            (384, "float32")])
 def test_llama_shapes_the_kernels_refuse_run_reference_attention(
         cuda, head_dim, dtype):
     """A LlamaLM whose attention the flash kernels do not take (head dim
-    384) runs on the card with no flash launch, through
+    640, and 384 in float32) runs on the card with no flash launch, through
     reference_attention: its logits equal the same model's with
     use_flash=False."""
     cfg = LlamaConfig(vocab_size=300, dim=2 * head_dim, n_layers=2, n_heads=2,
