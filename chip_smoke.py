@@ -11,7 +11,9 @@ Phases, one line each:
      (gate_scatter.cu and flash_attention.cu with nvcc, graphpath.cpp with
      g++), with ptxas registers and spills, and the wgmma (HGMMA) and TMA
      (UTMALDG) instructions each flash kernel on wgmma must hold
-     (SM90_KERNELS), without spills;
+     (SM90_KERNELS), without spills, and how many clusters of each float32
+     flash kernel at head dims 256, 384 and 512 the card holds at once
+     (cudaOccupancyMaxActiveClusters, none may be 0);
   3. kernel: the CUDA kernel against its plain PyTorch version on the card at
      the serving shapes (fp32 and bf16) and at a skewed layout (SKEWED), two
      launches bit-identical, with the kernel's time ``ms`` (CUDA-event
@@ -116,9 +118,12 @@ The LLM reader (the flash-attention kernels K5a-c):
      cotangent x 2^-16 and x 2^4 (F16_G_SCALES); and the bf16 and float16
      kernels at head dims 512 and 384 (the pair kernels: clusters of two
      blocks, each on half of the columns) at B8 L2047 H8, timed, B2 L1000
-     (float16 also with the scaled cotangents) and B1 L129; every timed
-     row with its products issued over those the function needs and the
-     SDPA backend that served the yardstick;
+     (float16 also with the scaled cotangents) and B1 L129; and the
+     float32 kernels at head dims 512 and 384 (clusters of four and three
+     blocks, each on 128 columns, whose partial scores are added in rank
+     order) at B2 L2047 H8, timed, B2 L1000, B1 L129 and B1 L65; every
+     timed row with its products issued over those the function needs and
+     the SDPA backend that served the yardstick;
   8. sft: the RoG joint-finetune SFT (scripts/train_sft.sh) through the
      port's entry (`python -m gnn_rag_tpu_torch.llm.sft`, run in this
      process) at LLaMA2-7B width cut to 4 of 32 layers, random weights from
@@ -191,7 +196,13 @@ The LLM reader (the flash-attention kernels K5a-c):
      cut to 4 layers with 8 heads of 512 and one kv head), in bf16 and in
      float16: the pair kernels at head dim 512, 4 launches of each a step;
      the gradient check also on a 2-layer model at head dim 384 (dim 3072,
-     8 heads, one kv head).
+     8 heads, one kv head);
+  11h. step-time-llm-d512-fp32: the same head shape computing in float32
+     (D512_FP32_FLAGS: 4 layers, B2) through the port's entry, as 11d: the
+     float32 kernels at head dim 512 (clusters of four blocks), 4 launches
+     of each a step, the scoring forward and first loss against plain
+     attention, and every gradient of a 2-layer model at head dims 512 and
+     384 (clusters of three blocks), kernels vs plain attention.
 The reader at LLaMA2-7B widths and the full 32 layers (after the SFT
 trainer is freed):
   12. lora: LoRA finetuning (``llm.lora.LoRATrainer``: r 8, alpha 16 on
@@ -237,7 +248,7 @@ PALLAS = "gnn_rag_tpu/ops/pallas_mp.py"
 # bf16 and float16 ones load by TMA, the float32 ones (three bf16 terms a
 # float, converted by a warpgroup from plain loads) do not (the 16-bit ones
 # are templates on the element type and the head dim, the float32 ones on
-# the head dim: their instances by mangled name, <128> and <256>; the
+# the head dim: their instances by mangled name, <128> .. <512>; the
 # 16-bit ones at 384 and 512 are the pair kernels, clusters of two blocks)
 SM90_KERNELS = {**{f"flash_{k}_{kind}_kernelI{t}Li{d}E": ("HGMMA", "UTMALDG")
                    for k in ("fwd", "dq", "dkv")
@@ -245,7 +256,7 @@ SM90_KERNELS = {**{f"flash_{k}_{kind}_kernelI{t}Li{d}E": ("HGMMA", "UTMALDG")
                                       ("pair", (384, 512)))
                    for d in dims for t in ("13__nv_bfloat16", "6__half")},
                 **{f"flash_{k}_split3_kernelILi{d}E": ("HGMMA",)
-                   for k in ("fwd", "dq", "dkv") for d in (128, 256)}}
+                   for k in ("fwd", "dq", "dkv") for d in (128, 256, 384, 512)}}
 FLASH = "gnn_rag_tpu/llm_tpu/flash_attention.py"
 # the card's published peaks (H100 SXM data sheet, dense): float32 outside
 # the tensor cores, bf16 and float16 tensor cores
@@ -290,7 +301,10 @@ SPEC_GAMMA = 4
 # dims 512 and 384 (the pair kernels), at the step-time-llm-d512 step's
 # B8 L2047 H8 (DeepSeek-V4-Flash's head shape: heads of 512, one kv head
 # repeated to 8) and the same at 384, B2 L1000 and B1 L129, in bf16 and
-# float16. Rows at L 2047 are timed
+# float16; and the float32 kernels at head dims 512 and 384 (clusters of
+# four and three blocks, one a 128-column slice) at the
+# step-time-llm-d512-fp32 step's B2 L2047 H8, B2 L1000, B1 L129 and B1 L65
+# (one row past dq's 64-row block). Rows at L 2047 are timed
 ATTN_SHAPES = (("sft_b8_l2047_bf16", 8, SFT_SEQ - 1, 32, 128, "bfloat16"),
                ("sft_b8_l2047_fp32", 8, SFT_SEQ - 1, 32, 128, "float32"),
                ("ragged_b2_l1000_bf16", 2, 1000, 32, 128, "bfloat16"),
@@ -316,7 +330,13 @@ ATTN_SHAPES = (("sft_b8_l2047_bf16", 8, SFT_SEQ - 1, 32, 128, "bfloat16"),
                  for d in (512, 384)
                  for name, B, L in (("dsv4_b8_l2047", 8, SFT_SEQ - 1),
                                     ("ragged_b2_l1000", 2, 1000),
-                                    ("ragged_b1_l129", 1, 129))))
+                                    ("ragged_b1_l129", 1, 129))),
+               *((f"{name}_d{d}_fp32", B, L, 8, d, "float32")
+                 for d in (512, 384)
+                 for name, B, L in (("dsv4_b2_l2047", 2, SFT_SEQ - 1),
+                                    ("ragged_b2_l1000", 2, 1000),
+                                    ("ragged_b1_l129", 1, 129),
+                                    ("ragged_b1_l65", 1, 65))))
 # the float16 rows whose backward also runs with the cotangent scaled: far
 # under float16's normal range (an unscaled split of ds would round it to
 # 0) and large
@@ -378,6 +398,11 @@ D512_FLAGS = F16_FLAGS[:-2] + ["--n_heads", "8", "--n_kv_heads", "1",
                                "--dtype", "bfloat16"]
 D512_F16_FLAGS = D512_FLAGS[:-2] + ["--dtype", "float16"]
 D384_GRAD = dict(dim=3072, n_heads=8, n_kv_heads=1)
+# the same head shape computing in float32 (the float32 kernels at head dim
+# 512, clusters of four blocks), at B2 as the float32 LLaMA2-7B-width step
+# runs: ~0.95 B parameters take ~15 GB of float32 state
+D512_FP32_FLAGS = [{"--dtype": "float32", "--batch_size": "2"}.get(flag, x)
+                   for flag, x in zip([None, *D512_FLAGS], D512_FLAGS)]
 # scripts/rearev_webqsp.sh with the reference's training defaults
 HEADLINE_FLAGS = ["ReaRev", "--entity_dim", "50", "--num_iter", "3",
                   "--num_ins", "2", "--num_gnn", "3", "--lm", "sbert",
@@ -3115,18 +3140,21 @@ def sft_d256_step_time(device, root, prompts):
     return summary
 
 
-def sft_d256_fp32_step_time(device, root, prompts):
-    """Phase step-time-llm-d256-fp32: the SFT at Gemma-2B's attention
-    widths computing in float32 (D256_FP32_FLAGS: cut to D256_FP32_LAYERS
-    layers) through the port's entry (``sft_entry_step_time``: D256_STEPS
-    steps at B2 x 2048, the float32 flash kernels at head dim 256, ms a
-    step, one profiled step); a no-cache scoring forward's token
-    log-probabilities (K5a, a launch a layer) against plain attention
-    within 1e-4 of max|plain|; with the trainer freed, the first step's
-    loss, kernels and plain attention, each within 1e-5 of the entry's; and
-    every parameter gradient of that batch on a 2-layer model at these
-    widths, kernels against plain attention (1e-4 of the largest entry +
-    1e-7, as check_llm_grads)."""
+def sft_fp32_entry_step_time(device, root, prompts, flags, phase,
+                             more_grads=()):
+    """Phases step-time-llm-d256-fp32 (D256_FP32_FLAGS: Gemma-2B's attention
+    widths cut to D256_FP32_LAYERS layers, the float32 kernels at head dim
+    256) and step-time-llm-d512-fp32 (D512_FP32_FLAGS: DeepSeek-V4-Flash's
+    head shape, 4 layers, B2, the float32 kernels at head dim 512): the SFT
+    computing in float32 through the port's entry (``sft_entry_step_time``:
+    D256_STEPS steps at 2048 tokens, the kernels' launches exact, ms a step,
+    one profiled step); a no-cache scoring forward's token log-probabilities
+    (K5a, a launch a layer) against plain attention within 1e-4 of
+    max|plain|; with the trainer freed, the first step's loss, kernels and
+    plain attention, each within 1e-5 of the entry's; and every parameter
+    gradient of that batch on a 2-layer model at the run's widths (and at
+    each of ``more_grads``' changes of them), kernels against plain
+    attention (1e-4 of the largest entry + 1e-7, as check_llm_grads)."""
     import dataclasses
 
     import torch
@@ -3135,11 +3163,10 @@ def sft_d256_fp32_step_time(device, root, prompts):
     from gnn_rag_tpu_torch.llm.model import build_llama
     t0 = time.perf_counter()
     trainer, summary, btok, bmsk = sft_entry_step_time(
-        device, root, D256_FP32_FLAGS, "sft_d256_fp32")
+        device, root, flags, phase.replace("step-time-llm-", "sft_"))
     losses, cfg, n = summary["losses"], trainer.model.cfg, summary["layers"]
-    if cfg.head_dim != 256 or cfg.dtype != "float32":
-        raise AssertionError(f"d256 fp32 SFT: head dim {cfg.head_dim} "
-                             f"{cfg.dtype}")
+    if cfg.dtype != "float32":
+        raise AssertionError(f"{phase}: {cfg.dtype}")
 
     # ---- a no-cache scoring forward of the trained model ----
     model = trainer.model.eval()
@@ -3155,7 +3182,7 @@ def sft_d256_fp32_step_time(device, root, prompts):
     torch.cuda.empty_cache()
     if not (score_launches == (n, 0, 0)
             and score_err[0] <= 1e-4 * score_err[1]):
-        raise AssertionError(f"d256 fp32 scoring forward: launches "
+        raise AssertionError(f"{phase} scoring forward: launches "
                              f"{score_launches}, max|kernel - plain|, "
                              f"max|plain| {score_err}")
 
@@ -3167,44 +3194,57 @@ def sft_d256_fp32_step_time(device, root, prompts):
     torch.cuda.empty_cache()
 
     # ---- every gradient of a 2-layer model, kernels against plain ----
-    two = build_llama(dataclasses.replace(cfg, n_layers=2), seed=SEED,
-                      device=device)
+    def grad_check(few):
+        two = build_llama(few, seed=SEED, device=device)
 
-    def grads():
-        for p in two.parameters():
-            p.grad = None
-        sft.completion_loss(two, btok, bmsk).backward()
-        return {name: p.grad for name, p in two.named_parameters()}
+        def grads():
+            for p in two.parameters():
+                p.grad = None
+            sft.completion_loss(two, btok, bmsk).backward()
+            return {name: p.grad for name, p in two.named_parameters()}
 
-    reset_attn_counts()
-    got = grads()
-    torch.cuda.synchronize()
-    grad_launches = attn_counts()
-    plain_grads = swapped_to_plain_attn(grads)
-    worst = (0.0, "", 0.0)
-    bad = []
-    for name, w in plain_grads.items():
-        err = (got[name] - w).abs().max().item()
-        tol = 1e-4 * w.abs().max().item() + 1e-7
-        if not (err <= tol and torch.isfinite(got[name]).all()):
-            bad.append(f"{name}: kernel vs plain {err} > {tol}")
-        worst = max(worst, (err / tol, name, err))
-    del two, got, plain_grads
-    gc.collect()
-    torch.cuda.empty_cache()
+        reset_attn_counts()
+        got = grads()
+        torch.cuda.synchronize()
+        launches = attn_counts()
+        plain_grads = swapped_to_plain_attn(grads)
+        worst, bad = (0.0, "", 0.0), []
+        for name, w in plain_grads.items():
+            err = (got[name] - w).abs().max().item()
+            tol = 1e-4 * w.abs().max().item() + 1e-7
+            if not (err <= tol and torch.isfinite(got[name]).all()):
+                bad.append(f"d{few.head_dim} {name}: kernel vs plain {err} "
+                           f"> {tol}")
+            worst = max(worst, (err / tol, name, err))
+        del two, got, plain_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        return dict(flash_launches=launches, worst_err_over_tol=worst[0],
+                    worst_param=worst[1], worst_err=worst[2]), bad
+
+    checks, bad = {}, []
+    for change in ({}, *more_grads):
+        few = dataclasses.replace(cfg, n_layers=2, **change)
+        checks[f"d{few.head_dim}"], more_bad = grad_check(few)
+        bad += more_bad
+    own = checks[f"d{cfg.head_dim}"]
     summary.update(
         scoring_tokens=int(prompt.shape[1]),
         scoring_flash_launches=score_launches,
         scoring_max_err_and_max_plain=score_err,
         first_loss_entry_kernel_plain=[losses[0], first_kernel, first_plain],
-        grad_layers=2, grad_flash_launches=grad_launches,
-        grad_worst_err_over_tol=worst[0], grad_worst_param=worst[1],
-        grad_worst_err=worst[2], wall_s=time.perf_counter() - t0)
-    log("step-time-llm-d256-fp32", json.dumps(summary))
+        grad_layers=2, grad_flash_launches=own["flash_launches"],
+        grad_worst_err_over_tol=own["worst_err_over_tol"],
+        grad_worst_param=own["worst_param"], grad_worst_err=own["worst_err"],
+        **({"grads_by_head_dim": checks} if more_grads else {}),
+        wall_s=time.perf_counter() - t0)
+    log(phase, json.dumps(summary))
+    grad_launches = {hd: c["flash_launches"] for hd, c in checks.items()}
     if not (abs(first_kernel - losses[0]) <= 1e-5 * abs(losses[0])
             and abs(first_plain - losses[0]) <= 1e-5 * abs(losses[0])
-            and grad_launches == (2, 2, 2) and not bad):
-        raise AssertionError(f"d256 fp32: first loss entry {losses[0]}, "
+            and all(n == (2, 2, 2) for n in grad_launches.values())
+            and not bad):
+        raise AssertionError(f"{phase}: first loss entry {losses[0]}, "
                              f"kernel {first_kernel}, plain {first_plain}; "
                              f"gradient launches {grad_launches}; "
                              + "; ".join(bad))
@@ -4247,6 +4287,19 @@ def build_all():
                                              f"in its SASS")
                     if any(name in k and n for k, n in spills.items()):
                         raise AssertionError(f"{name} spills: {spills}")
+                # the float32 kernels' clusters (HD / 128 blocks of 210-230
+                # KB, one an SM): how many the card holds at once, 0 if it
+                # cannot launch one
+                from gnn_rag_tpu_torch.llm import flash_attention as fa
+                clusters = {f"{k}<{d}>": fa.max_active_clusters(k, d)
+                            for d in (256, 384, 512)
+                            for k in ("fwd", "dq", "dkv")}
+                log("build", f"float32 flash clusters the card holds at "
+                    f"once (cudaOccupancyMaxActiveClusters): "
+                    f"{json.dumps(clusters)}")
+                if not all(clusters.values()):
+                    raise AssertionError(f"a float32 flash cluster cannot "
+                                         f"launch: {clusters}")
 
 
 def main():
@@ -4304,8 +4357,9 @@ def main():
         torch.cuda.empty_cache()
         fp32_step = sft_fp32_step_time(tokens, mask, device)
         d256 = sft_d256_step_time(device, os.path.join(root, "llm"), prompts)
-        d256_fp32 = sft_d256_fp32_step_time(device, os.path.join(root, "llm"),
-                                            prompts)
+        d256_fp32 = sft_fp32_entry_step_time(
+            device, os.path.join(root, "llm"), prompts, D256_FP32_FLAGS,
+            "step-time-llm-d256-fp32")
         f16 = {"d128": sft_16bit_step_time(device, os.path.join(root, "llm"),
                                            F16_FLAGS, "step-time-llm-f16"),
                "d256": sft_16bit_step_time(device, os.path.join(root, "llm"),
@@ -4316,6 +4370,9 @@ def main():
                 for dtype, flags, phase in (
                     ("bfloat16", D512_FLAGS, "step-time-llm-d512"),
                     ("float16", D512_F16_FLAGS, "step-time-llm-d512-f16"))}
+        d512_fp32 = sft_fp32_entry_step_time(
+            device, os.path.join(root, "llm"), prompts, D512_FP32_FLAGS,
+            "step-time-llm-d512-fp32", (D384_GRAD,))
         _, reader_7b, lora_launches = run_lora(device, tokens, mask)
         run_serve_7b(device, reader_7b, os.path.join(root, "llm", "reader"),
                      prompts)
@@ -4587,6 +4644,20 @@ def main():
             "flash_launches"]}
         groups.append((dtype, 384, f"_d384_{tag}", f"dsv4_b8_l2047_d384_{tag}",
                        run_384, {f"{phase}_grads_d384": "d384_grads"}))
+    # the float32 kernels at head dims 512 and 384 (clusters of four and
+    # three blocks) on the step-time-llm-d512-fp32 path: 512 in its SFT
+    # steps and scoring forward, 384 in its gradient check, both timed at
+    # the step's shape, B2 L2047 H8
+    phase = "step_time_llm_d512_fp32"
+    groups.append(("float32", 512, "_d512_fp32", "dsv4_b2_l2047_d512_fp32",
+                   d512_fp32, {phase: "flash_launches_fwd_dq_dkv",
+                               f"{phase}_timed_steps": "timed_flash_launches",
+                               f"{phase}_scoring": "scoring_flash_launches",
+                               f"{phase}_grads_d512": "grad_flash_launches"}))
+    groups.append(("float32", 384, "_d384_fp32", "dsv4_b2_l2047_d384_fp32",
+                   {"d384_grads": d512_fp32["grads_by_head_dim"]["d384"][
+                       "flash_launches"]},
+                   {f"{phase}_grads_d384": "d384_grads"}))
     for dtype, hd, suffix, shape_name, run, paths in groups:
         rows_t = {r["shape"]: r for r in attn_rows
                   if r["D"] == hd and r["dtype"] == dtype}
@@ -4616,6 +4687,8 @@ def main():
                 "ms": h_row["ms"][key], "plain_ms": h_row["plain_ms"][key],
                 "bound_ms": h_row["bound_ms"][key],
                 "bound_by": h_row["bound_by"][key],
+                **({"float_core_bound_ms": h_row["float_core_bound_ms"][key]}
+                   if dtype == "float32" else {}),
                 "library_ms": h_row["sdpa_fwd_ms"] if key == "fwd" else None,
                 "library_backend": h_row["sdpa_backend"],
                 "bound_share": h_row["bound_share"][key],

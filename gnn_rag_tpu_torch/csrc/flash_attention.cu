@@ -11,9 +11,9 @@
 //   o = (sum_k T(exp(s - m)) v) / l        (p rounded to v's type T before PV)
 //   p = exp(s - lse), dp = dO v^T, ds = p * (dp - delta) * scale,
 //   dq = ds k, dk = ds^T q, dv = p^T dO,   delta = rowsum(dO * o) (given).
-// Tensors keep the model's [B, N, H, D] layout (D = 128 or 256 in float32;
-// 128, 256, 384 or 512 in bfloat16 and float16; the wrapper raises on any
-// other D); lse and delta are
+// Tensors keep the model's [B, N, H, D] layout (D = 128, 256, 384 or 512 in
+// float32, bfloat16 and float16; the wrapper raises on any other D); lse
+// and delta are
 // [B*H, L] float, stored once per row (the TPU kernel replicated them over
 // 128 lanes for its block shapes). All sums are float; every product is the
 // float product of the (widened) inputs, as in the TPU kernels
@@ -60,37 +60,49 @@
 //   dp = dO v^T, 48 wgmma m64n32k16 each, ds split into register A terms
 //   for dq += ds k, 12 wgmma m64n128k16 (k's terms MN-major). 198 KB, 256
 //   threads, one block an SM, registers unsplit.
-// - head dim 256 (the same three kernels, instances <256>; <128> above):
-//   at D 256 the layouts above would not fit a block: the forward's 128
-//   resident Q rows as terms take 192 KB, dk/dv's resident K and V terms
-//   of 64 keys 192 KB (and dk and dv of 64 x 256 floats would be 256
-//   registers a thread), dq's resident Q and dO terms 192 KB, against the
-//   227 KB (232,448 bytes) a block may have. So the depth is split over a
-//   thread block cluster of two blocks on the same rows: block rank r owns
-//   columns 128r .. 128r + 127 and runs the D 128 layout above on them
-//   (its Q, K, V and dO terms are those 128 columns), so every product
-//   from shared memory, every register count and every tile stays as at D
-//   128. Each consumer warpgroup forms its half-depth partial of s (dq and
-//   dk/dv: of s and dp) from zero (the six products over its 128 columns),
-//   stores it with st.shared::cluster into the same warpgroup's buffer in
-//   the peer block (Exchange: 32 floats a thread, 16 KB), arrives on the
-//   peer's mbarrier, waits for the peer's partial in its own buffer and
-//   adds it to its own in one float add an element. IEEE addition
-//   commutes, so both blocks hold the same bits of s and dp, hence of m,
-//   l, p and ds, and each accumulates only its own columns: o in the
-//   forward, dq, dk and dv; no score product is done twice. Shared memory:
-//   the forward's 197,664 bytes + two exchanges (16 KB each, one a
-//   consumer) = 230,464; dq 197,664 + 16,400 = 214,064; dk/dv 198,176 +
-//   16,400 = 214,576. The exchange costs per tile: forward 2 x 16 KB out
-//   and in of a block (64 x 64 floats a consumer), dq and dk/dv 16 KB
-//   (two 64 x 32 tiles), against a block's 25.2 MFLOP (forward), 9.4
-//   (dq) and 12.6 (dk/dv) of six-pass products a tile. A buffer is rewritten only
-//   after the peer arrived on its empty barrier (it read the last one),
-//   mbarriers arrive with release and wait with acquire at cluster scope,
-//   a cluster barrier after the barriers' init precedes every remote
-//   arrival, and each warpgroup waits, after its last exchange, for the
-//   peer to have read it, so no block exits while its peer may still
-//   reach its shared memory. Only rank 0 writes lse.
+// - head dims 256, 384 and 512 (the same three kernels, instances <256>,
+//   <384>, <512>; <128> above): past D 128 the layouts above would not fit
+//   a block: at 256 the forward's 128 resident Q rows as terms take 192 KB,
+//   dk/dv's resident K and V terms of 64 keys 192 KB (and dk and dv of 64 x
+//   256 floats would be 256 registers a thread), dq's resident Q and dO
+//   terms 192 KB, against the 227 KB (232,448 bytes) a block may have. So
+//   the depth is split over a thread block cluster of NB = D / 128 blocks
+//   (2, 3 or 4) on the same rows: block rank r owns columns 128r .. 128r +
+//   127 and runs the D 128 layout above on them (its Q, K, V and dO terms
+//   are those 128 columns), so every product from shared memory, every
+//   tile and (but for the exchange) every register stays as at D 128. Each
+//   consumer warpgroup forms its partial of s (dq and dk/dv: of s and dp)
+//   over its 128 columns from zero (the six products) and the cluster adds
+//   the NB partials (Exchange: 32 floats a thread, 16 KB, one a consumer);
+//   every block then holds the same bits of s and dp, hence of m, l, p and
+//   ds, and accumulates only its own columns: o in the forward, dq, dk and
+//   dv; no score product is done twice. At 256 (a pair) each stores its
+//   partial with st.shared::cluster into the same warpgroup's buffer in the
+//   peer, arrives on the peer's mbarrier, waits for the peer's partial in
+//   its own buffer and adds it to its own in one float add an element: IEEE
+//   addition commutes, so both hold the same sum. With three or four
+//   partials the order matters (addition does not associate), so at 384
+//   and 512 each block stores its partial in its own slot, arrives on full
+//   in every peer (release at cluster scope), waits until every peer has
+//   arrived on its own full ((NB - 1) x 128 threads), reads the peers'
+//   slots with ld.shared::cluster and adds all NB in rank order, ((p0 +
+//   p1) + p2) + p3, the same operands in the same order in every block,
+//   then arrives on empty in every peer. Shared memory, the same at 256,
+//   384 and 512: the forward's 197,664 bytes + two exchanges (16 KB each,
+//   one a consumer) = 230,464; dq 197,664 + 16,400 = 214,064; dk/dv
+//   198,176 + 16,400 = 214,576. The exchange costs per tile: forward 16 KB
+//   out of a block a consumer (64 x 64 floats) and (NB - 1) x 16 KB in, dq
+//   and dk/dv the same for two 64 x 32 tiles, against a block's 25.2 MFLOP
+//   (forward), 9.4 (dq) and 12.6 (dk/dv) of six-pass products a tile. A
+//   slot is rewritten only after every reader arrived on its empty
+//   barrier, mbarriers arrive with release and wait with acquire at
+//   cluster scope, a cluster barrier after the barriers' init precedes
+//   every remote arrival, and each warpgroup waits, after its last
+//   exchange, until every peer has read it, so no block exits while a
+//   peer may still reach its shared memory. A cluster of four blocks of
+//   210-230 KB takes four SMs of one GPC: the card holds 30 at once (39 of
+//   three, 66 pairs; cudaOccupancyMaxActiveClusters on an H100 SXM,
+//   chip_smoke.py's build line). Only rank 0 writes lse.
 //
 // bfloat16 and float16, on the tensor cores: Hopper's TMA and warpgroup
 // wgmma (building blocks in sm90.cuh), each kernel a template on the 16-bit
@@ -237,8 +249,10 @@
 // the float16 ones (at 256 the float16 dk/dv runs ~7% faster, at 128 the
 // two are within noise);
 // flash_fwd_split3_kernel 168 at launch (consumers 200, converter 104) at
-// both head dims, flash_dkv_split3_kernel 222 (<128>) and 244 (<256>),
-// flash_dq_split3_kernel 137 and 142; the pair kernels (384, 512, both
+// every head dim, flash_dkv_split3_kernel 222 (<128>), 244 (<256>), 254
+// (<384>) and 255 (<512>), flash_dq_split3_kernel 137, 142, 212 and 238
+// (the rank-order sum's loads of the peers' partials in flight together);
+// the pair kernels (384, 512, both
 // types) 168 at launch, consumers 240 (forward, dq) and 232 (dk/dv); no
 // spills, no stack frames.
 //
@@ -260,7 +274,14 @@
 // consumer waits for its peer's partial with the tensor cores idle. Issuing
 // the next tile's score products before the exchange would hide it (dq has
 // the registers; dk/dv, at 244, would need its p^T and ds^T terms made in
-// two halves).
+// two halves). At head dims 512 and 384 (clusters of four and three) they
+// take 1.78 / 4.11 / 4.40 ms and 1.23 / 2.57 / 2.85 ms at B2 L2047 H8
+// (chip_smoke.py on an H100 at 700 W): 23 / 15 / 19% and 25 / 18 / 22% of
+// their six-pass bounds, 2.2 / 2.8 / 2.6x and 1.9 / 2.3 / 2.2x the <128>
+// kernels over the same blocks (flash_bench's d128_same_blocks_D512,
+// _D384). Each consumer waits for the slowest of three peers and makes six
+// remote arrivals and 24 remote 16-byte reads an exchange (four blocks);
+// dq, with the least work a tile, loses most.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -271,7 +292,7 @@
 
 namespace {
 
-constexpr int D = 128;        // the float32 kernels' head dim
+constexpr int D = 128;        // the float32 kernels' columns a block
 constexpr float NEG_INF = -1e30f;
 
 // element offset of row `row`, head h, batch b of a [B, N, H, HD] tensor
@@ -1187,28 +1208,37 @@ static_assert(LAUNCH_REGS - F3_CONVERTER_REGS >=
                   2 * (F3_CONSUMER_REGS - LAUNCH_REGS),
               "the consumers take more registers than the converter frees");
 
-// Head dim 256: a cluster of two blocks on the same rows, block rank r
-// owning columns 128r .. 128r + 127 (PAIR below). Each consumer warpgroup
-// forms its half-depth partial of s (and dp) from zero, sends it to the
-// same warpgroup of the peer block and adds the peer's to its own in one
-// float add; both blocks then hold the same bits (IEEE addition commutes),
-// so p and ds agree, and each block accumulates only its own columns of o,
-// dq or dk and dv.
+// Head dims 256, 384 and 512: a cluster of NB = HD / 128 blocks on the
+// same rows, block rank r owning columns 128r .. 128r + 127. Each consumer
+// warpgroup forms its partial of s (and dp) over those columns from zero
+// and the cluster adds the NB partials; every block then holds the same
+// bits, so p and ds agree, and each block accumulates only its own columns
+// of o, dq or dk and dv. A pair (NB 2, head dim 256: PAIR below) writes its
+// partial into the peer's buffer and adds the peer's to its own in one
+// float add (add_peer_partials: IEEE addition commutes). With three or four
+// partials the order of the sum matters (IEEE addition does not
+// associate), so each block keeps its own partial in its own slot, reads
+// all NB and adds them in rank order, ((p0 + p1) + p2) + p3
+// (add_cluster_partials).
 constexpr int PAIR = 2;          // blocks of a cluster at head dim 256
 
-// One consumer warpgroup's exchange with the same warpgroup of the peer
-// block: the peer writes its partial here, 32 floats a thread (float4 i of
-// thread tid at part[i][tid]: a warp's stores on 512 consecutive bytes),
-// then arrives on full; this block reads it and arrives on the peer's
-// empty, so that the peer may write the next one.
+// One consumer warpgroup's exchange with the same warpgroup of the other
+// blocks of its cluster, 32 floats a thread (float4 i of thread tid at
+// part[i][tid]: a warp's stores on 512 consecutive bytes). A pair: the peer
+// writes its partial here, then arrives on full; this block reads it and
+// arrives on the peer's empty, so that the peer may write the next one.
+// NB > 2: this block writes its own partial here and arrives on full in
+// every peer; the peers read it and arrive on empty here.
 struct Exchange {
   float4 part[8][WG];
   uint64_t full, empty;
 };
 
-__device__ __forceinline__ void init_exchange(Exchange* x) {
-  sm90::mbar_init(&x->full, WG);     // the peer's threads
-  sm90::mbar_init(&x->empty, WG);
+// `peers` other blocks' threads arrive on each barrier (NB - 1)
+__device__ __forceinline__ void init_exchange(Exchange* x,
+                                              uint32_t peers = 1) {
+  sm90::mbar_init(&x->full, peers * WG);
+  sm90::mbar_init(&x->empty, peers * WG);
 }
 
 template <int N>
@@ -1251,8 +1281,76 @@ __device__ __forceinline__ void add_peer_partials(Exchange* xc, uint32_t peer,
   sm90::mbar_arrive_cluster(sm90::map_peer(&xc->empty, peer));
 }
 
-// after a warpgroup's last exchange (`n` in all): the peer has read it, so
-// it touches this block's shared memory no more and the block may exit
+template <int N>
+__device__ __forceinline__ void keep_partial(const float (&x)[N], Exchange* xc,
+                                             int tid, int& i) {
+#pragma unroll
+  for (int n = 0; n < N; n += 4, ++i)
+    xc->part[i][tid] = make_float4(x[n], x[n + 1], x[n + 2], x[n + 3]);
+}
+// x becomes the rank-order sum of the NB blocks' partials: this block's
+// own (rank `rank`) from x, the others' from their slots
+template <int NB, int N>
+__device__ __forceinline__ void sum_partials(float (&x)[N], const Exchange* xc,
+                                             uint32_t rank, int tid, int& i) {
+#pragma unroll
+  for (int n = 0; n < N; n += 4, ++i) {
+    const float4 own = make_float4(x[n], x[n + 1], x[n + 2], x[n + 3]);
+    float4 sum;
+#pragma unroll
+    for (int r = 0; r < NB; ++r) {
+      float4 y = own;
+      if (r != static_cast<int>(rank))
+        y = sm90::ld_cluster(sm90::map_peer(&xc->part[i][tid], r));
+      if (r == 0) {
+        sum = y;
+      } else {
+        sum.x = sum.x + y.x;
+        sum.y = sum.y + y.y;
+        sum.z = sum.z + y.z;
+        sum.w = sum.w + y.w;
+      }
+    }
+    x[n] = sum.x;
+    x[n + 1] = sum.y;
+    x[n + 2] = sum.z;
+    x[n + 3] = sum.w;
+  }
+}
+
+// Exchange e (0, 1, ..) of this warpgroup's partials `parts` (32 floats a
+// thread in all) in a cluster of NB > 2 blocks: once every peer has read
+// this block's exchange e - 1, its partials go into its own slot and it
+// arrives on full in every peer (release at cluster scope); once every
+// peer's have arrived here, each element becomes the rank-order sum of the
+// NB partials, read from the peers' slots (ld.shared::cluster), and this
+// block arrives on empty in every peer. Every block adds the same operands
+// in the same order, so all hold the same bits.
+template <int NB, typename... Parts>
+__device__ __forceinline__ void add_cluster_partials(Exchange* xc,
+                                                     uint32_t rank, int tid,
+                                                     int e, Parts&... parts) {
+  const uint32_t parity = e & 1;
+  sm90::mbar_wait_cluster(&xc->empty, parity ^ 1);   // the peers read e - 1
+  int i = 0;
+  (keep_partial(parts, xc, tid, i), ...);
+#pragma unroll
+  for (int r = 0; r < NB; ++r)
+    if (r != static_cast<int>(rank))
+      sm90::mbar_arrive_cluster(sm90::map_peer(&xc->full, r));
+  sm90::mbar_wait_cluster(&xc->full, parity);        // the peers' e
+  i = 0;
+  (sum_partials<NB>(parts, xc, rank, tid, i), ...);
+#pragma unroll
+  for (int r = 0; r < NB; ++r)
+    if (r != static_cast<int>(rank))
+      sm90::mbar_arrive_cluster(sm90::map_peer(&xc->empty, r));
+}
+
+// after a warpgroup's last exchange (`n` in all): every peer has read it,
+// so it touches this block's shared memory no more and the block may exit
+// (its writes and its arrivals on full came before this block's last wait
+// on full)
 __device__ __forceinline__ void drain_exchange(Exchange* xc, int n) {
   if (n > 0) sm90::mbar_wait_cluster(&xc->empty, (n - 1) & 1);
 }
@@ -1262,12 +1360,12 @@ struct Fwd3Bars {
 };
 constexpr size_t kFwd3Smem = 1024 + TERMS * TILE_BYTES +
                              2 * TERMS * QTILE_BYTES + sizeof(Fwd3Bars);
-// + an exchange a consumer at head dim 256 (230,464 bytes)
+// + an exchange a consumer at head dims 256, 384 and 512 (230,464 bytes)
 template <int HD>
 constexpr size_t fwd3_smem() {
   return kFwd3Smem + (HD == D ? 0 : 2 * sizeof(Exchange));
 }
-static_assert(fwd3_smem<2 * D>() <= MAX_SMEM, "float32 forward at HD 256");
+static_assert(fwd3_smem<4 * D>() <= MAX_SMEM, "float32 forward at HD 512");
 
 // float32 forward, grid (ceil(L / F3_ROWS), B*H), 384 threads. Warpgroup 0
 // converts: it streams 64-key K and V tiles, K_0, V_0, K_1, ..., each into
@@ -1281,9 +1379,10 @@ static_assert(fwd3_smem<2 * D>() <= MAX_SMEM, "float32 forward at HD 256");
 // o += p v (24 wgmma m64n128k16, v's terms MN-major with the transpose
 // bit). A consumer whose rows all lie before a tile's first key skips its
 // products (it still waits and releases, keeping the barriers in step).
-// At HD 256 the grid is twice as wide, clusters of two blocks on the same
-// rows, each on its 128 columns; a live tile's s is the sum of the two
-// blocks' partials (add_peer_partials).
+// At HD 256, 384 and 512 the grid is NB = HD / 128 times as wide, clusters
+// of NB blocks on the same rows, each on its 128 columns; a live tile's s is
+// the sum of the blocks' partials (add_peer_partials at 256,
+// add_cluster_partials in rank order at 384 and 512).
 template <int HD>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
     flash_fwd_split3_kernel(const float* __restrict__ q,
@@ -1291,18 +1390,18 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
                             const float* __restrict__ v, float* __restrict__ o,
                             float* __restrict__ lse, int H, int L, int S,
                             float scale) {
-  constexpr bool kPair = HD == PAIR * D;   // a cluster's two column halves
+  constexpr int NB = HD / D;               // a cluster's 128-column slices
+  constexpr bool kPair = NB == PAIR;
   extern __shared__ unsigned char raw_smem[];
   unsigned char* const Qs = align1024(raw_smem);             // [term]
   unsigned char* const Ks = Qs + TERMS * TILE_BYTES;         // [term]
   unsigned char* const Vs = Ks + TERMS * QTILE_BYTES;        // [term]
   auto* bars = reinterpret_cast<Fwd3Bars*>(Vs + TERMS * QTILE_BYTES);
-  auto* xch = reinterpret_cast<Exchange*>(bars + 1);   // [consumer], kPair
-  const uint32_t rank = kPair ? sm90::cluster_ctarank() : 0;
+  auto* xch = reinterpret_cast<Exchange*>(bars + 1);   // [consumer], NB > 1
+  const uint32_t rank = NB > 1 ? sm90::cluster_ctarank() : 0;
   const int col0 = D * rank;                 // this block's columns
-  const int row_blocks = kPair ? gridDim.x / PAIR : gridDim.x;
-  const int q0 =
-      (row_blocks - 1 - (kPair ? blockIdx.x / PAIR : blockIdx.x)) * F3_ROWS;
+  const int row_blocks = gridDim.x / NB;
+  const int q0 = (row_blocks - 1 - blockIdx.x / NB) * F3_ROWS;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int n_tiles = (min(S, q0 + F3_ROWS) + F3_KEYS - 1) / F3_KEYS;
   const int wg = threadIdx.x / WG;
@@ -1312,14 +1411,14 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     sm90::mbar_init(&bars->v_full, WG);
     sm90::mbar_init(&bars->k_empty, 2 * WG / 32);     // consumer warps
     sm90::mbar_init(&bars->v_empty, 2 * WG / 32);
-    if constexpr (kPair) {
-      init_exchange(&xch[0]);
-      init_exchange(&xch[1]);
+    if constexpr (NB > 1) {
+      init_exchange(&xch[0], NB - 1);
+      init_exchange(&xch[1], NB - 1);
     }
     sm90::fence_barrier_init();
   }
   __syncthreads();
-  if constexpr (kPair) sm90::cluster_sync();   // the peer's barriers too
+  if constexpr (NB > 1) sm90::cluster_sync();   // the peers' barriers too
 
   if (wg == 0) {   // converter
     sm90::setmaxnreg_dec<F3_CONVERTER_REGS>();
@@ -1383,8 +1482,11 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&bars->k_empty);
     // live tiles are the first my_tiles, so j counts the exchanges
-    if constexpr (kPair)
+    if constexpr (kPair) {
       if (live) add_peer_partials(&xch[cw], rank ^ 1, tid, j, s);
+    } else if constexpr (NB > 2) {
+      if (live) add_cluster_partials<NB>(&xch[cw], rank, tid, j, s);
+    }
 
     uint32_t pa[TERMS][F3_KEYS / 16][4];
     if (live) {
@@ -1448,7 +1550,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     if (lane == 0) sm90::mbar_arrive(&bars->v_empty);
   }
 
-  if constexpr (kPair) drain_exchange(&xch[cw], min(my_tiles, n_tiles));
+  if constexpr (NB > 1) drain_exchange(&xch[cw], min(my_tiles, n_tiles));
 
   float inv[2];
 #pragma unroll
@@ -1457,7 +1559,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     l[r] = fmaxf(l[r], 1e-30f);
     inv[r] = 1.f / l[r];
-    if (t == 0 && row + 8 * r < L && rank == 0)   // both blocks hold it
+    if (t == 0 && row + 8 * r < L && rank == 0)   // all blocks hold it
       lse[static_cast<int64_t>(bh) * L + row + 8 * r] = m[r] * LN2 + logf(l[r]);
   }
   store_acc_rows<float, HD>(o, b, h, L, H, row, t, acc, inv, col0);
@@ -1479,12 +1581,12 @@ struct Dkv3Stats {               // a streamed tile's lse and delta
 constexpr size_t kDkv3Smem = 1024 + 2 * TERMS * QTILE_BYTES +
                              2 * D3_STAGES * TERMS * D3_TILE +
                              sizeof(Dkv3Stats) + sizeof(Ring3Bars);
-// + the consumer's exchange at head dim 256 (214,576 bytes)
+// + the consumer's exchange at head dims 256, 384 and 512 (214,576 bytes)
 template <int HD>
 constexpr size_t dkv3_smem() {
   return kDkv3Smem + (HD == D ? 0 : sizeof(Exchange));
 }
-static_assert(dkv3_smem<2 * D>() <= MAX_SMEM, "float32 dk/dv at HD 256");
+static_assert(dkv3_smem<4 * D>() <= MAX_SMEM, "float32 dk/dv at HD 512");
 
 // float32 dk and dv, grid (ceil(S / D3_KEYS), B*H), 256 threads: the K and
 // V terms of 64 keys stay resident (96 KB), so a block has one consumer
@@ -1495,9 +1597,9 @@ static_assert(dkv3_smem<2 * D>() <= MAX_SMEM, "float32 dk/dv at HD 256");
 // K-major from shared memory); p^T and ds^T in registers, each split into
 // three A terms; dv += p^T dO and dk += ds^T q (12 wgmma m64n128k16 each,
 // dO's and q's terms MN-major with the transpose bit). One block an SM:
-// 198 KB of shared memory, up to 255 registers a thread. At HD 256, clusters
-// of two blocks on the same keys, each on its 128 columns, s^T and dp^T
-// the sums of the two blocks' partials.
+// 198 KB of shared memory, up to 255 registers a thread. At HD 256, 384 and
+// 512, clusters of NB = HD / 128 blocks on the same keys, each on its 128
+// columns, s^T and dp^T the sums of the blocks' partials.
 template <int HD>
 __global__ void __launch_bounds__(D3_THREADS, 1)
     flash_dkv_split3_kernel(const float* __restrict__ q,
@@ -1508,7 +1610,8 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
                             const float* __restrict__ delta,
                             float* __restrict__ dk, float* __restrict__ dv,
                             int H, int L, int S, float scale) {
-  constexpr bool kPair = HD == PAIR * D;   // a cluster's two column halves
+  constexpr int NB = HD / D;               // a cluster's 128-column slices
+  constexpr bool kPair = NB == PAIR;
   extern __shared__ unsigned char raw_smem[];
   unsigned char* const Ks = align1024(raw_smem);              // [term]
   unsigned char* const Vs = Ks + TERMS * QTILE_BYTES;         // [term]
@@ -1516,10 +1619,10 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
   unsigned char* const Gs = Qs + D3_STAGES * TERMS * D3_TILE; // dO
   auto* stats = reinterpret_cast<Dkv3Stats*>(Gs + D3_STAGES * TERMS * D3_TILE);
   auto* bars = reinterpret_cast<Ring3Bars*>(stats + 1);
-  auto* xch = reinterpret_cast<Exchange*>(bars + 1);         // kPair
-  const uint32_t rank = kPair ? sm90::cluster_ctarank() : 0;
+  auto* xch = reinterpret_cast<Exchange*>(bars + 1);         // NB > 1
+  const uint32_t rank = NB > 1 ? sm90::cluster_ctarank() : 0;
   const int col0 = D * rank;                 // this block's columns
-  const int k0 = (kPair ? blockIdx.x / PAIR : blockIdx.x) * D3_KEYS;
+  const int k0 = blockIdx.x / NB * D3_KEYS;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int n_tiles = k0 < L ? (L - k0 + D3_ROWS - 1) / D3_ROWS : 0;
   const int wg = threadIdx.x / WG;
@@ -1529,11 +1632,11 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
       sm90::mbar_init(&bars->full[st], WG);           // converter threads
       sm90::mbar_init(&bars->empty[st], WG / 32);     // consumer warps
     }
-    if constexpr (kPair) init_exchange(xch);
+    if constexpr (NB > 1) init_exchange(xch, NB - 1);
     sm90::fence_barrier_init();
   }
   __syncthreads();
-  if constexpr (kPair) sm90::cluster_sync();   // the peer's barriers too
+  if constexpr (NB > 1) sm90::cluster_sync();   // the peers' barriers too
 
   if (wg == 0) {   // converter
     const int tid = threadIdx.x;
@@ -1601,7 +1704,10 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
     sm90::wgmma_wait();
     sm90::fence_regs(s);
     sm90::fence_regs(dp);
-    if constexpr (kPair) add_peer_partials(xch, rank ^ 1, tid, j, s, dp);
+    if constexpr (kPair)
+      add_peer_partials(xch, rank ^ 1, tid, j, s, dp);
+    else if constexpr (NB > 2)
+      add_cluster_partials<NB>(xch, rank, tid, j, s, dp);
 
     // p^T = exp(s^T scale - lse), ds^T = p^T (dp^T - delta) scale; rows:
     // keys key + 8((i / 2) & 1), columns: query rows q0 + c
@@ -1659,7 +1765,7 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
   }
-  if constexpr (kPair) drain_exchange(xch, n_tiles);
+  if constexpr (NB > 1) drain_exchange(xch, n_tiles);
   const float one[2] = {1.f, 1.f};
   store_acc_rows<float, HD>(dk, b, h, S, H, key, t, dk_acc, one, col0);
   store_acc_rows<float, HD>(dv, b, h, S, H, key, t, dv_acc, one, col0);
@@ -1670,12 +1776,12 @@ constexpr int Q3_KEYS = D3_ROWS;    // keys per streamed tile
 constexpr size_t kDq3Smem = 1024 + 2 * TERMS * QTILE_BYTES +
                             2 * D3_STAGES * TERMS * D3_TILE +
                             sizeof(Ring3Bars);
-// + the consumer's exchange at head dim 256 (214,064 bytes)
+// + the consumer's exchange at head dims 256, 384 and 512 (214,064 bytes)
 template <int HD>
 constexpr size_t dq3_smem() {
   return kDq3Smem + (HD == D ? 0 : sizeof(Exchange));
 }
-static_assert(dq3_smem<2 * D>() <= MAX_SMEM, "float32 dq at HD 256");
+static_assert(dq3_smem<4 * D>() <= MAX_SMEM, "float32 dq at HD 512");
 
 // float32 dq, grid (ceil(L / Q3_ROWS), B*H), 256 threads: dk/dv's mirror
 // image. The Q and dO terms of 64 query rows stay resident (96 KB), split
@@ -1686,9 +1792,9 @@ static_assert(dq3_smem<2 * D>() <= MAX_SMEM, "float32 dq at HD 256");
 // each, all terms K-major from shared memory); p and ds in registers, ds
 // split into three A terms; dq += ds k (12 wgmma m64n128k16, k's terms
 // MN-major with the transpose bit). One block an SM: 198 KB of shared
-// memory, up to 255 registers a thread. At HD 256, clusters of two blocks on
-// the same rows, each on its 128 columns, s and dp the sums of the two
-// blocks' partials.
+// memory, up to 255 registers a thread. At HD 256, 384 and 512, clusters of
+// NB = HD / 128 blocks on the same rows, each on its 128 columns, s and dp
+// the sums of the blocks' partials.
 template <int HD>
 __global__ void __launch_bounds__(D3_THREADS, 1)
     flash_dq_split3_kernel(const float* __restrict__ q,
@@ -1699,19 +1805,19 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
                            const float* __restrict__ delta,
                            float* __restrict__ dq, int H, int L, int S,
                            float scale) {
-  constexpr bool kPair = HD == PAIR * D;   // a cluster's two column halves
+  constexpr int NB = HD / D;               // a cluster's 128-column slices
+  constexpr bool kPair = NB == PAIR;
   extern __shared__ unsigned char raw_smem[];
   unsigned char* const Qs = align1024(raw_smem);               // [term]
   unsigned char* const Gs = Qs + TERMS * QTILE_BYTES;          // [term] dO
   unsigned char* const Ks = Gs + TERMS * QTILE_BYTES;          // [stage][term]
   unsigned char* const Vs = Ks + D3_STAGES * TERMS * D3_TILE;  // [stage][term]
   auto* bars = reinterpret_cast<Ring3Bars*>(Vs + D3_STAGES * TERMS * D3_TILE);
-  auto* xch = reinterpret_cast<Exchange*>(bars + 1);           // kPair
-  const uint32_t rank = kPair ? sm90::cluster_ctarank() : 0;
+  auto* xch = reinterpret_cast<Exchange*>(bars + 1);           // NB > 1
+  const uint32_t rank = NB > 1 ? sm90::cluster_ctarank() : 0;
   const int col0 = D * rank;                 // this block's columns
-  const int row_blocks = kPair ? gridDim.x / PAIR : gridDim.x;
-  const int q0 =
-      (row_blocks - 1 - (kPair ? blockIdx.x / PAIR : blockIdx.x)) * Q3_ROWS;
+  const int row_blocks = gridDim.x / NB;
+  const int q0 = (row_blocks - 1 - blockIdx.x / NB) * Q3_ROWS;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int n_tiles = (min(S, q0 + Q3_ROWS) + Q3_KEYS - 1) / Q3_KEYS;
   const int wg = threadIdx.x / WG;
@@ -1721,11 +1827,11 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
       sm90::mbar_init(&bars->full[st], WG);           // converter threads
       sm90::mbar_init(&bars->empty[st], WG / 32);     // consumer warps
     }
-    if constexpr (kPair) init_exchange(xch);
+    if constexpr (NB > 1) init_exchange(xch, NB - 1);
     sm90::fence_barrier_init();
   }
   __syncthreads();
-  if constexpr (kPair) sm90::cluster_sync();   // the peer's barriers too
+  if constexpr (NB > 1) sm90::cluster_sync();   // the peers' barriers too
 
   if (wg == 0) {   // converter
     const int tid = threadIdx.x;
@@ -1794,7 +1900,10 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
     sm90::wgmma_wait();
     sm90::fence_regs(s);
     sm90::fence_regs(dp);
-    if constexpr (kPair) add_peer_partials(xch, rank ^ 1, tid, j, s, dp);
+    if constexpr (kPair)
+      add_peer_partials(xch, rank ^ 1, tid, j, s, dp);
+    else if constexpr (NB > 2)
+      add_cluster_partials<NB>(xch, rank, tid, j, s, dp);
 
     // p = exp(s scale - lse), ds = p (dp - delta) scale; rows: queries
     // row + 8((i / 2) & 1), columns: keys k0 + c. Only a tile that crosses
@@ -1833,7 +1942,7 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
   }
-  if constexpr (kPair) drain_exchange(xch, n_tiles);
+  if constexpr (NB > 1) drain_exchange(xch, n_tiles);
   const float one[2] = {1.f, 1.f};
   store_acc_rows<float, HD>(dq, b, h, L, H, row, t, acc, one, col0);
 }
@@ -2471,43 +2580,68 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// `kernel` over `blocks` x `rows` blocks: a plain launch, or (kPair: the
-// float32 kernels at head dim 256, the 16-bit ones at 384 and 512) clusters
-// of two blocks along x (the two column halves of each block of rows,
-// blocks 2i and 2i + 1), through cudaLaunchKernelEx
-template <bool kPair, typename... Params, typename... Args>
+// a launch of `blocks` x `rows` clusters of NB blocks along x (the NB
+// column slices of each block of rows: blocks NB i .. NB i + NB - 1); `dim`
+// holds the cluster attribute that `cfg` points to
+template <int NB>
+void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& dim,
+                    int blocks, int rows, int threads, size_t smem,
+                    cudaStream_t stream) {
+  cfg = {};
+  cfg.gridDim = dim3(NB * blocks, rows);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  dim.id = cudaLaunchAttributeClusterDimension;
+  dim.val.clusterDim.x = NB;
+  dim.val.clusterDim.y = 1;
+  dim.val.clusterDim.z = 1;
+  cfg.attrs = &dim;
+  cfg.numAttrs = 1;
+}
+
+// `kernel` over `blocks` x `rows` blocks: a plain launch (NB 1), or clusters
+// of NB blocks along x through cudaLaunchKernelEx (the float32 kernels at
+// head dims 256, 384 and 512: NB = HD / 128; the 16-bit ones at 384 and
+// 512: PAIR)
+template <int NB, typename... Params, typename... Args>
 int launch_grid(void (*kernel)(Params...), int blocks, int rows, int threads,
                 size_t smem, cudaStream_t stream, Args... args) {
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if constexpr (!kPair) {
+  if constexpr (NB == 1) {
     kernel<<<dim3(blocks, rows), threads, smem, stream>>>(args...);
   } else {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(PAIR * blocks, rows);
-    cfg.blockDim = dim3(threads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cudaLaunchAttribute pair;
-    pair.id = cudaLaunchAttributeClusterDimension;
-    pair.val.clusterDim.x = PAIR;
-    pair.val.clusterDim.y = 1;
-    pair.val.clusterDim.z = 1;
-    cfg.attrs = &pair;
-    cfg.numAttrs = 1;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute dim;
+    cluster_config<NB>(cfg, dim, blocks, rows, threads, smem, stream);
     err = cudaLaunchKernelEx(&cfg, kernel, args...);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// how many clusters of `kernel` (NB blocks of `threads` threads and `smem`
+// bytes each) the card can hold at once, into *n (0: it cannot launch one)
+template <int NB, typename... Params>
+int max_clusters(void (*kernel)(Params...), int threads, size_t smem,
+                 int* n) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute dim;
+  cluster_config<NB>(cfg, dim, 1, 1, threads, smem, nullptr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      n, reinterpret_cast<const void*>(kernel), &cfg));
+}
+
 // float32 forward, dq and dk/dv at head dim HD: three bf16 terms on wgmma,
-// no tensor maps
+// no tensor maps; at HD 256, 384 and 512 clusters of HD / 128 blocks
 template <int HD>
 int launch_fwd_split3(const void* q, const void* k, const void* v, void* o,
                       float* lse, int B, int H, int L, int S, float scale,
                       cudaStream_t stream) {
-  return launch_grid<HD != D>(
+  return launch_grid<HD / D>(
       flash_fwd_split3_kernel<HD>, (L + F3_ROWS - 1) / F3_ROWS, B * H,
       SM90_THREADS, fwd3_smem<HD>(), stream, static_cast<const float*>(q),
       static_cast<const float*>(k), static_cast<const float*>(v),
@@ -2519,7 +2653,7 @@ int launch_dq_split3(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
                      void* dq, int B, int H, int L, int S, float scale,
                      cudaStream_t stream) {
-  return launch_grid<HD != D>(
+  return launch_grid<HD / D>(
       flash_dq_split3_kernel<HD>, (L + Q3_ROWS - 1) / Q3_ROWS, B * H,
       D3_THREADS, dq3_smem<HD>(), stream, static_cast<const float*>(q),
       static_cast<const float*>(k), static_cast<const float*>(v),
@@ -2532,7 +2666,7 @@ int launch_dkv_split3(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dk, void* dv, int B, int H, int L, int S,
                       float scale, cudaStream_t stream) {
-  return launch_grid<HD != D>(
+  return launch_grid<HD / D>(
       flash_dkv_split3_kernel<HD>, (S + D3_KEYS - 1) / D3_KEYS, B * H,
       D3_THREADS, dkv3_smem<HD>(), stream, static_cast<const float*>(q),
       static_cast<const float*>(k), static_cast<const float*>(v),
@@ -2622,7 +2756,7 @@ int launch_fwd_pair(const void* q, const void* k, const void* v, void* o,
   if (err == cudaSuccess)
     err = sm90::make_head_map<T>(&tv, v, B, S, H, HD, PAIR_FWD_KEYS);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_grid<true>(
+  return launch_grid<PAIR>(
       flash_fwd_pair_kernel<T, HD>, (L + FWD_ROWS - 1) / FWD_ROWS, B * H,
       SM90_THREADS, pair_q_smem<HD, PAIR_FWD_KEYS, 1>(), stream, tq, tk, tv,
       static_cast<T*>(o), lse, H, L, S, scale);
@@ -2642,7 +2776,7 @@ int launch_dq_pair(const void* q, const void* k, const void* v,
   if (err == cudaSuccess)
     err = sm90::make_head_map<T>(&tv, v, B, S, H, HD, PAIR_DQ_KEYS);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_grid<true>(
+  return launch_grid<PAIR>(
       flash_dq_pair_kernel<T, HD>, (L + DQ_ROWS - 1) / DQ_ROWS, B * H,
       SM90_THREADS, pair_q_smem<HD, PAIR_DQ_KEYS, 2>(), stream, tq, tk, tv,
       tg, lse, delta, static_cast<T*>(dq), H, L, S, scale);
@@ -2663,7 +2797,7 @@ int launch_dkv_pair(const void* q, const void* k, const void* v,
   if (err == cudaSuccess)
     err = sm90::make_head_map<T>(&tv, v, B, S, H, HD, 64);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_grid<true>(
+  return launch_grid<PAIR>(
       flash_dkv_pair_kernel<T, HD>, (S + 63) / 64, B * H, SM90_THREADS,
       dkv_pair_smem<HD>(), stream, tq, tk, tv, tg, lse, delta,
       static_cast<T*>(dk), static_cast<T*>(dv), H, L, S, scale);
@@ -2677,9 +2811,9 @@ enum : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 extern "C" {
 
 // q, o [B, L, H, D], k, v [B, S, H, D], contiguous and 16-byte aligned, all
-// of the element type `dtype` (0 float, 1 bfloat16, 2 float16), D 128 or
-// 256 in each, 384 or 512 in the 16-bit types; lse [B*H, L] float. Each entry point returns a cudaError_t
-// value; 0 means the launch was accepted (another D or dtype:
+// of the element type `dtype` (0 float, 1 bfloat16, 2 float16), D 128, 256,
+// 384 or 512 in each; lse [B*H, L] float. Each entry point returns a
+// cudaError_t value; 0 means the launch was accepted (another D or dtype:
 // cudaErrorInvalidValue).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         void* lse, int B, int H, int L, int S, int D,
@@ -2690,6 +2824,10 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     return launch_fwd_split3<128>(q, k, v, o, lse_f, B, H, L, S, scale, s);
   if (dtype == kFloat32 && D == 256)
     return launch_fwd_split3<256>(q, k, v, o, lse_f, B, H, L, S, scale, s);
+  if (dtype == kFloat32 && D == 384)
+    return launch_fwd_split3<384>(q, k, v, o, lse_f, B, H, L, S, scale, s);
+  if (dtype == kFloat32 && D == 512)
+    return launch_fwd_split3<512>(q, k, v, o, lse_f, B, H, L, S, scale, s);
   if (dtype == kBFloat16 && D == 128)
     return launch_fwd_sm90<__nv_bfloat16, 128>(q, k, v, o, lse_f, B, H, L, S,
                                                scale, s);
@@ -2730,6 +2868,12 @@ int flash_attention_dq(const void* q, const void* k, const void* v,
                                  s);
   if (dtype == kFloat32 && D == 256)
     return launch_dq_split3<256>(q, k, v, dout, l, dl, dq, B, H, L, S, scale,
+                                 s);
+  if (dtype == kFloat32 && D == 384)
+    return launch_dq_split3<384>(q, k, v, dout, l, dl, dq, B, H, L, S, scale,
+                                 s);
+  if (dtype == kFloat32 && D == 512)
+    return launch_dq_split3<512>(q, k, v, dout, l, dl, dq, B, H, L, S, scale,
                                  s);
   if (dtype == kBFloat16 && D == 128)
     return launch_dq_sm90<__nv_bfloat16, 128>(q, k, v, dout, l, dl, dq, B, H,
@@ -2772,6 +2916,12 @@ int flash_attention_dkv(const void* q, const void* k, const void* v,
   if (dtype == kFloat32 && D == 256)
     return launch_dkv_split3<256>(q, k, v, dout, l, dl, dk, dv, B, H, L, S,
                                   scale, s);
+  if (dtype == kFloat32 && D == 384)
+    return launch_dkv_split3<384>(q, k, v, dout, l, dl, dk, dv, B, H, L, S,
+                                  scale, s);
+  if (dtype == kFloat32 && D == 512)
+    return launch_dkv_split3<512>(q, k, v, dout, l, dl, dk, dv, B, H, L, S,
+                                  scale, s);
   if (dtype == kBFloat16 && D == 128)
     return launch_dkv_sm90<__nv_bfloat16, 128>(q, k, v, dout, l, dl, dk, dv,
                                                B, H, L, S, scale, s);
@@ -2796,6 +2946,34 @@ int flash_attention_dkv(const void* q, const void* k, const void* v,
   if (dtype == kFloat16 && D == 512)
     return launch_dkv_pair<__half, 512>(q, k, v, dout, l, dl, dk, dv, B, H, L,
                                         S, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// how many clusters of the float32 kernel `kernel` (0 forward, 1 dq, 2
+// dk/dv) at head dim D (256, 384 or 512: clusters of D / 128 blocks) the
+// card can hold at once, into *n; returns a cudaError_t value (another
+// kernel or D: cudaErrorInvalidValue)
+int flash_attention_max_clusters(int kernel, int D, int* n) {
+  switch (kernel * 1024 + D) {
+    case 256: return max_clusters<2>(flash_fwd_split3_kernel<256>,
+                                     SM90_THREADS, fwd3_smem<256>(), n);
+    case 384: return max_clusters<3>(flash_fwd_split3_kernel<384>,
+                                     SM90_THREADS, fwd3_smem<384>(), n);
+    case 512: return max_clusters<4>(flash_fwd_split3_kernel<512>,
+                                     SM90_THREADS, fwd3_smem<512>(), n);
+    case 1024 + 256: return max_clusters<2>(flash_dq_split3_kernel<256>,
+                                            D3_THREADS, dq3_smem<256>(), n);
+    case 1024 + 384: return max_clusters<3>(flash_dq_split3_kernel<384>,
+                                            D3_THREADS, dq3_smem<384>(), n);
+    case 1024 + 512: return max_clusters<4>(flash_dq_split3_kernel<512>,
+                                            D3_THREADS, dq3_smem<512>(), n);
+    case 2048 + 256: return max_clusters<2>(flash_dkv_split3_kernel<256>,
+                                            D3_THREADS, dkv3_smem<256>(), n);
+    case 2048 + 384: return max_clusters<3>(flash_dkv_split3_kernel<384>,
+                                            D3_THREADS, dkv3_smem<384>(), n);
+    case 2048 + 512: return max_clusters<4>(flash_dkv_split3_kernel<512>,
+                                            D3_THREADS, dkv3_smem<512>(), n);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

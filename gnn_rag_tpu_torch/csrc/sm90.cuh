@@ -121,6 +121,17 @@ __device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
                : "memory");
 }
 
+// a float4 from a shared::cluster address (a map_peer address: another
+// block's shared memory, after an acquire that orders it behind the writes)
+__device__ __forceinline__ float4 ld_cluster(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
 // arrive on an mbarrier of another block of the cluster (a map_peer
 // address), releasing this thread's earlier writes at cluster scope
 __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {

@@ -22,16 +22,18 @@ power-of-two scales that keep small p and ds inside float16's range: p by
 the store). float32 inputs run all three kernels on the tensor cores too,
 each float as three bf16 terms and each product as six bf16 products
 (within ~2^-23 of it: the TPU's float32 dots at Precision.HIGHEST do the
-same); all sums are float. The kernels take head dim D = 128 and D = 256
-in all three types and D = 384 and D = 512 in bfloat16 and float16
-(``HEAD_DIMS``): at 256 the float32 kernels, and at 384 and 512 the 16-bit
-ones, split the depth over a cluster of two blocks, each on half of the
-columns, whose partial scores are added once. The scale 1/sqrt(D) is exact
-at 128 and 256 (1/16 there); at 384 and 512 it is the float nearest it, as
-in the JAX kernels. Any L and S (a ragged last tile is masked in the
-kernel; the JAX wrapper pads L to 128 instead). The JAX model sends every
-D % 128 == 0 in any type to its Pallas kernels: float32 at 384 and up, and
-any type at 640 and up, are not ported yet and raise here.
+same); all sums are float. The kernels take head dim D = 128, 256, 384 and
+512 in all three types (``HEAD_DIMS``): the 16-bit ones at 384 and 512
+split the depth over a cluster of two blocks, each on half of the columns,
+whose partial scores are added once; the float32 ones at 256, 384 and 512
+over a cluster of D / 128 blocks, each on 128 columns, whose partial scores
+are added once (two) or in rank order (three and four, every block adding
+the same operands in the same order, so that all hold the same bits). The
+scale 1/sqrt(D) is exact at 128 and 256 (1/16 there); at 384 and 512 it is
+the float nearest it, as in the JAX kernels. Any L and S (a ragged last
+tile is masked in the kernel; the JAX wrapper pads L to 128 instead). The
+JAX model sends every D % 128 == 0 in any type to its Pallas kernels: head
+dims 640 and up are not ported yet and raise here.
 
 Dispatch: CPU tensors take the plain versions (``flash_fwd_plain``,
 ``flash_dq_plain``, ``flash_dkv_plain``: dense attention and the
@@ -53,8 +55,8 @@ from ..utils import build as _build
 NEG_INF = -1e30
 # the head dims the kernels take, by input type (any other shape or type
 # raises; ``llm.model.flash_applies`` sends those to plain attention)
-HEAD_DIMS = {torch.float32: (128, 256), torch.bfloat16: (128, 256, 384, 512),
-             torch.float16: (128, 256, 384, 512)}
+HEAD_DIMS = {dtype: (128, 256, 384, 512)
+             for dtype in (torch.float32, torch.bfloat16, torch.float16)}
 # the C entry points' element type code
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -86,6 +88,8 @@ def _load():
             for fn in (lib.flash_attention_fwd, lib.flash_attention_dq,
                        lib.flash_attention_dkv):
                 fn.restype = i32
+            lib.flash_attention_max_clusters.argtypes = [i32, i32, ptr]
+            lib.flash_attention_max_clusters.restype = i32
             lib.flash_attention_error_string.argtypes = [i32]
             lib.flash_attention_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -152,10 +156,9 @@ def bwd_delta(o, dout):
 def _check(q, k, v, *more):
     B, L, H, D = q.shape
     if D not in HEAD_DIMS.get(q.dtype, ()):
-        raise ValueError(f"flash_attention: the kernels take head dim 128 "
-                         f"or 256 in float32, and 128, 256, 384 or 512 in "
-                         f"bfloat16 or float16, got {tuple(q.shape)} "
-                         f"{q.dtype}")
+        raise ValueError(f"flash_attention: the kernels take head dim 128, "
+                         f"256, 384 or 512 in float32, bfloat16 or float16, "
+                         f"got {tuple(q.shape)} {q.dtype}")
     S = k.shape[1]
     for name, t, shape in (("k", k, (B, S, H, D)), ("v", v, (B, S, H, D)),
                            *more):
@@ -186,6 +189,19 @@ def _device_ok(q):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return True
+
+
+def max_active_clusters(kind, D):
+    """How many clusters of the float32 kernel ``kind`` ("fwd", "dq" or
+    "dkv") at head dim ``D`` (256, 384 or 512: clusters of D / 128 blocks)
+    the current card holds at once (cudaOccupancyMaxActiveClusters); 0
+    means it cannot launch one. Raises on another kind or D."""
+    lib = _load()
+    n = ctypes.c_int(0)
+    err = lib.flash_attention_max_clusters(("fwd", "dq", "dkv").index(kind),
+                                           D, ctypes.byref(n))
+    _raise(lib, err, f"{kind} cluster occupancy")
+    return n.value
 
 
 def flash_fwd(q, k, v):

@@ -26,8 +26,11 @@ phase of ``--phases`` (default all three):
   of blocks cost beyond it), and in float16 at B2 L2047 H8 D256 (the
   float16 Gemma-2B-width SFT step's shape); then head dims 512 and 384 in
   bf16 and float16 at B8 L2047 H8 (``D512_SHAPES``: the step-time-llm-d512
-  step's attention, DeepSeek-V4-Flash's head shape), in a tree whose
-  kernels take them; and ``sass``, a digest of each flash kernel's machine
+  step's attention, DeepSeek-V4-Flash's head shape), and in float32 at B2
+  L2047 H8 (``D512_FP32_SHAPES``: the step-time-llm-d512-fp32 step's), in
+  a tree whose kernels take them, each beside the float32 kernels at head
+  dim 128 over the same blocks of the same work (what the clusters of four
+  and three blocks cost beyond it); and ``sass``, a digest of each flash kernel's machine
   code (its SASS instructions, addresses and encodings stripped, keyed by
   kernel, head dim and, for float16, type: the bf16 instances keep the
   keys of trees whose kernels are templates on the head dim alone), so
@@ -84,6 +87,9 @@ D256_F16_SHAPE = (2, 2047, 8, 256)
 # the 16-bit kernels at head dims 512 and 384 (the pair kernels): the
 # DeepSeek-V4-Flash-head-shape SFT step's attention, and the same at 384
 D512_SHAPES = ((8, 2047, 8, 512), (8, 2047, 8, 384))
+# the float32 kernels at head dims 512 and 384 (clusters of four and three
+# blocks): the float32 DeepSeek-V4-Flash-head-shape SFT step's attention
+D512_FP32_SHAPES = ((2, 2047, 8, 512), (2, 2047, 8, 384))
 # the float32 kernels at head dim 128 over the blocks of that shape: B2
 # L2047 H16 gives as many blocks as the head-dim-256 row's pairs, each of
 # the same work (128 columns), without the exchange between the two
@@ -161,6 +167,19 @@ def measure(tree, phases, data):
                 measure_flash(smoke, device, dtype, TIMING, shape)
                 if takes(getattr(torch, dtype), shape[3]) else missing)
             for shape in D512_SHAPES for dtype in ("bfloat16", "float16")}
+        out["flash_d512_fp32"] = {
+            f"D{shape[3]}": (
+                measure_flash(smoke, device, "float32",
+                              FLASH_TIMING["float32"], shape)
+                if takes(torch.float32, shape[3]) else missing)
+            for shape in D512_FP32_SHAPES}
+        # head dim 128 at H x D / 128 heads: as many blocks, each of the
+        # same work (128 columns), as the clusters of D / 128 blocks
+        out["flash_d512_fp32"].update({
+            f"d128_same_blocks_D{D}": measure_flash(
+                smoke, device, "float32", FLASH_TIMING["float32"],
+                (B, L, H * D // 128, 128))
+            for B, L, H, D in D512_FP32_SHAPES})
         out["sass"] = sass_digests(fa.build())
     if "gate" in phases:
         out["gate_scatter"] = measure_gate(smoke, device)

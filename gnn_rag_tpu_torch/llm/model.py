@@ -16,11 +16,11 @@ copies kernels without a transpose.
 
 Attention takes the flash kernels (``llm.flash_attention``) only where they
 apply (``flash_applies``): ``use_flash``, CUDA tensors, no kv cache, no
-``kv_valid``, head dim 128 or 256 in float32, 128, 256, 384 or 512 in
-bfloat16 or float16. Everything else (the JAX model's Pallas rule also
-takes float32 at 384 and 512, and every larger multiple of 128,
-gnn_rag_tpu/llm_tpu/model.py:199-200) goes through the plain
-``reference_attention``, which computes what the JAX model computes there.
+``kv_valid``, head dim 128, 256, 384 or 512 in float32, bfloat16 or
+float16. Everything else (the JAX model's Pallas rule also takes every
+larger multiple of 128, gnn_rag_tpu/llm_tpu/model.py:199-200) goes through
+the plain ``reference_attention``, which computes what the JAX model
+computes there.
 
 ``quant="int8"`` builds every projection and the head as ``llm.quant.
 QuantLinear`` (int8 weight, per-output scale; the parameters come from
@@ -115,10 +115,10 @@ def apply_rope(x, cos, sin):
 def flash_applies(use_flash: bool, head_dim: int, dtype: torch.dtype,
                   device_type: str, cached: bool, masked: bool) -> bool:
     """Whether attention over q of ``head_dim``, ``dtype`` on
-    ``device_type`` runs the flash kernels: the kernels take head dim 128
-    or 256 in float32, and 128, 256, 384 or 512 in bfloat16 or float16, on
-    the card (``flash_attention.HEAD_DIMS``), and neither a kv cache
-    (``cached``) nor ``kv_valid`` (``masked``)."""
+    ``device_type`` runs the flash kernels: the kernels take head dim 128,
+    256, 384 or 512 in float32, bfloat16 or float16, on the card
+    (``flash_attention.HEAD_DIMS``), and neither a kv cache (``cached``)
+    nor ``kv_valid`` (``masked``)."""
     return (use_flash and not cached and not masked and device_type == "cuda"
             and head_dim in _fa.HEAD_DIMS.get(dtype, ()))
 

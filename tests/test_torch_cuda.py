@@ -3,9 +3,10 @@ gate-scatter forward and backward, the fused-projection forward and
 backward and scatter_mm (alone, at widths a block holds only in column
 windows, and in a ReaRev training step under GNN_RAG_GATE_SCATTER=v2),
 and the flash-attention forward, dq and dk/dv
-kernels (alone, through autograd, and in a LlamaLM; at head dim 128 and
-256, each in float32, bf16 and float16, and at 384 and 512 in bf16 and
-float16).
+kernels (alone, through autograd, and in a LlamaLM; at head dims 128,
+256, 384 and 512, each in float32, bf16 and float16), and the float32
+flash kernels' clusters (three and four blocks at 384 and 512) accepted
+by the card.
 
 Every test here needs an NVIDIA GPU (and nvcc for the first build) and skips
 without one. The file imports no JAX, so it runs on a machine without it:
@@ -858,18 +859,36 @@ def test_flash_d256_kernels_match_plain(cuda, B, L, H, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
 @pytest.mark.parametrize("D", [384, 512])
 @pytest.mark.parametrize("B,L,H", [
-    # head dims 384 and 512 (a cluster of two blocks, each on half of the
-    # columns): one row, under one tile, one row past dq's 32-key and the
-    # forward's and dk/dv's 64-key tiles, one row past a 128-row block,
-    # ragged lengths, DeepSeek-V4-Flash's head shape at the SFT length (8
-    # heads repeated from one kv head)
+    # head dims 384 and 512 (16-bit: a cluster of two blocks, each on half
+    # of the columns; float32: of three or four, each on 128 columns, the
+    # partial scores added in rank order): one row, under one tile, one row
+    # past dq's 32-key and the forward's and dk/dv's 64-key tiles, one row
+    # past a 128-row block (float32 dq: past a 64-row block), ragged
+    # lengths, DeepSeek-V4-Flash's head shape at the SFT length (8 heads
+    # repeated from one kv head)
     (1, 1, 2), (1, 33, 2), (1, 65, 2), (1, 129, 2), (3, 77, 2), (2, 300, 8),
     (1, 1000, 2), (2, 2047, 8)])
 def test_flash_d512_kernels_match_plain(cuda, B, L, H, D, dtype):
     flash_vs_plain(cuda, B, L, H, D, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
+@pytest.mark.parametrize("D", [256, 384, 512])
+def test_flash_fp32_clusters_fit_the_card(cuda, kind, D):
+    """The card holds at least one cluster of each float32 kernel at head
+    dims 256, 384 and 512 (D / 128 blocks of 210-230 KB of shared memory,
+    one an SM: cudaOccupancyMaxActiveClusters), and at most one a block of
+    SMs of the cluster's size."""
+    n = fa.max_active_clusters(kind, D)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert 0 < n <= sms // (D // 128), n
+    with pytest.raises(RuntimeError, match="cluster occupancy"):
+        fa.max_active_clusters(kind, 128)
 
 
 @pytest.mark.cuda
@@ -887,8 +906,8 @@ def test_flash_autograd_and_checks(cuda):
         assert_rel(a, b.detach(), 1e-4, name)
     with pytest.raises(ValueError, match="head dim 128"):
         fa.flash_fwd(*(torch.zeros(1, 8, 1, 64, device=cuda),) * 3)
-    with pytest.raises(ValueError, match="128 or 256 in float32, and"):
-        fa.flash_fwd(*(torch.zeros(1, 8, 1, 384, device=cuda),) * 3)
+    with pytest.raises(ValueError, match="384 or 512 in float32, bfloat16"):
+        fa.flash_fwd(*(torch.zeros(1, 8, 1, 640, device=cuda),) * 3)
     x = torch.zeros(1, 8, 1, 128, device=cuda)
     with pytest.raises(ValueError, match="k must be"):
         fa.flash_fwd(x, x.half(), x)
@@ -1046,12 +1065,50 @@ def test_llama_d512_flash_vs_plain_attention(cuda, head_dim, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [384, 512])
+def test_llama_d512_fp32_flash_vs_plain_attention(cuda, head_dim):
+    """A float32 LlamaLM at head dim 512 (DeepSeek-V4-Flash's head shape:
+    heads of 512, one kv head; dim 4096, 8 heads) and at 384 (dim 3072), 2
+    layers, on the card: the flash path launches one forward, one dq and
+    one dk/dv per layer (the float32 kernels in clusters of four and three
+    blocks), and its logits and every parameter's loss gradient are within
+    1e-4 of the largest entry (+ 1e-7) of the plain attention path's (as
+    test_llama_d256_fp32_flash_vs_plain_attention holds head dim 256)."""
+    cfg = LlamaConfig(vocab_size=300, dim=8 * head_dim, n_layers=2,
+                      n_heads=8, n_kv_heads=1, intermediate=512,
+                      dtype="float32")
+    model = build_llama(cfg, seed=0, device=cuda)
+    tokens = torch.randint(3, 300, (2, 300), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+
+    def run(**changes):
+        m = build_llama(LlamaConfig(**{**cfg.__dict__, **changes}), seed=0,
+                        device=cuda)
+        m.load_state_dict(model.state_dict())
+        logits, _ = m(tokens)
+        logits.logsumexp(-1).mean().backward()
+        return [logits.detach()] + [p.grad for p in m.parameters()]
+
+    n = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    got = run()
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
+        c + cfg.n_layers for c in n)
+    want = run(use_flash=False)
+    names = ["logits"] + [name for name, _ in model.named_parameters()]
+    for name, a, b in zip(names, got, want):
+        err = (a - b).abs().max().item()
+        assert torch.isfinite(a).all() and err <= (
+            1e-4 * b.abs().max().item() + 1e-7), (name, err)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("head_dim,dtype", [(640, "float16"), (640, "bfloat16"),
-                                            (384, "float32")])
+                                            (640, "float32")])
 def test_llama_shapes_the_kernels_refuse_run_reference_attention(
         cuda, head_dim, dtype):
     """A LlamaLM whose attention the flash kernels do not take (head dim
-    640, and 384 in float32) runs on the card with no flash launch, through
+    640, in every type) runs on the card with no flash launch, through
     reference_attention: its logits equal the same model's with
     use_flash=False."""
     cfg = LlamaConfig(vocab_size=300, dim=2 * head_dim, n_layers=2, n_heads=2,

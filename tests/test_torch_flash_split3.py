@@ -4,16 +4,21 @@ On the card the float32 forward, dq and dk/dv kernels feed every float
 operand x to the bf16 tensor cores as three terms, x1 = bf16(x), x2 =
 bf16(x - x1), x3 = bf16(x - x1 - x2), and form x y as the six term
 products whose indices add up to at most 4, the small ones first, summed
-in float32 (csrc/flash_attention.cu, ``a_term`` / ``b_term``). At head dim
-256 a cluster of two blocks splits the depth: each block forms the six
-products over its 128 columns from zero, and the two half-depth scores (s,
-dp) are added once. Emulated here with the same inputs from a numpy seed
-at (1, 300, 2, D) float32, D 128 and 256, in the kernels' tiles (the
-forward's online softmax over 64-key tiles, dq's 32-key tiles, dk/dv's
-32-row tiles, each tile's product added to a float32 accumulator):
+in float32 (csrc/flash_attention.cu, ``a_term`` / ``b_term``). At head dims
+256, 384 and 512 a cluster of D / 128 blocks splits the depth: each block
+forms the six products over its 128 columns from zero, and the blocks'
+partial scores (s, dp) are added in rank order, ((p0 + p1) + p2) + p3 (at
+256 the one sum of two). Emulated here with the same inputs from a numpy
+seed at (1, 300, 2, D) float32, D 128, 256, 384 and 512, in the kernels'
+tiles (the forward's online softmax over 64-key tiles, dq's 32-key tiles,
+dk/dv's 32-row tiles, each tile's product added to a float32
+accumulator):
 
 * each product, in float64, is within 2^-21 sum |x y| of the exact one (the
   dropped x2y3, x3y2 and x3y3 are within ~2^-23 |x y|);
+* the rank-order float32 sum of three and four blocks' partial scores is
+  within 2^-21 sum |x y| plus the rounding of the partials and of the
+  D / 128 - 1 adds (2^-24 of each result's size) of the float64 score;
 * the emulated o and lse (forward), dq (dq) and dk and dv (dk/dv), summed
   in float32, are within 0.1 of the card check's tolerance (1e-4 of
   max|plain|, chip_smoke.attn_err) of ``flash_fwd_plain``,
@@ -33,7 +38,7 @@ from gnn_rag_tpu_torch.llm import flash_attention as fa
 # kernels run them: the small products first
 PAIRS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
 SHAPE = (1, 300, 2)               # B, L, H; then D
-HALF = 128                        # the columns a block of the cluster owns
+BLOCK_COLS = 128                  # the columns a block of the cluster owns
 FWD_KEYS, DQ_KEYS, DKV_ROWS = 64, 32, 32     # the kernels' tiles
 
 
@@ -61,16 +66,23 @@ def inputs(seed, D):
                              .astype(np.float32)) for _ in range(4)]
 
 
+def partials(eq, x, y, dtype=torch.float32):
+    """The cluster's partial scores of a score product (s, s^T, dp, dp^T:
+    the depth summed), in rank order: six term products over block r's 128
+    columns from zero, summed in ``dtype``."""
+    return [product(eq, x[..., c:c + BLOCK_COLS], y[..., c:c + BLOCK_COLS],
+                    dtype) for c in range(0, x.shape[-1], BLOCK_COLS)]
+
+
 def scores(eq, x, y, products):
-    """A score product (s, s^T, dp, dp^T: the depth summed) as the kernels
-    form it: six term products over each block's 128 columns from zero, the
-    half-depth partials (one at D 128, two at 256) added once; each
-    half-depth product goes into ``products``."""
+    """A score product as the kernels form it: the partials (one at D 128,
+    two at 256, three at 384, four at 512) added in rank order, ((p0 + p1)
+    + p2) + p3; each block's product goes into ``products``."""
     out = None
-    for c in range(0, x.shape[-1], HALF):
-        xc, yc = x[..., c:c + HALF], y[..., c:c + HALF]
-        products.append((eq, xc, yc))
-        part = product(eq, xc, yc)
+    for c, part in zip(range(0, x.shape[-1], BLOCK_COLS),
+                       partials(eq, x, y)):
+        products.append((eq, x[..., c:c + BLOCK_COLS],
+                         y[..., c:c + BLOCK_COLS]))
         out = part if out is None else out + part
     return out
 
@@ -163,7 +175,7 @@ def run(kernel, D, seed=5):
     return (dk, dv), fa.flash_dkv_plain(q, k, v, g, plse, delta), products
 
 
-@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("D", [128, 256, 384, 512])
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_six_term_products_keep_float32(kernel, D):
     """Each product of the kernel, formed from the three-term split in
@@ -176,7 +188,7 @@ def test_six_term_products_keep_float32(kernel, D):
         assert bool(((got - exact).abs() <= 2 ** -21 * size).all()), eq
 
 
-@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("D", [128, 256, 384, 512])
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_split3_outputs_within_a_tenth_of_the_card_tolerance(kernel, D):
     """The emulated kernel's outputs against the plain version's: within
@@ -186,3 +198,35 @@ def test_split3_outputs_within_a_tenth_of_the_card_tolerance(kernel, D):
         assert a.shape == b.shape and a.dtype == b.dtype == torch.float32
         err = (a - b).abs().max().item()
         assert err <= 0.1 * 1e-4 * b.abs().max().item(), err
+
+
+@pytest.mark.parametrize("D", [384, 512])
+def test_rank_order_sum_of_partials_within_float_rounding(D):
+    """The score of a cluster of D / 128 blocks, q k^T as the rank-order
+    float32 sum ((p0 + p1) + p2) + p3 of the blocks' float32 partials,
+    against the float64 product: within the six products' 2^-21 sum |q k|
+    (each partial's terms formed in float64) plus one float rounding (2^-24)
+    of each partial and of each add's result, bounded by sum_r |p_r|. The
+    sum in another order (block r's own partial first, r >= 2: for r = 1
+    the first add commutes) differs in some bits: every block has to add in
+    the same order to hold the same s."""
+    q, k, _, _ = inputs(11, D)
+    eq = "blhd,bshd->bhls"
+    exact = torch.einsum(eq, q.double(), k.double())
+    size = torch.einsum(eq, q.double().abs(), k.double().abs())
+    parts = partials(eq, q, k)
+    assert len(parts) == D // BLOCK_COLS
+    got = parts[0]
+    for part in parts[1:]:
+        got = got + part
+    assert torch.equal(got, scores(eq, q, k, []))
+    rounding = 2.0 ** -24 * (2 * len(parts) - 1) * sum(
+        p.double().abs() for p in parts)
+    assert bool(((got.double() - exact).abs()
+                 <= 2 ** -21 * size + rounding).all())
+    for own in range(2, len(parts)):
+        other = parts[own]
+        for r, part in enumerate(parts):
+            if r != own:
+                other = other + part
+        assert not torch.equal(other, got), own

@@ -186,7 +186,7 @@ def test_dq_two_term_split_stays_within_tolerance():
     (128, torch.bfloat16, "cuda", False, False, True),
     (128, torch.float32, "cuda", False, False, True),
     (256, torch.bfloat16, "cuda", False, False, True),
-    (384, torch.float32, "cuda", False, False, False),
+    (384, torch.float32, "cuda", False, False, True),    # float32 to 512
     (128, torch.float16, "cuda", False, False, True),    # every type
     (64, torch.bfloat16, "cuda", False, False, False),
     (128, torch.bfloat16, "cpu", False, False, False),
@@ -199,7 +199,7 @@ def test_dq_two_term_split_stays_within_tolerance():
     (384, torch.float16, "cuda", False, False, True),
     (512, torch.bfloat16, "cuda", False, False, True),
     (512, torch.float16, "cuda", False, False, True),
-    (512, torch.float32, "cuda", False, False, False),   # float32 to 256
+    (512, torch.float32, "cuda", False, False, True),
     (512, torch.bfloat16, "cpu", False, False, False),
     (512, torch.float16, "cuda", True, False, False),
     (640, torch.bfloat16, "cuda", False, False, False),
@@ -207,7 +207,10 @@ def test_dq_two_term_split_stays_within_tolerance():
     (256, torch.float32, "cpu", False, False, False),
     (256, torch.bfloat16, "cpu", False, False, False),
     (256, torch.bfloat16, "cuda", True, False, False),
-    (256, torch.bfloat16, "cuda", False, True, False)])
+    (256, torch.bfloat16, "cuda", False, True, False),
+    (640, torch.float32, "cuda", False, False, False),   # no type past 512
+    (384, torch.float32, "cpu", False, False, False),
+    (512, torch.float32, "cuda", False, True, False)])
 def test_flash_rule_takes_the_kernels_only_where_they_apply(
         head_dim, dtype, device, cached, masked, want):
     assert flash_applies(True, head_dim, dtype, device, cached, masked) is want
