@@ -11,9 +11,10 @@ Phases, one line each:
      (gate_scatter.cu and flash_attention.cu with nvcc, graphpath.cpp with
      g++), with ptxas registers and spills, and the wgmma (HGMMA) and TMA
      (UTMALDG) instructions each flash kernel on wgmma must hold
-     (SM90_KERNELS), without spills, and how many clusters of each float32
-     flash kernel at head dims 256, 384 and 512 the card holds at once
-     (cudaOccupancyMaxActiveClusters, none may be 0);
+     (SM90_KERNELS), without spills or stack frames, and how many clusters
+     of each float32 flash kernel at head dims 128 to 1024 the card holds at
+     once (cudaOccupancyMaxActiveClusters, none may be 0), with the new
+     instances' (head dims 640-1024) registers, spill and stack bytes;
   3. kernel: the CUDA kernel against its plain PyTorch version on the card at
      the serving shapes (fp32 and bf16) and at a skewed layout (SKEWED), two
      launches bit-identical, with the kernel's time ``ms`` (CUDA-event
@@ -121,9 +122,11 @@ The LLM reader (the flash-attention kernels K5a-c):
      (float16 also with the scaled cotangents) and B1 L129; and the
      float32 kernels at head dims 512 and 384 (clusters of four and three
      blocks, each on 128 columns, whose partial scores are added in rank
-     order) at B2 L2047 H8, timed, B2 L1000, B1 L129 and B1 L65; every
-     timed row with its products issued over those the function needs and
-     the SDPA backend that served the yardstick;
+     order) at B2 L2047 H8, timed, B2 L1000, B1 L129 and B1 L65; and the
+     float32 kernels at head dims 1024, 896, 768 and 640 (clusters of eight
+     to five blocks) at B2 L2047 H4, timed, B2 L1000, B1 L129 and B1 L65;
+     every timed row with its products issued over those the function
+     needs and the SDPA backend that served the yardstick;
   8. sft: the RoG joint-finetune SFT (scripts/train_sft.sh) through the
      port's entry (`python -m gnn_rag_tpu_torch.llm.sft`, run in this
      process) at LLaMA2-7B width cut to 4 of 32 layers, random weights from
@@ -202,7 +205,13 @@ The LLM reader (the flash-attention kernels K5a-c):
      float32 kernels at head dim 512 (clusters of four blocks), 4 launches
      of each a step, the scoring forward and first loss against plain
      attention, and every gradient of a 2-layer model at head dims 512 and
-     384 (clusters of three blocks), kernels vs plain attention.
+     384 (clusters of three blocks), kernels vs plain attention;
+  11i. step-time-llm-d1024-fp32: the same SFT with 4 heads of 1024 and one
+     kv head (D1024_FP32_FLAGS: LLaMA2-7B's 4,096 query columns regrouped,
+     4 layers, B2, float32) through the port's entry, as 11h: the float32
+     kernels at head dim 1024 (clusters of eight blocks), 4 launches of
+     each a step, and every gradient of a 2-layer model at head dims 1024,
+     896, 768 and 640 (4 heads each), kernels vs plain attention.
 The reader at LLaMA2-7B widths and the full 32 layers (after the SFT
 trainer is freed):
   12. lora: LoRA finetuning (``llm.lora.LoRATrainer``: r 8, alpha 16 on
@@ -241,14 +250,20 @@ import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
-LATENCY_PASSES = 4
+# passes of POST /retrieve through the served split (four took ~70 s on
+# an H100 host, a share of the script's time limit it needs elsewhere)
+LATENCY_PASSES = 2
 TRAIN_STEPS = 20
 PALLAS = "gnn_rag_tpu/ops/pallas_mp.py"
+# the float32 flash kernels' head dims (clusters of D / 128 blocks), and
+# those of the instances in clusters of five to eight blocks
+FP32_HEAD_DIMS = (128, 256, 384, 512, 640, 768, 896, 1024)
+WIDE_FP32_HEAD_DIMS = (640, 768, 896, 1024)
 # the flash kernels on wgmma, each with the SASS opcodes it must hold: the
 # bf16 and float16 ones load by TMA, the float32 ones (three bf16 terms a
 # float, converted by a warpgroup from plain loads) do not (the 16-bit ones
 # are templates on the element type and the head dim, the float32 ones on
-# the head dim: their instances by mangled name, <128> .. <512>; the
+# the head dim: their instances by mangled name, <128> .. <1024>; the
 # 16-bit ones at 384 and 512 are the pair kernels, clusters of two blocks)
 SM90_KERNELS = {**{f"flash_{k}_{kind}_kernelI{t}Li{d}E": ("HGMMA", "UTMALDG")
                    for k in ("fwd", "dq", "dkv")
@@ -256,7 +271,7 @@ SM90_KERNELS = {**{f"flash_{k}_{kind}_kernelI{t}Li{d}E": ("HGMMA", "UTMALDG")
                                       ("pair", (384, 512)))
                    for d in dims for t in ("13__nv_bfloat16", "6__half")},
                 **{f"flash_{k}_split3_kernelILi{d}E": ("HGMMA",)
-                   for k in ("fwd", "dq", "dkv") for d in (128, 256, 384, 512)}}
+                   for k in ("fwd", "dq", "dkv") for d in FP32_HEAD_DIMS}}
 FLASH = "gnn_rag_tpu/llm_tpu/flash_attention.py"
 # the card's published peaks (H100 SXM data sheet, dense): float32 outside
 # the tensor cores, bf16 and float16 tensor cores
@@ -304,7 +319,10 @@ SPEC_GAMMA = 4
 # float16; and the float32 kernels at head dims 512 and 384 (clusters of
 # four and three blocks, one a 128-column slice) at the
 # step-time-llm-d512-fp32 step's B2 L2047 H8, B2 L1000, B1 L129 and B1 L65
-# (one row past dq's 64-row block). Rows at L 2047 are timed
+# (one row past dq's 64-row block); and the float32 kernels at head dims
+# 1024, 896, 768 and 640 (clusters of eight to five blocks) at the
+# step-time-llm-d1024-fp32 step's B2 L2047 H4 (4 heads of 1024: the same
+# operations as H8 D512) and the same ragged rows. Rows at L 2047 are timed
 ATTN_SHAPES = (("sft_b8_l2047_bf16", 8, SFT_SEQ - 1, 32, 128, "bfloat16"),
                ("sft_b8_l2047_fp32", 8, SFT_SEQ - 1, 32, 128, "float32"),
                ("ragged_b2_l1000_bf16", 2, 1000, 32, 128, "bfloat16"),
@@ -334,6 +352,12 @@ ATTN_SHAPES = (("sft_b8_l2047_bf16", 8, SFT_SEQ - 1, 32, 128, "bfloat16"),
                *((f"{name}_d{d}_fp32", B, L, 8, d, "float32")
                  for d in (512, 384)
                  for name, B, L in (("dsv4_b2_l2047", 2, SFT_SEQ - 1),
+                                    ("ragged_b2_l1000", 2, 1000),
+                                    ("ragged_b1_l129", 1, 129),
+                                    ("ragged_b1_l65", 1, 65))),
+               *((f"{name}_d{d}_fp32", B, L, 4, d, "float32")
+                 for d in WIDE_FP32_HEAD_DIMS[::-1]
+                 for name, B, L in (("h4_b2_l2047", 2, SFT_SEQ - 1),
                                     ("ragged_b2_l1000", 2, 1000),
                                     ("ragged_b1_l129", 1, 129),
                                     ("ragged_b1_l65", 1, 65))))
@@ -403,6 +427,18 @@ D384_GRAD = dict(dim=3072, n_heads=8, n_kv_heads=1)
 # runs: ~0.95 B parameters take ~15 GB of float32 state
 D512_FP32_FLAGS = [{"--dtype": "float32", "--batch_size": "2"}.get(flag, x)
                    for flag, x in zip([None, *D512_FLAGS], D512_FLAGS)]
+# LLaMA2-7B's SFT at its widths (dim 4096, intermediate 11008, vocab 32000,
+# B2 x 2048, 4 of 32 layers, float32, as D512_FP32_FLAGS) with its 4,096
+# query columns regrouped as 4 heads of 1024 and one kv head: no published
+# configuration has heads of 640-1024, and the JAX reader sends them to its
+# Pallas kernels; the float32 kernels at head dim 1024, clusters of eight
+# blocks. Its gradient check also runs 2-layer models at head dims 896, 768
+# and 640 (4 heads, one kv head each)
+D1024_FP32_FLAGS = [{"--n_heads": "4"}.get(flag, x)
+                    for flag, x in zip([None, *D512_FP32_FLAGS],
+                                       D512_FP32_FLAGS)]
+WIDE_FP32_GRADS = tuple(dict(dim=4 * d, n_heads=4, n_kv_heads=1)
+                        for d in (896, 768, 640))
 # scripts/rearev_webqsp.sh with the reference's training defaults
 HEADLINE_FLAGS = ["ReaRev", "--entity_dim", "50", "--num_iter", "3",
                   "--num_ins", "2", "--num_gnn", "3", "--lm", "sbert",
@@ -2972,6 +3008,7 @@ def sft_entry_step_time(device, root, flags, phase):
     from torch.profiler import ProfilerActivity, profile
 
     from gnn_rag_tpu_torch.finetune.data_prep import load_multiple_datasets
+    from gnn_rag_tpu_torch.llm import flash_attention as fa
     from gnn_rag_tpu_torch.llm import sft
     from gnn_rag_tpu_torch.llm.tokenizers import ByteTokenizer
     t0 = time.perf_counter()
@@ -2994,7 +3031,8 @@ def sft_entry_step_time(device, root, flags, phase):
     cfg, steps = trainer.model.cfg, trainer.cfg.total_steps
     n, batch = cfg.n_layers, trainer.cfg.batch_size
     want = (n * steps,) * 3
-    if (cfg.head_dim not in (128, 256, 384, 512) or len(losses) != steps
+    if (cfg.head_dim not in fa.HEAD_DIMS[getattr(torch, cfg.dtype)]
+            or len(losses) != steps
             or launches != want or plain_calls
             or not np.isfinite(losses).all()):
         raise AssertionError(f"{phase}: head dim {cfg.head_dim} {cfg.dtype}, "
@@ -4233,18 +4271,27 @@ def sass_counts(lib, opcodes=("HGMMA", "UTMALDG")):
     return counts
 
 
-def spill_bytes(log_text):
-    """{kernel: spill store + load bytes} from ``ptxas -v`` output, whose
-    "Function properties for <kernel>" line precedes the spill line."""
+def ptxas_props(log_text):
+    """{kernel: {"registers", "spill_bytes", "stack_bytes"}} from ``ptxas
+    -v`` output: a "Function properties for <kernel>" line, then its stack
+    frame and spill line, then its "Used N registers" line."""
     import re
-    spills, kernel = {}, None
+    props, kernel = {}, None
     for line in log_text.splitlines():
         if "Function properties for" in line:
             kernel = line.split("Function properties for")[1].strip()
-        elif "spill stores" in line and kernel is not None:
-            spills[kernel] = sum(int(n) for n in re.findall(
+            props[kernel] = {}
+        elif kernel is None:
+            continue
+        elif "spill stores" in line:
+            props[kernel]["spill_bytes"] = sum(int(n) for n in re.findall(
                 r"(\d+) bytes spill (?:stores|loads)", line))
-    return spills
+            props[kernel]["stack_bytes"] = int(re.search(
+                r"(\d+) bytes stack frame", line).group(1))
+        elif "Used" in line and "registers" in line:
+            props[kernel]["registers"] = int(re.search(
+                r"Used (\d+) registers", line).group(1))
+    return props
 
 
 def build_all():
@@ -4279,24 +4326,37 @@ def build_all():
                           if "flash_" in k}
                 log("build", f"sass HGMMA / UTMALDG per kernel: "
                     f"{json.dumps(counts)}")
-                spills = spill_bytes(build.logs.get(stem, ""))
+                props = ptxas_props(build.logs.get(stem, ""))
                 for name, ops in SM90_KERNELS.items():
                     if not any(name in k and all(v[op] for op in ops)
                                for k, v in counts.items()):
                         raise AssertionError(f"{name}: not each of {ops} "
                                              f"in its SASS")
-                    if any(name in k and n for k, n in spills.items()):
-                        raise AssertionError(f"{name} spills: {spills}")
+                    mine = [v for k, v in props.items() if name in k]
+                    if not mine or any(v.get("spill_bytes", 1)
+                                       or v.get("stack_bytes", 1)
+                                       for v in mine):
+                        raise AssertionError(f"{name} spills or keeps a "
+                                             f"stack frame: {mine}")
                 # the float32 kernels' clusters (HD / 128 blocks of 210-230
                 # KB, one an SM): how many the card holds at once, 0 if it
                 # cannot launch one
                 from gnn_rag_tpu_torch.llm import flash_attention as fa
                 clusters = {f"{k}<{d}>": fa.max_active_clusters(k, d)
-                            for d in (256, 384, 512)
+                            for d in FP32_HEAD_DIMS
                             for k in ("fwd", "dq", "dkv")}
                 log("build", f"float32 flash clusters the card holds at "
                     f"once (cudaOccupancyMaxActiveClusters): "
                     f"{json.dumps(clusters)}")
+                wide = {f"{k}<{d}>": dict(
+                    clusters=clusters[f"{k}<{d}>"],
+                    **next(v for n, v in props.items()
+                           if f"flash_{k}_split3_kernelILi{d}E" in n))
+                    for d in WIDE_FP32_HEAD_DIMS
+                    for k in ("fwd", "dq", "dkv")}
+                log("build", f"float32 flash instances in clusters of five "
+                    f"to eight blocks (clusters at once, ptxas registers, "
+                    f"spill and stack bytes): {json.dumps(wide)}")
                 if not all(clusters.values()):
                     raise AssertionError(f"a float32 flash cluster cannot "
                                          f"launch: {clusters}")
@@ -4373,6 +4433,9 @@ def main():
         d512_fp32 = sft_fp32_entry_step_time(
             device, os.path.join(root, "llm"), prompts, D512_FP32_FLAGS,
             "step-time-llm-d512-fp32", (D384_GRAD,))
+        d1024_fp32 = sft_fp32_entry_step_time(
+            device, os.path.join(root, "llm"), prompts, D1024_FP32_FLAGS,
+            "step-time-llm-d1024-fp32", WIDE_FP32_GRADS)
         _, reader_7b, lora_launches = run_lora(device, tokens, mask)
         run_serve_7b(device, reader_7b, os.path.join(root, "llm", "reader"),
                      prompts)
@@ -4658,6 +4721,23 @@ def main():
                    {"d384_grads": d512_fp32["grads_by_head_dim"]["d384"][
                        "flash_launches"]},
                    {f"{phase}_grads_d384": "d384_grads"}))
+    # the float32 kernels at head dims 1024 to 640 (clusters of eight to
+    # five blocks) on the step-time-llm-d1024-fp32 path: 1024 in its SFT
+    # steps and scoring forward, 896, 768 and 640 in its gradient check, each
+    # timed at the step's shape, B2 L2047 H4
+    phase = "step_time_llm_d1024_fp32"
+    groups.append(("float32", 1024, "_d1024_fp32", "h4_b2_l2047_d1024_fp32",
+                   d1024_fp32, {
+                       phase: "flash_launches_fwd_dq_dkv",
+                       f"{phase}_timed_steps": "timed_flash_launches",
+                       f"{phase}_scoring": "scoring_flash_launches",
+                       f"{phase}_grads_d1024": "grad_flash_launches"}))
+    for hd in (896, 768, 640):
+        groups.append((
+            "float32", hd, f"_d{hd}_fp32", f"h4_b2_l2047_d{hd}_fp32",
+            {"grads": d1024_fp32["grads_by_head_dim"][f"d{hd}"][
+                "flash_launches"]},
+            {f"{phase}_grads_d{hd}": "grads"}))
     for dtype, hd, suffix, shape_name, run, paths in groups:
         rows_t = {r["shape"]: r for r in attn_rows
                   if r["D"] == hd and r["dtype"] == dtype}

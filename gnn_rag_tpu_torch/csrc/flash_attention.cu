@@ -12,10 +12,10 @@
 //   p = exp(s - lse), dp = dO v^T, ds = p * (dp - delta) * scale,
 //   dq = ds k, dk = ds^T q, dv = p^T dO,   delta = rowsum(dO * o) (given).
 // Tensors keep the model's [B, N, H, D] layout (D = 128, 256, 384 or 512 in
-// float32, bfloat16 and float16; the wrapper raises on any other D); lse
-// and delta are
-// [B*H, L] float, stored once per row (the TPU kernel replicated them over
-// 128 lanes for its block shapes). All sums are float; every product is the
+// float32, bfloat16 and float16, and 640, 768, 896 or 1024 in float32; the
+// wrapper raises on any other D); lse and delta are [B*H, L] float, stored
+// once per row (the TPU kernel replicated them over 128 lanes for its block
+// shapes). All sums are float; every product is the
 // float product of the (widened) inputs, as in the TPU kernels
 // (flash_attention.py:79, :144-147, float32 at Precision.HIGHEST :43-44),
 // to within the splits below, except p in the forward, which is rounded to
@@ -60,15 +60,16 @@
 //   dp = dO v^T, 48 wgmma m64n32k16 each, ds split into register A terms
 //   for dq += ds k, 12 wgmma m64n128k16 (k's terms MN-major). 198 KB, 256
 //   threads, one block an SM, registers unsplit.
-// - head dims 256, 384 and 512 (the same three kernels, instances <256>,
-//   <384>, <512>; <128> above): past D 128 the layouts above would not fit
+// - head dims 256 to 1024 (the same three kernels, instances <256>, <384>,
+//   .., <1024>; <128> above): past D 128 the layouts above would not fit
 //   a block: at 256 the forward's 128 resident Q rows as terms take 192 KB,
 //   dk/dv's resident K and V terms of 64 keys 192 KB (and dk and dv of 64 x
 //   256 floats would be 256 registers a thread), dq's resident Q and dO
 //   terms 192 KB, against the 227 KB (232,448 bytes) a block may have. So
 //   the depth is split over a thread block cluster of NB = D / 128 blocks
-//   (2, 3 or 4) on the same rows: block rank r owns columns 128r .. 128r +
-//   127 and runs the D 128 layout above on them (its Q, K, V and dO terms
+//   (2 to 8: head dims 256 to 1024) on the same rows: block rank r owns
+//   columns 128r .. 128r + 127 and runs the D 128 layout above on them
+//   (its Q, K, V and dO terms
 //   are those 128 columns), so every product from shared memory, every
 //   tile and (but for the exchange) every register stays as at D 128. Each
 //   consumer warpgroup forms its partial of s (dq and dk/dv: of s and dp)
@@ -80,15 +81,19 @@
 //   partial with st.shared::cluster into the same warpgroup's buffer in the
 //   peer, arrives on the peer's mbarrier, waits for the peer's partial in
 //   its own buffer and adds it to its own in one float add an element: IEEE
-//   addition commutes, so both hold the same sum. With three or four
-//   partials the order matters (addition does not associate), so at 384
-//   and 512 each block stores its partial in its own slot, arrives on full
-//   in every peer (release at cluster scope), waits until every peer has
+//   addition commutes, so both hold the same sum. With three or more
+//   partials the order matters (addition does not associate), so from 384
+//   each block stores its partial in its own slot, arrives on full in
+//   every peer (release at cluster scope), waits until every peer has
 //   arrived on its own full ((NB - 1) x 128 threads), reads the peers'
 //   slots with ld.shared::cluster and adds all NB in rank order, ((p0 +
-//   p1) + p2) + p3, the same operands in the same order in every block,
-//   then arrives on empty in every peer. Shared memory, the same at 256,
-//   384 and 512: the forward's 197,664 bytes + two exchanges (16 KB each,
+//   p1) + p2) + .., the same operands in the same order in every block,
+//   then arrives on empty in every peer. At 384 and 512 each element
+//   group's peer loads are unrolled together; from 640 (five to eight
+//   blocks) the sum runs rank by rank in a loop that is not unrolled, one
+//   rank's loads in flight at a time (unrolled, seven peers' would be in
+//   flight at 1024, and spill). Shared memory, the same at every head dim
+//   past 128: the forward's 197,664 bytes + two exchanges (16 KB each,
 //   one a consumer) = 230,464; dq 197,664 + 16,400 = 214,064; dk/dv
 //   198,176 + 16,400 = 214,576. The exchange costs per tile: forward 16 KB
 //   out of a block a consumer (64 x 64 floats) and (NB - 1) x 16 KB in, dq
@@ -101,8 +106,9 @@
 //   exchange, until every peer has read it, so no block exits while a
 //   peer may still reach its shared memory. A cluster of four blocks of
 //   210-230 KB takes four SMs of one GPC: the card holds 30 at once (39 of
-//   three, 66 pairs; cudaOccupancyMaxActiveClusters on an H100 SXM,
-//   chip_smoke.py's build line). Only rank 0 writes lse.
+//   three, 66 pairs; 22 of five, 17 of six, 15 of seven and of eight;
+//   cudaOccupancyMaxActiveClusters on an H100 SXM, chip_smoke.py's build
+//   line). Only rank 0 writes lse.
 //
 // bfloat16 and float16, on the tensor cores: Hopper's TMA and warpgroup
 // wgmma (building blocks in sm90.cuh), each kernel a template on the 16-bit
@@ -250,9 +256,10 @@
 // two are within noise);
 // flash_fwd_split3_kernel 168 at launch (consumers 200, converter 104) at
 // every head dim, flash_dkv_split3_kernel 222 (<128>), 244 (<256>), 254
-// (<384>) and 255 (<512>), flash_dq_split3_kernel 137, 142, 212 and 238
-// (the rank-order sum's loads of the peers' partials in flight together);
-// the pair kernels (384, 512, both
+// (<384>), 255 (<512>) and 226-228 (<640> to <1024>),
+// flash_dq_split3_kernel 137, 142, 212 and 238 (the rank-order sum's loads
+// of the peers' partials in flight together) and 168 at <640> to <1024>
+// (the sum rank by rank); the pair kernels (384, 512, both
 // types) 168 at launch, consumers 240 (forward, dq) and 232 (dk/dv); no
 // spills, no stack frames.
 //
@@ -281,12 +288,21 @@
 // kernels over the same blocks (flash_bench's d128_same_blocks_D512,
 // _D384). Each consumer waits for the slowest of three peers and makes six
 // remote arrivals and 24 remote 16-byte reads an exchange (four blocks);
-// dq, with the least work a tile, loses most.
+// dq, with the least work a tile, loses most. At head dims 640 to 1024
+// (clusters of five to eight) they take 1.66 / 3.78 / 3.96 ms (D 640) up
+// to 3.47 / 7.77 / 8.07 ms (D 1024) at B2 L2047 H4 (chip_smoke.py on an
+// H100 at 700 W): 16 / 10 / 13% down to 12 / 8 / 10% of their six-pass
+// bounds, and at D 1024 slower than SDPA's float32 forward (2.34 ms) and
+// backward (7.88 for dq, dk and dv together) and than the plain versions'
+// dq and dk/dv (5.34, 6.73): each exchange waits for the slowest of seven
+// peers and reads seven 16 KB partials, rank after rank.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -1208,17 +1224,17 @@ static_assert(LAUNCH_REGS - F3_CONVERTER_REGS >=
                   2 * (F3_CONSUMER_REGS - LAUNCH_REGS),
               "the consumers take more registers than the converter frees");
 
-// Head dims 256, 384 and 512: a cluster of NB = HD / 128 blocks on the
+// Head dims 256 to 1024: a cluster of NB = HD / 128 blocks (2-8) on the
 // same rows, block rank r owning columns 128r .. 128r + 127. Each consumer
 // warpgroup forms its partial of s (and dp) over those columns from zero
 // and the cluster adds the NB partials; every block then holds the same
 // bits, so p and ds agree, and each block accumulates only its own columns
 // of o, dq or dk and dv. A pair (NB 2, head dim 256: PAIR below) writes its
 // partial into the peer's buffer and adds the peer's to its own in one
-// float add (add_peer_partials: IEEE addition commutes). With three or four
-// partials the order of the sum matters (IEEE addition does not
+// float add (add_peer_partials: IEEE addition commutes). With three to
+// eight partials the order of the sum matters (IEEE addition does not
 // associate), so each block keeps its own partial in its own slot, reads
-// all NB and adds them in rank order, ((p0 + p1) + p2) + p3
+// all NB and adds them in rank order, ((p0 + p1) + p2) + ..
 // (add_cluster_partials).
 constexpr int PAIR = 2;          // blocks of a cluster at head dim 256
 
@@ -1318,6 +1334,35 @@ __device__ __forceinline__ void sum_partials(float (&x)[N], const Exchange* xc,
   }
 }
 
+// NB > 4: x becomes (kFirst), or adds, rank r's partial, read from its
+// slot (this block's own, r == rank, from its own). Called rank by rank in
+// a loop that is not unrolled, so the loads in flight are one rank's, the
+// same at every NB: sum_partials unrolls the NB - 1 peers' loads, which at
+// NB 8 would be seven float4 loads in flight an element group, and spill
+template <bool kFirst, int N>
+__device__ __forceinline__ void add_rank_partial(float (&x)[N],
+                                                 const Exchange* xc,
+                                                 uint32_t r, uint32_t rank,
+                                                 int tid, int& i) {
+#pragma unroll
+  for (int n = 0; n < N; n += 4, ++i) {
+    const float4 y =
+        r == rank ? xc->part[i][tid]
+                  : sm90::ld_cluster(sm90::map_peer(&xc->part[i][tid], r));
+    if constexpr (kFirst) {
+      x[n] = y.x;
+      x[n + 1] = y.y;
+      x[n + 2] = y.z;
+      x[n + 3] = y.w;
+    } else {
+      x[n] = x[n] + y.x;
+      x[n + 1] = x[n + 1] + y.y;
+      x[n + 2] = x[n + 2] + y.z;
+      x[n + 3] = x[n + 3] + y.w;
+    }
+  }
+}
+
 // Exchange e (0, 1, ..) of this warpgroup's partials `parts` (32 floats a
 // thread in all) in a cluster of NB > 2 blocks: once every peer has read
 // this block's exchange e - 1, its partials go into its own slot and it
@@ -1325,7 +1370,10 @@ __device__ __forceinline__ void sum_partials(float (&x)[N], const Exchange* xc,
 // peer's have arrived here, each element becomes the rank-order sum of the
 // NB partials, read from the peers' slots (ld.shared::cluster), and this
 // block arrives on empty in every peer. Every block adds the same operands
-// in the same order, so all hold the same bits.
+// in the same order, so all hold the same bits. At NB 3 and 4 each element
+// group's NB - 1 peer loads are unrolled together (sum_partials); past 4
+// the sum runs rank by rank (add_rank_partial), ((p0 + p1) + p2) + .. +
+// p(NB - 1) all the same, with one rank's loads in flight at a time.
 template <int NB, typename... Parts>
 __device__ __forceinline__ void add_cluster_partials(Exchange* xc,
                                                      uint32_t rank, int tid,
@@ -1340,7 +1388,16 @@ __device__ __forceinline__ void add_cluster_partials(Exchange* xc,
       sm90::mbar_arrive_cluster(sm90::map_peer(&xc->full, r));
   sm90::mbar_wait_cluster(&xc->full, parity);        // the peers' e
   i = 0;
-  (sum_partials<NB>(parts, xc, rank, tid, i), ...);
+  if constexpr (NB <= 4) {
+    (sum_partials<NB>(parts, xc, rank, tid, i), ...);
+  } else {
+    (add_rank_partial<true>(parts, xc, 0, rank, tid, i), ...);
+#pragma unroll 1
+    for (uint32_t r = 1; r < static_cast<uint32_t>(NB); ++r) {
+      i = 0;
+      (add_rank_partial<false>(parts, xc, r, rank, tid, i), ...);
+    }
+  }
 #pragma unroll
   for (int r = 0; r < NB; ++r)
     if (r != static_cast<int>(rank))
@@ -1360,7 +1417,7 @@ struct Fwd3Bars {
 };
 constexpr size_t kFwd3Smem = 1024 + TERMS * TILE_BYTES +
                              2 * TERMS * QTILE_BYTES + sizeof(Fwd3Bars);
-// + an exchange a consumer at head dims 256, 384 and 512 (230,464 bytes)
+// + an exchange a consumer at head dims 256 to 1024 (230,464 bytes)
 template <int HD>
 constexpr size_t fwd3_smem() {
   return kFwd3Smem + (HD == D ? 0 : 2 * sizeof(Exchange));
@@ -1379,10 +1436,10 @@ static_assert(fwd3_smem<4 * D>() <= MAX_SMEM, "float32 forward at HD 512");
 // o += p v (24 wgmma m64n128k16, v's terms MN-major with the transpose
 // bit). A consumer whose rows all lie before a tile's first key skips its
 // products (it still waits and releases, keeping the barriers in step).
-// At HD 256, 384 and 512 the grid is NB = HD / 128 times as wide, clusters
+// At HD 256 to 1024 the grid is NB = HD / 128 times as wide, clusters
 // of NB blocks on the same rows, each on its 128 columns; a live tile's s is
 // the sum of the blocks' partials (add_peer_partials at 256,
-// add_cluster_partials in rank order at 384 and 512).
+// add_cluster_partials in rank order from 384).
 template <int HD>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
     flash_fwd_split3_kernel(const float* __restrict__ q,
@@ -1581,7 +1638,7 @@ struct Dkv3Stats {               // a streamed tile's lse and delta
 constexpr size_t kDkv3Smem = 1024 + 2 * TERMS * QTILE_BYTES +
                              2 * D3_STAGES * TERMS * D3_TILE +
                              sizeof(Dkv3Stats) + sizeof(Ring3Bars);
-// + the consumer's exchange at head dims 256, 384 and 512 (214,576 bytes)
+// + the consumer's exchange at head dims 256 to 1024 (214,576 bytes)
 template <int HD>
 constexpr size_t dkv3_smem() {
   return kDkv3Smem + (HD == D ? 0 : sizeof(Exchange));
@@ -1776,7 +1833,7 @@ constexpr int Q3_KEYS = D3_ROWS;    // keys per streamed tile
 constexpr size_t kDq3Smem = 1024 + 2 * TERMS * QTILE_BYTES +
                             2 * D3_STAGES * TERMS * D3_TILE +
                             sizeof(Ring3Bars);
-// + the consumer's exchange at head dims 256, 384 and 512 (214,064 bytes)
+// + the consumer's exchange at head dims 256 to 1024 (214,064 bytes)
 template <int HD>
 constexpr size_t dq3_smem() {
   return kDq3Smem + (HD == D ? 0 : sizeof(Exchange));
@@ -1792,7 +1849,7 @@ static_assert(dq3_smem<4 * D>() <= MAX_SMEM, "float32 dq at HD 512");
 // each, all terms K-major from shared memory); p and ds in registers, ds
 // split into three A terms; dq += ds k (12 wgmma m64n128k16, k's terms
 // MN-major with the transpose bit). One block an SM: 198 KB of shared
-// memory, up to 255 registers a thread. At HD 256, 384 and 512, clusters of
+// memory, up to 255 registers a thread. At HD 256 to 1024, clusters of
 // NB = HD / 128 blocks on the same rows, each on its 128 columns, s and dp
 // the sums of the blocks' partials.
 template <int HD>
@@ -2587,6 +2644,7 @@ template <int NB>
 void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& dim,
                     int blocks, int rows, int threads, size_t smem,
                     cudaStream_t stream) {
+  static_assert(NB >= 1 && NB <= 8, "a portable cluster holds 1-8 blocks");
   cfg = {};
   cfg.gridDim = dim3(NB * blocks, rows);
   cfg.blockDim = dim3(threads);
@@ -2602,7 +2660,7 @@ void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& dim,
 
 // `kernel` over `blocks` x `rows` blocks: a plain launch (NB 1), or clusters
 // of NB blocks along x through cudaLaunchKernelEx (the float32 kernels at
-// head dims 256, 384 and 512: NB = HD / 128; the 16-bit ones at 384 and
+// head dims 256 to 1024: NB = HD / 128; the 16-bit ones at 384 and
 // 512: PAIR)
 template <int NB, typename... Params, typename... Args>
 int launch_grid(void (*kernel)(Params...), int blocks, int rows, int threads,
@@ -2636,7 +2694,7 @@ int max_clusters(void (*kernel)(Params...), int threads, size_t smem,
 }
 
 // float32 forward, dq and dk/dv at head dim HD: three bf16 terms on wgmma,
-// no tensor maps; at HD 256, 384 and 512 clusters of HD / 128 blocks
+// no tensor maps; at HD 256 to 1024 clusters of HD / 128 blocks
 template <int HD>
 int launch_fwd_split3(const void* q, const void* k, const void* v, void* o,
                       float* lse, int B, int H, int L, int S, float scale,
@@ -2806,13 +2864,45 @@ int launch_dkv_pair(const void* q, const void* k, const void* v,
 // the element type codes of the C entry points' `dtype`
 enum : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 
+// the float32 kernels' head dims: HD = 128 NB, clusters of NB = 1 .. 8
+// blocks (8: the portable cluster size)
+constexpr int SPLIT3_MAX_NB = 8;
+
+// f(std::integral_constant<int, HD>{}) at the float32 head dim `hd`, or
+// cudaErrorInvalidValue for a head dim no float32 instance takes
+template <int NB = 1, typename F>
+int split3_head_dim(int hd, F&& f) {
+  if constexpr (NB > SPLIT3_MAX_NB) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (hd == NB * D) return f(std::integral_constant<int, NB * D>{});
+    return split3_head_dim<NB + 1>(hd, f);
+  }
+}
+
+// how many clusters of the float32 kernel `kernel` (0 forward, 1 dq, 2
+// dk/dv) at head dim HD (HD / 128 blocks a cluster) the card holds at once
+template <int HD>
+int max_clusters_split3(int kernel, int* n) {
+  switch (kernel) {
+    case 0: return max_clusters<HD / D>(flash_fwd_split3_kernel<HD>,
+                                        SM90_THREADS, fwd3_smem<HD>(), n);
+    case 1: return max_clusters<HD / D>(flash_dq_split3_kernel<HD>,
+                                        D3_THREADS, dq3_smem<HD>(), n);
+    case 2: return max_clusters<HD / D>(flash_dkv_split3_kernel<HD>,
+                                        D3_THREADS, dkv3_smem<HD>(), n);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" {
 
 // q, o [B, L, H, D], k, v [B, S, H, D], contiguous and 16-byte aligned, all
 // of the element type `dtype` (0 float, 1 bfloat16, 2 float16), D 128, 256,
-// 384 or 512 in each; lse [B*H, L] float. Each entry point returns a
+// 384 or 512 in each and, in float32, also 640, 768, 896 or 1024; lse
+// [B*H, L] float. Each entry point returns a
 // cudaError_t value; 0 means the launch was accepted (another D or dtype:
 // cudaErrorInvalidValue).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
@@ -2820,14 +2910,11 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         float scale, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* lse_f = static_cast<float*>(lse);
-  if (dtype == kFloat32 && D == 128)
-    return launch_fwd_split3<128>(q, k, v, o, lse_f, B, H, L, S, scale, s);
-  if (dtype == kFloat32 && D == 256)
-    return launch_fwd_split3<256>(q, k, v, o, lse_f, B, H, L, S, scale, s);
-  if (dtype == kFloat32 && D == 384)
-    return launch_fwd_split3<384>(q, k, v, o, lse_f, B, H, L, S, scale, s);
-  if (dtype == kFloat32 && D == 512)
-    return launch_fwd_split3<512>(q, k, v, o, lse_f, B, H, L, S, scale, s);
+  if (dtype == kFloat32)
+    return split3_head_dim(D, [&](auto hd) {
+      return launch_fwd_split3<decltype(hd)::value>(q, k, v, o, lse_f, B, H,
+                                                    L, S, scale, s);
+    });
   if (dtype == kBFloat16 && D == 128)
     return launch_fwd_sm90<__nv_bfloat16, 128>(q, k, v, o, lse_f, B, H, L, S,
                                                scale, s);
@@ -2863,18 +2950,11 @@ int flash_attention_dq(const void* q, const void* k, const void* v,
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<const float*>(lse);
   auto* dl = static_cast<const float*>(delta);
-  if (dtype == kFloat32 && D == 128)
-    return launch_dq_split3<128>(q, k, v, dout, l, dl, dq, B, H, L, S, scale,
-                                 s);
-  if (dtype == kFloat32 && D == 256)
-    return launch_dq_split3<256>(q, k, v, dout, l, dl, dq, B, H, L, S, scale,
-                                 s);
-  if (dtype == kFloat32 && D == 384)
-    return launch_dq_split3<384>(q, k, v, dout, l, dl, dq, B, H, L, S, scale,
-                                 s);
-  if (dtype == kFloat32 && D == 512)
-    return launch_dq_split3<512>(q, k, v, dout, l, dl, dq, B, H, L, S, scale,
-                                 s);
+  if (dtype == kFloat32)
+    return split3_head_dim(D, [&](auto hd) {
+      return launch_dq_split3<decltype(hd)::value>(q, k, v, dout, l, dl, dq, B,
+                                                   H, L, S, scale, s);
+    });
   if (dtype == kBFloat16 && D == 128)
     return launch_dq_sm90<__nv_bfloat16, 128>(q, k, v, dout, l, dl, dq, B, H,
                                               L, S, scale, s);
@@ -2910,18 +2990,11 @@ int flash_attention_dkv(const void* q, const void* k, const void* v,
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<const float*>(lse);
   auto* dl = static_cast<const float*>(delta);
-  if (dtype == kFloat32 && D == 128)
-    return launch_dkv_split3<128>(q, k, v, dout, l, dl, dk, dv, B, H, L, S,
-                                  scale, s);
-  if (dtype == kFloat32 && D == 256)
-    return launch_dkv_split3<256>(q, k, v, dout, l, dl, dk, dv, B, H, L, S,
-                                  scale, s);
-  if (dtype == kFloat32 && D == 384)
-    return launch_dkv_split3<384>(q, k, v, dout, l, dl, dk, dv, B, H, L, S,
-                                  scale, s);
-  if (dtype == kFloat32 && D == 512)
-    return launch_dkv_split3<512>(q, k, v, dout, l, dl, dk, dv, B, H, L, S,
-                                  scale, s);
+  if (dtype == kFloat32)
+    return split3_head_dim(D, [&](auto hd) {
+      return launch_dkv_split3<decltype(hd)::value>(q, k, v, dout, l, dl, dk,
+                                                    dv, B, H, L, S, scale, s);
+    });
   if (dtype == kBFloat16 && D == 128)
     return launch_dkv_sm90<__nv_bfloat16, 128>(q, k, v, dout, l, dl, dk, dv,
                                                B, H, L, S, scale, s);
@@ -2950,31 +3023,13 @@ int flash_attention_dkv(const void* q, const void* k, const void* v,
 }
 
 // how many clusters of the float32 kernel `kernel` (0 forward, 1 dq, 2
-// dk/dv) at head dim D (256, 384 or 512: clusters of D / 128 blocks) the
-// card can hold at once, into *n; returns a cudaError_t value (another
-// kernel or D: cudaErrorInvalidValue)
+// dk/dv) at head dim D (128 .. 1024, a multiple of 128: clusters of D / 128
+// blocks, one at 128) the card can hold at once, into *n; returns a
+// cudaError_t value (another kernel or D: cudaErrorInvalidValue)
 int flash_attention_max_clusters(int kernel, int D, int* n) {
-  switch (kernel * 1024 + D) {
-    case 256: return max_clusters<2>(flash_fwd_split3_kernel<256>,
-                                     SM90_THREADS, fwd3_smem<256>(), n);
-    case 384: return max_clusters<3>(flash_fwd_split3_kernel<384>,
-                                     SM90_THREADS, fwd3_smem<384>(), n);
-    case 512: return max_clusters<4>(flash_fwd_split3_kernel<512>,
-                                     SM90_THREADS, fwd3_smem<512>(), n);
-    case 1024 + 256: return max_clusters<2>(flash_dq_split3_kernel<256>,
-                                            D3_THREADS, dq3_smem<256>(), n);
-    case 1024 + 384: return max_clusters<3>(flash_dq_split3_kernel<384>,
-                                            D3_THREADS, dq3_smem<384>(), n);
-    case 1024 + 512: return max_clusters<4>(flash_dq_split3_kernel<512>,
-                                            D3_THREADS, dq3_smem<512>(), n);
-    case 2048 + 256: return max_clusters<2>(flash_dkv_split3_kernel<256>,
-                                            D3_THREADS, dkv3_smem<256>(), n);
-    case 2048 + 384: return max_clusters<3>(flash_dkv_split3_kernel<384>,
-                                            D3_THREADS, dkv3_smem<384>(), n);
-    case 2048 + 512: return max_clusters<4>(flash_dkv_split3_kernel<512>,
-                                            D3_THREADS, dkv3_smem<512>(), n);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return split3_head_dim(D, [&](auto hd) {
+    return max_clusters_split3<decltype(hd)::value>(kernel, n);
+  });
 }
 
 const char* flash_attention_error_string(int err) {

@@ -23,17 +23,19 @@ the store). float32 inputs run all three kernels on the tensor cores too,
 each float as three bf16 terms and each product as six bf16 products
 (within ~2^-23 of it: the TPU's float32 dots at Precision.HIGHEST do the
 same); all sums are float. The kernels take head dim D = 128, 256, 384 and
-512 in all three types (``HEAD_DIMS``): the 16-bit ones at 384 and 512
-split the depth over a cluster of two blocks, each on half of the columns,
-whose partial scores are added once; the float32 ones at 256, 384 and 512
-over a cluster of D / 128 blocks, each on 128 columns, whose partial scores
-are added once (two) or in rank order (three and four, every block adding
-the same operands in the same order, so that all hold the same bits). The
-scale 1/sqrt(D) is exact at 128 and 256 (1/16 there); at 384 and 512 it is
-the float nearest it, as in the JAX kernels. Any L and S (a ragged last
-tile is masked in the kernel; the JAX wrapper pads L to 128 instead). The
-JAX model sends every D % 128 == 0 in any type to its Pallas kernels: head
-dims 640 and up are not ported yet and raise here.
+512 in all three types, and float32 also 640, 768, 896 and 1024
+(``HEAD_DIMS``): the 16-bit ones at 384 and 512 split the depth over a
+cluster of two blocks, each on half of the columns, whose partial scores
+are added once; the float32 ones from 256 over a cluster of D / 128 blocks
+(up to eight), each on 128 columns, whose partial scores are added once
+(two) or in rank order (three to eight, every block adding the same
+operands in the same order, so that all hold the same bits). The scale
+1/sqrt(D) is exact at 128 and 256 (1/16 there); elsewhere it is the float
+nearest it, as in the JAX kernels. Any L and S (a ragged last tile is
+masked in the kernel; the JAX wrapper pads L to 128 instead). The JAX
+model sends every D % 128 == 0 in any type to its Pallas kernels: the
+16-bit types at head dims 640 and up, and float32 past 1024, are not
+ported yet and raise here.
 
 Dispatch: CPU tensors take the plain versions (``flash_fwd_plain``,
 ``flash_dq_plain``, ``flash_dkv_plain``: dense attention and the
@@ -54,9 +56,11 @@ from ..utils import build as _build
 
 NEG_INF = -1e30
 # the head dims the kernels take, by input type (any other shape or type
-# raises; ``llm.model.flash_applies`` sends those to plain attention)
-HEAD_DIMS = {dtype: (128, 256, 384, 512)
-             for dtype in (torch.float32, torch.bfloat16, torch.float16)}
+# raises; ``llm.model.flash_applies`` sends those to plain attention):
+# float32 in clusters of up to eight 128-column blocks
+HEAD_DIMS = {torch.float32: (128, 256, 384, 512, 640, 768, 896, 1024),
+             torch.bfloat16: (128, 256, 384, 512),
+             torch.float16: (128, 256, 384, 512)}
 # the C entry points' element type code
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -157,8 +161,9 @@ def _check(q, k, v, *more):
     B, L, H, D = q.shape
     if D not in HEAD_DIMS.get(q.dtype, ()):
         raise ValueError(f"flash_attention: the kernels take head dim 128, "
-                         f"256, 384 or 512 in float32, bfloat16 or float16, "
-                         f"got {tuple(q.shape)} {q.dtype}")
+                         f"256, 384 or 512 in float32, bfloat16 or float16 "
+                         f"and 640, 768, 896 or 1024 in float32, got "
+                         f"{tuple(q.shape)} {q.dtype}")
     S = k.shape[1]
     for name, t, shape in (("k", k, (B, S, H, D)), ("v", v, (B, S, H, D)),
                            *more):
@@ -193,9 +198,10 @@ def _device_ok(q):
 
 def max_active_clusters(kind, D):
     """How many clusters of the float32 kernel ``kind`` ("fwd", "dq" or
-    "dkv") at head dim ``D`` (256, 384 or 512: clusters of D / 128 blocks)
-    the current card holds at once (cudaOccupancyMaxActiveClusters); 0
-    means it cannot launch one. Raises on another kind or D."""
+    "dkv") at head dim ``D`` (any of ``HEAD_DIMS[torch.float32]``: clusters
+    of D / 128 blocks, one block at 128) the current card holds at once
+    (cudaOccupancyMaxActiveClusters); 0 means it cannot launch one. Raises
+    on another kind or D."""
     lib = _load()
     n = ctypes.c_int(0)
     err = lib.flash_attention_max_clusters(("fwd", "dq", "dkv").index(kind),

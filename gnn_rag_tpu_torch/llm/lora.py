@@ -14,10 +14,13 @@ adapters stay whole and replicated, each rank merges its slice of the
 update into its slice of the weight, and the adapters' gradients are summed
 over every rank (the loss divides by the global mask count): each tp rank's
 gradient of a sharded weight's adapter covers its slice, and each dp rank's
-its rows. A weight that ``shard_llm_`` leaves whole (an axis that does not
-divide by tp) gives the same whole gradient on every tp rank, so its
-adapter's sum is divided by tp. Without a mesh the trainer runs on a mesh of
-one rank.
+its rows. So is the adapter of a weight that ``shard_llm_`` leaves whole
+but that feeds only each tp rank's query heads (k_proj and v_proj where tp
+does not divide the kv heads, ``sharding.partial_grad_names``): each rank's
+gradient is its part. Any other weight that ``shard_llm_`` leaves whole (an
+axis that does not divide by tp) gives the same whole gradient on every tp
+rank, so its adapter's sum is divided by tp. Without a mesh the trainer
+runs on a mesh of one rank.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from torch import nn
 
 from ..parallel import collectives as coll
 from .model import LlamaLM
+from .sharding import partial_grad_names
 from .sft import completion_loss
 
 DEFAULT_TARGETS = ("q_proj", "v_proj")
@@ -99,6 +103,7 @@ class LoRATrainer:
         ``shard_llm_`` slices) and each step gets this dp rank's rows."""
         self.mesh = mesh or coll.local_mesh(next(model.parameters()).device)
         self.sharded = getattr(model, "_tp_sharded", {})
+        partial = partial_grad_names(model)
         for p in model.parameters():
             p.requires_grad_(False)
         self.base = model.state_dict(keep_vars=True)
@@ -106,10 +111,12 @@ class LoRATrainer:
         self.lora, self.alpha, self.r = lora, alpha, r
         self.params = [t.requires_grad_() for ab in lora.values()
                        for t in (ab["a"], ab["b"])]
-        # the adapters of tp-sharded weights, then those of whole ones
+        # the adapters whose gradient is each tp rank's part (of sharded
+        # weights, and of whole ones that feed only the rank's heads), then
+        # those of weights every rank computes whole
         self.split = [[t for name, ab in lora.items()
-                       if (name in self.sharded) == on_slice
-                       for t in (ab["a"], ab["b"])] for on_slice in (True, False)]
+                       if (name in self.sharded or name in partial) == part
+                       for t in (ab["a"], ab["b"])] for part in (True, False)]
         self.opt = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999),
                                     eps=1e-8)
 

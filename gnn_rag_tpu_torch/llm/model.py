@@ -17,10 +17,11 @@ copies kernels without a transpose.
 Attention takes the flash kernels (``llm.flash_attention``) only where they
 apply (``flash_applies``): ``use_flash``, CUDA tensors, no kv cache, no
 ``kv_valid``, head dim 128, 256, 384 or 512 in float32, bfloat16 or
-float16. Everything else (the JAX model's Pallas rule also takes every
-larger multiple of 128, gnn_rag_tpu/llm_tpu/model.py:199-200) goes through
-the plain ``reference_attention``, which computes what the JAX model
-computes there.
+float16, and 640, 768, 896 or 1024 in float32. Everything else (the JAX
+model's Pallas rule also takes every larger multiple of 128 in any type,
+gnn_rag_tpu/llm_tpu/model.py:199-200) goes through the plain
+``reference_attention``, which computes what the JAX model computes
+there.
 
 ``quant="int8"`` builds every projection and the head as ``llm.quant.
 QuantLinear`` (int8 weight, per-output scale; the parameters come from
@@ -32,12 +33,14 @@ kernels, runs twice a block).
 
 Megatron tensor parallelism (``llm.sharding.shard_llm_``) turns a built
 model into one tp rank's part, in place: ``Attention`` keeps its local head
-counts (the flash kernels run at H/tp heads), column-parallel projections
-their output slice, row-parallel ones their input slice with an all-reduce
-after them; the vocabulary-parallel embedding and head are set on
-``LlamaLM.vocab_tp``. Each module reads its ``tp`` (a
-``parallel.collectives.Mesh`` or None) at run time; None is the one-device
-model.
+counts (the flash kernels run at H/tp heads; a whole k_proj and v_proj
+where tp does not divide the kv heads, each query head reading its kv head
+through ``kv_index``; the whole attention where tp does not divide the
+heads), column-parallel projections their output slice, row-parallel ones
+their input slice with an all-reduce after them; the vocabulary-parallel
+embedding and head are set on ``LlamaLM.vocab_tp``. Each module reads its
+``tp`` (a ``parallel.collectives.Mesh`` or None) at run time; None is the
+one-device model.
 """
 
 from __future__ import annotations
@@ -116,7 +119,8 @@ def flash_applies(use_flash: bool, head_dim: int, dtype: torch.dtype,
                   device_type: str, cached: bool, masked: bool) -> bool:
     """Whether attention over q of ``head_dim``, ``dtype`` on
     ``device_type`` runs the flash kernels: the kernels take head dim 128,
-    256, 384 or 512 in float32, bfloat16 or float16, on the card
+    256, 384 or 512 in float32, bfloat16 or float16, and 640, 768, 896 or
+    1024 in float32 (clusters of five to eight blocks), on the card
     (``flash_attention.HEAD_DIMS``), and neither a kv cache (``cached``)
     nor ``kv_valid`` (``masked``)."""
     return (use_flash and not cached and not masked and device_type == "cuda"
@@ -170,6 +174,10 @@ class Attention(nn.Module):
         self.o_proj = dense(H * D, cfg.dim, dt)
         self.n_heads, self.n_kv_heads = H, KV     # this tp rank's heads
         self.tp = None
+        # a tp rank's query heads that read kv heads of a whole k_proj and
+        # v_proj: the kv head of each (llm.sharding.kv_heads_of_rank); None:
+        # query head h reads kv head h // (n_heads / n_kv_heads)
+        self.kv_index = None
 
     def forward(self, x, cos, sin, kv_cache=None, cache_index=None,
                 kv_valid=None):
@@ -190,7 +198,10 @@ class Attention(nn.Module):
             k_all, v_all, offset, new_cache = ck, cv, cache_index, (ck, cv)
         else:
             k_all, v_all, offset, new_cache = k, v, 0, None
-        if KV != H:
+        if self.kv_index is not None:
+            k_all = k_all.index_select(2, self.kv_index)
+            v_all = v_all.index_select(2, self.kv_index)
+        elif KV != H:
             k_all = k_all.repeat_interleave(H // KV, dim=2)
             v_all = v_all.repeat_interleave(H // KV, dim=2)
         if flash_applies(cfg.use_flash, D, q.dtype, q.device.type,

@@ -23,9 +23,11 @@ environment: ``parallel.mesh.make_mesh``) each rank runs its dp rows of the
 global batch through its tp part of the model (``llm.sharding``). The loss
 stays that of the global batch: each dp rank divides its rows' NLL sum by
 the global mask count (all-reduced), so the gradients are summed over dp,
-not averaged; the clip's norm sums the tp slices. Checkpoints are written
-whole, by rank 0. Without a mesh the trainer runs the same steps on a mesh
-of one rank (``parallel.collectives.local_mesh``).
+not averaged; the clip's norm sums the tp slices. A tp that does not divide
+the head counts keeps the attention, or its k and v projections, whole
+(``llm.sharding``). Checkpoints are written whole, by rank 0. Without a
+mesh the trainer runs the same steps on a mesh of one rank
+(``parallel.collectives.local_mesh``).
 
     python -m gnn_rag_tpu_torch.llm.sft --data train_qa.jsonl [--n_layers 4
         --batch_size 8 --max_seq_len 2048 --total_steps 3000 ...] \
@@ -55,7 +57,8 @@ from ..cli import bool_flag
 from ..parallel import collectives as coll
 from ..utils.checkpoint import load_state, save_state
 from .model import LlamaConfig, LlamaLM, build_llama
-from .sharding import full_llm_state, local_llm_state, shard_llm_
+from .sharding import (full_llm_state, local_llm_state,
+                       partial_grad_names, shard_llm_)
 
 SEP, BOP, EOP, PAD = "<SEP>", "<PATH>", "</PATH>", "<PAD>"
 RESPONSE_TEMPLATE = "[/INST]"
@@ -188,11 +191,15 @@ class SFTTrainer:
             self.model.load_state_dict(params)
         coll.replicate(mesh, self.model)
         shards = set(shard_llm_(self.model, mesh))
+        partial = partial_grad_names(self.model)
         self.model.train()
-        self.params = [p for p in self.model.parameters()]
-        self.sharded = [p for n, p in self.model.named_parameters() if n in shards]
-        self.replicated = [p for n, p in self.model.named_parameters()
-                           if n not in shards]
+        named = list(self.model.named_parameters())
+        self.params = [p for _, p in named]
+        self.sharded = [p for n, p in named if n in shards]
+        # whole on each tp rank, each rank's gradient its part (summed)
+        self.partial = [p for n, p in named if n in partial]
+        self.replicated = [p for n, p in named
+                           if n not in shards and n not in partial]
         self.warmup = min(cfg.warmup_steps, max(cfg.total_steps // 10, 1))
         self.decay_steps = max(cfg.total_steps, self.warmup + 1)
         self.opt = torch.optim.AdamW(self.params, lr=0.0, betas=(0.9, 0.999),
@@ -222,9 +229,10 @@ class SFTTrainer:
         loss = self.loss(tokens, loss_mask, count)
         loss.backward()
         coll.sync_grads(mesh, [p.grad for p in self.replicated],
-                        [p.grad for p in self.sharded], average_dp=False)
+                        [p.grad for p in self.sharded], average_dp=False,
+                        partial=[p.grad for p in self.partial])
         self.grad_norm = coll.clip_by_global_norm_(
-            mesh, [p.grad for p in self.replicated],
+            mesh, [p.grad for p in self.replicated + self.partial],
             [p.grad for p in self.sharded], self.cfg.grad_clip)
         loss = coll.all_reduce_(loss.detach().clone(), mesh.dp_group, mesh.dp)
         for group in self.opt.param_groups:

@@ -176,24 +176,31 @@ def all_reduce_grads_(grads: List[Optional[torch.Tensor]], group, size: int,
 
 
 def sync_grads(mesh: Mesh, replicated: List[torch.Tensor],
-               sharded: List[torch.Tensor], average_dp: bool) -> None:
+               sharded: List[torch.Tensor], average_dp: bool,
+               partial: List[torch.Tensor] = ()) -> None:
     """Reduce the gradients of one step in place: a replicated parameter's
     over every rank, divided by tp (its tp copies saw the same rows); a
-    sharded parameter's (each tp rank's own slice) over dp. ``average_dp``:
-    divide by dp as well (a loss that is a mean over the rows of each dp
-    rank); else the dp sum (a loss already divided by the global count)."""
+    sharded parameter's (each tp rank's own slice) over dp; a ``partial``
+    one's (a whole parameter that feeds only each tp rank's part of the
+    model, ``llm.sharding.partial_grad_names``) over every rank, not
+    divided by tp. ``average_dp``: divide by dp as well (a loss that is a
+    mean over the rows of each dp rank); else the dp sum (a loss already
+    divided by the global count)."""
     dp_div = mesh.dp if average_dp else 1
     all_reduce_grads_(replicated, None, mesh.size, mesh.tp * dp_div)
     all_reduce_grads_(sharded, mesh.dp_group, mesh.dp, dp_div)
+    all_reduce_grads_(list(partial), None, mesh.size, dp_div)
 
 
 def clip_by_global_norm_(mesh: Mesh, replicated: List[torch.Tensor],
                          sharded: List[torch.Tensor], max_norm: float) -> torch.Tensor:
     """optax ``clip_by_global_norm`` over a mesh: the squared norm of the
     tp-sharded gradients is summed over tp before it joins the replicated
-    ones', then every gradient is scaled by ``max_norm / norm`` when the
-    norm is at least ``max_norm``, in place and on the device. Returns the
-    norm before the clip (a device scalar)."""
+    ones' (every gradient that ``sync_grads`` left whole and equal on each
+    tp rank, the partial ones too: each counted once), then every gradient
+    is scaled by ``max_norm / norm`` when the norm is at least
+    ``max_norm``, in place and on the device. Returns the norm before the
+    clip (a device scalar)."""
     replicated = [g for g in replicated if g is not None]
     sharded = [g for g in sharded if g is not None]
     dev = (replicated or sharded)[0].device

@@ -4,9 +4,9 @@ backward and scatter_mm (alone, at widths a block holds only in column
 windows, and in a ReaRev training step under GNN_RAG_GATE_SCATTER=v2),
 and the flash-attention forward, dq and dk/dv
 kernels (alone, through autograd, and in a LlamaLM; at head dims 128,
-256, 384 and 512, each in float32, bf16 and float16), and the float32
-flash kernels' clusters (three and four blocks at 384 and 512) accepted
-by the card.
+256, 384 and 512, each in float32, bf16 and float16, and at 640, 768, 896
+and 1024 in float32), and the float32 flash kernels' clusters (one to
+eight blocks, D / 128) accepted by the card.
 
 Every test here needs an NVIDIA GPU (and nvcc for the first build) and skips
 without one. The file imports no JAX, so it runs on a machine without it:
@@ -877,18 +877,31 @@ def test_flash_d512_kernels_match_plain(cuda, B, L, H, D, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [640, 768, 896, 1024])
+@pytest.mark.parametrize("B,L,H", [
+    # float32 at head dims 640-1024 (clusters of five to eight blocks, each
+    # on 128 columns, the partial scores added rank by rank): one row, one
+    # row past dq's 64-row block and the forward's and dk/dv's 64-key
+    # tiles, one past a 128-row block, a ragged length, and chip_smoke's
+    # [kernel-attn] ragged rows at 4 heads
+    (1, 1, 2), (1, 65, 4), (1, 129, 4), (3, 77, 2), (2, 1000, 4)])
+def test_flash_d1024_fp32_kernels_match_plain(cuda, B, L, H, D):
+    flash_vs_plain(cuda, B, L, H, D, torch.float32)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
-@pytest.mark.parametrize("D", [256, 384, 512])
+@pytest.mark.parametrize("D", [128, 256, 384, 512, 640, 768, 896, 1024])
 def test_flash_fp32_clusters_fit_the_card(cuda, kind, D):
-    """The card holds at least one cluster of each float32 kernel at head
-    dims 256, 384 and 512 (D / 128 blocks of 210-230 KB of shared memory,
-    one an SM: cudaOccupancyMaxActiveClusters), and at most one a block of
-    SMs of the cluster's size."""
+    """The card holds at least one cluster of each float32 kernel at every
+    head dim it takes (D / 128 blocks of 198-230 KB of shared memory, one
+    an SM: cudaOccupancyMaxActiveClusters; one block at 128), and at most
+    one a block of SMs of the cluster's size."""
     n = fa.max_active_clusters(kind, D)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert 0 < n <= sms // (D // 128), n
     with pytest.raises(RuntimeError, match="cluster occupancy"):
-        fa.max_active_clusters(kind, 128)
+        fa.max_active_clusters(kind, 1152)
 
 
 @pytest.mark.cuda
@@ -906,8 +919,11 @@ def test_flash_autograd_and_checks(cuda):
         assert_rel(a, b.detach(), 1e-4, name)
     with pytest.raises(ValueError, match="head dim 128"):
         fa.flash_fwd(*(torch.zeros(1, 8, 1, 64, device=cuda),) * 3)
-    with pytest.raises(ValueError, match="384 or 512 in float32, bfloat16"):
-        fa.flash_fwd(*(torch.zeros(1, 8, 1, 640, device=cuda),) * 3)
+    with pytest.raises(ValueError, match="896 or 1024 in float32"):
+        fa.flash_fwd(*(torch.zeros(1, 8, 1, 640, device=cuda,
+                                   dtype=torch.bfloat16),) * 3)
+    with pytest.raises(ValueError, match="896 or 1024 in float32"):
+        fa.flash_fwd(*(torch.zeros(1, 8, 1, 1152, device=cuda),) * 3)
     x = torch.zeros(1, 8, 1, 128, device=cuda)
     with pytest.raises(ValueError, match="k must be"):
         fa.flash_fwd(x, x.half(), x)
@@ -1065,17 +1081,21 @@ def test_llama_d512_flash_vs_plain_attention(cuda, head_dim, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim", [384, 512])
-def test_llama_d512_fp32_flash_vs_plain_attention(cuda, head_dim):
+@pytest.mark.parametrize("head_dim,n_heads", [
+    pytest.param(384, 8, id="384"), pytest.param(512, 8, id="512"),
+    pytest.param(640, 4, id="640"), pytest.param(1024, 4, id="1024")])
+def test_llama_d512_fp32_flash_vs_plain_attention(cuda, head_dim, n_heads):
     """A float32 LlamaLM at head dim 512 (DeepSeek-V4-Flash's head shape:
-    heads of 512, one kv head; dim 4096, 8 heads) and at 384 (dim 3072), 2
-    layers, on the card: the flash path launches one forward, one dq and
-    one dk/dv per layer (the float32 kernels in clusters of four and three
+    heads of 512, one kv head; dim 4096, 8 heads) and at 384 (dim 3072),
+    and with 4 heads of 1024 (LLaMA-2-7B's 4,096 query columns regrouped,
+    the step-time-llm-d1024-fp32 model) and of 640, 2 layers, on the card:
+    the flash path launches one forward, one dq and one dk/dv per layer
+    (the float32 kernels in clusters of three, four, five and eight
     blocks), and its logits and every parameter's loss gradient are within
     1e-4 of the largest entry (+ 1e-7) of the plain attention path's (as
     test_llama_d256_fp32_flash_vs_plain_attention holds head dim 256)."""
-    cfg = LlamaConfig(vocab_size=300, dim=8 * head_dim, n_layers=2,
-                      n_heads=8, n_kv_heads=1, intermediate=512,
+    cfg = LlamaConfig(vocab_size=300, dim=n_heads * head_dim, n_layers=2,
+                      n_heads=n_heads, n_kv_heads=1, intermediate=512,
                       dtype="float32")
     model = build_llama(cfg, seed=0, device=cuda)
     tokens = torch.randint(3, 300, (2, 300), device=cuda,
@@ -1104,13 +1124,13 @@ def test_llama_d512_fp32_flash_vs_plain_attention(cuda, head_dim):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("head_dim,dtype", [(640, "float16"), (640, "bfloat16"),
-                                            (640, "float32")])
+                                            (1152, "float32")])
 def test_llama_shapes_the_kernels_refuse_run_reference_attention(
         cuda, head_dim, dtype):
     """A LlamaLM whose attention the flash kernels do not take (head dim
-    640, in every type) runs on the card with no flash launch, through
-    reference_attention: its logits equal the same model's with
-    use_flash=False."""
+    640 in the 16-bit types, 1152 in float32) runs on the card with no
+    flash launch, through reference_attention: its logits equal the same
+    model's with use_flash=False."""
     cfg = LlamaConfig(vocab_size=300, dim=2 * head_dim, n_layers=2, n_heads=2,
                       n_kv_heads=1, intermediate=384, dtype=dtype)
     model = build_llama(cfg, seed=0, device=cuda)

@@ -5,18 +5,19 @@ operand x to the bf16 tensor cores as three terms, x1 = bf16(x), x2 =
 bf16(x - x1), x3 = bf16(x - x1 - x2), and form x y as the six term
 products whose indices add up to at most 4, the small ones first, summed
 in float32 (csrc/flash_attention.cu, ``a_term`` / ``b_term``). At head dims
-256, 384 and 512 a cluster of D / 128 blocks splits the depth: each block
-forms the six products over its 128 columns from zero, and the blocks'
-partial scores (s, dp) are added in rank order, ((p0 + p1) + p2) + p3 (at
-256 the one sum of two). Emulated here with the same inputs from a numpy
-seed at (1, 300, 2, D) float32, D 128, 256, 384 and 512, in the kernels'
+256 to 1024 a cluster of D / 128 blocks (two to eight) splits the depth:
+each block forms the six products over its 128 columns from zero, and the
+blocks' partial scores (s, dp) are added in rank order, ((p0 + p1) + p2)
++ .. + p7 (at 256 the one sum of two; past four blocks the kernels add
+rank by rank, the same order). Emulated here with the same inputs from a
+numpy seed at (1, 300, 2, D) float32, D 128 to 1024, in the kernels'
 tiles (the forward's online softmax over 64-key tiles, dq's 32-key tiles,
 dk/dv's 32-row tiles, each tile's product added to a float32
 accumulator):
 
 * each product, in float64, is within 2^-21 sum |x y| of the exact one (the
   dropped x2y3, x3y2 and x3y3 are within ~2^-23 |x y|);
-* the rank-order float32 sum of three and four blocks' partial scores is
+* the rank-order float32 sum of three to eight blocks' partial scores is
   within 2^-21 sum |x y| plus the rounding of the partials and of the
   D / 128 - 1 adds (2^-24 of each result's size) of the float64 score;
 * the emulated o and lse (forward), dq (dq) and dk and dv (dk/dv), summed
@@ -40,6 +41,18 @@ PAIRS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
 SHAPE = (1, 300, 2)               # B, L, H; then D
 BLOCK_COLS = 128                  # the columns a block of the cluster owns
 FWD_KEYS, DQ_KEYS, DKV_ROWS = 64, 32, 32     # the kernels' tiles
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The emulation's many small products run on one thread: with the
+    suite's parallel workers, torch's default pool (a thread a core in
+    every worker) oversubscribes the cores, and these tests ran ~100x
+    slower than alone. The pool's size is restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def terms(x):
@@ -75,9 +88,9 @@ def partials(eq, x, y, dtype=torch.float32):
 
 
 def scores(eq, x, y, products):
-    """A score product as the kernels form it: the partials (one at D 128,
-    two at 256, three at 384, four at 512) added in rank order, ((p0 + p1)
-    + p2) + p3; each block's product goes into ``products``."""
+    """A score product as the kernels form it: the partials (D / 128: one
+    at D 128, eight at 1024) added in rank order, ((p0 + p1) + p2) + ..;
+    each block's product goes into ``products``."""
     out = None
     for c, part in zip(range(0, x.shape[-1], BLOCK_COLS),
                        partials(eq, x, y)):
@@ -175,7 +188,11 @@ def run(kernel, D, seed=5):
     return (dk, dv), fa.flash_dkv_plain(q, k, v, g, plse, delta), products
 
 
-@pytest.mark.parametrize("D", [128, 256, 384, 512])
+# the float32 kernels' head dims: clusters of D / 128 blocks, one to eight
+HEAD_DIMS = [128, 256, 384, 512, 640, 768, 896, 1024]
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_six_term_products_keep_float32(kernel, D):
     """Each product of the kernel, formed from the three-term split in
@@ -188,7 +205,7 @@ def test_six_term_products_keep_float32(kernel, D):
         assert bool(((got - exact).abs() <= 2 ** -21 * size).all()), eq
 
 
-@pytest.mark.parametrize("D", [128, 256, 384, 512])
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_split3_outputs_within_a_tenth_of_the_card_tolerance(kernel, D):
     """The emulated kernel's outputs against the plain version's: within
@@ -200,10 +217,10 @@ def test_split3_outputs_within_a_tenth_of_the_card_tolerance(kernel, D):
         assert err <= 0.1 * 1e-4 * b.abs().max().item(), err
 
 
-@pytest.mark.parametrize("D", [384, 512])
+@pytest.mark.parametrize("D", [384, 512, 640, 768, 896, 1024])
 def test_rank_order_sum_of_partials_within_float_rounding(D):
     """The score of a cluster of D / 128 blocks, q k^T as the rank-order
-    float32 sum ((p0 + p1) + p2) + p3 of the blocks' float32 partials,
+    float32 sum ((p0 + p1) + p2) + .. of the blocks' float32 partials,
     against the float64 product: within the six products' 2^-21 sum |q k|
     (each partial's terms formed in float64) plus one float rounding (2^-24)
     of each partial and of each add's result, bounded by sum_r |p_r|. The

@@ -208,7 +208,7 @@ def test_dq_two_term_split_stays_within_tolerance():
     (256, torch.bfloat16, "cpu", False, False, False),
     (256, torch.bfloat16, "cuda", True, False, False),
     (256, torch.bfloat16, "cuda", False, True, False),
-    (640, torch.float32, "cuda", False, False, False),   # no type past 512
+    (640, torch.float32, "cuda", False, False, True),    # float32 to 1024
     (384, torch.float32, "cpu", False, False, False),
     (512, torch.float32, "cuda", False, True, False)])
 def test_flash_rule_takes_the_kernels_only_where_they_apply(

@@ -23,10 +23,19 @@ four at a time, each spawn with its own timeout.
   writes.
 * ``SFTTrainer`` at dp 2 x tp 2 (megatron tp) against one process and
   against JAX's mesh ``SFTTrainer`` (losses rtol 1e-4, atol 1e-5), its
-  checkpoints written whole by rank 0.
+  checkpoints written whole by rank 0; and at a tp that does not divide
+  the head counts, which JAX's ``shard_llm_params`` meets by replicating:
+  one kv head at tp 2 (k_proj and v_proj whole on each rank, their
+  gradients each rank's part, summed over tp) and 3 heads at dp 2 x tp 2
+  (the whole attention on each rank), losses and pre-clip norms against
+  one process and the losses against JAX at the same tolerances.
 * LoRA adapters on a tp-sharded base against the unsharded base (rtol 1e-4,
   atol 1e-5, tests/test_serving_lora.py:104), also with an MLP whose
-  intermediate axis does not divide by tp (kept whole) under adapters.
+  intermediate axis does not divide by tp (kept whole) under adapters, and
+  with adapters on q_proj, k_proj and v_proj of a one-kv-head base at tp 2.
+* ``shard_llm_`` at those tps, one process a rank without collectives:
+  each rank's query heads read the kv head they read in the whole model,
+  and the ranks' partial attention outputs add up to the whole one's.
 * ``python -m torch.distributed.run --nproc_per_node 2 -m
   gnn_rag_tpu_torch ... --dp_size 2``: the CLI builds its mesh from the
   launcher's environment; its checkpoint equals the one-process CLI's.
@@ -62,6 +71,12 @@ SPAWN_TIMEOUT = 240
 TINY = dict(vocab_size=64, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
             intermediate=128, max_seq_len=512, dtype="float32")
 SFT = dict(batch_size=8, total_steps=4, save_every=2, learning_rate=1e-3)
+# TINY with head counts that tp 2 does not divide: one kv head (tp divides
+# the 4 query heads, not it), and 3 heads of 16 (tp divides neither)
+SFT_MODELS = {"tiny": TINY, "kv1": dict(TINY, n_kv_heads=1),
+              "h3": dict(TINY, dim=48, n_heads=3, n_kv_heads=1)}
+# (model, dp, tp) of the port's mesh runs of each: two ranks, then four
+SFT_MESHES = {"kv1": (1, 2), "h3": (2, 2)}
 
 
 def free_port() -> int:
@@ -179,15 +194,17 @@ def job_evaluator(mesh, state):
     return got, lines
 
 
-def job_sft(mesh, params, out):
+def job_sft(mesh, params, out, model="tiny"):
     from gnn_rag_tpu_torch.llm.sft import SFTConfig, SFTTrainer
-    m = pmesh.make_mesh(2, 2, backend="gloo", device="cpu")
-    tr = SFTTrainer(LlamaConfig(**TINY), SFTConfig(output_dir=out, **SFT),
+    m = pmesh.make_mesh(*SFT_MESHES.get(model, (2, 2)), backend="gloo",
+                        device="cpu")
+    cfg = LlamaConfig(**SFT_MODELS[model])
+    tr = SFTTrainer(cfg, SFTConfig(output_dir=out, **SFT),
                     params={k: torch.from_numpy(v) for k, v in params.items()},
                     device="cpu", mesh=m)
     norms = keep_norms(tr, pre_clip_norm)
     losses = tr.train(*sft_data(), steps=4, resume=False, log_every=100)
-    again = SFTTrainer(LlamaConfig(**TINY), SFTConfig(output_dir=out, **SFT),
+    again = SFTTrainer(cfg, SFTConfig(output_dir=out, **SFT),
                        device="cpu", mesh=m)
     assert again.maybe_resume() and again.step == 4
     for (name, a), b in zip(tr.model.state_dict().items(),
@@ -196,24 +213,30 @@ def job_sft(mesh, params, out):
     return losses, sorted(os.listdir(out)), norms
 
 
-# the adapted weights and the intermediate width of each LoRA case; 129
-# does not divide by tp 2, so gate/up/down stay whole on every tp rank
-LORA_CASES = {"q-v": (("q_proj", "v_proj"), 128, 2 * 7 + 2),
+# the adapted weights, the changes to TINY and the tensors tp 2 shards of
+# each LoRA case: an intermediate of 129 does not divide by tp 2, so
+# gate/up/down stay whole on every tp rank; one kv head keeps k_proj and
+# v_proj whole, each rank's gradient of them (and of their adapters) its
+# part
+LORA_CASES = {"q-v": (("q_proj", "v_proj"), {}, 2 * 7 + 2),
               "whole-mlp": (("q_proj", "v_proj", "gate_proj", "down_proj"),
-                            129, 2 * 4 + 2)}
+                            {"intermediate": 129}, 2 * 4 + 2),
+              "kv1": (("q_proj", "k_proj", "v_proj"), {"n_kv_heads": 1},
+                      2 * 5 + 2)}
 
 
 def lora_losses(mesh=None, case="q-v"):
     from gnn_rag_tpu_torch.llm.lora import LoRATrainer, init_lora
-    from gnn_rag_tpu_torch.llm.sharding import shard_llm_
-    targets, intermediate, n_sharded = LORA_CASES[case]
+    from gnn_rag_tpu_torch.llm.sharding import partial_grad_names, shard_llm_
+    targets, changes, n_sharded = LORA_CASES[case]
     tokens, mask = sft_data()
-    model = build_llama(LlamaConfig(**dict(TINY, intermediate=intermediate)),
-                        seed=0, device="cpu")
+    model = build_llama(LlamaConfig(**dict(TINY, **changes)), seed=0,
+                        device="cpu")
     lora = init_lora(model, torch.Generator().manual_seed(1), r=4,
                      targets=targets)
     if mesh is not None:
         assert len(shard_llm_(model, mesh)) == n_sharded
+        assert len(partial_grad_names(model)) == (4 if case == "kv1" else 0)
     tr = LoRATrainer(model, lora, lr=1e-2, alpha=16, r=4, mesh=mesh)
     norms = keep_norms(tr, lambda t: [float(p.grad.norm()) for p in t.params])
     t, k = torch.from_numpy(tokens[:8]).long(), torch.from_numpy(mask[:8])
@@ -299,30 +322,45 @@ def runs(tmp_path_factory):
     with jmesh:
         jax_losses = [jtr.train_epoch()[0] for _ in range(3)]
 
-    jsft = JSFTTrainer(JLlamaConfig.tiny(vocab_size=64),
-                       JSFTConfig(output_dir=str(tmp / "jsft"), **SFT),
-                       mesh=jmesh)
-    llm_params = {k: v.numpy() for k, v in
+    def sft_runs(model):
+        """(the JAX trainer's weights as a state_dict, its losses on the
+        mesh, the port's one-process losses and pre-clip norms)."""
+        jsft = JSFTTrainer(JLlamaConfig(**SFT_MODELS[model]),
+                           JSFTConfig(output_dir=str(tmp / f"jsft-{model}"),
+                                      **SFT), mesh=jmesh)
+        params = {k: v.numpy() for k, v in
                   bridge.llama_from_flax(jsft.params).items()}
-    with jmesh:
-        jax_sft = jsft.train(*sft_data(), steps=4, resume=False, log_every=100)
-    sft1 = SFTTrainer(LlamaConfig(**TINY),
-                      SFTConfig(output_dir=str(tmp / "sft1"), **SFT),
-                      params={k: torch.from_numpy(v)
-                              for k, v in llm_params.items()}, device="cpu")
-    sft1_norms = keep_norms(sft1, pre_clip_norm)
-    one_sft = (sft1.train(*sft_data(), steps=4, resume=False, log_every=100),
-               sft1_norms)
+        with jmesh:
+            jax_losses = jsft.train(*sft_data(), steps=4, resume=False,
+                                    log_every=100)
+        one = SFTTrainer(LlamaConfig(**SFT_MODELS[model]),
+                         SFTConfig(output_dir=str(tmp / f"sft1-{model}"),
+                                   **SFT),
+                         params={k: torch.from_numpy(v)
+                                 for k, v in params.items()}, device="cpu")
+        norms = keep_norms(one, pre_clip_norm)
+        return params, jax_losses, (one.train(*sft_data(), steps=4,
+                                              resume=False, log_every=100),
+                                    norms)
+
+    assert JLlamaConfig(**TINY) == JLlamaConfig.tiny(vocab_size=64)
+    sft_models = {model: sft_runs(model) for model in SFT_MODELS}
+    llm_params, jax_sft, one_sft = sft_models["tiny"]
 
     one = {drop: train3(port_trainer(state, drop=drop)) for drop in (0.0, 0.2)}
     two = spawn(2, [("trainer", (2, 1, state)), ("trainer", (1, 2, state)),
                     ("evaluator", (state,)), ("lora", ()),
-                    ("lora", ("whole-mlp",))])
+                    ("lora", ("whole-mlp",)), ("lora", ("kv1",)),
+                    ("sft", (sft_models["kv1"][0], str(tmp / "sft2-kv1"),
+                             "kv1"))])
     four = spawn(4, [("trainer", (2, 2, state)),
                      ("trainer", (2, 2, state, 0.2)),
-                     ("sft", (llm_params, str(tmp / "sft4")))])
+                     ("sft", (llm_params, str(tmp / "sft4"))),
+                     ("sft", (sft_models["h3"][0], str(tmp / "sft4-h3"),
+                              "h3"))])
     return dict(jax_losses=jax_losses, jax_sft=jax_sft, one_sft=one_sft,
-                one=one, two=two, four=four, state=state)
+                one=one, two=two, four=four, state=state,
+                sft_models=sft_models)
 
 
 def check_trainer(got, want):
@@ -403,6 +441,24 @@ def test_sft_matches_one_process_and_jax_mesh(runs):
     assert files == ["checkpoint-2.pt", "checkpoint-4.pt"]
 
 
+@pytest.mark.parametrize("model", ["kv1", "h3"])
+def test_sft_at_a_tp_that_does_not_divide_the_heads(runs, model):
+    """One kv head at tp 2 (k_proj and v_proj whole on each rank, each
+    rank's gradient of them its part, summed over tp: divided by tp, the
+    pre-clip norms would miss by their share), and 3 heads at dp 2 x tp 2
+    (the whole attention on each rank, its gradients divided by tp): the
+    losses and pre-clip gradient norms of one process, and JAX's losses on
+    its mesh, where ``shard_llm_params`` replicates what does not divide."""
+    _, jax_losses, (one_losses, one_norms) = runs["sft_models"][model]
+    got = runs["two"][0][6] if model == "kv1" else runs["four"][0][3]
+    losses, files, norms = got
+    np.testing.assert_allclose(losses, one_losses, rtol=1e-5)
+    np.testing.assert_allclose(norms, one_norms, rtol=1e-4)
+    np.testing.assert_allclose(losses, jax_losses, rtol=1e-4, atol=1e-5)
+    assert files == ["checkpoint-2.pt", "checkpoint-4.pt"]
+    assert losses[-1] < losses[0]
+
+
 def test_lora_on_tp_sharded_base_matches_unsharded(runs):
     got, norms = runs["two"][0][3]
     want, want_norms = lora_losses()
@@ -416,6 +472,17 @@ def test_lora_on_tp_base_with_whole_mlp_matches_unsharded(runs):
     their whole gradient, so it is not counted tp times."""
     got, norms = runs["two"][0][4]
     want, want_norms = lora_losses(case="whole-mlp")
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(norms, want_norms, rtol=1e-4)
+    assert got[-1] < got[0]
+
+
+def test_lora_on_tp_base_with_one_kv_head_matches_unsharded(runs):
+    """Adapters on q_proj, k_proj and v_proj of a one-kv-head base at tp 2:
+    k_proj and v_proj stay whole, and each tp rank's gradient of their
+    adapters is its query heads' part, summed over tp, not divided by it."""
+    got, norms = runs["two"][0][5]
+    want, want_norms = lora_losses(case="kv1")
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(norms, want_norms, rtol=1e-4)
     assert got[-1] < got[0]
@@ -475,6 +542,63 @@ class FakeMesh(pmesh.Mesh):
     def __init__(self, dp, tp, rank):
         super().__init__(dp=dp, tp=tp, rank=rank, device=torch.device("cpu"),
                          dp_group=None, tp_group=None)
+
+
+# (n_heads, n_kv_heads, tp): tp divides the heads and not the kv heads
+# (two of the four ranks on each kv head; two ranks on one kv head), or
+# neither
+TP_HEADS = {"h8-kv2-tp4": (8, 2, 4), "h4-kv1-tp2": (4, 1, 2),
+            "h3-kv1-tp2": (3, 1, 2)}
+
+
+@pytest.mark.parametrize("case", list(TP_HEADS))
+def test_shard_llm_keeps_the_whole_models_kv_heads(case):
+    """``shard_llm_`` no longer refuses a tp that does not divide the head
+    counts. Where tp divides the query heads, each rank's heads read the kv
+    head they read in the whole model (the whole model's GQA repeat, sliced
+    to the rank's heads), k_proj and v_proj stay whole and their gradients
+    are partial; the ranks' attention outputs before the all-reduce add up
+    to the whole attention's. Where it does not, the attention stays whole
+    on every rank and the MLP is still cut."""
+    from gnn_rag_tpu_torch.llm.model import rope_frequencies
+    from gnn_rag_tpu_torch.llm.sharding import (kv_heads_of_rank,
+                                                partial_grad_names,
+                                                shard_llm_)
+    H, KV, tp = TP_HEADS[case]
+    cfg = LlamaConfig(**dict(TINY, dim=8 * H, n_heads=H, n_kv_heads=KV))
+    whole = build_llama(cfg, seed=3, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 10, cfg.dim)).astype(np.float32))
+    cos, sin = rope_frequencies(cfg.head_dim, torch.arange(10)[None].expand(
+        2, 10), cfg.rope_theta, cfg.rope_condense)
+    with torch.no_grad():
+        want, _ = whole.layer_0.attn(x, cos, sin)
+    total = 0
+    for rank in range(tp):
+        model = build_llama(cfg, seed=3, device="cpu")
+        sharded = shard_llm_(model, FakeMesh(1, tp, rank))
+        attn = model.layer_0.attn
+        assert model.layer_0.mlp.tp is not None
+        if H % tp:
+            assert attn.tp is None and attn.kv_index is None
+            assert not any(".attn." in n for n in sharded)
+            assert partial_grad_names(model) == frozenset()
+            continue
+        heads = torch.arange(KV).repeat_interleave(H // KV)
+        local = heads[rank * H // tp:(rank + 1) * H // tp].tolist()
+        assert kv_heads_of_rank(H, KV, tp, rank) == local
+        assert attn.kv_index.tolist() == local
+        assert attn.n_heads == H // tp and attn.n_kv_heads == KV
+        assert attn.k_proj.weight.shape == (KV * cfg.head_dim, cfg.dim)
+        assert attn.q_proj.weight.shape == (H // tp * cfg.head_dim, cfg.dim)
+        assert partial_grad_names(model) == frozenset(
+            f"layer_{i}.attn.{p}.weight" for i in range(2)
+            for p in ("k_proj", "v_proj"))
+        attn.tp = None            # this rank's part, before the all-reduce
+        with torch.no_grad():
+            total = total + attn(x, cos, sin)[0]
+    if H % tp == 0:
+        torch.testing.assert_close(total, want, rtol=1e-5, atol=1e-6)
 
 
 def test_shard_batch_takes_each_ranks_rows_of_the_global_batch():
