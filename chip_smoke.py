@@ -12,9 +12,10 @@ Phases, one line each:
      g++), with ptxas registers and spills, and the wgmma (HGMMA) and TMA
      (UTMALDG) instructions each flash kernel on wgmma must hold
      (SM90_KERNELS), without spills or stack frames, and how many clusters
-     of each float32 flash kernel at head dims 128 to 1024 the card holds at
-     once (cudaOccupancyMaxActiveClusters, none may be 0), with the new
-     instances' (head dims 640-1024) registers, spill and stack bytes;
+     of each float32 flash kernel at head dims 128 to 1024 and of each
+     bf16 and float16 one at 384 to 1024 the card holds at once
+     (cudaOccupancyMaxActiveClusters, none may be 0), with the instances'
+     at head dims 640-1024 registers, spill and stack bytes;
   3. kernel: the CUDA kernel against its plain PyTorch version on the card at
      the serving shapes (fp32 and bf16) and at a skewed layout (SKEWED), two
      launches bit-identical, with the kernel's time ``ms`` (CUDA-event
@@ -125,7 +126,12 @@ The LLM reader (the flash-attention kernels K5a-c):
      order) at B2 L2047 H8, timed, B2 L1000, B1 L129 and B1 L65; and the
      float32 kernels at head dims 1024, 896, 768 and 640 (clusters of eight
      to five blocks) at B2 L2047 H4, timed, B2 L1000, B1 L129 and B1 L65;
-     every timed row with its products issued over those the function
+     and the bf16 and float16 kernels at head dims 1024, 896, 768 and 640
+     (clusters of four, seven, three and five blocks of up to 256 columns)
+     at B8 L2047 H4 (timed, as the float32 rows: the kernels take
+     milliseconds), B2 L1000 (float16 at 1024 and 640 also with the scaled
+     cotangents), B1 L129 and B1 L65, held to their plain versions in
+     float64 (``exact_yardstick``); every timed row with its products issued over those the function
      needs and the SDPA backend that served the yardstick;
   8. sft: the RoG joint-finetune SFT (scripts/train_sft.sh) through the
      port's entry (`python -m gnn_rag_tpu_torch.llm.sft`, run in this
@@ -165,10 +171,10 @@ The LLM reader (the flash-attention kernels K5a-c):
      flash launches (4 of each a step), no call of a plain flash version,
      and each flash kernel's device ms in one profiled step;
   11c. step-time-llm-d256: the SFT at Gemma-2B's widths (D256_FLAGS: 8
-     heads of 256, one kv head, 18 layers, vocab 256000, tied, bf16) on
-     the repo's LLaMA block through the port's entry (run in this process),
-     3 steps at B2 x 2048: flash launches exact (18 of each a step, at head
-     dim 256) and no plain flash call; ms a step, positions/s, peak GB,
+     heads of 256, one kv head, cut to 6 of 18 layers, vocab 256000, tied,
+     bf16) on the repo's LLaMA block through the port's entry (run in this
+     process), 3 steps at B2 x 2048: flash launches exact (6 of each a
+     step, at head dim 256) and no plain flash call; ms a step, positions/s, peak GB,
      each flash kernel's device ms in a profiled step; a no-cache scoring
      forward of the trained model (K5a) and the first step's loss, each
      against plain attention;
@@ -211,7 +217,17 @@ The LLM reader (the flash-attention kernels K5a-c):
      4 layers, B2, float32) through the port's entry, as 11h: the float32
      kernels at head dim 1024 (clusters of eight blocks), 4 launches of
      each a step, and every gradient of a 2-layer model at head dims 1024,
-     896, 768 and 640 (4 heads each), kernels vs plain attention.
+     896, 768 and 640 (4 heads each), kernels vs plain attention;
+  11j. step-time-llm-d1024 and step-time-llm-d1024-f16: the same 4 heads
+     of 1024 and one kv head in bf16 and in float16 at B8 (D1024_FLAGS,
+     D1024_F16_FLAGS: LLaMA2-7B's SFT cut to 4 layers, F16_STEPS steps), as
+     11g: the 16-bit kernels at head dim 1024 (clusters of four blocks of
+     256 columns), 4 launches of each a step, no plain flash call, the first
+     loss and token log-probs kernel vs plain, and every gradient of a
+     2-layer model at head dims 1024, 896, 768 and 640 (clusters of four,
+     seven, three and five blocks), kernels vs plain attention.
+Every phase's wall seconds and the script's total are logged (phase
+walls) before the kernels' summary.
 The reader at LLaMA2-7B widths and the full 32 layers (after the SFT
 trainer is freed):
   12. lora: LoRA finetuning (``llm.lora.LoRATrainer``: r 8, alpha 16 on
@@ -255,20 +271,23 @@ SEED = 0
 LATENCY_PASSES = 2
 TRAIN_STEPS = 20
 PALLAS = "gnn_rag_tpu/ops/pallas_mp.py"
-# the float32 flash kernels' head dims (clusters of D / 128 blocks), and
-# those of the instances in clusters of five to eight blocks
+# the float32 flash kernels' head dims (clusters of D / 128 blocks), the
+# 16-bit ones' in clusters (2 to 7 blocks of up to 256 columns), and the
+# head dims past 512 (float32: five to eight blocks; 16-bit: 5, 3, 7, 4)
 FP32_HEAD_DIMS = (128, 256, 384, 512, 640, 768, 896, 1024)
-WIDE_FP32_HEAD_DIMS = (640, 768, 896, 1024)
+CLUSTER16_HEAD_DIMS = (384, 512, 640, 768, 896, 1024)
+WIDE_HEAD_DIMS = (640, 768, 896, 1024)
 # the flash kernels on wgmma, each with the SASS opcodes it must hold: the
 # bf16 and float16 ones load by TMA, the float32 ones (three bf16 terms a
 # float, converted by a warpgroup from plain loads) do not (the 16-bit ones
 # are templates on the element type and the head dim, the float32 ones on
 # the head dim: their instances by mangled name, <128> .. <1024>; the
-# 16-bit ones at 384 and 512 are the pair kernels, clusters of two blocks)
+# 16-bit ones from 384 are the pair kernels, clusters of two to seven
+# blocks)
 SM90_KERNELS = {**{f"flash_{k}_{kind}_kernelI{t}Li{d}E": ("HGMMA", "UTMALDG")
                    for k in ("fwd", "dq", "dkv")
                    for kind, dims in (("sm90", (128, 256)),
-                                      ("pair", (384, 512)))
+                                      ("pair", CLUSTER16_HEAD_DIMS))
                    for d in dims for t in ("13__nv_bfloat16", "6__half")},
                 **{f"flash_{k}_split3_kernelILi{d}E": ("HGMMA",)
                    for k in ("fwd", "dq", "dkv") for d in FP32_HEAD_DIMS}}
@@ -322,7 +341,10 @@ SPEC_GAMMA = 4
 # (one row past dq's 64-row block); and the float32 kernels at head dims
 # 1024, 896, 768 and 640 (clusters of eight to five blocks) at the
 # step-time-llm-d1024-fp32 step's B2 L2047 H4 (4 heads of 1024: the same
-# operations as H8 D512) and the same ragged rows. Rows at L 2047 are timed
+# operations as H8 D512) and the same ragged rows; and the bf16 and float16
+# kernels at head dims 1024, 896, 768 and 640 (clusters of four, seven,
+# three and five blocks) at the step-time-llm-d1024 steps' B8 L2047 H4 and
+# the same ragged rows. Rows at L 2047 are timed
 ATTN_SHAPES = (("sft_b8_l2047_bf16", 8, SFT_SEQ - 1, 32, 128, "bfloat16"),
                ("sft_b8_l2047_fp32", 8, SFT_SEQ - 1, 32, 128, "float32"),
                ("ragged_b2_l1000_bf16", 2, 1000, 32, 128, "bfloat16"),
@@ -356,8 +378,15 @@ ATTN_SHAPES = (("sft_b8_l2047_bf16", 8, SFT_SEQ - 1, 32, 128, "bfloat16"),
                                     ("ragged_b1_l129", 1, 129),
                                     ("ragged_b1_l65", 1, 65))),
                *((f"{name}_d{d}_fp32", B, L, 4, d, "float32")
-                 for d in WIDE_FP32_HEAD_DIMS[::-1]
+                 for d in WIDE_HEAD_DIMS[::-1]
                  for name, B, L in (("h4_b2_l2047", 2, SFT_SEQ - 1),
+                                    ("ragged_b2_l1000", 2, 1000),
+                                    ("ragged_b1_l129", 1, 129),
+                                    ("ragged_b1_l65", 1, 65))),
+               *((f"{name}_d{d}_{tag}", B, L, 4, d, dtype)
+                 for dtype, tag in (("bfloat16", "bf16"), ("float16", "f16"))
+                 for d in WIDE_HEAD_DIMS[::-1]
+                 for name, B, L in (("h4_b8_l2047", 8, SFT_SEQ - 1),
                                     ("ragged_b2_l1000", 2, 1000),
                                     ("ragged_b1_l129", 1, 129),
                                     ("ragged_b1_l65", 1, 65))))
@@ -366,26 +395,28 @@ ATTN_SHAPES = (("sft_b8_l2047_bf16", 8, SFT_SEQ - 1, 32, 128, "bfloat16"),
 # 0) and large
 F16_G_SCALES = {name: (2.0 ** -16, 2.0 ** 4) for name in (
     "ragged_b2_l1000_f16", "ragged_b2_l1000_d256_f16",
-    "ragged_b2_l1000_d512_f16", "ragged_b2_l1000_d384_f16")}
+    "ragged_b2_l1000_d512_f16", "ragged_b2_l1000_d384_f16",
+    "ragged_b2_l1000_d1024_f16", "ragged_b2_l1000_d640_f16")}
 # the SFT step at Gemma-2B's widths (google/gemma-2b config.json: hidden
 # 2048, 8 heads of 256, one kv head, intermediate 16384, 18 layers, vocab
 # 256000, tied embeddings) on the repo's LLaMA block (SwiGLU, RMSNorm,
 # rotate-half RoPE; Gemma's GeGLU, 1 + w norm and embedding scale are in
-# neither package), bf16 compute over f32 params, grads and AdamW (~2.5 B
-# parameters, ~40 GB; the step's peak is ~58 GB, so no remat), B2 x 2048,
-# all 18 layers: the flash kernels at head dim 256 (the kv head repeated
-# to H8)
+# neither package), bf16 compute over f32 params, grads and AdamW, B2 x
+# 2048, cut to 6 of 18 layers to spare the run's time limit (at 18, ~2.5 B
+# parameters, ~40 GB, a peak of ~58 GB): the flash kernels at head dim 256
+# (the kv head repeated to H8)
 D256_STEPS = 3          # steps through the entry point
 D256_TIMED = 2          # then steps timed on the first step's batch
+D256_LAYERS = 6
 D256_FLAGS = ["--dim", "2048", "--n_heads", "8", "--n_kv_heads", "1",
-              "--intermediate", "16384", "--n_layers", "18",
+              "--intermediate", "16384", "--n_layers", str(D256_LAYERS),
               "--vocab_size", "256000", "--tie_embeddings", "true",
               "--dtype", "bfloat16", "--batch_size", "2", "--max_seq_len", str(SFT_SEQ),
               "--total_steps", str(D256_STEPS), "--learning_rate", "3e-4",
               "--warmup_steps", "100", "--save_every", str(D256_STEPS),
               "--seed", str(SEED), "--device", "cuda"]
 # the same SFT computing in float32 (every attention on the float32 flash
-# kernels at head dim 256), cut to 6 of 18 layers: at 18, the float32
+# kernels at head dim 256), 6 of 18 layers: at 18, the float32
 # params, grads and AdamW moments of 2.51 B parameters take 40 GB and the
 # float32 activations of B2 x 2048 double the bf16 run's (its peak is 58
 # GB); at 6, 1.18 B parameters take 19 GB of state
@@ -437,8 +468,17 @@ D512_FP32_FLAGS = [{"--dtype": "float32", "--batch_size": "2"}.get(flag, x)
 D1024_FP32_FLAGS = [{"--n_heads": "4"}.get(flag, x)
                     for flag, x in zip([None, *D512_FP32_FLAGS],
                                        D512_FP32_FLAGS)]
-WIDE_FP32_GRADS = tuple(dict(dim=4 * d, n_heads=4, n_kv_heads=1)
-                        for d in (896, 768, 640))
+WIDE_GRADS = tuple(dict(dim=4 * d, n_heads=4, n_kv_heads=1)
+                   for d in (896, 768, 640))
+# the same 4 heads of 1024 and one kv head in bf16 (LlamaConfig's type, in
+# which scripts/train_sft.sh trains) and in float16 (LLaMA-2-7B's published
+# type) at B8, F16_STEPS steps each, as the 16-bit head-dim-512 phases run:
+# the 16-bit kernels at head dim 1024 (clusters of four 256-column
+# blocks); the gradient checks also at 896, 768 and 640 (WIDE_GRADS:
+# clusters of seven, three and five blocks)
+D1024_FLAGS = [{"--n_heads": "4"}.get(flag, x)
+               for flag, x in zip([None, *D512_FLAGS], D512_FLAGS)]
+D1024_F16_FLAGS = D1024_FLAGS[:-2] + ["--dtype", "float16"]
 # scripts/rearev_webqsp.sh with the reference's training defaults
 HEADLINE_FLAGS = ["ReaRev", "--entity_dim", "50", "--num_iter", "3",
                   "--num_ins", "2", "--num_gnn", "3", "--lm", "sbert",
@@ -2231,6 +2271,46 @@ def attn_products(dtype, hd):
     return {"fwd": [2, 2], "dq": [4, 3], "dkv": [6 if hd == 128 else 8, 4]}
 
 
+def exact_yardstick(q):
+    """Whether the flash kernels on ``q`` are held to their plain versions
+    evaluated in float64 (the exact function, p unrounded; outputs rounded
+    to q's type) rather than in float32: bf16 and float16 at head dims past
+    512. There the float32 plain versions' own error reaches the
+    tolerance: their sums' noise at rows whose exact dq and dk are 0 (the
+    first query row, where dp - delta cancels; on an H100 at B8 L2047 H4
+    D1024 in float16 the float32 plain dq 1.07 x ``f16_tol`` off the
+    float64 one, the kernel's 0.37), and o's p rounded at another point of
+    the softmax than the kernels' online one (float16 at a B2 L1000 H4 D768
+    draw: kernel vs plain 1.003 x tolerance, the kernel's arithmetic
+    emulated in PyTorch the same, each 0.73 and 0.69 off the float64
+    function; bf16's o 0.92 at B8 L2047 H4 D1024)."""
+    import torch
+    return q.dtype in (torch.bfloat16, torch.float16) and q.shape[-1] > 512
+
+
+def plain_fwd(q, k, v):
+    """(o, lse) of the plain forward, the forward kernel's yardstick: in
+    float32, or in float64 where ``exact_yardstick``."""
+    from gnn_rag_tpu_torch.llm import flash_attention as fa
+    if not exact_yardstick(q):
+        return fa.flash_fwd_plain(q, k, v)
+    o, lse = fa.flash_fwd_plain(q.double(), k.double(), v.double())
+    return o.to(q.dtype), lse.float()
+
+
+def plain_bwd(q, k, v, g, lse, delta):
+    """(dq, dk, dv) of the plain backward on these inputs, the backward
+    kernels' yardstick: in float32, or in float64 where
+    ``exact_yardstick``."""
+    from gnn_rag_tpu_torch.llm import flash_attention as fa
+    if not exact_yardstick(q):
+        return (fa.flash_dq_plain(q, k, v, g, lse, delta),
+                *fa.flash_dkv_plain(q, k, v, g, lse, delta))
+    wide = [x.double() for x in (q, k, v, g, lse, delta)]
+    return tuple(x.to(q.dtype) for x in (fa.flash_dq_plain(*wide),
+                                         *fa.flash_dkv_plain(*wide)))
+
+
 def sdpa_backend(q, k, v):
     """The backend of PyTorch's causal SDPA on q, k, v ([B, H, L, D]): the
     one its dispatcher picks for these inputs (PyTorch's flash backend
@@ -2244,7 +2324,9 @@ def check_attn_kernels(device):
     """Phase kernel-attn: forward, dq and dk/dv kernels against their plain
     versions at ATTN_SHAPES (the plain backward fed the plain forward's lse
     and delta, so a wrong lse shows in the gradients too; float16: fed the
-    kernels' own, the plain forward's errors reported), two backward
+    kernels' own, the plain forward's errors reported, and so is bf16 past
+    head dim 512; both 16-bit types past head dim 512 forward and backward
+    in float64, ``exact_yardstick``), two backward
     launches bit-identical; at the F16_G_SCALES rows the backward again with
     the cotangent scaled, against the plain versions fed the same (the
     small one's gradients nonzero); CUDA-event medians of kernel, plain and
@@ -2270,19 +2352,21 @@ def check_attn_kernels(device):
                 *fa.flash_dkv_plain(q, k, v, g, plse, pdelta))
         del pdelta
         row = dict(shape=name, B=B, L=L, H=H, D=D, dtype=dtype)
-        if dtype == "float16":
+        if dtype == "float16" or exact_yardstick(q):
             # float16: the backward kernels are held to the plain backward on
             # their own inputs (the kernels' lse and delta); the gradients
             # from the plain forward's are reported, not held: p rounds to
             # float16 at 8x bf16's density of rounding points, so exp2f and
             # exp flip some p's last bit, and delta carries o's difference
             # into dq and dk of rows of few keys whose own values are small
-            # (PERF.md §6, the float16 kernels)
+            # (PERF.md §6, the float16 kernels). bf16 past head dim 512 too:
+            # delta sums D products of o's difference, and at B8 L2047 H4
+            # D1024 the plain forward's carried dq to 1.22 x tolerance (on
+            # an H100)
             row["err_from_plain_forward_over_tol"] = {
                 part: attn_err(a, b)[2]
                 for part, a, b in zip(("dq", "dk", "dv"), got[2:], want[2:])}
-            want = (*want[:2], fa.flash_dq_plain(q, k, v, g, lse, delta),
-                    *fa.flash_dkv_plain(q, k, v, g, lse, delta))
+            want = (*plain_fwd(q, k, v), *plain_bwd(q, k, v, g, lse, delta))
         torch.cuda.synchronize()
         errs = {}
         for part, a, b in zip(("o", "lse", "dq", "dk", "dv"), got, want):
@@ -2299,8 +2383,7 @@ def check_attn_kernels(device):
             delta_s = fa.bwd_delta(o, gs)
             gots = (fa.flash_dq(q, k, v, gs, lse, delta_s),
                     *fa.flash_dkv(q, k, v, gs, lse, delta_s))
-            wants = (fa.flash_dq_plain(q, k, v, gs, lse, delta_s),
-                     *fa.flash_dkv_plain(q, k, v, gs, lse, delta_s))
+            wants = plain_bwd(q, k, v, gs, lse, delta_s)
             torch.cuda.synchronize()
             errs_s = {}
             for part, a, b in zip(("dq", "dk", "dv"), gots, wants):
@@ -2314,8 +2397,10 @@ def check_attn_kernels(device):
                 f"{scale:g}"] = errs_s
             del gs, wants, delta_s, gots
         if L == SFT_SEQ - 1:
-            # sub-millisecond 16-bit kernels get more launches per median
-            timing = (dict(runs=10, reps=5, warmup=2) if dtype != "float32"
+            # sub-millisecond 16-bit kernels (head dims to 512) get more
+            # launches per median
+            timing = (dict(runs=10, reps=5, warmup=2)
+                      if dtype != "float32" and D <= 512
                       else dict(runs=5, reps=2, warmup=1))
             bounds = attn_bounds(B, L, H, D, dtype)
             row["bound_ms"] = {k_: b_[0] for k_, b_ in bounds.items()}
@@ -4339,27 +4424,46 @@ def build_all():
                         raise AssertionError(f"{name} spills or keeps a "
                                              f"stack frame: {mine}")
                 # the float32 kernels' clusters (HD / 128 blocks of 210-230
-                # KB, one an SM): how many the card holds at once, 0 if it
+                # KB, one an SM) and the 16-bit ones' (2 to 7 blocks of up
+                # to 230 KB): how many the card holds at once, 0 if it
                 # cannot launch one
+                import torch
+
                 from gnn_rag_tpu_torch.llm import flash_attention as fa
+                kinds = ("fwd", "dq", "dkv")
                 clusters = {f"{k}<{d}>": fa.max_active_clusters(k, d)
-                            for d in FP32_HEAD_DIMS
-                            for k in ("fwd", "dq", "dkv")}
+                            for d in FP32_HEAD_DIMS for k in kinds}
                 log("build", f"float32 flash clusters the card holds at "
                     f"once (cudaOccupancyMaxActiveClusters): "
                     f"{json.dumps(clusters)}")
+                elems = {"bfloat16": "13__nv_bfloat16", "float16": "6__half"}
+                clusters16 = {f"{k}<{t}, {d}>": fa.max_active_clusters(
+                    k, d, getattr(torch, t))
+                    for t in elems for d in CLUSTER16_HEAD_DIMS for k in kinds}
+                log("build", f"bf16 and float16 flash clusters the card "
+                    f"holds at once (cudaOccupancyMaxActiveClusters): "
+                    f"{json.dumps(clusters16)}")
                 wide = {f"{k}<{d}>": dict(
                     clusters=clusters[f"{k}<{d}>"],
                     **next(v for n, v in props.items()
                            if f"flash_{k}_split3_kernelILi{d}E" in n))
-                    for d in WIDE_FP32_HEAD_DIMS
-                    for k in ("fwd", "dq", "dkv")}
+                    for d in WIDE_HEAD_DIMS for k in kinds}
                 log("build", f"float32 flash instances in clusters of five "
                     f"to eight blocks (clusters at once, ptxas registers, "
                     f"spill and stack bytes): {json.dumps(wide)}")
-                if not all(clusters.values()):
-                    raise AssertionError(f"a float32 flash cluster cannot "
-                                         f"launch: {clusters}")
+                wide16 = {f"{k}<{t}, {d}>": dict(
+                    clusters=clusters16[f"{k}<{t}, {d}>"],
+                    **next(v for n, v in props.items()
+                           if f"flash_{k}_pair_kernelI{m}Li{d}E" in n))
+                    for t, m in elems.items() for d in WIDE_HEAD_DIMS
+                    for k in kinds}
+                log("build", f"bf16 and float16 flash instances at head dims "
+                    f"640-1024 in clusters of five, three, seven and four "
+                    f"blocks (clusters at once, ptxas registers, spill and "
+                    f"stack bytes): {json.dumps(wide16)}")
+                if not (all(clusters.values()) and all(clusters16.values())):
+                    raise AssertionError(f"a flash cluster cannot launch: "
+                                         f"{clusters} {clusters16}")
 
 
 def main():
@@ -4380,73 +4484,97 @@ def main():
         f"{torch.version.cuda}")
     print(card, flush=True)
 
-    build_all()
-    rows = check_kernels(device)
-    bwd_rows = check_bwd_kernels(device)
-    fused_rows = check_fused_kernels(device)
-    attn_rows = check_attn_kernels(device)
+    walls = {}
+
+    def timed(phase, fn, *args):
+        """fn(*args), its wall seconds logged under ``phase``."""
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[phase] = round(time.perf_counter() - t, 1)
+        return out
+
+    timed("build", build_all)
+    rows = timed("kernel", check_kernels, device)
+    bwd_rows = timed("kernel-bwd", check_bwd_kernels, device)
+    fused_rows = timed("kernel-fused", check_fused_kernels, device)
+    attn_rows = timed("kernel-attn", check_attn_kernels, device)
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
-        _, serve_launches = run_slice(device, root)
-        os.makedirs(os.path.join(root, "train"))
-        _, tr, train_fwd, train_bwd = run_train(device,
-                                                os.path.join(root, "train"))
-        profiled = run_profile(device, root)
-        check_grads(tr, device)
-        train_step_time(tr, device)
+        train_root = os.path.join(root, "train")
+        llm_root = os.path.join(root, "llm")
+        _, serve_launches = timed("slice", run_slice, device, root)
+        os.makedirs(train_root)
+        _, tr, train_fwd, train_bwd = timed("train", run_train, device,
+                                            train_root)
+        timed("profile", run_profile, device, root)
+        timed("grad", check_grads, tr, device)
+        timed("step-time", train_step_time, tr, device)
         del tr
-        _, v2_counts = run_v2_path(device, os.path.join(root, "train"))
-        one_dir = check_1dir_kernels(device)
-        _, nsm_counts = run_retrievers(device, os.path.join(root, "train"))
-        wide_rows = check_wide_kernels(device)
-        _, wide_counts = run_wide(device, os.path.join(root, "train"))
+        _, v2_counts = timed("v2", run_v2_path, device, train_root)
+        one_dir = timed("kernel-1dir", check_1dir_kernels, device)
+        _, nsm_counts = timed("retrievers", run_retrievers, device,
+                              train_root)
+        wide_rows = timed("wide-kernel", check_wide_kernels, device)
+        _, wide_counts = timed("wide", run_wide, device, train_root)
         gc.collect()
         torch.cuda.empty_cache()
-        os.makedirs(os.path.join(root, "llm"))
-        sft, trainer, tokens, mask, prompts = run_sft(
-            device, os.path.join(root, "llm"))
-        grad_llm = check_llm_grads(trainer, tokens, mask, device)
-        run_decode(trainer, prompts, device)
-        _, qa_launches, qa_flash = run_qa(device, os.path.join(root, "train"),
-                                          trainer, os.path.join(root, "llm"))
-        sft_step_time(trainer, tokens, mask, device)
+        os.makedirs(llm_root)
+        sft, trainer, tokens, mask, prompts = timed("sft", run_sft, device,
+                                                    llm_root)
+        grad_llm = timed("grad-llm", check_llm_grads, trainer, tokens, mask,
+                         device)
+        timed("decode", run_decode, trainer, prompts, device)
+        _, qa_launches, qa_flash = timed("qa", run_qa, device, train_root,
+                                         trainer, llm_root)
+        timed("step-time-llm", sft_step_time, trainer, tokens, mask, device)
         # the 32-layer phases need the card: the SFT trainer's float32
         # params, grads and AdamW states go (its reader is the qa bundle)
         del trainer
         gc.collect()
         torch.cuda.empty_cache()
-        fp32_step = sft_fp32_step_time(tokens, mask, device)
-        d256 = sft_d256_step_time(device, os.path.join(root, "llm"), prompts)
-        d256_fp32 = sft_fp32_entry_step_time(
-            device, os.path.join(root, "llm"), prompts, D256_FP32_FLAGS,
-            "step-time-llm-d256-fp32")
-        f16 = {"d128": sft_16bit_step_time(device, os.path.join(root, "llm"),
-                                           F16_FLAGS, "step-time-llm-f16"),
-               "d256": sft_16bit_step_time(device, os.path.join(root, "llm"),
-                                           D256_F16_FLAGS,
-                                           "step-time-llm-d256-f16")}
-        d512 = {dtype: sft_16bit_step_time(device, os.path.join(root, "llm"),
-                                           flags, phase, (D384_GRAD,))
+        fp32_step = timed("step-time-llm-fp32", sft_fp32_step_time, tokens,
+                          mask, device)
+        d256 = timed("step-time-llm-d256", sft_d256_step_time, device,
+                     llm_root, prompts)
+        d256_fp32 = timed(
+            "step-time-llm-d256-fp32", sft_fp32_entry_step_time, device,
+            llm_root, prompts, D256_FP32_FLAGS, "step-time-llm-d256-fp32")
+        f16 = {f"d{hd}": timed(phase, sft_16bit_step_time, device, llm_root,
+                               flags, phase)
+               for hd, flags, phase in (
+                   (128, F16_FLAGS, "step-time-llm-f16"),
+                   (256, D256_F16_FLAGS, "step-time-llm-d256-f16"))}
+        d512 = {dtype: timed(phase, sft_16bit_step_time, device, llm_root,
+                             flags, phase, (D384_GRAD,))
                 for dtype, flags, phase in (
                     ("bfloat16", D512_FLAGS, "step-time-llm-d512"),
                     ("float16", D512_F16_FLAGS, "step-time-llm-d512-f16"))}
-        d512_fp32 = sft_fp32_entry_step_time(
-            device, os.path.join(root, "llm"), prompts, D512_FP32_FLAGS,
-            "step-time-llm-d512-fp32", (D384_GRAD,))
-        d1024_fp32 = sft_fp32_entry_step_time(
-            device, os.path.join(root, "llm"), prompts, D1024_FP32_FLAGS,
-            "step-time-llm-d1024-fp32", WIDE_FP32_GRADS)
-        _, reader_7b, lora_launches = run_lora(device, tokens, mask)
-        run_serve_7b(device, reader_7b, os.path.join(root, "llm", "reader"),
-                     prompts)
+        d512_fp32 = timed(
+            "step-time-llm-d512-fp32", sft_fp32_entry_step_time, device,
+            llm_root, prompts, D512_FP32_FLAGS, "step-time-llm-d512-fp32",
+            (D384_GRAD,))
+        d1024_fp32 = timed(
+            "step-time-llm-d1024-fp32", sft_fp32_entry_step_time, device,
+            llm_root, prompts, D1024_FP32_FLAGS, "step-time-llm-d1024-fp32",
+            WIDE_GRADS)
+        d1024 = {dtype: timed(phase, sft_16bit_step_time, device, llm_root,
+                              flags, phase, WIDE_GRADS)
+                 for dtype, flags, phase in (
+                     ("bfloat16", D1024_FLAGS, "step-time-llm-d1024"),
+                     ("float16", D1024_F16_FLAGS,
+                      "step-time-llm-d1024-f16"))}
+        _, reader_7b, lora_launches = timed("lora", run_lora, device, tokens,
+                                            mask)
+        timed("serve-7b", run_serve_7b, device, reader_7b,
+              os.path.join(llm_root, "reader"), prompts)
         del reader_7b
         gc.collect()
         torch.cuda.empty_cache()
-        run_reader_serving(device, os.path.join(root, "llm"),
-                           os.path.join(root, "train"))
+        timed("reader-serving", run_reader_serving, device, llm_root,
+              train_root)
         gc.collect()
         torch.cuda.empty_cache()
-        mesh = run_mesh(device, root, card)
+        mesh = timed("mesh", run_mesh, device, root, card)
 
     gate = "gnn_rag_tpu_torch/csrc/gate_scatter.cu"
     kernels = []
@@ -4738,6 +4866,23 @@ def main():
             {"grads": d1024_fp32["grads_by_head_dim"][f"d{hd}"][
                 "flash_launches"]},
             {f"{phase}_grads_d{hd}": "grads"}))
+    # the bf16 and float16 kernels at head dims 1024 to 640 (clusters of
+    # four, seven, three and five blocks) on the step-time-llm-d1024 paths:
+    # 1024 in their SFT steps, 896, 768 and 640 in their gradient checks,
+    # each timed at the steps' shape, B8 L2047 H4
+    for dtype, tag, phase in (("bfloat16", "bf16", "step_time_llm_d1024"),
+                              ("float16", "f16", "step_time_llm_d1024_f16")):
+        run = d1024[dtype]
+        groups.append((dtype, 1024, f"_d1024_{tag}", f"h4_b8_l2047_d1024_{tag}",
+                       run, {phase: "flash_launches_fwd_dq_dkv",
+                             f"{phase}_timed_steps": "timed_flash_launches",
+                             f"{phase}_grads_d1024": "grad_flash_launches"}))
+        for hd in (896, 768, 640):
+            groups.append((
+                dtype, hd, f"_d{hd}_{tag}", f"h4_b8_l2047_d{hd}_{tag}",
+                {"grads": run["grads_by_head_dim"][f"d{hd}"][
+                    "flash_launches"]},
+                {f"{phase}_grads_d{hd}": "grads"}))
     for dtype, hd, suffix, shape_name, run, paths in groups:
         rows_t = {r["shape"]: r for r in attn_rows
                   if r["D"] == hd and r["dtype"] == dtype}
@@ -4778,6 +4923,7 @@ def main():
                 "launches_by_path": by_path,
                 **({} if key == "fwd" else
                    {"sdpa_bwd_ms_dq_dk_dv_together": h_row["sdpa_bwd_ms"]})})
+    log("phase-walls", json.dumps(walls))
     log("total", f"wall {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,9 @@
 //   o = (sum_k T(exp(s - m)) v) / l        (p rounded to v's type T before PV)
 //   p = exp(s - lse), dp = dO v^T, ds = p * (dp - delta) * scale,
 //   dq = ds k, dk = ds^T q, dv = p^T dO,   delta = rowsum(dO * o) (given).
-// Tensors keep the model's [B, N, H, D] layout (D = 128, 256, 384 or 512 in
-// float32, bfloat16 and float16, and 640, 768, 896 or 1024 in float32; the
-// wrapper raises on any other D); lse and delta are [B*H, L] float, stored
+// Tensors keep the model's [B, N, H, D] layout (D = 128, 256, .., 1024, a
+// multiple of 128, in float32, bfloat16 and float16; the wrapper raises on
+// any other D); lse and delta are [B*H, L] float, stored
 // once per row (the TPU kernel replicated them over 128 lanes for its block
 // shapes). All sums are float; every product is the
 // float product of the (widened) inputs, as in the TPU kernels
@@ -147,32 +147,40 @@
 //   columns (consumer c accumulates dk and dv columns 128c ..), each forming
 //   s^T and dp^T over the whole depth itself (twice the score products, for
 //   no exchange between them); 2 stages (194 KB).
-// - head dims 384 and 512 (flash_{fwd,dq,dkv}_pair_kernel<T, HD>): a head
-//   row of 512 is 1 KB, so 128 resident Q rows take 128 KB and one 64-key K
-//   + V stage 128 KB, and o, dq or dk/dv of 64 rows x 512 would be 256
-//   floats a thread. So the depth is split over a thread block cluster of
-//   two blocks on the same rows (keys), as the float32 kernels split it at
-//   256: block rank r owns columns C r .. C r + C - 1, C = HD / 2 (192 or
-//   256), and runs the HD 256 layouts above on them: the forward's 64-key
+// - head dims 384 to 1024 (flash_{fwd,dq,dkv}_pair_kernel<T, HD>, named
+//   after their first instances, pairs at 384 and 512): a head row of 512
+//   is 1 KB, so 128 resident Q rows take 128 KB and one 64-key K + V stage
+//   128 KB, and o, dq or dk/dv of 64 rows x 512 would be 256 floats a
+//   thread. So the depth is split over a thread block cluster of NB blocks
+//   on the same rows (keys), as the float32 kernels split it from 256: NB
+//   the fewest whose share C = HD / NB is whole 64-column boxes and at most
+//   256 (cluster16_blocks: 2 at 384 and 512, C 192 and 256; 5 at 640 and 7
+//   at 896, C 128; 3 at 768 and 4 at 1024, C 256). Block rank r owns
+//   columns C r .. C r + C - 1 and runs the HD 256 layouts above on them:
+//   the forward's 64-key
 //   tiles; dq's 32-key tiles in 2 stages rather than 3, to make room for
 //   two 16 KB exchanges; dk/dv's 64 keys a block with the consumers
 //   splitting the columns of dk and dv, but 32-row Q and dO tiles (3
 //   stages): s^T and dp^T of 64 rows would be 64 floats a thread beside dk
 //   and dv's 128, and spill. Each consumer forms its partial s (and dp)
-//   over the block's C columns, sends it to the same consumer of the peer
-//   (Exchange) and adds the peer's: IEEE addition commutes, so both blocks
-//   hold the same bits of s and dp, no score product is done twice across
-//   the pair, and every block accumulates only its own columns (in dk/dv
-//   both consumers of a block form the same partials, as at 256).
-//   Accumulators are 64 x 64 units (m64n64k16 with A from registers), so
-//   that 192 columns are whole boxes: dk/dv's consumer 0 takes two units,
-//   consumer 1 the rest (two at 512, one at 384). Shared memory at HD 512:
-//   forward and dq 230,488 bytes, dk/dv 198,488 (of 232,448); at 384 three
-//   quarters of the tiles. Products issued / needed: forward 2 / 2 (s,
+//   over the block's C columns and the cluster adds the NB partials through
+//   the same consumer's Exchange in every block, as the float32 clusters
+//   do: a pair sends its partial to the peer and adds the peer's (IEEE
+//   addition commutes), three to seven blocks add all NB in rank order
+//   (add_cluster_partials). So every block holds the same bits of s and
+//   dp, no score product is done twice across the cluster, and every block
+//   accumulates only its own columns (in dk/dv both consumers of a block
+//   form the same partials, as at 256). Accumulators are 64 x 64 units
+//   (m64n64k16 with A from registers), so that 192 columns are whole
+//   boxes: dk/dv's consumer 0 takes the first half of the block's units,
+//   rounded up, consumer 1 the rest (two and two at C 256, two and one at
+//   192, one and one at 128). Shared memory at C 256: forward and dq
+//   230,488 bytes, dk/dv 198,488 (of 232,448); at C 192 and 128 three
+//   quarters and half of the tiles. Products issued / needed: forward 2 / 2 (s,
 //   PV), dq 4 / 3 (ds's two terms), dk/dv 8 / 4 (both consumers' s^T and
 //   dp^T, the two terms of p^T and of ds^T). 1/sqrt(D) is not exact in
-//   float at 384 or 512 (it is at 128 and 256); it is the float nearest,
-//   as in the JAX kernels.
+//   float past 256 (it is at 128 and 256); it is the float nearest, as in
+//   the JAX kernels.
 // Tensor maps cover the 4-D (D, H, N, B) view with the real strides, so rows
 // past L read as TMA's zeros (never the next batch's rows; the float32
 // converters write zeros there) and are masked or not stored. Only tiles
@@ -259,9 +267,11 @@
 // (<384>), 255 (<512>) and 226-228 (<640> to <1024>),
 // flash_dq_split3_kernel 137, 142, 212 and 238 (the rank-order sum's loads
 // of the peers' partials in flight together) and 168 at <640> to <1024>
-// (the sum rank by rank); the pair kernels (384, 512, both
+// (the sum rank by rank); the 16-bit cluster kernels (384 to 1024, both
 // types) 168 at launch, consumers 240 (forward, dq) and 232 (dk/dv); no
-// spills, no stack frames.
+// spills, no stack frames (at C 256 with three or four blocks only because
+// their sum runs rank by rank: unrolled over the peers it spilled 8-156
+// bytes).
 //
 // At head dims 512 and 384 the pairs take 1.29 / 2.31 / 4.56 ms and 1.20 /
 // 2.12 / 4.07 ms in bf16 at B8 L2047 H8 (float16 within 5%; chip_smoke.py
@@ -269,7 +279,14 @@
 // bounds. Each consumer runs its tile's scores, the exchange with the peer
 // and its p and ds in turn, in step with the other consumer, so the
 // tensor cores idle through every exchange; dk/dv on 64-row tiles ran
-// 16-44% faster, but spilled.
+// 16-44% faster, but spilled. At head dims 1024, 896, 768 and 640 (clusters
+// of four, seven, three and five) they take 2.98 / 5.64 / 10.98, 9.86 /
+// 18.49 / 36.38, 1.73 / 3.19 / 6.27 and 4.69 / 8.89 / 17.34 ms in bf16 at
+// B8 L2047 H4 (float16 within 6%; chip_smoke.py on an H100 at 700 W): 9 /
+// 7 / 5% of their bounds at 1024 and 12 / 10 / 7% at 768, but 1.3-3.7% at
+// 640 and 896, where a block holds 128 columns: half the products an
+// exchange of C 256, five or seven partials summed rank by rank, and 22 or
+// 15 clusters at once.
 //
 // At head dim 256 the float32 kernels take 0.62 / 1.16 / 1.30 ms (forward /
 // dq / dk/dv) at B2 L2047 H8 D256 (chip_smoke.py on an H100 at 700 W): 34%
@@ -1371,10 +1388,10 @@ __device__ __forceinline__ void add_rank_partial(float (&x)[N],
 // NB partials, read from the peers' slots (ld.shared::cluster), and this
 // block arrives on empty in every peer. Every block adds the same operands
 // in the same order, so all hold the same bits. At NB 3 and 4 each element
-// group's NB - 1 peer loads are unrolled together (sum_partials); past 4
-// the sum runs rank by rank (add_rank_partial), ((p0 + p1) + p2) + .. +
-// p(NB - 1) all the same, with one rank's loads in flight at a time.
-template <int NB, typename... Parts>
+// group's NB - 1 peer loads are unrolled together (sum_partials, kUnrolled);
+// past 4 the sum runs rank by rank (add_rank_partial), ((p0 + p1) + p2) +
+// .. + p(NB - 1) all the same, with one rank's loads in flight at a time.
+template <int NB, bool kUnrolled = (NB <= 4), typename... Parts>
 __device__ __forceinline__ void add_cluster_partials(Exchange* xc,
                                                      uint32_t rank, int tid,
                                                      int e, Parts&... parts) {
@@ -1388,7 +1405,7 @@ __device__ __forceinline__ void add_cluster_partials(Exchange* xc,
       sm90::mbar_arrive_cluster(sm90::map_peer(&xc->full, r));
   sm90::mbar_wait_cluster(&xc->full, parity);        // the peers' e
   i = 0;
-  if constexpr (NB <= 4) {
+  if constexpr (kUnrolled) {
     (sum_partials<NB>(parts, xc, rank, tid, i), ...);
   } else {
     (add_rank_partial<true>(parts, xc, 0, rank, tid, i), ...);
@@ -2004,37 +2021,71 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
   store_acc_rows<float, HD>(dq, b, h, L, H, row, t, acc, one, col0);
 }
 
-// ------------- bfloat16 and float16 at head dims 384 and 512: pairs of blocks
-// A cluster of two blocks on the same rows (keys for dk/dv), block rank r
-// owning columns C r .. C r + C - 1, C = HD / 2 (192 or 256): the 16-bit
-// layouts above on C columns (C / 64 boxes a head row), each consumer
-// forming its partial s (and dp) over the block's C columns from zero and
-// adding the peer block's through an Exchange, as the float32 pairs do.
-// Accumulators are 64 x 64 units (32 floats a thread, wgmma m64n64k16 with
-// A from registers), so that 192 columns split into whole boxes.
+// ----- bfloat16 and float16 at head dims 384 to 1024: clusters of blocks
+// A cluster of NB blocks on the same rows (keys for dk/dv), block rank r
+// owning columns C r .. C r + C - 1, C = HD / NB (128, 192 or 256): the
+// 16-bit layouts above on C columns (C / 64 boxes a head row), each
+// consumer forming its partial s (and dp) over the block's C columns from
+// zero and the cluster adding the NB partials through an Exchange a
+// consumer, as the float32 clusters do (exchange16). Accumulators are 64 x
+// 64 units (32 floats a thread, wgmma m64n64k16 with A from registers), so
+// that 192 columns split into whole boxes.
+
+// the blocks of a 16-bit cluster at head dim hd: the fewest whose columns
+// C = hd / NB are whole 64-column boxes and at most 256 (the <256>
+// layouts' shared memory; at 320 the forward would need 279,600 bytes)
+__host__ __device__ constexpr int cluster16_blocks(int hd) {
+  int nb = PAIR;
+  while (hd % (64 * nb) != 0 || hd / nb > 256) ++nb;
+  return nb;
+}
+static_assert(cluster16_blocks(384) == 2 && cluster16_blocks(512) == 2 &&
+                  cluster16_blocks(640) == 5 && cluster16_blocks(768) == 3 &&
+                  cluster16_blocks(896) == 7 && cluster16_blocks(1024) == 4,
+              "clusters of 2 / 2 / 5 / 3 / 7 / 4 blocks at 384 .. 1024");
+
+// exchange e of a consumer's partials `parts` in a 16-bit cluster of NB
+// blocks: a pair adds the peer's once (add_peer_partials), three to seven
+// blocks add all NB in rank order (add_cluster_partials), so that every
+// block holds the same bits. Rank by rank at every NB > 2: with the peers'
+// loads unrolled together, as the float32 clusters of three and four add
+// them, the consumers at C 256 spill (ptxas: forward 8 bytes, dq 16-36,
+// dk/dv 28-156 at three and four blocks)
+template <int NB, typename... Parts>
+__device__ __forceinline__ void exchange16(Exchange* xc, uint32_t rank,
+                                           int tid, int e, Parts&... parts) {
+  if constexpr (NB == PAIR)
+    add_peer_partials(xc, rank ^ 1, tid, e, parts...);
+  else
+    add_cluster_partials<NB, false>(xc, rank, tid, e, parts...);
+}
 
 constexpr int PAIR_FWD_KEYS = 64;   // keys per K or V tile
 constexpr int PAIR_DQ_KEYS = 32;
 // 128 rows of Q (and of dO in dq) resident, KEYS-key K and V tiles through
-// FWD_STAGES stages, an exchange a consumer: at C 256 (HD 512) 230,488
-// bytes for both
+// FWD_STAGES stages, an exchange a consumer: at C 256 (HD 512, 768 and
+// 1024) 230,488 bytes for both
 template <int HD, int KEYS, int RESIDENT>
 constexpr size_t pair_q_smem() {
   return 1024 +
          static_cast<size_t>(RESIDENT * 128 + 2 * FWD_STAGES * KEYS) *
-             (HD / PAIR) * 2 +
+             (HD / cluster16_blocks(HD)) * 2 +
          2 * sizeof(Exchange) + sizeof(FwdBars);
 }
-static_assert(pair_q_smem<512, PAIR_FWD_KEYS, 1>() <= MAX_SMEM,
-              "forward at HD 512");
-static_assert(pair_q_smem<512, PAIR_DQ_KEYS, 2>() <= MAX_SMEM, "dq at HD 512");
+static_assert(pair_q_smem<512, PAIR_FWD_KEYS, 1>() <= MAX_SMEM &&
+                  pair_q_smem<1024, PAIR_FWD_KEYS, 1>() <= MAX_SMEM,
+              "forward at C 256");
+static_assert(pair_q_smem<512, PAIR_DQ_KEYS, 2>() <= MAX_SMEM &&
+                  pair_q_smem<1024, PAIR_DQ_KEYS, 2>() <= MAX_SMEM,
+              "dq at C 256");
 
-// forward at HD 384 / 512, grid (2 ceil(L / FWD_ROWS), B*H) in clusters of
-// two blocks along x: flash_fwd_sm90_kernel's layout on the block's C
+// forward at HD 384 to 1024, grid (NB ceil(L / FWD_ROWS), B*H) in clusters
+// of NB blocks along x: flash_fwd_sm90_kernel's layout on the block's C
 // columns with 64-key tiles (Q 128 x C, a K + V stage 2 x 64 x C); per tile
-// each consumer's partial s (m64n64k16 over C / 16 depth slices) plus the
-// peer's, the online softmax, p rounded to T, o += p v one 64-column unit
-// at a time (v MN-major). Only rank 0 writes lse (both blocks hold it).
+// each consumer's partial s (m64n64k16 over C / 16 depth slices) summed
+// over the cluster, the online softmax, p rounded to T, o += p v one
+// 64-column unit at a time (v MN-major). Only rank 0 writes lse (every
+// block holds it).
 template <typename T, int HD>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
     flash_fwd_pair_kernel(const __grid_constant__ CUtensorMap tq,
@@ -2043,9 +2094,10 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
                           T* __restrict__ o,
                           float* __restrict__ lse, int H, int L, int S,
                           float scale) {
-  constexpr int C = HD / PAIR, NB = C / 64, KEYS = PAIR_FWD_KEYS;
+  constexpr int NB = cluster16_blocks(HD), C = HD / NB, U = C / 64;
+  constexpr int KEYS = PAIR_FWD_KEYS;
   constexpr int Q_BOX = FWD_ROWS * ROW_BYTES, KV_BOX = KEYS * ROW_BYTES;
-  constexpr int Q_BYTES = NB * Q_BOX, KV_BYTES = NB * KV_BOX;
+  constexpr int Q_BYTES = U * Q_BOX, KV_BYTES = U * KV_BOX;
   extern __shared__ unsigned char raw_smem[];
   unsigned char* const Qs = align1024(raw_smem);
   unsigned char* const Ks = Qs + Q_BYTES;                   // [stage]
@@ -2054,7 +2106,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
   auto* bars = reinterpret_cast<FwdBars*>(xch + 2);
   const uint32_t rank = sm90::cluster_ctarank();
   const int col0 = C * rank;                 // this block's columns
-  const int q0 = (gridDim.x / PAIR - 1 - blockIdx.x / PAIR) * FWD_ROWS;
+  const int q0 = (gridDim.x / NB - 1 - blockIdx.x / NB) * FWD_ROWS;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int n_tiles = (min(S, q0 + FWD_ROWS) + KEYS - 1) / KEYS;
   const int wg = threadIdx.x / WG;
@@ -2066,12 +2118,12 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
       sm90::mbar_init(&bars->v_full[st], 1);
       sm90::mbar_init(&bars->empty[st], 2 * WG / 32);   // consumer warps
     }
-    init_exchange(&xch[0]);
-    init_exchange(&xch[1]);
+    init_exchange(&xch[0], NB - 1);
+    init_exchange(&xch[1], NB - 1);
     sm90::fence_barrier_init();
   }
   __syncthreads();
-  sm90::cluster_sync();   // the peer's barriers too
+  sm90::cluster_sync();   // the peers' barriers too
 
   if (wg == 0) {   // producer
     sm90::setmaxnreg_dec<24>();
@@ -2100,9 +2152,9 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
   const int row = q0 + 64 * cw + 16 * warp + g;   // and row + 8
   const unsigned char* const Qw = Qs + 64 * cw * ROW_BYTES;
   const float sl2 = scale * LOG2E;           // scores in log2 units
-  float acc[NB][32];                         // o, a 64-column unit each
+  float acc[U][32];                          // o, a 64-column unit each
 #pragma unroll
-  for (int u = 0; u < NB; ++u)
+  for (int u = 0; u < U; ++u)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[u][i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -2124,7 +2176,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     sm90::wgmma_commit();
     sm90::wgmma_wait();
     sm90::fence_regs(s);
-    add_peer_partials(&xch[cw], rank ^ 1, tid, j, s);
+    exchange16<NB>(&xch[cw], rank, tid, j, s);
 
 #pragma unroll
     for (int i = 0; i < KEYS / 2; ++i) s[i] *= sl2;
@@ -2151,7 +2203,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
       l[r] *= alpha[r];                      // this thread's share of the sum
     }
 #pragma unroll
-    for (int u = 0; u < NB; ++u) {
+    for (int u = 0; u < U; ++u) {
       sm90::fence_regs(acc[u]);
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[u][i] *= alpha[(i / 2) & 1];
@@ -2173,7 +2225,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     sm90::mbar_wait(&bars->v_full[st], phase);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int u = 0; u < NB; ++u)
+    for (int u = 0; u < U; ++u)
 #pragma unroll
       for (int kk = 0; kk < KEYS / 16; ++kk)
         sm90::wgmma_m64n64k16_rs<T>(
@@ -2181,7 +2233,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     sm90::wgmma_commit();
     sm90::wgmma_wait();
 #pragma unroll
-    for (int u = 0; u < NB; ++u) sm90::fence_regs(acc[u]);
+    for (int u = 0; u < U; ++u) sm90::fence_regs(acc[u]);
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
   }
@@ -2194,22 +2246,23 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     l[r] = fmaxf(l[r], 1e-30f);
     inv[r] = 1.f / l[r];
-    if (t == 0 && row + 8 * r < L && rank == 0)   // both blocks hold it
+    if (t == 0 && row + 8 * r < L && rank == 0)   // every block holds it
       lse[static_cast<int64_t>(bh) * L + row + 8 * r] = m[r] * LN2 + logf(l[r]);
   }
 #pragma unroll
-  for (int u = 0; u < NB; ++u)
+  for (int u = 0; u < U; ++u)
     store_acc_rows<T, HD>(o, b, h, L, H, row, t, acc[u], inv,
                             col0 + 64 * u);
 }
 
-// dq at HD 384 / 512, grid (2 ceil(L / DQ_ROWS), B*H) in clusters of two
+// dq at HD 384 to 1024, grid (NB ceil(L / DQ_ROWS), B*H) in clusters of NB
 // blocks along x: flash_dq_sm90_kernel's layout on the block's C columns
 // with 32-key tiles through 2 stages (Q and dO 2 x 128 x C resident); per
 // tile each consumer's partial s and dp (m64n32k16 over C / 16 slices)
-// plus the peer's, p and ds (float16: ds on its row scales), dq += ds k one
-// 64-column unit at a time (ds as hi + mid A terms, k MN-major). A consumer
-// whose rows all lie before a tile's first key skips it in both blocks.
+// summed over the cluster, p and ds (float16: ds on its row scales), dq +=
+// ds k one 64-column unit at a time (ds as hi + mid A terms, k MN-major).
+// A consumer whose rows all lie before a tile's first key skips it in every
+// block.
 template <typename T, int HD>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
     flash_dq_pair_kernel(const __grid_constant__ CUtensorMap tq,
@@ -2220,9 +2273,10 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
                          const float* __restrict__ delta,
                          T* __restrict__ dq, int H, int L, int S,
                          float scale) {
-  constexpr int C = HD / PAIR, NB = C / 64, KEYS = PAIR_DQ_KEYS;
+  constexpr int NB = cluster16_blocks(HD), C = HD / NB, U = C / 64;
+  constexpr int KEYS = PAIR_DQ_KEYS;
   constexpr int Q_BOX = DQ_ROWS * ROW_BYTES, KV_BOX = KEYS * ROW_BYTES;
-  constexpr int Q_BYTES = NB * Q_BOX, KV_BYTES = NB * KV_BOX;
+  constexpr int Q_BYTES = U * Q_BOX, KV_BYTES = U * KV_BOX;
   extern __shared__ unsigned char raw_smem[];
   unsigned char* const Qs = align1024(raw_smem);
   unsigned char* const Gs = Qs + Q_BYTES;                   // dO
@@ -2232,7 +2286,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
   auto* bars = reinterpret_cast<FwdBars*>(xch + 2);
   const uint32_t rank = sm90::cluster_ctarank();
   const int col0 = C * rank;                 // this block's columns
-  const int q0 = (gridDim.x / PAIR - 1 - blockIdx.x / PAIR) * DQ_ROWS;
+  const int q0 = (gridDim.x / NB - 1 - blockIdx.x / NB) * DQ_ROWS;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int n_tiles = (min(S, q0 + DQ_ROWS) + KEYS - 1) / KEYS;
   const int wg = threadIdx.x / WG;
@@ -2244,12 +2298,12 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
       sm90::mbar_init(&bars->v_full[st], 1);
       sm90::mbar_init(&bars->empty[st], 2 * WG / 32);   // consumer warps
     }
-    init_exchange(&xch[0]);
-    init_exchange(&xch[1]);
+    init_exchange(&xch[0], NB - 1);
+    init_exchange(&xch[1], NB - 1);
     sm90::fence_barrier_init();
   }
   __syncthreads();
-  sm90::cluster_sync();   // the peer's barriers too
+  sm90::cluster_sync();   // the peers' barriers too
 
   if (wg == 0) {   // producer
     sm90::setmaxnreg_dec<24>();
@@ -2291,9 +2345,9 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
   }
   // tiles whose first key lies past this consumer's last row add nothing
   const int my_tiles = (min(S, r0 + 64) + KEYS - 1) / KEYS;
-  float acc[NB][32];                         // dq, a 64-column unit each
+  float acc[U][32];                          // dq, a 64-column unit each
 #pragma unroll
-  for (int u = 0; u < NB; ++u)
+  for (int u = 0; u < U; ++u)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[u][i] = 0.f;
   int ds_e[2] = {DS16_E0, DS16_E0};          // float16: ds's row scales
@@ -2324,7 +2378,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
       sm90::fence_regs(s);
       sm90::fence_regs(dp);
       // live tiles are the first my_tiles, so j counts the exchanges
-      add_peer_partials(&xch[cw], rank ^ 1, tid, j, s, dp);
+      exchange16<NB>(&xch[cw], rank, tid, j, s, dp);
 
       // p = exp(s scale - lse), ds = p (dp - delta) scale; rows: queries
       // row + 8((i / 2) & 1), columns: keys k0 + c
@@ -2343,7 +2397,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
         float rescale[2];
         if (scale_ds_rows(dp, ds_e, rescale)) {
 #pragma unroll
-          for (int u = 0; u < NB; ++u) {
+          for (int u = 0; u < U; ++u) {
             sm90::fence_regs(acc[u]);
 #pragma unroll
             for (int i = 0; i < 32; ++i) acc[u][i] *= rescale[(i / 2) & 1];
@@ -2358,11 +2412,11 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
           split2<T>(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1], d_hi[kk][r],
                     d_mid[kk][r]);
 #pragma unroll
-      for (int u = 0; u < NB; ++u) sm90::fence_regs(acc[u]);
+      for (int u = 0; u < U; ++u) sm90::fence_regs(acc[u]);
       sm90::wgmma_fence();
       const uint64_t desc_kt = mn_major(kt, KV_BOX);
 #pragma unroll
-      for (int u = 0; u < NB; ++u)
+      for (int u = 0; u < U; ++u)
 #pragma unroll
         for (int kk = 0; kk < KEYS / 16; ++kk) {
           const uint64_t bk = desc_kt + ((u * KV_BOX) >> 4) + mn_step(kk);
@@ -2372,7 +2426,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
       sm90::wgmma_commit();
       sm90::wgmma_wait();
 #pragma unroll
-      for (int u = 0; u < NB; ++u) sm90::fence_regs(acc[u]);
+      for (int u = 0; u < U; ++u) sm90::fence_regs(acc[u]);
     }
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
@@ -2384,7 +2438,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     inv[1] = pow2(-ds_e[1]);
   }
 #pragma unroll
-  for (int u = 0; u < NB; ++u)
+  for (int u = 0; u < U; ++u)
     store_acc_rows<T, HD>(dq, b, h, L, H, row, t, acc[u], inv,
                             col0 + 64 * u);
 }
@@ -2394,22 +2448,32 @@ constexpr int PAIR_DKV_STAGES = 3;
 
 // K and V of 64 keys x C resident, 32-row Q and dO tiles through
 // PAIR_DKV_STAGES stages with their lse and delta, an exchange a consumer:
-// at C 256 (HD 512) 198,488 bytes
+// at C 256 (HD 512, 768 and 1024) 198,488 bytes
 template <int HD>
 constexpr size_t dkv_pair_smem() {
   return 1024 +
          static_cast<size_t>(2 * 64 + 2 * PAIR_DKV_STAGES * PAIR_DKV_ROWS) *
-             (HD / PAIR) * 2 +
+             (HD / cluster16_blocks(HD)) * 2 +
          2 * sizeof(Exchange) + sizeof(DkvStats<PAIR_DKV_STAGES, PAIR_DKV_ROWS>) +
          sizeof(DkvBars<PAIR_DKV_STAGES>);
 }
-static_assert(dkv_pair_smem<512>() <= MAX_SMEM, "dk/dv at HD 512");
+static_assert(dkv_pair_smem<512>() <= MAX_SMEM &&
+                  dkv_pair_smem<1024>() <= MAX_SMEM,
+              "dk/dv at C 256");
 
-// A dk/dv consumer of the pair: the block's 64 keys (key, key + 8 its
-// rows), U 64-column units of dk and dv from unit 2 cw (consumer 0 the
-// first two of the block's C / 64, consumer 1 the rest: two at C 256, one
-// at 192). Both consumers form the block's partial s^T and dp^T; each adds
-// the same consumer's of the peer block.
+// the 64-column units of dk and dv that a 16-bit cluster's dk/dv consumer 0
+// takes of a block's C / 64: half, rounded up (two of four at C 256, two of
+// three at 192, one of two at 128); consumer 1 the rest, so that both have
+// at least one
+__host__ __device__ constexpr int dkv_units0(int hd) {
+  return (hd / cluster16_blocks(hd) / 64 + 1) / 2;
+}
+
+// A dk/dv consumer of the cluster: the block's 64 keys (key, key + 8 its
+// rows), U 64-column units of dk and dv from unit cw dkv_units0(HD)
+// (consumer 0 the first dkv_units0 of the block's C / 64, consumer 1 the
+// rest). Both consumers form the block's partial s^T and dp^T; each sums
+// the same consumer's of every block of the cluster.
 template <typename T, int HD, int U>
 __device__ __forceinline__ void dkv_pair_consume(
     const unsigned char* Ks, const unsigned char* Vs,
@@ -2417,15 +2481,15 @@ __device__ __forceinline__ void dkv_pair_consume(
     const DkvStats<PAIR_DKV_STAGES, PAIR_DKV_ROWS>* stats, DkvBars<PAIR_DKV_STAGES>* bars, Exchange* xch,
     uint32_t rank, T* __restrict__ dk, T* __restrict__ dv, int b, int h,
     int H, int L, int S, int k0, int n_tiles, int cw, float scale) {
-  constexpr int C = HD / PAIR, NB = C / 64, KEYS = 64;
+  constexpr int NB = cluster16_blocks(HD), C = HD / NB, KEYS = 64;
   constexpr int ROWS = PAIR_DKV_ROWS, ST = PAIR_DKV_STAGES;
   constexpr int K_BOX = KEYS * ROW_BYTES, Q_BOX = ROWS * ROW_BYTES;
-  constexpr int Q_BYTES = NB * Q_BOX;
+  constexpr int Q_BYTES = C / 64 * Q_BOX;
   const int tid = threadIdx.x % WG;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int key = k0 + 16 * warp + g;        // and key + 8
-  const int u0 = 2 * cw;
+  const int u0 = dkv_units0(HD) * cw;
   const float sl2 = scale * LOG2E;
   float dk_acc[U][32], dv_acc[U][32];
 #pragma unroll
@@ -2456,7 +2520,7 @@ __device__ __forceinline__ void dkv_pair_consume(
     sm90::wgmma_wait();
     sm90::fence_regs(s);
     sm90::fence_regs(dp);
-    add_peer_partials(&xch[cw], rank ^ 1, tid, j, s, dp);
+    exchange16<NB>(&xch[cw], rank, tid, j, s, dp);
 
     // p^T = exp(s^T scale - lse), ds^T = p^T (dp^T - delta) scale; rows:
     // keys key + 8((i / 2) & 1), columns: query rows q0 + c
@@ -2538,12 +2602,13 @@ __device__ __forceinline__ void dkv_pair_consume(
   }
 }
 
-// dk and dv at HD 384 / 512, grid (2 ceil(S / 64), B*H) in clusters of two
-// blocks along x on the same 64 keys: K and V (64 x C) resident, 32-row Q
-// and dO tiles (TMA) with their lse and delta (plain loads) through 3
+// dk and dv at HD 384 to 1024, grid (NB ceil(S / 64), B*H) in clusters of
+// NB blocks along x on the same 64 keys: K and V (64 x C) resident, 32-row
+// Q and dO tiles (TMA) with their lse and delta (plain loads) through 3
 // stages; both consumers form s^T and dp^T (m64n32k16 over C / 16 slices)
-// and add the peer block's, consumer 0 accumulating the first two 64-column
-// units of dk and dv, consumer 1 the rest (dv += p^T dO and dk += ds^T q,
+// summed over the cluster, consumer 0 accumulating the first dkv_units0
+// 64-column units of dk and dv, consumer 1 the rest (dv += p^T dO and dk +=
+// ds^T q,
 // m64n64k16 with p^T and ds^T as hi + mid A terms, dO and q MN-major). The
 // HD 256 layout's 64-row tiles would hold s^T and dp^T (64 floats a thread)
 // beside 128 of dk and dv, more than a consumer's registers hold without
@@ -2558,10 +2623,11 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
                           const float* __restrict__ delta,
                           T* __restrict__ dk, T* __restrict__ dv, int H, int L,
                           int S, float scale) {
-  constexpr int C = HD / PAIR, NB = C / 64, KEYS = 64;
+  constexpr int NB = cluster16_blocks(HD), C = HD / NB, U = C / 64;
+  constexpr int KEYS = 64, U0 = dkv_units0(HD);
   constexpr int ROWS = PAIR_DKV_ROWS, ST = PAIR_DKV_STAGES;
   constexpr int K_BOX = KEYS * ROW_BYTES, Q_BOX = ROWS * ROW_BYTES;
-  constexpr int K_BYTES = NB * K_BOX, Q_BYTES = NB * Q_BOX;
+  constexpr int K_BYTES = U * K_BOX, Q_BYTES = U * Q_BOX;
   extern __shared__ unsigned char raw_smem[];
   unsigned char* const Ks = align1024(raw_smem);
   unsigned char* const Vs = Ks + K_BYTES;
@@ -2572,7 +2638,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
   auto* bars = reinterpret_cast<DkvBars<ST>*>(stats + 1);
   const uint32_t rank = sm90::cluster_ctarank();
   const int col0 = C * rank;                 // this block's columns
-  const int k0 = (blockIdx.x / PAIR) * KEYS;
+  const int k0 = (blockIdx.x / NB) * KEYS;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int n_tiles = k0 < L ? (L - k0 + ROWS - 1) / ROWS : 0;
   const int wg = threadIdx.x / WG;
@@ -2583,12 +2649,12 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
       sm90::mbar_init(&bars->full[st], 32);            // the producer warp
       sm90::mbar_init(&bars->empty[st], 2 * WG / 32);  // consumer warps
     }
-    init_exchange(&xch[0]);
-    init_exchange(&xch[1]);
+    init_exchange(&xch[0], NB - 1);
+    init_exchange(&xch[1], NB - 1);
     sm90::fence_barrier_init();
   }
   __syncthreads();
-  sm90::cluster_sync();   // the peer's barriers too
+  sm90::cluster_sync();   // the peers' barriers too
 
   if (wg == 0) {   // producer: its first warp, one row of a tile a lane
     sm90::setmaxnreg_dec<40>();
@@ -2622,10 +2688,10 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
 
   sm90::setmaxnreg_inc<232>();
   if (wg == 1)
-    dkv_pair_consume<T, HD, 2>(Ks, Vs, Qs, Gs, stats, bars, xch, rank, dk, dv,
-                               b, h, H, L, S, k0, n_tiles, 0, scale);
+    dkv_pair_consume<T, HD, U0>(Ks, Vs, Qs, Gs, stats, bars, xch, rank, dk,
+                                dv, b, h, H, L, S, k0, n_tiles, 0, scale);
   else
-    dkv_pair_consume<T, HD, NB - 2>(Ks, Vs, Qs, Gs, stats, bars, xch, rank,
+    dkv_pair_consume<T, HD, U - U0>(Ks, Vs, Qs, Gs, stats, bars, xch, rank,
                                     dk, dv, b, h, H, L, S, k0, n_tiles, 1,
                                     scale);
 }
@@ -2660,8 +2726,8 @@ void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& dim,
 
 // `kernel` over `blocks` x `rows` blocks: a plain launch (NB 1), or clusters
 // of NB blocks along x through cudaLaunchKernelEx (the float32 kernels at
-// head dims 256 to 1024: NB = HD / 128; the 16-bit ones at 384 and
-// 512: PAIR)
+// head dims 256 to 1024: NB = HD / 128; the 16-bit ones at 384 to 1024:
+// cluster16_blocks)
 template <int NB, typename... Params, typename... Args>
 int launch_grid(void (*kernel)(Params...), int blocks, int rows, int threads,
                 size_t smem, cudaStream_t stream, Args... args) {
@@ -2801,8 +2867,8 @@ int launch_dq_sm90(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// 16-bit (T) forward, dq and dk/dv at head dim HD 384 or 512: pairs of
-// blocks in clusters, each on HD / 2 columns
+// 16-bit (T) forward, dq and dk/dv at head dim HD 384 to 1024: clusters of
+// NB = cluster16_blocks(HD) blocks, each on HD / NB columns
 template <typename T, int HD>
 int launch_fwd_pair(const void* q, const void* k, const void* v, void* o,
                     float* lse, int B, int H, int L, int S, float scale,
@@ -2814,7 +2880,7 @@ int launch_fwd_pair(const void* q, const void* k, const void* v, void* o,
   if (err == cudaSuccess)
     err = sm90::make_head_map<T>(&tv, v, B, S, H, HD, PAIR_FWD_KEYS);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_grid<PAIR>(
+  return launch_grid<cluster16_blocks(HD)>(
       flash_fwd_pair_kernel<T, HD>, (L + FWD_ROWS - 1) / FWD_ROWS, B * H,
       SM90_THREADS, pair_q_smem<HD, PAIR_FWD_KEYS, 1>(), stream, tq, tk, tv,
       static_cast<T*>(o), lse, H, L, S, scale);
@@ -2834,7 +2900,7 @@ int launch_dq_pair(const void* q, const void* k, const void* v,
   if (err == cudaSuccess)
     err = sm90::make_head_map<T>(&tv, v, B, S, H, HD, PAIR_DQ_KEYS);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_grid<PAIR>(
+  return launch_grid<cluster16_blocks(HD)>(
       flash_dq_pair_kernel<T, HD>, (L + DQ_ROWS - 1) / DQ_ROWS, B * H,
       SM90_THREADS, pair_q_smem<HD, PAIR_DQ_KEYS, 2>(), stream, tq, tk, tv,
       tg, lse, delta, static_cast<T*>(dq), H, L, S, scale);
@@ -2855,7 +2921,7 @@ int launch_dkv_pair(const void* q, const void* k, const void* v,
   if (err == cudaSuccess)
     err = sm90::make_head_map<T>(&tv, v, B, S, H, HD, 64);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_grid<PAIR>(
+  return launch_grid<cluster16_blocks(HD)>(
       flash_dkv_pair_kernel<T, HD>, (S + 63) / 64, B * H, SM90_THREADS,
       dkv_pair_smem<HD>(), stream, tq, tk, tv, tg, lse, delta,
       static_cast<T*>(dk), static_cast<T*>(dv), H, L, S, scale);
@@ -2868,16 +2934,39 @@ enum : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 // blocks (8: the portable cluster size)
 constexpr int SPLIT3_MAX_NB = 8;
 
-// f(std::integral_constant<int, HD>{}) at the float32 head dim `hd`, or
-// cudaErrorInvalidValue for a head dim no float32 instance takes
-template <int NB = 1, typename F>
-int split3_head_dim(int hd, F&& f) {
-  if constexpr (NB > SPLIT3_MAX_NB) {
+// f(std::integral_constant<int, HD>{}) at the head dim `hd` = 128 K, K from
+// K0 to K1, or cudaErrorInvalidValue for any other
+template <int K0, int K1, typename F>
+int head_dim_in(int hd, F&& f) {
+  if constexpr (K0 > K1) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    if (hd == NB * D) return f(std::integral_constant<int, NB * D>{});
-    return split3_head_dim<NB + 1>(hd, f);
+    if (hd == K0 * D) return f(std::integral_constant<int, K0 * D>{});
+    return head_dim_in<K0 + 1, K1>(hd, f);
   }
+}
+
+// f(HD) at the float32 head dim `hd` (128 .. 1024), or cudaErrorInvalidValue
+template <typename F>
+int split3_head_dim(int hd, F&& f) {
+  return head_dim_in<1, SPLIT3_MAX_NB>(hd, f);
+}
+
+template <typename T>
+struct Elem {
+  using type = T;
+};
+
+// f(Elem<T>{}, HD) at a 16-bit cluster instance: `dtype` bfloat16 or
+// float16, `hd` 384 .. 1024 (clusters of cluster16_blocks(HD) blocks); else
+// cudaErrorInvalidValue
+template <typename F>
+int cluster16_instance(int dtype, int hd, F&& f) {
+  return head_dim_in<3, 8>(hd, [&](auto h) {
+    if (dtype == kBFloat16) return f(Elem<__nv_bfloat16>{}, h);
+    if (dtype == kFloat16) return f(Elem<__half>{}, h);
+    return static_cast<int>(cudaErrorInvalidValue);
+  });
 }
 
 // how many clusters of the float32 kernel `kernel` (0 forward, 1 dq, 2
@@ -2895,13 +2984,31 @@ int max_clusters_split3(int kernel, int* n) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// the same for the 16-bit cluster kernel `kernel` of element type T at head
+// dim HD (cluster16_blocks(HD) blocks a cluster)
+template <typename T, int HD>
+int max_clusters_pair(int kernel, int* n) {
+  constexpr int NB = cluster16_blocks(HD);
+  switch (kernel) {
+    case 0: return max_clusters<NB>(flash_fwd_pair_kernel<T, HD>,
+                                    SM90_THREADS,
+                                    pair_q_smem<HD, PAIR_FWD_KEYS, 1>(), n);
+    case 1: return max_clusters<NB>(flash_dq_pair_kernel<T, HD>,
+                                    SM90_THREADS,
+                                    pair_q_smem<HD, PAIR_DQ_KEYS, 2>(), n);
+    case 2: return max_clusters<NB>(flash_dkv_pair_kernel<T, HD>,
+                                    SM90_THREADS, dkv_pair_smem<HD>(), n);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" {
 
 // q, o [B, L, H, D], k, v [B, S, H, D], contiguous and 16-byte aligned, all
 // of the element type `dtype` (0 float, 1 bfloat16, 2 float16), D 128, 256,
-// 384 or 512 in each and, in float32, also 640, 768, 896 or 1024; lse
+// .., 1024 (a multiple of 128) in each; lse
 // [B*H, L] float. Each entry point returns a
 // cudaError_t value; 0 means the launch was accepted (another D or dtype:
 // cudaErrorInvalidValue).
@@ -2927,19 +3034,10 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   if (dtype == kFloat16 && D == 256)
     return launch_fwd_sm90<__half, 256>(q, k, v, o, lse_f, B, H, L, S, scale,
                                         s);
-  if (dtype == kBFloat16 && D == 384)
-    return launch_fwd_pair<__nv_bfloat16, 384>(q, k, v, o, lse_f, B, H, L, S,
-                                               scale, s);
-  if (dtype == kBFloat16 && D == 512)
-    return launch_fwd_pair<__nv_bfloat16, 512>(q, k, v, o, lse_f, B, H, L, S,
-                                               scale, s);
-  if (dtype == kFloat16 && D == 384)
-    return launch_fwd_pair<__half, 384>(q, k, v, o, lse_f, B, H, L, S, scale,
-                                        s);
-  if (dtype == kFloat16 && D == 512)
-    return launch_fwd_pair<__half, 512>(q, k, v, o, lse_f, B, H, L, S, scale,
-                                        s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return cluster16_instance(dtype, D, [&](auto t, auto hd) {
+    return launch_fwd_pair<typename decltype(t)::type, decltype(hd)::value>(
+        q, k, v, o, lse_f, B, H, L, S, scale, s);
+  });
 }
 
 // dout and dq as q; delta [B*H, L] float = rowsum(dout * o)
@@ -2967,19 +3065,10 @@ int flash_attention_dq(const void* q, const void* k, const void* v,
   if (dtype == kFloat16 && D == 256)
     return launch_dq_sm90<__half, 256>(q, k, v, dout, l, dl, dq, B, H, L, S,
                                        scale, s);
-  if (dtype == kBFloat16 && D == 384)
-    return launch_dq_pair<__nv_bfloat16, 384>(q, k, v, dout, l, dl, dq, B, H,
-                                              L, S, scale, s);
-  if (dtype == kBFloat16 && D == 512)
-    return launch_dq_pair<__nv_bfloat16, 512>(q, k, v, dout, l, dl, dq, B, H,
-                                              L, S, scale, s);
-  if (dtype == kFloat16 && D == 384)
-    return launch_dq_pair<__half, 384>(q, k, v, dout, l, dl, dq, B, H, L, S,
-                                       scale, s);
-  if (dtype == kFloat16 && D == 512)
-    return launch_dq_pair<__half, 512>(q, k, v, dout, l, dl, dq, B, H, L, S,
-                                       scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return cluster16_instance(dtype, D, [&](auto t, auto hd) {
+    return launch_dq_pair<typename decltype(t)::type, decltype(hd)::value>(
+        q, k, v, dout, l, dl, dq, B, H, L, S, scale, s);
+  });
 }
 
 // dk, dv as k
@@ -3007,28 +3096,25 @@ int flash_attention_dkv(const void* q, const void* k, const void* v,
   if (dtype == kFloat16 && D == 256)
     return launch_dkv_sm90<__half, 256>(q, k, v, dout, l, dl, dk, dv, B, H, L,
                                         S, scale, s);
-  if (dtype == kBFloat16 && D == 384)
-    return launch_dkv_pair<__nv_bfloat16, 384>(q, k, v, dout, l, dl, dk, dv,
-                                               B, H, L, S, scale, s);
-  if (dtype == kBFloat16 && D == 512)
-    return launch_dkv_pair<__nv_bfloat16, 512>(q, k, v, dout, l, dl, dk, dv,
-                                               B, H, L, S, scale, s);
-  if (dtype == kFloat16 && D == 384)
-    return launch_dkv_pair<__half, 384>(q, k, v, dout, l, dl, dk, dv, B, H, L,
-                                        S, scale, s);
-  if (dtype == kFloat16 && D == 512)
-    return launch_dkv_pair<__half, 512>(q, k, v, dout, l, dl, dk, dv, B, H, L,
-                                        S, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return cluster16_instance(dtype, D, [&](auto t, auto hd) {
+    return launch_dkv_pair<typename decltype(t)::type, decltype(hd)::value>(
+        q, k, v, dout, l, dl, dk, dv, B, H, L, S, scale, s);
+  });
 }
 
-// how many clusters of the float32 kernel `kernel` (0 forward, 1 dq, 2
-// dk/dv) at head dim D (128 .. 1024, a multiple of 128: clusters of D / 128
-// blocks, one at 128) the card can hold at once, into *n; returns a
-// cudaError_t value (another kernel or D: cudaErrorInvalidValue)
-int flash_attention_max_clusters(int kernel, int D, int* n) {
-  return split3_head_dim(D, [&](auto hd) {
-    return max_clusters_split3<decltype(hd)::value>(kernel, n);
+// how many clusters of the kernel `kernel` (0 forward, 1 dq, 2 dk/dv) of
+// element type `dtype` at head dim D the card can hold at once, into *n:
+// float32 at 128 .. 1024 (clusters of D / 128 blocks, one at 128), bfloat16
+// and float16 at 384 .. 1024 (clusters of 2 to 7 blocks); returns a
+// cudaError_t value (another kernel, type or D: cudaErrorInvalidValue)
+int flash_attention_max_clusters(int kernel, int D, int dtype, int* n) {
+  if (dtype == kFloat32)
+    return split3_head_dim(D, [&](auto hd) {
+      return max_clusters_split3<decltype(hd)::value>(kernel, n);
+    });
+  return cluster16_instance(dtype, D, [&](auto t, auto hd) {
+    return max_clusters_pair<typename decltype(t)::type, decltype(hd)::value>(
+        kernel, n);
   });
 }
 

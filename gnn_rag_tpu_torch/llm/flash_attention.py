@@ -22,26 +22,27 @@ power-of-two scales that keep small p and ds inside float16's range: p by
 the store). float32 inputs run all three kernels on the tensor cores too,
 each float as three bf16 terms and each product as six bf16 products
 (within ~2^-23 of it: the TPU's float32 dots at Precision.HIGHEST do the
-same); all sums are float. The kernels take head dim D = 128, 256, 384 and
-512 in all three types, and float32 also 640, 768, 896 and 1024
-(``HEAD_DIMS``): the 16-bit ones at 384 and 512 split the depth over a
-cluster of two blocks, each on half of the columns, whose partial scores
-are added once; the float32 ones from 256 over a cluster of D / 128 blocks
-(up to eight), each on 128 columns, whose partial scores are added once
-(two) or in rank order (three to eight, every block adding the same
+same); all sums are float. The kernels take head dim D = 128, 256, ..,
+1024 (every multiple of 128 up to 1024) in all three types
+(``HEAD_DIMS``): the 16-bit ones from 384 split the depth over a cluster
+of NB blocks, the fewest whose share C = D / NB is whole 64-column boxes
+and at most 256 columns (2 at 384 and 512, 5 at 640, 3 at 768, 7 at 896,
+4 at 1024); the float32 ones from 256 over a cluster of D / 128 blocks (up
+to eight), each on 128 columns. A cluster's partial scores are added once
+(two blocks) or in rank order (three to eight, every block adding the same
 operands in the same order, so that all hold the same bits). The scale
 1/sqrt(D) is exact at 128 and 256 (1/16 there); elsewhere it is the float
 nearest it, as in the JAX kernels. Any L and S (a ragged last tile is
 masked in the kernel; the JAX wrapper pads L to 128 instead). The JAX
-model sends every D % 128 == 0 in any type to its Pallas kernels: the
-16-bit types at head dims 640 and up, and float32 past 1024, are not
-ported yet and raise here.
+model sends every D % 128 == 0 in any type to its Pallas kernels: head
+dims past 1024 are not ported yet and raise here.
 
 Dispatch: CPU tensors take the plain versions (``flash_fwd_plain``,
 ``flash_dq_plain``, ``flash_dkv_plain``: dense attention and the
-lse-recompute backward, same arithmetic); CUDA tensors launch the kernels or
-raise. ``FlashAttentionFn`` is the autograd op; ``flash_attention`` its
-entry.
+lse-recompute backward, same arithmetic, in float32; in float64 for
+float64 inputs, where p is not rounded either: the exact function, a
+yardstick free of float noise); CUDA tensors launch the kernels or raise.
+``FlashAttentionFn`` is the autograd op; ``flash_attention`` its entry.
 """
 
 from __future__ import annotations
@@ -57,10 +58,10 @@ from ..utils import build as _build
 NEG_INF = -1e30
 # the head dims the kernels take, by input type (any other shape or type
 # raises; ``llm.model.flash_applies`` sends those to plain attention):
-# float32 in clusters of up to eight 128-column blocks
-HEAD_DIMS = {torch.float32: (128, 256, 384, 512, 640, 768, 896, 1024),
-             torch.bfloat16: (128, 256, 384, 512),
-             torch.float16: (128, 256, 384, 512)}
+# float32 in clusters of up to eight 128-column blocks, bfloat16 and
+# float16 from 384 in clusters of two to seven blocks of up to 256 columns
+HEAD_DIMS = dict.fromkeys((torch.float32, torch.bfloat16, torch.float16),
+                          tuple(range(128, 1025, 128)))
 # the C entry points' element type code
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -92,7 +93,7 @@ def _load():
             for fn in (lib.flash_attention_fwd, lib.flash_attention_dq,
                        lib.flash_attention_dkv):
                 fn.restype = i32
-            lib.flash_attention_max_clusters.argtypes = [i32, i32, ptr]
+            lib.flash_attention_max_clusters.argtypes = [i32, i32, i32, ptr]
             lib.flash_attention_max_clusters.restype = i32
             lib.flash_attention_error_string.argtypes = [i32]
             lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -101,10 +102,15 @@ def _load():
 
 
 # ------------------------------------------------------------ plain versions
+def _wide(x):
+    """x in the plain versions' arithmetic: float32, float64 if x is."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def _scores(q, k):
-    """Masked, scaled float32 scores ``[B, H, L, S]``."""
+    """Masked, scaled float32 (float64) scores ``[B, H, L, S]``."""
     L, S, D = q.shape[1], k.shape[1], q.shape[3]
-    s = torch.einsum("blhd,bshd->bhls", q.float(), k.float()) * (1.0 / D ** 0.5)
+    s = torch.einsum("blhd,bshd->bhls", _wide(q), _wide(k)) * (1.0 / D ** 0.5)
     keep = (torch.arange(S, device=q.device)[None, :]
             <= torch.arange(L, device=q.device)[:, None])
     return s.masked_fill(~keep, NEG_INF)
@@ -112,13 +118,14 @@ def _scores(q, k):
 
 def flash_fwd_plain(q, k, v):
     """Dense causal attention -> (o ``[B, L, H, D]`` in q's type, lse
-    ``[B*H, L]`` float32), the kernel's arithmetic in two passes."""
+    ``[B*H, L]`` float32; float64 for float64 inputs), the kernel's
+    arithmetic in two passes."""
     B, L, H, _ = q.shape
     s = _scores(q, k)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o = torch.einsum("bhls,bshd->bhld", p.to(v.dtype).float(), v.float()) / l
+    o = torch.einsum("bhls,bshd->bhld", _wide(p.to(v.dtype)), _wide(v)) / l
     lse = (m + torch.log(l)).reshape(B * H, L)
     return o.transpose(1, 2).to(q.dtype), lse
 
@@ -131,21 +138,23 @@ def _probs(q, k, lse):
 def _dscores(q, k, v, dout, lse, delta):
     B, L, H, D = q.shape
     p = _probs(q, k, lse)
-    dp = torch.einsum("blhd,bshd->bhls", dout.float(), v.float())
+    dp = torch.einsum("blhd,bshd->bhls", _wide(dout), _wide(v))
     return p, p * (dp - delta.reshape(B, H, L, 1)) * (1.0 / D ** 0.5)
 
 
 def flash_dq_plain(q, k, v, dout, lse, delta):
-    """dq of the lse-recompute backward, float32 arithmetic, q's type."""
+    """dq of the lse-recompute backward, float32 arithmetic (float64 for
+    float64 inputs), q's type."""
     _, ds = _dscores(q, k, v, dout, lse, delta)
-    return torch.einsum("bhls,bshd->blhd", ds, k.float()).to(q.dtype)
+    return torch.einsum("bhls,bshd->blhd", ds, _wide(k)).to(q.dtype)
 
 
 def flash_dkv_plain(q, k, v, dout, lse, delta):
-    """(dk, dv) of the lse-recompute backward, float32 arithmetic."""
+    """(dk, dv) of the lse-recompute backward, float32 arithmetic (float64
+    for float64 inputs)."""
     p, ds = _dscores(q, k, v, dout, lse, delta)
-    dk = torch.einsum("bhls,blhd->bshd", ds, q.float())
-    dv = torch.einsum("bhls,blhd->bshd", p, dout.float())
+    dk = torch.einsum("bhls,blhd->bshd", ds, _wide(q))
+    dv = torch.einsum("bhls,blhd->bshd", p, _wide(dout))
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -161,9 +170,9 @@ def _check(q, k, v, *more):
     B, L, H, D = q.shape
     if D not in HEAD_DIMS.get(q.dtype, ()):
         raise ValueError(f"flash_attention: the kernels take head dim 128, "
-                         f"256, 384 or 512 in float32, bfloat16 or float16 "
-                         f"and 640, 768, 896 or 1024 in float32, got "
-                         f"{tuple(q.shape)} {q.dtype}")
+                         f"256, .., 1024 (a multiple of 128) in float32, "
+                         f"bfloat16 or float16, got {tuple(q.shape)} "
+                         f"{q.dtype}")
     S = k.shape[1]
     for name, t, shape in (("k", k, (B, S, H, D)), ("v", v, (B, S, H, D)),
                            *more):
@@ -196,16 +205,18 @@ def _device_ok(q):
     return True
 
 
-def max_active_clusters(kind, D):
-    """How many clusters of the float32 kernel ``kind`` ("fwd", "dq" or
-    "dkv") at head dim ``D`` (any of ``HEAD_DIMS[torch.float32]``: clusters
-    of D / 128 blocks, one block at 128) the current card holds at once
-    (cudaOccupancyMaxActiveClusters); 0 means it cannot launch one. Raises
-    on another kind or D."""
+def max_active_clusters(kind, D, dtype=torch.float32):
+    """How many clusters of the kernel ``kind`` ("fwd", "dq" or "dkv") of
+    ``dtype`` at head dim ``D`` the current card holds at once
+    (cudaOccupancyMaxActiveClusters): float32 at any of its ``HEAD_DIMS``
+    (clusters of D / 128 blocks, one block at 128), bfloat16 and float16 at
+    384 to 1024 (clusters of two to seven blocks); 0 means it cannot launch
+    one. Raises on another kind, type or D."""
     lib = _load()
     n = ctypes.c_int(0)
     err = lib.flash_attention_max_clusters(("fwd", "dq", "dkv").index(kind),
-                                           D, ctypes.byref(n))
+                                           D, _DTYPE_CODE[dtype],
+                                           ctypes.byref(n))
     _raise(lib, err, f"{kind} cluster occupancy")
     return n.value
 

@@ -4,9 +4,9 @@ backward and scatter_mm (alone, at widths a block holds only in column
 windows, and in a ReaRev training step under GNN_RAG_GATE_SCATTER=v2),
 and the flash-attention forward, dq and dk/dv
 kernels (alone, through autograd, and in a LlamaLM; at head dims 128,
-256, 384 and 512, each in float32, bf16 and float16, and at 640, 768, 896
-and 1024 in float32), and the float32 flash kernels' clusters (one to
-eight blocks, D / 128) accepted by the card.
+256, .., 1024, each in float32, bf16 and float16), and the flash kernels'
+clusters accepted by the card (float32: one to eight blocks, D / 128;
+bf16 and float16 from 384: two to seven).
 
 Every test here needs an NVIDIA GPU (and nvcc for the first build) and skips
 without one. The file imports no JAX, so it runs on a machine without it:
@@ -24,9 +24,11 @@ max|plain| (the online softmax rescales in another order than the two-pass
 one); bf16 and float16 outputs per element (``assert_flash_close``: one
 bf16 or float16 step plus the rounding of p, scaled by the row; float16
 also one subnormal step, 2^-24); the plain backward takes the plain
-forward's lse and delta (float16: the kernels' own, lse held to the plain
-forward's); float16 also with the cotangent x 2^-16 and x 2^4 (the
-kernels' scaled split of p and ds); at L = 1 (one key) dq and dk
+forward's lse and delta (float16, and bf16 past head dim 512: the kernels'
+own, lse held to the plain forward's; both past 512 forward and backward
+evaluated in float64, the exact function); float16 also with the
+cotangent x 2^-16 and x 2^4 (the kernels' scaled split of p and ds); at
+L = 1 (one key) dq and dk
 are exactly 0 and are held to the float noise of dp - delta. A LlamaLM in
 bf16 or float16: flash vs plain within twice the plain path's own distance
 from fp32, logits and every gradient.
@@ -753,11 +755,16 @@ def check_flash_bwd(q, k, v, do, lse, delta, plse, pdelta, D):
     key) dq and dk are exactly 0 and hold only the float noise of dp -
     delta (two float sums of D products, each within (D - 1) 2^-24 of
     sum |dO v|) times scale times k or q (float16: rounded, so within
-    2^-11 of it plus a subnormal step). Returns the kernels' (dq, dk, dv)."""
+    2^-11 of it plus a subnormal step). bf16 and float16 past head dim 512:
+    the plain backward in float64, rounded (chip_smoke.exact_yardstick: the
+    float32 sums' own noise at the first query row, whose exact dq and dk
+    are 0, reaches the tolerance there). Returns the kernels' (dq, dk, dv)."""
     dq = fa.flash_dq(q, k, v, do, lse, delta)
     dk, dv = fa.flash_dkv(q, k, v, do, lse, delta)
-    pdq = fa.flash_dq_plain(q, k, v, do, plse, pdelta)
-    pdk, pdv = fa.flash_dkv_plain(q, k, v, do, plse, pdelta)
+    wide = q.dtype != torch.float32 and D > 512
+    args = [x.double() if wide else x for x in (q, k, v, do, plse, pdelta)]
+    pdq = fa.flash_dq_plain(*args).to(q.dtype)
+    pdk, pdv = (x.to(q.dtype) for x in fa.flash_dkv_plain(*args))
     if q.shape[1] == 1:
         noise = (2 ** -15 / math.sqrt(D)) * (do.float() * v.float()).abs(
             ).sum(-1, keepdim=True)
@@ -815,17 +822,22 @@ def flash_vs_plain(cuda, B, L, H, D, dtype):
     before = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
     o, lse = fa.flash_fwd(q, k, v)
     po, plse = fa.flash_fwd_plain(q, k, v)
+    exact = dtype != torch.float32 and D > 512   # chip_smoke.exact_yardstick
+    if exact:
+        po, plse = fa.flash_fwd_plain(q.double(), k.double(), v.double())
+        po, plse = po.to(dtype), plse.float()
     assert_flash_close(o, po, "o")
     assert_flash_close(lse, plse, "lse")
     # the plain backward from the plain forward's lse: a wrong lse shows
-    # here; float16 from the kernels' own lse and delta (chip_smoke's
-    # check_attn_kernels: float16's p rounding flips carry o's last bit
-    # through delta into rows of few keys), lse held above
+    # here; float16, and bf16 past head dim 512, from the kernels' own lse
+    # and delta (chip_smoke's check_attn_kernels: float16's p rounding flips
+    # carry o's last bit through delta into rows of few keys, and past 512
+    # delta sums that many products of o's difference), lse held above
     delta, pdelta = fa.bwd_delta(o, do), fa.bwd_delta(po, do)
-    f16 = dtype == torch.float16
+    own = dtype == torch.float16 or exact
     dq, dk, dv = check_flash_bwd(q, k, v, do, lse, delta,
-                                 lse if f16 else plse,
-                                 delta if f16 else pdelta, D)
+                                 lse if own else plse,
+                                 delta if own else pdelta, D)
     # no float atomics: a second launch repeats bit for bit
     assert torch.equal(dq, fa.flash_dq(q, k, v, do, lse, delta))
     assert all(torch.equal(a, b) for a, b in
@@ -890,18 +902,42 @@ def test_flash_d1024_fp32_kernels_match_plain(cuda, B, L, H, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [640, 768, 896, 1024])
+@pytest.mark.parametrize("B,L,H", [
+    # bf16 and float16 at head dims 640-1024 (clusters of five, three, seven
+    # and four blocks, each on 128 or 256 columns, the partial scores added
+    # in rank order): one row, chip_smoke's [kernel-attn] ragged rows at 4
+    # heads (one row past the forward's and dk/dv's 64-key tiles, one past
+    # a 128-row block, a ragged length), and the SFT length at 4 heads
+    (1, 1, 2), (1, 65, 4), (1, 129, 4), (2, 1000, 4), (2, 2047, 4)])
+def test_flash_d1024_16bit_kernels_match_plain(cuda, B, L, H, D, dtype):
+    flash_vs_plain(cuda, B, L, H, D, dtype)
+
+
+# the blocks of a 16-bit cluster at head dims 384 to 1024: the fewest whose
+# columns, D / blocks, are whole 64-column boxes and at most 256
+CLUSTER16_BLOCKS = {384: 2, 512: 2, 640: 5, 768: 3, 896: 7, 1024: 4}
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
-@pytest.mark.parametrize("D", [128, 256, 384, 512, 640, 768, 896, 1024])
-def test_flash_fp32_clusters_fit_the_card(cuda, kind, D):
+@pytest.mark.parametrize("D,dtype", [
+    *((d, torch.float32) for d in (128, 256, 384, 512, 640, 768, 896, 1024)),
+    *((d, t) for t in (torch.bfloat16, torch.float16)
+      for d in CLUSTER16_BLOCKS)])
+def test_flash_fp32_clusters_fit_the_card(cuda, kind, D, dtype):
     """The card holds at least one cluster of each float32 kernel at every
     head dim it takes (D / 128 blocks of 198-230 KB of shared memory, one
-    an SM: cudaOccupancyMaxActiveClusters; one block at 128), and at most
-    one a block of SMs of the cluster's size."""
-    n = fa.max_active_clusters(kind, D)
+    an SM: cudaOccupancyMaxActiveClusters; one block at 128) and of each
+    bf16 and float16 cluster kernel (384 to 1024: two to seven blocks of
+    up to 230 KB), and at most one a block of SMs of the cluster's size."""
+    n = fa.max_active_clusters(kind, D, dtype)
+    blocks = D // 128 if dtype == torch.float32 else CLUSTER16_BLOCKS[D]
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert 0 < n <= sms // (D // 128), n
+    assert 0 < n <= sms // blocks, n
     with pytest.raises(RuntimeError, match="cluster occupancy"):
-        fa.max_active_clusters(kind, 1152)
+        fa.max_active_clusters(kind, 1152, dtype)
 
 
 @pytest.mark.cuda
@@ -919,10 +955,10 @@ def test_flash_autograd_and_checks(cuda):
         assert_rel(a, b.detach(), 1e-4, name)
     with pytest.raises(ValueError, match="head dim 128"):
         fa.flash_fwd(*(torch.zeros(1, 8, 1, 64, device=cuda),) * 3)
-    with pytest.raises(ValueError, match="896 or 1024 in float32"):
-        fa.flash_fwd(*(torch.zeros(1, 8, 1, 640, device=cuda,
+    with pytest.raises(ValueError, match="a multiple of 128"):
+        fa.flash_fwd(*(torch.zeros(1, 8, 1, 1152, device=cuda,
                                    dtype=torch.bfloat16),) * 3)
-    with pytest.raises(ValueError, match="896 or 1024 in float32"):
+    with pytest.raises(ValueError, match="a multiple of 128"):
         fa.flash_fwd(*(torch.zeros(1, 8, 1, 1152, device=cuda),) * 3)
     x = torch.zeros(1, 8, 1, 128, device=cuda)
     with pytest.raises(ValueError, match="k must be"):
@@ -1044,17 +1080,22 @@ def test_llama_d256_fp32_flash_vs_plain_attention(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
-@pytest.mark.parametrize("head_dim", [384, 512])
-def test_llama_d512_flash_vs_plain_attention(cuda, head_dim, dtype):
+@pytest.mark.parametrize("head_dim,n_heads", [
+    pytest.param(384, 8, id="384"), pytest.param(512, 8, id="512"),
+    pytest.param(640, 4, id="640"), pytest.param(1024, 4, id="1024")])
+def test_llama_d512_flash_vs_plain_attention(cuda, head_dim, n_heads, dtype):
     """A bf16 or float16 LlamaLM at head dim 512 (DeepSeek-V4-Flash's head
     shape: heads of 512, one kv head; dim 4096, 8 heads) and at 384 (dim
-    3072, 8 heads, one kv head), 2 layers, on the card: the flash path
-    launches one forward, one dq and one dk/dv per layer, and each output
-    (logits and every parameter's loss gradient) is within twice the plain
-    path's own distance from the same model in float32 (as
-    test_llama_flash_vs_plain_attention holds head dim 128)."""
-    cfg = LlamaConfig(vocab_size=300, dim=8 * head_dim, n_layers=2,
-                      n_heads=8, n_kv_heads=1, intermediate=512, dtype=dtype)
+    3072, 8 heads, one kv head), and with 4 heads of 1024 (LLaMA-2-7B's
+    4,096 query columns regrouped, the step-time-llm-d1024 model) and of
+    640, one kv head, 2 layers, on the card: the flash path launches one
+    forward, one dq and one dk/dv per layer (clusters of two, four and five
+    blocks), and each output (logits and every parameter's loss gradient)
+    is within twice the plain path's own distance from the same model in
+    float32 (as test_llama_flash_vs_plain_attention holds head dim 128)."""
+    cfg = LlamaConfig(vocab_size=300, dim=n_heads * head_dim, n_layers=2,
+                      n_heads=n_heads, n_kv_heads=1, intermediate=512,
+                      dtype=dtype)
     model = build_llama(cfg, seed=0, device=cuda)
     tokens = torch.randint(3, 300, (2, 300), device=cuda,
                            generator=torch.Generator(device=cuda).manual_seed(1))
@@ -1123,12 +1164,13 @@ def test_llama_d512_fp32_flash_vs_plain_attention(cuda, head_dim, n_heads):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim,dtype", [(640, "float16"), (640, "bfloat16"),
+@pytest.mark.parametrize("head_dim,dtype", [(1152, "float16"),
+                                            (1152, "bfloat16"),
                                             (1152, "float32")])
 def test_llama_shapes_the_kernels_refuse_run_reference_attention(
         cuda, head_dim, dtype):
     """A LlamaLM whose attention the flash kernels do not take (head dim
-    640 in the 16-bit types, 1152 in float32) runs on the card with no
+    1152, past a cluster's reach, in every type) runs on the card with no
     flash launch, through reference_attention: its logits equal the same
     model's with use_flash=False."""
     cfg = LlamaConfig(vocab_size=300, dim=2 * head_dim, n_layers=2, n_heads=2,

@@ -195,15 +195,17 @@ def test_dq_two_term_split_stays_within_tolerance():
     (256, torch.float32, "cuda", False, False, True),    # 256 in both types
     (256, torch.float16, "cuda", False, False, True),
     (128, torch.float16, "cpu", False, False, False),
-    (384, torch.bfloat16, "cuda", False, False, True),   # 16-bit to 512
+    (384, torch.bfloat16, "cuda", False, False, True),   # 16-bit clusters
     (384, torch.float16, "cuda", False, False, True),
     (512, torch.bfloat16, "cuda", False, False, True),
     (512, torch.float16, "cuda", False, False, True),
     (512, torch.float32, "cuda", False, False, True),
     (512, torch.bfloat16, "cpu", False, False, False),
     (512, torch.float16, "cuda", True, False, False),
-    (640, torch.bfloat16, "cuda", False, False, False),
-    (640, torch.float16, "cuda", False, False, False),
+    (640, torch.bfloat16, "cuda", False, False, True),   # 16-bit to 1024
+    (640, torch.float16, "cuda", False, False, True),
+    (1152, torch.bfloat16, "cuda", False, False, False),
+    (1152, torch.float16, "cuda", False, False, False),
     (256, torch.float32, "cpu", False, False, False),
     (256, torch.bfloat16, "cpu", False, False, False),
     (256, torch.bfloat16, "cuda", True, False, False),
