@@ -13,9 +13,10 @@ Phases, one line each:
      (UTMALDG) instructions each flash kernel on wgmma must hold
      (SM90_KERNELS), without spills or stack frames, and how many clusters
      of each float32 flash kernel at head dims 128 to 1024 and of each
-     bf16 and float16 one at 384 to 1024 the card holds at once
-     (cudaOccupancyMaxActiveClusters, none may be 0), with the instances'
-     at head dims 640-1024 registers, spill and stack bytes;
+     bf16 and float16 one at 384 to 2048 the card holds at once
+     (cudaOccupancyMaxActiveClusters, none may be 0), with the float32
+     instances' at head dims 640-1024 and the 16-bit cluster kernels'
+     registers, spill and stack bytes;
   3. kernel: the CUDA kernel against its plain PyTorch version on the card at
      the serving shapes (fp32 and bf16) and at a skewed layout (SKEWED), two
      launches bit-identical, with the kernel's time ``ms`` (CUDA-event
@@ -127,12 +128,17 @@ The LLM reader (the flash-attention kernels K5a-c):
      float32 kernels at head dims 1024, 896, 768 and 640 (clusters of eight
      to five blocks) at B2 L2047 H4, timed, B2 L1000, B1 L129 and B1 L65;
      and the bf16 and float16 kernels at head dims 1024, 896, 768 and 640
-     (clusters of four, seven, three and five blocks of up to 256 columns)
-     at B8 L2047 H4 (timed, as the float32 rows: the kernels take
-     milliseconds), B2 L1000 (float16 at 1024 and 640 also with the scaled
-     cotangents), B1 L129 and B1 L65, held to their plain versions in
-     float64 (``exact_yardstick``); every timed row with its products issued over those the function
-     needs and the SDPA backend that served the yardstick;
+     (the cluster kernels: four, four, three and three blocks of 192 or
+     256 columns) at B8 L2047 H4 (timed, as the float32 rows: the kernels
+     take milliseconds), B2 L1000 (float16 at 1024 and 640 also with the
+     scaled cotangents), B1 L129 and B1 L65, at 2048 (eight blocks of 256)
+     at B8 L2047 H2 (timed), B2 L1000 (float16 also with the scaled
+     cotangents), B1 L129 and B1 L65, and at 1152 to 1920 (five to eight
+     blocks) at B2 L1000 H2 (timed; float16 at 1408 also with the scaled
+     cotangents), held to their plain versions in float64
+     (``exact_yardstick``); every timed row with its products issued over
+     those the function needs and the SDPA backend that served the
+     yardstick;
   8. sft: the RoG joint-finetune SFT (scripts/train_sft.sh) through the
      port's entry (`python -m gnn_rag_tpu_torch.llm.sft`, run in this
      process) at LLaMA2-7B width cut to 4 of 32 layers, random weights from
@@ -220,12 +226,20 @@ The LLM reader (the flash-attention kernels K5a-c):
      896, 768 and 640 (4 heads each), kernels vs plain attention;
   11j. step-time-llm-d1024 and step-time-llm-d1024-f16: the same 4 heads
      of 1024 and one kv head in bf16 and in float16 at B8 (D1024_FLAGS,
-     D1024_F16_FLAGS: LLaMA2-7B's SFT cut to 4 layers, F16_STEPS steps), as
+     D1024_F16_FLAGS: LLaMA2-7B's SFT cut to 2 layers, F16_STEPS steps), as
      11g: the 16-bit kernels at head dim 1024 (clusters of four blocks of
-     256 columns), 4 launches of each a step, no plain flash call, the first
+     256 columns), 2 launches of each a step, no plain flash call, the first
      loss and token log-probs kernel vs plain, and every gradient of a
      2-layer model at head dims 1024, 896, 768 and 640 (clusters of four,
-     seven, three and five blocks), kernels vs plain attention.
+     four, three and three blocks), kernels vs plain attention; the float16
+     phase also at 2048, 1408 and 1152 (D2048_GRADS: 2 heads, clusters of
+     eight, six and five blocks);
+  11k. step-time-llm-d2048: the same query columns as 2 heads of 2048 and
+     one kv head in bf16 at B8 (D2048_FLAGS, 4 layers, F16_STEPS steps), as
+     11j: the 16-bit cluster kernels in clusters of eight 256-column
+     blocks, 4 launches of each a step, no plain flash call, the first loss
+     and token log-probs kernel vs plain, every gradient of a 2-layer model
+     at head dims 2048, 1408 and 1152.
 Every phase's wall seconds and the script's total are logged (phase
 walls) before the kernels' summary.
 The reader at LLaMA2-7B widths and the full 32 layers (after the SFT
@@ -266,28 +280,36 @@ import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
-# passes of POST /retrieve through the served split (four took ~70 s on
-# an H100 host, a share of the script's time limit it needs elsewhere)
-LATENCY_PASSES = 2
+# passes of POST /retrieve through the served split (two took ~50 s on an
+# H100 host, four ~70 s: a share of the script's time limit it needs
+# elsewhere; one pass is 128 one-question and 8 sixteen-question requests)
+LATENCY_PASSES = 1
 TRAIN_STEPS = 20
 PALLAS = "gnn_rag_tpu/ops/pallas_mp.py"
 # the float32 flash kernels' head dims (clusters of D / 128 blocks), the
-# 16-bit ones' in clusters (2 to 7 blocks of up to 256 columns), and the
-# head dims past 512 (float32: five to eight blocks; 16-bit: 5, 3, 7, 4)
+# 16-bit ones' in clusters (ceil(D / 256) blocks, 2 to 8, of up to 256
+# columns), the float32 head dims past 512 (five to eight blocks) and the
+# 16-bit cluster kernels' (640-2048: three to eight blocks of 192 or 256
+# columns)
 FP32_HEAD_DIMS = (128, 256, 384, 512, 640, 768, 896, 1024)
-CLUSTER16_HEAD_DIMS = (384, 512, 640, 768, 896, 1024)
+CLUSTER16_HEAD_DIMS = tuple(range(384, 2049, 128))
 WIDE_HEAD_DIMS = (640, 768, 896, 1024)
+WIDE16_HEAD_DIMS = tuple(range(640, 2049, 128))
+# the 16-bit cluster kernels' instances: templates on the element type and
+# the widest share, 256 columns, each taking every head dim from 640 to 2048
+CLUSTER16_CMAX = 256
 # the flash kernels on wgmma, each with the SASS opcodes it must hold: the
 # bf16 and float16 ones load by TMA, the float32 ones (three bf16 terms a
 # float, converted by a warpgroup from plain loads) do not (the 16-bit ones
 # are templates on the element type and the head dim, the float32 ones on
 # the head dim: their instances by mangled name, <128> .. <1024>; the
-# 16-bit ones from 384 are the pair kernels, clusters of two to seven
-# blocks)
+# 16-bit ones at 384 and 512 are the pair kernels, clusters of two blocks,
+# and from 640 to 2048 the cluster kernels, <T, 256>)
 SM90_KERNELS = {**{f"flash_{k}_{kind}_kernelI{t}Li{d}E": ("HGMMA", "UTMALDG")
                    for k in ("fwd", "dq", "dkv")
                    for kind, dims in (("sm90", (128, 256)),
-                                      ("pair", CLUSTER16_HEAD_DIMS))
+                                      ("pair", (384, 512)),
+                                      ("cluster", (CLUSTER16_CMAX,)))
                    for d in dims for t in ("13__nv_bfloat16", "6__half")},
                 **{f"flash_{k}_split3_kernelILi{d}E": ("HGMMA",)
                    for k in ("fwd", "dq", "dkv") for d in FP32_HEAD_DIMS}}
@@ -342,9 +364,12 @@ SPEC_GAMMA = 4
 # 1024, 896, 768 and 640 (clusters of eight to five blocks) at the
 # step-time-llm-d1024-fp32 step's B2 L2047 H4 (4 heads of 1024: the same
 # operations as H8 D512) and the same ragged rows; and the bf16 and float16
-# kernels at head dims 1024, 896, 768 and 640 (clusters of four, seven,
-# three and five blocks) at the step-time-llm-d1024 steps' B8 L2047 H4 and
-# the same ragged rows. Rows at L 2047 are timed
+# kernels at head dims 1024, 896, 768 and 640 (clusters of four, four,
+# three and three blocks) at the step-time-llm-d1024 steps' B8 L2047 H4 and
+# the same ragged rows; at 2048 (eight blocks) at the step-time-llm-d2048
+# step's B8 L2047 H2 (the same operations as H4 D1024) and the same ragged
+# rows; at 1152 to 1920 (five to eight blocks) at B2 L1000 H2. Rows at L
+# 2047 are timed, and TIMED_RAGGED
 ATTN_SHAPES = (("sft_b8_l2047_bf16", 8, SFT_SEQ - 1, 32, 128, "bfloat16"),
                ("sft_b8_l2047_fp32", 8, SFT_SEQ - 1, 32, 128, "float32"),
                ("ragged_b2_l1000_bf16", 2, 1000, 32, 128, "bfloat16"),
@@ -389,14 +414,31 @@ ATTN_SHAPES = (("sft_b8_l2047_bf16", 8, SFT_SEQ - 1, 32, 128, "bfloat16"),
                  for name, B, L in (("h4_b8_l2047", 8, SFT_SEQ - 1),
                                     ("ragged_b2_l1000", 2, 1000),
                                     ("ragged_b1_l129", 1, 129),
-                                    ("ragged_b1_l65", 1, 65))))
+                                    ("ragged_b1_l65", 1, 65))),
+               *((f"{name}_d2048_{tag}", B, L, 2, 2048, dtype)
+                 for dtype, tag in (("bfloat16", "bf16"), ("float16", "f16"))
+                 for name, B, L in (("h2_b8_l2047", 8, SFT_SEQ - 1),
+                                    ("ragged_b2_l1000", 2, 1000),
+                                    ("ragged_b1_l129", 1, 129),
+                                    ("ragged_b1_l65", 1, 65))),
+               *((f"ragged_b2_l1000_d{d}_{tag}", 2, 1000, 2, d, dtype)
+                 for dtype, tag in (("bfloat16", "bf16"), ("float16", "f16"))
+                 for d in WIDE16_HEAD_DIMS[4:-1]))
+# median_ms of the plain flash versions in check_attn_kernels (the timed
+# rows' plain calls take 3-55 ms each)
+PLAIN_TIMING = dict(runs=5, reps=2, warmup=1)
+# the rows timed besides those at L 2047: the head dims 1152 to 1920, each
+# at its ragged B2 L1000 H2 row only
+TIMED_RAGGED = {f"ragged_b2_l1000_d{d}_{tag}" for d in WIDE16_HEAD_DIMS[4:-1]
+                for tag in ("bf16", "f16")}
 # the float16 rows whose backward also runs with the cotangent scaled: far
 # under float16's normal range (an unscaled split of ds would round it to
 # 0) and large
 F16_G_SCALES = {name: (2.0 ** -16, 2.0 ** 4) for name in (
     "ragged_b2_l1000_f16", "ragged_b2_l1000_d256_f16",
     "ragged_b2_l1000_d512_f16", "ragged_b2_l1000_d384_f16",
-    "ragged_b2_l1000_d1024_f16", "ragged_b2_l1000_d640_f16")}
+    "ragged_b2_l1000_d1024_f16", "ragged_b2_l1000_d640_f16",
+    "ragged_b2_l1000_d2048_f16", "ragged_b2_l1000_d1408_f16")}
 # the SFT step at Gemma-2B's widths (google/gemma-2b config.json: hidden
 # 2048, 8 heads of 256, one kv head, intermediate 16384, 18 layers, vocab
 # 256000, tied embeddings) on the repo's LLaMA block (SwiGLU, RMSNorm,
@@ -472,13 +514,25 @@ WIDE_GRADS = tuple(dict(dim=4 * d, n_heads=4, n_kv_heads=1)
                    for d in (896, 768, 640))
 # the same 4 heads of 1024 and one kv head in bf16 (LlamaConfig's type, in
 # which scripts/train_sft.sh trains) and in float16 (LLaMA-2-7B's published
-# type) at B8, F16_STEPS steps each, as the 16-bit head-dim-512 phases run:
+# type) at B8, F16_STEPS steps each, cut to 2 layers for the script's time
+# limit (the step-time-llm-d2048 phase keeps 4):
 # the 16-bit kernels at head dim 1024 (clusters of four 256-column
 # blocks); the gradient checks also at 896, 768 and 640 (WIDE_GRADS:
-# clusters of seven, three and five blocks)
-D1024_FLAGS = [{"--n_heads": "4"}.get(flag, x)
+# clusters of four, three and three blocks)
+D1024_FLAGS = [{"--n_heads": "4", "--n_layers": "2"}.get(flag, x)
                for flag, x in zip([None, *D512_FLAGS], D512_FLAGS)]
 D1024_F16_FLAGS = D1024_FLAGS[:-2] + ["--dtype", "float16"]
+# the same query columns as 2 heads of 2048 and one kv head, bf16, B8,
+# F16_STEPS steps: the 16-bit cluster kernels in clusters of eight 256-column
+# blocks, the widest head the 16-bit kernels take; its gradient check also
+# at 1408 and 1152 (2 heads: clusters of six and five blocks, shares of 256
+# and 192 columns). Float16 runs the three gradient checks in the
+# step-time-llm-d1024-f16 phase (D2048_GRADS), not a step phase of its own:
+# the script's time limit
+D2048_FLAGS = [{"--n_heads": "2"}.get(flag, x)
+               for flag, x in zip([None, *D512_FLAGS], D512_FLAGS)]
+D2048_GRADS = tuple(dict(dim=2 * d, n_heads=2, n_kv_heads=1)
+                    for d in (2048, 1408, 1152))
 # scripts/rearev_webqsp.sh with the reference's training defaults
 HEADLINE_FLAGS = ["ReaRev", "--entity_dim", "50", "--num_iter", "3",
                   "--num_ins", "2", "--num_gnn", "3", "--lm", "sbert",
@@ -2251,11 +2305,15 @@ def f16_tol(b):
 def flash_kernel_name(kind, dtype, hd):
     """The profiler's (demangled) name of a flash kernel instance, as a
     substring: the bf16 and float16 kernels are templates on the element
-    type and the head dim (the pair kernels at 384 and 512), the float32
-    ones on the head dim."""
+    type and the head dim (the pair kernels at 384 and 512), or, from 640,
+    on the element type and the widest share (the cluster kernels, one
+    instance for every head dim to 2048); the float32 ones on the head
+    dim."""
     if dtype == "float32":
         return f"flash_{kind}_split3_kernel<{hd}>"
     elem = {"bfloat16": "__nv_bfloat16", "float16": "__half"}[dtype]
+    if hd > 512:
+        return f"flash_{kind}_cluster_kernel<{elem}, {CLUSTER16_CMAX}>"
     return f"flash_{kind}_{'pair' if hd > 256 else 'sm90'}_kernel<{elem}, {hd}>"
 
 
@@ -2337,6 +2395,7 @@ def check_attn_kernels(device):
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     rows, bad = [], []
     for name, B, L, H, D, dtype in ATTN_SHAPES:
+        t_row = time.perf_counter()
         q, k, v, g = (torch.randn((B, L, H, D), generator=gen, device=device)
                       .to(getattr(torch, dtype)) for _ in range(4))
         o, lse = fa.flash_fwd(q, k, v)
@@ -2396,7 +2455,7 @@ def check_attn_kernels(device):
             row.setdefault("g_scaled_err_ref_over_tol_by_output", {})[
                 f"{scale:g}"] = errs_s
             del gs, wants, delta_s, gots
-        if L == SFT_SEQ - 1:
+        if L == SFT_SEQ - 1 or name in TIMED_RAGGED:
             # sub-millisecond 16-bit kernels (head dims to 512) get more
             # launches per median
             timing = (dict(runs=10, reps=5, warmup=2)
@@ -2421,12 +2480,16 @@ def check_attn_kernels(device):
             row["tflops"] = {k_: flops[k_] / ms / 1e9
                              for k_, ms in row["ms"].items()}
             row["products_issued_needed"] = attn_products(dtype, D)
+            # the plain versions take 3-55 ms a call: five medians of two
             row["plain_ms"] = {
-                "fwd": median_ms(lambda: fa.flash_fwd_plain(q, k, v), **timing),
+                "fwd": median_ms(lambda: fa.flash_fwd_plain(q, k, v),
+                                 **PLAIN_TIMING),
                 "dq": median_ms(lambda: fa.flash_dq_plain(q, k, v, g, lse,
-                                                          delta), **timing),
+                                                          delta),
+                                **PLAIN_TIMING),
                 "dkv": median_ms(lambda: fa.flash_dkv_plain(q, k, v, g, lse,
-                                                            delta), **timing)}
+                                                            delta),
+                                 **PLAIN_TIMING)}
             qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                           for x in (q, k, v))
             with torch.no_grad():
@@ -2441,6 +2504,7 @@ def check_attn_kernels(device):
                                             retain_graph=True), **timing)
             row["sdpa_backend"] = sdpa_backend(qt, kt, vt)
             del qt, kt, vt, out
+        row["wall_s"] = time.perf_counter() - t_row
         log("kernel-attn", json.dumps(row))
         rows.append(row)
         del q, k, v, g, o, lse, delta, got, again, want, po, plse
@@ -2448,6 +2512,22 @@ def check_attn_kernels(device):
     if bad:
         raise AssertionError("flash kernels vs plain: " + "; ".join(bad))
     return rows
+
+
+def other_head_dim(attn_rows, dtype, hd, key, parts):
+    """A 16-bit cluster kernel's figures at a head dim that no path of this
+    script runs (its B2 L1000 H2 row of ``check_attn_kernels``): ms, plain
+    ms, bound, SDPA's time, the largest error over its tolerance."""
+    row = next(r for r in attn_rows if r["D"] == hd and r["dtype"] == dtype
+               and r["shape"].startswith("ragged_b2_l1000"))
+    return dict(shape=row["shape"], ms=row["ms"][key],
+                plain_ms=row["plain_ms"][key], bound_ms=row["bound_ms"][key],
+                bound_share=row["bound_share"][key],
+                library_ms=row["sdpa_fwd_ms"] if key == "fwd" else None,
+                **({} if key == "fwd" else
+                   {"sdpa_bwd_ms_dq_dk_dv_together": row["sdpa_bwd_ms"]}),
+                max_err_over_tol=max(row["err_ref_over_tol_by_output"][p][2]
+                                     for p in parts))
 
 
 def sft_data(root):
@@ -4384,7 +4464,9 @@ def build_all():
     process per source, all started together); log each one's time and
     ptxas register / spill lines, and the wgmma (HGMMA) and TMA-load
     (UTMALDG) instructions of each flash kernel, which the Hopper kernels
-    must hold as SM90_KERNELS lists, without spills."""
+    must hold as SM90_KERNELS lists, without spills; returns how many
+    clusters of each 16-bit cluster instance the card holds at once, by
+    kernel, type and head dim ("fwd<bfloat16, 2048>")."""
     from concurrent.futures import ThreadPoolExecutor
 
     from gnn_rag_tpu_torch.utils import build
@@ -4424,7 +4506,7 @@ def build_all():
                         raise AssertionError(f"{name} spills or keeps a "
                                              f"stack frame: {mine}")
                 # the float32 kernels' clusters (HD / 128 blocks of 210-230
-                # KB, one an SM) and the 16-bit ones' (2 to 7 blocks of up
+                # KB, one an SM) and the 16-bit ones' (2 to 8 blocks of up
                 # to 230 KB): how many the card holds at once, 0 if it
                 # cannot launch one
                 import torch
@@ -4451,19 +4533,24 @@ def build_all():
                 log("build", f"float32 flash instances in clusters of five "
                     f"to eight blocks (clusters at once, ptxas registers, "
                     f"spill and stack bytes): {json.dumps(wide)}")
-                wide16 = {f"{k}<{t}, {d}>": dict(
-                    clusters=clusters16[f"{k}<{t}, {d}>"],
+                shares = {d: fa.cluster16_shares(d) for d in WIDE16_HEAD_DIMS}
+                wide16 = {f"{k}<{t}, {CLUSTER16_CMAX}>": dict(
+                    clusters={d: clusters16[f"{k}<{t}, {d}>"]
+                              for d in WIDE16_HEAD_DIMS},
                     **next(v for n, v in props.items()
-                           if f"flash_{k}_pair_kernelI{m}Li{d}E" in n))
-                    for t, m in elems.items() for d in WIDE_HEAD_DIMS
-                    for k in kinds}
-                log("build", f"bf16 and float16 flash instances at head dims "
-                    f"640-1024 in clusters of five, three, seven and four "
-                    f"blocks (clusters at once, ptxas registers, spill and "
-                    f"stack bytes): {json.dumps(wide16)}")
+                           if f"flash_{k}_cluster_kernelI{m}Li"
+                              f"{CLUSTER16_CMAX}E" in n))
+                    for t, m in elems.items() for k in kinds}
+                log("build", f"bf16 and float16 flash cluster kernels at "
+                    f"head dims 640-2048, clusters of ceil(D / 256) blocks "
+                    f"(columns of each block by head dim: "
+                    f"{json.dumps(shares)}; clusters at once by head dim, "
+                    f"ptxas registers, spill and stack bytes): "
+                    f"{json.dumps(wide16)}")
                 if not (all(clusters.values()) and all(clusters16.values())):
                     raise AssertionError(f"a flash cluster cannot launch: "
                                          f"{clusters} {clusters16}")
+    return clusters16
 
 
 def main():
@@ -4493,7 +4580,7 @@ def main():
         walls[phase] = round(time.perf_counter() - t, 1)
         return out
 
-    timed("build", build_all)
+    clusters16 = timed("build", build_all)
     rows = timed("kernel", check_kernels, device)
     bwd_rows = timed("kernel-bwd", check_bwd_kernels, device)
     fused_rows = timed("kernel-fused", check_fused_kernels, device)
@@ -4558,11 +4645,15 @@ def main():
             llm_root, prompts, D1024_FP32_FLAGS, "step-time-llm-d1024-fp32",
             WIDE_GRADS)
         d1024 = {dtype: timed(phase, sft_16bit_step_time, device, llm_root,
-                              flags, phase, WIDE_GRADS)
-                 for dtype, flags, phase in (
-                     ("bfloat16", D1024_FLAGS, "step-time-llm-d1024"),
-                     ("float16", D1024_F16_FLAGS,
-                      "step-time-llm-d1024-f16"))}
+                              flags, phase, grads)
+                 for dtype, flags, phase, grads in (
+                     ("bfloat16", D1024_FLAGS, "step-time-llm-d1024",
+                      WIDE_GRADS),
+                     ("float16", D1024_F16_FLAGS, "step-time-llm-d1024-f16",
+                      WIDE_GRADS + D2048_GRADS))}
+        d2048 = timed("step-time-llm-d2048", sft_16bit_step_time, device,
+                      llm_root, D2048_FLAGS, "step-time-llm-d2048",
+                      D2048_GRADS[1:])
         _, reader_7b, lora_launches = timed("lora", run_lora, device, tokens,
                                             mask)
         timed("serve-7b", run_serve_7b, device, reader_7b,
@@ -4867,7 +4958,7 @@ def main():
                 "flash_launches"]},
             {f"{phase}_grads_d{hd}": "grads"}))
     # the bf16 and float16 kernels at head dims 1024 to 640 (clusters of
-    # four, seven, three and five blocks) on the step-time-llm-d1024 paths:
+    # four, four, three and three blocks) on the step-time-llm-d1024 paths:
     # 1024 in their SFT steps, 896, 768 and 640 in their gradient checks,
     # each timed at the steps' shape, B8 L2047 H4
     for dtype, tag, phase in (("bfloat16", "bf16", "step_time_llm_d1024"),
@@ -4883,6 +4974,31 @@ def main():
                 {"grads": run["grads_by_head_dim"][f"d{hd}"][
                     "flash_launches"]},
                 {f"{phase}_grads_d{hd}": "grads"}))
+    # the bf16 and float16 kernels at head dims 2048, 1408 and 1152
+    # (clusters of eight, six and five blocks): bf16 2048 in the
+    # step-time-llm-d2048 SFT steps and gradient check, 1408 and 1152 in its
+    # gradient check, float16's three in step-time-llm-d1024-f16's gradient
+    # check; 2048 timed at the step's B8 L2047 H2, 1408 and 1152 at B2 L1000
+    # H2, as every other head dim from 1152 to 1920 (those on no path, in
+    # the 2048 entries' other_head_dims)
+    phase = "step_time_llm_d2048"
+    groups.append(("bfloat16", 2048, "_d2048_bf16", "h2_b8_l2047_d2048_bf16",
+                   d2048, {phase: "flash_launches_fwd_dq_dkv",
+                           f"{phase}_timed_steps": "timed_flash_launches",
+                           f"{phase}_grads_d2048": "grad_flash_launches"}))
+    grads16 = {"bfloat16": (d2048, phase),
+               "float16": (d1024["float16"], "step_time_llm_d1024_f16")}
+    for dtype, tag in (("bfloat16", "bf16"), ("float16", "f16")):
+        run, path = grads16[dtype]
+        for hd in ((1408, 1152) if dtype == "bfloat16"
+                   else (2048, 1408, 1152)):
+            groups.append((
+                dtype, hd, f"_d{hd}_{tag}",
+                (f"h2_b8_l2047_d{hd}_{tag}" if hd == 2048
+                 else f"ragged_b2_l1000_d{hd}_{tag}"),
+                {"grads": run["grads_by_head_dim"][f"d{hd}"][
+                    "flash_launches"]},
+                {f"{path}_grads_d{hd}": "grads"}))
     for dtype, hd, suffix, shape_name, run, paths in groups:
         rows_t = {r["shape"]: r for r in attn_rows
                   if r["D"] == hd and r["dtype"] == dtype}
@@ -4919,6 +5035,13 @@ def main():
                 "bound_share": h_row["bound_share"][key],
                 "tflops": h_row["tflops"][key], "shape": h_row["shape"],
                 "products_issued_needed": h_row["products_issued_needed"][key],
+                **({"clusters_at_once":
+                    clusters16[f"{key}<{dtype}, {hd}>"]}
+                   if dtype != "float32" and hd > 256 else {}),
+                **({"other_head_dims": {
+                    d: other_head_dim(attn_rows, dtype, d, key, parts)
+                    for d in WIDE16_HEAD_DIMS[4:-1]
+                    if d not in (1408, 1152)}} if hd == 2048 else {}),
                 "max_err_over_tol_by_shape": by_shape,
                 "launches_by_path": by_path,
                 **({} if key == "fwd" else

@@ -11,9 +11,9 @@
 //   o = (sum_k T(exp(s - m)) v) / l        (p rounded to v's type T before PV)
 //   p = exp(s - lse), dp = dO v^T, ds = p * (dp - delta) * scale,
 //   dq = ds k, dk = ds^T q, dv = p^T dO,   delta = rowsum(dO * o) (given).
-// Tensors keep the model's [B, N, H, D] layout (D = 128, 256, .., 1024, a
-// multiple of 128, in float32, bfloat16 and float16; the wrapper raises on
-// any other D); lse and delta are [B*H, L] float, stored
+// Tensors keep the model's [B, N, H, D] layout (D a multiple of 128: 128 to
+// 1024 in float32, 128 to 2048 in bfloat16 and float16; the wrapper raises
+// on any other D); lse and delta are [B*H, L] float, stored
 // once per row (the TPU kernel replicated them over 128 lanes for its block
 // shapes). All sums are float; every product is the
 // float product of the (widened) inputs, as in the TPU kernels
@@ -147,40 +147,52 @@
 //   columns (consumer c accumulates dk and dv columns 128c ..), each forming
 //   s^T and dp^T over the whole depth itself (twice the score products, for
 //   no exchange between them); 2 stages (194 KB).
-// - head dims 384 to 1024 (flash_{fwd,dq,dkv}_pair_kernel<T, HD>, named
-//   after their first instances, pairs at 384 and 512): a head row of 512
-//   is 1 KB, so 128 resident Q rows take 128 KB and one 64-key K + V stage
-//   128 KB, and o, dq or dk/dv of 64 rows x 512 would be 256 floats a
-//   thread. So the depth is split over a thread block cluster of NB blocks
-//   on the same rows (keys), as the float32 kernels split it from 256: NB
-//   the fewest whose share C = HD / NB is whole 64-column boxes and at most
-//   256 (cluster16_blocks: 2 at 384 and 512, C 192 and 256; 5 at 640 and 7
-//   at 896, C 128; 3 at 768 and 4 at 1024, C 256). Block rank r owns
-//   columns C r .. C r + C - 1 and runs the HD 256 layouts above on them:
-//   the forward's 64-key
-//   tiles; dq's 32-key tiles in 2 stages rather than 3, to make room for
-//   two 16 KB exchanges; dk/dv's 64 keys a block with the consumers
-//   splitting the columns of dk and dv, but 32-row Q and dO tiles (3
-//   stages): s^T and dp^T of 64 rows would be 64 floats a thread beside dk
-//   and dv's 128, and spill. Each consumer forms its partial s (and dp)
-//   over the block's C columns and the cluster adds the NB partials through
-//   the same consumer's Exchange in every block, as the float32 clusters
-//   do: a pair sends its partial to the peer and adds the peer's (IEEE
-//   addition commutes), three to seven blocks add all NB in rank order
-//   (add_cluster_partials). So every block holds the same bits of s and
-//   dp, no score product is done twice across the cluster, and every block
-//   accumulates only its own columns (in dk/dv both consumers of a block
-//   form the same partials, as at 256). Accumulators are 64 x 64 units
-//   (m64n64k16 with A from registers), so that 192 columns are whole
-//   boxes: dk/dv's consumer 0 takes the first half of the block's units,
-//   rounded up, consumer 1 the rest (two and two at C 256, two and one at
-//   192, one and one at 128). Shared memory at C 256: forward and dq
-//   230,488 bytes, dk/dv 198,488 (of 232,448); at C 192 and 128 three
-//   quarters and half of the tiles. Products issued / needed: forward 2 / 2 (s,
-//   PV), dq 4 / 3 (ds's two terms), dk/dv 8 / 4 (both consumers' s^T and
-//   dp^T, the two terms of p^T and of ds^T). 1/sqrt(D) is not exact in
-//   float past 256 (it is at 128 and 256); it is the float nearest, as in
-//   the JAX kernels.
+// - head dims 384 to 2048: a head row of 512 is 1 KB, so 128 resident Q
+//   rows take 128 KB and one 64-key K + V stage 128 KB, and o, dq or dk/dv
+//   of 64 rows x 512 would be 256 floats a thread. So the depth is split
+//   over a thread block cluster of NB = ceil(HD / 256) blocks on the same
+//   rows (keys), as the float32 kernels split it from 256, each block
+//   owning a share of whole 64-column boxes, at most four (256 columns, the
+//   HD 256 layouts' shared memory): at 384 and 512 a pair, each on HD / 2
+//   columns (flash_{fwd,dq,dkv}_pair_kernel<T, 384|512>); from 640 to 2048
+//   three to eight blocks whose shares differ by at most one box, the
+//   wider first (flash_{fwd,dq,dkv}_cluster_kernel<T, 256>: 640 = 256 +
+//   192 + 192, 896 = 2 x 256 + 2 x 192, 1152 = 3 x 256 + 2 x 192, 1408 = 4
+//   x 256 + 2 x 192; 768, 1024, 1280, .., 2048 all 256; share16_units). Of
+//   the two plans with at most 256 columns a block, this one and 256-column
+//   blocks with a narrower last one (640 = 256 + 256 + 128), both give the
+//   same blocks and the same widest block, which sets a cluster's time; the
+//   even one keeps every block at three or four boxes, so one template body
+//   of each serves every head dim. (Equal shares, the fewest blocks whose
+//   share is whole boxes, took 640 and 896 to five and seven blocks of 128
+//   columns, 2-4x slower, and found no cluster of eight or fewer at 1408,
+//   1664 and 1920.) Block rank r runs the HD 256 layouts above on its
+//   columns: the forward's 64-key tiles; dq's 32-key tiles in 2 stages
+//   rather than 3, to make room for two 16 KB exchanges; dk/dv's 64 keys a
+//   block with the consumers splitting the columns of dk and dv, but 32-row
+//   Q and dO tiles (3 stages): s^T and dp^T of 64 rows would be 64 floats a
+//   thread beside dk and dv's 128, and spill. Each consumer forms its
+//   partial s (and dp) over the block's columns and the cluster adds the
+//   NB partials through the same consumer's Exchange in every block, as the
+//   float32 clusters do: a pair sends its partial to the peer and adds the
+//   peer's (IEEE addition commutes), three to eight blocks add all NB in
+//   rank order, rank by rank (add_cluster_partials_n, NB a launch
+//   argument: one instance of each cluster kernel per type serves every
+//   head dim from 640 to 2048, each block running the body for its own
+//   share, three or four boxes, a template on it). So every block holds the
+//   same bits of s and dp, no score product is done twice across the
+//   cluster, and every block accumulates only its own columns (in dk/dv both
+//   consumers of a block form the same partials, as at 256). Accumulators
+//   are 64 x 64 units (m64n64k16 with A from registers), one a box: dk/dv's
+//   consumer 0 takes the first half of the block's units, rounded up,
+//   consumer 1 the rest (two and two at 256 columns, two and one at 192).
+//   Shared memory at 256 columns: forward and dq 230,488 bytes, dk/dv
+//   198,488 (of 232,448), laid out for 256 columns in every block of a
+//   cluster kernel (each Exchange at the same offset in every block).
+//   Products issued / needed: forward 2 / 2 (s, PV), dq 4 / 3 (ds's two
+//   terms), dk/dv 8 / 4 (both consumers' s^T and dp^T, the two terms of p^T
+//   and of ds^T). 1/sqrt(D) is not exact in float past 256 (it is at 128
+//   and 256); it is the float nearest, as in the JAX kernels.
 // Tensor maps cover the 4-D (D, H, N, B) view with the real strides, so rows
 // past L read as TMA's zeros (never the next batch's rows; the float32
 // converters write zeros there) and are masked or not stored. Only tiles
@@ -267,11 +279,11 @@
 // (<384>), 255 (<512>) and 226-228 (<640> to <1024>),
 // flash_dq_split3_kernel 137, 142, 212 and 238 (the rank-order sum's loads
 // of the peers' partials in flight together) and 168 at <640> to <1024>
-// (the sum rank by rank); the 16-bit cluster kernels (384 to 1024, both
-// types) 168 at launch, consumers 240 (forward, dq) and 232 (dk/dv); no
-// spills, no stack frames (at C 256 with three or four blocks only because
-// their sum runs rank by rank: unrolled over the peers it spilled 8-156
-// bytes).
+// (the sum rank by rank); the 16-bit pair and cluster kernels (384 to
+// 2048, both types) 168 at launch, consumers 240 (forward, dq) and 232
+// (dk/dv); no spills, no stack frames (at 256 columns with three or more
+// blocks only because their sum runs rank by rank: unrolled over the peers
+// it spilled 8-156 bytes).
 //
 // At head dims 512 and 384 the pairs take 1.29 / 2.31 / 4.56 ms and 1.20 /
 // 2.12 / 4.07 ms in bf16 at B8 L2047 H8 (float16 within 5%; chip_smoke.py
@@ -279,14 +291,14 @@
 // bounds. Each consumer runs its tile's scores, the exchange with the peer
 // and its p and ds in turn, in step with the other consumer, so the
 // tensor cores idle through every exchange; dk/dv on 64-row tiles ran
-// 16-44% faster, but spilled. At head dims 1024, 896, 768 and 640 (clusters
-// of four, seven, three and five) they take 2.98 / 5.64 / 10.98, 9.86 /
-// 18.49 / 36.38, 1.73 / 3.19 / 6.27 and 4.69 / 8.89 / 17.34 ms in bf16 at
-// B8 L2047 H4 (float16 within 6%; chip_smoke.py on an H100 at 700 W): 9 /
-// 7 / 5% of their bounds at 1024 and 12 / 10 / 7% at 768, but 1.3-3.7% at
-// 640 and 896, where a block holds 128 columns: half the products an
-// exchange of C 256, five or seven partials summed rank by rank, and 22 or
-// 15 clusters at once.
+// 16-44% faster, but spilled. The cluster kernels take 1.72 / 3.19 / 5.95,
+// 1.73 / 3.24 / 6.26, 2.91 / 5.60 / 10.59 and 3.01 / 5.78 / 11.10 ms in
+// bf16 at B8 L2047 H4 at head dims 640, 768, 896 and 1024 (float16 within
+// 4%; llm/flash_bench.py --phases wide16 on an H100 at 700 W): 10 / 8 / 6%
+// of their bounds at 640, 9 / 7 / 5% at 1024; a cluster's time is a
+// 256-column block's, whatever the narrower ones hold. At 2048 (B8 L2047
+// H2, H4 D1024's operations, eight blocks) 6.18 / 11.88 / 22.06 ms: 4.5 /
+// 3.5 / 2.5% of the bounds, each exchange waiting for seven peers.
 //
 // At head dim 256 the float32 kernels take 0.62 / 1.16 / 1.30 ms (forward /
 // dq / dk/dv) at B2 L2047 H8 D256 (chip_smoke.py on an H100 at 700 W): 34%
@@ -452,8 +464,8 @@ __device__ __forceinline__ float pow2(int e) {
 // first tiles its scale seldom falls; with the rescale in every tile dq
 // took 1.47 ms at B8 L2047 H32 D128, with the vote 1.12-1.14, bf16 1.01-
 // 1.12 in the same runs on an H100 at 700 W). |ds| <= p |dp - delta| /
-// sqrt(D) <= 2 sqrt(D) 65504^2 < 2^37.5 for any finite float16 inputs at
-// every D the kernels take, up to 512 (|dp|, |delta| <= D 65504^2 < D
+// sqrt(D) <= 2 sqrt(D) 65504^2 < 2^38.5 for any finite float16 inputs at
+// every D the kernels take, up to 2048 (|dp|, |delta| <= D 65504^2 < D
 // 2^32), so the clamp at 2^60 never binds.
 template <int N>
 __device__ __forceinline__ bool scale_ds_rows(float (&v)[N], int (&e)[2],
@@ -1421,6 +1433,35 @@ __device__ __forceinline__ void add_cluster_partials(Exchange* xc,
       sm90::mbar_arrive_cluster(sm90::map_peer(&xc->empty, r));
 }
 
+// add_cluster_partials rank by rank in a cluster of `nb` blocks, nb known
+// only at run time (the 16-bit cluster kernels, 3 to 8 blocks: one instance
+// for every head dim from 640 to 2048): the same barriers, slots and sum,
+// ((p0 + p1) + p2) + .. + p(nb - 1), with one rank's loads in flight
+template <typename... Parts>
+__device__ __forceinline__ void add_cluster_partials_n(Exchange* xc, int nb,
+                                                       uint32_t rank, int tid,
+                                                       int e,
+                                                       Parts&... parts) {
+  const uint32_t parity = e & 1;
+  sm90::mbar_wait_cluster(&xc->empty, parity ^ 1);   // the peers read e - 1
+  int i = 0;
+  (keep_partial(parts, xc, tid, i), ...);
+  for (int r = 0; r < nb; ++r)
+    if (r != static_cast<int>(rank))
+      sm90::mbar_arrive_cluster(sm90::map_peer(&xc->full, r));
+  sm90::mbar_wait_cluster(&xc->full, parity);        // the peers' e
+  i = 0;
+  (add_rank_partial<true>(parts, xc, 0, rank, tid, i), ...);
+#pragma unroll 1
+  for (int r = 1; r < nb; ++r) {
+    i = 0;
+    (add_rank_partial<false>(parts, xc, r, rank, tid, i), ...);
+  }
+  for (int r = 0; r < nb; ++r)
+    if (r != static_cast<int>(rank))
+      sm90::mbar_arrive_cluster(sm90::map_peer(&xc->empty, r));
+}
+
 // after a warpgroup's last exchange (`n` in all): every peer has read it,
 // so it touches this block's shared memory no more and the block may exit
 // (its writes and its arrivals on full came before this block's last wait
@@ -2021,66 +2062,43 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
   store_acc_rows<float, HD>(dq, b, h, L, H, row, t, acc, one, col0);
 }
 
-// ----- bfloat16 and float16 at head dims 384 to 1024: clusters of blocks
-// A cluster of NB blocks on the same rows (keys for dk/dv), block rank r
-// owning columns C r .. C r + C - 1, C = HD / NB (128, 192 or 256): the
-// 16-bit layouts above on C columns (C / 64 boxes a head row), each
-// consumer forming its partial s (and dp) over the block's C columns from
-// zero and the cluster adding the NB partials through an Exchange a
-// consumer, as the float32 clusters do (exchange16). Accumulators are 64 x
-// 64 units (32 floats a thread, wgmma m64n64k16 with A from registers), so
-// that 192 columns split into whole boxes.
+// ----- bfloat16 and float16 at head dims 384 to 2048: clusters of blocks
+// A cluster of NB = ceil(HD / 256) blocks on the same rows (keys for
+// dk/dv), each owning a share of whole 64-column boxes of the head row: the
+// 16-bit layouts above on the block's columns, each consumer forming its
+// partial s (and dp) over them from zero and the cluster adding the NB
+// partials through an Exchange a consumer, as the float32 clusters do.
+// Accumulators are 64 x 64 units (32 floats a thread, wgmma m64n64k16 with
+// A from registers), one a box, so that any share of whole boxes splits
+// into them. At 384 and 512 (the pair kernels) both blocks own HD / 2
+// columns, 192 or 256; from 640 (the cluster kernels below) the shares
+// differ by at most one box (share16_units).
 
-// the blocks of a 16-bit cluster at head dim hd: the fewest whose columns
-// C = hd / NB are whole 64-column boxes and at most 256 (the <256>
-// layouts' shared memory; at 320 the forward would need 279,600 bytes)
+// the blocks of a 16-bit cluster at head dim hd: one for every 256 columns,
+// rounded up (a block of the <256> layouts holds at most 256 columns: at
+// 320 the forward would need 279,600 bytes of shared memory)
 __host__ __device__ constexpr int cluster16_blocks(int hd) {
-  int nb = PAIR;
-  while (hd % (64 * nb) != 0 || hd / nb > 256) ++nb;
-  return nb;
-}
-static_assert(cluster16_blocks(384) == 2 && cluster16_blocks(512) == 2 &&
-                  cluster16_blocks(640) == 5 && cluster16_blocks(768) == 3 &&
-                  cluster16_blocks(896) == 7 && cluster16_blocks(1024) == 4,
-              "clusters of 2 / 2 / 5 / 3 / 7 / 4 blocks at 384 .. 1024");
-
-// exchange e of a consumer's partials `parts` in a 16-bit cluster of NB
-// blocks: a pair adds the peer's once (add_peer_partials), three to seven
-// blocks add all NB in rank order (add_cluster_partials), so that every
-// block holds the same bits. Rank by rank at every NB > 2: with the peers'
-// loads unrolled together, as the float32 clusters of three and four add
-// them, the consumers at C 256 spill (ptxas: forward 8 bytes, dq 16-36,
-// dk/dv 28-156 at three and four blocks)
-template <int NB, typename... Parts>
-__device__ __forceinline__ void exchange16(Exchange* xc, uint32_t rank,
-                                           int tid, int e, Parts&... parts) {
-  if constexpr (NB == PAIR)
-    add_peer_partials(xc, rank ^ 1, tid, e, parts...);
-  else
-    add_cluster_partials<NB, false>(xc, rank, tid, e, parts...);
+  return (hd + 255) / 256;
 }
 
 constexpr int PAIR_FWD_KEYS = 64;   // keys per K or V tile
 constexpr int PAIR_DQ_KEYS = 32;
 // 128 rows of Q (and of dO in dq) resident, KEYS-key K and V tiles through
-// FWD_STAGES stages, an exchange a consumer: at C 256 (HD 512, 768 and
-// 1024) 230,488 bytes for both
-template <int HD, int KEYS, int RESIDENT>
-constexpr size_t pair_q_smem() {
+// FWD_STAGES stages, an exchange a consumer, for blocks of C columns: at C
+// 256 230,488 bytes for both
+template <int C, int KEYS, int RESIDENT>
+constexpr size_t cluster16_q_smem() {
   return 1024 +
-         static_cast<size_t>(RESIDENT * 128 + 2 * FWD_STAGES * KEYS) *
-             (HD / cluster16_blocks(HD)) * 2 +
+         static_cast<size_t>(RESIDENT * 128 + 2 * FWD_STAGES * KEYS) * C * 2 +
          2 * sizeof(Exchange) + sizeof(FwdBars);
 }
-static_assert(pair_q_smem<512, PAIR_FWD_KEYS, 1>() <= MAX_SMEM &&
-                  pair_q_smem<1024, PAIR_FWD_KEYS, 1>() <= MAX_SMEM,
+static_assert(cluster16_q_smem<256, PAIR_FWD_KEYS, 1>() <= MAX_SMEM,
               "forward at C 256");
-static_assert(pair_q_smem<512, PAIR_DQ_KEYS, 2>() <= MAX_SMEM &&
-                  pair_q_smem<1024, PAIR_DQ_KEYS, 2>() <= MAX_SMEM,
+static_assert(cluster16_q_smem<256, PAIR_DQ_KEYS, 2>() <= MAX_SMEM,
               "dq at C 256");
 
-// forward at HD 384 to 1024, grid (NB ceil(L / FWD_ROWS), B*H) in clusters
-// of NB blocks along x: flash_fwd_sm90_kernel's layout on the block's C
+// forward at HD 384 and 512, grid (NB ceil(L / FWD_ROWS), B*H) in pairs
+// of blocks along x: flash_fwd_sm90_kernel's layout on the block's C
 // columns with 64-key tiles (Q 128 x C, a K + V stage 2 x 64 x C); per tile
 // each consumer's partial s (m64n64k16 over C / 16 depth slices) summed
 // over the cluster, the online softmax, p rounded to T, o += p v one
@@ -2176,7 +2194,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     sm90::wgmma_commit();
     sm90::wgmma_wait();
     sm90::fence_regs(s);
-    exchange16<NB>(&xch[cw], rank, tid, j, s);
+    add_peer_partials(&xch[cw], rank ^ 1, tid, j, s);
 
 #pragma unroll
     for (int i = 0; i < KEYS / 2; ++i) s[i] *= sl2;
@@ -2255,7 +2273,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
                             col0 + 64 * u);
 }
 
-// dq at HD 384 to 1024, grid (NB ceil(L / DQ_ROWS), B*H) in clusters of NB
+// dq at HD 384 and 512, grid (NB ceil(L / DQ_ROWS), B*H) in pairs of
 // blocks along x: flash_dq_sm90_kernel's layout on the block's C columns
 // with 32-key tiles through 2 stages (Q and dO 2 x 128 x C resident); per
 // tile each consumer's partial s and dp (m64n32k16 over C / 16 slices)
@@ -2378,7 +2396,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
       sm90::fence_regs(s);
       sm90::fence_regs(dp);
       // live tiles are the first my_tiles, so j counts the exchanges
-      exchange16<NB>(&xch[cw], rank, tid, j, s, dp);
+      add_peer_partials(&xch[cw], rank ^ 1, tid, j, s, dp);
 
       // p = exp(s scale - lse), ds = p (dp - delta) scale; rows: queries
       // row + 8((i / 2) & 1), columns: keys k0 + c
@@ -2447,33 +2465,30 @@ constexpr int PAIR_DKV_ROWS = 32;    // query rows per streamed tile
 constexpr int PAIR_DKV_STAGES = 3;
 
 // K and V of 64 keys x C resident, 32-row Q and dO tiles through
-// PAIR_DKV_STAGES stages with their lse and delta, an exchange a consumer:
-// at C 256 (HD 512, 768 and 1024) 198,488 bytes
-template <int HD>
-constexpr size_t dkv_pair_smem() {
+// PAIR_DKV_STAGES stages with their lse and delta, an exchange a consumer,
+// for blocks of C columns: at C 256 198,488 bytes
+template <int C>
+constexpr size_t cluster16_dkv_smem() {
   return 1024 +
          static_cast<size_t>(2 * 64 + 2 * PAIR_DKV_STAGES * PAIR_DKV_ROWS) *
-             (HD / cluster16_blocks(HD)) * 2 +
+             C * 2 +
          2 * sizeof(Exchange) + sizeof(DkvStats<PAIR_DKV_STAGES, PAIR_DKV_ROWS>) +
          sizeof(DkvBars<PAIR_DKV_STAGES>);
 }
-static_assert(dkv_pair_smem<512>() <= MAX_SMEM &&
-                  dkv_pair_smem<1024>() <= MAX_SMEM,
-              "dk/dv at C 256");
+static_assert(cluster16_dkv_smem<256>() <= MAX_SMEM, "dk/dv at C 256");
 
 // the 64-column units of dk and dv that a 16-bit cluster's dk/dv consumer 0
-// takes of a block's C / 64: half, rounded up (two of four at C 256, two of
-// three at 192, one of two at 128); consumer 1 the rest, so that both have
-// at least one
-__host__ __device__ constexpr int dkv_units0(int hd) {
-  return (hd / cluster16_blocks(hd) / 64 + 1) / 2;
+// takes of a block's `units`: half, rounded up (two of four, two of three);
+// consumer 1 the rest, so that both have at least one
+__host__ __device__ constexpr int dkv_units0(int units) {
+  return (units + 1) / 2;
 }
 
-// A dk/dv consumer of the cluster: the block's 64 keys (key, key + 8 its
-// rows), U 64-column units of dk and dv from unit cw dkv_units0(HD)
-// (consumer 0 the first dkv_units0 of the block's C / 64, consumer 1 the
-// rest). Both consumers form the block's partial s^T and dp^T; each sums
-// the same consumer's of every block of the cluster.
+// A dk/dv consumer of a pair: the block's 64 keys (key, key + 8 its rows),
+// U 64-column units of dk and dv from unit cw dkv_units0(C / 64) (consumer
+// 0 the first dkv_units0 of the block's C / 64, consumer 1 the rest). Both
+// consumers form the block's partial s^T and dp^T; each sums the same
+// consumer's of every block of the cluster.
 template <typename T, int HD, int U>
 __device__ __forceinline__ void dkv_pair_consume(
     const unsigned char* Ks, const unsigned char* Vs,
@@ -2489,7 +2504,7 @@ __device__ __forceinline__ void dkv_pair_consume(
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int key = k0 + 16 * warp + g;        // and key + 8
-  const int u0 = dkv_units0(HD) * cw;
+  const int u0 = dkv_units0(C / 64) * cw;
   const float sl2 = scale * LOG2E;
   float dk_acc[U][32], dv_acc[U][32];
 #pragma unroll
@@ -2520,7 +2535,7 @@ __device__ __forceinline__ void dkv_pair_consume(
     sm90::wgmma_wait();
     sm90::fence_regs(s);
     sm90::fence_regs(dp);
-    exchange16<NB>(&xch[cw], rank, tid, j, s, dp);
+    add_peer_partials(&xch[cw], rank ^ 1, tid, j, s, dp);
 
     // p^T = exp(s^T scale - lse), ds^T = p^T (dp^T - delta) scale; rows:
     // keys key + 8((i / 2) & 1), columns: query rows q0 + c
@@ -2602,8 +2617,8 @@ __device__ __forceinline__ void dkv_pair_consume(
   }
 }
 
-// dk and dv at HD 384 to 1024, grid (NB ceil(S / 64), B*H) in clusters of
-// NB blocks along x on the same 64 keys: K and V (64 x C) resident, 32-row
+// dk and dv at HD 384 and 512, grid (NB ceil(S / 64), B*H) in pairs of
+// blocks along x on the same 64 keys: K and V (64 x C) resident, 32-row
 // Q and dO tiles (TMA) with their lse and delta (plain loads) through 3
 // stages; both consumers form s^T and dp^T (m64n32k16 over C / 16 slices)
 // summed over the cluster, consumer 0 accumulating the first dkv_units0
@@ -2624,7 +2639,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
                           T* __restrict__ dk, T* __restrict__ dv, int H, int L,
                           int S, float scale) {
   constexpr int NB = cluster16_blocks(HD), C = HD / NB, U = C / 64;
-  constexpr int KEYS = 64, U0 = dkv_units0(HD);
+  constexpr int KEYS = 64, U0 = dkv_units0(U);
   constexpr int ROWS = PAIR_DKV_ROWS, ST = PAIR_DKV_STAGES;
   constexpr int K_BOX = KEYS * ROW_BYTES, Q_BOX = ROWS * ROW_BYTES;
   constexpr int K_BYTES = U * K_BOX, Q_BYTES = U * Q_BOX;
@@ -2696,6 +2711,698 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
                                     scale);
 }
 
+// ----- bfloat16 and float16 at head dims 640 to 2048: the cluster kernels
+// Block rank r of a cluster of NB = cluster16_blocks(HD) blocks (3 to 8)
+// owns share16_units(HD, r) boxes of the head row from column
+// share16_col0(HD, r): the HD / 64 boxes dealt so that the shares differ by
+// at most one box, the wider first (640: 4 + 3 + 3 boxes; 896: 4 + 4 + 3 +
+// 3; 1152: 4 + 4 + 4 + 3 + 3; 768, 1024, .., 2048: all 4), so that every
+// block holds 3 or 4 boxes (192 or 256 columns) and a cluster's time is set
+// by a 256-column block, as at 768 and 1024. One instance per element type
+// and kernel, a template on the widest share CMAX (256): the head dim is a
+// launch argument and NB the cluster's size (a launch attribute), and each
+// block runs the body for its own share, CMAX / 64 boxes or one fewer, a
+// template on it. Shared memory is laid out for CMAX columns in every
+// block, so that each Exchange lies at the same offset in every block of
+// the cluster (map_peer maps a block's own address to a peer's). A block
+// reads its rank and the cluster's size (%cluster_ctarank,
+// %cluster_nctarank) and works out its first column from the head dim
+// where it uses them, holding none of them across the tile loop: held
+// there, the forward's consumers spilled 92 bytes.
+constexpr int CLUSTER16_CMAX = 256;              // columns a block at most
+constexpr int CLUSTER16_MIN_HD = 640, CLUSTER16_MAX_HD = 2048;
+
+// the boxes of block rank r of a 16-bit cluster at head dim hd, and its
+// first column
+__host__ __device__ constexpr int share16_units(int hd, int r) {
+  return hd / 64 / cluster16_blocks(hd) +
+         (r < hd / 64 % cluster16_blocks(hd) ? 1 : 0);
+}
+__host__ __device__ constexpr int share16_col0(int hd, int r) {
+  return 64 * (hd / 64 / cluster16_blocks(hd) * r +
+               (r < hd / 64 % cluster16_blocks(hd)
+                    ? r : hd / 64 % cluster16_blocks(hd)));
+}
+// at every head dim the cluster kernels take (multiples of 128 from 640 to
+// 2048): at most 8 blocks (the portable cluster size), each of CMAX / 64
+// boxes or one fewer, the shares one after another covering the row
+constexpr bool shares16_cover() {
+  for (int hd = CLUSTER16_MIN_HD; hd <= CLUSTER16_MAX_HD; hd += 128) {
+    int col = 0;
+    for (int r = 0; r < cluster16_blocks(hd); ++r) {
+      const int u = share16_units(hd, r);
+      if (share16_col0(hd, r) != col || u < CLUSTER16_CMAX / 64 - 1 ||
+          u > CLUSTER16_CMAX / 64)
+        return false;
+      col += 64 * u;
+    }
+    if (col != hd || cluster16_blocks(hd) > 8) return false;
+  }
+  return true;
+}
+static_assert(shares16_cover(), "shares of 3 or 4 boxes on at most 8 blocks");
+
+// rows row and row + 8 of a 64 x 64 accumulator into columns col0 .. of a
+// [B, N, H, hd] tensor whose head dim hd is a launch argument:
+// store_acc_rows on a head dim of 1 with the head's stride H hd and offset
+// h hd
+template <typename T>
+__device__ __forceinline__ void store_unit_rows(T* dst, int hd, int b, int h,
+                                                int N, int H, int row, int t,
+                                                const float (&acc)[32],
+                                                const float (&inv)[2],
+                                                int col0) {
+  store_acc_rows<T, 1>(dst, b, h * hd, N, H * hd, row, t, acc, inv, col0);
+}
+
+// the forward of a block of a cluster kernel on its U boxes:
+// flash_fwd_pair_kernel's steps on its 64 U columns, the partial s summed
+// over the cluster's blocks rank by rank
+template <typename T, int CMAX, int U>
+__device__ __forceinline__ void fwd_cluster_block(
+    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+    T* __restrict__ o, float* __restrict__ lse, int H, int L, int S, int hd,
+    float scale) {
+  constexpr int C = 64 * U, KEYS = PAIR_FWD_KEYS;
+  constexpr int Q_BOX = FWD_ROWS * ROW_BYTES, KV_BOX = KEYS * ROW_BYTES;
+  constexpr int Q_BYTES = U * Q_BOX, KV_BYTES = U * KV_BOX;   // loaded
+  constexpr int Q_SLOT = CMAX / 64 * Q_BOX, KV_SLOT = CMAX / 64 * KV_BOX;
+  extern __shared__ unsigned char raw_smem[];
+  unsigned char* const Qs = align1024(raw_smem);
+  unsigned char* const Ks = Qs + Q_SLOT;                   // [stage]
+  unsigned char* const Vs = Ks + FWD_STAGES * KV_SLOT;     // [stage]
+  auto* xch = reinterpret_cast<Exchange*>(Vs + FWD_STAGES * KV_SLOT);
+  auto* bars = reinterpret_cast<FwdBars*>(xch + 2);
+  const int nb = cluster16_blocks(hd);
+  const int q0 = (gridDim.x / nb - 1 - blockIdx.x / nb) * FWD_ROWS;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int n_tiles = (min(S, q0 + FWD_ROWS) + KEYS - 1) / KEYS;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&bars->q_full, 1);
+    for (int st = 0; st < FWD_STAGES; ++st) {
+      sm90::mbar_init(&bars->k_full[st], 1);
+      sm90::mbar_init(&bars->v_full[st], 1);
+      sm90::mbar_init(&bars->empty[st], 2 * WG / 32);   // consumer warps
+    }
+    init_exchange(&xch[0], nb - 1);
+    init_exchange(&xch[1], nb - 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  sm90::cluster_sync();   // the peers' barriers too
+
+  if (wg == 0) {   // producer
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      const int col0 = share16_col0(hd, sm90::cluster_ctarank());
+      sm90::mbar_arrive_expect_tx(&bars->q_full, Q_BYTES);
+      load_rows<C>(Qs, Q_BOX, tq, &bars->q_full, h, q0, b, col0);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % FWD_STAGES;
+        sm90::mbar_wait(&bars->empty[st], ((j / FWD_STAGES) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&bars->k_full[st], KV_BYTES);
+        load_rows<C>(Ks + st * KV_SLOT, KV_BOX, tk, &bars->k_full[st], h,
+                     j * KEYS, b, col0);
+        sm90::mbar_arrive_expect_tx(&bars->v_full[st], KV_BYTES);
+        load_rows<C>(Vs + st * KV_SLOT, KV_BOX, tv, &bars->v_full[st], h,
+                     j * KEYS, b, col0);
+      }
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<240>();
+  const int cw = wg - 1;                     // rows q0 + 64 cw ..
+  const int tid = threadIdx.x % WG;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row = q0 + 64 * cw + 16 * warp + g;   // and row + 8
+  const unsigned char* const Qw = Qs + 64 * cw * ROW_BYTES;
+  const float sl2 = scale * LOG2E;           // scores in log2 units
+  float acc[U][32];                          // o, a 64-column unit each
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[u][i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  sm90::mbar_wait(&bars->q_full, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % FWD_STAGES, k0 = j * KEYS;
+    const uint32_t phase = (j / FWD_STAGES) & 1;
+    const unsigned char* kt = Ks + st * KV_SLOT;
+    const unsigned char* vt = Vs + st * KV_SLOT;
+    float s[KEYS / 2];
+    const uint64_t desc_q = k_major(Qw), desc_k = k_major(kt);
+    sm90::mbar_wait(&bars->k_full[st], phase);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C / 16; ++kk)
+      sm90::wgmma_m64n64k16_ss<T>(s, desc_q + k_step(Q_BOX, kk),
+                                  desc_k + k_step(KV_BOX, kk), kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+    sm90::fence_regs(s);
+    add_cluster_partials_n(&xch[cw], sm90::cluster_nctarank(),
+                           sm90::cluster_ctarank(), tid, j, s);
+
+#pragma unroll
+    for (int i = 0; i < KEYS / 2; ++i) s[i] *= sl2;
+    // the diagonal tile and a ragged last tile: key > row or key >= S
+    if (k0 + KEYS - 1 > q0 + 64 * cw || k0 + KEYS > S) {
+#pragma unroll
+      for (int i = 0; i < KEYS / 2; ++i) {
+        const int key = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+        if (key > row + 8 * ((i / 2) & 1) || key >= S) s[i] = NEG_INF;
+      }
+    }
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int i = 0; i < KEYS / 2; ++i)
+      mx[(i / 2) & 1] = fmaxf(mx[(i / 2) & 1], s[i]);
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];                      // this thread's share of the sum
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      sm90::fence_regs(acc[u]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[u][i] *= alpha[(i / 2) & 1];
+    }
+    // p (float) into the row sums, p rounded to T into the A registers
+    uint32_t pa[KEYS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < KEYS / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 8 * kk + 2 * r, half = r & 1;
+        const float p0 = exp2f(s[i] - m[half]), p1 = exp2f(s[i + 1] - m[half]);
+        l[half] += p0;
+        l[half] += p1;
+        pa[kk][r] = pack16<T>(p0, p1);
+      }
+
+    const uint64_t desc_v = mn_major(vt, KV_BOX);
+    sm90::mbar_wait(&bars->v_full[st], phase);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int kk = 0; kk < KEYS / 16; ++kk)
+        sm90::wgmma_m64n64k16_rs<T>(
+            acc[u], pa[kk], desc_v + ((u * KV_BOX) >> 4) + mn_step(kk), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+#pragma unroll
+    for (int u = 0; u < U; ++u) sm90::fence_regs(acc[u]);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
+  }
+  drain_exchange(&xch[cw], n_tiles);
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+    inv[r] = 1.f / l[r];
+    if (t == 0 && row + 8 * r < L &&
+        sm90::cluster_ctarank() == 0)        // every block holds it
+      lse[static_cast<int64_t>(bh) * L + row + 8 * r] = m[r] * LN2 + logf(l[r]);
+  }
+  const int col0 = share16_col0(hd, sm90::cluster_ctarank());
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    store_unit_rows(o, hd, b, h, L, H, row, t, acc[u], inv, col0 + 64 * u);
+}
+
+// forward at HD 640 to 2048 (a launch argument), grid (NB ceil(L /
+// FWD_ROWS), B*H) in clusters of NB = cluster16_blocks(HD) blocks along x,
+// each running fwd_cluster_block on its share
+template <typename T, int CMAX>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+    flash_fwd_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             T* __restrict__ o, float* __restrict__ lse,
+                             int H, int L, int S, int hd, float scale) {
+  if (share16_units(hd, sm90::cluster_ctarank()) == CMAX / 64)
+    fwd_cluster_block<T, CMAX, CMAX / 64>(&tq, &tk, &tv, o, lse, H, L, S, hd,
+                                          scale);
+  else
+    fwd_cluster_block<T, CMAX, CMAX / 64 - 1>(&tq, &tk, &tv, o, lse, H, L,
+                                              S, hd, scale);
+}
+
+// dq of a block of a cluster kernel on its U boxes: flash_dq_pair_kernel's
+// steps on its 64 U columns, the partial s and dp summed over the
+// cluster's blocks rank by rank
+template <typename T, int CMAX, int U>
+__device__ __forceinline__ void dq_cluster_block(
+    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+    const CUtensorMap* tg, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dq, int H, int L, int S,
+    int hd, float scale) {
+  constexpr int C = 64 * U, KEYS = PAIR_DQ_KEYS;
+  constexpr int Q_BOX = DQ_ROWS * ROW_BYTES, KV_BOX = KEYS * ROW_BYTES;
+  constexpr int Q_BYTES = U * Q_BOX, KV_BYTES = U * KV_BOX;   // loaded
+  constexpr int Q_SLOT = CMAX / 64 * Q_BOX, KV_SLOT = CMAX / 64 * KV_BOX;
+  extern __shared__ unsigned char raw_smem[];
+  unsigned char* const Qs = align1024(raw_smem);
+  unsigned char* const Gs = Qs + Q_SLOT;                   // dO
+  unsigned char* const Ks = Gs + Q_SLOT;                   // [stage]
+  unsigned char* const Vs = Ks + FWD_STAGES * KV_SLOT;     // [stage]
+  auto* xch = reinterpret_cast<Exchange*>(Vs + FWD_STAGES * KV_SLOT);
+  auto* bars = reinterpret_cast<FwdBars*>(xch + 2);
+  const int nb = cluster16_blocks(hd);
+  const int q0 = (gridDim.x / nb - 1 - blockIdx.x / nb) * DQ_ROWS;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int n_tiles = (min(S, q0 + DQ_ROWS) + KEYS - 1) / KEYS;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&bars->q_full, 1);
+    for (int st = 0; st < FWD_STAGES; ++st) {
+      sm90::mbar_init(&bars->k_full[st], 1);
+      sm90::mbar_init(&bars->v_full[st], 1);
+      sm90::mbar_init(&bars->empty[st], 2 * WG / 32);   // consumer warps
+    }
+    init_exchange(&xch[0], nb - 1);
+    init_exchange(&xch[1], nb - 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  sm90::cluster_sync();   // the peers' barriers too
+
+  if (wg == 0) {   // producer
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      const int col0 = share16_col0(hd, sm90::cluster_ctarank());
+      sm90::mbar_arrive_expect_tx(&bars->q_full, 2 * Q_BYTES);
+      load_rows<C>(Qs, Q_BOX, tq, &bars->q_full, h, q0, b, col0);
+      load_rows<C>(Gs, Q_BOX, tg, &bars->q_full, h, q0, b, col0);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % FWD_STAGES;
+        sm90::mbar_wait(&bars->empty[st], ((j / FWD_STAGES) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&bars->k_full[st], KV_BYTES);
+        load_rows<C>(Ks + st * KV_SLOT, KV_BOX, tk, &bars->k_full[st], h,
+                     j * KEYS, b, col0);
+        sm90::mbar_arrive_expect_tx(&bars->v_full[st], KV_BYTES);
+        load_rows<C>(Vs + st * KV_SLOT, KV_BOX, tv, &bars->v_full[st], h,
+                     j * KEYS, b, col0);
+      }
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<240>();
+  const int cw = wg - 1;                     // rows r0 = q0 + 64 cw ..
+  const int tid = threadIdx.x % WG;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = q0 + 64 * cw;
+  const int row = r0 + 16 * warp + g;        // and row + 8
+  const unsigned char* const Qw = Qs + 64 * cw * ROW_BYTES;
+  const unsigned char* const Gw = Gs + 64 * cw * ROW_BYTES;
+  const float sl2 = scale * LOG2E;
+  float lse2[2], dl[2];                      // lse in log2 units, delta
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = row + 8 * r < L;
+    const int64_t i = static_cast<int64_t>(bh) * L + row + 8 * r;
+    lse2[r] = in ? lse[i] * LOG2E : 0.f;
+    dl[r] = in ? delta[i] : 0.f;
+  }
+  // tiles whose first key lies past this consumer's last row add nothing
+  const int my_tiles = (min(S, r0 + 64) + KEYS - 1) / KEYS;
+  float acc[U][32];                          // dq, a 64-column unit each
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[u][i] = 0.f;
+  int ds_e[2] = {DS16_E0, DS16_E0};          // float16: ds's row scales
+  sm90::mbar_wait(&bars->q_full, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % FWD_STAGES, k0 = j * KEYS;
+    const uint32_t phase = (j / FWD_STAGES) & 1;
+    const unsigned char* kt = Ks + st * KV_SLOT;
+    const unsigned char* vt = Vs + st * KV_SLOT;
+    sm90::mbar_wait(&bars->k_full[st], phase);
+    sm90::mbar_wait(&bars->v_full[st], phase);
+    if (j < my_tiles) {
+      float s[KEYS / 2], dp[KEYS / 2];
+      const uint64_t desc_q = k_major(Qw), desc_k = k_major(kt);
+      const uint64_t desc_g = k_major(Gw), desc_v = k_major(vt);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C / 16; ++kk)
+        sm90::wgmma_m64n32k16_ss<T>(s, desc_q + k_step(Q_BOX, kk),
+                                    desc_k + k_step(KV_BOX, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < C / 16; ++kk)
+        sm90::wgmma_m64n32k16_ss<T>(dp, desc_g + k_step(Q_BOX, kk),
+                                    desc_v + k_step(KV_BOX, kk), kk > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait();
+      sm90::fence_regs(s);
+      sm90::fence_regs(dp);
+      // live tiles are the first my_tiles, so j counts the exchanges
+      add_cluster_partials_n(&xch[cw], sm90::cluster_nctarank(),
+                             sm90::cluster_ctarank(), tid, j, s, dp);
+
+      // p = exp(s scale - lse), ds = p (dp - delta) scale; rows: queries
+      // row + 8((i / 2) & 1), columns: keys k0 + c
+      const bool edge = k0 + KEYS - 1 > r0 || k0 + KEYS > S;
+#pragma unroll
+      for (int i = 0; i < KEYS / 2; ++i) {
+        const int r = (i / 2) & 1;
+        float p = exp2f(fmaf(s[i], sl2, -lse2[r]));
+        if (edge) {
+          const int kc = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+          if (kc > row + 8 * r || kc >= S) p = 0.f;
+        }
+        dp[i] = p * (dp[i] - dl[r]) * scale;
+      }
+      if constexpr (sm90::is_f16<T>) {   // ds on its row scales
+        float rescale[2];
+        if (scale_ds_rows(dp, ds_e, rescale)) {
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            sm90::fence_regs(acc[u]);
+#pragma unroll
+            for (int i = 0; i < 32; ++i) acc[u][i] *= rescale[(i / 2) & 1];
+          }
+        }
+      }
+      uint32_t d_hi[KEYS / 16][4], d_mid[KEYS / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < KEYS / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          split2<T>(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1], d_hi[kk][r],
+                    d_mid[kk][r]);
+#pragma unroll
+      for (int u = 0; u < U; ++u) sm90::fence_regs(acc[u]);
+      sm90::wgmma_fence();
+      const uint64_t desc_kt = mn_major(kt, KV_BOX);
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int kk = 0; kk < KEYS / 16; ++kk) {
+          const uint64_t bk = desc_kt + ((u * KV_BOX) >> 4) + mn_step(kk);
+          sm90::wgmma_m64n64k16_rs<T>(acc[u], d_hi[kk], bk, 1);
+          sm90::wgmma_m64n64k16_rs<T>(acc[u], d_mid[kk], bk, 1);
+        }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait();
+#pragma unroll
+      for (int u = 0; u < U; ++u) sm90::fence_regs(acc[u]);
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
+  }
+  drain_exchange(&xch[cw], min(my_tiles, n_tiles));
+  float inv[2] = {1.f, 1.f};
+  if constexpr (sm90::is_f16<T>) {           // the row scales undone
+    inv[0] = pow2(-ds_e[0]);
+    inv[1] = pow2(-ds_e[1]);
+  }
+  const int col0 = share16_col0(hd, sm90::cluster_ctarank());
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    store_unit_rows(dq, hd, b, h, L, H, row, t, acc[u], inv, col0 + 64 * u);
+}
+
+// dq at HD 640 to 2048, grid (NB ceil(L / DQ_ROWS), B*H) in clusters of NB
+// blocks along x, each running dq_cluster_block on its share
+template <typename T, int CMAX>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+    flash_dq_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tg,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            T* __restrict__ dq, int H, int L, int S, int hd,
+                            float scale) {
+  if (share16_units(hd, sm90::cluster_ctarank()) == CMAX / 64)
+    dq_cluster_block<T, CMAX, CMAX / 64>(&tq, &tk, &tv, &tg, lse, delta, dq,
+                                         H, L, S, hd, scale);
+  else
+    dq_cluster_block<T, CMAX, CMAX / 64 - 1>(&tq, &tk, &tv, &tg, lse, delta,
+                                             dq, H, L, S, hd, scale);
+}
+
+// A dk/dv consumer of a block of a cluster kernel on UB boxes: the block's
+// 64 keys (key, key + 8 its rows), U 64-column units of dk and dv from unit
+// cw dkv_units0(UB) of its share (dkv_pair_consume's steps). Both consumers
+// form the block's partial s^T and dp^T; each sums the same consumer's of
+// the cluster's blocks rank by rank.
+template <typename T, int CMAX, int UB, int U>
+__device__ __forceinline__ void dkv_cluster_consume(
+    const unsigned char* Ks, const unsigned char* Vs,
+    const unsigned char* Qs, const unsigned char* Gs,
+    const DkvStats<PAIR_DKV_STAGES, PAIR_DKV_ROWS>* stats,
+    DkvBars<PAIR_DKV_STAGES>* bars, Exchange* xch, T* __restrict__ dk,
+    T* __restrict__ dv, int b, int h, int H, int L, int S, int hd, int k0,
+    int n_tiles, int cw, float scale) {
+  constexpr int C = 64 * UB, KEYS = 64;
+  constexpr int ROWS = PAIR_DKV_ROWS, ST = PAIR_DKV_STAGES;
+  constexpr int K_BOX = KEYS * ROW_BYTES, Q_BOX = ROWS * ROW_BYTES;
+  constexpr int Q_SLOT = CMAX / 64 * Q_BOX;
+  const int tid = threadIdx.x % WG;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int key = k0 + 16 * warp + g;        // and key + 8
+  const int u0 = dkv_units0(UB) * cw;
+  const float sl2 = scale * LOG2E;
+  float dk_acc[U][32], dv_acc[U][32];
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[u][i] = dv_acc[u][i] = 0.f;
+  int ds_e[2] = {DS16_E0, DS16_E0};          // float16: ds^T's row scales
+  sm90::mbar_wait(&bars->kv_full, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % ST, q0 = k0 + j * ROWS;
+    const unsigned char* qt = Qs + st * Q_SLOT;
+    const unsigned char* gt = Gs + st * Q_SLOT;
+    float s[ROWS / 2], dp[ROWS / 2];
+    const uint64_t desc_k = k_major(Ks), desc_q = k_major(qt);
+    const uint64_t desc_v = k_major(Vs), desc_g = k_major(gt);
+    sm90::mbar_wait(&bars->full[st], (j / ST) & 1);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C / 16; ++kk)
+      sm90::wgmma_m64n32k16_ss<T>(s, desc_k + k_step(K_BOX, kk),
+                                  desc_q + k_step(Q_BOX, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < C / 16; ++kk)
+      sm90::wgmma_m64n32k16_ss<T>(dp, desc_v + k_step(K_BOX, kk),
+                                  desc_g + k_step(Q_BOX, kk), kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+    add_cluster_partials_n(&xch[cw], sm90::cluster_nctarank(),
+                           sm90::cluster_ctarank(), tid, j, s, dp);
+
+    // p^T = exp(s^T scale - lse), ds^T = p^T (dp^T - delta) scale; rows:
+    // keys key + 8((i / 2) & 1), columns: query rows q0 + c
+    const bool edge = k0 + KEYS - 1 > q0 || q0 + ROWS > L || k0 + KEYS > S;
+#pragma unroll
+    for (int i = 0; i < ROWS / 2; ++i) {
+      const int c = 8 * (i / 4) + 2 * t + (i & 1);
+      float p = exp2f(fmaf(s[i], sl2, -stats->lse[st][c] * LOG2E));
+      if (edge) {
+        const int kc = key + 8 * ((i / 2) & 1), qr = q0 + c;
+        if (kc > qr || kc >= S || qr >= L) p = 0.f;
+      }
+      dp[i] = p * (dp[i] - stats->delta[st][c]) * scale;
+      s[i] = p;
+    }
+    if constexpr (sm90::is_f16<T>) {   // p^T 2^P16_E, ds^T on its row scales
+#pragma unroll
+      for (int i = 0; i < ROWS / 2; ++i) s[i] *= pow2(P16_E);
+      float rescale[2];
+      if (scale_ds_rows(dp, ds_e, rescale)) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          sm90::fence_regs(dk_acc[u]);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) dk_acc[u][i] *= rescale[(i / 2) & 1];
+        }
+      }
+    }
+    uint32_t a_hi[ROWS / 16][4], a_mid[ROWS / 16][4];
+    uint32_t d_hi[ROWS / 16][4], d_mid[ROWS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < ROWS / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        split2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], a_hi[kk][r],
+                  a_mid[kk][r]);
+        split2<T>(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1], d_hi[kk][r],
+                  d_mid[kk][r]);
+      }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      sm90::fence_regs(dv_acc[u]);
+      sm90::fence_regs(dk_acc[u]);
+    }
+    sm90::wgmma_fence();
+    const uint64_t desc_gt = mn_major(gt, Q_BOX), desc_qt = mn_major(qt, Q_BOX);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int kk = 0; kk < ROWS / 16; ++kk) {
+        const uint64_t box = (((u0 + u) * Q_BOX) >> 4) + mn_step(kk);
+        sm90::wgmma_m64n64k16_rs<T>(dv_acc[u], a_hi[kk], desc_gt + box, 1);
+        sm90::wgmma_m64n64k16_rs<T>(dv_acc[u], a_mid[kk], desc_gt + box, 1);
+        sm90::wgmma_m64n64k16_rs<T>(dk_acc[u], d_hi[kk], desc_qt + box, 1);
+        sm90::wgmma_m64n64k16_rs<T>(dk_acc[u], d_mid[kk], desc_qt + box, 1);
+      }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      sm90::fence_regs(dk_acc[u]);
+      sm90::fence_regs(dv_acc[u]);
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
+  }
+  drain_exchange(&xch[cw], n_tiles);
+  float dk_inv[2] = {1.f, 1.f}, dv_inv[2] = {1.f, 1.f};
+  if constexpr (sm90::is_f16<T>) {           // the scales undone
+    dk_inv[0] = pow2(-ds_e[0]);
+    dk_inv[1] = pow2(-ds_e[1]);
+    dv_inv[0] = dv_inv[1] = pow2(-P16_E);
+  }
+  const int col0 = share16_col0(hd, sm90::cluster_ctarank());
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int col = col0 + 64 * (u0 + u);
+    store_unit_rows(dk, hd, b, h, S, H, key, t, dk_acc[u], dk_inv, col);
+    store_unit_rows(dv, hd, b, h, S, H, key, t, dv_acc[u], dv_inv, col);
+  }
+}
+
+// dk and dv of a block of a cluster kernel on its UB boxes:
+// flash_dkv_pair_kernel's steps on its 64 UB columns
+template <typename T, int CMAX, int UB>
+__device__ __forceinline__ void dkv_cluster_block(
+    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+    const CUtensorMap* tg, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    int H, int L, int S, int hd, float scale) {
+  constexpr int C = 64 * UB, KEYS = 64, U0 = dkv_units0(UB);
+  constexpr int ROWS = PAIR_DKV_ROWS, ST = PAIR_DKV_STAGES;
+  constexpr int K_BOX = KEYS * ROW_BYTES, Q_BOX = ROWS * ROW_BYTES;
+  constexpr int K_BYTES = UB * K_BOX, Q_BYTES = UB * Q_BOX;   // loaded
+  constexpr int K_SLOT = CMAX / 64 * K_BOX, Q_SLOT = CMAX / 64 * Q_BOX;
+  extern __shared__ unsigned char raw_smem[];
+  unsigned char* const Ks = align1024(raw_smem);
+  unsigned char* const Vs = Ks + K_SLOT;
+  unsigned char* const Qs = Vs + K_SLOT;                 // [stage]
+  unsigned char* const Gs = Qs + ST * Q_SLOT;            // [stage] dO
+  auto* xch = reinterpret_cast<Exchange*>(Gs + ST * Q_SLOT);
+  auto* stats = reinterpret_cast<DkvStats<ST, ROWS>*>(xch + 2);
+  auto* bars = reinterpret_cast<DkvBars<ST>*>(stats + 1);
+  const int nb = cluster16_blocks(hd);
+  const int k0 = (blockIdx.x / nb) * KEYS;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int n_tiles = k0 < L ? (L - k0 + ROWS - 1) / ROWS : 0;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&bars->kv_full, 1);
+    for (int st = 0; st < ST; ++st) {
+      sm90::mbar_init(&bars->full[st], 32);            // the producer warp
+      sm90::mbar_init(&bars->empty[st], 2 * WG / 32);  // consumer warps
+    }
+    init_exchange(&xch[0], nb - 1);
+    init_exchange(&xch[1], nb - 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  sm90::cluster_sync();   // the peers' barriers too
+
+  if (wg == 0) {   // producer: its first warp, one row of a tile a lane
+    sm90::setmaxnreg_dec<40>();
+    const int lane = threadIdx.x;
+    if (lane >= 32) return;
+    const float* const lse_bh = lse + static_cast<int64_t>(bh) * L;
+    const float* const delta_bh = delta + static_cast<int64_t>(bh) * L;
+    const int col0 = share16_col0(hd, sm90::cluster_ctarank());
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(&bars->kv_full, 2 * K_BYTES);
+      load_rows<C>(Ks, K_BOX, tk, &bars->kv_full, h, k0, b, col0);
+      load_rows<C>(Vs, K_BOX, tv, &bars->kv_full, h, k0, b, col0);
+    }
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % ST, q0 = k0 + j * ROWS;
+      sm90::mbar_wait(&bars->empty[st], ((j / ST) & 1) ^ 1);
+      const bool in = q0 + lane < L;
+      stats->lse[st][lane] = in ? lse_bh[q0 + lane] : 0.f;
+      stats->delta[st][lane] = in ? delta_bh[q0 + lane] : 0.f;
+      if (lane == 0) {
+        sm90::mbar_arrive_expect_tx(&bars->full[st], 2 * Q_BYTES);
+        load_rows<C>(Qs + st * Q_SLOT, Q_BOX, tq, &bars->full[st], h, q0, b,
+                     col0);
+        load_rows<C>(Gs + st * Q_SLOT, Q_BOX, tg, &bars->full[st], h, q0, b,
+                     col0);
+      } else {
+        sm90::mbar_arrive(&bars->full[st]);
+      }
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<232>();
+  if (wg == 1)
+    dkv_cluster_consume<T, CMAX, UB, U0>(Ks, Vs, Qs, Gs, stats, bars, xch,
+                                         dk, dv, b, h, H, L, S, hd, k0,
+                                         n_tiles, 0, scale);
+  else
+    dkv_cluster_consume<T, CMAX, UB, UB - U0>(Ks, Vs, Qs, Gs, stats, bars,
+                                              xch, dk, dv, b, h, H, L, S, hd,
+                                              k0, n_tiles, 1, scale);
+}
+
+// dk and dv at HD 640 to 2048, grid (NB ceil(S / 64), B*H) in clusters of
+// NB blocks along x on the same 64 keys, each running dkv_cluster_block on
+// its share
+template <typename T, int CMAX>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+    flash_dkv_cluster_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tg,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             T* __restrict__ dk, T* __restrict__ dv, int H,
+                             int L, int S, int hd, float scale) {
+  if (share16_units(hd, sm90::cluster_ctarank()) == CMAX / 64)
+    dkv_cluster_block<T, CMAX, CMAX / 64>(&tq, &tk, &tv, &tg, lse, delta, dk,
+                                          dv, H, L, S, hd, scale);
+  else
+    dkv_cluster_block<T, CMAX, CMAX / 64 - 1>(&tq, &tk, &tv, &tg, lse, delta,
+                                              dk, dv, H, L, S, hd, scale);
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -2703,58 +3410,56 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// a launch of `blocks` x `rows` clusters of NB blocks along x (the NB
-// column slices of each block of rows: blocks NB i .. NB i + NB - 1); `dim`
-// holds the cluster attribute that `cfg` points to
-template <int NB>
+// a launch of `blocks` x `rows` clusters of nb blocks along x (the nb
+// column slices of each block of rows: blocks nb i .. nb i + nb - 1);
+// `dim` holds the cluster attribute that `cfg` points to
 void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& dim,
-                    int blocks, int rows, int threads, size_t smem,
+                    int nb, int blocks, int rows, int threads, size_t smem,
                     cudaStream_t stream) {
-  static_assert(NB >= 1 && NB <= 8, "a portable cluster holds 1-8 blocks");
   cfg = {};
-  cfg.gridDim = dim3(NB * blocks, rows);
+  cfg.gridDim = dim3(nb * blocks, rows);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   dim.id = cudaLaunchAttributeClusterDimension;
-  dim.val.clusterDim.x = NB;
+  dim.val.clusterDim.x = nb;
   dim.val.clusterDim.y = 1;
   dim.val.clusterDim.z = 1;
   cfg.attrs = &dim;
   cfg.numAttrs = 1;
 }
 
-// `kernel` over `blocks` x `rows` blocks: a plain launch (NB 1), or clusters
-// of NB blocks along x through cudaLaunchKernelEx (the float32 kernels at
-// head dims 256 to 1024: NB = HD / 128; the 16-bit ones at 384 to 1024:
-// cluster16_blocks)
-template <int NB, typename... Params, typename... Args>
-int launch_grid(void (*kernel)(Params...), int blocks, int rows, int threads,
-                size_t smem, cudaStream_t stream, Args... args) {
+// `kernel` over `blocks` x `rows` blocks: a plain launch (nb 1), or
+// clusters of nb blocks along x through cudaLaunchKernelEx (the float32
+// kernels at head dims 256 to 1024: nb = HD / 128; the 16-bit ones at 384
+// to 2048: cluster16_blocks; 1 to 8, the portable cluster sizes)
+template <typename... Params, typename... Args>
+int launch_grid(void (*kernel)(Params...), int nb, int blocks, int rows,
+                int threads, size_t smem, cudaStream_t stream, Args... args) {
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if constexpr (NB == 1) {
+  if (nb == 1) {
     kernel<<<dim3(blocks, rows), threads, smem, stream>>>(args...);
   } else {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute dim;
-    cluster_config<NB>(cfg, dim, blocks, rows, threads, smem, stream);
+    cluster_config(cfg, dim, nb, blocks, rows, threads, smem, stream);
     err = cudaLaunchKernelEx(&cfg, kernel, args...);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// how many clusters of `kernel` (NB blocks of `threads` threads and `smem`
+// how many clusters of `kernel` (nb blocks of `threads` threads and `smem`
 // bytes each) the card can hold at once, into *n (0: it cannot launch one)
-template <int NB, typename... Params>
-int max_clusters(void (*kernel)(Params...), int threads, size_t smem,
+template <typename... Params>
+int max_clusters(void (*kernel)(Params...), int nb, int threads, size_t smem,
                  int* n) {
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute dim;
-  cluster_config<NB>(cfg, dim, 1, 1, threads, smem, nullptr);
+  cluster_config(cfg, dim, nb, 1, 1, threads, smem, nullptr);
   return static_cast<int>(cudaOccupancyMaxActiveClusters(
       n, reinterpret_cast<const void*>(kernel), &cfg));
 }
@@ -2765,8 +3470,8 @@ template <int HD>
 int launch_fwd_split3(const void* q, const void* k, const void* v, void* o,
                       float* lse, int B, int H, int L, int S, float scale,
                       cudaStream_t stream) {
-  return launch_grid<HD / D>(
-      flash_fwd_split3_kernel<HD>, (L + F3_ROWS - 1) / F3_ROWS, B * H,
+  return launch_grid(
+      flash_fwd_split3_kernel<HD>, HD / D, (L + F3_ROWS - 1) / F3_ROWS, B * H,
       SM90_THREADS, fwd3_smem<HD>(), stream, static_cast<const float*>(q),
       static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), lse, H, L, S, scale);
@@ -2777,8 +3482,8 @@ int launch_dq_split3(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
                      void* dq, int B, int H, int L, int S, float scale,
                      cudaStream_t stream) {
-  return launch_grid<HD / D>(
-      flash_dq_split3_kernel<HD>, (L + Q3_ROWS - 1) / Q3_ROWS, B * H,
+  return launch_grid(
+      flash_dq_split3_kernel<HD>, HD / D, (L + Q3_ROWS - 1) / Q3_ROWS, B * H,
       D3_THREADS, dq3_smem<HD>(), stream, static_cast<const float*>(q),
       static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq),
@@ -2790,8 +3495,8 @@ int launch_dkv_split3(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dk, void* dv, int B, int H, int L, int S,
                       float scale, cudaStream_t stream) {
-  return launch_grid<HD / D>(
-      flash_dkv_split3_kernel<HD>, (S + D3_KEYS - 1) / D3_KEYS, B * H,
+  return launch_grid(
+      flash_dkv_split3_kernel<HD>, HD / D, (S + D3_KEYS - 1) / D3_KEYS, B * H,
       D3_THREADS, dkv3_smem<HD>(), stream, static_cast<const float*>(q),
       static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
@@ -2867,8 +3572,10 @@ int launch_dq_sm90(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// 16-bit (T) forward, dq and dk/dv at head dim HD 384 to 1024: clusters of
-// NB = cluster16_blocks(HD) blocks, each on HD / NB columns
+// 16-bit (T) forward, dq and dk/dv at head dim 384 or 512 (HD, the pairs)
+// or 640 to 2048 (hd, the cluster kernels): clusters of cluster16_blocks
+// blocks. Tensor maps of 64-column boxes over the whole head row; each block
+// loads its own boxes
 template <typename T, int HD>
 int launch_fwd_pair(const void* q, const void* k, const void* v, void* o,
                     float* lse, int B, int H, int L, int S, float scale,
@@ -2880,10 +3587,29 @@ int launch_fwd_pair(const void* q, const void* k, const void* v, void* o,
   if (err == cudaSuccess)
     err = sm90::make_head_map<T>(&tv, v, B, S, H, HD, PAIR_FWD_KEYS);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_grid<cluster16_blocks(HD)>(
-      flash_fwd_pair_kernel<T, HD>, (L + FWD_ROWS - 1) / FWD_ROWS, B * H,
-      SM90_THREADS, pair_q_smem<HD, PAIR_FWD_KEYS, 1>(), stream, tq, tk, tv,
-      static_cast<T*>(o), lse, H, L, S, scale);
+  constexpr int NB = cluster16_blocks(HD);
+  return launch_grid(flash_fwd_pair_kernel<T, HD>, NB,
+                     (L + FWD_ROWS - 1) / FWD_ROWS, B * H, SM90_THREADS,
+                     cluster16_q_smem<HD / NB, PAIR_FWD_KEYS, 1>(), stream,
+                     tq, tk, tv, static_cast<T*>(o), lse, H, L, S, scale);
+}
+
+template <typename T>
+int launch_fwd_cluster(const void* q, const void* k, const void* v, void* o,
+                       float* lse, int B, int H, int L, int S, int hd,
+                       float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = sm90::make_head_map<T>(&tq, q, B, L, H, hd, FWD_ROWS);
+  if (err == cudaSuccess)
+    err = sm90::make_head_map<T>(&tk, k, B, S, H, hd, PAIR_FWD_KEYS);
+  if (err == cudaSuccess)
+    err = sm90::make_head_map<T>(&tv, v, B, S, H, hd, PAIR_FWD_KEYS);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_grid(
+      flash_fwd_cluster_kernel<T, CLUSTER16_CMAX>, cluster16_blocks(hd),
+      (L + FWD_ROWS - 1) / FWD_ROWS, B * H, SM90_THREADS,
+      cluster16_q_smem<CLUSTER16_CMAX, PAIR_FWD_KEYS, 1>(), stream, tq, tk,
+      tv, static_cast<T*>(o), lse, H, L, S, hd, scale);
 }
 
 template <typename T, int HD>
@@ -2900,10 +3626,33 @@ int launch_dq_pair(const void* q, const void* k, const void* v,
   if (err == cudaSuccess)
     err = sm90::make_head_map<T>(&tv, v, B, S, H, HD, PAIR_DQ_KEYS);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_grid<cluster16_blocks(HD)>(
-      flash_dq_pair_kernel<T, HD>, (L + DQ_ROWS - 1) / DQ_ROWS, B * H,
-      SM90_THREADS, pair_q_smem<HD, PAIR_DQ_KEYS, 2>(), stream, tq, tk, tv,
-      tg, lse, delta, static_cast<T*>(dq), H, L, S, scale);
+  constexpr int NB = cluster16_blocks(HD);
+  return launch_grid(flash_dq_pair_kernel<T, HD>, NB,
+                     (L + DQ_ROWS - 1) / DQ_ROWS, B * H, SM90_THREADS,
+                     cluster16_q_smem<HD / NB, PAIR_DQ_KEYS, 2>(), stream,
+                     tq, tk, tv, tg, lse, delta, static_cast<T*>(dq), H, L,
+                     S, scale);
+}
+
+template <typename T>
+int launch_dq_cluster(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dq, int B, int H, int L, int S, int hd,
+                      float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tg;
+  cudaError_t err = sm90::make_head_map<T>(&tq, q, B, L, H, hd, DQ_ROWS);
+  if (err == cudaSuccess)
+    err = sm90::make_head_map<T>(&tg, dout, B, L, H, hd, DQ_ROWS);
+  if (err == cudaSuccess)
+    err = sm90::make_head_map<T>(&tk, k, B, S, H, hd, PAIR_DQ_KEYS);
+  if (err == cudaSuccess)
+    err = sm90::make_head_map<T>(&tv, v, B, S, H, hd, PAIR_DQ_KEYS);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_grid(
+      flash_dq_cluster_kernel<T, CLUSTER16_CMAX>, cluster16_blocks(hd),
+      (L + DQ_ROWS - 1) / DQ_ROWS, B * H, SM90_THREADS,
+      cluster16_q_smem<CLUSTER16_CMAX, PAIR_DQ_KEYS, 2>(), stream, tq, tk, tv,
+      tg, lse, delta, static_cast<T*>(dq), H, L, S, hd, scale);
 }
 
 template <typename T, int HD>
@@ -2921,10 +3670,33 @@ int launch_dkv_pair(const void* q, const void* k, const void* v,
   if (err == cudaSuccess)
     err = sm90::make_head_map<T>(&tv, v, B, S, H, HD, 64);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_grid<cluster16_blocks(HD)>(
-      flash_dkv_pair_kernel<T, HD>, (S + 63) / 64, B * H, SM90_THREADS,
-      dkv_pair_smem<HD>(), stream, tq, tk, tv, tg, lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), H, L, S, scale);
+  constexpr int NB = cluster16_blocks(HD);
+  return launch_grid(flash_dkv_pair_kernel<T, HD>, NB, (S + 63) / 64, B * H,
+                     SM90_THREADS, cluster16_dkv_smem<HD / NB>(), stream, tq,
+                     tk, tv, tg, lse, delta, static_cast<T*>(dk),
+                     static_cast<T*>(dv), H, L, S, scale);
+}
+
+template <typename T>
+int launch_dkv_cluster(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* delta,
+                       void* dk, void* dv, int B, int H, int L, int S, int hd,
+                       float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tg;
+  cudaError_t err = sm90::make_head_map<T>(&tq, q, B, L, H, hd,
+                                                  PAIR_DKV_ROWS);
+  if (err == cudaSuccess)
+    err = sm90::make_head_map<T>(&tg, dout, B, L, H, hd, PAIR_DKV_ROWS);
+  if (err == cudaSuccess)
+    err = sm90::make_head_map<T>(&tk, k, B, S, H, hd, 64);
+  if (err == cudaSuccess)
+    err = sm90::make_head_map<T>(&tv, v, B, S, H, hd, 64);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_grid(
+      flash_dkv_cluster_kernel<T, CLUSTER16_CMAX>, cluster16_blocks(hd),
+      (S + 63) / 64, B * H, SM90_THREADS,
+      cluster16_dkv_smem<CLUSTER16_CMAX>(), stream, tq, tk, tv, tg, lse,
+      delta, static_cast<T*>(dk), static_cast<T*>(dv), H, L, S, hd, scale);
 }
 
 // the element type codes of the C entry points' `dtype`
@@ -2934,22 +3706,16 @@ enum : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 // blocks (8: the portable cluster size)
 constexpr int SPLIT3_MAX_NB = 8;
 
-// f(std::integral_constant<int, HD>{}) at the head dim `hd` = 128 K, K from
-// K0 to K1, or cudaErrorInvalidValue for any other
-template <int K0, int K1, typename F>
-int head_dim_in(int hd, F&& f) {
+// f(std::integral_constant<int, HD>{}) at the float32 head dim `hd` = 128
+// K, K from K0 to K1 (128 .. 1024), or cudaErrorInvalidValue for any other
+template <int K0 = 1, int K1 = SPLIT3_MAX_NB, typename F>
+int split3_head_dim(int hd, F&& f) {
   if constexpr (K0 > K1) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     if (hd == K0 * D) return f(std::integral_constant<int, K0 * D>{});
-    return head_dim_in<K0 + 1, K1>(hd, f);
+    return split3_head_dim<K0 + 1, K1>(hd, f);
   }
-}
-
-// f(HD) at the float32 head dim `hd` (128 .. 1024), or cudaErrorInvalidValue
-template <typename F>
-int split3_head_dim(int hd, F&& f) {
-  return head_dim_in<1, SPLIT3_MAX_NB>(hd, f);
 }
 
 template <typename T>
@@ -2957,16 +3723,17 @@ struct Elem {
   using type = T;
 };
 
-// f(Elem<T>{}, HD) at a 16-bit cluster instance: `dtype` bfloat16 or
-// float16, `hd` 384 .. 1024 (clusters of cluster16_blocks(HD) blocks); else
-// cudaErrorInvalidValue
+// f(Elem<T>{}) for `dtype` bfloat16 or float16; else cudaErrorInvalidValue
 template <typename F>
-int cluster16_instance(int dtype, int hd, F&& f) {
-  return head_dim_in<3, 8>(hd, [&](auto h) {
-    if (dtype == kBFloat16) return f(Elem<__nv_bfloat16>{}, h);
-    if (dtype == kFloat16) return f(Elem<__half>{}, h);
-    return static_cast<int>(cudaErrorInvalidValue);
-  });
+int elem16(int dtype, F&& f) {
+  if (dtype == kBFloat16) return f(Elem<__nv_bfloat16>{});
+  if (dtype == kFloat16) return f(Elem<__half>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// whether the 16-bit cluster kernels take head dim hd
+constexpr bool cluster16_takes(int hd) {
+  return hd % 128 == 0 && hd >= CLUSTER16_MIN_HD && hd <= CLUSTER16_MAX_HD;
 }
 
 // how many clusters of the float32 kernel `kernel` (0 forward, 1 dq, 2
@@ -2974,30 +3741,49 @@ int cluster16_instance(int dtype, int hd, F&& f) {
 template <int HD>
 int max_clusters_split3(int kernel, int* n) {
   switch (kernel) {
-    case 0: return max_clusters<HD / D>(flash_fwd_split3_kernel<HD>,
-                                        SM90_THREADS, fwd3_smem<HD>(), n);
-    case 1: return max_clusters<HD / D>(flash_dq_split3_kernel<HD>,
-                                        D3_THREADS, dq3_smem<HD>(), n);
-    case 2: return max_clusters<HD / D>(flash_dkv_split3_kernel<HD>,
-                                        D3_THREADS, dkv3_smem<HD>(), n);
+    case 0: return max_clusters(flash_fwd_split3_kernel<HD>, HD / D,
+                                SM90_THREADS, fwd3_smem<HD>(), n);
+    case 1: return max_clusters(flash_dq_split3_kernel<HD>, HD / D,
+                                D3_THREADS, dq3_smem<HD>(), n);
+    case 2: return max_clusters(flash_dkv_split3_kernel<HD>, HD / D,
+                                D3_THREADS, dkv3_smem<HD>(), n);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// the same for the 16-bit cluster kernel `kernel` of element type T at head
-// dim HD (cluster16_blocks(HD) blocks a cluster)
+// the same for the 16-bit pair kernel `kernel` of element type T at head
+// dim HD (384 or 512, two blocks a cluster)
 template <typename T, int HD>
 int max_clusters_pair(int kernel, int* n) {
-  constexpr int NB = cluster16_blocks(HD);
+  constexpr int NB = cluster16_blocks(HD), C = HD / NB;
   switch (kernel) {
-    case 0: return max_clusters<NB>(flash_fwd_pair_kernel<T, HD>,
-                                    SM90_THREADS,
-                                    pair_q_smem<HD, PAIR_FWD_KEYS, 1>(), n);
-    case 1: return max_clusters<NB>(flash_dq_pair_kernel<T, HD>,
-                                    SM90_THREADS,
-                                    pair_q_smem<HD, PAIR_DQ_KEYS, 2>(), n);
-    case 2: return max_clusters<NB>(flash_dkv_pair_kernel<T, HD>,
-                                    SM90_THREADS, dkv_pair_smem<HD>(), n);
+    case 0: return max_clusters(flash_fwd_pair_kernel<T, HD>, NB,
+                                SM90_THREADS,
+                                cluster16_q_smem<C, PAIR_FWD_KEYS, 1>(), n);
+    case 1: return max_clusters(flash_dq_pair_kernel<T, HD>, NB,
+                                SM90_THREADS,
+                                cluster16_q_smem<C, PAIR_DQ_KEYS, 2>(), n);
+    case 2: return max_clusters(flash_dkv_pair_kernel<T, HD>, NB,
+                                SM90_THREADS, cluster16_dkv_smem<C>(), n);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// and for the 16-bit cluster kernel `kernel` at head dim hd (640 to 2048,
+// cluster16_blocks(hd) blocks a cluster)
+template <typename T>
+int max_clusters_cluster16(int kernel, int hd, int* n) {
+  constexpr int C = CLUSTER16_CMAX;
+  const int nb = cluster16_blocks(hd);
+  switch (kernel) {
+    case 0: return max_clusters(flash_fwd_cluster_kernel<T, C>, nb,
+                                SM90_THREADS,
+                                cluster16_q_smem<C, PAIR_FWD_KEYS, 1>(), n);
+    case 1: return max_clusters(flash_dq_cluster_kernel<T, C>, nb,
+                                SM90_THREADS,
+                                cluster16_q_smem<C, PAIR_DQ_KEYS, 2>(), n);
+    case 2: return max_clusters(flash_dkv_cluster_kernel<T, C>, nb,
+                                SM90_THREADS, cluster16_dkv_smem<C>(), n);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -3007,10 +3793,10 @@ int max_clusters_pair(int kernel, int* n) {
 extern "C" {
 
 // q, o [B, L, H, D], k, v [B, S, H, D], contiguous and 16-byte aligned, all
-// of the element type `dtype` (0 float, 1 bfloat16, 2 float16), D 128, 256,
-// .., 1024 (a multiple of 128) in each; lse
-// [B*H, L] float. Each entry point returns a
-// cudaError_t value; 0 means the launch was accepted (another D or dtype:
+// of the element type `dtype` (0 float, 1 bfloat16, 2 float16), D a
+// multiple of 128: 128 .. 1024 in float32, 128 .. 2048 in bfloat16 and
+// float16; lse [B*H, L] float. Each entry point returns a cudaError_t
+// value; 0 means the launch was accepted (another D or dtype:
 // cudaErrorInvalidValue).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         void* lse, int B, int H, int L, int S, int D,
@@ -3022,21 +3808,20 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
       return launch_fwd_split3<decltype(hd)::value>(q, k, v, o, lse_f, B, H,
                                                     L, S, scale, s);
     });
-  if (dtype == kBFloat16 && D == 128)
-    return launch_fwd_sm90<__nv_bfloat16, 128>(q, k, v, o, lse_f, B, H, L, S,
-                                               scale, s);
-  if (dtype == kBFloat16 && D == 256)
-    return launch_fwd_sm90<__nv_bfloat16, 256>(q, k, v, o, lse_f, B, H, L, S,
-                                               scale, s);
-  if (dtype == kFloat16 && D == 128)
-    return launch_fwd_sm90<__half, 128>(q, k, v, o, lse_f, B, H, L, S, scale,
-                                        s);
-  if (dtype == kFloat16 && D == 256)
-    return launch_fwd_sm90<__half, 256>(q, k, v, o, lse_f, B, H, L, S, scale,
-                                        s);
-  return cluster16_instance(dtype, D, [&](auto t, auto hd) {
-    return launch_fwd_pair<typename decltype(t)::type, decltype(hd)::value>(
-        q, k, v, o, lse_f, B, H, L, S, scale, s);
+  return elem16(dtype, [&](auto t) {
+    using T = typename decltype(t)::type;
+    if (D == 128)
+      return launch_fwd_sm90<T, 128>(q, k, v, o, lse_f, B, H, L, S, scale, s);
+    if (D == 256)
+      return launch_fwd_sm90<T, 256>(q, k, v, o, lse_f, B, H, L, S, scale, s);
+    if (D == 384)
+      return launch_fwd_pair<T, 384>(q, k, v, o, lse_f, B, H, L, S, scale, s);
+    if (D == 512)
+      return launch_fwd_pair<T, 512>(q, k, v, o, lse_f, B, H, L, S, scale, s);
+    if (cluster16_takes(D))
+      return launch_fwd_cluster<T>(q, k, v, o, lse_f, B, H, L, S, D, scale,
+                                   s);
+    return static_cast<int>(cudaErrorInvalidValue);
   });
 }
 
@@ -3053,21 +3838,24 @@ int flash_attention_dq(const void* q, const void* k, const void* v,
       return launch_dq_split3<decltype(hd)::value>(q, k, v, dout, l, dl, dq, B,
                                                    H, L, S, scale, s);
     });
-  if (dtype == kBFloat16 && D == 128)
-    return launch_dq_sm90<__nv_bfloat16, 128>(q, k, v, dout, l, dl, dq, B, H,
-                                              L, S, scale, s);
-  if (dtype == kBFloat16 && D == 256)
-    return launch_dq_sm90<__nv_bfloat16, 256>(q, k, v, dout, l, dl, dq, B, H,
-                                              L, S, scale, s);
-  if (dtype == kFloat16 && D == 128)
-    return launch_dq_sm90<__half, 128>(q, k, v, dout, l, dl, dq, B, H, L, S,
-                                       scale, s);
-  if (dtype == kFloat16 && D == 256)
-    return launch_dq_sm90<__half, 256>(q, k, v, dout, l, dl, dq, B, H, L, S,
-                                       scale, s);
-  return cluster16_instance(dtype, D, [&](auto t, auto hd) {
-    return launch_dq_pair<typename decltype(t)::type, decltype(hd)::value>(
-        q, k, v, dout, l, dl, dq, B, H, L, S, scale, s);
+  return elem16(dtype, [&](auto t) {
+    using T = typename decltype(t)::type;
+    if (D == 128)
+      return launch_dq_sm90<T, 128>(q, k, v, dout, l, dl, dq, B, H, L, S,
+                                    scale, s);
+    if (D == 256)
+      return launch_dq_sm90<T, 256>(q, k, v, dout, l, dl, dq, B, H, L, S,
+                                    scale, s);
+    if (D == 384)
+      return launch_dq_pair<T, 384>(q, k, v, dout, l, dl, dq, B, H, L, S,
+                                    scale, s);
+    if (D == 512)
+      return launch_dq_pair<T, 512>(q, k, v, dout, l, dl, dq, B, H, L, S,
+                                    scale, s);
+    if (cluster16_takes(D))
+      return launch_dq_cluster<T>(q, k, v, dout, l, dl, dq, B, H, L, S, D,
+                                  scale, s);
+    return static_cast<int>(cudaErrorInvalidValue);
   });
 }
 
@@ -3084,37 +3872,44 @@ int flash_attention_dkv(const void* q, const void* k, const void* v,
       return launch_dkv_split3<decltype(hd)::value>(q, k, v, dout, l, dl, dk,
                                                     dv, B, H, L, S, scale, s);
     });
-  if (dtype == kBFloat16 && D == 128)
-    return launch_dkv_sm90<__nv_bfloat16, 128>(q, k, v, dout, l, dl, dk, dv,
-                                               B, H, L, S, scale, s);
-  if (dtype == kBFloat16 && D == 256)
-    return launch_dkv_sm90<__nv_bfloat16, 256>(q, k, v, dout, l, dl, dk, dv,
-                                               B, H, L, S, scale, s);
-  if (dtype == kFloat16 && D == 128)
-    return launch_dkv_sm90<__half, 128>(q, k, v, dout, l, dl, dk, dv, B, H, L,
-                                        S, scale, s);
-  if (dtype == kFloat16 && D == 256)
-    return launch_dkv_sm90<__half, 256>(q, k, v, dout, l, dl, dk, dv, B, H, L,
-                                        S, scale, s);
-  return cluster16_instance(dtype, D, [&](auto t, auto hd) {
-    return launch_dkv_pair<typename decltype(t)::type, decltype(hd)::value>(
-        q, k, v, dout, l, dl, dk, dv, B, H, L, S, scale, s);
+  return elem16(dtype, [&](auto t) {
+    using T = typename decltype(t)::type;
+    if (D == 128)
+      return launch_dkv_sm90<T, 128>(q, k, v, dout, l, dl, dk, dv, B, H, L, S,
+                                     scale, s);
+    if (D == 256)
+      return launch_dkv_sm90<T, 256>(q, k, v, dout, l, dl, dk, dv, B, H, L, S,
+                                     scale, s);
+    if (D == 384)
+      return launch_dkv_pair<T, 384>(q, k, v, dout, l, dl, dk, dv, B, H, L, S,
+                                     scale, s);
+    if (D == 512)
+      return launch_dkv_pair<T, 512>(q, k, v, dout, l, dl, dk, dv, B, H, L, S,
+                                     scale, s);
+    if (cluster16_takes(D))
+      return launch_dkv_cluster<T>(q, k, v, dout, l, dl, dk, dv, B, H, L, S,
+                                   D, scale, s);
+    return static_cast<int>(cudaErrorInvalidValue);
   });
 }
 
 // how many clusters of the kernel `kernel` (0 forward, 1 dq, 2 dk/dv) of
 // element type `dtype` at head dim D the card can hold at once, into *n:
 // float32 at 128 .. 1024 (clusters of D / 128 blocks, one at 128), bfloat16
-// and float16 at 384 .. 1024 (clusters of 2 to 7 blocks); returns a
-// cudaError_t value (another kernel, type or D: cudaErrorInvalidValue)
+// and float16 at 384 .. 2048 (clusters of ceil(D / 256) blocks, 2 to 8);
+// returns a cudaError_t value (another kernel, type or D:
+// cudaErrorInvalidValue)
 int flash_attention_max_clusters(int kernel, int D, int dtype, int* n) {
   if (dtype == kFloat32)
     return split3_head_dim(D, [&](auto hd) {
       return max_clusters_split3<decltype(hd)::value>(kernel, n);
     });
-  return cluster16_instance(dtype, D, [&](auto t, auto hd) {
-    return max_clusters_pair<typename decltype(t)::type, decltype(hd)::value>(
-        kernel, n);
+  return elem16(dtype, [&](auto t) {
+    using T = typename decltype(t)::type;
+    if (D == 384) return max_clusters_pair<T, 384>(kernel, n);
+    if (D == 512) return max_clusters_pair<T, 512>(kernel, n);
+    if (cluster16_takes(D)) return max_clusters_cluster16<T>(kernel, D, n);
+    return static_cast<int>(cudaErrorInvalidValue);
   });
 }
 

@@ -95,6 +95,13 @@ __device__ __forceinline__ uint32_t cluster_ctarank() {
   return r;
 }
 
+// the number of blocks of this block's cluster
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
 // every thread of every block of the cluster (release, then acquire)
 __device__ __forceinline__ void cluster_sync() {
   asm volatile(

@@ -22,20 +22,22 @@ power-of-two scales that keep small p and ds inside float16's range: p by
 the store). float32 inputs run all three kernels on the tensor cores too,
 each float as three bf16 terms and each product as six bf16 products
 (within ~2^-23 of it: the TPU's float32 dots at Precision.HIGHEST do the
-same); all sums are float. The kernels take head dim D = 128, 256, ..,
-1024 (every multiple of 128 up to 1024) in all three types
+same); all sums are float. The kernels take head dim D a multiple of
+128, up to 1024 in float32 and up to 2048 in bfloat16 and float16
 (``HEAD_DIMS``): the 16-bit ones from 384 split the depth over a cluster
-of NB blocks, the fewest whose share C = D / NB is whole 64-column boxes
-and at most 256 columns (2 at 384 and 512, 5 at 640, 3 at 768, 7 at 896,
-4 at 1024); the float32 ones from 256 over a cluster of D / 128 blocks (up
-to eight), each on 128 columns. A cluster's partial scores are added once
+of NB = ceil(D / 256) blocks, each on a share of whole 64-column boxes of
+at most 256 columns, the shares differing by at most one box
+(``cluster16_shares``: 2 x 192 at 384, 256 + 192 + 192 at 640, 8 x 256 at
+2048); the float32 ones from 256 over a cluster of D / 128 blocks (up to
+eight), each on 128 columns. A cluster's partial scores are added once
 (two blocks) or in rank order (three to eight, every block adding the same
 operands in the same order, so that all hold the same bits). The scale
 1/sqrt(D) is exact at 128 and 256 (1/16 there); elsewhere it is the float
 nearest it, as in the JAX kernels. Any L and S (a ragged last tile is
 masked in the kernel; the JAX wrapper pads L to 128 instead). The JAX
-model sends every D % 128 == 0 in any type to its Pallas kernels: head
-dims past 1024 are not ported yet and raise here.
+model sends every D % 128 == 0 in any type to its Pallas kernels: float32
+past 1024 and 16-bit head dims past 2048 are not ported yet (clusters of
+more than eight blocks) and raise here.
 
 Dispatch: CPU tensors take the plain versions (``flash_fwd_plain``,
 ``flash_dq_plain``, ``flash_dkv_plain``: dense attention and the
@@ -59,11 +61,23 @@ NEG_INF = -1e30
 # the head dims the kernels take, by input type (any other shape or type
 # raises; ``llm.model.flash_applies`` sends those to plain attention):
 # float32 in clusters of up to eight 128-column blocks, bfloat16 and
-# float16 from 384 in clusters of two to seven blocks of up to 256 columns
-HEAD_DIMS = dict.fromkeys((torch.float32, torch.bfloat16, torch.float16),
-                          tuple(range(128, 1025, 128)))
+# float16 from 384 in clusters of two to eight blocks of up to 256 columns
+HEAD_DIMS = {torch.float32: tuple(range(128, 1025, 128)),
+             **dict.fromkeys((torch.bfloat16, torch.float16),
+                             tuple(range(128, 2049, 128)))}
 # the C entry points' element type code
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+
+def cluster16_shares(D):
+    """The columns of each block of a 16-bit cluster at head dim D (384 to
+    2048), rank by rank: D / 64 boxes over ceil(D / 256) blocks, the shares
+    differing by at most one box, the wider first (``share16_units`` in
+    ``csrc/flash_attention.cu``)."""
+    boxes, nb = D // 64, -(-D // 256)
+    return [64 * (boxes // nb + (r < boxes % nb)) for r in range(nb)]
+
 
 # launches of the CUDA kernels (plain-version calls are not counted)
 fwd_launches = 0      # flash_fwd
@@ -170,9 +184,9 @@ def _check(q, k, v, *more):
     B, L, H, D = q.shape
     if D not in HEAD_DIMS.get(q.dtype, ()):
         raise ValueError(f"flash_attention: the kernels take head dim 128, "
-                         f"256, .., 1024 (a multiple of 128) in float32, "
-                         f"bfloat16 or float16, got {tuple(q.shape)} "
-                         f"{q.dtype}")
+                         f"256, .. (a multiple of 128) up to 1024 in "
+                         f"float32 and up to 2048 in bfloat16 or float16, "
+                         f"got {tuple(q.shape)} {q.dtype}")
     S = k.shape[1]
     for name, t, shape in (("k", k, (B, S, H, D)), ("v", v, (B, S, H, D)),
                            *more):
@@ -210,8 +224,8 @@ def max_active_clusters(kind, D, dtype=torch.float32):
     ``dtype`` at head dim ``D`` the current card holds at once
     (cudaOccupancyMaxActiveClusters): float32 at any of its ``HEAD_DIMS``
     (clusters of D / 128 blocks, one block at 128), bfloat16 and float16 at
-    384 to 1024 (clusters of two to seven blocks); 0 means it cannot launch
-    one. Raises on another kind, type or D."""
+    384 to 2048 (clusters of ceil(D / 256) blocks, two to eight); 0 means
+    it cannot launch one. Raises on another kind, type or D."""
     lib = _load()
     n = ctypes.c_int(0)
     err = lib.flash_attention_max_clusters(("fwd", "dq", "dkv").index(kind),

@@ -51,6 +51,11 @@ phase of ``--phases`` (default all three):
   1,000 calls, in 10 batches of 100 back-to-back calls each timed from a
   synchronised device to its last call's return (so the launch queue never
   fills and the time is the host's);
+- ``wide16``: the bf16 and float16 kernels at head dims 640-1024 at B8
+  L2047 H4 and at 2048 at B8 L2047 H2 (``WIDE16_SHAPES``: the
+  step-time-llm-d1024 and -d2048 steps' attention), timed as the float32
+  rows (5 runs of 2), in a tree whose kernels take them, and the ``sass``
+  digests;
 - ``steps``: the headline ReaRev configuration (chip_smoke's
   ``HEADLINE_FLAGS``, random weights) on one B8 batch of a 64-question
   SynthQSP split made once for both trees: ms a train step
@@ -76,7 +81,7 @@ import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-PHASES = ("flash", "gate", "steps")
+PHASES = ("flash", "gate", "steps", "wide16")
 SHAPE = (8, 2047, 32, 128)         # B, L, H, D of the SFT step's attention
 # bf16 at head dim 256: the Gemma-2B-width SFT step's attention (B2) and B8
 D256_SHAPES = ((2, 2047, 8, 256), (8, 2047, 8, 256))
@@ -90,6 +95,10 @@ D512_SHAPES = ((8, 2047, 8, 512), (8, 2047, 8, 384))
 # the float32 kernels at head dims 512 and 384 (clusters of four and three
 # blocks): the float32 DeepSeek-V4-Flash-head-shape SFT step's attention
 D512_FP32_SHAPES = ((2, 2047, 8, 512), (2, 2047, 8, 384))
+# the 16-bit kernels at head dims 640-1024 (the step-time-llm-d1024 steps'
+# attention, B8 L2047 H4) and 2048 (the step-time-llm-d2048 step's, H2)
+WIDE16_SHAPES = (*((8, 2047, 4, d) for d in (640, 768, 896, 1024)),
+                 (8, 2047, 2, 2048))
 # the float32 kernels at head dim 128 over the blocks of that shape: B2
 # L2047 H16 gives as many blocks as the head-dim-256 row's pairs, each of
 # the same work (128 columns), without the exchange between the two
@@ -181,6 +190,16 @@ def measure(tree, phases, data):
                 (B, L, H * D // 128, 128))
             for B, L, H, D in D512_FP32_SHAPES})
         out["sass"] = sass_digests(fa.build())
+    if "wide16" in phases:
+        from gnn_rag_tpu_torch.llm import flash_attention as fa
+        out["flash_wide16"] = {
+            f"D{shape[3]} {dtype}": (
+                measure_flash(smoke, device, dtype, FLASH_TIMING["float32"],
+                              shape)
+                if shape[3] in fa.HEAD_DIMS[getattr(torch, dtype)]
+                else "not taken by this tree's kernels")
+            for shape in WIDE16_SHAPES for dtype in ("bfloat16", "float16")}
+        out["sass"] = sass_digests(fa.build())
     if "gate" in phases:
         out["gate_scatter"] = measure_gate(smoke, device)
     if "steps" in phases:
@@ -209,7 +228,8 @@ def sass_digests(lib):
     digests, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"(flash_(?:fwd|dq|dkv)_(?:sm90|split3|pair)_kernel)"
+            m = re.search(r"(flash_(?:fwd|dq|dkv)_"
+                          r"(?:sm90|split3|pair|cluster)_kernel)"
                           r"(?:I(?:13__nv_bfloat16|(6__half))?Li(\d+)E)?",
                           line)
             name = (f"{m.group(1)}<{'__half,' if m.group(2) else ''}"

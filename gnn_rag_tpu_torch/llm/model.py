@@ -119,11 +119,11 @@ def flash_applies(use_flash: bool, head_dim: int, dtype: torch.dtype,
                   device_type: str, cached: bool, masked: bool) -> bool:
     """Whether attention over q of ``head_dim``, ``dtype`` on
     ``device_type`` runs the flash kernels: the kernels take head dim 128,
-    256, .., 1024 (a multiple of 128) in float32, bfloat16 or float16 on
-    the card (``flash_attention.HEAD_DIMS``; past 256 in clusters of blocks
-    that split the depth), and neither a kv cache (``cached``) nor
-    ``kv_valid`` (``masked``); head dims past 1024 run
-    ``reference_attention``."""
+    256, .. (a multiple of 128) up to 1024 in float32 and up to 2048 in
+    bfloat16 or float16 on the card (``flash_attention.HEAD_DIMS``; past
+    256 in clusters of blocks that split the depth), and neither a kv cache
+    (``cached``) nor ``kv_valid`` (``masked``); float32 past 1024 and
+    16-bit head dims past 2048 run ``reference_attention``."""
     return (use_flash and not cached and not masked and device_type == "cuda"
             and head_dim in _fa.HEAD_DIMS.get(dtype, ()))
 

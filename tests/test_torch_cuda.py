@@ -4,9 +4,9 @@ backward and scatter_mm (alone, at widths a block holds only in column
 windows, and in a ReaRev training step under GNN_RAG_GATE_SCATTER=v2),
 and the flash-attention forward, dq and dk/dv
 kernels (alone, through autograd, and in a LlamaLM; at head dims 128,
-256, .., 1024, each in float32, bf16 and float16), and the flash kernels'
-clusters accepted by the card (float32: one to eight blocks, D / 128;
-bf16 and float16 from 384: two to seven).
+256, .., 1024 in float32 and to 2048 in bf16 and float16), and the flash
+kernels' clusters accepted by the card (float32: one to eight blocks,
+D / 128; bf16 and float16 from 384: two to eight, ceil(D / 256)).
 
 Every test here needs an NVIDIA GPU (and nvcc for the first build) and skips
 without one. The file imports no JAX, so it runs on a machine without it:
@@ -905,9 +905,9 @@ def test_flash_d1024_fp32_kernels_match_plain(cuda, B, L, H, D):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("D", [640, 768, 896, 1024])
 @pytest.mark.parametrize("B,L,H", [
-    # bf16 and float16 at head dims 640-1024 (clusters of five, three, seven
-    # and four blocks, each on 128 or 256 columns, the partial scores added
-    # in rank order): one row, chip_smoke's [kernel-attn] ragged rows at 4
+    # bf16 and float16 at head dims 640-1024 (clusters of three, three, four
+    # and four blocks of 192 or 256 columns, the partial scores added in
+    # rank order): one row, chip_smoke's [kernel-attn] ragged rows at 4
     # heads (one row past the forward's and dk/dv's 64-key tiles, one past
     # a 128-row block, a ragged length), and the SFT length at 4 heads
     (1, 1, 2), (1, 65, 4), (1, 129, 4), (2, 1000, 4), (2, 2047, 4)])
@@ -915,9 +915,18 @@ def test_flash_d1024_16bit_kernels_match_plain(cuda, B, L, H, D, dtype):
     flash_vs_plain(cuda, B, L, H, D, dtype)
 
 
-# the blocks of a 16-bit cluster at head dims 384 to 1024: the fewest whose
-# columns, D / blocks, are whole 64-column boxes and at most 256
-CLUSTER16_BLOCKS = {384: 2, 512: 2, 640: 5, 768: 3, 896: 7, 1024: 4}
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [1152, 1280, 1408, 1536, 1664, 1792, 1920,
+                               2048])
+@pytest.mark.parametrize("B,L,H", [
+    # bf16 and float16 at head dims 1152-2048 (clusters of five to eight
+    # blocks of 192 or 256 columns): one row, one row past the forward's
+    # and dk/dv's 64-key tiles, one past a 128-row block, chip_smoke's
+    # [kernel-attn] ragged row at 2 heads, the SFT length at 2 heads
+    (1, 1, 2), (1, 65, 2), (1, 129, 2), (2, 1000, 2), (1, 2047, 2)])
+def test_flash_d2048_16bit_kernels_match_plain(cuda, B, L, H, D, dtype):
+    flash_vs_plain(cuda, B, L, H, D, dtype)
 
 
 @pytest.mark.cuda
@@ -925,19 +934,21 @@ CLUSTER16_BLOCKS = {384: 2, 512: 2, 640: 5, 768: 3, 896: 7, 1024: 4}
 @pytest.mark.parametrize("D,dtype", [
     *((d, torch.float32) for d in (128, 256, 384, 512, 640, 768, 896, 1024)),
     *((d, t) for t in (torch.bfloat16, torch.float16)
-      for d in CLUSTER16_BLOCKS)])
+      for d in range(384, 2049, 128))])
 def test_flash_fp32_clusters_fit_the_card(cuda, kind, D, dtype):
     """The card holds at least one cluster of each float32 kernel at every
     head dim it takes (D / 128 blocks of 198-230 KB of shared memory, one
     an SM: cudaOccupancyMaxActiveClusters; one block at 128) and of each
-    bf16 and float16 cluster kernel (384 to 1024: two to seven blocks of
-    up to 230 KB), and at most one a block of SMs of the cluster's size."""
+    bf16 and float16 cluster kernel (384 to 2048: ceil(D / 256) blocks,
+    two to eight, of up to 230 KB), and at most one a block of SMs of the
+    cluster's size; one head dim past each type's last raises."""
     n = fa.max_active_clusters(kind, D, dtype)
-    blocks = D // 128 if dtype == torch.float32 else CLUSTER16_BLOCKS[D]
+    blocks = (D // 128 if dtype == torch.float32
+              else len(fa.cluster16_shares(D)))
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert 0 < n <= sms // blocks, n
     with pytest.raises(RuntimeError, match="cluster occupancy"):
-        fa.max_active_clusters(kind, 1152, dtype)
+        fa.max_active_clusters(kind, fa.HEAD_DIMS[dtype][-1] + 128, dtype)
 
 
 @pytest.mark.cuda
@@ -956,7 +967,7 @@ def test_flash_autograd_and_checks(cuda):
     with pytest.raises(ValueError, match="head dim 128"):
         fa.flash_fwd(*(torch.zeros(1, 8, 1, 64, device=cuda),) * 3)
     with pytest.raises(ValueError, match="a multiple of 128"):
-        fa.flash_fwd(*(torch.zeros(1, 8, 1, 1152, device=cuda,
+        fa.flash_fwd(*(torch.zeros(1, 8, 1, 2176, device=cuda,
                                    dtype=torch.bfloat16),) * 3)
     with pytest.raises(ValueError, match="a multiple of 128"):
         fa.flash_fwd(*(torch.zeros(1, 8, 1, 1152, device=cuda),) * 3)
@@ -1082,15 +1093,17 @@ def test_llama_d256_fp32_flash_vs_plain_attention(cuda):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 @pytest.mark.parametrize("head_dim,n_heads", [
     pytest.param(384, 8, id="384"), pytest.param(512, 8, id="512"),
-    pytest.param(640, 4, id="640"), pytest.param(1024, 4, id="1024")])
+    pytest.param(640, 4, id="640"), pytest.param(1024, 4, id="1024"),
+    pytest.param(1408, 2, id="1408"), pytest.param(2048, 2, id="2048")])
 def test_llama_d512_flash_vs_plain_attention(cuda, head_dim, n_heads, dtype):
     """A bf16 or float16 LlamaLM at head dim 512 (DeepSeek-V4-Flash's head
     shape: heads of 512, one kv head; dim 4096, 8 heads) and at 384 (dim
-    3072, 8 heads, one kv head), and with 4 heads of 1024 (LLaMA-2-7B's
-    4,096 query columns regrouped, the step-time-llm-d1024 model) and of
-    640, one kv head, 2 layers, on the card: the flash path launches one
-    forward, one dq and one dk/dv per layer (clusters of two, four and five
-    blocks), and each output (logits and every parameter's loss gradient)
+    3072, 8 heads, one kv head), with 4 heads of 1024 (LLaMA-2-7B's 4,096
+    query columns regrouped, the step-time-llm-d1024 model) and of 640, and
+    with 2 heads of 2048 (the step-time-llm-d2048 model) and of 1408, one
+    kv head, 2 layers, on the card: the flash path launches one forward,
+    one dq and one dk/dv per layer (clusters of two, three, four, six and
+    eight blocks), and each output (logits and every parameter's loss gradient)
     is within twice the plain path's own distance from the same model in
     float32 (as test_llama_flash_vs_plain_attention holds head dim 128)."""
     cfg = LlamaConfig(vocab_size=300, dim=n_heads * head_dim, n_layers=2,
@@ -1164,13 +1177,14 @@ def test_llama_d512_fp32_flash_vs_plain_attention(cuda, head_dim, n_heads):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim,dtype", [(1152, "float16"),
-                                            (1152, "bfloat16"),
+@pytest.mark.parametrize("head_dim,dtype", [(2176, "float16"),
+                                            (2176, "bfloat16"),
                                             (1152, "float32")])
 def test_llama_shapes_the_kernels_refuse_run_reference_attention(
         cuda, head_dim, dtype):
     """A LlamaLM whose attention the flash kernels do not take (head dim
-    1152, past a cluster's reach, in every type) runs on the card with no
+    2176 in 16 bits, 1152 in float32: past a cluster of eight blocks) runs
+    on the card with no
     flash launch, through reference_attention: its logits equal the same
     model's with use_flash=False."""
     cfg = LlamaConfig(vocab_size=300, dim=2 * head_dim, n_layers=2, n_heads=2,

@@ -2,13 +2,15 @@
 the JAX package on the CPU.
 
 The port's bfloat16 and float16 flash kernels take head dims 640, 768, 896
-and 1024 on the card, each as a cluster of NB blocks, the fewest whose
-columns C = D / NB are whole 64-column boxes and at most 256 (5 blocks of
-128 columns at 640, 3 of 256 at 768, 7 of 128 at 896, 4 of 256 at 1024),
-whose partial scores are added in rank order, ((p0 + p1) + p2) + ..
-(csrc/flash_attention.cu, the ``flash_*_pair_kernel<T, 640|..|1024>``
-instances). Their plain versions (what a CPU tensor runs, and the card
-check's yardstick), an emulation of the clusters' arithmetic and a LlamaLM
+and 1024 on the card, each as a cluster of NB = ceil(D / 256) blocks, each
+on a share of whole 64-column boxes, the shares differing by at most one
+box (256 + 192 + 192 at 640, 3 x 256 at 768, 2 x 256 + 2 x 192 at 896, 4 x
+256 at 1024), whose partial scores are added in rank order, ((p0 + p1) +
+p2) + .. (csrc/flash_attention.cu, the ``flash_*_cluster_kernel<T, 256>``
+instances, which take every head dim from 640 to 2048;
+tests/test_torch_flash_d2048_16.py holds 1152 to 2048). Their plain
+versions (what a CPU tensor runs, and the card check's yardstick), an
+emulation of the clusters' arithmetic and a LlamaLM
 with heads of 1024 and one kv head (LLaMA-2-7B's query columns regrouped,
 as chip_smoke.py's step-time-llm-d1024 phases run it) are held here to the
 JAX package on the same numpy inputs. Tolerances (``bf16_tol`` and
@@ -21,13 +23,14 @@ chip_smoke.attn_err):
   holds 384 and 512; the backward from JAX's o and lse on both sides,
   float16 also with the cotangent x 2^-16;
 * the clusters emulated (``KernelCluster16``: tests/test_torch_flash_d512.py's
-  ``KernelPair`` with s and dp as NB float partials over C columns each,
-  added in rank order) vs the plain versions at B1 L300 H2 and every new
-  head dim: dq, dk and dv in float within 0.1 of the card tolerance of
-  their rounded values, lse within 1e-5, o (rounded) within the card
-  tolerance; float16 also with the cotangent x 2^-16 and x 2^4 at 640 and
-  1024 (C 128 and C 256); the rank-order sum within D 2^-24 of the sum of
-  its terms' sizes of the float64 product, and unequal on some element to
+  ``KernelPair`` with s and dp as NB float partials, each over one block's
+  share of the columns, added in rank order) vs the plain versions at B1
+  L300 H2 and every head dim from 640 to 1024: dq, dk and dv in float
+  within 0.1 of the card tolerance of their rounded values, lse within
+  1e-5, o (rounded) within the card tolerance; float16 also with the
+  cotangent x 2^-16 and x 2^4 at 640 and 1024 (three and four blocks); the
+  rank-order sum within D 2^-24 of the sum of its terms' sizes of the
+  float64 product, and unequal on some element to
   the sum of the same partials in the reverse order (three or more float
   partials do not add the same in every order: the kernels must all add
   them alike);
@@ -120,32 +123,32 @@ def test_flash_bwd_plain_matches_pallas_interpret_d1024_16(D, dtype,
 
 
 # --------------------------------------------- the clusters, emulated
-def cluster16_blocks(D):
-    """The blocks of a 16-bit cluster at head dim D (the kernels'
-    ``cluster16_blocks``): the fewest whose columns are whole 64-column
-    boxes and at most 256."""
-    nb = 2
-    while D % (64 * nb) or D // nb > 256:
-        nb += 1
-    return nb
+def cluster16_shares(D):
+    """The columns of each block of a 16-bit cluster at head dim D, rank by
+    rank (the kernels' ``cluster16_blocks`` and ``share16_units``): one
+    block for every 256 columns, rounded up, the D / 64 boxes dealt so that
+    the shares differ by at most one box, the wider first."""
+    nb = (D + 255) // 256
+    base, extra = divmod(D // 64, nb)
+    return [64 * (base + (r < extra)) for r in range(nb)]
 
 
 class KernelCluster16(KernelPair):
     """The 16-bit cluster kernels' arithmetic: ``KernelPair``'s tiles and
     splits, with every score s = q k^T and dp = dO v^T the sum of NB float
-    partials, each over one block's C = D / NB columns, added in rank order
-    ((p0 + p1) + p2) + .. + p(NB - 1), the order every block of the
-    cluster adds them in."""
+    partials, each over one block's share of the columns
+    (``cluster16_shares``), added in rank order ((p0 + p1) + p2) + .. +
+    p(NB - 1), the order every block of the cluster adds them in."""
 
     def __init__(self, D, dtype):
         super().__init__(D, dtype)
-        self.NB = cluster16_blocks(D)
-        self.C = D // self.NB
+        self.shares = cluster16_shares(D)
+        self.NB = len(self.shares)
 
     def partials(self, a, b):
-        C = self.C
-        return [a[..., r * C:(r + 1) * C] @ b[..., r * C:(r + 1) * C]
-                .transpose(-1, -2) for r in range(self.NB)]
+        cols = np.cumsum([0, *self.shares])
+        return [a[..., c0:c1] @ b[..., c0:c1].transpose(-1, -2)
+                for c0, c1 in zip(cols[:-1], cols[1:])]
 
     def scores(self, a, b, order=None):
         parts = self.partials(a, b)
@@ -156,10 +159,13 @@ class KernelCluster16(KernelPair):
 
 
 def test_cluster_blocks_are_the_kernels():
-    assert {D: (cluster16_blocks(D), D // cluster16_blocks(D))
-            for D in [384, 512, *WIDE_DIMS]} == {
-        384: (2, 192), 512: (2, 256), 640: (5, 128), 768: (3, 256),
-        896: (7, 128), 1024: (4, 256)}
+    """The emulation's plan is the port's (``cluster16_shares``): two
+    blocks at 384 and 512, three at 640 and 768, four at 896 and 1024, none
+    wider than 256 columns, the shares of whole boxes covering the row."""
+    want = {384: [192, 192], 512: [256, 256], 640: [256, 192, 192],
+            768: [256] * 3, 896: [256, 256, 192, 192], 1024: [256] * 4}
+    assert {D: cluster16_shares(D) for D in want} == want
+    assert {D: fa.cluster16_shares(D) for D in want} == want
 
 
 @pytest.mark.parametrize("D,dtype,g_scale", [

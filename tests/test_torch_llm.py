@@ -202,10 +202,10 @@ def test_dq_two_term_split_stays_within_tolerance():
     (512, torch.float32, "cuda", False, False, True),
     (512, torch.bfloat16, "cpu", False, False, False),
     (512, torch.float16, "cuda", True, False, False),
-    (640, torch.bfloat16, "cuda", False, False, True),   # 16-bit to 1024
+    (640, torch.bfloat16, "cuda", False, False, True),   # 16-bit to 2048
     (640, torch.float16, "cuda", False, False, True),
-    (1152, torch.bfloat16, "cuda", False, False, False),
-    (1152, torch.float16, "cuda", False, False, False),
+    (2176, torch.bfloat16, "cuda", False, False, False),
+    (2176, torch.float16, "cuda", False, False, False),
     (256, torch.float32, "cpu", False, False, False),
     (256, torch.bfloat16, "cpu", False, False, False),
     (256, torch.bfloat16, "cuda", True, False, False),
