@@ -12,11 +12,12 @@ Phases, one line each:
      g++), with ptxas registers and spills, and the wgmma (HGMMA) and TMA
      (UTMALDG) instructions each flash kernel on wgmma must hold
      (SM90_KERNELS), without spills or stack frames, and how many clusters
-     of each float32 flash kernel at head dims 128 to 1024 and of each
-     bf16 and float16 one at 384 to 2048 the card holds at once
-     (cudaOccupancyMaxActiveClusters, none may be 0), with the float32
-     instances' at head dims 640-1024 and the 16-bit cluster kernels'
-     registers, spill and stack bytes;
+     of each float32 flash kernel at head dims 128 to 2048 and of each
+     bf16 and float16 one at 384 to 4096 the card holds at once
+     (cudaOccupancyMaxActiveClusters, none may be 0; past eight blocks
+     Hopper's non-portable cluster sizes, also by cluster size 9 to 16),
+     with the float32 instance <0>'s at head dims 640-2048 and the 16-bit
+     cluster kernels' registers, spill and stack bytes;
   3. kernel: the CUDA kernel against its plain PyTorch version on the card at
      the serving shapes (fp32 and bf16) and at a skewed layout (SKEWED), two
      launches bit-identical, with the kernel's time ``ms`` (CUDA-event
@@ -136,9 +137,15 @@ The LLM reader (the flash-attention kernels K5a-c):
      cotangents), B1 L129 and B1 L65, and at 1152 to 1920 (five to eight
      blocks) at B2 L1000 H2 (timed; float16 at 1408 also with the scaled
      cotangents), held to their plain versions in float64
-     (``exact_yardstick``); every timed row with its products issued over
-     those the function needs and the SDPA backend that served the
-     yardstick;
+     (``exact_yardstick``); and the clusters of nine to sixteen blocks: the
+     float32 kernels at head dim 2048 (sixteen 128-column blocks) at B2
+     L2047 H2 (timed), B1 L129 and B1 L65, at 1664 and 1152 at B2 L1000 H2
+     (timed) and 1152 at B1 L129; the bf16 and float16 kernels at 4096
+     (sixteen 256-column blocks) at B8 L2047 H1 (timed), B2 L1000 (float16
+     also with the scaled cotangents), B1 L129 and B1 L65, at 3968, 3072
+     (bf16) and 2176 at B2 L1000 H2 (timed) and 2176 at B1 L129; every
+     timed row with its products issued over those the function needs and
+     the SDPA backend that served the yardstick;
   8. sft: the RoG joint-finetune SFT (scripts/train_sft.sh) through the
      port's entry (`python -m gnn_rag_tpu_torch.llm.sft`, run in this
      process) at LLaMA2-7B width cut to 4 of 32 layers, random weights from
@@ -156,7 +163,7 @@ The LLM reader (the flash-attention kernels K5a-c):
      reader saved as a bundle and loaded through the registry,
      ``get_registed_model("llama_tpu")``; depth 4 of 32, byte tokens, 64
      new tokens): POST /answer through ``python -m gnn_rag_tpu_torch.
-     serve_qa`` (64 one-question and 4 sixteen-question requests, closed
+     serve_qa`` (16 one-question and 4 sixteen-question requests, closed
      loop, p10/p50/p90; the gate-scatter kernel launched there, the flash
      kernels not; prompts within the reader's budget; generate_sentence as
      Decoder.greedy) and one request's stages (retrieve, prompt, prefill,
@@ -208,22 +215,23 @@ The LLM reader (the flash-attention kernels K5a-c):
      kernels at head dim 256;
   11g. step-time-llm-d512 and step-time-llm-d512-f16: the same at
      DeepSeek-V4-Flash's attention head shape (D512_FLAGS: LLaMA2-7B's SFT
-     cut to 4 layers with 8 heads of 512 and one kv head), in bf16 and in
-     float16: the pair kernels at head dim 512, 4 launches of each a step;
+     cut to 2 layers with 8 heads of 512 and one kv head), in bf16 and in
+     float16: the pair kernels at head dim 512, 2 launches of each a step;
      the gradient check also on a 2-layer model at head dim 384 (dim 3072,
      8 heads, one kv head);
   11h. step-time-llm-d512-fp32: the same head shape computing in float32
-     (D512_FP32_FLAGS: 4 layers, B2) through the port's entry, as 11d: the
-     float32 kernels at head dim 512 (clusters of four blocks), 4 launches
+     (D512_FP32_FLAGS: 2 layers, B2) through the port's entry, as 11d: the
+     float32 kernels at head dim 512 (clusters of four blocks), 2 launches
      of each a step, the scoring forward and first loss against plain
      attention, and every gradient of a 2-layer model at head dims 512 and
      384 (clusters of three blocks), kernels vs plain attention;
   11i. step-time-llm-d1024-fp32: the same SFT with 4 heads of 1024 and one
      kv head (D1024_FP32_FLAGS: LLaMA2-7B's 4,096 query columns regrouped,
-     4 layers, B2, float32) through the port's entry, as 11h: the float32
-     kernels at head dim 1024 (clusters of eight blocks), 4 launches of
-     each a step, and every gradient of a 2-layer model at head dims 1024,
-     896, 768 and 640 (4 heads each), kernels vs plain attention;
+     cut to 2 layers, B2, float32) through the port's entry, as 11h: the
+     float32 kernels at head dim 1024 (clusters of eight blocks), 2
+     launches of each a step, and every gradient of a 2-layer model at
+     head dims 1024, 896, 768 and 640 (4 heads each), kernels vs plain
+     attention;
   11j. step-time-llm-d1024 and step-time-llm-d1024-f16: the same 4 heads
      of 1024 and one kv head in bf16 and in float16 at B8 (D1024_FLAGS,
      D1024_F16_FLAGS: LLaMA2-7B's SFT cut to 2 layers, F16_STEPS steps), as
@@ -233,13 +241,26 @@ The LLM reader (the flash-attention kernels K5a-c):
      2-layer model at head dims 1024, 896, 768 and 640 (clusters of four,
      four, three and three blocks), kernels vs plain attention; the float16
      phase also at 2048, 1408 and 1152 (D2048_GRADS: 2 heads, clusters of
-     eight, six and five blocks);
+     eight, six and five blocks) and at 4096, 3968 and 2176 (D4096_GRADS:
+     one head, sixteen, sixteen and nine blocks);
   11k. step-time-llm-d2048: the same query columns as 2 heads of 2048 and
-     one kv head in bf16 at B8 (D2048_FLAGS, 4 layers, F16_STEPS steps), as
-     11j: the 16-bit cluster kernels in clusters of eight 256-column
-     blocks, 4 launches of each a step, no plain flash call, the first loss
+     one kv head in bf16 at B8 (D2048_FLAGS, cut to 2 layers, F16_STEPS
+     steps), as 11j: the 16-bit cluster kernels in clusters of eight
+     256-column blocks, 2 launches of each a step, no plain flash call, the first loss
      and token log-probs kernel vs plain, every gradient of a 2-layer model
-     at head dims 2048, 1408 and 1152.
+     at head dims 2048, 1408 and 1152;
+  11l. step-time-llm-d2048-fp32: the same query columns as 2 heads of 2048
+     and one kv head in float32 at B2 (D2048_FP32_FLAGS, 4 layers,
+     F16_STEPS steps), as 11i: the float32 kernels (the <0> instance) in
+     clusters of sixteen 128-column blocks, 4 launches of each a step, no
+     plain flash call, the scoring forward and first loss against plain
+     attention, every gradient of a 2-layer model at head dims 2048, 1664
+     and 1152 (sixteen, thirteen and nine blocks);
+  11m. step-time-llm-d4096: the same query columns as one head of 4096 in
+     bf16 at B8 (D4096_FLAGS, 4 layers, F16_STEPS steps), as 11k: the
+     16-bit cluster kernels in clusters of sixteen 256-column blocks, 4
+     launches of each a step, every gradient of a 2-layer model at head dims
+     4096, 3968 and 2176 (the float16 phase 11j runs the same three).
 Every phase's wall seconds and the script's total are logged (phase
 walls) before the kernels' summary.
 The reader at LLaMA2-7B widths and the full 32 layers (after the SFT
@@ -254,7 +275,7 @@ trainer is freed):
      (bit for bit) and with the kernels against plain attention;
   13. serve-7b: the same 32-layer reader quantized to int8
      (``llm.quant.quantize_state_dict``): one prompt's logits against full
-     precision; 64 greedy tokens at B1 and B8 each way, ms a token beside
+     precision; 32 greedy tokens at B1 and B8 each way, ms a token beside
      the bytes a token the casts move and their floor, device ms a step;
      ``SpeculativeDecoder`` (gamma 4) with the int8 target and the SFT'd
      4-layer reader as draft, and with the target as its own draft: the
@@ -286,15 +307,31 @@ SEED = 0
 LATENCY_PASSES = 1
 TRAIN_STEPS = 20
 PALLAS = "gnn_rag_tpu/ops/pallas_mp.py"
-# the float32 flash kernels' head dims (clusters of D / 128 blocks), the
-# 16-bit ones' in clusters (ceil(D / 256) blocks, 2 to 8, of up to 256
-# columns), the float32 head dims past 512 (five to eight blocks) and the
-# 16-bit cluster kernels' (640-2048: three to eight blocks of 192 or 256
-# columns)
-FP32_HEAD_DIMS = (128, 256, 384, 512, 640, 768, 896, 1024)
-CLUSTER16_HEAD_DIMS = tuple(range(384, 2049, 128))
+# the float32 flash kernels' head dims (clusters of D / 128 blocks, 1 to
+# 16), the 16-bit ones' in clusters (ceil(D / 256) blocks, 2 to 16, of up
+# to 256 columns), the float32 head dims from 640 to 1024 (five to eight
+# blocks) and past 1024 (nine to sixteen), the 16-bit cluster kernels' to
+# 2048 (640-2048: three to eight blocks of 192 or 256 columns) and past it
+# (2176-4096: nine to sixteen); past eight blocks Hopper's non-portable
+# cluster sizes
+FP32_HEAD_DIMS = tuple(range(128, 2049, 128))
+CLUSTER16_HEAD_DIMS = tuple(range(384, 4097, 128))
 WIDE_HEAD_DIMS = (640, 768, 896, 1024)
+WIDE32_HEAD_DIMS = tuple(range(1152, 2049, 128))
 WIDE16_HEAD_DIMS = tuple(range(640, 2049, 128))
+CLUSTERS16_HEAD_DIMS = tuple(range(2176, 4097, 128))
+# head dims past eight blocks beside the new phases' own: the float32 ones
+# its gradient check runs (thirteen and nine blocks), the 16-bit ones the
+# gradient checks run (sixteen blocks with shares of 256 and 192 at 3968,
+# nine at 2176), and the bf16 ones timed at B2 L1000 H2 (3072, twelve
+# blocks of 256, on no path)
+D2048_FP32_OTHER = (1664, 1152)
+D4096_GRAD_DIMS = (4096, 3968, 2176)
+D4096_OTHER = (3968, 3072, 2176)
+# the float32 flash kernels' instances: templates on the head dim, <128> to
+# <512>, and <0> (SPLIT3_ANY in the source), whose cluster size is a launch
+# attribute, for every head dim from 640 to 2048
+SPLIT3_INSTANCES = (128, 256, 384, 512, 0)
 # the 16-bit cluster kernels' instances: templates on the element type and
 # the widest share, 256 columns, each taking every head dim from 640 to 2048
 CLUSTER16_CMAX = 256
@@ -302,9 +339,9 @@ CLUSTER16_CMAX = 256
 # bf16 and float16 ones load by TMA, the float32 ones (three bf16 terms a
 # float, converted by a warpgroup from plain loads) do not (the 16-bit ones
 # are templates on the element type and the head dim, the float32 ones on
-# the head dim: their instances by mangled name, <128> .. <1024>; the
+# the head dim: their instances by mangled name, SPLIT3_INSTANCES; the
 # 16-bit ones at 384 and 512 are the pair kernels, clusters of two blocks,
-# and from 640 to 2048 the cluster kernels, <T, 256>)
+# and from 640 to 4096 the cluster kernels, <T, 256>)
 SM90_KERNELS = {**{f"flash_{k}_{kind}_kernelI{t}Li{d}E": ("HGMMA", "UTMALDG")
                    for k in ("fwd", "dq", "dkv")
                    for kind, dims in (("sm90", (128, 256)),
@@ -312,7 +349,7 @@ SM90_KERNELS = {**{f"flash_{k}_{kind}_kernelI{t}Li{d}E": ("HGMMA", "UTMALDG")
                                       ("cluster", (CLUSTER16_CMAX,)))
                    for d in dims for t in ("13__nv_bfloat16", "6__half")},
                 **{f"flash_{k}_split3_kernelILi{d}E": ("HGMMA",)
-                   for k in ("fwd", "dq", "dkv") for d in FP32_HEAD_DIMS}}
+                   for k in ("fwd", "dq", "dkv") for d in SPLIT3_INSTANCES}}
 FLASH = "gnn_rag_tpu/llm_tpu/flash_attention.py"
 # the card's published peaks (H100 SXM data sheet, dense): float32 outside
 # the tensor cores, bf16 and float16 tensor cores
@@ -340,9 +377,14 @@ SFT_FLAGS = ["--n_layers", "4", "--batch_size", "8",
 LORA_STEPS = 4
 LORA_R = 8
 LORA_ALPHA = 16.0
-# serving the 32-layer reader: new tokens a greedy decode, draft tokens a
-# speculative round
-SERVE_NEW = 64
+# serving the 32-layer reader: new tokens a greedy decode (32, for the
+# script's time limit: a token takes ~80 ms of host time there), draft
+# tokens a speculative round
+SERVE_NEW = 32
+# one-question POST /answer requests of the qa phase (then 4 of 16), and
+# the questions whose stages it times one by one (the script's time limit)
+QA_SINGLE_REQUESTS = 16
+QA_STAGE_QUESTIONS = 4
 SPEC_GAMMA = 4
 # (name, B, L, H, D, dtype) of the flash-kernel checks: the shape the SFT
 # step gives the kernels (H32 D128; its loss runs the model on tokens[:, :-1],
@@ -368,8 +410,15 @@ SPEC_GAMMA = 4
 # three and three blocks) at the step-time-llm-d1024 steps' B8 L2047 H4 and
 # the same ragged rows; at 2048 (eight blocks) at the step-time-llm-d2048
 # step's B8 L2047 H2 (the same operations as H4 D1024) and the same ragged
-# rows; at 1152 to 1920 (five to eight blocks) at B2 L1000 H2. Rows at L
-# 2047 are timed, and TIMED_RAGGED
+# rows; at 1152 to 1920 (five to eight blocks) at B2 L1000 H2; then the
+# clusters of nine to sixteen blocks: float32 at 2048 (sixteen 128-column
+# blocks) at the step-time-llm-d2048-fp32 step's B2 L2047 H2 and ragged
+# rows, at 1664 and 1152 (thirteen and nine) at B2 L1000 H2 and at 1152 at
+# B1 L129; bf16 and float16 at 4096 (sixteen 256-column blocks) at the
+# step-time-llm-d4096 step's B8 L2047 H1, B2 L1000 H1 and ragged rows, at
+# 3968, 3072 (bf16) and 2176 (shares of 256 and 192, 256 alone, 256 and
+# 192: sixteen, twelve and nine blocks) at B2 L1000 H2 and at 2176 at B1
+# L129. Rows at L 2047 are timed, and TIMED_RAGGED
 ATTN_SHAPES = (("sft_b8_l2047_bf16", 8, SFT_SEQ - 1, 32, 128, "bfloat16"),
                ("sft_b8_l2047_fp32", 8, SFT_SEQ - 1, 32, 128, "float32"),
                ("ragged_b2_l1000_bf16", 2, 1000, 32, 128, "bfloat16"),
@@ -423,14 +472,40 @@ ATTN_SHAPES = (("sft_b8_l2047_bf16", 8, SFT_SEQ - 1, 32, 128, "bfloat16"),
                                     ("ragged_b1_l65", 1, 65))),
                *((f"ragged_b2_l1000_d{d}_{tag}", 2, 1000, 2, d, dtype)
                  for dtype, tag in (("bfloat16", "bf16"), ("float16", "f16"))
-                 for d in WIDE16_HEAD_DIMS[4:-1]))
+                 for d in WIDE16_HEAD_DIMS[4:-1]),
+               *((f"{name}_d2048_fp32", B, L, 2, 2048, "float32")
+                 for name, B, L in (("h2_b2_l2047", 2, SFT_SEQ - 1),
+                                    ("ragged_b1_l129", 1, 129),
+                                    ("ragged_b1_l65", 1, 65))),
+               *((f"ragged_b2_l1000_d{d}_fp32", 2, 1000, 2, d, "float32")
+                 for d in D2048_FP32_OTHER),
+               ("ragged_b1_l129_d1152_fp32", 1, 129, 2, 1152, "float32"),
+               *((f"{name}_d4096_{tag}", B, L, 1, 4096, dtype)
+                 for dtype, tag in (("bfloat16", "bf16"), ("float16", "f16"))
+                 for name, B, L in (("h1_b8_l2047", 8, SFT_SEQ - 1),
+                                    ("ragged_b2_l1000", 2, 1000),
+                                    ("ragged_b1_l129", 1, 129),
+                                    ("ragged_b1_l65", 1, 65))),
+               *((f"ragged_b2_l1000_d{d}_{tag}", 2, 1000, 2, d, dtype)
+                 for dtype, tag, dims in (
+                     ("bfloat16", "bf16", D4096_OTHER),
+                     ("float16", "f16", D4096_GRAD_DIMS[1:]))
+                 for d in dims),
+               *((f"ragged_b1_l129_d2176_{tag}", 1, 129, 2, 2176, dtype)
+                 for dtype, tag in (("bfloat16", "bf16"),
+                                    ("float16", "f16"))))
 # median_ms of the plain flash versions in check_attn_kernels (the timed
-# rows' plain calls take 3-55 ms each)
-PLAIN_TIMING = dict(runs=5, reps=2, warmup=1)
-# the rows timed besides those at L 2047: the head dims 1152 to 1920, each
-# at its ragged B2 L1000 H2 row only
-TIMED_RAGGED = {f"ragged_b2_l1000_d{d}_{tag}" for d in WIDE16_HEAD_DIMS[4:-1]
-                for tag in ("bf16", "f16")}
+# rows' plain calls take 1-55 ms each; three runs for the script's time
+# limit)
+PLAIN_TIMING = dict(runs=3, reps=2, warmup=1)
+# the rows timed besides those at L 2047: the 16-bit head dims 1152 to
+# 1920 and 2176 to 3968, float32's 1152 and 1664, each at its ragged B2
+# L1000 H2 row only
+TIMED_RAGGED = {*(f"ragged_b2_l1000_d{d}_{tag}" for d in WIDE16_HEAD_DIMS[4:-1]
+                  for tag in ("bf16", "f16")),
+                *(f"ragged_b2_l1000_d{d}_fp32" for d in D2048_FP32_OTHER),
+                *(f"ragged_b2_l1000_d{d}_bf16" for d in D4096_OTHER),
+                *(f"ragged_b2_l1000_d{d}_f16" for d in D4096_GRAD_DIMS[1:])}
 # the float16 rows whose backward also runs with the cotangent scaled: far
 # under float16's normal range (an unscaled split of ds would round it to
 # 0) and large
@@ -438,7 +513,8 @@ F16_G_SCALES = {name: (2.0 ** -16, 2.0 ** 4) for name in (
     "ragged_b2_l1000_f16", "ragged_b2_l1000_d256_f16",
     "ragged_b2_l1000_d512_f16", "ragged_b2_l1000_d384_f16",
     "ragged_b2_l1000_d1024_f16", "ragged_b2_l1000_d640_f16",
-    "ragged_b2_l1000_d2048_f16", "ragged_b2_l1000_d1408_f16")}
+    "ragged_b2_l1000_d2048_f16", "ragged_b2_l1000_d1408_f16",
+    "ragged_b2_l1000_d4096_f16")}
 # the SFT step at Gemma-2B's widths (google/gemma-2b config.json: hidden
 # 2048, 8 heads of 256, one kv head, intermediate 16384, 18 layers, vocab
 # 256000, tied embeddings) on the repo's LLaMA block (SwiGLU, RMSNorm,
@@ -489,25 +565,30 @@ F16_GRAD_LAYERS = 2
 # x 2048, cut to 4 of 32 layers) with 8 heads: the repo's block ties the
 # head dim to dim / heads, so DeepSeek's 64 query heads become 8 (its MoE,
 # sparse attention and sliding window are in neither package); F16_STEPS
-# steps in bf16, then in float16. Its gradient check also runs a model at
-# head dim 384 (dim 3072, 8 heads, one kv head)
-D512_FLAGS = F16_FLAGS[:-2] + ["--n_heads", "8", "--n_kv_heads", "1",
-                               "--dtype", "bfloat16"]
+# steps in bf16, then in float16, cut to 2 layers for the script's time
+# limit. Its gradient check also runs a model at head dim 384 (dim 3072, 8
+# heads, one kv head)
+D512_FLAGS = [{"--n_layers": "2"}.get(flag, x)
+              for flag, x in zip([None, *F16_FLAGS[:-2]], F16_FLAGS[:-2])
+              ] + ["--n_heads", "8", "--n_kv_heads", "1", "--dtype",
+                   "bfloat16"]
 D512_F16_FLAGS = D512_FLAGS[:-2] + ["--dtype", "float16"]
 D384_GRAD = dict(dim=3072, n_heads=8, n_kv_heads=1)
 # the same head shape computing in float32 (the float32 kernels at head dim
 # 512, clusters of four blocks), at B2 as the float32 LLaMA2-7B-width step
-# runs: ~0.95 B parameters take ~15 GB of float32 state
+# runs, 2 layers as D512_FLAGS (at 4, ~0.95 B parameters take ~15 GB of
+# float32 state)
 D512_FP32_FLAGS = [{"--dtype": "float32", "--batch_size": "2"}.get(flag, x)
                    for flag, x in zip([None, *D512_FLAGS], D512_FLAGS)]
 # LLaMA2-7B's SFT at its widths (dim 4096, intermediate 11008, vocab 32000,
-# B2 x 2048, 4 of 32 layers, float32, as D512_FP32_FLAGS) with its 4,096
+# B2 x 2048, float32, as D512_FP32_FLAGS) with its 4,096
 # query columns regrouped as 4 heads of 1024 and one kv head: no published
 # configuration has heads of 640-1024, and the JAX reader sends them to its
 # Pallas kernels; the float32 kernels at head dim 1024, clusters of eight
-# blocks. Its gradient check also runs 2-layer models at head dims 896, 768
-# and 640 (4 heads, one kv head each)
-D1024_FP32_FLAGS = [{"--n_heads": "4"}.get(flag, x)
+# blocks; cut to 2 layers for the script's time limit (the
+# step-time-llm-d2048-fp32 phase keeps 4). Its gradient check also runs
+# 2-layer models at head dims 896, 768 and 640 (4 heads, one kv head each)
+D1024_FP32_FLAGS = [{"--n_heads": "4", "--n_layers": "2"}.get(flag, x)
                     for flag, x in zip([None, *D512_FP32_FLAGS],
                                        D512_FP32_FLAGS)]
 WIDE_GRADS = tuple(dict(dim=4 * d, n_heads=4, n_kv_heads=1)
@@ -523,16 +604,37 @@ D1024_FLAGS = [{"--n_heads": "4", "--n_layers": "2"}.get(flag, x)
                for flag, x in zip([None, *D512_FLAGS], D512_FLAGS)]
 D1024_F16_FLAGS = D1024_FLAGS[:-2] + ["--dtype", "float16"]
 # the same query columns as 2 heads of 2048 and one kv head, bf16, B8,
-# F16_STEPS steps: the 16-bit cluster kernels in clusters of eight 256-column
-# blocks, the widest head the 16-bit kernels take; its gradient check also
-# at 1408 and 1152 (2 heads: clusters of six and five blocks, shares of 256
-# and 192 columns). Float16 runs the three gradient checks in the
+# F16_STEPS steps, cut to 2 layers for the script's time limit (the
+# step-time-llm-d4096 phase keeps 4): the 16-bit cluster kernels in
+# clusters of eight 256-column blocks; its gradient check also at 1408 and
+# 1152 (2 heads: clusters of six and five blocks, shares of 256 and 192
+# columns). Float16 runs the three gradient checks in the
 # step-time-llm-d1024-f16 phase (D2048_GRADS), not a step phase of its own:
 # the script's time limit
-D2048_FLAGS = [{"--n_heads": "2"}.get(flag, x)
+D2048_FLAGS = [{"--n_heads": "2", "--n_layers": "2"}.get(flag, x)
                for flag, x in zip([None, *D512_FLAGS], D512_FLAGS)]
 D2048_GRADS = tuple(dict(dim=2 * d, n_heads=2, n_kv_heads=1)
                     for d in (2048, 1408, 1152))
+# the clusters of nine to sixteen blocks, on LLaMA2-7B's SFT at its widths:
+# its 4,096 query columns as 2 heads of 2048 and one kv head in float32
+# (D512_FP32_FLAGS' run, B2, 4 layers, F16_STEPS steps: the float32 kernels
+# in clusters of sixteen 128-column blocks), the gradient check also at
+# 1664 and 1152 (2 heads: thirteen and nine blocks); and as one head of
+# 4096 in bf16 (D512_FLAGS' run, B8, 4 layers, F16_STEPS steps: the 16-bit
+# cluster kernels in clusters of sixteen 256-column blocks), the gradient
+# check also at 3968 and 2176 (one head: sixteen and nine blocks, shares of
+# 256 and 192). Float16 runs the three gradient checks at 4096, 3968 and
+# 2176 in the step-time-llm-d1024-f16 phase (D4096_GRADS), not a step phase
+# of its own: the script's time limit
+D2048_FP32_FLAGS = [{"--n_heads": "2", "--n_layers": "4"}.get(flag, x)
+                    for flag, x in zip([None, *D512_FP32_FLAGS],
+                                       D512_FP32_FLAGS)]
+D2048_FP32_GRADS = tuple(dict(dim=2 * d, n_heads=2, n_kv_heads=1)
+                         for d in D2048_FP32_OTHER)
+D4096_FLAGS = [{"--n_heads": "1", "--n_layers": "4"}.get(flag, x)
+               for flag, x in zip([None, *D512_FLAGS], D512_FLAGS)]
+D4096_GRADS = tuple(dict(dim=d, n_heads=1, n_kv_heads=1)
+                    for d in D4096_GRAD_DIMS)
 # scripts/rearev_webqsp.sh with the reference's training defaults
 HEADLINE_FLAGS = ["ReaRev", "--entity_dim", "50", "--num_iter", "3",
                   "--num_ins", "2", "--num_gnn", "3", "--lm", "sbert",
@@ -2307,10 +2409,11 @@ def flash_kernel_name(kind, dtype, hd):
     substring: the bf16 and float16 kernels are templates on the element
     type and the head dim (the pair kernels at 384 and 512), or, from 640,
     on the element type and the widest share (the cluster kernels, one
-    instance for every head dim to 2048); the float32 ones on the head
-    dim."""
+    instance for every head dim to 4096); the float32 ones on the head dim
+    to 512, and from 640 the instance <0> (SPLIT3_INSTANCES), one for every
+    head dim to 2048."""
     if dtype == "float32":
-        return f"flash_{kind}_split3_kernel<{hd}>"
+        return f"flash_{kind}_split3_kernel<{hd if hd <= 512 else 0}>"
     elem = {"bfloat16": "__nv_bfloat16", "float16": "__half"}[dtype]
     if hd > 512:
         return f"flash_{kind}_cluster_kernel<{elem}, {CLUSTER16_CMAX}>"
@@ -2821,7 +2924,7 @@ def run_qa(device, train_root, sft_trainer, root):
         torch.cuda.synchronize()
         reset_gate_counts()
         reset_attn_counts()
-        for n, reps in ((1, 64), (16, 4)):
+        for n, reps in ((1, QA_SINGLE_REQUESTS), (16, 4)):
             for i in range(reps):
                 batch = [questions[(i * n + k) % len(questions)]
                          for k in range(n)]
@@ -2839,7 +2942,7 @@ def run_qa(device, train_root, sft_trainer, root):
     over = [r for r in results if not isinstance(r["prediction"], str)
             or "Reasoning Paths:" not in r["prompt"]
             or reader.tokenize(r["prompt"]) > reader.maximun_token]
-    if len(results) != 64 + 64 or over:
+    if len(results) != QA_SINGLE_REQUESTS + 64 or over:
         raise AssertionError(f"/answer: {len(results)} results, "
                              f"{len(over)} malformed or over budget")
 
@@ -2853,7 +2956,7 @@ def run_qa(device, train_root, sft_trainer, root):
 
     stages = {k: [] for k in ("retrieve", "prompt", "prefill", "decode",
                               "answer")}
-    for q in questions[:8]:
+    for q in questions[:QA_STAGE_QUESTIONS]:
         got, ms = synced(lambda: qa.retriever.retrieve([q], with_paths=False))
         stages["retrieve"].append(ms)
         (prompt,), ms = synced(lambda: qa.prompts([q], got))
@@ -3347,8 +3450,10 @@ def sft_fp32_entry_step_time(device, root, prompts, flags, phase,
                              more_grads=()):
     """Phases step-time-llm-d256-fp32 (D256_FP32_FLAGS: Gemma-2B's attention
     widths cut to D256_FP32_LAYERS layers, the float32 kernels at head dim
-    256) and step-time-llm-d512-fp32 (D512_FP32_FLAGS: DeepSeek-V4-Flash's
-    head shape, 4 layers, B2, the float32 kernels at head dim 512): the SFT
+    256), step-time-llm-d512-fp32 (D512_FP32_FLAGS: DeepSeek-V4-Flash's
+    head shape, 2 layers, B2, the float32 kernels at head dim 512) and the
+    head-dim-1024 and 2048 float32 phases (D1024_FP32_FLAGS,
+    D2048_FP32_FLAGS): the SFT
     computing in float32 through the port's entry (``sft_entry_step_time``:
     D256_STEPS steps at 2048 tokens, the kernels' launches exact, ms a step,
     one profiled step); a no-cache scoring forward's token log-probabilities
@@ -3810,7 +3915,7 @@ def run_serve_7b(device, model, draft_bundle, prompts):
     """Phase serve-7b: the 32-layer reader from the seed (the lora phase's
     base) quantized by ``quantize_state_dict``; one prompt's int8 logits
     against full precision (cosine, max relative error; float32 compute
-    held to the JAX test's cos > 0.999, bf16 printed); 64 greedy tokens at
+    held to the JAX test's cos > 0.999, bf16 printed); 32 greedy tokens at
     B1 and B8, full precision and int8: ms a token (host clock; at B1 also
     the device ms a step under torch.profiler) beside the bytes a token
     reckoned from the casts and their floor at 3.35 TB/s, ``param_bytes``,
@@ -3852,7 +3957,7 @@ def run_serve_7b(device, model, draft_bundle, prompts):
             max_rel_err=((a - b).abs().max() / a.abs().max()).item(),
             argmax_agree=(a.argmax(-1) == b.argmax(-1)).float().mean().item())
         del a, b
-    # ---- 64 greedy tokens at B1 and B8, full precision and int8 ----
+    # ---- greedy tokens at B1 and B8, full precision and int8 ----
     torch.cuda.reset_peak_memory_stats()
     decode = {}
     for name, m in (("full", model), ("int8", model_q)):
@@ -4465,8 +4570,9 @@ def build_all():
     ptxas register / spill lines, and the wgmma (HGMMA) and TMA-load
     (UTMALDG) instructions of each flash kernel, which the Hopper kernels
     must hold as SM90_KERNELS lists, without spills; returns how many
-    clusters of each 16-bit cluster instance the card holds at once, by
-    kernel, type and head dim ("fwd<bfloat16, 2048>")."""
+    clusters of each float32 and each 16-bit cluster instance the card
+    holds at once, by kernel and head dim ("fwd<2048>") and by kernel, type
+    and head dim ("fwd<bfloat16, 4096>")."""
     from concurrent.futures import ThreadPoolExecutor
 
     from gnn_rag_tpu_torch.utils import build
@@ -4506,7 +4612,7 @@ def build_all():
                         raise AssertionError(f"{name} spills or keeps a "
                                              f"stack frame: {mine}")
                 # the float32 kernels' clusters (HD / 128 blocks of 210-230
-                # KB, one an SM) and the 16-bit ones' (2 to 8 blocks of up
+                # KB, one an SM) and the 16-bit ones' (2 to 16 blocks of up
                 # to 230 KB): how many the card holds at once, 0 if it
                 # cannot launch one
                 import torch
@@ -4525,32 +4631,49 @@ def build_all():
                 log("build", f"bf16 and float16 flash clusters the card "
                     f"holds at once (cudaOccupancyMaxActiveClusters): "
                     f"{json.dumps(clusters16)}")
-                wide = {f"{k}<{d}>": dict(
-                    clusters=clusters[f"{k}<{d}>"],
+                wide = {f"{k}<0>": dict(
+                    clusters={d: clusters[f"{k}<{d}>"]
+                              for d in WIDE_HEAD_DIMS + WIDE32_HEAD_DIMS},
                     **next(v for n, v in props.items()
-                           if f"flash_{k}_split3_kernelILi{d}E" in n))
-                    for d in WIDE_HEAD_DIMS for k in kinds}
-                log("build", f"float32 flash instances in clusters of five "
-                    f"to eight blocks (clusters at once, ptxas registers, "
-                    f"spill and stack bytes): {json.dumps(wide)}")
-                shares = {d: fa.cluster16_shares(d) for d in WIDE16_HEAD_DIMS}
+                           if f"flash_{k}_split3_kernelILi0E" in n))
+                    for k in kinds}
+                log("build", f"float32 flash instances <0> at head dims "
+                    f"640-2048, clusters of five to sixteen blocks "
+                    f"(clusters at once by head dim, ptxas registers, spill "
+                    f"and stack bytes): {json.dumps(wide)}")
+                dims16 = WIDE16_HEAD_DIMS + CLUSTERS16_HEAD_DIMS
+                shares = {d: fa.cluster16_shares(d) for d in dims16}
                 wide16 = {f"{k}<{t}, {CLUSTER16_CMAX}>": dict(
                     clusters={d: clusters16[f"{k}<{t}, {d}>"]
-                              for d in WIDE16_HEAD_DIMS},
+                              for d in dims16},
                     **next(v for n, v in props.items()
                            if f"flash_{k}_cluster_kernelI{m}Li"
                               f"{CLUSTER16_CMAX}E" in n))
                     for t, m in elems.items() for k in kinds}
                 log("build", f"bf16 and float16 flash cluster kernels at "
-                    f"head dims 640-2048, clusters of ceil(D / 256) blocks "
+                    f"head dims 640-4096, clusters of ceil(D / 256) blocks "
                     f"(columns of each block by head dim: "
                     f"{json.dumps(shares)}; clusters at once by head dim, "
                     f"ptxas registers, spill and stack bytes): "
                     f"{json.dumps(wide16)}")
+                # Hopper's non-portable cluster sizes, 9 to 16 blocks: each
+                # kernel's clusters at once at the first head dim of each
+                # size (float32 D = 128 NB; 16 bits the first D of
+                # ceil(D / 256) = NB)
+                by_size = {nb: {
+                    **{f"{k}<float32>": clusters[f"{k}<{128 * nb}>"]
+                       for k in kinds},
+                    **{f"{k}<{t}>": clusters16[
+                        f"{k}<{t}, {256 * nb - 128}>"]
+                       for t in elems for k in kinds}}
+                    for nb in range(9, 17)}
+                log("build", f"flash clusters at once by cluster size 9-16 "
+                    f"(non-portable; float32 at D = 128 NB, bf16 and "
+                    f"float16 at D = 256 NB - 128): {json.dumps(by_size)}")
                 if not (all(clusters.values()) and all(clusters16.values())):
                     raise AssertionError(f"a flash cluster cannot launch: "
                                          f"{clusters} {clusters16}")
-    return clusters16
+    return clusters, clusters16
 
 
 def main():
@@ -4580,7 +4703,7 @@ def main():
         walls[phase] = round(time.perf_counter() - t, 1)
         return out
 
-    clusters16 = timed("build", build_all)
+    clusters32, clusters16 = timed("build", build_all)
     rows = timed("kernel", check_kernels, device)
     bwd_rows = timed("kernel-bwd", check_bwd_kernels, device)
     fused_rows = timed("kernel-fused", check_fused_kernels, device)
@@ -4650,10 +4773,17 @@ def main():
                      ("bfloat16", D1024_FLAGS, "step-time-llm-d1024",
                       WIDE_GRADS),
                      ("float16", D1024_F16_FLAGS, "step-time-llm-d1024-f16",
-                      WIDE_GRADS + D2048_GRADS))}
+                      WIDE_GRADS + D2048_GRADS + D4096_GRADS))}
         d2048 = timed("step-time-llm-d2048", sft_16bit_step_time, device,
                       llm_root, D2048_FLAGS, "step-time-llm-d2048",
                       D2048_GRADS[1:])
+        d2048_fp32 = timed(
+            "step-time-llm-d2048-fp32", sft_fp32_entry_step_time, device,
+            llm_root, prompts, D2048_FP32_FLAGS, "step-time-llm-d2048-fp32",
+            D2048_FP32_GRADS)
+        d4096 = timed("step-time-llm-d4096", sft_16bit_step_time, device,
+                      llm_root, D4096_FLAGS, "step-time-llm-d4096",
+                      D4096_GRADS[1:])
         _, reader_7b, lora_launches = timed("lora", run_lora, device, tokens,
                                             mask)
         timed("serve-7b", run_serve_7b, device, reader_7b,
@@ -4999,6 +5129,49 @@ def main():
                 {"grads": run["grads_by_head_dim"][f"d{hd}"][
                     "flash_launches"]},
                 {f"{path}_grads_d{hd}": "grads"}))
+    # the float32 kernels at head dims 2048, 1664 and 1152 (the <0>
+    # instance in clusters of sixteen, thirteen and nine blocks) on the
+    # step-time-llm-d2048-fp32 path: 2048 in its SFT steps and scoring
+    # forward, 1664 and 1152 in its gradient check; 2048 timed at the step's
+    # B2 L2047 H2, 1664 and 1152 at B2 L1000 H2
+    phase = "step_time_llm_d2048_fp32"
+    groups.append(("float32", 2048, "_d2048_fp32", "h2_b2_l2047_d2048_fp32",
+                   d2048_fp32, {
+                       phase: "flash_launches_fwd_dq_dkv",
+                       f"{phase}_timed_steps": "timed_flash_launches",
+                       f"{phase}_scoring": "scoring_flash_launches",
+                       f"{phase}_grads_d2048": "grad_flash_launches"}))
+    for hd in D2048_FP32_OTHER:
+        groups.append((
+            "float32", hd, f"_d{hd}_fp32", f"ragged_b2_l1000_d{hd}_fp32",
+            {"grads": d2048_fp32["grads_by_head_dim"][f"d{hd}"][
+                "flash_launches"]},
+            {f"{phase}_grads_d{hd}": "grads"}))
+    # the bf16 and float16 kernels at head dims 4096, 3968 and 2176
+    # (clusters of sixteen, sixteen and nine blocks): bf16 4096 in the
+    # step-time-llm-d4096 SFT steps and gradient check, 3968 and 2176 in its
+    # gradient check, float16's three in step-time-llm-d1024-f16's gradient
+    # check; 4096 timed at the step's B8 L2047 H1, 3968 and 2176 at B2 L1000
+    # H2, as bf16's 3072 (on no path, in the bf16 4096 entries'
+    # other_head_dims)
+    phase = "step_time_llm_d4096"
+    groups.append(("bfloat16", 4096, "_d4096_bf16", "h1_b8_l2047_d4096_bf16",
+                   d4096, {phase: "flash_launches_fwd_dq_dkv",
+                           f"{phase}_timed_steps": "timed_flash_launches",
+                           f"{phase}_grads_d4096": "grad_flash_launches"}))
+    grads16 = {"bfloat16": (d4096, phase),
+               "float16": (d1024["float16"], "step_time_llm_d1024_f16")}
+    for dtype, tag in (("bfloat16", "bf16"), ("float16", "f16")):
+        run, path = grads16[dtype]
+        for hd in (D4096_GRAD_DIMS[1:] if dtype == "bfloat16"
+                   else D4096_GRAD_DIMS):
+            groups.append((
+                dtype, hd, f"_d{hd}_{tag}",
+                (f"h1_b8_l2047_d{hd}_{tag}" if hd == 4096
+                 else f"ragged_b2_l1000_d{hd}_{tag}"),
+                {"grads": run["grads_by_head_dim"][f"d{hd}"][
+                    "flash_launches"]},
+                {f"{path}_grads_d{hd}": "grads"}))
     for dtype, hd, suffix, shape_name, run, paths in groups:
         rows_t = {r["shape"]: r for r in attn_rows
                   if r["D"] == hd and r["dtype"] == dtype}
@@ -5037,11 +5210,18 @@ def main():
                 "products_issued_needed": h_row["products_issued_needed"][key],
                 **({"clusters_at_once":
                     clusters16[f"{key}<{dtype}, {hd}>"]}
-                   if dtype != "float32" and hd > 256 else {}),
+                   if dtype != "float32" and hd > 256 else
+                   {"clusters_at_once": clusters32[f"{key}<{hd}>"]}
+                   if dtype == "float32" and hd > 128 else {}),
                 **({"other_head_dims": {
                     d: other_head_dim(attn_rows, dtype, d, key, parts)
                     for d in WIDE16_HEAD_DIMS[4:-1]
-                    if d not in (1408, 1152)}} if hd == 2048 else {}),
+                    if d not in (1408, 1152)}}
+                   if hd == 2048 and dtype != "float32" else
+                   {"other_head_dims": {
+                       d: other_head_dim(attn_rows, dtype, d, key, parts)
+                       for d in D4096_OTHER if d not in D4096_GRAD_DIMS}}
+                   if hd == 4096 and dtype == "bfloat16" else {}),
                 "max_err_over_tol_by_shape": by_shape,
                 "launches_by_path": by_path,
                 **({} if key == "fwd" else

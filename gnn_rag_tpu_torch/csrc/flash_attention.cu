@@ -12,7 +12,7 @@
 //   p = exp(s - lse), dp = dO v^T, ds = p * (dp - delta) * scale,
 //   dq = ds k, dk = ds^T q, dv = p^T dO,   delta = rowsum(dO * o) (given).
 // Tensors keep the model's [B, N, H, D] layout (D a multiple of 128: 128 to
-// 1024 in float32, 128 to 2048 in bfloat16 and float16; the wrapper raises
+// 2048 in float32, 128 to 4096 in bfloat16 and float16; the wrapper raises
 // on any other D); lse and delta are [B*H, L] float, stored
 // once per row (the TPU kernel replicated them over 128 lanes for its block
 // shapes). All sums are float; every product is the
@@ -60,17 +60,20 @@
 //   dp = dO v^T, 48 wgmma m64n32k16 each, ds split into register A terms
 //   for dq += ds k, 12 wgmma m64n128k16 (k's terms MN-major). 198 KB, 256
 //   threads, one block an SM, registers unsplit.
-// - head dims 256 to 1024 (the same three kernels, instances <256>, <384>,
-//   .., <1024>; <128> above): past D 128 the layouts above would not fit
-//   a block: at 256 the forward's 128 resident Q rows as terms take 192 KB,
-//   dk/dv's resident K and V terms of 64 keys 192 KB (and dk and dv of 64 x
-//   256 floats would be 256 registers a thread), dq's resident Q and dO
-//   terms 192 KB, against the 227 KB (232,448 bytes) a block may have. So
-//   the depth is split over a thread block cluster of NB = D / 128 blocks
-//   (2 to 8: head dims 256 to 1024) on the same rows: block rank r owns
-//   columns 128r .. 128r + 127 and runs the D 128 layout above on them
-//   (its Q, K, V and dO terms
-//   are those 128 columns), so every product from shared memory, every
+// - head dims 256 to 2048 (the same three kernels, instances <256>, <384>,
+//   <512> and, for every head dim from 640 to 2048, <SPLIT3_ANY>, whose
+//   cluster size is a launch attribute; <128> above): past D 128 the
+//   layouts above would not fit a block: at 256 the forward's 128 resident
+//   Q rows as terms take 192 KB, dk/dv's resident K and V terms of 64 keys
+//   192 KB (and dk and dv of 64 x 256 floats would be 256 registers a
+//   thread), dq's resident Q and dO terms 192 KB, against the 227 KB
+//   (232,448 bytes) a block may have. So the depth is split over a thread
+//   block cluster of NB = D / 128 blocks (2 to 16: head dims 256 to 2048;
+//   past 8 Hopper's non-portable cluster sizes, which a kernel takes once
+//   its cudaFuncAttributeNonPortableClusterSizeAllowed is set) on the same
+//   rows: block rank r owns columns 128r .. 128r + 127 and runs the D 128
+//   layout above on them (its Q, K, V and dO terms are those 128 columns),
+//   so every product from shared memory, every
 //   tile and (but for the exchange) every register stays as at D 128. Each
 //   consumer warpgroup forms its partial of s (dq and dk/dv: of s and dp)
 //   over its 128 columns from zero (the six products) and the cluster adds
@@ -89,10 +92,11 @@
 //   slots with ld.shared::cluster and adds all NB in rank order, ((p0 +
 //   p1) + p2) + .., the same operands in the same order in every block,
 //   then arrives on empty in every peer. At 384 and 512 each element
-//   group's peer loads are unrolled together; from 640 (five to eight
+//   group's peer loads are unrolled together; from 640 (five to sixteen
 //   blocks) the sum runs rank by rank in a loop that is not unrolled, one
 //   rank's loads in flight at a time (unrolled, seven peers' would be in
-//   flight at 1024, and spill). Shared memory, the same at every head dim
+//   flight at 1024, and spill); the mbarriers count (NB - 1) x 128
+//   arrivals, 1,920 at 16 blocks. Shared memory, the same at every head dim
 //   past 128: the forward's 197,664 bytes + two exchanges (16 KB each,
 //   one a consumer) = 230,464; dq 197,664 + 16,400 = 214,064; dk/dv
 //   198,176 + 16,400 = 214,576. The exchange costs per tile: forward 16 KB
@@ -147,18 +151,20 @@
 //   columns (consumer c accumulates dk and dv columns 128c ..), each forming
 //   s^T and dp^T over the whole depth itself (twice the score products, for
 //   no exchange between them); 2 stages (194 KB).
-// - head dims 384 to 2048: a head row of 512 is 1 KB, so 128 resident Q
+// - head dims 384 to 4096: a head row of 512 is 1 KB, so 128 resident Q
 //   rows take 128 KB and one 64-key K + V stage 128 KB, and o, dq or dk/dv
 //   of 64 rows x 512 would be 256 floats a thread. So the depth is split
 //   over a thread block cluster of NB = ceil(HD / 256) blocks on the same
 //   rows (keys), as the float32 kernels split it from 256, each block
 //   owning a share of whole 64-column boxes, at most four (256 columns, the
 //   HD 256 layouts' shared memory): at 384 and 512 a pair, each on HD / 2
-//   columns (flash_{fwd,dq,dkv}_pair_kernel<T, 384|512>); from 640 to 2048
-//   three to eight blocks whose shares differ by at most one box, the
+//   columns (flash_{fwd,dq,dkv}_pair_kernel<T, 384|512>); from 640 to 4096
+//   three to sixteen blocks whose shares differ by at most one box, the
 //   wider first (flash_{fwd,dq,dkv}_cluster_kernel<T, 256>: 640 = 256 +
-//   192 + 192, 896 = 2 x 256 + 2 x 192, 1152 = 3 x 256 + 2 x 192, 1408 = 4
-//   x 256 + 2 x 192; 768, 1024, 1280, .., 2048 all 256; share16_units). Of
+//   192 + 192, 896 = 2 x 256 + 2 x 192, 1152 = 3 x 256 + 2 x 192, 2176 = 7
+//   x 256 + 2 x 192, 3968 = 14 x 256 + 2 x 192; 768, 1024, 1280, .., 4096
+//   all 256; share16_units; past eight blocks Hopper's non-portable cluster
+//   sizes). Of
 //   the two plans with at most 256 columns a block, this one and 256-column
 //   blocks with a narrower last one (640 = 256 + 256 + 128), both give the
 //   same blocks and the same widest block, which sets a cluster's time; the
@@ -175,10 +181,10 @@
 //   partial s (and dp) over the block's columns and the cluster adds the
 //   NB partials through the same consumer's Exchange in every block, as the
 //   float32 clusters do: a pair sends its partial to the peer and adds the
-//   peer's (IEEE addition commutes), three to eight blocks add all NB in
+//   peer's (IEEE addition commutes), three to sixteen blocks add all NB in
 //   rank order, rank by rank (add_cluster_partials_n, NB a launch
 //   argument: one instance of each cluster kernel per type serves every
-//   head dim from 640 to 2048, each block running the body for its own
+//   head dim from 640 to 4096, each block running the body for its own
 //   share, three or four boxes, a template on it). So every block holds the
 //   same bits of s and dp, no score product is done twice across the
 //   cluster, and every block accumulates only its own columns (in dk/dv both
@@ -276,11 +282,11 @@
 // two are within noise);
 // flash_fwd_split3_kernel 168 at launch (consumers 200, converter 104) at
 // every head dim, flash_dkv_split3_kernel 222 (<128>), 244 (<256>), 254
-// (<384>), 255 (<512>) and 226-228 (<640> to <1024>),
+// (<384>), 255 (<512>) and 224 (<SPLIT3_ANY>, 640 to 2048),
 // flash_dq_split3_kernel 137, 142, 212 and 238 (the rank-order sum's loads
-// of the peers' partials in flight together) and 168 at <640> to <1024>
-// (the sum rank by rank); the 16-bit pair and cluster kernels (384 to
-// 2048, both types) 168 at launch, consumers 240 (forward, dq) and 232
+// of the peers' partials in flight together) and 168 at <SPLIT3_ANY> (the
+// sum rank by rank); the 16-bit pair and cluster kernels (384 to
+// 4096, both types) 168 at launch, consumers 240 (forward, dq) and 232
 // (dk/dv); no spills, no stack frames (at 256 columns with three or more
 // blocks only because their sum runs rank by rank: unrolled over the peers
 // it spilled 8-156 bytes).
@@ -298,7 +304,12 @@
 // of their bounds at 640, 9 / 7 / 5% at 1024; a cluster's time is a
 // 256-column block's, whatever the narrower ones hold. At 2048 (B8 L2047
 // H2, H4 D1024's operations, eight blocks) 6.18 / 11.88 / 22.06 ms: 4.5 /
-// 3.5 / 2.5% of the bounds, each exchange waiting for seven peers.
+// 3.5 / 2.5% of the bounds, each exchange waiting for seven peers; at 4096
+// (B8 L2047 H1, the same operations, sixteen blocks) 13.30 / 25.67 / 46.43
+// ms in bf16, 13.26 / 25.70 / 45.01 in float16 (flash_bench --phases
+// clusters16 on an H100 at 700 W): 2.1 / 1.6 / 1.2% of the bounds, twice
+// D2048's, each exchange waiting for fifteen peers. The card holds 9
+// clusters of nine 230 KB blocks at once and 7 of ten to sixteen.
 //
 // At head dim 256 the float32 kernels take 0.62 / 1.16 / 1.30 ms (forward /
 // dq / dk/dv) at B2 L2047 H8 D256 (chip_smoke.py on an H100 at 700 W): 34%
@@ -324,7 +335,12 @@
 // bounds, and at D 1024 slower than SDPA's float32 forward (2.34 ms) and
 // backward (7.88 for dq, dk and dv together) and than the plain versions'
 // dq and dk/dv (5.34, 6.73): each exchange waits for the slowest of seven
-// peers and reads seven 16 KB partials, rank after rank.
+// peers and reads seven 16 KB partials, rank after rank. <SPLIT3_ANY>,
+// whose NB is read from the cluster, runs 640-1024 within 4% of the
+// instances <640>..<1024> it replaced (flash_bench --phases clusters16 in
+// turns on an H100 at 700 W), and at 2048 (B2 L2047 H2, sixteen blocks)
+// takes 7.12 / 15.40 / 15.87 ms, twice D 1024 at H4, 6 / 4 / 5% of the
+// six-pass bounds.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -464,8 +480,8 @@ __device__ __forceinline__ float pow2(int e) {
 // first tiles its scale seldom falls; with the rescale in every tile dq
 // took 1.47 ms at B8 L2047 H32 D128, with the vote 1.12-1.14, bf16 1.01-
 // 1.12 in the same runs on an H100 at 700 W). |ds| <= p |dp - delta| /
-// sqrt(D) <= 2 sqrt(D) 65504^2 < 2^38.5 for any finite float16 inputs at
-// every D the kernels take, up to 2048 (|dp|, |delta| <= D 65504^2 < D
+// sqrt(D) <= 2 sqrt(D) 65504^2 < 2^39 for any finite float16 inputs at
+// every D the kernels take, up to 4096 (|dp|, |delta| <= D 65504^2 < D
 // 2^32), so the clamp at 2^60 never binds.
 template <int N>
 __device__ __forceinline__ bool scale_ds_rows(float (&v)[N], int (&e)[2],
@@ -1253,7 +1269,7 @@ static_assert(LAUNCH_REGS - F3_CONVERTER_REGS >=
                   2 * (F3_CONSUMER_REGS - LAUNCH_REGS),
               "the consumers take more registers than the converter frees");
 
-// Head dims 256 to 1024: a cluster of NB = HD / 128 blocks (2-8) on the
+// Head dims 256 to 2048: a cluster of NB = HD / 128 blocks (2-16) on the
 // same rows, block rank r owning columns 128r .. 128r + 127. Each consumer
 // warpgroup forms its partial of s (and dp) over those columns from zero
 // and the cluster adds the NB partials; every block then holds the same
@@ -1261,11 +1277,24 @@ static_assert(LAUNCH_REGS - F3_CONVERTER_REGS >=
 // of o, dq or dk and dv. A pair (NB 2, head dim 256: PAIR below) writes its
 // partial into the peer's buffer and adds the peer's to its own in one
 // float add (add_peer_partials: IEEE addition commutes). With three to
-// eight partials the order of the sum matters (IEEE addition does not
+// sixteen partials the order of the sum matters (IEEE addition does not
 // associate), so each block keeps its own partial in its own slot, reads
 // all NB and adds them in rank order, ((p0 + p1) + p2) + ..
-// (add_cluster_partials).
+// (add_cluster_partials). The instances <256> to <512> fix NB; one
+// instance, <SPLIT3_ANY>, serves every head dim from 640 to 2048 (five to
+// sixteen blocks): its NB is the cluster's size (%cluster_nctarank, a
+// launch attribute) and its head dim 128 NB.
 constexpr int PAIR = 2;          // blocks of a cluster at head dim 256
+constexpr int SPLIT3_ANY = 0;    // the instance whose NB is the cluster's size
+
+// a float32 cluster's blocks: HD / 128, or the cluster's size at SPLIT3_ANY
+template <int HD>
+__device__ __forceinline__ int split3_blocks() {
+  if constexpr (HD == SPLIT3_ANY)
+    return static_cast<int>(sm90::cluster_nctarank());
+  else
+    return HD / D;
+}
 
 // One consumer warpgroup's exchange with the same warpgroup of the other
 // blocks of its cluster, 32 floats a thread (float4 i of thread tid at
@@ -1363,11 +1392,12 @@ __device__ __forceinline__ void sum_partials(float (&x)[N], const Exchange* xc,
   }
 }
 
-// NB > 4: x becomes (kFirst), or adds, rank r's partial, read from its
-// slot (this block's own, r == rank, from its own). Called rank by rank in
-// a loop that is not unrolled, so the loads in flight are one rank's, the
-// same at every NB: sum_partials unrolls the NB - 1 peers' loads, which at
-// NB 8 would be seven float4 loads in flight an element group, and spill
+// x becomes (kFirst), or adds, rank r's partial, read from its slot (this
+// block's own, r == rank, from its own). Called rank by rank in a loop that
+// is not unrolled (add_cluster_partials_n), so the loads in flight are one
+// rank's, the same at every NB: sum_partials unrolls the NB - 1 peers'
+// loads, which at NB 8 would be seven float4 loads in flight an element
+// group, and spill
 template <bool kFirst, int N>
 __device__ __forceinline__ void add_rank_partial(float (&x)[N],
                                                  const Exchange* xc,
@@ -1393,17 +1423,16 @@ __device__ __forceinline__ void add_rank_partial(float (&x)[N],
 }
 
 // Exchange e (0, 1, ..) of this warpgroup's partials `parts` (32 floats a
-// thread in all) in a cluster of NB > 2 blocks: once every peer has read
-// this block's exchange e - 1, its partials go into its own slot and it
-// arrives on full in every peer (release at cluster scope); once every
-// peer's have arrived here, each element becomes the rank-order sum of the
-// NB partials, read from the peers' slots (ld.shared::cluster), and this
-// block arrives on empty in every peer. Every block adds the same operands
-// in the same order, so all hold the same bits. At NB 3 and 4 each element
-// group's NB - 1 peer loads are unrolled together (sum_partials, kUnrolled);
-// past 4 the sum runs rank by rank (add_rank_partial), ((p0 + p1) + p2) +
-// .. + p(NB - 1) all the same, with one rank's loads in flight at a time.
-template <int NB, bool kUnrolled = (NB <= 4), typename... Parts>
+// thread in all) in a cluster of NB = 3 or 4 blocks (<384>, <512>): once
+// every peer has read this block's exchange e - 1, its partials go into its
+// own slot and it arrives on full in every peer (release at cluster scope);
+// once every peer's have arrived here, each element becomes the rank-order
+// sum of the NB partials, read from the peers' slots (ld.shared::cluster),
+// and this block arrives on empty in every peer. Every block adds the same
+// operands in the same order, so all hold the same bits. Each element
+// group's NB - 1 peer loads are unrolled together (sum_partials); larger
+// clusters sum rank by rank (add_cluster_partials_n).
+template <int NB, typename... Parts>
 __device__ __forceinline__ void add_cluster_partials(Exchange* xc,
                                                      uint32_t rank, int tid,
                                                      int e, Parts&... parts) {
@@ -1417,16 +1446,7 @@ __device__ __forceinline__ void add_cluster_partials(Exchange* xc,
       sm90::mbar_arrive_cluster(sm90::map_peer(&xc->full, r));
   sm90::mbar_wait_cluster(&xc->full, parity);        // the peers' e
   i = 0;
-  if constexpr (kUnrolled) {
-    (sum_partials<NB>(parts, xc, rank, tid, i), ...);
-  } else {
-    (add_rank_partial<true>(parts, xc, 0, rank, tid, i), ...);
-#pragma unroll 1
-    for (uint32_t r = 1; r < static_cast<uint32_t>(NB); ++r) {
-      i = 0;
-      (add_rank_partial<false>(parts, xc, r, rank, tid, i), ...);
-    }
-  }
+  (sum_partials<NB>(parts, xc, rank, tid, i), ...);
 #pragma unroll
   for (int r = 0; r < NB; ++r)
     if (r != static_cast<int>(rank))
@@ -1434,9 +1454,10 @@ __device__ __forceinline__ void add_cluster_partials(Exchange* xc,
 }
 
 // add_cluster_partials rank by rank in a cluster of `nb` blocks, nb known
-// only at run time (the 16-bit cluster kernels, 3 to 8 blocks: one instance
-// for every head dim from 640 to 2048): the same barriers, slots and sum,
-// ((p0 + p1) + p2) + .. + p(nb - 1), with one rank's loads in flight
+// only at run time (the 16-bit cluster kernels, 3 to 16 blocks: one
+// instance for every head dim from 640 to 4096; the float32 <SPLIT3_ANY>, 5
+// to 16): the same barriers, slots and sum, ((p0 + p1) + p2) + .. + p(nb -
+// 1), with one rank's loads in flight
 template <typename... Parts>
 __device__ __forceinline__ void add_cluster_partials_n(Exchange* xc, int nb,
                                                        uint32_t rank, int tid,
@@ -1475,7 +1496,7 @@ struct Fwd3Bars {
 };
 constexpr size_t kFwd3Smem = 1024 + TERMS * TILE_BYTES +
                              2 * TERMS * QTILE_BYTES + sizeof(Fwd3Bars);
-// + an exchange a consumer at head dims 256 to 1024 (230,464 bytes)
+// + an exchange a consumer at head dims 256 to 2048 (230,464 bytes)
 template <int HD>
 constexpr size_t fwd3_smem() {
   return kFwd3Smem + (HD == D ? 0 : 2 * sizeof(Exchange));
@@ -1494,10 +1515,12 @@ static_assert(fwd3_smem<4 * D>() <= MAX_SMEM, "float32 forward at HD 512");
 // o += p v (24 wgmma m64n128k16, v's terms MN-major with the transpose
 // bit). A consumer whose rows all lie before a tile's first key skips its
 // products (it still waits and releases, keeping the barriers in step).
-// At HD 256 to 1024 the grid is NB = HD / 128 times as wide, clusters
+// At HD 256 to 2048 the grid is NB = HD / 128 times as wide, clusters
 // of NB blocks on the same rows, each on its 128 columns; a live tile's s is
 // the sum of the blocks' partials (add_peer_partials at 256,
-// add_cluster_partials in rank order from 384).
+// add_cluster_partials in rank order from 384). <SPLIT3_ANY> (640 to 2048)
+// reads NB from the cluster and addresses the head's 128 NB floats a row
+// as offset<1> of a head dim of one (head h at h HD, a row H HD).
 template <int HD>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
     flash_fwd_split3_kernel(const float* __restrict__ q,
@@ -1506,18 +1529,21 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
                             float* __restrict__ lse, int H, int L, int S,
                             float scale) {
   constexpr int NB = HD / D;               // a cluster's 128-column slices
-  constexpr bool kPair = NB == PAIR;
+  constexpr bool kPair = NB == PAIR, kCluster = NB != 1;
+  constexpr int OFF = HD == SPLIT3_ANY ? 1 : HD;   // offset<>'s head dim
   extern __shared__ unsigned char raw_smem[];
   unsigned char* const Qs = align1024(raw_smem);             // [term]
   unsigned char* const Ks = Qs + TERMS * TILE_BYTES;         // [term]
   unsigned char* const Vs = Ks + TERMS * QTILE_BYTES;        // [term]
   auto* bars = reinterpret_cast<Fwd3Bars*>(Vs + TERMS * QTILE_BYTES);
   auto* xch = reinterpret_cast<Exchange*>(bars + 1);   // [consumer], NB > 1
-  const uint32_t rank = NB > 1 ? sm90::cluster_ctarank() : 0;
+  const uint32_t rank = kCluster ? sm90::cluster_ctarank() : 0;
+  const int nb = split3_blocks<HD>();
   const int col0 = D * rank;                 // this block's columns
-  const int row_blocks = gridDim.x / NB;
-  const int q0 = (row_blocks - 1 - blockIdx.x / NB) * F3_ROWS;
+  const int row_blocks = gridDim.x / nb;
+  const int q0 = (row_blocks - 1 - blockIdx.x / nb) * F3_ROWS;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int oh = OFF == 1 ? h * D * nb : h, oH = OFF == 1 ? H * D * nb : H;
   const int n_tiles = (min(S, q0 + F3_ROWS) + F3_KEYS - 1) / F3_KEYS;
   const int wg = threadIdx.x / WG;
 
@@ -1526,27 +1552,27 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     sm90::mbar_init(&bars->v_full, WG);
     sm90::mbar_init(&bars->k_empty, 2 * WG / 32);     // consumer warps
     sm90::mbar_init(&bars->v_empty, 2 * WG / 32);
-    if constexpr (NB > 1) {
-      init_exchange(&xch[0], NB - 1);
-      init_exchange(&xch[1], NB - 1);
+    if constexpr (kCluster) {
+      init_exchange(&xch[0], nb - 1);
+      init_exchange(&xch[1], nb - 1);
     }
     sm90::fence_barrier_init();
   }
   __syncthreads();
-  if constexpr (NB > 1) sm90::cluster_sync();   // the peers' barriers too
+  if constexpr (kCluster) sm90::cluster_sync();   // the peers' barriers too
 
   if (wg == 0) {   // converter
     sm90::setmaxnreg_dec<F3_CONVERTER_REGS>();
     for (int j = 0; j < n_tiles; ++j) {
       const uint32_t parity = (j & 1) ^ 1;
       sm90::mbar_wait(&bars->k_empty, parity);
-      split_rows<F3_KEYS, 4, HD>(Ks, BOX64, QTILE_BYTES, k, b, h, S, H,
-                                 j * F3_KEYS, threadIdx.x, col0);
+      split_rows<F3_KEYS, 4, OFF>(Ks, BOX64, QTILE_BYTES, k, b, oh, S, oH,
+                                  j * F3_KEYS, threadIdx.x, col0);
       sm90::fence_proxy_async();
       sm90::mbar_arrive(&bars->k_full);
       sm90::mbar_wait(&bars->v_empty, parity);
-      split_rows<F3_KEYS, 4, HD>(Vs, BOX64, QTILE_BYTES, v, b, h, S, H,
-                                 j * F3_KEYS, threadIdx.x, col0);
+      split_rows<F3_KEYS, 4, OFF>(Vs, BOX64, QTILE_BYTES, v, b, oh, S, oH,
+                                  j * F3_KEYS, threadIdx.x, col0);
       sm90::fence_proxy_async();
       sm90::mbar_arrive(&bars->v_full);
     }
@@ -1561,8 +1587,8 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
   const int r0 = q0 + 64 * cw;
   const int row = r0 + 16 * warp + g;        // and row + 8
   unsigned char* const Qw = Qs + 64 * cw * ROW_BYTES;
-  split_rows<64, 4, HD>(Qw, BOX128, TILE_BYTES, q, b, h, L, H, r0, tid,
-                        col0);
+  split_rows<64, 4, OFF>(Qw, BOX128, TILE_BYTES, q, b, oh, L, oH, r0, tid,
+                         col0);
   sm90::fence_proxy_async();
   sm90::named_bar_sync(1 + cw, WG);          // this consumer's Q terms
   // tiles whose first key lies past this consumer's last row add nothing
@@ -1599,6 +1625,10 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     // live tiles are the first my_tiles, so j counts the exchanges
     if constexpr (kPair) {
       if (live) add_peer_partials(&xch[cw], rank ^ 1, tid, j, s);
+    } else if constexpr (HD == SPLIT3_ANY) {
+      if (live)
+        add_cluster_partials_n(&xch[cw], sm90::cluster_nctarank(), rank, tid,
+                               j, s);
     } else if constexpr (NB > 2) {
       if (live) add_cluster_partials<NB>(&xch[cw], rank, tid, j, s);
     }
@@ -1665,7 +1695,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     if (lane == 0) sm90::mbar_arrive(&bars->v_empty);
   }
 
-  if constexpr (NB > 1) drain_exchange(&xch[cw], min(my_tiles, n_tiles));
+  if constexpr (kCluster) drain_exchange(&xch[cw], min(my_tiles, n_tiles));
 
   float inv[2];
 #pragma unroll
@@ -1677,7 +1707,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     if (t == 0 && row + 8 * r < L && rank == 0)   // all blocks hold it
       lse[static_cast<int64_t>(bh) * L + row + 8 * r] = m[r] * LN2 + logf(l[r]);
   }
-  store_acc_rows<float, HD>(o, b, h, L, H, row, t, acc, inv, col0);
+  store_acc_rows<float, OFF>(o, b, oh, L, oH, row, t, acc, inv, col0);
 }
 
 constexpr int D3_KEYS = 64;      // keys per block
@@ -1696,7 +1726,7 @@ struct Dkv3Stats {               // a streamed tile's lse and delta
 constexpr size_t kDkv3Smem = 1024 + 2 * TERMS * QTILE_BYTES +
                              2 * D3_STAGES * TERMS * D3_TILE +
                              sizeof(Dkv3Stats) + sizeof(Ring3Bars);
-// + the consumer's exchange at head dims 256 to 1024 (214,576 bytes)
+// + the consumer's exchange at head dims 256 to 2048 (214,576 bytes)
 template <int HD>
 constexpr size_t dkv3_smem() {
   return kDkv3Smem + (HD == D ? 0 : sizeof(Exchange));
@@ -1712,9 +1742,10 @@ static_assert(dkv3_smem<4 * D>() <= MAX_SMEM, "float32 dk/dv at HD 512");
 // K-major from shared memory); p^T and ds^T in registers, each split into
 // three A terms; dv += p^T dO and dk += ds^T q (12 wgmma m64n128k16 each,
 // dO's and q's terms MN-major with the transpose bit). One block an SM:
-// 198 KB of shared memory, up to 255 registers a thread. At HD 256, 384 and
-// 512, clusters of NB = HD / 128 blocks on the same keys, each on its 128
-// columns, s^T and dp^T the sums of the blocks' partials.
+// 198 KB of shared memory, up to 255 registers a thread. At HD 256 to
+// 2048, clusters of NB = HD / 128 blocks on the same keys, each on its 128
+// columns, s^T and dp^T the sums of the blocks' partials (<SPLIT3_ANY>
+// from 640, as the forward).
 template <int HD>
 __global__ void __launch_bounds__(D3_THREADS, 1)
     flash_dkv_split3_kernel(const float* __restrict__ q,
@@ -1726,7 +1757,8 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
                             float* __restrict__ dk, float* __restrict__ dv,
                             int H, int L, int S, float scale) {
   constexpr int NB = HD / D;               // a cluster's 128-column slices
-  constexpr bool kPair = NB == PAIR;
+  constexpr bool kPair = NB == PAIR, kCluster = NB != 1;
+  constexpr int OFF = HD == SPLIT3_ANY ? 1 : HD;   // offset<>'s head dim
   extern __shared__ unsigned char raw_smem[];
   unsigned char* const Ks = align1024(raw_smem);              // [term]
   unsigned char* const Vs = Ks + TERMS * QTILE_BYTES;         // [term]
@@ -1735,10 +1767,12 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
   auto* stats = reinterpret_cast<Dkv3Stats*>(Gs + D3_STAGES * TERMS * D3_TILE);
   auto* bars = reinterpret_cast<Ring3Bars*>(stats + 1);
   auto* xch = reinterpret_cast<Exchange*>(bars + 1);         // NB > 1
-  const uint32_t rank = NB > 1 ? sm90::cluster_ctarank() : 0;
+  const uint32_t rank = kCluster ? sm90::cluster_ctarank() : 0;
+  const int nb = split3_blocks<HD>();
   const int col0 = D * rank;                 // this block's columns
-  const int k0 = blockIdx.x / NB * D3_KEYS;
+  const int k0 = blockIdx.x / nb * D3_KEYS;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int oh = OFF == 1 ? h * D * nb : h, oH = OFF == 1 ? H * D * nb : H;
   const int n_tiles = k0 < L ? (L - k0 + D3_ROWS - 1) / D3_ROWS : 0;
   const int wg = threadIdx.x / WG;
 
@@ -1747,11 +1781,11 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
       sm90::mbar_init(&bars->full[st], WG);           // converter threads
       sm90::mbar_init(&bars->empty[st], WG / 32);     // consumer warps
     }
-    if constexpr (NB > 1) init_exchange(xch, NB - 1);
+    if constexpr (kCluster) init_exchange(xch, nb - 1);
     sm90::fence_barrier_init();
   }
   __syncthreads();
-  if constexpr (NB > 1) sm90::cluster_sync();   // the peers' barriers too
+  if constexpr (kCluster) sm90::cluster_sync();   // the peers' barriers too
 
   if (wg == 0) {   // converter
     const int tid = threadIdx.x;
@@ -1765,10 +1799,10 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
         stats->lse[st][tid] = in ? lse_bh[q0 + tid] : 0.f;
         stats->delta[st][tid] = in ? delta_bh[q0 + tid] : 0.f;
       }
-      split_rows<D3_ROWS, 4, HD>(Qs + st * TERMS * D3_TILE, BOX32, D3_TILE,
-                                 q, b, h, L, H, q0, tid, col0);
-      split_rows<D3_ROWS, 4, HD>(Gs + st * TERMS * D3_TILE, BOX32, D3_TILE,
-                                 dout, b, h, L, H, q0, tid, col0);
+      split_rows<D3_ROWS, 4, OFF>(Qs + st * TERMS * D3_TILE, BOX32, D3_TILE,
+                                  q, b, oh, L, oH, q0, tid, col0);
+      split_rows<D3_ROWS, 4, OFF>(Gs + st * TERMS * D3_TILE, BOX32, D3_TILE,
+                                  dout, b, oh, L, oH, q0, tid, col0);
       sm90::fence_proxy_async();
       sm90::mbar_arrive(&bars->full[st]);
     }
@@ -1779,10 +1813,10 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int key = k0 + 16 * warp + g;        // and key + 8
-  split_rows<D3_KEYS, 4, HD>(Ks, BOX64, QTILE_BYTES, k, b, h, S, H, k0, tid,
-                             col0);
-  split_rows<D3_KEYS, 4, HD>(Vs, BOX64, QTILE_BYTES, v, b, h, S, H, k0, tid,
-                             col0);
+  split_rows<D3_KEYS, 4, OFF>(Ks, BOX64, QTILE_BYTES, k, b, oh, S, oH, k0,
+                              tid, col0);
+  split_rows<D3_KEYS, 4, OFF>(Vs, BOX64, QTILE_BYTES, v, b, oh, S, oH, k0,
+                              tid, col0);
   sm90::fence_proxy_async();
   sm90::named_bar_sync(1, WG);               // the K and V terms
   const float sl2 = scale * LOG2E;
@@ -1821,6 +1855,9 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
     sm90::fence_regs(dp);
     if constexpr (kPair)
       add_peer_partials(xch, rank ^ 1, tid, j, s, dp);
+    else if constexpr (HD == SPLIT3_ANY)
+      add_cluster_partials_n(xch, sm90::cluster_nctarank(), rank, tid, j, s,
+                             dp);
     else if constexpr (NB > 2)
       add_cluster_partials<NB>(xch, rank, tid, j, s, dp);
 
@@ -1880,10 +1917,10 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
   }
-  if constexpr (NB > 1) drain_exchange(xch, n_tiles);
+  if constexpr (kCluster) drain_exchange(xch, n_tiles);
   const float one[2] = {1.f, 1.f};
-  store_acc_rows<float, HD>(dk, b, h, S, H, key, t, dk_acc, one, col0);
-  store_acc_rows<float, HD>(dv, b, h, S, H, key, t, dv_acc, one, col0);
+  store_acc_rows<float, OFF>(dk, b, oh, S, oH, key, t, dk_acc, one, col0);
+  store_acc_rows<float, OFF>(dv, b, oh, S, oH, key, t, dv_acc, one, col0);
 }
 
 constexpr int Q3_ROWS = 64;         // query rows per block
@@ -1891,7 +1928,7 @@ constexpr int Q3_KEYS = D3_ROWS;    // keys per streamed tile
 constexpr size_t kDq3Smem = 1024 + 2 * TERMS * QTILE_BYTES +
                             2 * D3_STAGES * TERMS * D3_TILE +
                             sizeof(Ring3Bars);
-// + the consumer's exchange at head dims 256 to 1024 (214,064 bytes)
+// + the consumer's exchange at head dims 256 to 2048 (214,064 bytes)
 template <int HD>
 constexpr size_t dq3_smem() {
   return kDq3Smem + (HD == D ? 0 : sizeof(Exchange));
@@ -1907,9 +1944,10 @@ static_assert(dq3_smem<4 * D>() <= MAX_SMEM, "float32 dq at HD 512");
 // each, all terms K-major from shared memory); p and ds in registers, ds
 // split into three A terms; dq += ds k (12 wgmma m64n128k16, k's terms
 // MN-major with the transpose bit). One block an SM: 198 KB of shared
-// memory, up to 255 registers a thread. At HD 256 to 1024, clusters of
+// memory, up to 255 registers a thread. At HD 256 to 2048, clusters of
 // NB = HD / 128 blocks on the same rows, each on its 128 columns, s and dp
-// the sums of the blocks' partials.
+// the sums of the blocks' partials (<SPLIT3_ANY> from 640, as the
+// forward).
 template <int HD>
 __global__ void __launch_bounds__(D3_THREADS, 1)
     flash_dq_split3_kernel(const float* __restrict__ q,
@@ -1921,7 +1959,8 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
                            float* __restrict__ dq, int H, int L, int S,
                            float scale) {
   constexpr int NB = HD / D;               // a cluster's 128-column slices
-  constexpr bool kPair = NB == PAIR;
+  constexpr bool kPair = NB == PAIR, kCluster = NB != 1;
+  constexpr int OFF = HD == SPLIT3_ANY ? 1 : HD;   // offset<>'s head dim
   extern __shared__ unsigned char raw_smem[];
   unsigned char* const Qs = align1024(raw_smem);               // [term]
   unsigned char* const Gs = Qs + TERMS * QTILE_BYTES;          // [term] dO
@@ -1929,11 +1968,13 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
   unsigned char* const Vs = Ks + D3_STAGES * TERMS * D3_TILE;  // [stage][term]
   auto* bars = reinterpret_cast<Ring3Bars*>(Vs + D3_STAGES * TERMS * D3_TILE);
   auto* xch = reinterpret_cast<Exchange*>(bars + 1);           // NB > 1
-  const uint32_t rank = NB > 1 ? sm90::cluster_ctarank() : 0;
+  const uint32_t rank = kCluster ? sm90::cluster_ctarank() : 0;
+  const int nb = split3_blocks<HD>();
   const int col0 = D * rank;                 // this block's columns
-  const int row_blocks = gridDim.x / NB;
-  const int q0 = (row_blocks - 1 - blockIdx.x / NB) * Q3_ROWS;
+  const int row_blocks = gridDim.x / nb;
+  const int q0 = (row_blocks - 1 - blockIdx.x / nb) * Q3_ROWS;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int oh = OFF == 1 ? h * D * nb : h, oH = OFF == 1 ? H * D * nb : H;
   const int n_tiles = (min(S, q0 + Q3_ROWS) + Q3_KEYS - 1) / Q3_KEYS;
   const int wg = threadIdx.x / WG;
 
@@ -1942,21 +1983,21 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
       sm90::mbar_init(&bars->full[st], WG);           // converter threads
       sm90::mbar_init(&bars->empty[st], WG / 32);     // consumer warps
     }
-    if constexpr (NB > 1) init_exchange(xch, NB - 1);
+    if constexpr (kCluster) init_exchange(xch, nb - 1);
     sm90::fence_barrier_init();
   }
   __syncthreads();
-  if constexpr (NB > 1) sm90::cluster_sync();   // the peers' barriers too
+  if constexpr (kCluster) sm90::cluster_sync();   // the peers' barriers too
 
   if (wg == 0) {   // converter
     const int tid = threadIdx.x;
     for (int j = 0; j < n_tiles; ++j) {
       const int st = j % D3_STAGES, k0 = j * Q3_KEYS;
       sm90::mbar_wait(&bars->empty[st], ((j / D3_STAGES) & 1) ^ 1);
-      split_rows<Q3_KEYS, 4, HD>(Ks + st * TERMS * D3_TILE, BOX32, D3_TILE,
-                                 k, b, h, S, H, k0, tid, col0);
-      split_rows<Q3_KEYS, 4, HD>(Vs + st * TERMS * D3_TILE, BOX32, D3_TILE,
-                                 v, b, h, S, H, k0, tid, col0);
+      split_rows<Q3_KEYS, 4, OFF>(Ks + st * TERMS * D3_TILE, BOX32, D3_TILE,
+                                  k, b, oh, S, oH, k0, tid, col0);
+      split_rows<Q3_KEYS, 4, OFF>(Vs + st * TERMS * D3_TILE, BOX32, D3_TILE,
+                                  v, b, oh, S, oH, k0, tid, col0);
       sm90::fence_proxy_async();
       sm90::mbar_arrive(&bars->full[st]);
     }
@@ -1967,10 +2008,10 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int row = q0 + 16 * warp + g;        // and row + 8
-  split_rows<Q3_ROWS, 4, HD>(Qs, BOX64, QTILE_BYTES, q, b, h, L, H, q0, tid,
-                             col0);
-  split_rows<Q3_ROWS, 4, HD>(Gs, BOX64, QTILE_BYTES, dout, b, h, L, H, q0,
-                             tid, col0);
+  split_rows<Q3_ROWS, 4, OFF>(Qs, BOX64, QTILE_BYTES, q, b, oh, L, oH, q0,
+                              tid, col0);
+  split_rows<Q3_ROWS, 4, OFF>(Gs, BOX64, QTILE_BYTES, dout, b, oh, L, oH, q0,
+                              tid, col0);
   sm90::fence_proxy_async();
   sm90::named_bar_sync(1, WG);               // the Q and dO terms
   const float sl2 = scale * LOG2E;
@@ -2017,6 +2058,9 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
     sm90::fence_regs(dp);
     if constexpr (kPair)
       add_peer_partials(xch, rank ^ 1, tid, j, s, dp);
+    else if constexpr (HD == SPLIT3_ANY)
+      add_cluster_partials_n(xch, sm90::cluster_nctarank(), rank, tid, j, s,
+                             dp);
     else if constexpr (NB > 2)
       add_cluster_partials<NB>(xch, rank, tid, j, s, dp);
 
@@ -2057,12 +2101,12 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
   }
-  if constexpr (NB > 1) drain_exchange(xch, n_tiles);
+  if constexpr (kCluster) drain_exchange(xch, n_tiles);
   const float one[2] = {1.f, 1.f};
-  store_acc_rows<float, HD>(dq, b, h, L, H, row, t, acc, one, col0);
+  store_acc_rows<float, OFF>(dq, b, oh, L, oH, row, t, acc, one, col0);
 }
 
-// ----- bfloat16 and float16 at head dims 384 to 2048: clusters of blocks
+// ----- bfloat16 and float16 at head dims 384 to 4096: clusters of blocks
 // A cluster of NB = ceil(HD / 256) blocks on the same rows (keys for
 // dk/dv), each owning a share of whole 64-column boxes of the head row: the
 // 16-bit layouts above on the block's columns, each consumer forming its
@@ -2711,12 +2755,13 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
                                     scale);
 }
 
-// ----- bfloat16 and float16 at head dims 640 to 2048: the cluster kernels
-// Block rank r of a cluster of NB = cluster16_blocks(HD) blocks (3 to 8)
-// owns share16_units(HD, r) boxes of the head row from column
-// share16_col0(HD, r): the HD / 64 boxes dealt so that the shares differ by
-// at most one box, the wider first (640: 4 + 3 + 3 boxes; 896: 4 + 4 + 3 +
-// 3; 1152: 4 + 4 + 4 + 3 + 3; 768, 1024, .., 2048: all 4), so that every
+// ----- bfloat16 and float16 at head dims 640 to 4096: the cluster kernels
+// Block rank r of a cluster of NB = cluster16_blocks(HD) blocks (3 to 16;
+// past 8 Hopper's non-portable cluster sizes) owns share16_units(HD, r)
+// boxes of the head row from column share16_col0(HD, r): the HD / 64 boxes
+// dealt so that the shares differ by at most one box, the wider first (640:
+// 4 + 3 + 3 boxes; 896: 4 + 4 + 3 + 3; 1152: 4 + 4 + 4 + 3 + 3; 2176: 7 x 4
+// + 2 x 3; 3968: 14 x 4 + 2 x 3; 768, 1024, .., 4096: all 4), so that every
 // block holds 3 or 4 boxes (192 or 256 columns) and a cluster's time is set
 // by a 256-column block, as at 768 and 1024. One instance per element type
 // and kernel, a template on the widest share CMAX (256): the head dim is a
@@ -2730,7 +2775,7 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
 // where it uses them, holding none of them across the tile loop: held
 // there, the forward's consumers spilled 92 bytes.
 constexpr int CLUSTER16_CMAX = 256;              // columns a block at most
-constexpr int CLUSTER16_MIN_HD = 640, CLUSTER16_MAX_HD = 2048;
+constexpr int CLUSTER16_MIN_HD = 640, CLUSTER16_MAX_HD = 4096;
 
 // the boxes of block rank r of a 16-bit cluster at head dim hd, and its
 // first column
@@ -2744,7 +2789,7 @@ __host__ __device__ constexpr int share16_col0(int hd, int r) {
                     ? r : hd / 64 % cluster16_blocks(hd)));
 }
 // at every head dim the cluster kernels take (multiples of 128 from 640 to
-// 2048): at most 8 blocks (the portable cluster size), each of CMAX / 64
+// 4096): at most 16 blocks (Hopper's largest cluster), each of CMAX / 64
 // boxes or one fewer, the shares one after another covering the row
 constexpr bool shares16_cover() {
   for (int hd = CLUSTER16_MIN_HD; hd <= CLUSTER16_MAX_HD; hd += 128) {
@@ -2756,11 +2801,11 @@ constexpr bool shares16_cover() {
         return false;
       col += 64 * u;
     }
-    if (col != hd || cluster16_blocks(hd) > 8) return false;
+    if (col != hd || cluster16_blocks(hd) > 16) return false;
   }
   return true;
 }
-static_assert(shares16_cover(), "shares of 3 or 4 boxes on at most 8 blocks");
+static_assert(shares16_cover(), "shares of 3 or 4 boxes on at most 16 blocks");
 
 // rows row and row + 8 of a 64 x 64 accumulator into columns col0 .. of a
 // [B, N, H, hd] tensor whose head dim hd is a launch argument:
@@ -2946,7 +2991,7 @@ __device__ __forceinline__ void fwd_cluster_block(
     store_unit_rows(o, hd, b, h, L, H, row, t, acc[u], inv, col0 + 64 * u);
 }
 
-// forward at HD 640 to 2048 (a launch argument), grid (NB ceil(L /
+// forward at HD 640 to 4096 (a launch argument), grid (NB ceil(L /
 // FWD_ROWS), B*H) in clusters of NB = cluster16_blocks(HD) blocks along x,
 // each running fwd_cluster_block on its share
 template <typename T, int CMAX>
@@ -3144,7 +3189,7 @@ __device__ __forceinline__ void dq_cluster_block(
     store_unit_rows(dq, hd, b, h, L, H, row, t, acc[u], inv, col0 + 64 * u);
 }
 
-// dq at HD 640 to 2048, grid (NB ceil(L / DQ_ROWS), B*H) in clusters of NB
+// dq at HD 640 to 4096, grid (NB ceil(L / DQ_ROWS), B*H) in clusters of NB
 // blocks along x, each running dq_cluster_block on its share
 template <typename T, int CMAX>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
@@ -3382,7 +3427,7 @@ __device__ __forceinline__ void dkv_cluster_block(
                                               k0, n_tiles, 1, scale);
 }
 
-// dk and dv at HD 640 to 2048, grid (NB ceil(S / 64), B*H) in clusters of
+// dk and dv at HD 640 to 4096, grid (NB ceil(S / 64), B*H) in clusters of
 // NB blocks along x on the same 64 keys, each running dkv_cluster_block on
 // its share
 template <typename T, int CMAX>
@@ -3410,6 +3455,19 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// allow_smem, and for clusters of more than 8 blocks (9 to 16, Hopper's
+// non-portable sizes, which cudaLaunchKernelEx and
+// cudaOccupancyMaxActiveClusters refuse otherwise) the kernel's leave to
+// take them
+template <typename Kernel>
+cudaError_t allow_cluster(Kernel kernel, size_t bytes, int nb) {
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err == cudaSuccess && nb > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
 // a launch of `blocks` x `rows` clusters of nb blocks along x (the nb
 // column slices of each block of rows: blocks nb i .. nb i + nb - 1);
 // `dim` holds the cluster attribute that `cfg` points to
@@ -3431,12 +3489,12 @@ void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& dim,
 
 // `kernel` over `blocks` x `rows` blocks: a plain launch (nb 1), or
 // clusters of nb blocks along x through cudaLaunchKernelEx (the float32
-// kernels at head dims 256 to 1024: nb = HD / 128; the 16-bit ones at 384
-// to 2048: cluster16_blocks; 1 to 8, the portable cluster sizes)
+// kernels at head dims 256 to 2048: nb = HD / 128; the 16-bit ones at 384
+// to 4096: cluster16_blocks; 2 to 16, past 8 the non-portable sizes)
 template <typename... Params, typename... Args>
 int launch_grid(void (*kernel)(Params...), int nb, int blocks, int rows,
                 int threads, size_t smem, cudaStream_t stream, Args... args) {
-  cudaError_t err = allow_smem(kernel, smem);
+  cudaError_t err = allow_cluster(kernel, smem, nb);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (nb == 1) {
     kernel<<<dim3(blocks, rows), threads, smem, stream>>>(args...);
@@ -3455,7 +3513,7 @@ int launch_grid(void (*kernel)(Params...), int nb, int blocks, int rows,
 template <typename... Params>
 int max_clusters(void (*kernel)(Params...), int nb, int threads, size_t smem,
                  int* n) {
-  cudaError_t err = allow_smem(kernel, smem);
+  cudaError_t err = allow_cluster(kernel, smem, nb);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute dim;
@@ -3464,14 +3522,15 @@ int max_clusters(void (*kernel)(Params...), int nb, int threads, size_t smem,
       n, reinterpret_cast<const void*>(kernel), &cfg));
 }
 
-// float32 forward, dq and dk/dv at head dim HD: three bf16 terms on wgmma,
-// no tensor maps; at HD 256 to 1024 clusters of HD / 128 blocks
+// float32 forward, dq and dk/dv at head dim hd, instance HD (hd itself, or
+// SPLIT3_ANY): three bf16 terms on wgmma, no tensor maps; at hd 256 to 2048
+// clusters of hd / 128 blocks
 template <int HD>
 int launch_fwd_split3(const void* q, const void* k, const void* v, void* o,
-                      float* lse, int B, int H, int L, int S, float scale,
-                      cudaStream_t stream) {
+                      float* lse, int B, int H, int L, int S, int hd,
+                      float scale, cudaStream_t stream) {
   return launch_grid(
-      flash_fwd_split3_kernel<HD>, HD / D, (L + F3_ROWS - 1) / F3_ROWS, B * H,
+      flash_fwd_split3_kernel<HD>, hd / D, (L + F3_ROWS - 1) / F3_ROWS, B * H,
       SM90_THREADS, fwd3_smem<HD>(), stream, static_cast<const float*>(q),
       static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), lse, H, L, S, scale);
@@ -3480,10 +3539,10 @@ int launch_fwd_split3(const void* q, const void* k, const void* v, void* o,
 template <int HD>
 int launch_dq_split3(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
-                     void* dq, int B, int H, int L, int S, float scale,
-                     cudaStream_t stream) {
+                     void* dq, int B, int H, int L, int S, int hd,
+                     float scale, cudaStream_t stream) {
   return launch_grid(
-      flash_dq_split3_kernel<HD>, HD / D, (L + Q3_ROWS - 1) / Q3_ROWS, B * H,
+      flash_dq_split3_kernel<HD>, hd / D, (L + Q3_ROWS - 1) / Q3_ROWS, B * H,
       D3_THREADS, dq3_smem<HD>(), stream, static_cast<const float*>(q),
       static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq),
@@ -3493,10 +3552,10 @@ int launch_dq_split3(const void* q, const void* k, const void* v,
 template <int HD>
 int launch_dkv_split3(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
-                      void* dk, void* dv, int B, int H, int L, int S,
+                      void* dk, void* dv, int B, int H, int L, int S, int hd,
                       float scale, cudaStream_t stream) {
   return launch_grid(
-      flash_dkv_split3_kernel<HD>, HD / D, (S + D3_KEYS - 1) / D3_KEYS, B * H,
+      flash_dkv_split3_kernel<HD>, hd / D, (S + D3_KEYS - 1) / D3_KEYS, B * H,
       D3_THREADS, dkv3_smem<HD>(), stream, static_cast<const float*>(q),
       static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
@@ -3573,7 +3632,7 @@ int launch_dq_sm90(const void* q, const void* k, const void* v,
 }
 
 // 16-bit (T) forward, dq and dk/dv at head dim 384 or 512 (HD, the pairs)
-// or 640 to 2048 (hd, the cluster kernels): clusters of cluster16_blocks
+// or 640 to 4096 (hd, the cluster kernels): clusters of cluster16_blocks
 // blocks. Tensor maps of 64-column boxes over the whole head row; each block
 // loads its own boxes
 template <typename T, int HD>
@@ -3702,19 +3761,25 @@ int launch_dkv_cluster(const void* q, const void* k, const void* v,
 // the element type codes of the C entry points' `dtype`
 enum : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 
-// the float32 kernels' head dims: HD = 128 NB, clusters of NB = 1 .. 8
-// blocks (8: the portable cluster size)
-constexpr int SPLIT3_MAX_NB = 8;
+// the float32 kernels' head dims: HD = 128 NB, clusters of NB = 1 ..
+// SPLIT3_MAX_NB blocks (past 8 Hopper's non-portable cluster sizes, 16 its
+// largest); an instance of its own up to SPLIT3_FIXED_NB blocks, then
+// <SPLIT3_ANY>
+constexpr int SPLIT3_FIXED_NB = 4, SPLIT3_MAX_NB = 16;
 
-// f(std::integral_constant<int, HD>{}) at the float32 head dim `hd` = 128
-// K, K from K0 to K1 (128 .. 1024), or cudaErrorInvalidValue for any other
-template <int K0 = 1, int K1 = SPLIT3_MAX_NB, typename F>
+// f(std::integral_constant<int, HD>{}) for the instance HD of the float32
+// head dim `hd` = 128 K: K itself for K from K0 to SPLIT3_FIXED_NB (128 ..
+// 512), SPLIT3_ANY past it up to SPLIT3_MAX_NB (640 .. 2048); or
+// cudaErrorInvalidValue for any other hd
+template <int K0 = 1, typename F>
 int split3_head_dim(int hd, F&& f) {
-  if constexpr (K0 > K1) {
+  if constexpr (K0 > SPLIT3_FIXED_NB) {
+    if (hd % D == 0 && hd > SPLIT3_FIXED_NB * D && hd <= SPLIT3_MAX_NB * D)
+      return f(std::integral_constant<int, SPLIT3_ANY>{});
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     if (hd == K0 * D) return f(std::integral_constant<int, K0 * D>{});
-    return split3_head_dim<K0 + 1, K1>(hd, f);
+    return split3_head_dim<K0 + 1>(hd, f);
   }
 }
 
@@ -3737,15 +3802,16 @@ constexpr bool cluster16_takes(int hd) {
 }
 
 // how many clusters of the float32 kernel `kernel` (0 forward, 1 dq, 2
-// dk/dv) at head dim HD (HD / 128 blocks a cluster) the card holds at once
+// dk/dv) at head dim hd (instance HD, hd / 128 blocks a cluster) the card
+// holds at once
 template <int HD>
-int max_clusters_split3(int kernel, int* n) {
+int max_clusters_split3(int kernel, int hd, int* n) {
   switch (kernel) {
-    case 0: return max_clusters(flash_fwd_split3_kernel<HD>, HD / D,
+    case 0: return max_clusters(flash_fwd_split3_kernel<HD>, hd / D,
                                 SM90_THREADS, fwd3_smem<HD>(), n);
-    case 1: return max_clusters(flash_dq_split3_kernel<HD>, HD / D,
+    case 1: return max_clusters(flash_dq_split3_kernel<HD>, hd / D,
                                 D3_THREADS, dq3_smem<HD>(), n);
-    case 2: return max_clusters(flash_dkv_split3_kernel<HD>, HD / D,
+    case 2: return max_clusters(flash_dkv_split3_kernel<HD>, hd / D,
                                 D3_THREADS, dkv3_smem<HD>(), n);
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -3769,7 +3835,7 @@ int max_clusters_pair(int kernel, int* n) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// and for the 16-bit cluster kernel `kernel` at head dim hd (640 to 2048,
+// and for the 16-bit cluster kernel `kernel` at head dim hd (640 to 4096,
 // cluster16_blocks(hd) blocks a cluster)
 template <typename T>
 int max_clusters_cluster16(int kernel, int hd, int* n) {
@@ -3794,7 +3860,7 @@ extern "C" {
 
 // q, o [B, L, H, D], k, v [B, S, H, D], contiguous and 16-byte aligned, all
 // of the element type `dtype` (0 float, 1 bfloat16, 2 float16), D a
-// multiple of 128: 128 .. 1024 in float32, 128 .. 2048 in bfloat16 and
+// multiple of 128: 128 .. 2048 in float32, 128 .. 4096 in bfloat16 and
 // float16; lse [B*H, L] float. Each entry point returns a cudaError_t
 // value; 0 means the launch was accepted (another D or dtype:
 // cudaErrorInvalidValue).
@@ -3806,7 +3872,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   if (dtype == kFloat32)
     return split3_head_dim(D, [&](auto hd) {
       return launch_fwd_split3<decltype(hd)::value>(q, k, v, o, lse_f, B, H,
-                                                    L, S, scale, s);
+                                                    L, S, D, scale, s);
     });
   return elem16(dtype, [&](auto t) {
     using T = typename decltype(t)::type;
@@ -3836,7 +3902,7 @@ int flash_attention_dq(const void* q, const void* k, const void* v,
   if (dtype == kFloat32)
     return split3_head_dim(D, [&](auto hd) {
       return launch_dq_split3<decltype(hd)::value>(q, k, v, dout, l, dl, dq, B,
-                                                   H, L, S, scale, s);
+                                                   H, L, S, D, scale, s);
     });
   return elem16(dtype, [&](auto t) {
     using T = typename decltype(t)::type;
@@ -3870,7 +3936,8 @@ int flash_attention_dkv(const void* q, const void* k, const void* v,
   if (dtype == kFloat32)
     return split3_head_dim(D, [&](auto hd) {
       return launch_dkv_split3<decltype(hd)::value>(q, k, v, dout, l, dl, dk,
-                                                    dv, B, H, L, S, scale, s);
+                                                    dv, B, H, L, S, D, scale,
+                                                    s);
     });
   return elem16(dtype, [&](auto t) {
     using T = typename decltype(t)::type;
@@ -3895,14 +3962,14 @@ int flash_attention_dkv(const void* q, const void* k, const void* v,
 
 // how many clusters of the kernel `kernel` (0 forward, 1 dq, 2 dk/dv) of
 // element type `dtype` at head dim D the card can hold at once, into *n:
-// float32 at 128 .. 1024 (clusters of D / 128 blocks, one at 128), bfloat16
-// and float16 at 384 .. 2048 (clusters of ceil(D / 256) blocks, 2 to 8);
+// float32 at 128 .. 2048 (clusters of D / 128 blocks, one at 128), bfloat16
+// and float16 at 384 .. 4096 (clusters of ceil(D / 256) blocks, 2 to 16);
 // returns a cudaError_t value (another kernel, type or D:
 // cudaErrorInvalidValue)
 int flash_attention_max_clusters(int kernel, int D, int dtype, int* n) {
   if (dtype == kFloat32)
     return split3_head_dim(D, [&](auto hd) {
-      return max_clusters_split3<decltype(hd)::value>(kernel, n);
+      return max_clusters_split3<decltype(hd)::value>(kernel, D, n);
     });
   return elem16(dtype, [&](auto t) {
     using T = typename decltype(t)::type;

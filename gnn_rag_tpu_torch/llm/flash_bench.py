@@ -56,6 +56,13 @@ phase of ``--phases`` (default all three):
   step-time-llm-d1024 and -d2048 steps' attention), timed as the float32
   rows (5 runs of 2), in a tree whose kernels take them, and the ``sass``
   digests;
+- ``clusters16``: the kernels in clusters of up to sixteen blocks
+  (``CLUSTERS16_SHAPES``): float32 at head dims 640-1024 at B2 L2047 H4
+  (the step-time-llm-d1024-fp32 step's attention: five to eight blocks) and
+  at 2048 at B2 L2047 H2 (the step-time-llm-d2048-fp32 step's: sixteen),
+  bf16 and float16 at 4096 at B8 L2047 H1 (the step-time-llm-d4096 step's:
+  sixteen), timed as the float32 rows, in a tree whose kernels take them,
+  and the ``sass`` digests;
 - ``steps``: the headline ReaRev configuration (chip_smoke's
   ``HEADLINE_FLAGS``, random weights) on one B8 batch of a 64-question
   SynthQSP split made once for both trees: ms a train step
@@ -81,7 +88,7 @@ import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-PHASES = ("flash", "gate", "steps", "wide16")
+PHASES = ("flash", "gate", "steps", "wide16", "clusters16")
 SHAPE = (8, 2047, 32, 128)         # B, L, H, D of the SFT step's attention
 # bf16 at head dim 256: the Gemma-2B-width SFT step's attention (B2) and B8
 D256_SHAPES = ((2, 2047, 8, 256), (8, 2047, 8, 256))
@@ -99,6 +106,15 @@ D512_FP32_SHAPES = ((2, 2047, 8, 512), (2, 2047, 8, 384))
 # attention, B8 L2047 H4) and 2048 (the step-time-llm-d2048 step's, H2)
 WIDE16_SHAPES = (*((8, 2047, 4, d) for d in (640, 768, 896, 1024)),
                  (8, 2047, 2, 2048))
+# the kernels in clusters of up to sixteen blocks: float32 at head dims
+# 640-1024 (the step-time-llm-d1024-fp32 step's attention, B2 L2047 H4)
+# and 2048 (the step-time-llm-d2048-fp32 step's, H2), bf16 and float16 at
+# 4096 (the step-time-llm-d4096 step's, B8 L2047 H1)
+CLUSTERS16_SHAPES = (*(((2, 2047, 4, d), "float32")
+                       for d in (640, 768, 896, 1024)),
+                     ((2, 2047, 2, 2048), "float32"),
+                     ((8, 2047, 1, 4096), "bfloat16"),
+                     ((8, 2047, 1, 4096), "float16"))
 # the float32 kernels at head dim 128 over the blocks of that shape: B2
 # L2047 H16 gives as many blocks as the head-dim-256 row's pairs, each of
 # the same work (128 columns), without the exchange between the two
@@ -199,6 +215,16 @@ def measure(tree, phases, data):
                 if shape[3] in fa.HEAD_DIMS[getattr(torch, dtype)]
                 else "not taken by this tree's kernels")
             for shape in WIDE16_SHAPES for dtype in ("bfloat16", "float16")}
+        out["sass"] = sass_digests(fa.build())
+    if "clusters16" in phases:
+        from gnn_rag_tpu_torch.llm import flash_attention as fa
+        out["flash_clusters16"] = {
+            f"D{shape[3]} {dtype}": (
+                measure_flash(smoke, device, dtype, FLASH_TIMING["float32"],
+                              shape)
+                if shape[3] in fa.HEAD_DIMS[getattr(torch, dtype)]
+                else "not taken by this tree's kernels")
+            for shape, dtype in CLUSTERS16_SHAPES}
         out["sass"] = sass_digests(fa.build())
     if "gate" in phases:
         out["gate_scatter"] = measure_gate(smoke, device)

@@ -930,17 +930,49 @@ def test_flash_d2048_16bit_kernels_match_plain(cuda, B, L, H, D, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [1152, 1280, 1408, 1536, 1664, 1792, 1920,
+                               2048])
+@pytest.mark.parametrize("B,L,H", [
+    # float32 at head dims 1152-2048 (the instance <0> in clusters of nine
+    # to sixteen blocks, each on 128 columns: Hopper's non-portable cluster
+    # sizes): one row, one row past dq's 64-row block and the forward's and
+    # dk/dv's 64-key tiles, one past a 128-row block, a ragged length,
+    # chip_smoke's [kernel-attn] ragged row at 2 heads, the SFT length
+    (1, 1, 2), (1, 65, 2), (1, 129, 2), (3, 77, 2), (2, 1000, 2),
+    (1, 2047, 2)])
+def test_flash_d2048_fp32_kernels_match_plain(cuda, B, L, H, D):
+    flash_vs_plain(cuda, B, L, H, D, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [2176, 2304, 2432, 2688, 2944, 3200, 3456,
+                               3712, 3968, 4096])
+@pytest.mark.parametrize("B,L,H", [
+    # bf16 and float16 at head dims 2176-4096 (clusters of nine to sixteen
+    # blocks of 192 or 256 columns: the first head dim of each cluster size,
+    # with two 192-column shares, and 2304 and 4096, all 256): one row, one
+    # row past the forward's and dk/dv's 64-key tiles, one past a 128-row
+    # block, chip_smoke's [kernel-attn] ragged row, the SFT length at one
+    # head
+    (1, 1, 2), (1, 65, 2), (1, 129, 2), (2, 1000, 2), (1, 2047, 1)])
+def test_flash_d4096_16bit_kernels_match_plain(cuda, B, L, H, D, dtype):
+    flash_vs_plain(cuda, B, L, H, D, dtype)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
 @pytest.mark.parametrize("D,dtype", [
-    *((d, torch.float32) for d in (128, 256, 384, 512, 640, 768, 896, 1024)),
+    *((d, torch.float32) for d in range(128, 2049, 128)),
     *((d, t) for t in (torch.bfloat16, torch.float16)
-      for d in range(384, 2049, 128))])
+      for d in range(384, 4097, 128))])
 def test_flash_fp32_clusters_fit_the_card(cuda, kind, D, dtype):
     """The card holds at least one cluster of each float32 kernel at every
-    head dim it takes (D / 128 blocks of 198-230 KB of shared memory, one
-    an SM: cudaOccupancyMaxActiveClusters; one block at 128) and of each
-    bf16 and float16 cluster kernel (384 to 2048: ceil(D / 256) blocks,
-    two to eight, of up to 230 KB), and at most one a block of SMs of the
+    head dim it takes (128 to 2048: D / 128 blocks of 198-230 KB of shared
+    memory, one an SM: cudaOccupancyMaxActiveClusters; one block at 128)
+    and of each bf16 and float16 cluster kernel (384 to 4096: ceil(D / 256)
+    blocks, two to sixteen, of up to 230 KB; past eight Hopper's
+    non-portable cluster sizes), and at most one a block of SMs of the
     cluster's size; one head dim past each type's last raises."""
     n = fa.max_active_clusters(kind, D, dtype)
     blocks = (D // 128 if dtype == torch.float32
@@ -967,10 +999,10 @@ def test_flash_autograd_and_checks(cuda):
     with pytest.raises(ValueError, match="head dim 128"):
         fa.flash_fwd(*(torch.zeros(1, 8, 1, 64, device=cuda),) * 3)
     with pytest.raises(ValueError, match="a multiple of 128"):
-        fa.flash_fwd(*(torch.zeros(1, 8, 1, 2176, device=cuda,
+        fa.flash_fwd(*(torch.zeros(1, 8, 1, 4224, device=cuda,
                                    dtype=torch.bfloat16),) * 3)
     with pytest.raises(ValueError, match="a multiple of 128"):
-        fa.flash_fwd(*(torch.zeros(1, 8, 1, 1152, device=cuda),) * 3)
+        fa.flash_fwd(*(torch.zeros(1, 8, 1, 2176, device=cuda),) * 3)
     x = torch.zeros(1, 8, 1, 128, device=cuda)
     with pytest.raises(ValueError, match="k must be"):
         fa.flash_fwd(x, x.half(), x)
@@ -1094,18 +1126,21 @@ def test_llama_d256_fp32_flash_vs_plain_attention(cuda):
 @pytest.mark.parametrize("head_dim,n_heads", [
     pytest.param(384, 8, id="384"), pytest.param(512, 8, id="512"),
     pytest.param(640, 4, id="640"), pytest.param(1024, 4, id="1024"),
-    pytest.param(1408, 2, id="1408"), pytest.param(2048, 2, id="2048")])
+    pytest.param(1408, 2, id="1408"), pytest.param(2048, 2, id="2048"),
+    pytest.param(4096, 1, id="4096")])
 def test_llama_d512_flash_vs_plain_attention(cuda, head_dim, n_heads, dtype):
     """A bf16 or float16 LlamaLM at head dim 512 (DeepSeek-V4-Flash's head
     shape: heads of 512, one kv head; dim 4096, 8 heads) and at 384 (dim
     3072, 8 heads, one kv head), with 4 heads of 1024 (LLaMA-2-7B's 4,096
-    query columns regrouped, the step-time-llm-d1024 model) and of 640, and
-    with 2 heads of 2048 (the step-time-llm-d2048 model) and of 1408, one
-    kv head, 2 layers, on the card: the flash path launches one forward,
-    one dq and one dk/dv per layer (clusters of two, three, four, six and
-    eight blocks), and each output (logits and every parameter's loss gradient)
-    is within twice the plain path's own distance from the same model in
-    float32 (as test_llama_flash_vs_plain_attention holds head dim 128)."""
+    query columns regrouped, the step-time-llm-d1024 model) and of 640,
+    with 2 heads of 2048 (the step-time-llm-d2048 model) and of 1408, and
+    with one head of 4096 (the step-time-llm-d4096 model), one kv head, 2
+    layers, on the card: the flash path launches one forward, one dq and
+    one dk/dv per layer (clusters of two, three, four, six, eight and
+    sixteen blocks), and each output (logits and every parameter's loss
+    gradient) is within twice the plain path's own distance from the same
+    model in float32 (as test_llama_flash_vs_plain_attention holds head
+    dim 128)."""
     cfg = LlamaConfig(vocab_size=300, dim=n_heads * head_dim, n_layers=2,
                       n_heads=n_heads, n_kv_heads=1, intermediate=512,
                       dtype=dtype)
@@ -1137,17 +1172,20 @@ def test_llama_d512_flash_vs_plain_attention(cuda, head_dim, n_heads, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("head_dim,n_heads", [
     pytest.param(384, 8, id="384"), pytest.param(512, 8, id="512"),
-    pytest.param(640, 4, id="640"), pytest.param(1024, 4, id="1024")])
+    pytest.param(640, 4, id="640"), pytest.param(1024, 4, id="1024"),
+    pytest.param(1152, 2, id="1152"), pytest.param(2048, 2, id="2048")])
 def test_llama_d512_fp32_flash_vs_plain_attention(cuda, head_dim, n_heads):
     """A float32 LlamaLM at head dim 512 (DeepSeek-V4-Flash's head shape:
     heads of 512, one kv head; dim 4096, 8 heads) and at 384 (dim 3072),
-    and with 4 heads of 1024 (LLaMA-2-7B's 4,096 query columns regrouped,
-    the step-time-llm-d1024-fp32 model) and of 640, 2 layers, on the card:
-    the flash path launches one forward, one dq and one dk/dv per layer
-    (the float32 kernels in clusters of three, four, five and eight
-    blocks), and its logits and every parameter's loss gradient are within
-    1e-4 of the largest entry (+ 1e-7) of the plain attention path's (as
-    test_llama_d256_fp32_flash_vs_plain_attention holds head dim 256)."""
+    with 4 heads of 1024 (LLaMA-2-7B's 4,096 query columns regrouped, the
+    step-time-llm-d1024-fp32 model) and of 640, and with 2 heads of 2048
+    (the step-time-llm-d2048-fp32 model) and of 1152, 2 layers, on the
+    card: the flash path launches one forward, one dq and one dk/dv per
+    layer (the float32 kernels in clusters of three, four, five, eight,
+    nine and sixteen blocks), and its logits and every parameter's loss
+    gradient are within 1e-4 of the largest entry (+ 1e-7) of the plain
+    attention path's (as test_llama_d256_fp32_flash_vs_plain_attention
+    holds head dim 256)."""
     cfg = LlamaConfig(vocab_size=300, dim=n_heads * head_dim, n_layers=2,
                       n_heads=n_heads, n_kv_heads=1, intermediate=512,
                       dtype="float32")
@@ -1177,16 +1215,16 @@ def test_llama_d512_fp32_flash_vs_plain_attention(cuda, head_dim, n_heads):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim,dtype", [(2176, "float16"),
-                                            (2176, "bfloat16"),
-                                            (1152, "float32")])
+@pytest.mark.parametrize("head_dim,dtype", [(4224, "float16"),
+                                            (4224, "bfloat16"),
+                                            (2176, "float32")])
 def test_llama_shapes_the_kernels_refuse_run_reference_attention(
         cuda, head_dim, dtype):
     """A LlamaLM whose attention the flash kernels do not take (head dim
-    2176 in 16 bits, 1152 in float32: past a cluster of eight blocks) runs
-    on the card with no
-    flash launch, through reference_attention: its logits equal the same
-    model's with use_flash=False."""
+    4224 in 16 bits, 2176 in float32: past a cluster of sixteen blocks,
+    Hopper's largest) runs on the card with no flash launch, through
+    reference_attention: its logits equal the same model's with
+    use_flash=False."""
     cfg = LlamaConfig(vocab_size=300, dim=2 * head_dim, n_layers=2, n_heads=2,
                       n_kv_heads=1, intermediate=384, dtype=dtype)
     model = build_llama(cfg, seed=0, device=cuda)

@@ -202,15 +202,15 @@ def test_dq_two_term_split_stays_within_tolerance():
     (512, torch.float32, "cuda", False, False, True),
     (512, torch.bfloat16, "cpu", False, False, False),
     (512, torch.float16, "cuda", True, False, False),
-    (640, torch.bfloat16, "cuda", False, False, True),   # 16-bit to 2048
+    (640, torch.bfloat16, "cuda", False, False, True),   # 16-bit to 4096
     (640, torch.float16, "cuda", False, False, True),
-    (2176, torch.bfloat16, "cuda", False, False, False),
-    (2176, torch.float16, "cuda", False, False, False),
+    (4224, torch.bfloat16, "cuda", False, False, False),
+    (4224, torch.float16, "cuda", False, False, False),
     (256, torch.float32, "cpu", False, False, False),
     (256, torch.bfloat16, "cpu", False, False, False),
     (256, torch.bfloat16, "cuda", True, False, False),
     (256, torch.bfloat16, "cuda", False, True, False),
-    (640, torch.float32, "cuda", False, False, True),    # float32 to 1024
+    (640, torch.float32, "cuda", False, False, True),    # float32 to 2048
     (384, torch.float32, "cpu", False, False, False),
     (512, torch.float32, "cuda", False, True, False)])
 def test_flash_rule_takes_the_kernels_only_where_they_apply(
