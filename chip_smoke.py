@@ -12,12 +12,14 @@ Phases, one line each:
      g++), with ptxas registers and spills, and the wgmma (HGMMA) and TMA
      (UTMALDG) instructions each flash kernel on wgmma must hold
      (SM90_KERNELS), without spills or stack frames, and how many clusters
-     of each float32 flash kernel at head dims 128 to 2048 and of each
+     of each float32 flash kernel at head dims 128 to 2304 and of each
      bf16 and float16 one at 384 to 4096 the card holds at once
      (cudaOccupancyMaxActiveClusters, none may be 0; past eight blocks
      Hopper's non-portable cluster sizes, also by cluster size 9 to 16),
-     with the float32 instance <0>'s at head dims 640-2048 and the 16-bit
-     cluster kernels' registers, spill and stack bytes;
+     with the float32 instance <0>'s at head dims 640-2048, the float32
+     192-column-share instances' (<192>, at 2176 and 2304, with each
+     block's columns) and the 16-bit cluster kernels' registers, spill and
+     stack bytes;
   3. kernel: the CUDA kernel against its plain PyTorch version on the card at
      the serving shapes (fp32 and bf16) and at a skewed layout (SKEWED), two
      launches bit-identical, with the kernel's time ``ms`` (CUDA-event
@@ -143,7 +145,10 @@ The LLM reader (the flash-attention kernels K5a-c):
      (timed) and 1152 at B1 L129; the bf16 and float16 kernels at 4096
      (sixteen 256-column blocks) at B8 L2047 H1 (timed), B2 L1000 (float16
      also with the scaled cotangents), B1 L129 and B1 L65, at 3968, 3072
-     (bf16) and 2176 at B2 L1000 H2 (timed) and 2176 at B1 L129; every
+     (bf16) and 2176 at B2 L1000 H2 (timed) and 2176 at B1 L129; and the
+     float32 kernels on 192-column shares (twelve blocks) at head dim 2304
+     at B2 L2047 H1 (timed), B1 L129 and B1 L65, at 2176 at B2 L1000 H1
+     (timed) and B1 L129, and on ragged rows of three heads; every
      timed row with its products issued over those the function needs and
      the SDPA backend that served the yardstick;
   8. sft: the RoG joint-finetune SFT (scripts/train_sft.sh) through the
@@ -260,7 +265,15 @@ The LLM reader (the flash-attention kernels K5a-c):
      bf16 at B8 (D4096_FLAGS, 4 layers, F16_STEPS steps), as 11k: the
      16-bit cluster kernels in clusters of sixteen 256-column blocks, 4
      launches of each a step, every gradient of a 2-layer model at head dims
-     4096, 3968 and 2176 (the float16 phase 11j runs the same three).
+     4096, 3968 and 2176 (the float16 phase 11j runs the same three);
+  11n. step-time-llm-d2304-fp32: the SFT at Gemma-2-2B's width (dim 2304,
+     intermediate 9216, vocab 256000, tied) with its 2,304 query columns as
+     one float32 head of 2304 and one kv head, B2, 2 layers, F16_STEPS
+     steps (D2304_FP32_FLAGS), as 11l: the float32 kernels on 192-column
+     shares (twelve blocks), 2 launches of each a step, no plain flash
+     call, the scoring forward and first loss against plain attention,
+     every gradient of a 2-layer model at head dims 2304 and 2176 (one
+     head: twelve blocks of 192, ten of 192 and two of 128).
 Every phase's wall seconds and the script's total are logged (phase
 walls) before the kernels' summary.
 The reader at LLaMA2-7B widths and the full 32 layers (after the SFT
@@ -314,7 +327,7 @@ PALLAS = "gnn_rag_tpu/ops/pallas_mp.py"
 # 2048 (640-2048: three to eight blocks of 192 or 256 columns) and past it
 # (2176-4096: nine to sixteen); past eight blocks Hopper's non-portable
 # cluster sizes
-FP32_HEAD_DIMS = tuple(range(128, 2049, 128))
+FP32_HEAD_DIMS = tuple(range(128, 2305, 128))
 CLUSTER16_HEAD_DIMS = tuple(range(384, 4097, 128))
 WIDE_HEAD_DIMS = (640, 768, 896, 1024)
 WIDE32_HEAD_DIMS = tuple(range(1152, 2049, 128))
@@ -335,6 +348,11 @@ SPLIT3_INSTANCES = (128, 256, 384, 512, 0)
 # the 16-bit cluster kernels' instances: templates on the element type and
 # the widest share, 256 columns, each taking every head dim from 640 to 2048
 CLUSTER16_CMAX = 256
+# the float32 kernels past sixteen 128-column blocks: one instance each, a
+# template on the widest share, 192 columns, taking 2176 and 2304 (twelve
+# blocks of shares of whole 64-column boxes)
+SHARES3_CMAX = 192
+SHARES3_HEAD_DIMS = (2176, 2304)
 # the flash kernels on wgmma, each with the SASS opcodes it must hold: the
 # bf16 and float16 ones load by TMA, the float32 ones (three bf16 terms a
 # float, converted by a warpgroup from plain loads) do not (the 16-bit ones
@@ -349,7 +367,9 @@ SM90_KERNELS = {**{f"flash_{k}_{kind}_kernelI{t}Li{d}E": ("HGMMA", "UTMALDG")
                                       ("cluster", (CLUSTER16_CMAX,)))
                    for d in dims for t in ("13__nv_bfloat16", "6__half")},
                 **{f"flash_{k}_split3_kernelILi{d}E": ("HGMMA",)
-                   for k in ("fwd", "dq", "dkv") for d in SPLIT3_INSTANCES}}
+                   for k in ("fwd", "dq", "dkv") for d in SPLIT3_INSTANCES},
+                **{f"flash_{k}_shares3_kernelILi{SHARES3_CMAX}E": ("HGMMA",)
+                   for k in ("fwd", "dq", "dkv")}}
 FLASH = "gnn_rag_tpu/llm_tpu/flash_attention.py"
 # the card's published peaks (H100 SXM data sheet, dense): float32 outside
 # the tensor cores, bf16 and float16 tensor cores
@@ -418,6 +438,10 @@ SPEC_GAMMA = 4
 # step-time-llm-d4096 step's B8 L2047 H1, B2 L1000 H1 and ragged rows, at
 # 3968, 3072 (bf16) and 2176 (shares of 256 and 192, 256 alone, 256 and
 # 192: sixteen, twelve and nine blocks) at B2 L1000 H2 and at 2176 at B1
+# L129; then float32 at 2304 and 2176 on twelve blocks of 192-column
+# shares: 2304 at the step-time-llm-d2304-fp32 step's B2 L2047 H1, on
+# ragged rows of three heads (B3 L77 H3: past the forward's 32-key and the
+# backward's 16-row tiles), B1 L129 and B1 L65, 2176 at B2 L1000 H1 and B1
 # L129. Rows at L 2047 are timed, and TIMED_RAGGED
 ATTN_SHAPES = (("sft_b8_l2047_bf16", 8, SFT_SEQ - 1, 32, 128, "bfloat16"),
                ("sft_b8_l2047_fp32", 8, SFT_SEQ - 1, 32, 128, "float32"),
@@ -493,19 +517,28 @@ ATTN_SHAPES = (("sft_b8_l2047_bf16", 8, SFT_SEQ - 1, 32, 128, "bfloat16"),
                  for d in dims),
                *((f"ragged_b1_l129_d2176_{tag}", 1, 129, 2, 2176, dtype)
                  for dtype, tag in (("bfloat16", "bf16"),
-                                    ("float16", "f16"))))
+                                    ("float16", "f16"))),
+               *((f"{name}_d2304_fp32", B, L, H, 2304, "float32")
+                 for name, B, L, H in (("gemma2_b2_l2047", 2, SFT_SEQ - 1, 1),
+                                       ("ragged_b3_l77_h3", 3, 77, 3),
+                                       ("ragged_b1_l129", 1, 129, 1),
+                                       ("ragged_b1_l65", 1, 65, 1))),
+               *((f"{name}_d2176_fp32", B, L, 1, 2176, "float32")
+                 for name, B, L in (("ragged_b2_l1000", 2, 1000),
+                                    ("ragged_b1_l129", 1, 129))))
 # median_ms of the plain flash versions in check_attn_kernels (the timed
 # rows' plain calls take 1-55 ms each; three runs for the script's time
 # limit)
 PLAIN_TIMING = dict(runs=3, reps=2, warmup=1)
 # the rows timed besides those at L 2047: the 16-bit head dims 1152 to
 # 1920 and 2176 to 3968, float32's 1152 and 1664, each at its ragged B2
-# L1000 H2 row only
+# L1000 H2 row only, and float32's 2176 at B2 L1000 H1
 TIMED_RAGGED = {*(f"ragged_b2_l1000_d{d}_{tag}" for d in WIDE16_HEAD_DIMS[4:-1]
                   for tag in ("bf16", "f16")),
                 *(f"ragged_b2_l1000_d{d}_fp32" for d in D2048_FP32_OTHER),
                 *(f"ragged_b2_l1000_d{d}_bf16" for d in D4096_OTHER),
-                *(f"ragged_b2_l1000_d{d}_f16" for d in D4096_GRAD_DIMS[1:])}
+                *(f"ragged_b2_l1000_d{d}_f16" for d in D4096_GRAD_DIMS[1:]),
+                "ragged_b2_l1000_d2176_fp32"}
 # the float16 rows whose backward also runs with the cotangent scaled: far
 # under float16's normal range (an unscaled split of ds would round it to
 # 0) and large
@@ -631,6 +664,21 @@ D2048_FP32_FLAGS = [{"--n_heads": "2", "--n_layers": "4"}.get(flag, x)
                                        D512_FP32_FLAGS)]
 D2048_FP32_GRADS = tuple(dict(dim=2 * d, n_heads=2, n_kv_heads=1)
                          for d in D2048_FP32_OTHER)
+# float32 past sixteen 128-column blocks, at Gemma-2-2B's width
+# (google/gemma-2-2b config.json: hidden 2304, intermediate 9216, vocab
+# 256000, tied embeddings; 8 heads of 256 and 4 kv heads there) with its
+# 2,304 query columns as one head of 2304 and one kv head (no published
+# configuration has heads of 2176 or 2304; the JAX reader sends them to its
+# Pallas kernels, as the 1024-4096 heads of the phases above), on the
+# repo's LLaMA block, float32, B2, F16_STEPS steps, cut to 2 of 26 layers
+# (the float32 state of 2 layers and the 590 M-parameter tied embedding is
+# ~12 GB): the float32 kernels on twelve blocks of 192-column shares; the
+# gradient check also at 2176 (one head: ten blocks of 192, two of 128)
+D2304_FP32_FLAGS = [{"--dim": "2304", "--n_heads": "1", "--n_kv_heads": "1",
+                     "--intermediate": "9216", "--n_layers": "2",
+                     "--dtype": "float32"}.get(flag, x)
+                    for flag, x in zip([None, *D256_FLAGS], D256_FLAGS)]
+D2304_FP32_GRADS = (dict(dim=2176, n_heads=1, n_kv_heads=1),)
 D4096_FLAGS = [{"--n_heads": "1", "--n_layers": "4"}.get(flag, x)
                for flag, x in zip([None, *D512_FLAGS], D512_FLAGS)]
 D4096_GRADS = tuple(dict(dim=d, n_heads=1, n_kv_heads=1)
@@ -2410,8 +2458,10 @@ def flash_kernel_name(kind, dtype, hd):
     type and the head dim (the pair kernels at 384 and 512), or, from 640,
     on the element type and the widest share (the cluster kernels, one
     instance for every head dim to 4096); the float32 ones on the head dim
-    to 512, and from 640 the instance <0> (SPLIT3_INSTANCES), one for every
-    head dim to 2048."""
+    to 512, from 640 the instance <0> (SPLIT3_INSTANCES), one for every
+    head dim to 2048, and past it the instance on 192-column shares."""
+    if dtype == "float32" and hd > 2048:
+        return f"flash_{kind}_shares3_kernel<{SHARES3_CMAX}>"
     if dtype == "float32":
         return f"flash_{kind}_split3_kernel<{hd if hd <= 512 else 0}>"
     elem = {"bfloat16": "__nv_bfloat16", "float16": "__half"}[dtype]
@@ -3452,8 +3502,8 @@ def sft_fp32_entry_step_time(device, root, prompts, flags, phase,
     widths cut to D256_FP32_LAYERS layers, the float32 kernels at head dim
     256), step-time-llm-d512-fp32 (D512_FP32_FLAGS: DeepSeek-V4-Flash's
     head shape, 2 layers, B2, the float32 kernels at head dim 512) and the
-    head-dim-1024 and 2048 float32 phases (D1024_FP32_FLAGS,
-    D2048_FP32_FLAGS): the SFT
+    head-dim-1024, 2048 and 2304 float32 phases (D1024_FP32_FLAGS,
+    D2048_FP32_FLAGS, D2304_FP32_FLAGS): the SFT
     computing in float32 through the port's entry (``sft_entry_step_time``:
     D256_STEPS steps at 2048 tokens, the kernels' launches exact, ms a step,
     one profiled step); a no-cache scoring forward's token log-probabilities
@@ -4641,6 +4691,19 @@ def build_all():
                     f"640-2048, clusters of five to sixteen blocks "
                     f"(clusters at once by head dim, ptxas registers, spill "
                     f"and stack bytes): {json.dumps(wide)}")
+                shares3 = {f"{k}<{SHARES3_CMAX}>": dict(
+                    clusters={d: clusters[f"{k}<{d}>"]
+                              for d in SHARES3_HEAD_DIMS},
+                    **next(v for n, v in props.items()
+                           if f"flash_{k}_shares3_kernelILi{SHARES3_CMAX}E"
+                           in n))
+                    for k in kinds}
+                log("build", f"float32 flash instances <{SHARES3_CMAX}> at "
+                    f"head dims 2176 and 2304, clusters of ceil(D / 192) "
+                    f"blocks (columns of each block by head dim: "
+                    f"{json.dumps({d: fa.split3_shares(d) for d in SHARES3_HEAD_DIMS})}"
+                    f"; clusters at once by head dim, ptxas registers, "
+                    f"spill and stack bytes): {json.dumps(shares3)}")
                 dims16 = WIDE16_HEAD_DIMS + CLUSTERS16_HEAD_DIMS
                 shares = {d: fa.cluster16_shares(d) for d in dims16}
                 wide16 = {f"{k}<{t}, {CLUSTER16_CMAX}>": dict(
@@ -4784,6 +4847,10 @@ def main():
         d4096 = timed("step-time-llm-d4096", sft_16bit_step_time, device,
                       llm_root, D4096_FLAGS, "step-time-llm-d4096",
                       D4096_GRADS[1:])
+        d2304_fp32 = timed(
+            "step-time-llm-d2304-fp32", sft_fp32_entry_step_time, device,
+            llm_root, prompts, D2304_FP32_FLAGS, "step-time-llm-d2304-fp32",
+            D2304_FP32_GRADS)
         _, reader_7b, lora_launches = timed("lora", run_lora, device, tokens,
                                             mask)
         timed("serve-7b", run_serve_7b, device, reader_7b,
@@ -5172,6 +5239,21 @@ def main():
                 {"grads": run["grads_by_head_dim"][f"d{hd}"][
                     "flash_launches"]},
                 {f"{path}_grads_d{hd}": "grads"}))
+    # the float32 kernels on 192-column shares (twelve blocks) on the
+    # step-time-llm-d2304-fp32 path: 2304 in its SFT steps and scoring
+    # forward, 2176 in its gradient check; 2304 timed at the step's B2
+    # L2047 H1, 2176 at B2 L1000 H1
+    phase = "step_time_llm_d2304_fp32"
+    groups.append(("float32", 2304, "_d2304_fp32", "gemma2_b2_l2047_d2304_fp32",
+                   d2304_fp32, {
+                       phase: "flash_launches_fwd_dq_dkv",
+                       f"{phase}_timed_steps": "timed_flash_launches",
+                       f"{phase}_scoring": "scoring_flash_launches",
+                       f"{phase}_grads_d2304": "grad_flash_launches"}))
+    groups.append(("float32", 2176, "_d2176_fp32", "ragged_b2_l1000_d2176_fp32",
+                   {"grads": d2304_fp32["grads_by_head_dim"]["d2176"][
+                       "flash_launches"]},
+                   {f"{phase}_grads_d2176": "grads"}))
     for dtype, hd, suffix, shape_name, run, paths in groups:
         rows_t = {r["shape"]: r for r in attn_rows
                   if r["D"] == hd and r["dtype"] == dtype}

@@ -12,7 +12,7 @@
 //   p = exp(s - lse), dp = dO v^T, ds = p * (dp - delta) * scale,
 //   dq = ds k, dk = ds^T q, dv = p^T dO,   delta = rowsum(dO * o) (given).
 // Tensors keep the model's [B, N, H, D] layout (D a multiple of 128: 128 to
-// 2048 in float32, 128 to 4096 in bfloat16 and float16; the wrapper raises
+// 2304 in float32, 128 to 4096 in bfloat16 and float16; the wrapper raises
 // on any other D); lse and delta are [B*H, L] float, stored
 // once per row (the TPU kernel replicated them over 128 lanes for its block
 // shapes). All sums are float; every product is the
@@ -113,6 +113,12 @@
 //   three, 66 pairs; 22 of five, 17 of six, 15 of seven and of eight;
 //   cudaOccupancyMaxActiveClusters on an H100 SXM, chip_smoke.py's build
 //   line). Only rank 0 writes lse.
+// - head dims 2176 and 2304 (flash_{fwd,dq,dkv}_shares3_kernel<192>, one
+//   instance each, the head dim a launch argument): past sixteen 128-column
+//   blocks, twelve blocks on shares of whole 64-column boxes of at most 192
+//   columns (2304 = 12 x 192, 2176 = 10 x 192 + 2 x 128), on 64 rows (keys)
+//   a block with 32-key forward and 16-row backward tiles; the section
+//   before allow_smem says how they fit.
 //
 // bfloat16 and float16, on the tensor cores: Hopper's TMA and warpgroup
 // wgmma (building blocks in sm90.cuh), each kernel a template on the 16-bit
@@ -1302,15 +1308,19 @@ __device__ __forceinline__ int split3_blocks() {
 // writes its partial here, then arrives on full; this block reads it and
 // arrives on the peer's empty, so that the peer may write the next one.
 // NB > 2: this block writes its own partial here and arrives on full in
-// every peer; the peers read it and arrive on empty here.
-struct Exchange {
-  float4 part[8][WG];
+// every peer; the peers read it and arrive on empty here. N4 float4 a
+// thread: 8 (32 floats) but for the float32 192-column shares' 16
+// (ExchangeT<4>, 8 KB)
+template <int N4>
+struct ExchangeT {
+  float4 part[N4][WG];
   uint64_t full, empty;
 };
+using Exchange = ExchangeT<8>;
 
 // `peers` other blocks' threads arrive on each barrier (NB - 1)
-__device__ __forceinline__ void init_exchange(Exchange* x,
-                                              uint32_t peers = 1) {
+template <typename Xc>
+__device__ __forceinline__ void init_exchange(Xc* x, uint32_t peers = 1) {
   sm90::mbar_init(&x->full, peers * WG);
   sm90::mbar_init(&x->empty, peers * WG);
 }
@@ -1355,8 +1365,8 @@ __device__ __forceinline__ void add_peer_partials(Exchange* xc, uint32_t peer,
   sm90::mbar_arrive_cluster(sm90::map_peer(&xc->empty, peer));
 }
 
-template <int N>
-__device__ __forceinline__ void keep_partial(const float (&x)[N], Exchange* xc,
+template <int N, typename Xc>
+__device__ __forceinline__ void keep_partial(const float (&x)[N], Xc* xc,
                                              int tid, int& i) {
 #pragma unroll
   for (int n = 0; n < N; n += 4, ++i)
@@ -1398,9 +1408,8 @@ __device__ __forceinline__ void sum_partials(float (&x)[N], const Exchange* xc,
 // rank's, the same at every NB: sum_partials unrolls the NB - 1 peers'
 // loads, which at NB 8 would be seven float4 loads in flight an element
 // group, and spill
-template <bool kFirst, int N>
-__device__ __forceinline__ void add_rank_partial(float (&x)[N],
-                                                 const Exchange* xc,
+template <bool kFirst, int N, typename Xc>
+__device__ __forceinline__ void add_rank_partial(float (&x)[N], const Xc* xc,
                                                  uint32_t r, uint32_t rank,
                                                  int tid, int& i) {
 #pragma unroll
@@ -1453,13 +1462,28 @@ __device__ __forceinline__ void add_cluster_partials(Exchange* xc,
       sm90::mbar_arrive_cluster(sm90::map_peer(&xc->empty, r));
 }
 
+// x becomes the rank-order sum of the nb blocks' partials in their slots,
+// rank by rank, with one rank's loads in flight
+template <typename Xc, typename... Parts>
+__device__ __forceinline__ void sum_cluster_slots(const Xc* xc, int nb,
+                                                  uint32_t rank, int tid,
+                                                  Parts&... parts) {
+  int i = 0;
+  (add_rank_partial<true>(parts, xc, 0, rank, tid, i), ...);
+#pragma unroll 1
+  for (int r = 1; r < nb; ++r) {
+    i = 0;
+    (add_rank_partial<false>(parts, xc, r, rank, tid, i), ...);
+  }
+}
+
 // add_cluster_partials rank by rank in a cluster of `nb` blocks, nb known
 // only at run time (the 16-bit cluster kernels, 3 to 16 blocks: one
 // instance for every head dim from 640 to 4096; the float32 <SPLIT3_ANY>, 5
 // to 16): the same barriers, slots and sum, ((p0 + p1) + p2) + .. + p(nb -
 // 1), with one rank's loads in flight
-template <typename... Parts>
-__device__ __forceinline__ void add_cluster_partials_n(Exchange* xc, int nb,
+template <typename Xc, typename... Parts>
+__device__ __forceinline__ void add_cluster_partials_n(Xc* xc, int nb,
                                                        uint32_t rank, int tid,
                                                        int e,
                                                        Parts&... parts) {
@@ -1471,13 +1495,7 @@ __device__ __forceinline__ void add_cluster_partials_n(Exchange* xc, int nb,
     if (r != static_cast<int>(rank))
       sm90::mbar_arrive_cluster(sm90::map_peer(&xc->full, r));
   sm90::mbar_wait_cluster(&xc->full, parity);        // the peers' e
-  i = 0;
-  (add_rank_partial<true>(parts, xc, 0, rank, tid, i), ...);
-#pragma unroll 1
-  for (int r = 1; r < nb; ++r) {
-    i = 0;
-    (add_rank_partial<false>(parts, xc, r, rank, tid, i), ...);
-  }
+  sum_cluster_slots(xc, nb, rank, tid, parts...);
   for (int r = 0; r < nb; ++r)
     if (r != static_cast<int>(rank))
       sm90::mbar_arrive_cluster(sm90::map_peer(&xc->empty, r));
@@ -1487,7 +1505,8 @@ __device__ __forceinline__ void add_cluster_partials_n(Exchange* xc, int nb,
 // so it touches this block's shared memory no more and the block may exit
 // (its writes and its arrivals on full came before this block's last wait
 // on full)
-__device__ __forceinline__ void drain_exchange(Exchange* xc, int n) {
+template <typename Xc>
+__device__ __forceinline__ void drain_exchange(Xc* xc, int n) {
   if (n > 0) sm90::mbar_wait_cluster(&xc->empty, (n - 1) & 1);
 }
 
@@ -3448,6 +3467,813 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
                                               dk, dv, H, L, S, hd, scale);
 }
 
+// ----- float32 at head dims 2176 and 2304: clusters of 192-column shares
+// Past sixteen 128-column blocks (2048) the float32 layouts above cannot
+// grow: Hopper's largest cluster is 16 blocks, and their blocks on 192
+// columns would not fit (the forward's 128 resident Q rows as terms take
+// 144 KB, its 64-key K and V term tiles 72 KB each). So block rank r of a
+// cluster of NB = shares3_blocks(HD) = ceil(HD / 192) blocks owns
+// share3_units(HD, r) of the head row's HD / 64 boxes, dealt so that the
+// shares differ by at most one box, the wider first (2304 = 12 x 192, 2176
+// = 10 x 192 + 2 x 128: twelve blocks; share16_units' rule at 192
+// columns), on fewer rows and shorter streamed tiles than the 128-column
+// layouts. One instance of each kernel, a template on the widest share
+// CMAX (192): the head dim a launch argument, NB the cluster's size (a
+// launch attribute, past 8 Hopper's non-portable sizes), each block
+// running the body for its own share, three boxes or two, a template on
+// it; shared memory laid out for CMAX columns in every block, so that the
+// exchange lies at the same offset in each. The arithmetic is the other
+// float32 kernels': three bf16 terms a float, six wgmma products a product,
+// a converter warpgroup writing term rows in the 128-byte swizzle from
+// plain loads (split_share: a box at a time, 16 rows a pass), the cluster's
+// partial s (and dp) added rank by rank in rank order, so that every block
+// holds the same bits, only rank 0 writing lse. A term row of 192 columns
+// is 1,152 bytes (three terms), so:
+// - forward: 64 query rows a block and one consumer warpgroup (their Q
+//   terms resident, 72 KB), 32-key K and V term tiles in two stages (144
+//   KB), s of 64 x 32 (wgmma m64n32k16) through an 8 KB exchange
+//   (ExchangeT<4>), o += p v in 64-column units (m64n64k16, v MN-major):
+//   230,448 bytes, 256 threads.
+// - dq: 64 query rows, their Q and dO terms resident (144 KB), 16-key K and
+//   V term tiles in two stages (72 KB), s and dp of 64 x 16 (m64n16k16)
+//   through an 8 KB exchange, dq += ds k in units: 230,448 bytes, 256
+//   threads.
+// - dk/dv: 64 keys, their K and V terms resident (144 KB), 16-row Q and dO
+//   term tiles in two stages (72 KB) with their lse and delta. dk and dv of
+//   64 x 192 would be 192 floats a thread, so two consumer warpgroups split
+//   the block's units (consumer 0 the first UB / 2, consumer 1 the rest:
+//   one and two at 192 columns, one and one at 128). Room is left for one
+//   exchange only (230,704 of 232,448 bytes), so consumer 0 alone forms the
+//   block's partial s^T and dp^T and keeps it in the exchange
+//   (add_cluster_partials_w), and consumer 1 reads the same NB slots and
+//   adds them in the same order (read_cluster_partials): both hold the same
+//   bits, and no score product is done twice. 384 threads; setmaxnreg
+//   moves registers from the converter (88) to the consumers (208).
+// Products issued / needed as at 128 columns: 12 / 2, 18 / 3, 24 / 4.
+constexpr int SHARES3_CMAX = 192;                // columns a block at most
+constexpr int SHARES3_MIN_HD = 2176, SHARES3_MAX_HD = 2304;
+constexpr int S3_ROWS = 64;       // query rows (dk/dv: keys) a block
+constexpr int S3_FWD_KEYS = 32;   // keys a forward K or V tile
+constexpr int S3_TILE = 16;       // keys a dq tile, query rows a dk/dv tile
+constexpr int S3_STAGES = 2;
+constexpr int S3_CONVERTER_REGS = 88, S3_CONSUMER_REGS = 208;
+static_assert(LAUNCH_REGS - S3_CONVERTER_REGS >=
+                  2 * (S3_CONSUMER_REGS - LAUNCH_REGS),
+              "the consumers take more registers than the converter frees");
+using Exchange3 = ExchangeT<4>;   // 16 floats a thread, 8 KB
+
+// the blocks of a float32 cluster on 192-column shares at head dim hd, the
+// boxes of block rank r and its first column
+__host__ __device__ constexpr int shares3_blocks(int hd) {
+  return (hd + SHARES3_CMAX - 1) / SHARES3_CMAX;
+}
+__host__ __device__ constexpr int share3_units(int hd, int r) {
+  return hd / 64 / shares3_blocks(hd) +
+         (r < hd / 64 % shares3_blocks(hd) ? 1 : 0);
+}
+__host__ __device__ constexpr int share3_col0(int hd, int r) {
+  return 64 * (hd / 64 / shares3_blocks(hd) * r +
+               (r < hd / 64 % shares3_blocks(hd)
+                    ? r : hd / 64 % shares3_blocks(hd)));
+}
+// at every head dim from 1152 (where the float32 clusters pass eight
+// blocks) to SHARES3_MAX_HD: at most 16 blocks, each of CMAX / 64 boxes or
+// one fewer, the shares one after another covering the row
+constexpr bool shares3_cover() {
+  for (int hd = 1152; hd <= SHARES3_MAX_HD; hd += 128) {
+    int col = 0;
+    for (int r = 0; r < shares3_blocks(hd); ++r) {
+      const int u = share3_units(hd, r);
+      if (share3_col0(hd, r) != col || u < SHARES3_CMAX / 64 - 1 ||
+          u > SHARES3_CMAX / 64)
+        return false;
+      col += 64 * u;
+    }
+    if (col != hd || shares3_blocks(hd) > 16) return false;
+  }
+  return true;
+}
+static_assert(shares3_cover(), "shares of 2 or 3 boxes on at most 16 blocks");
+
+// Rows [row0, row0 + ROWS) of a float head (element offset oh of a row of
+// oH floats: head h of a [B, N, H, hd] tensor at oh = h hd, oH = H hd), its
+// 64 columns from col, as their three bf16 terms in one 64-column box of
+// each term (term s at dst + s * term) in the 128-byte swizzle; rows past N
+// as zeros. Thread tid of a warpgroup takes the 8-column chunk tid % 8 of
+// rows tid / 8 + 16 i (a quarter warp on one row: 256-byte loads, 128-byte
+// swizzled stores without bank conflicts).
+template <int ROWS>
+__device__ __forceinline__ void split_box(unsigned char* dst, int term,
+                                          const float* __restrict__ src,
+                                          int b, int oh, int N, int oH,
+                                          int row0, int tid, int col) {
+  static_assert(ROWS % 16 == 0, "whole passes of 16 rows");
+  const int c = tid % 8, rr = tid / 8;
+  unsigned char* const out = dst + rr * ROW_BYTES + ((c ^ (rr % 8)) * 16);
+#pragma unroll
+  for (int i = 0; i < ROWS / 16; ++i) {
+    const int row = row0 + rr + 16 * i;
+    float4 x0 = make_float4(0.f, 0.f, 0.f, 0.f), x1 = x0;
+    if (row < N) {
+      const float4* p = reinterpret_cast<const float4*>(
+          src + offset<1>(b, row, oh, N, oH) + col + 8 * c);
+      x0 = __ldg(p);
+      x1 = __ldg(p + 1);
+    }
+    uint4 t1, t2, t3;
+    split3(x0.x, x0.y, t1.x, t2.x, t3.x);
+    split3(x0.z, x0.w, t1.y, t2.y, t3.y);
+    split3(x1.x, x1.y, t1.z, t2.z, t3.z);
+    split3(x1.z, x1.w, t1.w, t2.w, t3.w);
+    unsigned char* const o = out + i * 16 * ROW_BYTES;
+    *reinterpret_cast<uint4*>(o) = t1;
+    *reinterpret_cast<uint4*>(o + term) = t2;
+    *reinterpret_cast<uint4*>(o + 2 * term) = t3;
+  }
+}
+
+// split_box for each of the U boxes of a share from column col0, the boxes
+// `box` bytes apart
+template <int ROWS, int U>
+__device__ __forceinline__ void split_share(unsigned char* dst, int box,
+                                            int term,
+                                            const float* __restrict__ src,
+                                            int b, int oh, int N, int oH,
+                                            int row0, int tid, int col0) {
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    split_box<ROWS>(dst + u * box, term, src, b, oh, N, oH, row0, tid,
+                    col0 + 64 * u);
+}
+
+// add_cluster_partials_n in a block whose other consumer warpgroup reads
+// the sums too (read_cluster_partials): this block's partials go into its
+// slot once every reader has read exchange e - 1, and this warpgroup
+// arrives on full in every block, its own included; once every block's
+// writer has arrived here, each element becomes the rank-order sum and it
+// arrives on empty in every peer. full counts nb WG arrivals, empty (2 nb -
+// 1) WG: every other block's writer and every block's reader.
+template <typename Xc, typename... Parts>
+__device__ __forceinline__ void add_cluster_partials_w(Xc* xc, int nb,
+                                                       uint32_t rank, int tid,
+                                                       int e,
+                                                       Parts&... parts) {
+  const uint32_t parity = e & 1;
+  sm90::mbar_wait_cluster(&xc->empty, parity ^ 1);   // all read e - 1
+  int i = 0;
+  (keep_partial(parts, xc, tid, i), ...);
+  for (int r = 0; r < nb; ++r)
+    sm90::mbar_arrive_cluster(sm90::map_peer(&xc->full, r));
+  sm90::mbar_wait_cluster(&xc->full, parity);        // every block's e
+  sum_cluster_slots(xc, nb, rank, tid, parts...);
+  for (int r = 0; r < nb; ++r)
+    if (r != static_cast<int>(rank))
+      sm90::mbar_arrive_cluster(sm90::map_peer(&xc->empty, r));
+}
+
+// the reader's side: once every block's writer has kept its exchange e,
+// `parts` become the same rank-order sum; then it arrives on empty in every
+// block, its own included
+template <typename Xc, typename... Parts>
+__device__ __forceinline__ void read_cluster_partials(Xc* xc, int nb,
+                                                      uint32_t rank, int tid,
+                                                      int e,
+                                                      Parts&... parts) {
+  sm90::mbar_wait_cluster(&xc->full, e & 1);
+  sum_cluster_slots(xc, nb, rank, tid, parts...);
+  for (int r = 0; r < nb; ++r)
+    sm90::mbar_arrive_cluster(sm90::map_peer(&xc->empty, r));
+}
+
+// the three kernels' shared memory, laid out for CMAX columns: forward and
+// dq 230,448 bytes, dk/dv 230,704
+template <int CMAX>
+constexpr size_t fwd_shares3_smem() {
+  return 1024 +
+         static_cast<size_t>(TERMS) * CMAX / 64 * ROW_BYTES *
+             (S3_ROWS + 2 * S3_STAGES * S3_FWD_KEYS) +
+         sizeof(Exchange3) + sizeof(Ring3Bars);
+}
+template <int CMAX>
+constexpr size_t dq_shares3_smem() {
+  return 1024 +
+         static_cast<size_t>(TERMS) * CMAX / 64 * ROW_BYTES *
+             (2 * S3_ROWS + 2 * S3_STAGES * S3_TILE) +
+         sizeof(Exchange3) + sizeof(Ring3Bars);
+}
+template <int CMAX>
+constexpr size_t dkv_shares3_smem() {
+  return dq_shares3_smem<CMAX>() + sizeof(DkvStats<S3_STAGES, S3_TILE>);
+}
+static_assert(fwd_shares3_smem<SHARES3_CMAX>() <= MAX_SMEM &&
+                  dq_shares3_smem<SHARES3_CMAX>() <= MAX_SMEM &&
+                  dkv_shares3_smem<SHARES3_CMAX>() <= MAX_SMEM,
+              "float32 at 192 columns a block");
+
+// the float32 forward of a block of a cluster on its U boxes: the
+// converter (warpgroup 0) streams 32-key K and V tiles as terms through
+// two stages; the consumer (warpgroup 1) splits its 64 Q rows once, then
+// per tile s = q k^T (6 x 4U wgmma m64n32k16), the cluster's rank-order
+// sum, the online softmax, p as three register A terms, o += p v (6 x 2
+// wgmma m64n64k16 a unit)
+template <int CMAX, int U>
+__device__ __forceinline__ void fwd_shares3_block(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int H, int L, int S, int hd, float scale) {
+  constexpr int KEYS = S3_FWD_KEYS;
+  constexpr int Q_BOX = S3_ROWS * ROW_BYTES, KV_BOX = KEYS * ROW_BYTES;
+  constexpr int Q_TERM = CMAX / 64 * Q_BOX, KV_TERM = CMAX / 64 * KV_BOX;
+  extern __shared__ unsigned char raw_smem[];
+  unsigned char* const Qs = align1024(raw_smem);                 // [term]
+  unsigned char* const Ks = Qs + TERMS * Q_TERM;         // [stage][term]
+  unsigned char* const Vs = Ks + S3_STAGES * TERMS * KV_TERM;
+  auto* xch = reinterpret_cast<Exchange3*>(Vs + S3_STAGES * TERMS * KV_TERM);
+  auto* bars = reinterpret_cast<Ring3Bars*>(xch + 1);
+  const int nb = shares3_blocks(hd);
+  const int q0 = (gridDim.x / nb - 1 - blockIdx.x / nb) * S3_ROWS;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int oh = h * hd, oH = H * hd;
+  const int n_tiles = (min(S, q0 + S3_ROWS) + KEYS - 1) / KEYS;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < S3_STAGES; ++st) {
+      sm90::mbar_init(&bars->full[st], WG);           // converter threads
+      sm90::mbar_init(&bars->empty[st], WG / 32);     // consumer warps
+    }
+    init_exchange(xch, nb - 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  sm90::cluster_sync();   // the peers' barriers too
+
+  if (wg == 0) {   // converter
+    const int col0 = share3_col0(hd, sm90::cluster_ctarank());
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % S3_STAGES;
+      sm90::mbar_wait(&bars->empty[st], ((j / S3_STAGES) & 1) ^ 1);
+      split_share<KEYS, U>(Ks + st * TERMS * KV_TERM, KV_BOX, KV_TERM, k, b,
+                           oh, S, oH, j * KEYS, threadIdx.x, col0);
+      split_share<KEYS, U>(Vs + st * TERMS * KV_TERM, KV_BOX, KV_TERM, v, b,
+                           oh, S, oH, j * KEYS, threadIdx.x, col0);
+      sm90::fence_proxy_async();
+      sm90::mbar_arrive(&bars->full[st]);
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x - WG;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row = q0 + 16 * warp + g;        // and row + 8
+  split_share<S3_ROWS, U>(Qs, Q_BOX, Q_TERM, q, b, oh, L, oH, q0, tid,
+                          share3_col0(hd, sm90::cluster_ctarank()));
+  sm90::fence_proxy_async();
+  sm90::named_bar_sync(1, WG);               // the Q terms
+  const float sl2 = scale * LOG2E;           // scores in log2 units
+  float acc[U][32];                          // o, a 64-column unit each
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[u][i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % S3_STAGES, k0 = j * KEYS;
+    const unsigned char* kt = Ks + st * TERMS * KV_TERM;
+    const unsigned char* vt = Vs + st * TERMS * KV_TERM;
+    float s[KEYS / 2];
+    const uint64_t desc_q = k_major(Qs), desc_k = k_major(kt);
+    sm90::mbar_wait(&bars->full[st], (j / S3_STAGES) & 1);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < 6; ++p)
+#pragma unroll
+      for (int kk = 0; kk < 4 * U; ++kk)
+        sm90::wgmma_m64n32k16_ss(
+            s, desc_q + term_off(Q_TERM, a_term(p)) + k_step(Q_BOX, kk),
+            desc_k + term_off(KV_TERM, b_term(p)) + k_step(KV_BOX, kk),
+            p > 0 || kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+    sm90::fence_regs(s);
+    add_cluster_partials_n(xch, sm90::cluster_nctarank(),
+                           sm90::cluster_ctarank(), tid, j, s);
+
+#pragma unroll
+    for (int i = 0; i < KEYS / 2; ++i) s[i] *= sl2;
+    // the diagonal tiles and a ragged last tile: key > row or key >= S
+    if (k0 + KEYS - 1 > q0 || k0 + KEYS > S) {
+#pragma unroll
+      for (int i = 0; i < KEYS / 2; ++i) {
+        const int key = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+        if (key > row + 8 * ((i / 2) & 1) || key >= S) s[i] = NEG_INF;
+      }
+    }
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int i = 0; i < KEYS / 2; ++i)
+      mx[(i / 2) & 1] = fmaxf(mx[(i / 2) & 1], s[i]);
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];                      // this thread's share of the sum
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      sm90::fence_regs(acc[u]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[u][i] *= alpha[(i / 2) & 1];
+    }
+    // p (float) into the row sums and, as three terms, the A registers
+    uint32_t pa[TERMS][KEYS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < KEYS / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 8 * kk + 2 * r, half = r & 1;
+        const float p0 = exp2f(s[i] - m[half]);
+        const float p1 = exp2f(s[i + 1] - m[half]);
+        l[half] += p0;
+        l[half] += p1;
+        split3(p0, p1, pa[0][kk][r], pa[1][kk][r], pa[2][kk][r]);
+      }
+
+    const uint64_t desc_v = mn_major(vt, KV_BOX);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int p = 0; p < 6; ++p)
+#pragma unroll
+        for (int kk = 0; kk < KEYS / 16; ++kk)
+          sm90::wgmma_m64n64k16_rs(
+              acc[u], pa[a_term(p)][kk],
+              desc_v + term_off(KV_TERM, b_term(p)) + ((u * KV_BOX) >> 4) +
+                  mn_step(kk),
+              1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+#pragma unroll
+    for (int u = 0; u < U; ++u) sm90::fence_regs(acc[u]);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
+  }
+  drain_exchange(xch, n_tiles);
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+    inv[r] = 1.f / l[r];
+    if (t == 0 && row + 8 * r < L &&
+        sm90::cluster_ctarank() == 0)        // every block holds it
+      lse[static_cast<int64_t>(bh) * L + row + 8 * r] = m[r] * LN2 + logf(l[r]);
+  }
+  const int col0 = share3_col0(hd, sm90::cluster_ctarank());
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    store_acc_rows<float, 1>(o, b, oh, L, oH, row, t, acc[u], inv,
+                             col0 + 64 * u);
+}
+
+// float32 forward at HD 2176 and 2304 (a launch argument), grid (NB ceil(L
+// / 64), B*H) in clusters of NB = shares3_blocks(HD) blocks along x, each
+// running fwd_shares3_block on its share
+template <int CMAX>
+__global__ void __launch_bounds__(D3_THREADS, 1)
+    flash_fwd_shares3_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             float* __restrict__ o, float* __restrict__ lse,
+                             int H, int L, int S, int hd, float scale) {
+  if (share3_units(hd, sm90::cluster_ctarank()) == CMAX / 64)
+    fwd_shares3_block<CMAX, CMAX / 64>(q, k, v, o, lse, H, L, S, hd, scale);
+  else
+    fwd_shares3_block<CMAX, CMAX / 64 - 1>(q, k, v, o, lse, H, L, S, hd,
+                                           scale);
+}
+
+// float32 dq of a block of a cluster on its U boxes: the converter streams
+// 16-key K and V tiles as terms through two stages; the consumer splits its
+// 64 Q and dO rows once and keeps their lse and delta in registers, then
+// per tile s = q k^T and dp = dO v^T (6 x 4U wgmma m64n16k16 each), their
+// rank-order sums, ds as three register A terms, dq += ds k (6 wgmma
+// m64n64k16 a unit, k MN-major)
+template <int CMAX, int U>
+__device__ __forceinline__ void dq_shares3_block(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq, int H, int L, int S, int hd, float scale) {
+  constexpr int KEYS = S3_TILE;
+  constexpr int Q_BOX = S3_ROWS * ROW_BYTES, KV_BOX = KEYS * ROW_BYTES;
+  constexpr int Q_TERM = CMAX / 64 * Q_BOX, KV_TERM = CMAX / 64 * KV_BOX;
+  extern __shared__ unsigned char raw_smem[];
+  unsigned char* const Qs = align1024(raw_smem);                 // [term]
+  unsigned char* const Gs = Qs + TERMS * Q_TERM;                 // [term] dO
+  unsigned char* const Ks = Gs + TERMS * Q_TERM;         // [stage][term]
+  unsigned char* const Vs = Ks + S3_STAGES * TERMS * KV_TERM;
+  auto* xch = reinterpret_cast<Exchange3*>(Vs + S3_STAGES * TERMS * KV_TERM);
+  auto* bars = reinterpret_cast<Ring3Bars*>(xch + 1);
+  const int nb = shares3_blocks(hd);
+  const int q0 = (gridDim.x / nb - 1 - blockIdx.x / nb) * S3_ROWS;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int oh = h * hd, oH = H * hd;
+  const int n_tiles = (min(S, q0 + S3_ROWS) + KEYS - 1) / KEYS;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < S3_STAGES; ++st) {
+      sm90::mbar_init(&bars->full[st], WG);           // converter threads
+      sm90::mbar_init(&bars->empty[st], WG / 32);     // consumer warps
+    }
+    init_exchange(xch, nb - 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  sm90::cluster_sync();   // the peers' barriers too
+
+  if (wg == 0) {   // converter
+    const int col0 = share3_col0(hd, sm90::cluster_ctarank());
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % S3_STAGES;
+      sm90::mbar_wait(&bars->empty[st], ((j / S3_STAGES) & 1) ^ 1);
+      split_share<KEYS, U>(Ks + st * TERMS * KV_TERM, KV_BOX, KV_TERM, k, b,
+                           oh, S, oH, j * KEYS, threadIdx.x, col0);
+      split_share<KEYS, U>(Vs + st * TERMS * KV_TERM, KV_BOX, KV_TERM, v, b,
+                           oh, S, oH, j * KEYS, threadIdx.x, col0);
+      sm90::fence_proxy_async();
+      sm90::mbar_arrive(&bars->full[st]);
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x - WG;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row = q0 + 16 * warp + g;        // and row + 8
+  {
+    const int col0 = share3_col0(hd, sm90::cluster_ctarank());
+    split_share<S3_ROWS, U>(Qs, Q_BOX, Q_TERM, q, b, oh, L, oH, q0, tid,
+                            col0);
+    split_share<S3_ROWS, U>(Gs, Q_BOX, Q_TERM, dout, b, oh, L, oH, q0, tid,
+                            col0);
+  }
+  sm90::fence_proxy_async();
+  sm90::named_bar_sync(1, WG);               // the Q and dO terms
+  const float sl2 = scale * LOG2E;
+  float lse2[2], dl[2];                      // lse in log2 units, delta
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = row + 8 * r < L;
+    const int64_t i = static_cast<int64_t>(bh) * L + row + 8 * r;
+    lse2[r] = in ? lse[i] * LOG2E : 0.f;
+    dl[r] = in ? delta[i] : 0.f;
+  }
+  float acc[U][32];                          // dq, a 64-column unit each
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[u][i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % S3_STAGES, k0 = j * KEYS;
+    const unsigned char* kt = Ks + st * TERMS * KV_TERM;
+    const unsigned char* vt = Vs + st * TERMS * KV_TERM;
+    float s[KEYS / 2], dp[KEYS / 2];
+    const uint64_t desc_q = k_major(Qs), desc_k = k_major(kt);
+    const uint64_t desc_g = k_major(Gs), desc_v = k_major(vt);
+    sm90::mbar_wait(&bars->full[st], (j / S3_STAGES) & 1);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < 6; ++p)
+#pragma unroll
+      for (int kk = 0; kk < 4 * U; ++kk)
+        sm90::wgmma_m64n16k16_ss(
+            s, desc_q + term_off(Q_TERM, a_term(p)) + k_step(Q_BOX, kk),
+            desc_k + term_off(KV_TERM, b_term(p)) + k_step(KV_BOX, kk),
+            p > 0 || kk > 0);
+#pragma unroll
+    for (int p = 0; p < 6; ++p)
+#pragma unroll
+      for (int kk = 0; kk < 4 * U; ++kk)
+        sm90::wgmma_m64n16k16_ss(
+            dp, desc_g + term_off(Q_TERM, a_term(p)) + k_step(Q_BOX, kk),
+            desc_v + term_off(KV_TERM, b_term(p)) + k_step(KV_BOX, kk),
+            p > 0 || kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+    add_cluster_partials_n(xch, sm90::cluster_nctarank(),
+                           sm90::cluster_ctarank(), tid, j, s, dp);
+
+    // p = exp(s scale - lse), ds = p (dp - delta) scale; rows: queries
+    // row + 8((i / 2) & 1), columns: keys k0 + c. Only a tile that crosses
+    // the diagonal or the ragged end is masked.
+    const bool edge = k0 + KEYS - 1 > q0 || k0 + KEYS > S;
+#pragma unroll
+    for (int i = 0; i < KEYS / 2; ++i) {
+      const int r = (i / 2) & 1;
+      float p = exp2f(fmaf(s[i], sl2, -lse2[r]));
+      if (edge) {
+        const int kc = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+        if (kc > row + 8 * r || kc >= S) p = 0.f;
+      }
+      dp[i] = p * (dp[i] - dl[r]) * scale;
+    }
+    uint32_t da[TERMS][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split3(dp[2 * r], dp[2 * r + 1], da[0][r], da[1][r], da[2][r]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) sm90::fence_regs(acc[u]);
+    sm90::wgmma_fence();
+    const uint64_t desc_kt = mn_major(kt, KV_BOX);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int p = 0; p < 6; ++p)
+        sm90::wgmma_m64n64k16_rs(
+            acc[u], da[a_term(p)],
+            desc_kt + term_off(KV_TERM, b_term(p)) + ((u * KV_BOX) >> 4), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+#pragma unroll
+    for (int u = 0; u < U; ++u) sm90::fence_regs(acc[u]);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
+  }
+  drain_exchange(xch, n_tiles);
+  const float one[2] = {1.f, 1.f};
+  const int col0 = share3_col0(hd, sm90::cluster_ctarank());
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    store_acc_rows<float, 1>(dq, b, oh, L, oH, row, t, acc[u], one,
+                             col0 + 64 * u);
+}
+
+// float32 dq at HD 2176 and 2304, grid (NB ceil(L / 64), B*H) in clusters
+// of NB blocks along x, each running dq_shares3_block on its share
+template <int CMAX>
+__global__ void __launch_bounds__(D3_THREADS, 1)
+    flash_dq_shares3_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dq, int H, int L, int S,
+                            int hd, float scale) {
+  if (share3_units(hd, sm90::cluster_ctarank()) == CMAX / 64)
+    dq_shares3_block<CMAX, CMAX / 64>(q, k, v, dout, lse, delta, dq, H, L, S,
+                                      hd, scale);
+  else
+    dq_shares3_block<CMAX, CMAX / 64 - 1>(q, k, v, dout, lse, delta, dq, H,
+                                          L, S, hd, scale);
+}
+
+// A dk/dv consumer of a block on UB boxes: the block's 64 keys (key, key +
+// 8 its rows), U 64-column units of dk and dv from unit U0 of its share.
+// The writer (kWriter: consumer 0, U0 0) forms the block's partial s^T = k
+// q^T and dp^T = v dO^T (6 x 4UB wgmma m64n16k16 each) and keeps it in the
+// exchange; both consumers then hold the cluster's rank-order sums, form
+// p^T and ds^T, split them into three register A terms and accumulate dv
+// += p^T dO and dk += ds^T q on their units (6 wgmma m64n64k16 each a unit,
+// dO and q MN-major).
+template <int CMAX, int UB, int U, int U0, bool kWriter>
+__device__ __forceinline__ void dkv_shares3_consume(
+    const unsigned char* Ks, const unsigned char* Vs,
+    const unsigned char* Qs, const unsigned char* Gs,
+    const DkvStats<S3_STAGES, S3_TILE>* stats, Ring3Bars* bars,
+    Exchange3* xch, float* __restrict__ dk, float* __restrict__ dv, int b,
+    int oh, int oH, int L, int S, int hd, int k0, int n_tiles, float scale) {
+  constexpr int ROWS = S3_TILE, KEYS = S3_ROWS;
+  constexpr int K_BOX = KEYS * ROW_BYTES, Q_BOX = ROWS * ROW_BYTES;
+  constexpr int K_TERM = CMAX / 64 * K_BOX, Q_TERM = CMAX / 64 * Q_BOX;
+  const int tid = threadIdx.x % WG;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int key = k0 + 16 * warp + g;        // and key + 8
+  const float sl2 = scale * LOG2E;
+  float dk_acc[U][32], dv_acc[U][32];
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[u][i] = dv_acc[u][i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % S3_STAGES, q0 = k0 + j * ROWS;
+    const unsigned char* qt = Qs + st * TERMS * Q_TERM;
+    const unsigned char* gt = Gs + st * TERMS * Q_TERM;
+    float s[ROWS / 2], dp[ROWS / 2];
+    sm90::mbar_wait(&bars->full[st], (j / S3_STAGES) & 1);
+    if constexpr (kWriter) {
+      const uint64_t desc_k = k_major(Ks), desc_q = k_major(qt);
+      const uint64_t desc_v = k_major(Vs), desc_g = k_major(gt);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < 6; ++p)
+#pragma unroll
+        for (int kk = 0; kk < 4 * UB; ++kk)
+          sm90::wgmma_m64n16k16_ss(
+              s, desc_k + term_off(K_TERM, a_term(p)) + k_step(K_BOX, kk),
+              desc_q + term_off(Q_TERM, b_term(p)) + k_step(Q_BOX, kk),
+              p > 0 || kk > 0);
+#pragma unroll
+      for (int p = 0; p < 6; ++p)
+#pragma unroll
+        for (int kk = 0; kk < 4 * UB; ++kk)
+          sm90::wgmma_m64n16k16_ss(
+              dp, desc_v + term_off(K_TERM, a_term(p)) + k_step(K_BOX, kk),
+              desc_g + term_off(Q_TERM, b_term(p)) + k_step(Q_BOX, kk),
+              p > 0 || kk > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait();
+      sm90::fence_regs(s);
+      sm90::fence_regs(dp);
+      add_cluster_partials_w(xch, sm90::cluster_nctarank(),
+                             sm90::cluster_ctarank(), tid, j, s, dp);
+    } else {
+      read_cluster_partials(xch, sm90::cluster_nctarank(),
+                            sm90::cluster_ctarank(), tid, j, s, dp);
+    }
+
+    // p^T = exp(s^T scale - lse), ds^T = p^T (dp^T - delta) scale; rows:
+    // keys key + 8((i / 2) & 1), columns: query rows q0 + c
+    const bool edge = k0 + KEYS - 1 > q0 || q0 + ROWS > L || k0 + KEYS > S;
+#pragma unroll
+    for (int i = 0; i < ROWS / 2; ++i) {
+      const int c = 8 * (i / 4) + 2 * t + (i & 1);
+      float p = exp2f(fmaf(s[i], sl2, -stats->lse[st][c] * LOG2E));
+      if (edge) {
+        const int kc = key + 8 * ((i / 2) & 1), qr = q0 + c;
+        if (kc > qr || kc >= S || qr >= L) p = 0.f;
+      }
+      dp[i] = p * (dp[i] - stats->delta[st][c]) * scale;
+      s[i] = p;
+    }
+    uint32_t pa[TERMS][4], da[TERMS][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      split3(s[2 * r], s[2 * r + 1], pa[0][r], pa[1][r], pa[2][r]);
+      split3(dp[2 * r], dp[2 * r + 1], da[0][r], da[1][r], da[2][r]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      sm90::fence_regs(dv_acc[u]);
+      sm90::fence_regs(dk_acc[u]);
+    }
+    sm90::wgmma_fence();
+    const uint64_t desc_gt = mn_major(gt, Q_BOX), desc_qt = mn_major(qt, Q_BOX);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const uint64_t box = ((U0 + u) * Q_BOX) >> 4;
+#pragma unroll
+      for (int p = 0; p < 6; ++p)
+        sm90::wgmma_m64n64k16_rs(
+            dv_acc[u], pa[a_term(p)],
+            desc_gt + term_off(Q_TERM, b_term(p)) + box, 1);
+#pragma unroll
+      for (int p = 0; p < 6; ++p)
+        sm90::wgmma_m64n64k16_rs(
+            dk_acc[u], da[a_term(p)],
+            desc_qt + term_off(Q_TERM, b_term(p)) + box, 1);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      sm90::fence_regs(dk_acc[u]);
+      sm90::fence_regs(dv_acc[u]);
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&bars->empty[st]);
+  }
+  if constexpr (kWriter) drain_exchange(xch, n_tiles);
+  const float one[2] = {1.f, 1.f};
+  const int col0 = share3_col0(hd, sm90::cluster_ctarank()) + 64 * U0;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    store_acc_rows<float, 1>(dk, b, oh, S, oH, key, t, dk_acc[u], one,
+                             col0 + 64 * u);
+    store_acc_rows<float, 1>(dv, b, oh, S, oH, key, t, dv_acc[u], one,
+                             col0 + 64 * u);
+  }
+}
+
+// float32 dk and dv of a block of a cluster on its UB boxes: the converter
+// (warpgroup 0) streams 16-row Q and dO tiles as terms with their lse and
+// delta through two stages; consumer 0 splits the block's 64 K rows,
+// consumer 1 its V rows, then each runs dkv_shares3_consume on its units
+template <int CMAX, int UB>
+__device__ __forceinline__ void dkv_shares3_block(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, int H, int L, int S,
+    int hd, float scale) {
+  constexpr int ROWS = S3_TILE, KEYS = S3_ROWS;
+  constexpr int K_BOX = KEYS * ROW_BYTES, Q_BOX = ROWS * ROW_BYTES;
+  constexpr int K_TERM = CMAX / 64 * K_BOX, Q_TERM = CMAX / 64 * Q_BOX;
+  extern __shared__ unsigned char raw_smem[];
+  unsigned char* const Ks = align1024(raw_smem);                 // [term]
+  unsigned char* const Vs = Ks + TERMS * K_TERM;                 // [term]
+  unsigned char* const Qs = Vs + TERMS * K_TERM;         // [stage][term]
+  unsigned char* const Gs = Qs + S3_STAGES * TERMS * Q_TERM;     // dO
+  auto* xch = reinterpret_cast<Exchange3*>(Gs + S3_STAGES * TERMS * Q_TERM);
+  auto* stats = reinterpret_cast<DkvStats<S3_STAGES, S3_TILE>*>(xch + 1);
+  auto* bars = reinterpret_cast<Ring3Bars*>(stats + 1);
+  const int nb = shares3_blocks(hd);
+  const int k0 = blockIdx.x / nb * KEYS;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int oh = h * hd, oH = H * hd;
+  const int n_tiles = k0 < L ? (L - k0 + ROWS - 1) / ROWS : 0;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < S3_STAGES; ++st) {
+      sm90::mbar_init(&bars->full[st], WG);           // converter threads
+      sm90::mbar_init(&bars->empty[st], 2 * WG / 32); // consumer warps
+    }
+    sm90::mbar_init(&xch->full, nb * WG);             // every writer
+    sm90::mbar_init(&xch->empty, (2 * nb - 1) * WG);  // the readers
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  sm90::cluster_sync();   // the peers' barriers too
+
+  if (wg == 0) {   // converter
+    sm90::setmaxnreg_dec<S3_CONVERTER_REGS>();
+    const int tid = threadIdx.x;
+    const int col0 = share3_col0(hd, sm90::cluster_ctarank());
+    const float* const lse_bh = lse + static_cast<int64_t>(bh) * L;
+    const float* const delta_bh = delta + static_cast<int64_t>(bh) * L;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % S3_STAGES, q0 = k0 + j * ROWS;
+      sm90::mbar_wait(&bars->empty[st], ((j / S3_STAGES) & 1) ^ 1);
+      if (tid < ROWS) {
+        const bool in = q0 + tid < L;
+        stats->lse[st][tid] = in ? lse_bh[q0 + tid] : 0.f;
+        stats->delta[st][tid] = in ? delta_bh[q0 + tid] : 0.f;
+      }
+      split_share<ROWS, UB>(Qs + st * TERMS * Q_TERM, Q_BOX, Q_TERM, q, b,
+                            oh, L, oH, q0, tid, col0);
+      split_share<ROWS, UB>(Gs + st * TERMS * Q_TERM, Q_BOX, Q_TERM, dout, b,
+                            oh, L, oH, q0, tid, col0);
+      sm90::fence_proxy_async();
+      sm90::mbar_arrive(&bars->full[st]);
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<S3_CONSUMER_REGS>();
+  const int cw = wg - 1;
+  split_share<KEYS, UB>(cw == 0 ? Ks : Vs, K_BOX, K_TERM, cw == 0 ? k : v, b,
+                        oh, S, oH, k0, threadIdx.x % WG,
+                        share3_col0(hd, sm90::cluster_ctarank()));
+  sm90::fence_proxy_async();
+  sm90::named_bar_sync(1, 2 * WG);           // the K and V terms
+  if (cw == 0)
+    dkv_shares3_consume<CMAX, UB, UB / 2, 0, true>(
+        Ks, Vs, Qs, Gs, stats, bars, xch, dk, dv, b, oh, oH, L, S, hd, k0,
+        n_tiles, scale);
+  else
+    dkv_shares3_consume<CMAX, UB, UB - UB / 2, UB / 2, false>(
+        Ks, Vs, Qs, Gs, stats, bars, xch, dk, dv, b, oh, oH, L, S, hd, k0,
+        n_tiles, scale);
+}
+
+// float32 dk and dv at HD 2176 and 2304, grid (NB ceil(S / 64), B*H) in
+// clusters of NB blocks along x on the same 64 keys, each running
+// dkv_shares3_block on its share
+template <int CMAX>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+    flash_dkv_shares3_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             float* __restrict__ dk, float* __restrict__ dv,
+                             int H, int L, int S, int hd, float scale) {
+  if (share3_units(hd, sm90::cluster_ctarank()) == CMAX / 64)
+    dkv_shares3_block<CMAX, CMAX / 64>(q, k, v, dout, lse, delta, dk, dv, H,
+                                       L, S, hd, scale);
+  else
+    dkv_shares3_block<CMAX, CMAX / 64 - 1>(q, k, v, dout, lse, delta, dk, dv,
+                                           H, L, S, hd, scale);
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -3560,6 +4386,45 @@ int launch_dkv_split3(const void* q, const void* k, const void* v,
       static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
       static_cast<float*>(dv), H, L, S, scale);
+}
+
+// float32 forward, dq and dk/dv at head dim hd (2176 or 2304): clusters of
+// shares3_blocks(hd) blocks on 192-column shares, no tensor maps
+int launch_fwd_shares3(const void* q, const void* k, const void* v, void* o,
+                       float* lse, int B, int H, int L, int S, int hd,
+                       float scale, cudaStream_t stream) {
+  return launch_grid(
+      flash_fwd_shares3_kernel<SHARES3_CMAX>, shares3_blocks(hd),
+      (L + S3_ROWS - 1) / S3_ROWS, B * H, D3_THREADS,
+      fwd_shares3_smem<SHARES3_CMAX>(), stream, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, H, L, S, hd, scale);
+}
+
+int launch_dq_shares3(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dq, int B, int H, int L, int S, int hd,
+                      float scale, cudaStream_t stream) {
+  return launch_grid(
+      flash_dq_shares3_kernel<SHARES3_CMAX>, shares3_blocks(hd),
+      (L + S3_ROWS - 1) / S3_ROWS, B * H, D3_THREADS,
+      dq_shares3_smem<SHARES3_CMAX>(), stream, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq),
+      H, L, S, hd, scale);
+}
+
+int launch_dkv_shares3(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* delta,
+                       void* dk, void* dv, int B, int H, int L, int S, int hd,
+                       float scale, cudaStream_t stream) {
+  return launch_grid(
+      flash_dkv_shares3_kernel<SHARES3_CMAX>, shares3_blocks(hd),
+      (S + S3_ROWS - 1) / S3_ROWS, B * H, SM90_THREADS,
+      dkv_shares3_smem<SHARES3_CMAX>(), stream, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), H, L, S, hd, scale);
 }
 
 // 16-bit (bf16 or float16: T) forward, dq and dk/dv at head dim HD: tensor
@@ -3796,6 +4661,11 @@ int elem16(int dtype, F&& f) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// whether the float32 kernels on 192-column shares take head dim hd
+constexpr bool shares3_takes(int hd) {
+  return hd % 128 == 0 && hd >= SHARES3_MIN_HD && hd <= SHARES3_MAX_HD;
+}
+
 // whether the 16-bit cluster kernels take head dim hd
 constexpr bool cluster16_takes(int hd) {
   return hd % 128 == 0 && hd >= CLUSTER16_MIN_HD && hd <= CLUSTER16_MAX_HD;
@@ -3813,6 +4683,22 @@ int max_clusters_split3(int kernel, int hd, int* n) {
                                 D3_THREADS, dq3_smem<HD>(), n);
     case 2: return max_clusters(flash_dkv_split3_kernel<HD>, hd / D,
                                 D3_THREADS, dkv3_smem<HD>(), n);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// and for the float32 kernel `kernel` on 192-column shares at head dim hd
+// (shares3_blocks(hd) blocks a cluster)
+int max_clusters_shares3(int kernel, int hd, int* n) {
+  constexpr int C = SHARES3_CMAX;
+  const int nb = shares3_blocks(hd);
+  switch (kernel) {
+    case 0: return max_clusters(flash_fwd_shares3_kernel<C>, nb, D3_THREADS,
+                                fwd_shares3_smem<C>(), n);
+    case 1: return max_clusters(flash_dq_shares3_kernel<C>, nb, D3_THREADS,
+                                dq_shares3_smem<C>(), n);
+    case 2: return max_clusters(flash_dkv_shares3_kernel<C>, nb,
+                                SM90_THREADS, dkv_shares3_smem<C>(), n);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -3860,7 +4746,7 @@ extern "C" {
 
 // q, o [B, L, H, D], k, v [B, S, H, D], contiguous and 16-byte aligned, all
 // of the element type `dtype` (0 float, 1 bfloat16, 2 float16), D a
-// multiple of 128: 128 .. 2048 in float32, 128 .. 4096 in bfloat16 and
+// multiple of 128: 128 .. 2304 in float32, 128 .. 4096 in bfloat16 and
 // float16; lse [B*H, L] float. Each entry point returns a cudaError_t
 // value; 0 means the launch was accepted (another D or dtype:
 // cudaErrorInvalidValue).
@@ -3869,6 +4755,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         float scale, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* lse_f = static_cast<float*>(lse);
+  if (dtype == kFloat32 && shares3_takes(D))
+    return launch_fwd_shares3(q, k, v, o, lse_f, B, H, L, S, D, scale, s);
   if (dtype == kFloat32)
     return split3_head_dim(D, [&](auto hd) {
       return launch_fwd_split3<decltype(hd)::value>(q, k, v, o, lse_f, B, H,
@@ -3899,6 +4787,9 @@ int flash_attention_dq(const void* q, const void* k, const void* v,
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<const float*>(lse);
   auto* dl = static_cast<const float*>(delta);
+  if (dtype == kFloat32 && shares3_takes(D))
+    return launch_dq_shares3(q, k, v, dout, l, dl, dq, B, H, L, S, D, scale,
+                             s);
   if (dtype == kFloat32)
     return split3_head_dim(D, [&](auto hd) {
       return launch_dq_split3<decltype(hd)::value>(q, k, v, dout, l, dl, dq, B,
@@ -3933,6 +4824,9 @@ int flash_attention_dkv(const void* q, const void* k, const void* v,
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<const float*>(lse);
   auto* dl = static_cast<const float*>(delta);
+  if (dtype == kFloat32 && shares3_takes(D))
+    return launch_dkv_shares3(q, k, v, dout, l, dl, dk, dv, B, H, L, S, D,
+                              scale, s);
   if (dtype == kFloat32)
     return split3_head_dim(D, [&](auto hd) {
       return launch_dkv_split3<decltype(hd)::value>(q, k, v, dout, l, dl, dk,
@@ -3962,11 +4856,14 @@ int flash_attention_dkv(const void* q, const void* k, const void* v,
 
 // how many clusters of the kernel `kernel` (0 forward, 1 dq, 2 dk/dv) of
 // element type `dtype` at head dim D the card can hold at once, into *n:
-// float32 at 128 .. 2048 (clusters of D / 128 blocks, one at 128), bfloat16
+// float32 at 128 .. 2048 (clusters of D / 128 blocks, one at 128) and at
+// 2176 and 2304 (twelve blocks of 192-column shares), bfloat16
 // and float16 at 384 .. 4096 (clusters of ceil(D / 256) blocks, 2 to 16);
 // returns a cudaError_t value (another kernel, type or D:
 // cudaErrorInvalidValue)
 int flash_attention_max_clusters(int kernel, int D, int dtype, int* n) {
+  if (dtype == kFloat32 && shares3_takes(D))
+    return max_clusters_shares3(kernel, D, n);
   if (dtype == kFloat32)
     return split3_head_dim(D, [&](auto hd) {
       return max_clusters_split3<decltype(hd)::value>(kernel, D, n);

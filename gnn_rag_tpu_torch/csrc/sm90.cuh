@@ -303,6 +303,16 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
       : "l"(a), "l"(b), "r"(accumulate))
 
+#define SM90_WGMMA_M64N16K16_SS(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7" \
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+        "+f"(d[6]), "+f"(d[7]) \
+      : "l"(a), "l"(b), "r"(accumulate))
+
 #define SM90_WGMMA_M64N128K16_RS(TY) \
   asm volatile( \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
@@ -371,6 +381,17 @@ __device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t a,
     SM90_WGMMA_M64N32K16_SS("f16");
   else
     SM90_WGMMA_M64N32K16_SS("bf16");
+}
+
+// d (+)= A B for a 64 x 16 tile, depth 16; A and B from shared memory,
+// both K-major
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_m64n16k16_ss(float (&d)[8], uint64_t a,
+                                                  uint64_t b, int accumulate) {
+  if constexpr (is_f16<T>)
+    SM90_WGMMA_M64N16K16_SS("f16");
+  else
+    SM90_WGMMA_M64N16K16_SS("bf16");
 }
 
 // d (+)= A B, both operands K-major from shared memory, depth 16, for the

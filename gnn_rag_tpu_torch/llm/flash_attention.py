@@ -23,23 +23,29 @@ the store). float32 inputs run all three kernels on the tensor cores too,
 each float as three bf16 terms and each product as six bf16 products
 (within ~2^-23 of it: the TPU's float32 dots at Precision.HIGHEST do the
 same); all sums are float. The kernels take head dim D a multiple of
-128, up to 2048 in float32 and up to 4096 in bfloat16 and float16
+128, up to 2304 in float32 and up to 4096 in bfloat16 and float16
 (``HEAD_DIMS``): the 16-bit ones from 384 split the depth over a cluster
 of NB = ceil(D / 256) blocks, each on a share of whole 64-column boxes of
 at most 256 columns, the shares differing by at most one box
 (``cluster16_shares``: 2 x 192 at 384, 256 + 192 + 192 at 640, 7 x 256 +
-2 x 192 at 2176, 16 x 256 at 4096); the float32 ones from 256 over a
-cluster of D / 128 blocks, each on 128 columns. Both stop at Hopper's
-largest cluster, 16 blocks (past 8 its non-portable sizes). A cluster's
+2 x 192 at 2176, 16 x 256 at 4096); the float32 ones from 256 to 2048
+over a cluster of D / 128 blocks, each on 128 columns, and at 2176 and
+2304 over twelve blocks on shares of whole boxes of at most 192 columns
+(``split3_shares``: 10 x 192 + 2 x 128 at 2176, 12 x 192 at 2304). All
+stop at Hopper's largest cluster, 16 blocks (past 8 its non-portable
+sizes). A cluster's
 partial scores are added once (two blocks) or in rank order (three to
 sixteen, every block adding the same operands in the same order, so that
 all hold the same bits). The scale 1/sqrt(D) is exact at 128 and 256
 (1/16 there); elsewhere it is the float nearest it, as in the JAX
 kernels. Any L and S (a ragged last tile is masked in the kernel; the JAX
 wrapper pads L to 128 instead). The JAX model sends every D % 128 == 0 in
-any type to its Pallas kernels: float32 past 2048 (more than sixteen
-128-column blocks) and 16-bit head dims past 4096 are not ported yet and
-raise here.
+any type to its Pallas kernels, but their block specs hold whole ``[128,
+D]`` rows in the TPU's scoped memory (k, v, q and dO double-buffered and
+two float scratch blocks, about 14 x 512 x D bytes in float32 against
+16 MB: about 2,304 is their float32 ceiling, an estimate from the code);
+float32 past 2304 and 16-bit head dims past 4096 raise here, and
+``llm.model.flash_applies`` sends them to plain attention.
 
 Dispatch: CPU tensors take the plain versions (``flash_fwd_plain``,
 ``flash_dq_plain``, ``flash_dkv_plain``: dense attention and the
@@ -62,10 +68,10 @@ from ..utils import build as _build
 NEG_INF = -1e30
 # the head dims the kernels take, by input type (any other shape or type
 # raises; ``llm.model.flash_applies`` sends those to plain attention):
-# float32 in clusters of up to sixteen 128-column blocks, bfloat16 and
-# float16 from 384 in clusters of two to sixteen blocks of up to 256
-# columns
-HEAD_DIMS = {torch.float32: tuple(range(128, 2049, 128)),
+# float32 in clusters of up to sixteen 128-column blocks, and at 2176 and
+# 2304 of twelve blocks of up to 192 columns; bfloat16 and float16 from
+# 384 in clusters of two to sixteen blocks of up to 256 columns
+HEAD_DIMS = {torch.float32: tuple(range(128, 2305, 128)),
              **dict.fromkeys((torch.bfloat16, torch.float16),
                              tuple(range(128, 4097, 128)))}
 # the C entry points' element type code
@@ -79,6 +85,16 @@ def cluster16_shares(D):
     the shares differing by at most one box, the wider first
     (``share16_units`` in ``csrc/flash_attention.cu``)."""
     boxes, nb = D // 64, -(-D // 256)
+    return [64 * (boxes // nb + (r < boxes % nb)) for r in range(nb)]
+
+
+def split3_shares(D):
+    """The columns of each block of a float32 cluster on shares of at most
+    192 columns at head dim D (the kernels' plan at 2176 and 2304), rank by
+    rank: D / 64 boxes over ceil(D / 192) blocks, the shares differing by
+    at most one box, the wider first (``share3_units`` in
+    ``csrc/flash_attention.cu``)."""
+    boxes, nb = D // 64, -(-D // 192)
     return [64 * (boxes // nb + (r < boxes % nb)) for r in range(nb)]
 
 
@@ -187,7 +203,7 @@ def _check(q, k, v, *more):
     B, L, H, D = q.shape
     if D not in HEAD_DIMS.get(q.dtype, ()):
         raise ValueError(f"flash_attention: the kernels take head dim 128, "
-                         f"256, .. (a multiple of 128) up to 2048 in "
+                         f"256, .. (a multiple of 128) up to 2304 in "
                          f"float32 and up to 4096 in bfloat16 or float16, "
                          f"got {tuple(q.shape)} {q.dtype}")
     S = k.shape[1]
@@ -226,7 +242,8 @@ def max_active_clusters(kind, D, dtype=torch.float32):
     """How many clusters of the kernel ``kind`` ("fwd", "dq" or "dkv") of
     ``dtype`` at head dim ``D`` the current card holds at once
     (cudaOccupancyMaxActiveClusters): float32 at any of its ``HEAD_DIMS``
-    (clusters of D / 128 blocks, one block at 128), bfloat16 and float16 at
+    (clusters of D / 128 blocks, one block at 128; ceil(D / 192) at 2176 and
+    2304), bfloat16 and float16 at
     384 to 4096 (clusters of ceil(D / 256) blocks, two to sixteen); 0 means
     it cannot launch one. Raises on another kind, type or D."""
     lib = _load()

@@ -63,6 +63,15 @@ phase of ``--phases`` (default all three):
   bf16 and float16 at 4096 at B8 L2047 H1 (the step-time-llm-d4096 step's:
   sixteen), timed as the float32 rows, in a tree whose kernels take them,
   and the ``sass`` digests;
+- ``shares3``: float32 at head dim 2048 at B2 L2047 H2 (the
+  step-time-llm-d2048-fp32 step's attention) and at 2304 at B2 L2047 H1
+  (the step-time-llm-d2304-fp32 step's: twelve blocks of 192-column
+  shares), timed as the float32 rows, in a tree whose kernels take them,
+  and the ``sass`` digests. To time the 192-column-share kernels at 2048
+  (eleven blocks: ten of 192 columns, one of 128) against the sixteen
+  128-column blocks that run it, copy this tree under ``build/``, set
+  ``SHARES3_MIN_HD`` to 2048 in the copy's ``csrc/flash_attention.cu``
+  (``sed``) and give both trees;
 - ``steps``: the headline ReaRev configuration (chip_smoke's
   ``HEADLINE_FLAGS``, random weights) on one B8 batch of a 64-question
   SynthQSP split made once for both trees: ms a train step
@@ -88,7 +97,7 @@ import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-PHASES = ("flash", "gate", "steps", "wide16", "clusters16")
+PHASES = ("flash", "gate", "steps", "wide16", "clusters16", "shares3")
 SHAPE = (8, 2047, 32, 128)         # B, L, H, D of the SFT step's attention
 # bf16 at head dim 256: the Gemma-2B-width SFT step's attention (B2) and B8
 D256_SHAPES = ((2, 2047, 8, 256), (8, 2047, 8, 256))
@@ -115,6 +124,9 @@ CLUSTERS16_SHAPES = (*(((2, 2047, 4, d), "float32")
                      ((2, 2047, 2, 2048), "float32"),
                      ((8, 2047, 1, 4096), "bfloat16"),
                      ((8, 2047, 1, 4096), "float16"))
+# float32 at head dims 2048 (the step-time-llm-d2048-fp32 step's attention,
+# B2 L2047 H2) and 2304 (the step-time-llm-d2304-fp32 step's, H1)
+SHARES3_SHAPES = ((2, 2047, 2, 2048), (2, 2047, 1, 2304))
 # the float32 kernels at head dim 128 over the blocks of that shape: B2
 # L2047 H16 gives as many blocks as the head-dim-256 row's pairs, each of
 # the same work (128 columns), without the exchange between the two
@@ -226,6 +238,16 @@ def measure(tree, phases, data):
                 else "not taken by this tree's kernels")
             for shape, dtype in CLUSTERS16_SHAPES}
         out["sass"] = sass_digests(fa.build())
+    if "shares3" in phases:
+        from gnn_rag_tpu_torch.llm import flash_attention as fa
+        out["flash_shares3"] = {
+            f"D{shape[3]}": (
+                measure_flash(smoke, device, "float32",
+                              FLASH_TIMING["float32"], shape)
+                if shape[3] in fa.HEAD_DIMS[torch.float32]
+                else "not taken by this tree's kernels")
+            for shape in SHARES3_SHAPES}
+        out["sass"] = sass_digests(fa.build())
     if "gate" in phases:
         out["gate_scatter"] = measure_gate(smoke, device)
     if "steps" in phases:
@@ -255,7 +277,7 @@ def sass_digests(lib):
     for line in sass.splitlines():
         if "Function :" in line:
             m = re.search(r"(flash_(?:fwd|dq|dkv)_"
-                          r"(?:sm90|split3|pair|cluster)_kernel)"
+                          r"(?:sm90|split3|pair|cluster|shares3)_kernel)"
                           r"(?:I(?:13__nv_bfloat16|(6__half))?Li(\d+)E)?",
                           line)
             name = (f"{m.group(1)}<{'__half,' if m.group(2) else ''}"

@@ -16,7 +16,7 @@ copies kernels without a transpose.
 
 Attention takes the flash kernels (``llm.flash_attention``) only where they
 apply (``flash_applies``): ``use_flash``, CUDA tensors, no kv cache, no
-``kv_valid``, head dim a multiple of 128 up to 2048 in float32 and up to
+``kv_valid``, head dim a multiple of 128 up to 2304 in float32 and up to
 4096 in bfloat16 or float16 (``flash_attention.HEAD_DIMS``). Everything
 else (the JAX model's Pallas rule also takes every larger multiple of 128
 in any type, gnn_rag_tpu/llm_tpu/model.py:199-200) goes through the plain
@@ -119,12 +119,12 @@ def flash_applies(use_flash: bool, head_dim: int, dtype: torch.dtype,
                   device_type: str, cached: bool, masked: bool) -> bool:
     """Whether attention over q of ``head_dim``, ``dtype`` on
     ``device_type`` runs the flash kernels: the kernels take head dim 128,
-    256, .. (a multiple of 128) up to 2048 in float32 and up to 4096 in
+    256, .. (a multiple of 128) up to 2304 in float32 and up to 4096 in
     bfloat16 or float16 on the card (``flash_attention.HEAD_DIMS``; past
     256 in clusters of up to sixteen blocks that split the depth), and
     neither a kv cache (``cached``) nor ``kv_valid`` (``masked``); float32
-    past 2048 and 16-bit head dims past 4096 run
-    ``reference_attention``."""
+    past 2304 and 16-bit head dims past 4096 (past the JAX kernels' own
+    estimated ceilings) run ``reference_attention``."""
     return (use_flash and not cached and not masked and device_type == "cuda"
             and head_dim in _fa.HEAD_DIMS.get(dtype, ()))
 

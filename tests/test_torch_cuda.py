@@ -4,9 +4,10 @@ backward and scatter_mm (alone, at widths a block holds only in column
 windows, and in a ReaRev training step under GNN_RAG_GATE_SCATTER=v2),
 and the flash-attention forward, dq and dk/dv
 kernels (alone, through autograd, and in a LlamaLM; at head dims 128,
-256, .., 1024 in float32 and to 2048 in bf16 and float16), and the flash
-kernels' clusters accepted by the card (float32: one to eight blocks,
-D / 128; bf16 and float16 from 384: two to eight, ceil(D / 256)).
+256, .., 2304 in float32 and to 4096 in bf16 and float16), and the flash
+kernels' clusters accepted by the card (float32: one to sixteen blocks,
+D / 128, and twelve of 192-column shares at 2176 and 2304; bf16 and
+float16 from 384: two to sixteen, ceil(D / 256)).
 
 Every test here needs an NVIDIA GPU (and nvcc for the first build) and skips
 without one. The file imports no JAX, so it runs on a machine without it:
@@ -35,10 +36,15 @@ from fp32, logits and every gradient.
 """
 
 import math
+import os
 
 import numpy as np
 import pytest
-import torch
+
+# cuBLAS repeats its sums bit for bit under torch.use_deterministic_algorithms
+# only with this workspace setting, read before its first call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+import torch  # noqa: E402
 
 from gnn_rag_tpu_torch.config import Config, DataConfig, ModelConfig
 from gnn_rag_tpu_torch.data.batch import GraphBatch
@@ -677,7 +683,10 @@ def test_rearev_v2_train_step_grads_kernel_vs_plain(cuda, monkeypatch):
     fused kernels 2 x num_iter x num_gnn = 18 times each (TypeLayer still one
     gate-scatter launch); every gradient, rel_linear's included, agrees
     with the plain versions as in the v4 test above, and the answer
-    distribution with v4's."""
+    distribution with v4's. The plain gradients, the yardstick, are taken
+    under torch.use_deterministic_algorithms: the plain versions' float
+    atomics (index_add_) change their last bits from run to run (by up to
+    ~3e-11 on an H100; the kernels' own path repeats bit for bit there)."""
     monkeypatch.setenv("GNN_RAG_GATE_SCATTER", "v2")
     model, batch, rel = model_batch(cuda, "float32")
 
@@ -699,7 +708,11 @@ def test_rearev_v2_train_step_grads_kernel_vs_plain(cuda, monkeypatch):
     for name in ("fused_gate_scatter_fwd", "fused_gate_scatter_bwd",
                  "gate_scatter_fwd", "gate_scatter_bwd"):
         monkeypatch.setattr(gs, name, getattr(gs, name + "_plain"))
-    want = grads()
+    torch.use_deterministic_algorithms(True)
+    try:
+        want = grads()
+    finally:
+        torch.use_deterministic_algorithms(False)
     for name, w in want.items():
         if name in ("reasoning.score_func.bias",
                     "instruction_decoder.ca_linear.bias"):
@@ -945,6 +958,20 @@ def test_flash_d2048_fp32_kernels_match_plain(cuda, B, L, H, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [2176, 2304])
+@pytest.mark.parametrize("B,L,H", [
+    # float32 at head dims 2176 and 2304 (twelve blocks of 192-column
+    # shares, ten of 192 and two of 128 at 2176): one row, one row past the
+    # forward's 32-key and the backward's 16-row tiles, one past a 64-row
+    # block, chip_smoke's [kernel-attn] ragged row, the SFT length at one
+    # head
+    (1, 1, 1), (1, 17, 2), (1, 65, 2), (3, 77, 2), (2, 1000, 1),
+    (1, 2047, 1)])
+def test_flash_d2304_fp32_kernels_match_plain(cuda, B, L, H, D):
+    flash_vs_plain(cuda, B, L, H, D, torch.float32)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("D", [2176, 2304, 2432, 2688, 2944, 3200, 3456,
                                3712, 3968, 4096])
@@ -963,20 +990,21 @@ def test_flash_d4096_16bit_kernels_match_plain(cuda, B, L, H, D, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
 @pytest.mark.parametrize("D,dtype", [
-    *((d, torch.float32) for d in range(128, 2049, 128)),
+    *((d, torch.float32) for d in range(128, 2305, 128)),
     *((d, t) for t in (torch.bfloat16, torch.float16)
       for d in range(384, 4097, 128))])
 def test_flash_fp32_clusters_fit_the_card(cuda, kind, D, dtype):
     """The card holds at least one cluster of each float32 kernel at every
     head dim it takes (128 to 2048: D / 128 blocks of 198-230 KB of shared
-    memory, one an SM: cudaOccupancyMaxActiveClusters; one block at 128)
+    memory, one an SM: cudaOccupancyMaxActiveClusters; one block at 128;
+    2176 and 2304: twelve blocks of 192-column shares, ``split3_shares``)
     and of each bf16 and float16 cluster kernel (384 to 4096: ceil(D / 256)
     blocks, two to sixteen, of up to 230 KB; past eight Hopper's
     non-portable cluster sizes), and at most one a block of SMs of the
     cluster's size; one head dim past each type's last raises."""
     n = fa.max_active_clusters(kind, D, dtype)
-    blocks = (D // 128 if dtype == torch.float32
-              else len(fa.cluster16_shares(D)))
+    blocks = (len(fa.cluster16_shares(D)) if dtype != torch.float32
+              else len(fa.split3_shares(D)) if D > 2048 else D // 128)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert 0 < n <= sms // blocks, n
     with pytest.raises(RuntimeError, match="cluster occupancy"):
@@ -1002,7 +1030,7 @@ def test_flash_autograd_and_checks(cuda):
         fa.flash_fwd(*(torch.zeros(1, 8, 1, 4224, device=cuda,
                                    dtype=torch.bfloat16),) * 3)
     with pytest.raises(ValueError, match="a multiple of 128"):
-        fa.flash_fwd(*(torch.zeros(1, 8, 1, 2176, device=cuda),) * 3)
+        fa.flash_fwd(*(torch.zeros(1, 8, 1, 2432, device=cuda),) * 3)
     x = torch.zeros(1, 8, 1, 128, device=cuda)
     with pytest.raises(ValueError, match="k must be"):
         fa.flash_fwd(x, x.half(), x)
@@ -1217,12 +1245,14 @@ def test_llama_d512_fp32_flash_vs_plain_attention(cuda, head_dim, n_heads):
 @pytest.mark.cuda
 @pytest.mark.parametrize("head_dim,dtype", [(4224, "float16"),
                                             (4224, "bfloat16"),
-                                            (2176, "float32")])
+                                            (2432, "float32")])
 def test_llama_shapes_the_kernels_refuse_run_reference_attention(
         cuda, head_dim, dtype):
     """A LlamaLM whose attention the flash kernels do not take (head dim
-    4224 in 16 bits, 2176 in float32: past a cluster of sixteen blocks,
-    Hopper's largest) runs on the card with no flash launch, through
+    4224 in 16 bits: past a cluster of sixteen blocks of 256 columns,
+    Hopper's largest; 2432 in float32: past twelve of 192, the JAX
+    kernels' own float32 ceiling, about 2,304) runs on the card with no
+    flash launch, through
     reference_attention: its logits equal the same model's with
     use_flash=False."""
     cfg = LlamaConfig(vocab_size=300, dim=2 * head_dim, n_layers=2, n_heads=2,

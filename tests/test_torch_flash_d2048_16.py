@@ -36,9 +36,10 @@ chip_smoke.attn_err):
   rank-order sum within D 2^-24 of the sum of its terms' sizes of the
   float64 product, and unequal on some element to the reverse order's sum;
 * ``flash_applies`` and ``HEAD_DIMS``: 16-bit heads to 2048 on the card
-  (and on to 4096, tests/test_torch_flash_d4096.py), float32 to 2048,
-  neither past a cluster of sixteen blocks (16-bit 4224, float32 2176),
-  nothing on the CPU;
+  (and on to 4096, tests/test_torch_flash_d4096.py), float32 to 2048
+  (and on to 2304, tests/test_torch_flash_d2304.py), neither at the first
+  head dim the kernels refuse (16-bit 4224, past sixteen blocks of 256
+  columns; float32 2432, past twelve of 192), nothing on the CPU;
 * LlamaLM at head dim 2048 (dim 2048, one head and one kv head, 1 layer):
   logits bfloat16 2e-2 and float16 5e-3 of max|logit| (head dim 1024's);
 * three bfloat16 SFT steps: each loss to ``LOSS_RTOL`` and every parameter
@@ -205,7 +206,7 @@ def test_cluster_scores_sum_in_rank_order_d2048(D):
     (1152, torch.float32, "cuda", True),      # clusters of nine to sixteen
     (4224, torch.bfloat16, "cuda", False),    # past a cluster of sixteen
     (4224, torch.float16, "cuda", False),
-    (2176, torch.float32, "cuda", False),
+    (2432, torch.float32, "cuda", False),
     (2048, torch.bfloat16, "cpu", False)])
 def test_flash_rule_takes_16bit_to_head_dim_2048(head_dim, dtype, device,
                                                  want):
