@@ -776,9 +776,10 @@ def log(phase, msg):
     print(f"chip_smoke [{phase}] {msg}", flush=True)
 
 
-def median_ms(fn, runs=20, reps=10, warmup=3):
+def median_ms(fn, runs=20, reps=10, warmup=3, out=None):
     """Median over ``runs`` of the device time per call, each run timing
-    ``reps`` back-to-back calls between two CUDA events."""
+    ``reps`` back-to-back calls between two CUDA events (each run's time a
+    call appended to the list ``out``, where one is given)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -792,6 +793,8 @@ def median_ms(fn, runs=20, reps=10, warmup=3):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
+    if out is not None:
+        out.extend(times)
     return sorted(times)[len(times) // 2]
 
 
@@ -4719,6 +4722,18 @@ def build_all():
                     f"{json.dumps(shares)}; clusters at once by head dim, "
                     f"ptxas registers, spill and stack bytes): "
                     f"{json.dumps(wide16)}")
+                # the kernels whose cluster exchange is a reduce-scatter
+                # (reduce_scatter_partials)
+                rs = {f"{k}<{t}>": next(
+                    v for n, v in props.items() if f"{k}I{m}" in n)
+                    for k, t, m in (
+                        ("flash_fwd_cluster_kernel", "bfloat16, 256",
+                         "13__nv_bfloat16Li256E"),
+                        ("flash_fwd_cluster_kernel", "float16, 256",
+                         "6__halfLi256E"),
+                        ("flash_dq_split3_kernel", "0", "Li0E"))}
+                log("build", f"reduce-scatter exchange kernels (ptxas "
+                    f"registers, spill and stack bytes): {json.dumps(rs)}")
                 # Hopper's non-portable cluster sizes, 9 to 16 blocks: each
                 # kernel's clusters at once at the first head dim of each
                 # size (float32 D = 128 NB; 16 bits the first D of

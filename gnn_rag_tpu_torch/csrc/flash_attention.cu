@@ -96,7 +96,12 @@
 //   blocks) the sum runs rank by rank in a loop that is not unrolled, one
 //   rank's loads in flight at a time (unrolled, seven peers' would be in
 //   flight at 1024, and spill); the mbarriers count (NB - 1) x 128
-//   arrivals, 1,920 at 16 blocks. Shared memory, the same at every head dim
+//   arrivals, 1,920 at 16 blocks. dq <SPLIT3_ANY> instead adds them as a
+//   reduce-scatter (reduce_scatter_partials): each block sums one slice of
+//   the groups from all NB slots in the same rank order, in place, and
+//   every block reads each group back from its owner, so the sums keep
+//   their bits and the remote reads fall from (NB - 1) x 16 KB to 2 (NB -
+//   1) / NB x 16 KB an exchange. Shared memory, the same at every head dim
 //   past 128: the forward's 197,664 bytes + two exchanges (16 KB each,
 //   one a consumer) = 230,464; dq 197,664 + 16,400 = 214,064; dk/dv
 //   198,176 + 16,400 = 214,576. The exchange costs per tile: forward 16 KB
@@ -188,7 +193,8 @@
 //   NB partials through the same consumer's Exchange in every block, as the
 //   float32 clusters do: a pair sends its partial to the peer and adds the
 //   peer's (IEEE addition commutes), three to sixteen blocks add all NB in
-//   rank order, rank by rank (add_cluster_partials_n, NB a launch
+//   rank order, rank by rank (add_cluster_partials_n; the forward as a
+//   reduce-scatter of the same sums, reduce_scatter_partials; NB a launch
 //   argument: one instance of each cluster kernel per type serves every
 //   head dim from 640 to 4096, each block running the body for its own
 //   share, three or four boxes, a template on it). So every block holds the
@@ -1510,6 +1516,165 @@ __device__ __forceinline__ void drain_exchange(Xc* xc, int n) {
   if (n > 0) sm90::mbar_wait_cluster(&xc->empty, (n - 1) & 1);
 }
 
+// ----- the reduce-scatter exchange: the 16-bit cluster forward (640 to
+// 4096, three to sixteen blocks) and the float32 dq <SPLIT3_ANY> (640 to
+// 2048, five to sixteen)
+// add_cluster_partials_n has every block read every peer's whole slot and
+// add all NB: (NB - 1) x 16 KB of remote reads a warpgroup an exchange
+// (240 KB at sixteen blocks) and 2 (NB - 1) x 128 remote arrivals, every
+// block computing the same sum. Here the exchange's XCHG_GROUPS float4
+// groups (float4 i of thread tid is group i WG + tid) are cut into NB
+// contiguous slices, block r owning slice r (xchg_slice0):
+// (1) each thread writes its partial into its block's own slot, as there;
+//     each warp arrives on full in every block of the cluster, its own too;
+// (2) each block adds its slice's groups from the NB slots in rank order,
+//     ((p0 + p1) + p2) + .., as sum_cluster_slots does, and writes the sums
+//     in place into slice r of its own slot (in this round no block reads
+//     that slice of it); each warp arrives on sum_full in every block;
+// (3) each thread reads its 8 groups back, each from the slot of the block
+//     that owns it (xchg_owner), all 8 loads in flight; each warp arrives
+//     on empty in every block, which then may take the next partial.
+// Every element is summed once, by its owner, from the same operands in
+// the same order, so every block holds the bits that add_cluster_partials_n
+// gives. Remote reads a warpgroup an exchange: 2 (NB - 1) / NB x 16 KB, 30
+// KB at sixteen blocks; remote arrivals 3 x 4 (NB - 1). One arrival a
+// warp: __syncwarp orders the warp's accesses before those of lane r,
+// which then arrives on block r's barrier with release at cluster scope
+// (cumulative: it covers what the lane has observed), and each barrier
+// counts the NB x 4 warps of the cluster. Measured against
+// add_cluster_partials_n, it is faster at every cluster size the two
+// kernels run, three blocks included, so neither keeps the all-gather.
+struct ExchangeRS : Exchange {
+  uint64_t sum_full;   // every block's slice holds its sums
+};
+constexpr int XCHG_GROUPS = 8 * WG;   // an Exchange's float4 groups
+
+// the first group of block r's slice in a cluster of nb blocks (r = nb:
+// the end): XCHG_GROUPS / nb groups, rounded down or up
+__host__ __device__ constexpr int xchg_slice0(int nb, int r) {
+  return r * XCHG_GROUPS / nb;
+}
+// the block whose slice holds group g
+__host__ __device__ constexpr int xchg_owner(int nb, int g) {
+  return ((g + 1) * nb - 1) / XCHG_GROUPS;
+}
+// in every cluster of 3 to 16 blocks: the slices one after another from
+// group 0 to XCHG_GROUPS, their sizes differing by at most one group, and
+// each group's owner the one block whose slice holds it
+constexpr bool xchg_slices_cover() {
+  for (int nb = 3; nb <= 16; ++nb) {
+    if (xchg_slice0(nb, 0) != 0 || xchg_slice0(nb, nb) != XCHG_GROUPS)
+      return false;
+    for (int r = 0; r < nb; ++r) {
+      const int n = xchg_slice0(nb, r + 1) - xchg_slice0(nb, r);
+      if (n != XCHG_GROUPS / nb && n != XCHG_GROUPS / nb + 1) return false;
+    }
+    for (int g = 0; g < XCHG_GROUPS; ++g) {
+      const int r = xchg_owner(nb, g);
+      if (r < 0 || r >= nb || g < xchg_slice0(nb, r) ||
+          g >= xchg_slice0(nb, r + 1))
+        return false;
+    }
+  }
+  return true;
+}
+static_assert(xchg_slices_cover(),
+              "each float4 group of an exchange in one block's slice");
+
+// full, sum_full and empty: one arrival a warp of the cluster's nb blocks
+__device__ __forceinline__ void init_exchange_rs(ExchangeRS* x, int nb) {
+  const uint32_t n = nb * (WG / 32);
+  sm90::mbar_init(&x->full, n);
+  sm90::mbar_init(&x->sum_full, n);
+  sm90::mbar_init(&x->empty, n);
+}
+
+// this warp's one arrival on `bar` in every block of a cluster of nb, its
+// own too: lane r arrives on block r's, after the warp's earlier accesses
+__device__ __forceinline__ void warp_arrive_cluster(uint64_t* bar, int nb) {
+  const int lane = threadIdx.x % 32;
+  __syncwarp();
+  if (lane < nb) sm90::mbar_arrive_cluster(sm90::map_peer(bar, lane));
+}
+
+// this block's slice of the exchange becomes, in place in its own slot,
+// the rank-order sums ((p0 + p1) + p2) + .. of the nb blocks' slots: a
+// thread's groups (the slice spread over the warpgroup) with K ranks'
+// loads in flight
+template <int K>
+__device__ __forceinline__ void reduce_slice(ExchangeRS* xc, int nb,
+                                             uint32_t rank, int tid) {
+  float* const own = reinterpret_cast<float*>(xc->part);
+  const int end = xchg_slice0(nb, rank + 1);
+  for (int g = xchg_slice0(nb, rank) + tid; g < end; g += WG) {
+    float sum[4];
+#pragma unroll 1
+    for (int r0 = 0; r0 < nb; r0 += K) {
+      float y[K][4];
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        if (r0 + j < nb) {
+          const float4 t =
+              sm90::ld_cluster(sm90::map_peer(own + 4 * g, r0 + j));
+          y[j][0] = t.x;
+          y[j][1] = t.y;
+          y[j][2] = t.z;
+          y[j][3] = t.w;
+        }
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          if (r0 + j == 0)
+            sum[w] = y[j][w];
+          else if (r0 + j < nb)
+            sum[w] = sum[w] + y[j][w];
+        }
+    }
+    *reinterpret_cast<float4*>(own + 4 * g) =
+        make_float4(sum[0], sum[1], sum[2], sum[3]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void take_sums(float (&x)[N], const float4 (&y)[8],
+                                          int& i) {
+#pragma unroll
+  for (int n = 0; n < N; n += 4, ++i) {
+    x[n] = y[i].x;
+    x[n + 1] = y[i].y;
+    x[n + 2] = y[i].z;
+    x[n + 3] = y[i].w;
+  }
+}
+
+// exchange e (0, 1, ..) of this warpgroup's partials `parts` (32 floats a
+// thread in all) as a reduce-scatter, then an all-gather, in the slots of
+// the cluster's nb blocks (above), the reduce with K ranks' loads in flight
+template <int K, typename... Parts>
+__device__ __forceinline__ void reduce_scatter_partials(ExchangeRS* xc,
+                                                        int nb, uint32_t rank,
+                                                        int tid, int e,
+                                                        Parts&... parts) {
+  const uint32_t parity = e & 1;
+  sm90::mbar_wait_cluster(&xc->empty, parity ^ 1);   // all read e - 1
+  int i = 0;
+  (keep_partial(parts, xc, tid, i), ...);
+  warp_arrive_cluster(&xc->full, nb);
+  sm90::mbar_wait_cluster(&xc->full, parity);        // every block's e
+  reduce_slice<K>(xc, nb, rank, tid);
+  warp_arrive_cluster(&xc->sum_full, nb);
+  sm90::mbar_wait_cluster(&xc->sum_full, parity);    // every slice's sums
+  float4 y[8];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+    y[n] = sm90::ld_cluster(sm90::map_peer(
+        &xc->part[n][tid], xchg_owner(nb, n * WG + tid)));
+  i = 0;
+  (take_sums(parts, y, i), ...);
+  warp_arrive_cluster(&xc->empty, nb);
+}
+
 struct Fwd3Bars {
   uint64_t k_full, v_full, k_empty, v_empty;
 };
@@ -1947,10 +2112,13 @@ constexpr int Q3_KEYS = D3_ROWS;    // keys per streamed tile
 constexpr size_t kDq3Smem = 1024 + 2 * TERMS * QTILE_BYTES +
                             2 * D3_STAGES * TERMS * D3_TILE +
                             sizeof(Ring3Bars);
-// + the consumer's exchange at head dims 256 to 2048 (214,064 bytes)
+// + the consumer's exchange at head dims 256 to 2048 (214,064 bytes; at
+// <SPLIT3_ANY> an ExchangeRS, 214,080)
 template <int HD>
 constexpr size_t dq3_smem() {
-  return kDq3Smem + (HD == D ? 0 : sizeof(Exchange));
+  return kDq3Smem + (HD == D            ? 0
+                     : HD == SPLIT3_ANY ? sizeof(ExchangeRS)
+                                        : sizeof(Exchange));
 }
 static_assert(dq3_smem<4 * D>() <= MAX_SMEM, "float32 dq at HD 512");
 
@@ -1986,7 +2154,8 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
   unsigned char* const Ks = Gs + TERMS * QTILE_BYTES;          // [stage][term]
   unsigned char* const Vs = Ks + D3_STAGES * TERMS * D3_TILE;  // [stage][term]
   auto* bars = reinterpret_cast<Ring3Bars*>(Vs + D3_STAGES * TERMS * D3_TILE);
-  auto* xch = reinterpret_cast<Exchange*>(bars + 1);           // NB > 1
+  using Xc = std::conditional_t<HD == SPLIT3_ANY, ExchangeRS, Exchange>;
+  auto* xch = reinterpret_cast<Xc*>(bars + 1);                 // NB > 1
   const uint32_t rank = kCluster ? sm90::cluster_ctarank() : 0;
   const int nb = split3_blocks<HD>();
   const int col0 = D * rank;                 // this block's columns
@@ -2002,7 +2171,10 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
       sm90::mbar_init(&bars->full[st], WG);           // converter threads
       sm90::mbar_init(&bars->empty[st], WG / 32);     // consumer warps
     }
-    if constexpr (kCluster) init_exchange(xch, nb - 1);
+    if constexpr (HD == SPLIT3_ANY)
+      init_exchange_rs(xch, nb);
+    else if constexpr (kCluster)
+      init_exchange(xch, nb - 1);
     sm90::fence_barrier_init();
   }
   __syncthreads();
@@ -2078,8 +2250,8 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
     if constexpr (kPair)
       add_peer_partials(xch, rank ^ 1, tid, j, s, dp);
     else if constexpr (HD == SPLIT3_ANY)
-      add_cluster_partials_n(xch, sm90::cluster_nctarank(), rank, tid, j, s,
-                             dp);
+      reduce_scatter_partials<8>(xch, sm90::cluster_nctarank(), rank, tid, j,
+                                 s, dp);
     else if constexpr (NB > 2)
       add_cluster_partials<NB>(xch, rank, tid, j, s, dp);
 
@@ -2147,15 +2319,17 @@ __host__ __device__ constexpr int cluster16_blocks(int hd) {
 constexpr int PAIR_FWD_KEYS = 64;   // keys per K or V tile
 constexpr int PAIR_DQ_KEYS = 32;
 // 128 rows of Q (and of dO in dq) resident, KEYS-key K and V tiles through
-// FWD_STAGES stages, an exchange a consumer, for blocks of C columns: at C
-// 256 230,488 bytes for both
-template <int C, int KEYS, int RESIDENT>
+// FWD_STAGES stages, an exchange (Xc) a consumer, for blocks of C columns:
+// at C 256 230,488 bytes for both (the cluster forward's ExchangeRS:
+// 230,520)
+template <int C, int KEYS, int RESIDENT, typename Xc = Exchange>
 constexpr size_t cluster16_q_smem() {
   return 1024 +
          static_cast<size_t>(RESIDENT * 128 + 2 * FWD_STAGES * KEYS) * C * 2 +
-         2 * sizeof(Exchange) + sizeof(FwdBars);
+         2 * sizeof(Xc) + sizeof(FwdBars);
 }
-static_assert(cluster16_q_smem<256, PAIR_FWD_KEYS, 1>() <= MAX_SMEM,
+static_assert(cluster16_q_smem<256, PAIR_FWD_KEYS, 1, ExchangeRS>() <=
+                  MAX_SMEM,
               "forward at C 256");
 static_assert(cluster16_q_smem<256, PAIR_DQ_KEYS, 2>() <= MAX_SMEM,
               "dq at C 256");
@@ -2841,7 +3015,8 @@ __device__ __forceinline__ void store_unit_rows(T* dst, int hd, int b, int h,
 
 // the forward of a block of a cluster kernel on its U boxes:
 // flash_fwd_pair_kernel's steps on its 64 U columns, the partial s summed
-// over the cluster's blocks rank by rank
+// over the cluster's blocks in rank order by a reduce-scatter
+// (reduce_scatter_partials)
 template <typename T, int CMAX, int U>
 __device__ __forceinline__ void fwd_cluster_block(
     const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
@@ -2855,7 +3030,7 @@ __device__ __forceinline__ void fwd_cluster_block(
   unsigned char* const Qs = align1024(raw_smem);
   unsigned char* const Ks = Qs + Q_SLOT;                   // [stage]
   unsigned char* const Vs = Ks + FWD_STAGES * KV_SLOT;     // [stage]
-  auto* xch = reinterpret_cast<Exchange*>(Vs + FWD_STAGES * KV_SLOT);
+  auto* xch = reinterpret_cast<ExchangeRS*>(Vs + FWD_STAGES * KV_SLOT);
   auto* bars = reinterpret_cast<FwdBars*>(xch + 2);
   const int nb = cluster16_blocks(hd);
   const int q0 = (gridDim.x / nb - 1 - blockIdx.x / nb) * FWD_ROWS;
@@ -2870,8 +3045,8 @@ __device__ __forceinline__ void fwd_cluster_block(
       sm90::mbar_init(&bars->v_full[st], 1);
       sm90::mbar_init(&bars->empty[st], 2 * WG / 32);   // consumer warps
     }
-    init_exchange(&xch[0], nb - 1);
-    init_exchange(&xch[1], nb - 1);
+    init_exchange_rs(&xch[0], nb);
+    init_exchange_rs(&xch[1], nb);
     sm90::fence_barrier_init();
   }
   __syncthreads();
@@ -2929,8 +3104,10 @@ __device__ __forceinline__ void fwd_cluster_block(
     sm90::wgmma_commit();
     sm90::wgmma_wait();
     sm90::fence_regs(s);
-    add_cluster_partials_n(&xch[cw], sm90::cluster_nctarank(),
-                           sm90::cluster_ctarank(), tid, j, s);
+    // two ranks' loads in flight in the reduce: beside o's 128 floats a
+    // thread, four or eight spilled
+    reduce_scatter_partials<2>(&xch[cw], sm90::cluster_nctarank(),
+                               sm90::cluster_ctarank(), tid, j, s);
 
 #pragma unroll
     for (int i = 0; i < KEYS / 2; ++i) s[i] *= sl2;
@@ -4532,8 +4709,8 @@ int launch_fwd_cluster(const void* q, const void* k, const void* v, void* o,
   return launch_grid(
       flash_fwd_cluster_kernel<T, CLUSTER16_CMAX>, cluster16_blocks(hd),
       (L + FWD_ROWS - 1) / FWD_ROWS, B * H, SM90_THREADS,
-      cluster16_q_smem<CLUSTER16_CMAX, PAIR_FWD_KEYS, 1>(), stream, tq, tk,
-      tv, static_cast<T*>(o), lse, H, L, S, hd, scale);
+      cluster16_q_smem<CLUSTER16_CMAX, PAIR_FWD_KEYS, 1, ExchangeRS>(),
+      stream, tq, tk, tv, static_cast<T*>(o), lse, H, L, S, hd, scale);
 }
 
 template <typename T, int HD>
@@ -4728,9 +4905,9 @@ int max_clusters_cluster16(int kernel, int hd, int* n) {
   constexpr int C = CLUSTER16_CMAX;
   const int nb = cluster16_blocks(hd);
   switch (kernel) {
-    case 0: return max_clusters(flash_fwd_cluster_kernel<T, C>, nb,
-                                SM90_THREADS,
-                                cluster16_q_smem<C, PAIR_FWD_KEYS, 1>(), n);
+    case 0: return max_clusters(
+        flash_fwd_cluster_kernel<T, C>, nb, SM90_THREADS,
+        cluster16_q_smem<C, PAIR_FWD_KEYS, 1, ExchangeRS>(), n);
     case 1: return max_clusters(flash_dq_cluster_kernel<T, C>, nb,
                                 SM90_THREADS,
                                 cluster16_q_smem<C, PAIR_DQ_KEYS, 2>(), n);

@@ -98,6 +98,29 @@ def split3_shares(D):
     return [64 * (boxes // nb + (r < boxes % nb)) for r in range(nb)]
 
 
+# The exchange of the 16-bit cluster forward and the float32 dq from head
+# dim 640 (``reduce_scatter_partials`` in ``csrc/flash_attention.cu``): a
+# warpgroup's 32 floats a thread as float4 groups, float4 i of thread t
+# group 128 i + t, cut into one contiguous slice a block of the cluster;
+# each block adds its slice's groups from every block's partial in rank
+# order and every block reads each group back from its owner
+EXCHANGE_GROUPS = 8 * 128
+
+
+def exchange_slices(nb):
+    """The groups ``[first, end)`` that each block of a cluster of nb
+    blocks sums, rank by rank: EXCHANGE_GROUPS / nb, rounded down or up
+    (``xchg_slice0``)."""
+    return [(r * EXCHANGE_GROUPS // nb, (r + 1) * EXCHANGE_GROUPS // nb)
+            for r in range(nb)]
+
+
+def exchange_owner(nb, g):
+    """The block of a cluster of nb blocks whose slice holds group g
+    (``xchg_owner``)."""
+    return ((g + 1) * nb - 1) // EXCHANGE_GROUPS
+
+
 # launches of the CUDA kernels (plain-version calls are not counted)
 fwd_launches = 0      # flash_fwd
 dq_launches = 0       # flash_dq

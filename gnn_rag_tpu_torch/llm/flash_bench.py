@@ -3,11 +3,13 @@ step of two trees of this repository in turns.
 
     python -m gnn_rag_tpu_torch.llm.flash_bench build/parent .
     python -m gnn_rag_tpu_torch.llm.flash_bench --phases gate build/other .
+    python -m gnn_rag_tpu_torch.llm.flash_bench --phases exchange,clusters16 \
+        --rounds 3 build/parent .
 
 Each tree runs in a child process of its own (its own build of ``csrc/``
 and its own modules), in the order given and then reversed (A B B A), on
-one card. Each child prints one JSON line: the tree, the card, and per
-phase of ``--phases`` (default all three):
+one card, ``--rounds`` times (default once). Each child prints one JSON
+line: the tree, the card, and per phase of ``--phases`` (default all):
 
 - ``flash``: at the SFT step's shape B8 L2047 H32 D128, in bf16, in
   float32 and (in a tree whose kernels take it) in float16, per kernel
@@ -17,11 +19,13 @@ phase of ``--phases`` (default all three):
   cores' peak), its share of the bound and the achieved TFLOP/s, and each
   output's largest ratio to its tolerance against the plain versions (dq,
   dk and dv also from the plain forward's lse and delta, the same inputs
-  in both trees); then head dim 256 at Gemma-2B's 8 heads, in bf16 at B2
-  and B8 L2047 (``D256_SHAPES``) and in float32 at B2 L2047 (the
-  Gemma-2B-width float32 SFT step's shape, ``D256_FP32_SHAPE``), the same
-  way, in a tree whose kernels take it (another tree's row says it does
-  not), beside the float32 kernels at head dim 128 over the same blocks of
+  in both trees) and a digest of each output (o, lse, dq, dk, dv; dq and
+  dk/dv from the kernels' own lse and delta), so that two trees' outputs
+  can be told identical bit for bit; then head dim 256 at Gemma-2B's 8
+  heads, in bf16 at B2 and B8 L2047 (``D256_SHAPES``) and in float32 at
+  B2 L2047 (the Gemma-2B-width float32 SFT step's shape,
+  ``D256_FP32_SHAPE``), the same way, in a tree whose kernels take it
+  (another tree's row says it does not), beside the float32 kernels at head dim 128 over the same blocks of
   the same work (``D128_SAME_BLOCKS``: what the head-dim-256 kernels' pairs
   of blocks cost beyond it), and in float16 at B2 L2047 H8 D256 (the
   float16 Gemma-2B-width SFT step's shape); then head dims 512 and 384 in
@@ -58,11 +62,21 @@ phase of ``--phases`` (default all three):
   digests;
 - ``clusters16``: the kernels in clusters of up to sixteen blocks
   (``CLUSTERS16_SHAPES``): float32 at head dims 640-1024 at B2 L2047 H4
-  (the step-time-llm-d1024-fp32 step's attention: five to eight blocks) and
-  at 2048 at B2 L2047 H2 (the step-time-llm-d2048-fp32 step's: sixteen),
+  (the step-time-llm-d1024-fp32 step's attention: five to eight blocks),
+  at 1152 at B2 L1000 H2 (nine) and at 2048 at B2 L2047 H2 (the
+  step-time-llm-d2048-fp32 step's: sixteen), bf16 at 640 and 1024 at B8
+  L2047 H4 (three and four blocks) and at 2048 at B8 L2047 H2 (eight),
   bf16 and float16 at 4096 at B8 L2047 H1 (the step-time-llm-d4096 step's:
   sixteen), timed as the float32 rows, in a tree whose kernels take them,
-  and the ``sass`` digests;
+  with the outputs' digests, and the ``sass`` digests;
+- ``exchange``: the two kernels whose cluster exchange is a reduce-scatter,
+  at every cluster size they run: the bf16 forward at head dim 256 NB,
+  three to sixteen blocks, at B8 L2047 H1 (the step-time-llm-d4096 step's
+  rows), and the float32 dq at 128 NB, five to sixteen blocks, at B2 L2047
+  H1: the CUDA-event median ms (10 runs of 5 launches; ``ms_runs``, each
+  run's ms a launch, for the spread), the bound and its share, and the
+  digests of the outputs (o and lse; dq, from the forward's own lse and
+  delta), and the ``sass`` digests;
 - ``shares3``: float32 at head dim 2048 at B2 L2047 H2 (the
   step-time-llm-d2048-fp32 step's attention) and at 2304 at B2 L2047 H1
   (the step-time-llm-d2304-fp32 step's: twelve blocks of 192-column
@@ -97,7 +111,8 @@ import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-PHASES = ("flash", "gate", "steps", "wide16", "clusters16", "shares3")
+PHASES = ("flash", "gate", "steps", "wide16", "clusters16", "shares3",
+          "exchange")
 SHAPE = (8, 2047, 32, 128)         # B, L, H, D of the SFT step's attention
 # bf16 at head dim 256: the Gemma-2B-width SFT step's attention (B2) and B8
 D256_SHAPES = ((2, 2047, 8, 256), (8, 2047, 8, 256))
@@ -116,14 +131,27 @@ D512_FP32_SHAPES = ((2, 2047, 8, 512), (2, 2047, 8, 384))
 WIDE16_SHAPES = (*((8, 2047, 4, d) for d in (640, 768, 896, 1024)),
                  (8, 2047, 2, 2048))
 # the kernels in clusters of up to sixteen blocks: float32 at head dims
-# 640-1024 (the step-time-llm-d1024-fp32 step's attention, B2 L2047 H4)
-# and 2048 (the step-time-llm-d2048-fp32 step's, H2), bf16 and float16 at
-# 4096 (the step-time-llm-d4096 step's, B8 L2047 H1)
+# 640-1024 (the step-time-llm-d1024-fp32 step's attention, B2 L2047 H4),
+# 1152 (nine blocks, B2 L1000 H2) and 2048 (the step-time-llm-d2048-fp32
+# step's, H2), bf16 at 640 and 1024 (three and four blocks, B8 L2047 H4)
+# and 2048 (eight, H2), bf16 and float16 at 4096 (the step-time-llm-d4096
+# step's, B8 L2047 H1)
 CLUSTERS16_SHAPES = (*(((2, 2047, 4, d), "float32")
                        for d in (640, 768, 896, 1024)),
+                     ((2, 1000, 2, 1152), "float32"),
                      ((2, 2047, 2, 2048), "float32"),
+                     ((8, 2047, 4, 640), "bfloat16"),
+                     ((8, 2047, 4, 1024), "bfloat16"),
+                     ((8, 2047, 2, 2048), "bfloat16"),
                      ((8, 2047, 1, 4096), "bfloat16"),
                      ((8, 2047, 1, 4096), "float16"))
+# the kernels of the reduce-scatter exchange at every cluster size they
+# run: the 16-bit forward at 256 NB (NB 3 to 16) and the float32 dq at
+# 128 NB (NB 5 to 16)
+EXCHANGE_SHAPES = (*(("fwd", (8, 2047, 1, 256 * nb), "bfloat16")
+                     for nb in range(3, 17)),
+                   *(("dq", (2, 2047, 1, 128 * nb), "float32")
+                     for nb in range(5, 17)))
 # float32 at head dims 2048 (the step-time-llm-d2048-fp32 step's attention,
 # B2 L2047 H2) and 2304 (the step-time-llm-d2304-fp32 step's, H1)
 SHARES3_SHAPES = ((2, 2047, 2, 2048), (2, 2047, 1, 2304))
@@ -238,6 +266,13 @@ def measure(tree, phases, data):
                 else "not taken by this tree's kernels")
             for shape, dtype in CLUSTERS16_SHAPES}
         out["sass"] = sass_digests(fa.build())
+    if "exchange" in phases:
+        from gnn_rag_tpu_torch.llm import flash_attention as fa
+        out["flash_exchange"] = {
+            f"{kind} D{shape[3]} {dtype}": measure_exchange(
+                smoke, device, kind, dtype, shape)
+            for kind, shape, dtype in EXCHANGE_SHAPES}
+        out["sass"] = sass_digests(fa.build())
     if "shares3" in phases:
         from gnn_rag_tpu_torch.llm import flash_attention as fa
         out["flash_shares3"] = {
@@ -316,6 +351,8 @@ def measure_flash(smoke, device, dtype, timing, shape=SHAPE):
             *fa.flash_dkv(q, k, v, g, plse, pdelta))
     errs.update({f"{name}_same_inputs": smoke.attn_err(a, b)[2] for name, a, b
                  in zip(("dq", "dk", "dv"), same, want[2:])})
+    digests = {name: digest(t) for name, t in
+               zip(("o", "lse", "dq", "dk", "dv"), got)}
     del got, want, same, po, plse, pdelta
     torch.cuda.empty_cache()
     calls = {"fwd": lambda: fa.flash_fwd(q, k, v),
@@ -335,7 +372,44 @@ def measure_flash(smoke, device, dtype, timing, shape=SHAPE):
     del q, k, v, g, o, lse, delta, calls
     torch.cuda.empty_cache()
     return dict(shape=f"B{B} L{L} H{H} D{D} {dtype}", kernels=kernels,
-                err_over_tol=errs)
+                err_over_tol=errs, digests=digests)
+
+
+def digest(t):
+    """sha256 of a tensor's bytes (its first 16 hex digits)."""
+    import hashlib
+
+    import torch
+    return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu()
+                          .numpy().tobytes()).hexdigest()[:16]
+
+
+def measure_exchange(smoke, device, kind, dtype, shape):
+    """One kernel (``fwd`` or ``dq``) in ``dtype`` at ``shape`` (B, L, H,
+    D): its outputs' digests and its CUDA-event times, 10 runs of 5
+    launches."""
+    import torch
+    from gnn_rag_tpu_torch.llm import flash_attention as fa
+    B, L, H, D = shape
+    gen = torch.Generator(device=device).manual_seed(smoke.SEED + 2)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=device)
+                  .to(getattr(torch, dtype)) for _ in range(4))
+    o, lse = fa.flash_fwd(q, k, v)
+    delta = fa.bwd_delta(o, g)
+    if kind == "fwd":
+        fn, outs = (lambda: fa.flash_fwd(q, k, v)), {"o": o, "lse": lse}
+    else:
+        fn = lambda: fa.flash_dq(q, k, v, g, lse, delta)   # noqa: E731
+        outs = {"dq": fn()}
+    runs = []
+    ms = smoke.median_ms(fn, runs=10, reps=5, warmup=2, out=runs)
+    bound = smoke.attn_bounds(B, L, H, D, dtype)[kind][0]
+    row = dict(shape=f"B{B} L{L} H{H} D{D} {dtype}", ms=ms, ms_runs=runs,
+               bound_ms=bound, bound_share=bound / ms,
+               digests={name: digest(t) for name, t in outs.items()})
+    del q, k, v, g, o, lse, delta, outs
+    torch.cuda.empty_cache()
+    return row
 
 
 def measure_gate(smoke, device):
@@ -487,6 +561,8 @@ def main(argv=None):
     ap.add_argument("trees", nargs=2, help="two repository roots")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated phases of " + ", ".join(PHASES))
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="A B B A rounds (default 1)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not phases or set(phases) - set(PHASES):
@@ -496,7 +572,7 @@ def main(argv=None):
         if "steps" in phases:
             smoke = _load("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
             smoke.refbench(data, n_train=64, n_dev=16, n_test=16)
-        for tree in args.trees + args.trees[::-1]:
+        for tree in (args.trees + args.trees[::-1]) * args.rounds:
             subprocess.run([sys.executable, "-c", _CHILD,
                             os.path.abspath(__file__), tree,
                             ",".join(phases), data], cwd=REPO, check=True)
