@@ -4731,7 +4731,9 @@ def build_all():
                          "13__nv_bfloat16Li256E"),
                         ("flash_fwd_cluster_kernel", "float16, 256",
                          "6__halfLi256E"),
-                        ("flash_dq_split3_kernel", "0", "Li0E"))}
+                        ("flash_fwd_split3_kernel", "0", "Li0E"),
+                        ("flash_dq_split3_kernel", "0", "Li0E"),
+                        ("flash_dkv_split3_kernel", "0", "Li0E"))}
                 log("build", f"reduce-scatter exchange kernels (ptxas "
                     f"registers, spill and stack bytes): {json.dumps(rs)}")
                 # Hopper's non-portable cluster sizes, 9 to 16 blocks: each

@@ -96,15 +96,18 @@
 //   blocks) the sum runs rank by rank in a loop that is not unrolled, one
 //   rank's loads in flight at a time (unrolled, seven peers' would be in
 //   flight at 1024, and spill); the mbarriers count (NB - 1) x 128
-//   arrivals, 1,920 at 16 blocks. dq <SPLIT3_ANY> instead adds them as a
-//   reduce-scatter (reduce_scatter_partials): each block sums one slice of
-//   the groups from all NB slots in the same rank order, in place, and
-//   every block reads each group back from its owner, so the sums keep
-//   their bits and the remote reads fall from (NB - 1) x 16 KB to 2 (NB -
-//   1) / NB x 16 KB an exchange. Shared memory, the same at every head dim
-//   past 128: the forward's 197,664 bytes + two exchanges (16 KB each,
-//   one a consumer) = 230,464; dq 197,664 + 16,400 = 214,064; dk/dv
-//   198,176 + 16,400 = 214,576. The exchange costs per tile: forward 16 KB
+//   arrivals, 1,920 at 16 blocks. <SPLIT3_ANY> (640 to 2048: the forward,
+//   dq and dk/dv) instead adds them as a reduce-scatter
+//   (reduce_scatter_partials): each block sums one slice of the groups
+//   from all NB slots in the same rank order, in place, and every block
+//   reads each group back from its owner, so the sums keep their bits and
+//   the remote reads fall from (NB - 1) x 16 KB to 2 (NB - 1) / NB x 16 KB
+//   an exchange; <384> and <512> keep the all-gather. Shared memory, the
+//   same at every head dim past 128: the forward's 197,664 bytes + two
+//   exchanges (16 KB each, one a consumer) = 230,464; dq 197,664 + 16,400
+//   = 214,064; dk/dv 198,176 + 16,400 = 214,576; at <SPLIT3_ANY> each
+//   exchange is an ExchangeRS, 16 bytes more (230,496, 214,080 and
+//   214,592). The exchange costs per tile: forward 16 KB
 //   out of a block a consumer (64 x 64 floats) and (NB - 1) x 16 KB in, dq
 //   and dk/dv the same for two 64 x 32 tiles, against a block's 25.2 MFLOP
 //   (forward), 9.4 (dq) and 12.6 (dk/dv) of six-pass products a tile. A
@@ -294,14 +297,15 @@
 // two are within noise);
 // flash_fwd_split3_kernel 168 at launch (consumers 200, converter 104) at
 // every head dim, flash_dkv_split3_kernel 222 (<128>), 244 (<256>), 254
-// (<384>), 255 (<512>) and 224 (<SPLIT3_ANY>, 640 to 2048),
+// (<384>), 255 (<512>) and 252 (<SPLIT3_ANY>, 640 to 2048: the
+// reduce-scatter with eight ranks' loads in flight),
 // flash_dq_split3_kernel 137, 142, 212 and 238 (the rank-order sum's loads
-// of the peers' partials in flight together) and 168 at <SPLIT3_ANY> (the
-// sum rank by rank); the 16-bit pair and cluster kernels (384 to
-// 4096, both types) 168 at launch, consumers 240 (forward, dq) and 232
-// (dk/dv); no spills, no stack frames (at 256 columns with three or more
-// blocks only because their sum runs rank by rank: unrolled over the peers
-// it spilled 8-156 bytes).
+// of the peers' partials in flight together) and 174 at <SPLIT3_ANY> (the
+// reduce-scatter, eight ranks' loads in flight); the 16-bit pair and
+// cluster kernels (384 to 4096, both types) 168 at launch, consumers 240
+// (forward, dq) and 232 (dk/dv); no spills, no stack frames (at 256
+// columns with three or more blocks only because their sum runs rank by
+// rank: unrolled over the peers it spilled 8-156 bytes).
 //
 // At head dims 512 and 384 the pairs take 1.29 / 2.31 / 4.56 ms and 1.20 /
 // 2.12 / 4.07 ms in bf16 at B8 L2047 H8 (float16 within 5%; chip_smoke.py
@@ -352,7 +356,13 @@
 // instances <640>..<1024> it replaced (flash_bench --phases clusters16 in
 // turns on an H100 at 700 W), and at 2048 (B2 L2047 H2, sixteen blocks)
 // takes 7.12 / 15.40 / 15.87 ms, twice D 1024 at H4, 6 / 4 / 5% of the
-// six-pass bounds.
+// six-pass bounds. With the exchange a reduce-scatter (each block sums one
+// slice, below) they take 1.49-1.59 / 3.34-3.46 / 3.57-3.67 ms at D 1024
+// (H4) and 1.84-1.91 / 3.95-4.02 / 4.18-4.35 ms at 2048 (H2): 26-28 / 18-19
+// / 23% and 22-23 / 16 / 19-20% of the six-pass bounds, under SDPA's
+// forward (2.28, 3.21 ms) and the shares of its backward that dq (3/7) and
+// dk/dv (4/7) stand for (flash_bench --phases exchange,clusters16 --rounds
+// 3, A B B A three times, on an H100 at 700 W).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -1517,8 +1527,11 @@ __device__ __forceinline__ void drain_exchange(Xc* xc, int n) {
 }
 
 // ----- the reduce-scatter exchange: the 16-bit cluster forward (640 to
-// 4096, three to sixteen blocks) and the float32 dq <SPLIT3_ANY> (640 to
-// 2048, five to sixteen)
+// 4096, three to sixteen blocks) and the float32 forward, dq and dk/dv
+// <SPLIT3_ANY> (640 to 2048, five to sixteen). The all-gather
+// (add_cluster_partials_n and its variants) stays in the 16-bit cluster dq
+// and dk/dv, the float32 shares3 kernels and, unrolled
+// (add_cluster_partials), the float32 <384> and <512>.
 // add_cluster_partials_n has every block read every peer's whole slot and
 // add all NB: (NB - 1) x 16 KB of remote reads a warpgroup an exchange
 // (240 KB at sixteen blocks) and 2 (NB - 1) x 128 remote arrivals, every
@@ -1542,8 +1555,9 @@ __device__ __forceinline__ void drain_exchange(Xc* xc, int n) {
 // which then arrives on block r's barrier with release at cluster scope
 // (cumulative: it covers what the lane has observed), and each barrier
 // counts the NB x 4 warps of the cluster. Measured against
-// add_cluster_partials_n, it is faster at every cluster size the two
-// kernels run, three blocks included, so neither keeps the all-gather.
+// add_cluster_partials_n, it is faster at every cluster size the four
+// kernels run (the 16-bit forward from three blocks, the float32 ones from
+// five), so none keeps the all-gather.
 struct ExchangeRS : Exchange {
   uint64_t sum_full;   // every block's slice holds its sums
 };
@@ -1680,12 +1694,17 @@ struct Fwd3Bars {
 };
 constexpr size_t kFwd3Smem = 1024 + TERMS * TILE_BYTES +
                              2 * TERMS * QTILE_BYTES + sizeof(Fwd3Bars);
-// + an exchange a consumer at head dims 256 to 2048 (230,464 bytes)
+// + an exchange a consumer at head dims 256 to 2048 (230,464 bytes; at
+// <SPLIT3_ANY> two ExchangeRS, 230,496)
 template <int HD>
 constexpr size_t fwd3_smem() {
-  return kFwd3Smem + (HD == D ? 0 : 2 * sizeof(Exchange));
+  return kFwd3Smem + (HD == D            ? 0
+                      : HD == SPLIT3_ANY ? 2 * sizeof(ExchangeRS)
+                                         : 2 * sizeof(Exchange));
 }
 static_assert(fwd3_smem<4 * D>() <= MAX_SMEM, "float32 forward at HD 512");
+static_assert(fwd3_smem<SPLIT3_ANY>() <= MAX_SMEM,
+              "float32 forward at HD 640 to 2048");
 
 // float32 forward, grid (ceil(L / F3_ROWS), B*H), 384 threads. Warpgroup 0
 // converts: it streams 64-key K and V tiles, K_0, V_0, K_1, ..., each into
@@ -1702,9 +1721,10 @@ static_assert(fwd3_smem<4 * D>() <= MAX_SMEM, "float32 forward at HD 512");
 // At HD 256 to 2048 the grid is NB = HD / 128 times as wide, clusters
 // of NB blocks on the same rows, each on its 128 columns; a live tile's s is
 // the sum of the blocks' partials (add_peer_partials at 256,
-// add_cluster_partials in rank order from 384). <SPLIT3_ANY> (640 to 2048)
-// reads NB from the cluster and addresses the head's 128 NB floats a row
-// as offset<1> of a head dim of one (head h at h HD, a row H HD).
+// add_cluster_partials in rank order at 384 and 512, reduce_scatter_partials
+// in the same order from 640). <SPLIT3_ANY> (640 to 2048) reads NB from the
+// cluster and addresses the head's 128 NB floats a row as offset<1> of a
+// head dim of one (head h at h HD, a row H HD).
 template <int HD>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
     flash_fwd_split3_kernel(const float* __restrict__ q,
@@ -1720,7 +1740,8 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
   unsigned char* const Ks = Qs + TERMS * TILE_BYTES;         // [term]
   unsigned char* const Vs = Ks + TERMS * QTILE_BYTES;        // [term]
   auto* bars = reinterpret_cast<Fwd3Bars*>(Vs + TERMS * QTILE_BYTES);
-  auto* xch = reinterpret_cast<Exchange*>(bars + 1);   // [consumer], NB > 1
+  using Xc = std::conditional_t<HD == SPLIT3_ANY, ExchangeRS, Exchange>;
+  auto* xch = reinterpret_cast<Xc*>(bars + 1);         // [consumer], NB > 1
   const uint32_t rank = kCluster ? sm90::cluster_ctarank() : 0;
   const int nb = split3_blocks<HD>();
   const int col0 = D * rank;                 // this block's columns
@@ -1736,7 +1757,10 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     sm90::mbar_init(&bars->v_full, WG);
     sm90::mbar_init(&bars->k_empty, 2 * WG / 32);     // consumer warps
     sm90::mbar_init(&bars->v_empty, 2 * WG / 32);
-    if constexpr (kCluster) {
+    if constexpr (HD == SPLIT3_ANY) {
+      init_exchange_rs(&xch[0], nb);
+      init_exchange_rs(&xch[1], nb);
+    } else if constexpr (kCluster) {
       init_exchange(&xch[0], nb - 1);
       init_exchange(&xch[1], nb - 1);
     }
@@ -1806,13 +1830,16 @@ __global__ void __launch_bounds__(SM90_THREADS, 1)
     }
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&bars->k_empty);
-    // live tiles are the first my_tiles, so j counts the exchanges
+    // live tiles are the first my_tiles, so j counts the exchanges; a tile
+    // is live for this consumer in every block of the cluster or in none
     if constexpr (kPair) {
       if (live) add_peer_partials(&xch[cw], rank ^ 1, tid, j, s);
     } else if constexpr (HD == SPLIT3_ANY) {
+      // one rank's loads in flight in the reduce: with two, four or eight
+      // the consumers spilled 32, 140 or 268 bytes
       if (live)
-        add_cluster_partials_n(&xch[cw], sm90::cluster_nctarank(), rank, tid,
-                               j, s);
+        reduce_scatter_partials<1>(&xch[cw], sm90::cluster_nctarank(), rank,
+                                   tid, j, s);
     } else if constexpr (NB > 2) {
       if (live) add_cluster_partials<NB>(&xch[cw], rank, tid, j, s);
     }
@@ -1910,12 +1937,17 @@ struct Dkv3Stats {               // a streamed tile's lse and delta
 constexpr size_t kDkv3Smem = 1024 + 2 * TERMS * QTILE_BYTES +
                              2 * D3_STAGES * TERMS * D3_TILE +
                              sizeof(Dkv3Stats) + sizeof(Ring3Bars);
-// + the consumer's exchange at head dims 256 to 2048 (214,576 bytes)
+// + the consumer's exchange at head dims 256 to 2048 (214,576 bytes; at
+// <SPLIT3_ANY> an ExchangeRS, 214,592)
 template <int HD>
 constexpr size_t dkv3_smem() {
-  return kDkv3Smem + (HD == D ? 0 : sizeof(Exchange));
+  return kDkv3Smem + (HD == D            ? 0
+                      : HD == SPLIT3_ANY ? sizeof(ExchangeRS)
+                                         : sizeof(Exchange));
 }
 static_assert(dkv3_smem<4 * D>() <= MAX_SMEM, "float32 dk/dv at HD 512");
+static_assert(dkv3_smem<SPLIT3_ANY>() <= MAX_SMEM,
+              "float32 dk/dv at HD 640 to 2048");
 
 // float32 dk and dv, grid (ceil(S / D3_KEYS), B*H), 256 threads: the K and
 // V terms of 64 keys stay resident (96 KB), so a block has one consumer
@@ -1929,7 +1961,7 @@ static_assert(dkv3_smem<4 * D>() <= MAX_SMEM, "float32 dk/dv at HD 512");
 // 198 KB of shared memory, up to 255 registers a thread. At HD 256 to
 // 2048, clusters of NB = HD / 128 blocks on the same keys, each on its 128
 // columns, s^T and dp^T the sums of the blocks' partials (<SPLIT3_ANY>
-// from 640, as the forward).
+// from 640, as the forward: a reduce-scatter).
 template <int HD>
 __global__ void __launch_bounds__(D3_THREADS, 1)
     flash_dkv_split3_kernel(const float* __restrict__ q,
@@ -1950,7 +1982,8 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
   unsigned char* const Gs = Qs + D3_STAGES * TERMS * D3_TILE; // dO
   auto* stats = reinterpret_cast<Dkv3Stats*>(Gs + D3_STAGES * TERMS * D3_TILE);
   auto* bars = reinterpret_cast<Ring3Bars*>(stats + 1);
-  auto* xch = reinterpret_cast<Exchange*>(bars + 1);         // NB > 1
+  using Xc = std::conditional_t<HD == SPLIT3_ANY, ExchangeRS, Exchange>;
+  auto* xch = reinterpret_cast<Xc*>(bars + 1);               // NB > 1
   const uint32_t rank = kCluster ? sm90::cluster_ctarank() : 0;
   const int nb = split3_blocks<HD>();
   const int col0 = D * rank;                 // this block's columns
@@ -1965,7 +1998,10 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
       sm90::mbar_init(&bars->full[st], WG);           // converter threads
       sm90::mbar_init(&bars->empty[st], WG / 32);     // consumer warps
     }
-    if constexpr (kCluster) init_exchange(xch, nb - 1);
+    if constexpr (HD == SPLIT3_ANY)
+      init_exchange_rs(xch, nb);
+    else if constexpr (kCluster)
+      init_exchange(xch, nb - 1);
     sm90::fence_barrier_init();
   }
   __syncthreads();
@@ -2039,9 +2075,9 @@ __global__ void __launch_bounds__(D3_THREADS, 1)
     sm90::fence_regs(dp);
     if constexpr (kPair)
       add_peer_partials(xch, rank ^ 1, tid, j, s, dp);
-    else if constexpr (HD == SPLIT3_ANY)
-      add_cluster_partials_n(xch, sm90::cluster_nctarank(), rank, tid, j, s,
-                             dp);
+    else if constexpr (HD == SPLIT3_ANY)   // 252 registers, no spill
+      reduce_scatter_partials<8>(xch, sm90::cluster_nctarank(), rank, tid, j,
+                                 s, dp);
     else if constexpr (NB > 2)
       add_cluster_partials<NB>(xch, rank, tid, j, s, dp);
 

@@ -98,8 +98,11 @@ def split3_shares(D):
     return [64 * (boxes // nb + (r < boxes % nb)) for r in range(nb)]
 
 
-# The exchange of the 16-bit cluster forward and the float32 dq from head
-# dim 640 (``reduce_scatter_partials`` in ``csrc/flash_attention.cu``): a
+# The exchange of the 16-bit cluster forward and the float32 forward, dq
+# and dk/dv from head dim 640 (``reduce_scatter_partials`` in
+# ``csrc/flash_attention.cu``; the 16-bit dq and dk/dv, the float32
+# 192-column shares and the float32 head dims 384 and 512 keep the
+# all-gather): a
 # warpgroup's 32 floats a thread as float4 groups, float4 i of thread t
 # group 128 i + t, cut into one contiguous slice a block of the cluster;
 # each block adds its slice's groups from every block's partial in rank

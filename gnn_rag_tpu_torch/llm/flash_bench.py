@@ -1,5 +1,5 @@
 """Time the flash kernels, the gate-scatter kernels and the ReaRev train
-step of two trees of this repository in turns.
+step of two (or more) trees of this repository in turns.
 
     python -m gnn_rag_tpu_torch.llm.flash_bench build/parent .
     python -m gnn_rag_tpu_torch.llm.flash_bench --phases gate build/other .
@@ -7,9 +7,10 @@ step of two trees of this repository in turns.
         --rounds 3 build/parent .
 
 Each tree runs in a child process of its own (its own build of ``csrc/``
-and its own modules), in the order given and then reversed (A B B A), on
-one card, ``--rounds`` times (default once). Each child prints one JSON
-line: the tree, the card, and per phase of ``--phases`` (default all):
+and its own modules), in the order given and then reversed (A B B A; A B
+C C B A for three), on one card, ``--rounds`` times (default once). Each
+child prints one JSON line: the tree, the card, and per phase of
+``--phases`` (default all):
 
 - ``flash``: at the SFT step's shape B8 L2047 H32 D128, in bf16, in
   float32 and (in a tree whose kernels take it) in float16, per kernel
@@ -69,14 +70,18 @@ line: the tree, the card, and per phase of ``--phases`` (default all):
   bf16 and float16 at 4096 at B8 L2047 H1 (the step-time-llm-d4096 step's:
   sixteen), timed as the float32 rows, in a tree whose kernels take them,
   with the outputs' digests, and the ``sass`` digests;
-- ``exchange``: the two kernels whose cluster exchange is a reduce-scatter,
+- ``exchange``: the kernels whose cluster exchange is a reduce-scatter,
   at every cluster size they run: the bf16 forward at head dim 256 NB,
   three to sixteen blocks, at B8 L2047 H1 (the step-time-llm-d4096 step's
-  rows), and the float32 dq at 128 NB, five to sixteen blocks, at B2 L2047
-  H1: the CUDA-event median ms (10 runs of 5 launches; ``ms_runs``, each
-  run's ms a launch, for the spread), the bound and its share, and the
-  digests of the outputs (o and lse; dq, from the forward's own lse and
-  delta), and the ``sass`` digests;
+  rows), and the float32 forward, dq and dk/dv at 128 NB, five to sixteen
+  blocks, at B2 L2047 H1: the CUDA-event median ms (10 runs of 5 launches;
+  ``ms_runs``, each run's ms a launch, for the spread), the bound and its
+  share, PyTorch's causal SDPA on the same inputs (``sdpa_ms``: its
+  forward, or its backward, which computes dq, dk and dv together, and
+  ``sdpa_yardstick_ms``, the kernel's share of it by the products each
+  needs: all of the forward, 3/7 of the backward for dq, 4/7 for dk/dv),
+  and the digests of the outputs (o and lse; dq, and dk and dv, from the
+  forward's own lse and delta), and the ``sass`` digests;
 - ``shares3``: float32 at head dim 2048 at B2 L2047 H2 (the
   step-time-llm-d2048-fp32 step's attention) and at 2304 at B2 L2047 H1
   (the step-time-llm-d2304-fp32 step's: twelve blocks of 192-column
@@ -146,11 +151,12 @@ CLUSTERS16_SHAPES = (*(((2, 2047, 4, d), "float32")
                      ((8, 2047, 1, 4096), "bfloat16"),
                      ((8, 2047, 1, 4096), "float16"))
 # the kernels of the reduce-scatter exchange at every cluster size they
-# run: the 16-bit forward at 256 NB (NB 3 to 16) and the float32 dq at
-# 128 NB (NB 5 to 16)
+# run: the 16-bit forward at 256 NB (NB 3 to 16) and the float32 forward,
+# dq and dk/dv at 128 NB (NB 5 to 16)
 EXCHANGE_SHAPES = (*(("fwd", (8, 2047, 1, 256 * nb), "bfloat16")
                      for nb in range(3, 17)),
-                   *(("dq", (2, 2047, 1, 128 * nb), "float32")
+                   *((kind, (2, 2047, 1, 128 * nb), "float32")
+                     for kind in ("dq", "fwd", "dkv")
                      for nb in range(5, 17)))
 # float32 at head dims 2048 (the step-time-llm-d2048-fp32 step's attention,
 # B2 L2047 H2) and 2304 (the step-time-llm-d2304-fp32 step's, H1)
@@ -385,10 +391,12 @@ def digest(t):
 
 
 def measure_exchange(smoke, device, kind, dtype, shape):
-    """One kernel (``fwd`` or ``dq``) in ``dtype`` at ``shape`` (B, L, H,
-    D): its outputs' digests and its CUDA-event times, 10 runs of 5
-    launches."""
+    """One kernel (``fwd``, ``dq`` or ``dkv``) in ``dtype`` at ``shape``
+    (B, L, H, D): its outputs' digests (the backward's from the forward's
+    own lse and delta), its CUDA-event times, 10 runs of 5 launches, and
+    SDPA's on the same inputs."""
     import torch
+    import torch.nn.functional as F
     from gnn_rag_tpu_torch.llm import flash_attention as fa
     B, L, H, D = shape
     gen = torch.Generator(device=device).manual_seed(smoke.SEED + 2)
@@ -398,16 +406,34 @@ def measure_exchange(smoke, device, kind, dtype, shape):
     delta = fa.bwd_delta(o, g)
     if kind == "fwd":
         fn, outs = (lambda: fa.flash_fwd(q, k, v)), {"o": o, "lse": lse}
-    else:
+    elif kind == "dq":
         fn = lambda: fa.flash_dq(q, k, v, g, lse, delta)   # noqa: E731
         outs = {"dq": fn()}
+    else:
+        fn = lambda: fa.flash_dkv(q, k, v, g, lse, delta)  # noqa: E731
+        outs = dict(zip(("dk", "dv"), fn()))
     runs = []
     ms = smoke.median_ms(fn, runs=10, reps=5, warmup=2, out=runs)
     bound = smoke.attn_bounds(B, L, H, D, dtype)[kind][0]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    if kind == "fwd":
+        with torch.no_grad():
+            sdpa = smoke.median_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), runs=10, reps=5, warmup=2)
+    else:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        gt = g.transpose(1, 2)
+        sdpa = smoke.median_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), gt, retain_graph=True), runs=10, reps=5,
+            warmup=2)
+    share = {"fwd": 1.0, "dq": 3 / 7, "dkv": 4 / 7}[kind]
     row = dict(shape=f"B{B} L{L} H{H} D{D} {dtype}", ms=ms, ms_runs=runs,
                bound_ms=bound, bound_share=bound / ms,
+               sdpa_backend=smoke.sdpa_backend(qt, kt, vt), sdpa_ms=sdpa,
+               sdpa_yardstick_ms=share * sdpa,
                digests={name: digest(t) for name, t in outs.items()})
-    del q, k, v, g, o, lse, delta, outs
+    del q, k, v, g, o, lse, delta, outs, qt, kt, vt
     torch.cuda.empty_cache()
     return row
 
@@ -558,13 +584,16 @@ def _flat(x):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("trees", nargs=2, help="two repository roots")
+    ap.add_argument("trees", nargs="+",
+                    help="two or more repository roots")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated phases of " + ", ".join(PHASES))
     ap.add_argument("--rounds", type=int, default=1,
                     help="A B B A rounds (default 1)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
+    if len(args.trees) < 2:
+        ap.error("give two or more trees")
     if not phases or set(phases) - set(PHASES):
         ap.error(f"--phases: {args.phases!r} (choose from {PHASES})")
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)

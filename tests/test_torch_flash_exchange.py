@@ -1,12 +1,12 @@
 """The reduce-scatter exchange of the flash cluster kernels, emulated on
 the CPU.
 
-The 16-bit cluster forward (head dims 640-4096, three to sixteen blocks)
-and the float32 dq at ``<SPLIT3_ANY>`` (640-2048, five to sixteen) add the
-blocks' float partial scores as a reduce-scatter
-(``reduce_scatter_partials`` in csrc/flash_attention.cu): a warpgroup's 32
-floats a thread are 1,024 float4 groups (float4 i of thread t is group
-128 i + t), cut into one contiguous slice a block
+Four kernels add the blocks' float partial scores as a reduce-scatter
+(``reduce_scatter_partials`` in csrc/flash_attention.cu): the 16-bit
+cluster forward (head dims 640-4096, three to sixteen blocks) and the
+float32 forward, dq and dk/dv at ``<SPLIT3_ANY>`` (640-2048, five to
+sixteen). A warpgroup's 32 floats a thread are 1,024 float4 groups (float4
+i of thread t is group 128 i + t), cut into one contiguous slice a block
 (``flash_attention.exchange_slices``, the kernel's ``xchg_slice0``); each
 block adds its slice's groups from every block's slot in rank order,
 ((p0 + p1) + p2) + .., and writes the sums in place into its own slot;
@@ -23,7 +23,12 @@ float32 partials from a numpy seed:
   order (``add_cluster_partials_n``, the exchange it replaces), with the
   blocks' in-place writes emulated one block after another;
 * a reduce-scatter that added another order (each block its own partial
-  first) would not: the comparison sees the order.
+  first) would not: the comparison sees the order;
+* dq and dk/dv exchange two parts in one round, a thread's 16 floats of s
+  in its groups 0-3 and 16 of dp in groups 4-7 (``keep_partial`` on each
+  part in turn): each part comes back, bit for bit, as the rank-order sum
+  of that part alone, at every cluster size they run (5 to 16), and not
+  from the other part's groups.
 """
 
 import numpy as np
@@ -34,6 +39,7 @@ from gnn_rag_tpu_torch.llm import flash_attention as fa
 WG = 128                      # threads of a warpgroup
 N4 = fa.EXCHANGE_GROUPS // WG  # float4 groups a thread (32 floats)
 SIZES = range(3, 17)          # the cluster sizes of the cover check
+SPLIT3_SIZES = range(5, 17)   # the float32 <SPLIT3_ANY> clusters
 
 
 def partials(nb, seed):
@@ -114,3 +120,26 @@ def test_reduce_scatter_sums_bit_for_bit(nb):
     other = reduce_scatter(x, own_first=True)
     assert not np.array_equal(other[0].view(np.uint32),
                               want.view(np.uint32))
+
+
+@pytest.mark.parametrize("nb", SPLIT3_SIZES)
+def test_two_part_exchange_gives_each_part_back(nb):
+    """s and dp (16 floats a thread each, dp at another scale) packed as
+    ``keep_partial`` packs them, s then dp, and reduce-scattered in one
+    round: a thread's float4 groups 0-3 read back are the rank-order sum of
+    s alone and 4-7 that of dp alone, bit for bit, in every block; taken
+    the other way round (``take_sums`` with the parts swapped) they are
+    not."""
+    s = partials(nb, 300 + nb)[..., :16]
+    dp = partials(nb, 400 + nb)[..., 16:] * np.float32(2.0 ** 12)
+    got = reduce_scatter(np.concatenate([s, dp], axis=-1))
+    want_s, want_dp = rank_order(s), rank_order(dp)     # [thread, 16]
+    for r in range(nb):
+        assert np.array_equal(got[r, :, :16].view(np.uint32),
+                              want_s.view(np.uint32))
+        assert np.array_equal(got[r, :, 16:].view(np.uint32),
+                              want_dp.view(np.uint32))
+    assert not np.array_equal(got[0, :, 16:].view(np.uint32),
+                              want_s.view(np.uint32))
+    assert not np.array_equal(got[0, :, :16].view(np.uint32),
+                              want_dp.view(np.uint32))
